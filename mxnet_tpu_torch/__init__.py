@@ -6,17 +6,22 @@ idiom inside, and replaces each Pallas TPU kernel with a CUDA kernel
 written by hand for ``sm_90a`` (``csrc/``, built at first use). It imports
 nothing of JAX and nothing of ``mxnet_tpu``.
 
-This slice covers the serving path: ``serve.load(GPTForCausalLM(...))``
-with prefill attention through the flash-attention forward kernel.
-Entry points run on ``cuda:0`` unless given ``device="cpu"``.
+The ported slices are serving (``serve.load(GPTForCausalLM(...))``, prefill
+attention through the flash-attention forward kernel) and training
+(``autograd.record()`` -> ``autograd.backward(loss)`` ->
+``gluon.Trainer.step``, attention gradients through the two
+flash-attention backward kernels). Entry points run on ``cuda:0`` unless
+given ``device="cpu"``.
 """
-from . import config, context, functional, gluon, initializer
+from . import autograd, config, context, functional, gluon, initializer
+from . import lr_scheduler
 from . import numpy_extension as npx
-from . import random, serve
+from . import optimizer, random, serve
 from .base import MXNetError
 from .context import resolve_device
 
 __version__ = "2.0.0a1"
 
-__all__ = ["MXNetError", "config", "context", "functional", "gluon",
-           "initializer", "npx", "random", "resolve_device", "serve"]
+__all__ = ["MXNetError", "autograd", "config", "context", "functional",
+           "gluon", "initializer", "lr_scheduler", "npx", "optimizer",
+           "random", "resolve_device", "serve"]

@@ -1,5 +1,8 @@
-"""Gluon: blocks, layers and the model zoo (serving slice)."""
-from . import model_zoo, nn
+"""Gluon: blocks, parameters, layers, losses, the trainer and the model
+zoo (serving and training slices)."""
+from . import loss, model_zoo, nn
 from .block import HybridBlock
+from .parameter import Parameter
+from .trainer import Trainer
 
-__all__ = ["HybridBlock", "nn", "model_zoo"]
+__all__ = ["HybridBlock", "Parameter", "Trainer", "loss", "nn", "model_zoo"]

@@ -1,39 +1,88 @@
 """``HybridBlock`` as an ``nn.Module``.
 
-Counterpart of ``mxnet_tpu/gluon/block.py`` + ``gluon/parameter.py``.
-Parameters are ``nn.Parameter``s created with their full shape on the
-block's device at construction (the JAX package's deferred shape inference
-is not needed: every layer on the serving path is told its input width).
-``collect_params()`` returns the JAX package's structural names (attribute
-paths, e.g. ``backbone.decoder.layer0.attention.query_proj.weight``), so
-weights carry across by name. ``hybridize()`` is not part of this slice.
+Counterpart of ``mxnet_tpu/gluon/block.py``. Each parameter is a
+:class:`~.parameter.Parameter` whose tensor (an ``nn.Parameter``) is
+registered on its block and created with its full shape on the block's
+device at construction (the JAX package's deferred shape inference is not
+needed: every layer on the ported paths is told its input width).
+``collect_params()`` returns ``{structural name: Parameter}`` under the
+JAX package's names (attribute paths, e.g.
+``backbone.decoder.layer0.attention.query_proj.weight``), so weights carry
+across by name.
+
+A block called while ``autograd`` is not recording runs under
+``torch.no_grad()`` (``__call__``): as in the reference, only computation
+under ``autograd.record()`` can be differentiated. A method that is not
+``forward`` and reads a parameter itself, rather than through a sub-block's
+call (the tied LM head's KV-cache entry points), takes the same gate through
+:func:`recording_gate`. ``hybridize()`` is not part of this slice.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 
+from .. import autograd as _autograd
 from .. import initializer as _init
 from .. import random as _random
 from ..base import MXNetError
 
-__all__ = ["HybridBlock"]
+__all__ = ["HybridBlock", "recording_gate"]
+
+
+def recording_gate(fn):
+    """Run ``fn`` under ``torch.no_grad()`` unless ``autograd`` is
+    recording: what a block computes outside ``record()`` builds no
+    autograd graph."""
+    @functools.wraps(fn)
+    def gated(*args, **kwargs):
+        if not torch.is_grad_enabled() or _autograd.is_recording():
+            return fn(*args, **kwargs)
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+    return gated
 
 
 class HybridBlock(nn.Module):
     """Base block: a ``torch.nn.Module`` with the Gluon parameter surface.
 
-    Blocks start in inference mode (``training`` False), as Gluon blocks
-    run outside ``autograd.record(train_mode=True)``; dropout is live only
-    after ``train()``."""
+    Dropout follows ``autograd.is_training()`` (set by ``record()`` and
+    ``train_mode()``), not ``nn.Module.training``."""
 
     def __init__(self):
         super().__init__()
         self.training = False
 
+    def __call__(self, *args, **kwargs):
+        # recording_gate, written out: this runs for every nested block
+        if torch.is_grad_enabled() and not _autograd.is_recording():
+            with torch.no_grad():
+                return super().__call__(*args, **kwargs)
+        return super().__call__(*args, **kwargs)
+
     def collect_params(self):
-        """dict structural-name -> ``nn.Parameter`` (tied parameters once)."""
-        return dict(self.named_parameters())
+        """dict structural-name -> :class:`Parameter` (tied parameters
+        once)."""
+        out = {}
+        for name, var in self.named_parameters():
+            param = var._mx_param
+            param.name = name
+            out[name] = param
+        return out
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` (e.g. ``grad_req``, ``lr_mult``) on every
+        parameter."""
+        for p in self.collect_params().values():
+            setattr(p, name, value)
+
+    def zero_grad(self):
+        """Zero every parameter's gradient buffer in place (the reference's
+        ``Block.zero_grad``)."""
+        for p in self.collect_params().values():
+            p.zero_grad()
 
     @property
     def device(self):
@@ -43,8 +92,7 @@ class HybridBlock(nn.Module):
 
     @property
     def initialized(self):
-        return all(getattr(p, "_mx_initialized", False)
-                   for p in self.parameters())
+        return all(p.initialized for p in self.collect_params().values())
 
     @torch.no_grad()
     def initialize(self, init=None, seed=0, force_reinit=False):
@@ -55,11 +103,11 @@ class HybridBlock(nn.Module):
         init = _init.Uniform() if init is None else init
         gens = {}
         for name, p in self.collect_params().items():
-            if getattr(p, "_mx_initialized", False) and not force_reinit:
+            if p.initialized and not force_reinit:
                 continue
             gen = gens.get(p.device)
             if gen is None:
                 gen = gens[p.device] = _random.generator(seed, p.device)
-            init(name, p, gen)
-            p._mx_initialized = True
+            init(name, p.data(), gen)
+            p.initialized = True
         return self

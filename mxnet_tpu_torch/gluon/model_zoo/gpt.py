@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ...context import resolve_device
-from ..block import HybridBlock
+from ..block import HybridBlock, recording_gate
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn.transformer import TransformerEncoder
 
@@ -112,10 +112,14 @@ class GPTForCausalLM(HybridBlock):
     def init_cache(self, max_slots, max_seq=None, dtype=torch.float32):
         return self.backbone.init_cache(max_slots, max_seq, dtype)
 
+    # _head reads the embedding weight directly, not through a block's
+    # call, so these two take the recording gate themselves
+    @recording_gate
     def prefill(self, inputs, caches, slot):
         h, caches = self.backbone.prefill(inputs, caches, slot)
         return self._head(h), caches
 
+    @recording_gate
     def decode_step(self, tokens, caches, positions):
         h, caches = self.backbone.decode_step(tokens, caches, positions)
         return self._head(h[:, 0]), caches

@@ -3,26 +3,30 @@
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Dense`` (weight
 layout (units, in_units)), ``Embedding``, ``LayerNorm`` (parameters
 ``gamma``/``beta``) and ``Dropout``, with the reference's argument names.
-Each creates its parameters on its device at construction, so the input
-width (``in_units`` / ``in_channels``) is required: the reference's
-deferred shape inference is not part of this slice.
+Each creates its parameters (trainable, ``grad_req="write"``) on its
+device at construction, so the input width (``in_units`` /
+``in_channels``) is required: the reference's deferred shape inference is
+not part of this slice. ``Dropout`` is live only while
+``autograd.is_training()``, as in the reference.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from ... import autograd
 from ... import numpy_extension as npx
 from ...base import MXNetError
 from ...context import resolve_device
 from ..block import HybridBlock
+from ..parameter import Parameter
 
 __all__ = ["Dense", "Embedding", "LayerNorm", "Dropout"]
 
 
 def _param(shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    """The tensor of a new trainable :class:`Parameter`, to be assigned to
+    a block attribute (which registers it)."""
+    return Parameter(shape, dtype, device).data()
 
 
 def _width(name, value):
@@ -83,7 +87,8 @@ class LayerNorm(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Inverted dropout while ``self.training``, identity otherwise
+    """Inverted dropout while ``autograd.is_training()`` (inside
+    ``autograd.record()`` or ``train_mode()``), identity otherwise
     (reference: basic_layers.py Dropout). The mask comes from
     ``self.generator``, which a training caller sets; serving never
     trains."""
@@ -94,7 +99,7 @@ class Dropout(HybridBlock):
         self.generator = None
 
     def forward(self, x):
-        if not self.training or not self._rate:
+        if not autograd.is_training() or not self._rate:
             return x
         if self.generator is None:
             raise MXNetError("Dropout in training mode needs an explicit "

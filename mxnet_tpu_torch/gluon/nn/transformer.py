@@ -36,7 +36,8 @@ class MultiHeadAttention(HybridBlock):
         self._heads = num_heads
         self._causal = causal
         self._dropout = dropout
-        #: explicit generator for attention dropout while training
+        #: explicit generator for attention dropout, live while
+        #: ``autograd.is_training()``
         self.generator = None
         proj = dict(use_bias=use_bias, flatten=False, in_units=units,
                     device=device)
@@ -54,7 +55,7 @@ class MultiHeadAttention(HybridBlock):
         v = self.value_proj(value)
         out = multi_head_attention(
             q, k, v, self._heads, mask=mask,
-            dropout_p=self._dropout if self.training else 0.0,
+            dropout_p=self._dropout,
             causal=self._causal, generator=self.generator)
         return self.out_proj(out)
 

@@ -1,0 +1,138 @@
+"""gluon.Trainer (one card).
+
+Counterpart of ``mxnet_tpu/gluon/trainer.py``: ``Trainer(params,
+optimizer, optimizer_params, kvstore=...)`` with ``step``, ``update``,
+``allreduce_grads``, ``learning_rate``/``set_learning_rate`` and
+``save_states``/``load_states``.
+
+``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
+``1 / batch_size`` (times the initial rescale) and updates every parameter
+whose ``grad_req`` is not "null", in place, through one ``Updater``.
+This slice runs on one card: kvstore ``None``, ``"device"`` or ``"local"``
+reduces nothing, and a distributed kvstore, ``update_on_kvstore=True`` or
+gradient compression raise. Telemetry, the non-finite guard and AMP wait
+for later slices.
+"""
+from __future__ import annotations
+
+import os
+
+from .. import optimizer as opt
+from ..base import MXNetError
+from .parameter import Parameter
+
+__all__ = ["Trainer"]
+
+_LOCAL_KVSTORES = (None, "", "device", "local")
+
+
+class Trainer:
+    """Applies an optimizer to a set of parameters (reference: trainer.py
+    ``Trainer``)."""
+
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
+        if isinstance(params, dict):
+            self._param_names = list(params.keys())
+            params = list(params.values())
+        else:
+            params = list(params)
+            self._param_names = [p.name for p in params]
+        if not params:
+            raise MXNetError("no parameters to optimize")
+        for p in params:
+            if not isinstance(p, Parameter):
+                raise MXNetError(f"expected Parameter, got {type(p)}")
+        if not (kvstore is None or isinstance(kvstore, str)) \
+                or kvstore not in _LOCAL_KVSTORES:
+            raise MXNetError(f"kvstore {kvstore!r}: distributed kvstores are "
+                             "not part of this slice of the port (one card: "
+                             "None, 'device' or 'local')")
+        if update_on_kvstore:
+            raise MXNetError("update_on_kvstore=True is not part of this "
+                             "slice of the port")
+        if compression_params:
+            raise MXNetError("gradient compression is not part of this "
+                             "slice of the port")
+        self._params = params
+        self._kvstore = kvstore
+        self._init_optimizer(optimizer, optimizer_params or {})
+        self._scale = self._optimizer.rescale_grad
+
+    def _init_optimizer(self, optimizer, optimizer_params):
+        param_dict = dict(enumerate(self._params))
+        if isinstance(optimizer, opt.Optimizer):
+            if optimizer_params:
+                raise MXNetError("optimizer_params must be None when "
+                                 "optimizer is an Optimizer instance")
+            self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
+        else:
+            self._optimizer = opt.create(optimizer, param_dict=param_dict,
+                                         **optimizer_params)
+        self._updater = opt.get_updater(self._optimizer)
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.learning_rate
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    def _weights(self):
+        return {i: p.data() for i, p in enumerate(self._params)}
+
+    def allreduce_grads(self):
+        """Reduce gradients across devices: nothing to reduce on one
+        card."""
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """Reduce, then update with gradients rescaled by
+        ``1 / batch_size`` (reference: trainer.py ``step``)."""
+        self.allreduce_grads()
+        self.update(batch_size, ignore_stale_grad)
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        """Update without reducing (reference: trainer.py ``update``)."""
+        self._optimizer.rescale_grad = self._scale / batch_size
+        for i, p in enumerate(self._params):
+            if p.grad_req != "null":
+                self._updater(i, p.grad(), p.data())
+
+    def load_states_by_name(self, states, counts):
+        """Start from another trainer's state by parameter name, for
+        example the JAX package's converted to numpy: ``states`` {name:
+        None, array or tuple of arrays}, ``counts`` {name: update count}.
+        Names this trainer does not hold raise."""
+        index = {n: i for i, n in enumerate(self._param_names)}
+        unknown = sorted((set(states) | set(counts)) - set(index))
+        if unknown:
+            raise MXNetError(f"load_states_by_name: unknown parameters "
+                             f"{unknown[:4]}")
+        self._updater.set_state_arrays(
+            {index[n]: s for n, s in states.items()}, self._weights())
+        o = self._optimizer
+        o._index_update_count = {index[n]: int(c) for n, c in counts.items()}
+        o.num_update = max([o.begin_num_update, *counts.values()])
+
+    def save_states(self, fname):
+        """Write the optimizer and its states to ``fname`` (temporary file
+        and rename, so a crash leaves the old file)."""
+        tmp = f"{fname}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer=True))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, fname)
+
+    def load_states(self, fname):
+        """Restore what ``save_states`` wrote."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read(), self._weights())
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))

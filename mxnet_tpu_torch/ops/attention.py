@@ -5,9 +5,11 @@ Counterpart of ``mxnet_tpu/ops/attention.py``: ``_reference_attention``,
 (floating-point cache only).
 
 Routing of :func:`multi_head_attention`: with no mask and no live dropout
-it always goes to :func:`..flash_attention.flash_attention_fwd`, which
-launches the CUDA kernel for a CUDA tensor and takes the kernel's plain
-version for a CPU tensor. The JAX package's TPU thresholds (flash only from
+it always goes to :func:`..flash_attention.attention`, which launches the
+forward CUDA kernel for a CUDA tensor (and the two backward kernels when
+autograd differentiates it) and takes the kernels' plain versions for a
+CPU tensor. Dropout is live only while ``autograd.is_training()``, as in
+the reference. The JAX package's TPU thresholds (flash only from
 seq 512 causal / 2048 otherwise) are not carried over; the H100 threshold
 is still to be measured. A mask or live dropout takes the plain
 composition, as in the reference. A kernel failure raises: the
@@ -21,8 +23,9 @@ from __future__ import annotations
 
 import torch
 
+from .. import autograd
 from ..base import MXNetError
-from .flash_attention import flash_attention_fwd
+from .flash_attention import attention
 
 __all__ = ["multi_head_attention", "write_prefill_kv", "decode_attention"]
 
@@ -67,15 +70,17 @@ def _reference_attention(q, k, v, heads, mask=None, causal=False, scale=None,
 
 def multi_head_attention(query, key, value, heads, mask=None, dropout_p=0.0,
                          causal=False, generator=None):
-    """Fused MHA on (batch, seq, heads*dim) tensors. ``dropout_p`` is the
-    live rate (the caller passes 0 outside training)."""
+    """Fused MHA on (batch, seq, heads*dim) tensors, differentiable in
+    query, key and value. ``dropout_p`` applies only while
+    ``autograd.is_training()`` (reference: ops/attention.py:412-414)."""
+    if not autograd.is_training():
+        dropout_p = 0.0
     if mask is not None or dropout_p:
         return _reference_attention(query, key, value, heads, mask, causal,
                                     None, dropout_p, generator)
     b, sq, hd = query.shape
-    out, _ = flash_attention_fwd(_heads_first(query, heads),
-                                 _heads_first(key, heads),
-                                 _heads_first(value, heads), causal=causal)
+    out = attention(_heads_first(query, heads), _heads_first(key, heads),
+                    _heads_first(value, heads), causal=causal)
     return out.reshape(b, heads, sq, hd // heads).transpose(1, 2) \
         .reshape(b, sq, hd)
 

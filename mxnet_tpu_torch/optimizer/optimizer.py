@@ -1,0 +1,284 @@
+"""Optimizers.
+
+Counterpart of ``mxnet_tpu/optimizer/optimizer.py`` for the training
+slice: the ``Optimizer`` base (rescale_grad, clip_gradient, wd,
+lr_scheduler, per-index update counts, lr_mult / wd_mult), ``SGD`` (with
+momentum), ``Adam`` and ``AdamW``, the registry (``register``/``create``)
+and ``Updater``/``get_updater``.
+
+The update rules are the reference's arithmetic (not ``torch.optim``'s):
+
+- ``Adam`` adds ``wd * w`` into the gradient and applies
+  ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` to ``m / (sqrt(v) + eps)``
+  (eps not bias-corrected);
+- ``AdamW`` decouples the decay: ``w -= lr * (mhat / (sqrt(vhat) + eps)
+  + wd * w)``;
+- ``clip_gradient`` clips elementwise after rescaling;
+- ``t`` is the parameter's own update count.
+
+They run as plain PyTorch in place on the weight and state tensors (the
+reference runs them as one XLA program per step; no Pallas kernel is
+involved). ``multi_precision`` waits for the bf16/AMP slice.
+"""
+from __future__ import annotations
+
+import copy
+import math
+import pickle
+
+import numpy as onp
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Updater", "register",
+           "create", "get_updater"]
+
+_registry: dict[str, type] = {}
+
+
+def register(klass):
+    """Register an optimizer class under its lower-cased name."""
+    _registry[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(name, **kwargs):
+    """An optimizer by registered name (case-insensitive)."""
+    klass = _registry.get(str(name).lower())
+    if klass is None:
+        raise MXNetError(f"unknown optimizer {name!r} (registered: "
+                         f"{sorted(_registry)})")
+    return klass(**kwargs)
+
+
+class Optimizer:
+    """Base optimizer (reference: optimizer.py ``Optimizer``)."""
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=None, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=False, param_dict=None,
+                 **kwargs):
+        if multi_precision:
+            raise MXNetError("multi_precision is not part of this slice of "
+                             "the port (it comes with bf16/AMP)")
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate if learning_rate is not None else 0.01
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None and learning_rate is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
+        self.param_dict = param_dict or {}
+        self.idx2name = param_idx2name or {}
+        self.lr_mult = {}
+        self.wd_mult = {}
+
+    # -- bookkeeping (reference: _update_count / _get_lr / _get_wd) ---------
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _get_lr(self, index):
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+        p = self.param_dict.get(index)
+        if p is not None:
+            lr *= p.lr_mult
+        elif index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        p = self.param_dict.get(index)
+        if p is not None:
+            wd *= p.wd_mult
+        elif index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.base_lr = lr
+        self.lr = lr
+
+    @property
+    def learning_rate(self):
+        return self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = dict(args_wd_mult)
+
+    # -- state ---------------------------------------------------------------
+    def create_state(self, index, weight):
+        return None
+
+    # -- update --------------------------------------------------------------
+    def _prep_grad(self, g):
+        """``g * rescale_grad``, clipped elementwise: a new tensor."""
+        g = g * self.rescale_grad
+        if self.clip_gradient is not None:
+            g.clamp_(-self.clip_gradient, self.clip_gradient)
+        return g
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        """Update ``weight`` (and ``state``) in place from ``grad``."""
+        self._update_count(index)
+        self._update_impl(index, weight, grad, state, self._get_lr(index),
+                          self._get_wd(index))
+
+    def _update_impl(self, index, w, g, state, lr, wd):
+        raise NotImplementedError
+
+    def __getstate__(self):
+        # live Parameters are not serialized (reference: get_states)
+        state = dict(self.__dict__)
+        state["param_dict"] = {}
+        return state
+
+
+def _zeros_like(weight):
+    return torch.zeros_like(weight, memory_format=torch.contiguous_format)
+
+
+@register
+class SGD(Optimizer):
+    """Reference: optimizer/sgd.py (sgd_update / sgd_mom_update):
+    ``g = clip(g * rescale) + wd * w``; ``mom = momentum * mom - lr * g``;
+    ``w += mom`` (``w -= lr * g`` without momentum). State: the momentum
+    buffer."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def _update_impl(self, index, w, g, mom, lr, wd):
+        g = self._prep_grad(g).add_(w, alpha=wd)
+        if mom is None:
+            w.add_(g, alpha=-lr)
+            return
+        mom.mul_(self.momentum).add_(g, alpha=-lr)
+        w.add_(mom)
+
+
+@register
+class Adam(Optimizer):
+    """Reference: optimizer/adam.py (adam_update). State: (mean, var)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _moments(self, g, state):
+        m, v = state
+        m.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
+        v.mul_(self.beta2).addcmul_(g, g, value=1 - self.beta2)
+        return m, v
+
+    def _t(self, index):
+        return float(max(self._index_update_count[index], 1))
+
+    def _update_impl(self, index, w, g, state, lr, wd):
+        g = self._prep_grad(g).add_(w, alpha=wd)
+        m, v = self._moments(g, state)
+        t = self._t(index)
+        lr_t = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
+        w.addcdiv_(m, v.sqrt().add_(self.epsilon), value=-lr_t)
+
+
+@register
+class AdamW(Adam):
+    """Decoupled weight decay (reference: optimizer/adamw.py):
+    ``w -= lr * (mhat / (sqrt(vhat) + eps) + wd * w)``."""
+
+    def _update_impl(self, index, w, g, state, lr, wd):
+        m, v = self._moments(self._prep_grad(g), state)
+        t = self._t(index)
+        denom = (v / (1 - self.beta2 ** t)).sqrt_().add_(self.epsilon)
+        upd = (m / (1 - self.beta1 ** t)).div_(denom).add_(w, alpha=wd)
+        w.add_(upd, alpha=-lr)
+
+
+def _map_state(fn, state):
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return tuple(_map_state(fn, s) for s in state)
+    return fn(state)
+
+
+def _state_tensor(a, weight):
+    """A copy of the state array ``a`` as a tensor, with ``weight``'s dtype
+    and device (a CPU tensor of ``a``'s dtype where ``weight`` is None)."""
+    like = {} if weight is None else dict(dtype=weight.dtype,
+                                          device=weight.device)
+    return torch.tensor(onp.asarray(a), **like)
+
+
+class Updater:
+    """Per-index optimizer states (reference: optimizer/updater.py)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        self.optimizer.update(index, weight, grad, self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The states (numpy) as pickled bytes; with ``dump_optimizer``
+        the optimizer (hyperparameters, update counts) too."""
+        serial = {k: _map_state(lambda a: a.detach().cpu().numpy(), s)
+                  for k, s in self.states.items()}
+        if dump_optimizer:
+            return pickle.dumps((serial, copy.copy(self.optimizer)))
+        return pickle.dumps(serial)
+
+    def set_states(self, states, weights=None):
+        """Restore ``get_states`` bytes (this program's own output: they
+        are unpickled); ``weights`` as in :meth:`set_state_arrays`."""
+        data = pickle.loads(states)
+        if isinstance(data, tuple):
+            data, self.optimizer = data
+        self.set_state_arrays(data, weights)
+
+    def set_state_arrays(self, states, weights=None):
+        """Take ``states`` {index: None, array or tuple of arrays} as
+        tensors, once: each on the device and in the dtype of
+        ``weights[index]`` ({index: weight tensor}), or on the CPU where no
+        weight is given."""
+        weights = weights or {}
+        self.states = {
+            i: _map_state(lambda a, w=weights.get(i): _state_tensor(a, w), s)
+            for i, s in states.items()}
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -48,7 +48,10 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
-            "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.functional; "
+            "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.functional, "
+            "mxnet_tpu_torch.autograd, mxnet_tpu_torch.gluon.trainer, "
+            "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.ops.xent, mxnet_tpu_torch.lr_scheduler; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
