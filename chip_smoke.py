@@ -6,8 +6,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. Build every kernel from ``mxnet_tpu_torch/csrc`` (``nvcc`` for sm_90a,
    one process per source, all started together): the flash-attention
-   forward and the two backward kernels (dK/dV, dQ). Print the build time,
-   each kernel's ptxas registers and spills, the card and CUDA.
+   forward and the two backward kernels (dK/dV, dQ), and the ln_residual
+   forward and backward. Print the build time, each kernel's ptxas
+   registers and spills, the card and CUDA.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 32 and 128 (seq 200,
@@ -16,6 +17,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    output's largest value); the backward with a random cotangent. Then
    the backward once more at the training path's own shape (b*h 96, seq
    1024, d 64, causal, fp32).
+2c. The ln_residual forward and backward kernels against their plain
+   versions, with a random cotangent and an explicit keep mask (in x's
+   dtype, bool or uint8): rows 7 / 600 / 4096 x D 128 / 200 / 768 / 1024,
+   plus D 199 and 1999 (no 16-byte path), 2000 and 8192 (a block per row),
+   p 0 and 0.1, fp32 and bf16, one row of zero variance, and rows offset
+   by 100. Tolerances:
+   fp32 atol = rtol = 1e-5 for out, mean, rstd, dx and dh (fp32 sums in
+   another order than torch's; the plain version is the same arithmetic);
+   dgamma/dbeta atol 1e-5 of their largest |value| (sums over up to 4096
+   rows in another order); the zero-variance row's dx/dh likewise 1e-5 of
+   the largest |value| (its rstd = 1/sqrt(eps) ~ 316 scales the
+   summation-order error of mean(dxhat)); rows offset by 100 (a
+   one-pass E[s^2] - mean^2 would be off by ~1e-3 there) atol 1e-4 for
+   out, dx and dh (the fp32 sum of values ~100 in another order moves the
+   mean by up to ~2e-5); bf16 rtol 2^-7 (one bf16 ulp of
+   the output) plus atol 2^-10 of the largest |value| (a value on a
+   rounding boundary may round the other way).
 3. Serving at full GPT-2 124M width (vocab 50257, 768 units, 12 layers,
    12 heads, max_length 1024, fp32, seeded Uniform(0.07) weights):
    ``serve.load(net, max_slots=8)`` with the default buckets, ``warmup()``,
@@ -49,6 +67,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    PyTorch call as the yardstick (``scaled_dot_product_attention``'s
    forward, and its backward for the dK/dV + dQ pair), beside each
    kernel's bound on an H100 SXM.
+7. BERT-base pretraining at full width (as bench.py's
+   bert_base_pretrain_bs32_seq128_drop0.1: vocab 30522, 768 units, FFN
+   3072, 12 layers, 12 heads, max_length 512, batch 32 x seq 128) at
+   BERT's own dropout 0.1 and embed dropout 0.1, fp32 (bf16/AMP is not
+   ported), seeded Uniform(0.07) weights and ``random.seed(0)``, through
+   ``autograd.record()`` -> MLM + NSP ``SoftmaxCrossEntropyLoss`` ->
+   ``autograd.backward`` -> ``Trainer(..., "adamw", ...)`` on one fixed
+   batch from RandomState(0) (two segments, valid lengths 64..128, 15%
+   MLM positions as ``sample_weight``, NSP labels). One warm-up step (after
+   which every parameter must hold a finite, nonzero gradient), then timed
+   steps with the counters zeroed just before and read just after: the
+   ln_residual forward and backward must launch 12 times per step (the
+   attention residual of each post-norm cell; live dropout and the
+   valid-length mask send attention to the plain composition, so the
+   flash kernels launch 0 times), every loss must be finite and the last
+   below the first (9 timed steps: without warm-up the post-norm model's
+   loss rises on steps 2-3 before it falls). Then, from the same weights and seed, one step each
+   with ``fused_ln_residual`` "off" and "on": their first-step losses must
+   equal the "auto" run's within 1e-5 relative (the masks are the same
+   draws); each mode's first three losses are printed. Each mode's step ms (three steps, four times, in turns) and
+   device ms per step (``torch.profiler``) are printed.
+8. ln_residual kernel times at the BERT shape (4096 x 768, p 0.1, fp32
+   and bf16): device and per-call ms of each kernel, of its plain version
+   and of the unfused composition the "off" route runs
+   (``F.layer_norm(x + h*m*scale)`` and its autograd backward: no single
+   PyTorch call computes this function), beside each kernel's bound.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -78,6 +122,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 4
 TRAIN_BH = TRAIN_BATCH * 12  # the training path's b*h (12 heads)
 SOURCE = "mxnet_tpu_torch/csrc/{}.cu"
 TPU_FLASH = "mxnet_tpu/ops/pallas/flash_attention.py:{}"
+TPU_LN = "mxnet_tpu/ops/pallas/ln_residual.py:{}"
+LN_TOL = dict(atol=1e-5, rtol=1e-5)
+LN_SHARE = 1e-5  # of max |ref|: dgamma/dbeta, the zero-variance row
+LN_OFFSET_TOL = dict(atol=1e-4, rtol=1e-5)  # rows with mean ~100
+BERT_VOCAB, BERT_BATCH, BERT_SEQ, BERT_STEPS = 30522, 32, 128, 9
+BERT_MASK_ID = 103  # [MASK] in BERT's uncased vocabulary
+LN_ROWS, LN_DIM, LN_P = BERT_BATCH * BERT_SEQ, 768, 0.1
 
 
 def fail(msg):
@@ -171,11 +222,17 @@ def bwd_bound_ms(kind, bh, sq, sk, d, causal, dtype):
 
 
 def ptxas_summary(log):
-    """One line per compiled kernel: function, registers, spills."""
+    """One line per compiled kernel: function, registers, spills; for the
+    ln_residual instantiations one line per direction (register range,
+    largest spill)."""
     out, name, spill = [], None, ""
+    ln = {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
+            if "ln_residual" in mangled:
+                name = "ln_fwd" if "fwd" in mangled else "ln_bwd"
+                continue
             kind = next((k for k in ("dkv", "dq", "fwd")
                          if f"flash_{'bwd_' if k != 'fwd' else ''}{k}"
                          in mangled), "?")
@@ -186,9 +243,20 @@ def ptxas_summary(log):
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and name:
-            out.append(f"  {name}: {line.split(':', 1)[1].strip()}; "
-                       f"{spill}")
+            if name.startswith("ln_"):
+                regs = int(re.search(r"Used (\d+) registers", line)[1])
+                spilled = int(re.search(r"(\d+) bytes spill stores",
+                                        spill)[1]) if spill else 0
+                lo, hi, worst, n = ln.get(name, (regs, regs, 0, 0))
+                ln[name] = (min(lo, regs), max(hi, regs),
+                            max(worst, spilled), n + 1)
+            else:
+                out.append(f"  {name}: {line.split(':', 1)[1].strip()}; "
+                           f"{spill}")
             name = None
+    for name, (lo, hi, worst, n) in sorted(ln.items()):
+        out.append(f"  {name}: {n} instantiations, {lo}-{hi} registers, "
+                   f"largest spill {worst} bytes")
     return out
 
 
@@ -196,7 +264,8 @@ def phase_build():
     from mxnet_tpu_torch import _native
     print("== phase 1: build", flush=True)
     t0 = time.perf_counter()
-    libs = _native.build(["flash_attention_fwd", "flash_attention_bwd"])
+    libs = _native.build(["flash_attention_fwd", "flash_attention_bwd",
+                          "ln_residual"])
     dt = time.perf_counter() - t0
     for name, path in libs.items():
         print(f"built {name}: {path.name}")
@@ -324,6 +393,100 @@ def phase_bwd_vs_plain(dev):
                          torch.float32)
     errs["dkv"][torch.float32] = max(errs["dkv"][torch.float32], e_kv)
     errs["dq"][torch.float32] = max(errs["dq"][torch.float32], e_q)
+    return errs
+
+
+def ln_inputs(dev, gen, n, d, p, dtype, mask_dtype=None):
+    """Seeded (x, h, mask, gamma, beta, do) of one ln_residual case; the
+    keep mask in ``mask_dtype`` (x's by default), None at p = 0."""
+    x, h, do = (torch.randn(n, d, device=dev, generator=gen).to(dtype)
+                for _ in range(3))
+    gamma = (torch.rand(d, device=dev, generator=gen) + 0.5).to(dtype)
+    beta = torch.randn(d, device=dev, generator=gen).to(dtype)
+    mask = None
+    if p > 0:
+        keep = torch.rand(n, d, device=dev, generator=gen) >= p
+        mask = keep.to(mask_dtype or dtype)
+    return x, h, mask, gamma, beta, do
+
+
+def ln_case(lr, dev, gen, n, d, p, dtype, mask_dtype=None, flat=False,
+            offset=0.0):
+    """One ln_residual comparison, kernels vs plain versions on the same
+    inputs (the backward from the forward kernel's mean and rstd), with a
+    random cotangent: (max |fwd err|, max |bwd err|). ``flat``: row 0 has
+    zero variance; ``offset`` is added to x (rows far from zero)."""
+    x, h, mask, gamma, beta, do = ln_inputs(dev, gen, n, d, p, dtype,
+                                            mask_dtype)
+    x += offset
+    if flat:
+        x[0], h[0] = 0.75, 0.0
+    out, mean, rstd = lr.ln_residual_fwd(x, h, mask, gamma, beta, p)
+    grads = lr.ln_residual_bwd(x, h, mask, gamma, mean, rstd, do, p)
+    torch.cuda.synchronize()
+    want_fwd = lr.ln_residual_fwd_reference(x, h, mask, gamma, beta, p)
+    want_bwd = lr.ln_residual_bwd_reference(x, h, mask, gamma, mean, rstd,
+                                            do, p)
+    errs = []
+    names = ("out", "mean", "rstd", "dx", "dh", "dgamma", "dbeta")
+    for name, got, want in zip(names, (out, mean, rstd) + tuple(grads),
+                               want_fwd + want_bwd):
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and torch.isfinite(got.float()).all().item(),
+              f"ln_residual {name}: {got.dtype} {tuple(got.shape)} "
+              f"non-finite or unlike the plain version's")
+        top = want.float().abs().max().item()
+        if dtype == torch.bfloat16 and name not in ("mean", "rstd"):
+            tol = dict(rtol=BF16_BWD_RTOL, atol=BF16_BWD_ATOL_SHARE * top)
+        elif name in ("dgamma", "dbeta") or (flat and name in ("dx", "dh")):
+            tol = dict(rtol=LN_TOL["rtol"], atol=LN_SHARE * top)
+        elif offset:
+            tol = LN_OFFSET_TOL
+        else:
+            tol = LN_TOL
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.allclose(got.float(), want.float(), **tol),
+              f"ln_residual {name} kernel disagrees with plain version at "
+              f"n={n} D={d} p={p} {dtype} mask {mask_dtype}: {err:.3e}")
+        errs.append(err)
+    mname = "-" if mask is None else str(mask.dtype)[6:]
+    print(f"  n={n:5d} D={d:5d} p={p:.1f} {str(dtype)[6:]:8s} mask={mname:8s}"
+          f"{' flat row' if flat else ''}"
+          f"{f' offset {offset:g}' if offset else ''} max|err| out {errs[0]:.2e} "
+          f"mean {errs[1]:.2e} rstd {errs[2]:.2e} dx {errs[3]:.2e} "
+          f"dh {errs[4]:.2e} dgamma {errs[5]:.2e} dbeta {errs[6]:.2e} ok")
+    return max(errs[:3]), max(errs[3:])
+
+
+def phase_ln_vs_plain(dev):
+    """The ln_residual forward and backward kernels against their plain
+    versions on the card."""
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    print("== phase 2c: ln_residual kernels vs plain versions", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {k: {torch.float32: 0.0, torch.bfloat16: 0.0}
+            for k in ("fwd", "bwd")}
+    shapes = [(n, d) for n in (7, 600, LN_ROWS) for d in (128, 200, 768,
+                                                         1024)]
+    shapes += [(600, 199), (600, 1999), (600, 2000), (600, 8192)]
+    masks = (None, torch.bool, torch.uint8)  # None: x's dtype
+    i = 0
+    for n, d in shapes:
+        for p in (0.0, LN_P):
+            for dtype in (torch.float32, torch.bfloat16):
+                e_f, e_b = ln_case(lr, dev, gen, n, d, p, dtype,
+                                   masks[i % 3])
+                i += 1
+                errs["fwd"][dtype] = max(errs["fwd"][dtype], e_f)
+                errs["bwd"][dtype] = max(errs["bwd"][dtype], e_b)
+    for dtype in (torch.float32, torch.bfloat16):
+        e_f, e_b = ln_case(lr, dev, gen, 600, 768, LN_P, dtype, flat=True)
+        errs["fwd"][dtype] = max(errs["fwd"][dtype], e_f)
+        errs["bwd"][dtype] = max(errs["bwd"][dtype], e_b)
+    e_f, e_b = ln_case(lr, dev, gen, 600, 768, LN_P, torch.float32,
+                       offset=100.0)
+    errs["fwd"][torch.float32] = max(errs["fwd"][torch.float32], e_f)
+    errs["bwd"][torch.float32] = max(errs["bwd"][torch.float32], e_b)
     return errs
 
 
@@ -634,6 +797,281 @@ def phase_kernel_times(dev, card):
     return rows
 
 
+def ln_counters(lr):
+    return [lr.ln_residual_fwd.launches, lr.ln_residual_bwd.launches]
+
+
+def zero_ln_counters(lr):
+    lr.ln_residual_fwd.launches = 0
+    lr.ln_residual_bwd.launches = 0
+
+
+def bert_batch(dev):
+    """One fixed pretraining batch from RandomState(0): token ids with the
+    MLM positions (15% of the valid ones) replaced by [MASK], two segments
+    per row, valid lengths in 64..128, MLM labels and weights, NSP
+    labels."""
+    rs = onp.random.RandomState(0)
+    b, s = BERT_BATCH, BERT_SEQ
+    ids = rs.randint(1000, BERT_VOCAB, (b, s))
+    valid = rs.randint(64, s + 1, b)
+    pos = onp.arange(s)[None, :]
+    split = rs.randint(8, valid - 8)[:, None]
+    types = ((pos >= split) & (pos < valid[:, None])).astype("int64")
+    weight = ((rs.rand(b, s) < 0.15) & (pos < valid[:, None]))
+    labels = ids.copy()
+    ids = onp.where(weight, BERT_MASK_ID, ids)
+    nsp = rs.randint(0, 2, b)
+    arrays = (ids, types, valid, labels, weight.astype("float32"), nsp)
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def phase_bert(dev, card):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    print(f"== phase 7: BERT-base pretraining (full width, batch "
+          f"{BERT_BATCH} x seq {BERT_SEQ}, dropout 0.1, fp32; bf16/AMP is "
+          f"not ported) on {card}", flush=True)
+    net = BERTForPretraining(
+        vocab_size=BERT_VOCAB, units=768, hidden_size=3072, num_layers=12,
+        num_heads=12, max_length=512, dropout=0.1, embed_dropout=0.1,
+        device=dev).initialize(seed=0)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    start = {n: p.data().detach().clone() for n, p in params.items()}
+    ids, types, valid, labels, weight, nsp = bert_batch(dev)
+    mlm_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nsp_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    print(f"parameters: {n_params} ({len(params)} tensors); adamw lr 1e-4 "
+          f"wd 0.01; valid lengths {int(valid.min())}..{int(valid.max())}, "
+          f"{int(weight.sum())} MLM positions; fused_ln_residual="
+          f"{mx.config.get('fused_ln_residual')}")
+
+    def fresh_start(mode):
+        """Weights back to their start, a new trainer, seed 0."""
+        mx.config.set("fused_ln_residual", mode)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+        mx.random.seed(0)
+        return mx.gluon.Trainer(params, "adamw",
+                                {"learning_rate": 1e-4, "wd": 0.01})
+
+    def step():
+        with mx.autograd.record():
+            mlm, nsp_scores = net(ids, types, valid)
+            loss = mlm_loss(mlm, labels, weight) + nsp_loss(nsp_scores, nsp)
+        mx.autograd.backward(loss)
+        trainer.step(BERT_BATCH)
+        return loss.detach().mean()
+
+    trainer = fresh_start("auto")
+    t0 = time.perf_counter()
+    first = step().item()
+    print(f"warm-up step: loss {first:.6f}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    bad = [name for name, p in params.items()
+           if not (torch.isfinite(p.grad()).all().item()
+                   and p.grad().abs().max().item() > 0)]
+    check(not bad, f"parameters without a finite, nonzero gradient after "
+                   f"step 1: {bad[:6]} ({len(bad)} in all)")
+    print(f"every one of the {len(params)} parameters has a finite, "
+          "nonzero gradient after step 1")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(fa)
+    zero_ln_counters(lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ln_launches, fa_launches = ln_counters(lr), counters(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [first] + [v.item() for v in losses]
+    print(f"losses: {losses}")
+    check(all(onp.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    want = N_LAYERS * BERT_STEPS
+    check(ln_launches == [want] * 2,
+          f"ln_residual launches {ln_launches} in {BERT_STEPS} steps, "
+          f"expected {want} each (12 per step)")
+    check(fa_launches == [0, 0, 0],
+          f"flash kernels launched {fa_launches} times in the BERT step")
+    print(f"launches in {BERT_STEPS} steps: ln_residual fwd/bwd "
+          f"{ln_launches} (the attention residual of each of the 12 "
+          f"post-norm cells; the FFN residual has p = 0, which 'auto' leaves "
+          f"unfused); flash fwd/dkv/dq {fa_launches} (live attention dropout "
+          f"and the valid-length mask take the plain composition)")
+    step_ms = wall / BERT_STEPS * 1e3
+    tokens = BERT_BATCH * BERT_SEQ
+    e2e = {
+        "step_ms": step_ms,
+        "samples_per_s": BERT_BATCH * BERT_STEPS / wall,
+        "tokens_per_s": tokens * BERT_STEPS / wall,
+        "fp32_model_flop_share": 6 * n_params * tokens / (step_ms / 1e3)
+        / PEAK_FLOPS[torch.float32],
+        "peak_memory_gb": peak_gb,
+        "launches_per_step": {"ln_residual_fwd": ln_launches[0]
+                              // BERT_STEPS,
+                              "ln_residual_bwd": ln_launches[1]
+                              // BERT_STEPS,
+                              "flash": [n // BERT_STEPS
+                                        for n in fa_launches]},
+    }
+    print(f"BERT training end to end [{card}]: " + json.dumps(e2e))
+    busy, top = device_profile(step, 2, warmup=0, top=10)
+    if busy is None:
+        print("device busy share not measured (profiler saw no kernels)")
+    else:
+        e2e["device_busy_share"] = busy / step_ms
+        print(f"device time per step {busy:.3f} ms of {step_ms:.3f} ms "
+              f"({busy / step_ms:.1%} busy); top kernels (ms per step): "
+              + ", ".join(f"{n} {t:.3f}" for n, t in top))
+
+    # the same start and seed under each routing of the residual: the
+    # first three losses, then step times in turns (the step is partly
+    # host-bound, so wall times spread) and device ms per step
+    modes = ("off", "on", "auto")
+    ab = {mode: {"step_ms": []} for mode in modes}
+    for mode in modes:
+        trainer = fresh_start(mode)
+        head = [step().item() for _ in range(3)]
+        rel = abs(head[0] - first) / abs(first)
+        check(rel <= 1e-5, f"fused_ln_residual={mode}: first-step loss "
+                           f"{head[0]} vs {first} under 'auto' ({rel:.2e} "
+                           "relative)")
+        ab[mode].update(first_losses=head, rel_diff_vs_auto=rel)
+    for mode in modes + modes[::-1] + modes + modes[::-1]:
+        mx.config.set("fused_ln_residual", mode)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        ab[mode]["step_ms"].append((time.perf_counter() - t0) / 3 * 1e3)
+    for mode in modes:
+        mx.config.set("fused_ln_residual", mode)
+        ab[mode]["device_ms_per_step"] = device_profile(step, 2, warmup=1)[0]
+        ab[mode]["step_ms_median"] = float(onp.median(ab[mode]["step_ms"]))
+    mx.config.reset("fused_ln_residual")
+    print(f"fused_ln_residual A/B, same weights and seed [{card}]: "
+          + json.dumps(ab))
+    e2e["fused_ln_residual_ab"] = ab
+    return ln_launches, e2e
+
+
+def ln_bound_ms(n, d, dtype, mask_dtype, kind):
+    """Least time on an H100 SXM for one ln_residual call: each input read
+    once and each output written once over the memory rate, against ~10
+    (forward) or ~20 (backward) fp32 operations per element over the fp32
+    rate (the arithmetic is fp32 for bf16 rows too)."""
+    esize = torch.finfo(dtype).bits // 8
+    msize = torch.finfo(mask_dtype).bits // 8
+    rows = esize * n * d
+    if kind == "fwd":  # x, h, m, gamma, beta -> out, mean, rstd
+        nbytes = 3 * rows + msize * n * d + 2 * esize * d + 2 * 4 * n
+        flops = 10 * n * d
+    else:  # x, h, m, gamma, mean, rstd, do -> dx, dh, dgamma, dbeta
+        nbytes = 5 * rows + msize * n * d + 3 * esize * d + 2 * 4 * n
+        flops = 20 * n * d
+    return bound(nbytes, flops, torch.float32)
+
+
+def phase_ln_times(dev, card):
+    """Each ln_residual kernel, its plain version and the unfused
+    composition at the BERT shape, over three input sets taken in turn so
+    that the working set exceeds the 50 MB L2."""
+    import itertools
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    print(f"== phase 8: ln_residual kernel times at n={LN_ROWS} D={LN_DIM} "
+          f"p={LN_P} on {card}", flush=True)
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scale = 1.0 / (1.0 - LN_P)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sets = []
+        for _ in range(3):
+            x, h, m, g, b, do = ln_inputs(dev, gen, LN_ROWS, LN_DIM, LN_P,
+                                          dtype)
+            _, mean, rstd = lr.ln_residual_fwd(x, h, m, g, b, LN_P)
+            leaves = [t.clone().requires_grad_() for t in (x, h, g, b)]
+            comp = F.layer_norm(leaves[0] + leaves[1] * m * scale,
+                                (LN_DIM,), leaves[2], leaves[3], 1e-5)
+            sets.append((x, h, m, g, b, do, mean, rstd, leaves, comp))
+        turn = itertools.cycle(sets)
+
+        def call(fn):
+            return lambda: fn(*next(turn))
+
+        programs = {
+            "fwd": {
+                "kernel": call(lambda x, h, m, g, b, *_: lr.ln_residual_fwd(
+                    x, h, m, g, b, LN_P)),
+                "plain": call(lambda x, h, m, g, b, *_:
+                              lr.ln_residual_fwd_reference(x, h, m, g, b,
+                                                           LN_P)),
+                "composition": call(lambda x, h, m, g, b, *_:
+                                    F.layer_norm(x + h * m * scale, (LN_DIM,),
+                                                 g, b, 1e-5)),
+            },
+            "bwd": {
+                "kernel": call(lambda x, h, m, g, b, do, mean, rstd, *_:
+                               lr.ln_residual_bwd(x, h, m, g, mean, rstd, do,
+                                                  LN_P)),
+                "plain": call(lambda x, h, m, g, b, do, mean, rstd, *_:
+                              lr.ln_residual_bwd_reference(
+                                  x, h, m, g, mean, rstd, do, LN_P)),
+                "composition": call(
+                    lambda x, h, m, g, b, do, mean, rstd, leaves, comp:
+                    torch.autograd.grad(comp, leaves, do,
+                                        retain_graph=True)),
+            },
+        }
+        for kind, calls in programs.items():
+            row = {}
+            for name, fn in calls.items():
+                row[name + "_call_ms"] = cuda_ms(fn, 30, warmup=3)
+                row[name + "_device_ms"] = device_ms(fn, 30, warmup=3)
+            row["bound_ms"], row["bound_by"] = ln_bound_ms(
+                LN_ROWS, LN_DIM, dtype, dtype, kind)
+            rows[(kind, dtype)] = row
+            print(f"ln_residual_{kind} {str(dtype)[6:]} n={LN_ROWS} "
+                  f"D={LN_DIM} p={LN_P} [{card}]: " + json.dumps(row))
+        del sets, turn
+    return rows
+
+
+def ln_entry(kind, launches, errs, rows):
+    row = rows[(kind, torch.float32)]
+    return {
+        "name": f"ln_residual_{kind}",
+        "route": "cuda",
+        "source": SOURCE.format("ln_residual"),
+        "replaces": TPU_LN.format(28 if kind == "fwd" else 46),
+        "launches": launches,
+        "launches_by_path": {"bert_train": launches},
+        "max_abs_err": errs[kind][torch.float32],
+        "max_err_fp32": errs[kind][torch.float32],
+        "max_err_bf16": errs[kind][torch.bfloat16],
+        "ms": pick(row, "kernel"),
+        "plain_ms": pick(row, "plain"),
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "composition_ms": pick(row, "composition"),
+        "composition": "F.layer_norm(x + h*m*scale)" + (
+            "" if kind == "fwd" else ", its autograd backward")
+        + ": no single PyTorch call computes this function",
+        "shape": f"n={LN_ROWS} D={LN_DIM} p={LN_P} fp32, float mask",
+        "bf16_ms": pick(rows[(kind, torch.bfloat16)], "kernel"),
+    }
+
+
 def kernel_entry(kind, launches, errs, rows, extra=None):
     names = {"fwd": ("flash_attention_fwd", "flash_attention_fwd", 23),
              "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd", 156),
@@ -678,6 +1116,7 @@ def main():
     card = phase_build()
     errs = phase_kernel_vs_plain(dev)
     bwd_errs = phase_bwd_vs_plain(dev)
+    ln_errs = phase_ln_vs_plain(dev)
     net, eng, st, wall, serve_launches = phase_main_path(dev)
     serve_shape = phase_times(dev, net, eng, st, wall, card)
     del net, eng
@@ -687,18 +1126,29 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     rows = phase_kernel_times(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_launches, bert_e2e = phase_bert(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ln_rows = phase_ln_times(dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": [
         kernel_entry("fwd", serve_launches + train_launches[0], errs, rows,
                      {"launches_by_path": {"serve": serve_launches,
-                                           "train": train_launches[0]},
+                                           "train": train_launches[0],
+                                           "bert_train": 0},
                       "serve_shape": serve_shape}),
         kernel_entry("dkv", train_launches[1], bwd_errs["dkv"], rows,
-                     {"launches_by_path": {"train": train_launches[1]}}),
+                     {"launches_by_path": {"train": train_launches[1],
+                                           "bert_train": 0}}),
         kernel_entry("dq", train_launches[2], bwd_errs["dq"], rows,
-                     {"launches_by_path": {"train": train_launches[2]}}),
-    ], "train": train_e2e}))
+                     {"launches_by_path": {"train": train_launches[2],
+                                           "bert_train": 0}}),
+        ln_entry("fwd", bert_launches[0], ln_errs, ln_rows),
+        ln_entry("bwd", bert_launches[1], ln_errs, ln_rows),
+    ], "train": train_e2e, "bert_train": bert_e2e}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,7 @@
 
 Own, trimmed copy of ``mxnet_tpu/config.py``: the same registry mechanics
 (declare / get / set / reset, env aliases) carrying only the knobs the
-serving slice reads, with the JAX package's defaults and env names.
+ported slices read, with the JAX package's defaults and env names.
 """
 from __future__ import annotations
 
@@ -82,6 +82,12 @@ def reset(name=None):
             knob._value = None
 
 
+declare("seed", int, 0, "MXNET_SEED",
+        "Global RNG seed (reference: mx.random.seed / MXNET_SEED).")
+declare("fused_ln_residual", str, "auto", "MXNET_FUSED_LN_RESIDUAL",
+        "Fused dropout+residual+LayerNorm kernel in post-norm transformer "
+        "encoder cells: 'auto' (CUDA tensor and live dropout), 'on', "
+        "'off'.")
 declare("serve.max_slots", int, 8, "MXNET_SERVE_MAX_SLOTS",
         "Decode slots in the serve engine: the fixed batch dimension of "
         "the decode step and of every preallocated KV-cache tensor.")

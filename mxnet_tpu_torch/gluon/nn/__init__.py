@@ -1,8 +1,9 @@
-"""Gluon layers (serving slice)."""
-from .basic_layers import Dense, Dropout, Embedding, LayerNorm
+"""Gluon layers (serving and training slices)."""
+from .basic_layers import Activation, Dense, Dropout, Embedding, LayerNorm
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
-                          TransformerEncoder, TransformerEncoderCell)
+                          TransformerEncoder, TransformerEncoderCell,
+                          valid_length_mask)
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm",
+__all__ = ["Activation", "Dense", "Dropout", "Embedding", "LayerNorm",
            "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoder",
-           "TransformerEncoderCell"]
+           "TransformerEncoderCell", "valid_length_mask"]

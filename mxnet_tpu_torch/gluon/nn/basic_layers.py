@@ -1,13 +1,16 @@
 """Basic Gluon layers on the serving path.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Dense`` (weight
-layout (units, in_units)), ``Embedding``, ``LayerNorm`` (parameters
-``gamma``/``beta``) and ``Dropout``, with the reference's argument names.
+layout (units, in_units), an optional ``Activation`` child), ``Activation``,
+``Embedding``, ``LayerNorm`` (parameters ``gamma``/``beta``) and
+``Dropout``, with the reference's argument names.
 Each creates its parameters (trainable, ``grad_req="write"``) on its
 device at construction, so the input width (``in_units`` /
 ``in_channels``) is required: the reference's deferred shape inference is
 not part of this slice. ``Dropout`` is live only while
-``autograd.is_training()``, as in the reference.
+``autograd.is_training()``, as in the reference, and draws its mask from
+its own ``generator`` where one is set, else from the default generator of
+the tensor's device (``random.seed`` reseeds those).
 """
 from __future__ import annotations
 
@@ -15,12 +18,13 @@ import torch
 
 from ... import autograd
 from ... import numpy_extension as npx
+from ... import random as _random
 from ...base import MXNetError
 from ...context import resolve_device
 from ..block import HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "Dropout"]
+__all__ = ["Dense", "Activation", "Embedding", "LayerNorm", "Dropout"]
 
 
 def _param(shape, dtype, device):
@@ -39,7 +43,7 @@ def _width(name, value):
 class Dense(HybridBlock):
     """Fully connected layer (reference: basic_layers.py Dense)."""
 
-    def __init__(self, units, use_bias=True, flatten=True,
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype=torch.float32, in_units=0, device=None):
         super().__init__()
         device = resolve_device(device)
@@ -48,13 +52,30 @@ class Dense(HybridBlock):
         self.weight = _param((units, _width("in_units", in_units)), dtype,
                              device)
         self.bias = _param((units,), dtype, device) if use_bias else None
+        self.act = Activation(activation) if activation else None
 
     def forward(self, x):
-        return npx.fully_connected(x, self.weight, self.bias,
-                                   flatten=self._flatten)
+        out = npx.fully_connected(x, self.weight, self.bias,
+                                  flatten=self._flatten)
+        return self.act(out) if self.act is not None else out
 
     def extra_repr(self):
         return f"{self._units}, in={self.weight.shape[1]}"
+
+
+class Activation(HybridBlock):
+    """``npx.activation`` as a block (reference: basic_layers.py
+    Activation); no parameters."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self._act_type = activation
+
+    def forward(self, x):
+        return npx.activation(x, act_type=self._act_type)
+
+    def extra_repr(self):
+        return self._act_type
 
 
 class Embedding(HybridBlock):
@@ -90,8 +111,8 @@ class Dropout(HybridBlock):
     """Inverted dropout while ``autograd.is_training()`` (inside
     ``autograd.record()`` or ``train_mode()``), identity otherwise
     (reference: basic_layers.py Dropout). The mask comes from
-    ``self.generator``, which a training caller sets; serving never
-    trains."""
+    ``self.generator`` where a caller sets one, else from the default
+    generator of the tensor's device (``random.dropout_mask``)."""
 
     def __init__(self, rate):
         super().__init__()
@@ -101,9 +122,5 @@ class Dropout(HybridBlock):
     def forward(self, x):
         if not autograd.is_training() or not self._rate:
             return x
-        if self.generator is None:
-            raise MXNetError("Dropout in training mode needs an explicit "
-                             "torch.Generator (set block.generator)")
-        keep = 1.0 - self._rate
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
-        return x * mask / keep
+        mask = _random.dropout_mask(x, self._rate, self.generator)
+        return x * mask / (1.0 - self._rate)

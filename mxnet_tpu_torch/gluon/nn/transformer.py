@@ -1,25 +1,30 @@
-"""Transformer layers on the serving path.
+"""Transformer layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/transformer.py``: ``MultiHeadAttention``,
 ``PositionwiseFFN``, ``TransformerEncoderCell`` and ``TransformerEncoder``,
 each with ``forward`` and the KV-cache surface (``init_cache`` for
-floating-point dtypes, ``prefill``, ``decode_step``) in both norm layouts.
-Causal attention without a mask routes to the flash-attention kernel
-(``ops/attention.py``). The post-norm cell uses plain ``LayerNorm(x + h)``:
-the JAX package's fused ln_residual kernel is not ported yet.
+floating-point dtypes, ``prefill``, ``decode_step``) in both norm layouts,
+and ``valid_length_mask``. Attention without a mask or live dropout routes
+to the flash-attention kernels (``ops/attention.py``). The post-norm
+cell's ``forward`` routes ``LN(x + dropout(h))`` through the fused
+ln_residual kernels where the ``fused_ln_residual`` knob says so
+(:func:`_fused_ln_residual`); its KV-cache surface stays plain.
 """
 from __future__ import annotations
 
 import torch
 
+from ... import autograd, config
 from ... import numpy_extension as npx
+from ... import random as _random
 from ...base import MXNetError
 from ...context import resolve_device
+from ...ops.ln_residual import ln_residual_dropout
 from ..block import HybridBlock
 from .basic_layers import Dense, Dropout, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
-           "TransformerEncoder"]
+           "TransformerEncoder", "valid_length_mask"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -132,6 +137,38 @@ class PositionwiseFFN(HybridBlock):
         return h
 
 
+def _fused_ln_residual(x, h, ln, p, generator=None):
+    """``ln(x + dropout(h))`` through the fused ln_residual kernels when the
+    ``fused_ln_residual`` knob routes it there, else None (the caller then
+    runs the unfused composition). Reference: transformer.py:187-240.
+
+    - "off" never fuses; "on" always does (on the CPU through the kernels'
+      plain versions);
+    - "auto" fuses a CUDA tensor while dropout is live
+      (``autograd.is_training()`` and ``p > 0``): the reference's
+      accelerator-and-live-dropout rule. Whether the card gains from fusing
+      without dropout too is measured, not assumed (``PERF.md``).
+
+    The dropout rate applies only while ``autograd.is_training()``. The
+    mask is drawn by the very call ``Dropout`` makes
+    (``random.dropout_mask``), on ``generator`` (the cell's dropout block's)
+    or else the default generator of h's device, so fused and unfused draw
+    the same mask. The reference's TPU lane rule (``D % 128``) is not
+    carried over: the kernels take any D up to their maximum."""
+    mode = config.get("fused_ln_residual")
+    if mode not in ("auto", "on", "off"):
+        raise MXNetError(f"fused_ln_residual must be 'auto', 'on' or 'off', "
+                         f"got {mode!r}")
+    training = autograd.is_training()
+    if mode == "off" or (mode == "auto" and not (
+            x.device.type == "cuda" and training and p > 0)):
+        return None
+    p_eff = float(p) if training else 0.0
+    mask = _random.dropout_mask(h, p_eff, generator) if p_eff > 0 else None
+    return ln_residual_dropout(x, h, ln.gamma, ln.beta, p=p_eff, mask=mask,
+                               eps=ln._epsilon)
+
+
 class TransformerEncoderCell(HybridBlock):
     """One encoder layer: MHA + FFN with residuals. pre_norm=False is the
     BERT/original layout, pre_norm=True the GPT layout."""
@@ -150,6 +187,7 @@ class TransformerEncoderCell(HybridBlock):
                                    device=device)
         self.ffn_ln = LayerNorm(in_channels=units, device=device)
         self.dropout = Dropout(dropout) if dropout else None
+        self._rate = float(dropout)
 
     def _drop(self, h):
         return self.dropout(h) if self.dropout is not None else h
@@ -160,8 +198,13 @@ class TransformerEncoderCell(HybridBlock):
             x = x + self._drop(h)
             return x + self.ffn(self.ffn_ln(x))
         h = self.attention(x, mask=mask)
-        x = self.attn_ln(x + self._drop(h))
-        return self.ffn_ln(x + self.ffn(x))
+        gen = self.dropout.generator if self.dropout is not None else None
+        fused = _fused_ln_residual(x, h, self.attn_ln, self._rate, gen)
+        x = fused if fused is not None else self.attn_ln(x + self._drop(h))
+        # the FFN applies its own dropout: the residual adds it as it is
+        h = self.ffn(x)
+        fused = _fused_ln_residual(x, h, self.ffn_ln, 0.0)
+        return fused if fused is not None else self.ffn_ln(x + h)
 
     # -- KV-cache serving surface (inference only: dropout skipped) -----
 
@@ -232,3 +275,12 @@ class TransformerEncoder(HybridBlock):
             x, kv = cell.decode_step(x, kv, positions)
             out.append(kv)
         return x, out
+
+
+def valid_length_mask(valid_length, seq_len):
+    """(batch,) valid lengths -> (batch, 1, 1, seq) bool attention mask:
+    key ``j`` is visible where ``j < valid_length`` (reference:
+    transformer.py:426-430)."""
+    ar = torch.arange(seq_len, device=valid_length.device).reshape(
+        1, 1, 1, seq_len)
+    return ar < valid_length.reshape(-1, 1, 1, 1)

@@ -12,7 +12,9 @@ CPU tensor. Dropout is live only while ``autograd.is_training()``, as in
 the reference. The JAX package's TPU thresholds (flash only from
 seq 512 causal / 2048 otherwise) are not carried over; the H100 threshold
 is still to be measured. A mask or live dropout takes the plain
-composition, as in the reference. A kernel failure raises: the
+composition, as in the reference; attention dropout draws from the
+caller's generator, else from the default generator of the tensor's
+device (``random.dropout_mask``). A kernel failure raises: the
 reference's silent fallback to the composition is deliberately absent.
 
 The JAX package returns new cache arrays from pure functions; here the
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import autograd
-from ..base import MXNetError
+from ..random import dropout_mask
 from .flash_attention import attention
 
 __all__ = ["multi_head_attention", "write_prefill_kv", "decode_attention"]
@@ -58,12 +60,8 @@ def _reference_attention(q, k, v, heads, mask=None, causal=False, scale=None,
         scores = torch.where(mask.to(torch.bool), scores, _NEG_INF)
     att = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     if dropout_p:
-        if generator is None:
-            raise MXNetError("attention dropout needs an explicit "
-                             "torch.Generator")
-        keep = 1.0 - dropout_p
-        att = att * torch.empty_like(att).bernoulli_(
-            keep, generator=generator) / keep
+        att = att * dropout_mask(att, dropout_p, generator) \
+            / (1.0 - dropout_p)
     out = torch.einsum("bhqk,bhkd->bhqd", att, vh)
     return out.transpose(1, 2).reshape(b, sq, heads * d)
 

@@ -1,14 +1,28 @@
-"""Seeded generators.
+"""Seeded generators and the process-global default generators.
 
 Counterpart of ``mxnet_tpu/random.py``. Where the JAX package splits one
-process-global threefry key, the port hands every sampler an explicit
-``torch.Generator`` built here from a seed, and keeps no global RNG state.
+process-global threefry key, the port keeps one default
+``torch.Generator`` per device, made at first use from the ``seed`` knob
+(``MXNET_SEED``) or from the last :func:`seed`. A sampler draws from an
+explicit generator where its caller gives one (a block's ``generator``)
+and from :func:`default_generator` of its tensor's device otherwise, so
+``seed(s)`` makes the same calls give the same draws. The streams are
+torch's (Philox on the card, Mersenne Twister on the CPU): they cannot
+give the JAX package's bits.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
-__all__ = ["generator"]
+from . import config
+
+__all__ = ["generator", "seed", "default_generator", "dropout_mask"]
+
+_lock = threading.Lock()
+_defaults: dict[torch.device, torch.Generator] = {}
+_seed = None  # None: the ``seed`` knob
 
 
 def generator(seed=0, device="cpu"):
@@ -16,3 +30,46 @@ def generator(seed=0, device="cpu"):
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(int(seed))
     return gen
+
+
+def _key(device):
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def seed(seed_state, ctx="all"):
+    """Seed the default generators (reference: random.py ``seed(seed_state,
+    ctx)``): every device's with ``ctx="all"``, else only that device's.
+    Generators made later start from ``seed_state`` too."""
+    global _seed
+    with _lock:
+        if ctx == "all":
+            _seed = int(seed_state)
+            for gen in _defaults.values():
+                gen.manual_seed(_seed)
+        else:
+            dev = _key(ctx)
+            _defaults[dev] = generator(seed_state, dev)
+
+
+def default_generator(device):
+    """The default generator of ``device``, made at first use."""
+    dev = _key(device)
+    with _lock:
+        gen = _defaults.get(dev)
+        if gen is None:
+            start = config.get("seed") if _seed is None else _seed
+            gen = _defaults[dev] = generator(start, dev)
+        return gen
+
+
+def dropout_mask(like, rate, generator=None):
+    """Inverted-dropout keep mask (1 keep, 0 drop) of ``like``'s shape,
+    dtype and device, drawn from ``generator`` or else from the default
+    generator of ``like``'s device. Every dropout site of the port draws
+    through here, so a fused and an unfused route make the same draws."""
+    gen = generator if generator is not None \
+        else default_generator(like.device)
+    return torch.empty_like(like).bernoulli_(1.0 - rate, generator=gen)

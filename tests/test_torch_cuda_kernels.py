@@ -13,7 +13,13 @@ cuBLAS); bf16 forward atol 2e-2 (bf16 output rounding); bf16 backward
 rtol 2^-7 (one bf16 ulp of the output) plus atol 2^-10 of the output's
 largest value (p and ds are rounded to bf16 before the products, and a
 value on a rounding boundary may round the other way than in the plain
-version).
+version). ln_residual: fp32 atol = rtol = 1e-5 for out, mean, rstd, dx
+and dh (fp32 sums in another order; the plain version is the same
+arithmetic), dgamma/dbeta atol 1e-5 of their largest |value| (sums over
+up to 4096 rows in another order); bf16 rtol 2^-7 plus atol 2^-10 of the
+largest |value|, as above. BERT on the card vs the CPU: losses atol =
+rtol = 1e-4, gradients atol 1e-4 + rtol 1e-3, weights atol 1e-4 (as the
+GPT comparison).
 """
 import numpy as onp
 import pytest
@@ -23,6 +29,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as tattn
 from mxnet_tpu_torch.ops import flash_attention as tflash
+from mxnet_tpu_torch.ops import ln_residual as tln
 
 pytestmark = pytest.mark.cuda
 
@@ -203,6 +210,142 @@ def test_gpt_training_on_card_matches_cpu(cuda_device, optimizer):
         if dev != "cpu":
             assert [a - c for a, c in zip(after, counts)] == [4, 4, 4]
         runs[str(dev)] = (losses, grads, functional.param_arrays(net))
+    card, ref = runs[str(cuda_device)], runs["cpu"]
+    for a, b in zip(card[0], ref[0]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for name, g in ref[1].items():
+        assert torch.isfinite(card[1][name]).all(), name
+        torch.testing.assert_close(card[1][name], g, atol=1e-4, rtol=1e-3,
+                                   msg=name)
+    for name, w in ref[2].items():
+        onp.testing.assert_allclose(card[2][name], w, atol=1e-4, rtol=0,
+                                    err_msg=name)
+
+
+def _ln_inputs(n, d, p, dtype, device, mask_dtype=None, seed=0):
+    rs = onp.random.RandomState(seed + n + d)
+    x, h, do = (torch.from_numpy(rs.randn(n, d).astype("float32"))
+                .to(device, dtype) for _ in range(3))
+    gamma = torch.from_numpy((rs.rand(d) + 0.5).astype("float32")).to(
+        device, dtype)
+    beta = torch.from_numpy(rs.randn(d).astype("float32")).to(device, dtype)
+    mask = None
+    if p > 0:
+        mask = torch.from_numpy(rs.rand(n, d) >= p).to(device,
+                                                       mask_dtype or dtype)
+    return x, h, mask, gamma, beta, do
+
+
+LN_SHAPES = [(n, d) for n in (7, 600, 4096) for d in (128, 200, 768, 1024)]
+LN_SHAPES += [(600, 199), (600, 2000)]  # no 16-byte path; a block per row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("n,d", LN_SHAPES)
+def test_ln_residual_kernels_match_plain_version(cuda_device, n, d, p,
+                                                 dtype):
+    mask_dtype = (None, torch.bool, torch.uint8)[(n + d) % 3]
+    x, h, mask, g, b, do = _ln_inputs(n, d, p, dtype, cuda_device,
+                                      mask_dtype)
+    f0, b0 = tln.ln_residual_fwd.launches, tln.ln_residual_bwd.launches
+    out, mean, rstd = tln.ln_residual_fwd(x, h, mask, g, b, p)
+    grads = tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, p)
+    torch.cuda.synchronize()
+    assert (tln.ln_residual_fwd.launches, tln.ln_residual_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    want = tln.ln_residual_fwd_reference(x, h, mask, g, b, p) \
+        + tln.ln_residual_bwd_reference(x, h, mask, g, mean, rstd, do, p)
+    names = ("out", "mean", "rstd", "dx", "dh", "dgamma", "dbeta")
+    for name, got, ref in zip(names, (out, mean, rstd) + grads, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        top = ref.float().abs().max().item()
+        if dtype == torch.bfloat16 and name not in ("mean", "rstd"):
+            tol = dict(rtol=2.0 ** -7, atol=2.0 ** -10 * top)
+        elif name in ("dgamma", "dbeta"):
+            tol = dict(rtol=1e-5, atol=1e-5 * top)
+        else:
+            tol = dict(rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got.float(), ref.float(), msg=name, **tol)
+
+
+@pytest.mark.parametrize("bad", ["float16", "mask_shape", "contiguity",
+                                 "too_wide", "no_mask"])
+def test_ln_residual_wrappers_raise(cuda_device, bad):
+    dtype = torch.float16 if bad == "float16" else torch.float32
+    d = tln.MAX_DIM + 8 if bad == "too_wide" else 64
+    x, h, mask, g, b, do = _ln_inputs(8, d, 0.1, dtype, cuda_device)
+    if bad == "mask_shape":
+        mask = mask[:4]
+    elif bad == "contiguity":
+        x = x.t().contiguous().t()
+    elif bad == "no_mask":
+        mask = None
+    mean = torch.zeros(8, 1, device=cuda_device)
+    rstd = torch.ones(8, 1, device=cuda_device)
+    with pytest.raises(MXNetError):
+        tln.ln_residual_fwd(x, h, mask, g, b, 0.1)
+    with pytest.raises(MXNetError):
+        tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)
+
+
+def test_bert_training_on_card_matches_cpu(cuda_device):
+    """Two record/backward/AdamW steps of a small BERT (dropout 0, so the
+    two devices' random streams do not matter) with ``fused_ln_residual``
+    "on", on the card and on the CPU from the same weights: losses, every
+    gradient and the weights agree, and each step launches both
+    ln_residual kernels twice per layer (the attention and the FFN
+    residual)."""
+    from mxnet_tpu_torch import functional
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+    cfg = dict(vocab_size=97, units=128, hidden_size=256, num_layers=2,
+               num_heads=2, max_length=64, dropout=0.0, embed_dropout=0.0)
+    cpu = BERTForPretraining(device="cpu", **cfg).initialize(seed=4)
+    arrays = functional.param_arrays(cpu)
+    rs = onp.random.RandomState(5)
+    ids = torch.from_numpy(rs.randint(0, 97, (2, 40)))
+    types = torch.from_numpy((onp.arange(40) >= 17)[None].repeat(2, 0)
+                             .astype("int64"))
+    valid = torch.tensor([40, 29])
+    labels = torch.from_numpy(rs.randint(0, 97, (2, 40)))
+    weight = torch.from_numpy((rs.rand(2, 40) < 0.2).astype("float32"))
+    nsp = torch.tensor([1, 0])
+    tmx.config.set("fused_ln_residual", "on")
+    try:
+        runs = {}
+        for dev in ("cpu", cuda_device):
+            net = BERTForPretraining(device=dev, **cfg)
+            functional.load_params(net, arrays)
+            params = net.collect_params()
+            for name, p in params.items():
+                if "key_proj.bias" in name:
+                    p.grad_req = "null"  # zero gradient in exact arithmetic
+            trainer = tmx.gluon.Trainer(params, "adamw",
+                                        {"learning_rate": 1e-4, "wd": 0.01})
+            loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+            batch = [t.to(dev) for t in (ids, types, valid, labels, weight,
+                                         nsp)]
+            counts = (tln.ln_residual_fwd.launches,
+                      tln.ln_residual_bwd.launches)
+            losses, grads = [], None
+            for _ in range(2):
+                with tmx.autograd.record():
+                    mlm, ns = net(*batch[:3])
+                    loss = loss_fn(mlm, batch[3], batch[4]) \
+                        + loss_fn(ns, batch[5])
+                tmx.autograd.backward(loss)
+                if grads is None:
+                    grads = {n: p.grad().cpu().clone()
+                             for n, p in params.items()
+                             if p.grad_req != "null"}
+                trainer.step(2)
+                losses.append(loss.detach().cpu())
+            if dev != "cpu":
+                assert (tln.ln_residual_fwd.launches - counts[0],
+                        tln.ln_residual_bwd.launches - counts[1]) == (8, 8)
+            runs[str(dev)] = (losses, grads, functional.param_arrays(net))
+    finally:
+        tmx.config.reset("fused_ln_residual")
     card, ref = runs[str(cuda_device)], runs["cpu"]
     for a, b in zip(card[0], ref[0]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

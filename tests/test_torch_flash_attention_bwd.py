@@ -21,6 +21,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.ops import attention as jattn
 from mxnet_tpu.ops.pallas import flash_attention as jflash
 from mxnet_tpu_torch import autograd as tautograd
+from mxnet_tpu_torch import random as trandom
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as tattn
 from mxnet_tpu_torch.ops import flash_attention as tflash
@@ -227,5 +228,13 @@ def test_attention_dropout_follows_is_training():
                                           causal=True, generator=gen)
     assert torch.equal(idle, plain) and torch.equal(paused, plain)
     assert not torch.allclose(live, plain, atol=1e-3)
-    with tautograd.record(), pytest.raises(MXNetError):
-        tattn.multi_head_attention(q, k, v, 2, dropout_p=0.5)
+    # no generator: the default one of the tensor's device, reproducible
+    # after random.seed
+    outs = []
+    for _ in range(2):
+        trandom.seed(6)
+        with tautograd.record():
+            outs.append(tattn.multi_head_attention(q, k, v, 2, dropout_p=0.5,
+                                                   causal=True))
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.allclose(outs[0], plain, atol=1e-3)

@@ -451,9 +451,18 @@ def test_dropout_follows_is_training():
     assert 0.4 < (y == 0).float().mean().item() < 0.6
     with tmx.autograd.train_mode():
         assert not torch.equal(drop(x), x)
+    # no block generator: the default generator of the tensor's device,
+    # live under record() and reproducible after random.seed
     drop.generator = None
-    with tmx.autograd.record(), pytest.raises(MXNetError):
-        drop(x)
+    draws = []
+    for _ in range(2):
+        tmx.random.seed(4)
+        with tmx.autograd.record():
+            draws.append((drop(x), drop(x)))
+    assert torch.equal(draws[0][0], draws[1][0])
+    assert torch.equal(draws[0][1], draws[1][1])
+    assert not torch.equal(draws[0][0], draws[0][1])
+    assert set(torch.unique(draws[0][0]).tolist()) == {0.0, 2.0}
 
 
 def test_gpt_dropout_is_live_only_under_record():

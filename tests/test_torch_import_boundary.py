@@ -51,7 +51,9 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.functional, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.gluon.trainer, "
             "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.optimizer, "
-            "mxnet_tpu_torch.ops.xent, mxnet_tpu_torch.lr_scheduler; "
+            "mxnet_tpu_torch.ops.xent, mxnet_tpu_torch.lr_scheduler, "
+            "mxnet_tpu_torch.ops.ln_residual, mxnet_tpu_torch.random, "
+            "mxnet_tpu_torch.gluon.model_zoo.bert; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
