@@ -6,9 +6,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. Build every kernel from ``mxnet_tpu_torch/csrc`` (``nvcc`` for sm_90a,
    one process per source, all started together): the flash-attention
-   forward and the two backward kernels (dK/dV, dQ), and the ln_residual
-   forward and backward. Print the build time, each kernel's ptxas
-   registers and spills, the card and CUDA.
+   forward and the two backward kernels (dK/dV, dQ), the ln_residual
+   forward and backward, and the fp8 matmul. Print the build time, each
+   kernel's ptxas registers and spills, the card and CUDA.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 32 and 128 (seq 200,
@@ -34,6 +34,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    mean by up to ~2e-5); bf16 rtol 2^-7 (one bf16 ulp of
    the output) plus atol 2^-10 of the largest |value| (a value on a
    rounding boundary may round the other way).
+2d. The fp8 matmul kernel against its plain version (the JAX cast rule,
+   an fp32 matmul of the fp8 values, the same epilogue): M/N/K 1/5/100,
+   37/130/256 and 130/5/100, e4m3 and e5m2, every activation, with and
+   without bias; inputs past the format's top (the same NaN and inf
+   positions); and the three fp8 training shapes (M, K, N) = (8192, 768,
+   768), (8192, 768, 3072), (8192, 3072, 768). Tolerance: |err| <= 2^-20
+   of the sum of |products| x |x_scale * w_scale| plus 1e-6 of |out|
+   (exact fp8 products summed in the tensor core's fp32 accumulator in
+   another order; the largest err / that sum read 6.1e-8, about 2^-24,
+   on the H100); the largest err / that sum is printed.
 3. Serving at full GPT-2 124M width (vocab 50257, 768 units, 12 layers,
    12 heads, max_length 1024, fp32, seeded Uniform(0.07) weights):
    ``serve.load(net, max_slots=8)`` with the default buckets, ``warmup()``,
@@ -93,6 +103,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    and of the unfused composition the "off" route runs
    (``F.layer_norm(x + h*m*scale)`` and its autograd backward: no single
    PyTorch call computes this function), beside each kernel's bound.
+9. fp8 training of GPT-2 124M at full width (as bench.py's
+   gpt2_train_bs8_seq1024_fp8 on one card: batch 8 x seq 1024, dropout 0,
+   seeded Uniform(0.07) weights, ``adam`` lr 1e-3, one fixed batch from
+   RandomState(0)) through ``parallel.ShardedTrainStep(net, loss, "adam",
+   MeshConfig(dp=1), ..., precision="fp8")``, beside an fp32
+   ``ShardedTrainStep`` from the same weights, 4 steps of each in turns.
+   Counters are zeroed just before each fp8 step and read just after: the
+   fp8 kernel must launch 72 times a step (12 layers x query, key, value,
+   out, ffn_1, ffn_2) and each flash kernel 12 times. After step 1 every
+   parameter's gradient is finite. At every step the fp8 step's loss must
+   be within 5e-3 relative of the fp32 forward of the same weights (run
+   just before it, no graph); after step 4 the fp8 loss must be below its
+   first, the 72 Dense sites hold nonzero x/w amaxes in history slots 0-3
+   and g in slots 0-2, and the two embedding sites (selected, never a
+   Dense) all zeros. Step 1's g amax may be 0, but only at a query, key,
+   value or ffn_1 site: its scales are the identity (empty histories, as
+   in the reference), and a dy that reaches a site only through another
+   site's fp8 backward product is flushed there by e5m2, whose smallest
+   value is 2^-16, as the JAX package does (tests/test_torch_fp8.py); the
+   count of such sites is printed.
+   The fp8 and fp32 trajectories' losses are printed side by side, not
+   held to 5%: at adam lr 1e-3 without warm-up both spike within a few
+   steps, at different steps (PERF.md). Then step ms (in turns),
+   tokens/s, device ms per step and the busy share with the top kernels
+   (``torch.profiler``) and peak memory of both.
+10. fp8 matmul kernel times at the three training shapes (fp32 x, e4m3 w,
+   no bias, no activation; three input sets in turn, so that the working
+   set exceeds the 50 MB L2): device ms of the kernel, of its plain
+   version and of the composition quantize -> ``torch._scaled_mm`` ->
+   epilogue (a yardstick only, never used by the port; null where the
+   card's torch has no ``_scaled_mm``), beside the bound: bytes (x read,
+   w read, out written) over 3.35 TB/s against 2 M N K over the 1979
+   TFLOP/s dense fp8 rate.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -112,7 +155,8 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float8_e4m3fn: 1979e12}
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 2e-2
 BF16_BWD_RTOL, BF16_BWD_ATOL_SHARE = 2.0 ** -7, 2.0 ** -10
@@ -129,6 +173,18 @@ LN_OFFSET_TOL = dict(atol=1e-4, rtol=1e-5)  # rows with mean ~100
 BERT_VOCAB, BERT_BATCH, BERT_SEQ, BERT_STEPS = 30522, 32, 128, 9
 BERT_MASK_ID = 103  # [MASK] in BERT's uncased vocabulary
 LN_ROWS, LN_DIM, LN_P = BERT_BATCH * BERT_SEQ, 768, 0.1
+TPU_QMM = "mxnet_tpu/ops/pallas/quant_matmul.py:{}"
+FP8_TOL_SHARE = 2.0 ** -20  # of the sum of |products| x |xs * ws|
+FP8_TOL_REL = 1e-6
+FP8_SITES_PER_STEP = 72  # 12 layers x (query, key, value, out, ffn_1, ffn_2)
+FP8_TRAIN_SHAPES = [(8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768)]
+# fp8 step loss vs the fp32 forward of the same weights: ~10x the largest
+# reading, 3.1e-4, on an H100 SXM (NVIDIA H100 80GB HBM3, 700 W)
+FP8_SAME_WEIGHTS_TOL = 5e-3
+# Dense sites whose dy arrives only through another site's fp8 backward
+# product (tests/test_torch_fp8.py: test_fp8_step_flushes_small_gradients_
+# like_jax), so that step 1 at the identity scale may flush it to zero
+FP8_FLUSHABLE = ("query_proj", "key_proj", "value_proj", "ffn_1")
 
 
 def fail(msg):
@@ -230,6 +286,13 @@ def ptxas_summary(log):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
+            if "fp8_matmul" in mangled:
+                tpl = re.search(r"ILi(\d)ELi(\d)ELb(\d)E", mangled)
+                fmts = ("e4m3", "e5m2")
+                name = (f"fp8_matmul x {fmts[int(tpl[1])]} w "
+                        f"{fmts[int(tpl[2])]} vec={tpl[3]}" if tpl
+                        else "fp8_matmul ?")
+                continue
             if "ln_residual" in mangled:
                 name = "ln_fwd" if "fwd" in mangled else "ln_bwd"
                 continue
@@ -265,7 +328,7 @@ def phase_build():
     print("== phase 1: build", flush=True)
     t0 = time.perf_counter()
     libs = _native.build(["flash_attention_fwd", "flash_attention_bwd",
-                          "ln_residual"])
+                          "ln_residual", "fp8_matmul"])
     dt = time.perf_counter() - t0
     for name, path in libs.items():
         print(f"built {name}: {path.name}")
@@ -1046,6 +1109,339 @@ def phase_ln_times(dev, card):
     return rows
 
 
+def fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow=False):
+    """Seeded (x, w_q, ws, xs) of one fp8 matmul case: w quantized per
+    output channel, xs mapping max |x| onto the format's top; with
+    ``overflow`` two values of x past the top after x / xs."""
+    _, absmax = qm.FP8_FORMATS[fmt]
+    x = torch.randn(m, k, device=dev, generator=gen)
+    w = torch.randn(n, k, device=dev, generator=gen) * 0.5
+    ws = w.abs().amax(dim=1) / absmax
+    wq = qm.quantize(w / ws[:, None], fmt)
+    xs = x.abs().max().item() / absmax
+    if overflow:
+        x[0, 3] = 2.5 * absmax * xs
+        x[-1, 0] = -70000.0 * xs
+    return x, wq, ws, xs
+
+
+def fp8_case(qm, dev, gen, m, n, k, fmt, act=None, bias=False,
+             overflow=False):
+    """The fp8 kernel against its plain version on the same inputs: (max
+    |err| over the finite values, max err / sum of |products|)."""
+    x, wq, ws, xs = fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow)
+    b = torch.randn(n, device=dev, generator=gen) if bias else None
+    out = qm.fp8_matmul(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+    torch.cuda.synchronize()
+    ref = qm.fp8_matmul_plain(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+    tag = f"M={m} N={n} K={k} {fmt} act={act} bias={bias}"
+    check(torch.equal(torch.isnan(out), torch.isnan(ref))
+          and torch.equal(torch.isinf(out), torch.isinf(ref))
+          and torch.equal(out[torch.isinf(out)], ref[torch.isinf(ref)]),
+          f"fp8_matmul {tag}: NaN/inf positions differ from the plain "
+          "version's")
+    if overflow:
+        check(not torch.isfinite(ref).all().item(),
+              f"fp8_matmul {tag}: the overflow case overflowed nothing")
+    fin = torch.isfinite(ref)
+    mag = ((qm.quantize(x / xs, fmt).float().abs().nan_to_num(0, 0, 0)
+            @ wq.float().abs().t()) * (xs * ws).abs())[fin]
+    err = (out - ref).abs()[fin]
+    ok = bool((err <= FP8_TOL_SHARE * mag + FP8_TOL_REL
+               * ref[fin].abs()).all())
+    e = err.max().item() if err.numel() else 0.0
+    share = (err / mag.clamp_min(1e-30)).max().item() if err.numel() else 0.0
+    print(f"  {tag}{' overflow' if overflow else ''}: max|err| {e:.3e}, "
+          f"err/sum|products| {share:.2e} {'ok' if ok else 'FAIL'}")
+    check(ok, f"fp8_matmul kernel disagrees with its plain version at {tag}")
+    return e, share
+
+
+def phase_fp8_vs_plain(dev):
+    """The fp8 matmul kernel against its plain version on the card."""
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    print("== phase 2d: fp8_matmul kernel vs plain version", flush=True)
+    check(qm.fp8_capable(dev), f"{torch.cuda.get_device_name(0)} is not "
+                               "compute capability 9.0")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs, shares = [], []
+    for m, n, k in ((1, 5, 100), (37, 130, 256), (130, 5, 100)):
+        for fmt in ("e4m3", "e5m2"):
+            for act in (None, "relu", "sigmoid", "tanh", "gelu"):
+                for bias in (False, True):
+                    e, r = fp8_case(qm, dev, gen, m, n, k, fmt, act, bias)
+                    errs.append(e)
+                    shares.append(r)
+    for fmt in ("e4m3", "e5m2"):
+        for act in (None, "relu"):
+            e, r = fp8_case(qm, dev, gen, 37, 130, 256, fmt, act, True,
+                            overflow=True)
+            errs.append(e)
+            shares.append(r)
+    for m, k, n in FP8_TRAIN_SHAPES:
+        e, r = fp8_case(qm, dev, gen, m, n, k, "e4m3")
+        errs.append(e)
+        shares.append(r)
+    return {"max_abs_err": max(errs), "max_err_share": max(shares),
+            "cases": len(errs)}
+
+
+def fp8_counters(fa, qm):
+    return [qm.fp8_matmul.launches] + counters(fa)
+
+
+def zero_fp8_counters(fa, qm):
+    qm.fp8_matmul.launches = 0
+    zero_counters(fa)
+
+
+def fp8_train_loss(logits, labels):
+    from mxnet_tpu_torch.ops.xent import sparse_softmax_xent
+    return sparse_softmax_xent(logits, labels).mean()
+
+
+def fp8_train_steps(dev, lr=1e-3):
+    """Phase 9's pair (also ``tools/fp8_loss_curves.py``'s): an fp8 and an
+    fp32 ``ShardedTrainStep`` (``adam`` at ``lr``, ``MeshConfig(dp=1)``),
+    each over its own GPT-2 124M from the same seeded weights."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    cfg = MeshConfig(dp=1)
+
+    def make(precision):
+        net = GPTForCausalLM(backbone=gpt2_124m(
+            vocab_size=50257, max_length=TRAIN_SEQ, dropout=0.0,
+            embed_dropout=0.0, device=dev)).initialize(seed=0)
+        return ShardedTrainStep(
+            net, fp8_train_loss, mx.optimizer.create("adam",
+                                                     learning_rate=lr),
+            cfg, cfg.batch_specs(2, 2), n_labels=1, precision=precision)
+
+    return make("fp8"), make("fp32")
+
+
+def fp8_train_batch(dev, shifted=False):
+    """One fixed (x, y) from RandomState(0): drawn apart, as bench.py's
+    fp8 row (bench.py:621-623), or y as x shifted by one token."""
+    rs = onp.random.RandomState(0)
+    if shifted:
+        ids = rs.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ + 1))
+        x, y = ids[:, :-1], ids[:, 1:]
+    else:
+        x, y = (rs.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ))
+                for _ in range(2))
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def phase_fp8_train(dev, card):
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    print(f"== phase 9: fp8 training of GPT-2 124M (full width, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) through ShardedTrainStep on "
+          f"{card}", flush=True)
+    loss_fn = fp8_train_loss
+    s8, s32 = fp8_train_steps(dev)
+    sites = s8._fp8_sites
+    dense = [s for s in sites if "embed" not in s]
+    embed = [s for s in sites if "embed" in s]
+    check(len(dense) == FP8_SITES_PER_STEP and len(embed) == 2,
+          f"{len(dense)} Dense sites and {len(embed)} embedding sites")
+    check(all(torch.equal(s8.params[n], s32.params[n]) for n in s8.params),
+          "the fp8 and fp32 steps do not start from the same weights")
+    x, y = fp8_train_batch(dev)
+    print(f"{len(s8.params)} trainable tensors, {len(sites)} fp8 sites "
+          f"({len(dense)} Dense, {len(embed)} embeddings); adam lr 1e-3; "
+          "one fixed batch from RandomState(0)")
+
+    losses8, losses32, same_w, launches = [], [], [], [0, 0, 0, 0]
+    for i in range(TRAIN_STEPS):
+        # the fp32 forward of the fp8 step's own weights (no scope, no
+        # graph): the fp8 numerics alone, free of the two trajectories'
+        # divergence
+        same_w.append(loss_fn(s8.block(x), y).item())
+        zero_fp8_counters(fa, qm)
+        torch.cuda.synchronize()
+        losses8.append(s8(x, y).item())
+        got = fp8_counters(fa, qm)
+        check(got == [FP8_SITES_PER_STEP, N_LAYERS, N_LAYERS, N_LAYERS],
+              f"fp8 step {i + 1} launched fp8/flash fwd/dkv/dq {got}, "
+              f"expected [{FP8_SITES_PER_STEP}, 12, 12, 12]")
+        launches = [a + b for a, b in zip(launches, got)]
+        if i == 0:
+            bad = [n for n, w in s8.params.items()
+                   if w.grad is None or not torch.isfinite(w.grad).all()]
+            check(not bad, f"parameters without a finite gradient after "
+                           f"fp8 step 1: {bad[:6]} ({len(bad)} in all)")
+            print(f"every one of the {len(s8.params)} trainable tensors "
+                  "has a finite gradient after fp8 step 1")
+        losses32.append(s32(x, y).item())
+    print(f"fp8 step losses {losses8}\nfp32 step losses {losses32}\n"
+          f"fp32 forward of the fp8 step's weights {same_w}")
+    check(all(onp.isfinite(losses8 + losses32 + same_w)),
+          "a loss is not finite")
+    check(losses8[-1] < losses8[0], f"the fp8 loss did not fall: {losses8}")
+    same = [abs(a - b) / abs(b) for a, b in zip(losses8, same_w)]
+    parity = abs(losses8[-1] - losses32[-1]) / abs(losses32[-1])
+    print(f"fp8 vs fp32 on the same weights, each step: "
+          f"{[f'{v:.3e}' for v in same]} (limit {FP8_SAME_WEIGHTS_TOL}); "
+          f"the two trajectories after {TRAIN_STEPS} steps: {parity:.4e} "
+          "(reported: at adam lr 1e-3 without warm-up both trajectories "
+          "spike within a few steps, at different steps)")
+    check(max(same) <= FP8_SAME_WEIGHTS_TOL, f"fp8 loss vs the fp32 forward "
+                                             f"of the same weights: {same}")
+    hist = s8.extra["fp8"]
+    for site in dense:
+        for k, slots in (("x", TRAIN_STEPS), ("w", TRAIN_STEPS),
+                         ("g", TRAIN_STEPS - 1)):
+            check(bool((hist[site][k][:slots] > 0).all()),
+                  f"{site} {k} history {hist[site][k][:TRAIN_STEPS]}")
+    for site in embed:
+        check(all(not h.any() for h in hist[site].values()),
+              f"embedding site {site} has a nonzero history")
+    g0 = sorted(s for s in dense if hist[s]["g"][TRAIN_STEPS - 1] == 0)
+    # out_proj and ffn_2 take dy from the residual stream itself, so their
+    # max |dy| is measured before any fp8 product can flush it
+    check(all(s.split(".")[-2] in FP8_FLUSHABLE for s in g0),
+          f"step 1's g amax is 0 at a site fed by the residual stream: "
+          f"{[s for s in g0 if s.split('.')[-2] not in FP8_FLUSHABLE]}")
+    print(f"{len(dense)} Dense sites hold nonzero x/w amaxes in slots "
+          f"0-{TRAIN_STEPS - 1} and g in 0-{TRAIN_STEPS - 2}; the "
+          f"{len(embed)} embedding sites hold zeros. Step 1's g amax is 0 at "
+          f"{len(g0)} sites, whose dy reached them only through an fp8 "
+          "backward product at the identity scale, where e5m2 flushes "
+          f"|dy| < 2^-16 to zero: {g0[:4]}...")
+
+    steps = {"fp8": lambda: s8(x, y), "fp32": lambda: s32(x, y)}
+    times = {k: [] for k in steps}
+    for name in ("fp8", "fp32", "fp32", "fp8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            steps[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / 2 * 1e3)
+    e2e = {"losses_fp8": losses8, "losses_fp32": losses32,
+           "fp32_forward_of_fp8_weights": same_w,
+           "same_weights_rel_diff": same, "trajectory_rel_diff": parity,
+           "sites_with_zero_step1_g_amax": len(g0),
+           "launches_per_step": {
+               "fp8_matmul": launches[0] // TRAIN_STEPS,
+               "flash": [n // TRAIN_STEPS for n in launches[1:]]}}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for name, fn in steps.items():
+        step_ms = float(onp.median(times[name]))
+        torch.cuda.reset_peak_memory_stats()
+        busy, top = device_profile(fn, 2, warmup=1, top=12)
+        row = {"step_ms": step_ms, "step_ms_runs": times[name],
+               "tokens_per_s": tokens / step_ms * 1e3,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "device_ms_per_step": busy,
+               "device_busy_share": None if busy is None else busy / step_ms,
+               "top_kernels_ms": top}
+        e2e[name] = row
+        print(f"{name} step [{card}]: " + json.dumps(row))
+    return launches, e2e
+
+
+def fp8_bound_ms(m, k, n):
+    """Least time on an H100 SXM for one fp8 matmul: x (fp32) and w (fp8)
+    read once, out (fp32) written once, against 2 M N K operations at the
+    dense fp8 rate."""
+    nbytes = 4 * m * k + n * k + 4 * n + 4 * m * n
+    return bound(nbytes, 2 * m * n * k, torch.float8_e4m3fn)
+
+
+def phase_fp8_times(dev, card):
+    """The fp8 kernel, its plain version and the quantize -> _scaled_mm ->
+    epilogue composition at the three training shapes."""
+    import itertools
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    print(f"== phase 10: fp8_matmul kernel times on {card}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    scaled_mm = getattr(torch, "_scaled_mm", None)
+    one = torch.ones((), device=dev)
+    rows = {}
+    for m, k, n in FP8_TRAIN_SHAPES:
+        sets = []
+        for _ in range(3):
+            x, wq, ws, xs = fp8_inputs(qm, dev, gen, m, n, k, "e4m3")
+            sets.append((x, wq, ws, torch.tensor([xs], device=dev)))
+        turn = itertools.cycle(sets)
+
+        def call(fn):
+            return lambda: fn(*next(turn))
+
+        def composition(x, wq, ws, xs):
+            xq = (x / xs).to(torch.float8_e4m3fn)
+            acc = scaled_mm(xq, wq.t(), scale_a=one, scale_b=one,
+                            out_dtype=torch.float32)
+            return acc * (xs * ws)
+
+        calls = {"kernel": call(qm.fp8_matmul),
+                 "plain": call(qm.fp8_matmul_plain)}
+        if scaled_mm is not None:
+            calls["composition"] = call(composition)
+        row = {}
+        for name, fn in calls.items():
+            iters = 5 if name == "plain" else 30
+            row[name + "_call_ms"] = cuda_ms(fn, iters, warmup=3)
+            row[name + "_device_ms"] = device_ms(fn, iters, warmup=3)
+        if scaled_mm is None:
+            row["composition_call_ms"] = row["composition_device_ms"] = None
+        row["bound_ms"], row["bound_by"] = fp8_bound_ms(m, k, n)
+        rows[(m, k, n)] = row
+        print(f"fp8_matmul (M, K, N) = ({m}, {k}, {n}) e4m3 [{card}]: "
+              + json.dumps(row))
+        del sets, turn
+    return rows
+
+
+def fp8_entry(launches, errs, rows):
+    per_step = {s: (4 if s[1] == s[2] else 1) * 12 for s in rows}
+    row = rows[FP8_TRAIN_SHAPES[0]]
+
+    def step_sum(name):
+        vals = [pick(rows[s], name) if rows[s][name + "_call_ms"] is not None
+                else None for s in rows]
+        if None in vals:
+            return None
+        return sum(per_step[s] * v for s, v in zip(rows, vals))
+
+    return {
+        "name": "fp8_matmul",
+        "route": "cuda",
+        "source": SOURCE.format("fp8_matmul"),
+        "replaces": TPU_QMM.format(146),
+        "launches": launches,
+        "launches_by_path": {"fp8_train": launches},
+        "launches_per_step": {"fp8_train": FP8_SITES_PER_STEP},
+        "max_abs_err": errs["max_abs_err"],
+        "max_err_share_of_sum_abs_products": errs["max_err_share"],
+        "ms": pick(row, "kernel"),
+        "plain_ms": pick(row, "plain"),
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "composition_ms": (pick(row, "composition")
+                           if row["composition_call_ms"] is not None
+                           else None),
+        "composition": "(x / xs).to(e4m3) -> torch._scaled_mm -> * (xs * ws)"
+        ": no single PyTorch call computes this function",
+        "shape": "M=8192 K=768 N=768 fp32 x, e4m3 w",
+        "by_shape": {f"M={m} K={k} N={n}": {
+            "ms": pick(r, "kernel"), "plain_ms": pick(r, "plain"),
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "composition_ms": (pick(r, "composition")
+                               if r["composition_call_ms"] is not None
+                               else None)}
+            for (m, k, n), r in rows.items()},
+        "ms_per_step": step_sum("kernel"),
+        "bound_ms_per_step": sum(per_step[s] * rows[s]["bound_ms"]
+                                 for s in rows),
+    }
+
+
 def ln_entry(kind, launches, errs, rows):
     row = rows[(kind, torch.float32)]
     return {
@@ -1117,6 +1513,7 @@ def main():
     errs = phase_kernel_vs_plain(dev)
     bwd_errs = phase_bwd_vs_plain(dev)
     ln_errs = phase_ln_vs_plain(dev)
+    fp8_errs = phase_fp8_vs_plain(dev)
     net, eng, st, wall, serve_launches = phase_main_path(dev)
     serve_shape = phase_times(dev, net, eng, st, wall, card)
     del net, eng
@@ -1132,23 +1529,35 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ln_rows = phase_ln_times(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8_launches, fp8_e2e = phase_fp8_train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8_rows = phase_fp8_times(dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
+    fa8 = fp8_launches[1:]
     print(json.dumps({"kernels": [
-        kernel_entry("fwd", serve_launches + train_launches[0], errs, rows,
+        kernel_entry("fwd", serve_launches + train_launches[0] + fa8[0],
+                     errs, rows,
                      {"launches_by_path": {"serve": serve_launches,
                                            "train": train_launches[0],
-                                           "bert_train": 0},
+                                           "bert_train": 0,
+                                           "fp8_train": fa8[0]},
                       "serve_shape": serve_shape}),
-        kernel_entry("dkv", train_launches[1], bwd_errs["dkv"], rows,
+        kernel_entry("dkv", train_launches[1] + fa8[1], bwd_errs["dkv"], rows,
                      {"launches_by_path": {"train": train_launches[1],
-                                           "bert_train": 0}}),
-        kernel_entry("dq", train_launches[2], bwd_errs["dq"], rows,
+                                           "bert_train": 0,
+                                           "fp8_train": fa8[1]}}),
+        kernel_entry("dq", train_launches[2] + fa8[2], bwd_errs["dq"], rows,
                      {"launches_by_path": {"train": train_launches[2],
-                                           "bert_train": 0}}),
+                                           "bert_train": 0,
+                                           "fp8_train": fa8[2]}}),
         ln_entry("fwd", bert_launches[0], ln_errs, ln_rows),
         ln_entry("bwd", bert_launches[1], ln_errs, ln_rows),
-    ], "train": train_e2e, "bert_train": bert_e2e}))
+        fp8_entry(fp8_launches[0], fp8_errs, fp8_rows),
+    ], "train": train_e2e, "bert_train": bert_e2e, "fp8_train": fp8_e2e}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,18 +10,20 @@ The ported slices are serving (``serve.load(GPTForCausalLM(...))``, prefill
 attention through the flash-attention forward kernel) and training
 (``autograd.record()`` -> ``autograd.backward(loss)`` ->
 ``gluon.Trainer.step``, attention gradients through the two
-flash-attention backward kernels). Entry points run on ``cuda:0`` unless
-given ``device="cpu"``.
+flash-attention backward kernels), BERT training (the ln_residual kernels)
+and fp8 training (``parallel.ShardedTrainStep(..., precision="fp8")``, the
+fp8 matmul kernel on every eligible Dense). Entry points run on ``cuda:0``
+unless given ``device="cpu"``.
 """
-from . import autograd, config, context, functional, gluon, initializer
+from . import amp, autograd, config, context, functional, gluon, initializer
 from . import lr_scheduler
 from . import numpy_extension as npx
-from . import optimizer, random, serve
+from . import optimizer, parallel, random, serve
 from .base import MXNetError
 from .context import resolve_device
 
 __version__ = "2.0.0a1"
 
-__all__ = ["MXNetError", "autograd", "config", "context", "functional",
-           "gluon", "initializer", "lr_scheduler", "npx", "optimizer",
-           "random", "resolve_device", "serve"]
+__all__ = ["MXNetError", "amp", "autograd", "config", "context",
+           "functional", "gluon", "initializer", "lr_scheduler", "npx",
+           "optimizer", "parallel", "random", "resolve_device", "serve"]

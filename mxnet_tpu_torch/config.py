@@ -88,6 +88,25 @@ declare("fused_ln_residual", str, "auto", "MXNET_FUSED_LN_RESIDUAL",
         "Fused dropout+residual+LayerNorm kernel in post-norm transformer "
         "encoder cells: 'auto' (CUDA tensor and live dropout), 'on', "
         "'off'.")
+declare("quantize.fused_matmul", str, "auto", "MXNET_QUANTIZE_FUSED_MATMUL",
+        "fp8 fused quantize+matmul+epilogue route of npx.fp8_dense_fused: "
+        "'auto' (the CUDA kernel on a CUDA tensor, raising on a card it "
+        "was not built for; the plain chain on a CPU tensor), 'on' (the "
+        "kernel; raises on the CPU), 'off' (the plain chain).")
+declare("quantize.fp8_format", str, "e4m3", "MXNET_QUANTIZE_FP8_FORMAT",
+        "fp8 activation/weight format for the fp8 matmul variant: 'e4m3' "
+        "(more mantissa, inference default) or 'e5m2' (more range).")
+declare("amp.fp8_history", int, 16, "MXNET_AMP_FP8_HISTORY",
+        "Delayed-scaling amax history length (steps) for fp8 training: "
+        "each tensor's quantization scale derives from the max |x| seen "
+        "over this many past steps.")
+declare("amp.fp8_margin", float, 1.0, "MXNET_AMP_FP8_MARGIN",
+        "Safety margin multiplied into the delayed-scaling amax before "
+        "mapping it to the fp8 format's absmax; >1 trades headroom for "
+        "resolution against inter-step amax growth.")
+declare("amp.fp8_min_elems", int, 256, "MXNET_AMP_FP8_MIN_ELEMS",
+        "Smallest 2-D '.weight' parameter (elements) the fp8 training "
+        "path quantizes; smaller layers stay in fp32.")
 declare("serve.max_slots", int, 8, "MXNET_SERVE_MAX_SLOTS",
         "Decode slots in the serve engine: the fixed batch dimension of "
         "the decode step and of every preallocated KV-cache tensor.")

@@ -3,7 +3,9 @@
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Dense`` (weight
 layout (units, in_units), an optional ``Activation`` child), ``Activation``,
 ``Embedding``, ``LayerNorm`` (parameters ``gamma``/``beta``) and
-``Dropout``, with the reference's argument names.
+``Dropout``, with the reference's argument names. Under an fp8 training
+scope (``amp.fp8.scope``) a ``Dense`` whose weight is a site runs through
+``amp.fp8.dense_fp8``; its activation still applies afterwards.
 Each creates its parameters (trainable, ``grad_req="write"``) on its
 device at construction, so the input width (``in_units`` /
 ``in_channels``) is required: the reference's deferred shape inference is
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ... import autograd
+from ...amp import fp8 as _fp8
 from ... import numpy_extension as npx
 from ... import random as _random
 from ...base import MXNetError
@@ -55,8 +58,16 @@ class Dense(HybridBlock):
         self.act = Activation(activation) if activation else None
 
     def forward(self, x):
-        out = npx.fully_connected(x, self.weight, self.bias,
-                                  flatten=self._flatten)
+        fp8 = _fp8.current()
+        site = fp8.sites.get(self.weight) if fp8 is not None else None
+        if site is not None and site in fp8.scales:
+            # fp8 training scope (amp/fp8.py): a weight that is a site runs
+            # the fp8 product; the others take the fp32 dense path
+            out = _fp8.dense_fp8(x, self.weight, self.bias, site,
+                                 flatten=self._flatten)
+        else:
+            out = npx.fully_connected(x, self.weight, self.bias,
+                                      flatten=self._flatten)
         return self.act(out) if self.act is not None else out
 
     def extra_repr(self):

@@ -1,8 +1,9 @@
 """The ``npx`` operators on the ported paths, as plain PyTorch.
 
 Counterpart of ``mxnet_tpu/numpy_extension/__init__.py`` (fully_connected,
-layer_norm, activation, leaky_relu, exact-erf gelu, embedding); the rest
-of that module waits for later slices of the port.
+layer_norm, activation, leaky_relu, exact-erf gelu, embedding, and
+``fp8_dense_fused`` from ``ops/quantization.py``); the rest of that module
+waits for later slices of the port.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch.nn.functional as F
 from .base import MXNetError
 
 __all__ = ["fully_connected", "layer_norm", "activation", "leaky_relu",
-           "gelu", "embedding"]
+           "gelu", "embedding", "fp8_dense_fused"]
 
 # the JAX package's ``_ACTS`` table; its "gelu" is jax.nn.gelu's default,
 # the tanh approximation
@@ -69,3 +70,13 @@ def gelu(x):
 def embedding(ids, weight):
     """Row gather ``weight[ids]`` (reference: indexing_op.cc Embedding)."""
     return F.embedding(ids.long(), weight)
+
+
+def fp8_dense_fused(data, weight, x_scale, w_scale, bias=None, act=None,
+                    flatten=True, fmt=None):
+    """fp8-activation dense layer with a fused epilogue: see
+    :func:`mxnet_tpu_torch.ops.quantization.fp8_dense_fused` (imported at
+    the call: the ops import this module's activation table)."""
+    from .ops.quantization import fp8_dense_fused as dense
+    return dense(data, weight, x_scale, w_scale, bias=bias, act=act,
+                 flatten=flatten, fmt=fmt)

@@ -1,0 +1,200 @@
+"""Fused fp8 quantize + matmul + epilogue: the CUDA kernel written for
+Hopper, its plain PyTorch version, and the fp8 cast rule they share.
+
+Counterpart of the fp8 half of ``mxnet_tpu/ops/pallas/quant_matmul.py``
+(``FP8_FORMATS``, ``fp8_capable``, ``fp8_matmul`` -> ``_fp8_kernel``). The
+kernel source is ``mxnet_tpu_torch/csrc/fp8_matmul.cu``; its header says
+what it replaces, what bounds it on the H100 (bytes) and what the design
+does about that.
+
+:func:`fp8_matmul` computes ``act((fp8(x / x_scale) @ w_q.T) * (x_scale *
+w_scale) + bias)`` for x ``(M, K)`` fp32, ``w_q`` ``(N, K)`` in an fp8
+dtype, ``w_scale`` ``(N,)`` fp32 and a scalar ``x_scale``, with an fp32
+accumulator, and returns ``(M, N)`` fp32. A CPU tensor takes
+:func:`fp8_matmul_plain`; a CUDA tensor launches the kernel or raises. The
+TPU kernel's block table (``autotune``) and its 32/128 padding rule are not
+carried over: the kernel takes any M, N and K.
+
+The cast is the JAX package's (ml_dtypes): round to nearest even, and past
+the format's top NaN for e4m3fn and +-inf for e5m2. ``Tensor.to()`` and the
+card's ``cvt.satfinite`` saturate instead, so :func:`quantize` and the
+kernel both test for overflow themselves.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _native
+from ..base import MXNetError
+from ..numpy_extension import _ACTS
+
+__all__ = ["FP8_FORMATS", "fp8_capable", "quantize", "fp8_matmul",
+           "fp8_matmul_plain"]
+
+#: fp8 storage formats: name -> (dtype, absmax of the format)
+FP8_FORMATS = {
+    "e4m3": (torch.float8_e4m3fn, 448.0),
+    "e5m2": (torch.float8_e5m2, 57344.0),
+}
+_FMT_CODES = {"e4m3": 0, "e5m2": 1}
+_DTYPE_FMT = {dt: name for name, (dt, _) in FP8_FORMATS.items()}
+_ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "gelu": 4}
+
+
+@functools.cache
+def _capability(index):
+    return torch.cuda.get_device_capability(index)
+
+
+def fp8_capable(device=None):
+    """True for a CUDA device of compute capability 9.0, the target the
+    kernel is built for (``sm_90a``); False on the CPU. ``None`` asks about
+    ``cuda:0`` where CUDA is present."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return False
+        device = torch.device("cuda", 0)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    return _capability(device.index or 0) == (9, 0)
+
+
+def _validate(fmt, act):
+    if fmt not in FP8_FORMATS:
+        raise ValueError(f"unknown fp8 format {fmt!r}; "
+                         f"one of {sorted(FP8_FORMATS)}")
+    if act not in _ACT_CODES:
+        raise ValueError(f"unsupported fused activation {act!r}")
+
+
+def quantize(v, fmt):
+    """``v`` (float) cast to the fp8 format ``fmt`` by the JAX rule: round
+    to nearest even; past the top (|v| > 464 for e4m3, whose tie at 464
+    rounds down to 448; |v| >= 61440 for e5m2, whose tie rounds up) NaN in
+    e4m3fn and +-inf in e5m2."""
+    dt, _ = FP8_FORMATS[fmt]
+    v = v.float()
+    a = v.abs()
+    if fmt == "e4m3":
+        over, code = a > 464.0, torch.full_like(a, 0x7F, dtype=torch.uint8)
+    else:
+        over = a >= 61440.0
+        code = torch.where(v < 0, 0xFC, 0x7C).to(torch.uint8)
+    bits = torch.where(over, code, v.to(dt).view(torch.uint8))
+    return bits.view(dt)
+
+
+def _act(out, act):
+    return out if act is None else _ACTS[act](out)
+
+
+def _scale_tensor(x_scale, device):
+    """x_scale as a 1-element fp32 tensor on ``device``."""
+    if isinstance(x_scale, torch.Tensor):
+        if x_scale.numel() != 1:
+            raise MXNetError(f"x_scale must be a scalar, got shape "
+                             f"{tuple(x_scale.shape)}")
+        return x_scale.reshape(1).to(device=device, dtype=torch.float32)
+    return torch.full((1,), float(x_scale), dtype=torch.float32,
+                      device=device)
+
+
+def fp8_matmul_plain(x, w_q, w_scale, x_scale, bias=None, act=None,
+                     fmt="e4m3"):
+    """The kernel's function in plain PyTorch, step by step as the TPU
+    kernel writes it: quantize ``x / x_scale`` by the JAX cast rule, upcast
+    both operands to fp32, ``x_q @ w_q.T`` in fp32, then ``acc * (x_scale
+    * w_scale) + bias`` and the activation."""
+    _validate(fmt, act)
+    xs = _scale_tensor(x_scale, x.device)
+    xq = quantize(x.float() / xs, fmt)
+    acc = xq.float() @ w_q.float().t()
+    out = acc * (xs * w_scale.float())
+    if bias is not None:
+        out = out + bias.float()
+    return _act(out, act)
+
+
+def _check(x, w_q, w_scale, bias):
+    if x.ndim != 2 or w_q.ndim != 2 or w_q.shape[1] != x.shape[1]:
+        raise MXNetError(f"fp8_matmul takes x (M, K) and w_q (N, K), got "
+                         f"{tuple(x.shape)}, {tuple(w_q.shape)}")
+    if x.dtype != torch.float32:
+        raise MXNetError(f"fp8_matmul: x must be float32, got {x.dtype}")
+    if w_q.dtype not in _DTYPE_FMT:
+        raise MXNetError(f"fp8_matmul: w_q must be float8_e4m3fn or "
+                         f"float8_e5m2, got {w_q.dtype}")
+    n = w_q.shape[0]
+    for name, t in (("w_scale", w_scale), ("bias", bias)):
+        if t is not None and (tuple(t.shape) != (n,)
+                              or t.dtype != torch.float32):
+            raise MXNetError(f"{name} must be float32 ({n},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    tensors = [t for t in (x, w_q, w_scale, bias) if t is not None]
+    if not all(t.device == x.device for t in tensors):
+        raise MXNetError("fp8_matmul: inputs on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise MXNetError("fp8_matmul needs contiguous inputs")
+
+
+def _bind(lib):
+    lib.fp8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    lib.fp8_matmul.restype = ctypes.c_int
+    lib.fp8_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.fp8_matmul_error_string.restype = ctypes.c_char_p
+
+
+def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
+    """``act(dequant(fp8(x / x_scale) @ w_q.T) + bias)`` in one pass.
+
+    x: (M, K) fp32; w_q: (N, K) float8_e4m3fn or float8_e5m2 (per output
+    channel scaled); w_scale: (N,) fp32; x_scale: scalar (a number or a
+    one-element tensor, read on the device); bias: (N,) fp32 or None; act:
+    None, 'relu', 'sigmoid', 'tanh' or 'gelu' (tanh form); fmt: the
+    activation's format, 'e4m3' or 'e5m2'. Returns (M, N) fp32.
+
+    CPU tensors go to :func:`fp8_matmul_plain`; CUDA tensors launch the
+    kernel of ``csrc/fp8_matmul.cu`` (built at first use) on a capable card
+    (:func:`fp8_capable`) or raise, and count one launch in
+    ``fp8_matmul.launches``."""
+    _validate(fmt, act)
+    _check(x, w_q, w_scale, bias)
+    if x.device.type == "cpu":
+        return fp8_matmul_plain(x, w_q, w_scale, x_scale, bias, act, fmt)
+    if x.device.type != "cuda":
+        raise MXNetError(f"fp8_matmul: unsupported device {x.device}")
+    if x.device.index not in (None, 0):
+        raise MXNetError("the CUDA kernels run on cuda:0 only in this slice "
+                         f"of the port, got {x.device}")
+    if not fp8_capable(x.device):
+        raise MXNetError(f"fp8_matmul: {torch.cuda.get_device_name(x.device)}"
+                         " is not compute capability 9.0, which the fp8 "
+                         "kernel is built for")
+    m, k = x.shape
+    n = w_q.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    xs = _scale_tensor(x_scale, x.device)
+    vec = int(k % 16 == 0 and x.data_ptr() % 16 == 0
+              and w_q.data_ptr() % 16 == 0)
+    lib = _native.load("fp8_matmul", _bind)
+    rc = lib.fp8_matmul(
+        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
+        _FMT_CODES[fmt], _FMT_CODES[_DTYPE_FMT[w_q.dtype]], _ACT_CODES[act],
+        vec, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        msg = lib.fp8_matmul_error_string(rc).decode()
+        raise MXNetError(f"fp8_matmul launch failed: {msg} (code {rc}; "
+                         f"M={m} N={n} K={k} fmt={fmt})")
+    fp8_matmul.launches += 1
+    return out
+
+
+fp8_matmul.launches = 0

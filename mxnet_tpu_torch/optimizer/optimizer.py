@@ -14,7 +14,8 @@ The update rules are the reference's arithmetic (not ``torch.optim``'s):
 - ``AdamW`` decouples the decay: ``w -= lr * (mhat / (sqrt(vhat) + eps)
   + wd * w)``;
 - ``clip_gradient`` clips elementwise after rescaling;
-- ``t`` is the parameter's own update count.
+- ``t`` is the parameter's own update count (the optimizer's
+  ``num_update`` for a functional step that calls ``_update_impl``).
 
 They run as plain PyTorch in place on the weight and state tensors (the
 reference runs them as one XLA program per step; no Pallas kernel is
@@ -201,7 +202,11 @@ class Adam(Optimizer):
         return m, v
 
     def _t(self, index):
-        return float(max(self._index_update_count[index], 1))
+        # the parameter's own count after update(); the step's num_update
+        # when a functional step calls _update_impl directly
+        # (parallel.ShardedTrainStep), as the reference's Adam reads it
+        t = self._index_update_count.get(index, self.num_update)
+        return float(max(t, 1))
 
     def _update_impl(self, index, w, g, state, lr, wd):
         g = self._prep_grad(g).add_(w, alpha=wd)

@@ -19,7 +19,16 @@ arithmetic), dgamma/dbeta atol 1e-5 of their largest |value| (sums over
 up to 4096 rows in another order); bf16 rtol 2^-7 plus atol 2^-10 of the
 largest |value|, as above. BERT on the card vs the CPU: losses atol =
 rtol = 1e-4, gradients atol 1e-4 + rtol 1e-3, weights atol 1e-4 (as the
-GPT comparison).
+GPT comparison). fp8 matmul kernel vs its plain version: the same NaN and
+inf positions, and elsewhere |err| <= 2^-20 of the sum of |products| x
+|x_scale * w_scale| plus 1e-6 of |out| (exact fp8 products, summed in the
+tensor core's fp32 accumulator in another order than torch's fp32
+matmul, measured at most 6.1e-8, about 2^-24, of that sum on the H100;
+the epilogue is the same arithmetic). fp8 training on the card vs
+the CPU: losses rtol 1e-4, weights after two Adam steps 99% within 5e-4
+and all within 2e-3, and the second step's amaxes 5%: an ulp of
+difference upstream can move a value across an fp8 rounding boundary
+(see tests/test_torch_fp8.py).
 """
 import numpy as onp
 import pytest
@@ -30,6 +39,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as tattn
 from mxnet_tpu_torch.ops import flash_attention as tflash
 from mxnet_tpu_torch.ops import ln_residual as tln
+from mxnet_tpu_torch.ops import quant_matmul as tqm
 
 pytestmark = pytest.mark.cuda
 
@@ -356,3 +366,195 @@ def test_bert_training_on_card_matches_cpu(cuda_device):
     for name, w in ref[2].items():
         onp.testing.assert_allclose(card[2][name], w, atol=1e-4, rtol=0,
                                     err_msg=name)
+
+
+# -- fp8 matmul (kernel 7) ---------------------------------------------------
+
+FP8_SHAPES = [(1, 5, 100), (37, 130, 256), (130, 5, 100), (200, 300, 768)]
+FP8_ACTS = [None, "relu", "sigmoid", "tanh", "gelu"]
+
+
+def _fp8_inputs(m, n, k, fmt, wfmt, device, seed, overflow=False):
+    rs = onp.random.RandomState(seed)
+    wdt, wmax = tqm.FP8_FORMATS[wfmt]
+    _, absmax = tqm.FP8_FORMATS[fmt]
+    x = rs.randn(m, k).astype("float32")
+    w = (rs.randn(n, k) * 0.5).astype("float32")
+    ws = (onp.abs(w).max(axis=1) / wmax).astype("float32")
+    xs = float(onp.abs(x).max() / absmax)
+    if overflow:
+        x[0, 3] = 2.5 * absmax * xs
+        x[-1, 0] = -70000.0 * xs
+    wq = tqm.quantize(torch.from_numpy(w / ws[:, None]), wfmt)
+    b = torch.from_numpy(rs.randn(n).astype("float32"))
+    return (torch.from_numpy(x).to(device), wq.to(device),
+            torch.from_numpy(ws).to(device), xs, b.to(device))
+
+
+def fp8_check(out, ref, x, wq, ws, xs, fmt):
+    """The kernel's output against the plain version's at the tolerance of
+    the module docstring; returns max |err| over the finite values."""
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    assert torch.equal(out[torch.isinf(out)], ref[torch.isinf(ref)])
+    fin = torch.isfinite(ref)
+    mag = (tqm.quantize(x / xs, fmt).float().abs().nan_to_num(0, 0, 0)
+           @ wq.float().abs().t()) * (xs * ws).abs()
+    err = (out - ref).abs()
+    tol = 2.0 ** -20 * mag + 1e-6 * ref.abs()
+    assert bool((err[fin] <= tol[fin]).all()), float(err[fin].max())
+    return float(err[fin].max()) if fin.any() else 0.0
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("act", FP8_ACTS)
+@pytest.mark.parametrize("fmt,wfmt", [("e4m3", "e4m3"), ("e5m2", "e5m2"),
+                                      ("e4m3", "e5m2"), ("e5m2", "e4m3")])
+@pytest.mark.parametrize("m,n,k", FP8_SHAPES)
+def test_fp8_kernel_matches_plain_version(cuda_device, m, n, k, fmt, wfmt,
+                                          act, bias):
+    x, wq, ws, xs, b = _fp8_inputs(m, n, k, fmt, wfmt, cuda_device,
+                                   seed=m + n + k)
+    b = b if bias else None
+    before = tqm.fp8_matmul.launches
+    out = tqm.fp8_matmul(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+    torch.cuda.synchronize()
+    assert tqm.fp8_matmul.launches == before + 1
+    ref = tqm.fp8_matmul_plain(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    fp8_check(out, ref, x, wq, ws, xs, fmt)
+
+
+@pytest.mark.parametrize("act", [None, "relu"])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_fp8_kernel_overflow_matches_plain_version(cuda_device, fmt, act):
+    """Past the format's top the kernel's cast gives NaN (e4m3fn) or inf
+    (e5m2) where the plain version's JAX rule does, not a saturated
+    value."""
+    x, wq, ws, xs, b = _fp8_inputs(37, 130, 256, fmt, fmt, cuda_device,
+                                   seed=3, overflow=True)
+    out = tqm.fp8_matmul(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+    ref = tqm.fp8_matmul_plain(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(ref).all()
+    fp8_check(out, ref, x, wq, ws, xs, fmt)
+
+
+def test_fp8_kernel_quantizes_the_training_operands_bit_for_bit(
+        cuda_device):
+    """The capable branch of fp8_linear hands the kernel qx / x_scale and
+    1 / x_scale; the kernel's own cast of that must give qx back bit for
+    bit. Probed through an identity weight (acc = the quantized value,
+    times xs * ws = 1 within an ulp, which rounds back to the same fp8
+    value), then the branch's output against the fallback's."""
+    from mxnet_tpu_torch.amp import fp8 as tfp8
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(64, 768, device=cuda_device, generator=gen) * 3
+    w = torch.randn(768, 768, device=cuda_device, generator=gen) * 0.07
+    xs = torch.tensor(448.0 / 9.5, device=cuda_device)
+    ws = torch.tensor(448.0 / 0.3, device=cuda_device)
+    qx = tfp8._qcast(x, xs, "e4m3")
+    h2 = qx.float() / xs
+    eye = torch.eye(768, device=cuda_device).to(torch.float8_e4m3fn)
+    probe = tqm.fp8_matmul(h2, eye, torch.full((768,), 1.0,
+                                               device=cuda_device) * xs,
+                           1.0 / xs, fmt="e4m3")
+    assert torch.equal(probe.to(torch.float8_e4m3fn).view(torch.uint8),
+                       qx.view(torch.uint8))
+    before = tqm.fp8_matmul.launches
+    y, qx2, qw = tfp8._fwd_value(x, w, None, xs, ws)
+    torch.cuda.synchronize()
+    assert tqm.fp8_matmul.launches == before + 1
+    assert torch.equal(qx2.view(torch.uint8), qx.view(torch.uint8))
+    fallback = (qx.float() @ qw.float().t()) / (xs * ws)
+    mag = (qx.float().abs() @ qw.float().abs().t()) / (xs * ws)
+    assert bool(((y - fallback).abs() <= 2.0 ** -20 * mag
+                 + 1e-6 * fallback.abs()).all())
+
+
+@pytest.mark.parametrize("bad", ["float16", "w_float32", "cpu_mix",
+                                 "contiguity", "ws_shape", "fmt"])
+def test_fp8_wrapper_raises(cuda_device, bad):
+    x, wq, ws, xs, _ = _fp8_inputs(16, 32, 64, "e4m3", "e4m3", cuda_device,
+                                   seed=0)
+    if bad == "float16":
+        x = x.half()
+    elif bad == "w_float32":
+        wq = wq.float()
+    elif bad == "cpu_mix":
+        wq = wq.cpu()
+    elif bad == "contiguity":
+        x = torch.cat([x, x], dim=1)[:, ::2]
+    elif bad == "ws_shape":
+        ws = ws[:-1]
+    err = ValueError if bad == "fmt" else MXNetError
+    with pytest.raises(err):
+        tqm.fp8_matmul(x, wq, ws, xs, fmt="e3m4" if bad == "fmt" else "e4m3")
+
+
+def test_fp8_routes_raise_on_a_card_the_kernel_was_not_built_for(
+        cuda_device, monkeypatch):
+    """No fallback hides the kernel: with fp8_capable False (a card of
+    another compute capability), a Dense under fp8.scope and
+    npx.fp8_dense_fused on "auto" raise, and launch nothing."""
+    from mxnet_tpu_torch.amp import fp8 as tfp8
+    from mxnet_tpu_torch.gluon import nn
+    monkeypatch.setattr(tqm, "fp8_capable", lambda device=None: False)
+    net = nn.Dense(64, in_units=32, device=cuda_device)
+    net.initialize(seed=0)
+    one = torch.ones((), device=cuda_device)
+    before = tqm.fp8_matmul.launches
+    with tfp8.scope({"weight": (one, one, one)}, {net.weight: "weight"}):
+        with pytest.raises(MXNetError, match="compute capability"):
+            net(torch.randn(8, 32, device=cuda_device))
+    x, wq, ws, xs, _ = _fp8_inputs(16, 32, 64, "e4m3", "e4m3", cuda_device,
+                                   seed=0)
+    with pytest.raises(MXNetError, match="compute capability"):
+        tmx.npx.fp8_dense_fused(x, wq, xs, ws)
+    assert tqm.fp8_matmul.launches == before
+
+
+def test_fp8_training_on_card_matches_cpu(cuda_device):
+    """Two Adam steps of ShardedTrainStep(precision="fp8") over a small GPT
+    on the card and on the CPU from the same weights: every Dense site
+    launches the kernel once a step, and losses, weights and amax
+    histories agree at the module docstring's tolerances."""
+    from mxnet_tpu_torch import functional
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM
+    from mxnet_tpu_torch.ops.xent import sparse_softmax_xent
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    cfg = dict(vocab_size=97, units=128, hidden_size=256, num_layers=2,
+               num_heads=2, max_length=64, dropout=0.0, embed_dropout=0.0)
+    arrays = functional.param_arrays(
+        GPTForCausalLM(device="cpu", **cfg).initialize(seed=6))
+    ids = torch.from_numpy(onp.random.RandomState(7).randint(0, 97, (4, 41)))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        net = GPTForCausalLM(device=dev, **cfg)
+        functional.load_params(net, arrays)
+        for name, p in net.collect_params().items():
+            if "key_proj.bias" in name:
+                p.grad_req = "null"  # zero gradient in exact arithmetic
+        cfg_mesh = MeshConfig(dp=1)
+        step = ShardedTrainStep(
+            net, lambda out, y: sparse_softmax_xent(out, y).mean(), "adam",
+            cfg_mesh, cfg_mesh.batch_specs(2, 2), precision="fp8")
+        before = tqm.fp8_matmul.launches
+        losses = [step(ids[:, :-1], ids[:, 1:]).cpu() for _ in range(2)]
+        if dev != "cpu":
+            assert tqm.fp8_matmul.launches - before == 2 * 12
+        hist = {s: {k: v.cpu() for k, v in h.items()}
+                for s, h in step.extra["fp8"].items()}
+        runs[str(dev)] = (losses, functional.param_arrays(net), hist)
+    card, ref = runs[str(cuda_device)], runs["cpu"]
+    for a, b in zip(card[0], ref[0]):
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-4)
+    for name, w in ref[1].items():
+        diff = onp.abs(card[1][name] - w)
+        assert (diff > 5e-4).mean() < 0.01 and diff.max() <= 2e-3, name
+    for site, h in ref[2].items():
+        for k, v in h.items():
+            torch.testing.assert_close(card[2][site][k][1:], v[1:], atol=0,
+                                       rtol=1e-3)
+            torch.testing.assert_close(card[2][site][k][0], v[0], atol=0,
+                                       rtol=0.05)

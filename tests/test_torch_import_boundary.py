@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
-Every module of ``mxnet_tpu_torch/`` and ``chip_smoke.py`` is scanned for
+Every module of ``mxnet_tpu_torch/``, ``chip_smoke.py`` and
+``tools/fp8_loss_curves.py`` is scanned for
 imports of ``jax``, ``jaxlib`` or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself
 is allowed), and a fresh interpreter that imports the port must end up
 with neither ``jax`` nor ``mxnet_tpu`` loaded.
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "fp8_loss_curves.py"]
 BANNED = ("jax", "jaxlib", "mxnet_tpu")
 
 
@@ -53,7 +54,9 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.ops.xent, mxnet_tpu_torch.lr_scheduler, "
             "mxnet_tpu_torch.ops.ln_residual, mxnet_tpu_torch.random, "
-            "mxnet_tpu_torch.gluon.model_zoo.bert; "
+            "mxnet_tpu_torch.gluon.model_zoo.bert, mxnet_tpu_torch.amp.fp8, "
+            "mxnet_tpu_torch.parallel, mxnet_tpu_torch.ops.quant_matmul, "
+            "mxnet_tpu_torch.ops.quantization; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
