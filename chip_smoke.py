@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Build every kernel from ``mxnet_tpu_torch/csrc`` (``nvcc`` for sm_90a,
    one process per source, all started together): the flash-attention
    forward and the two backward kernels (dK/dV, dQ), the ln_residual
-   forward and backward, and the fp8 matmul. Print the build time, each
-   kernel's ptxas registers and spills, the card and CUDA.
+   forward and backward, the fp8 matmul and the int8 matmul. Print the
+   build time, each kernel's ptxas registers and spills, the card and
+   CUDA.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 32 and 128 (seq 200,
@@ -44,6 +45,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    (exact fp8 products summed in the tensor core's fp32 accumulator in
    another order; the largest err / that sum read 6.1e-8, about 2^-24,
    on the H100); the largest err / that sum is printed.
+2e. The int8 matmul kernel against its plain version (``quantize_int8``,
+   the int8 product summed exactly as float64, the same epilogue): (M, K,
+   N) = (1, 100, 5), (37, 256, 130), (130, 100, 5), (64, 200, 70) (K not a
+   multiple of 16: no 16-byte path), (37, 256, 130) with x at an offset
+   that is not 16-byte aligned, every activation, with and without bias;
+   then the pooler's (32, 768, 768) with tanh and the three BERT-base
+   shapes (4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768) with
+   bias. x_scale is a power of two, so the planted exact .5 ties of x /
+   x_scale round half to even; NaN, +-inf and values past +-127 are
+   planted too. No activation and relu: bit for bit (both sides sum
+   exactly and round the epilogue alike); sigmoid, tanh and gelu: atol =
+   rtol = 1e-6 (the card's tanhf/expf against torch's). The largest
+   error is printed.
 3. Serving at full GPT-2 124M width (vocab 50257, 768 units, 12 layers,
    12 heads, max_length 1024, fp32, seeded Uniform(0.07) weights):
    ``serve.load(net, max_slots=8)`` with the default buckets, ``warmup()``,
@@ -136,6 +150,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    card's torch has no ``_scaled_mm``), beside the bound: bytes (x read,
    w read, out written) over 3.35 TB/s against 2 M N K over the 1979
    TFLOP/s dense fp8 rate.
+11. int8 inference of BERT-base at full width, the int8 slice's main
+   path: ``bert_12_768_12`` (vocab 30522, 768 units, FFN 3072, 12 layers,
+   12 heads, max_length 512, fp32, seeded Uniform(0.07) weights) through
+   ``contrib.quantization.quantize_net(net, calib_data=<2 batches of 32 x
+   128 ids from RandomState(1)>, calib_mode="naive")``, which must
+   replace 73 Dense layers (12 x query, key, value, out, ffn_1, ffn_2 and
+   the tanh pooler) and leave ``net`` with its 73 Dense layers. The batch
+   is phase 7's ids, token types and valid lengths (64..128), in
+   inference. Counters are zeroed just before the quantized forward and
+   read just after: the int8 kernel must launch 73 times, the flash,
+   ln_residual and fp8 kernels 0 times (valid lengths mask attention; no
+   dropout). The same forward with ``quantize.fused_matmul="off"`` (the
+   plain chain on the card) must give a bit-identical sequence output and
+   the pooled output within atol = rtol = 1e-6 (tanh in the epilogue).
+   The int8-vs-fp32 error of both outputs (max |diff| / max |fp32|) is
+   printed and held under ``INT8_VS_FP32_TOL``. Then the fp32 and the
+   int8 forward in turns: ms per forward (synchronized host clock and CUDA
+   events), samples/s, device ms and busy share with the top kernels
+   (``torch.profiler``), peak memory.
+12. int8 matmul kernel times at the BERT-base shapes (4096, 768, 768),
+   (4096, 768, 3072), (4096, 3072, 768) and the pooler's (32, 768, 768)
+   (fp32 x, int8 w, bias; tanh at the pooler; three input sets in turn):
+   device ms of the kernel, of its plain version and of the composition
+   ``quantize_int8`` -> ``torch._int_mm`` -> ``* (xs * ws) + b`` (a
+   yardstick only, never used by the port; null where ``_int_mm``
+   refuses the shape), beside the bound: bytes (x read, w, w_scale and
+   bias read, out written) over 3.35 TB/s against 2 M N K over the 1979
+   TOP/s dense int8 rate.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -156,7 +198,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
-              torch.float8_e4m3fn: 1979e12}
+              torch.float8_e4m3fn: 1979e12, torch.int8: 1979e12}
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 2e-2
 BF16_BWD_RTOL, BF16_BWD_ATOL_SHARE = 2.0 ** -7, 2.0 ** -10
@@ -171,6 +213,7 @@ LN_TOL = dict(atol=1e-5, rtol=1e-5)
 LN_SHARE = 1e-5  # of max |ref|: dgamma/dbeta, the zero-variance row
 LN_OFFSET_TOL = dict(atol=1e-4, rtol=1e-5)  # rows with mean ~100
 BERT_VOCAB, BERT_BATCH, BERT_SEQ, BERT_STEPS = 30522, 32, 128, 9
+BERT_UNITS = 768
 BERT_MASK_ID = 103  # [MASK] in BERT's uncased vocabulary
 LN_ROWS, LN_DIM, LN_P = BERT_BATCH * BERT_SEQ, 768, 0.1
 TPU_QMM = "mxnet_tpu/ops/pallas/quant_matmul.py:{}"
@@ -185,6 +228,16 @@ FP8_SAME_WEIGHTS_TOL = 5e-3
 # product (tests/test_torch_fp8.py: test_fp8_step_flushes_small_gradients_
 # like_jax), so that step 1 at the identity scale may flush it to zero
 FP8_FLUSHABLE = ("query_proj", "key_proj", "value_proj", "ffn_1")
+# int8 kernel vs its plain version for sigmoid, tanh and gelu
+INT8_ACT_TOL = dict(atol=1e-6, rtol=1e-6)
+# (M, K, N) of the int8 BERT-base forward and its launches per forward
+INT8_BERT_SHAPES = {(4096, 768, 768): 48, (4096, 768, 3072): 12,
+                    (4096, 3072, 768): 12, (32, 768, 768): 1}
+INT8_LAYERS = 73
+# int8 vs fp32 BERT-base outputs, max |diff| / max |fp32|: over 2x the
+# first reading, 0.0515 and 0.148, on an H100 SXM (NVIDIA H100 80GB HBM3,
+# 700 W)
+INT8_VS_FP32_TOL = {"sequence": 0.12, "pooled": 0.35}
 
 
 def fail(msg):
@@ -293,6 +346,10 @@ def ptxas_summary(log):
                         f"{fmts[int(tpl[2])]} vec={tpl[3]}" if tpl
                         else "fp8_matmul ?")
                 continue
+            if "int8_matmul" in mangled:
+                vec = re.search(r"ILb(\d)E", mangled)
+                name = f"int8_matmul vec={vec[1] if vec else '?'}"
+                continue
             if "ln_residual" in mangled:
                 name = "ln_fwd" if "fwd" in mangled else "ln_bwd"
                 continue
@@ -328,7 +385,7 @@ def phase_build():
     print("== phase 1: build", flush=True)
     t0 = time.perf_counter()
     libs = _native.build(["flash_attention_fwd", "flash_attention_bwd",
-                          "ln_residual", "fp8_matmul"])
+                          "ln_residual", "fp8_matmul", "int8_matmul"])
     dt = time.perf_counter() - t0
     for name, path in libs.items():
         print(f"built {name}: {path.name}")
@@ -1397,6 +1454,309 @@ def phase_fp8_times(dev, card):
     return rows
 
 
+def int8_inputs(qm, dev, gen, m, k, n, offset=False):
+    """Seeded (x, w_q, ws, xs, b) of one int8 matmul case: w quantized per
+    output channel, xs a power of two near 0.8 max |x| / 127 (so that some
+    values clip, and v * xs / xs == v for the planted ties), x with NaN,
+    +-inf, a value past +-127 and exact .5 ties; ``offset`` puts x 4 bytes
+    into its buffer (contiguous, not 16-byte aligned)."""
+    buf = torch.randn(m * k + 1, device=dev, generator=gen)
+    x = (buf[1:] if offset else buf[:-1]).view(m, k)
+    w = torch.randn(n, k, device=dev, generator=gen) * 0.5
+    ws = w.abs().amax(dim=1) / 127
+    wq = torch.round(w / ws[:, None]).clamp(-127, 127).to(torch.int8)
+    xs = 2.0 ** round(float(torch.log2(x.abs().max() * 0.8 / 127)))
+    ties = torch.tensor([0.5, 1.5, 2.5, -2.5, -0.5, 126.5], device=dev)
+    x[0, :6] = ties * xs
+    x[-1, -1] = float("nan")
+    x[m // 2, 0] = float("inf")
+    x[0, -1] = -float("inf")
+    x[-1, 0] = 300.0 * xs
+    b = torch.randn(n, device=dev, generator=gen)
+    return x, wq, ws, xs, b
+
+
+def int8_case(qm, dev, gen, m, k, n, act=None, bias=False, offset=False):
+    """The int8 kernel against its plain version on the same inputs:
+    max |err|."""
+    x, wq, ws, xs, b = int8_inputs(qm, dev, gen, m, k, n, offset)
+    b = b if bias else None
+    out = qm.quantized_matmul(x, wq, ws, xs, bias=b, act=act)
+    torch.cuda.synchronize()
+    ref = qm.quantized_matmul_plain(x, wq, ws, xs, bias=b, act=act)
+    tag = (f"M={m} K={k} N={n} act={act} bias={bias}"
+           f"{' offset x' if offset else ''}")
+    check(torch.equal(out.isnan(), ref.isnan()),
+          f"int8_matmul {tag}: NaN positions differ from the plain version's")
+    fin = ~ref.isnan()
+    err = (out - ref)[fin].abs()
+    e = err.max().item() if err.numel() else 0.0
+    if act in (None, "relu"):
+        ok = torch.equal(out[fin], ref[fin])
+    else:
+        ok = torch.allclose(out[fin], ref[fin], **INT8_ACT_TOL)
+    print(f"  {tag}: max|err| {e:.3e} "
+          f"{'bit for bit' if e == 0 else ''} {'ok' if ok else 'FAIL'}")
+    check(ok, f"int8_matmul kernel disagrees with its plain version at {tag}")
+    return e
+
+
+def phase_int8_vs_plain(dev):
+    """The int8 matmul kernel against its plain version on the card."""
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    print("== phase 2e: int8_matmul kernel vs plain version", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    errs = []
+    for m, k, n, offset in ((1, 100, 5, False), (37, 256, 130, False),
+                            (130, 100, 5, False), (64, 200, 70, False),
+                            (37, 256, 130, True)):
+        for act in (None, "relu", "sigmoid", "tanh", "gelu"):
+            for bias in (False, True):
+                errs.append(int8_case(qm, dev, gen, m, k, n, act, bias,
+                                      offset))
+    for (m, k, n) in INT8_BERT_SHAPES:
+        act = "tanh" if m == BERT_BATCH else None
+        errs.append(int8_case(qm, dev, gen, m, k, n, act, True))
+    return {"max_abs_err": max(errs), "cases": len(errs)}
+
+
+def int8_counters(fa, lr, qm):
+    return ([qm.quantized_matmul.launches] + counters(fa) + ln_counters(lr)
+            + [qm.fp8_matmul.launches])
+
+
+def zero_int8_counters(fa, lr, qm):
+    qm.quantized_matmul.launches = 0
+    qm.fp8_matmul.launches = 0
+    zero_counters(fa)
+    zero_ln_counters(lr)
+
+
+def rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_bert_int8(dev, card):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as cq
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    print(f"== phase 11: BERT-base int8 inference through quantize_net (full "
+          f"width, batch {BERT_BATCH} x seq {BERT_SEQ}) on {card}", flush=True)
+    net = bert_12_768_12(vocab_size=BERT_VOCAB, max_length=512,
+                         device=dev).initialize(seed=0)
+    rs = onp.random.RandomState(1)
+    calib = [torch.from_numpy(rs.randint(1000, BERT_VOCAB,
+                                         (BERT_BATCH, BERT_SEQ))).to(dev)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qnet = cq.quantize_net(net, calib_data=calib, calib_mode="naive")
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    n_q = sum(isinstance(b, cq.QuantizedDense) for b in qnet.modules())
+    n_dense = sum(isinstance(b, nn.Dense) for b in net.modules())
+    check(n_q == INT8_LAYERS and n_dense == INT8_LAYERS
+          and not any(isinstance(b, nn.Dense) for b in qnet.modules())
+          and not any(isinstance(b, cq.QuantizedDense)
+                      for b in net.modules()),
+          f"quantize_net replaced {n_q} layers (the net keeps {n_dense} "
+          f"Dense), expected {INT8_LAYERS}")
+    pooler = qnet.pooler
+    print(f"quantize_net (naive, 2 calibration batches): {n_q} QuantizedDense "
+          f"layers in {t_quant:.2f} s; the fp32 net keeps its {n_dense} Dense; "
+          f"pooler act fused: {pooler._fused_act}, T={pooler.threshold:.5g}")
+    ids, types, valid = bert_batch(dev)[:3]
+
+    zero_int8_counters(fa, lr, qm)
+    torch.cuda.synchronize()
+    seq, pooled = qnet(ids, types, valid)
+    torch.cuda.synchronize()
+    got = int8_counters(fa, lr, qm)
+    want = [INT8_LAYERS, 0, 0, 0, 0, 0, 0]
+    check(got == want, f"int8 forward launched int8/flash fwd/dkv/dq/"
+                       f"ln fwd/bwd/fp8 {got}, expected {want}")
+    launches = got[0]
+    check(seq.shape == (BERT_BATCH, BERT_SEQ, BERT_UNITS)
+          and pooled.shape == (BERT_BATCH, BERT_UNITS)
+          and torch.isfinite(seq).all().item()
+          and torch.isfinite(pooled).all().item(),
+          f"int8 outputs {tuple(seq.shape)}, {tuple(pooled.shape)} not "
+          "finite or of the wrong shape")
+    mx.config.set("quantize.fused_matmul", "off")
+    try:
+        seq_off, pooled_off = qnet(ids, types, valid)
+    finally:
+        mx.config.reset("quantize.fused_matmul")
+    torch.cuda.synchronize()
+    check(qm.quantized_matmul.launches == INT8_LAYERS,
+          "the 'off' route launched the int8 kernel")
+    seq_same = torch.equal(seq, seq_off)
+    pooled_err = (pooled - pooled_off).abs().max().item()
+    print(f"kernel route vs the plain chain on the card: sequence output "
+          f"{'bit for bit' if seq_same else 'DIFFERS'}, pooled max|err| "
+          f"{pooled_err:.3e}")
+    check(seq_same, "the int8 kernel route's sequence output is not the "
+                    "plain chain's bit for bit")
+    check(torch.allclose(pooled, pooled_off, **INT8_ACT_TOL),
+          f"pooled output off the plain chain's by {pooled_err:.3e}")
+    seq32, pooled32 = net(ids, types, valid)
+    err = {"sequence": rel_err(seq, seq32), "pooled": rel_err(pooled,
+                                                              pooled32)}
+    print(f"int8 vs fp32, max|diff| / max|fp32|: {json.dumps(err)} (limits "
+          f"{json.dumps(INT8_VS_FP32_TOL)})")
+    check(all(err[k] <= INT8_VS_FP32_TOL[k] for k in err),
+          f"int8 vs fp32 error {err} above {INT8_VS_FP32_TOL}")
+
+    fwd = {"fp32": lambda: net(ids, types, valid),
+           "int8": lambda: qnet(ids, types, valid)}
+    wall = {k: [] for k in fwd}
+    for name in ("fp32", "int8", "int8", "fp32"):
+        fwd[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fwd[name]()
+        torch.cuda.synchronize()
+        wall[name].append((time.perf_counter() - t0) / 3 * 1e3)
+    e2e = {"quantize_net_s": t_quant, "int8_vs_fp32_rel_err": err,
+           "pooled_kernel_vs_plain_err": pooled_err,
+           "launches_per_forward": {"int8_matmul": launches, "flash": got[1:4],
+                                    "ln_residual": got[4:6],
+                                    "fp8_matmul": got[6]}}
+    for name, fn in fwd.items():
+        ms = float(onp.median(wall[name]))
+        torch.cuda.reset_peak_memory_stats()
+        event_ms = cuda_ms(fn, 5, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy, top = device_profile(fn, 3, warmup=1, top=8)
+        row = {"forward_ms": ms, "forward_ms_runs": wall[name],
+               "forward_event_ms": event_ms,
+               "samples_per_s": BERT_BATCH / ms * 1e3,
+               "device_ms": busy,
+               "device_busy_share": None if busy is None else busy / ms,
+               "peak_memory_gb": peak, "top_kernels_ms": top}
+        e2e[name] = row
+        print(f"BERT-base {name} forward [{card}]: " + json.dumps(row))
+    e2e["weights_gb"] = {name: sum(
+        p.data().numel() * p.data().element_size()
+        for p in n.collect_params().values()) / 1e9
+        for name, n in (("fp32", net), ("int8", qnet))}
+    print(f"both nets are resident on the card, and each peak counts both: "
+          f"weights {json.dumps(e2e['weights_gb'])} GB")
+    return launches, e2e
+
+
+def int8_bound_ms(m, k, n):
+    """Least time on an H100 SXM for one int8 matmul: x (fp32) read, w
+    (int8), w_scale and bias (fp32) read, out (fp32) written, against 2 M N
+    K operations at the dense int8 rate."""
+    nbytes = 4 * m * k + n * k + 8 * n + 4 * m * n
+    return bound(nbytes, 2 * m * n * k, torch.int8)
+
+
+def phase_int8_times(dev, card):
+    """The int8 kernel, its plain version and the quantize_int8 ->
+    torch._int_mm -> epilogue composition at the BERT-base shapes."""
+    import itertools
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    print(f"== phase 12: int8_matmul kernel times on {card}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    for (m, k, n) in INT8_BERT_SHAPES:
+        act = "tanh" if m == BERT_BATCH else None
+        sets = []
+        for _ in range(3):
+            x = torch.randn(m, k, device=dev, generator=gen)
+            w = torch.randn(n, k, device=dev, generator=gen) * 0.05
+            ws = w.abs().amax(dim=1) / 127
+            wq = torch.round(w / ws[:, None]).clamp(-127, 127).to(torch.int8)
+            xs = torch.tensor([x.abs().max().item() / 127], device=dev)
+            b = torch.randn(n, device=dev, generator=gen)
+            sets.append((x, wq, ws, xs, b))
+        turn = itertools.cycle(sets)
+
+        def call(fn):
+            return lambda: fn(*next(turn))
+
+        def kernel(x, wq, ws, xs, b):
+            return qm.quantized_matmul(x, wq, ws, xs, bias=b, act=act)
+
+        def plain(x, wq, ws, xs, b):
+            return qm.quantized_matmul_plain(x, wq, ws, xs, bias=b, act=act)
+
+        def composition(x, wq, ws, xs, b):
+            acc = torch._int_mm(qm.quantize_int8(x, xs), wq.t())
+            out = acc * (xs * ws) + b
+            return out if act is None else torch.tanh(out)
+
+        calls = {"kernel": call(kernel), "plain": call(plain)}
+        try:
+            composition(*sets[0])
+            calls["composition"] = call(composition)
+        except RuntimeError as e:  # a yardstick only: record that it refused
+            print(f"  torch._int_mm refuses (M, K, N) = ({m}, {k}, {n}): "
+                  f"{str(e).splitlines()[0][:120]}")
+        row = {}
+        for name, fn in calls.items():
+            iters = 5 if name == "plain" else 30
+            row[name + "_call_ms"] = cuda_ms(fn, iters, warmup=3)
+            row[name + "_device_ms"] = device_ms(fn, iters, warmup=3)
+        if "composition" not in calls:
+            row["composition_call_ms"] = row["composition_device_ms"] = None
+        row["bound_ms"], row["bound_by"] = int8_bound_ms(m, k, n)
+        rows[(m, k, n)] = row
+        print(f"int8_matmul (M, K, N) = ({m}, {k}, {n}) act={act} bias "
+              f"[{card}]: " + json.dumps(row))
+        del sets, turn
+    return rows
+
+
+def int8_entry(launches, errs, rows):
+    def composition_ms(r):
+        return (pick(r, "composition") if r["composition_call_ms"] is not None
+                else None)
+
+    def forward_sum(value):
+        vals = [value(rows[s]) for s in INT8_BERT_SHAPES]
+        if None in vals:
+            return None
+        return sum(INT8_BERT_SHAPES[s] * v for s, v in zip(INT8_BERT_SHAPES,
+                                                            vals))
+
+    row = rows[next(iter(INT8_BERT_SHAPES))]
+    return {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": SOURCE.format("int8_matmul"),
+        "replaces": TPU_QMM.format(77),
+        "launches": launches,
+        "launches_by_path": {"bert_int8_infer": launches},
+        "launches_per_forward": INT8_LAYERS,
+        "max_abs_err": errs["max_abs_err"],
+        "ms": pick(row, "kernel"),
+        "plain_ms": pick(row, "plain"),
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "composition_ms": composition_ms(row),
+        "composition": "quantize_int8 -> torch._int_mm -> * (xs * ws) + b: "
+                       "no single PyTorch call computes this function",
+        "shape": "M=4096 K=768 N=768 fp32 x, int8 w, bias",
+        "by_shape": {f"M={m} K={k} N={n}": {
+            "ms": pick(r, "kernel"), "plain_ms": pick(r, "plain"),
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "composition_ms": composition_ms(r)}
+            for (m, k, n), r in rows.items()},
+        "ms_per_forward": forward_sum(lambda r: pick(r, "kernel")),
+        "composition_ms_per_forward": forward_sum(composition_ms),
+        "bound_ms_per_forward": forward_sum(lambda r: r["bound_ms"]),
+    }
+
+
 def fp8_entry(launches, errs, rows):
     per_step = {s: (4 if s[1] == s[2] else 1) * 12 for s in rows}
     row = rows[FP8_TRAIN_SHAPES[0]]
@@ -1414,7 +1774,7 @@ def fp8_entry(launches, errs, rows):
         "source": SOURCE.format("fp8_matmul"),
         "replaces": TPU_QMM.format(146),
         "launches": launches,
-        "launches_by_path": {"fp8_train": launches},
+        "launches_by_path": {"fp8_train": launches, "bert_int8_infer": 0},
         "launches_per_step": {"fp8_train": FP8_SITES_PER_STEP},
         "max_abs_err": errs["max_abs_err"],
         "max_err_share_of_sum_abs_products": errs["max_err_share"],
@@ -1450,7 +1810,7 @@ def ln_entry(kind, launches, errs, rows):
         "source": SOURCE.format("ln_residual"),
         "replaces": TPU_LN.format(28 if kind == "fwd" else 46),
         "launches": launches,
-        "launches_by_path": {"bert_train": launches},
+        "launches_by_path": {"bert_train": launches, "bert_int8_infer": 0},
         "max_abs_err": errs[kind][torch.float32],
         "max_err_fp32": errs[kind][torch.float32],
         "max_err_bf16": errs[kind][torch.bfloat16],
@@ -1514,6 +1874,7 @@ def main():
     bwd_errs = phase_bwd_vs_plain(dev)
     ln_errs = phase_ln_vs_plain(dev)
     fp8_errs = phase_fp8_vs_plain(dev)
+    int8_errs = phase_int8_vs_plain(dev)
     net, eng, st, wall, serve_launches = phase_main_path(dev)
     serve_shape = phase_times(dev, net, eng, st, wall, card)
     del net, eng
@@ -1535,6 +1896,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     fp8_rows = phase_fp8_times(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_launches, int8_e2e = phase_bert_int8(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_rows = phase_int8_times(dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -1544,20 +1911,25 @@ def main():
                      {"launches_by_path": {"serve": serve_launches,
                                            "train": train_launches[0],
                                            "bert_train": 0,
-                                           "fp8_train": fa8[0]},
+                                           "fp8_train": fa8[0],
+                                           "bert_int8_infer": 0},
                       "serve_shape": serve_shape}),
         kernel_entry("dkv", train_launches[1] + fa8[1], bwd_errs["dkv"], rows,
                      {"launches_by_path": {"train": train_launches[1],
                                            "bert_train": 0,
-                                           "fp8_train": fa8[1]}}),
+                                           "fp8_train": fa8[1],
+                                           "bert_int8_infer": 0}}),
         kernel_entry("dq", train_launches[2] + fa8[2], bwd_errs["dq"], rows,
                      {"launches_by_path": {"train": train_launches[2],
                                            "bert_train": 0,
-                                           "fp8_train": fa8[2]}}),
+                                           "fp8_train": fa8[2],
+                                           "bert_int8_infer": 0}}),
         ln_entry("fwd", bert_launches[0], ln_errs, ln_rows),
         ln_entry("bwd", bert_launches[1], ln_errs, ln_rows),
         fp8_entry(fp8_launches[0], fp8_errs, fp8_rows),
-    ], "train": train_e2e, "bert_train": bert_e2e, "fp8_train": fp8_e2e}))
+        int8_entry(int8_launches, int8_errs, int8_rows),
+    ], "train": train_e2e, "bert_train": bert_e2e, "fp8_train": fp8_e2e,
+        "bert_int8_infer": int8_e2e}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

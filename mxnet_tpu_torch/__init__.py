@@ -12,11 +12,13 @@ attention through the flash-attention forward kernel) and training
 ``gluon.Trainer.step``, attention gradients through the two
 flash-attention backward kernels), BERT training (the ln_residual kernels)
 and fp8 training (``parallel.ShardedTrainStep(..., precision="fp8")``, the
-fp8 matmul kernel on every eligible Dense). Entry points run on ``cuda:0``
-unless given ``device="cpu"``.
+fp8 matmul kernel on every eligible Dense) and int8 inference
+(``contrib.quantization.quantize_net``, the int8 matmul kernel on every
+quantized Dense). Entry points run on ``cuda:0`` unless given
+``device="cpu"``.
 """
-from . import amp, autograd, config, context, functional, gluon, initializer
-from . import lr_scheduler
+from . import amp, autograd, config, context, contrib, functional, gluon
+from . import initializer, lr_scheduler
 from . import numpy_extension as npx
 from . import optimizer, parallel, random, serve
 from .base import MXNetError
@@ -24,6 +26,6 @@ from .context import resolve_device
 
 __version__ = "2.0.0a1"
 
-__all__ = ["MXNetError", "amp", "autograd", "config", "context",
+__all__ = ["MXNetError", "amp", "autograd", "config", "context", "contrib",
            "functional", "gluon", "initializer", "lr_scheduler", "npx",
            "optimizer", "parallel", "random", "resolve_device", "serve"]

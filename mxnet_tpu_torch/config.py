@@ -89,7 +89,8 @@ declare("fused_ln_residual", str, "auto", "MXNET_FUSED_LN_RESIDUAL",
         "encoder cells: 'auto' (CUDA tensor and live dropout), 'on', "
         "'off'.")
 declare("quantize.fused_matmul", str, "auto", "MXNET_QUANTIZE_FUSED_MATMUL",
-        "fp8 fused quantize+matmul+epilogue route of npx.fp8_dense_fused: "
+        "Fused quantize+matmul+epilogue route of npx.quantized_dense_fused "
+        "(the int8 kernel) and npx.fp8_dense_fused (the fp8 kernel): "
         "'auto' (the CUDA kernel on a CUDA tensor, raising on a card it "
         "was not built for; the plain chain on a CPU tensor), 'on' (the "
         "kernel; raises on the CPU), 'off' (the plain chain).")

@@ -49,13 +49,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "quant_mma.cuh"
+
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kThreads = 256;
-constexpr int kLds = kBK + 16;  // bytes per shared-memory row
-
-enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kTanh = 3, kGelu = 4 };
+using namespace quant_mma;
 
 // One fp32 value to fp8 (fmt 0 = e4m3fn, 1 = e5m2) by the JAX rule.
 template <int FMT>
@@ -100,22 +98,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 #undef FP8_MMA
 }
 
-__device__ __forceinline__ float activate(float o, int act) {
-  switch (act) {
-    case kRelu:
-      return o < 0.f ? 0.f : o;  // NaN passes through, as torch's relu
-    case kSigmoid:
-      return 1.f / (1.f + expf(-o));
-    case kTanh:
-      return tanhf(o);
-    case kGelu:  // tanh form (jax.nn.gelu's default)
-      return 0.5f * o *
-             (1.f + tanhf(0.7978845608028654f * (o + 0.044715f * o * o * o)));
-    default:
-      return o;
-  }
-}
-
 // Quantize the (kBM, kBK) x tile at (m0, k0) into shared memory.
 template <int AF, bool VEC>
 __device__ __forceinline__ void load_x(uint8_t* sa, const float* x, float xs,
@@ -141,32 +123,6 @@ __device__ __forceinline__ void load_x(uint8_t* sa, const float* x, float xs,
       uint32_t q = 0;
       if (gm < M && gk < K) q = to_fp8<AF>(__fdiv_rn(x[(size_t)gm * K + gk], xs));
       sa[r * kLds + c] = static_cast<uint8_t>(q);
-    }
-  }
-}
-
-// Copy the (kBN, kBK) w tile at (n0, k0) into shared memory.
-template <bool VEC>
-__device__ __forceinline__ void load_w(uint8_t* sb, const uint8_t* w, int n0,
-                                       int k0, int N, int K) {
-  if (VEC) {
-#pragma unroll
-    for (int p = 0; p < kBN * kBK / 16 / kThreads; ++p) {
-      const int idx = p * kThreads + threadIdx.x;
-      const int r = idx >> 2, c = (idx & 3) * 16;
-      const int gn = n0 + r, gk = k0 + c;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gn < N && gk < K)
-        v = *reinterpret_cast<const uint4*>(w + (size_t)gn * K + gk);
-      *reinterpret_cast<uint4*>(sb + r * kLds + c) = v;
-    }
-  } else {
-#pragma unroll 4
-    for (int p = 0; p < kBN * kBK / kThreads; ++p) {
-      const int idx = p * kThreads + threadIdx.x;
-      const int r = idx >> 6, c = idx & 63;
-      const int gn = n0 + r, gk = k0 + c;
-      sb[r * kLds + c] = (gn < N && gk < K) ? w[(size_t)gn * K + gk] : 0;
     }
   }
 }

@@ -8,7 +8,8 @@ needed: every layer on the ported paths is told its input width).
 ``collect_params()`` returns ``{structural name: Parameter}`` under the
 JAX package's names (attribute paths, e.g.
 ``backbone.decoder.layer0.attention.query_proj.weight``), so weights carry
-across by name.
+across by name. ``copy.deepcopy(block)`` gives a block with the same
+names and values on new storage (``parameter._Var``).
 
 A block called while ``autograd`` is not recording runs under
 ``torch.no_grad()`` (``__call__``): as in the reference, only computation
@@ -28,6 +29,7 @@ from .. import autograd as _autograd
 from .. import initializer as _init
 from .. import random as _random
 from ..base import MXNetError
+from .parameter import Constant
 
 __all__ = ["HybridBlock", "recording_gate"]
 
@@ -99,11 +101,14 @@ class HybridBlock(nn.Module):
         """Fill every parameter on its own device, in ``collect_params``
         order, from one ``torch.Generator`` seeded with ``seed``.
         ``init`` defaults to ``Uniform(0.07)``; names ending in gamma /
-        beta / bias get ones / zeros as in the JAX package."""
+        beta / bias get ones / zeros as in the JAX package. A
+        :class:`~.parameter.Constant` keeps its value (the reference's
+        re-initialization copies it back)."""
         init = _init.Uniform() if init is None else init
         gens = {}
         for name, p in self.collect_params().items():
-            if p.initialized and not force_reinit:
+            if isinstance(p, Constant) or (p.initialized
+                                           and not force_reinit):
                 continue
             gen = gens.get(p.device)
             if gen is None:

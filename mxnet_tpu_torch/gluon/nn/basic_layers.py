@@ -1,6 +1,7 @@
 """Basic Gluon layers on the serving path.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Dense`` (weight
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``HybridSequential``
+(children registered as "0", "1", ...), ``Dense`` (weight
 layout (units, in_units), an optional ``Activation`` child), ``Activation``,
 ``Embedding``, ``LayerNorm`` (parameters ``gamma``/``beta``) and
 ``Dropout``, with the reference's argument names. Under an fp8 training
@@ -27,7 +28,8 @@ from ...context import resolve_device
 from ..block import HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["Dense", "Activation", "Embedding", "LayerNorm", "Dropout"]
+__all__ = ["HybridSequential", "Dense", "Activation", "Embedding",
+           "LayerNorm", "Dropout"]
 
 
 def _param(shape, dtype, device):
@@ -41,6 +43,37 @@ def _width(name, value):
         raise MXNetError(f"{name} must be given (deferred shape inference "
                          "is not part of this slice of the port)")
     return int(value)
+
+
+class HybridSequential(HybridBlock):
+    """Blocks run in order, each on the previous one's output (reference:
+    basic_layers.py HybridSequential). ``net[i]`` reads the current child,
+    so a child replaced in place (``contrib.quantization.quantize_net``)
+    shows through."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.add_module(str(len(self._modules)), block)
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x, *args)
+            args = ()
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        blocks = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*blocks[key])
+            return net
+        return blocks[key]
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
 class Dense(HybridBlock):

@@ -13,17 +13,41 @@ is how ``Block.collect_params()`` and ``autograd.backward`` find the
 (``"null"`` -> False); the write-or-add rule on ``.grad`` is applied by
 ``autograd.backward``. Shapes are always known at construction: the
 reference's deferred initialization is not part of this slice.
+
+``copy.deepcopy`` of a block copies each tensor once (tied tensors stay
+tied through the memo) and gives the copy a fresh :class:`Parameter` with
+the same ``grad_req``, ``lr_mult`` and ``wd_mult`` (:class:`_Var`).
+:class:`Constant` is the reference's non-trainable parameter of any dtype
+(the int8 weights of ``contrib.quantization``).
 """
 from __future__ import annotations
+
+import copy
 
 import torch
 from torch import nn
 
 from ..base import MXNetError
 
-__all__ = ["Parameter"]
+__all__ = ["Parameter", "Constant"]
 
 _GRAD_REQS = ("write", "add", "null")
+
+
+class _Var(nn.Parameter):
+    """The ``nn.Parameter`` of a :class:`Parameter`. torch's deep copy
+    copies the data but not the ``_mx_param`` back-reference; this one
+    copies the :class:`Parameter` with it, once per tensor (the memo)."""
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        new = super().__deepcopy__(memo)
+        param = copy.copy(self._mx_param)
+        param._var = new
+        new._mx_param = param
+        memo[id(self._mx_param)] = param
+        return new
 
 
 class Parameter:
@@ -32,10 +56,9 @@ class Parameter:
 
     def __init__(self, shape, dtype=torch.float32, device="cpu",
                  grad_req="write", lr_mult=1.0, wd_mult=1.0):
-        self._var = nn.Parameter(torch.empty(shape, dtype=dtype,
-                                             device=device))
+        self._var = _Var(torch.empty(shape, dtype=dtype, device=device),
+                         requires_grad=False)
         self._var._mx_param = self
-        self._grad_req = "write"
         self.grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
@@ -102,6 +125,30 @@ class Parameter:
         self._var.copy_(src)
         self.initialized = True
 
+    def __deepcopy__(self, memo):
+        return copy.deepcopy(self._var, memo)._mx_param
+
     def __repr__(self):
-        return (f"Parameter {self.name} (shape={self.shape}, "
+        return (f"{type(self).__name__} {self.name} (shape={self.shape}, "
                 f"dtype={self.dtype}, grad_req={self._grad_req})")
+
+
+class Constant(Parameter):
+    """A non-trainable parameter holding ``value`` (array or tensor, any
+    dtype) on ``device`` (reference: parameter.py ``Constant``).
+    ``grad_req`` is "null" and stays so; it is initialized at construction
+    and ``initialize()`` leaves it as it is."""
+
+    def __init__(self, value, name="const", device="cpu"):
+        value = torch.as_tensor(value)
+        super().__init__(tuple(value.shape), value.dtype, device,
+                         grad_req="null")
+        self.set_data(value)
+        self.name = name
+
+    @Parameter.grad_req.setter
+    def grad_req(self, req):
+        if req != "null":
+            raise MXNetError(f"Constant {self.name} is not trainable "
+                             f"(grad_req='null'), got {req!r}")
+        Parameter.grad_req.fset(self, req)

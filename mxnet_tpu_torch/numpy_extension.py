@@ -1,9 +1,12 @@
 """The ``npx`` operators on the ported paths, as plain PyTorch.
 
 Counterpart of ``mxnet_tpu/numpy_extension/__init__.py`` (fully_connected,
-layer_norm, activation, leaky_relu, exact-erf gelu, embedding, and
-``fp8_dense_fused`` from ``ops/quantization.py``); the rest of that module
-waits for later slices of the port.
+layer_norm, activation, leaky_relu, exact-erf gelu, embedding, and from
+``ops/quantization.py`` ``quantize_v2``, ``dequantize``,
+``quantized_fully_connected``, ``quantized_dense_fused`` and
+``fp8_dense_fused``, imported at the call: the ops import this module's
+activation table); the rest of that module waits for later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ import torch.nn.functional as F
 from .base import MXNetError
 
 __all__ = ["fully_connected", "layer_norm", "activation", "leaky_relu",
-           "gelu", "embedding", "fp8_dense_fused"]
+           "gelu", "embedding", "quantize_v2", "dequantize",
+           "quantized_fully_connected", "quantized_dense_fused",
+           "fp8_dense_fused"]
 
 # the JAX package's ``_ACTS`` table; its "gelu" is jax.nn.gelu's default,
 # the tanh approximation
@@ -72,11 +77,42 @@ def embedding(ids, weight):
     return F.embedding(ids.long(), weight)
 
 
+def quantize_v2(data, min_calib_range=None, max_calib_range=None,
+                out_type="int8"):
+    """float32 -> (int8, min_range, max_range): see
+    :func:`mxnet_tpu_torch.ops.quantization.quantize_v2`."""
+    from .ops.quantization import quantize_v2 as op
+    return op(data, min_calib_range, max_calib_range, out_type)
+
+
+def dequantize(data, min_range, max_range, out_type="float32"):
+    """int8 -> float32: see :func:`mxnet_tpu_torch.ops.quantization.
+    dequantize`."""
+    from .ops.quantization import dequantize as op
+    return op(data, min_range, max_range, out_type)
+
+
+def quantized_fully_connected(data, weight, x_scale, w_scale, bias=None,
+                              flatten=True):
+    """int8 x int8 -> fp32 dense layer: see :func:`mxnet_tpu_torch.ops.
+    quantization.quantized_fully_connected`."""
+    from .ops.quantization import quantized_fully_connected as op
+    return op(data, weight, x_scale, w_scale, bias=bias, flatten=flatten)
+
+
+def quantized_dense_fused(data, weight, x_scale, w_scale, bias=None,
+                          act=None, flatten=True):
+    """int8 dense layer with a fused epilogue (kernel 6 on the card): see
+    :func:`mxnet_tpu_torch.ops.quantization.quantized_dense_fused`."""
+    from .ops.quantization import quantized_dense_fused as op
+    return op(data, weight, x_scale, w_scale, bias=bias, act=act,
+              flatten=flatten)
+
+
 def fp8_dense_fused(data, weight, x_scale, w_scale, bias=None, act=None,
                     flatten=True, fmt=None):
     """fp8-activation dense layer with a fused epilogue: see
-    :func:`mxnet_tpu_torch.ops.quantization.fp8_dense_fused` (imported at
-    the call: the ops import this module's activation table)."""
-    from .ops.quantization import fp8_dense_fused as dense
-    return dense(data, weight, x_scale, w_scale, bias=bias, act=act,
-                 flatten=flatten, fmt=fmt)
+    :func:`mxnet_tpu_torch.ops.quantization.fp8_dense_fused`."""
+    from .ops.quantization import fp8_dense_fused as op
+    return op(data, weight, x_scale, w_scale, bias=bias, act=act,
+              flatten=flatten, fmt=fmt)

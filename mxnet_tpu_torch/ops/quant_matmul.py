@@ -1,24 +1,28 @@
-"""Fused fp8 quantize + matmul + epilogue: the CUDA kernel written for
-Hopper, its plain PyTorch version, and the fp8 cast rule they share.
+"""Fused low-bit quantize + matmul + epilogue: the CUDA kernels written for
+Hopper, their plain PyTorch versions, and the casts they share.
 
-Counterpart of the fp8 half of ``mxnet_tpu/ops/pallas/quant_matmul.py``
-(``FP8_FORMATS``, ``fp8_capable``, ``fp8_matmul`` -> ``_fp8_kernel``). The
-kernel source is ``mxnet_tpu_torch/csrc/fp8_matmul.cu``; its header says
-what it replaces, what bounds it on the H100 (bytes) and what the design
-does about that.
+Counterpart of ``mxnet_tpu/ops/pallas/quant_matmul.py``: ``quantized_matmul``
+-> ``_int8_kernel`` and ``fp8_matmul`` -> ``_fp8_kernel`` (with
+``FP8_FORMATS`` and ``fp8_capable``). The kernel sources are
+``mxnet_tpu_torch/csrc/int8_matmul.cu`` and ``csrc/fp8_matmul.cu``; their
+headers say what each replaces, what bounds it on the H100 (bytes) and
+what the design does about that.
 
-:func:`fp8_matmul` computes ``act((fp8(x / x_scale) @ w_q.T) * (x_scale *
-w_scale) + bias)`` for x ``(M, K)`` fp32, ``w_q`` ``(N, K)`` in an fp8
-dtype, ``w_scale`` ``(N,)`` fp32 and a scalar ``x_scale``, with an fp32
-accumulator, and returns ``(M, N)`` fp32. A CPU tensor takes
-:func:`fp8_matmul_plain`; a CUDA tensor launches the kernel or raises. The
-TPU kernel's block table (``autotune``) and its 32/128 padding rule are not
-carried over: the kernel takes any M, N and K.
+Both compute ``act(dequant(quantize(x / x_scale) @ w_q.T) + bias)`` for x
+``(M, K)`` fp32, ``w_q`` ``(N, K)`` (int8, or an fp8 dtype), ``w_scale``
+``(N,)`` fp32 and a scalar ``x_scale``, and return ``(M, N)`` fp32; the
+epilogue is ``acc * (x_scale * w_scale) + bias``, then the activation. A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. The TPU kernels' block table (``autotune``) and their 32/128
+padding rule are not carried over: the kernels take any M, N and K.
 
-The cast is the JAX package's (ml_dtypes): round to nearest even, and past
-the format's top NaN for e4m3fn and +-inf for e5m2. ``Tensor.to()`` and the
-card's ``cvt.satfinite`` saturate instead, so :func:`quantize` and the
-kernel both test for overflow themselves.
+The casts are the JAX package's. int8 (:func:`quantize_int8`):
+``clip(round(v), -127, 127)`` with round half to even, NaN -> 0 and
++-inf -> +-127. fp8 (:func:`quantize`, ml_dtypes): round to nearest even,
+and past the format's top NaN for e4m3fn and +-inf for e5m2, where
+``Tensor.to()`` and the card's ``cvt.satfinite`` saturate. ``x / x_scale``
+is a true division by a one-element tensor on x's device: torch's CUDA
+division by a CPU scalar multiplies by its reciprocal instead.
 """
 from __future__ import annotations
 
@@ -32,8 +36,10 @@ from ..base import MXNetError
 from ..numpy_extension import _ACTS
 
 __all__ = ["FP8_FORMATS", "fp8_capable", "quantize", "fp8_matmul",
-           "fp8_matmul_plain"]
+           "fp8_matmul_plain", "quantize_int8", "quantized_matmul",
+           "quantized_matmul_plain"]
 
+_INT8_MAX = 127.0
 #: fp8 storage formats: name -> (dtype, absmax of the format)
 FP8_FORMATS = {
     "e4m3": (torch.float8_e4m3fn, 448.0),
@@ -49,26 +55,33 @@ def _capability(index):
     return torch.cuda.get_device_capability(index)
 
 
+def _sm90(device):
+    device = torch.device(device)
+    return device.type == "cuda" and _capability(device.index or 0) == (9, 0)
+
+
 def fp8_capable(device=None):
     """True for a CUDA device of compute capability 9.0, the target the
-    kernel is built for (``sm_90a``); False on the CPU. ``None`` asks about
-    ``cuda:0`` where CUDA is present."""
+    kernels are built for (``sm_90a``); False on the CPU. ``None`` asks
+    about ``cuda:0`` where CUDA is present."""
     if device is None:
         if not torch.cuda.is_available():
             return False
         device = torch.device("cuda", 0)
-    device = torch.device(device)
-    if device.type != "cuda":
-        return False
-    return _capability(device.index or 0) == (9, 0)
+    return _sm90(device)
+
+
+def _validate_act(act):
+    if act not in _ACT_CODES:
+        raise ValueError(f"unsupported fused activation {act!r}; one of "
+                         f"{sorted(k for k in _ACT_CODES if k)}")
 
 
 def _validate(fmt, act):
     if fmt not in FP8_FORMATS:
         raise ValueError(f"unknown fp8 format {fmt!r}; "
                          f"one of {sorted(FP8_FORMATS)}")
-    if act not in _ACT_CODES:
-        raise ValueError(f"unsupported fused activation {act!r}")
+    _validate_act(act)
 
 
 def quantize(v, fmt):
@@ -119,26 +132,48 @@ def fp8_matmul_plain(x, w_q, w_scale, x_scale, bias=None, act=None,
     return _act(out, act)
 
 
-def _check(x, w_q, w_scale, bias):
+def _check(name, x, w_q, w_scale, bias, w_dtypes):
     if x.ndim != 2 or w_q.ndim != 2 or w_q.shape[1] != x.shape[1]:
-        raise MXNetError(f"fp8_matmul takes x (M, K) and w_q (N, K), got "
+        raise MXNetError(f"{name} takes x (M, K) and w_q (N, K), got "
                          f"{tuple(x.shape)}, {tuple(w_q.shape)}")
     if x.dtype != torch.float32:
-        raise MXNetError(f"fp8_matmul: x must be float32, got {x.dtype}")
-    if w_q.dtype not in _DTYPE_FMT:
-        raise MXNetError(f"fp8_matmul: w_q must be float8_e4m3fn or "
-                         f"float8_e5m2, got {w_q.dtype}")
+        raise MXNetError(f"{name}: x must be float32, got {x.dtype}")
+    if w_q.dtype not in w_dtypes:
+        raise MXNetError(f"{name}: w_q must be "
+                         f"{' or '.join(str(d)[6:] for d in w_dtypes)}, got "
+                         f"{w_q.dtype}")
     n = w_q.shape[0]
-    for name, t in (("w_scale", w_scale), ("bias", bias)):
+    for what, t in (("w_scale", w_scale), ("bias", bias)):
         if t is not None and (tuple(t.shape) != (n,)
                               or t.dtype != torch.float32):
-            raise MXNetError(f"{name} must be float32 ({n},), got "
+            raise MXNetError(f"{what} must be float32 ({n},), got "
                              f"{t.dtype} {tuple(t.shape)}")
     tensors = [t for t in (x, w_q, w_scale, bias) if t is not None]
     if not all(t.device == x.device for t in tensors):
-        raise MXNetError("fp8_matmul: inputs on different devices")
+        raise MXNetError(f"{name}: inputs on different devices")
     if not all(t.is_contiguous() for t in tensors):
-        raise MXNetError("fp8_matmul needs contiguous inputs")
+        raise MXNetError(f"{name} needs contiguous inputs")
+
+
+def _check_card(name, x, capable):
+    """Raise unless x lies on ``cuda:0`` of a card the kernels are built
+    for (``capable``)."""
+    if x.device.type != "cuda":
+        raise MXNetError(f"{name}: unsupported device {x.device}")
+    if x.device.index not in (None, 0):
+        raise MXNetError("the CUDA kernels run on cuda:0 only in this slice "
+                         f"of the port, got {x.device}")
+    if not capable:
+        raise MXNetError(f"{name}: {torch.cuda.get_device_name(x.device)}"
+                         " is not compute capability 9.0, which the kernel "
+                         "is built for")
+
+
+def _launch(lib, name, args, shape):
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = getattr(lib, name + "_error_string")(rc).decode()
+        raise MXNetError(f"{name} launch failed: {msg} (code {rc}; {shape})")
 
 
 def _bind(lib):
@@ -163,18 +198,10 @@ def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
     (:func:`fp8_capable`) or raise, and count one launch in
     ``fp8_matmul.launches``."""
     _validate(fmt, act)
-    _check(x, w_q, w_scale, bias)
+    _check("fp8_matmul", x, w_q, w_scale, bias, tuple(_DTYPE_FMT))
     if x.device.type == "cpu":
         return fp8_matmul_plain(x, w_q, w_scale, x_scale, bias, act, fmt)
-    if x.device.type != "cuda":
-        raise MXNetError(f"fp8_matmul: unsupported device {x.device}")
-    if x.device.index not in (None, 0):
-        raise MXNetError("the CUDA kernels run on cuda:0 only in this slice "
-                         f"of the port, got {x.device}")
-    if not fp8_capable(x.device):
-        raise MXNetError(f"fp8_matmul: {torch.cuda.get_device_name(x.device)}"
-                         " is not compute capability 9.0, which the fp8 "
-                         "kernel is built for")
+    _check_card("fp8_matmul", x, fp8_capable(x.device))
     m, k = x.shape
     n = w_q.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -184,17 +211,89 @@ def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
     vec = int(k % 16 == 0 and x.data_ptr() % 16 == 0
               and w_q.data_ptr() % 16 == 0)
     lib = _native.load("fp8_matmul", _bind)
-    rc = lib.fp8_matmul(
+    _launch(lib, "fp8_matmul", (
         x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
         _FMT_CODES[fmt], _FMT_CODES[_DTYPE_FMT[w_q.dtype]], _ACT_CODES[act],
-        vec, torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        msg = lib.fp8_matmul_error_string(rc).decode()
-        raise MXNetError(f"fp8_matmul launch failed: {msg} (code {rc}; "
-                         f"M={m} N={n} K={k} fmt={fmt})")
+        vec, torch.cuda.current_stream(x.device).cuda_stream),
+        f"M={m} N={n} K={k} fmt={fmt}")
     fp8_matmul.launches += 1
     return out
 
 
 fp8_matmul.launches = 0
+
+
+# -- int8 (kernel 6) -----------------------------------------------------------
+
+def quantize_int8(x, x_scale):
+    """``x / x_scale`` to int8 by the JAX rule: round half to even, clip to
+    +-127 (+-inf to +-127), NaN to 0 (the JAX cast's result on the CPU;
+    torch's NaN -> int8 cast is undefined, so the 0 is written here)."""
+    v = torch.round(x.float() / _scale_tensor(x_scale, x.device))
+    q = v.clamp(-_INT8_MAX, _INT8_MAX)
+    return torch.where(v.isnan(), 0.0, q).to(torch.int8)
+
+
+def quantized_matmul_plain(x, w_q, w_scale, x_scale, bias=None, act=None):
+    """The kernel's function in plain PyTorch, as the TPU kernel writes it:
+    :func:`quantize_int8`, the int8 product summed exactly (as float64:
+    every partial sum is an integer below 2^53, so this is the reference's
+    int32 accumulation; torch has no integer matmul on CUDA) and rounded to
+    fp32 once, then ``acc * (x_scale * w_scale) + bias`` and the
+    activation."""
+    _validate_act(act)
+    xs = _scale_tensor(x_scale, x.device)
+    xq = quantize_int8(x, xs)
+    acc = (xq.double() @ w_q.double().t()).float()
+    out = acc * (xs * w_scale.float())
+    if bias is not None:
+        out = out + bias.float()
+    return _act(out, act)
+
+
+def _bind_int8(lib):
+    lib.int8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    lib.int8_matmul.restype = ctypes.c_int
+    lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.int8_matmul_error_string.restype = ctypes.c_char_p
+
+
+def quantized_matmul(x, w_q, w_scale, x_scale, bias=None, act=None):
+    """``act(dequant(int8(x / x_scale) @ w_q.T) + bias)`` in one pass.
+
+    x: (M, K) fp32; w_q: (N, K) int8 (per output channel quantized);
+    w_scale: (N,) fp32; x_scale: scalar (calibrated threshold / 127; a
+    number or a one-element tensor, read on the device); bias: (N,) fp32
+    or None; act: None, 'relu', 'sigmoid', 'tanh' or 'gelu' (tanh form).
+    Returns (M, N) fp32.
+
+    CPU tensors go to :func:`quantized_matmul_plain`; CUDA tensors launch
+    the kernel of ``csrc/int8_matmul.cu`` (built at first use) on a card of
+    compute capability 9.0 or raise, and count one launch in
+    ``quantized_matmul.launches``."""
+    _validate_act(act)
+    _check("quantized_matmul", x, w_q, w_scale, bias, (torch.int8,))
+    if x.device.type == "cpu":
+        return quantized_matmul_plain(x, w_q, w_scale, x_scale, bias, act)
+    _check_card("quantized_matmul", x, _sm90(x.device))
+    m, k = x.shape
+    n = w_q.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    xs = _scale_tensor(x_scale, x.device)
+    vec = int(k % 16 == 0 and x.data_ptr() % 16 == 0
+              and w_q.data_ptr() % 16 == 0)
+    lib = _native.load("int8_matmul", _bind_int8)
+    _launch(lib, "int8_matmul", (
+        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
+        _ACT_CODES[act], vec,
+        torch.cuda.current_stream(x.device).cuda_stream), f"M={m} N={n} K={k}")
+    quantized_matmul.launches += 1
+    return out
+
+
+quantized_matmul.launches = 0

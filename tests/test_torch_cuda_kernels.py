@@ -28,7 +28,15 @@ the epilogue is the same arithmetic). fp8 training on the card vs
 the CPU: losses rtol 1e-4, weights after two Adam steps 99% within 5e-4
 and all within 2e-3, and the second step's amaxes 5%: an ulp of
 difference upstream can move a value across an fp8 rounding boundary
-(see tests/test_torch_fp8.py).
+(see tests/test_torch_fp8.py). int8 matmul kernel vs its plain version:
+bit for bit without activation and with relu (both sum exactly and round
+the epilogue alike), atol = rtol = 1e-6 for sigmoid, tanh and gelu (the
+card's expf/tanhf against torch's). A small quantized BERT on the card:
+the kernel route's sequence output equals the plain chain's on the card
+bit for bit; against the CPU, thresholds rtol 1e-5 and the outputs within
+1% of their largest |value| (an ulp of the fp32 ops between the layers can
+move a value across an int8 rounding boundary, a step of ~1e-3 here; the
+int8 error itself is ~0.4%).
 """
 import numpy as onp
 import pytest
@@ -558,3 +566,157 @@ def test_fp8_training_on_card_matches_cpu(cuda_device):
                                        rtol=1e-3)
             torch.testing.assert_close(card[2][site][k][0], v[0], atol=0,
                                        rtol=0.05)
+
+
+# -- int8 matmul (kernel 6) --------------------------------------------------
+
+INT8_SHAPES = [(1, 100, 5), (37, 256, 130), (130, 100, 5), (64, 200, 70),
+               (200, 768, 300)]  # (M, K, N)
+INT8_ACTS = [None, "relu", "sigmoid", "tanh", "gelu"]
+
+
+def _int8_inputs(m, k, n, device, seed, offset=False):
+    """x with NaN, +-inf, a value past +-127 and exact .5 ties of
+    x / x_scale (x_scale a power of two); ``offset``: x 4 bytes into its
+    buffer (contiguous, not 16-byte aligned)."""
+    rs = onp.random.RandomState(seed)
+    buf = rs.randn(m * k + 1).astype("float32")
+    x = (buf[1:] if offset else buf[:-1]).reshape(m, k)
+    xs = float(2.0 ** round(onp.log2(onp.abs(x).max() * 0.8 / 127)))
+    x[0, :6] = onp.array([0.5, 1.5, 2.5, -2.5, -0.5, 126.5]) * xs
+    x[-1, -1], x[m // 2, 0], x[0, -1] = onp.nan, onp.inf, -onp.inf
+    x[-1, 0] = 300.0 * xs
+    w = (rs.randn(n, k) * 0.5).astype("float32")
+    ws = (onp.abs(w).max(axis=1) / 127).astype("float32")
+    wq = onp.clip(onp.round(w / ws[:, None]), -127, 127).astype("int8")
+    b = rs.randn(n).astype("float32")
+    tbuf = torch.from_numpy(buf).to(device)  # x is a view of buf
+    return ((tbuf[1:] if offset else tbuf[:-1]).view(m, k),
+            torch.from_numpy(wq).to(device),
+            torch.from_numpy(ws).to(device), xs,
+            torch.from_numpy(b).to(device))
+
+
+def int8_check(out, ref, act):
+    assert torch.equal(out.isnan(), ref.isnan())
+    fin = ~ref.isnan()
+    if act in (None, "relu"):
+        assert torch.equal(out[fin], ref[fin])
+    else:
+        torch.testing.assert_close(out[fin], ref[fin], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("act", INT8_ACTS)
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_kernel_matches_plain_version(cuda_device, m, k, n, act, bias,
+                                           offset):
+    x, wq, ws, xs, b = _int8_inputs(m, k, n, cuda_device, seed=m + k + n,
+                                    offset=offset)
+    assert (x.data_ptr() % 16 != 0) == offset
+    b = b if bias else None
+    before = tqm.quantized_matmul.launches
+    out = tqm.quantized_matmul(x, wq, ws, xs, bias=b, act=act)
+    torch.cuda.synchronize()
+    assert tqm.quantized_matmul.launches == before + 1
+    ref = tqm.quantized_matmul_plain(x, wq, ws, xs, bias=b, act=act)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    int8_check(out, ref, act)
+
+
+@pytest.mark.parametrize("bad", ["float16", "w_float32", "cpu_mix",
+                                 "contiguity", "ws_shape", "act"])
+def test_int8_wrapper_raises(cuda_device, bad):
+    x, wq, ws, xs, _ = _int8_inputs(16, 64, 32, cuda_device, seed=0)
+    if bad == "float16":
+        x = x.half()
+    elif bad == "w_float32":
+        wq = wq.float()
+    elif bad == "cpu_mix":
+        wq = wq.cpu()
+    elif bad == "contiguity":
+        x = torch.cat([x, x], dim=1)[:, ::2]
+    elif bad == "ws_shape":
+        ws = ws[:-1]
+    before = tqm.quantized_matmul.launches
+    with pytest.raises(ValueError if bad == "act" else MXNetError):
+        tqm.quantized_matmul(x, wq, ws, xs,
+                             act="softrelu" if bad == "act" else None)
+    assert tqm.quantized_matmul.launches == before
+
+
+def test_int8_routes_raise_on_a_card_the_kernel_was_not_built_for(
+        cuda_device, monkeypatch):
+    """No fallback hides the kernel: on a card of compute capability 8.0
+    (faked), a QuantizedDense and npx.quantized_dense_fused on "auto"
+    raise, and launch nothing."""
+    from mxnet_tpu_torch.contrib import quantization as cq
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(16, activation="relu", in_units=32,
+                     device=cuda_device))
+    net.initialize(seed=0)
+    x = torch.randn(8, 32, device=cuda_device)
+    qnet = cq.quantize_net(net, calib_data=[x])
+    monkeypatch.setattr(tqm, "_capability", lambda index: (8, 0))
+    before = tqm.quantized_matmul.launches
+    with pytest.raises(MXNetError, match="compute capability"):
+        qnet(x)
+    wq, ws = qnet[0].qweight, qnet[0].w_scale
+    with pytest.raises(MXNetError, match="compute capability"):
+        tmx.npx.quantized_dense_fused(x, wq, 0.1, ws)
+    assert tqm.quantized_matmul.launches == before
+
+
+def test_int8_bert_on_card_matches_cpu(cuda_device):
+    """quantize_net over a small BERT on the card and on the CPU from the
+    same weights and calibration batches: the same thresholds and int8
+    weights, 13 kernel launches a forward, the kernel route's sequence
+    output equal to the plain chain's on the card bit for bit, and the
+    outputs near the CPU's (module docstring)."""
+    from mxnet_tpu_torch import functional
+    from mxnet_tpu_torch.contrib import quantization as cq
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    cfg = dict(vocab_size=97, units=128, hidden_size=256, num_layers=2,
+               num_heads=2, max_length=64, dropout=0.0, embed_dropout=0.0)
+    arrays = functional.param_arrays(
+        BERTModel(device="cpu", **cfg).initialize(seed=2))
+    rs = onp.random.RandomState(3)
+    calib = [torch.from_numpy(rs.randint(0, 97, (4, 40))) for _ in range(2)]
+    batch = (torch.from_numpy(rs.randint(0, 97, (4, 40))),
+             torch.from_numpy((onp.arange(40) >= 15)[None].repeat(4, 0)
+                              .astype("int64")),
+             torch.tensor([40, 33, 20, 9]))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        net = BERTModel(device=dev, **cfg)
+        functional.load_params(net, arrays)
+        qnet = cq.quantize_net(net, calib_data=[c.to(dev) for c in calib])
+        layers = {p: b for _, _, p, b in cq._walk_layers(qnet)
+                  if isinstance(b, cq.QuantizedDense)}
+        before = tqm.quantized_matmul.launches
+        out = qnet(*(t.to(dev) for t in batch))
+        runs[str(dev)] = (qnet, layers, out)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tqm.quantized_matmul.launches - before == 13
+            tmx.config.set("quantize.fused_matmul", "off")
+            try:
+                off = qnet(*(t.to(dev) for t in batch))
+            finally:
+                tmx.config.reset("quantize.fused_matmul")
+            assert torch.equal(out[0], off[0])
+            torch.testing.assert_close(out[1], off[1], atol=1e-6, rtol=1e-6)
+    card, ref = runs[str(cuda_device)], runs["cpu"]
+    assert sorted(card[1]) == sorted(ref[1]) and len(ref[1]) == 13
+    for p, layer in ref[1].items():
+        assert card[1][p].threshold == pytest.approx(layer.threshold,
+                                                     rel=1e-5), p
+    card_arrays = functional.param_arrays(card[0])
+    for name, v in functional.param_arrays(ref[0]).items():
+        onp.testing.assert_array_equal(card_arrays[name], v, err_msg=name)
+    for got, want in zip(card[2], ref[2]):
+        got = got.cpu()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 1e-2 * want.abs().max()

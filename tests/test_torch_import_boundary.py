@@ -56,7 +56,8 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.ops.ln_residual, mxnet_tpu_torch.random, "
             "mxnet_tpu_torch.gluon.model_zoo.bert, mxnet_tpu_torch.amp.fp8, "
             "mxnet_tpu_torch.parallel, mxnet_tpu_torch.ops.quant_matmul, "
-            "mxnet_tpu_torch.ops.quantization; "
+            "mxnet_tpu_torch.ops.quantization, "
+            "mxnet_tpu_torch.contrib.quantization; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
