@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Build every kernel from ``mxnet_tpu_torch/csrc`` (``nvcc`` for sm_90a,
    one process per source, all started together): the flash-attention
    forward and the two backward kernels (dK/dV, dQ), the ln_residual
-   forward and backward, the fp8 matmul and the int8 matmul. Print the
-   build time, each kernel's ptxas registers and spills, the card and
-   CUDA.
+   forward and backward, the fp8 matmul, the int8 matmul and kernel 8,
+   the conv3x3+BN+ReLU backward (dgrad, wgrad and the wgrad reduce). Print
+   the build time, each kernel's ptxas registers and spills, the card and
+   CUDA. Every phase prints its wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 32 and 128 (seq 200,
@@ -58,6 +59,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    exactly and round the epilogue alike); sigmoid, tanh and gelu: atol =
    rtol = 1e-6 (the card's tanhf/expf against torch's). The largest
    error is printed.
+2f. Kernel 8 against its plain version (dy recomputed from the stats
+   vector, 9 shifted fp32 products each for dgrad and wgrad): the four
+   3x3 stride-1 stage shapes of ResNet-50 at batch 32 ((56, 56, 64),
+   (28, 28, 128), (14, 14, 256), (7, 7, 512), C = O), three input sets
+   each, and two odd shapes (H, W = 7, 9 and 9, 7; C != O). dx and dw
+   within max|diff| / max|plain| <= 2e-4 (fp32 sums of up to 9*512
+   products in another order), dgamma and dbeta bit for bit (one
+   stats-pass function computes them for both), and a second launch bit
+   for bit (no atomics).
 3. Serving at full GPT-2 124M width (vocab 50257, 768 units, 12 layers,
    12 heads, max_length 1024, fp32, seeded Uniform(0.07) weights):
    ``serve.load(net, max_slots=8)`` with the default buckets, ``warmup()``,
@@ -179,6 +189,48 @@ Phases, in order; any failure exits non-zero and prints no result:
    bias read, out written) over 3.35 TB/s against 2 M N K over the 1979
    TOP/s dense int8 rate.
 
+13. ResNet-50 v1 training at full width, as bench.py's resnet50_train
+   (bench.py:258-266) in fp32: ``resnet50_v1(classes=1000)``,
+   ``initialize(seed=0)``, one inference forward to finish the deferred
+   shapes, then ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` ->
+   ``autograd.backward`` -> ``Trainer(..., "sgd", {"learning_rate": 0.05,
+   "momentum": 0.9}).step(32)`` on one fixed batch of 32 x 3 x 224 x 224
+   (``torch.randn`` from a seeded generator, labels ``randint(0, 1000)``).
+   From the same start weights, with ``fused_conv_bn`` "auto" (kernel 8)
+   and "off" (the cuDNN chain) in turns (auto, off, off, auto): a warm-up
+   step, then 24 timed steps with every count zeroed just before and read
+   just after. Holds: 16 kernel-8 calls a step under "auto" (each of its
+   dgrad and wgrad kernels counted too) and 0 under "off"; no launch of
+   kernels 1-7; the losses finite and the last below the first (24 timed
+   steps: momentum SGD on one fixed batch overshoots on steps 3-7 before
+   it falls, under both routes); the running statistics after step 1
+   within 1e-4 of each other (two-pass vs single-pass variance); the
+   step-1 gradients of "auto" within max|diff| / max|off| <= 1e-3 of
+   "off" for every parameter, or within twice what the conditioning probe
+   shows: the untrained net at batch 32 turns a one-rounding change of
+   the input (x * (1 +- 2^-24), three draws, "off" route) into gradient
+   changes of up to ~1e-1 of max|off| in the last stages, so no fp32
+   route can agree with another to 1e-3 there. Prints step ms,
+   images/s, the fp32 model-FLOP share (32 x 6 x 4.089e9 / step / 67
+   TFLOP/s, as bench.py:44-46 counts), device ms and busy share with the
+   top kernels (``torch.profiler``) and peak memory of both.
+14. Kernel 8 times at the four stage shapes (three input sets in turn):
+   its CUDA kernels alone and the whole wrapper with its stats pass, its
+   plain version, and as yardstick the autograd backward of ``F.conv2d``
+   -> ``F.batch_norm(training=True)`` -> relu (cuDNN, TF32 off; never
+   called by the port), beside the bound: da, y, x read, dx, dw written
+   over 3.35 TB/s against 36 M C O flops at the fp32 rate.
+15. int8 ResNet-50 v1 inference: ``quantize_net(resnet50_v1(),
+   calib_data=[one uniform batch 32 x 3 x 224 x 224],
+   calib_mode="naive")`` as bench.py:305-308 does, which must replace 53
+   convolutions and the Dense; one forward of a second uniform batch
+   (RandomState(1), the calibration's distribution) must launch kernel 6
+   once and no other kernel, the "off" route must give the same output
+   bit for bit, and the output must be finite. Prints the
+   int8-vs-fp32 error (max|diff| / max|fp32|, top-1 agreement), and the
+   fp32 and int8 forwards in turns: ms, images/s, device ms and busy
+   share, peak memory.
+
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN so that fp32 means fp32 throughout.
@@ -238,6 +290,35 @@ INT8_LAYERS = 73
 # first reading, 0.0515 and 0.148, on an H100 SXM (NVIDIA H100 80GB HBM3,
 # 700 W)
 INT8_VS_FP32_TOL = {"sequence": 0.12, "pooled": 0.35}
+TPU_CONV = "mxnet_tpu/ops/pallas_conv_bwd.py:{}"
+# ResNet-50 v1 training as bench.py's resnet50_train (bench.py:258-266)
+RESNET_BATCH, RESNET_CLASSES, RESNET_STEPS = 32, 1000, 24
+RESNET_SIZE = 224
+RESNET50_TRAIN_FLOPS = 3 * 2 * 4.089e9  # per image (bench.py:44-46)
+# (N, H, W, C = O) of the 3x3 stride-1 triplets, and the count a step that
+# phase 13 expects of each (it reads the count from the wrapper)
+CONV_STAGES = [(32, 56, 56, 64), (32, 28, 28, 128), (32, 14, 14, 256),
+               (32, 7, 7, 512)]
+RESNET_STAGE_TRIPLETS = dict(zip(CONV_STAGES, (3, 4, 6, 3)))
+RESNET_TRIPLETS = 16
+# kernel 8 vs its plain version, max|diff| / max|plain| of dx and dw: fp32
+# sums of up to 9*512 products in another order
+CONV_TOL = 2e-4
+# step-1 gradients of the kernel route vs the cuDNN chain, max|diff| /
+# max|off| per parameter, or twice the conditioning probe's change where
+# that is larger (phase 13)
+RESNET_GRAD_TOL = 1e-3
+RESNET_PROBES = 3
+# step-1 gradients of the kernel route vs the same fused forward with
+# autograd's (cuDNN) backward, max|diff| / max|ref| per parameter: with the
+# forward shared, no ReLU flips, and only the backward's fp32 summation
+# order differs (first reading 7.1e-5 on an H100 SXM, 700 W)
+RESNET_WIRING_TOL = 1e-3
+# running statistics after step 1, max|diff| / max|off| per tensor: the
+# fused forward's two-pass variance against BatchNorm's single-pass one
+RESNET_STAT_TOL = 1e-4
+INT8_RESNET_CONVS = 53  # the stem, 16 x 3 bottleneck convs, 4 downsample
+RESNET_FWD_ITERS = 20  # forwards in each timed window of phase 15
 
 
 def fail(msg):
@@ -266,11 +347,12 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters, warmup=3, top=5):
+def device_profile(fn, iters, warmup=3, top=5, match=""):
     """Device time of ``fn()`` from ``torch.profiler``, free of host launch
-    overhead: (mean ms per call summed over every CUDA kernel and copy,
-    the ``top`` kernels by time as (name, ms per call)). The first is None
-    when the profiler records no device activity."""
+    overhead: (mean ms per call summed over every CUDA kernel and copy
+    whose name contains ``match``, the ``top`` kernels by time as (name, ms
+    per call)). The first is None when the profiler records no such
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -282,7 +364,7 @@ def device_profile(fn, iters, warmup=3, top=5):
         torch.cuda.synchronize()
     per = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and match in e.name:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(per.values()) / iters / 1e3
     ranked = sorted(per.items(), key=lambda kv: -kv[1])[:top]
@@ -291,6 +373,15 @@ def device_profile(fn, iters, warmup=3, top=5):
 
 def device_ms(fn, iters, warmup=3):
     return device_profile(fn, iters, warmup)[0]
+
+
+def busy_share(device, wall):
+    """Profiled device ms over unprofiled wall ms, or None where either is
+    missing or the device time exceeds the wall time (the profiler's own
+    cost or a slower window: not a share that was measured)."""
+    if device is None or not wall or device > wall:
+        return None
+    return device / wall
 
 
 def flash_bound_ms(bh, sq, sk, d, causal, dtype):
@@ -350,6 +441,11 @@ def ptxas_summary(log):
                 vec = re.search(r"ILb(\d)E", mangled)
                 name = f"int8_matmul vec={vec[1] if vec else '?'}"
                 continue
+            if "conv_bwd" in mangled:
+                part = re.search(r"conv_bwd_(dgrad|wgrad|reduce)_kernel",
+                                 mangled)
+                name = f"conv_bwd {part[1] if part else '?'}"
+                continue
             if "ln_residual" in mangled:
                 name = "ln_fwd" if "fwd" in mangled else "ln_bwd"
                 continue
@@ -385,7 +481,8 @@ def phase_build():
     print("== phase 1: build", flush=True)
     t0 = time.perf_counter()
     libs = _native.build(["flash_attention_fwd", "flash_attention_bwd",
-                          "ln_residual", "fp8_matmul", "int8_matmul"])
+                          "ln_residual", "fp8_matmul", "int8_matmul",
+                          "conv_bwd"])
     dt = time.perf_counter() - t0
     for name, path in libs.items():
         print(f"built {name}: {path.name}")
@@ -845,7 +942,7 @@ def phase_train(dev, card):
     if busy is None:
         print("device busy share not measured (profiler saw no kernels)")
     else:
-        e2e["device_busy_share"] = busy / step_ms
+        e2e["device_busy_share"] = busy_share(busy, step_ms)
         print(f"device time per step {busy:.3f} ms of {step_ms:.3f} ms "
               f"({busy / step_ms:.1%} busy); top kernels (ms per step): "
               + ", ".join(f"{n} {t:.3f}" for n, t in top))
@@ -1046,7 +1143,7 @@ def phase_bert(dev, card):
     if busy is None:
         print("device busy share not measured (profiler saw no kernels)")
     else:
-        e2e["device_busy_share"] = busy / step_ms
+        e2e["device_busy_share"] = busy_share(busy, step_ms)
         print(f"device time per step {busy:.3f} ms of {step_ms:.3f} ms "
               f"({busy / step_ms:.1%} busy); top kernels (ms per step): "
               + ", ".join(f"{n} {t:.3f}" for n, t in top))
@@ -1394,7 +1491,7 @@ def phase_fp8_train(dev, card):
                "tokens_per_s": tokens / step_ms * 1e3,
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                "device_ms_per_step": busy,
-               "device_busy_share": None if busy is None else busy / step_ms,
+               "device_busy_share": busy_share(busy, step_ms),
                "top_kernels_ms": top}
         e2e[name] = row
         print(f"{name} step [{card}]: " + json.dumps(row))
@@ -1637,7 +1734,7 @@ def phase_bert_int8(dev, card):
                "forward_event_ms": event_ms,
                "samples_per_s": BERT_BATCH / ms * 1e3,
                "device_ms": busy,
-               "device_busy_share": None if busy is None else busy / ms,
+               "device_busy_share": busy_share(busy, ms),
                "peak_memory_gb": peak, "top_kernels_ms": top}
         e2e[name] = row
         print(f"BERT-base {name} forward [{card}]: " + json.dumps(row))
@@ -1713,6 +1810,574 @@ def phase_int8_times(dev, card):
               f"[{card}]: " + json.dumps(row))
         del sets, turn
     return rows
+
+
+# -- kernel 8 and the ResNet-50 phases ------------------------------------------
+
+def conv_counters(cb):
+    """[wrapper calls, dgrad, wgrad, wgrad_reduce] of kernel 8."""
+    k = cb.fused_conv3x3_bn_relu_bwd.kernel_launches
+    return [cb.fused_conv3x3_bn_relu_bwd.launches, k["dgrad"], k["wgrad"],
+            k["wgrad_reduce"]]
+
+
+def zero_conv_counters(cb):
+    cb.fused_conv3x3_bn_relu_bwd.launches = 0
+    cb.fused_conv3x3_bn_relu_bwd.shape_launches.clear()
+    for name in cb.fused_conv3x3_bn_relu_bwd.kernel_launches:
+        cb.fused_conv3x3_bn_relu_bwd.kernel_launches[name] = 0
+
+
+def other_counters():
+    """Launches of kernels 1-7: flash fwd/dkv/dq, ln fwd/bwd, fp8, int8."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    return (counters(fa) + ln_counters(lr) + [qm.fp8_matmul.launches,
+                                              qm.quantized_matmul.launches])
+
+
+def zero_all_counters():
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    zero_int8_counters(fa, lr, qm)
+    zero_conv_counters(cb)
+
+
+def conv_inputs(cb, dev, gen, n, h, w, c, o):
+    """(da, x, y, w, gamma, beta, mean, var) of one fused triplet: He-scaled
+    weights, the training forward's y and batch statistics."""
+    x = torch.randn(n, c, h, w, device=dev, generator=gen)
+    wt = torch.randn(o, c, 3, 3, device=dev, generator=gen) \
+        * (2.0 / (9 * c)) ** 0.5
+    gamma = torch.rand(o, device=dev, generator=gen) + 0.5
+    beta = torch.randn(o, device=dev, generator=gen) * 0.1
+    _, y, mean, var = cb.conv3x3_bn_relu_ref(x, wt, gamma, beta)
+    da = torch.randn(n, o, h, w, device=dev, generator=gen)
+    return da, x, y, wt, gamma, beta, mean, var
+
+
+def phase_conv_vs_plain(dev):
+    """Kernel 8 against its plain version on the card."""
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    print("== phase 2f: conv3x3_bn_relu_bwd kernel (kernel 8) vs plain "
+          "version", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    worst = {"dx": 0.0, "dw": 0.0}
+    max_abs = 0.0
+    cases = [(n, h, w, c, c) for (n, h, w, c) in CONV_STAGES] + [
+        (3, 7, 9, 5, 11), (2, 9, 7, 70, 33)]
+    for (n, h, w, c, o) in cases:
+        sets = 3 if n == RESNET_BATCH else 1
+        for s in range(sets):
+            args = conv_inputs(cb, dev, gen, n, h, w, c, o)
+            dx, dw, dg, db = cb.fused_conv3x3_bn_relu_bwd(*args)
+            again = cb.fused_conv3x3_bn_relu_bwd(*args)
+            torch.cuda.synchronize()
+            da, x, y, wt, gamma, beta, mean, var = args
+            pg, pb, vec = cb.bwd_stats(da, y, gamma, beta, mean, var)
+            pdx, pdw = cb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec)
+            e = {"dx": rel_err(dx, pdx), "dw": rel_err(dw, pdw)}
+            same = all(torch.equal(a, b) for a, b in zip(again, (dx, dw, dg,
+                                                                db)))
+            stats = torch.equal(dg, pg) and torch.equal(db, pb)
+            finite = all(torch.isfinite(t).all().item() for t in (dx, dw))
+            ok = (max(e.values()) <= CONV_TOL and same and stats and finite)
+            print(f"  N={n} H={h} W={w} C={c} O={o} set {s}: max|diff| / "
+                  f"max|plain| dx {e['dx']:.3e} dw {e['dw']:.3e}; dgamma/"
+                  f"dbeta {'bit for bit' if stats else 'DIFFER'}; repeat "
+                  f"{'bit for bit' if same else 'DIFFERS'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel 8 disagrees with its plain version at N={n} "
+                      f"H={h} W={w} C={c} O={o}: {e}, repeat equal {same}, "
+                      f"stats equal {stats}, finite {finite}")
+            for k in worst:
+                worst[k] = max(worst[k], e[k])
+            max_abs = max(max_abs, (dx - pdx).abs().max().item(),
+                          (dw - pdw).abs().max().item())
+            del args, dx, dw, again, pdx, pdw
+    return {"max_rel_err": worst, "max_abs_err": max_abs,
+            "cases": len(cases) + 2 * len(CONV_STAGES)}
+
+
+def conv_bound_ms(n, h, w, c, o):
+    """Least time on an H100 SXM for kernel 8's work on one triplet: da, y
+    and x read once, w read, dx and dw written (fp32), against 36 M C O
+    flops (dgrad and wgrad, 9 taps each, M = N H W) at the fp32 rate."""
+    m = n * h * w
+    nbytes = 4 * (2 * m * o + 2 * m * c + 2 * 9 * c * o + 8 * o)
+    return bound(nbytes, 36 * m * c * o, torch.float32)
+
+
+def resnet_batch(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE, device=dev,
+                    generator=gen)
+    y = torch.randint(0, RESNET_CLASSES, (RESNET_BATCH,), device=dev,
+                      generator=gen)
+    return x, y
+
+
+def phase_resnet_train(dev, card):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    print(f"== phase 13: ResNet-50 v1 training (full width, batch "
+          f"{RESNET_BATCH} x 3 x {RESNET_SIZE} x {RESNET_SIZE}, "
+          f"{RESNET_CLASSES} classes, fp32, "
+          f"SGD lr 0.05 momentum 0.9) on {card}", flush=True)
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev).initialize(seed=0)
+    x, y = resnet_batch(dev)
+    t0 = time.perf_counter()
+    net(x)  # finishes the deferred shapes (inference: no statistics update)
+    torch.cuda.synchronize()
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values()
+                   if p.grad_req != "null")
+    triplets = sum(isinstance(b, nn.FusableSequential)
+                   for b in net.modules())
+    print(f"deferred shapes finished in {time.perf_counter() - t0:.2f} s: "
+          f"{len(params)} parameter tensors, {n_params} trainable values, "
+          f"{triplets} bottleneck bodies")
+    start = {n: p.data().detach().clone() for n, p in params.items()}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def start_grads(inp):
+        """The "off" route's gradients from the start weights on ``inp``."""
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+        mx.config.set("fused_conv_bn", "off")
+        try:
+            with mx.autograd.record():
+                loss = loss_fn(net(inp), y)
+            mx.autograd.backward(loss)
+        finally:
+            mx.config.reset("fused_conv_bn")
+        return {n: p.grad().clone() for n, p in params.items()
+                if p.grad_req != "null"}
+
+    def run(mode):
+        """From the start weights: a warm-up step (its gradients kept), then
+        the timed steps with every count zeroed just before."""
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+        mx.config.set("fused_conv_bn", mode)
+        trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                                   "momentum": 0.9})
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            mx.autograd.backward(loss)
+            trainer.step(RESNET_BATCH)
+            return loss.detach().mean()
+
+        try:
+            zero_all_counters()
+            first = step().item()
+            torch.cuda.synchronize()
+            warm = conv_counters(cb)
+            grads = {n: p.grad().clone() for n, p in params.items()
+                     if p.grad_req != "null"}
+            stats = {n: p.data().detach().clone() for n, p in params.items()
+                     if "running" in n}
+            torch.cuda.reset_peak_memory_stats()
+            zero_all_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step() for _ in range(RESNET_STEPS)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, others = conv_counters(cb), other_counters()
+            shapes = dict(cb.fused_conv3x3_bn_relu_bwd.shape_launches)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            busy, top = device_profile(step, 2, warmup=0, top=8)
+        finally:
+            mx.config.reset("fused_conv_bn")
+        losses = [first] + [v.item() for v in losses]
+        return dict(first_step_launches=warm, grads=grads, stats=stats,
+                    losses=losses, wall=wall, launches=launches,
+                    shapes=shapes, others=others, peak=peak, busy=busy,
+                    top=top)
+
+    runs = {}
+    for mode in ("auto", "off", "off", "auto"):
+        r = run(mode)
+        want = ([RESNET_TRIPLETS * RESNET_STEPS] * 3 if mode == "auto"
+                else [0, 0, 0])
+        want_shapes = ({(n, h, w, c, c): t * RESNET_STEPS for (n, h, w, c), t
+                        in RESNET_STAGE_TRIPLETS.items()}
+                       if mode == "auto" else {})
+        print(f"{mode}: losses {r['losses']}; kernel 8 calls / dgrad / "
+              f"wgrad launches in {RESNET_STEPS} steps {r['launches'][:3]}, "
+              f"wgrad reduce {r['launches'][3]}; calls by (N, H, W, C, O) "
+              f"{r['shapes']}; kernels 1-7 {r['others']}")
+        check(r["launches"][:3] == want,
+              f"'{mode}': kernel 8 calls/dgrad/wgrad {r['launches'][:3]} in "
+              f"{RESNET_STEPS} steps, expected {want}")
+        check(r["shapes"] == want_shapes,
+              f"'{mode}': kernel 8 calls by (N, H, W, C, O) {r['shapes']} in "
+              f"{RESNET_STEPS} steps, expected {want_shapes}")
+        check(r["first_step_launches"][:3] == [w // RESNET_STEPS
+                                               for w in want],
+              f"'{mode}': warm-up step launched kernel 8 "
+              f"{r['first_step_launches']}")
+        check(not any(r["others"]), f"'{mode}': kernels 1-7 launched "
+                                    f"{r['others']}, expected none")
+        check(all(onp.isfinite(r["losses"])) and r["losses"][-1]
+              < r["losses"][0], f"'{mode}': the loss is not finite or did "
+                                f"not fall: {r['losses']}")
+        if mode in runs:
+            runs[mode]["wall_runs"].append(r["wall"])
+            runs[mode]["grads2"] = r["grads"]
+        else:
+            r["wall_runs"] = [r["wall"]]
+            runs[mode] = r
+    auto, off = runs["auto"], runs["off"]
+    # a conv bias that feeds a BatchNorm over batch statistics has a zero
+    # gradient in exact arithmetic (the mean removes it): both routes give
+    # fp32 noise there, so its difference is held against the scale of the
+    # same conv's weight gradient
+    zero_bias = {}
+    for path, m in net.named_modules():
+        if isinstance(m, nn.HybridSequential):
+            kids = list(m._modules.items())
+            for (k, a), (_, b) in zip(kids, kids[1:]):
+                if (isinstance(a, nn.Conv2D) and a.bias is not None
+                        and isinstance(b, nn.BatchNorm)):
+                    zero_bias[f"{path}.{k}.bias"] = f"{path}.{k}.weight"
+    # the conditioning probe: the "off" route's step-1 gradients from the
+    # same weights on the batch moved by one fp32 rounding (x * (1 +- 2^-24))
+    probes = []
+    for seed in range(RESNET_PROBES):
+        sign = torch.randint(0, 2, x.shape, device=dev, generator=torch.
+                             Generator(device=dev).manual_seed(100 + seed))
+        probes.append(start_grads(x * (1 + (2 * sign - 1) * 2.0 ** -24)))
+    rows = []
+    for n, g in off["grads"].items():
+        scale = (off["grads"][zero_bias[n]] if n in zero_bias
+                 else g).abs().max().item()
+        d = {"auto_vs_off": (auto["grads"][n] - g).abs().max().item(),
+             "off_vs_off": (off["grads2"][n] - g).abs().max().item(),
+             "auto_vs_auto": (auto["grads2"][n]
+                              - auto["grads"][n]).abs().max().item(),
+             "probe": max((pg[n] - g).abs().max().item() for pg in probes)}
+        floor = max(d["probe"], d["off_vs_off"])
+        limit = max(RESNET_GRAD_TOL * scale, 2 * floor)
+        rows.append((d["auto_vs_off"] / scale, n, {k: v / scale for k, v
+                                                   in d.items()},
+                     d["auto_vs_off"] <= limit,
+                     d["auto_vs_off"] <= RESNET_GRAD_TOL * scale))
+    rows.sort(key=lambda r: -r[0])
+    strict = sum(r[4] for r in rows)
+    print(f"step-1 gradients, 'auto' (kernel 8) vs 'off' (cuDNN chain), "
+          f"max|diff| / max|off| per parameter: {strict} of {len(rows)} "
+          f"within {RESNET_GRAD_TOL}; the largest (with the conditioning "
+          f"probe, off vs off and auto vs auto on the same scale):")
+    for ratio, n, d, ok, _ in rows[:8]:
+        print(f"  {n}: " + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+              + ("" if ok else "  FAIL"))
+    bad = [r[1] for r in rows if not r[3]]
+    check(not bad, f"step-1 gradients of {bad[:4]} ({len(bad)} in all) off "
+                   f"by more than {RESNET_GRAD_TOL} of max|off| and twice "
+                   "the conditioning probe")
+    worst = rows[0][0]
+    # the wiring under a tight limit: the same fused forward with autograd's
+    # backward (cuDNN's conv and torch's BatchNorm backward) in place of
+    # kernel 8, so the two routes share every forward value and part only
+    # by the backward's summation order
+    ref_cbr = cb.FusedCBRFunction
+
+    class AutogradCBR:
+        @staticmethod
+        def apply(inp, w, gamma, beta, eps):
+            a, _, mean, var = cb.conv3x3_bn_relu_ref(inp, w, gamma, beta, eps)
+            return a, mean.detach(), var.detach()
+
+    with torch.no_grad():
+        for n, p in params.items():
+            p.data().copy_(start[n])
+    zero_all_counters()
+    cb.FusedCBRFunction = AutogradCBR
+    try:
+        with mx.autograd.record():
+            ref_loss = loss_fn(net(x), y)
+        mx.autograd.backward(ref_loss)
+    finally:
+        cb.FusedCBRFunction = ref_cbr
+    torch.cuda.synchronize()
+    check(conv_counters(cb)[0] == 0 and not any(other_counters()),
+          f"the autograd route launched kernel 8 {conv_counters(cb)} or "
+          f"kernels 1-7 {other_counters()}")
+    wiring = {}
+    for n, g in auto["grads"].items():
+        ref = params[n].grad()
+        scale = (params[zero_bias[n]].grad() if n in zero_bias
+                 else ref).abs().max().item()
+        wiring[n] = (g - ref).abs().max().item() / scale
+    wired = sorted(wiring, key=lambda n: -wiring[n])
+    same_loss = ref_loss.mean().item() == auto["losses"][0]
+    print(f"step-1 gradients, 'auto' (kernel 8) vs the same fused forward "
+          f"with autograd's backward, max|diff| / max|ref| per parameter: "
+          f"largest {wiring[wired[0]]:.3e} ({wired[0]}), "
+          f"{sum(v <= RESNET_WIRING_TOL for v in wiring.values())} of "
+          f"{len(wiring)} within {RESNET_WIRING_TOL}; step-1 losses "
+          f"{'equal' if same_loss else 'DIFFER'}")
+    check(wiring[wired[0]] <= RESNET_WIRING_TOL,
+          f"step-1 gradients of {wired[:4]} off the autograd route's by "
+          f"{[wiring[n] for n in wired[:4]]}, more than {RESNET_WIRING_TOL}")
+    stat_err = max(rel_err(auto["stats"][n], v) for n, v in
+                   off["stats"].items())
+    print(f"running statistics after step 1, 'auto' vs 'off': largest "
+          f"max|diff| / max|off| {stat_err:.3e} (limit {RESNET_STAT_TOL})")
+    check(stat_err <= RESNET_STAT_TOL, f"running statistics differ by "
+                                       f"{stat_err:.3e}")
+    e2e = {"step1_grad_rel_err": worst,
+           "step1_grad_within_tol": [strict, len(rows)],
+           "step1_grad_vs_autograd_rel_err": wiring[wired[0]],
+           "step1_grad_worst": {r[1]: r[2] for r in rows[:4]},
+           "running_stats_rel_err": stat_err, "parameters": n_params}
+    for mode, r in runs.items():
+        step_ms = [w / RESNET_STEPS * 1e3 for w in r["wall_runs"]]
+        ms = float(onp.median(step_ms))
+        row = {"step_ms": ms, "step_ms_runs": step_ms,
+               "images_per_s": RESNET_BATCH / ms * 1e3,
+               "fp32_model_flop_share": RESNET_BATCH * RESNET50_TRAIN_FLOPS
+               / (ms / 1e3) / PEAK_FLOPS[torch.float32],
+               "device_ms": r["busy"],
+               "device_busy_share": busy_share(r["busy"], ms),
+               "peak_memory_gb": r["peak"], "losses": r["losses"],
+               "kernel8_launches_per_step": [n // RESNET_STEPS
+                                             for n in r["launches"]],
+               "kernel8_calls_per_step_by_shape": {
+                   "N={} H={} W={} C={} O={}".format(*k): v / RESNET_STEPS
+                   for k, v in r["shapes"].items()},
+               "top_kernels_ms": r["top"]}
+        e2e[mode] = row
+        print(f"ResNet-50 training '{mode}' [{card}]: " + json.dumps(row))
+    e2e["launches"] = auto["launches"][0]
+    per_shape = {k: v // RESNET_STEPS for k, v in auto["shapes"].items()}
+    del start, runs
+    return e2e, per_shape
+
+
+def phase_conv_times(dev, card):
+    """Kernel 8 (its CUDA kernels and the whole wrapper), its plain version
+    and the cuDNN composition at the four ResNet-50 stage shapes."""
+    import itertools
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    print(f"== phase 14: conv3x3_bn_relu_bwd (kernel 8) times on {card}",
+          flush=True)
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    for (n, h, w, c) in CONV_STAGES:
+        sets = [conv_inputs(cb, dev, gen, n, h, w, c, c) for _ in range(3)]
+        graphs = []
+        for da, x, y, wt, gamma, beta, mean, var in sets:
+            leaves = [t.clone().requires_grad_() for t in (x, wt, gamma,
+                                                           beta)]
+            out = F.relu(F.batch_norm(
+                F.conv2d(leaves[0], leaves[1], padding=1), None, None,
+                leaves[2], leaves[3], training=True, eps=1e-5))
+            graphs.append((out, leaves, da))
+        turn = itertools.cycle(range(3))
+
+        def call(fn):
+            return lambda: fn(next(turn))
+
+        def kernel(i):
+            return cb.fused_conv3x3_bn_relu_bwd(*sets[i])
+
+        def plain(i):
+            da, x, y, wt, gamma, beta, mean, var = sets[i]
+            _, _, vec = cb.bwd_stats(da, y, gamma, beta, mean, var)
+            return cb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec)
+
+        def composition(i):
+            out, leaves, da = graphs[i]
+            return torch.autograd.grad(out, leaves, da, retain_graph=True)
+
+        row = {}
+        for name, fn in (("kernel", kernel), ("plain", plain),
+                         ("composition", composition)):
+            iters = 5 if name == "plain" else 20
+            row[name + "_call_ms"] = cuda_ms(call(fn), iters, warmup=3)
+            row[name + "_device_ms"] = device_ms(call(fn), iters, warmup=1)
+        row["cuda_kernels_ms"] = device_profile(call(kernel), 20, warmup=2,
+                                                match="conv_bwd_")[0]
+        row["bound_ms"], row["bound_by"] = conv_bound_ms(n, h, w, c, c)
+        rows[(n, h, w, c)] = row
+        print(f"kernel 8 N={n} H={h} W={w} C=O={c} fp32 [{card}]: "
+              + json.dumps(row))
+        del sets, graphs, turn
+    return rows
+
+
+def phase_resnet_int8(dev, card):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as cq
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    print(f"== phase 15: ResNet-50 v1 int8 inference through quantize_net "
+          f"(full width, batch {RESNET_BATCH} x 3 x {RESNET_SIZE} x "
+          f"{RESNET_SIZE}) on {card}",
+          flush=True)
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev).initialize(seed=0)
+    calib = torch.from_numpy(onp.random.RandomState(0).rand(
+        RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE).astype("float32")).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qnet = cq.quantize_net(net, calib_data=[calib], calib_mode="naive")
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    n_conv = sum(isinstance(b, cq.QuantizedConv) for b in qnet.modules())
+    n_dense = sum(isinstance(b, cq.QuantizedDense) for b in qnet.modules())
+    kept = (sum(isinstance(b, nn.Conv2D) for b in net.modules()),
+            sum(isinstance(b, nn.Dense) for b in net.modules()))
+    print(f"quantize_net (naive, 1 calibration batch): {n_conv} "
+          f"QuantizedConv and {n_dense} QuantizedDense in {t_quant:.2f} s; "
+          f"the fp32 net keeps {kept[0]} Conv2D and {kept[1]} Dense")
+    check(n_conv == INT8_RESNET_CONVS and n_dense == 1
+          and kept == (INT8_RESNET_CONVS, 1)
+          and not any(isinstance(b, (nn.Conv2D, nn.Dense))
+                      for b in qnet.modules()),
+          f"quantize_net gave {n_conv} QuantizedConv and {n_dense} "
+          f"QuantizedDense (the net keeps {kept}), expected "
+          f"{INT8_RESNET_CONVS} and 1")
+    # a second batch from the calibration's distribution (bench.py's
+    # normal batch would fall outside the calibrated ranges at the stem)
+    x = torch.from_numpy(onp.random.RandomState(1).rand(
+        RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE).astype("float32")).to(dev)
+    zero_all_counters()
+    torch.cuda.synchronize()
+    out = qnet(x)
+    torch.cuda.synchronize()
+    got = other_counters() + conv_counters(cb)
+    want = [0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0]
+    check(got == want, f"int8 forward launched flash fwd/dkv/dq, ln "
+                       f"fwd/bwd, fp8, int8, kernel 8 {got}, expected {want}")
+    check(out.shape == (RESNET_BATCH, RESNET_CLASSES)
+          and torch.isfinite(out).all().item(),
+          f"int8 output {tuple(out.shape)} not finite or of the wrong shape")
+    mx.config.set("quantize.fused_matmul", "off")
+    try:
+        out_off = qnet(x)
+    finally:
+        mx.config.reset("quantize.fused_matmul")
+    torch.cuda.synchronize()
+    same = torch.equal(out, out_off)
+    print(f"kernel route vs the plain chain on the card: "
+          f"{'bit for bit' if same else 'DIFFERS'}")
+    check(same, "the int8 kernel route's output is not the plain chain's "
+                "bit for bit")
+    out32 = net(x)
+    err = rel_err(out, out32)
+    agree = (out.argmax(-1) == out32.argmax(-1)).float().mean().item()
+    print(f"int8 vs fp32: max|diff| / max|fp32| {err:.4f}; top-1 agreement "
+          f"{agree:.3f}")
+    # windows of RESNET_FWD_ITERS forwards in turns, each timed on the host
+    # clock and by CUDA events around the same calls
+    fwd = {"fp32": lambda: net(x), "int8": lambda: qnet(x)}
+    wall = {k: [] for k in fwd}
+    event = {k: [] for k in fwd}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for name in ("fp32", "int8", "int8", "fp32", "fp32", "int8"):
+        fwd[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(RESNET_FWD_ITERS):
+            fwd[name]()
+        end.record()
+        torch.cuda.synchronize()
+        wall[name].append((time.perf_counter() - t0) / RESNET_FWD_ITERS
+                          * 1e3)
+        event[name].append(start.elapsed_time(end) / RESNET_FWD_ITERS)
+    e2e = {"quantize_net_s": t_quant, "int8_vs_fp32_rel_err": err,
+           "top1_agreement": agree, "launches_per_forward": got}
+    for name, fn in fwd.items():
+        ms = float(onp.median(wall[name]))
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy, top = device_profile(fn, 2, warmup=1, top=8)
+        row = {"forward_ms": ms, "forward_ms_runs": wall[name],
+               "forward_event_ms": float(onp.median(event[name])),
+               "forward_event_ms_runs": event[name],
+               "images_per_s": RESNET_BATCH / ms * 1e3, "device_ms": busy,
+               "device_busy_share": busy_share(busy, ms),
+               "peak_memory_gb": peak, "top_kernels_ms": top}
+        e2e[name] = row
+        print(f"ResNet-50 {name} forward [{card}]: " + json.dumps(row))
+    e2e["launches"] = got[6]
+    return e2e
+
+
+def conv_entry(errs, rows, launches, per_shape):
+    """Kernel 8's entry; ``per_shape`` is phase 13's read of the calls a
+    step by (N, H, W, C, O), which weights the per-step sums."""
+    per_step = sum(per_shape.values())
+    row = rows[CONV_STAGES[0]]
+
+    def calls(n, h, w, c):
+        return per_shape.get((n, h, w, c, c), 0)
+
+    def step_sum(value):
+        vals = [value(rows[s]) for s in CONV_STAGES]
+        if None in vals:
+            return None
+        return sum(calls(*s) * v for s, v in zip(CONV_STAGES, vals))
+
+    def kernel_ms(r):
+        return (r["cuda_kernels_ms"] if r["cuda_kernels_ms"] is not None
+                else pick(r, "kernel"))
+
+    return {
+        "name": "conv3x3_bn_relu_bwd",
+        "route": "cuda",
+        "source": SOURCE.format("conv_bwd"),
+        "replaces": TPU_CONV.format(40),
+        "launches": launches,
+        "launches_by_path": {"resnet_train": launches,
+                             "resnet_int8_infer": 0},
+        "launches_per_step": {"resnet_train": per_step},
+        "cuda_kernels_per_launch": ["conv_bwd_dgrad_kernel",
+                                    "conv_bwd_wgrad_kernel",
+                                    "conv_bwd_reduce_kernel (where the "
+                                    "pixels split)"],
+        "max_abs_err": errs["max_abs_err"],
+        "max_rel_err": errs["max_rel_err"],
+        "ms": kernel_ms(row),
+        "call_ms_with_stats_pass": pick(row, "kernel"),
+        "plain_ms": pick(row, "plain"),
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "composition_ms": pick(row, "composition"),
+        "composition": "autograd backward of F.conv2d -> F.batch_norm("
+                       "training=True) -> relu (cuDNN, TF32 off): no single "
+                       "PyTorch call computes this function",
+        "shape": "N=32 H=W=56 C=O=64 fp32",
+        "by_shape": {f"N={n} H={h} W={w} C=O={c}": {
+            "ms": kernel_ms(r), "call_ms_with_stats_pass": pick(r, "kernel"),
+            "plain_ms": pick(r, "plain"), "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "composition_ms": pick(r, "composition"),
+            "launches_per_step": calls(n, h, w, c)}
+            for (n, h, w, c), r in rows.items()},
+        "ms_per_step": step_sum(kernel_ms),
+        "composition_ms_per_step": step_sum(lambda r: pick(r,
+                                                           "composition")),
+        "bound_ms_per_step": step_sum(lambda r: r["bound_ms"]),
+    }
 
 
 def int8_entry(launches, errs, rows):
@@ -1857,6 +2522,15 @@ def kernel_entry(kind, launches, errs, rows, extra=None):
     return entry
 
 
+def timed(name, phase, *args):
+    """Run a phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {name} seconds: {time.perf_counter() - t0:.1f}",
+          flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an "
@@ -1869,43 +2543,54 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    card = phase_build()
-    errs = phase_kernel_vs_plain(dev)
-    bwd_errs = phase_bwd_vs_plain(dev)
-    ln_errs = phase_ln_vs_plain(dev)
-    fp8_errs = phase_fp8_vs_plain(dev)
-    int8_errs = phase_int8_vs_plain(dev)
-    net, eng, st, wall, serve_launches = phase_main_path(dev)
-    serve_shape = phase_times(dev, net, eng, st, wall, card)
+    card = timed("1", phase_build)
+    errs = timed("2", phase_kernel_vs_plain, dev)
+    bwd_errs = timed("2b", phase_bwd_vs_plain, dev)
+    ln_errs = timed("2c", phase_ln_vs_plain, dev)
+    fp8_errs = timed("2d", phase_fp8_vs_plain, dev)
+    int8_errs = timed("2e", phase_int8_vs_plain, dev)
+    conv_errs = timed("2f", phase_conv_vs_plain, dev)
+    net, eng, st, wall, serve_launches = timed("3", phase_main_path, dev)
+    serve_shape = timed("4", phase_times, dev, net, eng, st, wall, card)
     del net, eng
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, train_e2e = phase_train(dev, card)
+    train_launches, train_e2e = timed("5", phase_train, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    rows = phase_kernel_times(dev, card)
+    rows = timed("6", phase_kernel_times, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    bert_launches, bert_e2e = phase_bert(dev, card)
+    bert_launches, bert_e2e = timed("7", phase_bert, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    ln_rows = phase_ln_times(dev, card)
+    ln_rows = timed("8", phase_ln_times, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    fp8_launches, fp8_e2e = phase_fp8_train(dev, card)
+    fp8_launches, fp8_e2e = timed("9", phase_fp8_train, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    fp8_rows = phase_fp8_times(dev, card)
+    fp8_rows = timed("10", phase_fp8_times, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    int8_launches, int8_e2e = phase_bert_int8(dev, card)
+    int8_launches, int8_e2e = timed("11", phase_bert_int8, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    int8_rows = phase_int8_times(dev, card)
+    int8_rows = timed("12", phase_int8_times, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_e2e, resnet_shapes = timed("13", phase_resnet_train, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    conv_rows = timed("14", phase_conv_times, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_int8_e2e = timed("15", phase_resnet_int8, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
-    print(json.dumps({"kernels": [
+    resnet_paths = {"resnet_train": 0, "resnet_int8_infer": 0}
+    entries = [
         kernel_entry("fwd", serve_launches + train_launches[0] + fa8[0],
                      errs, rows,
                      {"launches_by_path": {"serve": serve_launches,
@@ -1928,8 +2613,20 @@ def main():
         ln_entry("bwd", bert_launches[1], ln_errs, ln_rows),
         fp8_entry(fp8_launches[0], fp8_errs, fp8_rows),
         int8_entry(int8_launches, int8_errs, int8_rows),
-    ], "train": train_e2e, "bert_train": bert_e2e, "fp8_train": fp8_e2e,
-        "bert_int8_infer": int8_e2e}))
+    ]
+    for entry in entries:
+        entry["launches_by_path"].update(resnet_paths)
+    int8 = entries[-1]
+    int8["launches"] += resnet_int8_e2e["launches"]
+    int8["launches_by_path"]["resnet_int8_infer"] = \
+        resnet_int8_e2e["launches"]
+    entries.append(conv_entry(conv_errs, conv_rows, resnet_e2e["launches"],
+                              resnet_shapes))
+    print(json.dumps({"kernels": entries, "train": train_e2e,
+                      "bert_train": bert_e2e, "fp8_train": fp8_e2e,
+                      "bert_int8_infer": int8_e2e,
+                      "resnet_train": resnet_e2e,
+                      "resnet_int8_infer": resnet_int8_e2e}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

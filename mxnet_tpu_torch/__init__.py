@@ -12,10 +12,12 @@ attention through the flash-attention forward kernel) and training
 ``gluon.Trainer.step``, attention gradients through the two
 flash-attention backward kernels), BERT training (the ln_residual kernels)
 and fp8 training (``parallel.ShardedTrainStep(..., precision="fp8")``, the
-fp8 matmul kernel on every eligible Dense) and int8 inference
+fp8 matmul kernel on every eligible Dense), int8 inference
 (``contrib.quantization.quantize_net``, the int8 matmul kernel on every
-quantized Dense). Entry points run on ``cuda:0`` unless given
-``device="cpu"``.
+quantized Dense, exact int8 convolutions) and ResNet training through
+Gluon (``gluon.model_zoo.vision``, the conv3x3+BN+ReLU backward kernel in
+every eligible triplet of an ``nn.FusableSequential``). Entry points run
+on ``cuda:0`` unless given ``device="cpu"``.
 """
 from . import amp, autograd, config, context, contrib, functional, gluon
 from . import initializer, lr_scheduler

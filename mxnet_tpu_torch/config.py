@@ -88,6 +88,13 @@ declare("fused_ln_residual", str, "auto", "MXNET_FUSED_LN_RESIDUAL",
         "Fused dropout+residual+LayerNorm kernel in post-norm transformer "
         "encoder cells: 'auto' (CUDA tensor and live dropout), 'on', "
         "'off'.")
+declare("fused_conv_bn", str, "auto", "MXNET_FUSED_CONV_BN",
+        "Fused conv3x3+BatchNorm+ReLU training route of "
+        "nn.FusableSequential, whose backward is kernel 8: 'auto' (an "
+        "eligible triplet on a float32 CUDA tensor; the reference's 'auto' "
+        "is off, from a TPU v5e A/B, a TPU fact not carried over), 'on' "
+        "(every eligible triplet, on the CPU through the kernel's plain "
+        "version), 'off' (child by child).")
 declare("quantize.fused_matmul", str, "auto", "MXNET_QUANTIZE_FUSED_MATMUL",
         "Fused quantize+matmul+epilogue route of npx.quantized_dense_fused "
         "(the int8 kernel) and npx.fp8_dense_fused (the fp8 kernel): "

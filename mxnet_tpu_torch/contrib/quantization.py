@@ -6,19 +6,22 @@ input range of every target layer over ``calib_data`` ('naive' abs-max,
 'entropy' KL threshold, 'percentile') and returns a deep copy of the
 network whose ``Dense`` layers are replaced by :class:`QuantizedDense`,
 whose forward is one ``npx.quantized_dense_fused`` (on the card the
-hand-written int8 kernel, ``csrc/int8_matmul.cu``).
+hand-written int8 kernel, ``csrc/int8_matmul.cu``), and whose forward
+convolutions are replaced by :class:`QuantizedConv`, whose forward is one
+``npx.quantized_conv_fused`` (the int8 products summed exactly; the
+reference has no Pallas conv kernel).
 
     qnet = quantize_net(net, calib_data=batches, calib_mode="naive")
-    y = qnet(x)          # every Dense runs int8 x int8 -> int32
+    y = qnet(x)          # every Dense and conv runs int8 x int8 -> int32
 
 The calibration functions (``_Stats``, ``optimal_threshold``,
 ``_percentile_threshold``, ``_quantize_weight``) are the JAX package's
 numpy code, copied, so thresholds and int8 weights agree bit for bit.
 Calibration hooks are torch forward pre-hooks, removed through their
 handles; in 'naive' mode the abs-max stays on the device until the
-calibration batches are through. ``QuantizedConv`` and the conv half of
-``_is_target`` come with the ResNet slice (the port has no conv layers
-yet).
+calibration batches are through. The calibration forwards run in
+inference, so an ``nn.FusableSequential`` calls its children and every
+conv's hook sees its input.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Constant
 
-__all__ = ["quantize_net", "QuantizedDense", "optimal_threshold"]
+__all__ = ["quantize_net", "QuantizedDense", "QuantizedConv",
+           "optimal_threshold"]
 
 _INT8_MAX = 127.0
 
@@ -204,6 +208,47 @@ class QuantizedDense(HybridBlock):
         return f"{self._units}, T={self.threshold:.4g}"
 
 
+class QuantizedConv(HybridBlock):
+    """int8 replacement for a forward convolution (reference:
+    quantized_conv.cc as rewritten by quantize_net): the :class:`Constant`
+    s ``qweight`` (int8, per output channel), ``w_scale`` and ``bias_c``
+    as :class:`QuantizedDense`'s, and the conv's own geometry. The forward
+    is one ``npx.quantized_conv_fused`` with ``x_scale = threshold / 127``
+    and the conv's activation in the epilogue where it fuses."""
+
+    def __init__(self, conv, threshold: float):
+        super().__init__()
+        if conv._op_name != "convolution":
+            raise MXNetError("only forward convolutions quantize")
+        dev = conv.weight.device
+        q, scale = _quantize_weight(conv.weight.detach().cpu().numpy())
+        self.qweight = Constant(q, name="qweight", device=dev).data()
+        self.w_scale = Constant(scale, name="w_scale", device=dev).data()
+        self.bias_c = (Constant(conv.bias.detach().cpu(), name="bias",
+                                device=dev).data()
+                       if conv.bias is not None else None)
+        self.threshold = float(threshold)
+        self._conv_cfg = dict(kernel=conv._kernel, stride=conv._strides,
+                              dilate=conv._dilation, pad=conv._padding,
+                              num_filter=conv._channels,
+                              num_group=conv._groups, layout=conv._layout)
+        self.act = conv.act
+        self._fused_act = _fusable_act(conv.act)
+
+    def forward(self, x):
+        out = npx.quantized_conv_fused(
+            x, self.qweight, self.threshold / _INT8_MAX, self.w_scale,
+            bias=self.bias_c, act=self._fused_act, **self._conv_cfg)
+        if self.act is not None and self._fused_act is None:
+            out = self.act(out)
+        return out
+
+    def extra_repr(self):
+        cfg = self._conv_cfg
+        return (f"{cfg['num_filter']}, kernel={cfg['kernel']}, "
+                f"T={self.threshold:.4g}")
+
+
 # --------------------------------------------------------------------------
 # quantize_net
 # --------------------------------------------------------------------------
@@ -219,7 +264,9 @@ def _walk_layers(block, prefix=""):
 
 
 def _is_target(layer):
-    return isinstance(layer, nn.Dense)
+    return isinstance(layer, nn.Dense) or (
+        isinstance(layer, nn.conv_layers._Conv)
+        and layer._op_name == "convolution")
 
 
 def _first_array(batch):
@@ -231,16 +278,17 @@ def _first_array(batch):
 def quantize_net(network, quantized_dtype="int8", exclude_layers=None,
                  exclude_layers_match=None, calib_data=None,
                  calib_mode="naive", num_calib_batches=None, logger=None):
-    """Quantize a Gluon network's Dense layers to int8.
+    """Quantize a Gluon network's Dense and Conv layers to int8.
 
     Mirrors the reference `mx.contrib.quantization.quantize_net`: calibrates
     activation ranges over `calib_data` (an iterable of input batches or
     (data, ...) tuples, of which the first array is fed) with `calib_mode`
     in {'naive', 'entropy', 'percentile'}, then returns a **new** network
-    (deep copy) whose targeted layers are replaced by QuantizedDense. The
-    original network comes back unchanged. `exclude_layers` (structural
-    paths) and `exclude_layers_match` (substrings of them) keep layers in
-    fp32; `num_calib_batches` caps the calibration batches.
+    (deep copy) whose targeted layers are replaced by QuantizedDense or
+    QuantizedConv. The original network comes back unchanged.
+    `exclude_layers` (structural paths) and `exclude_layers_match`
+    (substrings of them) keep layers in fp32; `num_calib_batches` caps the
+    calibration batches.
     """
     if quantized_dtype != "int8":
         raise NotImplementedError("the port quantizes to int8 only")
@@ -314,7 +362,9 @@ def quantize_net(network, quantized_dtype="int8", exclude_layers=None,
     for parent, key, path, layer in list(_walk_layers(qnet)):
         if path not in thresholds or not _is_target(layer):
             continue
-        q = QuantizedDense(layer, thresholds[path])
+        cls = QuantizedDense if isinstance(layer, nn.Dense) \
+            else QuantizedConv
+        q = cls(layer, thresholds[path])
         q.initialize()
         setattr(parent, key, q)  # nn.Module keeps the child's place
         replaced += 1

@@ -17,21 +17,35 @@ __all__ = ["param_arrays", "load_params"]
 
 
 def param_arrays(block):
-    """dict structural-name -> numpy copy of every parameter."""
-    return {name: p.data().detach().cpu().numpy()
-            for name, p in block.collect_params().items()}
+    """dict structural-name -> numpy copy of every parameter whose shape is
+    known (a deferred one, whose first forward has not run, is left out, as
+    the reference leaves out parameters without data). A copy on the CPU
+    too, where ``Tensor.numpy()`` would share the parameter's memory and
+    follow its in-place updates."""
+    return {name: p.data().detach().cpu().numpy().copy()
+            for name, p in block.collect_params().items()
+            if p._shape_known()}
+
+
+def _fits(shape, array_shape):
+    """Whether an array of ``array_shape`` fills a parameter of ``shape``
+    (0: a deferred dimension, any size)."""
+    return len(shape) == len(array_shape) and all(
+        s in (0, a) for s, a in zip(shape, array_shape))
 
 
 @torch.no_grad()
 def load_params(block, arrays):
     """Copy ``arrays`` ({structural name: numpy array}) into ``block``'s
-    parameters on their own device and dtype. Raises :class:`MXNetError`
-    on any missing, extra or mis-shaped name, before anything is copied."""
+    parameters on their own device and dtype; a deferred parameter takes
+    the array's shape where it fits (its unknown, 0, dimensions). Raises
+    :class:`MXNetError` on any missing, extra or mis-shaped name, before
+    anything is copied."""
     params = block.collect_params()
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
     shaped = sorted(n for n in set(params) & set(arrays)
-                    if tuple(onp.shape(arrays[n])) != params[n].shape)
+                    if not _fits(params[n].shape, onp.shape(arrays[n])))
     if missing or extra or shaped:
         bad_shapes = [(n, tuple(onp.shape(arrays[n])),
                        tuple(params[n].shape)) for n in shaped[:4]]

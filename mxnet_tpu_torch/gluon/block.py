@@ -2,9 +2,10 @@
 
 Counterpart of ``mxnet_tpu/gluon/block.py``. Each parameter is a
 :class:`~.parameter.Parameter` whose tensor (an ``nn.Parameter``) is
-registered on its block and created with its full shape on the block's
-device at construction (the JAX package's deferred shape inference is not
-needed: every layer on the ported paths is told its input width).
+registered on its block on the block's device at construction; a layer
+told no input width gets a deferred parameter (a 0 in its shape) whose
+shape its first forward finishes (``Parameter._finish_deferred_init``), as
+in the JAX package.
 ``collect_params()`` returns ``{structural name: Parameter}`` under the
 JAX package's names (attribute paths, e.g.
 ``backbone.decoder.layer0.attention.query_proj.weight``), so weights carry
@@ -21,6 +22,7 @@ call (the tied LM head's KV-cache entry points), takes the same gate through
 from __future__ import annotations
 
 import functools
+import re
 
 import torch
 from torch import nn
@@ -64,14 +66,17 @@ class HybridBlock(nn.Module):
                 return super().__call__(*args, **kwargs)
         return super().__call__(*args, **kwargs)
 
-    def collect_params(self):
+    def collect_params(self, select=None):
         """dict structural-name -> :class:`Parameter` (tied parameters
-        once)."""
+        once); ``select`` keeps the names it matches from their start
+        (``re.match``, e.g. ``".*weight"``), as in the reference."""
+        pattern = None if select is None else re.compile(select)
         out = {}
         for name, var in self.named_parameters():
             param = var._mx_param
             param.name = name
-            out[name] = param
+            if pattern is None or pattern.match(name):
+                out[name] = param
         return out
 
     def setattr(self, name, value):
@@ -97,13 +102,17 @@ class HybridBlock(nn.Module):
         return all(p.initialized for p in self.collect_params().values())
 
     @torch.no_grad()
-    def initialize(self, init=None, seed=0, force_reinit=False):
+    def initialize(self, init=None, seed=None, force_reinit=False):
         """Fill every parameter on its own device, in ``collect_params``
-        order, from one ``torch.Generator`` seeded with ``seed``.
-        ``init`` defaults to ``Uniform(0.07)``; names ending in gamma /
-        beta / bias get ones / zeros as in the JAX package. A
-        :class:`~.parameter.Constant` keeps its value (the reference's
-        re-initialization copies it back)."""
+        order, from the default generator of that device
+        (``random.default_generator``, which ``random.seed`` reseeds), as
+        the reference draws from its global key stream; ``seed`` draws
+        instead from one fresh ``torch.Generator`` per device seeded with
+        it. ``init`` defaults to ``Uniform(0.07)``; the names get the
+        JAX package's rule (``initializer.Initializer``). A parameter of
+        unknown shape records the initializer and the generator and draws
+        at the first forward. A :class:`~.parameter.Constant` keeps its
+        value (the reference's re-initialization copies it back)."""
         init = _init.Uniform() if init is None else init
         gens = {}
         for name, p in self.collect_params().items():
@@ -112,7 +121,13 @@ class HybridBlock(nn.Module):
                 continue
             gen = gens.get(p.device)
             if gen is None:
-                gen = gens[p.device] = _random.generator(seed, p.device)
+                gen = gens[p.device] = (
+                    _random.default_generator(p.device) if seed is None
+                    else _random.generator(seed, p.device))
+            if not p._shape_known():
+                p._deferred = (init, gen, name)
+                continue
             init(name, p.data(), gen)
+            p._deferred = None
             p.initialized = True
         return self

@@ -1,21 +1,26 @@
-"""Basic Gluon layers on the serving path.
+"""Basic Gluon layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``HybridSequential``
 (children registered as "0", "1", ...), ``Dense`` (weight
 layout (units, in_units), an optional ``Activation`` child), ``Activation``,
-``Embedding``, ``LayerNorm`` (parameters ``gamma``/``beta``) and
-``Dropout``, with the reference's argument names. Under an fp8 training
-scope (``amp.fp8.scope``) a ``Dense`` whose weight is a site runs through
-``amp.fp8.dense_fp8``; its activation still applies afterwards.
-Each creates its parameters (trainable, ``grad_req="write"``) on its
-device at construction, so the input width (``in_units`` /
-``in_channels``) is required: the reference's deferred shape inference is
-not part of this slice. ``Dropout`` is live only while
+``Embedding``, ``LayerNorm`` (parameters ``gamma``/``beta``),
+``Dropout``, ``BatchNorm`` and ``Flatten``, with the reference's argument
+names. Under an fp8 training scope (``amp.fp8.scope``) a ``Dense`` whose
+weight is a site runs through ``amp.fp8.dense_fp8``; its activation still
+applies afterwards.
+Each creates its parameters on its device at construction. ``Dense`` and
+``BatchNorm`` told no input width (``in_units`` / ``in_channels`` 0) get
+deferred parameters, whose shape their first forward infers from the input
+(:func:`_ready`), as the reference's do; ``Embedding`` and ``LayerNorm``
+still need their widths. ``Dropout`` is live only while
 ``autograd.is_training()``, as in the reference, and draws its mask from
 its own ``generator`` where one is set, else from the default generator of
-the tensor's device (``random.seed`` reseeds those).
+the tensor's device (``random.seed`` reseeds those); a dropped element is
+0 whatever its value (``where(keep, x / (1 - rate), 0)``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -29,19 +34,28 @@ from ..block import HybridBlock
 from ..parameter import Parameter
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Embedding",
-           "LayerNorm", "Dropout"]
+           "LayerNorm", "Dropout", "BatchNorm", "Flatten"]
 
 
-def _param(shape, dtype, device):
-    """The tensor of a new trainable :class:`Parameter`, to be assigned to
-    a block attribute (which registers it)."""
-    return Parameter(shape, dtype, device).data()
+def _param(shape, dtype, device, grad_req="write"):
+    """The tensor of a new :class:`Parameter` (trainable unless
+    ``grad_req="null"``; deferred where ``shape`` holds a 0), to be
+    assigned to a block attribute (which registers it)."""
+    return Parameter(shape, dtype, device, grad_req=grad_req).data()
+
+
+def _ready(var, shape):
+    """Finish ``var``'s deferred shape (``shape``, from the input) and its
+    deferred initialization at the block's first forward."""
+    p = var._mx_param
+    if p._deferred is not None or not p._shape_known():
+        p._finish_deferred_init(shape)
 
 
 def _width(name, value):
     if int(value) <= 0:
-        raise MXNetError(f"{name} must be given (deferred shape inference "
-                         "is not part of this slice of the port)")
+        raise MXNetError(f"{name} must be given (this layer infers no "
+                         "input width)")
     return int(value)
 
 
@@ -85,12 +99,13 @@ class Dense(HybridBlock):
         device = resolve_device(device)
         self._units = units
         self._flatten = flatten
-        self.weight = _param((units, _width("in_units", in_units)), dtype,
-                             device)
+        self.weight = _param((units, int(in_units)), dtype, device)
         self.bias = _param((units,), dtype, device) if use_bias else None
         self.act = Activation(activation) if activation else None
 
     def forward(self, x):
+        _ready(self.weight, (self._units, math.prod(x.shape[1:])
+                             if self._flatten else x.shape[-1]))
         fp8 = _fp8.current()
         site = fp8.sites.get(self.weight) if fp8 is not None else None
         if site is not None and site in fp8.scales:
@@ -167,4 +182,56 @@ class Dropout(HybridBlock):
         if not autograd.is_training() or not self._rate:
             return x
         mask = _random.dropout_mask(x, self._rate, self.generator)
-        return x * mask / (1.0 - self._rate)
+        return torch.where(mask.bool(), x / (1.0 - self._rate),
+                           x.new_zeros(()))
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization over ``axis`` (reference: basic_layers.py
+    BatchNorm over batch_norm.cc): ``gamma`` and ``beta`` trainable
+    (``grad_req="null"`` where ``scale`` / ``center`` is off),
+    ``running_mean`` and ``running_var`` parameters with ``grad_req="null"``
+    that ``npx.batch_norm`` updates in place while training, so
+    ``collect_params``, ``load_params`` and ``Trainer`` see them and the
+    Trainer never updates them. ``in_channels=0`` defers their shape to
+    the first forward."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0,
+                 dtype=torch.float32, device=None, **kwargs):
+        super().__init__()
+        device = resolve_device(device)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._center = center
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        shape = (int(in_channels),)
+        self.gamma = _param(shape, dtype, device,
+                            "write" if scale else "null")
+        self.beta = _param(shape, dtype, device,
+                           "write" if center else "null")
+        self.running_mean = _param(shape, dtype, device, "null")
+        self.running_var = _param(shape, dtype, device, "null")
+
+    def forward(self, x):
+        ch = (x.shape[self._axis],)
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            _ready(p, ch)
+        return npx.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._epsilon, momentum=self._momentum,
+            fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis)
+
+    def extra_repr(self):
+        return f"axis={self._axis}, in_channels={self.gamma.shape[0]}"
+
+
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, prod(...)) (reference: basic_layers.py Flatten)."""
+
+    def forward(self, x):
+        return npx.flatten(x)

@@ -11,8 +11,15 @@ carries a back-reference to its :class:`Parameter` (``_mx_param``), which
 is how ``Block.collect_params()`` and ``autograd.backward`` find the
 ``grad_req`` of a tensor. ``grad_req`` maps onto ``requires_grad``
 (``"null"`` -> False); the write-or-add rule on ``.grad`` is applied by
-``autograd.backward``. Shapes are always known at construction: the
-reference's deferred initialization is not part of this slice.
+``autograd.backward``.
+
+A shape with a 0 in it is deferred, as in the reference
+(``_shape_known``): the tensor is an empty placeholder of that shape,
+already registered on its block, ``Block.initialize()`` records the
+initializer, the generator and the structural name, and the block's first
+forward calls ``_finish_deferred_init(shape)``, which gives the same
+``nn.Parameter`` its full shape on its device (``.data`` is replaced, so
+the block's registration holds) and draws it then.
 
 ``copy.deepcopy`` of a block copies each tensor once (tied tensors stay
 tied through the memo) and gives the copy a fresh :class:`Parameter` with
@@ -65,6 +72,8 @@ class Parameter:
         #: structural name, set by ``Block.collect_params()``
         self.name = None
         self.initialized = False
+        #: (initializer, generator, name) of a deferred initialization
+        self._deferred = None
 
     # -- shape and placement ---------------------------------------------
     @property
@@ -78,6 +87,43 @@ class Parameter:
     @property
     def device(self):
         return self._var.device
+
+    def _shape_known(self):
+        return all(s > 0 for s in self.shape)
+
+    def _check_shape(self, shape):
+        """Raise unless ``shape`` fills this parameter's unknown (0)
+        dimensions and keeps its known ones."""
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != len(self.shape) or any(
+                s not in (0, n) for s, n in zip(self.shape, shape)):
+            raise MXNetError(f"cannot update shape {self.shape} -> {shape} "
+                             f"for {self.name}")
+        return shape
+
+    @torch.no_grad()
+    def _finish_deferred_init(self, shape=None):
+        """Give a deferred parameter its full ``shape`` (on its device) and
+        draw the initialization that ``Block.initialize()`` recorded
+        (reference: parameter.py ``_finish_deferred_init``). Raises when
+        the parameter was never initialized."""
+        if shape is not None and tuple(shape) != self.shape:
+            shape = self._check_shape(shape)
+            self._var.data = torch.empty(shape, dtype=self.dtype,
+                                         device=self.device)
+            self.initialized = False  # the new storage holds nothing yet
+        if not self._shape_known():
+            raise MXNetError(f"parameter {self.name} has unknown shape "
+                             f"{self.shape}; run a forward pass to infer it")
+        if self._deferred is None:
+            if not self.initialized:
+                raise MXNetError(f"parameter {self.name} not initialized; "
+                                 "call .initialize() before forward")
+            return
+        init, generator, name = self._deferred
+        init(name, self._var, generator)
+        self._deferred = None
+        self.initialized = True
 
     # -- gradient requirement ----------------------------------------------
     @property
@@ -120,10 +166,15 @@ class Parameter:
         """Copy ``data`` (tensor or array) into the parameter in place."""
         src = torch.as_tensor(data)
         if tuple(src.shape) != self.shape:
-            raise MXNetError(f"set_data: shape {tuple(src.shape)} does not "
-                             f"match {self.shape} of {self.name}")
+            if self._shape_known():
+                raise MXNetError(f"set_data: shape {tuple(src.shape)} does "
+                                 f"not match {self.shape} of {self.name}")
+            self._var.data = torch.empty(self._check_shape(src.shape),
+                                         dtype=self.dtype, device=self.device)
         self._var.copy_(src)
-        self.initialized = True
+        if self._shape_known():
+            self._deferred = None
+            self.initialized = True
 
     def __deepcopy__(self, memo):
         return copy.deepcopy(self._var, memo)._mx_param

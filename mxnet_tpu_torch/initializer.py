@@ -1,8 +1,8 @@
 """Parameter initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py``: the same name dispatch
-(``gamma`` -> ones, ``beta``/``bias`` -> zeros, everything else the
-initializer's own rule) and the same default, ``Uniform(0.07)``. Samples
+(``gamma`` -> ones; ``beta``/``bias``/``mean`` -> zeros; ``running_var``
+-> ones; everything else the initializer's own rule) and the same default, ``Uniform(0.07)``. Samples
 are drawn from an explicit ``torch.Generator`` on the parameter's device.
 """
 from __future__ import annotations
@@ -19,8 +19,10 @@ class Initializer:
     def __call__(self, name, arr, generator):
         if name.endswith("gamma"):
             arr.fill_(1.0)
-        elif name.endswith(("beta", "bias")):
+        elif name.endswith(("beta", "bias", "mean", "moving_mean")):
             arr.zero_()
+        elif "running_var" in name or "moving_var" in name:
+            arr.fill_(1.0)
         else:
             self._init_weight(arr, generator)
 

@@ -1,23 +1,34 @@
 """The ``npx`` operators on the ported paths, as plain PyTorch.
 
 Counterpart of ``mxnet_tpu/numpy_extension/__init__.py`` (fully_connected,
-layer_norm, activation, leaky_relu, exact-erf gelu, embedding, and from
+convolution, pooling, batch_norm, fused_conv_bn_relu, flatten, layer_norm,
+activation, leaky_relu, exact-erf gelu, embedding, and from
 ``ops/quantization.py`` ``quantize_v2``, ``dequantize``,
-``quantized_fully_connected``, ``quantized_dense_fused`` and
+``quantized_fully_connected``, ``quantized_conv``,
+``quantized_dense_fused``, ``quantized_conv_fused`` and
 ``fp8_dense_fused``, imported at the call: the ops import this module's
 activation table); the rest of that module waits for later slices of the
 port.
+
+``batch_norm`` and ``fused_conv_bn_relu`` update the running statistics in
+place while training, as the reference's aux arrays are: ``m * running +
+(1 - m) * batch`` under ``torch.no_grad()``, so the update is never part
+of a recorded graph.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from .base import MXNetError
 
-__all__ = ["fully_connected", "layer_norm", "activation", "leaky_relu",
-           "gelu", "embedding", "quantize_v2", "dequantize",
-           "quantized_fully_connected", "quantized_dense_fused",
+__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
+           "fused_conv_bn_relu", "flatten", "layer_norm", "activation",
+           "leaky_relu", "gelu", "embedding", "quantize_v2", "dequantize",
+           "quantized_fully_connected", "quantized_conv",
+           "quantized_dense_fused", "quantized_conv_fused",
            "fp8_dense_fused"]
 
 # the JAX package's ``_ACTS`` table; its "gelu" is jax.nn.gelu's default,
@@ -41,6 +52,128 @@ def fully_connected(x, weight, bias=None, flatten=True):
     if flatten:
         x = x.reshape(x.shape[0], -1)
     return F.linear(x, weight, bias)
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _channel_first(layout, nd):
+    if layout is not None and layout != {1: "NCW", 2: "NCHW",
+                                         3: "NCDHW"}[nd]:
+        raise MXNetError(f"layout {layout!r}: only the channel-first "
+                         "layouts are part of this slice of the port")
+
+
+def _spatial_pad(pad):
+    """F.pad's argument for symmetric ``pad`` per spatial axis."""
+    return [p for p in reversed(pad) for _ in range(2)]
+
+
+def convolution(data=None, weight=None, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=1, num_group=1,
+                workspace=1024, no_bias=False, cudnn_tune=None,
+                cudnn_off=False, layout=None):
+    """N-d convolution, weight (O, I/groups, *kernel) (reference:
+    convolution.cc). Channel-first layouts; the library convolution, as
+    the reference leaves it to XLA."""
+    nd = data.ndim - 2
+    _channel_first(layout, nd)
+    b = None if no_bias else bias
+    return _CONV[nd](data, weight, b, stride=tuple(stride or (1,) * nd),
+                     padding=tuple(pad or (0,) * nd),
+                     dilation=tuple(dilate or (1,) * nd), groups=num_group)
+
+
+def pooling(data, kernel=1, stride=None, pad=None, pool_type="max",
+            pooling_convention="valid", global_pool=False, p_value=2,
+            count_include_pad=True, layout="NCHW", cudnn_off=False):
+    """Max and avg pooling, windowed or global (reference: pooling.cc): max
+    pads with -inf, avg with zeros and divides by the window
+    (``count_include_pad``) or by its valid elements."""
+    nd = data.ndim - 2
+    _channel_first(layout, nd)
+    if pool_type not in ("max", "avg"):
+        raise MXNetError(f"pool_type {pool_type!r} is not part of this "
+                         "slice of the port")
+    if pooling_convention != "valid":
+        raise MXNetError("only pooling_convention='valid' is part of this "
+                         "slice of the port")
+    spatial = tuple(range(2, data.ndim))
+    if global_pool:
+        if pool_type == "max":
+            return data.amax(dim=spatial, keepdim=True)
+        return data.mean(dim=spatial, keepdim=True)
+    kernel = (kernel,) * nd if isinstance(kernel, int) else tuple(kernel)
+    stride = tuple(stride) if stride else kernel
+    pads = _spatial_pad(tuple(pad) if pad else (0,) * nd)
+    if pool_type == "max":
+        return _MAX_POOL[nd](F.pad(data, pads, value=-math.inf), kernel,
+                             stride)
+    avg = _AVG_POOL[nd](F.pad(data, pads), kernel, stride)
+    if count_include_pad:
+        return avg
+    ones = torch.ones_like(data[:1, :1])
+    return avg / _AVG_POOL[nd](F.pad(ones, pads), kernel, stride)
+
+
+def _update_running(running_mean, running_var, mean, var, momentum):
+    """``m * running + (1 - m) * batch``, in place, outside any graph."""
+    m = momentum
+    with torch.no_grad():
+        for run, batch in ((running_mean, mean), (running_var, var)):
+            run.copy_((m * run + (1 - m) * batch.detach()).to(run.dtype))
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False):
+    """Batch normalization over ``axis`` (reference: batch_norm.cc, as the
+    JAX package computes it). Training (``autograd.is_training()`` and not
+    ``use_global_stats``): single-pass fp32 statistics ``E[x^2] - E[x]^2``
+    (fp64 for fp64 inputs, as the fused route's) clamped at 0, and the
+    running statistics updated in place; otherwise the running statistics.
+    The normalization is the folded per-channel ``x * scale + shift``."""
+    from . import autograd
+    training = autograd.is_training() and not use_global_stats
+    red = tuple(i for i in range(x.ndim) if i != axis)
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if training:
+        xf = x.to(acc)
+        mean = xf.mean(dim=red)
+        var = torch.clamp((xf * xf).mean(dim=red) - mean * mean, min=0.0)
+    else:
+        mean, var = running_mean, running_var
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    inv = torch.rsqrt((var + eps).to(acc))
+    scale = (inv * g).to(x.dtype).reshape(shape)
+    shift = (beta - mean * inv * g).to(x.dtype).reshape(shape)
+    out = x * scale + shift
+    if training:
+        _update_running(running_mean, running_var, mean, var, momentum)
+    return (out, mean, var) if output_mean_var else out
+
+
+def fused_conv_bn_relu(x, weight, gamma, beta, running_mean, running_var,
+                       momentum=0.9, eps=1e-5):
+    """Training-mode ``relu(bn(conv3x3_s1(x, w)))`` whose backward is
+    kernel 8 (``ops/conv_bwd.py``: the CUDA kernel for a CUDA tensor, its
+    plain version for a CPU tensor). NCHW in and out, weight OIHW; the
+    running statistics update as :func:`batch_norm`'s do, from the
+    two-pass batch statistics of the fused forward."""
+    from .ops.conv_bwd import FusedCBRFunction
+    out, mean, var = FusedCBRFunction.apply(x, weight, gamma, beta,
+                                            float(eps))
+    _update_running(running_mean, running_var, mean, var, momentum)
+    return out
+
+
+def flatten(x):
+    """(N, ...) -> (N, prod(...)) (reference: npx.flatten)."""
+    return x.reshape(x.shape[0], -1)
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):
@@ -98,6 +231,28 @@ def quantized_fully_connected(data, weight, x_scale, w_scale, bias=None,
     quantization.quantized_fully_connected`."""
     from .ops.quantization import quantized_fully_connected as op
     return op(data, weight, x_scale, w_scale, bias=bias, flatten=flatten)
+
+
+def quantized_conv(data, weight, x_scale, w_scale, bias=None, kernel=None,
+                   stride=None, dilate=None, pad=None, num_filter=1,
+                   num_group=1, layout="NCHW"):
+    """int8 x int8 -> fp32 convolution: see :func:`mxnet_tpu_torch.ops.
+    quantization.quantized_conv`."""
+    from .ops.quantization import quantized_conv as op
+    return op(data, weight, x_scale, w_scale, bias=bias, kernel=kernel,
+              stride=stride, dilate=dilate, pad=pad, num_filter=num_filter,
+              num_group=num_group, layout=layout)
+
+
+def quantized_conv_fused(data, weight, x_scale, w_scale, bias=None, act=None,
+                         kernel=None, stride=None, dilate=None, pad=None,
+                         num_filter=1, num_group=1, layout="NCHW"):
+    """Fused quantize -> int8 conv -> dequant + bias + act: see
+    :func:`mxnet_tpu_torch.ops.quantization.quantized_conv_fused`."""
+    from .ops.quantization import quantized_conv_fused as op
+    return op(data, weight, x_scale, w_scale, bias=bias, act=act,
+              kernel=kernel, stride=stride, dilate=dilate, pad=pad,
+              num_filter=num_filter, num_group=num_group, layout=layout)
 
 
 def quantized_dense_fused(data, weight, x_scale, w_scale, bias=None,

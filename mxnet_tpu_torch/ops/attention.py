@@ -5,10 +5,13 @@ Counterpart of ``mxnet_tpu/ops/attention.py``: ``_reference_attention``,
 (floating-point cache only).
 
 Routing of :func:`multi_head_attention`: with no mask and no live dropout
-it always goes to :func:`..flash_attention.attention`, which launches the
-forward CUDA kernel for a CUDA tensor (and the two backward kernels when
-autograd differentiates it) and takes the kernels' plain versions for a
-CPU tensor. Dropout is live only while ``autograd.is_training()``, as in
+it goes to :func:`..flash_attention.attention` wherever the kernels have an
+instantiation for the shape and dtype (:func:`_flash_instantiated`:
+float32 or bfloat16, and on the card a head_dim of
+``flash_attention.HEAD_DIMS``), which launches the forward CUDA kernel for
+a CUDA tensor (and the two backward kernels when autograd differentiates
+it) and takes the kernels' plain versions for a CPU tensor; any other
+shape or dtype takes the plain composition, decided before any launch. Dropout is live only while ``autograd.is_training()``, as in
 the reference. The JAX package's TPU thresholds (flash only from
 seq 512 causal / 2048 otherwise) are not carried over; the H100 threshold
 is still to be measured. A mask or live dropout takes the plain
@@ -27,7 +30,7 @@ import torch
 
 from .. import autograd
 from ..random import dropout_mask
-from .flash_attention import attention
+from .flash_attention import _DTYPE_CODES, HEAD_DIMS, attention
 
 __all__ = ["multi_head_attention", "write_prefill_kv", "decode_attention"]
 
@@ -53,17 +56,27 @@ def _reference_attention(q, k, v, heads, mask=None, causal=False, scale=None,
     kh = k.reshape(b, sk, heads, d).transpose(1, 2)
     vh = v.reshape(b, sk, heads, d).transpose(1, 2)
     scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+    neg = max(_NEG_INF, torch.finfo(scores.dtype).min)  # fp16's is -65504
     if causal:
         cm = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
-        scores = torch.where(cm, scores, _NEG_INF)
+        scores = torch.where(cm, scores, neg)
     if mask is not None:
-        scores = torch.where(mask.to(torch.bool), scores, _NEG_INF)
+        scores = torch.where(mask.to(torch.bool), scores, neg)
     att = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     if dropout_p:
         att = att * dropout_mask(att, dropout_p, generator) \
             / (1.0 - dropout_p)
     out = torch.einsum("bhqk,bhkd->bhqd", att, vh)
     return out.transpose(1, 2).reshape(b, sq, heads * d)
+
+
+def _flash_instantiated(query, heads):
+    """Whether the flash route takes ``query``'s dtype and, on the card,
+    its head_dim (the CUDA kernels' instantiations)."""
+    if query.dtype not in _DTYPE_CODES:
+        return False
+    return query.device.type == "cpu" \
+        or query.shape[-1] // heads in HEAD_DIMS
 
 
 def multi_head_attention(query, key, value, heads, mask=None, dropout_p=0.0,
@@ -73,7 +86,8 @@ def multi_head_attention(query, key, value, heads, mask=None, dropout_p=0.0,
     ``autograd.is_training()`` (reference: ops/attention.py:412-414)."""
     if not autograd.is_training():
         dropout_p = 0.0
-    if mask is not None or dropout_p:
+    if mask is not None or dropout_p \
+            or not _flash_instantiated(query, heads):
         return _reference_attention(query, key, value, heads, mask, causal,
                                     None, dropout_p, generator)
     b, sq, hd = query.shape

@@ -1,0 +1,296 @@
+"""Fused conv3x3 + BatchNorm + ReLU backward (kernel 8): the CUDA kernels
+written for Hopper, their plain PyTorch version, and the
+``torch.autograd.Function`` that joins them with the forward.
+
+Counterpart of ``mxnet_tpu/ops/pallas_conv_bwd.py``:
+``conv3x3_bn_relu_ref`` (the training forward), the stats pass and
+``fused_conv3x3_bn_relu_bwd`` (-> ``_bwd_kernel``), ``fused_cbr_train``
+(:class:`FusedCBRFunction` here) and ``eligible``. The kernel source is
+``mxnet_tpu_torch/csrc/conv_bwd.cu``; its header says what it replaces,
+what bounds it on the H100 (operations) and what the design does about
+that.
+
+The layout is the port's NCHW throughout (x, da and y ``(N, C|O, H, W)``,
+w OIHW ``(O, C, 3, 3)``), so the reference's NCHW <-> NHWC transposes
+around the kernel have no counterpart. The backward is:
+
+- the stats pass (:func:`bwd_stats`, plain PyTorch, as the reference's is
+  XLA outside its kernel): ``xhat = (y - mean) * inv``, ``dz = where(gamma
+  * xhat + beta > 0, da, 0)``, ``dbeta = sum dz``, ``dgamma = sum dz *
+  xhat``, and the (8, O) fp32 vector ``[mean, inv, gamma, beta, dbeta/M,
+  dgamma/M, gamma*inv, 0]`` with M = N*H*W;
+- dy recomputed from ``(da, y, vec)`` as ``s1 * (dz - c1 - xhat * c2)``
+  (never written to device memory by the kernel), then dgrad ``dx = sum_k
+  shift_k(dy) @ wflip_k`` and wgrad ``dw_k = sum shift_k(x)^T @ dy`` over
+  the 9 taps, summed in fp32.
+
+The reference's VMEM budget (``fits_vmem``, 12 MiB, a TPU fact) is not
+carried over; the card's limit is :func:`fits_card`, decided from shape
+before any launch. A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from .. import _native
+from ..base import MXNetError
+
+__all__ = ["conv3x3_bn_relu_ref", "bwd_stats", "fused_conv3x3_bn_relu_bwd",
+           "fused_conv3x3_bn_relu_bwd_plain", "FusedCBRFunction",
+           "eligible", "fits_card", "wgrad_splits"]
+
+_TILE = 64          # the kernels' output tile (rows and columns)
+_DEPTH = 16         # the kernels' reduction step
+_INT_MAX = 2 ** 31 - 1
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _acc(t):
+    """fp32 arithmetic, or fp64 for fp64 inputs (the CPU's gradcheck)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _c(v):
+    """A per-channel (O,) vector broadcast over NCHW."""
+    return v.reshape(1, -1, 1, 1)
+
+
+def conv3x3_bn_relu_ref(x, w, gamma, beta, eps=1e-5):
+    """The training forward ``relu(bn(conv3x3_s1_same(x, w)))`` over batch
+    statistics, two-pass (reference :167-178): ``(a, y, mean, var)``, y the
+    conv output and mean/var fp32 (O,) (fp64 for fp64 inputs)."""
+    acc = _acc(x)
+    y = F.conv2d(x, w, padding=1)
+    yf = y.to(acc)
+    mean = yf.mean(dim=(0, 2, 3))
+    var = torch.square(yf - _c(mean)).mean(dim=(0, 2, 3))
+    inv = torch.rsqrt(var + eps)
+    z = (yf - _c(mean)) * _c(inv) * _c(gamma.to(acc)) + _c(beta.to(acc))
+    return F.relu(z).to(x.dtype), y, mean, var
+
+
+def bwd_stats(da, y, gamma, beta, mean, var, eps=1e-5):
+    """The stats pass (reference :110-124): ``(dgamma, dbeta, vec)``, vec
+    the (8, O) fp32 ``[mean, inv, gamma, beta, dbeta/M, dgamma/M,
+    gamma*inv, 0]`` (fp64 for fp64 inputs). The kernel route and the plain
+    version both take dgamma and dbeta from here."""
+    acc = _acc(da)
+    inv = torch.rsqrt(var.to(acc) + eps)
+    mf, gf, bf = mean.to(acc), gamma.to(acc), beta.to(acc)
+    xhat = (y.to(acc) - _c(mf)) * _c(inv)
+    dz = torch.where(_c(gf) * xhat + _c(bf) > 0, da.to(acc), 0.0)
+    dbeta = dz.sum(dim=(0, 2, 3))
+    dgamma = (dz * xhat).sum(dim=(0, 2, 3))
+    m = da.shape[0] * da.shape[2] * da.shape[3]
+    vec = torch.stack([mf, inv, gf, bf, dbeta / m, dgamma / m, gf * inv,
+                       torch.zeros_like(inv)])
+    return dgamma.to(gamma.dtype), dbeta.to(beta.dtype), vec
+
+
+def _dy(da, y, vec):
+    """``s1 * (dz - c1 - xhat * c2)`` in da's dtype, each operation rounded
+    on its own, as the kernel computes it."""
+    mu, inv, gamma, beta, c1, c2, s1 = (_c(vec[i]) for i in range(7))
+    xhat = (y.to(vec.dtype) - mu) * inv
+    dz = torch.where(gamma * xhat + beta > 0, da.to(vec.dtype), 0.0)
+    return (s1 * (dz - c1 - xhat * c2)).to(da.dtype)
+
+
+def fused_conv3x3_bn_relu_bwd_plain(da, x, y, w, vec):
+    """The kernel's function in plain PyTorch, step by step by its formula
+    (not autograd of a conv): dy recomputed from ``(da, y, vec)``, dgrad as
+    9 shifted products of the zero-padded dy with the flipped weights,
+    wgrad as 9 products of the shifted zero-padded x with dy, each summed
+    in fp32 (fp64 for fp64 inputs). Returns ``(dx, dw)`` in x's and w's
+    dtypes."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    n, o, h, wd = da.shape
+    dy = _dy(da, y, vec).to(acc)
+    dyp = F.pad(dy, (1, 1, 1, 1))
+    xp = F.pad(x.to(acc), (1, 1, 1, 1))
+    wf = w.to(acc)
+    dx = torch.zeros(x.shape, dtype=acc, device=x.device)
+    dw = torch.zeros(w.shape, dtype=acc, device=x.device)
+    for kh in range(3):
+        for kw in range(3):
+            # dgrad: dx += shift(dy) @ w[2-j, 2-l]^T, tap (j, l) = (2-kh, 2-kw)
+            dsh = dyp[:, :, 2 - kh:2 - kh + h, 2 - kw:2 - kw + wd]
+            dx += torch.einsum("nohw,oc->nchw", dsh, wf[:, :, kh, kw])
+            # wgrad: dw_k = shift_k(x)^T @ dy
+            xsh = xp[:, :, kh:kh + h, kw:kw + wd]
+            dw[:, :, kh, kw] = torch.einsum("nchw,nohw->oc", xsh, dy)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def wgrad_splits(n, h, w, c, o, sm_count):
+    """``(splits, rows)`` of the wgrad kernel: the N*H*W pixel rows are cut
+    into ``splits`` runs of ``rows`` (a multiple of the reduction step),
+    enough for about four blocks an SM over the (O, 9C) output tiles, and
+    no run under 256 rows. Each split writes its own fp32 partial of dw,
+    summed in a fixed order, so equal inputs give equal bits."""
+    m = n * h * w
+    tiles = _cdiv(o, _TILE) * _cdiv(9 * c, _TILE)
+    splits = max(1, min(_cdiv(m, 256), _cdiv(4 * sm_count, tiles)))
+    rows = _cdiv(_cdiv(m, splits), _DEPTH) * _DEPTH
+    return _cdiv(m, rows), rows
+
+
+def fits_card(x, o):
+    """Whether the CUDA kernels take input ``x`` (N, C, H, W, on a card)
+    with O output channels: every tensor they index (x, da, y, dx, and
+    wgrad's partials, split by the card's own SM count) below 2^31
+    elements. The fused route and the wrapper both decide by this."""
+    n, c, h, w = x.shape
+    splits, _ = wgrad_splits(n, h, w, c, o, _sm_count(x.device.index or 0))
+    return (max(n * h * w * max(c, o), splits * o * 9 * c) <= _INT_MAX
+            and min(n, h, w, c, o) > 0)
+
+
+def eligible(kernel, strides, padding, dilation, groups, use_bias):
+    """The shape class the kernel covers: 3x3, stride 1, SAME, dense, no
+    bias (reference :213-217)."""
+    return (tuple(kernel) == (3, 3) and tuple(strides) == (1, 1)
+            and tuple(padding) == (1, 1) and tuple(dilation) == (1, 1)
+            and groups == 1 and not use_bias)
+
+
+def _bind(lib):
+    lib.conv3x3_bn_relu_bwd.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.conv3x3_bn_relu_bwd.restype = ctypes.c_int
+    lib.conv3x3_bn_relu_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.conv3x3_bn_relu_bwd_error_string.restype = ctypes.c_char_p
+
+
+def _check(da, x, y, w, gamma, beta, mean, var):
+    if x.ndim != 4 or w.ndim != 4 or tuple(w.shape[2:]) != (3, 3):
+        raise MXNetError(f"conv3x3_bn_relu_bwd takes NCHW x and OIHW 3x3 w, "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}")
+    n, c, h, wd = x.shape
+    o = w.shape[0]
+    if w.shape[1] != c or da.shape != (n, o, h, wd) or y.shape != da.shape:
+        raise MXNetError(f"shape mismatch: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, da {tuple(da.shape)}, y "
+                         f"{tuple(y.shape)}")
+    for name, t in (("gamma", gamma), ("beta", beta), ("mean", mean),
+                    ("var", var)):
+        if tuple(t.shape) != (o,):
+            raise MXNetError(f"{name} must be ({o},), got {tuple(t.shape)}")
+    if not all(t.device == x.device for t in (da, y, w, gamma, beta, mean,
+                                              var)):
+        raise MXNetError("conv3x3_bn_relu_bwd: inputs on different devices")
+
+
+def _card(x, da, y, w):
+    """Raise unless the CUDA kernels take these tensors."""
+    if x.device.type != "cuda":
+        raise MXNetError(f"conv3x3_bn_relu_bwd: unsupported device "
+                         f"{x.device}")
+    if x.device.index not in (None, 0):
+        raise MXNetError("the CUDA kernels run on cuda:0 only in this slice "
+                         f"of the port, got {x.device}")
+    if torch.cuda.get_device_capability(x.device) != (9, 0):
+        raise MXNetError(f"conv3x3_bn_relu_bwd: "
+                         f"{torch.cuda.get_device_name(x.device)} is not "
+                         "compute capability 9.0, which the kernel is built "
+                         "for")
+    if not all(t.dtype == torch.float32 for t in (x, da, y, w)):
+        raise MXNetError(f"conv3x3_bn_relu_bwd: the kernel takes float32, "
+                         f"got x {x.dtype}, da {da.dtype}, y {y.dtype}, w "
+                         f"{w.dtype}")
+    if not fits_card(x, w.shape[0]):
+        raise MXNetError(f"conv3x3_bn_relu_bwd: shape {tuple(x.shape)} x "
+                         f"{tuple(w.shape)} is beyond the kernel's 2^31 "
+                         "element indexing")
+
+
+def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
+                              eps=1e-5):
+    """Backward of ``relu(bn_train(conv3x3_s1_same(x, w)))`` through batch
+    statistics: ``(dx, dw, dgamma, dbeta)``.
+
+    da, y: (N, O, H, W); x: (N, C, H, W); w: (O, C, 3, 3); gamma, beta,
+    mean, var: (O,). dgamma and dbeta come from :func:`bwd_stats`. CPU
+    tensors take :func:`fused_conv3x3_bn_relu_bwd_plain`; CUDA tensors
+    (fp32, on a card of compute capability 9.0) launch the kernels of
+    ``csrc/conv_bwd.cu`` (built at first use) or raise, and count one call
+    in ``fused_conv3x3_bn_relu_bwd.launches``, one under its ``(N, H, W, C,
+    O)`` in ``.shape_launches`` and one launch of each CUDA kernel in
+    ``.kernel_launches``."""
+    _check(da, x, y, w, gamma, beta, mean, var)
+    dgamma, dbeta, vec = bwd_stats(da, y, gamma, beta, mean, var, eps)
+    if x.device.type == "cpu":
+        dx, dw = fused_conv3x3_bn_relu_bwd_plain(da, x, y, w, vec)
+        return dx, dw, dgamma, dbeta
+    _card(x, da, y, w)
+    n, c, h, wd = x.shape
+    o = w.shape[0]
+    x, da, y = x.contiguous(), da.contiguous(), y.contiguous()
+    wt = w.permute(2, 3, 0, 1).contiguous()  # (3, 3, O, C): rows of C
+    vec = vec.contiguous()
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w, memory_format=torch.contiguous_format)
+    splits, rows = wgrad_splits(n, h, wd, c, o, _sm_count(x.device.index
+                                                          or 0))
+    part = (torch.empty((splits, o, 9 * c), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    lib = _native.load("conv_bwd", _bind)
+    rc = lib.conv3x3_bn_relu_bwd(
+        vec.data_ptr(), da.data_ptr(), y.data_ptr(), x.data_ptr(),
+        wt.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        None if part is None else part.data_ptr(), n, h, wd, c, o, splits,
+        rows, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        msg = lib.conv3x3_bn_relu_bwd_error_string(rc).decode()
+        raise MXNetError(f"conv3x3_bn_relu_bwd launch failed: {msg} (code "
+                         f"{rc}; N={n} H={h} W={wd} C={c} O={o})")
+    launches = fused_conv3x3_bn_relu_bwd.kernel_launches
+    fused_conv3x3_bn_relu_bwd.launches += 1
+    fused_conv3x3_bn_relu_bwd.shape_launches[(n, h, wd, c, o)] += 1
+    launches["dgrad"] += 1
+    launches["wgrad"] += 1
+    launches["wgrad_reduce"] += int(splits > 1)
+    return dx, dw, dgamma, dbeta
+
+
+fused_conv3x3_bn_relu_bwd.launches = 0
+fused_conv3x3_bn_relu_bwd.shape_launches = collections.Counter()
+fused_conv3x3_bn_relu_bwd.kernel_launches = {"dgrad": 0, "wgrad": 0,
+                                             "wgrad_reduce": 0}
+
+
+class FusedCBRFunction(torch.autograd.Function):
+    """``relu(bn_train(conv3x3_s1_same(x, w)))`` returning ``(a, mean,
+    var)`` (reference: ``fused_cbr_train``): the forward is
+    :func:`conv3x3_bn_relu_ref`, the backward
+    :func:`fused_conv3x3_bn_relu_bwd`. mean and var feed only the
+    running-statistics update: their cotangents are dropped (:203)."""
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, eps):
+        a, y, mean, var = conv3x3_bn_relu_ref(x, w, gamma, beta, eps)
+        ctx.save_for_backward(x, w, gamma, beta, y, mean, var)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return a, mean, var
+
+    @staticmethod
+    def backward(ctx, da, _dmean, _dvar):
+        x, w, gamma, beta, y, mean, var = ctx.saved_tensors
+        dx, dw, dgamma, dbeta = fused_conv3x3_bn_relu_bwd(
+            da.contiguous(), x, y, w, gamma, beta, mean, var, ctx.eps)
+        return dx, dw, dgamma, dbeta, None

@@ -1,18 +1,22 @@
 """int8 and fp8 quantization operators: ``npx.quantize_v2``, ``dequantize``,
-``quantized_fully_connected``, ``quantized_dense_fused`` and
-``fp8_dense_fused``.
+``quantized_fully_connected``, ``quantized_conv``, ``quantized_dense_fused``,
+``quantized_conv_fused`` and ``fp8_dense_fused``.
 
 Counterpart of ``mxnet_tpu/ops/quantization.py`` (``_scale_from_range``,
 ``quantize_v2``, ``dequantize``, ``quantized_fully_connected``,
-``FUSED_ACTS``, ``_route_fused``, ``quantized_dense_fused``,
-``fp8_dense_fused``). The scheme is the reference's: symmetric int8
+``FUSED_ACTS``, ``_route_fused``, ``quantized_conv``,
+``quantized_dense_fused``, ``quantized_conv_fused``, ``fp8_dense_fused``). The scheme is the reference's: symmetric int8
 (zero-point 0), a per-tensor activation scale, per-output-channel weight
 scales. The int8 products are summed exactly (as float64, which equals the
 reference's int32 accumulation for every integer below 2^53: torch has no
 integer matmul on CUDA) and rounded to fp32 once. The plain fused chains
 are ``quant_matmul.quantized_matmul_plain`` and ``fp8_matmul_plain``, which
 apply the activation as the reference's ``_apply_act`` does.
-``quantized_conv`` and ``quantized_conv_fused`` come with the ResNet slice.
+``quantized_conv`` and ``quantized_conv_fused`` sum their int8 products the
+same way, through a float64 convolution of the int8 values (a 3x3 conv
+over 512 channels sums 4608 products of up to 127^2, about 7.4e7, exact in
+float64): the reference has no Pallas conv kernel (XLA's int8 conv runs
+there), so neither has the port.
 
 Routing of the fused dense layers by the ``quantize.fused_matmul`` knob:
 "auto" takes the CUDA kernel (``ops/quant_matmul.py``) for a CUDA tensor,
@@ -27,12 +31,14 @@ import torch
 
 from .. import config as _config
 from ..base import MXNetError
+from ..numpy_extension import _ACTS, _CONV, _channel_first
 from .quant_matmul import (_INT8_MAX, FP8_FORMATS, _scale_tensor,
                            fp8_matmul, fp8_matmul_plain, quantize_int8,
                            quantized_matmul, quantized_matmul_plain)
 
 __all__ = ["FUSED_ACTS", "quantize_v2", "dequantize",
-           "quantized_fully_connected", "quantized_dense_fused",
+           "quantized_fully_connected", "quantized_conv",
+           "quantized_dense_fused", "quantized_conv_fused",
            "fp8_dense_fused"]
 
 #: activations the fused epilogue computes (the kernels' set)
@@ -106,6 +112,44 @@ def quantized_fully_connected(data, weight, x_scale, w_scale, bias=None,
     if bias is not None:
         out = out + bias
     return out
+
+
+def quantized_conv(data, weight, x_scale, w_scale, bias=None, kernel=None,
+                   stride=None, dilate=None, pad=None, num_filter=1,
+                   num_group=1, layout="NCHW"):
+    """int8 x int8 -> fp32 convolution (reference: quantized_conv.cc, in
+    the JAX package's signature): ``data`` and ``weight`` (O, I/groups,
+    *kernel) int8, ``x_scale`` a scalar, ``w_scale`` per output channel.
+    The products are summed exactly (a float64 convolution of the int8
+    values) and rounded to fp32 once; then ``acc * (x_scale * w_scale) +
+    bias``."""
+    nd = data.ndim - 2
+    _channel_first(layout, nd)
+    acc = _CONV[nd](data.double(), weight.double(),
+                    stride=tuple(stride or (1,) * nd),
+                    padding=tuple(pad or (0,) * nd),
+                    dilation=tuple(dilate or (1,) * nd),
+                    groups=num_group).float()
+    shape = (1, -1) + (1,) * nd
+    out = acc * (_scale_tensor(x_scale, data.device)
+                 * _as_range(w_scale, data.device).reshape(shape))
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def quantized_conv_fused(data, weight, x_scale, w_scale, bias=None,
+                         act=None, kernel=None, stride=None, dilate=None,
+                         pad=None, num_filter=1, num_group=1, layout="NCHW"):
+    """Fused quantize -> int8 conv -> dequant + bias + act: ``data`` (fp32)
+    quantized by ``quantize_int8(data, x_scale)``, then
+    :func:`quantized_conv`'s product and epilogue and the activation, in
+    the reference's order."""
+    _check_act(act)
+    out = quantized_conv(quantize_int8(data, x_scale), weight, x_scale,
+                         w_scale, bias, kernel, stride, dilate, pad,
+                         num_filter, num_group, layout)
+    return out if act is None else _ACTS[act](out)
 
 
 def _fused_args(data, flatten, w_scale):

@@ -36,7 +36,15 @@ the kernel route's sequence output equals the plain chain's on the card
 bit for bit; against the CPU, thresholds rtol 1e-5 and the outputs within
 1% of their largest |value| (an ulp of the fp32 ops between the layers can
 move a value across an int8 rounding boundary, a step of ~1e-3 here; the
-int8 error itself is ~0.4%).
+int8 error itself is ~0.4%). Kernel 8 (conv3x3+BN+ReLU backward) vs its
+plain version: dx and dw within max|diff| / max|plain| <= 2e-4 (fp32 sums
+of up to 9*512 products in another order), dgamma and dbeta bit for bit
+(one stats-pass function computes them for both), and two launches bit
+for bit (no atomics). A BasicBlockV1 on the card (kernel 8 under "auto")
+vs the CPU (the plain version under "on"): the reference's block-level
+tolerances, output 1e-4, input gradient 1e-3, parameter gradients 2e-3.
+Attention at a head_dim or dtype the flash kernels lack: the plain
+composition, equal to the CPU's within 1e-5 (fp32) / 2e-2 (fp16 and bf16).
 """
 import numpy as onp
 import pytest
@@ -720,3 +728,133 @@ def test_int8_bert_on_card_matches_cpu(cuda_device):
         got = got.cpu()
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+# -- kernel 8: conv3x3 + BN + ReLU backward ------------------------------------
+
+from mxnet_tpu_torch.ops import conv_bwd as tcb  # noqa: E402
+
+CONV_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
+               (32, 14, 14, 256, 256), (32, 7, 7, 512, 512),
+               (3, 7, 9, 5, 11), (2, 9, 7, 70, 33), (2, 1, 3, 3, 2)]
+
+
+def _cbr_inputs(n, h, w, c, o, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, c, h, w, device=device, generator=gen)
+    wt = torch.randn(o, c, 3, 3, device=device, generator=gen) \
+        * (2.0 / (9 * c)) ** 0.5
+    gamma = torch.rand(o, device=device, generator=gen) + 0.5
+    beta = torch.randn(o, device=device, generator=gen) * 0.1
+    a, y, mean, var = tcb.conv3x3_bn_relu_ref(x, wt, gamma, beta)
+    da = torch.randn(n, o, h, w, device=device, generator=gen)
+    return da, x, y, wt, gamma, beta, mean, var
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("n,h,w,c,o", CONV_SHAPES)
+def test_conv_bwd_kernel_matches_plain_version(cuda_device, n, h, w, c, o):
+    args = _cbr_inputs(n, h, w, c, o, cuda_device, seed=h * w + c)
+    before = tcb.fused_conv3x3_bn_relu_bwd.launches
+    dx, dw, dg, db = tcb.fused_conv3x3_bn_relu_bwd(*args)
+    torch.cuda.synchronize()
+    assert tcb.fused_conv3x3_bn_relu_bwd.launches == before + 1
+    da, x, y, wt, gamma, beta, mean, var = args
+    pg, pb, vec = tcb.bwd_stats(da, y, gamma, beta, mean, var)
+    pdx, pdw = tcb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec)
+    assert dx.shape == x.shape and dw.shape == wt.shape
+    assert _rel(dx, pdx) <= 2e-4 and _rel(dw, pdw) <= 2e-4
+    assert torch.equal(dg, pg) and torch.equal(db, pb)
+    again = tcb.fused_conv3x3_bn_relu_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("bad", ["cpu_mix", "float64", "bfloat16"])
+def test_conv_bwd_wrapper_raises(cuda_device, bad):
+    args = list(_cbr_inputs(2, 5, 5, 4, 4, cuda_device, seed=1))
+    if bad == "cpu_mix":
+        args[2] = args[2].cpu()
+    else:
+        dtype = getattr(torch, bad)
+        args[:4] = [t.to(dtype) for t in args[:4]]
+    before = tcb.fused_conv3x3_bn_relu_bwd.launches
+    with pytest.raises(MXNetError):
+        tcb.fused_conv3x3_bn_relu_bwd(*args)
+    assert tcb.fused_conv3x3_bn_relu_bwd.launches == before
+
+
+def test_basic_block_on_card_matches_cpu(cuda_device):
+    from mxnet_tpu_torch import functional
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import BasicBlockV1
+    xv = onp.random.RandomState(5).randn(2, 16, 10, 10).astype("float32")
+    cpu = BasicBlockV1(16, 1, False, 16, device="cpu").initialize(seed=0)
+    cpu(torch.from_numpy(xv))  # finishes the BatchNorms' deferred shapes
+    arrays = functional.param_arrays(cpu)
+    runs = {}
+    for dev, mode in (("cpu", "on"), (cuda_device, "auto")):
+        blk = BasicBlockV1(16, 1, False, 16, device=dev)
+        functional.load_params(blk, arrays)
+        x = torch.tensor(xv, device=dev, requires_grad=True)
+        tmx.config.set("fused_conv_bn", mode)
+        before = tcb.fused_conv3x3_bn_relu_bwd.launches
+        try:
+            with tmx.autograd.record():
+                out = blk(x)
+                loss = (out * out).sum()
+            tmx.autograd.backward(loss)
+        finally:
+            tmx.config.reset("fused_conv_bn")
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tcb.fused_conv3x3_bn_relu_bwd.launches == before + 1
+        runs[str(dev)] = (out.detach().cpu(), x.grad.cpu(), {
+            k: p.grad().cpu() for k, p in blk.collect_params().items()
+            if p.grad_req != "null"}, functional.param_arrays(blk))
+    card, ref = runs[str(cuda_device)], runs["cpu"]
+    torch.testing.assert_close(card[0], ref[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card[1], ref[1], rtol=1e-3, atol=1e-3)
+    for k, g in ref[2].items():
+        torch.testing.assert_close(card[2][k], g, rtol=2e-3, atol=2e-3,
+                                   msg=k)
+    for k, v in ref[3].items():
+        if "running" in k:
+            onp.testing.assert_allclose(card[3][k], v, rtol=1e-4, atol=1e-5)
+
+
+# -- ROADMAP fault 9: attention the flash kernels have no instantiation for --
+
+@pytest.mark.parametrize("d,dtype", [(48, torch.float32),
+                                     (64, torch.float16),
+                                     (80, torch.bfloat16)])
+def test_attention_without_an_instantiation_takes_the_composition(
+        cuda_device, d, dtype):
+    rs = onp.random.RandomState(d)
+    q, k, v = (rs.randn(2, 8, 2 * d).astype("float32") for _ in range(3))
+    counts = (tflash.flash_attention_fwd.launches,
+              tflash.flash_attention_bwd_dkv.launches,
+              tflash.flash_attention_bwd_dq.launches)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        ts = [torch.tensor(a, device=dev, dtype=dtype if dev != "cpu"
+                           or dtype != torch.float16 else torch.float32)
+              for a in (q, k, v)]
+        for t in ts:
+            t.requires_grad_(True)
+        out = tattn.multi_head_attention(*ts, 2, causal=True)
+        out.float().sum().backward()
+        outs[str(dev)] = (out.float().detach().cpu(),
+                          [t.grad.float().cpu() for t in ts])
+    torch.cuda.synchronize()
+    assert counts == (tflash.flash_attention_fwd.launches,
+                      tflash.flash_attention_bwd_dkv.launches,
+                      tflash.flash_attention_bwd_dq.launches)
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    card, ref = outs[str(cuda_device)], outs["cpu"]
+    torch.testing.assert_close(card[0], ref[0], **tol)
+    for g_card, g_cpu in zip(card[1], ref[1]):
+        torch.testing.assert_close(g_card, g_cpu, **tol)

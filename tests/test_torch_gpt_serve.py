@@ -246,13 +246,21 @@ def test_uninitialized_model_is_refused():
 
 
 def test_layers_need_their_input_width():
+    """LayerNorm needs its width; Dense told none defers its weight's
+    shape to the first forward, which needs initialize() first (as the
+    JAX package's deferred initialization does)."""
     from mxnet_tpu_torch.gluon import nn as tnn
     with pytest.raises(MXNetError):
-        tnn.Dense(4, device="cpu")
+        tnn.Dense(4, device="cpu")(torch.ones(2, 3))
     with pytest.raises(MXNetError):
         tnn.LayerNorm(device="cpu")
     dense = tnn.Dense(4, in_units=3, device="cpu")
     assert tuple(dense.weight.shape) == (4, 3)
+    deferred = tnn.Dense(4, device="cpu")
+    assert tuple(deferred.weight.shape) == (4, 0)
+    deferred.initialize(seed=0)
+    assert deferred(torch.ones(2, 3)).shape == (2, 4)
+    assert tuple(deferred.weight.shape) == (4, 3)
 
 
 def test_initialize_default_uniform_and_seeded():

@@ -465,6 +465,69 @@ def test_dropout_follows_is_training():
     assert set(torch.unique(draws[0][0]).tolist()) == {0.0, 2.0}
 
 
+def _dense_draws(pkg, nn, seed_first, **kw):
+    """Weights of a fresh Dense(3, in_units=2) initialized after
+    ``random.seed(seed_first)``, then of a second fresh one."""
+    pkg.random.seed(seed_first)
+    out = []
+    for _ in range(2):
+        layer = nn.Dense(3, in_units=2, **kw)
+        layer.initialize()
+        w = layer.collect_params()["weight"].data()
+        out.append(w.asnumpy() if hasattr(w, "asnumpy")
+                   else w.detach().numpy())
+    return out
+
+
+def test_initialize_draws_from_the_default_generator_like_jax():
+    """ROADMAP fault 6: initialize() seeded a fresh generator from 0, so it
+    ignored random.seed and every block got the same draws."""
+    from mxnet_tpu.gluon import nn as jnn
+    for pkg, nn, kw in ((mx, jnn, {}), (tmx, tnn, {"device": "cpu"})):
+        a1, a2 = _dense_draws(pkg, nn, 1, **kw)
+        b1, _ = _dense_draws(pkg, nn, 2, **kw)
+        c1, c2 = _dense_draws(pkg, nn, 1, **kw)
+        assert not onp.array_equal(a1, b1), pkg.__name__
+        assert not onp.array_equal(a1, a2), pkg.__name__
+        # reproducible after the same seed
+        assert onp.array_equal(a1, c1) and onp.array_equal(a2, c2)
+    # an explicit seed still overrides the default generator
+    w = [tnn.Dense(3, in_units=2, device="cpu").initialize(seed=5)
+         .weight.detach().numpy() for _ in range(2)]
+    onp.testing.assert_array_equal(w[0], w[1])
+
+
+def test_dropout_zeroes_what_it_drops_like_jax():
+    """ROADMAP fault 7: x * mask / (1 - rate) gave NaN at a dropped
+    non-finite element, where the reference's where(keep, x/(1-p), 0)
+    gives 0."""
+    from mxnet_tpu.gluon import nn as jnn
+    mx.random.seed(0)
+    with mx.autograd.record():
+        jall = jnn.Dropout(1.0)(mx.np.ones((2,))).asnumpy()
+        jinf = jnn.Dropout(0.5)(mx.np.array(onp.full(64, onp.inf, "float32"))
+                                ).asnumpy()
+    with tmx.autograd.record():
+        tall = tnn.Dropout(1.0)(torch.ones(2)).detach().numpy()
+        tinf = tnn.Dropout(0.5)(torch.full((64,), float("inf"))).detach()
+    onp.testing.assert_array_equal(tall, jall)
+    onp.testing.assert_array_equal(tall, [0.0, 0.0])
+    for got in (jinf, tinf.numpy()):
+        assert set(onp.unique(got).tolist()) == {0.0, onp.inf}
+        assert not onp.isnan(got).any()
+
+
+@pytest.mark.parametrize("select", [".*weight", ".*layer0.*",
+                                    "backbone.decoder", ".*(gamma|beta)$"])
+def test_collect_params_select_matches_jax(select):
+    """ROADMAP fault 8: collect_params() took no ``select``."""
+    jnet, tnet = _pair()
+    want = list(jnet.collect_params(select))
+    got = list(tnet.collect_params(select))
+    assert got and sorted(got) == sorted(want)
+    assert set(got) < set(tnet.collect_params())
+
+
 def test_gpt_dropout_is_live_only_under_record():
     """A GPT built with dropout is deterministic outside record() and
     equals the dropout-free model there; under record() with explicit

@@ -1,10 +1,10 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
 Every module of ``mxnet_tpu_torch/``, ``chip_smoke.py`` and
-``tools/fp8_loss_curves.py`` is scanned for
-imports of ``jax``, ``jaxlib`` or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself
-is allowed), and a fresh interpreter that imports the port must end up
-with neither ``jax`` nor ``mxnet_tpu`` loaded.
+``tools/fp8_loss_curves.py`` is scanned for imports of ``jax``, ``jaxlib``
+or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself is allowed), and a fresh
+interpreter that imports the port must end up with neither ``jax`` nor
+``mxnet_tpu`` loaded.
 """
 import ast
 import pathlib
@@ -57,7 +57,10 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.gluon.model_zoo.bert, mxnet_tpu_torch.amp.fp8, "
             "mxnet_tpu_torch.parallel, mxnet_tpu_torch.ops.quant_matmul, "
             "mxnet_tpu_torch.ops.quantization, "
-            "mxnet_tpu_torch.contrib.quantization; "
+            "mxnet_tpu_torch.contrib.quantization, "
+            "mxnet_tpu_torch.ops.conv_bwd, mxnet_tpu_torch.gluon.nn.fuse, "
+            "mxnet_tpu_torch.gluon.nn.conv_layers, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

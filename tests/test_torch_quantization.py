@@ -511,3 +511,176 @@ def test_constant_int8_survives_initialize_and_load():
     c = copy.deepcopy(block).collect_params()
     assert type(c["qweight"]) is Constant
     assert torch.equal(c["qweight"].data(), block.qweight)
+
+
+# -- 6. the int8 conv half: quantized_conv(_fused), QuantizedConv ------------
+
+CONV_CASES = {  # (x shape, O, conv kwargs)
+    "3x3_pad": ((2, 3, 8, 8), 4, dict(kernel=(3, 3), pad=(1, 1))),
+    "1x1_stride": ((2, 6, 9, 7), 5, dict(kernel=(1, 1), stride=(2, 2))),
+    "grouped_dilated": ((1, 4, 10, 10), 6, dict(kernel=(3, 3), dilate=(2, 2),
+                                                num_group=2)),
+    "wide_3x3": ((2, 512, 4, 4), 8, dict(kernel=(3, 3), pad=(1, 1))),
+}
+
+
+def _conv_inputs(case, seed=1):
+    shape, o, kw = CONV_CASES[case]
+    x = _rand(*shape, seed=seed)
+    w = _rand(o, shape[1] // kw.get("num_group", 1), *kw["kernel"],
+              seed=seed + 1, scale=0.3)
+    qw, ws = jq._quantize_weight(w)
+    return x, qw, ws, _rand(o, seed=seed + 2), dict(kw, num_filter=o)
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+@pytest.mark.parametrize("bias", [False, True])
+def test_quantized_conv_matches_jax(case, bias):
+    """Oracle: tests/test_quantization.py:56. The int8 sums are exact in
+    both packages (the 512-channel 3x3 case sums 4608 products, past
+    fp32's 2^24), so without bias the outputs agree bit for bit."""
+    x, qw, ws, b, kw = _conv_inputs(case)
+    T = float(onp.abs(x).max())
+    jx, _, _ = mx.npx.quantize_v2(mx.np.array(x), -T, T)
+    want = mx.npx.quantized_conv(
+        jx, mx.np.array(qw), T / 127, mx.np.array(ws),
+        bias=mx.np.array(b) if bias else None, **kw).asnumpy()
+    tx, _, _ = tmx.npx.quantize_v2(torch.from_numpy(x), -T, T)
+    got = tmx.npx.quantized_conv(
+        tx, torch.from_numpy(qw), T / 127, torch.from_numpy(ws),
+        bias=torch.from_numpy(b) if bias else None, **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    if bias:
+        onp.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    else:
+        onp.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+@pytest.mark.parametrize("act", [None] + ACTS)
+def test_quantized_conv_fused_matches_jax(case, act):
+    """Oracle: tests/test_quantization.py:388: the fused op against the JAX
+    one and against the port's own quantize -> quantized_conv chain."""
+    x, qw, ws, b, kw = _conv_inputs(case, seed=4)
+    x[0, 0, 0, :3] = [onp.nan, onp.inf, -onp.inf]
+    xs = onp.float32(onp.nanmax(onp.abs(x[onp.isfinite(x)])) / 127.0)
+    want = mx.npx.quantized_conv_fused(
+        mx.np.array(x), mx.np.array(qw), float(xs), mx.np.array(ws),
+        bias=mx.np.array(b), act=act, **kw).asnumpy()
+    got = tmx.npx.quantized_conv_fused(
+        torch.from_numpy(x), torch.from_numpy(qw), float(xs),
+        torch.from_numpy(ws), bias=torch.from_numpy(b), act=act, **kw)
+    onp.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    xq = tqm.quantize_int8(torch.from_numpy(x), float(xs))
+    chain = tmx.npx.quantized_conv(xq, torch.from_numpy(qw), float(xs),
+                                   torch.from_numpy(ws), **kw)
+    chain = chain + torch.from_numpy(b).reshape(1, -1, 1, 1)
+    if act is not None:
+        chain = tmx.npx.activation(chain, act)
+    onp.testing.assert_array_equal(got.numpy(), chain.numpy())
+    with pytest.raises(ValueError, match="cannot be fused"):
+        tmx.npx.quantized_conv_fused(
+            torch.from_numpy(x), torch.from_numpy(qw), float(xs),
+            torch.from_numpy(ws), act="softrelu", **kw)
+
+
+def _qnet_arrays_match(jqnet, tqnet):
+    jarr = {n: onp.asarray(v) for n, v in
+            jfunctional.param_arrays(jqnet).items()}
+    tarr = tfunctional.param_arrays(tqnet)
+    assert sorted(tarr) == sorted(jarr)
+    for name, v in jarr.items():
+        assert tarr[name].dtype == v.dtype, name
+        onp.testing.assert_array_equal(tarr[name], v, err_msg=name)
+    return jarr
+
+
+def test_quantize_net_convnet_matches_jax():
+    """Oracle: tests/test_quantization.py:110 (a conv net with an excluded
+    layer), across the packages."""
+    mx.random.seed(0)
+    jnet = jnn.HybridSequential()
+    jnet.add(jnn.Conv2D(8, kernel_size=3, padding=1, activation="relu"),
+             jnn.MaxPool2D(2, 2), jnn.Flatten(),
+             jnn.Dense(16, activation="relu"), jnn.Dense(10))
+    jnet.initialize()
+    calib = [_rand(4, 3, 8, 8, seed=i) for i in range(3)]
+    jnet(mx.np.array(calib[0]))
+    tnet = tnn.HybridSequential()
+    tnet.add(tnn.Conv2D(8, kernel_size=3, padding=1, activation="relu",
+                        device="cpu"),
+             tnn.MaxPool2D(2, 2), tnn.Flatten(),
+             tnn.Dense(16, activation="relu", device="cpu"),
+             tnn.Dense(10, device="cpu"))
+    tnet.initialize()
+    tnet(torch.from_numpy(calib[0]))
+    tfunctional.load_params(tnet, {n: onp.asarray(v) for n, v in
+                                   jfunctional.param_arrays(jnet).items()})
+    jqnet = jq.quantize_net(jnet, calib_data=[mx.np.array(c) for c in calib],
+                            calib_mode="naive", exclude_layers=["4"])
+    tqnet = tq.quantize_net(tnet, calib_data=_t(*calib), calib_mode="naive",
+                            exclude_layers=["4"])
+    assert isinstance(tqnet[0], tq.QuantizedConv)
+    assert tqnet[0]._fused_act == "relu"
+    assert isinstance(tqnet[3], tq.QuantizedDense)
+    assert isinstance(tqnet[4], tnn.Dense)
+    assert isinstance(tnet[0], tnn.Conv2D)
+    for i in (0, 3):
+        onp.testing.assert_allclose(tqnet[i].threshold, jqnet[i].threshold,
+                                    rtol=1e-6, atol=0)
+    _qnet_arrays_match(jqnet, tqnet)
+    x = _rand(4, 3, 8, 8, seed=7)
+    fp32 = tnet(torch.from_numpy(x)).numpy()
+    got = tqnet(torch.from_numpy(x)).numpy()
+    rel = onp.abs(got - fp32).max() / (onp.abs(fp32).max() + 1e-9)
+    assert rel < 0.15, rel
+    for i in (0, 3):
+        tqnet[i].threshold = jqnet[i].threshold
+    onp.testing.assert_allclose(tqnet(torch.from_numpy(x)).numpy(),
+                                jqnet(mx.np.array(x)).asnumpy(), rtol=0,
+                                atol=1e-5)
+
+
+def test_quantize_net_small_resnet_matches_jax():
+    """A small ResNetV1 (BottleneckV1, layers [1, 1, 1, 1]): every forward
+    conv becomes a QuantizedConv and the Dense a QuantizedDense, with the
+    JAX package's thresholds (1e-6 relative), int8 weights and scales (bit
+    for bit); with the JAX thresholds carried in, the outputs within 1e-4
+    (fp32 BatchNorm and pooling between the int8 layers differ by ulps, and
+    an ulp can move a value across an int8 rounding boundary)."""
+    from mxnet_tpu.gluon.model_zoo.vision import resnet as jres
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
+    args = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
+    mx.random.seed(1)
+    jnet = jres.ResNetV1(jres.BottleneckV1, *args, classes=10,
+                         thumbnail=True)
+    jnet.initialize()
+    calib = [_rand(4, 3, 16, 16, seed=i, scale=0.5) for i in range(2)]
+    jnet(mx.np.array(calib[0]))
+    tnet = tres.ResNetV1(tres.BottleneckV1, *args, classes=10,
+                         thumbnail=True, device="cpu")
+    tnet.initialize()
+    tnet(torch.from_numpy(calib[0]))
+    tfunctional.load_params(tnet, {n: onp.asarray(v) for n, v in
+                                   jfunctional.param_arrays(jnet).items()})
+    jqnet = jq.quantize_net(jnet, calib_data=[mx.np.array(c) for c in calib])
+    tqnet = tq.quantize_net(tnet, calib_data=_t(*calib))
+    jl = {p: l for _, _, p, l in jq._walk_layers(jqnet)
+          if isinstance(l, (jq.QuantizedDense, jq.QuantizedConv))}
+    tl = {p: l for _, _, p, l in tq._walk_layers(tqnet)
+          if isinstance(l, (tq.QuantizedDense, tq.QuantizedConv))}
+    assert sorted(tl) == sorted(jl)
+    # the stem, 4 x (1x1, 3x3, 1x1) and 4 downsample convs
+    assert sum(isinstance(v, tq.QuantizedConv) for v in tl.values()) == 17
+    assert isinstance(tl["output"], tq.QuantizedDense)
+    assert not any(isinstance(m, tnn.Conv2D) for m in tqnet.modules())
+    for p in jl:
+        onp.testing.assert_allclose(tl[p].threshold, jl[p].threshold,
+                                    rtol=1e-6, atol=0, err_msg=p)
+    _qnet_arrays_match(jqnet, tqnet)
+    for p in jl:
+        tl[p].threshold = jl[p].threshold
+    x = _rand(4, 3, 16, 16, seed=9, scale=0.5)
+    onp.testing.assert_allclose(tqnet(torch.from_numpy(x)).numpy(),
+                                jqnet(mx.np.array(x)).asnumpy(), rtol=0,
+                                atol=1e-4)
