@@ -10,15 +10,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward and backward, the fp8 matmul, the int8 matmul and kernel 8,
    the conv3x3+BN+ReLU backward (dgrad, wgrad and the wgrad reduce). Print
    the build time, each kernel's ptxas registers and spills, the card and
-   CUDA. Every phase prints its wall time.
+   CUDA, and the count of tensor-core instructions (HMMA / HGMMA, from
+   ``cuobjdump -sass`` beside ``nvcc``) in each of the 16 flash backward
+   kernels (dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64 / 128): the run
+   fails if one has none. Every phase prints its wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
-   (200 x 712, non-causal), causal and not, and at d 32 and 128 (seq 200,
-   causal, backward only), fp32 (atol=rtol=1e-4) and bf16 (forward atol
-   2e-2; backward rtol 2^-7, one bf16 ulp, plus atol 2^-10 of the
+   (200 x 712, non-causal), causal and not, and at d 16, 32 and 128 (seq
+   200, causal, backward only), fp32 (atol=rtol=1e-4) and bf16 (forward
+   atol 2e-2; backward rtol 2^-7, one bf16 ulp, plus atol 2^-10 of the
    output's largest value); the backward with a random cotangent. Then
    the backward once more at the training path's own shape (b*h 96, seq
-   1024, d 64, causal, fp32).
+   1024, d 64, causal), fp32 and bf16, where a second launch of each
+   backward kernel must agree with the first bit for bit.
 2c. The ln_residual forward and backward kernels against their plain
    versions, with a random cotangent and an explicit keep mask (in x's
    dtype, bool or uint8): rows 7 / 600 / 4096 x D 128 / 200 / 768 / 1024,
@@ -100,7 +104,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ms (CUDA events) of each kernel, of its plain version and of one
    PyTorch call as the yardstick (``scaled_dot_product_attention``'s
    forward, and its backward for the dK/dV + dQ pair), beside each
-   kernel's bound on an H100 SXM.
+   kernel's bound on an H100 SXM. Each backward kernel also prints its
+   achieved TFLOP/s and its share of each bound: in fp32 the 67 TFLOP/s
+   bound of fp32 FMAs and the bound at the rate its 3xTF32 products use
+   (three TF32 products per product at 495 TFLOP/s); both go into the
+   kernels line.
 7. BERT-base pretraining at full width (as bench.py's
    bert_base_pretrain_bs32_seq128_drop0.1: vocab 30522, 768 units, FFN
    3072, 12 layers, 12 heads, max_length 512, batch 32 x seq 128) at
@@ -251,6 +259,9 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.float8_e4m3fn: 1979e12, torch.int8: 1979e12}
+# the fp32 backward kernels take each product as three TF32 products
+# (3xTF32) on the tensor cores, at this rate
+PEAK_TF32 = 495e12
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 2e-2
 BF16_BWD_RTOL, BF16_BWD_ATOL_SHARE = 2.0 ** -7, 2.0 ** -10
@@ -399,26 +410,35 @@ def pairs(sq, sk, causal):
     return sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
 
 
-def bound(nbytes, flops, dtype):
-    """(ms, what bounds it) for an H100 SXM."""
-    t_mem, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound(nbytes, flops, dtype, rate=None):
+    """(ms, what bounds it) for an H100 SXM, at the dtype's peak rate or
+    at ``rate`` FLOP/s."""
+    t_mem = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / (rate or PEAK_FLOPS[dtype])
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
 
-def bwd_bound_ms(kind, bh, sq, sk, d, causal, dtype):
+def bwd_flops(kind, bh, sq, sk, d, causal):
+    """Products of one backward kernel on these inputs: 8 d flops per
+    visible pair for dK/dV (s and dp recomputed, dV and dK), 6 d for dQ
+    (s, dp, dQ)."""
+    return (8 if kind == "dkv" else 6) * d * pairs(sq, sk, causal) * bh
+
+
+def bwd_bound_ms(kind, bh, sq, sk, d, causal, dtype, tf32x3=False):
     """Least time on an H100 SXM for one backward kernel on these inputs.
-    dK/dV reads q, k, v, do, lse, delta once and writes dk, dv; its
-    products are 8 d flops per visible pair (s and dp recomputed, dV and
-    dK). dQ reads the same and writes dq; 6 d flops per pair (s, dp,
-    dQ)."""
+    dK/dV reads q, k, v, do, lse, delta once and writes dk, dv; dQ reads
+    the same and writes dq. The products at the dtype's peak (67 TFLOP/s
+    of fp32 FMAs for fp32), or with ``tf32x3`` at the rate the fp32
+    kernels use: three TF32 products per product at 495 TFLOP/s."""
     esize = torch.finfo(dtype).bits // 8
     n_in = esize * bh * d * (2 * sq + 2 * sk) + 2 * 4 * bh * sq
-    if kind == "dkv":
-        nbytes, per_pair = n_in + esize * bh * d * 2 * sk, 8 * d
-    else:
-        nbytes, per_pair = n_in + esize * bh * d * sq, 6 * d
-    return bound(nbytes, per_pair * pairs(sq, sk, causal) * bh, dtype)
+    nbytes = n_in + esize * bh * d * (2 * sk if kind == "dkv" else sq)
+    flops = bwd_flops(kind, bh, sq, sk, d, causal)
+    if tf32x3:
+        return bound(nbytes, 3 * flops, dtype, rate=PEAK_TF32)
+    return bound(nbytes, flops, dtype)
 
 
 def ptxas_summary(log):
@@ -449,13 +469,7 @@ def ptxas_summary(log):
             if "ln_residual" in mangled:
                 name = "ln_fwd" if "fwd" in mangled else "ln_bwd"
                 continue
-            kind = next((k for k in ("dkv", "dq", "fwd")
-                         if f"flash_{'bwd_' if k != 'fwd' else ''}{k}"
-                         in mangled), "?")
-            dtype = "bf16" if "bfloat16" in mangled else "fp32"
-            dim = re.search(r"Li(\d+)E", mangled)
-            dim = dim.group(1) if dim else "?"
-            name = f"{kind} {dtype} d={dim}"
+            name = flash_kernel_name(mangled)
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and name:
@@ -474,6 +488,40 @@ def ptxas_summary(log):
         out.append(f"  {name}: {n} instantiations, {lo}-{hi} registers, "
                    f"largest spill {worst} bytes")
     return out
+
+
+def flash_kernel_name(mangled):
+    """``dkv fp32 d=64`` for a mangled flash-attention kernel name."""
+    kind = next((k for k in ("dkv", "dq", "fwd")
+                 if f"flash_{'bwd_' if k != 'fwd' else ''}{k}" in mangled),
+                "?")
+    dtype = "bf16" if "bfloat16" in mangled else "fp32"
+    dim = re.search(r"Li(\d+)E", mangled)
+    return f"{kind} {dtype} d={dim.group(1) if dim else '?'}"
+
+
+def tensor_core_counts(lib):
+    """{kernel: count of HMMA / HGMMA SASS instructions} of the flash
+    backward kernels in a built library, from ``cuobjdump -sass`` beside
+    ``nvcc``."""
+    from pathlib import Path
+
+    from mxnet_tpu_torch import _native
+    tool = Path(_native._nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            name = (flash_kernel_name(mangled) if "flash_bwd_" in mangled
+                    else None)
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    return counts
 
 
 def phase_build():
@@ -496,6 +544,15 @@ def phase_build():
             if "error" in line or "warning" in line:
                 print(f"  {line.strip()}")
     print(f"build seconds: {dt:.2f}")
+    counts = tensor_core_counts(libs["flash_attention_bwd"])
+    want = {f"{kind} {dtype} d={d}" for kind in ("dkv", "dq")
+            for dtype in ("fp32", "bf16") for d in (16, 32, 64, 128)}
+    print("tensor-core SASS (HMMA/HGMMA) in the flash backward kernels: "
+          + ", ".join(f"{n} {c}" for n, c in sorted(counts.items())))
+    check(set(counts) == want, f"flash backward kernels in the library: "
+                               f"{sorted(counts)}, expected {sorted(want)}")
+    check(all(counts.values()), "a flash backward kernel has no tensor-core "
+                                f"instruction: {counts}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -550,14 +607,25 @@ def phase_kernel_vs_plain(dev):
     return errs
 
 
-def bwd_case(fa, dev, gen, bh, sq, sk, causal, dtype, d=64):
-    """One backward comparison: (max |dk, dv err|, max |dq err|)."""
+def bwd_case(fa, dev, gen, bh, sq, sk, causal, dtype, d=64, repeat=False):
+    """One backward comparison: (max |dk, dv err|, max |dq err|); with
+    ``repeat``, a second launch of each kernel must agree bit for bit."""
     q, k, v, do = (torch.randn(bh, n, d, device=dev, generator=gen)
                    .to(dtype) for n in (sq, sk, sk, sq))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    if repeat:
+        again = (*fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                             causal),
+                 fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dk", "dv", "dq"), (dk, dv, dq), again):
+            check(torch.equal(a, b), f"a second launch of the {name} kernel "
+                                     f"differs at bh={bh} sq={sq} {dtype}")
+        print(f"  bh={bh:3d} sq={sq:4d} {str(dtype)[6:]}: a second launch "
+              "of each backward kernel agrees bit for bit")
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
     errs = []
@@ -599,17 +667,19 @@ def phase_bwd_vs_plain(dev):
                                      dtype)
                 errs["dkv"][dtype] = max(errs["dkv"][dtype], e_kv)
                 errs["dq"][dtype] = max(errs["dq"][dtype], e_q)
-    # head dims whose scale is not a power of two (no bit identity there)
-    for d in (32, 128):
+    # the other head dims (at 32 and 128 the scale is not a power of two)
+    for d in (16, 32, 128):
         for dtype in (torch.float32, torch.bfloat16):
             e_kv, e_q = bwd_case(fa, dev, gen, 12, 200, 200, True, dtype, d)
             errs["dkv"][dtype] = max(errs["dkv"][dtype], e_kv)
             errs["dq"][dtype] = max(errs["dq"][dtype], e_q)
-    # the training path's own shape
-    e_kv, e_q = bwd_case(fa, dev, gen, TRAIN_BH, TRAIN_SEQ, TRAIN_SEQ, True,
-                         torch.float32)
-    errs["dkv"][torch.float32] = max(errs["dkv"][torch.float32], e_kv)
-    errs["dq"][torch.float32] = max(errs["dq"][torch.float32], e_q)
+    # the training path's own shape, and two launches of each kernel there
+    # agree bit for bit (no atomics)
+    for dtype in (torch.float32, torch.bfloat16):
+        e_kv, e_q = bwd_case(fa, dev, gen, TRAIN_BH, TRAIN_SEQ, TRAIN_SEQ,
+                             True, dtype, repeat=True)
+        errs["dkv"][dtype] = max(errs["dkv"][dtype], e_kv)
+        errs["dq"][dtype] = max(errs["dq"][dtype], e_q)
     return errs
 
 
@@ -1001,9 +1071,24 @@ def phase_kernel_times(dev, card):
             else:
                 row["bound_ms"], row["bound_by"] = bwd_bound_ms(
                     kind, bh, s, s, d, True, dtype)
+                if dtype == torch.float32:
+                    row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = \
+                        bwd_bound_ms(kind, bh, s, s, d, True, dtype,
+                                     tf32x3=True)
             rows[(kind, dtype)] = row
             print(f"{kind} {str(dtype)[6:]} causal bh={bh} s={s} d={d} "
                   f"[{card}]: " + json.dumps(row))
+            if kind != "fwd":
+                ms = pick(row, "kernel")
+                tflops = bwd_flops(kind, bh, s, s, d, True) / ms / 1e9
+                shares = {"bound": row["bound_ms"] / ms}
+                if dtype == torch.float32:
+                    shares = {"fp32-SIMT bound (67 TFLOP/s)": shares["bound"],
+                              "3xTF32 bound (3 x 495 TFLOP/s)":
+                                  row["bound_3xtf32_ms"] / ms}
+                print(f"  {kind} {str(dtype)[6:]}: {tflops:.1f} TFLOP/s "
+                      "achieved; share of "
+                      + ", ".join(f"{n} {v:.1%}" for n, v in shares.items()))
         del leaves, lib_out
     # the plain backward and SDPA's backward compute dq, dk and dv
     # together: both kernels of the pair are held against them
@@ -2518,6 +2603,11 @@ def kernel_entry(kind, launches, errs, rows, extra=None):
     }
     if kind != "fwd":
         entry["plain_and_library_compute"] = "dq, dk and dv together"
+        entry["bound_3xtf32_ms"] = row["bound_3xtf32_ms"]
+        entry["bound_3xtf32_by"] = row["bound_3xtf32_by"]
+        bf16 = rows[(kind, torch.bfloat16)]
+        entry["bf16_bound_ms"] = bf16["bound_ms"]
+        entry["bf16_library_ms"] = pick(bf16, "library")
     entry.update(extra or {})
     return entry
 

@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), fp32 and bf16 inputs: two
-// kernels in one library, dK/dV and dQ.
+// kernels in one library, dK/dV and dQ, on the tensor cores.
 //
 // Replaces the TPU kernels of mxnet_tpu/ops/pallas/flash_attention.py
 // (_flash_bwd): _bwd_dkv_kernel (launched at :252) and _bwd_dq_kernel
@@ -15,32 +15,71 @@
 // Accumulation is fp32; the outputs are written once in the input dtype.
 //
 // What bounds them on the H100: at the training shape (b*h = 96, s = 1024,
-// d = 64, causal, fp32) dK/dV does 8*d flops per visible (q, k) pair
-// (recompute s and dp, then dV and dK): 25.8 GFLOP, 0.385 ms at the 67
-// TFLOP/s fp32 rate; dQ does 6*d (s, dp, dQ): 19.3 GFLOP, 0.289 ms. They
-// move ~0.15 GB and ~0.13 GB (~0.045 / ~0.038 ms at 3.35 TB/s), so in fp32
-// both are bound by operations. fp32 parity at 1e-4 rules out TF32, so the
-// products are plain fp32 FMAs.
+// d = 64, causal) dK/dV does 8*d flops per visible (q, k) pair (s and dp
+// recomputed, then dV and dK): 25.8 GFLOP; dQ does 6*d (s, dp, dQ): 19.3
+// GFLOP. They move ~0.15 GB and ~0.13 GB (fp32), so both are bound by
+// operations: in bf16 0.026 / 0.020 ms at 989 TFLOP/s; in fp32 0.385 /
+// 0.289 ms at the 67 TFLOP/s of plain fp32 FMAs, or 0.156 / 0.117 ms at
+// the rate this design uses for fp32, three TF32 products per product at
+// 495 TFLOP/s. With one warp's 16 rows against a whole streamed tile,
+// every operand fragment read from shared memory feeds one product, so
+// shared-memory bandwidth (bf16) and the instructions that split the
+// operands (fp32) come next after the tensor cores, and mma.sync reaches
+// only part of the rate that wgmma would.
 //
-// What the design does about it: scores, p and ds never touch device
-// memory, and every element staged in shared memory is reused 64 times.
-// The TPU kernels carry their accumulators across a sequential grid axis;
-// Hopper runs blocks in no order, so that axis becomes a loop inside one
-// block and nothing carries between blocks:
-//  - dK/dV: one block of 256 threads owns one (bh, 64-row key tile). K and
-//    V stay in shared memory while the block walks the query tiles (when
-//    causal, from the first tile that reaches the key tile's diagonal);
-//    each thread keeps a 4 x (D/16) slice of dK and of dV in registers.
-//  - dQ: one block owns one (bh, 64-row query tile), keeps Q, dO, lse and
-//    delta in shared memory and walks the key tiles (when causal, up to
-//    the diagonal); each thread keeps a 4 x (D/16) slice of dQ.
-// The two-kernel split needs no atomics. A thread computes a 4 x 4 block
-// of s and dp from shared memory (tiles padded by one column, so the
-// column reads are free of bank conflicts). Ragged tails are masked by
-// index: rows past seq_q / seq_k are zero-filled in shared memory, get
-// p = ds = 0, and are never stored; no padded copies are made. bf16 is
-// widened to fp32 on the way into shared memory. Tensor cores (wgmma), TMA
-// and warp specialisation are later work.
+// What the design does about it:
+//  - Every product is a tensor-core mma.sync. bf16: m16n8k16 with bf16
+//    operands and fp32 accumulation, operands fed by ldmatrix (.trans for
+//    the transposed ones): the reference's "input-dtype operands, fp32
+//    accumulate". fp32: m16n8k8 TF32 in the 3xTF32 split. Each operand is
+//    split once as it enters registers, hi = cvt.rna.tf32(x), lo =
+//    cvt.rna.tf32(x - hi) (the rounding written as two integer operations:
+//    bit for bit the instruction's on finite values), and each
+//    product is three mma, lo*hi + hi*lo + hi*hi, small terms first; only
+//    lo*lo (~2^-22 of |x y|) is dropped. Plain TF32 (11 bits) misses fp32
+//    parity at 1e-4; the split keeps about 21 bits of each product
+//    (tests/test_torch_flash_tf32_split.py emulates it against float64).
+//    The tensor core does not round its fp32 accumulation to nearest, and
+//    that error grows with the number of mma summed into one register. So
+//    fp32 sums each k-step's three s and dp products from zero and adds
+//    them with fp32 adds (mma_rn: p and ds then stay within an ulp or two
+//    of the plain version's, which fp8 and int8 roundings downstream
+//    need), and sums each streamed tile's dV/dK/dQ products into a zeroed
+//    partial added with one fp32 add (add_products: a 1024-query sum is
+//    otherwise 3 x 128 mma deep). p is exp(s * scale - lse) rounded as
+//    the plain version rounds it (p_of).
+//  - inf and NaN: the integer rounding would turn the card's NaN
+//    (0x7FFFFFFF) into -0, and cvt.rna's inf split (inf, NaN) makes
+//    inf * y NaN, so the checked split sends an inf or NaN x as hi = 0,
+//    lo = x. The check costs three instructions a split (+36-40% fp32
+//    time on the H100 when every split takes it), so each thread tests
+//    the values it copied as a tile lands (x * 0 is NaN only for them),
+//    the tile's barrier ORs the flags (__syncthreads_or), and from the
+//    first tile holding an inf or NaN on, the block splits with the
+//    check. p and ds, made in registers, always take it.
+//  - p and ds never leave registers: each warp owns 16 rows (key rows in
+//    dK/dV, query rows in dQ), computes its rows of s^T/dp^T (or s/dp)
+//    against the streamed tile, and turns those accumulator fragments
+//    straight into the A operands of dV += p^T do, dK += ds^T q (or
+//    dQ += ds k). In bf16 that is the rounding to the input dtype; in fp32
+//    the k index of the second product is permuted to match the
+//    accumulator layout, and the B operand is read in the same order.
+//  - Asynchronous tile ring: dK/dV keeps one block's K/V tile resident and
+//    streams Q, dO, lse and delta; dQ keeps Q/dO resident and streams K/V.
+//    Two stages of 16-byte cp.async copies: tile t+1 loads while tile t
+//    computes, one __syncthreads() a tile. Blocks of 4 warps own 64 rows;
+//    streamed tiles are 32 rows in fp32 (three blocks an SM) and 64 in
+//    bf16 (stream_rows). Shared rows are padded by 16 bytes, which makes
+//    ldmatrix (bf16) and the fp32 fragment loads free of bank conflicts.
+//  - The TPU kernels carry their accumulators across a sequential grid
+//    axis; Hopper runs blocks in no order, so that axis is the loop inside
+//    one block, and the two-kernel split needs no atomics: repeated
+//    launches are bit-identical. Causal tiles wholly above the diagonal
+//    are skipped, and the heaviest tiles launch first. Ragged tails are
+//    masked by index: rows past seq_q / seq_k are zero-filled by the copy,
+//    get p = ds = 0 and are never stored; no padded copies are made. Every
+//    key row below seq_k of dK/dV is written, zeros included.
+// wgmma, TMA and warp specialisation are later work.
 //
 // Plain C interface, bound from Python with ctypes: each launch goes onto
 // the caller's stream, allocates nothing and returns cudaGetLastError().
@@ -49,116 +88,434 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kPP = kBlockK + 1;  // padded row of a p / ds tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // the rows a block owns: 16 a warp
+constexpr int kStages = 2;          // depth of the streamed-tile ring
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// rows of a streamed tile. fp32 takes 32: its dK/dV and dQ blocks then fit
+// three to an SM (registers and shared memory), where 64-row tiles fit two,
+// and on the H100 both kernels ran faster so; bf16 keeps 64, except for
+// dK/dV at d = 128, whose dK and dV accumulators (128 floats a thread)
+// need the room.
+template <typename T, int D, bool kDkv>
+__host__ __device__ constexpr int stream_rows() {
+  return sizeof(T) == sizeof(float) || (kDkv && D == 128) ? 32 : 64;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// the value an fp32 number takes once cast to the input dtype
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// shared memory of a block: n_tiles (64, D+1) fp32 tiles, n_st (64, 65)
-// p / ds tiles and the 64 lse and 64 delta values of a query tile
-template <int D>
-constexpr size_t smem_bytes(int n_tiles, int n_st) {
-  return sizeof(float) * (n_tiles * 64 * (D + 1) + n_st * 64 * kPP + 2 * 64);
-}
-
-// rows [row0, row0 + 64) of a (seq, D) matrix into a (64, D+1) fp32 tile,
-// zero past seq
+// a shared row of D elements, padded by 16 bytes
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+__host__ __device__ constexpr int row_stride() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+template <typename T, int D, bool kDkv>
+constexpr size_t smem_bytes() {
+  constexpr int BN = stream_rows<T, D, kDkv>();
+  // dK/dV: lse and delta of each stage, then K, V and the Q, dO ring;
+  // dQ: Q, dO and the K, V ring (its lse and delta live in registers)
+  return (kDkv ? sizeof(float) * kStages * 2 * BN : 0) +
+         sizeof(T) * row_stride<T, D>() * (2 * kRows + 2 * kStages * BN);
+}
+
+// -- asynchronous copies ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [row0, row0 + R) of a (seq, D) matrix into R padded shared rows,
+// zero past seq
+template <typename T, int D, int R>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int row0,
                                           int seq, int tid) {
-  for (int i = tid; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + c] =
-        row < seq ? to_f32(src[static_cast<size_t>(row) * D + c]) : 0.f;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kPerRow = D / kVec;
+  constexpr int SD = row_stride<T, D>();
+#pragma unroll
+  for (int i = tid; i < R * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const bool ok = row0 + r < seq;
+    cp_async16(dst + r * SD + c,
+               src + static_cast<size_t>(ok ? row0 + r : 0) * D + c, ok);
   }
 }
 
-// the 64 lse and delta values of the query tile at q0, zero past seq_q
-__device__ __forceinline__ void load_rows(float* lses, float* dels,
-                                          const float* lse,
-                                          const float* delta, int q0,
-                                          int seq_q, int tid) {
-  if (tid < 64) {
-    const int row = q0 + tid;
-    lses[tid] = row < seq_q ? lse[row] : 0.f;
-    dels[tid] = row < seq_q ? delta[row] : 0.f;
+// n fp32 values of a row vector from row0, zero past seq
+__device__ __forceinline__ void copy_vec(float* dst, const float* src,
+                                         int row0, int seq, int n, int tid) {
+  for (int i = tid; i < n; i += kThreads) {
+    const bool ok = row0 + i < seq;
+    cp_async4(dst + i, src + (ok ? row0 + i : 0), ok);
   }
 }
 
-// out[i][j] = sum_c a[ty + 16 i][c] * b[tx + 16 j][c] over two (64, D+1)
-// tiles: this thread's 4 x 4 block of a . b^T
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ty, int tx, float (&out)[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+// -- tensor-core fragments ----------------------------------------------------
+//
+// Layouts of mma.sync with g = lane / 4, t = lane % 4: the accumulator of
+// an m16n8 tile holds (row g, cols 2t, 2t+1) and (row g+8, cols 2t, 2t+1).
+// Loaders, with the tile in shared memory at row stride SD:
+//   load_a:     A (16 x kK) = tile[r0.., k0..]             (row-major A)
+//   load_b_nt2: B (kK x 16) = tile[n0.., k0..]^T, two n8 tiles (x tile^T)
+//   load_b_nn2: B (kK x 16) = tile[k0.., n0..], two n8 tiles   (x tile)
+//   a_from_c:   A (16 x kK) from accumulator tiles whose columns are k
+
+template <typename T>
+struct Frag;
+
+// bf16: m16n8k16, a register holds two bf16 of consecutive k
+template <>
+struct Frag<__nv_bfloat16> {
+  static constexpr int kK = 16;
+  struct A {
+    uint32_t x[4];
+  };
+  struct B {
+    uint32_t x[2];
+  };
+};
+
+// fp32 as 3xTF32: m16n8k8, each operand as its hi and lo TF32 parts
+template <>
+struct Frag<float> {
+  static constexpr int kK = 8;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// cvt.rna.tf32.f32 of a finite x, written out: round to nearest with
+// ties away from zero at the 13th bit (the magnitude bits carry into the
+// exponent), then clear the 13 bits. Bit for bit the instruction's result
+// on finite values only: a NaN's carry leaves the NaN range (0x7FFFFFFF
+// becomes -0), so split() never gives it one.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, both TF32 (x - hi is exact in fp32). Unchecked, x must
+// be finite. Checked, a non-finite x is hi = 0, lo = x: only the lo(x)
+// hi(y) term of a product sees it, so NaN stays NaN and inf * y keeps
+// fp32's +-inf (hi = inf would make lo = inf - inf = NaN). Only inf * inf
+// (its lo * lo term is the one dropped, the others are inf * 0) and
+// inf * a subnormal give NaN where fp32 gives +-inf. The check costs a
+// compare and two selects, on top of the five instructions of a split.
+template <bool kChecked>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kChecked) {
+    const bool finite = fabsf(x) < __int_as_float(0x7F800000);
+    hi = finite ? to_tf32(x) : 0u;
+    const float r = x - __uint_as_float(hi);  // a NaN comes out 0x7FFFFFFF
+    lo = finite ? to_tf32(r) : __float_as_uint(r);
+  } else {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
   }
-#pragma unroll 8
-  for (int c = 0; c < D; ++c) {
-    float av[4], bv[4];
+}
+
+// whether one of the fp32 values that this thread copied into the tile
+// with copy_rows<float, D, R> is inf or NaN (x * 0 is NaN only for
+// those); its own copies are visible to it once they have landed
+template <int D, int R>
+__device__ __forceinline__ bool copied_non_finite(const float* tile,
+                                                  int tid) {
+  constexpr int kPerRow = D / 4;
+  constexpr int SD = row_stride<float, D>();
+  float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * DP + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * DP + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(av[i], bv[j], out[i][j]);
+  for (int i = tid; i < R * kPerRow; i += kThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        tile + (i / kPerRow) * SD + (i % kPerRow) * 4);
+    acc = __fmaf_rn(x.x, 0.f, __fmaf_rn(x.y, 0.f, acc));
+    acc = __fmaf_rn(x.z, 0.f, __fmaf_rn(x.w, 0.f, acc));
+  }
+  return acc != acc;
+}
+
+// body(std::bool_constant<checked>): fp32 takes the checked split where
+// asked; bf16 has no split
+template <typename T, typename Body>
+__device__ __forceinline__ void with_split(bool checked, Body&& body) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (checked) {
+      body(std::true_type{});
+      return;
     }
   }
+  body(std::false_type{});
 }
 
-// p and ds of this thread's 4 x 4 block of the (query tile q0, key tile
-// k0) pair, from the raw products s = q . k^T and dp = do . v^T
-__device__ __forceinline__ void p_ds(const float (&s)[4][4],
-                                     const float (&dp)[4][4],
-                                     const float* lses, const float* dels,
-                                     int q0, int k0, int ty, int tx,
-                                     int seq_q, int seq_k, int causal,
-                                     float scale, float (&p)[4][4],
-                                     float (&ds)[4][4]) {
+// bf16 loaders: matrix i of an x4 ldmatrix takes its row addresses from
+// lanes 8i..8i+7
+template <int SD, bool kChecked>
+__device__ __forceinline__ void load_a(Frag<__nv_bfloat16>::A& a,
+                                       const __nv_bfloat16* tile, int r0,
+                                       int k0, int lane) {
+  ldsm_x4(a.x, tile + (r0 + (lane & 15)) * SD + k0 + (lane >> 4) * 8);
+}
+
+template <int SD, bool kChecked>
+__device__ __forceinline__ void load_b_nt2(Frag<__nv_bfloat16>::B (&b)[2],
+                                           const __nv_bfloat16* tile, int n0,
+                                           int k0, int lane) {
+  const int m = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(r, tile + (n0 + (lane & 7) + (m >> 1) * 8) * SD + k0 + (m & 1) * 8);
+  b[0].x[0] = r[0];
+  b[0].x[1] = r[1];
+  b[1].x[0] = r[2];
+  b[1].x[1] = r[3];
+}
+
+template <int SD, bool kChecked>
+__device__ __forceinline__ void load_b_nn2(Frag<__nv_bfloat16>::B (&b)[2],
+                                           const __nv_bfloat16* tile, int k0,
+                                           int n0, int lane) {
+  const int m = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4_t(r,
+            tile + (k0 + (lane & 7) + (m & 1) * 8) * SD + n0 + (m >> 1) * 8);
+  b[0].x[0] = r[0];
+  b[0].x[1] = r[1];
+  b[1].x[0] = r[2];
+  b[1].x[1] = r[3];
+}
+
+// k-step st of the accumulator tiles c: tiles 2st and 2st+1, rounded to
+// bf16 (the reference's rounding of p and ds to the input dtype)
+template <int NT>
+__device__ __forceinline__ void a_from_c(Frag<__nv_bfloat16>::A& a,
+                                         const float (&c)[NT][4], int st) {
+  a.x[0] = pack_bf16(c[2 * st][0], c[2 * st][1]);
+  a.x[1] = pack_bf16(c[2 * st][2], c[2 * st][3]);
+  a.x[2] = pack_bf16(c[2 * st + 1][0], c[2 * st + 1][1]);
+  a.x[3] = pack_bf16(c[2 * st + 1][2], c[2 * st + 1][3]);
+}
+
+__device__ __forceinline__ void mma(float (&c)[4],
+                                    const Frag<__nv_bfloat16>::A& a,
+                                    const Frag<__nv_bfloat16>::B& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]),
+        "r"(b.x[1]));
+}
+
+// fp32 loaders. The m16n8k8 A fragment holds (row g, k t), (row g+8, k t),
+// (row g, k t+4), (row g+8, k t+4); B holds (k t, col g), (k t+4, col g).
+template <int SD, bool kChecked>
+__device__ __forceinline__ void load_a(Frag<float>::A& a, const float* tile,
+                                       int r0, int k0, int lane) {
+  const float* p = tile + (r0 + (lane >> 2)) * SD + k0 + (lane & 3);
+  split<kChecked>(p[0], a.hi[0], a.lo[0]);
+  split<kChecked>(p[8 * SD], a.hi[1], a.lo[1]);
+  split<kChecked>(p[4], a.hi[2], a.lo[2]);
+  split<kChecked>(p[8 * SD + 4], a.hi[3], a.lo[3]);
+}
+
+template <int SD, bool kChecked>
+__device__ __forceinline__ void load_b_nt2(Frag<float>::B (&b)[2],
+                                           const float* tile, int n0, int k0,
+                                           int lane) {
+  const float* p = tile + (n0 + (lane >> 2)) * SD + k0 + (lane & 3);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int row = q0 + r;
+  for (int j = 0; j < 2; ++j) {
+    split<kChecked>(p[8 * j * SD], b[j].hi[0], b[j].lo[0]);
+    split<kChecked>(p[8 * j * SD + 4], b[j].hi[1], b[j].lo[1]);
+  }
+}
+
+// the k index permuted to match a_from_c: "k t" is row k0 + 2t, "k t+4"
+// is row k0 + 2t + 1
+template <int SD, bool kChecked>
+__device__ __forceinline__ void load_b_nn2(Frag<float>::B (&b)[2],
+                                           const float* tile, int k0, int n0,
+                                           int lane) {
+  const float* p = tile + (k0 + 2 * (lane & 3)) * SD + n0 + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      const bool ok =
-          row < seq_q && col < seq_k && (!causal || row >= col);
-      const float pv = ok ? expf(s[i][j] * scale - lses[r]) : 0.f;
-      p[i][j] = pv;
-      ds[i][j] = pv * (dp[i][j] - dels[r]) * scale;
+  for (int j = 0; j < 2; ++j) {
+    split<kChecked>(p[8 * j], b[j].hi[0], b[j].lo[0]);
+    split<kChecked>(p[SD + 8 * j], b[j].hi[1], b[j].lo[1]);
+  }
+}
+
+// k-step st of the accumulator tiles c is tile st; its column 2t takes
+// "k t" and column 2t+1 "k t+4" (fp32 p and ds are not rounded). Always
+// checked: p and ds may be inf or NaN from finite tiles (lse, delta)
+template <int NT>
+__device__ __forceinline__ void a_from_c(Frag<float>::A& a,
+                                         const float (&c)[NT][4], int st) {
+  split<true>(c[st][0], a.hi[0], a.lo[0]);
+  split<true>(c[st][2], a.hi[1], a.lo[1]);
+  split<true>(c[st][1], a.hi[2], a.lo[2]);
+  split<true>(c[st][3], a.hi[3], a.lo[3]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: c += a.lo b.hi + a.hi b.lo + a.hi b.hi
+__device__ __forceinline__ void mma(float (&c)[4], const Frag<float>::A& a,
+                                    const Frag<float>::B& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// c += a b, the three products summed from zero and added to c with
+// round-to-nearest fp32 adds (bf16: one mma into c). The s and dp
+// products take this form: in one 24-mma chain per tile, the tensor
+// core's accumulation moves p and ds by a few ulp off the plain version,
+// enough to flip a near-zero gradient's sign downstream of fp8 rounding
+__device__ __forceinline__ void mma_rn(float (&c)[4], const Frag<float>::A& a,
+                                       const Frag<float>::B& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, a, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+__device__ __forceinline__ void mma_rn(float (&c)[4],
+                                       const Frag<__nv_bfloat16>::A& a,
+                                       const Frag<__nv_bfloat16>::B& b) {
+  mma(c, a, b);
+}
+
+// acc[j0 + j] += A B over the k-steps of one streamed tile, for the NJ
+// output tiles from j0: A from the accumulator tiles c (p^T, ds^T or ds),
+// B = tile (dO, Q or K). fp32 sums the tile into a zeroed partial first and
+// adds that to acc with one fp32 add: the tensor core's accumulation
+// (not round-to-nearest) then covers one tile's k-steps, not the whole
+// sequence's, which keeps the 3xTF32 products within fp32 parity over
+// 1024-key sums. bf16 accumulates in place (the partial is acc itself).
+template <typename T, int SD, int NJ, bool kChecked, int NT, int OT>
+__device__ __forceinline__ void add_products(float (&acc)[OT][4],
+                                             const float (&c)[NT][4],
+                                             const T* tile, int j0,
+                                             int lane) {
+  using F = Frag<T>;
+  constexpr bool kPartial = sizeof(T) == sizeof(float);
+  float part[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = kPartial ? 0.f : acc[j0 + j][e];
+  }
+#pragma unroll
+  for (int kst = 0; kst < NT * 8 / F::kK; ++kst) {
+    typename F::A a;
+    a_from_c(a, c, kst);
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      typename F::B b[2];
+      load_b_nn2<SD, kChecked>(b, tile, kst * F::kK, 8 * (j0 + j), lane);
+      mma(part[j], a, b[0]);
+      mma(part[j + 1], a, b[1]);
     }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j0 + j][e] = kPartial ? acc[j0 + j][e] + part[j][e] : part[j][e];
+  }
+}
+
+// output tiles a call of add_products takes: fp32 at d = 128 in two
+// halves, so that the partial fits beside the accumulators
+template <typename T, int D>
+__host__ __device__ constexpr int partial_tiles() {
+  return sizeof(T) == sizeof(float) && D == 128 ? D / 16 : D / 8;
+}
+
+// p = exp(s * scale - lse), each operation rounded on its own as the
+// reference and the plain version compute it (no fused multiply-add, no
+// exp2 with log2(e) folded in): a p that differs by an ulp or two moves
+// fp8 and int8 roundings downstream
+__device__ __forceinline__ float p_of(float s, float scale, float lse) {
+  return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+}
+
+// two consecutive outputs of a row, in the input dtype
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// the warp's accumulator tiles acc[D/8] of rows row0 + g, row0 + g + 8
+// (below seq) into the (seq, D) output
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4],
+                                           int row0, int seq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= seq) continue;
+    T* dst = out + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dst + 8 * j, acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
@@ -170,109 +527,141 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int seq_q,
                          int seq_k, int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int OJ = D / 16;  // output columns per thread
+  using F = Frag<T>;
+  constexpr int kK = F::kK;
+  constexpr int BN = stream_rows<T, D, true>();  // query rows a tile
+  constexpr int SD = row_stride<T, D>();
+  constexpr int NT = BN / 8;  // n8 tiles of the warp's s^T and dp^T
+  constexpr int OT = D / 8;   // n8 tiles of its dK and dV
+  constexpr int NJ = partial_tiles<T, D>();
 
-  extern __shared__ float smem[];
-  float* ks = smem;                  // [kBlockK][DP]
-  float* vs = ks + kBlockK * DP;     // [kBlockK][DP]
-  float* qs = vs + kBlockK * DP;     // [kBlockQ][DP]
-  float* dos = qs + kBlockQ * DP;    // [kBlockQ][DP]
-  float* ps = dos + kBlockQ * DP;    // [kBlockQ][kPP], p by (query, key)
-  float* dss = ps + kBlockQ * kPP;   // [kBlockQ][kPP], ds by (query, key)
-  float* lses = dss + kBlockQ * kPP;  // [kBlockQ]
-  float* dels = lses + kBlockQ;       // [kBlockQ]
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* rows = reinterpret_cast<float*>(smem);  // [kStages][lse, delta][BN]
+  T* ks = reinterpret_cast<T*>(rows + kStages * 2 * BN);  // [kRows][SD]
+  T* vs = ks + kRows * SD;                                 // [kRows][SD]
+  T* qs = vs + kRows * SD;            // [kStages][BN][SD]
+  T* dos = qs + kStages * BN * SD;    // [kStages][BN][SD]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (tid >> 5);  // the warp's first key row in the tile
   const int bh = blockIdx.y;
   // causal: the first key tiles see the most query tiles; they start first
-  const int k0 = blockIdx.x * kBlockK;
+  const int k0 = blockIdx.x * kRows;
+  const T* qb = q + static_cast<size_t>(bh) * seq_q * D;
+  const T* dob = dout + static_cast<size_t>(bh) * seq_q * D;
+  const float* lseb = lse + static_cast<size_t>(bh) * seq_q;
+  const float* delb = delta + static_cast<size_t>(bh) * seq_q;
 
-  const size_t qoff = static_cast<size_t>(bh) * seq_q;
-  const size_t koff = static_cast<size_t>(bh) * seq_k;
-  load_tile<T, D>(ks, k + koff * D, k0, seq_k, tid);
-  load_tile<T, D>(vs, v + koff * D, k0, seq_k, tid);
+  const int n_qt = (seq_q + BN - 1) / BN;
+  // causal: query tiles wholly above the key tile's first key see none of
+  // it (every q_pos < k0); k0 is a multiple of BN, so the first tile that
+  // reaches the diagonal is k0 / BN, whatever seq_q and seq_k are
+  const int qt0 = causal ? k0 / BN : 0;
+  auto prefetch = [&](int qt, int st) {
+    copy_rows<T, D, BN>(qs + st * BN * SD, qb, qt * BN, seq_q, tid);
+    copy_rows<T, D, BN>(dos + st * BN * SD, dob, qt * BN, seq_q, tid);
+    copy_vec(rows + st * 2 * BN, lseb, qt * BN, seq_q, BN, tid);
+    copy_vec(rows + st * 2 * BN + BN, delb, qt * BN, seq_q, BN, tid);
+  };
+  if (qt0 < n_qt) {
+    const size_t koff = static_cast<size_t>(bh) * seq_k * D;
+    copy_rows<T, D, kRows>(ks, k + koff, k0, seq_k, tid);
+    copy_rows<T, D, kRows>(vs, v + koff, k0, seq_k, tid);
+    prefetch(qt0, 0);
+  }
+  cp_async_commit();
 
-  float acc_dk[4][OJ], acc_dv[4][OJ];
+  float acc_dk[OT][4], acc_dv[OT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int j = 0; j < OT; ++j) {
 #pragma unroll
-    for (int o = 0; o < OJ; ++o) {
-      acc_dk[i][o] = 0.f;
-      acc_dv[i][o] = 0.f;
-    }
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
   }
 
-  const int n_qt = (seq_q + kBlockQ - 1) / kBlockQ;
-  // causal: query tiles wholly above the key tile's first key see none of
-  // it (every q_pos < k0); with equal 64-row tiles the first tile that
-  // reaches the diagonal is k0 / 64, whatever seq_q and seq_k are
-  const int qt0 = causal ? k0 / kBlockQ : 0;
+  bool checked = false;  // fp32: K, V or a Q/dO tile held an inf or NaN
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();  // K/V staged; the previous tile fully consumed
-    load_tile<T, D>(qs, q + qoff * D, q0, seq_q, tid);
-    load_tile<T, D>(dos, dout + qoff * D, q0, seq_q, tid);
-    load_rows(lses, dels, lse + qoff, delta + qoff, q0, seq_q, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4], p[4][4], ds[4][4];
-    tile_dot<D>(qs, ks, ty, tx, s);
-    tile_dot<D>(dos, vs, ty, tx, dp);
-    p_ds(s, dp, lses, dels, q0, k0, ty, tx, seq_q, seq_k, causal, scale,
-            p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ps[(ty + 16 * i) * kPP + tx + 16 * j] = round_to<T>(p[i][j]);
-        dss[(ty + 16 * i) * kPP + tx + 16 * j] = round_to<T>(ds[i][j]);
-      }
+    const int st = (qt - qt0) & 1;
+    const T* qt_s = qs + st * BN * SD;
+    const T* dot_s = dos + st * BN * SD;
+    cp_async_wait_all();
+    // tile qt landed; every warp is done with tile qt-1
+    if constexpr (sizeof(T) == sizeof(float)) {
+      bool bad = checked | copied_non_finite<D, BN>(qt_s, tid) |
+                 copied_non_finite<D, BN>(dot_s, tid);
+      if (qt == qt0)
+        bad |= copied_non_finite<D, kRows>(ks, tid) |
+               copied_non_finite<D, kRows>(vs, tid);
+      checked = __syncthreads_or(bad);
+    } else {
+      __syncthreads();
     }
-    __syncthreads();  // p and ds of the tile complete
+    if (qt + 1 < n_qt) prefetch(qt + 1, st ^ 1);
+    cp_async_commit();
+    const float* lse_s = rows + st * 2 * BN;
+    const float* del_s = lse_s + BN;
+    const int q0 = qt * BN;
 
-    // dV[kr][c] += sum_q p[q][kr] do[q][c], dK[kr][c] += sum_q ds[q][kr]
-    // q[q][c]; this thread owns key rows ty + 16 i, columns tx + 16 o
-#pragma unroll 4
-    for (int qq = 0; qq < kBlockQ; ++qq) {
-      float pv[4], dsv[4], dov[OJ], qv[OJ];
+    with_split<T>(checked, [&](auto checked_split) {
+      constexpr bool kChecked = decltype(checked_split)::value;
+      // s^T = K Q^T and dp^T = V dO^T for the warp's 16 keys
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = ps[qq * kPP + ty + 16 * i];
-        dsv[i] = dss[qq * kPP + ty + 16 * i];
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
       }
 #pragma unroll
-      for (int o = 0; o < OJ; ++o) {
-        dov[o] = dos[qq * DP + tx + 16 * o];
-        qv[o] = qs[qq * DP + tx + 16 * o];
-      }
+      for (int c0 = 0; c0 < D; c0 += kK) {
+        typename F::A ka, va;
+        load_a<SD, kChecked>(ka, ks, wr, c0, lane);
+        load_a<SD, kChecked>(va, vs, wr, c0, lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int o = 0; o < OJ; ++o) {
-          acc_dv[i][o] = fmaf(pv[i], dov[o], acc_dv[i][o]);
-          acc_dk[i][o] = fmaf(dsv[i], qv[o], acc_dk[i][o]);
+        for (int j = 0; j < NT; j += 2) {
+          typename F::B qf[2], of[2];
+          load_b_nt2<SD, kChecked>(qf, qt_s, 8 * j, c0, lane);
+          load_b_nt2<SD, kChecked>(of, dot_s, 8 * j, c0, lane);
+          mma_rn(s[j], ka, qf[0]);
+          mma_rn(s[j + 1], ka, qf[1]);
+          mma_rn(dp[j], va, of[0]);
+          mma_rn(dp[j + 1], va, of[1]);
         }
       }
-    }
+
+      // p^T and ds^T in place: element e of tile j is key k0 + wr + g +
+      // 8 (e / 2), query q0 + 8 j + 2 t + e % 2
+      const bool edge = (causal && q0 < k0 + kRows) || q0 + BN > seq_q ||
+                        k0 + kRows > seq_k;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          const int key = k0 + wr + g + 8 * (e >> 1);
+          const bool ok = !edge || (q0 + qc < seq_q && key < seq_k &&
+                                    (!causal || q0 + qc >= key));
+          const float p = ok ? p_of(s[j][e], scale, lse_s[qc]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - del_s[qc]) * scale;
+        }
+      }
+
+      // dV += p^T dO, dK += ds^T Q over the tile's queries
+#pragma unroll
+      for (int j0 = 0; j0 < OT; j0 += NJ)
+        add_products<T, SD, NJ, kChecked>(acc_dv, s, dot_s, j0, lane);
+#pragma unroll
+      for (int j0 = 0; j0 < OT; j0 += NJ)
+        add_products<T, SD, NJ, kChecked>(acc_dk, dp, qt_s, j0, lane);
+    });
   }
+  cp_async_wait_all();
 
   // every key row below seq_k is written, zeros included (a causal key
   // tile that no query reaches)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= seq_k) continue;
-    T* dkr = dk + (koff + row) * D;
-    T* dvr = dv + (koff + row) * D;
-#pragma unroll
-    for (int o = 0; o < OJ; ++o) {
-      dkr[tx + 16 * o] = from_f32<T>(acc_dk[i][o]);
-      dvr[tx + 16 * o] = from_f32<T>(acc_dv[i][o]);
-    }
-  }
+  const size_t koff = static_cast<size_t>(bh) * seq_k * D;
+  store_rows<T, D>(dk + koff, acc_dk, k0 + wr, seq_k, lane);
+  store_rows<T, D>(dv + koff, acc_dv, k0 + wr, seq_k, lane);
 }
 
 template <typename T, int D>
@@ -283,89 +672,135 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta,
                         T* __restrict__ dq, int seq_q, int seq_k, int causal,
                         float scale) {
-  constexpr int DP = D + 1;
-  constexpr int OJ = D / 16;
+  using F = Frag<T>;
+  constexpr int kK = F::kK;
+  constexpr int BN = stream_rows<T, D, false>();  // key rows a tile
+  constexpr int SD = row_stride<T, D>();
+  constexpr int NT = BN / 8;  // n8 tiles of the warp's s and dp
+  constexpr int OT = D / 8;   // n8 tiles of its dQ
+  constexpr int NJ = partial_tiles<T, D>();
 
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [kBlockQ][DP]
-  float* dos = qs + kBlockQ * DP;     // [kBlockQ][DP]
-  float* ks = dos + kBlockQ * DP;     // [kBlockK][DP]
-  float* vs = ks + kBlockK * DP;      // [kBlockK][DP]
-  float* dss = vs + kBlockK * DP;     // [kBlockQ][kPP], ds by (query, key)
-  float* lses = dss + kBlockQ * kPP;  // [kBlockQ]
-  float* dels = lses + kBlockQ;       // [kBlockQ]
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);  // [kRows][SD]
+  T* dos = qs + kRows * SD;            // [kRows][SD]
+  T* ks = dos + kRows * SD;            // [kStages][BN][SD]
+  T* vs = ks + kStages * BN * SD;      // [kStages][BN][SD]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (tid >> 5);  // the warp's first query row in the tile
   const int bh = blockIdx.y;
   // causal: the last query tiles walk the most key tiles; they start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const size_t qoff = static_cast<size_t>(bh) * seq_q;
-  const size_t koff = static_cast<size_t>(bh) * seq_k;
-  load_tile<T, D>(qs, q + qoff * D, q0, seq_q, tid);
-  load_tile<T, D>(dos, dout + qoff * D, q0, seq_q, tid);
-  load_rows(lses, dels, lse + qoff, delta + qoff, q0, seq_q, tid);
+  const T* kb = k + static_cast<size_t>(bh) * seq_k * D;
+  const T* vb = v + static_cast<size_t>(bh) * seq_k * D;
 
-  float acc[4][OJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 0; o < OJ; ++o) acc[i][o] = 0.f;
-  }
-
-  int n_kt = (seq_k + kBlockK - 1) / kBlockK;
+  int n_kt = (seq_k + BN - 1) / BN;
   if (causal) {
     // only key tiles starting at or before the tile's last real row
-    const int last_row = min(q0 + kBlockQ, seq_q) - 1;
-    n_kt = min(n_kt, last_row / kBlockK + 1);
+    const int last_row = min(q0 + kRows, seq_q) - 1;
+    n_kt = min(n_kt, last_row / BN + 1);
   }
+  auto prefetch = [&](int kt, int st) {
+    copy_rows<T, D, BN>(ks + st * BN * SD, kb, kt * BN, seq_k, tid);
+    copy_rows<T, D, BN>(vs + st * BN * SD, vb, kt * BN, seq_k, tid);
+  };
+  copy_rows<T, D, kRows>(qs, q + qoff * D, q0, seq_q, tid);
+  copy_rows<T, D, kRows>(dos, dout + qoff * D, q0, seq_q, tid);
+  prefetch(0, 0);
+  cp_async_commit();
+
+  // lse and delta of the thread's two query rows
+  float lse_r[2], del[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    lse_r[h] = row < seq_q ? lse[qoff + row] : 0.f;
+    del[h] = row < seq_q ? delta[qoff + row] : 0.f;
+  }
+
+  float acc[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+
+  bool checked = false;  // fp32: Q, dO or a K/V tile held an inf or NaN
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // Q/dO staged; the previous tile fully consumed
-    load_tile<T, D>(ks, k + koff * D, k0, seq_k, tid);
-    load_tile<T, D>(vs, v + koff * D, k0, seq_k, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4], p[4][4], ds[4][4];
-    tile_dot<D>(qs, ks, ty, tx, s);
-    tile_dot<D>(dos, vs, ty, tx, dp);
-    p_ds(s, dp, lses, dels, q0, k0, ty, tx, seq_q, seq_k, causal, scale,
-            p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dss[(ty + 16 * i) * kPP + tx + 16 * j] = round_to<T>(ds[i][j]);
+    const int st = kt & 1;
+    const T* kt_s = ks + st * BN * SD;
+    const T* vt_s = vs + st * BN * SD;
+    cp_async_wait_all();
+    // tile kt landed; every warp is done with tile kt-1
+    if constexpr (sizeof(T) == sizeof(float)) {
+      bool bad = checked | copied_non_finite<D, BN>(kt_s, tid) |
+                 copied_non_finite<D, BN>(vt_s, tid);
+      if (kt == 0)
+        bad |= copied_non_finite<D, kRows>(qs, tid) |
+               copied_non_finite<D, kRows>(dos, tid);
+      checked = __syncthreads_or(bad);
+    } else {
+      __syncthreads();
     }
-    __syncthreads();  // ds of the tile complete
+    if (kt + 1 < n_kt) prefetch(kt + 1, st ^ 1);
+    cp_async_commit();
+    const int k0 = kt * BN;
 
-    // dQ[qr][c] += sum_k ds[qr][k] k[k][c]; this thread owns query rows
-    // ty + 16 i, columns tx + 16 o
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float dsv[4], kv[OJ];
+    with_split<T>(checked, [&](auto checked_split) {
+      constexpr bool kChecked = decltype(checked_split)::value;
+      // s = Q K^T and dp = dO V^T for the warp's 16 queries
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * kPP + kk];
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int o = 0; o < OJ; ++o) kv[o] = ks[kk * DP + tx + 16 * o];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int o = 0; o < OJ; ++o) acc[i][o] = fmaf(dsv[i], kv[o], acc[i][o]);
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
       }
-    }
-  }
+#pragma unroll
+      for (int c0 = 0; c0 < D; c0 += kK) {
+        typename F::A qa, oa;
+        load_a<SD, kChecked>(qa, qs, wr, c0, lane);
+        load_a<SD, kChecked>(oa, dos, wr, c0, lane);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          typename F::B kf[2], vf[2];
+          load_b_nt2<SD, kChecked>(kf, kt_s, 8 * j, c0, lane);
+          load_b_nt2<SD, kChecked>(vf, vt_s, 8 * j, c0, lane);
+          mma_rn(s[j], qa, kf[0]);
+          mma_rn(s[j + 1], qa, kf[1]);
+          mma_rn(dp[j], oa, vf[0]);
+          mma_rn(dp[j + 1], oa, vf[1]);
+        }
+      }
 
+      // ds in place of dp: element e of tile j is query q0 + wr + g +
+      // 8 (e / 2), key k0 + 8 j + 2 t + e % 2
+      const bool edge = (causal && k0 + BN > q0) || q0 + kRows > seq_q ||
+                        k0 + BN > seq_k;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= seq_q) continue;
-    T* dqr = dq + (qoff + row) * D;
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int o = 0; o < OJ; ++o) dqr[tx + 16 * o] = from_f32<T>(acc[i][o]);
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int row = q0 + wr + g + 8 * h;
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok = !edge || (row < seq_q && key < seq_k &&
+                                    (!causal || row >= key));
+          const float p = ok ? p_of(s[j][e], scale, lse_r[h]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - del[h]) * scale;
+        }
+      }
+
+      // dQ += ds K over the tile's keys
+#pragma unroll
+      for (int j0 = 0; j0 < OT; j0 += NJ)
+        add_products<T, SD, NJ, kChecked>(acc, dp, kt_s, j0, lane);
+    });
   }
+  cp_async_wait_all();
+
+  store_rows<T, D>(dq + qoff * D, acc, q0 + wr, seq_q, lane);
 }
 
 struct Args {
@@ -393,10 +828,10 @@ cudaError_t opt_in(K kernel, size_t smem) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t smem = smem_bytes<D>(4, 2);
+  constexpr size_t smem = smem_bytes<T, D, true>();
   static const cudaError_t attr = opt_in(flash_bwd_dkv_kernel<T, D>, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.seq_k + kBlockK - 1) / kBlockK, a.bh);
+  const dim3 grid((a.seq_k + kRows - 1) / kRows, a.bh);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -407,10 +842,10 @@ cudaError_t launch_dkv(const Args& a) {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t smem = smem_bytes<D>(4, 1);
+  constexpr size_t smem = smem_bytes<T, D, false>();
   static const cudaError_t attr = opt_in(flash_bwd_dq_kernel<T, D>, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.seq_q + kBlockQ - 1) / kBlockQ, a.bh);
+  const dim3 grid((a.seq_q + kRows - 1) / kRows, a.bh);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -434,10 +869,18 @@ cudaError_t dispatch_d(const Args& a, int d) {
   }
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <bool kDkv>
 int dispatch(const Args& a, int d, int dtype) {
   if (a.bh <= 0 || a.seq_q <= 0 || a.seq_k <= 0 || a.bh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the 16-byte copies read q, k, v and dout rows whole
+  if (!(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+        aligned16(a.dout)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (dtype == 0) return static_cast<int>(dispatch_d<float, kDkv>(a, d));
   if (dtype == 1)
     return static_cast<int>(dispatch_d<__nv_bfloat16, kDkv>(a, d));
@@ -448,9 +891,9 @@ int dispatch(const Args& a, int d, int dtype) {
 
 extern "C" {
 
-// q/dout (bh, seq_q, d), k/v (bh, seq_k, d): contiguous, in the input
-// dtype (0 = float32, 1 = bfloat16); lse/delta (bh, seq_q) float32;
-// dk/dv (bh, seq_k, d) in the input dtype.
+// q/dout (bh, seq_q, d), k/v (bh, seq_k, d): contiguous and 16-byte
+// aligned, in the input dtype (0 = float32, 1 = bfloat16); lse/delta (bh,
+// seq_q) float32; dk/dv (bh, seq_k, d) in the input dtype.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int bh,

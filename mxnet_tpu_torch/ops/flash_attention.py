@@ -187,6 +187,12 @@ def _card(q, name):
                          f"kernel (supported: {HEAD_DIMS})")
 
 
+def _aligned(*ts):
+    """The backward kernels copy rows in 16-byte pieces: a tensor whose
+    data does not start on 16 bytes (a view at an odd offset) is copied."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
 def _launch(lib, name, err_fn, rc, q, k):
     if rc != 0:
         msg = getattr(lib, err_fn)(rc).decode()
@@ -239,6 +245,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
         return _bwd_from_delta(q, k, v, do, lse, delta, causal, scale)[1:]
     _card(q, "flash_attention_bwd_dkv")
     lib = _native.load("flash_attention_bwd", _bind_bwd)
+    q, k, v, do = _aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_bwd_dkv(
@@ -269,6 +276,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
         return _bwd_from_delta(q, k, v, do, lse, delta, causal, scale)[0]
     _card(q, "flash_attention_bwd_dq")
     lib = _native.load("flash_attention_bwd", _bind_bwd)
+    q, k, v, do = _aligned(q, k, v, do)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_bwd_dq(

@@ -8,8 +8,13 @@ a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
 
-Tolerances: fp32 atol=rtol=1e-4 (fp32 FMAs, another summation order than
-cuBLAS); bf16 forward atol 2e-2 (bf16 output rounding); bf16 backward
+Tolerances: fp32 atol=rtol=1e-4 (the forward's fp32 FMAs and the
+backward's 3xTF32 tensor-core products, in another summation order than
+cuBLAS; tests/test_torch_flash_tf32_split.py pins the split's arithmetic
+at that tolerance on the CPU); the backward at tile edges (127, 129, 255
+rows), at the GPT training shape, and two launches bit for bit (no
+atomics); NaN and inf in the backward's gradients where the plain version
+has them (non-causal); bf16 forward atol 2e-2 (bf16 output rounding); bf16 backward
 rtol 2^-7 (one bf16 ulp of the output) plus atol 2^-10 of the output's
 largest value (p and ds are rounded to bf16 before the products, and a
 value on a rounding boundary may round the other way than in the plain
@@ -99,15 +104,18 @@ def test_kernel_matches_plain_version(cuda_device, bh, sq, sk, d, causal,
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("bh,sq,sk,d", SHAPES)
-def test_bwd_kernels_match_plain_version(cuda_device, bh, sq, sk, d, causal,
-                                         dtype):
-    q, k, v = _qkv(bh, sq, sk, d, dtype, cuda_device, seed=sq * sk + d)
+def _bwd_inputs(bh, sq, sk, d, causal, dtype, device):
+    """q, k, v, the forward kernel's (out, lse) and a random cotangent."""
+    q, k, v = _qkv(bh, sq, sk, d, dtype, device, seed=sq * sk + d)
     out, lse = tflash.flash_attention_fwd(q, k, v, causal=causal)
     do = torch.from_numpy(onp.random.RandomState(d).randn(bh, sq, d)
-                          .astype("float32")).to(cuda_device, dtype)
+                          .astype("float32")).to(device, dtype)
+    return q, k, v, out, lse, do
+
+
+def _check_bwd(bh, sq, sk, d, causal, dtype, device):
+    q, k, v, out, lse, do = _bwd_inputs(bh, sq, sk, d, causal, dtype,
+                                        device)
     dkv0 = tflash.flash_attention_bwd_dkv.launches
     dq0 = tflash.flash_attention_bwd_dq.launches
     grads = tflash.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
@@ -124,6 +132,115 @@ def test_bwd_kernels_match_plain_version(cuda_device, bh, sq, sk, d, causal,
             tol = dict(atol=2.0 ** -10 * ref.float().abs().max().item(),
                        rtol=2.0 ** -7)
         torch.testing.assert_close(g.float(), ref.float(), msg=name, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk,d", SHAPES)
+def test_bwd_kernels_match_plain_version(cuda_device, bh, sq, sk, d, causal,
+                                         dtype):
+    _check_bwd(bh, sq, sk, d, causal, dtype, cuda_device)
+
+
+# lengths one short of and one past the kernels' 64-row tiles (and their
+# 32-row streamed tiles at d = 128), causal and not, at d 16 and 128; then
+# seq_q != seq_k both ways, non-causal
+BWD_EDGE_CASES = [
+    (bh, s, s, d, causal) for bh, s in ((3, 127), (3, 129), (2, 255))
+    for d in (16, 128) for causal in (False, True)] + [
+    (2, 127, 255, 64, False), (2, 255, 129, 64, False),
+    (2, 129, 127, 16, False), (2, 127, 129, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", BWD_EDGE_CASES)
+def test_bwd_kernels_cut_tile_edges(cuda_device, bh, sq, sk, d, causal,
+                                    dtype):
+    _check_bwd(bh, sq, sk, d, causal, dtype, cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_at_the_training_shape(cuda_device, dtype):
+    # GPT-2 124M at batch 8 x seq 1024: b*h 96, d 64, causal
+    _check_bwd(96, 1024, 1024, 64, True, dtype, cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_kernels_repeat_bit_for_bit(cuda_device, causal, dtype):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v, out, lse, do = _bwd_inputs(12, 255, 255, 64, causal, dtype,
+                                        cuda_device)
+    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    first = (*tflash.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal),
+             tflash.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal))
+    again = (*tflash.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal),
+             tflash.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dk", "dv", "dq"), first, again):
+        assert torch.equal(a, b), name
+
+
+def test_bwd_kernels_take_a_misaligned_view(cuda_device):
+    """A contiguous view that does not start on 16 bytes is copied before
+    the 16-byte row copies; the result is the aligned inputs'."""
+    q, k, v, out, lse, do = _bwd_inputs(2, 37, 37, 16, True, torch.float32,
+                                        cuda_device)
+    flat = torch.empty(q.numel() + 1, device=cuda_device)
+    moved = flat[1:].view_as(q)
+    moved.copy_(q)
+    assert moved.data_ptr() % 16 != 0 and moved.is_contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    want = tflash.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    got = tflash.flash_attention_bwd_dkv(moved, k, v, do, lse, delta, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(
+        tflash.flash_attention_bwd_dq(moved, k, v, do, lse, delta, True),
+        tflash.flash_attention_bwd_dq(q, k, v, do, lse, delta, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["nan_q", "neg_nan_do", "inf_k",
+                                   "nan_lse"])
+def test_bwd_kernels_keep_non_finite_positions(cuda_device, where, dtype):
+    """A NaN made on the card (0/0 there is 0x7FFFFFFF in fp32) in q, its
+    negation in do, an inf in k, or a NaN in lse alone (finite tiles, so
+    only p and ds carry it): the gradients hold NaN and inf where the
+    plain version holds them, and the finite values keep the usual
+    tolerances. Non-causal: a causal tile wholly above the diagonal is
+    skipped, as the reference skips it, where the plain version multiplies
+    its zero p by the non-finite value."""
+    bh, s, d = 2, 129, 64
+    q, k, v = _qkv(bh, s, s, d, dtype, cuda_device, seed=5)
+    do = torch.from_numpy(onp.random.RandomState(6).randn(bh, s, d)
+                          .astype("float32")).to(cuda_device, dtype)
+    zero = torch.zeros((), device=cuda_device)
+    nan = zero / zero
+    if where == "nan_q":
+        q[0, 70, 3] = nan
+    elif where == "neg_nan_do":
+        do[0, 70, 3] = -nan
+    elif where == "inf_k":
+        k[0, 100, 3] = float("inf")
+    out, lse = tflash.flash_attention_fwd_reference(q, k, v, False)
+    if where == "nan_lse":
+        lse[0, 70] = nan
+    grads = tflash.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+    refs = tflash.flash_attention_bwd_reference(q, k, v, out, lse, do, False)
+    torch.cuda.synchronize()
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        g, ref = g.float(), ref.float()
+        assert torch.equal(g.isnan(), ref.isnan()), name
+        assert torch.equal(g.isinf(), ref.isinf()), name
+        assert torch.equal(g[g.isinf()], ref[ref.isinf()]), name
+        fin = ref.isfinite()
+        assert not fin[0].all() and fin[1].all(), name
+        if dtype == torch.float32:
+            tol = dict(atol=1e-4, rtol=1e-4)
+        else:
+            tol = dict(atol=2.0 ** -10 * ref[fin].abs().max().item(),
+                       rtol=2.0 ** -7)
+        torch.testing.assert_close(g[fin], ref[fin], msg=name, **tol)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "float16", "cpu_mix"])
