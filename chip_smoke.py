@@ -11,18 +11,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    the conv3x3+BN+ReLU backward (dgrad, wgrad and the wgrad reduce). Print
    the build time, each kernel's ptxas registers and spills, the card and
    CUDA, and the count of tensor-core instructions (HMMA / HGMMA, from
-   ``cuobjdump -sass`` beside ``nvcc``) in each of the 16 flash backward
-   kernels (dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64 / 128): the run
+   ``cuobjdump -sass`` beside ``nvcc``) in each of the 24 flash kernels
+   (forward, dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64 / 128): the run
    fails if one has none. Every phase prints its wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 16, 32 and 128 (seq
-   200, causal, backward only), fp32 (atol=rtol=1e-4) and bf16 (forward
-   atol 2e-2; backward rtol 2^-7, one bf16 ulp, plus atol 2^-10 of the
-   output's largest value); the backward with a random cotangent. Then
-   the backward once more at the training path's own shape (b*h 96, seq
-   1024, d 64, causal), fp32 and bf16, where a second launch of each
-   backward kernel must agree with the first bit for bit.
+   200, causal), fp32 (atol=rtol=1e-4) and bf16 (rtol 2^-7, one bf16 ulp,
+   plus atol 2^-10 of the output's largest value: the plain version
+   rounds p to bf16 where the kernel and the reference do); lse within
+   1e-4; the backward with a random cotangent. The forward also at ragged
+   lengths (seq_q x seq_k of 1, 17, 65 and 712, every pair, causal and
+   not, d 64) and on a key tensor that does not start on 16 bytes (equal
+   bit for bit to the aligned copy's result). Then the forward and the
+   backward once more at the training path's own shape (b*h 96, seq 1024,
+   d 64, causal), fp32 and bf16, where a second launch of each kernel
+   must agree with the first bit for bit.
 2c. The ln_residual forward and backward kernels against their plain
    versions, with a random cotangent and an explicit keep mask (in x's
    dtype, bool or uint8): rows 7 / 600 / 4096 x D 128 / 200 / 768 / 1024,
@@ -104,11 +108,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ms (CUDA events) of each kernel, of its plain version and of one
    PyTorch call as the yardstick (``scaled_dot_product_attention``'s
    forward, and its backward for the dK/dV + dQ pair), beside each
-   kernel's bound on an H100 SXM. Each backward kernel also prints its
-   achieved TFLOP/s and its share of each bound: in fp32 the 67 TFLOP/s
-   bound of fp32 FMAs and the bound at the rate its 3xTF32 products use
-   (three TF32 products per product at 495 TFLOP/s); both go into the
-   kernels line.
+   kernel's bound on an H100 SXM. Each kernel also prints its achieved
+   TFLOP/s and its share of each bound: in fp32 the 67 TFLOP/s bound of
+   fp32 FMAs and the bound at the rate its 3xTF32 products use (three
+   TF32 products per product at 495 TFLOP/s); both go into the kernels
+   line.
 7. BERT-base pretraining at full width (as bench.py's
    bert_base_pretrain_bs32_seq128_drop0.1: vocab 30522, 768 units, FFN
    3072, 12 layers, 12 heads, max_length 512, batch 32 x seq 128) at
@@ -245,6 +249,7 @@ cuDNN so that fp32 means fp32 throughout.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import re
@@ -259,12 +264,11 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.float8_e4m3fn: 1979e12, torch.int8: 1979e12}
-# the fp32 backward kernels take each product as three TF32 products
+# the fp32 flash kernels take each product as three TF32 products
 # (3xTF32) on the tensor cores, at this rate
 PEAK_TF32 = 495e12
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
-BF16_ATOL = 2e-2
-BF16_BWD_RTOL, BF16_BWD_ATOL_SHARE = 2.0 ** -7, 2.0 ** -10
+BF16_RTOL, BF16_ATOL_SHARE = 2.0 ** -7, 2.0 ** -10
 GREEDY_TOL = 1e-3
 N_LAYERS = 12
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 4
@@ -395,14 +399,24 @@ def busy_share(device, wall):
     return device / wall
 
 
-def flash_bound_ms(bh, sq, sk, d, causal, dtype):
+def fwd_flops(bh, sq, sk, d, causal):
+    """Products of one flash-attention forward on these inputs: 2 matmuls
+    x 2 flops x d per visible (q, k) pair."""
+    return 4 * d * pairs(sq, sk, causal) * bh
+
+
+def flash_bound_ms(bh, sq, sk, d, causal, dtype, tf32x3=False):
     """Least time on an H100 SXM for one flash-attention forward on these
     inputs: each input read once and each output written once over the
-    memory rate, against the products this data needs (2 matmuls x 2
-    flops x d per visible (q, k) pair) over the peak rate of the dtype."""
+    memory rate, against its products over the peak rate of the dtype (67
+    TFLOP/s of fp32 FMAs for fp32), or with ``tf32x3`` at the rate the
+    fp32 kernel uses: three TF32 products per product at 495 TFLOP/s."""
     esize = torch.finfo(dtype).bits // 8
     nbytes = esize * bh * d * (2 * sq + 2 * sk) + 4 * bh * sq
-    return bound(nbytes, 4 * d * pairs(sq, sk, causal) * bh, dtype)
+    flops = fwd_flops(bh, sq, sk, d, causal)
+    if tf32x3:
+        return bound(nbytes, 3 * flops, dtype, rate=PEAK_TF32)
+    return bound(nbytes, flops, dtype)
 
 
 def pairs(sq, sk, causal):
@@ -502,7 +516,7 @@ def flash_kernel_name(mangled):
 
 def tensor_core_counts(lib):
     """{kernel: count of HMMA / HGMMA SASS instructions} of the flash
-    backward kernels in a built library, from ``cuobjdump -sass`` beside
+    kernels in a built library, from ``cuobjdump -sass`` beside
     ``nvcc``."""
     from pathlib import Path
 
@@ -515,8 +529,8 @@ def tensor_core_counts(lib):
     for line in res.stdout.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            name = (flash_kernel_name(mangled) if "flash_bwd_" in mangled
-                    else None)
+            name = (flash_kernel_name(mangled)
+                    if re.search(r"flash_(bwd|fwd)_", mangled) else None)
             if name:
                 counts[name] = 0
         elif name and re.search(r"\bHG?MMA\.", line):
@@ -544,14 +558,15 @@ def phase_build():
             if "error" in line or "warning" in line:
                 print(f"  {line.strip()}")
     print(f"build seconds: {dt:.2f}")
-    counts = tensor_core_counts(libs["flash_attention_bwd"])
-    want = {f"{kind} {dtype} d={d}" for kind in ("dkv", "dq")
+    counts = {**tensor_core_counts(libs["flash_attention_fwd"]),
+              **tensor_core_counts(libs["flash_attention_bwd"])}
+    want = {f"{kind} {dtype} d={d}" for kind in ("fwd", "dkv", "dq")
             for dtype in ("fp32", "bf16") for d in (16, 32, 64, 128)}
-    print("tensor-core SASS (HMMA/HGMMA) in the flash backward kernels: "
+    print("tensor-core SASS (HMMA/HGMMA) in the flash kernels: "
           + ", ".join(f"{n} {c}" for n, c in sorted(counts.items())))
-    check(set(counts) == want, f"flash backward kernels in the library: "
+    check(set(counts) == want, f"flash kernels in the libraries: "
                                f"{sorted(counts)}, expected {sorted(want)}")
-    check(all(counts.values()), "a flash backward kernel has no tensor-core "
+    check(all(counts.values()), "a flash kernel has no tensor-core "
                                 f"instruction: {counts}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -567,6 +582,45 @@ def phase_build():
     return card
 
 
+def fwd_case(fa, dev, gen, bh, sq, sk, causal, dtype, d=64, quiet=False,
+             repeat=False):
+    """One forward comparison: the larger of max |out err| and max |lse
+    err|; with ``repeat``, a second launch must agree bit for bit."""
+    q, k, v = (torch.randn(bh, n, d, device=dev, generator=gen).to(dtype)
+               for n in (sq, sk, sk))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    if repeat:
+        again = fa.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"a second launch of the forward kernel differs at bh={bh} "
+              f"sq={sq} {dtype}")
+        print(f"  bh={bh:3d} sq={sq:4d} {str(dtype)[6:]}: a second launch "
+              "of the forward kernel agrees bit for bit")
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+    check(torch.isfinite(out.float()).all().item()
+          and torch.isfinite(lse).all().item(),
+          f"non-finite kernel output sq={sq} sk={sk}")
+    e_out = (out.float() - ref_out.float()).abs().max().item()
+    e_lse = (lse - ref_lse).abs().max().item()
+    if dtype == torch.float32:
+        tol = FP32_TOL
+    else:  # one bf16 ulp, plus a share of the output's scale
+        tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL_SHARE
+                   * ref_out.float().abs().max().item())
+    ok = (torch.allclose(out.float(), ref_out.float(), **tol)
+          and torch.allclose(lse, ref_lse, **FP32_TOL))
+    if not quiet or not ok:
+        name = str(dtype).split(".")[-1]
+        print(f"  bh={bh:3d} sq={sq:4d} sk={sk:4d} d={d:3d} "
+              f"causal={causal!s:5} {name:8s} max|out err|={e_out:.3e} "
+              f"max|lse err|={e_lse:.3e} {'ok' if ok else 'FAIL'}")
+    check(ok, f"kernel disagrees with plain version at sq={sq} sk={sk} "
+              f"d={d} causal={causal} {dtype}")
+    return max(e_out, e_lse)
+
+
 def phase_kernel_vs_plain(dev):
     from mxnet_tpu_torch.ops import flash_attention as fa
     print("== phase 2: flash_attention_fwd kernel vs plain version",
@@ -577,33 +631,43 @@ def phase_kernel_vs_plain(dev):
     for sq, sk in cases:
         for causal in (False, True):
             if causal and sq != sk:
-                continue  # seq_q != seq_k is checked non-causal
+                continue  # seq_q != seq_k is checked non-causal here
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = (torch.randn(12, n, 64, device=dev,
-                                       generator=gen).to(dtype)
-                           for n in (sq, sk, sk))
-                out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                ref_out, ref_lse = fa.flash_attention_fwd_reference(
-                    q, k, v, causal)
-                check(torch.isfinite(out.float()).all().item()
-                      and torch.isfinite(lse).all().item(),
-                      f"non-finite kernel output sq={sq} sk={sk}")
-                e_out = (out.float() - ref_out.float()).abs().max().item()
-                e_lse = (lse - ref_lse).abs().max().item()
-                if dtype == torch.float32:
-                    ok = (torch.allclose(out, ref_out, **FP32_TOL)
-                          and torch.allclose(lse, ref_lse, **FP32_TOL))
-                else:
-                    ok = (e_out <= BF16_ATOL
-                          and torch.allclose(lse, ref_lse, **FP32_TOL))
-                name = str(dtype).split(".")[-1]
-                print(f"  bh=12 sq={sq:4d} sk={sk:4d} d=64 causal={causal!s:5}"
-                      f" {name:8s} max|out err|={e_out:.3e} "
-                      f"max|lse err|={e_lse:.3e} {'ok' if ok else 'FAIL'}")
-                check(ok, f"kernel disagrees with plain version at sq={sq} "
-                          f"sk={sk} causal={causal} {dtype}")
-                errs[dtype] = max(errs[dtype], e_out, e_lse)
+                errs[dtype] = max(errs[dtype], fwd_case(
+                    fa, dev, gen, 12, sq, sk, causal, dtype))
+    # the other head dims (at 32 and 128 the scale is not a power of two)
+    for d in (16, 32, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            errs[dtype] = max(errs[dtype], fwd_case(
+                fa, dev, gen, 12, 200, 200, True, dtype, d))
+    # ragged lengths around the tiles, every pair, causal with sq != sk
+    lengths = (1, 17, 65, 712)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            worst = max(fwd_case(fa, dev, gen, 3, sq, sk, causal, dtype,
+                                 quiet=True)
+                        for sq in lengths for sk in lengths)
+            errs[dtype] = max(errs[dtype], worst)
+            print(f"  bh=  3 seq_q x seq_k in {lengths}^2 d= 64 "
+                  f"causal={causal!s:5} {str(dtype)[6:]:8s} largest error "
+                  f"{worst:.3e} ok")
+    # a key tensor that does not start on 16 bytes is copied by the wrapper
+    q, k, v = (torch.randn(2, 37, 16, device=dev, generator=gen)
+               for _ in range(3))
+    moved = torch.empty(k.numel() + 1, device=dev)[1:].view_as(k)
+    moved.copy_(k)
+    check(moved.data_ptr() % 16 != 0, "the misaligned view is aligned")
+    same = all(torch.equal(a, b) for a, b in zip(
+        fa.flash_attention_fwd(q, moved, v, True),
+        fa.flash_attention_fwd(q, k, v, True)))
+    check(same, "a misaligned key view changes the forward's result")
+    print("  a key view off 16 bytes gives the aligned result bit for bit")
+    # the training path's own shape (its grid spans all 96 heads), and two
+    # launches there agree bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype] = max(errs[dtype], fwd_case(
+            fa, dev, gen, TRAIN_BH, TRAIN_SEQ, TRAIN_SEQ, True, dtype,
+            repeat=True))
     return errs
 
 
@@ -635,7 +699,7 @@ def bwd_case(fa, dev, gen, bh, sq, sk, causal, dtype, d=64, repeat=False):
         if dtype == torch.float32:
             tol = FP32_TOL
         else:  # one bf16 ulp, plus a share of the output's scale
-            tol = dict(rtol=BF16_BWD_RTOL, atol=BF16_BWD_ATOL_SHARE
+            tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL_SHARE
                        * want.float().abs().max().item())
         ok = torch.allclose(got.float(), want.float(), **tol)
         err = (got.float() - want.float()).abs().max().item()
@@ -724,7 +788,7 @@ def ln_case(lr, dev, gen, n, d, p, dtype, mask_dtype=None, flat=False,
               f"non-finite or unlike the plain version's")
         top = want.float().abs().max().item()
         if dtype == torch.bfloat16 and name not in ("mean", "rstd"):
-            tol = dict(rtol=BF16_BWD_RTOL, atol=BF16_BWD_ATOL_SHARE * top)
+            tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL_SHARE * top)
         elif name in ("dgamma", "dbeta") or (flat and name in ("dx", "dh")):
             tol = dict(rtol=LN_TOL["rtol"], atol=LN_SHARE * top)
         elif offset:
@@ -1066,29 +1130,29 @@ def phase_kernel_times(dev, card):
                 row[name + "_call_ms"] = cuda_ms(fn, iters, warmup=2)
                 row[name + "_device_ms"] = device_ms(fn, iters, warmup=1)
             if kind == "fwd":
-                row["bound_ms"], row["bound_by"] = flash_bound_ms(
-                    bh, s, s, d, True, dtype)
+                flops = fwd_flops(bh, s, s, d, True)
+                bound_ms = functools.partial(flash_bound_ms, bh, s, s, d,
+                                             True, dtype)
             else:
-                row["bound_ms"], row["bound_by"] = bwd_bound_ms(
-                    kind, bh, s, s, d, True, dtype)
-                if dtype == torch.float32:
-                    row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = \
-                        bwd_bound_ms(kind, bh, s, s, d, True, dtype,
-                                     tf32x3=True)
+                flops = bwd_flops(kind, bh, s, s, d, True)
+                bound_ms = functools.partial(bwd_bound_ms, kind, bh, s, s, d,
+                                             True, dtype)
+            row["bound_ms"], row["bound_by"] = bound_ms()
+            if dtype == torch.float32:
+                row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = bound_ms(
+                    tf32x3=True)
             rows[(kind, dtype)] = row
             print(f"{kind} {str(dtype)[6:]} causal bh={bh} s={s} d={d} "
                   f"[{card}]: " + json.dumps(row))
-            if kind != "fwd":
-                ms = pick(row, "kernel")
-                tflops = bwd_flops(kind, bh, s, s, d, True) / ms / 1e9
-                shares = {"bound": row["bound_ms"] / ms}
-                if dtype == torch.float32:
-                    shares = {"fp32-SIMT bound (67 TFLOP/s)": shares["bound"],
-                              "3xTF32 bound (3 x 495 TFLOP/s)":
-                                  row["bound_3xtf32_ms"] / ms}
-                print(f"  {kind} {str(dtype)[6:]}: {tflops:.1f} TFLOP/s "
-                      "achieved; share of "
-                      + ", ".join(f"{n} {v:.1%}" for n, v in shares.items()))
+            ms = pick(row, "kernel")
+            shares = {"bound": row["bound_ms"] / ms}
+            if dtype == torch.float32:
+                shares = {"fp32-SIMT bound (67 TFLOP/s)": shares["bound"],
+                          "3xTF32 bound (3 x 495 TFLOP/s)":
+                              row["bound_3xtf32_ms"] / ms}
+            print(f"  {kind} {str(dtype)[6:]}: {flops / ms / 1e9:.1f} "
+                  "TFLOP/s achieved; share of "
+                  + ", ".join(f"{n} {v:.1%}" for n, v in shares.items()))
         del leaves, lib_out
     # the plain backward and SDPA's backward compute dq, dk and dv
     # together: both kernels of the pair are held against them
@@ -2599,15 +2663,14 @@ def kernel_entry(kind, launches, errs, rows, extra=None):
         "bound_by": row["bound_by"],
         "library_ms": pick(row, "library"),
         "shape": f"bh={TRAIN_BH} s={TRAIN_SEQ} d=64 causal fp32",
+        "bound_3xtf32_ms": row["bound_3xtf32_ms"],
+        "bound_3xtf32_by": row["bound_3xtf32_by"],
         "bf16_ms": pick(rows[(kind, torch.bfloat16)], "kernel"),
+        "bf16_bound_ms": rows[(kind, torch.bfloat16)]["bound_ms"],
+        "bf16_library_ms": pick(rows[(kind, torch.bfloat16)], "library"),
     }
     if kind != "fwd":
         entry["plain_and_library_compute"] = "dq, dk and dv together"
-        entry["bound_3xtf32_ms"] = row["bound_3xtf32_ms"]
-        entry["bound_3xtf32_by"] = row["bound_3xtf32_by"]
-        bf16 = rows[(kind, torch.bfloat16)]
-        entry["bf16_bound_ms"] = bf16["bound_ms"]
-        entry["bf16_library_ms"] = pick(bf16, "library")
     entry.update(extra or {})
     return entry
 

@@ -38,6 +38,12 @@ _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
+#: keys a tile of the forward's key walk where p is rounded to bf16: the
+#: kernel's bf16 streamed tile. The reference accepts it as ``block_k``
+#: but defaults to 128-1024 (512 on the CPU); rounded against those tiles'
+#: running max, p differs, within 2^-7 of the output's largest value
+#: (``test_bf16_plain_fwd_near_pallas_kernel_at_its_default_blocks``)
+ROUND_TILE = 64
 
 
 def _causal_valid(sq, sk, device):
@@ -52,24 +58,48 @@ def _scale(d, scale):
     return 1.0 / (d ** 0.5) if scale is None else float(scale)
 
 
+def _p_for_pv(s, m, p, valid, dtype):
+    """p as the product with v takes it: the reference rounds p to the input
+    dtype inside its key walk (``flash_attention.py:48-55``), against the
+    running max of the keys seen so far. So p is rounded against the
+    running max of the ``ROUND_TILE``-key tiles (the kernel's, not the
+    reference's default), then brought to the final max ``m``. The
+    identity in fp32."""
+    if dtype == torch.float32:
+        return p
+    sk = s.shape[-1]
+    n_tiles = -(-sk // ROUND_TILE)
+    tiles = torch.nn.functional.pad(s, (0, n_tiles * ROUND_TILE - sk),
+                                    value=_NEG_INF)
+    tile_max = tiles.unflatten(-1, (n_tiles, ROUND_TILE)).amax(dim=-1)
+    m_run = torch.cummax(tile_max, dim=-1).values.repeat_interleave(
+        ROUND_TILE, dim=-1)[..., :sk]
+    p_run = torch.exp(s - m_run)
+    if valid is not None:
+        p_run = torch.where(valid, p_run, 0.0)
+    return p_run.to(dtype).float() * torch.exp(m_run - m)
+
+
 def flash_attention_fwd_reference(q, k, v, causal=False, scale=None):
     """The kernel's function in plain PyTorch: fp32 scores, -1e30 masking
     (keys >= seq_k never exist here; ``q < k`` when causal, top-left
     aligned), fp32 softmax statistics, ``out = acc / max(l, 1e-30)`` in
-    the input dtype and ``lse = m + log(max(l, 1e-30))``."""
+    the input dtype and ``lse = m + log(max(l, 1e-30))``. As the reference
+    (``flash_attention.py:52-55``), l sums the fp32 p and the product with
+    v takes p rounded to the input dtype (:func:`_p_for_pv`)."""
     _, sq, d = q.shape
     sk = k.shape[1]
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * _scale(d, scale)
+    valid = _causal_valid(sq, sk, q.device) if causal else None
     if causal:
-        valid = _causal_valid(sq, sk, q.device)
         s = torch.where(valid, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     if causal:
         p = torch.where(valid, p, 0.0)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = (torch.matmul(p, v.float()) / l_safe).to(q.dtype)
-    return out, m + torch.log(l_safe)
+    pv = torch.matmul(_p_for_pv(s, m, p, valid, v.dtype), v.float())
+    return (pv / l_safe).to(q.dtype), m + torch.log(l_safe)
 
 
 def _delta(out, do):
@@ -188,8 +218,8 @@ def _card(q, name):
 
 
 def _aligned(*ts):
-    """The backward kernels copy rows in 16-byte pieces: a tensor whose
-    data does not start on 16 bytes (a view at an odd offset) is copied."""
+    """The kernels copy rows in 16-byte pieces: a tensor whose data does
+    not start on 16 bytes (a view at an odd offset) is copied."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
 
 
@@ -214,6 +244,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         return flash_attention_fwd_reference(q, k, v, causal, scale)
     _card(q, "flash_attention_fwd")
     lib = _native.load("flash_attention_fwd", _bind)
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -8,17 +8,16 @@ a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
 
-Tolerances: fp32 atol=rtol=1e-4 (the forward's fp32 FMAs and the
-backward's 3xTF32 tensor-core products, in another summation order than
-cuBLAS; tests/test_torch_flash_tf32_split.py pins the split's arithmetic
-at that tolerance on the CPU); the backward at tile edges (127, 129, 255
-rows), at the GPT training shape, and two launches bit for bit (no
-atomics); NaN and inf in the backward's gradients where the plain version
-has them (non-causal); bf16 forward atol 2e-2 (bf16 output rounding); bf16 backward
-rtol 2^-7 (one bf16 ulp of the output) plus atol 2^-10 of the output's
-largest value (p and ds are rounded to bf16 before the products, and a
-value on a rounding boundary may round the other way than in the plain
-version). ln_residual: fp32 atol = rtol = 1e-5 for out, mean, rstd, dx
+Tolerances: fp32 atol=rtol=1e-4 (the flash kernels' 3xTF32 tensor-core
+products, in another summation order than cuBLAS;
+tests/test_torch_flash_tf32_split.py pins the split's arithmetic at that
+tolerance on the CPU, forward and backward); the forward and the backward
+at tile edges, at the GPT training shape, and two launches bit for bit
+(no atomics); NaN and inf in the outputs where the plain version has them
+(non-causal); bf16 forward and backward rtol 2^-7 (one bf16 ulp of the
+output) plus atol 2^-10 of the output's largest value (p and ds are
+rounded to bf16 before the products, as in the plain version, and a value
+on a rounding boundary may round the other way). ln_residual: fp32 atol = rtol = 1e-5 for out, mean, rstd, dx
 and dh (fp32 sums in another order; the plain version is the same
 arithmetic), dgamma/dbeta atol 1e-5 of their largest |value| (sums over
 up to 4096 rows in another order); bf16 rtol 2^-7 plus atol 2^-10 of the
@@ -94,14 +93,103 @@ def test_kernel_matches_plain_version(cuda_device, bh, sq, sk, d, causal,
     out, lse = tflash.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tflash.flash_attention_fwd.launches == before + 1
-    ref_out, ref_lse = tflash.flash_attention_fwd_reference(q, k, v, causal)
     assert out.dtype == dtype and lse.shape == (bh, sq, 1)
-    if dtype == torch.float32:
-        torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=1e-4)
+    _check_fwd(q, k, v, causal, out, lse)
+
+
+def _check_fwd(q, k, v, causal, out, lse, msg=""):
+    """The kernel's (out, lse) against the plain version's: fp32 atol =
+    rtol = 1e-4, bf16 rtol 2^-7 plus atol 2^-10 max|ref|, lse 1e-4; NaN
+    and inf at the plain version's positions."""
+    ref_out, ref_lse = tflash.flash_attention_fwd_reference(q, k, v, causal)
+    if q.dtype == torch.float32:
+        tol = dict(atol=1e-4, rtol=1e-4)
     else:
-        torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
-                                   rtol=0)
-    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+        fin = ref_out.float().isfinite()
+        scale = ref_out.float()[fin].abs().max().item() if fin.any() else 0.0
+        tol = dict(atol=2.0 ** -10 * scale, rtol=2.0 ** -7)
+    torch.testing.assert_close(out.float(), ref_out.float(), equal_nan=True,
+                               msg=f"out {msg}", **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4,
+                               equal_nan=True, msg=f"lse {msg}")
+
+
+# lengths around the forward's tiles (32 key rows in fp32, 64 in bf16 and
+# 64 query rows a block), every pair of them, causal included
+FWD_EDGE_LENGTHS = (1, 15, 17, 63, 65, 200, 712)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_fwd_kernel_cuts_tile_edges(cuda_device, d, causal, dtype):
+    for sq in FWD_EDGE_LENGTHS:
+        for sk in FWD_EDGE_LENGTHS:
+            q, k, v = _qkv(3, sq, sk, d, dtype, cuda_device, seed=sq * sk + d)
+            out, lse = tflash.flash_attention_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            _check_fwd(q, k, v, causal, out, lse, f"sq={sq} sk={sk}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_kernel_at_the_training_shape(cuda_device, dtype):
+    # GPT-2 124M at batch 8 x seq 1024: b*h 96, d 64, causal
+    q, k, v = _qkv(96, 1024, 1024, 64, dtype, cuda_device, seed=11)
+    out, lse = tflash.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _check_fwd(q, k, v, True, out, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_kernel_repeats_bit_for_bit(cuda_device, causal, dtype):
+    """Two launches on the same inputs agree bit for bit."""
+    q, k, v = _qkv(12, 255, 255, 64, dtype, cuda_device, seed=12)
+    first = tflash.flash_attention_fwd(q, k, v, causal=causal)
+    again = tflash.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse"), first, again):
+        assert torch.equal(a, b), name
+
+
+def test_fwd_kernel_takes_a_misaligned_view(cuda_device):
+    """A contiguous view that does not start on 16 bytes is copied before
+    the 16-byte row copies; the result is the aligned inputs'."""
+    q, k, v = _qkv(2, 37, 37, 16, torch.float32, cuda_device, seed=13)
+    flat = torch.empty(k.numel() + 1, device=cuda_device)
+    moved = flat[1:].view_as(k)
+    moved.copy_(k)
+    assert moved.data_ptr() % 16 != 0 and moved.is_contiguous()
+    want = tflash.flash_attention_fwd(q, k, v, causal=True)
+    got = tflash.flash_attention_fwd(q, moved, v, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["nan_q", "inf_k"])
+def test_fwd_kernel_keeps_non_finite_positions(cuda_device, where, dtype):
+    """A NaN made on the card (0/0 there is 0x7FFFFFFF in fp32) in q, or an
+    inf in k: out and lse hold NaN and inf where the plain version holds
+    them (a NaN row; a row whose score meets +inf is NaN, -inf gives p = 0),
+    and the finite values keep the usual tolerances. Non-causal: a causal
+    tile wholly above the diagonal is skipped, as the reference skips it."""
+    bh, s, d = 2, 129, 64
+    q, k, v = _qkv(bh, s, s, d, dtype, cuda_device, seed=5)
+    zero = torch.zeros((), device=cuda_device)
+    if where == "nan_q":
+        q[0, 70, 3] = zero / zero
+    else:
+        k[0, 100, 3] = float("inf")
+    out, lse = tflash.flash_attention_fwd(q, k, v, causal=False)
+    ref_out, ref_lse = tflash.flash_attention_fwd_reference(q, k, v, False)
+    torch.cuda.synchronize()
+    for name, g, ref in (("out", out.float(), ref_out.float()),
+                         ("lse", lse, ref_lse)):
+        assert torch.equal(g.isnan(), ref.isnan()), name
+        assert torch.equal(g.isinf(), ref.isinf()), name
+        assert torch.equal(g[g.isinf()], ref[ref.isinf()]), name
+        assert not ref[0].isfinite().all() and ref[1].isfinite().all(), name
+    _check_fwd(q, k, v, False, out, lse)
 
 
 def _bwd_inputs(bh, sq, sk, d, causal, dtype, device):

@@ -1,8 +1,9 @@
-"""The arithmetic of the fp32 flash-attention backward kernels, on the CPU.
+"""The arithmetic of the fp32 flash-attention kernels, on the CPU.
 
 On the card, ``csrc/flash_attention_bwd.cu`` computes each fp32 product
 of the backward (s = q k^T, dp = do v^T, dV = p^T do, dK = ds^T q,
-dQ = ds k) on the TF32 tensor cores in the 3xTF32 split: each operand x
+dQ = ds k), and ``csrc/flash_attention_fwd.cu`` each of the forward
+(s = q k^T, p v), on the TF32 tensor cores in the 3xTF32 split: each operand x
 becomes hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with
 ties away from zero (``cvt.rna.tf32.f32`` on finite values), and each
 k-step of 8 adds a.lo b.hi, a.hi b.lo and a.hi b.hi to its accumulator
@@ -15,11 +16,17 @@ plain PyTorch as the kernels order it:
   masked; ds = p (dp - delta) scale (fp32 p and ds are not rounded);
 - dV, dK and dQ: the streamed rows go in tiles of 32; each tile's k-steps
   accumulate into a zeroed partial, which is added to the sum with one
-  fp32 add (the kernel's ``add_products``).
+  fp32 add (the kernel's ``add_products``);
+- the forward: s as above, then the online softmax over tiles of 32 keys,
+  m_new = max(m, rowmax(s * scale)), p = exp(s * scale - m_new) with each
+  operation rounded on its own (0 where masked), corr = exp(m - m_new),
+  l = corr l + rowsum(p), and acc = corr acc + the tile's p v products
+  summed into a zeroed partial.
 
 It is held, at the kernels' fp32 tolerance (atol = rtol = 1e-4), against
-a float64 backward built here from scratch and against the JAX package's
-Pallas backward (``_flash_bwd`` in interpret mode). A single TF32 pass in
+a float64 backward and forward built here from scratch and against the
+JAX package's Pallas kernels (``_flash_bwd`` and ``_fwd`` in interpret
+mode). A single TF32 pass in
 the same order is shown to miss that tolerance, so the check can tell the
 two apart. What this cannot see is the tensor core's accumulation inside
 one instruction (emulated as round-to-nearest fp32 adds) and the order of
@@ -119,6 +126,43 @@ def _emulated(q, k, v, do, causal, passes=3):
             _products_tiled(p.transpose(1, 2), do, passes))
 
 
+def _emulated_fwd(q, k, v, causal, passes=3):
+    """The fp32 forward kernel's (out, lse), in its order of sums."""
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    s = _products_rn(q, k.transpose(1, 2), passes) * scale
+    valid = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+    if causal:
+        s = torch.where(valid, s, -1e30)
+    m = torch.full(q.shape[:2] + (1,), -1e30)
+    l = torch.zeros(q.shape[:2] + (1,))
+    acc = torch.zeros_like(q)
+    for t0 in range(0, sk, TILE):
+        s_t = s[..., t0:t0 + TILE]
+        m_new = torch.maximum(m, s_t.amax(dim=-1, keepdim=True))
+        p = torch.exp(s_t - m_new)
+        if causal:
+            p = torch.where(valid[:, t0:t0 + TILE], p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1, keepdim=True)
+        acc = corr * acc + _products_tiled(p, v[:, t0:t0 + TILE], passes)
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    return acc / l_safe, m + torch.log(l_safe)
+
+
+def _float64_fwd(q, k, v, causal):
+    """The attention forward (out, lse) in float64, from the inputs."""
+    q, k, v = (t.double() for t in (q, k, v))
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    s = q @ k.transpose(1, 2) / math.sqrt(d)
+    if causal:
+        valid = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+        s = s.masked_fill(~valid, -math.inf)
+    return (torch.softmax(s, dim=-1) @ v,
+            torch.logsumexp(s, dim=-1, keepdim=True))
+
+
 def _float64(q, k, v, do, causal):
     """The attention backward (dq, dk, dv) in float64, from the inputs."""
     q, k, v, do = (t.double() for t in (q, k, v, do))
@@ -208,5 +252,35 @@ def test_3xtf32_backward_matches_pallas_kernel(d, causal):
     ref = vjp(jnp.asarray(do.numpy()))
     got = _emulated(q, k, v, do, causal)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        torch.testing.assert_close(g, torch.from_numpy(onp.array(r)),
+                                   msg=name, **FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_3xtf32_forward_matches_float64(d, causal):
+    q, k, v = _inputs(2, 1024, d, seed=d + causal)[:3]
+    got = _emulated_fwd(q, k, v, causal)
+    ref = _float64_fwd(q, k, v, causal)
+    for name, g, r in zip(("out", "lse"), got, ref):
+        assert g.dtype == torch.float32, name
+        torch.testing.assert_close(g.double(), r, msg=name, **FP32_TOL)
+
+
+def test_one_tf32_pass_misses_the_fp32_tolerance_in_the_forward():
+    q, k, v = _inputs(2, 1024, 64, seed=1)[:3]
+    out, _ = _emulated_fwd(q, k, v, True, passes=1)
+    ref, _ = _float64_fwd(q, k, v, True)
+    assert not torch.allclose(out.double(), ref, **FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64])
+def test_3xtf32_forward_matches_pallas_kernel(d, causal):
+    q, k, v = _inputs(2, 128, d, seed=5 * d + causal)[:3]
+    ref = jflash._fwd(*(jnp.asarray(t.numpy()) for t in (q, k, v)), causal,
+                      1.0 / math.sqrt(d), 64, 64, True)
+    got = _emulated_fwd(q, k, v, causal)
+    for name, g, r in zip(("out", "lse"), got, ref):
         torch.testing.assert_close(g, torch.from_numpy(onp.array(r)),
                                    msg=name, **FP32_TOL)

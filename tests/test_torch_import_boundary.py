@@ -1,10 +1,10 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
-Every module of ``mxnet_tpu_torch/``, ``chip_smoke.py`` and
-``tools/fp8_loss_curves.py`` is scanned for imports of ``jax``, ``jaxlib``
-or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself is allowed), and a fresh
-interpreter that imports the port must end up with neither ``jax`` nor
-``mxnet_tpu`` loaded.
+Every module of ``mxnet_tpu_torch/``, ``chip_smoke.py`` and the port's
+tools (``tools/fp8_loss_curves.py``, ``flash_digest.py``) is scanned for
+imports of ``jax``, ``jaxlib`` or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself
+is allowed), and a fresh interpreter that imports the port must end up
+with neither ``jax`` nor ``mxnet_tpu`` loaded.
 """
 import ast
 import pathlib
@@ -15,7 +15,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "fp8_loss_curves.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "fp8_loss_curves.py",
+    ROOT / "tools" / "flash_digest.py"]
 BANNED = ("jax", "jaxlib", "mxnet_tpu")
 
 
