@@ -1,59 +1,40 @@
-// Fused fp8 quantize + matmul + epilogue for Hopper (sm_90a).
+// fp8 quantize + matmul + epilogue for Hopper (sm_90a). DEVELOPMENT BUILD:
+// tile width (bn 128 / 192) and operand type (op 0: fp8 wgmma; op 1: the
+// fp8 values widened to f16, f16 wgmma) are launch arguments while they are
+// measured on the card.
 //
 // Replaces the TPU kernel of mxnet_tpu/ops/pallas/quant_matmul.py:
-//   fp8_matmul_kernel <- _fp8_kernel (launched by fp8_matmul).
-// For x (M, K) fp32, w (N, K) fp8 (e4m3fn or e5m2), ws (N,) fp32, a scalar
-// x_scale xs, an optional bias (N,) fp32 and an activation:
-//   xq  = fp8(x / xs)                 in the activation's format (afmt)
-//   acc = xq @ w^T                    fp8 x fp8 products, fp32 accumulator
-//   out = act(acc * (xs * ws[n]) + bias[n])                 (M, N) fp32
-// with the reference's arithmetic:
-//   - x / xs is an IEEE division (__fdiv_rn), not a multiply by 1/xs;
-//   - the cast rounds to nearest even and does NOT saturate: past the
-//     format's top it gives NaN in e4m3fn (|v| > 464, which is 448 plus
-//     half an ulp; the tie at 464 rounds down to 448) and +-inf in e5m2
-//     (|v| >= 61440, where the tie rounds up), as the JAX cast
-//     (ml_dtypes) does, while the hardware cvt and torch's .to() saturate;
-//   - the epilogue keeps the association (xs * ws[n]) first, then acc *,
-//     then + bias, each rounded on its own (no fused multiply-add), then
-//     the activation (relu, sigmoid, tanh, or tanh-form gelu).
-//
-// What bounds it on the H100: bytes at the fp8 training shapes. For
-// (M, K, N) = (8192, 768, 768) the kernel must read x (25.2 MB fp32) and
-// write out (25.2 MB) for 9.7 GFLOP: ~15 us at 3.35 TB/s against ~5 us at
-// the 1979 TFLOP/s fp8 rate; (8192, 768, 3072) and (8192, 3072, 768) move
-// ~128 MB (~38 us) for 38.7 GFLOP (~20 us).
-//
-// What the design does about it (a simple kernel that is right first):
-// each 256-thread block owns a 128 x 128 output tile and walks K in steps
-// of 64. Per step it reads the fp32 x tile (16-byte loads where K and the
-// pointers allow, else one value a thread), quantizes it in registers and
-// stores the fp8 bytes in shared memory next to the fp8 w tile, so x
-// crosses device memory as fp32 once per column tile and never as an fp8
-// copy. Eight warps, 2 x 4, each own 64 x 32 of the tile and issue the
-// fp8 tensor-core product mma.sync.m16n8k32 (A row-major from the x tile,
-// B "col" straight from w's (N, K) rows: no transpose) into fp32
-// registers. Shared-memory rows are padded to 80 bytes so the fragment
-// loads are free of bank conflicts. Blocks walk the column tiles of one
-// row tile next to each other, so the re-reads of x come from L2. Ragged
-// edges are zero-filled in shared memory (zero is exact in the fp8 dot)
-// and masked at the store. Not yet done: a pipelined (cp.async / TMA)
-// load, wgmma, and a persistent schedule.
-//
-// Plain C interface, bound from Python with ctypes: each launch goes onto
-// the caller's stream, allocates nothing and returns cudaGetLastError().
+//   _fp8_kernel (launched by fp8_matmul).
 
+#include <cuda.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper_gemm.cuh"
 #include "quant_mma.cuh"
 
 namespace {
 
-using namespace quant_mma;
+using namespace hopper;
+
+constexpr int kBM = 128;       // rows of a tile: two consumer warpgroups x 64
+constexpr int kKBytes = 128;   // bytes of K a stage: one 128-byte swizzle row
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kQThreads = 256;
+
+template <int BN>
+struct Tile {
+  static constexpr int kStages = BN <= 128 ? 4 : 3;
+  static constexpr int kABytes = kBM * kKBytes;
+  static constexpr int kBBytes = BN * kKBytes;
+  static constexpr int kCBytes = kBM * BN * 4;  // the epilogue's staging
+  static constexpr int kSmem =
+      1024 + kStages * (kABytes + kBBytes) + kCBytes + 2 * kStages * 8;
+};
 
 // One fp32 value to fp8 (fmt 0 = e4m3fn, 1 = e5m2) by the JAX rule.
 template <int FMT>
@@ -70,186 +51,452 @@ __device__ __forceinline__ uint32_t to_fp8(float v) {
 }
 
 template <int FMT>
-__device__ __forceinline__ uint32_t quant4(float4 v, float xs) {
-  return to_fp8<FMT>(__fdiv_rn(v.x, xs)) |
-         (to_fp8<FMT>(__fdiv_rn(v.y, xs)) << 8) |
-         (to_fp8<FMT>(__fdiv_rn(v.z, xs)) << 16) |
-         (to_fp8<FMT>(__fdiv_rn(v.w, xs)) << 24);
+__device__ __forceinline__ uint32_t widen(uint32_t q) {
+  return __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(q),
+                                 FMT == 0 ? __NV_E4M3 : __NV_E5M2)
+      .x;
 }
 
-template <int AF, int BF>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-#define FP8_MMA(TA, TB)                                                    \
-  asm volatile(                                                            \
-      "mma.sync.aligned.m16n8k32.row.col.f32." TA "." TB                   \
-      ".f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"       \
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                     \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]))
-  if constexpr (AF == 0 && BF == 0) {
-    FP8_MMA("e4m3", "e4m3");
-  } else if constexpr (AF == 0) {
-    FP8_MMA("e4m3", "e5m2");
-  } else if constexpr (BF == 0) {
-    FP8_MMA("e5m2", "e4m3");
-  } else {
-    FP8_MMA("e5m2", "e5m2");
-  }
-#undef FP8_MMA
-}
-
-// Quantize the (kBM, kBK) x tile at (m0, k0) into shared memory.
-template <int AF, bool VEC>
-__device__ __forceinline__ void load_x(uint8_t* sa, const float* x, float xs,
-                                       int m0, int k0, int M, int K) {
-  if (VEC) {  // K % 16 == 0: a float4 is in range whole or not at all
-#pragma unroll
-    for (int p = 0; p < kBM * kBK / 4 / kThreads; ++p) {
-      const int idx = p * kThreads + threadIdx.x;
-      const int r = idx >> 4, c = (idx & 15) * 4;
-      const int gm = m0 + r, gk = k0 + c;
-      uint32_t q = 0;
-      if (gm < M && gk < K)
-        q = quant4<AF>(
-            *reinterpret_cast<const float4*>(x + (size_t)gm * K + gk), xs);
-      *reinterpret_cast<uint32_t*>(sa + r * kLds + c) = q;
-    }
-  } else {
-#pragma unroll 4
-    for (int p = 0; p < kBM * kBK / kThreads; ++p) {
-      const int idx = p * kThreads + threadIdx.x;
-      const int r = idx >> 6, c = idx & 63;
-      const int gm = m0 + r, gk = k0 + c;
-      uint32_t q = 0;
-      if (gm < M && gk < K) q = to_fp8<AF>(__fdiv_rn(x[(size_t)gm * K + gk], xs));
-      sa[r * kLds + c] = static_cast<uint8_t>(q);
-    }
-  }
-}
-
-template <int AF, int BF, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    fp8_matmul_kernel(const float* __restrict__ x,
-                      const uint8_t* __restrict__ w,
-                      const float* __restrict__ ws,
-                      const float* __restrict__ xs_ptr,
-                      const float* __restrict__ bias, float* __restrict__ out,
-                      int M, int N, int K, int act) {
-  __shared__ __align__(16) uint8_t sa[kBM * kLds];
-  __shared__ __align__(16) uint8_t sb[kBN * kLds];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+// x (M, K) fp32 -> xq (M, Kp): fp8(x / xs), or (OUT16) its f16 value; the
+// pad columns K..Kp-1 are zero. One thread a 16-value chunk: 16-byte loads
+// where the chunk lies in the row and on 16 bytes, else one value a load.
+template <int FMT, bool OUT16>
+__global__ void __launch_bounds__(kQThreads)
+    quantize_kernel(const float* __restrict__ x,
+                    const float* __restrict__ xs_ptr,
+                    uint8_t* __restrict__ xq, int M, int K, int Kp) {
   const float xs = *xs_ptr;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    load_x<AF, VEC>(sa, x, xs, m0, k0, M, K);
-    load_w<VEC>(sb, w, n0, k0, N, K);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint8_t* p = sa + (wm + i * 16 + g) * kLds + kk + t * 4;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds + 16);
-      }
+  const int chunks = Kp / 16;
+  const long long total = static_cast<long long>(M) * chunks;
+  for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * kQThreads) {
+    const int r = static_cast<int>(i / chunks);
+    const int c = static_cast<int>(i - static_cast<long long>(r) * chunks) * 16;
+    const float* src = x + static_cast<size_t>(r) * K + c;
+    float v[16];
+    if (c + 16 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint8_t* p = sb + (wn + j * 8 + g) * kLds + kk + t * 4;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+        const float4 f = reinterpret_cast<const float4*>(src)[j];
+        v[4 * j] = f.x;
+        v[4 * j + 1] = f.y;
+        v[4 * j + 2] = f.z;
+        v[4 * j + 3] = f.w;
       }
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma<AF, BF>(acc[i][j], a[i], b[j]);
+      for (int j = 0; j < 16; ++j) v[j] = c + j < K ? src[j] : 0.f;
     }
-    __syncthreads();
+    uint32_t q[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      q[j] = c + j < K ? to_fp8<FMT>(__fdiv_rn(v[j], xs)) : 0u;
+    if (OUT16) {
+      uint4* dst = reinterpret_cast<uint4*>(
+          xq + (static_cast<size_t>(r) * Kp + c) * 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          p[j] = widen<FMT>(q[8 * h + 2 * j]) |
+                 (widen<FMT>(q[8 * h + 2 * j + 1]) << 16);
+        dst[h] = make_uint4(p[0], p[1], p[2], p[3]);
+      }
+    } else {
+      uint32_t p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p[j] = q[4 * j] | (q[4 * j + 1] << 8) | (q[4 * j + 2] << 16) |
+               (q[4 * j + 3] << 24);
+      *reinterpret_cast<uint4*>(xq + static_cast<size_t>(r) * Kp + c) =
+          make_uint4(p[0], p[1], p[2], p[3]);
+    }
+  }
+}
+
+// w (N, Kw) fp8 -> w16 (N, Kp) f16 values, zero past Kw (development).
+template <int FMT>
+__global__ void widen_w_kernel(const uint8_t* __restrict__ w,
+                               uint16_t* __restrict__ w16, int N, int Kw,
+                               int Kp) {
+  const long long total = static_cast<long long>(N) * Kp;
+  for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * kQThreads) {
+    const int r = static_cast<int>(i / Kp), c = static_cast<int>(i % Kp);
+    w16[i] = c < Kw ? widen<FMT>(w[static_cast<size_t>(r) * Kw + c]) : 0;
+  }
+}
+
+// -- wgmma: d (+)= A (64 rows x 32 bytes of K) . B (BN rows x 32 bytes)^T -------
+
+#define D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D64 D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+#define D96 D64, D8(64), D8(72), D8(80), D8(88)
+#define R64                                                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63"
+#define R96                                                                   \
+  R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "  \
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+      "%91, %92, %93, %94, %95"
+#define WGMMA(SHAPE, REGS, OPS, DA, DB, SC, TAIL)                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned." SHAPE " {" REGS "}, " DA \
+               ", " DB ", p" TAIL ";\n}\n"                               \
+               : OPS                                                     \
+               : "l"(da), "l"(db), "r"(acc))
+#define WG128(ST, TAIL) WGMMA("m64n128" ST, R64, D64, "%64", "%65", "%66", TAIL)
+#define WG192(ST, TAIL) WGMMA("m64n192" ST, R96, D96, "%96", "%97", "%98", TAIL)
+#define WG_SELECT(WG)                                       \
+  if constexpr (OP == 1) {                                  \
+    WG("k16.f32.f16.f16", ", 1, 1, 0, 0");                  \
+  } else if constexpr (AF == 0 && BF == 0) {                \
+    WG("k32.f32.e4m3.e4m3", ", 1, 1");                      \
+  } else if constexpr (AF == 0) {                           \
+    WG("k32.f32.e4m3.e5m2", ", 1, 1");                      \
+  } else if constexpr (BF == 0) {                           \
+    WG("k32.f32.e5m2.e4m3", ", 1, 1");                      \
+  } else {                                                  \
+    WG("k32.f32.e5m2.e5m2", ", 1, 1");                      \
   }
 
-  // epilogue: c0, c1 at (g, 2t), (g, 2t + 1); c2, c3 eight rows below
+template <int BN, int AF, int BF, int OP>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
+                                      uint64_t db, int acc) {
+  if constexpr (BN == 128) {
+    WG_SELECT(WG128)
+  } else {
+    WG_SELECT(WG192)
+  }
+}
+
+#undef WG_SELECT
+#undef WG192
+#undef WG128
+#undef WGMMA
+#undef R96
+#undef R64
+#undef D96
+#undef D64
+#undef D8
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+
+// Staging address of output (r, c) of a consumer's 64 x BN tile: boxes of
+// 64 rows x 32 fp32 (128 bytes) in the TMA store's 128-byte swizzle.
+__device__ __forceinline__ int stage_index(int r, int c) {
+  return (c >> 5) * (64 * 32) + r * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+template <int AF, int BF, int BN, int OP>
+__global__ void __launch_bounds__(kThreads, 1)
+    fp8_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                    const __grid_constant__ CUtensorMap tm_b,
+                    const __grid_constant__ CUtensorMap tm_c,
+                    const float* __restrict__ ws,
+                    const float* __restrict__ xs_ptr,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int M, int N, int k_tiles, int act, int promote,
+                    int tma_store) {
+  using T = Tile<BN>;
+  constexpr int S = T::kStages;
+  constexpr int kKElems = kKBytes / (OP == 1 ? 2 : 1);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* const sa = smem;
+  uint8_t* const sb = sa + S * T::kABytes;
+  float* const sc = reinterpret_cast<float*>(sb + S * T::kBBytes);
+  uint64_t* const full =
+      reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(sc) + T::kCBytes);
+  uint64_t* const empty = full + S;
+
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = n0 + wn + j * 8 + t * 2 + e;
-      if (col >= N) continue;
-      const float s = __fmul_rn(xs, ws[col]);
-      const float bn = bias != nullptr ? bias[col] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wm + i * 16 + g + h * 8;
-          if (row >= M) continue;
-          float o = __fmul_rn(acc[i][j][h * 2 + e], s);
-          if (bias != nullptr) o = __fadd_rn(o, bn);
-          out[(size_t)row * N + col] = activate(o, act);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring of TMA loads full
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
+        for (int k = 0; k < k_tiles; ++k) {
+          mbar_wait(&empty[s], ph ^ 1);
+          mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
+          tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems, m0);
+          tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems, n0);
+          if (++s == S) {
+            s = 0;
+            ph ^= 1;
+          }
         }
       }
     }
+  } else {
+    reg_alloc<232>();
+    const int c = wg - 1;  // rows c*64 .. c*64+63 of the tile
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    float* const stage = sc + c * 64 * BN;
+    const float xs = *xs_ptr;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
+      float acc[BN / 2], part[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+      int g = 0;  // k-blocks summed into part since its last promotion
+      for (int k = 0; k < k_tiles; ++k) {
+        mbar_wait(&full[s], ph);
+        const uint64_t da = desc_sw128(sa + s * T::kABytes + c * 64 * kKBytes);
+        const uint64_t db = desc_sw128(sb + s * T::kBBytes);
+        fence_regs(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kb = 0; kb < kKBytes / 32; ++kb) {
+          wgmma<BN, AF, BF, OP>(part, da + 2 * kb, db + 2 * kb, g);
+          if (++g == promote) {
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(part);
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+            fence_regs(part);
+            wgmma_fence();
+            g = 0;
+          }
+        }
+        if (g != 0) {
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(part);
+        }
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      if (g != 0) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+      }
+
+      // epilogue: act(acc * (xs * ws[n]) + bias[n]) into the staging tile
+      if (tid == 0 && tma_store) tma_store_wait_read();
+      named_barrier(1 + c, 128);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = j * 8 + (lane & 3) * 2;
+        const int gc = n0 + col;
+        float s0 = 0.f, s1 = 0.f, b0 = 0.f, b1 = 0.f;
+        if (gc < N) {
+          s0 = __fmul_rn(xs, ws[gc]);
+          if (bias != nullptr) b0 = bias[gc];
+        }
+        if (gc + 1 < N) {
+          s1 = __fmul_rn(xs, ws[gc + 1]);
+          if (bias != nullptr) b1 = bias[gc + 1];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + (lane >> 2) + h * 8;
+          float o0 = __fmul_rn(acc[4 * j + 2 * h], s0);
+          float o1 = __fmul_rn(acc[4 * j + 2 * h + 1], s1);
+          if (bias != nullptr) {
+            o0 = __fadd_rn(o0, b0);
+            o1 = __fadd_rn(o1, b1);
+          }
+          *reinterpret_cast<float2*>(stage + stage_index(r, col)) =
+              make_float2(quant_mma::activate(o0, act),
+                          quant_mma::activate(o1, act));
+        }
+      }
+      if (tma_store) {
+        fence_async_shared();
+        named_barrier(1 + c, 128);
+        if (tid == 0) {
+#pragma unroll
+          for (int b = 0; b < BN / 32; ++b)
+            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32, m0 + c * 64);
+          tma_store_commit();
+        }
+      } else {
+        named_barrier(1 + c, 128);
+        for (int i = tid; i < 64 * BN; i += 128) {
+          const int r = i / BN, col = i - r * BN;
+          const int gr = m0 + c * 64 + r, gc = n0 + col;
+          if (gr < M && gc < N)
+            out[static_cast<size_t>(gr) * N + gc] = stage[stage_index(r, col)];
+        }
+      }
+    }
+    if (tid == 0 && tma_store) tma_store_wait();
   }
 }
 
-template <int AF, int BF>
-cudaError_t launch(bool vec, const float* x, const uint8_t* w,
-                   const float* ws, const float* xs, const float* bias,
-                   float* out, int M, int N, int K, int act, cudaStream_t s) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  if (vec)
-    fp8_matmul_kernel<AF, BF, true>
-        <<<grid, kThreads, 0, s>>>(x, w, ws, xs, bias, out, M, N, K, act);
-  else
-    fp8_matmul_kernel<AF, BF, false>
-        <<<grid, kThreads, 0, s>>>(x, w, ws, xs, bias, out, M, N, K, act);
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 1;
+  }();
+  return n;
+}
+
+int grid_for(long long work) {
+  const long long cap = static_cast<long long>(sm_count()) * 16;
+  const long long g = (work + kQThreads - 1) / kQThreads;
+  return static_cast<int>(g < cap ? (g > 0 ? g : 1) : cap);
+}
+
+template <int AF, int BF, int BN, int OP>
+cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
+                        const CUtensorMap& tc, const float* ws,
+                        const float* xs, const float* bias, float* out, int M,
+                        int N, int k_tiles, int act, int promote,
+                        int tma_store, cudaStream_t s) {
+  using T = Tile<BN>;
+  auto kern = fp8_gemm_kernel<AF, BF, BN, OP>;
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  kern<<<grid, kThreads, T::kSmem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
+                                        k_tiles, act, promote, tma_store);
   return cudaGetLastError();
+}
+
+template <int AF, int BF>
+cudaError_t gemm_by_tile(int bn, int op, const CUtensorMap& ta,
+                         const CUtensorMap& tb, const CUtensorMap& tc,
+                         const float* ws, const float* xs, const float* bias,
+                         float* out, int M, int N, int k_tiles, int act,
+                         int promote, int tma_store, cudaStream_t s) {
+#define GEMM(BN, OP)                                                        \
+  launch_gemm<AF, BF, BN, OP>(ta, tb, tc, ws, xs, bias, out, M, N, k_tiles, \
+                              act, promote, tma_store, s)
+  if (op == 1) return bn == 128 ? GEMM(128, 1) : GEMM(192, 1);
+  return bn == 128 ? GEMM(128, 0) : GEMM(192, 0);
+#undef GEMM
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (M, K) fp32, w (N, K) fp8 bytes, ws (N,) fp32, xs one fp32 on the
-// device, bias (N,) fp32 or null, out (M, N) fp32, all contiguous.
-// afmt / wfmt: 0 = e4m3fn, 1 = e5m2 (the activation's cast and w's
-// storage); act: 0 none, 1 relu, 2 sigmoid, 3 tanh, 4 gelu (tanh form).
-// vec = 1: K % 16 == 0 and x, w 16-byte aligned.
+// x (M, K) fp32, w (N, Kw) fp8 bytes with Kw % 16 == 0, Kw >= K and zeros
+// in columns K..Kw-1, 16-byte aligned; ws (N,) fp32; xs one fp32 on the
+// device; bias (N,) fp32 or null; out (M, N) fp32 contiguous; xq scratch
+// (M, Kp) bytes (x2 for op 1) with Kp = K rounded up to 128 (at least 128);
+// w16 scratch (N, Kp) f16 for op 1, else unused. afmt / wfmt: 0 = e4m3fn,
+// 1 = e5m2; act: 0 none, 1 relu, 2 sigmoid, 3 tanh, 4 gelu (tanh form);
+// promote: k-blocks (32 bytes of K) summed in the tensor core between fp32
+// adds; bn: 128 or 192; op: 0 fp8 wgmma, 1 f16 wgmma.
 int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
-               const void* bias, void* out, int M, int N, int K, int afmt,
-               int wfmt, int act, int vec, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || afmt < 0 || afmt > 1 || wfmt < 0 ||
-      wfmt > 1 || act < kNone || act > kGelu ||
-      (M + kBM - 1) / kBM > 65535 || (vec && K % 16 != 0))
+               const void* bias, void* out, void* xq, void* w16, int M, int N,
+               int K, int Kw, int Kp, int afmt, int wfmt, int act,
+               int promote, int bn, int op, void* stream) {
+  if (M <= 0 || N <= 0 || K < 0 || Kw < K || Kw < 16 || Kw % 16 != 0 ||
+      Kp % kKBytes != 0 || Kp < Kw || afmt < 0 || afmt > 1 || wfmt < 0 ||
+      wfmt > 1 || act < quant_mma::kNone || act > quant_mma::kGelu ||
+      promote < 1 || (bn != 128 && bn != 192) || op < 0 || op > 1 ||
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(xq) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const float*>(x);
-  auto wp = static_cast<const uint8_t*>(w);
-  auto wsp = static_cast<const float*>(ws);
   auto xsp = static_cast<const float*>(xs);
+  auto xqp = static_cast<uint8_t*>(xq);
+  const long long chunks = static_cast<long long>(M) * (Kp / 16);
+  if (op == 1) {
+    if (afmt == 0)
+      quantize_kernel<0, true><<<grid_for(chunks), kQThreads, 0, s>>>(
+          xp, xsp, xqp, M, K, Kp);
+    else
+      quantize_kernel<1, true><<<grid_for(chunks), kQThreads, 0, s>>>(
+          xp, xsp, xqp, M, K, Kp);
+    const long long nw = static_cast<long long>(N) * Kp;
+    auto wp = static_cast<const uint8_t*>(w);
+    auto w16p = static_cast<uint16_t*>(w16);
+    if (wfmt == 0)
+      widen_w_kernel<0><<<grid_for(nw), kQThreads, 0, s>>>(wp, w16p, N, Kw, Kp);
+    else
+      widen_w_kernel<1><<<grid_for(nw), kQThreads, 0, s>>>(wp, w16p, N, Kw, Kp);
+  } else if (afmt == 0) {
+    quantize_kernel<0, false><<<grid_for(chunks), kQThreads, 0, s>>>(
+        xp, xsp, xqp, M, K, Kp);
+  } else {
+    quantize_kernel<1, false><<<grid_for(chunks), kQThreads, 0, s>>>(
+        xp, xsp, xqp, M, K, Kp);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int es = op == 1 ? 2 : 1;
+  const CUtensorMapDataType dt =
+      op == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const int kcols = op == 1 ? Kp : Kw;  // columns of the B operand
+  CUtensorMap ta, tb, tc;
+  const bool tma_store = N % 4 == 0;
+  if (!encode_2d(&ta, dt, xq, M, Kp, static_cast<uint64_t>(Kp) * es, kBM,
+                 kKBytes / es, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&tb, dt, op == 1 ? w16 : w, N, kcols,
+                 static_cast<uint64_t>(kcols) * es, bn, kKBytes / es,
+                 CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tma_store) {
+    if (!encode_2d(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, M, N,
+                   static_cast<uint64_t>(N) * 4, 64, 32,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    tc = tb;  // unused
+  }
+  const int k_tiles = (kcols + kKBytes / es - 1) / (kKBytes / es);
+  auto wsp = static_cast<const float*>(ws);
   auto bp = static_cast<const float*>(bias);
-  auto op = static_cast<float*>(out);
-  cudaError_t err;
+  auto op_ = static_cast<float*>(out);
+#define BY_FMT(AF, BF)                                                       \
+  gemm_by_tile<AF, BF>(bn, op, ta, tb, tc, wsp, xsp, bp, op_, M, N, k_tiles, \
+                       act, promote, tma_store ? 1 : 0, s)
   if (afmt == 0 && wfmt == 0)
-    err = launch<0, 0>(vec, xp, wp, wsp, xsp, bp, op, M, N, K, act, s);
+    err = BY_FMT(0, 0);
   else if (afmt == 0)
-    err = launch<0, 1>(vec, xp, wp, wsp, xsp, bp, op, M, N, K, act, s);
+    err = BY_FMT(0, 1);
   else if (wfmt == 0)
-    err = launch<1, 0>(vec, xp, wp, wsp, xsp, bp, op, M, N, K, act, s);
+    err = BY_FMT(1, 0);
   else
-    err = launch<1, 1>(vec, xp, wp, wsp, xsp, bp, op, M, N, K, act, s);
+    err = BY_FMT(1, 1);
+#undef BY_FMT
   return static_cast<int>(err);
 }
 

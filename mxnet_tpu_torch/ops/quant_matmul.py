@@ -177,11 +177,40 @@ def _launch(lib, name, args, shape):
 
 
 def _bind(lib):
-    lib.fp8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    lib.fp8_matmul.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
     lib.fp8_matmul.restype = ctypes.c_int
     lib.fp8_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fp8_matmul_error_string.restype = ctypes.c_char_p
+
+
+#: bytes of K in one stage of the fp8 GEMM (one 128-byte swizzle row): the
+#: quantized copy of x has rows of K rounded up to it
+_K_TILE = 128
+#: k-blocks (32 values of K) the tensor core sums into a zeroed partial
+#: before it is added to the fp32 accumulator
+FP8_PROMOTE = 1
+_DEV = {"bn": 128, "op": 0}
+
+
+def _round_up(n, m):
+    return (n + m - 1) // m * m
+
+
+def _gemm_weight(w_q):
+    """``w_q``'s bytes as the GEMM reads them: ``(N, Kw)`` uint8 with a
+    row stride ``Kw`` that is a multiple of 16 (at least 16) on a 16-byte
+    address. That is ``w_q`` itself where it allows, else a copy padded
+    with zero columns: zero adds nothing to the fp8 dot, as the
+    reference's own padding of w (``_pad2``) adds nothing."""
+    n, k = w_q.shape
+    w8 = w_q.view(torch.uint8)
+    if k > 0 and k % 16 == 0 and w8.data_ptr() % 16 == 0:
+        return w8
+    padded = torch.zeros((n, max(_round_up(k, 16), 16)), dtype=torch.uint8,
+                         device=w_q.device)
+    padded[:, :k] = w8
+    return padded
 
 
 def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
@@ -208,14 +237,20 @@ def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
     if m == 0 or n == 0:
         return out
     xs = _scale_tensor(x_scale, x.device)
-    vec = int(k % 16 == 0 and x.data_ptr() % 16 == 0
-              and w_q.data_ptr() % 16 == 0)
+    w8 = _gemm_weight(w_q)
+    kp = _round_up(max(k, 1), _K_TILE)
+    op, bn = _DEV["op"], _DEV["bn"]
+    xq = torch.empty((m, kp * (1 + op)), dtype=torch.uint8, device=x.device)
+    w16 = (torch.empty((n, kp), dtype=torch.int16, device=x.device)
+           if op else None)
     lib = _native.load("fp8_matmul", _bind)
     _launch(lib, "fp8_matmul", (
-        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        _FMT_CODES[fmt], _FMT_CODES[_DTYPE_FMT[w_q.dtype]], _ACT_CODES[act],
-        vec, torch.cuda.current_stream(x.device).cuda_stream),
+        x.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), None if w16 is None else w16.data_ptr(), m, n, k,
+        w8.shape[1], kp, _FMT_CODES[fmt], _FMT_CODES[_DTYPE_FMT[w_q.dtype]],
+        _ACT_CODES[act], FP8_PROMOTE, bn, op,
+        torch.cuda.current_stream(x.device).cuda_stream),
         f"M={m} N={n} K={k} fmt={fmt}")
     fp8_matmul.launches += 1
     return out
