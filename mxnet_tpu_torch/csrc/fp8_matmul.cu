@@ -1,7 +1,6 @@
-// fp8 quantize + matmul + epilogue for Hopper (sm_90a). DEVELOPMENT BUILD:
-// tile width (bn 128 / 192) and operand type (op 0: fp8 wgmma; op 1: the
-// fp8 values widened to f16, f16 wgmma) are launch arguments while they are
-// measured on the card.
+// fp8 quantize + matmul + epilogue for Hopper (sm_90a). DEVELOPMENT BUILD v2:
+// f16 wgmma on the fp8 values widened exactly to f16; tile width and the
+// epilogue's store are launch arguments while they are measured.
 //
 // Replaces the TPU kernel of mxnet_tpu/ops/pallas/quant_matmul.py:
 //   _fp8_kernel (launched by fp8_matmul).
@@ -23,15 +22,16 @@ using namespace hopper;
 
 constexpr int kBM = 128;       // rows of a tile: two consumer warpgroups x 64
 constexpr int kKBytes = 128;   // bytes of K a stage: one 128-byte swizzle row
+constexpr int kKElems = 64;    // f16 values of K a stage
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kQThreads = 256;
 
-template <int BN>
+template <int BN, bool STAGED>
 struct Tile {
-  static constexpr int kStages = BN <= 128 ? 4 : 3;
+  static constexpr int kStages = 4;
   static constexpr int kABytes = kBM * kKBytes;
   static constexpr int kBBytes = BN * kKBytes;
-  static constexpr int kCBytes = kBM * BN * 4;  // the epilogue's staging
+  static constexpr int kCBytes = STAGED ? kBM * BN * 4 : 0;
   static constexpr int kSmem =
       1024 + kStages * (kABytes + kBBytes) + kCBytes + 2 * kStages * 8;
 };
@@ -50,6 +50,7 @@ __device__ __forceinline__ uint32_t to_fp8(float v) {
   return q;
 }
 
+// The f16 bits of an fp8 value (exact: f16 holds every e4m3 and e5m2 value).
 template <int FMT>
 __device__ __forceinline__ uint32_t widen(uint32_t q) {
   return __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(q),
@@ -57,134 +58,126 @@ __device__ __forceinline__ uint32_t widen(uint32_t q) {
       .x;
 }
 
-// x (M, K) fp32 -> xq (M, Kp): fp8(x / xs), or (OUT16) its f16 value; the
-// pad columns K..Kp-1 are zero. One thread a 16-value chunk: 16-byte loads
-// where the chunk lies in the row and on 16 bytes, else one value a load.
-template <int FMT, bool OUT16>
+__device__ __forceinline__ void store16(uint16_t* dst, const uint32_t (&h)[16]) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                    h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+  d[1] = make_uint4(h[8] | (h[9] << 16), h[10] | (h[11] << 16),
+                    h[12] | (h[13] << 16), h[14] | (h[15] << 16));
+}
+
+// The GEMM's operands, both (rows, Kp) f16 with zero columns K..Kp-1:
+// blocks [0, x_blocks) write xq = f16(fp8(x / xs)) for x (M, K) fp32,
+// the others wq = f16(w) for w (N, K) fp8. One thread a 16-value chunk,
+// with 16-byte loads where the chunk lies in the row and on 16 bytes.
+template <int AF, int BF>
 __global__ void __launch_bounds__(kQThreads)
-    quantize_kernel(const float* __restrict__ x,
-                    const float* __restrict__ xs_ptr,
-                    uint8_t* __restrict__ xq, int M, int K, int Kp) {
-  const float xs = *xs_ptr;
+    prepare_kernel(const float* __restrict__ x,
+                   const float* __restrict__ xs_ptr,
+                   const uint8_t* __restrict__ w, uint16_t* __restrict__ xq,
+                   uint16_t* __restrict__ wq, int M, int N, int K, int Kp,
+                   int x_blocks) {
   const int chunks = Kp / 16;
-  const long long total = static_cast<long long>(M) * chunks;
-  for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kQThreads) {
-    const int r = static_cast<int>(i / chunks);
-    const int c = static_cast<int>(i - static_cast<long long>(r) * chunks) * 16;
-    const float* src = x + static_cast<size_t>(r) * K + c;
-    float v[16];
-    if (c + 16 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+  if (static_cast<int>(blockIdx.x) < x_blocks) {
+    const float xs = *xs_ptr;
+    const long long total = static_cast<long long>(M) * chunks;
+    for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
+                       threadIdx.x;
+         i < total; i += static_cast<long long>(x_blocks) * kQThreads) {
+      const int r = static_cast<int>(i / chunks);
+      const int c =
+          static_cast<int>(i - static_cast<long long>(r) * chunks) * 16;
+      const float* src = x + static_cast<size_t>(r) * K + c;
+      float v[16];
+      if (c + 16 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 f = reinterpret_cast<const float4*>(src)[j];
-        v[4 * j] = f.x;
-        v[4 * j + 1] = f.y;
-        v[4 * j + 2] = f.z;
-        v[4 * j + 3] = f.w;
+        for (int j = 0; j < 4; ++j) {
+          const float4 f = reinterpret_cast<const float4*>(src)[j];
+          v[4 * j] = f.x;
+          v[4 * j + 1] = f.y;
+          v[4 * j + 2] = f.z;
+          v[4 * j + 3] = f.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) v[j] = c + j < K ? src[j] : 0.f;
       }
-    } else {
+      uint32_t h[16];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) v[j] = c + j < K ? src[j] : 0.f;
+      for (int j = 0; j < 16; ++j)
+        h[j] = c + j < K ? widen<AF>(to_fp8<AF>(__fdiv_rn(v[j], xs))) : 0u;
+      store16(xq + static_cast<size_t>(r) * Kp + c, h);
     }
-    uint32_t q[16];
+  } else {
+    const int blocks = gridDim.x - x_blocks;
+    const long long total = static_cast<long long>(N) * chunks;
+    for (long long i = static_cast<long long>(blockIdx.x - x_blocks) *
+                           kQThreads + threadIdx.x;
+         i < total; i += static_cast<long long>(blocks) * kQThreads) {
+      const int r = static_cast<int>(i / chunks);
+      const int c =
+          static_cast<int>(i - static_cast<long long>(r) * chunks) * 16;
+      const uint8_t* src = w + static_cast<size_t>(r) * K + c;
+      uint32_t b[16];
+      if (c + 16 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const uint4 u = *reinterpret_cast<const uint4*>(src);
+        const uint32_t words[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      q[j] = c + j < K ? to_fp8<FMT>(__fdiv_rn(v[j], xs)) : 0u;
-    if (OUT16) {
-      uint4* dst = reinterpret_cast<uint4*>(
-          xq + (static_cast<size_t>(r) * Kp + c) * 2);
+        for (int j = 0; j < 16; ++j) b[j] = (words[j >> 2] >> (8 * (j & 3))) & 0xFF;
+      } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t p[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          p[j] = widen<FMT>(q[8 * h + 2 * j]) |
-                 (widen<FMT>(q[8 * h + 2 * j + 1]) << 16);
-        dst[h] = make_uint4(p[0], p[1], p[2], p[3]);
+        for (int j = 0; j < 16; ++j) b[j] = c + j < K ? src[j] : 0u;
       }
-    } else {
-      uint32_t p[4];
+      uint32_t h[16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        p[j] = q[4 * j] | (q[4 * j + 1] << 8) | (q[4 * j + 2] << 16) |
-               (q[4 * j + 3] << 24);
-      *reinterpret_cast<uint4*>(xq + static_cast<size_t>(r) * Kp + c) =
-          make_uint4(p[0], p[1], p[2], p[3]);
+      for (int j = 0; j < 16; ++j) h[j] = c + j < K ? widen<BF>(b[j]) : 0u;
+      store16(wq + static_cast<size_t>(r) * Kp + c, h);
     }
   }
 }
 
-// w (N, Kw) fp8 -> w16 (N, Kp) f16 values, zero past Kw (development).
-template <int FMT>
-__global__ void widen_w_kernel(const uint8_t* __restrict__ w,
-                               uint16_t* __restrict__ w16, int N, int Kw,
-                               int Kp) {
-  const long long total = static_cast<long long>(N) * Kp;
-  for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kQThreads) {
-    const int r = static_cast<int>(i / Kp), c = static_cast<int>(i % Kp);
-    w16[i] = c < Kw ? widen<FMT>(w[static_cast<size_t>(r) * Kw + c]) : 0;
-  }
-}
-
-// -- wgmma: d (+)= A (64 rows x 32 bytes of K) . B (BN rows x 32 bytes)^T -------
+// -- wgmma: d (+)= A (64 rows x 16 of K) . B (BN rows x 16 of K)^T, f16 ---------
 
 #define D8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define D64 D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-#define D96 D64, D8(64), D8(72), D8(80), D8(88)
+#define D128 D64, D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), \
+             D8(120)
 #define R64                                                                   \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63"
-#define R96                                                                   \
+#define R128                                                                  \
   R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "  \
       "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
-      "%91, %92, %93, %94, %95"
-#define WGMMA(SHAPE, REGS, OPS, DA, DB, SC, TAIL)                        \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"          \
-               "wgmma.mma_async.sync.aligned." SHAPE " {" REGS "}, " DA \
-               ", " DB ", p" TAIL ";\n}\n"                               \
-               : OPS                                                     \
+      "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "  \
+      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, "     \
+      "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "     \
+      "%126, %127"
+#define WGMMA(N, REGS, OPS, DA, DB, SC)                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32.f16.f16 {" \
+               REGS "}, " DA ", " DB ", p, 1, 1, 0, 0;\n}\n"              \
+               : OPS                                                       \
                : "l"(da), "l"(db), "r"(acc))
-#define WG128(ST, TAIL) WGMMA("m64n128" ST, R64, D64, "%64", "%65", "%66", TAIL)
-#define WG192(ST, TAIL) WGMMA("m64n192" ST, R96, D96, "%96", "%97", "%98", TAIL)
-#define WG_SELECT(WG)                                       \
-  if constexpr (OP == 1) {                                  \
-    WG("k16.f32.f16.f16", ", 1, 1, 0, 0");                  \
-  } else if constexpr (AF == 0 && BF == 0) {                \
-    WG("k32.f32.e4m3.e4m3", ", 1, 1");                      \
-  } else if constexpr (AF == 0) {                           \
-    WG("k32.f32.e4m3.e5m2", ", 1, 1");                      \
-  } else if constexpr (BF == 0) {                           \
-    WG("k32.f32.e5m2.e4m3", ", 1, 1");                      \
-  } else {                                                  \
-    WG("k32.f32.e5m2.e5m2", ", 1, 1");                      \
-  }
 
-template <int BN, int AF, int BF, int OP>
+template <int BN>
 __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
                                       uint64_t db, int acc) {
   if constexpr (BN == 128) {
-    WG_SELECT(WG128)
+    WGMMA("128", R64, D64, "%64", "%65", "%66");
   } else {
-    WG_SELECT(WG192)
+    WGMMA("256", R128, D128, "%128", "%129", "%130");
   }
 }
 
-#undef WG_SELECT
-#undef WG192
-#undef WG128
 #undef WGMMA
-#undef R96
+#undef R128
 #undef R64
-#undef D96
+#undef D128
 #undef D64
 #undef D8
 
@@ -201,7 +194,9 @@ __device__ __forceinline__ int stage_index(int r, int c) {
          (c & 3);
 }
 
-template <int AF, int BF, int BN, int OP>
+enum Flags { kSkipMma = 1, kSkipStore = 2 };
+
+template <int BN, bool STAGED>
 __global__ void __launch_bounds__(kThreads, 1)
     fp8_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                     const __grid_constant__ CUtensorMap tm_b,
@@ -209,11 +204,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ ws,
                     const float* __restrict__ xs_ptr,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int M, int N, int k_tiles, int act, int promote,
-                    int tma_store) {
-  using T = Tile<BN>;
+                    int M, int N, int k_tiles, int act, int flags) {
+  using T = Tile<BN, STAGED>;
   constexpr int S = T::kStages;
-  constexpr int kKElems = kKBytes / (OP == 1 ? 2 : 1);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -268,49 +261,47 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t ph = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
-      float acc[BN / 2], part[BN / 2];
+      float acc[BN / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
-      int g = 0;  // k-blocks summed into part since its last promotion
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
       for (int k = 0; k < k_tiles; ++k) {
         mbar_wait(&full[s], ph);
-        const uint64_t da = desc_sw128(sa + s * T::kABytes + c * 64 * kKBytes);
-        const uint64_t db = desc_sw128(sb + s * T::kBBytes);
-        fence_regs(part);
-        wgmma_fence();
+        if (!(flags & kSkipMma)) {
+          const uint64_t da =
+              desc_sw128(sa + s * T::kABytes + c * 64 * kKBytes);
+          const uint64_t db = desc_sw128(sb + s * T::kBBytes);
+          wgmma_fence();
 #pragma unroll
-        for (int kb = 0; kb < kKBytes / 32; ++kb) {
-          wgmma<BN, AF, BF, OP>(part, da + 2 * kb, db + 2 * kb, g);
-          if (++g == promote) {
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(part);
-#pragma unroll
-            for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-            fence_regs(part);
-            wgmma_fence();
-            g = 0;
-          }
-        }
-        if (g != 0) {
+          for (int kb = 0; kb < kKBytes / 32; ++kb)
+            wgmma<BN>(acc, da + 2 * kb, db + 2 * kb, 1);
           wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(part);
+          wgmma_wait<1>();  // the previous stage's products are done
         }
-        if (lane == 0) mbar_arrive(&empty[s]);
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
         if (++s == S) {
           s = 0;
           ph ^= 1;
         }
       }
-      if (g != 0) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      if (flags & kSkipStore) {
+        // keep the products live without storing them
+        float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+        for (int i = 0; i < BN / 2; ++i) sum += acc[i];
+        if (sum == 12345.678f) out[0] = sum;
+        continue;
       }
 
-      // epilogue: act(acc * (xs * ws[n]) + bias[n]) into the staging tile
-      if (tid == 0 && tma_store) tma_store_wait_read();
-      named_barrier(1 + c, 128);
+      // epilogue: act(acc * (xs * ws[n]) + bias[n])
+      if (STAGED) {
+        if (tid == 0) tma_store_wait_read();
+        named_barrier(1 + c, 128);
+      }
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int col = j * 8 + (lane & 3) * 2;
@@ -333,31 +324,38 @@ __global__ void __launch_bounds__(kThreads, 1)
             o0 = __fadd_rn(o0, b0);
             o1 = __fadd_rn(o1, b1);
           }
-          *reinterpret_cast<float2*>(stage + stage_index(r, col)) =
-              make_float2(quant_mma::activate(o0, act),
-                          quant_mma::activate(o1, act));
+          o0 = quant_mma::activate(o0, act);
+          o1 = quant_mma::activate(o1, act);
+          if (STAGED) {
+            *reinterpret_cast<float2*>(stage + stage_index(r, col)) =
+                make_float2(o0, o1);
+          } else {
+            const int gr = m0 + c * 64 + r;
+            float* p = out + static_cast<size_t>(gr) * N + gc;
+            if (gr < M) {
+              if (gc + 1 < N && (N & 1) == 0) {
+                *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
+              } else {
+                if (gc < N) p[0] = o0;
+                if (gc + 1 < N) p[1] = o1;
+              }
+            }
+          }
         }
       }
-      if (tma_store) {
+      if (STAGED) {
         fence_async_shared();
         named_barrier(1 + c, 128);
         if (tid == 0) {
 #pragma unroll
           for (int b = 0; b < BN / 32; ++b)
-            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32, m0 + c * 64);
+            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
+                         m0 + c * 64);
           tma_store_commit();
-        }
-      } else {
-        named_barrier(1 + c, 128);
-        for (int i = tid; i < 64 * BN; i += 128) {
-          const int r = i / BN, col = i - r * BN;
-          const int gr = m0 + c * 64 + r, gc = n0 + col;
-          if (gr < M && gc < N)
-            out[static_cast<size_t>(gr) * N + gc] = stage[stage_index(r, col)];
         }
       }
     }
-    if (tid == 0 && tma_store) tma_store_wait();
+    if (STAGED && tid == 0) tma_store_wait();
   }
 }
 
@@ -371,109 +369,90 @@ int sm_count() {
   return n;
 }
 
-int grid_for(long long work) {
-  const long long cap = static_cast<long long>(sm_count()) * 16;
+int blocks_for(long long work, int cap) {
   const long long g = (work + kQThreads - 1) / kQThreads;
   return static_cast<int>(g < cap ? (g > 0 ? g : 1) : cap);
 }
 
-template <int AF, int BF, int BN, int OP>
+template <int BN, bool STAGED>
 cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
                         const CUtensorMap& tc, const float* ws,
                         const float* xs, const float* bias, float* out, int M,
-                        int N, int k_tiles, int act, int promote,
-                        int tma_store, cudaStream_t s) {
-  using T = Tile<BN>;
-  auto kern = fp8_gemm_kernel<AF, BF, BN, OP>;
+                        int N, int k_tiles, int act, int flags,
+                        cudaStream_t s) {
+  using T = Tile<BN, STAGED>;
+  auto kern = fp8_gemm_kernel<BN, STAGED>;
   static cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (attr != cudaSuccess) return attr;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
   kern<<<grid, kThreads, T::kSmem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
-                                        k_tiles, act, promote, tma_store);
+                                        k_tiles, act, flags);
   return cudaGetLastError();
 }
 
 template <int AF, int BF>
-cudaError_t gemm_by_tile(int bn, int op, const CUtensorMap& ta,
-                         const CUtensorMap& tb, const CUtensorMap& tc,
-                         const float* ws, const float* xs, const float* bias,
-                         float* out, int M, int N, int k_tiles, int act,
-                         int promote, int tma_store, cudaStream_t s) {
-#define GEMM(BN, OP)                                                        \
-  launch_gemm<AF, BF, BN, OP>(ta, tb, tc, ws, xs, bias, out, M, N, k_tiles, \
-                              act, promote, tma_store, s)
-  if (op == 1) return bn == 128 ? GEMM(128, 1) : GEMM(192, 1);
-  return bn == 128 ? GEMM(128, 0) : GEMM(192, 0);
-#undef GEMM
+void launch_prepare(const float* x, const float* xs, const uint8_t* w,
+                    uint16_t* xq, uint16_t* wq, int M, int N, int K, int Kp,
+                    cudaStream_t s) {
+  const int chunks = Kp / 16;
+  const int xb = blocks_for(static_cast<long long>(M) * chunks,
+                            sm_count() * 16);
+  const int wb = blocks_for(static_cast<long long>(N) * chunks,
+                            sm_count() * 2);
+  prepare_kernel<AF, BF><<<xb + wb, kQThreads, 0, s>>>(x, xs, w, xq, wq, M, N,
+                                                        K, Kp, xb);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (M, K) fp32, w (N, Kw) fp8 bytes with Kw % 16 == 0, Kw >= K and zeros
-// in columns K..Kw-1, 16-byte aligned; ws (N,) fp32; xs one fp32 on the
-// device; bias (N,) fp32 or null; out (M, N) fp32 contiguous; xq scratch
-// (M, Kp) bytes (x2 for op 1) with Kp = K rounded up to 128 (at least 128);
-// w16 scratch (N, Kp) f16 for op 1, else unused. afmt / wfmt: 0 = e4m3fn,
-// 1 = e5m2; act: 0 none, 1 relu, 2 sigmoid, 3 tanh, 4 gelu (tanh form);
-// promote: k-blocks (32 bytes of K) summed in the tensor core between fp32
-// adds; bn: 128 or 192; op: 0 fp8 wgmma, 1 f16 wgmma.
+// x (M, K) fp32, w (N, K) fp8 bytes, ws (N,) fp32, xs one fp32 on the
+// device, bias (N,) fp32 or null, out (M, N) fp32, all contiguous; xq and
+// wq scratch, (M, Kp) and (N, Kp) f16 on 16 bytes, Kp = K rounded up to 64
+// (at least 64). afmt / wfmt: 0 = e4m3fn, 1 = e5m2; act: 0 none, 1 relu,
+// 2 sigmoid, 3 tanh, 4 gelu (tanh form); bn 128 or 256; staged: the
+// epilogue through shared memory and TMA stores (bn 128, N % 4 == 0);
+// flags: development switches.
 int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
-               const void* bias, void* out, void* xq, void* w16, int M, int N,
-               int K, int Kw, int Kp, int afmt, int wfmt, int act,
-               int promote, int bn, int op, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || Kw < K || Kw < 16 || Kw % 16 != 0 ||
-      Kp % kKBytes != 0 || Kp < Kw || afmt < 0 || afmt > 1 || wfmt < 0 ||
-      wfmt > 1 || act < quant_mma::kNone || act > quant_mma::kGelu ||
-      promote < 1 || (bn != 128 && bn != 192) || op < 0 || op > 1 ||
-      (reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(xq) & 15) != 0)
+               const void* bias, void* out, void* xq, void* wq, int M, int N,
+               int K, int Kp, int afmt, int wfmt, int act, int bn, int staged,
+               int flags, void* stream) {
+  if (M <= 0 || N <= 0 || K < 0 || Kp < K || Kp < kKElems ||
+      Kp % kKElems != 0 || afmt < 0 || afmt > 1 || wfmt < 0 || wfmt > 1 ||
+      act < quant_mma::kNone || act > quant_mma::kGelu ||
+      (bn != 128 && bn != 256) || (staged && (bn != 128 || N % 4 != 0)) ||
+      (reinterpret_cast<uintptr_t>(xq) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(wq) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const float*>(x);
   auto xsp = static_cast<const float*>(xs);
-  auto xqp = static_cast<uint8_t*>(xq);
-  const long long chunks = static_cast<long long>(M) * (Kp / 16);
-  if (op == 1) {
-    if (afmt == 0)
-      quantize_kernel<0, true><<<grid_for(chunks), kQThreads, 0, s>>>(
-          xp, xsp, xqp, M, K, Kp);
-    else
-      quantize_kernel<1, true><<<grid_for(chunks), kQThreads, 0, s>>>(
-          xp, xsp, xqp, M, K, Kp);
-    const long long nw = static_cast<long long>(N) * Kp;
-    auto wp = static_cast<const uint8_t*>(w);
-    auto w16p = static_cast<uint16_t*>(w16);
-    if (wfmt == 0)
-      widen_w_kernel<0><<<grid_for(nw), kQThreads, 0, s>>>(wp, w16p, N, Kw, Kp);
-    else
-      widen_w_kernel<1><<<grid_for(nw), kQThreads, 0, s>>>(wp, w16p, N, Kw, Kp);
-  } else if (afmt == 0) {
-    quantize_kernel<0, false><<<grid_for(chunks), kQThreads, 0, s>>>(
-        xp, xsp, xqp, M, K, Kp);
-  } else {
-    quantize_kernel<1, false><<<grid_for(chunks), kQThreads, 0, s>>>(
-        xp, xsp, xqp, M, K, Kp);
-  }
+  auto wp = static_cast<const uint8_t*>(w);
+  auto xqp = static_cast<uint16_t*>(xq);
+  auto wqp = static_cast<uint16_t*>(wq);
+  if (afmt == 0 && wfmt == 0)
+    launch_prepare<0, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
+  else if (afmt == 0)
+    launch_prepare<0, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
+  else if (wfmt == 0)
+    launch_prepare<1, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
+  else
+    launch_prepare<1, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int es = op == 1 ? 2 : 1;
-  const CUtensorMapDataType dt =
-      op == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const int kcols = op == 1 ? Kp : Kw;  // columns of the B operand
   CUtensorMap ta, tb, tc;
-  const bool tma_store = N % 4 == 0;
-  if (!encode_2d(&ta, dt, xq, M, Kp, static_cast<uint64_t>(Kp) * es, kBM,
-                 kKBytes / es, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_2d(&tb, dt, op == 1 ? w16 : w, N, kcols,
-                 static_cast<uint64_t>(kcols) * es, bn, kKBytes / es,
+  if (!encode_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT16, xq, M, Kp,
+                 static_cast<uint64_t>(Kp) * 2, kBM, kKElems,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT16, wq, N, Kp,
+                 static_cast<uint64_t>(Kp) * 2, bn, kKElems,
                  CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tma_store) {
+  if (staged) {
     if (!encode_2d(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, M, N,
                    static_cast<uint64_t>(N) * 4, 64, 32,
                    CU_TENSOR_MAP_SWIZZLE_128B))
@@ -481,22 +460,19 @@ int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
   } else {
     tc = tb;  // unused
   }
-  const int k_tiles = (kcols + kKBytes / es - 1) / (kKBytes / es);
+  const int k_tiles = Kp / kKElems;
   auto wsp = static_cast<const float*>(ws);
   auto bp = static_cast<const float*>(bias);
-  auto op_ = static_cast<float*>(out);
-#define BY_FMT(AF, BF)                                                       \
-  gemm_by_tile<AF, BF>(bn, op, ta, tb, tc, wsp, xsp, bp, op_, M, N, k_tiles, \
-                       act, promote, tma_store ? 1 : 0, s)
-  if (afmt == 0 && wfmt == 0)
-    err = BY_FMT(0, 0);
-  else if (afmt == 0)
-    err = BY_FMT(0, 1);
-  else if (wfmt == 0)
-    err = BY_FMT(1, 0);
+  auto outp = static_cast<float*>(out);
+  if (bn == 256)
+    err = launch_gemm<256, false>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
+                                  k_tiles, act, flags, s);
+  else if (staged)
+    err = launch_gemm<128, true>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
+                                 k_tiles, act, flags, s);
   else
-    err = BY_FMT(1, 1);
-#undef BY_FMT
+    err = launch_gemm<128, false>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
+                                  k_tiles, act, flags, s);
   return static_cast<int>(err);
 }
 

@@ -177,40 +177,21 @@ def _launch(lib, name, args, shape):
 
 
 def _bind(lib):
-    lib.fp8_matmul.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
+    lib.fp8_matmul.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     lib.fp8_matmul.restype = ctypes.c_int
     lib.fp8_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fp8_matmul_error_string.restype = ctypes.c_char_p
 
 
-#: bytes of K in one stage of the fp8 GEMM (one 128-byte swizzle row): the
-#: quantized copy of x has rows of K rounded up to it
-_K_TILE = 128
-#: k-blocks (32 values of K) the tensor core sums into a zeroed partial
-#: before it is added to the fp32 accumulator
-FP8_PROMOTE = 1
-_DEV = {"bn": 128, "op": 0}
+#: values of K in one stage of the GEMM (64 f16, one 128-byte swizzle
+#: row): the widened operands have rows of K rounded up to it
+_K_TILE = 64
+_DEV = {"bn": 128, "staged": 1, "flags": 0}
 
 
 def _round_up(n, m):
     return (n + m - 1) // m * m
-
-
-def _gemm_weight(w_q):
-    """``w_q``'s bytes as the GEMM reads them: ``(N, Kw)`` uint8 with a
-    row stride ``Kw`` that is a multiple of 16 (at least 16) on a 16-byte
-    address. That is ``w_q`` itself where it allows, else a copy padded
-    with zero columns: zero adds nothing to the fp8 dot, as the
-    reference's own padding of w (``_pad2``) adds nothing."""
-    n, k = w_q.shape
-    w8 = w_q.view(torch.uint8)
-    if k > 0 and k % 16 == 0 and w8.data_ptr() % 16 == 0:
-        return w8
-    padded = torch.zeros((n, max(_round_up(k, 16), 16)), dtype=torch.uint8,
-                         device=w_q.device)
-    padded[:, :k] = w8
-    return padded
 
 
 def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
@@ -237,19 +218,17 @@ def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
     if m == 0 or n == 0:
         return out
     xs = _scale_tensor(x_scale, x.device)
-    w8 = _gemm_weight(w_q)
     kp = _round_up(max(k, 1), _K_TILE)
-    op, bn = _DEV["op"], _DEV["bn"]
-    xq = torch.empty((m, kp * (1 + op)), dtype=torch.uint8, device=x.device)
-    w16 = (torch.empty((n, kp), dtype=torch.int16, device=x.device)
-           if op else None)
+    xq = torch.empty((m, kp), dtype=torch.float16, device=x.device)
+    wq = torch.empty((n, kp), dtype=torch.float16, device=x.device)
+    bn, staged = _DEV["bn"], _DEV["staged"] and n % 4 == 0
     lib = _native.load("fp8_matmul", _bind)
     _launch(lib, "fp8_matmul", (
-        x.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
+        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), None if w16 is None else w16.data_ptr(), m, n, k,
-        w8.shape[1], kp, _FMT_CODES[fmt], _FMT_CODES[_DTYPE_FMT[w_q.dtype]],
-        _ACT_CODES[act], FP8_PROMOTE, bn, op,
+        xq.data_ptr(), wq.data_ptr(), m, n, k, kp, _FMT_CODES[fmt],
+        _FMT_CODES[_DTYPE_FMT[w_q.dtype]], _ACT_CODES[act], bn,
+        int(staged and bn == 128), _DEV["flags"],
         torch.cuda.current_stream(x.device).cuda_stream),
         f"M={m} N={n} K={k} fmt={fmt}")
     fp8_matmul.launches += 1
