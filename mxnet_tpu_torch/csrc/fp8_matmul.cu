@@ -194,7 +194,7 @@ __device__ __forceinline__ int stage_index(int r, int c) {
          (c & 3);
 }
 
-enum Flags { kSkipMma = 1, kSkipStore = 2 };
+enum Flags { kSkipMma = 1, kSkipStore = 2, kSkipLoad = 4, kStreamStore = 8 };
 
 template <int BN, bool STAGED>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -240,9 +240,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
         for (int k = 0; k < k_tiles; ++k) {
           mbar_wait(&empty[s], ph ^ 1);
-          mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
-          tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems, m0);
-          tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems, n0);
+          if (flags & kSkipLoad) {
+            mbar_arrive(&full[s]);
+          } else {
+            mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
+            tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems, m0);
+            tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems, n0);
+          }
           if (++s == S) {
             s = 0;
             ph ^= 1;
@@ -334,7 +338,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             float* p = out + static_cast<size_t>(gr) * N + gc;
             if (gr < M) {
               if (gc + 1 < N && (N & 1) == 0) {
-                *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
+                if (flags & kStreamStore)
+                  __stcs(reinterpret_cast<float2*>(p), make_float2(o0, o1));
+                else
+                  *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
               } else {
                 if (gc < N) p[0] = o0;
                 if (gc + 1 < N) p[1] = o1;

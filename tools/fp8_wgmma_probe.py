@@ -10,7 +10,8 @@ to ``chiprun_out/fp8_probe_build.txt``, holds each variant against
 ``fp8_matmul_plain`` at ragged and training shapes (the largest err / sum
 |products| x |xs * ws| beside the tolerance of 2^-20, a second launch bit
 for bit), and times each at the three GPT-2 fp8 training shapes
-(``torch.profiler`` device ms by kernel). Needs one CUDA card.
+(``torch.profiler`` device ms by kernel) beside a fill and a copy of 25
+and 100 MiB. Needs one CUDA card.
 """
 import itertools
 import json
@@ -127,6 +128,17 @@ for bn, staged in CONFIGS:
 
 gen = torch.Generator(device=dev).manual_seed(7)
 one = torch.ones((), device=dev)
+for mb in (25, 100):
+    buf = torch.empty(mb * 2**20 // 4, device=dev)
+    src = torch.empty_like(buf)
+    print(f"fill {mb} MiB ms", cs.device_ms(lambda: buf.fill_(1.0), 30),
+          f"copy {mb} MiB ms", cs.device_ms(lambda: buf.copy_(src), 30),
+          flush=True)
+    del buf, src
+# flags: 1 skip products, 2 skip stores, 4 skip loads, 8 streaming stores
+VARIANTS = [(128, 1, 0), (128, 1, 3), (128, 1, 5), (128, 1, 6), (128, 1, 7),
+            (128, 0, 0), (128, 0, 5), (128, 0, 8), (128, 0, 13),
+            (256, 0, 0), (256, 0, 5)]
 for m, k, n in cs.FP8_TRAIN_SHAPES:
     sets = []
     for _ in range(3):
@@ -145,14 +157,12 @@ for m, k, n in cs.FP8_TRAIN_SHAPES:
 
     row = {"bound_ms": cs.fp8_bound_ms(m, k, n)[0],
            "composition_ms": cs.device_ms(call(composition), 30)}
-    for bn, staged in CONFIGS:
-        if "error" in summary.get(f"bn={bn} staged={staged}", {}):
-            continue
-        for flags in (0, 1, 2):
-            qm._DEV.update(bn=bn, staged=staged, flags=flags)
-            tot, top = cs.device_profile(call(qm.fp8_matmul), 30, top=3)
-            row[f"bn{bn} staged{staged} flags{flags}"] = [
-                round(tot, 5), [(t[0][:40], round(t[1], 5)) for t in top]]
+    for bn, staged, flags in VARIANTS:
+        qm._DEV.update(bn=bn, staged=staged, flags=flags)
+        tot, top = cs.device_profile(call(qm.fp8_matmul), 30, top=3)
+        row[f"bn{bn} staged{staged} flags{flags}"] = round(
+            [t[1] for t in top if "gemm" in t[0]][0], 5)
+        row["prepare"] = round([t[1] for t in top if "prepare" in t[0]][0], 5)
     qm._DEV.update(bn=128, staged=1, flags=0)
     print(f"times M={m} K={k} N={n}: " + json.dumps(row), flush=True)
     del sets, turn
