@@ -265,6 +265,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t ph = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
+      // the epilogue's column scales xs * ws[n] and biases, loaded now so
+      // that the main loop hides their latency
+      float col_s[BN / 4], col_b[BN / 4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gc = n0 + j * 8 + (lane & 3) * 2 + e;
+          col_s[2 * j + e] = gc < N ? __fmul_rn(xs, ws[gc]) : 0.f;
+          col_b[2 * j + e] = bias != nullptr && gc < N ? bias[gc] : 0.f;
+        }
+      }
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -310,15 +322,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < BN / 8; ++j) {
         const int col = j * 8 + (lane & 3) * 2;
         const int gc = n0 + col;
-        float s0 = 0.f, s1 = 0.f, b0 = 0.f, b1 = 0.f;
-        if (gc < N) {
-          s0 = __fmul_rn(xs, ws[gc]);
-          if (bias != nullptr) b0 = bias[gc];
-        }
-        if (gc + 1 < N) {
-          s1 = __fmul_rn(xs, ws[gc + 1]);
-          if (bias != nullptr) b1 = bias[gc + 1];
-        }
+        const float s0 = col_s[2 * j], s1 = col_s[2 * j + 1];
+        const float b0 = col_b[2 * j], b1 = col_b[2 * j + 1];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = warp * 16 + (lane >> 2) + h * 8;

@@ -194,6 +194,25 @@ def _round_up(n, m):
     return (n + m - 1) // m * m
 
 
+def fp8_operands_plain(x, w_q, x_scale, fmt="e4m3"):
+    """The operands the kernel's GEMM reads, in plain PyTorch (what its
+    prepare pass writes): ``quantize(x / x_scale, fmt)`` and ``w_q``, each
+    widened to float16 (exact: float16 holds every e4m3fn and e5m2 value,
+    NaN and inf included) and padded with zero columns to ``Kp``, K rounded
+    up to the GEMM's k-tile of 64 values (a 128-byte row), so every row
+    starts on 16 bytes. Zero adds nothing to the dot, as the reference's
+    own padding of w (``_pad2``) adds nothing. Returns ``(xq (M, Kp),
+    wq (N, Kp))``."""
+    m, k = x.shape
+    kp = _round_up(max(k, 1), _K_TILE)
+    xq = x.new_zeros((m, kp), dtype=torch.float16)
+    xq[:, :k] = quantize(x.float() / _scale_tensor(x_scale, x.device),
+                         fmt).to(torch.float16)
+    wq = x.new_zeros((w_q.shape[0], kp), dtype=torch.float16)
+    wq[:, :k] = w_q.to(torch.float16)
+    return xq, wq
+
+
 def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
     """``act(dequant(fp8(x / x_scale) @ w_q.T) + bias)`` in one pass.
 
