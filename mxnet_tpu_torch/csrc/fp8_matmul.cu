@@ -58,81 +58,63 @@ __device__ __forceinline__ uint32_t widen(uint32_t q) {
       .x;
 }
 
-__device__ __forceinline__ void store16(uint16_t* dst, const uint32_t (&h)[16]) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  d[0] = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
-                    h[4] | (h[5] << 16), h[6] | (h[7] << 16));
-  d[1] = make_uint4(h[8] | (h[9] << 16), h[10] | (h[11] << 16),
-                    h[12] | (h[13] << 16), h[14] | (h[15] << 16));
-}
-
-// The GEMM's operands, both (rows, Kp) f16 with zero columns K..Kp-1:
-// blocks [0, x_blocks) write xq = f16(fp8(x / xs)) for x (M, K) fp32,
-// the others wq = f16(w) for w (N, K) fp8. One thread a 16-value chunk,
-// with 16-byte loads where the chunk lies in the row and on 16 bytes.
+// The GEMM's operands, both (rows, Kp) f16 with zero columns K..Kp-1: xq =
+// f16(fp8(x / xs)) for x (M, K) fp32 and wq = f16(w) for w (N, K) fp8.
+// One index space of 8-value chunks, x's rows first, walked by a grid
+// that fills the card once: 16-byte loads where a chunk lies in its row
+// and on 16 bytes, one 16-byte store a chunk.
 template <int AF, int BF>
 __global__ void __launch_bounds__(kQThreads)
     prepare_kernel(const float* __restrict__ x,
                    const float* __restrict__ xs_ptr,
                    const uint8_t* __restrict__ w, uint16_t* __restrict__ xq,
-                   uint16_t* __restrict__ wq, int M, int N, int K, int Kp,
-                   int x_blocks) {
-  const int chunks = Kp / 16;
-  if (static_cast<int>(blockIdx.x) < x_blocks) {
-    const float xs = *xs_ptr;
-    const long long total = static_cast<long long>(M) * chunks;
-    for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
-                       threadIdx.x;
-         i < total; i += static_cast<long long>(x_blocks) * kQThreads) {
-      const int r = static_cast<int>(i / chunks);
-      const int c =
-          static_cast<int>(i - static_cast<long long>(r) * chunks) * 16;
+                   uint16_t* __restrict__ wq, int M, int N, int K, int Kp) {
+  const int chunks = Kp / 8;
+  const long long x_items = static_cast<long long>(M) * chunks;
+  const long long total = x_items + static_cast<long long>(N) * chunks;
+  const float xs = *xs_ptr;
+  for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * kQThreads) {
+    const bool is_x = i < x_items;
+    const long long item = is_x ? i : i - x_items;
+    const int r = static_cast<int>(item / chunks);
+    const int c = static_cast<int>(item - static_cast<long long>(r) * chunks) * 8;
+    uint32_t h[8];
+    if (is_x) {
       const float* src = x + static_cast<size_t>(r) * K + c;
-      float v[16];
-      if (c + 16 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 f = reinterpret_cast<const float4*>(src)[j];
-          v[4 * j] = f.x;
-          v[4 * j + 1] = f.y;
-          v[4 * j + 2] = f.z;
-          v[4 * j + 3] = f.w;
-        }
+      float v[8];
+      if (c + 8 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const float4 f0 = reinterpret_cast<const float4*>(src)[0];
+        const float4 f1 = reinterpret_cast<const float4*>(src)[1];
+        v[0] = f0.x; v[1] = f0.y; v[2] = f0.z; v[3] = f0.w;
+        v[4] = f1.x; v[5] = f1.y; v[6] = f1.z; v[7] = f1.w;
       } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) v[j] = c + j < K ? src[j] : 0.f;
+        for (int j = 0; j < 8; ++j) v[j] = c + j < K ? src[j] : 0.f;
       }
-      uint32_t h[16];
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < 8; ++j)
         h[j] = c + j < K ? widen<AF>(to_fp8<AF>(__fdiv_rn(v[j], xs))) : 0u;
-      store16(xq + static_cast<size_t>(r) * Kp + c, h);
-    }
-  } else {
-    const int blocks = gridDim.x - x_blocks;
-    const long long total = static_cast<long long>(N) * chunks;
-    for (long long i = static_cast<long long>(blockIdx.x - x_blocks) *
-                           kQThreads + threadIdx.x;
-         i < total; i += static_cast<long long>(blocks) * kQThreads) {
-      const int r = static_cast<int>(i / chunks);
-      const int c =
-          static_cast<int>(i - static_cast<long long>(r) * chunks) * 16;
+    } else {
       const uint8_t* src = w + static_cast<size_t>(r) * K + c;
-      uint32_t b[16];
-      if (c + 16 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        const uint4 u = *reinterpret_cast<const uint4*>(src);
-        const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+      uint32_t b[8];
+      if (c + 8 <= K && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+        const uint2 u = *reinterpret_cast<const uint2*>(src);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) b[j] = (words[j >> 2] >> (8 * (j & 3))) & 0xFF;
+        for (int j = 0; j < 8; ++j)
+          b[j] = ((j < 4 ? u.x : u.y) >> (8 * (j & 3))) & 0xFFu;
       } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) b[j] = c + j < K ? src[j] : 0u;
+        for (int j = 0; j < 8; ++j) b[j] = c + j < K ? src[j] : 0u;
       }
-      uint32_t h[16];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) h[j] = c + j < K ? widen<BF>(b[j]) : 0u;
-      store16(wq + static_cast<size_t>(r) * Kp + c, h);
+      for (int j = 0; j < 8; ++j) h[j] = c + j < K ? widen<BF>(b[j]) : 0u;
     }
+    uint16_t* dst = (is_x ? xq : wq) + static_cast<size_t>(r) * Kp + c;
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                   h[4] | (h[5] << 16), h[6] | (h[7] << 16));
   }
 }
 
@@ -371,6 +353,156 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// Ping-pong: each consumer warpgroup owns whole 128 x 128 tiles (two
+// m64 row blocks), the two take turns, so one's epilogue overlaps the
+// other's main loop; stores straight from the accumulators.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    fp8_gemm_pingpong(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_b,
+                      const float* __restrict__ ws,
+                      const float* __restrict__ xs_ptr,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      int M, int N, int k_tiles, int act) {
+  using T = Tile<BN, false>;
+  constexpr int S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* const sa = smem;
+  uint8_t* const sb = sa + S * T::kABytes;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sb + S * T::kBBytes);
+  uint64_t* const empty = full + S;
+  float* const cols = reinterpret_cast<float*>(empty + S);  // [2][2][BN]
+
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each warp of the consumer
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
+        for (int k = 0; k < k_tiles; ++k) {
+          mbar_wait(&empty[s], ph ^ 1);
+          mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
+          tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems, m0);
+          tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems, n0);
+          if (++s == S) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    float* const col_ws = cols + c * 2 * BN;
+    float* const col_b = col_ws + BN;
+    const float xs = *xs_ptr;
+    for (int i = c;; i += 2) {
+      const int t = blockIdx.x + i * gridDim.x;
+      if (t >= tiles) break;
+      const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
+      // this tile's w scales and biases, copied while the main loop runs
+      named_barrier(1 + c, 128);
+      for (int j = tid; j < BN; j += 128) {
+        const bool ok = n0 + j < N;
+        cp_async4(col_ws + j, ok ? ws + n0 + j : ws, ok);
+        if (bias != nullptr) cp_async4(col_b + j, ok ? bias + n0 + j : bias, ok);
+      }
+      float acc0[BN / 2], acc1[BN / 2];
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc0[e] = acc1[e] = 0.f;
+      // main loops take turns: wait until the other consumer has taken
+      // the previous tile's last stage, so that each full barrier is
+      // waited on at most one phase ahead
+      if (i > 0) named_barrier(3 + c, 256);
+      const long long q0 = static_cast<long long>(i) * k_tiles;
+      int s = static_cast<int>(q0 % S);
+      uint32_t ph = static_cast<uint32_t>((q0 / S) & 1);
+      int prev = -1;
+      for (int k = 0; k < k_tiles; ++k) {
+        mbar_wait(&full[s], ph);
+        const uint64_t da = desc_sw128(sa + s * T::kABytes);
+        const uint64_t db = desc_sw128(sb + s * T::kBBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kb = 0; kb < kKBytes / 32; ++kb) {
+          wgmma<BN>(acc0, da + 2 * kb, db + 2 * kb, 1);
+          wgmma<BN>(acc1, da + (64 * kKBytes >> 4) + 2 * kb, db + 2 * kb, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      if (blockIdx.x + (i + 1) * gridDim.x < tiles) named_arrive(4 - c, 256);
+      wgmma_wait<0>();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      cp_async_wait_all();
+      named_barrier(1 + c, 128);
+
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = j * 8 + (lane & 3) * 2;
+        const int gc = n0 + col;
+        const float s0 = __fmul_rn(xs, col_ws[col]);
+        const float s1 = __fmul_rn(xs, col_ws[col + 1]);
+        const float b0 = bias != nullptr ? col_b[col] : 0.f;
+        const float b1 = bias != nullptr ? col_b[col + 1] : 0.f;
+#pragma unroll
+        for (int rb = 0; rb < 2; ++rb) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gr = m0 + rb * 64 + warp * 16 + (lane >> 2) + h * 8;
+            const float a0 = rb == 0 ? acc0[4 * j + 2 * h] : acc1[4 * j + 2 * h];
+            const float a1 =
+                rb == 0 ? acc0[4 * j + 2 * h + 1] : acc1[4 * j + 2 * h + 1];
+            float o0 = __fmul_rn(a0, s0), o1 = __fmul_rn(a1, s1);
+            if (bias != nullptr) {
+              o0 = __fadd_rn(o0, b0);
+              o1 = __fadd_rn(o1, b1);
+            }
+            o0 = quant_mma::activate(o0, act);
+            o1 = quant_mma::activate(o1, act);
+            if (gr < M) {
+              float* p = out + static_cast<size_t>(gr) * N + gc;
+              if (gc + 1 < N && (N & 1) == 0) {
+                *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
+              } else {
+                if (gc < N) p[0] = o0;
+                if (gc + 1 < N) p[1] = o1;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 int sm_count() {
   static const int n = [] {
     int dev = 0, v = 0;
@@ -408,13 +540,26 @@ template <int AF, int BF>
 void launch_prepare(const float* x, const float* xs, const uint8_t* w,
                     uint16_t* xq, uint16_t* wq, int M, int N, int K, int Kp,
                     cudaStream_t s) {
-  const int chunks = Kp / 16;
-  const int xb = blocks_for(static_cast<long long>(M) * chunks,
-                            sm_count() * 16);
-  const int wb = blocks_for(static_cast<long long>(N) * chunks,
-                            sm_count() * 2);
-  prepare_kernel<AF, BF><<<xb + wb, kQThreads, 0, s>>>(x, xs, w, xq, wq, M, N,
-                                                        K, Kp, xb);
+  const long long items = static_cast<long long>(M + N) * (Kp / 8);
+  prepare_kernel<AF, BF><<<blocks_for(items, sm_count() * 8), kQThreads, 0,
+                           s>>>(x, xs, w, xq, wq, M, N, K, Kp);
+}
+
+cudaError_t launch_pingpong(const CUtensorMap& ta, const CUtensorMap& tb,
+                            const float* ws, const float* xs,
+                            const float* bias, float* out, int M, int N,
+                            int k_tiles, int act, cudaStream_t s) {
+  using T = Tile<128, false>;
+  constexpr int smem = T::kSmem + 4 * 128 * 4;
+  auto kern = fp8_gemm_pingpong<128>;
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + 127) / 128);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  kern<<<grid, kThreads, smem, s>>>(ta, tb, ws, xs, bias, out, M, N, k_tiles,
+                                    act);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -476,7 +621,9 @@ int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
   auto wsp = static_cast<const float*>(ws);
   auto bp = static_cast<const float*>(bias);
   auto outp = static_cast<float*>(out);
-  if (bn == 256)
+  if (flags & 16)
+    err = launch_pingpong(ta, tb, wsp, xsp, bp, outp, M, N, k_tiles, act, s);
+  else if (bn == 256)
     err = launch_gemm<256, false>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
                                   k_tiles, act, flags, s);
   else if (staged)
