@@ -68,7 +68,8 @@ __global__ void __launch_bounds__(kQThreads)
     prepare_kernel(const float* __restrict__ x,
                    const float* __restrict__ xs_ptr,
                    const uint8_t* __restrict__ w, uint16_t* __restrict__ xq,
-                   uint16_t* __restrict__ wq, int M, int N, int K, int Kp) {
+                   uint16_t* __restrict__ wq, int M, int N, int K, int Kp,
+                   int flags) {
   const int chunks = Kp / 8;
   const long long x_items = static_cast<long long>(M) * chunks;
   const long long total = x_items + static_cast<long long>(N) * chunks;
@@ -95,7 +96,9 @@ __global__ void __launch_bounds__(kQThreads)
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        h[j] = c + j < K ? widen<AF>(to_fp8<AF>(__fdiv_rn(v[j], xs))) : 0u;
+        h[j] = c + j < K ? widen<AF>(to_fp8<AF>(
+                               flags & 128 ? v[j] * xs : __fdiv_rn(v[j], xs)))
+                         : 0u;
     } else {
       const uint8_t* src = w + static_cast<size_t>(r) * K + c;
       uint32_t b[8];
@@ -218,9 +221,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int s = 0;
       uint32_t ph = 0;
+      const int groups = flags & 64 ? 4 : flags & 32 ? 2 : 1;
+      const int k_start = (blockIdx.x % groups) * k_tiles / groups;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
-        for (int k = 0; k < k_tiles; ++k) {
+        for (int kk = 0; kk < k_tiles; ++kk) {
+          const int k = (kk + k_start) % k_tiles;
           mbar_wait(&empty[s], ph ^ 1);
           if (flags & kSkipLoad) {
             mbar_arrive(&full[s]);
@@ -539,10 +545,10 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
 template <int AF, int BF>
 void launch_prepare(const float* x, const float* xs, const uint8_t* w,
                     uint16_t* xq, uint16_t* wq, int M, int N, int K, int Kp,
-                    cudaStream_t s) {
+                    int flags, cudaStream_t s) {
   const long long items = static_cast<long long>(M + N) * (Kp / 8);
   prepare_kernel<AF, BF><<<blocks_for(items, sm_count() * 8), kQThreads, 0,
-                           s>>>(x, xs, w, xq, wq, M, N, K, Kp);
+                           s>>>(x, xs, w, xq, wq, M, N, K, Kp, flags);
 }
 
 cudaError_t launch_pingpong(const CUtensorMap& ta, const CUtensorMap& tb,
@@ -591,13 +597,13 @@ int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
   auto xqp = static_cast<uint16_t*>(xq);
   auto wqp = static_cast<uint16_t*>(wq);
   if (afmt == 0 && wfmt == 0)
-    launch_prepare<0, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
+    launch_prepare<0, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
   else if (afmt == 0)
-    launch_prepare<0, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
+    launch_prepare<0, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
   else if (wfmt == 0)
-    launch_prepare<1, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
+    launch_prepare<1, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
   else
-    launch_prepare<1, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
+    launch_prepare<1, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
