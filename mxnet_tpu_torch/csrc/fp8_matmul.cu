@@ -241,6 +241,37 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
+    } else if (STAGED && (flags & 256) && threadIdx.x >= 32) {
+      // storer warps 1-3: copy each staged half tile to the output with
+      // 16-byte stores, while the consumers run the next main loop
+      const int st = threadIdx.x - 32;
+      named_arrive(5, 224);
+      named_arrive(6, 224);
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
+        for (int c = 0; c < 2; ++c) {
+          named_barrier(3 + c, 224);
+          const float* stage = sc + c * 64 * BN;
+          for (int i = st; i < 64 * BN / 4; i += 96) {
+            const int r = i / (BN / 4), col = (i - r * (BN / 4)) * 4;
+            const int gr = m0 + c * 64 + r, gc = n0 + col;
+            const float4 v =
+                *reinterpret_cast<const float4*>(stage + stage_index(r, col));
+            if (gr < M) {
+              float* p = out + static_cast<size_t>(gr) * N + gc;
+              if (gc + 3 < N && (N & 3) == 0) {
+                *reinterpret_cast<float4*>(p) = v;
+              } else {
+                if (gc < N) p[0] = v.x;
+                if (gc + 1 < N) p[1] = v.y;
+                if (gc + 2 < N) p[2] = v.z;
+                if (gc + 3 < N) p[3] = v.w;
+              }
+            }
+          }
+          if (t + gridDim.x < tiles) named_arrive(5 + c, 224);
+        }
+      }
     }
   } else {
     reg_alloc<232>();
@@ -302,7 +333,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 
       // epilogue: act(acc * (xs * ws[n]) + bias[n])
-      if (STAGED) {
+      if (STAGED && (flags & 256)) {
+        named_barrier(5 + c, 224);  // the storer has drained this half
+      } else if (STAGED) {
         if (tid == 0) tma_store_wait_read();
         named_barrier(1 + c, 128);
       }
@@ -343,7 +376,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      if (STAGED) {
+      if (STAGED && (flags & 256)) {
+        named_arrive(3 + c, 224);
+      } else if (STAGED) {
         fence_async_shared();
         named_barrier(1 + c, 128);
         if (tid == 0) {
@@ -355,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    if (STAGED && tid == 0) tma_store_wait();
+    if (STAGED && !(flags & 256) && tid == 0) tma_store_wait();
   }
 }
 
