@@ -232,8 +232,18 @@ __global__ void __launch_bounds__(kThreads, 1)
             mbar_arrive(&full[s]);
           } else {
             mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
-            tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems, m0);
-            tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems, n0);
+            if (flags & 512) {
+              const uint64_t keep = policy_evict_last();
+              tma_load_2d_hint(sa + s * T::kABytes, &tm_a, &full[s],
+                               k * kKElems, m0, keep);
+              tma_load_2d_hint(sb + s * T::kBBytes, &tm_b, &full[s],
+                               k * kKElems, n0, keep);
+            } else {
+              tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems,
+                          m0);
+              tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems,
+                          n0);
+            }
           }
           if (++s == S) {
             s = 0;
@@ -383,9 +393,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         named_barrier(1 + c, 128);
         if (tid == 0) {
 #pragma unroll
-          for (int b = 0; b < BN / 32; ++b)
-            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
-                         m0 + c * 64);
+          for (int b = 0; b < BN / 32; ++b) {
+            if (flags & 1024)
+              tma_store_2d_hint(&tm_c, stage + b * 64 * 32, n0 + b * 32,
+                                m0 + c * 64, policy_evict_first());
+            else
+              tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
+                           m0 + c * 64);
+          }
           tma_store_commit();
         }
       }

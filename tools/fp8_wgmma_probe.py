@@ -89,7 +89,7 @@ def case(m, n, k, fmt, wfmt="e4m3", act=None, bias=False, overflow=False,
 
 
 # (tile width, staged epilogue, flags); flags 16: ping-pong consumers
-CONFIGS = [(128, 1, 256), (128, 0, 256)]
+CONFIGS = [(128, 1, 1536)]
 SHAPES = [(1, 5, 100), (37, 130, 256), (130, 5, 100), (200, 300, 768),
           (127, 127, 100), (129, 129, 784), (129, 257, 784), (255, 255, 64),
           (8192, 768, 768), (8192, 3072, 768), (8192, 768, 3072)]
@@ -139,8 +139,10 @@ for mb in (25, 100):
 # flags: 1 skip products, 2 skip stores, 4 skip loads, 8 streaming stores,
 # 16 ping-pong consumers, 32 / 64 each block's K walk rotated by a half /
 # quarter by block, 128 (timing only) x times 1 / xs instead of x / xs,
-# 256 storer warps copy the staged tile out with 16-byte stores
-VARIANTS = [(128, 1, 0), (128, 1, 256), (128, 1, 0), (128, 1, 256)]
+# 256 storer warps copy the staged tile out with 16-byte stores, 512 TMA
+# loads kept in L2 (evict_last), 1024 TMA stores evicted first
+VARIANTS = [(128, 1, 0), (128, 1, 512), (128, 1, 1024), (128, 1, 1536),
+            (128, 1, 0), (128, 1, 512), (128, 1, 1024), (128, 1, 1536)]
 for m, k, n in cs.FP8_TRAIN_SHAPES:
     sets = []
     for _ in range(3):
@@ -159,6 +161,14 @@ for m, k, n in cs.FP8_TRAIN_SHAPES:
 
     row = {"bound_ms": cs.fp8_bound_ms(m, k, n)[0],
            "composition_ms": cs.device_ms(call(composition), 30)}
+    xq8 = (sets[0][0] / sets[0][3]).to(torch.float8_e4m3fn)
+    w8t = sets[0][1].t()
+    row["scaled_mm_alone_ms"] = cs.device_ms(lambda: torch._scaled_mm(
+        xq8, w8t, scale_a=one, scale_b=one, out_dtype=torch.float32), 30)
+    x16, w16 = xq8.to(torch.float16), sets[0][1].to(torch.float16)
+    row["f16_mm_fp32_out_ms"] = cs.device_ms(
+        lambda: torch.mm(x16, w16.t(), out_dtype=torch.float32)
+        if "out_dtype" in torch.mm.__doc__ else torch.mm(x16, w16.t()), 30)
     for bn, staged, flags in VARIANTS:
         qm._DEV.update(bn=bn, staged=staged, flags=flags)
         tot, top = cs.device_profile(call(qm.fp8_matmul), 30, top=3)
