@@ -12,8 +12,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    the build time, each kernel's ptxas registers and spills, the card and
    CUDA, and the count of tensor-core instructions (HMMA / HGMMA, from
    ``cuobjdump -sass`` beside ``nvcc``) in each of the 24 flash kernels
-   (forward, dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64 / 128): the run
-   fails if one has none. Every phase prints its wall time.
+   (forward, dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64 / 128) and of
+   ``wgmma`` instructions (HGMMA) in the two fp8 GEMM kernels (TMA-store
+   and direct-store epilogue): the run fails if one has none, or if an
+   fp8 matmul kernel spills. Every phase prints its wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 16, 32 and 128 (seq
@@ -44,16 +46,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    mean by up to ~2e-5); bf16 rtol 2^-7 (one bf16 ulp of
    the output) plus atol 2^-10 of the largest |value| (a value on a
    rounding boundary may round the other way).
-2d. The fp8 matmul kernel against its plain version (the JAX cast rule,
-   an fp32 matmul of the fp8 values, the same epilogue): M/N/K 1/5/100,
-   37/130/256 and 130/5/100, e4m3 and e5m2, every activation, with and
-   without bias; inputs past the format's top (the same NaN and inf
-   positions); and the three fp8 training shapes (M, K, N) = (8192, 768,
-   768), (8192, 768, 3072), (8192, 3072, 768). Tolerance: |err| <= 2^-20
-   of the sum of |products| x |x_scale * w_scale| plus 1e-6 of |out|
-   (exact fp8 products summed in the tensor core's fp32 accumulator in
-   another order; the largest err / that sum read 6.1e-8, about 2^-24,
-   on the H100); the largest err / that sum is printed.
+2d. The fp8 matmul kernels (prepare pass and GEMM) against their plain
+   version (the JAX cast rule, an fp32 matmul of the fp8 values, the same
+   epilogue): M/N/K 1/5/100, 37/130/256 and 130/5/100, e4m3 and e5m2,
+   every activation, with and without bias; inputs past the format's top
+   (the same NaN and inf positions); ragged edges of the GEMM's 128 x 128
+   tile and 64-value k-tile (``FP8_RAGGED``: M and N of tile +- 1, N % 4
+   != 0 for the direct-store epilogue, K = 100 and 784); x 4 bytes into
+   its buffer; all four format pairs at (200, 300, 768); and the three fp8
+   training shapes (M, K, N) = (8192, 768, 768), (8192, 768, 3072),
+   (8192, 3072, 768), where a second launch must agree bit for bit.
+   Tolerance: |err| <= 2^-20 of the sum of |products| x |x_scale *
+   w_scale| plus 1e-6 of |out| (exact products of the fp8 values, widened
+   to f16, summed in the tensor core's fp32 accumulator in another order;
+   the largest err / that sum read 8.4e-8, about 2^-23.5, on the H100);
+   the largest err / that sum is printed.
 2e. The int8 matmul kernel against its plain version (``quantize_int8``,
    the int8 product summed exactly as float64, the same epilogue): (M, K,
    N) = (1, 100, 5), (37, 256, 130), (130, 100, 5), (64, 200, 70) (K not a
@@ -166,12 +173,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``torch.profiler``) and peak memory of both.
 10. fp8 matmul kernel times at the three training shapes (fp32 x, e4m3 w,
    no bias, no activation; three input sets in turn, so that the working
-   set exceeds the 50 MB L2): device ms of the kernel, of its plain
+   set exceeds the 50 MB L2): device ms of the kernel's call (prepare
+   pass and GEMM) and of the prepare pass on its own, of its plain
    version and of the composition quantize -> ``torch._scaled_mm`` ->
    epilogue (a yardstick only, never used by the port; null where the
    card's torch has no ``_scaled_mm``), beside the bound: bytes (x read,
    w read, out written) over 3.35 TB/s against 2 M N K over the 1979
-   TFLOP/s dense fp8 rate.
+   TFLOP/s dense fp8 rate; and the call's TFLOP/s and its share of the
+   bound.
 11. int8 inference of BERT-base at full width, the int8 slice's main
    path: ``bert_12_768_12`` (vocab 30522, 768 units, FFN 3072, 12 layers,
    12 heads, max_length 512, fp32, seeded Uniform(0.07) weights) through
@@ -288,6 +297,12 @@ FP8_TOL_SHARE = 2.0 ** -20  # of the sum of |products| x |xs * ws|
 FP8_TOL_REL = 1e-6
 FP8_SITES_PER_STEP = 72  # 12 layers x (query, key, value, out, ffn_1, ffn_2)
 FP8_TRAIN_SHAPES = [(8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768)]
+# (M, N, K) around the kernel's 128 x 128 output tile and 64-value k-tile:
+# M and N of tile +- 1, N % 4 != 0, K = 100 (padded) and 784 (a partial
+# last k-tile)
+FP8_RAGGED = [(127, 127, 784), (129, 129, 784), (128, 128, 768),
+              (129, 132, 100), (127, 124, 100), (255, 130, 784),
+              (1, 768, 784), (257, 3, 100)]
 # fp8 step loss vs the fp32 forward of the same weights: ~10x the largest
 # reading, 3.1e-4, on an H100 SXM (NVIDIA H100 80GB HBM3, 700 W)
 FP8_SAME_WEIGHTS_TOL = 5e-3
@@ -464,12 +479,8 @@ def ptxas_summary(log):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            if "fp8_matmul" in mangled:
-                tpl = re.search(r"ILi(\d)ELi(\d)ELb(\d)E", mangled)
-                fmts = ("e4m3", "e5m2")
-                name = (f"fp8_matmul x {fmts[int(tpl[1])]} w "
-                        f"{fmts[int(tpl[2])]} vec={tpl[3]}" if tpl
-                        else "fp8_matmul ?")
+            if "fp8_matmul_cu" in mangled:
+                name = fp8_kernel_name(mangled)
                 continue
             if "int8_matmul" in mangled:
                 vec = re.search(r"ILb(\d)E", mangled)
@@ -514,10 +525,36 @@ def flash_kernel_name(mangled):
     return f"{kind} {dtype} d={dim.group(1) if dim else '?'}"
 
 
-def tensor_core_counts(lib):
-    """{kernel: count of HMMA / HGMMA SASS instructions} of the flash
-    kernels in a built library, from ``cuobjdump -sass`` beside
-    ``nvcc``."""
+def fp8_kernel_name(mangled):
+    """``fp8_prepare x e4m3 w e5m2`` or ``fp8_gemm tma store`` for a
+    mangled kernel name of ``fp8_matmul.cu``."""
+    fmts = ("e4m3", "e5m2")
+    tpl = re.search(r"fp8_prepare_kernelILi(\d)ELi(\d)E", mangled)
+    if tpl:
+        return f"fp8_prepare x {fmts[int(tpl[1])]} w {fmts[int(tpl[2])]}"
+    tpl = re.search(r"fp8_gemm_kernelILb(\d)E", mangled)
+    if tpl:
+        return f"fp8_gemm {'tma' if tpl[1] == '1' else 'direct'} store"
+    return "fp8_matmul ?"
+
+
+def spill_bytes(log, namer):
+    """{kernel: spill store bytes} from a ptxas report, for the kernels
+    ``namer`` names."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = namer(line.split("'")[1])
+        elif name and "spill stores" in line:
+            out[name] = max(out.get(name, 0), int(
+                re.search(r"(\d+) bytes spill stores", line)[1]))
+    return out
+
+
+def tensor_core_counts(lib, namer, pattern=r"\bHG?MMA\."):
+    """{kernel: count of tensor-core SASS instructions (HMMA / HGMMA, or
+    ``pattern``)} of the kernels ``namer`` names in a built library, from
+    ``cuobjdump -sass`` beside ``nvcc``."""
     from pathlib import Path
 
     from mxnet_tpu_torch import _native
@@ -528,14 +565,21 @@ def tensor_core_counts(lib):
     counts, name = {}, None
     for line in res.stdout.splitlines():
         if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            name = (flash_kernel_name(mangled)
-                    if re.search(r"flash_(bwd|fwd)_", mangled) else None)
+            name = namer(line.split("Function :")[1].strip())
             if name:
                 counts[name] = 0
-        elif name and re.search(r"\bHG?MMA\.", line):
+        elif name and re.search(pattern, line):
             counts[name] += 1
     return counts
+
+
+def flash_name(mangled):
+    return (flash_kernel_name(mangled)
+            if re.search(r"flash_(bwd|fwd)_", mangled) else None)
+
+
+def fp8_gemm_name(mangled):
+    return fp8_kernel_name(mangled) if "fp8_gemm_kernel" in mangled else None
 
 
 def phase_build():
@@ -558,8 +602,8 @@ def phase_build():
             if "error" in line or "warning" in line:
                 print(f"  {line.strip()}")
     print(f"build seconds: {dt:.2f}")
-    counts = {**tensor_core_counts(libs["flash_attention_fwd"]),
-              **tensor_core_counts(libs["flash_attention_bwd"])}
+    counts = {**tensor_core_counts(libs["flash_attention_fwd"], flash_name),
+              **tensor_core_counts(libs["flash_attention_bwd"], flash_name)}
     want = {f"{kind} {dtype} d={d}" for kind in ("fwd", "dkv", "dq")
             for dtype in ("fp32", "bf16") for d in (16, 32, 64, 128)}
     print("tensor-core SASS (HMMA/HGMMA) in the flash kernels: "
@@ -568,6 +612,18 @@ def phase_build():
                                f"{sorted(counts)}, expected {sorted(want)}")
     check(all(counts.values()), "a flash kernel has no tensor-core "
                                 f"instruction: {counts}")
+    hgmma = tensor_core_counts(libs["fp8_matmul"], fp8_gemm_name,
+                               r"\bHGMMA\.")
+    print("wgmma SASS (HGMMA) in the fp8 GEMM kernels: "
+          + ", ".join(f"{n} {c}" for n, c in sorted(hgmma.items())))
+    check(set(hgmma) == {"fp8_gemm tma store", "fp8_gemm direct store"}
+          and all(hgmma.values()), f"fp8 GEMM kernels without HGMMA: {hgmma}")
+    log = _native.build_logs.get("fp8_matmul")
+    if log is not None:
+        spills = spill_bytes(log, lambda m: fp8_kernel_name(m)
+                             if "fp8_matmul_cu" in m else None)
+        check(spills and not any(spills.values()),
+              f"an fp8 matmul kernel spills: {spills}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1412,15 +1468,20 @@ def phase_ln_times(dev, card):
     return rows
 
 
-def fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow=False):
+def fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow=False, wfmt=None,
+               offset=False):
     """Seeded (x, w_q, ws, xs) of one fp8 matmul case: w quantized per
-    output channel, xs mapping max |x| onto the format's top; with
-    ``overflow`` two values of x past the top after x / xs."""
+    output channel (in ``wfmt``, by default ``fmt``), xs mapping max |x|
+    onto the format's top; with ``overflow`` two values of x past the top
+    after x / xs; ``offset`` puts x 4 bytes into its buffer (contiguous,
+    not 16-byte aligned)."""
     _, absmax = qm.FP8_FORMATS[fmt]
-    x = torch.randn(m, k, device=dev, generator=gen)
+    wfmt = wfmt or fmt
+    buf = torch.randn(m * k + 1, device=dev, generator=gen)
+    x = (buf[1:] if offset else buf[:-1]).view(m, k)
     w = torch.randn(n, k, device=dev, generator=gen) * 0.5
-    ws = w.abs().amax(dim=1) / absmax
-    wq = qm.quantize(w / ws[:, None], fmt)
+    ws = w.abs().amax(dim=1) / qm.FP8_FORMATS[wfmt][1]
+    wq = qm.quantize(w / ws[:, None], wfmt)
     xs = x.abs().max().item() / absmax
     if overflow:
         x[0, 3] = 2.5 * absmax * xs
@@ -1429,15 +1490,23 @@ def fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow=False):
 
 
 def fp8_case(qm, dev, gen, m, n, k, fmt, act=None, bias=False,
-             overflow=False):
+             overflow=False, wfmt=None, offset=False, repeat=False):
     """The fp8 kernel against its plain version on the same inputs: (max
-    |err| over the finite values, max err / sum of |products|)."""
-    x, wq, ws, xs = fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow)
+    |err| over the finite values, max err / sum of |products|); with
+    ``repeat`` a second launch must agree bit for bit."""
+    x, wq, ws, xs = fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow, wfmt,
+                               offset)
     b = torch.randn(n, device=dev, generator=gen) if bias else None
     out = qm.fp8_matmul(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+    tag = (f"M={m} N={n} K={k} {fmt} x {wfmt or fmt} act={act} bias={bias}"
+           + (" x+4 bytes" if offset else ""))
+    if repeat:
+        again = qm.fp8_matmul(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
+        torch.cuda.synchronize()
+        check(torch.equal(out.view(torch.int32), again.view(torch.int32)),
+              f"fp8_matmul {tag}: a second launch differs")
     torch.cuda.synchronize()
     ref = qm.fp8_matmul_plain(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
-    tag = f"M={m} N={n} K={k} {fmt} act={act} bias={bias}"
     check(torch.equal(torch.isnan(out), torch.isnan(ref))
           and torch.equal(torch.isinf(out), torch.isinf(ref))
           and torch.equal(out[torch.isinf(out)], ref[torch.isinf(ref)]),
@@ -1455,7 +1524,8 @@ def fp8_case(qm, dev, gen, m, n, k, fmt, act=None, bias=False,
     e = err.max().item() if err.numel() else 0.0
     share = (err / mag.clamp_min(1e-30)).max().item() if err.numel() else 0.0
     print(f"  {tag}{' overflow' if overflow else ''}: max|err| {e:.3e}, "
-          f"err/sum|products| {share:.2e} {'ok' if ok else 'FAIL'}")
+          f"err/sum|products| {share:.2e} {'ok' if ok else 'FAIL'}"
+          + (", a second launch bit for bit" if repeat else ""))
     check(ok, f"fp8_matmul kernel disagrees with its plain version at {tag}")
     return e, share
 
@@ -1468,23 +1538,29 @@ def phase_fp8_vs_plain(dev):
                                "compute capability 9.0")
     gen = torch.Generator(device=dev).manual_seed(6)
     errs, shares = [], []
+
+    def run(*args, **kw):
+        e, r = fp8_case(qm, dev, gen, *args, **kw)
+        errs.append(e)
+        shares.append(r)
+
     for m, n, k in ((1, 5, 100), (37, 130, 256), (130, 5, 100)):
         for fmt in ("e4m3", "e5m2"):
             for act in (None, "relu", "sigmoid", "tanh", "gelu"):
                 for bias in (False, True):
-                    e, r = fp8_case(qm, dev, gen, m, n, k, fmt, act, bias)
-                    errs.append(e)
-                    shares.append(r)
+                    run(m, n, k, fmt, act, bias)
     for fmt in ("e4m3", "e5m2"):
         for act in (None, "relu"):
-            e, r = fp8_case(qm, dev, gen, 37, 130, 256, fmt, act, True,
-                            overflow=True)
-            errs.append(e)
-            shares.append(r)
+            run(37, 130, 256, fmt, act, True, overflow=True)
+    for m, n, k in FP8_RAGGED:
+        run(m, n, k, "e4m3", "gelu", True)
+    run(37, 130, 256, "e4m3", offset=True)
+    run(8192, 768, 768, "e4m3", offset=True)
+    for fmt, wfmt in (("e4m3", "e4m3"), ("e4m3", "e5m2"), ("e5m2", "e4m3"),
+                      ("e5m2", "e5m2")):
+        run(200, 300, 768, fmt, "gelu", True, wfmt=wfmt)
     for m, k, n in FP8_TRAIN_SHAPES:
-        e, r = fp8_case(qm, dev, gen, m, n, k, "e4m3")
-        errs.append(e)
-        shares.append(r)
+        run(m, n, k, "e4m3", repeat=True)
     return {"max_abs_err": max(errs), "max_err_share": max(shares),
             "cases": len(errs)}
 
@@ -1693,6 +1769,12 @@ def phase_fp8_times(dev, card):
         if scaled_mm is None:
             row["composition_call_ms"] = row["composition_device_ms"] = None
         row["bound_ms"], row["bound_by"] = fp8_bound_ms(m, k, n)
+        # the prepare pass (x quantized and widened, w widened) on its own
+        row["prepare_device_ms"] = device_profile(
+            calls["kernel"], 30, warmup=3, match="fp8_prepare")[0]
+        ms = pick(row, "kernel")
+        row["tflops"] = 2 * m * n * k / (ms * 1e-3) / 1e12
+        row["share_of_bound"] = row["bound_ms"] / ms
         rows[(m, k, n)] = row
         print(f"fp8_matmul (M, K, N) = ({m}, {k}, {n}) e4m3 [{card}]: "
               + json.dumps(row))
@@ -2608,7 +2690,9 @@ def fp8_entry(launches, errs, rows):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "composition_ms": (pick(r, "composition")
                                if r["composition_call_ms"] is not None
-                               else None)}
+                               else None),
+            "prepare_ms": r["prepare_device_ms"], "tflops": r["tflops"],
+            "share_of_bound": r["share_of_bound"]}
             for (m, k, n), r in rows.items()},
         "ms_per_step": step_sum("kernel"),
         "bound_ms_per_step": sum(per_step[s] * rows[s]["bound_ms"]

@@ -1,9 +1,76 @@
-// fp8 quantize + matmul + epilogue for Hopper (sm_90a). DEVELOPMENT BUILD v2:
-// f16 wgmma on the fp8 values widened exactly to f16; tile width and the
-// epilogue's store are launch arguments while they are measured.
+// fp8 quantize + matmul + epilogue for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of mxnet_tpu/ops/pallas/quant_matmul.py:
 //   _fp8_kernel (launched by fp8_matmul).
+// For x (M, K) fp32, w (N, K) fp8 (e4m3fn or e5m2), ws (N,) fp32, a scalar
+// x_scale xs, an optional bias (N,) fp32 and an activation:
+//   xq  = fp8(x / xs)                 in the activation's format (afmt)
+//   acc = xq @ w^T                    exact fp8 products, fp32 sums
+//   out = act(acc * (xs * ws[n]) + bias[n])                 (M, N) fp32
+// with the reference's arithmetic:
+//   - x / xs is an IEEE division (__fdiv_rn), not a multiply by 1/xs;
+//   - the cast rounds to nearest even and does NOT saturate: past the
+//     format's top it gives NaN in e4m3fn (|v| > 464, which is 448 plus
+//     half an ulp; the tie at 464 rounds down to 448) and +-inf in e5m2
+//     (|v| >= 61440, where the tie rounds up), as the JAX cast
+//     (ml_dtypes) does, while the hardware cvt and torch's .to() saturate;
+//   - the epilogue keeps the association (xs * ws[n]) first, then acc *,
+//     then + bias, each rounded on its own (no fused multiply-add), then
+//     the activation (relu, sigmoid, tanh, or tanh-form gelu).
+//
+// What bounds it on the H100: bytes. At the GPT-2 fp8 training shapes
+// (M, K, N) = (8192, 768, 768) the call must read x (25.2 MB fp32) and
+// write out (25.2 MB): 15.2 us at 3.35 TB/s against 4.9 us of fp8
+// products at 1979 TFLOP/s; (8192, 768, 3072) and (8192, 3072, 768) move
+// ~128 MB (38.3 us) for 19.5 us of products.
+//
+// The design: two kernels behind one C entry point.
+//   1. fp8_prepare_kernel quantizes x once, by the rule above, and writes
+//      each fp8 value widened to f16 (exact: f16 holds every e4m3fn and
+//      e5m2 value, NaN and inf included) into a scratch (M, Kp), Kp = K
+//      rounded up to the GEMM's k-tile of 64, zero in the pad; it widens
+//      w into an (N, Kp) scratch the same way. One index space of 8-value
+//      chunks over both, walked by one wave of blocks; 16-byte loads where
+//      a chunk lies in its row on 16 bytes.
+//   2. fp8_gemm_kernel, persistent (one block an SM, 128 x 128 output
+//      tiles in turn, columns fastest, so that the blocks running together
+//      share x's row tiles in L2): one producer thread keeps a ring of 4
+//      stages full with TMA loads (x and w tiles of 64 values of K,
+//      128-byte swizzle, mbarriers); two consumer warpgroups, 64 rows
+//      each, issue wgmma.m64n128k16.f32.f16.f16 from the swizzled tiles
+//      (both K-major: no transpose) into fp32 registers, keeping one
+//      stage's products in flight while the previous stage is released;
+//      setmaxnreg gives the consumers 232 registers and the producer 40.
+//      The epilogue computes the reference's arithmetic from the
+//      accumulators, with each column's xs * ws[n] and bias loaded before
+//      the main loop, stages the tile in shared memory in the 128-byte
+//      swizzle and writes it with TMA stores where N % 4 == 0 (rows on 16
+//      bytes); otherwise straight from the registers, a full 32-byte
+//      sector a row and 4 lanes (float2 where N is even). No split-K, no
+//      atomics: a second launch gives the same bits.
+//
+// Why f16 products, and not fp8 wgmma: the card's fp8 wgmma sums its 32
+// products with too few bits. Measured on an NVIDIA H100 80GB HBM3 (700 W)
+// against the plain version at (8192, 3072, 768), the largest error was
+// 7.2x / 15.9x / 26.4x the tolerance (2^-20 of sum |products| x |xs * ws|)
+// with the partial sum promoted into fp32 registers after every 1 / 2 / 4
+// k32 wgmma, and 42x at the worst ragged shape even after every one. The
+// f16 wgmma, whose products of widened fp8 values are exact, reads at most
+// 8.4e-8 of that sum (0.09x the tolerance) over a whole K of 3072 without
+// any promotion. It runs at half the fp8 rate, and the widened copy of x
+// costs 2 bytes a value instead of 1.
+//
+// Measured on the same card (device ms, torch.profiler; PERF.md row 7
+// holds chip_smoke.py's phase 10 readings): the GEMM kernel's output
+// stores do not overlap its main loop. Switching the stores off halves its
+// time at the first shape; storer warps copying the staged tile, stores
+// straight from the accumulators, ping-pong consumers, staggered K walks
+// and L2 eviction hints were each measured no faster than the TMA store;
+// a 128 x 256 tile spilled. The main loop alone is bound by L2 (32 KB a
+// stage for 2 MFLOP).
+//
+// Plain C interface, bound from Python with ctypes: both launches go onto
+// the caller's stream, allocate nothing and return cudaGetLastError().
 
 #include <cuda.h>
 #include <cuda_fp16.h>
@@ -20,19 +87,20 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kBM = 128;       // rows of a tile: two consumer warpgroups x 64
-constexpr int kKBytes = 128;   // bytes of K a stage: one 128-byte swizzle row
-constexpr int kKElems = 64;    // f16 values of K a stage
-constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kQThreads = 256;
+constexpr int kBM = 128;        // rows of a tile: two consumer warpgroups
+constexpr int kBN = 128;        // columns of a tile
+constexpr int kKBytes = 128;    // bytes of K a stage: one 128-byte swizzle
+constexpr int kKElems = 64;     // f16 values of K a stage
+constexpr int kStages = 4;
+constexpr int kThreads = 384;   // producer warpgroup + two consumers
+constexpr int kPThreads = 256;  // prepare kernel
 
-template <int BN, bool STAGED>
-struct Tile {
-  static constexpr int kStages = 4;
+template <bool TMA_STORE>
+struct Smem {
   static constexpr int kABytes = kBM * kKBytes;
-  static constexpr int kBBytes = BN * kKBytes;
-  static constexpr int kCBytes = STAGED ? kBM * BN * 4 : 0;
-  static constexpr int kSmem =
+  static constexpr int kBBytes = kBN * kKBytes;
+  static constexpr int kCBytes = TMA_STORE ? kBM * kBN * 4 : 0;  // staging
+  static constexpr int kBytes =
       1024 + kStages * (kABytes + kBBytes) + kCBytes + 2 * kStages * 8;
 };
 
@@ -50,7 +118,7 @@ __device__ __forceinline__ uint32_t to_fp8(float v) {
   return q;
 }
 
-// The f16 bits of an fp8 value (exact: f16 holds every e4m3 and e5m2 value).
+// The f16 bits of an fp8 value.
 template <int FMT>
 __device__ __forceinline__ uint32_t widen(uint32_t q) {
   return __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(q),
@@ -58,29 +126,27 @@ __device__ __forceinline__ uint32_t widen(uint32_t q) {
       .x;
 }
 
-// The GEMM's operands, both (rows, Kp) f16 with zero columns K..Kp-1: xq =
-// f16(fp8(x / xs)) for x (M, K) fp32 and wq = f16(w) for w (N, K) fp8.
-// One index space of 8-value chunks, x's rows first, walked by a grid
-// that fills the card once: 16-byte loads where a chunk lies in its row
-// and on 16 bytes, one 16-byte store a chunk.
+// xq (M, Kp) = f16(fp8(x / xs)) and wq (N, Kp) = f16(w), zero in columns
+// K..Kp-1 (see the header).
 template <int AF, int BF>
-__global__ void __launch_bounds__(kQThreads)
-    prepare_kernel(const float* __restrict__ x,
-                   const float* __restrict__ xs_ptr,
-                   const uint8_t* __restrict__ w, uint16_t* __restrict__ xq,
-                   uint16_t* __restrict__ wq, int M, int N, int K, int Kp,
-                   int flags) {
+__global__ void __launch_bounds__(kPThreads)
+    fp8_prepare_kernel(const float* __restrict__ x,
+                       const float* __restrict__ xs_ptr,
+                       const uint8_t* __restrict__ w,
+                       uint16_t* __restrict__ xq, uint16_t* __restrict__ wq,
+                       int M, int N, int K, int Kp) {
   const int chunks = Kp / 8;
   const long long x_items = static_cast<long long>(M) * chunks;
   const long long total = x_items + static_cast<long long>(N) * chunks;
   const float xs = *xs_ptr;
-  for (long long i = static_cast<long long>(blockIdx.x) * kQThreads +
+  for (long long i = static_cast<long long>(blockIdx.x) * kPThreads +
                      threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kQThreads) {
+       i < total; i += static_cast<long long>(gridDim.x) * kPThreads) {
     const bool is_x = i < x_items;
     const long long item = is_x ? i : i - x_items;
     const int r = static_cast<int>(item / chunks);
-    const int c = static_cast<int>(item - static_cast<long long>(r) * chunks) * 8;
+    const int c =
+        static_cast<int>(item - static_cast<long long>(r) * chunks) * 8;
     uint32_t h[8];
     if (is_x) {
       const float* src = x + static_cast<size_t>(r) * K + c;
@@ -88,17 +154,21 @@ __global__ void __launch_bounds__(kQThreads)
       if (c + 8 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
         const float4 f0 = reinterpret_cast<const float4*>(src)[0];
         const float4 f1 = reinterpret_cast<const float4*>(src)[1];
-        v[0] = f0.x; v[1] = f0.y; v[2] = f0.z; v[3] = f0.w;
-        v[4] = f1.x; v[5] = f1.y; v[6] = f1.z; v[7] = f1.w;
+        v[0] = f0.x;
+        v[1] = f0.y;
+        v[2] = f0.z;
+        v[3] = f0.w;
+        v[4] = f1.x;
+        v[5] = f1.y;
+        v[6] = f1.z;
+        v[7] = f1.w;
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = c + j < K ? src[j] : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        h[j] = c + j < K ? widen<AF>(to_fp8<AF>(
-                               flags & 128 ? v[j] * xs : __fdiv_rn(v[j], xs)))
-                         : 0u;
+        h[j] = c + j < K ? widen<AF>(to_fp8<AF>(__fdiv_rn(v[j], xs))) : 0u;
     } else {
       const uint8_t* src = w + static_cast<size_t>(r) * K + c;
       uint32_t b[8];
@@ -121,49 +191,24 @@ __global__ void __launch_bounds__(kQThreads)
   }
 }
 
-// -- wgmma: d (+)= A (64 rows x 16 of K) . B (BN rows x 16 of K)^T, f16 ---------
-
+// d += A (64 rows x 16 of K) . B (128 rows x 16 of K)^T, f16 operands from
+// shared-memory descriptors, fp32 accumulators.
 #define D8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define D64 D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-#define D128 D64, D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), \
-             D8(120)
-#define R64                                                                   \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
-  "%58, %59, %60, %61, %62, %63"
-#define R128                                                                  \
-  R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "  \
-      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
-      "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "  \
-      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, "     \
-      "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "     \
-      "%126, %127"
-#define WGMMA(N, REGS, OPS, DA, DB, SC)                                    \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"            \
-               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32.f16.f16 {" \
-               REGS "}, " DA ", " DB ", p, 1, 1, 0, 0;\n}\n"              \
-               : OPS                                                       \
-               : "l"(da), "l"(db), "r"(acc))
-
-template <int BN>
-__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
-                                      uint64_t db, int acc) {
-  if constexpr (BN == 128) {
-    WGMMA("128", R64, D64, "%64", "%65", "%66");
-  } else {
-    WGMMA("256", R128, D128, "%128", "%129", "%130");
-  }
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "n"(1));
 }
-
-#undef WGMMA
-#undef R128
-#undef R64
-#undef D128
-#undef D64
 #undef D8
 
 template <int N>
@@ -172,16 +217,15 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) reg_fence(r[i]);
 }
 
-// Staging address of output (r, c) of a consumer's 64 x BN tile: boxes of
-// 64 rows x 32 fp32 (128 bytes) in the TMA store's 128-byte swizzle.
+// Staging index of output (r, c) of a consumer's 64 x 128 half tile: boxes
+// of 64 rows x 32 fp32 (128 bytes) in the TMA store's 128-byte swizzle, so
+// that a warp's float2 writes fall in distinct banks.
 __device__ __forceinline__ int stage_index(int r, int c) {
   return (c >> 5) * (64 * 32) + r * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) +
          (c & 3);
 }
 
-enum Flags { kSkipMma = 1, kSkipStore = 2, kSkipLoad = 4, kStreamStore = 8 };
-
-template <int BN, bool STAGED>
+template <bool TMA_STORE>
 __global__ void __launch_bounds__(kThreads, 1)
     fp8_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                     const __grid_constant__ CUtensorMap tm_b,
@@ -189,24 +233,29 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ ws,
                     const float* __restrict__ xs_ptr,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int M, int N, int k_tiles, int act, int flags) {
-  using T = Tile<BN, STAGED>;
-  constexpr int S = T::kStages;
+                    int M, int N, int k_tiles, int act) {
+  using L = Smem<TMA_STORE>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* const sa = smem;
-  uint8_t* const sb = sa + S * T::kABytes;
-  float* const sc = reinterpret_cast<float*>(sb + S * T::kBBytes);
+  uint8_t* const sb = sa + kStages * L::kABytes;
+  float* const sc = reinterpret_cast<float*>(sb + kStages * L::kBBytes);
   uint64_t* const full =
-      reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(sc) + T::kCBytes);
-  uint64_t* const empty = full + S;
+      reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(sc) + L::kCBytes);
+  uint64_t* const empty = full + kStages;
 
-  const int n_tiles = (N + BN - 1) / BN;
+  const int n_tiles = (N + kBN - 1) / kBN;
   const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
+  // this block's run of consecutive tiles (columns fastest), so that it
+  // reads each row tile of x from device memory once and from L2 after
+  const int first = static_cast<int>(static_cast<long long>(tiles) *
+                                     blockIdx.x / gridDim.x);
+  const int last = static_cast<int>(static_cast<long long>(tiles) *
+                                    (blockIdx.x + 1) / gridDim.x);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
@@ -221,65 +270,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int s = 0;
       uint32_t ph = 0;
-      const int groups = flags & 64 ? 4 : flags & 32 ? 2 : 1;
-      const int k_start = (blockIdx.x % groups) * k_tiles / groups;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
-        for (int kk = 0; kk < k_tiles; ++kk) {
-          const int k = (kk + k_start) % k_tiles;
+      for (int t = first; t < last; ++t) {
+        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
+        for (int k = 0; k < k_tiles; ++k) {
           mbar_wait(&empty[s], ph ^ 1);
-          if (flags & kSkipLoad) {
-            mbar_arrive(&full[s]);
-          } else {
-            mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
-            if (flags & 512) {
-              const uint64_t keep = policy_evict_last();
-              tma_load_2d_hint(sa + s * T::kABytes, &tm_a, &full[s],
-                               k * kKElems, m0, keep);
-              tma_load_2d_hint(sb + s * T::kBBytes, &tm_b, &full[s],
-                               k * kKElems, n0, keep);
-            } else {
-              tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems,
-                          m0);
-              tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems,
-                          n0);
-            }
-          }
-          if (++s == S) {
+          mbar_expect_tx(&full[s], L::kABytes + L::kBBytes);
+          tma_load_2d(sa + s * L::kABytes, &tm_a, &full[s], k * kKElems, m0);
+          tma_load_2d(sb + s * L::kBBytes, &tm_b, &full[s], k * kKElems, n0);
+          if (++s == kStages) {
             s = 0;
             ph ^= 1;
           }
-        }
-      }
-    } else if (STAGED && (flags & 256) && threadIdx.x >= 32) {
-      // storer warps 1-3: copy each staged half tile to the output with
-      // 16-byte stores, while the consumers run the next main loop
-      const int st = threadIdx.x - 32;
-      named_arrive(5, 224);
-      named_arrive(6, 224);
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
-        for (int c = 0; c < 2; ++c) {
-          named_barrier(3 + c, 224);
-          const float* stage = sc + c * 64 * BN;
-          for (int i = st; i < 64 * BN / 4; i += 96) {
-            const int r = i / (BN / 4), col = (i - r * (BN / 4)) * 4;
-            const int gr = m0 + c * 64 + r, gc = n0 + col;
-            const float4 v =
-                *reinterpret_cast<const float4*>(stage + stage_index(r, col));
-            if (gr < M) {
-              float* p = out + static_cast<size_t>(gr) * N + gc;
-              if (gc + 3 < N && (N & 3) == 0) {
-                *reinterpret_cast<float4*>(p) = v;
-              } else {
-                if (gc < N) p[0] = v.x;
-                if (gc + 1 < N) p[1] = v.y;
-                if (gc + 2 < N) p[2] = v.z;
-                if (gc + 3 < N) p[3] = v.w;
-              }
-            }
-          }
-          if (t + gridDim.x < tiles) named_arrive(5 + c, 224);
         }
       }
     }
@@ -288,17 +289,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int c = wg - 1;  // rows c*64 .. c*64+63 of the tile
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid >> 5, lane = tid & 31;
-    float* const stage = sc + c * 64 * BN;
+    float* const stage = sc + c * 64 * kBN;
     const float xs = *xs_ptr;
     int s = 0;
     uint32_t ph = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
+    for (int t = first; t < last; ++t) {
+      const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
       // the epilogue's column scales xs * ws[n] and biases, loaded now so
-      // that the main loop hides their latency
-      float col_s[BN / 4], col_b[BN / 4];
+      // that the main loop hides their latency; this thread's columns are
+      // 8j + 2 (lane % 4) + e
+      float col_s[kBN / 4], col_b[kBN / 4];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int gc = n0 + j * 8 + (lane & 3) * 2 + e;
@@ -306,26 +308,24 @@ __global__ void __launch_bounds__(kThreads, 1)
           col_b[2 * j + e] = bias != nullptr && gc < N ? bias[gc] : 0.f;
         }
       }
-      float acc[BN / 2];
+      float acc[kBN / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
       int prev = -1;
       for (int k = 0; k < k_tiles; ++k) {
         mbar_wait(&full[s], ph);
-        if (!(flags & kSkipMma)) {
-          const uint64_t da =
-              desc_sw128(sa + s * T::kABytes + c * 64 * kKBytes);
-          const uint64_t db = desc_sw128(sb + s * T::kBBytes);
-          wgmma_fence();
+        const uint64_t da =
+            desc_sw128(sa + s * L::kABytes + c * 64 * kKBytes);
+        const uint64_t db = desc_sw128(sb + s * L::kBBytes);
+        wgmma_fence();
 #pragma unroll
-          for (int kb = 0; kb < kKBytes / 32; ++kb)
-            wgmma<BN>(acc, da + 2 * kb, db + 2 * kb, 1);
-          wgmma_commit();
-          wgmma_wait<1>();  // the previous stage's products are done
-        }
+        for (int kb = 0; kb < kKBytes / 32; ++kb)
+          wgmma_m64n128k16(acc, da + 2 * kb, db + 2 * kb);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
         if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
         prev = s;
-        if (++s == S) {
+        if (++s == kStages) {
           s = 0;
           ph ^= 1;
         }
@@ -333,216 +333,34 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       fence_regs(acc);
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-      if (flags & kSkipStore) {
-        // keep the products live without storing them
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) sum += acc[i];
-        if (sum == 12345.678f) out[0] = sum;
-        continue;
-      }
 
-      // epilogue: act(acc * (xs * ws[n]) + bias[n])
-      if (STAGED && (flags & 256)) {
-        named_barrier(5 + c, 224);  // the storer has drained this half
-      } else if (STAGED) {
-        if (tid == 0) tma_store_wait_read();
+      // epilogue: act(acc * (xs * ws[n]) + bias[n]); accumulator d[4j + i]
+      // holds row 16 warp + lane / 4 (+ 8 for i >= 2), column 8j + 2
+      // (lane % 4) + (i & 1)
+      if (TMA_STORE) {
+        if (tid == 0) tma_store_wait_read();  // the last tile's stores
         named_barrier(1 + c, 128);
       }
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
         const int col = j * 8 + (lane & 3) * 2;
         const int gc = n0 + col;
-        const float s0 = col_s[2 * j], s1 = col_s[2 * j + 1];
-        const float b0 = col_b[2 * j], b1 = col_b[2 * j + 1];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = warp * 16 + (lane >> 2) + h * 8;
-          float o0 = __fmul_rn(acc[4 * j + 2 * h], s0);
-          float o1 = __fmul_rn(acc[4 * j + 2 * h + 1], s1);
+          float o0 = __fmul_rn(acc[4 * j + 2 * h], col_s[2 * j]);
+          float o1 = __fmul_rn(acc[4 * j + 2 * h + 1], col_s[2 * j + 1]);
           if (bias != nullptr) {
-            o0 = __fadd_rn(o0, b0);
-            o1 = __fadd_rn(o1, b1);
+            o0 = __fadd_rn(o0, col_b[2 * j]);
+            o1 = __fadd_rn(o1, col_b[2 * j + 1]);
           }
           o0 = quant_mma::activate(o0, act);
           o1 = quant_mma::activate(o1, act);
-          if (STAGED) {
+          if (TMA_STORE) {
             *reinterpret_cast<float2*>(stage + stage_index(r, col)) =
                 make_float2(o0, o1);
           } else {
             const int gr = m0 + c * 64 + r;
-            float* p = out + static_cast<size_t>(gr) * N + gc;
-            if (gr < M) {
-              if (gc + 1 < N && (N & 1) == 0) {
-                if (flags & kStreamStore)
-                  __stcs(reinterpret_cast<float2*>(p), make_float2(o0, o1));
-                else
-                  *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
-              } else {
-                if (gc < N) p[0] = o0;
-                if (gc + 1 < N) p[1] = o1;
-              }
-            }
-          }
-        }
-      }
-      if (STAGED && (flags & 256)) {
-        named_arrive(3 + c, 224);
-      } else if (STAGED) {
-        fence_async_shared();
-        named_barrier(1 + c, 128);
-        if (tid == 0) {
-#pragma unroll
-          for (int b = 0; b < BN / 32; ++b) {
-            if (flags & 1024)
-              tma_store_2d_hint(&tm_c, stage + b * 64 * 32, n0 + b * 32,
-                                m0 + c * 64, policy_evict_first());
-            else
-              tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
-                           m0 + c * 64);
-          }
-          tma_store_commit();
-        }
-      }
-    }
-    if (STAGED && !(flags & 256) && tid == 0) tma_store_wait();
-  }
-}
-
-// Ping-pong: each consumer warpgroup owns whole 128 x 128 tiles (two
-// m64 row blocks), the two take turns, so one's epilogue overlaps the
-// other's main loop; stores straight from the accumulators.
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-    fp8_gemm_pingpong(const __grid_constant__ CUtensorMap tm_a,
-                      const __grid_constant__ CUtensorMap tm_b,
-                      const float* __restrict__ ws,
-                      const float* __restrict__ xs_ptr,
-                      const float* __restrict__ bias, float* __restrict__ out,
-                      int M, int N, int k_tiles, int act) {
-  using T = Tile<BN, false>;
-  constexpr int S = T::kStages;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* const smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* const sa = smem;
-  uint8_t* const sb = sa + S * T::kABytes;
-  uint64_t* const full = reinterpret_cast<uint64_t*>(sb + S * T::kBBytes);
-  uint64_t* const empty = full + S;
-  float* const cols = reinterpret_cast<float*>(empty + S);  // [2][2][BN]
-
-  const int n_tiles = (N + BN - 1) / BN;
-  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);  // lane 0 of each warp of the consumer
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    reg_dealloc<40>();
-    if (threadIdx.x == 0) {
-      int s = 0;
-      uint32_t ph = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
-        for (int k = 0; k < k_tiles; ++k) {
-          mbar_wait(&empty[s], ph ^ 1);
-          mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
-          tma_load_2d(sa + s * T::kABytes, &tm_a, &full[s], k * kKElems, m0);
-          tma_load_2d(sb + s * T::kBBytes, &tm_b, &full[s], k * kKElems, n0);
-          if (++s == S) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
-      }
-    }
-  } else {
-    reg_alloc<232>();
-    const int c = wg - 1;
-    const int tid = threadIdx.x - 128 * wg;
-    const int warp = tid >> 5, lane = tid & 31;
-    float* const col_ws = cols + c * 2 * BN;
-    float* const col_b = col_ws + BN;
-    const float xs = *xs_ptr;
-    for (int i = c;; i += 2) {
-      const int t = blockIdx.x + i * gridDim.x;
-      if (t >= tiles) break;
-      const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * BN;
-      // this tile's w scales and biases, copied while the main loop runs
-      named_barrier(1 + c, 128);
-      for (int j = tid; j < BN; j += 128) {
-        const bool ok = n0 + j < N;
-        cp_async4(col_ws + j, ok ? ws + n0 + j : ws, ok);
-        if (bias != nullptr) cp_async4(col_b + j, ok ? bias + n0 + j : bias, ok);
-      }
-      float acc0[BN / 2], acc1[BN / 2];
-#pragma unroll
-      for (int e = 0; e < BN / 2; ++e) acc0[e] = acc1[e] = 0.f;
-      // main loops take turns: wait until the other consumer has taken
-      // the previous tile's last stage, so that each full barrier is
-      // waited on at most one phase ahead
-      if (i > 0) named_barrier(3 + c, 256);
-      const long long q0 = static_cast<long long>(i) * k_tiles;
-      int s = static_cast<int>(q0 % S);
-      uint32_t ph = static_cast<uint32_t>((q0 / S) & 1);
-      int prev = -1;
-      for (int k = 0; k < k_tiles; ++k) {
-        mbar_wait(&full[s], ph);
-        const uint64_t da = desc_sw128(sa + s * T::kABytes);
-        const uint64_t db = desc_sw128(sb + s * T::kBBytes);
-        wgmma_fence();
-#pragma unroll
-        for (int kb = 0; kb < kKBytes / 32; ++kb) {
-          wgmma<BN>(acc0, da + 2 * kb, db + 2 * kb, 1);
-          wgmma<BN>(acc1, da + (64 * kKBytes >> 4) + 2 * kb, db + 2 * kb, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = s;
-        if (++s == S) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-      if (blockIdx.x + (i + 1) * gridDim.x < tiles) named_arrive(4 - c, 256);
-      wgmma_wait<0>();
-      fence_regs(acc0);
-      fence_regs(acc1);
-      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-      cp_async_wait_all();
-      named_barrier(1 + c, 128);
-
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = j * 8 + (lane & 3) * 2;
-        const int gc = n0 + col;
-        const float s0 = __fmul_rn(xs, col_ws[col]);
-        const float s1 = __fmul_rn(xs, col_ws[col + 1]);
-        const float b0 = bias != nullptr ? col_b[col] : 0.f;
-        const float b1 = bias != nullptr ? col_b[col + 1] : 0.f;
-#pragma unroll
-        for (int rb = 0; rb < 2; ++rb) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int gr = m0 + rb * 64 + warp * 16 + (lane >> 2) + h * 8;
-            const float a0 = rb == 0 ? acc0[4 * j + 2 * h] : acc1[4 * j + 2 * h];
-            const float a1 =
-                rb == 0 ? acc0[4 * j + 2 * h + 1] : acc1[4 * j + 2 * h + 1];
-            float o0 = __fmul_rn(a0, s0), o1 = __fmul_rn(a1, s1);
-            if (bias != nullptr) {
-              o0 = __fadd_rn(o0, b0);
-              o1 = __fadd_rn(o1, b1);
-            }
-            o0 = quant_mma::activate(o0, act);
-            o1 = quant_mma::activate(o1, act);
             if (gr < M) {
               float* p = out + static_cast<size_t>(gr) * N + gc;
               if (gc + 1 < N && (N & 1) == 0) {
@@ -555,7 +373,19 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
+      if (TMA_STORE) {
+        fence_async_shared();
+        named_barrier(1 + c, 128);
+        if (tid == 0) {
+#pragma unroll
+          for (int b = 0; b < kBN / 32; ++b)
+            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
+                         m0 + c * 64);
+          tma_store_commit();
+        }
+      }
     }
+    if (TMA_STORE && tid == 0) tma_store_wait();
   }
 }
 
@@ -569,52 +399,32 @@ int sm_count() {
   return n;
 }
 
-int blocks_for(long long work, int cap) {
-  const long long g = (work + kQThreads - 1) / kQThreads;
-  return static_cast<int>(g < cap ? (g > 0 ? g : 1) : cap);
-}
-
-template <int BN, bool STAGED>
-cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
-                        const CUtensorMap& tc, const float* ws,
-                        const float* xs, const float* bias, float* out, int M,
-                        int N, int k_tiles, int act, int flags,
-                        cudaStream_t s) {
-  using T = Tile<BN, STAGED>;
-  auto kern = fp8_gemm_kernel<BN, STAGED>;
-  static cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-  if (attr != cudaSuccess) return attr;
-  const int tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, kThreads, T::kSmem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
-                                        k_tiles, act, flags);
-  return cudaGetLastError();
-}
-
 template <int AF, int BF>
 void launch_prepare(const float* x, const float* xs, const uint8_t* w,
                     uint16_t* xq, uint16_t* wq, int M, int N, int K, int Kp,
-                    int flags, cudaStream_t s) {
+                    cudaStream_t s) {
   const long long items = static_cast<long long>(M + N) * (Kp / 8);
-  prepare_kernel<AF, BF><<<blocks_for(items, sm_count() * 8), kQThreads, 0,
-                           s>>>(x, xs, w, xq, wq, M, N, K, Kp, flags);
+  const long long wave = static_cast<long long>(sm_count()) * 8;
+  const long long need = (items + kPThreads - 1) / kPThreads;
+  fp8_prepare_kernel<AF, BF>
+      <<<static_cast<int>(need < wave ? need : wave), kPThreads, 0, s>>>(
+          x, xs, w, xq, wq, M, N, K, Kp);
 }
 
-cudaError_t launch_pingpong(const CUtensorMap& ta, const CUtensorMap& tb,
-                            const float* ws, const float* xs,
-                            const float* bias, float* out, int M, int N,
-                            int k_tiles, int act, cudaStream_t s) {
-  using T = Tile<128, false>;
-  constexpr int smem = T::kSmem + 4 * 128 * 4;
-  auto kern = fp8_gemm_pingpong<128>;
-  static cudaError_t attr = cudaFuncSetAttribute(
+template <bool TMA_STORE>
+cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
+                        const CUtensorMap& tc, const float* ws,
+                        const float* xs, const float* bias, float* out, int M,
+                        int N, int k_tiles, int act, cudaStream_t s) {
+  constexpr int smem = Smem<TMA_STORE>::kBytes;
+  auto kern = fp8_gemm_kernel<TMA_STORE>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const int tiles = ((M + kBM - 1) / kBM) * ((N + 127) / 128);
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, kThreads, smem, s>>>(ta, tb, ws, xs, bias, out, M, N, k_tiles,
-                                    act);
+  kern<<<grid, kThreads, smem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
+                                    k_tiles, act);
   return cudaGetLastError();
 }
 
@@ -623,20 +433,18 @@ cudaError_t launch_pingpong(const CUtensorMap& ta, const CUtensorMap& tb,
 extern "C" {
 
 // x (M, K) fp32, w (N, K) fp8 bytes, ws (N,) fp32, xs one fp32 on the
-// device, bias (N,) fp32 or null, out (M, N) fp32, all contiguous; xq and
-// wq scratch, (M, Kp) and (N, Kp) f16 on 16 bytes, Kp = K rounded up to 64
-// (at least 64). afmt / wfmt: 0 = e4m3fn, 1 = e5m2; act: 0 none, 1 relu,
-// 2 sigmoid, 3 tanh, 4 gelu (tanh form); bn 128 or 256; staged: the
-// epilogue through shared memory and TMA stores (bn 128, N % 4 == 0);
-// flags: development switches.
+// device, bias (N,) fp32 or null, out (M, N) fp32 on 16 bytes, all
+// contiguous; xq (M, Kp) and wq (N, Kp) f16 scratch on 16 bytes, with Kp
+// = K rounded up to 64 (at least 64). afmt / wfmt: 0 = e4m3fn, 1 = e5m2
+// (the activation's cast and w's storage); act: 0 none, 1 relu, 2 sigmoid,
+// 3 tanh, 4 gelu (tanh form).
 int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
                const void* bias, void* out, void* xq, void* wq, int M, int N,
-               int K, int Kp, int afmt, int wfmt, int act, int bn, int staged,
-               int flags, void* stream) {
+               int K, int Kp, int afmt, int wfmt, int act, void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || Kp < K || Kp < kKElems ||
       Kp % kKElems != 0 || afmt < 0 || afmt > 1 || wfmt < 0 || wfmt > 1 ||
       act < quant_mma::kNone || act > quant_mma::kGelu ||
-      (bn != 128 && bn != 256) || (staged && (bn != 128 || N % 4 != 0)) ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(xq) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(wq) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -647,47 +455,37 @@ int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
   auto xqp = static_cast<uint16_t*>(xq);
   auto wqp = static_cast<uint16_t*>(wq);
   if (afmt == 0 && wfmt == 0)
-    launch_prepare<0, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
+    launch_prepare<0, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
   else if (afmt == 0)
-    launch_prepare<0, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
+    launch_prepare<0, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
   else if (wfmt == 0)
-    launch_prepare<1, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
+    launch_prepare<1, 0>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
   else
-    launch_prepare<1, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, flags, s);
+    launch_prepare<1, 1>(xp, xsp, wp, xqp, wqp, M, N, K, Kp, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   CUtensorMap ta, tb, tc;
+  const bool tma_store = N % 4 == 0;
   if (!encode_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT16, xq, M, Kp,
                  static_cast<uint64_t>(Kp) * 2, kBM, kKElems,
                  CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_2d(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT16, wq, N, Kp,
-                 static_cast<uint64_t>(Kp) * 2, bn, kKElems,
-                 CU_TENSOR_MAP_SWIZZLE_128B))
+                 static_cast<uint64_t>(Kp) * 2, kBN, kKElems,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (tma_store && !encode_2d(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, M,
+                               N, static_cast<uint64_t>(N) * 4, 64, 32,
+                               CU_TENSOR_MAP_SWIZZLE_128B)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (staged) {
-    if (!encode_2d(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, M, N,
-                   static_cast<uint64_t>(N) * 4, 64, 32,
-                   CU_TENSOR_MAP_SWIZZLE_128B))
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    tc = tb;  // unused
-  }
-  const int k_tiles = Kp / kKElems;
+  if (!tma_store) tc = tb;  // unused
   auto wsp = static_cast<const float*>(ws);
   auto bp = static_cast<const float*>(bias);
   auto outp = static_cast<float*>(out);
-  if (flags & 16)
-    err = launch_pingpong(ta, tb, wsp, xsp, bp, outp, M, N, k_tiles, act, s);
-  else if (bn == 256)
-    err = launch_gemm<256, false>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
-                                  k_tiles, act, flags, s);
-  else if (staged)
-    err = launch_gemm<128, true>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
-                                 k_tiles, act, flags, s);
-  else
-    err = launch_gemm<128, false>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
-                                  k_tiles, act, flags, s);
+  const int k_tiles = Kp / kKElems;
+  err = tma_store ? launch_gemm<true>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
+                                      k_tiles, act, s)
+                  : launch_gemm<false>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
+                                       k_tiles, act, s);
   return static_cast<int>(err);
 }
 

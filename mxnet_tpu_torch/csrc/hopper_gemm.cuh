@@ -83,7 +83,6 @@ __device__ __forceinline__ void fence_mbar_init() {
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_u32(bar);
   uint32_t done;
-  uint32_t tries = 0;
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -92,7 +91,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(a), "r"(parity)
         : "memory");
-    if (++tries == (1u << 28)) __trap();  // DEV: fail instead of hanging
   } while (!done);
 }
 
@@ -120,45 +118,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
-      : "memory");
-}
-
-// As tma_load_2d, with an L2 eviction policy (createpolicy).
-__device__ __forceinline__ void tma_load_2d_hint(void* dst,
-                                                 const CUtensorMap* map,
-                                                 uint64_t* bar, int c0,
-                                                 int c1, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t policy_evict_last() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-               : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ uint64_t policy_evict_first() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(p));
-  return p;
-}
-
-// As tma_store_2d, with an L2 eviction policy.
-__device__ __forceinline__ void tma_store_2d_hint(const CUtensorMap* map,
-                                                  const void* src, int c0,
-                                                  int c1, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
-      " [%0, {%2, %3}], [%1], %4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "l"(policy)
       : "memory");
 }
 
@@ -196,23 +155,6 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Arrive at a named barrier without waiting for it.
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// 4 bytes from global to shared memory, asynchronously; zero where !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 template <int N>
 __device__ __forceinline__ void reg_alloc() {

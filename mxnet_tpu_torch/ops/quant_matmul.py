@@ -13,8 +13,17 @@ Both compute ``act(dequant(quantize(x / x_scale) @ w_q.T) + bias)`` for x
 ``(N,)`` fp32 and a scalar ``x_scale``, and return ``(M, N)`` fp32; the
 epilogue is ``acc * (x_scale * w_scale) + bias``, then the activation. A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The TPU kernels' block table (``autotune``) and their 32/128
-padding rule are not carried over: the kernels take any M, N and K.
+raises. The TPU kernels' block table (``autotune``) is not carried over:
+the kernels take any M, N and K.
+
+The fp8 kernel runs in two passes behind one call. A prepare pass
+quantizes x once and widens the fp8 values of x and w to float16 (exact),
+each padded with zero columns to K rounded up to 64, as the reference pads
+w to 128 (:func:`fp8_operands_plain` is that pass in plain PyTorch); then a
+persistent GEMM fed by TMA sums their products in the f16 ``wgmma`` with
+fp32 accumulators and applies the epilogue. The card's fp8 ``wgmma`` is
+not used: it sums too coarsely for the kernel's tolerance (``csrc/
+fp8_matmul.cu``). The wrapper allocates the two float16 scratch operands.
 
 The casts are the JAX package's. int8 (:func:`quantize_int8`):
 ``clip(round(v), -127, 127)`` with round half to even, NaN -> 0 and
@@ -36,8 +45,8 @@ from ..base import MXNetError
 from ..numpy_extension import _ACTS
 
 __all__ = ["FP8_FORMATS", "fp8_capable", "quantize", "fp8_matmul",
-           "fp8_matmul_plain", "quantize_int8", "quantized_matmul",
-           "quantized_matmul_plain"]
+           "fp8_matmul_plain", "fp8_operands_plain", "quantize_int8",
+           "quantized_matmul", "quantized_matmul_plain"]
 
 _INT8_MAX = 127.0
 #: fp8 storage formats: name -> (dtype, absmax of the format)
@@ -177,17 +186,16 @@ def _launch(lib, name, args, shape):
 
 
 def _bind(lib):
-    lib.fp8_matmul.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
+    lib.fp8_matmul.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     lib.fp8_matmul.restype = ctypes.c_int
     lib.fp8_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fp8_matmul_error_string.restype = ctypes.c_char_p
 
 
-#: values of K in one stage of the GEMM (64 f16, one 128-byte swizzle
-#: row): the widened operands have rows of K rounded up to it
+#: values of K in one stage of the kernel's GEMM (64 f16, one 128-byte
+#: swizzle row): its widened operands have rows of K rounded up to it
 _K_TILE = 64
-_DEV = {"bn": 128, "staged": 1, "flags": 0}
 
 
 def _round_up(n, m):
@@ -240,14 +248,12 @@ def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
     kp = _round_up(max(k, 1), _K_TILE)
     xq = torch.empty((m, kp), dtype=torch.float16, device=x.device)
     wq = torch.empty((n, kp), dtype=torch.float16, device=x.device)
-    bn, staged = _DEV["bn"], _DEV["staged"] and n % 4 == 0
     lib = _native.load("fp8_matmul", _bind)
     _launch(lib, "fp8_matmul", (
         x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         xq.data_ptr(), wq.data_ptr(), m, n, k, kp, _FMT_CODES[fmt],
-        _FMT_CODES[_DTYPE_FMT[w_q.dtype]], _ACT_CODES[act], bn,
-        int(staged and bn == 128), _DEV["flags"],
+        _FMT_CODES[_DTYPE_FMT[w_q.dtype]], _ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream),
         f"M={m} N={n} K={k} fmt={fmt}")
     fp8_matmul.launches += 1

@@ -25,10 +25,12 @@ largest |value|, as above. BERT on the card vs the CPU: losses atol =
 rtol = 1e-4, gradients atol 1e-4 + rtol 1e-3, weights atol 1e-4 (as the
 GPT comparison). fp8 matmul kernel vs its plain version: the same NaN and
 inf positions, and elsewhere |err| <= 2^-20 of the sum of |products| x
-|x_scale * w_scale| plus 1e-6 of |out| (exact fp8 products, summed in the
-tensor core's fp32 accumulator in another order than torch's fp32
-matmul, measured at most 6.1e-8, about 2^-24, of that sum on the H100;
-the epilogue is the same arithmetic). fp8 training on the card vs
+|x_scale * w_scale| plus 1e-6 of |out| (exact fp8 products, as f16
+values in the f16 wgmma, summed in the tensor core's fp32 accumulator in
+another order than torch's fp32 matmul, measured at most 8.4e-8, about
+2^-23.5, of that sum on the H100; the epilogue is the same arithmetic),
+at ragged shapes around the kernel's tiles, the training shapes (a second
+launch bit for bit) and x off 16 bytes. fp8 training on the card vs
 the CPU: losses rtol 1e-4, weights after two Adam steps 99% within 5e-4
 and all within 2e-3, and the second step's amaxes 5%: an ulp of
 difference upstream can move a value across an fp8 rounding boundary
@@ -591,11 +593,20 @@ def test_bert_training_on_card_matches_cpu(cuda_device):
 
 # -- fp8 matmul (kernel 7) ---------------------------------------------------
 
-FP8_SHAPES = [(1, 5, 100), (37, 130, 256), (130, 5, 100), (200, 300, 768)]
+# (M, N, K); the last four cut the kernel's 128 x 128 output tile and
+# 64-value k-tile: M and N of tile +- 1, N % 4 != 0, K = 100 (padded) and
+# K = 784 (a partial last k-tile)
+FP8_SHAPES = [(1, 5, 100), (37, 130, 256), (130, 5, 100), (200, 300, 768),
+              (127, 127, 784), (129, 129, 784), (129, 132, 100),
+              (255, 130, 784)]
+FP8_TRAIN_SHAPES = [(8192, 768, 768), (8192, 3072, 768), (8192, 768, 3072)]
 FP8_ACTS = [None, "relu", "sigmoid", "tanh", "gelu"]
 
 
-def _fp8_inputs(m, n, k, fmt, wfmt, device, seed, overflow=False):
+def _fp8_inputs(m, n, k, fmt, wfmt, device, seed, overflow=False,
+                offset=False):
+    """``offset``: x 4 bytes into its buffer (contiguous, not 16-byte
+    aligned)."""
     rs = onp.random.RandomState(seed)
     wdt, wmax = tqm.FP8_FORMATS[wfmt]
     _, absmax = tqm.FP8_FORMATS[fmt]
@@ -608,8 +619,13 @@ def _fp8_inputs(m, n, k, fmt, wfmt, device, seed, overflow=False):
         x[-1, 0] = -70000.0 * xs
     wq = tqm.quantize(torch.from_numpy(w / ws[:, None]), wfmt)
     b = torch.from_numpy(rs.randn(n).astype("float32"))
-    return (torch.from_numpy(x).to(device), wq.to(device),
-            torch.from_numpy(ws).to(device), xs, b.to(device))
+    xt = torch.from_numpy(x).to(device)
+    if offset:
+        buf = torch.empty(m * k + 1, device=device)
+        buf[1:] = xt.reshape(-1)
+        xt = buf[1:].view(m, k)
+    return (xt, wq.to(device), torch.from_numpy(ws).to(device), xs,
+            b.to(device))
 
 
 def fp8_check(out, ref, x, wq, ws, xs, fmt):
@@ -644,6 +660,35 @@ def test_fp8_kernel_matches_plain_version(cuda_device, m, n, k, fmt, wfmt,
     ref = tqm.fp8_matmul_plain(x, wq, ws, xs, bias=b, act=act, fmt=fmt)
     assert out.dtype == torch.float32 and out.shape == (m, n)
     fp8_check(out, ref, x, wq, ws, xs, fmt)
+
+
+@pytest.mark.parametrize("m,n,k", FP8_TRAIN_SHAPES)
+def test_fp8_kernel_at_the_training_shapes(cuda_device, m, n, k):
+    """The GPT-2 fp8 step's shapes (e4m3, no bias, no activation): within
+    the tolerance, and a second launch bit for bit (no split-K, no
+    atomics)."""
+    x, wq, ws, xs, _ = _fp8_inputs(m, n, k, "e4m3", "e4m3", cuda_device,
+                                   seed=k)
+    out = tqm.fp8_matmul(x, wq, ws, xs)
+    again = tqm.fp8_matmul(x, wq, ws, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    fp8_check(out, tqm.fp8_matmul_plain(x, wq, ws, xs), x, wq, ws, xs,
+              "e4m3")
+
+
+def test_fp8_kernel_takes_a_misaligned_x(cuda_device):
+    """x 4 bytes into its buffer (no 16-byte loads): the aligned copy's
+    result bit for bit."""
+    x, wq, ws, xs, b = _fp8_inputs(129, 132, 784, "e4m3", "e4m3",
+                                   cuda_device, seed=5, offset=True)
+    assert x.data_ptr() % 16 != 0
+    out = tqm.fp8_matmul(x, wq, ws, xs, bias=b, act="gelu")
+    aligned = tqm.fp8_matmul(x.clone(), wq, ws, xs, bias=b, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(out, aligned)
+    fp8_check(out, tqm.fp8_matmul_plain(x, wq, ws, xs, bias=b, act="gelu"),
+              x, wq, ws, xs, "e4m3")
 
 
 @pytest.mark.parametrize("act", [None, "relu"])

@@ -16,8 +16,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "fp8_loss_curves.py",
-    ROOT / "tools" / "flash_digest.py",
-    ROOT / "tools" / "fp8_wgmma_probe.py"]
+    ROOT / "tools" / "flash_digest.py"]
 BANNED = ("jax", "jaxlib", "mxnet_tpu")
 
 
