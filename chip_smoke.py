@@ -1477,8 +1477,10 @@ def fp8_inputs(qm, dev, gen, m, n, k, fmt, overflow=False, wfmt=None,
     not 16-byte aligned)."""
     _, absmax = qm.FP8_FORMATS[fmt]
     wfmt = wfmt or fmt
-    buf = torch.randn(m * k + 1, device=dev, generator=gen)
-    x = (buf[1:] if offset else buf[:-1]).view(m, k)
+    if offset:
+        x = torch.randn(m * k + 1, device=dev, generator=gen)[1:].view(m, k)
+    else:
+        x = torch.randn(m, k, device=dev, generator=gen)
     w = torch.randn(n, k, device=dev, generator=gen) * 0.5
     ws = w.abs().amax(dim=1) / qm.FP8_FORMATS[wfmt][1]
     wq = qm.quantize(w / ws[:, None], wfmt)

@@ -60,14 +60,16 @@
 // any promotion. It runs at half the fp8 rate, and the widened copy of x
 // costs 2 bytes a value instead of 1.
 //
-// Measured on the same card (device ms, torch.profiler; PERF.md row 7
-// holds chip_smoke.py's phase 10 readings): the GEMM kernel's output
-// stores do not overlap its main loop. Switching the stores off halves its
+// Measured on the same card (device ms, torch.profiler, chip_smoke.py
+// phase 10): the call takes 0.045 / 0.124 / 0.116 ms at the three shapes
+// above, 31-34% of the bound, of which the prepare pass 0.016 / 0.018 /
+// 0.053. The GEMM kernel's output stores do not overlap its main loop. Switching the stores off halves its
 // time at the first shape; storer warps copying the staged tile, stores
-// straight from the accumulators, ping-pong consumers, staggered K walks
-// and L2 eviction hints were each measured no faster than the TMA store;
-// a 128 x 256 tile spilled. The main loop alone is bound by L2 (32 KB a
-// stage for 2 MFLOP).
+// straight from the accumulators, ping-pong consumers, staggered K walks,
+// runs of consecutive tiles a block and L2 eviction hints were each
+// measured no faster than the TMA store; a 128 x 256 tile spilled. A ring
+// of 5 stages (the most that fits beside the staged tile) and barrier
+// waits that spin rather than suspend took 2-6% off.
 //
 // Plain C interface, bound from Python with ctypes: both launches go onto
 // the caller's stream, allocate nothing and return cudaGetLastError().
@@ -91,7 +93,7 @@ constexpr int kBM = 128;        // rows of a tile: two consumer warpgroups
 constexpr int kBN = 128;        // columns of a tile
 constexpr int kKBytes = 128;    // bytes of K a stage: one 128-byte swizzle
 constexpr int kKElems = 64;     // f16 values of K a stage
-constexpr int kStages = 4;
+constexpr int kStages = 5;
 constexpr int kThreads = 384;   // producer warpgroup + two consumers
 constexpr int kPThreads = 256;  // prepare kernel
 
@@ -247,12 +249,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int n_tiles = (N + kBN - 1) / kBN;
   const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
-  // this block's run of consecutive tiles (columns fastest), so that it
-  // reads each row tile of x from device memory once and from L2 after
-  const int first = static_cast<int>(static_cast<long long>(tiles) *
-                                     blockIdx.x / gridDim.x);
-  const int last = static_cast<int>(static_cast<long long>(tiles) *
-                                    (blockIdx.x + 1) / gridDim.x);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
@@ -270,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int s = 0;
       uint32_t ph = 0;
-      for (int t = first; t < last; ++t) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
         for (int k = 0; k < k_tiles; ++k) {
           mbar_wait(&empty[s], ph ^ 1);
@@ -293,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float xs = *xs_ptr;
     int s = 0;
     uint32_t ph = 0;
-    for (int t = first; t < last; ++t) {
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
       // the epilogue's column scales xs * ws[n] and biases, loaded now so
       // that the main loop hides their latency; this thread's columns are

@@ -79,14 +79,15 @@ __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Spin until the phase of parity `parity` has completed.
+// Spin until the phase of parity `parity` has completed (test_wait: the
+// thread never suspends, so it sees the phase complete at once).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_u32(bar);
   uint32_t done;
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(a), "r"(parity)

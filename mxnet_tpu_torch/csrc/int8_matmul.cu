@@ -26,9 +26,10 @@
 // 1979 TOP/s dense int8 rate; (4096, 768, 3072) and (4096, 3072, 768)
 // (ffn_1, ffn_2) move 65.3 MB (~19.5 us) for 19.3 G operations (~9.8 us).
 //
-// What the design does about it (a simple kernel that is right first; the
-// structure of fp8_matmul.cu, whose m16n8k32 fragments the s8 product
-// shares): each 256-thread block owns a 128 x 128 output tile and walks K
+// What the design does about it (a simple kernel that is right first;
+// fp8_matmul.cu's quantize-once pass and TMA-fed wgmma GEMM, with the
+// helpers of hopper_gemm.cuh, are the way to make it fast): each
+// 256-thread block owns a 128 x 128 output tile and walks K
 // in steps of 64. Per step it reads the fp32 x tile (16-byte loads where K
 // and the pointers allow, else one value a thread), quantizes it in
 // registers and stores the int8 bytes in shared memory next to the w tile,

@@ -1,13 +1,12 @@
-// Pieces shared by the low-bit matmul kernels (fp8_matmul.cu,
-// int8_matmul.cu): the 128 x 128 x 64 block tile, the copy of the (N, K)
-// byte weight tile into shared memory, and the epilogue's activations.
+// Pieces of the low-bit matmul kernels: the epilogue's activations (both
+// fp8_matmul.cu and int8_matmul.cu), and the int8 kernel's 128 x 128 x 64
+// block tile and copy of the (N, K) byte weight tile into shared memory.
 //
-// Both kernels feed the m16n8k32 tensor-core product (fp8 or s8 operands),
-// whose A and B fragments have one layout for either type: a thread holds
-// 4 consecutive bytes of a row of A (row g / g + 8, bytes 4t and 16 + 4t)
-// and 4 consecutive bytes of a row of w (column g of B), with g = lane / 4
-// and t = lane % 4. Shared-memory rows are padded to kLds bytes so those
-// 4-byte loads are free of bank conflicts.
+// The int8 kernel feeds the m16n8k32 tensor-core product (s8 operands): a
+// thread holds 4 consecutive bytes of a row of A (row g / g + 8, bytes 4t
+// and 16 + 4t) and 4 consecutive bytes of a row of w (column g of B), with
+// g = lane / 4 and t = lane % 4. Shared-memory rows are padded to kLds
+// bytes so those 4-byte loads are free of bank conflicts.
 #pragma once
 
 #include <cuda_runtime.h>
