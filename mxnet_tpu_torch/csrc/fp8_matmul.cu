@@ -81,6 +81,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 
 #include "hopper_gemm.cuh"
 #include "quant_mma.cuh"
@@ -235,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ ws,
                     const float* __restrict__ xs_ptr,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int M, int N, int k_tiles, int act) {
+                    int M, int N, int k_tiles, int act, int dbg) {
   using L = Smem<TMA_STORE>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(
@@ -271,8 +272,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int k = 0; k < k_tiles; ++k) {
           mbar_wait(&empty[s], ph ^ 1);
           mbar_expect_tx(&full[s], L::kABytes + L::kBBytes);
-          tma_load_2d(sa + s * L::kABytes, &tm_a, &full[s], k * kKElems, m0);
-          tma_load_2d(sb + s * L::kBBytes, &tm_b, &full[s], k * kKElems, n0);
+          const int kk = dbg & 2 ? 0 : k * kKElems;
+          tma_load_2d(sa + s * L::kABytes, &tm_a, &full[s], kk,
+                      dbg & 2 ? 0 : m0);
+          tma_load_2d(sb + s * L::kBBytes, &tm_b, &full[s], kk,
+                      dbg & 2 ? 0 : n0);
           if (++s == kStages) {
             s = 0;
             ph ^= 1;
@@ -372,11 +376,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (TMA_STORE) {
         fence_async_shared();
         named_barrier(1 + c, 128);
-        if (tid == 0) {
+        if (tid == 0 && !(dbg & 4)) {
 #pragma unroll
           for (int b = 0; b < kBN / 32; ++b)
-            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
-                         m0 + c * 64);
+            tma_store_2d(&tm_c, stage + b * 64 * 32,
+                         (dbg & 1 ? 0 : n0) + b * 32,
+                         (dbg & 1 ? 0 : m0) + c * 64);
           tma_store_commit();
         }
       }
@@ -419,8 +424,9 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
   if (attr != cudaSuccess) return attr;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
+  const char* d = std::getenv("FP8_DBG");
   kern<<<grid, kThreads, smem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
-                                    k_tiles, act);
+                                    k_tiles, act, d ? std::atoi(d) : 0);
   return cudaGetLastError();
 }
 
