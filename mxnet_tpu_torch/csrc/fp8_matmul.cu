@@ -228,6 +228,53 @@ __device__ __forceinline__ int stage_index(int r, int c) {
          (c & 3);
 }
 
+// The epilogue of a consumer's 64 x 128 half tile at (row0, n0):
+// act(acc * s[n] + b[n]), each operation rounded on its own, into the
+// staging tile (TMA_STORE) or straight to out. Accumulator d[4j + i]
+// holds row 16 warp + lane / 4 (+ 8 for i >= 2), column 8j + 2 (lane % 4)
+// + (i & 1). The activation and the bias are template arguments, so the
+// loop over the 64 values carries no branch on them.
+template <bool TMA_STORE, int ACT, bool BIAS>
+__device__ __forceinline__ void epilogue(const float (&acc)[kBN / 2],
+                                         const float (&col_s)[kBN / 4],
+                                         const float (&col_b)[kBN / 4],
+                                         float* stage, float* out, int M,
+                                         int N, int row0, int n0, int warp,
+                                         int lane) {
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = j * 8 + (lane & 3) * 2;
+    const int gc = n0 + col;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + (lane >> 2) + h * 8;
+      float o0 = __fmul_rn(acc[4 * j + 2 * h], col_s[2 * j]);
+      float o1 = __fmul_rn(acc[4 * j + 2 * h + 1], col_s[2 * j + 1]);
+      if (BIAS) {
+        o0 = __fadd_rn(o0, col_b[2 * j]);
+        o1 = __fadd_rn(o1, col_b[2 * j + 1]);
+      }
+      o0 = quant_mma::activate(o0, ACT);
+      o1 = quant_mma::activate(o1, ACT);
+      if (TMA_STORE) {
+        *reinterpret_cast<float2*>(stage + stage_index(r, col)) =
+            make_float2(o0, o1);
+      } else {
+        const int gr = row0 + r;
+        if (gr < M) {
+          float* p = out + static_cast<size_t>(gr) * N + gc;
+          if (gc + 1 < N && (N & 1) == 0) {
+            *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
+          } else {
+            if (gc < N) p[0] = o0;
+            if (gc + 1 < N) p[1] = o1;
+          }
+        }
+      }
+    }
+  }
+}
+
 template <bool TMA_STORE>
 __global__ void __launch_bounds__(kThreads, 1)
     fp8_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
@@ -334,45 +381,34 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(acc);
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
 
-      // epilogue: act(acc * (xs * ws[n]) + bias[n]); accumulator d[4j + i]
-      // holds row 16 warp + lane / 4 (+ 8 for i >= 2), column 8j + 2
-      // (lane % 4) + (i & 1)
+      // epilogue: act(acc * (xs * ws[n]) + bias[n])
       if (TMA_STORE) {
         if (tid == 0) tma_store_wait_read();  // the last tile's stores
         named_barrier(1 + c, 128);
       }
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int col = j * 8 + (lane & 3) * 2;
-        const int gc = n0 + col;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = warp * 16 + (lane >> 2) + h * 8;
-          float o0 = __fmul_rn(acc[4 * j + 2 * h], col_s[2 * j]);
-          float o1 = __fmul_rn(acc[4 * j + 2 * h + 1], col_s[2 * j + 1]);
-          if (bias != nullptr) {
-            o0 = __fadd_rn(o0, col_b[2 * j]);
-            o1 = __fadd_rn(o1, col_b[2 * j + 1]);
-          }
-          o0 = quant_mma::activate(o0, act);
-          o1 = quant_mma::activate(o1, act);
-          if (TMA_STORE) {
-            *reinterpret_cast<float2*>(stage + stage_index(r, col)) =
-                make_float2(o0, o1);
-          } else {
-            const int gr = m0 + c * 64 + r;
-            if (gr < M) {
-              float* p = out + static_cast<size_t>(gr) * N + gc;
-              if (gc + 1 < N && (N & 1) == 0) {
-                *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
-              } else {
-                if (gc < N) p[0] = o0;
-                if (gc + 1 < N) p[1] = o1;
-              }
-            }
-          }
-        }
+#define EPILOGUE(A)                                                      \
+  (bias != nullptr                                                        \
+       ? epilogue<TMA_STORE, A, true>(acc, col_s, col_b, stage, out, M, N, \
+                                      m0 + c * 64, n0, warp, lane)         \
+       : epilogue<TMA_STORE, A, false>(acc, col_s, col_b, stage, out, M,  \
+                                       N, m0 + c * 64, n0, warp, lane))
+      switch (act) {
+        case quant_mma::kRelu:
+          EPILOGUE(quant_mma::kRelu);
+          break;
+        case quant_mma::kSigmoid:
+          EPILOGUE(quant_mma::kSigmoid);
+          break;
+        case quant_mma::kTanh:
+          EPILOGUE(quant_mma::kTanh);
+          break;
+        case quant_mma::kGelu:
+          EPILOGUE(quant_mma::kGelu);
+          break;
+        default:
+          EPILOGUE(quant_mma::kNone);
       }
+#undef EPILOGUE
       if (TMA_STORE) {
         fence_async_shared();
         named_barrier(1 + c, 128);
