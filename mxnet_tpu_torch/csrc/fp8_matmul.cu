@@ -142,6 +142,7 @@ __global__ void __launch_bounds__(kPThreads)
   const long long x_items = static_cast<long long>(M) * chunks;
   const long long total = x_items + static_cast<long long>(N) * chunks;
   const float xs = *xs_ptr;
+#pragma unroll 2
   for (long long i = static_cast<long long>(blockIdx.x) * kPThreads +
                      threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * kPThreads) {
@@ -441,7 +442,9 @@ void launch_prepare(const float* x, const float* xs, const uint8_t* w,
                     uint16_t* xq, uint16_t* wq, int M, int N, int K, int Kp,
                     cudaStream_t s) {
   const long long items = static_cast<long long>(M + N) * (Kp / 8);
-  const long long wave = static_cast<long long>(sm_count()) * 8;
+  const char* d = std::getenv("FP8_DBG");
+  const long long wave = static_cast<long long>(sm_count()) *
+                         (d && (std::atoi(d) & 8) ? 16 : 8);
   const long long need = (items + kPThreads - 1) / kPThreads;
   fp8_prepare_kernel<AF, BF>
       <<<static_cast<int>(need < wave ? need : wave), kPThreads, 0, s>>>(

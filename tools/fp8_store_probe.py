@@ -6,7 +6,8 @@ Times ``fp8_matmul``'s GEMM kernel alone (``torch.profiler`` device ms)
 at the three GPT-2 fp8 training shapes under its development switch
 ``FP8_DBG``: 0 as built; 1 every tile's TMA store aimed at the first
 output tile (the stores stay in L2); 2 every TMA load aimed at the first
-tile of x and w (the loads stay in L2); 4 no stores; 3 both 1 and 2.
+tile of x and w (the loads stay in L2); 4 no stores; 3 both 1 and 2; and
+the prepare pass with 8 (as built) or, under switch 8, 16 blocks an SM.
 Needs one CUDA card.
 """
 import itertools
@@ -31,11 +32,11 @@ for m, k, n in cs.FP8_TRAIN_SHAPES:
         sets.append((x, wq, ws, torch.tensor([xs], device=dev)))
     turn = itertools.cycle(sets)
     row = {}
-    for dbg in (0, 1, 2, 3, 4, 0, 1, 2, 3, 4):
+    for dbg in (0, 8, 0, 8):
         os.environ["FP8_DBG"] = str(dbg)
         ms = cs.device_profile(lambda: qm.fp8_matmul(*next(turn)), 30,
-                               match="fp8_gemm")[0]
+                               match="fp8_prepare")[0]
         row.setdefault(dbg, []).append(round(ms, 5))
     os.environ["FP8_DBG"] = "0"
-    print(f"GEMM ms M={m} K={k} N={n} by FP8_DBG: {json.dumps(row)}",
+    print(f"prepare ms M={m} K={k} N={n} by FP8_DBG: {json.dumps(row)}",
           flush=True)
