@@ -42,12 +42,14 @@
 //      stage's products in flight while the previous stage is released;
 //      setmaxnreg gives the consumers 232 registers and the producer 40.
 //      The epilogue computes the reference's arithmetic from the
-//      accumulators, with each column's xs * ws[n] and bias loaded before
-//      the main loop, stages the tile in shared memory in the 128-byte
-//      swizzle and writes it with TMA stores where N % 4 == 0 (rows on 16
-//      bytes); otherwise straight from the registers, a full 32-byte
-//      sector a row and 4 lanes (float2 where N is even). No split-K, no
-//      atomics: a second launch gives the same bits.
+//      accumulators (instantiated per activation and bias, so that its
+//      loop over the 64 values of a thread carries no branch), with each
+//      column's xs * ws[n] and bias loaded before the main loop, stages
+//      the tile in shared memory in the 128-byte swizzle and writes it
+//      with TMA stores where N % 4 == 0 (rows on 16 bytes); otherwise
+//      straight from the registers, a full 32-byte sector a row and 4
+//      lanes (float2 where N is even). No split-K, no atomics: a second
+//      launch gives the same bits.
 //
 // Why f16 products, and not fp8 wgmma: the card's fp8 wgmma sums its 32
 // products with too few bits. Measured on an NVIDIA H100 80GB HBM3 (700 W)
@@ -81,7 +83,6 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <cstdlib>
 
 #include "hopper_gemm.cuh"
 #include "quant_mma.cuh"
@@ -142,7 +143,6 @@ __global__ void __launch_bounds__(kPThreads)
   const long long x_items = static_cast<long long>(M) * chunks;
   const long long total = x_items + static_cast<long long>(N) * chunks;
   const float xs = *xs_ptr;
-#pragma unroll 2
   for (long long i = static_cast<long long>(blockIdx.x) * kPThreads +
                      threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * kPThreads) {
@@ -284,7 +284,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ ws,
                     const float* __restrict__ xs_ptr,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int M, int N, int k_tiles, int act, int dbg) {
+                    int M, int N, int k_tiles, int act) {
   using L = Smem<TMA_STORE>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(
@@ -320,11 +320,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int k = 0; k < k_tiles; ++k) {
           mbar_wait(&empty[s], ph ^ 1);
           mbar_expect_tx(&full[s], L::kABytes + L::kBBytes);
-          const int kk = dbg & 2 ? 0 : k * kKElems;
-          tma_load_2d(sa + s * L::kABytes, &tm_a, &full[s], kk,
-                      dbg & 2 ? 0 : m0);
-          tma_load_2d(sb + s * L::kBBytes, &tm_b, &full[s], kk,
-                      dbg & 2 ? 0 : n0);
+          tma_load_2d(sa + s * L::kABytes, &tm_a, &full[s], k * kKElems, m0);
+          tma_load_2d(sb + s * L::kBBytes, &tm_b, &full[s], k * kKElems, n0);
           if (++s == kStages) {
             s = 0;
             ph ^= 1;
@@ -413,12 +410,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (TMA_STORE) {
         fence_async_shared();
         named_barrier(1 + c, 128);
-        if (tid == 0 && !(dbg & 4)) {
+        if (tid == 0) {
 #pragma unroll
           for (int b = 0; b < kBN / 32; ++b)
-            tma_store_2d(&tm_c, stage + b * 64 * 32,
-                         (dbg & 1 ? 0 : n0) + b * 32,
-                         (dbg & 1 ? 0 : m0) + c * 64);
+            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
+                         m0 + c * 64);
           tma_store_commit();
         }
       }
@@ -442,9 +438,7 @@ void launch_prepare(const float* x, const float* xs, const uint8_t* w,
                     uint16_t* xq, uint16_t* wq, int M, int N, int K, int Kp,
                     cudaStream_t s) {
   const long long items = static_cast<long long>(M + N) * (Kp / 8);
-  const char* d = std::getenv("FP8_DBG");
-  const long long wave = static_cast<long long>(sm_count()) *
-                         (d && (std::atoi(d) & 8) ? 16 : 8);
+  const long long wave = static_cast<long long>(sm_count()) * 8;
   const long long need = (items + kPThreads - 1) / kPThreads;
   fp8_prepare_kernel<AF, BF>
       <<<static_cast<int>(need < wave ? need : wave), kPThreads, 0, s>>>(
@@ -463,9 +457,8 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
   if (attr != cudaSuccess) return attr;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  const char* d = std::getenv("FP8_DBG");
   kern<<<grid, kThreads, smem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
-                                    k_tiles, act, d ? std::atoi(d) : 0);
+                                    k_tiles, act);
   return cudaGetLastError();
 }
 
