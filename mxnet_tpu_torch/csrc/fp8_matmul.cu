@@ -63,15 +63,17 @@
 // costs 2 bytes a value instead of 1.
 //
 // Measured on the same card (device ms, torch.profiler, chip_smoke.py
-// phase 10): the call takes 0.045 / 0.124 / 0.116 ms at the three shapes
-// above, 31-34% of the bound, of which the prepare pass 0.016 / 0.018 /
-// 0.053. The GEMM kernel's output stores do not overlap its main loop. Switching the stores off halves its
-// time at the first shape; storer warps copying the staged tile, stores
-// straight from the accumulators, ping-pong consumers, staggered K walks,
-// runs of consecutive tiles a block and L2 eviction hints were each
-// measured no faster than the TMA store; a 128 x 256 tile spilled. A ring
-// of 5 stages (the most that fits beside the staged tile) and barrier
-// waits that spin rather than suspend took 2-6% off.
+// phase 10): the call takes 0.040-0.042 / 0.104 / 0.110-0.111 ms at the
+// three shapes above, 34-39% of the bound, of which the prepare pass
+// 0.016 / 0.018 / 0.052-0.054 (memory-bound at ~2.3-2.8 TB/s). In the
+// GEMM the epilogue does not overlap the main loop; with the activation
+// a runtime switch on each value it cost 12-20% more. Storer warps
+// copying the staged tile, stores straight from the accumulators,
+// ping-pong consumers, staggered K walks, runs of consecutive tiles a
+// block and L2 eviction hints were each measured no faster than the TMA
+// store; a 128 x 256 tile spilled. A ring of 5 stages (the most that fits
+// beside the staged tile) and barrier waits that spin rather than
+// suspend took 2-6% off.
 //
 // Plain C interface, bound from Python with ctypes: both launches go onto
 // the caller's stream, allocate nothing and return cudaGetLastError().
