@@ -69,11 +69,12 @@
 // GEMM the epilogue does not overlap the main loop; with the activation
 // a runtime switch on each value it cost 3-19% more. Storer warps
 // copying the staged tile, stores straight from the accumulators,
-// ping-pong consumers, staggered K walks, runs of consecutive tiles a
-// block and L2 eviction hints were each measured no faster than the TMA
-// store; a 128 x 256 tile spilled. A ring of 5 stages (the most that fits
-// beside the staged tile) and barrier waits that spin rather than
-// suspend took 2-6% off.
+// staggered K walks, runs of consecutive tiles a block and L2 eviction
+// hints were each measured no faster than the TMA store; ping-pong
+// consumers (each owning whole tiles) were 8-9% slower at the first and
+// third shapes, 2.6% faster at the second, and spilled; a 128 x 256 tile
+// spilled. A ring of 5 stages (the most that fits beside the staged
+// tile) and barrier waits that spin rather than suspend took 2-6% off.
 //
 // Plain C interface, bound from Python with ctypes: both launches go onto
 // the caller's stream, allocate nothing and return cudaGetLastError().
@@ -85,7 +86,6 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <cstdlib>
 
 #include "hopper_gemm.cuh"
 #include "quant_mma.cuh"
@@ -99,7 +99,6 @@ constexpr int kBN = 128;        // columns of a tile
 constexpr int kKBytes = 128;    // bytes of K a stage: one 128-byte swizzle
 constexpr int kKElems = 64;     // f16 values of K a stage
 constexpr int kStages = 5;
-constexpr int kPPStages = 4;
 constexpr int kThreads = 384;   // producer warpgroup + two consumers
 constexpr int kPThreads = 256;  // prepare kernel
 
@@ -427,166 +426,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Ping-pong: each consumer warpgroup owns whole 128 x 128 tiles (two m64
-// row blocks, 128 accumulators a thread) and the two take turns, so that
-// one's epilogue runs while the other's main loop keeps the tensor cores
-// busy. The main loops alternate (named barriers 3 and 4), so that a
-// consumer never waits on a full barrier more than one phase ahead.
-template <bool TMA_STORE>
-__global__ void __launch_bounds__(kThreads, 1)
-    fp8_gemm_pingpong(const __grid_constant__ CUtensorMap tm_a,
-                      const __grid_constant__ CUtensorMap tm_b,
-                      const __grid_constant__ CUtensorMap tm_c,
-                      const float* __restrict__ ws,
-                      const float* __restrict__ xs_ptr,
-                      const float* __restrict__ bias, float* __restrict__ out,
-                      int M, int N, int k_tiles, int act) {
-  using L = Smem<TMA_STORE>;
-  constexpr int S = kPPStages;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* const smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* const sa = smem;
-  uint8_t* const sb = sa + S * L::kABytes;
-  float* const sc = reinterpret_cast<float*>(sb + S * L::kBBytes);
-  uint64_t* const full =
-      reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(sc) + L::kCBytes);
-  uint64_t* const empty = full + S;
-
-  const int n_tiles = (N + kBN - 1) / kBN;
-  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);  // lane 0 of each warp of one consumer
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    reg_dealloc<40>();
-    if (threadIdx.x == 0) {
-      int s = 0;
-      uint32_t ph = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
-        for (int k = 0; k < k_tiles; ++k) {
-          mbar_wait(&empty[s], ph ^ 1);
-          mbar_expect_tx(&full[s], L::kABytes + L::kBBytes);
-          tma_load_2d(sa + s * L::kABytes, &tm_a, &full[s], k * kKElems, m0);
-          tma_load_2d(sb + s * L::kBBytes, &tm_b, &full[s], k * kKElems, n0);
-          if (++s == S) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
-      }
-    }
-  } else {
-    reg_alloc<232>();
-    const int c = wg - 1;
-    const int tid = threadIdx.x - 128 * wg;
-    const int warp = tid >> 5, lane = tid & 31;
-    float* const stage = sc + c * 64 * kBN;
-    const float xs = *xs_ptr;
-    for (int i = c;; i += 2) {
-      const int t = blockIdx.x + i * gridDim.x;
-      if (t >= tiles) break;
-      const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
-      float col_s[kBN / 4], col_b[kBN / 4];
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int gc = n0 + j * 8 + (lane & 3) * 2 + e;
-          col_s[2 * j + e] = gc < N ? __fmul_rn(xs, ws[gc]) : 0.f;
-          col_b[2 * j + e] = bias != nullptr && gc < N ? bias[gc] : 0.f;
-        }
-      }
-      float acc0[kBN / 2], acc1[kBN / 2];
-#pragma unroll
-      for (int e = 0; e < kBN / 2; ++e) acc0[e] = acc1[e] = 0.f;
-      if (i > 0) named_barrier(3 + c, 256);
-      const long long q0 = static_cast<long long>(i) * k_tiles;
-      int s = static_cast<int>(q0 % S);
-      uint32_t ph = static_cast<uint32_t>((q0 / S) & 1);
-      int prev = -1;
-      for (int k = 0; k < k_tiles; ++k) {
-        mbar_wait(&full[s], ph);
-        const uint64_t da = desc_sw128(sa + s * L::kABytes);
-        const uint64_t db = desc_sw128(sb + s * L::kBBytes);
-        wgmma_fence();
-#pragma unroll
-        for (int kb = 0; kb < kKBytes / 32; ++kb) {
-          wgmma_m64n128k16(acc0, da + 2 * kb, db + 2 * kb);
-          wgmma_m64n128k16(acc1, da + (64 * kKBytes >> 4) + 2 * kb,
-                           db + 2 * kb);
-        }
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = s;
-        if (++s == S) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-      if (blockIdx.x + (i + 1) * gridDim.x < tiles) named_arrive(4 - c, 256);
-      wgmma_wait<0>();
-      fence_regs(acc0);
-      fence_regs(acc1);
-      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-
-#define EPILOGUE(ACC, ROW0, A)                                             \
-  (bias != nullptr                                                          \
-       ? epilogue<TMA_STORE, A, true>(ACC, col_s, col_b, stage, out, M, N,  \
-                                      ROW0, n0, warp, lane)                 \
-       : epilogue<TMA_STORE, A, false>(ACC, col_s, col_b, stage, out, M, N, \
-                                       ROW0, n0, warp, lane))
-#define HALF(ACC, ROW0)                                                 \
-  do {                                                                  \
-    if (TMA_STORE) {                                                    \
-      if (tid == 0) tma_store_wait_read();                              \
-      named_barrier(1 + c, 128);                                        \
-    }                                                                   \
-    switch (act) {                                                      \
-      case quant_mma::kRelu:                                            \
-        EPILOGUE(ACC, ROW0, quant_mma::kRelu);                          \
-        break;                                                          \
-      case quant_mma::kSigmoid:                                         \
-        EPILOGUE(ACC, ROW0, quant_mma::kSigmoid);                       \
-        break;                                                          \
-      case quant_mma::kTanh:                                            \
-        EPILOGUE(ACC, ROW0, quant_mma::kTanh);                          \
-        break;                                                          \
-      case quant_mma::kGelu:                                            \
-        EPILOGUE(ACC, ROW0, quant_mma::kGelu);                          \
-        break;                                                          \
-      default:                                                          \
-        EPILOGUE(ACC, ROW0, quant_mma::kNone);                          \
-    }                                                                   \
-    if (TMA_STORE) {                                                    \
-      fence_async_shared();                                             \
-      named_barrier(1 + c, 128);                                        \
-      if (tid == 0) {                                                   \
-        for (int b = 0; b < kBN / 32; ++b)                              \
-          tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32, ROW0);  \
-        tma_store_commit();                                             \
-      }                                                                 \
-    }                                                                   \
-  } while (0)
-      HALF(acc0, m0);
-      HALF(acc1, m0 + 64);
-#undef HALF
-#undef EPILOGUE
-    }
-    if (TMA_STORE && tid == 0) tma_store_wait();
-  }
-}
-
 int sm_count() {
   static const int n = [] {
     int dev = 0, v = 0;
@@ -614,22 +453,11 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
                         const CUtensorMap& tc, const float* ws,
                         const float* xs, const float* bias, float* out, int M,
                         int N, int k_tiles, int act, cudaStream_t s) {
-  const char* pp = std::getenv("FP8_PINGPONG");
-  const bool ping = pp != nullptr && pp[0] == '1';
-  constexpr int coop_smem = Smem<TMA_STORE>::kBytes;
-  constexpr int pp_smem = Smem<TMA_STORE>::kBytes -
-                          (kStages - kPPStages) *
-                              (Smem<TMA_STORE>::kABytes + Smem<TMA_STORE>::kBBytes);
-  const int smem = ping ? pp_smem : coop_smem;
-  auto kern = ping ? fp8_gemm_pingpong<TMA_STORE> : fp8_gemm_kernel<TMA_STORE>;
+  constexpr int smem = Smem<TMA_STORE>::kBytes;
+  auto kern = fp8_gemm_kernel<TMA_STORE>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fp8_gemm_kernel<TMA_STORE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      coop_smem);
-  static const cudaError_t attr2 = cudaFuncSetAttribute(
-      fp8_gemm_pingpong<TMA_STORE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, pp_smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  if (attr2 != cudaSuccess) return attr2;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
   kern<<<grid, kThreads, smem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
