@@ -330,6 +330,9 @@ RESNET50_TRAIN_FLOPS = 3 * 2 * 4.089e9  # per image (bench.py:44-46)
 CONV_STAGES = [(32, 56, 56, 64), (32, 28, 28, 128), (32, 14, 14, 256),
                (32, 7, 7, 512)]
 RESNET_STAGE_TRIPLETS = dict(zip(CONV_STAGES, (3, 4, 6, 3)))
+# kernel 8's CUDA kernels, as phase 1 names them
+CONV_KERNELS = ("conv_bwd wsplit", "conv_bwd dgrad", "conv_bwd wgrad",
+                "conv_bwd reduce")
 RESNET_TRIPLETS = 16
 # kernel 8 vs its plain version, max|diff| / max|plain| of dx and dw: fp32
 # sums of up to 9*512 products in another order
@@ -487,9 +490,7 @@ def ptxas_summary(log):
                 name = f"int8_matmul vec={vec[1] if vec else '?'}"
                 continue
             if "conv_bwd" in mangled:
-                part = re.search(r"conv_bwd_(dgrad|wgrad|reduce)_kernel",
-                                 mangled)
-                name = f"conv_bwd {part[1] if part else '?'}"
+                name = conv_kernel_name(mangled)
                 continue
             if "ln_residual" in mangled:
                 name = "ln_fwd" if "fwd" in mangled else "ln_bwd"
@@ -536,6 +537,16 @@ def fp8_kernel_name(mangled):
     if tpl:
         return f"fp8_gemm {'tma' if tpl[1] == '1' else 'direct'} store"
     return "fp8_matmul ?"
+
+
+def conv_kernel_name(mangled):
+    """``conv_bwd dgrad`` for a mangled kernel name of ``conv_bwd.cu``."""
+    part = re.search(r"conv_bwd_(wsplit|dgrad|wgrad|reduce)_kernel", mangled)
+    return f"conv_bwd {part[1] if part else '?'}"
+
+
+def conv_name(mangled):
+    return conv_kernel_name(mangled) if "conv_bwd_" in mangled else None
 
 
 def spill_bytes(log, namer):
@@ -624,6 +635,22 @@ def phase_build():
                              if "fp8_matmul_cu" in m else None)
         check(spills and not any(spills.values()),
               f"an fp8 matmul kernel spills: {spills}")
+    hmma = tensor_core_counts(libs["conv_bwd"], conv_name, r"\bHMMA\.")
+    log = _native.build_logs.get("conv_bwd")
+    spills = spill_bytes(log, conv_name) if log is not None else None
+    print("tensor-core SASS (HMMA) in the conv_bwd kernels: "
+          + ", ".join(f"{n} {c}" for n, c in sorted(hmma.items()))
+          + "; spill store bytes: "
+          + (", ".join(f"{n} {b}" for n, b in sorted(spills.items()))
+             if spills is not None else "(cached build)"))
+    check(set(hmma) == set(CONV_KERNELS), f"conv_bwd kernels in the library: "
+                                          f"{sorted(hmma)}, expected "
+                                          f"{sorted(CONV_KERNELS)}")
+    check(all(hmma[f"conv_bwd {k}"] for k in ("dgrad", "wgrad")),
+          f"a conv_bwd product kernel has no HMMA: {hmma}")
+    check(spills is None or (set(spills) == set(CONV_KERNELS)
+                             and not any(spills.values())),
+          f"a conv_bwd kernel spills: {spills}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

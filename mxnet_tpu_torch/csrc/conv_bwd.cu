@@ -2,42 +2,73 @@
 // NCHW: kernel 8 of the port.
 //
 // Replaces the TPU kernel of mxnet_tpu/ops/pallas_conv_bwd.py:
-//   conv_bwd_dgrad_kernel, conv_bwd_wgrad_kernel (+ conv_bwd_reduce_kernel)
-//     <- _bwd_kernel (launched by fused_conv3x3_bn_relu_bwd).
-// Inputs: da and y (N, O, H, W), x (N, C, H, W), the weights as
-// wt[kh][kw][o][c] (w OIHW permuted by the caller), and the stats pass's
-// (8, O) vector vec = [mu, inv, gamma, beta, c1, c2, s1, 0]. On every tile
-// the kernels recompute, each operation rounded on its own (no FMA
-// contraction, so the mask and dy are the plain version's bit for bit),
+//   conv_bwd_wsplit_kernel, conv_bwd_dgrad_kernel, conv_bwd_wgrad_kernel
+//   (+ conv_bwd_reduce_kernel) <- _bwd_kernel (launched by
+//   fused_conv3x3_bn_relu_bwd).
+// Inputs: da and y (N, O, H, W), x (N, C, H, W), the weights w (O, C, 3,
+// 3), and the stats pass's (8, O) vector vec = [mu, inv, gamma, beta, c1,
+// c2, s1, 0]. The kernels recompute, each operation rounded on its own (no
+// FMA contraction, so the mask and dy are the plain version's bit for bit),
 //   xhat = (y - mu)*inv,  dz = (gamma*xhat + beta > 0) ? da : 0,
 //   dy   = s1*((dz - c1) - xhat*c2),
 // and then, with zero padding of one pixel (stride 1, SAME),
 //   dgrad: dx[n,c,h,w] = sum_{o,kh,kw} dy[n,o,h+1-kh,w+1-kw] * w[o,c,kh,kw]
 //   wgrad: dw[o,c,kh,kw] = sum_{n,h,w} dy[n,o,h,w] * x[n,c,h+kh-1,w+kw-1]
-// in fp32. dy is never written to device memory.
+// to fp32 accuracy. dy is never written to device memory.
 //
 // What bounds it on the H100: operations. Both products are 18*M*C*O
 // flops (M = N*H*W): at ResNet-50's four 3x3 stages (batch 32, C = O =
-// 64..512) 14.8 GFLOP a call, 0.22 ms at the 67 TFLOP/s fp32 rate, against
-// ~0.03 ms for the bytes (da, y and x read once, dx and dw written once).
+// 64..512) 14.8 GFLOP a call. Both run on the tensor cores as 3xTF32 (x =
+// hi + lo, a.b = a.lo b.hi + a.hi b.lo + a.hi b.hi, as the fp32 flash
+// kernels do; one TF32 pass would miss fp32 accuracy), three TF32
+// products each: 0.09 ms at the 495 TFLOP/s TF32 rate, against 0.22 ms
+// for fp32 FMAs at 67 TFLOP/s and ~0.03 ms for the bytes (da, y and x read
+// once, dx and dw written once).
 //
-// What the design does about it: both products are implicit GEMMs on
-// 64 x 64 output tiles with a reduction step of 16, 256 threads a block,
-// each thread a 4 x 4 register tile of fp32 FMAs fed by two 16-byte
-// shared-memory loads a step (the operands' rows are 64 wide, so a step
-// reads 8 values for 16 FMAs). dgrad's rows are pixels and its columns
-// input channels; its reduction walks 16 output channels at a time and,
-// inside, the 9 taps, so the 16 x 64 dy tile of each tap is recomputed from
-// da and y (cached in L1/L2) as it is loaded and the stats vector of those
-// 16 channels sits in shared memory. wgrad's rows are output channels and
-// its columns (c, kh, kw) in OIHW order, so its output is dw's own layout;
-// its reduction over the pixels is cut into `splits` runs (enough blocks to
-// fill the card where O x 9C is small), each run writing its own fp32
-// partial of dw, which conv_bwd_reduce_kernel sums in a fixed order. No
-// atomics: two launches on equal inputs give equal bits. No tensor cores,
-// TMA or wgmma in this first version (the redesign's work): the kernels
-// are plain fp32 FMAs on shared-memory tiles, without double buffering.
-// Ragged edges (pixels, channels, taps) are masked by index.
+// The design:
+// - The padded grid. Both products index pixels by their place in a grid
+//   with one zero column after every image row and one zero row after
+//   every image (row stride W+1, (H+1)(W+1) places an image). A 3x3 tap
+//   is then a constant shift of the place, (dh)(W+1) + dw, and lands on a
+//   zero place wherever the tap leaves the image, so a tile of consecutive
+//   places with a halo of W+2 places on each side holds every neighbour
+//   its taps read, already zero-padded. A linear tile keeps the mma tiles
+//   full at any W (a tile of whole image rows would leave 16-row mma tiles
+//   part empty at 7 x 7); the zero places cost (H+W+1)/((H+1)(W+1)) of
+//   dgrad's rows (3.5% at 56 x 56, 23% at 7 x 7).
+// - Split once. Every operand value is split into its hi and lo TF32
+//   parts, with the inf/NaN check (mma_common.cuh), once, when it is
+//   written into shared memory: two planes, so a fragment is a plain
+//   ldmatrix (or shared load) and no warp repeats a split. The weights
+//   are split by a prepare pass (conv_bwd_wsplit_kernel) into planes
+//   [hi|lo][tap][c][o], o padded with zeros to a multiple of 8.
+// - dgrad (conv_bwd_dgrad_kernel): a block owns 128 places x 64 input
+//   channels (8 warps of 32 x 32). For each chunk of 8 output channels it
+//   recomputes dy once into a halo tile of 128 + 2(W+2) places, and the 9
+//   taps are 9 shifted ldmatrix reads of it against the weight tile of
+//   each tap: 27 mma.sync m16n8k8 a tap and warp tile. Where the grid of
+//   blocks is thin (7 x 7), the output channels are cut into `dsplits`
+//   runs, each writing its own fp32 partial of dx, summed in a fixed order
+//   by conv_bwd_reduce_kernel.
+// - wgrad (conv_bwd_wgrad_kernel): a block owns 32 output x 32 input
+//   channels x all 9 taps (9 warps, one a tap, 32 x 32 each). For each
+//   chunk of 64 pixels it recomputes the 32 x 64 dy tile once and loads the
+//   x halo of those pixels once (64 pixels' places plus W+2 on each side);
+//   each warp reads its tap's shifted view of the x halo through a table
+//   of the pixels' places. The reduction runs over real pixels only (not
+//   the zero places, whose 0 * inf would put a NaN where the plain version
+//   has none) and is cut into `splits` runs of `rows` pixels (a multiple
+//   of 64), each writing its own fp32 partial of dw, summed in a fixed
+//   order by conv_bwd_reduce_kernel. dw comes out in OIHW.
+// - Overlap: a two-stage ring of cp.async copies. The next chunk's da, y
+//   (and x, or the weight tiles) are copied while the current chunk's
+//   products run; da and y land in the hi and lo slots of the chunk's
+//   planes and are turned into dy's hi and lo parts in place, x likewise.
+// - Accuracy: the tensor core's fp32 accumulation is not round-to-nearest
+//   and its error grows with the count of mma summed into one register, so
+//   each chunk's products are summed into a zeroed partial (27 or 24 mma)
+//   and added to the accumulator with one fp32 add.
+// - No atomics: two launches on equal inputs give equal bits.
 //
 // Plain C interface, bound from Python with ctypes: every launch goes onto
 // the caller's stream, allocates nothing and is checked with
@@ -48,251 +79,652 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;   // output tile, rows and columns
-constexpr int kDepth = 16;  // reduction step
-constexpr int kPad = 4;     // wgrad's shared rows: 68 floats, 16-byte aligned
-constexpr int kStats = 7;   // mu, inv, gamma, beta, c1, c2, s1
+using namespace mma_common;
 
-// dy of one element from da, y and its channel's stats (sv[row * stride]).
-__device__ __forceinline__ float recompute_dy(float da, float y,
-                                              const float* sv, int stride) {
-  const float mu = sv[0], inv = sv[stride], gamma = sv[2 * stride];
-  const float beta = sv[3 * stride], c1 = sv[4 * stride];
-  const float c2 = sv[5 * stride], s1 = sv[6 * stride];
-  const float xhat = __fmul_rn(__fsub_rn(y, mu), inv);
-  const float z = __fadd_rn(__fmul_rn(gamma, xhat), beta);
-  const float dz = z > 0.f ? da : 0.f;
-  return __fmul_rn(s1, __fsub_rn(__fsub_rn(dz, c1), __fmul_rn(xhat, c2)));
+constexpr int kStats = 7;   // mu, inv, gamma, beta, c1, c2, s1
+constexpr int kTaps = 9;
+constexpr int kChunk = 8;   // dgrad: output channels a chunk (one k8 step)
+// dgrad
+constexpr int kDgThreads = 256;  // 8 warps: 4 along places x 2 along c
+constexpr int kDgRows = 128;     // places a block
+constexpr int kDgCols = 64;      // input channels a block
+constexpr int kWTile = kTaps * kDgCols * kChunk;  // one plane of a w stage
+// wgrad
+constexpr int kWgThreads = 288;  // 9 warps, one a tap
+constexpr int kWgRows = 32;      // output channels a block
+constexpr int kWgCols = 32;      // input channels a block
+constexpr int kWgPixels = 64;    // pixels a chunk
+constexpr int kWgLd = kWgPixels + 4;  // dy plane row stride: ldmatrix rows
+                                      // 272 bytes apart hit 8 bank groups
+constexpr int kDyPlane = kWgRows * kWgLd;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// dgrad's halo: the block's 128 places and W+2 on each side
+__host__ __device__ inline int dgrad_halo(int W) {
+  return kDgRows + 2 * (W + 1) + 2;
 }
 
-// One 16-step of a 64 x 64 tile: a thread's rows r0..r0+3 of sa (16 x lda)
-// times its columns c0..c0+3 of sb (16 x ldb).
-template <int LDA, int LDB>
-__device__ __forceinline__ void tile_fma(float (*sa)[LDA], float (*sb)[LDB],
-                                         int r0, int c0,
-                                         float (&acc)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < kDepth; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&sa[k][r0]);
-    const float4 b = *reinterpret_cast<const float4*>(&sb[k][c0]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// row stride of dgrad's raw da / y rows: 4 mod 8 words, so the two
+// channel halves a warp reads in its convert step fall in distinct banks
+__host__ __device__ inline int dgrad_raw_ld(int W) {
+  return cdiv(dgrad_halo(W), 8) * 8 + 4;
+}
+
+__host__ __device__ inline size_t dgrad_smem_bytes(int W) {
+  const int halo = dgrad_halo(W);
+  return sizeof(uint32_t) * (2 * 2 * static_cast<size_t>(kWTile) +
+                             2 * static_cast<size_t>(halo) * kChunk +
+                             2 * static_cast<size_t>(dgrad_raw_ld(W)) * kChunk +
+                             halo + kStats * kChunk);
+}
+
+// wgrad's x halo of a linear chunk, an upper bound over chunks: 64
+// consecutive pixels span at most 63 + (row breaks) + (image breaks)(W+1)
+// places, and the taps reach W+2 places further on each side
+__host__ __device__ inline int wgrad_linear_halo(int H, int W) {
+  constexpr int k = kWgPixels - 1;
+  const int rb = k / W + 1 < k ? k / W + 1 : k;
+  const int ib = k / (H * W) + 1 < k ? k / (H * W) + 1 : k;
+  return k + rb + ib * (W + 1) + 2 * (W + 1) + 3;
+}
+
+// wgrad's chunk: a patch of PR x PC pixels of one image where such patches
+// tile the image (PR | H, PC | W) with 56..64 pixels and a halo, (PR+2) x
+// (PC+2), smaller per pixel than the linear chunk's; else (0, 0): 64
+// consecutive pixels. The largest patch wins, then the smallest halo, then
+// the widest.
+inline void wgrad_patch(int H, int W, int& PR, int& PC) {
+  PR = PC = 0;
+  for (int pc = 1; pc <= W && pc <= kWgPixels; ++pc) {
+    if (W % pc) continue;
+    int pr = kWgPixels / pc;
+    while (H % pr) --pr;
+    const int area = pr * pc, halo = (pr + 2) * (pc + 2);
+    const int best = PR * PC, best_halo = (PR + 2) * (PC + 2);
+    if (area > best || (area == best && halo <= best_halo)) {
+      PR = pr;
+      PC = pc;
     }
+  }
+  if (PR * PC < 56 || (PR + 2) * (PC + 2) * kWgPixels >=
+                          wgrad_linear_halo(H, W) * PR * PC)
+    PR = PC = 0;
+}
+
+// wgrad's x halo: a patch's (PR+2) rows of PC+2 places, and where the
+// patch has fewer than 64 pixels, 2 more zero rows and 3 places that the
+// missing pixels' taps read
+__host__ __device__ inline int wgrad_halo(int H, int W, int PR, int PC) {
+  if (PR == 0) return wgrad_linear_halo(H, W);
+  return PR * PC < kWgPixels ? (PR + 4) * (PC + 2) + 3 : (PR + 2) * (PC + 2);
+}
+
+// x plane row stride: 4 mod 8 words, so the 8 rows g of a B fragment load
+// fall in distinct banks
+__host__ __device__ inline int wgrad_xs(int xh) { return cdiv(xh, 8) * 8 + 4; }
+
+inline size_t wgrad_smem_bytes(int H, int W, int PR, int PC) {
+  const int xh = wgrad_halo(H, W, PR, PC);
+  return sizeof(uint32_t) *
+         (2 * 2 * static_cast<size_t>(kDyPlane) +
+          2 * 2 * static_cast<size_t>(kWgCols) * wgrad_xs(xh) +
+          3 * (2 * kWgPixels + static_cast<size_t>(xh) + 1) +
+          kStats * kWgRows);
+}
+
+// dy of one element from da, y and its channel's stats s[0..6]
+__device__ __forceinline__ float recompute_dy(float da, float y,
+                                              const float (&s)[kStats]) {
+  const float xhat = __fmul_rn(__fsub_rn(y, s[0]), s[1]);
+  const float z = __fadd_rn(__fmul_rn(s[2], xhat), s[3]);
+  const float dz = z > 0.f ? da : 0.f;
+  return __fmul_rn(s[6], __fsub_rn(__fsub_rn(dz, s[4]), __fmul_rn(xhat, s[5])));
+}
+
+// the element offset (n*chans*H*W + h*W + w) of place q of the padded grid
+// in an NCHW tensor of `chans` channels, or -1 for a zero place
+__device__ __forceinline__ int place_offset(int q, int H, int W, int P,
+                                            int chans) {
+  if (q < 0 || q >= P) return -1;
+  const int Wp = W + 1, HpWp = (H + 1) * Wp;
+  const int n = q / HpWp, rem = q - n * HpWp, r = rem / Wp, w = rem - r * Wp;
+  return r < H && w < W ? n * chans * H * W + r * W + w : -1;
+}
+
+// the place of pixel m = n*H*W + h*W + w (m past the last pixel continues
+// into zero places)
+__device__ __forceinline__ int place_of(int m, int H, int W) {
+  const int HW = H * W, Wp = W + 1;
+  const int n = m / HW, rem = m - n * HW, r = rem / W;
+  return n * (H + 1) * Wp + r * Wp + (rem - r * W);
+}
+
+// the 16-byte half kc of shared row `row` (8 words), halves swapped on
+// every other group of 4 rows: 8 consecutive rows, from any start, then
+// hit 8 distinct bank groups in an ldmatrix
+__device__ __forceinline__ int swz(int row, int kc) {
+  return (kc ^ ((row >> 2) & 1)) << 2;
+}
+
+// w (O, C, 3, 3) -> wsp [2][9][C][Opad]: the hi and lo TF32 parts, zero
+// for o >= O; a 32 x 32 tile of the (O, 9C) matrix a block, transposed
+// through shared memory so both the reads and the writes are coalesced
+__global__ void __launch_bounds__(256)
+conv_bwd_wsplit_kernel(const float* __restrict__ w, uint32_t* __restrict__ wsp,
+                       int C, int O, int Opad) {
+  __shared__ float t[32][33];
+  const int K9 = kTaps * C;
+  const int q0 = blockIdx.x * 32, o0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += 8) {
+    const int o = o0 + r, q = q0 + tx;
+    t[r][tx] = o < O && q < K9 ? __ldg(w + static_cast<size_t>(o) * K9 + q)
+                               : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = static_cast<size_t>(K9) * Opad;
+  for (int r = ty; r < 32; r += 8) {
+    const int q = q0 + r, o = o0 + tx;
+    if (q >= K9 || o >= Opad) continue;
+    const int c = q / kTaps, tap = q - c * kTaps;
+    uint32_t hi, lo;
+    split<true>(t[tx][r], hi, lo);
+    const size_t i = (static_cast<size_t>(tap) * C + c) * Opad + o;
+    wsp[i] = hi;
+    wsp[plane + i] = lo;
   }
 }
 
-// dx tile: 64 pixels (rows m = n*H*W + h*W + w) x 64 input channels.
-__global__ void __launch_bounds__(kThreads)
+// dx (or a partial of it) for 128 places x 64 input channels, over the
+// output-channel chunks [blockIdx.z * cps, min(chunks, (blockIdx.z+1) cps))
+__global__ void __launch_bounds__(kDgThreads, 2)
 conv_bwd_dgrad_kernel(const float* __restrict__ vec,
                       const float* __restrict__ da,
                       const float* __restrict__ y,
-                      const float* __restrict__ wt, float* __restrict__ dx,
-                      int N, int H, int W, int C, int O) {
-  __shared__ __align__(16) float sa[kDepth][kTile];  // dy: (o, pixel)
-  __shared__ __align__(16) float sb[kDepth][kTile];  // w:  (o, c)
-  __shared__ float sv[kStats][kDepth];
-  const int tid = threadIdx.x;
-  const int hw = H * W;
-  const int M = N * hw;
-  const int m0 = blockIdx.x * kTile;
-  const int cb = blockIdx.y * kTile;
-  // loads: one pixel / channel column per thread, rows lrow + 4r
-  const int lm = tid & (kTile - 1);
-  const int lrow = tid >> 6;
-  const int pm = m0 + lm;
-  const bool pm_ok = pm < M;
-  int pn = 0, ph = 0, pw = 0;
-  if (pm_ok) {
-    pn = pm / hw;
-    const int r = pm - pn * hw;
-    ph = r / W;
-    pw = r - ph * W;
-  }
-  const int lc = cb + lm;
-  // products: rows (pixels) 4*tx.., columns (channels) 4*ty..
-  const int tx = tid & 15, ty = tid >> 4;
-  float acc[4][4] = {};
-  for (int o0 = 0; o0 < O; o0 += kDepth) {
-    if (tid < kStats * kDepth) {
-      const int row = tid / kDepth, col = tid - row * kDepth;
-      sv[row][col] = o0 + col < O ? vec[(size_t)row * O + o0 + col] : 0.f;
+                      const uint32_t* __restrict__ wsp,
+                      float* __restrict__ out, int N, int H, int W, int C,
+                      int O, int Opad, int cps) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Wp = W + 1, HW = H * W, P = N * (H + 1) * Wp;
+  const int halo = dgrad_halo(W);
+  const int hplane = halo * kChunk, rld = dgrad_raw_ld(W);
+  uint32_t* wring = sm;                 // [2 stages][hi|lo][9][64][8]
+  uint32_t* hs = sm + 2 * 2 * kWTile;   // dy planes [hi|lo][halo][8]
+  float* raw = reinterpret_cast<float*>(hs + 2 * hplane);  // [da|y][8][rld]
+  float* sstat = raw + 2 * kChunk * rld;                      // [7][8]
+  int* pix = reinterpret_cast<int*>(sstat + kStats * kChunk);  // [halo]
+  const int p0 = blockIdx.x * kDgRows;
+  const int cb = blockIdx.y * kDgCols;
+  const int c_begin = blockIdx.z * cps;
+  const int c_end = min(cdiv(O, kChunk), c_begin + cps);
+  const size_t wplane = static_cast<size_t>(kTaps) * C * Opad;
+
+  for (int q = tid; q < halo; q += kDgThreads)
+    pix[q] = place_offset(p0 - Wp - 1 + q, H, W, P, O);
+  __syncthreads();
+
+  // chunk ci's stats, da and y (rows of places, as they lie in memory),
+  // and its 9 weight tiles into stage st of the ring
+  auto issue = [&](int ci, int st) {
+    const int o0 = ci * kChunk;
+    if (tid < kStats * kChunk) {
+      const int r = tid / kChunk, o = o0 + tid % kChunk;
+      cp_async4(sstat + tid,
+                vec + static_cast<size_t>(r) * O + (o < O ? o : 0), o < O);
     }
-    __syncthreads();
-    for (int tap = 0; tap < 9; ++tap) {
-      const int kh = tap / 3, kw = tap - kh * 3;
-      const int hs = ph + 1 - kh, ws = pw + 1 - kw;
-      const bool in = pm_ok && hs >= 0 && hs < H && ws >= 0 && ws < W;
-      const size_t pix = (size_t)pn * O * hw + (size_t)hs * W + ws;
+    for (int q = tid; q < halo; q += kDgThreads) {
+      const int off = pix[q];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int lo = lrow + 4 * r;
-        const int o = o0 + lo;
-        float v = 0.f;
-        if (in && o < O) {
-          const size_t idx = pix + (size_t)o * hw;
-          v = recompute_dy(__ldg(da + idx), __ldg(y + idx), &sv[0][lo],
-                           kDepth);
-        }
-        sa[lo][lm] = v;
-        sb[lo][lm] = (o < O && lc < C)
-                         ? __ldg(wt + ((size_t)tap * O + o) * C + lc)
-                         : 0.f;
+      for (int j = 0; j < kChunk; ++j) {
+        const bool ok = off >= 0 && o0 + j < O;
+        const size_t g = ok ? off + static_cast<size_t>(o0 + j) * HW : 0;
+        cp_async4(raw + j * rld + q, da + g, ok);
+        cp_async4(raw + (kChunk + j) * rld + q, y + g, ok);
       }
-      __syncthreads();
-      tile_fma<kTile, kTile>(sa, sb, 4 * tx, 4 * ty, acc);
-      __syncthreads();
     }
+    uint32_t* ws = wring + st * 2 * kWTile;
+    for (int i = tid; i < 2 * kTaps * kDgCols * 2; i += kDgThreads) {
+      const int half = i & 1, row = (i >> 1) % kDgCols;
+      const int pt = (i >> 1) / kDgCols;  // plane * 9 + tap
+      const int plane = pt / kTaps, tap = pt - plane * kTaps;
+      const bool ok = cb + row < C;
+      const uint32_t* src =
+          wsp + plane * wplane +
+          (static_cast<size_t>(tap) * C + (ok ? cb + row : 0)) * Opad + o0 +
+          half * 4;
+      cp_async16(ws + (pt * kDgCols + row) * kChunk + swz(row, half), src,
+                 ok);
+    }
+    cp_async_commit();
+  };
+
+  // dy of chunk ci into the hi and lo planes: a thread takes 4 channels
+  // (half kc) of every 128th place
+  const int kc = tid & 1;
+  auto convert = [&](int ci) {
+    const int o0 = ci * kChunk + 4 * kc;
+    float s[4][kStats];
+#pragma unroll
+    for (int r = 0; r < kStats; ++r) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(sstat + r * kChunk + 4 * kc);
+      s[0][r] = v.x;
+      s[1][r] = v.y;
+      s[2][r] = v.z;
+      s[3][r] = v.w;
+    }
+    for (int q = tid >> 1; q < halo; q += kDgThreads / 2) {
+      const int slot = q * kChunk + swz(q, kc);
+      float av[4], bv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        av[j] = raw[(4 * kc + j) * rld + q];
+        bv[j] = raw[(kChunk + 4 * kc + j) * rld + q];
+      }
+      const bool in = pix[q] >= 0;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v =
+            in && o0 + j < O ? recompute_dy(av[j], bv[j], s[j]) : 0.f;
+        split<true>(v, hi[j], lo[j]);
+      }
+      *reinterpret_cast<uint4*>(hs + slot) = make_uint4(hi[0], hi[1], hi[2],
+                                                        hi[3]);
+      *reinterpret_cast<uint4*>(hs + hplane + slot) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  };
+
+  // warp tile: places wm*32.., channels wn*32..
+  const int wm = warp & 3, wn = warp >> 2;
+  const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_kc = lane >> 4;
+  int b_off[2];
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int n = wn * 32 + jj * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
+    b_off[jj] = n * kChunk + swz(n, (lane >> 3) & 1);
   }
+  float acc[2][4][4] = {};
+
+  auto products = [&](int st) {
+    const uint32_t* ws = wring + st * 2 * kWTile;
+    float part[2][4][4] = {};
+#pragma unroll 1
+    for (int tap = 0; tap < kTaps; ++tap) {
+      const int kh = tap / 3, kw = tap - 3 * kh;
+      const int shift = (2 - kh) * Wp + (2 - kw);
+      uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * tx + i;
-    if (m >= M) continue;
-    const int n = m / hw;
-    const int r = m - n * hw;
+      for (int i = 0; i < 2; ++i) {
+        const int q = a_row + 16 * i + shift;
+        const int off = q * kChunk + swz(q, a_kc);
+        ldsm_x4(ahi[i], hs + off);
+        ldsm_x4(alo[i], hs + hplane + off);
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = cb + 4 * ty + j;
-      if (c < C) dx[((size_t)n * C + c) * hw + r] = acc[i][j];
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, ws + tap * kDgCols * kChunk + b_off[jj]);
+        ldsm_x4(bl, ws + kWTile + tap * kDgCols * kChunk + b_off[jj]);
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          const uint32_t bhi[2] = {bh[2 * jt], bh[2 * jt + 1]};
+          const uint32_t blo[2] = {bl[2 * jt], bl[2 * jt + 1]};
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            mma_3xtf32(part[i][2 * jj + jt], ahi[i], alo[i], bhi, blo);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  };
+
+  if (c_begin < c_end) issue(c_begin, 0);
+  int st = 0;
+  for (int ci = c_begin; ci < c_end; ++ci, st ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci landed; every warp is past chunk ci-1
+    convert(ci);
+    __syncthreads();  // chunk ci's dy planes are written, its raw rows read
+    if (ci + 1 < c_end) issue(ci + 1, st ^ 1);
+    products(st);
+  }
+
+  float* dst = out + static_cast<size_t>(blockIdx.z) * N * C * HW;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = place_offset(p0 + wm * 32 + 16 * i + g + 8 * h, H, W,
+                                   P, C);
+      if (off < 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = cb + wn * 32 + 8 * j + 2 * t + e;
+          if (c < C) dst[off + static_cast<size_t>(c) * HW] = acc[i][j][2 * h + e];
+        }
+      }
     }
   }
 }
 
-// dw tile: 64 output channels x 64 columns q = c*9 + kh*3 + kw, over the
-// pixel rows [split*rows, min(M, (split+1)*rows)).
-__global__ void __launch_bounds__(kThreads)
+// dw (or a partial of it) for 32 output x 32 input channels x 9 taps, over
+// the pixels [blockIdx.z * rows, min(M, (blockIdx.z + 1) * rows))
+__global__ void __launch_bounds__(kWgThreads, 2)
 conv_bwd_wgrad_kernel(const float* __restrict__ vec,
                       const float* __restrict__ da,
                       const float* __restrict__ y,
                       const float* __restrict__ x, float* __restrict__ out,
-                      int N, int H, int W, int C, int O, int rows) {
-  __shared__ __align__(16) float sa[kDepth][kTile + kPad];  // dy: (pixel, o)
-  __shared__ __align__(16) float sb[kDepth][kTile + kPad];  // x:  (pixel, q)
-  __shared__ float sv[kStats][kTile];
-  const int tid = threadIdx.x;
-  const int hw = H * W;
-  const int M = N * hw;
-  const int K9 = 9 * C;
-  const int qb = blockIdx.x * kTile;
-  const int ob = blockIdx.y * kTile;
-  const int split = blockIdx.z;
-  for (int i = tid; i < kStats * kTile; i += kThreads) {
-    const int row = i / kTile, col = i - row * kTile;
-    sv[row][col] = ob + col < O ? vec[(size_t)row * O + ob + col] : 0.f;
-  }
-  // loads: one pixel a thread (lm), columns lcol + 16r
-  const int lm = tid & 15;
-  const int lcol = tid >> 4;
-  int qc[4], qh[4], qw[4];
-  bool q_ok[4];
+                      int N, int H, int W, int C, int O, int PR, int PC,
+                      int cps) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Wp = W + 1, HW = H * W, M = N * HW, P = N * (H + 1) * Wp;
+  const int XH = wgrad_halo(H, W, PR, PC), XS = wgrad_xs(XH);
+  const int HS = PR ? PC + 2 : Wp;  // the x halo's row stride
+  const int per_image = PR ? (H / PR) * (W / PC) : 0;
+  const int xplane = kWgCols * XS;
+  uint32_t* dring = sm;                    // [2 stages][hi|lo][32][kWgLd]
+  uint32_t* xring = sm + 2 * 2 * kDyPlane;  // [2 stages][hi|lo][32][XS]
+  int* kpix = reinterpret_cast<int*>(xring + 2 * 2 * xplane);  // [3][64]
+  int* koff = kpix + 3 * kWgPixels;                             // [3][64]
+  int* xpix = koff + 3 * kWgPixels;                             // [3][XH]
+  int* xlen = xpix + 3 * XH;                                    // [3]
+  float* sstat = reinterpret_cast<float*>(xlen + 3);           // [7][32]
+  const int cb = blockIdx.x * kWgCols, ob = blockIdx.y * kWgRows;
+  const int total = PR ? N * per_image : cdiv(M, kWgPixels);
+  const int kb = blockIdx.z * cps;
+  const int chunks = min(total - kb, cps);
+
+  // chunk kb+ci's tables into set tb: each pixel's da/y offset (-1: no
+  // pixel) and place in the x halo, each halo place's x offset (-1: zero)
+  auto tables = [&](int ci, int tb) {
+    int len;
+    if (PR == 0) {  // 64 consecutive pixels, past M continuing in zeros
+      const int k0 = (kb + ci) * kWgPixels;
+      const int xb = place_of(k0, H, W) - Wp - 1;
+      len = place_of(k0 + kWgPixels - 1, H, W) + Wp + 2 - xb;
+      if (tid < kWgPixels) {
+        const int m = k0 + tid;
+        kpix[tb * kWgPixels + tid] =
+            m < M ? (m / HW) * O * HW + (m - (m / HW) * HW) : -1;
+        koff[tb * kWgPixels + tid] = place_of(m, H, W) - xb;
+      }
+      for (int q = tid; q < len; q += kWgThreads)
+        xpix[tb * XH + q] = place_offset(xb + q, H, W, P, C);
+    } else {  // a PR x PC patch from (r0, c0) of image n
+      const int n = (kb + ci) / per_image, rem = kb + ci - n * per_image;
+      const int band = rem / (W / PC);
+      const int r0 = band * PR, c0 = (rem - band * (W / PC)) * PC;
+      len = XH;
+      if (tid < kWgPixels) {
+        const int kr = tid / PC, kc = tid - kr * PC;
+        const bool in = tid < PR * PC;
+        kpix[tb * kWgPixels + tid] =
+            in ? n * O * HW + (r0 + kr) * W + c0 + kc : -1;
+        koff[tb * kWgPixels + tid] =
+            in ? (kr + 1) * HS + kc + 1 : (PR + 3) * HS + 1;
+      }
+      for (int q = tid; q < len; q += kWgThreads) {
+        const int hr = q / HS, r = r0 - 1 + hr, c = c0 - 1 + q - hr * HS;
+        xpix[tb * XH + q] = hr < PR + 2 && r >= 0 && r < H && c >= 0 && c < W
+                                ? n * C * HW + r * W + c
+                                : -1;
+      }
+    }
+    if (tid == 0) xlen[tb] = len;
+  };
+
+  // chunk ci's da, y and x into the hi and lo slots of its planes
+  auto issue = [&](int ci, int st, int tb) {
+    if (tid < 256) {  // lanes along pixels: coalesced
+      uint32_t* ds = dring + st * 2 * kDyPlane;
+      const int k = tid & (kWgPixels - 1), off = kpix[tb * kWgPixels + k];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int q = qb + lcol + 16 * r;
-    q_ok[r] = q < K9;
-    qc[r] = q / 9;
-    const int tap = q - qc[r] * 9;
-    qh[r] = tap / 3 - 1;
-    qw[r] = tap - (tap / 3) * 3 - 1;
+      for (int j = 0; j < kWgRows / 4; ++j) {
+        const int o = (tid >> 6) + 4 * j;
+        const bool ok = off >= 0 && ob + o < O;
+        const size_t g = ok ? off + static_cast<size_t>(ob + o) * HW : 0;
+        cp_async4(ds + o * kWgLd + k, da + g, ok);
+        cp_async4(ds + kDyPlane + o * kWgLd + k, y + g, ok);
+      }
+    }
+    uint32_t* xs = xring + st * 2 * xplane;
+    const int len = xlen[tb];
+    for (int q = tid; q < len; q += kWgThreads) {
+      const int off = xpix[tb * XH + q];
+#pragma unroll 8
+      for (int c = 0; c < kWgCols; ++c) {
+        const bool ok = off >= 0 && cb + c < C;
+        const size_t g = ok ? off + static_cast<size_t>(cb + c) * HW : 0;
+        cp_async4(xs + c * XS + q, x + g, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // dy (threads 0..255: channel tid/8, 8 pixels) and x split in place
+  for (int i = tid; i < kStats * kWgRows; i += kWgThreads) {
+    const int r = i / kWgRows, o = ob + i % kWgRows;
+    sstat[i] = o < O ? vec[static_cast<size_t>(r) * O + o] : 0.f;
   }
-  // products: rows (output channels) 4*tx.., columns (q) 4*ty..
-  const int tx = tid & 15, ty = tid >> 4;
-  float acc[4][4] = {};
-  const int mb = split * rows;
-  const int me = min(M, mb + rows);
+  auto convert = [&](int st, int tb) {
+    if (tid < 256) {
+      float s[kStats];
+#pragma unroll
+      for (int r = 0; r < kStats; ++r) s[r] = sstat[r * kWgRows + (tid >> 3)];
+      uint32_t* ds = dring + st * 2 * kDyPlane;
+      const int o = tid >> 3, k0 = (tid & 7) * 8;
+      const bool och = ob + o < O;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int col = o * kWgLd + k0 + 4 * v;
+        const float4 a = *reinterpret_cast<const float4*>(ds + col);
+        const float4 b = *reinterpret_cast<const float4*>(ds + kDyPlane + col);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = och && kpix[tb * kWgPixels + k0 + 4 * v + j] >= 0;
+          split<true>(in ? recompute_dy(av[j], bv[j], s) : 0.f, hi[j], lo[j]);
+        }
+        *reinterpret_cast<uint4*>(ds + col) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(ds + kDyPlane + col) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+    uint32_t* xs = xring + st * 2 * xplane;
+    const int len = xlen[tb];
+    for (int q = tid; q < len; q += kWgThreads) {
+#pragma unroll 8
+      for (int c = 0; c < kWgCols; ++c) {
+        uint32_t hi, lo;
+        split<true>(__uint_as_float(xs[c * XS + q]), hi, lo);
+        xs[c * XS + q] = hi;
+        xs[xplane + c * XS + q] = lo;
+      }
+    }
+  };
+
+  // warp `tap`: dw[.., .., kh, kw], reading x at the pixel's place + shift
+  const int tap = warp, kh = tap / 3, kw = tap - 3 * kh;
+  const int shift = (kh - 1) * HS + (kw - 1);
+  const int g = lane >> 2, t = lane & 3;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 4;
+  float acc[2][4][4] = {};
+
+  auto products = [&](int st, int tb) {
+    const uint32_t* ds = dring + st * 2 * kDyPlane;
+    const uint32_t* xs = xring + st * 2 * xplane;
+    const int* ko = koff + tb * kWgPixels;
+    float part[2][4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kWgPixels / 8; ++kk) {
+      const int x0 = ko[kk * 8 + t] + shift, x1 = ko[kk * 8 + t + 4] + shift;
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int off = (16 * i + a_row) * kWgLd + kk * 8 + a_col;
+        ldsm_x4(ahi[i], ds + off);
+        ldsm_x4(alo[i], ds + kDyPlane + off);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t* xr = xs + (8 * j + g) * XS;
+        const uint32_t bhi[2] = {xr[x0], xr[x1]};
+        const uint32_t blo[2] = {xr[xplane + x0], xr[xplane + x1]};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mma_3xtf32(part[i][j], ahi[i], alo[i], bhi, blo);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  };
+
+  tables(0, 0);
+  if (chunks > 1) tables(1, 1);
   __syncthreads();
-  for (int m0 = mb; m0 < me; m0 += kDepth) {
-    const int m = m0 + lm;
-    const bool ok = m < me;
-    int n = 0, h = 0, w = 0;
-    if (ok) {
-      n = m / hw;
-      const int r = m - n * hw;
-      h = r / W;
-      w = r - h * W;
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int lo = lcol + 16 * r;
-      const int o = ob + lo;
-      float v = 0.f;
-      if (ok && o < O) {
-        const size_t idx = ((size_t)n * O + o) * hw + (size_t)h * W + w;
-        v = recompute_dy(__ldg(da + idx), __ldg(y + idx), &sv[0][lo], kTile);
-      }
-      sa[lm][lo] = v;
-      const int hs = h + qh[r], ws = w + qw[r];
-      float xv = 0.f;
-      if (ok && q_ok[r] && hs >= 0 && hs < H && ws >= 0 && ws < W) {
-        xv = __ldg(x + ((size_t)n * C + qc[r]) * hw + (size_t)hs * W + ws);
-      }
-      sb[lm][lo] = xv;
-    }
-    __syncthreads();
-    tile_fma<kTile + kPad, kTile + kPad>(sa, sb, 4 * tx, 4 * ty, acc);
-    __syncthreads();
+  issue(0, 0, 0);
+  for (int ci = 0; ci < chunks; ++ci) {
+    const int st = ci & 1, tb = ci % 3;
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci landed; every warp is past chunk ci-1
+    convert(st, tb);
+    if (ci + 1 < chunks) issue(ci + 1, st ^ 1, (ci + 1) % 3);
+    if (ci + 2 < chunks) tables(ci + 2, (ci + 2) % 3);
+    __syncthreads();  // chunk ci's planes are split
+    products(st, tb);
   }
-  float* part = out + (size_t)split * O * K9;
+
+  float* dst = out + static_cast<size_t>(blockIdx.z) * O * kTaps * C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = ob + 4 * tx + i;
-    if (o >= O) continue;
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = qb + 4 * ty + j;
-      if (q < K9) part[(size_t)o * K9 + q] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int o = ob + 16 * i + g + 8 * h;
+      if (o >= O) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = cb + 8 * j + 2 * t + e;
+          if (c < C)
+            dst[(static_cast<size_t>(o) * C + c) * kTaps + tap] =
+                acc[i][j][2 * h + e];
+        }
+      }
     }
   }
 }
 
-// dw = sum over splits of the partials, in split order.
+// out = sum over splits of the partials, in split order
 __global__ void conv_bwd_reduce_kernel(const float* __restrict__ part,
-                                       float* __restrict__ dw, int splits,
+                                       float* __restrict__ out, int splits,
                                        size_t count) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < count; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += part[(size_t)k * count + i];
-    dw[i] = s;
+    for (int k = 0; k < splits; ++k) s += part[k * count + i];
+    out[i] = s;
   }
+}
+
+cudaError_t launch_reduce(const float* part, float* out, int splits, size_t count,
+                   cudaStream_t stream) {
+  const size_t blocks = (count + 255) / 256;
+  conv_bwd_reduce_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
+                           256, 0, stream>>>(part, out, splits, count);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// vec (8, O); da, y (N, O, H, W); x (N, C, H, W); wt (3, 3, O, C); dx (N,
-// C, H, W); dw (O, C, 3, 3); part (splits, O, 9C) when splits > 1 (else
-// unused: the single split writes dw). All fp32, contiguous, on the device
+// Shared memory of the dgrad and wgrad kernels at this H x W, in bytes,
+// and wgrad's patch (0 x 0: linear chunks of 64 pixels).
+void conv3x3_bn_relu_bwd_smem(int H, int W, size_t* dgrad, size_t* wgrad,
+                              int* patch_rows, int* patch_cols) {
+  *dgrad = dgrad_smem_bytes(W);
+  wgrad_patch(H, W, *patch_rows, *patch_cols);
+  *wgrad = wgrad_smem_bytes(H, W, *patch_rows, *patch_cols);
+}
+
+// vec (8, O); da, y (N, O, H, W); x (N, C, H, W); w (O, C, 3, 3); wsp
+// (2, 9, C, Opad) scratch for the split weights (Opad = O rounded up to 8);
+// dx (N, C, H, W); dw (O, C, 3, 3); dpart (dsplits, N, C, H, W) when
+// dsplits > 1 and wpart (splits, O, 9C) when splits > 1 (else unused). dgrad
+// cuts the ceil(O/8) output-channel chunks into runs of `cps`, dsplits of
+// them; wgrad cuts the pixels into runs of `rows` (a multiple of 64),
+// splits of them. All fp32 (wsp: the TF32 bits), contiguous, on the device
 // of `stream`. Returns the first launch error, or 0.
 int conv3x3_bn_relu_bwd(const float* vec, const float* da, const float* y,
-                        const float* x, const float* wt, float* dx, float* dw,
-                        float* part, int N, int H, int W, int C, int O,
-                        int splits, int rows, cudaStream_t stream) {
-  const int M = N * H * W;
-  const dim3 dgrid((M + kTile - 1) / kTile, (C + kTile - 1) / kTile);
-  conv_bwd_dgrad_kernel<<<dgrid, kThreads, 0, stream>>>(vec, da, y, wt, dx,
-                                                        N, H, W, C, O);
+                        const float* x, const float* w, uint32_t* wsp,
+                        float* dx, float* dw, float* dpart, float* wpart,
+                        int N, int H, int W, int C, int O, int dsplits,
+                        int cps, int splits, int cps_w,
+                        cudaStream_t stream) {
+  const int Opad = cdiv(O, kChunk) * kChunk;
+  conv_bwd_wsplit_kernel<<<dim3(cdiv(kTaps * C, 32), cdiv(Opad, 32)), 256, 0,
+                           stream>>>(w, wsp, C, O, Opad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 wgrid((9 * C + kTile - 1) / kTile, (O + kTile - 1) / kTile,
-                   splits);
-  conv_bwd_wgrad_kernel<<<wgrid, kThreads, 0, stream>>>(
-      vec, da, y, x, splits > 1 ? part : dw, N, H, W, C, O, rows);
+
+  const size_t dsmem = dgrad_smem_bytes(W);
+  err = cudaFuncSetAttribute(conv_bwd_dgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dsmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int P = N * (H + 1) * (W + 1);
+  conv_bwd_dgrad_kernel<<<dim3(cdiv(P, kDgRows), cdiv(C, kDgCols), dsplits),
+                          kDgThreads, dsmem, stream>>>(
+      vec, da, y, wsp, dsplits > 1 ? dpart : dx, N, H, W, C, O, Opad, cps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dsplits > 1) {
+    err = launch_reduce(dpart, dx, dsplits, static_cast<size_t>(N) * C * H * W,
+                 stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  int PR, PC;
+  wgrad_patch(H, W, PR, PC);
+  const size_t wsmem = wgrad_smem_bytes(H, W, PR, PC);
+  err = cudaFuncSetAttribute(conv_bwd_wgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(wsmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_bwd_wgrad_kernel<<<dim3(cdiv(C, kWgCols), cdiv(O, kWgRows), splits),
+                          kWgThreads, wsmem, stream>>>(
+      vec, da, y, x, splits > 1 ? wpart : dw, N, H, W, C, O, PR, PC, cps_w);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t count = (size_t)O * 9 * C;
-  const int blocks = static_cast<int>(
-      (count + kThreads - 1) / kThreads < 4096
-          ? (count + kThreads - 1) / kThreads : 4096);
-  conv_bwd_reduce_kernel<<<blocks, kThreads, 0, stream>>>(part, dw, splits,
-                                                          count);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_reduce(wpart, dw, splits,
+                                 static_cast<size_t>(O) * kTaps * C, stream));
 }
 
 const char* conv3x3_bn_relu_bwd_error_string(int code) {

@@ -105,15 +105,6 @@ constexpr size_t smem_bytes() {
          sizeof(T) * row_stride<T, D>() * (2 * kRows + 2 * kStages * BN);
 }
 
-// 4 bytes global -> shared (lse and delta), or 4 zero bytes where !full
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
 // n fp32 values of a row vector from row0, zero past seq
 __device__ __forceinline__ void copy_vec(float* dst, const float* src,
                                          int row0, int seq, int n, int tid) {

@@ -7,8 +7,9 @@
 // operands, so p (and ds) never leave registers. Here: the block shape and
 // the streamed-tile rule, the row copies, the fragments, their loaders and
 // products (mma, mma_rn, add_products), the split with its inf/NaN check,
-// and the stores. flash_attention_bwd.cu's header says why each rounding
-// is where it is.
+// and the stores; the copies, ldmatrix, the split and the TF32 product
+// come from mma_common.cuh. flash_attention_bwd.cu's header says why each
+// rounding is where it is.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,7 +19,20 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace flash_mma {
+
+using mma_common::cp_async16;
+using mma_common::cp_async4;
+using mma_common::cp_async_commit;
+using mma_common::cp_async_wait_all;
+using mma_common::ldsm_x4;
+using mma_common::ldsm_x4_t;
+using mma_common::mma_tf32;
+using mma_common::smem_addr;
+using mma_common::split;
+using mma_common::to_tf32;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -41,29 +55,6 @@ __host__ __device__ constexpr int stream_rows() {
 template <typename T, int D>
 __host__ __device__ constexpr int row_stride() {
   return D + 16 / static_cast<int>(sizeof(T));
-}
-
-// -- asynchronous copies ------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // rows [row0, row0 + R) of a (seq, D) matrix into R padded shared rows,
@@ -120,53 +111,9 @@ struct Frag<float> {
   };
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// cvt.rna.tf32.f32 of a finite x, written out: round to nearest with
-// ties away from zero at the 13th bit (the magnitude bits carry into the
-// exponent), then clear the 13 bits. Bit for bit the instruction's result
-// on finite values only: a NaN's carry leaves the NaN range (0x7FFFFFFF
-// becomes -0), so split() never gives it one.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo, both TF32 (x - hi is exact in fp32). Unchecked, x must
-// be finite. Checked, a non-finite x is hi = 0, lo = x: only the lo(x)
-// hi(y) term of a product sees it, so NaN stays NaN and inf * y keeps
-// fp32's +-inf (hi = inf would make lo = inf - inf = NaN). Only inf * inf
-// (its lo * lo term is the one dropped, the others are inf * 0) and
-// inf * a subnormal give NaN where fp32 gives +-inf. The check costs a
-// compare and two selects, on top of the five instructions of a split.
-template <bool kChecked>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (kChecked) {
-    const bool finite = fabsf(x) < __int_as_float(0x7F800000);
-    hi = finite ? to_tf32(x) : 0u;
-    const float r = x - __uint_as_float(hi);  // a NaN comes out 0x7FFFFFFF
-    lo = finite ? to_tf32(r) : __float_as_uint(r);
-  } else {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-  }
 }
 
 // whether one of the fp32 values that this thread copied into the tile
@@ -306,14 +253,6 @@ __device__ __forceinline__ void a_from_c(Frag<float>::A& a,
   split<true>(c[st][2], a.hi[1], a.lo[1]);
   split<true>(c[st][1], a.hi[2], a.lo[2]);
   split<true>(c[st][3], a.hi[3], a.lo[3]);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // 3xTF32: c += a.lo b.hi + a.hi b.lo + a.hi b.hi

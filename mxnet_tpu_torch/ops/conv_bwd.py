@@ -7,8 +7,8 @@ Counterpart of ``mxnet_tpu/ops/pallas_conv_bwd.py``:
 ``fused_conv3x3_bn_relu_bwd`` (-> ``_bwd_kernel``), ``fused_cbr_train``
 (:class:`FusedCBRFunction` here) and ``eligible``. The kernel source is
 ``mxnet_tpu_torch/csrc/conv_bwd.cu``; its header says what it replaces,
-what bounds it on the H100 (operations) and what the design does about
-that.
+what bounds it on the H100 (operations, at the 3xTF32 rate of the tensor
+cores) and what the design does about that.
 
 The layout is the port's NCHW throughout (x, da and y ``(N, C|O, H, W)``,
 w OIHW ``(O, C, 3, 3)``), so the reference's NCHW <-> NHWC transposes
@@ -20,14 +20,24 @@ around the kernel have no counterpart. The backward is:
   xhat``, and the (8, O) fp32 vector ``[mean, inv, gamma, beta, dbeta/M,
   dgamma/M, gamma*inv, 0]`` with M = N*H*W;
 - dy recomputed from ``(da, y, vec)`` as ``s1 * (dz - c1 - xhat * c2)``
-  (never written to device memory by the kernel), then dgrad ``dx = sum_k
+  (never written to device memory by the kernels), then dgrad ``dx = sum_k
   shift_k(dy) @ wflip_k`` and wgrad ``dw_k = sum shift_k(x)^T @ dy`` over
-  the 9 taps, summed in fp32.
+  the 9 taps, summed to fp32 accuracy (3xTF32 on the tensor cores).
+
+On the card one call is up to five launches on the caller's stream: the
+weight split (w into its hi and lo TF32 parts, into scratch of ``(2, 9, C,
+Opad)`` words, Opad = O rounded up to ``_CHUNK``), dgrad over tiles of
+``_ROWS`` places of the padded grid x ``_COLS`` input channels, reducing
+over chunks of ``_CHUNK`` output channels (cut into ``dgrad_splits`` runs
+where the grid is thin, then summed by a reduce pass), and wgrad over
+tiles of ``_WG_TILE`` output x ``_WG_TILE`` input channels x 9 taps,
+reducing over chunks of ``_PIXELS`` pixels (cut into ``wgrad_splits`` runs,
+then summed by a reduce pass).
 
 The reference's VMEM budget (``fits_vmem``, 12 MiB, a TPU fact) is not
-carried over; the card's limit is :func:`fits_card`, decided from shape
-before any launch. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+carried over; the card's limits are :func:`fits_card`'s, decided from
+shape before any launch. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -43,11 +53,16 @@ from ..base import MXNetError
 
 __all__ = ["conv3x3_bn_relu_ref", "bwd_stats", "fused_conv3x3_bn_relu_bwd",
            "fused_conv3x3_bn_relu_bwd_plain", "FusedCBRFunction",
-           "eligible", "fits_card", "wgrad_splits"]
+           "eligible", "fits_card", "wgrad_splits", "dgrad_splits",
+           "smem_bytes", "wgrad_patch"]
 
-_TILE = 64          # the kernels' output tile (rows and columns)
-_DEPTH = 16         # the kernels' reduction step
+_ROWS = 128         # dgrad: places of the padded grid a block
+_COLS = 64          # dgrad: input channels a block
+_CHUNK = 8          # dgrad: output channels a reduction chunk
+_WG_TILE = 32       # wgrad: output and input channels a block (x 9 taps)
+_PIXELS = 64        # wgrad: pixels a reduction chunk
 _INT_MAX = 2 ** 31 - 1
+_SMEM_MAX = 232448  # shared memory a block may use on an H100 (227 KB)
 
 
 def _cdiv(a, b):
@@ -136,28 +151,112 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _linear_halo(h, w):
+    """wgrad's x halo of a chunk of ``_PIXELS`` consecutive pixels, an
+    upper bound: their places span at most 63 + (row breaks) + (image
+    breaks)(W+1), and the taps reach W+2 places further on each side."""
+    k = _PIXELS - 1
+    return (k + min(k, k // w + 1) + min(k, k // (h * w) + 1) * (w + 1)
+            + 2 * (w + 1) + 3)
+
+
+def wgrad_patch(h, w):
+    """``(rows, cols)`` of wgrad's chunk: a patch of one image where such
+    patches tile it (rows | H, cols | W) with 56.._PIXELS pixels and an x
+    halo, (rows+2) x (cols+2), smaller per pixel than a linear chunk's
+    (8 x 8 at 56 x 56, 4 x 14 at 28 x 28); else ``(0, 0)``: ``_PIXELS``
+    consecutive pixels. The kernel source chooses the same."""
+    best = (0, 0)
+    for pc in range(1, min(w, _PIXELS) + 1):
+        if w % pc:
+            continue
+        pr = _PIXELS // pc
+        while h % pr:
+            pr -= 1
+        area, halo = pr * pc, (pr + 2) * (pc + 2)
+        if (area > best[0] * best[1] or (area == best[0] * best[1] and halo
+                                         <= (best[0] + 2) * (best[1] + 2))):
+            best = (pr, pc)
+    pr, pc = best
+    if (pr * pc < 56
+            or (pr + 2) * (pc + 2) * _PIXELS >= _linear_halo(h, w) * pr * pc):
+        return 0, 0
+    return pr, pc
+
+
 def wgrad_splits(n, h, w, c, o, sm_count):
-    """``(splits, rows)`` of the wgrad kernel: the N*H*W pixel rows are cut
-    into ``splits`` runs of ``rows`` (a multiple of the reduction step),
-    enough for about four blocks an SM over the (O, 9C) output tiles, and
-    no run under 256 rows. Each split writes its own fp32 partial of dw,
-    summed in a fixed order, so equal inputs give equal bits."""
+    """``(splits, rows)`` of the wgrad kernel: its chunks (patches or runs
+    of ``_PIXELS`` pixels, :func:`wgrad_patch`) are cut into ``splits`` runs
+    of ``rows`` pixels (a whole number of chunks), about two blocks an SM
+    over the (O, C) tiles (each with all 9 taps), and no run under 256
+    pixels. Each split writes its own fp32 partial of dw, summed in a fixed
+    order, so equal inputs give equal bits."""
     m = n * h * w
-    tiles = _cdiv(o, _TILE) * _cdiv(9 * c, _TILE)
-    splits = max(1, min(_cdiv(m, 256), _cdiv(4 * sm_count, tiles)))
-    rows = _cdiv(_cdiv(m, splits), _DEPTH) * _DEPTH
-    return _cdiv(m, rows), rows
+    pr, pc = wgrad_patch(h, w)
+    step = pr * pc or _PIXELS
+    chunks = _cdiv(m, step)
+    tiles = _cdiv(o, _WG_TILE) * _cdiv(c, _WG_TILE)
+    want = max(1, min(_cdiv(m, 256), 2 * sm_count // tiles))
+    cps = _cdiv(chunks, want)
+    return _cdiv(chunks, cps), cps * step
+
+
+def dgrad_splits(n, h, w, c, o, sm_count):
+    """``(dsplits, cps)`` of the dgrad kernel: its ceil(O / ``_CHUNK``)
+    output-channel chunks are cut into ``dsplits`` runs of ``cps`` chunks
+    where the (places, C) tiles give fewer than about two blocks an SM
+    (ResNet-50's 7 x 7 stage); each run writes its own fp32 partial of dx,
+    summed in a fixed order."""
+    tiles = (_cdiv(n * (h + 1) * (w + 1), _ROWS) * _cdiv(c, _COLS))
+    chunks = _cdiv(o, _CHUNK)
+    want = max(1, min(chunks, 2 * sm_count // tiles))
+    cps = _cdiv(chunks, want)
+    return _cdiv(chunks, cps), cps
+
+
+def smem_bytes(h, w):
+    """``(dgrad, wgrad)`` shared memory a block, in bytes, at this H x W:
+    dgrad's two-stage ring of 9 weight tiles and of the dy halo (``_ROWS``
+    places and W+2 on each side, ``_CHUNK`` channels, hi and lo), wgrad's
+    two-stage ring of the dy tile and the x halo (a chunk's places and
+    their neighbours, ``_WG_TILE`` channels, hi and lo) with its tables.
+    The kernel source computes the same (``conv3x3_bn_relu_bwd_smem``)."""
+    halo = _ROWS + 2 * (w + 1) + 2
+    raw_ld = _cdiv(halo, 8) * 8 + 4
+    dgrad = 4 * (4 * 9 * _COLS * _CHUNK + 2 * halo * _CHUNK
+                 + 2 * raw_ld * _CHUNK + halo + 7 * _CHUNK)
+    pr, pc = wgrad_patch(h, w)
+    if pr == 0:
+        xh = _linear_halo(h, w)
+    elif pr * pc < _PIXELS:  # two zero rows and 3 places for empty slots
+        xh = (pr + 4) * (pc + 2) + 3
+    else:
+        xh = (pr + 2) * (pc + 2)
+    xs = _cdiv(xh, 8) * 8 + 4
+    wgrad = 4 * (4 * _WG_TILE * (_PIXELS + 4) + 4 * _WG_TILE * xs
+                 + 3 * (2 * _PIXELS + xh + 1) + 7 * _WG_TILE)
+    return dgrad, wgrad
 
 
 def fits_card(x, o):
     """Whether the CUDA kernels take input ``x`` (N, C, H, W, on a card)
-    with O output channels: every tensor they index (x, da, y, dx, and
-    wgrad's partials, split by the card's own SM count) below 2^31
-    elements. The fused route and the wrapper both decide by this."""
+    with O output channels: every tensor they index (x, da, y, dx, the
+    split weights, the places of the padded grid, and the partials of dx
+    and dw, split by the card's own SM count) below 2^31 elements, and both
+    kernels' shared memory within the card's 227 KB a block (the x halo of
+    wgrad's linear chunks grows with W: W up to 99 unless a patch tiles the
+    image). The fused route and the wrapper
+    both decide by this."""
     n, c, h, w = x.shape
-    splits, _ = wgrad_splits(n, h, w, c, o, _sm_count(x.device.index or 0))
-    return (max(n * h * w * max(c, o), splits * o * 9 * c) <= _INT_MAX
-            and min(n, h, w, c, o) > 0)
+    if min(n, h, w, c, o) <= 0:
+        return False
+    sm = _sm_count(x.device.index or 0)
+    splits, _ = wgrad_splits(n, h, w, c, o, sm)
+    dsplits, _ = dgrad_splits(n, h, w, c, o, sm)
+    elements = max(n * h * w * max(c, o), splits * o * 9 * c,
+                   dsplits * n * c * h * w, 2 * 9 * c * _cdiv(o, _CHUNK)
+                   * _CHUNK, (n + _PIXELS) * (h + 1) * (w + 1))
+    return elements <= _INT_MAX and max(smem_bytes(h, w)) <= _SMEM_MAX
 
 
 def eligible(kernel, strides, padding, dilation, groups, use_bias):
@@ -169,9 +268,13 @@ def eligible(kernel, strides, padding, dilation, groups, use_bias):
 
 
 def _bind(lib):
-    lib.conv3x3_bn_relu_bwd.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.conv3x3_bn_relu_bwd.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.conv3x3_bn_relu_bwd.restype = ctypes.c_int
+    lib.conv3x3_bn_relu_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_size_t)] * 2 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.conv3x3_bn_relu_bwd_smem.restype = None
     lib.conv3x3_bn_relu_bwd_error_string.argtypes = [ctypes.c_int]
     lib.conv3x3_bn_relu_bwd_error_string.restype = ctypes.c_char_p
 
@@ -214,8 +317,8 @@ def _card(x, da, y, w):
                          f"{w.dtype}")
     if not fits_card(x, w.shape[0]):
         raise MXNetError(f"conv3x3_bn_relu_bwd: shape {tuple(x.shape)} x "
-                         f"{tuple(w.shape)} is beyond the kernel's 2^31 "
-                         "element indexing")
+                         f"{tuple(w.shape)} is beyond the kernels' 2^31 "
+                         "element indexing or shared memory")
 
 
 def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
@@ -239,21 +342,29 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     _card(x, da, y, w)
     n, c, h, wd = x.shape
     o = w.shape[0]
-    x, da, y = x.contiguous(), da.contiguous(), y.contiguous()
-    wt = w.permute(2, 3, 0, 1).contiguous()  # (3, 3, O, C): rows of C
+    x, da, y, w = x.contiguous(), da.contiguous(), y.contiguous(), \
+        w.contiguous()
     vec = vec.contiguous()
     dx = torch.empty_like(x)
-    dw = torch.empty_like(w, memory_format=torch.contiguous_format)
-    splits, rows = wgrad_splits(n, h, wd, c, o, _sm_count(x.device.index
-                                                          or 0))
-    part = (torch.empty((splits, o, 9 * c), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
+    dw = torch.empty_like(w)
+    sm = _sm_count(x.device.index or 0)
+    splits, rows = wgrad_splits(n, h, wd, c, o, sm)
+    dsplits, cps = dgrad_splits(n, h, wd, c, o, sm)
+    pr, pc = wgrad_patch(h, wd)
+    wsp = torch.empty(2 * 9 * c * _cdiv(o, _CHUNK) * _CHUNK,
+                      dtype=torch.int32, device=x.device)
+    dpart = (torch.empty((dsplits,) + tuple(x.shape), dtype=torch.float32,
+                         device=x.device) if dsplits > 1 else None)
+    wpart = (torch.empty((splits, o, 9 * c), dtype=torch.float32,
+                         device=x.device) if splits > 1 else None)
     lib = _native.load("conv_bwd", _bind)
     rc = lib.conv3x3_bn_relu_bwd(
         vec.data_ptr(), da.data_ptr(), y.data_ptr(), x.data_ptr(),
-        wt.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        None if part is None else part.data_ptr(), n, h, wd, c, o, splits,
-        rows, torch.cuda.current_stream(x.device).cuda_stream)
+        w.data_ptr(), wsp.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        None if dpart is None else dpart.data_ptr(),
+        None if wpart is None else wpart.data_ptr(), n, h, wd, c, o,
+        dsplits, cps, splits, rows // (pr * pc or _PIXELS),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         msg = lib.conv3x3_bn_relu_bwd_error_string(rc).decode()
         raise MXNetError(f"conv3x3_bn_relu_bwd launch failed: {msg} (code "
@@ -261,7 +372,9 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     launches = fused_conv3x3_bn_relu_bwd.kernel_launches
     fused_conv3x3_bn_relu_bwd.launches += 1
     fused_conv3x3_bn_relu_bwd.shape_launches[(n, h, wd, c, o)] += 1
+    launches["wsplit"] += 1
     launches["dgrad"] += 1
+    launches["dgrad_reduce"] += int(dsplits > 1)
     launches["wgrad"] += 1
     launches["wgrad_reduce"] += int(splits > 1)
     return dx, dw, dgamma, dbeta
@@ -269,8 +382,9 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
 
 fused_conv3x3_bn_relu_bwd.launches = 0
 fused_conv3x3_bn_relu_bwd.shape_launches = collections.Counter()
-fused_conv3x3_bn_relu_bwd.kernel_launches = {"dgrad": 0, "wgrad": 0,
-                                             "wgrad_reduce": 0}
+fused_conv3x3_bn_relu_bwd.kernel_launches = {
+    "wsplit": 0, "dgrad": 0, "dgrad_reduce": 0, "wgrad": 0,
+    "wgrad_reduce": 0}
 
 
 class FusedCBRFunction(torch.autograd.Function):

@@ -112,6 +112,52 @@ def test_plain_bwd_matches_jax_vjp_and_pallas_kernel(shape, o):
                                         **TOL)
 
 
+def _non_finite_inputs(nan_at):
+    """Inputs with an inf in x, an inf in w and, where ``nan_at`` is
+    "live" or "dead", a NaN in da at a place the ReLU passes or blocks; y,
+    mean and var from the finite inputs (JAX's forward), all as numpy."""
+    x, w, gamma, beta, da = _inputs((2, 6, 5, 4), seed=21, o=3)
+    _, y, mean, var = jcb.conv3x3_bn_relu_ref(*map(jnp.asarray,
+                                                   (x, w, gamma, beta)))
+    y, mean, var = (onp.array(t) for t in (y, mean, var))
+    x[1, 0, 2, 3] = onp.inf      # a border pixel: its taps also leave the image
+    w[2, 1, 3, 0] = -onp.inf
+    if nan_at is not None:
+        z = gamma * (y - mean) / onp.sqrt(var + 1e-5) + beta
+        live = onp.argwhere((z > 0) == (nan_at == "live"))[0]
+        da[tuple(live)] = onp.nan
+    return x, w, gamma, beta, da, y, mean, var
+
+
+@pytest.mark.parametrize("nan_at", [None, "live", "dead"])
+def test_plain_bwd_keeps_non_finite_positions_of_the_pallas_kernel(nan_at):
+    """inf in x and w and NaN in da: the port's plain version (the card
+    kernel's yardstick) has the NaN and inf positions of the reference's
+    Pallas kernel in interpret mode, in dx, dw, dgamma and dbeta."""
+    x, w, gamma, beta, da, y, mean, var = _non_finite_inputs(nan_at)
+    want = jcb.fused_conv3x3_bn_relu_bwd(
+        *map(jnp.asarray, (da, x, y, w, gamma, beta, mean, var)),
+        interpret=True)
+    got = tcb.fused_conv3x3_bn_relu_bwd(
+        _nchw(da), _nchw(x), _nchw(y), _oihw(w), torch.from_numpy(gamma),
+        torch.from_numpy(beta), torch.from_numpy(mean),
+        torch.from_numpy(var))
+    got = [_to_nhwc(got[0]), got[1].numpy().transpose(2, 3, 1, 0),
+           got[2].numpy(), got[3].numpy()]
+    for name, g, ref in zip(("dx", "dw", "dgamma", "dbeta"), got, want):
+        ref = onp.asarray(ref)
+        onp.testing.assert_array_equal(onp.isnan(g), onp.isnan(ref),
+                                       err_msg=name)
+        onp.testing.assert_array_equal(onp.isinf(g), onp.isinf(ref),
+                                       err_msg=name)
+        onp.testing.assert_array_equal(onp.sign(g[onp.isinf(g)]),
+                                       onp.sign(ref[onp.isinf(ref)]),
+                                       err_msg=name)
+    # the inputs reach every class: +-inf in dw, NaN (0 * inf) in dx
+    assert onp.isinf(got[1]).any() and onp.isnan(got[0]).any()
+    assert onp.isfinite(got[0]).any() or nan_at == "live"
+
+
 def test_stats_vector_matches_the_reference_layout():
     x, w, gamma, beta, da = _inputs((2, 5, 6, 4), seed=3, o=6)
     tx, tw = _nchw(x), _oihw(w)
@@ -377,4 +423,46 @@ def test_fits_card_and_eligible(monkeypatch):
                   (3, 7, 9, 5, 11)):
         splits, rows = tcb.wgrad_splits(*shape, 132)
         m = shape[0] * shape[1] * shape[2]
-        assert rows % 16 == 0 and (splits - 1) * rows < m <= splits * rows
+        # a run is a whole number of wgrad's chunks (a patch of the image,
+        # or _PIXELS consecutive pixels)
+        pr, pc = tcb.wgrad_patch(shape[1], shape[2])
+        step = pr * pc or tcb._PIXELS
+        assert rows % step == 0 and (splits - 1) * rows < m <= splits * rows
+
+
+@pytest.mark.parametrize("shape", [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
+                                   (32, 14, 14, 256, 256), (32, 7, 7, 512, 512),
+                                   (5, 13, 11, 40, 24), (2, 9, 1, 3, 2),
+                                   (3, 7, 9, 5, 11)])
+def test_dgrad_splits_cover_every_chunk(shape):
+    """dgrad's runs of output-channel chunks: none empty, all of them
+    covered, and more than one only where the tiles give fewer than about
+    two blocks an SM of an H100 SXM (132 SMs)."""
+    n, h, w, c, o = shape
+    dsplits, cps = tcb.dgrad_splits(*shape, 132)
+    chunks = -(-o // tcb._CHUNK)
+    assert (dsplits - 1) * cps < chunks <= dsplits * cps
+    tiles = -(-n * (h + 1) * (w + 1) // tcb._ROWS) * -(-c // tcb._COLS)
+    assert dsplits == 1 or tiles * dsplits <= 2 * 132
+
+
+def test_wgrad_patch_and_shared_memory(monkeypatch):
+    """wgrad's chunk at ResNet-50's stages (8 x 8 and 4 x 14 patches at 56
+    and 28, 64 consecutive pixels at 14 and 7) and the shared memory both
+    kernels ask for, within the card's 227 KB for linear chunks up to W =
+    99 and for patches beyond (128 x 128 takes 8 x 8 patches)."""
+    assert tcb.wgrad_patch(56, 56) == (8, 8)
+    assert tcb.wgrad_patch(28, 28) == (4, 14)
+    assert tcb.wgrad_patch(14, 14) == (0, 0)
+    assert tcb.wgrad_patch(7, 7) == (0, 0)
+    assert tcb.wgrad_patch(13, 11) == (0, 0)
+    for h, w in ((56, 56), (28, 28), (14, 14), (7, 7), (1, 1), (9, 1),
+                 (1, 99), (99, 99)):
+        assert max(tcb.smem_bytes(h, w)) <= tcb._SMEM_MAX, (h, w)
+    assert max(tcb.smem_bytes(100, 100)) > tcb._SMEM_MAX
+    monkeypatch.setattr(tcb, "_sm_count", lambda index: 132)
+    assert tcb.fits_card(torch.empty(2, 8, 99, 99, device="meta"), 8)
+    assert tcb.wgrad_patch(128, 128) == (8, 8)
+    assert tcb.fits_card(torch.empty(2, 8, 128, 128, device="meta"), 8)
+    assert tcb.wgrad_patch(101, 101) == (0, 0)
+    assert not tcb.fits_card(torch.empty(2, 8, 101, 101, device="meta"), 8)
