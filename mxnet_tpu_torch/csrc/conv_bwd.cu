@@ -248,7 +248,7 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
                       const float* __restrict__ y,
                       const uint32_t* __restrict__ wsp,
                       float* __restrict__ out, int N, int H, int W, int C,
-                      int O, int Opad, int cps, int probe) {
+                      int O, int Opad, int cps) {
   extern __shared__ __align__(16) uint32_t sm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Wp = W + 1, HW = H * W, P = N * (H + 1) * Wp;
@@ -278,7 +278,7 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
       cp_async4(sstat + tid,
                 vec + static_cast<size_t>(r) * O + (o < O ? o : 0), o < O);
     }
-    for (int q = (probe & 16) ? halo : tid; q < halo; q += kDgThreads) {
+    for (int q = tid; q < halo; q += kDgThreads) {
       const int off = pix[q];
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
@@ -289,7 +289,7 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
       }
     }
     uint32_t* ws = wring + st * 2 * kWTile;
-    for (int i = (probe & 32) ? 1 << 30 : tid; i < 2 * kTaps * kDgCols * 2; i += kDgThreads) {
+    for (int i = tid; i < 2 * kTaps * kDgCols * 2; i += kDgThreads) {
       const int half = i & 1, row = (i >> 1) % kDgCols;
       const int pt = (i >> 1) / kDgCols;  // plane * 9 + tap
       const int plane = pt / kTaps, tap = pt - plane * kTaps;
@@ -397,10 +397,10 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
   for (int ci = c_begin; ci < c_end; ++ci, st ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // chunk ci landed; every warp is past chunk ci-1
-    if (!(probe & 2)) convert(ci);
+    convert(ci);
     __syncthreads();  // chunk ci's dy planes are written, its raw rows read
     if (ci + 1 < c_end) issue(ci + 1, st ^ 1);
-    if (!(probe & 1)) products(st);
+    products(st);
   }
 
   float* dst = out + static_cast<size_t>(blockIdx.z) * N * C * HW;
@@ -432,7 +432,7 @@ conv_bwd_wgrad_kernel(const float* __restrict__ vec,
                       const float* __restrict__ y,
                       const float* __restrict__ x, float* __restrict__ out,
                       int N, int H, int W, int C, int O, int PR, int PC,
-                      int cps, int probe) {
+                      int cps) {
   extern __shared__ __align__(16) uint32_t sm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Wp = W + 1, HW = H * W, M = N * HW, P = N * (H + 1) * Wp;
@@ -493,7 +493,7 @@ conv_bwd_wgrad_kernel(const float* __restrict__ vec,
 
   // chunk ci's da, y and x into the hi and lo slots of its planes
   auto issue = [&](int ci, int st, int tb) {
-    if (tid < 256 && !(probe & 64)) {  // lanes along pixels: coalesced
+    if (tid < 256) {  // lanes along pixels: coalesced
       uint32_t* ds = dring + st * 2 * kDyPlane;
       const int k = tid & (kWgPixels - 1), off = kpix[tb * kWgPixels + k];
 #pragma unroll
@@ -507,7 +507,7 @@ conv_bwd_wgrad_kernel(const float* __restrict__ vec,
     }
     uint32_t* xs = xring + st * 2 * xplane;
     const int len = xlen[tb];
-    for (int q = (probe & 128) ? len : tid; q < len; q += kWgThreads) {
+    for (int q = tid; q < len; q += kWgThreads) {
       const int off = xpix[tb * XH + q];
 #pragma unroll 8
       for (int c = 0; c < kWgCols; ++c) {
@@ -613,11 +613,11 @@ conv_bwd_wgrad_kernel(const float* __restrict__ vec,
     const int st = ci & 1, tb = ci % 3;
     cp_async_wait_all();
     __syncthreads();  // chunk ci landed; every warp is past chunk ci-1
-    if (!(probe & 8)) convert(st, tb);
+    convert(st, tb);
     if (ci + 1 < chunks) issue(ci + 1, st ^ 1, (ci + 1) % 3);
     if (ci + 2 < chunks) tables(ci + 2, (ci + 2) % 3);
     __syncthreads();  // chunk ci's planes are split
-    if (!(probe & 4)) products(st, tb);
+    products(st, tb);
   }
 
   float* dst = out + static_cast<size_t>(blockIdx.z) * O * kTaps * C;
@@ -687,7 +687,7 @@ int conv3x3_bn_relu_bwd(const float* vec, const float* da, const float* y,
                         float* dx, float* dw, float* dpart, float* wpart,
                         int N, int H, int W, int C, int O, int dsplits,
                         int cps, int splits, int cps_w,
-                        cudaStream_t stream, int probe) {
+                        cudaStream_t stream) {
   const int Opad = cdiv(O, kChunk) * kChunk;
   conv_bwd_wsplit_kernel<<<dim3(cdiv(kTaps * C, 32), cdiv(Opad, 32)), 256, 0,
                            stream>>>(w, wsp, C, O, Opad);
@@ -702,7 +702,7 @@ int conv3x3_bn_relu_bwd(const float* vec, const float* da, const float* y,
   const int P = N * (H + 1) * (W + 1);
   conv_bwd_dgrad_kernel<<<dim3(cdiv(P, kDgRows), cdiv(C, kDgCols), dsplits),
                           kDgThreads, dsmem, stream>>>(
-      vec, da, y, wsp, dsplits > 1 ? dpart : dx, N, H, W, C, O, Opad, cps, probe);
+      vec, da, y, wsp, dsplits > 1 ? dpart : dx, N, H, W, C, O, Opad, cps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dsplits > 1) {
@@ -720,7 +720,7 @@ int conv3x3_bn_relu_bwd(const float* vec, const float* da, const float* y,
   if (err != cudaSuccess) return static_cast<int>(err);
   conv_bwd_wgrad_kernel<<<dim3(cdiv(C, kWgCols), cdiv(O, kWgRows), splits),
                           kWgThreads, wsmem, stream>>>(
-      vec, da, y, x, splits > 1 ? wpart : dw, N, H, W, C, O, PR, PC, cps_w, probe);
+      vec, da, y, x, splits > 1 ? wpart : dw, N, H, W, C, O, PR, PC, cps_w);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(launch_reduce(wpart, dw, splits,
