@@ -8,14 +8,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    one process per source, all started together): the flash-attention
    forward and the two backward kernels (dK/dV, dQ), the ln_residual
    forward and backward, the fp8 matmul, the int8 matmul and kernel 8,
-   the conv3x3+BN+ReLU backward (dgrad, wgrad and the wgrad reduce). Print
-   the build time, each kernel's ptxas registers and spills, the card and
-   CUDA, and the count of tensor-core instructions (HMMA / HGMMA, from
-   ``cuobjdump -sass`` beside ``nvcc``) in each of the 24 flash kernels
-   (forward, dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64 / 128) and of
-   ``wgmma`` instructions (HGMMA) in the two fp8 GEMM kernels (TMA-store
-   and direct-store epilogue): the run fails if one has none, or if an
-   fp8 matmul kernel spills. Every phase prints its wall time.
+   the conv3x3+BN+ReLU backward (weight split, dgrad, wgrad and the
+   reduce). Print the build time, each kernel's ptxas registers and
+   spills, the card and CUDA, and the count of tensor-core instructions
+   (HMMA / HGMMA, from ``cuobjdump -sass`` beside ``nvcc``) in each of the
+   24 flash kernels (forward, dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64
+   / 128), of ``wgmma`` instructions (HGMMA) in the two fp8 GEMM kernels
+   (TMA-store and direct-store epilogue) and of HMMA in kernel 8's four
+   kernels with their spill bytes: the run fails if a flash, fp8 GEMM or
+   kernel-8 product kernel (dgrad, wgrad) has none, or if an fp8 matmul or
+   kernel-8 kernel spills. Every phase prints its wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 16, 32 and 128 (seq
@@ -78,11 +80,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    vector, 9 shifted fp32 products each for dgrad and wgrad): the four
    3x3 stride-1 stage shapes of ResNet-50 at batch 32 ((56, 56, 64),
    (28, 28, 128), (14, 14, 256), (7, 7, 512), C = O), three input sets
-   each, and two odd shapes (H, W = 7, 9 and 9, 7; C != O). dx and dw
-   within max|diff| / max|plain| <= 2e-4 (fp32 sums of up to 9*512
-   products in another order), dgamma and dbeta bit for bit (one
-   stats-pass function computes them for both), and a second launch bit
-   for bit (no atomics).
+   each, and the kernels' edges (``CONV_EDGES``: pixel chunks across
+   images with N*H*W off the chunk, W = 1, C and O off the channel chunks,
+   patches with empty slots, 4 x 14 patches, a dgrad split over output
+   channels). dx and dw within max|diff| / max|plain| <= 2e-4 (3xTF32
+   tensor-core sums of up to 9*512 products in another order), dgamma
+   and dbeta bit for bit (one stats-pass function computes them for
+   both), and a second launch bit for bit (no atomics); the shared memory
+   and wgrad chunk the source computes equal to the wrapper's rule. Then
+   an inf in x and in w and a NaN in da (none, where the ReLU passes it,
+   where it blocks it): the NaN and inf positions and signs of dx, dw,
+   dgamma and dbeta equal to the plain version's.
 3. Serving at full GPT-2 124M width (vocab 50257, 768 units, 12 layers,
    12 heads, max_length 1024, fp32, seeded Uniform(0.07) weights):
    ``serve.load(net, max_slots=8)`` with the default buckets, ``warmup()``,
@@ -220,8 +228,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    From the same start weights, with ``fused_conv_bn`` "auto" (kernel 8)
    and "off" (the cuDNN chain) in turns (auto, off, off, auto): a warm-up
    step, then 24 timed steps with every count zeroed just before and read
-   just after. Holds: 16 kernel-8 calls a step under "auto" (each of its
-   dgrad and wgrad kernels counted too) and 0 under "off"; no launch of
+   just after. Holds: 16 kernel-8 calls a step under "auto" (3 / 4 / 6 /
+   3 by stage, and each of its CUDA kernels counted: weight split, dgrad
+   and wgrad once a call, the reduce of dx and of dw where the wrapper's
+   split rules cut the reduction) and 0 under "off"; no launch of
    kernels 1-7; the losses finite and the last below the first (24 timed
    steps: momentum SGD on one fixed batch overshoots on steps 3-7 before
    it falls, under both routes); the running statistics after step 1
@@ -239,8 +249,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    its CUDA kernels alone and the whole wrapper with its stats pass, its
    plain version, and as yardstick the autograd backward of ``F.conv2d``
    -> ``F.batch_norm(training=True)`` -> relu (cuDNN, TF32 off; never
-   called by the port), beside the bound: da, y, x read, dx, dw written
-   over 3.35 TB/s against 36 M C O flops at the fp32 rate.
+   called by the port), beside the bounds: da, y, x read, dx, dw written
+   over 3.35 TB/s against 36 M C O flops at the fp32 rate, and against
+   three TF32 products each at 495 TFLOP/s (the kernels' 3xTF32).
 15. int8 ResNet-50 v1 inference: ``quantize_net(resnet50_v1(),
    calib_data=[one uniform batch 32 x 3 x 224 x 224],
    calib_mode="naive")`` as bench.py:305-308 does, which must replace 53
@@ -258,6 +269,7 @@ cuDNN so that fp32 means fp32 throughout.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import gc
 import json
@@ -337,6 +349,15 @@ RESNET_TRIPLETS = 16
 # kernel 8 vs its plain version, max|diff| / max|plain| of dx and dw: fp32
 # sums of up to 9*512 products in another order
 CONV_TOL = 2e-4
+# (N, H, W, C, O) at the kernels' edges: pixel chunks across images with
+# N*H*W not a multiple of the chunk, W = 1, C and O not multiples of 8 or
+# of the channel chunks, patches of 63 pixels with empty slots (7 x 9),
+# 4 x 14 patches (28 x 28) and a dgrad split over output channels
+CONV_EDGES = [(5, 13, 11, 40, 24), (2, 9, 1, 3, 2), (3, 7, 9, 5, 11),
+              (2, 9, 7, 70, 33), (2, 28, 28, 20, 12), (1, 2, 2, 7, 13),
+              (4, 7, 7, 36, 520)]
+# the non-finite case of phase 2f
+CONV_NON_FINITE = (2, 6, 5, 4, 3)
 # step-1 gradients of the kernel route vs the cuDNN chain, max|diff| /
 # max|off| per parameter, or twice the conditioning probe's change where
 # that is larger (phase 13)
@@ -2074,11 +2095,26 @@ def phase_int8_times(dev, card):
 
 # -- kernel 8 and the ResNet-50 phases ------------------------------------------
 
+CONV_COUNTS = ("calls", "wsplit", "dgrad", "dgrad_reduce", "wgrad",
+               "wgrad_reduce")
+
+
 def conv_counters(cb):
-    """[wrapper calls, dgrad, wgrad, wgrad_reduce] of kernel 8."""
+    """[wrapper calls, then launches of wsplit, dgrad, dgrad_reduce, wgrad,
+    wgrad_reduce] of kernel 8."""
     k = cb.fused_conv3x3_bn_relu_bwd.kernel_launches
-    return [cb.fused_conv3x3_bn_relu_bwd.launches, k["dgrad"], k["wgrad"],
-            k["wgrad_reduce"]]
+    return [cb.fused_conv3x3_bn_relu_bwd.launches] + [k[n] for n in
+                                                      CONV_COUNTS[1:]]
+
+
+def conv_launches_per_call(cb, n, h, w, c, o):
+    """Kernel 8's launches in one call at this shape on this card, by the
+    wrapper's own split rules: [1, wsplit, dgrad, dgrad_reduce, wgrad,
+    wgrad_reduce]."""
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    dsplits, _ = cb.dgrad_splits(n, h, w, c, o, sm)
+    splits, _ = cb.wgrad_splits(n, h, w, c, o, sm)
+    return [1, 1, 1, int(dsplits > 1), 1, int(splits > 1)]
 
 
 def zero_conv_counters(cb):
@@ -2119,17 +2155,43 @@ def conv_inputs(cb, dev, gen, n, h, w, c, o):
     return da, x, y, wt, gamma, beta, mean, var
 
 
+def conv_non_finite_inputs(cb, dev, gen, nan_at):
+    """Phase 2f's non-finite case: finite inputs and their forward, then an
+    inf in x (a border pixel), a -inf in w and, where ``nan_at`` is "live"
+    or "dead", a NaN in da where the ReLU passes or blocks it."""
+    args = list(conv_inputs(cb, dev, gen, *CONV_NON_FINITE))
+    da, x, y, wt, gamma, beta, mean, var = args
+    x[1, 3, 0, 2] = float("inf")
+    wt[0, 3, 2, 1] = -float("inf")
+    if nan_at is not None:
+        z = (y - mean[:, None, None]) * torch.rsqrt(var + 1e-5)[:, None, None]
+        z = z * gamma[:, None, None] + beta[:, None, None]
+        at = torch.nonzero((z > 0) == (nan_at == "live"))[0]
+        da[tuple(at.tolist())] = float("nan")
+    return args
+
+
 def phase_conv_vs_plain(dev):
     """Kernel 8 against its plain version on the card."""
+    from mxnet_tpu_torch import _native
     from mxnet_tpu_torch.ops import conv_bwd as cb
     print("== phase 2f: conv3x3_bn_relu_bwd kernel (kernel 8) vs plain "
           "version", flush=True)
     gen = torch.Generator(device=dev).manual_seed(10)
     worst = {"dx": 0.0, "dw": 0.0}
     max_abs = 0.0
-    cases = [(n, h, w, c, c) for (n, h, w, c) in CONV_STAGES] + [
-        (3, 7, 9, 5, 11), (2, 9, 7, 70, 33)]
+    cases = [(n, h, w, c, c) for (n, h, w, c) in CONV_STAGES] + CONV_EDGES
+    lib = _native.load("conv_bwd", cb._bind)
     for (n, h, w, c, o) in cases:
+        # the shared memory and wgrad's chunk the source computes, against
+        # the wrapper's own rule (fits_card decides by the latter)
+        dsm, wsm = ctypes.c_size_t(), ctypes.c_size_t()
+        pr, pc = ctypes.c_int(), ctypes.c_int()
+        lib.conv3x3_bn_relu_bwd_smem(h, w, dsm, wsm, pr, pc)
+        got = ((dsm.value, wsm.value), (pr.value, pc.value))
+        want = (cb.smem_bytes(h, w), cb.wgrad_patch(h, w))
+        check(got == want, f"kernel 8 at H={h} W={w}: the source's shared "
+                           f"memory and patch {got}, the wrapper's {want}")
         sets = 3 if n == RESNET_BATCH else 1
         for s in range(sets):
             args = conv_inputs(cb, dev, gen, n, h, w, c, o)
@@ -2145,7 +2207,8 @@ def phase_conv_vs_plain(dev):
             stats = torch.equal(dg, pg) and torch.equal(db, pb)
             finite = all(torch.isfinite(t).all().item() for t in (dx, dw))
             ok = (max(e.values()) <= CONV_TOL and same and stats and finite)
-            print(f"  N={n} H={h} W={w} C={c} O={o} set {s}: max|diff| / "
+            print(f"  N={n} H={h} W={w} C={c} O={o} set {s} (wgrad chunk "
+                  f"{want[1][0]}x{want[1][1] or 64}): max|diff| / "
                   f"max|plain| dx {e['dx']:.3e} dw {e['dw']:.3e}; dgamma/"
                   f"dbeta {'bit for bit' if stats else 'DIFFER'}; repeat "
                   f"{'bit for bit' if same else 'DIFFERS'} "
@@ -2158,16 +2221,51 @@ def phase_conv_vs_plain(dev):
             max_abs = max(max_abs, (dx - pdx).abs().max().item(),
                           (dw - pdw).abs().max().item())
             del args, dx, dw, again, pdx, pdw
+    # inf in x and w, NaN in da: the NaN and inf positions (and the signs of
+    # the infs) of dx, dw, dgamma and dbeta are the plain version's
+    for nan_at in (None, "live", "dead"):
+        args = conv_non_finite_inputs(cb, dev, gen, nan_at)
+        got = cb.fused_conv3x3_bn_relu_bwd(*args)
+        torch.cuda.synchronize()
+        da, x, y, wt, gamma, beta, mean, var = args
+        pg, pb, vec = cb.bwd_stats(da, y, gamma, beta, mean, var)
+        want = cb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec) + (pg,
+                                                                       pb)
+        counts = []
+        for name, g, r in zip(("dx", "dw", "dgamma", "dbeta"), got, want):
+            same = (torch.equal(g.isnan(), r.isnan())
+                    and torch.equal(g.isinf(), r.isinf())
+                    and torch.equal(g[g.isinf()].sign(), r[r.isinf()].sign()))
+            counts.append(f"{name} {int(g.isnan().sum())} NaN "
+                          f"{int(g.isinf().sum())} inf")
+            check(same, f"kernel 8's non-finite {name} (NaN in da: {nan_at}) "
+                        f"differs from the plain version's: "
+                        f"{int(g.isnan().sum())} / {int(r.isnan().sum())} "
+                        f"NaN, {int(g.isinf().sum())} / "
+                        f"{int(r.isinf().sum())} inf")
+        finite = torch.isfinite(got[0]) & torch.isfinite(want[0])
+        e = (got[0][finite] - want[0][finite]).abs().max().item() / max(
+            want[0][finite].abs().max().item(), 1e-30)
+        print(f"  non-finite inputs (inf in x and w, NaN in da: {nan_at}) "
+              f"{CONV_NON_FINITE}: {', '.join(counts)}, the plain version's "
+              f"positions; finite dx max|diff| / max|plain| {e:.3e}")
+        check(e <= CONV_TOL, f"kernel 8's finite dx off by {e:.3e} beside "
+                             f"non-finite inputs")
     return {"max_rel_err": worst, "max_abs_err": max_abs,
-            "cases": len(cases) + 2 * len(CONV_STAGES)}
+            "cases": len(cases) + 2 * len(CONV_STAGES) + 3}
 
 
-def conv_bound_ms(n, h, w, c, o):
+def conv_bound_ms(n, h, w, c, o, tf32x3=False):
     """Least time on an H100 SXM for kernel 8's work on one triplet: da, y
     and x read once, w read, dx and dw written (fp32), against 36 M C O
-    flops (dgrad and wgrad, 9 taps each, M = N H W) at the fp32 rate."""
+    flops (dgrad and wgrad, 9 taps each, M = N H W) at the fp32 rate, or
+    with ``tf32x3`` at the rate the kernels use: three TF32 products per
+    product at 495 TFLOP/s."""
     m = n * h * w
     nbytes = 4 * (2 * m * o + 2 * m * c + 2 * 9 * c * o + 8 * o)
+    if tf32x3:
+        return bound(nbytes, 3 * 36 * m * c * o, torch.float32,
+                     rate=PEAK_TF32)
     return bound(nbytes, 36 * m * c * o, torch.float32)
 
 
@@ -2265,26 +2363,31 @@ def phase_resnet_train(dev, card):
                     shapes=shapes, others=others, peak=peak, busy=busy,
                     top=top)
 
+    # kernel 8's calls and launches a step under "auto", by stage
+    per_step = [0] * len(CONV_COUNTS)
+    for stage, triplets in RESNET_STAGE_TRIPLETS.items():
+        per_call = conv_launches_per_call(cb, *stage, stage[-1])
+        per_step = [a + triplets * b for a, b in zip(per_step, per_call)]
     runs = {}
     for mode in ("auto", "off", "off", "auto"):
         r = run(mode)
-        want = ([RESNET_TRIPLETS * RESNET_STEPS] * 3 if mode == "auto"
-                else [0, 0, 0])
+        want = ([k * RESNET_STEPS for k in per_step] if mode == "auto"
+                else [0] * len(CONV_COUNTS))
         want_shapes = ({(n, h, w, c, c): t * RESNET_STEPS for (n, h, w, c), t
                         in RESNET_STAGE_TRIPLETS.items()}
                        if mode == "auto" else {})
-        print(f"{mode}: losses {r['losses']}; kernel 8 calls / dgrad / "
-              f"wgrad launches in {RESNET_STEPS} steps {r['launches'][:3]}, "
-              f"wgrad reduce {r['launches'][3]}; calls by (N, H, W, C, O) "
-              f"{r['shapes']}; kernels 1-7 {r['others']}")
-        check(r["launches"][:3] == want,
-              f"'{mode}': kernel 8 calls/dgrad/wgrad {r['launches'][:3]} in "
+        print(f"{mode}: losses {r['losses']}; kernel 8 calls / wsplit / "
+              f"dgrad / dgrad reduce / wgrad / wgrad reduce launches in "
+              f"{RESNET_STEPS} steps {r['launches']}; calls by (N, H, W, C, "
+              f"O) {r['shapes']}; kernels 1-7 {r['others']}")
+        check(r["launches"] == want,
+              f"'{mode}': kernel 8 calls and launches {r['launches']} in "
               f"{RESNET_STEPS} steps, expected {want}")
         check(r["shapes"] == want_shapes,
               f"'{mode}': kernel 8 calls by (N, H, W, C, O) {r['shapes']} in "
               f"{RESNET_STEPS} steps, expected {want_shapes}")
-        check(r["first_step_launches"][:3] == [w // RESNET_STEPS
-                                               for w in want],
+        check(r["first_step_launches"] == [w // RESNET_STEPS
+                                           for w in want],
               f"'{mode}': warm-up step launched kernel 8 "
               f"{r['first_step_launches']}")
         check(not any(r["others"]), f"'{mode}': kernels 1-7 launched "
@@ -2412,8 +2515,8 @@ def phase_resnet_train(dev, card):
                "device_ms": r["busy"],
                "device_busy_share": busy_share(r["busy"], ms),
                "peak_memory_gb": r["peak"], "losses": r["losses"],
-               "kernel8_launches_per_step": [n // RESNET_STEPS
-                                             for n in r["launches"]],
+               "kernel8_launches_per_step": dict(zip(
+                   CONV_COUNTS, [n // RESNET_STEPS for n in r["launches"]])),
                "kernel8_calls_per_step_by_shape": {
                    "N={} H={} W={} C={} O={}".format(*k): v / RESNET_STEPS
                    for k, v in r["shapes"].items()},
@@ -2472,6 +2575,8 @@ def phase_conv_times(dev, card):
         row["cuda_kernels_ms"] = device_profile(call(kernel), 20, warmup=2,
                                                 match="conv_bwd_")[0]
         row["bound_ms"], row["bound_by"] = conv_bound_ms(n, h, w, c, c)
+        row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = conv_bound_ms(
+            n, h, w, c, c, tf32x3=True)
         rows[(n, h, w, c)] = row
         print(f"kernel 8 N={n} H={h} W={w} C=O={c} fp32 [{card}]: "
               + json.dumps(row))
@@ -2520,7 +2625,7 @@ def phase_resnet_int8(dev, card):
     out = qnet(x)
     torch.cuda.synchronize()
     got = other_counters() + conv_counters(cb)
-    want = [0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0]
+    want = [0, 0, 0, 0, 0, 0, 1] + [0] * len(CONV_COUNTS)
     check(got == want, f"int8 forward launched flash fwd/dkv/dq, ln "
                        f"fwd/bwd, fp8, int8, kernel 8 {got}, expected {want}")
     check(out.shape == (RESNET_BATCH, RESNET_CLASSES)
@@ -2609,9 +2714,12 @@ def conv_entry(errs, rows, launches, per_shape):
         "launches_by_path": {"resnet_train": launches,
                              "resnet_int8_infer": 0},
         "launches_per_step": {"resnet_train": per_step},
-        "cuda_kernels_per_launch": ["conv_bwd_dgrad_kernel",
+        "cuda_kernels_per_launch": ["conv_bwd_wsplit_kernel",
+                                    "conv_bwd_dgrad_kernel",
+                                    "conv_bwd_reduce_kernel (dx, where the "
+                                    "output channels split)",
                                     "conv_bwd_wgrad_kernel",
-                                    "conv_bwd_reduce_kernel (where the "
+                                    "conv_bwd_reduce_kernel (dw, where the "
                                     "pixels split)"],
         "max_abs_err": errs["max_abs_err"],
         "max_rel_err": errs["max_rel_err"],
@@ -2620,6 +2728,8 @@ def conv_entry(errs, rows, launches, per_shape):
         "plain_ms": pick(row, "plain"),
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
+        "bound_3xtf32_ms": row["bound_3xtf32_ms"],
+        "bound_3xtf32_by": row["bound_3xtf32_by"],
         "library_ms": None,
         "composition_ms": pick(row, "composition"),
         "composition": "autograd backward of F.conv2d -> F.batch_norm("
@@ -2630,6 +2740,7 @@ def conv_entry(errs, rows, launches, per_shape):
             "ms": kernel_ms(r), "call_ms_with_stats_pass": pick(r, "kernel"),
             "plain_ms": pick(r, "plain"), "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
+            "bound_3xtf32_ms": r["bound_3xtf32_ms"],
             "composition_ms": pick(r, "composition"),
             "launches_per_step": calls(n, h, w, c)}
             for (n, h, w, c), r in rows.items()},
@@ -2637,6 +2748,9 @@ def conv_entry(errs, rows, launches, per_shape):
         "composition_ms_per_step": step_sum(lambda r: pick(r,
                                                            "composition")),
         "bound_ms_per_step": step_sum(lambda r: r["bound_ms"]),
+        "bound_3xtf32_ms_per_step": step_sum(lambda r: r["bound_3xtf32_ms"]),
+        "call_ms_with_stats_pass_per_step": step_sum(lambda r: pick(
+            r, "kernel")),
     }
 
 

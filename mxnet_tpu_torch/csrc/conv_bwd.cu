@@ -494,15 +494,15 @@ conv_bwd_wgrad_kernel(const float* __restrict__ vec,
   // chunk ci's da, y and x into the hi and lo slots of its planes
   auto issue = [&](int ci, int st, int tb) {
     if (tid < 256) {  // lanes along pixels: coalesced
-      uint32_t* ds = dring + st * 2 * kDyPlane;
       const int k = tid & (kWgPixels - 1), off = kpix[tb * kWgPixels + k];
-#pragma unroll
-      for (int j = 0; j < kWgRows / 4; ++j) {
-        const int o = (tid >> 6) + 4 * j;
+      const int o0 = tid >> 6;  // channels o0, o0 + 4, ..
+      uint32_t* d = dring + st * 2 * kDyPlane + o0 * kWgLd + k;
+      size_t g = (off >= 0 ? off : 0) + static_cast<size_t>(ob + o0) * HW;
+#pragma unroll 2
+      for (int o = o0; o < kWgRows; o += 4, d += 4 * kWgLd, g += 4 * HW) {
         const bool ok = off >= 0 && ob + o < O;
-        const size_t g = ok ? off + static_cast<size_t>(ob + o) * HW : 0;
-        cp_async4(ds + o * kWgLd + k, da + g, ok);
-        cp_async4(ds + kDyPlane + o * kWgLd + k, y + g, ok);
+        cp_async4(d, da + (ok ? g : 0), ok);
+        cp_async4(d + kDyPlane, y + (ok ? g : 0), ok);
       }
     }
     uint32_t* xs = xring + st * 2 * xplane;
@@ -572,37 +572,37 @@ conv_bwd_wgrad_kernel(const float* __restrict__ vec,
   const int a_col = (lane >> 4) * 4;
   float acc[2][4][4] = {};
 
+  // shared-memory addresses in bytes: this lane's A rows in the dy planes
+  // and its B row g of the x planes
+  const uint32_t a_base = smem_addr(dring) + 4 * (a_row * kWgLd + a_col);
+  const uint32_t b_base = smem_addr(xring) + 4 * (g * XS + shift);
+  const uint32_t k_base = smem_addr(koff) + 4 * t;
   auto products = [&](int st, int tb) {
-    const uint32_t* ds = dring + st * 2 * kDyPlane;
-    const uint32_t* xs = xring + st * 2 * xplane;
-    const int* ko = koff + tb * kWgPixels;
-    float part[2][4][4] = {};
+    const uint32_t ad = a_base + 4 * st * 2 * kDyPlane;
+    const uint32_t bx = b_base + 4 * st * 2 * xplane;
+    const uint32_t ko = k_base + 4 * tb * kWgPixels;
 #pragma unroll
     for (int kk = 0; kk < kWgPixels / 8; ++kk) {
-      const int x0 = ko[kk * 8 + t] + shift, x1 = ko[kk * 8 + t + 4] + shift;
+      const uint32_t x0 = bx + 4 * lds32(ko + 32 * kk);
+      const uint32_t x1 = bx + 4 * lds32(ko + 32 * kk + 16);
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int off = (16 * i + a_row) * kWgLd + kk * 8 + a_col;
-        ldsm_x4(ahi[i], ds + off);
-        ldsm_x4(alo[i], ds + kDyPlane + off);
+        const uint32_t a = ad + 4 * (16 * i * kWgLd + 8 * kk);
+        ldsm_x4_at(ahi[i], a);
+        ldsm_x4_at(alo[i], a + 4 * kDyPlane);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint32_t* xr = xs + (8 * j + g) * XS;
-        const uint32_t bhi[2] = {xr[x0], xr[x1]};
-        const uint32_t blo[2] = {xr[xplane + x0], xr[xplane + x1]};
+        const uint32_t rj = 4 * 8 * j * XS;
+        const uint32_t bhi[2] = {lds32(x0 + rj), lds32(x1 + rj)};
+        const uint32_t blo[2] = {lds32(x0 + rj + 4 * xplane),
+                                 lds32(x1 + rj + 4 * xplane)};
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          mma_3xtf32(part[i][j], ahi[i], alo[i], bhi, blo);
+          mma_3xtf32(acc[i][j], ahi[i], alo[i], bhi, blo);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
   };
 
   tables(0, 0);

@@ -61,6 +61,7 @@ _COLS = 64          # dgrad: input channels a block
 _CHUNK = 8          # dgrad: output channels a reduction chunk
 _WG_TILE = 32       # wgrad: output and input channels a block (x 9 taps)
 _PIXELS = 64        # wgrad: pixels a reduction chunk
+_WG_RUN = 32        # wgrad: most chunks a split sums in its registers
 _INT_MAX = 2 ** 31 - 1
 _SMEM_MAX = 232448  # shared memory a block may use on an H100 (227 KB)
 
@@ -188,15 +189,18 @@ def wgrad_splits(n, h, w, c, o, sm_count):
     """``(splits, rows)`` of the wgrad kernel: its chunks (patches or runs
     of ``_PIXELS`` pixels, :func:`wgrad_patch`) are cut into ``splits`` runs
     of ``rows`` pixels (a whole number of chunks), about two blocks an SM
-    over the (O, C) tiles (each with all 9 taps), and no run under 256
-    pixels. Each split writes its own fp32 partial of dw, summed in a fixed
-    order, so equal inputs give equal bits."""
+    over the (O, C) tiles (each with all 9 taps), no run under 256 pixels
+    and none over ``_WG_RUN`` chunks: the tensor core's fp32 accumulation
+    is not round-to-nearest, so the mma summed into one register are
+    bounded (32 x 24). Each split writes its own fp32 partial of dw,
+    summed in a fixed order, so equal inputs give equal bits."""
     m = n * h * w
     pr, pc = wgrad_patch(h, w)
     step = pr * pc or _PIXELS
     chunks = _cdiv(m, step)
     tiles = _cdiv(o, _WG_TILE) * _cdiv(c, _WG_TILE)
-    want = max(1, min(_cdiv(m, 256), 2 * sm_count // tiles))
+    want = max(1, min(_cdiv(m, 256), 2 * sm_count // tiles),
+               _cdiv(chunks, _WG_RUN))
     cps = _cdiv(chunks, want)
     return _cdiv(chunks, cps), cps * step
 

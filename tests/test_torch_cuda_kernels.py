@@ -43,10 +43,11 @@ bit for bit; against the CPU, thresholds rtol 1e-5 and the outputs within
 1% of their largest |value| (an ulp of the fp32 ops between the layers can
 move a value across an int8 rounding boundary, a step of ~1e-3 here; the
 int8 error itself is ~0.4%). Kernel 8 (conv3x3+BN+ReLU backward) vs its
-plain version: dx and dw within max|diff| / max|plain| <= 2e-4 (fp32 sums
-of up to 9*512 products in another order), dgamma and dbeta bit for bit
-(one stats-pass function computes them for both), and two launches bit
-for bit (no atomics). A BasicBlockV1 on the card (kernel 8 under "auto")
+plain version: dx and dw within max|diff| / max|plain| <= 2e-4 (3xTF32
+tensor-core sums of up to 9*512 products in another order), dgamma and
+dbeta bit for bit (one stats-pass function computes them for both), two
+launches bit for bit (no atomics), and with an inf in x and w and a NaN
+in da the plain version's NaN and inf positions. A BasicBlockV1 on the card (kernel 8 under "auto")
 vs the CPU (the plain version under "on"): the reference's block-level
 tolerances, output 1e-4, input gradient 1e-3, parameter gradients 2e-3.
 Attention at a head_dim or dtype the flash kernels lack: the plain
@@ -986,7 +987,12 @@ from mxnet_tpu_torch.ops import conv_bwd as tcb  # noqa: E402
 
 CONV_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
                (32, 14, 14, 256, 256), (32, 7, 7, 512, 512),
-               (3, 7, 9, 5, 11), (2, 9, 7, 70, 33), (2, 1, 3, 3, 2)]
+               (3, 7, 9, 5, 11), (2, 9, 7, 70, 33), (2, 1, 3, 3, 2),
+               # pixel chunks across images, N*H*W not a multiple of the
+               # chunk; W = 1; 4 x 14 patches; C and O off the channel
+               # chunks; a dgrad split over output channels
+               (5, 13, 11, 40, 24), (2, 9, 1, 3, 2), (2, 28, 28, 20, 12),
+               (1, 2, 2, 7, 13), (4, 7, 7, 36, 520)]
 
 
 def _cbr_inputs(n, h, w, c, o, device, seed):
@@ -1021,6 +1027,34 @@ def test_conv_bwd_kernel_matches_plain_version(cuda_device, n, h, w, c, o):
     again = tcb.fused_conv3x3_bn_relu_bwd(*args)
     torch.cuda.synchronize()
     assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("nan_at", [None, "live", "dead"])
+def test_conv_bwd_kernel_keeps_non_finite_positions(cuda_device, nan_at):
+    """An inf in x (a border pixel) and in w, and a NaN in da where the
+    ReLU passes or blocks it: dx, dw, dgamma and dbeta have the plain
+    version's NaN and inf positions and signs, and the finite dx agrees."""
+    args = list(_cbr_inputs(2, 6, 5, 4, 3, cuda_device, seed=7))
+    da, x, y, wt, gamma, beta, mean, var = args
+    x[1, 3, 0, 2] = float("inf")
+    wt[0, 3, 2, 1] = -float("inf")
+    if nan_at is not None:
+        z = ((y - mean[:, None, None]) * torch.rsqrt(var + 1e-5)[:, None, None]
+             * gamma[:, None, None] + beta[:, None, None])
+        at = torch.nonzero((z > 0) == (nan_at == "live"))[0]
+        da[tuple(at.tolist())] = float("nan")
+    got = tcb.fused_conv3x3_bn_relu_bwd(*args)
+    torch.cuda.synchronize()
+    pg, pb, vec = tcb.bwd_stats(da, y, gamma, beta, mean, var)
+    want = tcb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec) + (pg, pb)
+    for g, r in zip(got, want):
+        assert torch.equal(g.isnan(), r.isnan())
+        assert torch.equal(g.isinf(), r.isinf())
+        assert torch.equal(g[g.isinf()].sign(), r[r.isinf()].sign())
+    assert got[1].isinf().any() and got[0].isnan().any()
+    finite = torch.isfinite(got[0]) & torch.isfinite(want[0])
+    if finite.any():
+        assert _rel(got[0][finite], want[0][finite]) <= 2e-4
 
 
 @pytest.mark.parametrize("bad", ["cpu_mix", "float64", "bfloat16"])

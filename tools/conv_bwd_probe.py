@@ -1,16 +1,18 @@
 """Build kernel 8 (``csrc/conv_bwd.cu``) alone and hold it against its plain
-version on the card, then time it at ResNet-50's four stage shapes.
+version on the card, then time its CUDA kernels one by one at ResNet-50's
+four stage shapes.
 
     python3 tools/conv_bwd_probe.py [--times]
 
 Prints the compiler's register / spill report and the count of tensor-core
 instructions (HMMA) of each kernel, each case's max|diff| / max|plain| of
 dx and dw (limit 2e-4) with a second launch compared bit for bit, and with
-``--times`` the device ms of the CUDA kernels and of the whole call beside
-the cuDNN composition. Run from the repository root on a machine with an
-NVIDIA H100.
+``--times`` the device ms of each CUDA kernel of a call (``torch.profiler``,
+three input sets in turn). Run from the repository root on a machine with
+an NVIDIA H100; quicker than ``chip_smoke.py`` when only kernel 8 changed.
 """
 import os
+import subprocess
 import sys
 
 sys.path.insert(0, os.getcwd())
@@ -18,11 +20,6 @@ sys.path.insert(0, os.getcwd())
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-
-CASES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128), (32, 14, 14, 256, 256),
-         (32, 7, 7, 512, 512), (5, 13, 11, 40, 24), (2, 9, 1, 3, 2),
-         (3, 7, 9, 5, 11), (2, 9, 7, 70, 33), (2, 1, 3, 3, 2),
-         (1, 2, 2, 7, 13)]
 
 
 def main():
@@ -34,16 +31,13 @@ def main():
     lib = _native.build(["conv_bwd"])["conv_bwd"]
     for line in cs.ptxas_summary(_native.build_logs.get("conv_bwd", "")):
         print(line)
-    print("HMMA:", cs.tensor_core_counts(
-        lib, lambda m: m if "conv_bwd" in m else None))
+    print("HMMA:", cs.tensor_core_counts(lib, cs.conv_name, r"\bHMMA\."))
     gen = torch.Generator(device=dev).manual_seed(3)
     ok = True
-    for shape, mode in [(shape, mode) for mode in os.environ.get(
-            "CHECK_MODES", "0").split(",") for shape in CASES]:
-        os.environ["MXNET_CONV_BWD_PROBE"] = mode
-        n, h, w, c, o = shape
+    shapes = [(n, h, w, c, c) for (n, h, w, c) in cs.CONV_STAGES]
+    for (n, h, w, c, o) in shapes + cs.CONV_EDGES:
         args = cs.conv_inputs(cb, dev, gen, n, h, w, c, o)
-        dx, dw, dg, db = cb.fused_conv3x3_bn_relu_bwd(*args)
+        dx, dw, _, _ = cb.fused_conv3x3_bn_relu_bwd(*args)
         again = cb.fused_conv3x3_bn_relu_bwd(*args)
         torch.cuda.synchronize()
         da, x, y, wt, gamma, beta, mean, var = args
@@ -53,39 +47,29 @@ def main():
         same = torch.equal(again[0], dx) and torch.equal(again[1], dw)
         good = max(e) <= cs.CONV_TOL and same
         ok &= good
-        print(f"mode {mode} N={n} H={h} W={w} C={c} O={o}: dx {e[0]:.3e} dw {e[1]:.3e} "
+        print(f"N={n} H={h} W={w} C={c} O={o}: dx {e[0]:.3e} dw {e[1]:.3e} "
               f"repeat {'equal' if same else 'DIFFERS'} "
               f"{'ok' if good else 'FAIL'}", flush=True)
     if "--times" in sys.argv:
-        card = subprocess_card()
-        print(card)
-        modes = [int(m) for m in os.environ.get("PROBE_MODES", "0").split(",")]
-        for (n, h, w, c) in cs.CONV_STAGES:
-            sets = [cs.conv_inputs(cb, dev, gen, n, h, w, c, c)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip())
+        for (n, h, w, c, o) in shapes:
+            sets = [cs.conv_inputs(cb, dev, gen, n, h, w, c, o)
                     for _ in range(3)]
             turn = [0]
 
             def call():
                 turn[0] = (turn[0] + 1) % 3
                 return cb.fused_conv3x3_bn_relu_bwd(*sets[turn[0]])
-            for mode in modes:
-                os.environ["MXNET_CONV_BWD_PROBE"] = str(mode)
-                total, top = cs.device_profile(call, 20, warmup=2, top=6,
-                                               match="conv_bwd_")
-                print(f"N={n} H={h} C={c} mode {mode}: kernels {total:.4f} ms: "
-                      + ", ".join(f"{nm.split('conv_bwd_')[1][:14]} {ms:.4f}"
-                                  for nm, ms in top), flush=True)
-            os.environ["MXNET_CONV_BWD_PROBE"] = "0"
+            total, top = cs.device_profile(call, 20, warmup=2, top=6,
+                                           match="conv_bwd_")
+            print(f"N={n} H={h} W={w} C=O={c}: CUDA kernels {total:.4f} ms: "
+                  + ", ".join(f"{name.split('conv_bwd_')[1].split('(')[0]} "
+                              f"{ms:.4f}" for name, ms in top), flush=True)
             del sets
     print("ALL OK" if ok else "FAILED")
     sys.exit(0 if ok else 1)
-
-
-def subprocess_card():
-    import subprocess
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
 
 
 if __name__ == "__main__":
