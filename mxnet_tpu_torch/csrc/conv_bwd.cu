@@ -342,54 +342,53 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
     }
   };
 
-  // warp tile: places wm*32.., channels wn*32..
+  // warp tile: places wm*32.., channels wn*32..; shared-memory addresses
+  // in bytes: this lane's A row (the halo place of its output row for the
+  // tap (2, 2), shift 0) and its B rows of the two n16 halves
   const int wm = warp & 3, wn = warp >> 2;
   const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_kc = lane >> 4;
-  int b_off[2];
+  const uint32_t a_base = smem_addr(hs);
+  uint32_t b_base[2];
 #pragma unroll
   for (int jj = 0; jj < 2; ++jj) {
     const int n = wn * 32 + jj * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
-    b_off[jj] = n * kChunk + swz(n, (lane >> 3) & 1);
+    b_base[jj] = smem_addr(wring) + 4 * (n * kChunk + swz(n, (lane >> 3) & 1));
   }
   float acc[2][4][4] = {};
 
+  // the mma of a chunk go straight into acc: a split sums at most 32
+  // chunks (dgrad_splits), 27 x 32 mma into one register
   auto products = [&](int st) {
-    const uint32_t* ws = wring + st * 2 * kWTile;
-    float part[2][4][4] = {};
-#pragma unroll 1
+    const uint32_t ws = 4 * st * 2 * kWTile;
+#pragma unroll
     for (int tap = 0; tap < kTaps; ++tap) {
       const int kh = tap / 3, kw = tap - 3 * kh;
-      const int shift = (2 - kh) * Wp + (2 - kw);
+      // the place this lane reads; +16 rows keeps the swizzle bit
+      const int q = a_row + (2 - kh) * Wp + (2 - kw);
+      const uint32_t a = a_base + 4 * (q * kChunk + swz(q, a_kc));
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int q = a_row + 16 * i + shift;
-        const int off = q * kChunk + swz(q, a_kc);
-        ldsm_x4(ahi[i], hs + off);
-        ldsm_x4(alo[i], hs + hplane + off);
+        ldsm_x4_at(ahi[i], a + 4 * 16 * kChunk * i);
+        ldsm_x4_at(alo[i], a + 4 * (16 * kChunk * i + hplane));
       }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         uint32_t bh[4], bl[4];
-        ldsm_x4(bh, ws + tap * kDgCols * kChunk + b_off[jj]);
-        ldsm_x4(bl, ws + kWTile + tap * kDgCols * kChunk + b_off[jj]);
+        const uint32_t b = b_base[jj] + ws + 4 * tap * kDgCols * kChunk;
+        ldsm_x4_at(bh, b);
+        ldsm_x4_at(bl, b + 4 * kWTile);
 #pragma unroll
         for (int jt = 0; jt < 2; ++jt) {
           const uint32_t bhi[2] = {bh[2 * jt], bh[2 * jt + 1]};
           const uint32_t blo[2] = {bl[2 * jt], bl[2 * jt + 1]};
 #pragma unroll
           for (int i = 0; i < 2; ++i)
-            mma_3xtf32(part[i][2 * jj + jt], ahi[i], alo[i], bhi, blo);
+            mma_3xtf32(acc[i][2 * jj + jt], ahi[i], alo[i], bhi, blo);
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
   };
 
   if (c_begin < c_end) issue(c_begin, 0);

@@ -59,6 +59,7 @@ __all__ = ["conv3x3_bn_relu_ref", "bwd_stats", "fused_conv3x3_bn_relu_bwd",
 _ROWS = 128         # dgrad: places of the padded grid a block
 _COLS = 64          # dgrad: input channels a block
 _CHUNK = 8          # dgrad: output channels a reduction chunk
+_DG_RUN = 32        # dgrad: most chunks a split sums in its registers
 _WG_TILE = 32       # wgrad: output and input channels a block (x 9 taps)
 _PIXELS = 64        # wgrad: pixels a reduction chunk
 _WG_RUN = 32        # wgrad: most chunks a split sums in its registers
@@ -209,11 +210,13 @@ def dgrad_splits(n, h, w, c, o, sm_count):
     """``(dsplits, cps)`` of the dgrad kernel: its ceil(O / ``_CHUNK``)
     output-channel chunks are cut into ``dsplits`` runs of ``cps`` chunks
     where the (places, C) tiles give fewer than about two blocks an SM
-    (ResNet-50's 7 x 7 stage); each run writes its own fp32 partial of dx,
-    summed in a fixed order."""
+    (ResNet-50's 7 x 7 stage), and into runs of at most ``_DG_RUN`` chunks
+    (the mma summed into one register are bounded: 32 x 27); each run
+    writes its own fp32 partial of dx, summed in a fixed order."""
     tiles = (_cdiv(n * (h + 1) * (w + 1), _ROWS) * _cdiv(c, _COLS))
     chunks = _cdiv(o, _CHUNK)
-    want = max(1, min(chunks, 2 * sm_count // tiles))
+    want = max(1, min(chunks, 2 * sm_count // tiles),
+               _cdiv(chunks, _DG_RUN))
     cps = _cdiv(chunks, want)
     return _cdiv(chunks, cps), cps
 

@@ -433,17 +433,19 @@ def test_fits_card_and_eligible(monkeypatch):
 @pytest.mark.parametrize("shape", [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
                                    (32, 14, 14, 256, 256), (32, 7, 7, 512, 512),
                                    (5, 13, 11, 40, 24), (2, 9, 1, 3, 2),
-                                   (3, 7, 9, 5, 11)])
+                                   (3, 7, 9, 5, 11), (8, 14, 14, 64, 2048)])
 def test_dgrad_splits_cover_every_chunk(shape):
     """dgrad's runs of output-channel chunks: none empty, all of them
-    covered, and more than one only where the tiles give fewer than about
-    two blocks an SM of an H100 SXM (132 SMs)."""
+    covered, none over _DG_RUN chunks, and more than one only where the
+    tiles give fewer than about two blocks an SM of an H100 SXM (132 SMs)
+    or the chunks exceed one run."""
     n, h, w, c, o = shape
     dsplits, cps = tcb.dgrad_splits(*shape, 132)
     chunks = -(-o // tcb._CHUNK)
     assert (dsplits - 1) * cps < chunks <= dsplits * cps
+    assert cps <= tcb._DG_RUN
     tiles = -(-n * (h + 1) * (w + 1) // tcb._ROWS) * -(-c // tcb._COLS)
-    assert dsplits == 1 or tiles * dsplits <= 2 * 132
+    assert dsplits == 1 or tiles * dsplits <= 2 * 132 or chunks > tcb._DG_RUN
 
 
 def test_wgrad_patch_and_shared_memory(monkeypatch):
