@@ -43,31 +43,48 @@
 //   are split by a prepare pass (conv_bwd_wsplit_kernel) into planes
 //   [hi|lo][tap][c][o], o padded with zeros to a multiple of 8.
 // - dgrad (conv_bwd_dgrad_kernel): a block owns 128 places x 64 input
-//   channels (8 warps of 32 x 32). For each chunk of 8 output channels it
-//   recomputes dy once into a halo tile of 128 + 2(W+2) places, and the 9
-//   taps are 9 shifted ldmatrix reads of it against the weight tile of
-//   each tap: 27 mma.sync m16n8k8 a tap and warp tile. Where the grid of
-//   blocks is thin (7 x 7), the output channels are cut into `dsplits`
-//   runs, each writing its own fp32 partial of dx, summed in a fixed order
-//   by conv_bwd_reduce_kernel.
+//   channels (8 warps of 32 x 32), two blocks an SM. For each chunk of 8
+//   output channels it copies da and y of its halo (128 + 2(W+2) places,
+//   rows as they lie in memory), recomputes dy once into the halo planes,
+//   and the 9 taps are 9 shifted ldmatrix reads of them against the weight
+//   tile of each tap: 24 mma.sync m16n8k8 a tap and warp. Where the grid
+//   of blocks is thin (7 x 7) or O is long, the output channels are cut
+//   into `dsplits` runs, each writing its own fp32 partial of dx, summed
+//   in a fixed order by conv_bwd_reduce_kernel.
 // - wgrad (conv_bwd_wgrad_kernel): a block owns 32 output x 32 input
-//   channels x all 9 taps (9 warps, one a tap, 32 x 32 each). For each
-//   chunk of 64 pixels it recomputes the 32 x 64 dy tile once and loads the
-//   x halo of those pixels once (64 pixels' places plus W+2 on each side);
-//   each warp reads its tap's shifted view of the x halo through a table
-//   of the pixels' places. The reduction runs over real pixels only (not
-//   the zero places, whose 0 * inf would put a NaN where the plain version
-//   has none) and is cut into `splits` runs of `rows` pixels (a multiple
-//   of 64), each writing its own fp32 partial of dw, summed in a fixed
-//   order by conv_bwd_reduce_kernel. dw comes out in OIHW.
+//   channels x all 9 taps (9 warps, one a tap, 32 x 32 each), two blocks
+//   an SM. Its reduction runs over chunks of real pixels (not the zero
+//   places, whose 0 * inf would put a NaN where the plain version has
+//   none): a patch of PR x PC pixels of one image where such patches tile
+//   it (8 x 8 at 56 x 56, 4 x 14 at 28 x 28: a halo of (PR+2)(PC+2) x
+//   places), else 64 consecutive pixels (a halo of their places plus W+2
+//   on each side). For each chunk it recomputes the 32 x 64 dy tile once
+//   and loads the chunk's x halo once; each warp reads its tap's shifted
+//   view of the halo through a table of the pixels' places. The chunks
+//   are cut into `splits` runs, each writing its own fp32 partial of dw,
+//   summed in a fixed order by conv_bwd_reduce_kernel. dw comes out in
+//   OIHW.
 // - Overlap: a two-stage ring of cp.async copies. The next chunk's da, y
-//   (and x, or the weight tiles) are copied while the current chunk's
-//   products run; da and y land in the hi and lo slots of the chunk's
-//   planes and are turned into dy's hi and lo parts in place, x likewise.
+//   and x (or weight tiles) are copied while the current chunk's products
+//   run. dgrad's da and y land in rows of places (4-byte copies in a
+//   row's order, free of bank conflicts) and are split into the planes;
+//   wgrad's land in the hi and lo slots of the chunk's planes (lanes along
+//   pixels, coalesced) and are split in place, x likewise.
 // - Accuracy: the tensor core's fp32 accumulation is not round-to-nearest
-//   and its error grows with the count of mma summed into one register, so
-//   each chunk's products are summed into a zeroed partial (27 or 24 mma)
-//   and added to the accumulator with one fp32 add.
+//   and its error grows with the count of mma summed into one register.
+//   Both kernels sum a run straight into their accumulators and bound the
+//   run instead: at most 32 chunks a split (dgrad_splits, wgrad_splits in
+//   ops/conv_bwd.py), 32 x 27 or 32 x 24 mma into one register, ~1e-5 of
+//   the largest value. A zeroed partial a chunk (the flash kernels' way)
+//   measured 7e-7 but costs 32 registers a thread, which spilled wgrad at
+//   the 96 registers of two 288-thread blocks an SM (one block an SM ran
+//   it 1.4x slower) and slowed dgrad's unrolled taps.
+// - Measured on the H100 (PERF.md): both kernels run at ~30% of the
+//   card's mma.sync TF32 rate, with the copies and splits of a chunk not
+//   hidden behind its products. Neither wider warp tiles (64 x 32), half
+//   the weight traffic (256-place blocks), nor producer warps that copy
+//   and split while 8 consumer warps multiply (one block an SM) made
+//   dgrad faster; dgrad beside wgrad on two streams saved 1-3% of a call.
 // - No atomics: two launches on equal inputs give equal bits.
 //
 // Plain C interface, bound from Python with ctypes: every launch goes onto
@@ -424,7 +441,8 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
 }
 
 // dw (or a partial of it) for 32 output x 32 input channels x 9 taps, over
-// the pixels [blockIdx.z * rows, min(M, (blockIdx.z + 1) * rows))
+// the chunks [blockIdx.z * cps, min(chunks, (blockIdx.z + 1) * cps)): PR x
+// PC patches, or (PR = 0) runs of 64 consecutive pixels
 __global__ void __launch_bounds__(kWgThreads, 2)
 conv_bwd_wgrad_kernel(const float* __restrict__ vec,
                       const float* __restrict__ da,
