@@ -106,13 +106,7 @@ constexpr int kStats = 7;   // mu, inv, gamma, beta, c1, c2, s1
 constexpr int kTaps = 9;
 constexpr int kChunk = 8;   // dgrad: output channels a chunk (one k8 step)
 // dgrad
-constexpr int kDgConsumers = 8;
-constexpr int kDgProducerThreads = 128;
-constexpr int kDgThreads = 32 * kDgConsumers + kDgProducerThreads;
-constexpr int kDgStages = 3;
-constexpr int kBarProducers = 1;
-constexpr int kBarFull = 2;
-constexpr int kBarEmpty = 2 + kDgStages;
+constexpr int kDgThreads = 256;  // 8 warps: 4 along places x 2 along c
 constexpr int kDgRows = 128;     // places a block
 constexpr int kDgCols = 64;      // input channels a block
 constexpr int kWTile = kTaps * kDgCols * kChunk;  // one plane of a w stage
@@ -140,12 +134,10 @@ __host__ __device__ inline int dgrad_raw_ld(int W) {
 
 __host__ __device__ inline size_t dgrad_smem_bytes(int W) {
   const int halo = dgrad_halo(W);
-  return sizeof(uint32_t) *
-         (kDgStages * 2 * (static_cast<size_t>(kWTile) +
-                           static_cast<size_t>(halo) * kChunk) +
-          kDgStages * (2 * static_cast<size_t>(dgrad_raw_ld(W)) * kChunk +
-                       kStats * kChunk) +
-          halo);
+  return sizeof(uint32_t) * (2 * 2 * static_cast<size_t>(kWTile) +
+                             2 * static_cast<size_t>(halo) * kChunk +
+                             2 * static_cast<size_t>(dgrad_raw_ld(W)) * kChunk +
+                             halo + kStats * kChunk);
 }
 
 // wgrad's x halo of a linear chunk, an upper bound over chunks: 64
@@ -266,9 +258,8 @@ conv_bwd_wsplit_kernel(const float* __restrict__ w, uint32_t* __restrict__ wsp,
 }
 
 // dx (or a partial of it) for 128 places x 64 input channels, over the
-// output-channel chunks [blockIdx.z * cps, min(chunks, (blockIdx.z+1) cps)).
-// Warps 0-7 consume (products), warps 8-11 produce (copies and splits).
-__global__ void __launch_bounds__(kDgThreads, 1)
+// output-channel chunks [blockIdx.z * cps, min(chunks, (blockIdx.z+1) cps))
+__global__ void __launch_bounds__(kDgThreads, 2)
 conv_bwd_dgrad_kernel(const float* __restrict__ vec,
                       const float* __restrict__ da,
                       const float* __restrict__ y,
@@ -280,117 +271,101 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
   const int Wp = W + 1, HW = H * W, P = N * (H + 1) * Wp;
   const int halo = dgrad_halo(W);
   const int hplane = halo * kChunk, rld = dgrad_raw_ld(W);
-  uint32_t* wring = sm;  // [stage][hi|lo][9][64][8]
-  uint32_t* hring = wring + kDgStages * 2 * kWTile;  // [stage][hi|lo][halo][8]
-  float* raw = reinterpret_cast<float*>(hring + kDgStages * 2 * hplane);
-  float* sstat = raw + kDgStages * 2 * kChunk * rld;  // raw [stage][da|y][8][rld]
-  int* pix = reinterpret_cast<int*>(sstat + kDgStages * kStats * kChunk);
+  uint32_t* wring = sm;                 // [2 stages][hi|lo][9][64][8]
+  uint32_t* hs = sm + 2 * 2 * kWTile;   // dy planes [hi|lo][halo][8]
+  float* raw = reinterpret_cast<float*>(hs + 2 * hplane);  // [da|y][8][rld]
+  float* sstat = raw + 2 * kChunk * rld;                      // [7][8]
+  int* pix = reinterpret_cast<int*>(sstat + kStats * kChunk);  // [halo]
   const int p0 = blockIdx.x * kDgRows;
   const int cb = blockIdx.y * kDgCols;
   const int c_begin = blockIdx.z * cps;
-  const int chunks = min(cdiv(O, kChunk), c_begin + cps) - c_begin;
+  const int c_end = min(cdiv(O, kChunk), c_begin + cps);
+  const size_t wplane = static_cast<size_t>(kTaps) * C * Opad;
 
   for (int q = tid; q < halo; q += kDgThreads)
     pix[q] = place_offset(p0 - Wp - 1 + q, H, W, P, O);
   __syncthreads();
 
-  if (warp >= kDgConsumers) {
-    const int pt = tid - 32 * kDgConsumers;  // 0..127
-    const size_t wplane = static_cast<size_t>(kTaps) * C * Opad;
-    auto issue = [&](int k) {
-      const int o0 = (c_begin + k) * kChunk;
-      float* rs = raw + (k % kDgStages) * 2 * kChunk * rld;
-      if (pt < kStats * kChunk) {
-        const int r = pt / kChunk, o = o0 + pt % kChunk;
-        cp_async4(sstat + (k % kDgStages) * kStats * kChunk + pt,
-                  vec + static_cast<size_t>(r) * O + (o < O ? o : 0), o < O);
-      }
-      for (int q = pt; q < halo; q += kDgProducerThreads) {
-        const int off = pix[q];
+  // chunk ci's stats, da and y (rows of places, as they lie in memory),
+  // and its 9 weight tiles into stage st of the ring
+  auto issue = [&](int ci, int st) {
+    const int o0 = ci * kChunk;
+    if (tid < kStats * kChunk) {
+      const int r = tid / kChunk, o = o0 + tid % kChunk;
+      cp_async4(sstat + tid,
+                vec + static_cast<size_t>(r) * O + (o < O ? o : 0), o < O);
+    }
+    for (int q = tid; q < halo; q += kDgThreads) {
+      const int off = pix[q];
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          const bool ok = off >= 0 && o0 + j < O;
-          const size_t g = ok ? off + static_cast<size_t>(o0 + j) * HW : 0;
-          cp_async4(rs + j * rld + q, da + g, ok);
-          cp_async4(rs + (kChunk + j) * rld + q, y + g, ok);
-        }
-      }
-      uint32_t* ws = wring + (k % kDgStages) * 2 * kWTile;
-      for (int i = pt; i < 2 * kTaps * kDgCols * 2; i += kDgProducerThreads) {
-        const int half = i & 1, row = (i >> 1) % kDgCols;
-        const int ptap = (i >> 1) / kDgCols;
-        const int plane = ptap / kTaps, tap = ptap - plane * kTaps;
-        const bool ok = cb + row < C;
-        const uint32_t* src =
-            wsp + plane * wplane +
-            (static_cast<size_t>(tap) * C + (ok ? cb + row : 0)) * Opad + o0 +
-            half * 4;
-        cp_async16(ws + (ptap * kDgCols + row) * kChunk + swz(row, half),
-                   src, ok);
-      }
-      cp_async_commit();
-    };
-    const int kc = pt & 1;
-    auto convert = [&](int k) {
-      const int o0 = (c_begin + k) * kChunk + 4 * kc;
-      const float* rs = raw + (k % kDgStages) * 2 * kChunk * rld;
-      const float* ss = sstat + (k % kDgStages) * kStats * kChunk;
-      uint32_t* hs = hring + (k % kDgStages) * 2 * hplane;
-      float s[4][kStats];
-#pragma unroll
-      for (int r = 0; r < kStats; ++r) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(ss + r * kChunk + 4 * kc);
-        s[0][r] = v.x;
-        s[1][r] = v.y;
-        s[2][r] = v.z;
-        s[3][r] = v.w;
-      }
-      for (int q = pt >> 1; q < halo; q += kDgProducerThreads / 2) {
-        const int slot = q * kChunk + swz(q, kc);
-        float av[4], bv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          av[j] = rs[(4 * kc + j) * rld + q];
-          bv[j] = rs[(kChunk + 4 * kc + j) * rld + q];
-        }
-        const bool in = pix[q] >= 0;
-        uint32_t hi[4], lo[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float v =
-              in && o0 + j < O ? recompute_dy(av[j], bv[j], s[j]) : 0.f;
-          split<true>(v, hi[j], lo[j]);
-        }
-        *reinterpret_cast<uint4*>(hs + slot) =
-            make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(hs + hplane + slot) =
-            make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      }
-    };
-    for (int k = 0; k < 2 && k < chunks; ++k) issue(k);
-    for (int k = 0; k < chunks; ++k) {
-      if (k + 1 < chunks)
-        cp_async_wait<1>();
-      else
-        cp_async_wait<0>();
-      bar_sync(kBarProducers, kDgProducerThreads);
-      convert(k);
-      __threadfence_block();
-      bar_arrive(kBarFull + k % kDgStages, kDgThreads);
-      if (k + 2 < chunks) {
-        if (k + 2 >= kDgStages)
-          bar_sync(kBarEmpty + (k + 2) % kDgStages, kDgThreads);
-        issue(k + 2);
+      for (int j = 0; j < kChunk; ++j) {
+        const bool ok = off >= 0 && o0 + j < O;
+        const size_t g = ok ? off + static_cast<size_t>(o0 + j) * HW : 0;
+        cp_async4(raw + j * rld + q, da + g, ok);
+        cp_async4(raw + (kChunk + j) * rld + q, y + g, ok);
       }
     }
-    return;
-  }
+    uint32_t* ws = wring + st * 2 * kWTile;
+    for (int i = tid; i < 2 * kTaps * kDgCols * 2; i += kDgThreads) {
+      const int half = i & 1, row = (i >> 1) % kDgCols;
+      const int pt = (i >> 1) / kDgCols;  // plane * 9 + tap
+      const int plane = pt / kTaps, tap = pt - plane * kTaps;
+      const bool ok = cb + row < C;
+      const uint32_t* src =
+          wsp + plane * wplane +
+          (static_cast<size_t>(tap) * C + (ok ? cb + row : 0)) * Opad + o0 +
+          half * 4;
+      cp_async16(ws + (pt * kDgCols + row) * kChunk + swz(row, half), src,
+                 ok);
+    }
+    cp_async_commit();
+  };
 
+  // dy of chunk ci into the hi and lo planes: a thread takes 4 channels
+  // (half kc) of every 128th place
+  const int kc = tid & 1;
+  auto convert = [&](int ci) {
+    const int o0 = ci * kChunk + 4 * kc;
+    float s[4][kStats];
+#pragma unroll
+    for (int r = 0; r < kStats; ++r) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(sstat + r * kChunk + 4 * kc);
+      s[0][r] = v.x;
+      s[1][r] = v.y;
+      s[2][r] = v.z;
+      s[3][r] = v.w;
+    }
+    for (int q = tid >> 1; q < halo; q += kDgThreads / 2) {
+      const int slot = q * kChunk + swz(q, kc);
+      float av[4], bv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        av[j] = raw[(4 * kc + j) * rld + q];
+        bv[j] = raw[(kChunk + 4 * kc + j) * rld + q];
+      }
+      const bool in = pix[q] >= 0;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v =
+            in && o0 + j < O ? recompute_dy(av[j], bv[j], s[j]) : 0.f;
+        split<true>(v, hi[j], lo[j]);
+      }
+      *reinterpret_cast<uint4*>(hs + slot) = make_uint4(hi[0], hi[1], hi[2],
+                                                        hi[3]);
+      *reinterpret_cast<uint4*>(hs + hplane + slot) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  };
+
+  // warp tile: places wm*32.., channels wn*32..; shared-memory addresses
+  // in bytes: this lane's A row (the halo place of its output row for the
+  // tap (2, 2), shift 0) and its B rows of the two n16 halves
   const int wm = warp & 3, wn = warp >> 2;
   const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_kc = lane >> 4;
-  const uint32_t a_base = smem_addr(hring);
+  const uint32_t a_base = smem_addr(hs);
   uint32_t b_base[2];
 #pragma unroll
   for (int jj = 0; jj < 2; ++jj) {
@@ -398,16 +373,17 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
     b_base[jj] = smem_addr(wring) + 4 * (n * kChunk + swz(n, (lane >> 3) & 1));
   }
   float acc[2][4][4] = {};
-  for (int k = 0; k < chunks; ++k) {
-    const int st = k % kDgStages;
-    bar_sync(kBarFull + st, kDgThreads);
-    const uint32_t hsb = a_base + 4 * st * 2 * hplane;
-    const uint32_t wsb = 4 * st * 2 * kWTile;
+
+  // the mma of a chunk go straight into acc: a split sums at most 32
+  // chunks (dgrad_splits), 27 x 32 mma into one register
+  auto products = [&](int st) {
+    const uint32_t ws = 4 * st * 2 * kWTile;
 #pragma unroll
     for (int tap = 0; tap < kTaps; ++tap) {
       const int kh = tap / 3, kw = tap - 3 * kh;
+      // the place this lane reads; +16 rows keeps the swizzle bit
       const int q = a_row + (2 - kh) * Wp + (2 - kw);
-      const uint32_t a = hsb + 4 * (q * kChunk + swz(q, a_kc));
+      const uint32_t a = a_base + 4 * (q * kChunk + swz(q, a_kc));
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -417,7 +393,7 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         uint32_t bh[4], bl[4];
-        const uint32_t b = b_base[jj] + wsb + 4 * tap * kDgCols * kChunk;
+        const uint32_t b = b_base[jj] + ws + 4 * tap * kDgCols * kChunk;
         ldsm_x4_at(bh, b);
         ldsm_x4_at(bl, b + 4 * kWTile);
 #pragma unroll
@@ -430,7 +406,17 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
         }
       }
     }
-    if (k + kDgStages < chunks) bar_arrive(kBarEmpty + st, kDgThreads);
+  };
+
+  if (c_begin < c_end) issue(c_begin, 0);
+  int st = 0;
+  for (int ci = c_begin; ci < c_end; ++ci, st ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci landed; every warp is past chunk ci-1
+    convert(ci);
+    __syncthreads();  // chunk ci's dy planes are written, its raw rows read
+    if (ci + 1 < c_end) issue(ci + 1, st ^ 1);
+    products(st);
   }
 
   float* dst = out + static_cast<size_t>(blockIdx.z) * N * C * HW;

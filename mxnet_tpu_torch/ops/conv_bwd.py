@@ -215,7 +215,8 @@ def dgrad_splits(n, h, w, c, o, sm_count):
     writes its own fp32 partial of dx, summed in a fixed order."""
     tiles = (_cdiv(n * (h + 1) * (w + 1), _ROWS) * _cdiv(c, _COLS))
     chunks = _cdiv(o, _CHUNK)
-    want = max(1, min(chunks, sm_count // tiles), _cdiv(chunks, _DG_RUN))
+    want = max(1, min(chunks, 2 * sm_count // tiles),
+               _cdiv(chunks, _DG_RUN))
     cps = _cdiv(chunks, want)
     return _cdiv(chunks, cps), cps
 
@@ -229,8 +230,8 @@ def smem_bytes(h, w):
     The kernel source computes the same (``conv3x3_bn_relu_bwd_smem``)."""
     halo = _ROWS + 2 * (w + 1) + 2
     raw_ld = _cdiv(halo, 8) * 8 + 4
-    dgrad = 4 * (3 * (2 * 9 * _COLS * _CHUNK + 2 * halo * _CHUNK
-                      + 2 * raw_ld * _CHUNK + 7 * _CHUNK) + halo)
+    dgrad = 4 * (4 * 9 * _COLS * _CHUNK + 2 * halo * _CHUNK
+                 + 2 * raw_ld * _CHUNK + halo + 7 * _CHUNK)
     pr, pc = wgrad_patch(h, w)
     if pr == 0:
         xh = _linear_halo(h, w)
