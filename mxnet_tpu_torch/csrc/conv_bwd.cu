@@ -704,42 +704,13 @@ int conv3x3_bn_relu_bwd(const float* vec, const float* da, const float* y,
                         float* dx, float* dw, float* dpart, float* wpart,
                         int N, int H, int W, int C, int O, int dsplits,
                         int cps, int splits, int cps_w,
-                        cudaStream_t stream, int concurrent) {
-  static cudaStream_t side = nullptr;
-  static cudaEvent_t fork = nullptr, join = nullptr;
-  cudaError_t err;
-  cudaStream_t ws = stream;
-  if (concurrent) {
-    if (side == nullptr) {
-      if ((err = cudaStreamCreateWithFlags(&side, cudaStreamNonBlocking)) ||
-          (err = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming)) ||
-          (err = cudaEventCreateWithFlags(&join, cudaEventDisableTiming)))
-        return static_cast<int>(err);
-    }
-    if ((err = cudaEventRecord(fork, stream)) ||
-        (err = cudaStreamWaitEvent(side, fork, 0)))
-      return static_cast<int>(err);
-    ws = side;
-  }
-  int PR, PC;
-  wgrad_patch(H, W, PR, PC);
-  const size_t wsmem = wgrad_smem_bytes(H, W, PR, PC);
-  err = cudaFuncSetAttribute(conv_bwd_wgrad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(wsmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv_bwd_wgrad_kernel<<<dim3(cdiv(C, kWgCols), cdiv(O, kWgRows), splits),
-                          kWgThreads, wsmem, ws>>>(
-      vec, da, y, x, splits > 1 ? wpart : dw, N, H, W, C, O, PR, PC, cps_w);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
-  if (splits > 1 &&
-      (err = launch_reduce(wpart, dw, splits,
-                           static_cast<size_t>(O) * kTaps * C, ws)))
-    return static_cast<int>(err);
+                        cudaStream_t stream) {
   const int Opad = cdiv(O, kChunk) * kChunk;
   conv_bwd_wsplit_kernel<<<dim3(cdiv(kTaps * C, 32), cdiv(Opad, 32)), 256, 0,
                            stream>>>(w, wsp, C, O, Opad);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   const size_t dsmem = dgrad_smem_bytes(W);
   err = cudaFuncSetAttribute(conv_bwd_dgrad_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -749,16 +720,28 @@ int conv3x3_bn_relu_bwd(const float* vec, const float* da, const float* y,
   conv_bwd_dgrad_kernel<<<dim3(cdiv(P, kDgRows), cdiv(C, kDgCols), dsplits),
                           kDgThreads, dsmem, stream>>>(
       vec, da, y, wsp, dsplits > 1 ? dpart : dx, N, H, W, C, O, Opad, cps);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
-  if (dsplits > 1 &&
-      (err = launch_reduce(dpart, dx, dsplits,
-                           static_cast<size_t>(N) * C * H * W, stream)))
-    return static_cast<int>(err);
-  if (concurrent &&
-      ((err = cudaEventRecord(join, side)) ||
-       (err = cudaStreamWaitEvent(stream, join, 0))))
-    return static_cast<int>(err);
-  return 0;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dsplits > 1) {
+    err = launch_reduce(dpart, dx, dsplits, static_cast<size_t>(N) * C * H * W,
+                 stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  int PR, PC;
+  wgrad_patch(H, W, PR, PC);
+  const size_t wsmem = wgrad_smem_bytes(H, W, PR, PC);
+  err = cudaFuncSetAttribute(conv_bwd_wgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(wsmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_bwd_wgrad_kernel<<<dim3(cdiv(C, kWgCols), cdiv(O, kWgRows), splits),
+                          kWgThreads, wsmem, stream>>>(
+      vec, da, y, x, splits > 1 ? wpart : dw, N, H, W, C, O, PR, PC, cps_w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce(wpart, dw, splits,
+                                 static_cast<size_t>(O) * kTaps * C, stream));
 }
 
 const char* conv3x3_bn_relu_bwd_error_string(int code) {

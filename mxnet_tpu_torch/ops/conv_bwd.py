@@ -276,7 +276,7 @@ def eligible(kernel, strides, padding, dilation, groups, use_bias):
 
 def _bind(lib):
     lib.conv3x3_bn_relu_bwd.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int]
+        ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.conv3x3_bn_relu_bwd.restype = ctypes.c_int
     lib.conv3x3_bn_relu_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int] + [
         ctypes.POINTER(ctypes.c_size_t)] * 2 + [
@@ -371,8 +371,7 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
         None if dpart is None else dpart.data_ptr(),
         None if wpart is None else wpart.data_ptr(), n, h, wd, c, o,
         dsplits, cps, splits, rows // (pr * pc or _PIXELS),
-        torch.cuda.current_stream(x.device).cuda_stream,
-        int(__import__("os").environ.get("MXNET_CONV_BWD_SIDE", "1")))
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         msg = lib.conv3x3_bn_relu_bwd_error_string(rc).decode()
         raise MXNetError(f"conv3x3_bn_relu_bwd launch failed: {msg} (code "

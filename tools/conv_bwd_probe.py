@@ -62,16 +62,11 @@ def main():
             def call():
                 turn[0] = (turn[0] + 1) % 3
                 return cb.fused_conv3x3_bn_relu_bwd(*sets[turn[0]])
-            for side in ("0", "1", "1", "0"):
-                os.environ["MXNET_CONV_BWD_SIDE"] = side
-                total, top = cs.device_profile(call, 20, warmup=2, top=6,
-                                               match="conv_bwd_")
-                wall = cs.cuda_ms(call, 20)
-                print(f"N={n} H={h} W={w} C=O={c} side stream {side}: call "
-                      f"{wall:.4f} ms, CUDA kernels {total:.4f} ms: "
-                      + ", ".join(f"{name.split('conv_bwd_')[1].split('(')[0]}"
-                                  f" {ms:.4f}" for name, ms in top),
-                      flush=True)
+            total, top = cs.device_profile(call, 20, warmup=2, top=6,
+                                           match="conv_bwd_")
+            print(f"N={n} H={h} W={w} C=O={c}: CUDA kernels {total:.4f} ms: "
+                  + ", ".join(f"{name.split('conv_bwd_')[1].split('(')[0]} "
+                              f"{ms:.4f}" for name, ms in top), flush=True)
             del sets
     print("ALL OK" if ok else "FAILED")
     sys.exit(0 if ok else 1)
