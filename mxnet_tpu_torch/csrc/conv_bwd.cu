@@ -78,7 +78,7 @@
 //   the largest value. A zeroed partial a chunk (the flash kernels' way)
 //   measured 7e-7 but costs 32 registers a thread, which spilled wgrad at
 //   the 96 registers of two 288-thread blocks an SM (one block an SM ran
-//   it 1.4x slower) and slowed dgrad's unrolled taps.
+//   it slower) and slowed dgrad's unrolled taps.
 // - Measured on the H100 (PERF.md): both kernels run at ~30% of the
 //   card's mma.sync TF32 rate, with the copies and splits of a chunk not
 //   hidden behind its products. Neither wider warp tiles (64 x 32), half

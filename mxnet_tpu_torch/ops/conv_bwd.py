@@ -29,10 +29,17 @@ weight split (w into its hi and lo TF32 parts, into scratch of ``(2, 9, C,
 Opad)`` words, Opad = O rounded up to ``_CHUNK``), dgrad over tiles of
 ``_ROWS`` places of the padded grid x ``_COLS`` input channels, reducing
 over chunks of ``_CHUNK`` output channels (cut into ``dgrad_splits`` runs
-where the grid is thin, then summed by a reduce pass), and wgrad over
-tiles of ``_WG_TILE`` output x ``_WG_TILE`` input channels x 9 taps,
-reducing over chunks of ``_PIXELS`` pixels (cut into ``wgrad_splits`` runs,
-then summed by a reduce pass).
+where the grid is thin or a run would pass ``_DG_RUN`` chunks, each run an
+fp32 partial of dx summed by a reduce pass), and wgrad over tiles of
+``_WG_TILE`` output x ``_WG_TILE`` input channels x 9 taps, reducing over
+chunks of ``_PIXELS`` pixel slots (patches of one image, ``wgrad_patch``,
+or consecutive pixels; cut into ``wgrad_splits`` runs of at most
+``_WG_RUN`` chunks, each an fp32 partial of dw summed by a reduce pass).
+The runs are bounded because the tensor core's fp32 accumulation is not
+round-to-nearest: a run sums at most 32 x 27 (dgrad) or 32 x 24 (wgrad)
+mma into one register, ~1e-5 of the largest value on the H100. Scratch
+(split weights, partials) comes from ``torch.empty`` on the caller's
+device; its element counts are within :func:`fits_card`'s 2^31.
 
 The reference's VMEM budget (``fits_vmem``, 12 MiB, a TPU fact) is not
 carried over; the card's limits are :func:`fits_card`'s, decided from
