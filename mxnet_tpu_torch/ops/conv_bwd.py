@@ -356,8 +356,7 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     _card(x, da, y, w)
     n, c, h, wd = x.shape
     o = w.shape[0]
-    x, da, y, w = x.contiguous(), da.contiguous(), y.contiguous(), \
-        w.contiguous()
+    x, da, y, w = (t.contiguous() for t in (x, da, y, w))
     vec = vec.contiguous()
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
