@@ -135,7 +135,7 @@ __host__ __device__ inline int dgrad_raw_ld(int W) {
 __host__ __device__ inline size_t dgrad_smem_bytes(int W) {
   const int halo = dgrad_halo(W);
   return sizeof(uint32_t) * (2 * 2 * static_cast<size_t>(kWTile) +
-                             2 * 2 * static_cast<size_t>(halo) * kChunk +
+                             2 * static_cast<size_t>(halo) * kChunk +
                              2 * static_cast<size_t>(dgrad_raw_ld(W)) * kChunk +
                              halo + kStats * kChunk);
 }
@@ -228,73 +228,6 @@ __device__ __forceinline__ int swz(int row, int kc) {
   return (kc ^ ((row >> 2) & 1)) << 2;
 }
 
-// wgmma descriptor of a 64-row x 8-value TF32 K-major tile in the
-// canonical layout without swizzle: 8 x 16-byte core matrices, the
-// leading byte offset (along K) 128, the stride byte offset (along N) 256
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// acc (m64n64, f32) += A (m64k8 TF32) B (k8n64 TF32), both from shared
-// memory through descriptors
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// acc (m64n64, f32) += A (m64k8 TF32 from registers) B (k8n64 TF32,
-// shared memory, descriptor)
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
 // w (O, C, 3, 3) -> wsp [2][9][C][Opad]: the hi and lo TF32 parts, zero
 // for o >= O; a 32 x 32 tile of the (O, 9C) matrix a block, transposed
 // through shared memory so both the reads and the writes are coalesced
@@ -339,11 +272,8 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
   const int halo = dgrad_halo(W);
   const int hplane = halo * kChunk, rld = dgrad_raw_ld(W);
   uint32_t* wring = sm;                 // [2 stages][hi|lo][9][64][8]
-  // dy planes [2 buffers][hi|lo][k-half][halo][4]: a run of 64 halo
-  // places of one plane is a K-major wgmma tile without swizzle, whatever
-  // place it starts at (8-place core matrices of 16-byte rows)
-  uint32_t* hring = sm + 2 * 2 * kWTile;
-  float* raw = reinterpret_cast<float*>(hring + 2 * 2 * hplane);  // [da|y][8][rld]
+  uint32_t* hs = sm + 2 * 2 * kWTile;   // dy planes [hi|lo][halo][8]
+  float* raw = reinterpret_cast<float*>(hs + 2 * hplane);  // [da|y][8][rld]
   float* sstat = raw + 2 * kChunk * rld;                      // [7][8]
   int* pix = reinterpret_cast<int*>(sstat + kStats * kChunk);  // [halo]
   const int p0 = blockIdx.x * kDgRows;
@@ -385,12 +315,8 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
           wsp + plane * wplane +
           (static_cast<size_t>(tap) * C + (ok ? cb + row : 0)) * Opad + o0 +
           half * 4;
-      // the canonical K-major layout of wgmma without swizzle: 8-row x
-      // 16-byte core matrices, the two k-halves 128 bytes apart, 8-row
-      // groups 256 bytes apart
-      cp_async16(ws + pt * kDgCols * kChunk +
-                     ((row >> 3) * 2 + half) * 32 + (row & 7) * 4,
-                 src, ok);
+      cp_async16(ws + (pt * kDgCols + row) * kChunk + swz(row, half), src,
+                 ok);
     }
     cp_async_commit();
   };
@@ -398,7 +324,7 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
   // dy of chunk ci into the hi and lo planes: a thread takes 4 channels
   // (half kc) of every 128th place
   const int kc = tid & 1;
-  auto convert = [&](int ci, uint32_t* hs) {
+  auto convert = [&](int ci) {
     const int o0 = ci * kChunk + 4 * kc;
     float s[4][kStats];
 #pragma unroll
@@ -411,6 +337,7 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
       s[3][r] = v.w;
     }
     for (int q = tid >> 1; q < halo; q += kDgThreads / 2) {
+      const int slot = q * kChunk + swz(q, kc);
       float av[4], bv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -425,43 +352,60 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
             in && o0 + j < O ? recompute_dy(av[j], bv[j], s[j]) : 0.f;
         split<true>(v, hi[j], lo[j]);
       }
-      *reinterpret_cast<uint4*>(hs + (kc * halo + q) * 4) =
-          make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(hs + hplane + (kc * halo + q) * 4) =
+      *reinterpret_cast<uint4*>(hs + slot) = make_uint4(hi[0], hi[1], hi[2],
+                                                        hi[3]);
+      *reinterpret_cast<uint4*>(hs + hplane + slot) =
           make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   };
 
-  // warpgroup wg: places 64*wg.., all 64 channels (wgmma m64n64k8), both
-  // operands from shared memory
-  const int wg = warp >> 2;
-  const uint32_t h_base = smem_addr(hring) + 4 * 4 * 64 * wg;
-  const uint32_t b_base = smem_addr(wring);
-  float acc[32];
+  // warp tile: places wm*32.., channels wn*32..; shared-memory addresses
+  // in bytes: this lane's A row (the halo place of its output row for the
+  // tap (2, 2), shift 0) and its B rows of the two n16 halves
+  const int wm = warp & 3, wn = warp >> 2;
+  const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_kc = lane >> 4;
+  const uint32_t a_base = smem_addr(hs);
+  uint32_t b_base[2];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  for (int jj = 0; jj < 2; ++jj) {
+    const int n = wn * 32 + jj * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
+    b_base[jj] = smem_addr(wring) + 4 * (n * kChunk + swz(n, (lane >> 3) & 1));
+  }
+  float acc[2][4][4] = {};
 
-  // the 27 wgmma of chunk ci, issued without waiting: they run under the
-  // next chunk's copies and dy split (the caller waits before the weight
-  // stage or the planes they read are refilled)
-  auto products = [&](int st, int buf) {
-    const uint32_t ws = b_base + 4 * st * 2 * kWTile;
-    const uint32_t hb = h_base + 4 * buf * 2 * hplane;
-    wgmma_fence();
+  // the mma of a chunk go straight into acc: a split sums at most 32
+  // chunks (dgrad_splits), 27 x 32 mma into one register
+  auto products = [&](int st) {
+    const uint32_t ws = 4 * st * 2 * kWTile;
 #pragma unroll
     for (int tap = 0; tap < kTaps; ++tap) {
       const int kh = tap / 3, kw = tap - 3 * kh;
-      const uint32_t a = hb + 16 * ((2 - kh) * Wp + (2 - kw));
-      const uint64_t ahi = wgmma_desc(a, 16 * halo, 128);
-      const uint64_t alo = wgmma_desc(a + 4 * hplane, 16 * halo, 128);
-      const uint32_t bh = ws + 4 * tap * kDgCols * kChunk;
-      const uint64_t bhi = wgmma_desc(bh, 128, 256);
-      const uint64_t blo = wgmma_desc(bh + 4 * kWTile, 128, 256);
-      wgmma_tf32_ss(acc, alo, bhi);
-      wgmma_tf32_ss(acc, ahi, blo);
-      wgmma_tf32_ss(acc, ahi, bhi);
+      // the place this lane reads; +16 rows keeps the swizzle bit
+      const int q = a_row + (2 - kh) * Wp + (2 - kw);
+      const uint32_t a = a_base + 4 * (q * kChunk + swz(q, a_kc));
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ldsm_x4_at(ahi[i], a + 4 * 16 * kChunk * i);
+        ldsm_x4_at(alo[i], a + 4 * (16 * kChunk * i + hplane));
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t bh[4], bl[4];
+        const uint32_t b = b_base[jj] + ws + 4 * tap * kDgCols * kChunk;
+        ldsm_x4_at(bh, b);
+        ldsm_x4_at(bl, b + 4 * kWTile);
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          const uint32_t bhi[2] = {bh[2 * jt], bh[2 * jt + 1]};
+          const uint32_t blo[2] = {bl[2 * jt], bl[2 * jt + 1]};
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            mma_3xtf32(acc[i][2 * jj + jt], ahi[i], alo[i], bhi, blo);
+        }
+      }
     }
-    wgmma_commit();
   };
 
   if (c_begin < c_end) issue(c_begin, 0);
@@ -469,28 +413,28 @@ conv_bwd_dgrad_kernel(const float* __restrict__ vec,
   for (int ci = c_begin; ci < c_end; ++ci, st ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // chunk ci landed; every warp is past chunk ci-1
-    convert(ci, hring + st * 2 * hplane);  // chunk ci-1's products run on
-    fence_proxy_async();  // the planes, for the tensor cores' reads
-    wgmma_wait0();    // chunk ci-1's products are done with its weights
+    convert(ci);
     __syncthreads();  // chunk ci's dy planes are written, its raw rows read
     if (ci + 1 < c_end) issue(ci + 1, st ^ 1);
-    products(st, st);
+    products(st);
   }
-  wgmma_wait0();
 
   float* dst = out + static_cast<size_t>(blockIdx.z) * N * C * HW;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int off = place_offset(p0 + 64 * wg + 16 * (warp & 3) + g + 8 * h,
-                                 H, W, P, C);
-    if (off < 0) continue;
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int h = 0; h < 2; ++h) {
+      const int off = place_offset(p0 + wm * 32 + 16 * i + g + 8 * h, H, W,
+                                   P, C);
+      if (off < 0) continue;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = cb + 8 * j + 2 * t + e;
-        if (c < C) dst[off + static_cast<size_t>(c) * HW] = acc[4 * j + 2 * h + e];
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = cb + wn * 32 + 8 * j + 2 * t + e;
+          if (c < C) dst[off + static_cast<size_t>(c) * HW] = acc[i][j][2 * h + e];
+        }
       }
     }
   }

@@ -237,7 +237,7 @@ def smem_bytes(h, w):
     The kernel source computes the same (``conv3x3_bn_relu_bwd_smem``)."""
     halo = _ROWS + 2 * (w + 1) + 2
     raw_ld = _cdiv(halo, 8) * 8 + 4
-    dgrad = 4 * (4 * 9 * _COLS * _CHUNK + 4 * halo * _CHUNK
+    dgrad = 4 * (4 * 9 * _COLS * _CHUNK + 2 * halo * _CHUNK
                  + 2 * raw_ld * _CHUNK + halo + 7 * _CHUNK)
     pr, pc = wgrad_patch(h, w)
     if pr == 0:
