@@ -82,9 +82,12 @@
 // - Measured on the H100 (PERF.md): both kernels run at ~30% of the
 //   card's mma.sync TF32 rate, with the copies and splits of a chunk not
 //   hidden behind its products. Neither wider warp tiles (64 x 32), half
-//   the weight traffic (256-place blocks), nor producer warps that copy
-//   and split while 8 consumer warps multiply (one block an SM) made
-//   dgrad faster; dgrad beside wgrad on two streams saved 1-3% of a call.
+//   the weight traffic (256-place blocks), producer warps that copy and
+//   split while 8 consumer warps multiply (one block an SM), nor wgmma
+//   with both operands in shared memory (a shifted run of halo places is
+//   a K-major tile without swizzle; its double-buffered planes leave one
+//   block an SM at 56 x 56) made dgrad faster over a step; dgrad beside
+//   wgrad on two streams was barely faster.
 // - No atomics: two launches on equal inputs give equal bits.
 //
 // Plain C interface, bound from Python with ctypes: every launch goes onto
