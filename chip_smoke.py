@@ -14,10 +14,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    (HMMA / HGMMA, from ``cuobjdump -sass`` beside ``nvcc``) in each of the
    24 flash kernels (forward, dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64
    / 128), of ``wgmma`` instructions (HGMMA) in the two fp8 GEMM kernels
-   (TMA-store and direct-store epilogue) and of HMMA in kernel 8's four
-   kernels with their spill bytes: the run fails if a flash, fp8 GEMM or
-   kernel-8 product kernel (dgrad, wgrad) has none, or if an fp8 matmul or
-   kernel-8 kernel spills. Every phase prints its wall time.
+   (TMA-store and direct-store epilogue), of s8 ``wgmma`` instructions
+   (IGMMA) in the four int8 GEMM kernels (128 x 128 and 128 x 192 tiles,
+   each with both epilogues) and of HMMA in kernel 8's four kernels with
+   their spill bytes: the run fails if a flash, fp8 GEMM, int8 GEMM or
+   kernel-8 product kernel (dgrad, wgrad) has none, or if an fp8 matmul,
+   int8 matmul or kernel-8 kernel spills. Every phase prints its wall
+   time.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 16, 32 and 128 (seq
@@ -63,14 +66,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    to f16, summed in the tensor core's fp32 accumulator in another order;
    the largest err / that sum read 8.4e-8, about 2^-23.5, on the H100);
    the largest err / that sum is printed.
-2e. The int8 matmul kernel against its plain version (``quantize_int8``,
-   the int8 product summed exactly as float64, the same epilogue): (M, K,
-   N) = (1, 100, 5), (37, 256, 130), (130, 100, 5), (64, 200, 70) (K not a
-   multiple of 16: no 16-byte path), (37, 256, 130) with x at an offset
-   that is not 16-byte aligned, every activation, with and without bias;
-   then the pooler's (32, 768, 768) with tanh and the three BERT-base
-   shapes (4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768) with
-   bias. x_scale is a power of two, so the planted exact .5 ties of x /
+2e. The int8 matmul kernels (prepare pass and GEMM) against their plain
+   version (``quantize_int8``, the int8 product summed exactly as float64,
+   the same epilogue): (M, K, N) = (1, 100, 5), (37, 256, 130), (130, 100,
+   5), (64, 200, 70) (K not a multiple of 16: w copied into the padded
+   scratch), (37, 256, 130) with x at an offset that is not 16-byte
+   aligned, every activation, with and without bias; the GEMM's tile edges
+   (``INT8_RAGGED``: M and N of tile +- 1, N % 4 != 0, K = 100, 200 and
+   784) at both tile widths, 128 x 128 and 128 x 192; then the pooler's
+   (32, 768, 768) with tanh and the three BERT-base shapes (4096, 768,
+   768), (4096, 768, 3072), (4096, 3072, 768) with bias. Every edge and
+   BERT case is launched twice and must give the same bits. x_scale is a power of two, so the planted exact .5 ties of x /
    x_scale round half to even; NaN, +-inf and values past +-127 are
    planted too. No activation and relu: bit for bit (both sides sum
    exactly and round the epilogue alike); sigmoid, tanh and gelu: atol =
@@ -216,7 +222,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    yardstick only, never used by the port; null where ``_int_mm``
    refuses the shape), beside the bound: bytes (x read, w, w_scale and
    bias read, out written) over 3.35 TB/s against 2 M N K over the 1979
-   TOP/s dense int8 rate.
+   TOP/s dense int8 rate; the prepare pass's and the GEMM's device ms
+   apart, and the call's TOP/s and share of the bound.
 
 13. ResNet-50 v1 training at full width, as bench.py's resnet50_train
    (bench.py:258-266) in fp32: ``resnet50_v1(classes=1000)``,
@@ -328,6 +335,14 @@ INT8_ACT_TOL = dict(atol=1e-6, rtol=1e-6)
 INT8_BERT_SHAPES = {(4096, 768, 768): 48, (4096, 768, 3072): 12,
                     (4096, 3072, 768): 12, (32, 768, 768): 1}
 INT8_LAYERS = 73
+# (M, K, N) around the int8 GEMM's 128 x 128 / 128 x 192 tiles and 128-value
+# k-stage: M and N of tile +- 1, N % 4 != 0 (direct-store epilogue), K =
+# 100 and 200 (w copied into the padded scratch) and 784 (a partial stage)
+INT8_RAGGED = [(127, 784, 191), (129, 784, 193), (255, 100, 130),
+               (200, 768, 300), (1, 200, 3), (257, 768, 384)]
+# the int8 GEMM's instantiations, as phase 1 names them
+INT8_GEMM_KERNELS = tuple(f"int8_gemm n{bn} {store} store" for bn in (128, 192)
+                          for store in ("tma", "direct"))
 # int8 vs fp32 BERT-base outputs, max |diff| / max |fp32|: over 2x the
 # first reading, 0.0515 and 0.148, on an H100 SXM (NVIDIA H100 80GB HBM3,
 # 700 W)
@@ -506,9 +521,9 @@ def ptxas_summary(log):
             if "fp8_matmul_cu" in mangled:
                 name = fp8_kernel_name(mangled)
                 continue
-            if "int8_matmul" in mangled:
-                vec = re.search(r"ILb(\d)E", mangled)
-                name = f"int8_matmul vec={vec[1] if vec else '?'}"
+            if "int8_prepare_kernel" in mangled or \
+                    "int8_gemm_kernel" in mangled:
+                name = int8_kernel_name(mangled)
                 continue
             if "conv_bwd" in mangled:
                 name = conv_kernel_name(mangled)
@@ -558,6 +573,22 @@ def fp8_kernel_name(mangled):
     if tpl:
         return f"fp8_gemm {'tma' if tpl[1] == '1' else 'direct'} store"
     return "fp8_matmul ?"
+
+
+def int8_kernel_name(mangled):
+    """``int8_prepare`` or ``int8_gemm n192 tma store`` for a mangled kernel
+    name of ``int8_matmul.cu``."""
+    if "int8_prepare_kernel" in mangled:
+        return "int8_prepare"
+    tpl = re.search(r"int8_gemm_kernelILi(\d+)ELb(\d)E", mangled)
+    if tpl:
+        return (f"int8_gemm n{tpl[1]} "
+                f"{'tma' if tpl[2] == '1' else 'direct'} store")
+    return "int8_matmul ?"
+
+
+def int8_gemm_name(mangled):
+    return int8_kernel_name(mangled) if "int8_gemm_kernel" in mangled else None
 
 
 def conv_kernel_name(mangled):
@@ -656,6 +687,20 @@ def phase_build():
                              if "fp8_matmul_cu" in m else None)
         check(spills and not any(spills.values()),
               f"an fp8 matmul kernel spills: {spills}")
+    igmma = tensor_core_counts(libs["int8_matmul"], int8_gemm_name,
+                               r"\bIGMMA\.")
+    print("wgmma SASS (IGMMA) in the int8 GEMM kernels: "
+          + ", ".join(f"{n} {c}" for n, c in sorted(igmma.items())))
+    check(set(igmma) == set(INT8_GEMM_KERNELS) and all(igmma.values()),
+          f"int8 GEMM kernels without IGMMA: {igmma}, expected "
+          f"{sorted(INT8_GEMM_KERNELS)}")
+    log = _native.build_logs.get("int8_matmul")
+    if log is not None:
+        spills = spill_bytes(log, lambda m: int8_kernel_name(m)
+                             if "int8_" in m and "_kernel" in m else None)
+        check(set(spills) == set(INT8_GEMM_KERNELS) | {"int8_prepare"}
+              and not any(spills.values()),
+              f"an int8 matmul kernel spills: {spills}")
     hmma = tensor_core_counts(libs["conv_bwd"], conv_name, r"\bHMMA\.")
     log = _native.build_logs.get("conv_bwd")
     spills = spill_bytes(log, conv_name) if log is not None else None
@@ -1854,16 +1899,24 @@ def int8_inputs(qm, dev, gen, m, k, n, offset=False):
     return x, wq, ws, xs, b
 
 
-def int8_case(qm, dev, gen, m, k, n, act=None, bias=False, offset=False):
+def int8_case(qm, dev, gen, m, k, n, act=None, bias=False, offset=False,
+              repeat=False):
     """The int8 kernel against its plain version on the same inputs:
-    max |err|."""
+    max |err|. With ``repeat`` a second launch must give the same bits."""
     x, wq, ws, xs, b = int8_inputs(qm, dev, gen, m, k, n, offset)
     b = b if bias else None
     out = qm.quantized_matmul(x, wq, ws, xs, bias=b, act=act)
     torch.cuda.synchronize()
+    if repeat:
+        again = qm.quantized_matmul(x, wq, ws, xs, bias=b, act=act)
+        torch.cuda.synchronize()
+        check(torch.equal(out.view(torch.int32), again.view(torch.int32)),
+              f"int8_matmul M={m} K={k} N={n}: a second launch gave other "
+              "bits")
     ref = qm.quantized_matmul_plain(x, wq, ws, xs, bias=b, act=act)
     tag = (f"M={m} K={k} N={n} act={act} bias={bias}"
-           f"{' offset x' if offset else ''}")
+           f"{' offset x' if offset else ''}"
+           f"{' (second launch: equal bits)' if repeat else ''}")
     check(torch.equal(out.isnan(), ref.isnan()),
           f"int8_matmul {tag}: NaN positions differ from the plain version's")
     fin = ~ref.isnan()
@@ -1892,9 +1945,21 @@ def phase_int8_vs_plain(dev):
             for bias in (False, True):
                 errs.append(int8_case(qm, dev, gen, m, k, n, act, bias,
                                       offset))
+    # the GEMM's tile edges at both tile widths
+    try:
+        for bn in (128, 192):
+            qm.quantized_matmul.tile_n = bn
+            print(f"  tile 128 x {bn}:")
+            for m, k, n in INT8_RAGGED:
+                for act, bias in ((None, True), ("gelu", False)):
+                    errs.append(int8_case(qm, dev, gen, m, k, n, act, bias,
+                                          repeat=True))
+    finally:
+        qm.quantized_matmul.tile_n = 0
     for (m, k, n) in INT8_BERT_SHAPES:
         act = "tanh" if m == BERT_BATCH else None
-        errs.append(int8_case(qm, dev, gen, m, k, n, act, True))
+        errs.append(int8_case(qm, dev, gen, m, k, n, act, True,
+                              repeat=True))
     return {"max_abs_err": max(errs), "cases": len(errs)}
 
 
@@ -2086,6 +2151,13 @@ def phase_int8_times(dev, card):
         if "composition" not in calls:
             row["composition_call_ms"] = row["composition_device_ms"] = None
         row["bound_ms"], row["bound_by"] = int8_bound_ms(m, k, n)
+        # the prepare pass (x quantized once) and the GEMM apart
+        for part in ("prepare", "gemm"):
+            row[part + "_device_ms"] = device_profile(
+                calls["kernel"], 30, warmup=3, match=f"int8_{part}")[0]
+        ms = pick(row, "kernel")
+        row["tops"] = 2 * m * n * k / (ms * 1e-3) / 1e12
+        row["share_of_bound"] = row["bound_ms"] / ms
         rows[(m, k, n)] = row
         print(f"int8_matmul (M, K, N) = ({m}, {k}, {n}) act={act} bias "
               f"[{card}]: " + json.dumps(row))
@@ -2786,8 +2858,10 @@ def int8_entry(launches, errs, rows):
                        "no single PyTorch call computes this function",
         "shape": "M=4096 K=768 N=768 fp32 x, int8 w, bias",
         "by_shape": {f"M={m} K={k} N={n}": {
-            "ms": pick(r, "kernel"), "plain_ms": pick(r, "plain"),
+            "ms": pick(r, "kernel"), "prepare_ms": r["prepare_device_ms"],
+            "gemm_ms": r["gemm_device_ms"], "plain_ms": pick(r, "plain"),
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "share_of_bound": r["share_of_bound"],
             "composition_ms": composition_ms(r)}
             for (m, k, n), r in rows.items()},
         "ms_per_forward": forward_sum(lambda r: pick(r, "kernel")),

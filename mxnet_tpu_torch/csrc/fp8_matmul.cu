@@ -32,9 +32,10 @@
 //      w into an (N, Kp) scratch the same way. One index space of 8-value
 //      chunks over both, walked by one wave of blocks; 16-byte loads where
 //      a chunk lies in its row on 16 bytes.
-//   2. fp8_gemm_kernel, persistent (one block an SM, 128 x 128 output
+//   2. fp8_gemm_kernel, the persistent GEMM of lowbit_gemm.cuh (shared
+//      with int8_matmul.cu) at 128 x 128 output tiles: one block an SM,
 //      tiles in turn, columns fastest, so that the blocks running together
-//      share x's row tiles in L2): one producer thread keeps a ring of 4
+//      share x's row tiles in L2; one producer thread keeps a ring of 5
 //      stages full with TMA loads (x and w tiles of 64 values of K,
 //      128-byte swizzle, mbarriers); two consumer warpgroups, 64 rows
 //      each, issue wgmma.m64n128k16.f32.f16.f16 from the swizzled tiles
@@ -88,28 +89,13 @@
 #include <cstdint>
 
 #include "hopper_gemm.cuh"
-#include "quant_mma.cuh"
+#include "lowbit_gemm.cuh"
 
 namespace {
 
-using namespace hopper;
-
-constexpr int kBM = 128;        // rows of a tile: two consumer warpgroups
 constexpr int kBN = 128;        // columns of a tile
-constexpr int kKBytes = 128;    // bytes of K a stage: one 128-byte swizzle
-constexpr int kKElems = 64;     // f16 values of K a stage
-constexpr int kStages = 5;
-constexpr int kThreads = 384;   // producer warpgroup + two consumers
 constexpr int kPThreads = 256;  // prepare kernel
-
-template <bool TMA_STORE>
-struct Smem {
-  static constexpr int kABytes = kBM * kKBytes;
-  static constexpr int kBBytes = kBN * kKBytes;
-  static constexpr int kCBytes = TMA_STORE ? kBM * kBN * 4 : 0;  // staging
-  static constexpr int kBytes =
-      1024 + kStages * (kABytes + kBBytes) + kCBytes + 2 * kStages * 8;
-};
+using Op = lowbit_gemm::F16;
 
 // One fp32 value to fp8 (fmt 0 = e4m3fn, 1 = e5m2) by the JAX rule.
 template <int FMT>
@@ -198,89 +184,8 @@ __global__ void __launch_bounds__(kPThreads)
   }
 }
 
-// d += A (64 rows x 16 of K) . B (128 rows x 16 of K)^T, f16 operands from
-// shared-memory descriptors, fp32 accumulators.
-#define D8(i)                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "l"(da), "l"(db), "n"(1));
-}
-#undef D8
-
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) reg_fence(r[i]);
-}
-
-// Staging index of output (r, c) of a consumer's 64 x 128 half tile: boxes
-// of 64 rows x 32 fp32 (128 bytes) in the TMA store's 128-byte swizzle, so
-// that a warp's float2 writes fall in distinct banks.
-__device__ __forceinline__ int stage_index(int r, int c) {
-  return (c >> 5) * (64 * 32) + r * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) +
-         (c & 3);
-}
-
-// The epilogue of a consumer's 64 x 128 half tile at (row0, n0):
-// act(acc * s[n] + b[n]), each operation rounded on its own, into the
-// staging tile (TMA_STORE) or straight to out. Accumulator d[4j + i]
-// holds row 16 warp + lane / 4 (+ 8 for i >= 2), column 8j + 2 (lane % 4)
-// + (i & 1). The activation and the bias are template arguments, so the
-// loop over the 64 values carries no branch on them.
-template <bool TMA_STORE, int ACT, bool BIAS>
-__device__ __forceinline__ void epilogue(const float (&acc)[kBN / 2],
-                                         const float (&col_s)[kBN / 4],
-                                         const float (&col_b)[kBN / 4],
-                                         float* stage, float* out, int M,
-                                         int N, int row0, int n0, int warp,
-                                         int lane) {
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int col = j * 8 + (lane & 3) * 2;
-    const int gc = n0 + col;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = warp * 16 + (lane >> 2) + h * 8;
-      float o0 = __fmul_rn(acc[4 * j + 2 * h], col_s[2 * j]);
-      float o1 = __fmul_rn(acc[4 * j + 2 * h + 1], col_s[2 * j + 1]);
-      if (BIAS) {
-        o0 = __fadd_rn(o0, col_b[2 * j]);
-        o1 = __fadd_rn(o1, col_b[2 * j + 1]);
-      }
-      o0 = quant_mma::activate(o0, ACT);
-      o1 = quant_mma::activate(o1, ACT);
-      if (TMA_STORE) {
-        *reinterpret_cast<float2*>(stage + stage_index(r, col)) =
-            make_float2(o0, o1);
-      } else {
-        const int gr = row0 + r;
-        if (gr < M) {
-          float* p = out + static_cast<size_t>(gr) * N + gc;
-          if (gc + 1 < N && (N & 1) == 0) {
-            *reinterpret_cast<float2*>(p) = make_float2(o0, o1);
-          } else {
-            if (gc < N) p[0] = o0;
-            if (gc + 1 < N) p[1] = o1;
-          }
-        }
-      }
-    }
-  }
-}
-
 template <bool TMA_STORE>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(lowbit_gemm::kThreads, 1)
     fp8_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                     const __grid_constant__ CUtensorMap tm_b,
                     const __grid_constant__ CUtensorMap tm_c,
@@ -288,152 +193,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ xs_ptr,
                     const float* __restrict__ bias, float* __restrict__ out,
                     int M, int N, int k_tiles, int act) {
-  using L = Smem<TMA_STORE>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* const smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* const sa = smem;
-  uint8_t* const sb = sa + kStages * L::kABytes;
-  float* const sc = reinterpret_cast<float*>(sb + kStages * L::kBBytes);
-  uint64_t* const full =
-      reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(sc) + L::kCBytes);
-  uint64_t* const empty = full + kStages;
-
-  const int n_tiles = (N + kBN - 1) / kBN;
-  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    // producer: one thread keeps the ring of TMA loads full
-    reg_dealloc<40>();
-    if (threadIdx.x == 0) {
-      int s = 0;
-      uint32_t ph = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
-        for (int k = 0; k < k_tiles; ++k) {
-          mbar_wait(&empty[s], ph ^ 1);
-          mbar_expect_tx(&full[s], L::kABytes + L::kBBytes);
-          tma_load_2d(sa + s * L::kABytes, &tm_a, &full[s], k * kKElems, m0);
-          tma_load_2d(sb + s * L::kBBytes, &tm_b, &full[s], k * kKElems, n0);
-          if (++s == kStages) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
-      }
-    }
-  } else {
-    reg_alloc<232>();
-    const int c = wg - 1;  // rows c*64 .. c*64+63 of the tile
-    const int tid = threadIdx.x - 128 * wg;
-    const int warp = tid >> 5, lane = tid & 31;
-    float* const stage = sc + c * 64 * kBN;
-    const float xs = *xs_ptr;
-    int s = 0;
-    uint32_t ph = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t / n_tiles) * kBM, n0 = (t % n_tiles) * kBN;
-      // the epilogue's column scales xs * ws[n] and biases, loaded now so
-      // that the main loop hides their latency; this thread's columns are
-      // 8j + 2 (lane % 4) + e
-      float col_s[kBN / 4], col_b[kBN / 4];
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int gc = n0 + j * 8 + (lane & 3) * 2 + e;
-          col_s[2 * j + e] = gc < N ? __fmul_rn(xs, ws[gc]) : 0.f;
-          col_b[2 * j + e] = bias != nullptr && gc < N ? bias[gc] : 0.f;
-        }
-      }
-      float acc[kBN / 2];
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
-      int prev = -1;
-      for (int k = 0; k < k_tiles; ++k) {
-        mbar_wait(&full[s], ph);
-        const uint64_t da =
-            desc_sw128(sa + s * L::kABytes + c * 64 * kKBytes);
-        const uint64_t db = desc_sw128(sb + s * L::kBBytes);
-        wgmma_fence();
-#pragma unroll
-        for (int kb = 0; kb < kKBytes / 32; ++kb)
-          wgmma_m64n128k16(acc, da + 2 * kb, db + 2 * kb);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = s;
-        if (++s == kStages) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs(acc);
-      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-
-      // epilogue: act(acc * (xs * ws[n]) + bias[n])
-      if (TMA_STORE) {
-        if (tid == 0) tma_store_wait_read();  // the last tile's stores
-        named_barrier(1 + c, 128);
-      }
-#define EPILOGUE(A)                                                      \
-  (bias != nullptr                                                        \
-       ? epilogue<TMA_STORE, A, true>(acc, col_s, col_b, stage, out, M, N, \
-                                      m0 + c * 64, n0, warp, lane)         \
-       : epilogue<TMA_STORE, A, false>(acc, col_s, col_b, stage, out, M,  \
-                                       N, m0 + c * 64, n0, warp, lane))
-      switch (act) {
-        case quant_mma::kRelu:
-          EPILOGUE(quant_mma::kRelu);
-          break;
-        case quant_mma::kSigmoid:
-          EPILOGUE(quant_mma::kSigmoid);
-          break;
-        case quant_mma::kTanh:
-          EPILOGUE(quant_mma::kTanh);
-          break;
-        case quant_mma::kGelu:
-          EPILOGUE(quant_mma::kGelu);
-          break;
-        default:
-          EPILOGUE(quant_mma::kNone);
-      }
-#undef EPILOGUE
-      if (TMA_STORE) {
-        fence_async_shared();
-        named_barrier(1 + c, 128);
-        if (tid == 0) {
-#pragma unroll
-          for (int b = 0; b < kBN / 32; ++b)
-            tma_store_2d(&tm_c, stage + b * 64 * 32, n0 + b * 32,
-                         m0 + c * 64);
-          tma_store_commit();
-        }
-      }
-    }
-    if (TMA_STORE && tid == 0) tma_store_wait();
-  }
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 1;
-  }();
-  return n;
+  lowbit_gemm::gemm<Op, kBN, TMA_STORE>(smem_raw, &tm_a, &tm_b, &tm_c, ws,
+                                        xs_ptr, bias, out, M, N, k_tiles,
+                                        act);
 }
 
 template <int AF, int BF>
@@ -441,28 +204,12 @@ void launch_prepare(const float* x, const float* xs, const uint8_t* w,
                     uint16_t* xq, uint16_t* wq, int M, int N, int K, int Kp,
                     cudaStream_t s) {
   const long long items = static_cast<long long>(M + N) * (Kp / 8);
-  const long long wave = static_cast<long long>(sm_count()) * 8;
+  const long long wave =
+      static_cast<long long>(lowbit_gemm::sm_count()) * 8;
   const long long need = (items + kPThreads - 1) / kPThreads;
   fp8_prepare_kernel<AF, BF>
       <<<static_cast<int>(need < wave ? need : wave), kPThreads, 0, s>>>(
           x, xs, w, xq, wq, M, N, K, Kp);
-}
-
-template <bool TMA_STORE>
-cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
-                        const CUtensorMap& tc, const float* ws,
-                        const float* xs, const float* bias, float* out, int M,
-                        int N, int k_tiles, int act, cudaStream_t s) {
-  constexpr int smem = Smem<TMA_STORE>::kBytes;
-  auto kern = fp8_gemm_kernel<TMA_STORE>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
-  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, kThreads, smem, s>>>(ta, tb, tc, ws, xs, bias, out, M, N,
-                                    k_tiles, act);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -478,9 +225,9 @@ extern "C" {
 int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
                const void* bias, void* out, void* xq, void* wq, int M, int N,
                int K, int Kp, int afmt, int wfmt, int act, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || Kp < K || Kp < kKElems ||
-      Kp % kKElems != 0 || afmt < 0 || afmt > 1 || wfmt < 0 || wfmt > 1 ||
-      act < quant_mma::kNone || act > quant_mma::kGelu ||
+  if (M <= 0 || N <= 0 || K < 0 || Kp < K || Kp < Op::kKElems ||
+      Kp % Op::kKElems != 0 || afmt < 0 || afmt > 1 || wfmt < 0 ||
+      wfmt > 1 || act < quant_mma::kNone || act > quant_mma::kGelu ||
       (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(xq) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(wq) & 15) != 0)
@@ -503,26 +250,19 @@ int fp8_matmul(const void* x, const void* w, const void* ws, const void* xs,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   CUtensorMap ta, tb, tc;
-  const bool tma_store = N % 4 == 0;
-  if (!encode_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT16, xq, M, Kp,
-                 static_cast<uint64_t>(Kp) * 2, kBM, kKElems,
-                 CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_2d(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT16, wq, N, Kp,
-                 static_cast<uint64_t>(Kp) * 2, kBN, kKElems,
-                 CU_TENSOR_MAP_SWIZZLE_128B) ||
-      (tma_store && !encode_2d(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, M,
-                               N, static_cast<uint64_t>(N) * 4, 64, 32,
-                               CU_TENSOR_MAP_SWIZZLE_128B)))
+  auto outp = static_cast<float*>(out);
+  if (!lowbit_gemm::encode_maps<Op, kBN>(&ta, &tb, &tc,
+                                         CU_TENSOR_MAP_DATA_TYPE_UINT16, 2,
+                                         xq, wq, outp, M, N, Kp))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!tma_store) tc = tb;  // unused
   auto wsp = static_cast<const float*>(ws);
   auto bp = static_cast<const float*>(bias);
-  auto outp = static_cast<float*>(out);
-  const int k_tiles = Kp / kKElems;
-  err = tma_store ? launch_gemm<true>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
-                                      k_tiles, act, s)
-                  : launch_gemm<false>(ta, tb, tc, wsp, xsp, bp, outp, M, N,
-                                       k_tiles, act, s);
+  const int k_tiles = Kp / Op::kKElems;
+  err = N % 4 == 0
+            ? lowbit_gemm::launch<kBN, true, fp8_gemm_kernel<true>>(
+                  ta, tb, tc, wsp, xsp, bp, outp, M, N, k_tiles, act, s)
+            : lowbit_gemm::launch<kBN, false, fp8_gemm_kernel<false>>(
+                  ta, tb, tc, wsp, xsp, bp, outp, M, N, k_tiles, act, s);
   return static_cast<int>(err);
 }
 

@@ -1,7 +1,7 @@
 // Fused int8 quantize + matmul + epilogue for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of mxnet_tpu/ops/pallas/quant_matmul.py:
-//   int8_matmul_kernel <- _int8_kernel (launched by quantized_matmul).
+//   _int8_kernel (launched by quantized_matmul).
 // For x (M, K) fp32, w (N, K) int8, ws (N,) fp32, a scalar x_scale xs, an
 // optional bias (N,) fp32 and an activation:
 //   q   = int8(clamp(rint(x / xs), -127, 127))
@@ -20,43 +20,57 @@
 //     the activation (relu, sigmoid, tanh, or tanh-form gelu).
 //
 // What bounds it on the H100: bytes at the BERT-base inference shapes. For
-// (M, K, N) = (4096, 768, 768) (query, key, value, out) the kernel must
-// read x (12.6 MB fp32) and w (0.6 MB) and write out (12.6 MB): 25.8 MB,
+// (M, K, N) = (4096, 768, 768) (query, key, value, out) the call must read
+// x (12.6 MB fp32) and w (0.6 MB) and write out (12.6 MB): 25.8 MB,
 // ~7.7 us at 3.35 TB/s, against 4.8 G int8 operations, ~2.4 us at the
 // 1979 TOP/s dense int8 rate; (4096, 768, 3072) and (4096, 3072, 768)
 // (ffn_1, ffn_2) move 65.3 MB (~19.5 us) for 19.3 G operations (~9.8 us).
 //
-// What the design does about it (a simple kernel that is right first;
-// fp8_matmul.cu's quantize-once pass and TMA-fed wgmma GEMM, with the
-// helpers of hopper_gemm.cuh, are the way to make it fast): each
-// 256-thread block owns a 128 x 128 output tile and walks K
-// in steps of 64. Per step it reads the fp32 x tile (16-byte loads where K
-// and the pointers allow, else one value a thread), quantizes it in
-// registers and stores the int8 bytes in shared memory next to the w tile,
-// so x crosses device memory as fp32 once per column tile and never as an
-// int8 copy. Eight warps, 2 x 4, each own 64 x 32 of the tile and issue
-// mma.sync.m16n8k32.s32.s8.s8.s32 (A row-major from the x tile, B "col"
-// straight from w's (N, K) rows: no transpose) into int32 registers.
-// Blocks walk the column tiles of one row tile next to each other, so the
-// re-reads of x come from L2. Ragged edges are zero-filled in shared
-// memory (zero quantizes to zero and adds nothing) and masked at the
-// store. Not yet done: a pipelined (cp.async / TMA) load, wgmma,
-// quantizing each x row tile once for all its column tiles, and a
-// persistent schedule.
+// The design: two kernels behind one C entry point.
+//   1. int8_prepare_kernel quantizes x once, by the rule above, into an s8
+//      scratch (M, Kp), Kp = K rounded up to 16 so that rows lie on the
+//      16-byte strides TMA needs, zero in the pad (zero adds nothing to an
+//      exact sum, as the reference's own padding adds nothing). Where
+//      K % 16 != 0 (or w does not start on 16 bytes) it also copies w into
+//      an (N, Kp) scratch; otherwise the GEMM reads the caller's w. Each
+//      thread takes 4 values of a row at a time, four such items in
+//      flight, neighbouring threads on neighbouring items; x is read with
+//      16-byte loads where the item lies on 16 bytes, else one value at a
+//      time (x at any 4-byte offset works). It moves 5 bytes an x value.
+//   2. int8_gemm_kernel, the persistent TMA-fed wgmma GEMM of
+//      lowbit_gemm.cuh (shared with fp8_matmul.cu): one block an SM,
+//      128 x BN output tiles in turn, columns fastest; a producer thread
+//      keeps a ring of stages of 128 values of K (one 128-byte swizzle
+//      row of each operand, both K-major as s8 wgmma requires: w (N, K)
+//      needs no transpose) full with TMA loads; two consumer warpgroups
+//      issue wgmma.m64nBNk32.s32.s8.s8 into int32 registers; the epilogue
+//      (instantiated per activation and bias) stages the tile in the
+//      128-byte swizzle and stores it with TMA where N % 4 == 0, else
+//      straight from the registers. BN is 128 or 192, chosen per shape by
+//      the waves of tiles over the SMs (tile_n below). Ragged M, N and K
+//      are TMA's zero fill and the store's masking. No split-K, no
+//      atomics: a second launch gives the same bits.
 //
-// Plain C interface, bound from Python with ctypes: each launch goes onto
-// the caller's stream, allocates nothing and returns cudaGetLastError().
+// Plain C interface, bound from Python with ctypes: both launches go onto
+// the caller's stream, allocate nothing and return cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 
-#include "quant_mma.cuh"
+#include "hopper_gemm.cuh"
+#include "lowbit_gemm.cuh"
 
 namespace {
 
-using namespace quant_mma;
+using Op = lowbit_gemm::S8;
+
+constexpr int kPThreads = 256;  // prepare kernel
+constexpr int kUnroll = 4;      // items in flight a prepare thread
+constexpr int kKAlign = 16;     // Kp is a multiple of it
 
 // One fp32 value to an int8 byte by the JAX rule (see the header).
 __device__ __forceinline__ uint32_t to_s8(float v, float xs) {
@@ -64,124 +78,120 @@ __device__ __forceinline__ uint32_t to_s8(float v, float xs) {
   return static_cast<uint32_t>(min(max(q, -127), 127)) & 0xFFu;
 }
 
-__device__ __forceinline__ uint32_t quant4(float4 v, float xs) {
-  return to_s8(v.x, xs) | (to_s8(v.y, xs) << 8) | (to_s8(v.z, xs) << 16) |
-         (to_s8(v.w, xs) << 24);
-}
-
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Quantize the (kBM, kBK) x tile at (m0, k0) into shared memory.
-template <bool VEC>
-__device__ __forceinline__ void load_x(uint8_t* sa, const float* x, float xs,
-                                       int m0, int k0, int M, int K) {
-  if (VEC) {  // K % 16 == 0: a float4 is in range whole or not at all
-#pragma unroll
-    for (int p = 0; p < kBM * kBK / 4 / kThreads; ++p) {
-      const int idx = p * kThreads + threadIdx.x;
-      const int r = idx >> 4, c = (idx & 15) * 4;
-      const int gm = m0 + r, gk = k0 + c;
-      uint32_t q = 0;
-      if (gm < M && gk < K)
-        q = quant4(*reinterpret_cast<const float4*>(x + (size_t)gm * K + gk),
-                   xs);
-      *reinterpret_cast<uint32_t*>(sa + r * kLds + c) = q;
-    }
-  } else {
-#pragma unroll 4
-    for (int p = 0; p < kBM * kBK / kThreads; ++p) {
-      const int idx = p * kThreads + threadIdx.x;
-      const int r = idx >> 6, c = idx & 63;
-      const int gm = m0 + r, gk = k0 + c;
-      uint32_t q = 0;
-      if (gm < M && gk < K) q = to_s8(x[(size_t)gm * K + gk], xs);
-      sa[r * kLds + c] = static_cast<uint8_t>(q);
-    }
-  }
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    int8_matmul_kernel(const float* __restrict__ x,
-                       const uint8_t* __restrict__ w,
-                       const float* __restrict__ ws,
-                       const float* __restrict__ xs_ptr,
-                       const float* __restrict__ bias, float* __restrict__ out,
-                       int M, int N, int K, int act) {
-  __shared__ __align__(16) uint8_t sa[kBM * kLds];
-  __shared__ __align__(16) uint8_t sb[kBN * kLds];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+// xq (M, Kp) = q(x / xs) and, where wq is not null, wq (N, Kp) = w, both
+// zero in columns K..Kp-1. An item is 4 consecutive values of a row (one
+// 32-bit word of the scratch); zero loaded into the pad quantizes to 0
+// whatever xs is (0 / 0 is NaN, which converts to 0).
+__global__ void __launch_bounds__(kPThreads)
+    int8_prepare_kernel(const float* __restrict__ x,
+                        const float* __restrict__ xs_ptr,
+                        const uint8_t* __restrict__ w,
+                        uint32_t* __restrict__ xq, uint32_t* __restrict__ wq,
+                        int M, int N, int K, int Kp) {
+  const int quads = Kp / 4;
+  const long long x_items = static_cast<long long>(M) * quads;
+  const long long stride = static_cast<long long>(gridDim.x) * kPThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kPThreads + threadIdx.x;
   const float xs = *xs_ptr;
-
-  int acc[4][4][4];
+  for (long long i = first; i < x_items; i += kUnroll * stride) {
+    float4 v[kUnroll];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    load_x<VEC>(sa, x, xs, m0, k0, M, K);
-    load_w<VEC>(sb, w, n0, k0, N, K);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint8_t* p = sa + (wm + i * 16 + g) * kLds + kk + t * 4;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint8_t* p = sb + (wn + j * 8 + g) * kLds + kk + t * 4;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: c0, c1 at (g, 2t), (g, 2t + 1); c2, c3 eight rows below
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = n0 + wn + j * 8 + t * 2 + e;
-      if (col >= N) continue;
-      const float s = __fmul_rn(xs, ws[col]);
-      const float bn = bias != nullptr ? bias[col] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wm + i * 16 + g + h * 8;
-          if (row >= M) continue;
-          float o = __fmul_rn(__int2float_rn(acc[i][j][h * 2 + e]), s);
-          if (bias != nullptr) o = __fadd_rn(o, bn);
-          out[(size_t)row * N + col] = activate(o, act);
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long item = i + u * stride;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (item < x_items) {
+        const int r = static_cast<int>(item / quads);
+        const int c =
+            static_cast<int>(item - static_cast<long long>(r) * quads) * 4;
+        const float* src = x + static_cast<size_t>(r) * K + c;
+        if (c + 4 <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+          v[u] = __ldcs(reinterpret_cast<const float4*>(src));
+        } else {
+          if (c < K) v[u].x = src[0];
+          if (c + 1 < K) v[u].y = src[1];
+          if (c + 2 < K) v[u].z = src[2];
+          if (c + 3 < K) v[u].w = src[3];
         }
       }
     }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long item = i + u * stride;
+      if (item < x_items)
+        xq[item] = to_s8(v[u].x, xs) | (to_s8(v[u].y, xs) << 8) |
+                   (to_s8(v[u].z, xs) << 16) | (to_s8(v[u].w, xs) << 24);
+    }
   }
+  if (wq == nullptr) return;
+  const long long w_items = static_cast<long long>(N) * quads;
+  for (long long i = first; i < w_items; i += stride) {
+    const int r = static_cast<int>(i / quads);
+    const int c = static_cast<int>(i - static_cast<long long>(r) * quads) * 4;
+    const uint8_t* src = w + static_cast<size_t>(r) * K + c;
+    uint32_t q = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < K) q |= static_cast<uint32_t>(src[j]) << (8 * j);
+    wq[i] = q;
+  }
+}
+
+template <int BN, bool TMA_STORE>
+__global__ void __launch_bounds__(lowbit_gemm::kThreads, 1)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                     const __grid_constant__ CUtensorMap tm_b,
+                     const __grid_constant__ CUtensorMap tm_c,
+                     const float* __restrict__ ws,
+                     const float* __restrict__ xs_ptr,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int M, int N, int k_tiles, int act) {
+  extern __shared__ uint8_t smem_raw[];
+  lowbit_gemm::gemm<Op, BN, TMA_STORE>(smem_raw, &tm_a, &tm_b, &tm_c, ws,
+                                       xs_ptr, bias, out, M, N, k_tiles,
+                                       act);
+}
+
+// Columns of an output tile: the width whose tiles take the fewest
+// tile-columns in the slowest block's walk (waves x BN), the wider on a
+// tie (fewer tiles re-read x). Measured on the H100 at the BERT-base
+// shapes: 192 at (4096, 768, 768), (4096, 768, 3072) and (4096, 3072,
+// 768), 128 at (32, 768, 768), each the faster of the two there.
+int tile_n(int M, int N) {
+  const int sms = lowbit_gemm::sm_count();
+  const long long rows = (M + lowbit_gemm::kBM - 1) / lowbit_gemm::kBM;
+  long long best = -1;
+  int pick = 192;
+  for (int bn : {192, 128}) {
+    const long long tiles = rows * ((N + bn - 1) / bn);
+    const long long cost = (tiles + sms - 1) / sms * bn;
+    if (best < 0 || cost < best) {
+      best = cost;
+      pick = bn;
+    }
+  }
+  return pick;
+}
+
+template <int BN>
+cudaError_t launch_gemm(const void* xq, const void* wt, const float* ws,
+                        const float* xs, const float* bias, float* out, int M,
+                        int N, int Kp, int act, cudaStream_t s) {
+  CUtensorMap ta, tb, tc;
+  if (!lowbit_gemm::encode_maps<Op, BN>(&ta, &tb, &tc,
+                                        CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq,
+                                        wt, out, M, N, Kp))
+    return cudaErrorInvalidValue;
+  const int k_tiles = (Kp + Op::kKElems - 1) / Op::kKElems;
+  return N % 4 == 0
+             ? lowbit_gemm::launch<BN, true, int8_gemm_kernel<BN, true>>(
+                   ta, tb, tc, ws, xs, bias, out, M, N, k_tiles, act, s)
+             : lowbit_gemm::launch<BN, false, int8_gemm_kernel<BN, false>>(
+                   ta, tb, tc, ws, xs, bias, out, M, N, k_tiles, act, s);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -189,30 +199,47 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // x (M, K) fp32, w (N, K) int8, ws (N,) fp32, xs one fp32 on the device,
-// bias (N,) fp32 or null, out (M, N) fp32, all contiguous. act: 0 none,
-// 1 relu, 2 sigmoid, 3 tanh, 4 gelu (tanh form). vec = 1: K % 16 == 0 and
-// x, w 16-byte aligned.
+// bias (N,) fp32 or null, out (M, N) fp32 on 16 bytes, all contiguous; xq
+// an (M, Kp) s8 scratch on 16 bytes, Kp = K rounded up to 16 (at least
+// 16); wq an (N, Kp) s8 scratch on 16 bytes, or null where K == Kp and w
+// lies on 16 bytes (the GEMM then reads w). act: 0 none, 1 relu,
+// 2 sigmoid, 3 tanh, 4 gelu (tanh form). bn: the tile's columns, 128 or
+// 192, or 0 for the rule of tile_n.
 int int8_matmul(const void* x, const void* w, const void* ws, const void* xs,
-                const void* bias, void* out, int M, int N, int K, int act,
-                int vec, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || act < kNone || act > kGelu ||
-      (M + kBM - 1) / kBM > 65535 || (vec && K % 16 != 0))
+                const void* bias, void* out, void* xq, void* wq, int M, int N,
+                int K, int Kp, int act, int bn, void* stream) {
+  if (M <= 0 || N <= 0 || K < 0 || Kp < K || Kp < kKAlign ||
+      Kp % kKAlign != 0 || act < quant_mma::kNone ||
+      act > quant_mma::kGelu || (bn != 0 && bn != 128 && bn != 192) ||
+      !aligned16(out) || !aligned16(xq) ||
+      (wq != nullptr ? !aligned16(wq) : K != Kp || !aligned16(w)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float*>(x);
-  auto wp = static_cast<const uint8_t*>(w);
-  auto wsp = static_cast<const float*>(ws);
   auto xsp = static_cast<const float*>(xs);
+  const long long items = static_cast<long long>(M) * (Kp / 4);
+  const long long w_items =
+      wq != nullptr ? static_cast<long long>(N) * (Kp / 4) : 0;
+  const long long per_thread = (items + kUnroll - 1) / kUnroll;
+  const long long need =
+      ((per_thread > w_items ? per_thread : w_items) + kPThreads - 1) /
+      kPThreads;
+  const long long wave = static_cast<long long>(lowbit_gemm::sm_count()) * 8;
+  int8_prepare_kernel<<<static_cast<int>(need < wave ? need : wave),
+                        kPThreads, 0, s>>>(
+      static_cast<const float*>(x), xsp, static_cast<const uint8_t*>(w),
+      static_cast<uint32_t*>(xq), static_cast<uint32_t*>(wq), M, N, K, Kp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const void* wt = wq != nullptr ? wq : w;
+  auto wsp = static_cast<const float*>(ws);
   auto bp = static_cast<const float*>(bias);
-  auto op = static_cast<float*>(out);
-  if (vec)
-    int8_matmul_kernel<true>
-        <<<grid, kThreads, 0, s>>>(xp, wp, wsp, xsp, bp, op, M, N, K, act);
-  else
-    int8_matmul_kernel<false>
-        <<<grid, kThreads, 0, s>>>(xp, wp, wsp, xsp, bp, op, M, N, K, act);
-  return static_cast<int>(cudaGetLastError());
+  auto outp = static_cast<float*>(out);
+  if (bn == 0) bn = tile_n(M, N);
+  err = bn == 192
+            ? launch_gemm<192>(xq, wt, wsp, xsp, bp, outp, M, N, Kp, act, s)
+            : launch_gemm<128>(xq, wt, wsp, xsp, bp, outp, M, N, Kp, act, s);
+  return static_cast<int>(err);
 }
 
 const char* int8_matmul_error_string(int code) {

@@ -206,8 +206,19 @@ def gelu(x):
 
 
 def embedding(ids, weight):
-    """Row gather ``weight[ids]`` (reference: indexing_op.cc Embedding)."""
-    return F.embedding(ids.long(), weight)
+    """Row gather ``weight[ids]`` (reference: indexing_op.cc Embedding), with
+    the reference's ``jnp.take`` rule for ids out of range: an id in
+    [-V, 0) wraps from the end, any other out-of-range id gives a row of
+    NaN whose gradient reaches no weight row. Float ids truncate. The rule
+    is decided from the ids' values before the gather (a clamped id is
+    gathered and its row overwritten), so no index check fires on the
+    device."""
+    v = weight.shape[0]
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + v, idx)
+    bad = (idx < 0) | (idx >= v)
+    out = F.embedding(idx.clamp(0, max(v - 1, 0)), weight)
+    return out.masked_fill(bad.unsqueeze(-1), float("nan"))
 
 
 def quantize_v2(data, min_calib_range=None, max_calib_range=None,

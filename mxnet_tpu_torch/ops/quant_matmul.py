@@ -16,14 +16,19 @@ CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The TPU kernels' block table (``autotune``) is not carried over:
 the kernels take any M, N and K.
 
-The fp8 kernel runs in two passes behind one call. A prepare pass
-quantizes x once and widens the fp8 values of x and w to float16 (exact),
-each padded with zero columns to K rounded up to 64, as the reference pads
-w to 128 (:func:`fp8_operands_plain` is that pass in plain PyTorch); then a
-persistent GEMM fed by TMA sums their products in the f16 ``wgmma`` with
-fp32 accumulators and applies the epilogue. The card's fp8 ``wgmma`` is
-not used: it sums too coarsely for the kernel's tolerance (``csrc/
-fp8_matmul.cu``). The wrapper allocates the two float16 scratch operands.
+Both kernels run in two passes behind one call: a prepare pass that
+quantizes x once into a scratch operand, then one persistent GEMM fed by
+TMA (``csrc/lowbit_gemm.cuh``, shared by the two) that sums the products
+in ``wgmma`` and applies the epilogue. fp8: x's and w's fp8 values are
+widened to float16 (exact), padded with zero columns to K rounded up to 64,
+as the reference pads w to 128 (:func:`fp8_operands_plain`), and summed in
+the f16 ``wgmma`` with fp32 accumulators; the card's fp8 ``wgmma`` sums too
+coarsely for the kernel's tolerance (``csrc/fp8_matmul.cu``). int8: x's
+int8 values are padded with zero columns to K rounded up to 16 (w too
+where K is not a multiple of 16; :func:`int8_operands_plain`) and summed
+exactly in the s8 ``wgmma`` with int32 accumulators, so the kernel agrees
+with its plain version bit for bit up to the activation. The wrappers
+allocate the scratch operands.
 
 The casts are the JAX package's. int8 (:func:`quantize_int8`):
 ``clip(round(v), -127, 127)`` with round half to even, NaN -> 0 and
@@ -46,7 +51,8 @@ from ..numpy_extension import _ACTS
 
 __all__ = ["FP8_FORMATS", "fp8_capable", "quantize", "fp8_matmul",
            "fp8_matmul_plain", "fp8_operands_plain", "quantize_int8",
-           "quantized_matmul", "quantized_matmul_plain"]
+           "quantized_matmul", "quantized_matmul_plain",
+           "int8_operands_plain"]
 
 _INT8_MAX = 127.0
 #: fp8 storage formats: name -> (dtype, absmax of the format)
@@ -284,15 +290,43 @@ def quantized_matmul_plain(x, w_q, w_scale, x_scale, bias=None, act=None):
     _validate_act(act)
     xs = _scale_tensor(x_scale, x.device)
     xq = quantize_int8(x, xs)
-    acc = (xq.double() @ w_q.double().t()).float()
-    out = acc * (xs * w_scale.float())
+    acc = xq.double() @ w_q.double().t()
+    return _int8_epilogue(acc, xs, w_scale, bias, act)
+
+
+def _int8_epilogue(acc, xs, w_scale, bias, act):
+    """``act(float(acc) * (xs * w_scale) + bias)`` for an exact product
+    ``acc`` (integers, any float dtype) and ``xs`` a one-element tensor:
+    the kernel's epilogue, each operation rounded on its own."""
+    out = acc.float() * (xs * w_scale.float())
     if bias is not None:
         out = out + bias.float()
     return _act(out, act)
 
 
+#: the int8 kernel's operands have rows of K rounded up to this many
+#: values, so that every row starts on TMA's 16-byte stride
+_INT8_K_ALIGN = 16
+
+
+def int8_operands_plain(x, w_q, x_scale):
+    """The operands the int8 kernel's GEMM reads, in plain PyTorch (what its
+    prepare pass writes): :func:`quantize_int8` of ``x / x_scale`` and
+    ``w_q``, each padded with zero columns to ``Kp``, K rounded up to 16
+    (at least 16), so every row starts on 16 bytes. Zero adds nothing to
+    the exact sum, as the reference's own padding (``_pad2``) adds
+    nothing. Returns ``(xq (M, Kp), wq (N, Kp))``, both int8."""
+    m, k = x.shape
+    kp = _round_up(max(k, 1), _INT8_K_ALIGN)
+    xq = x.new_zeros((m, kp), dtype=torch.int8)
+    xq[:, :k] = quantize_int8(x, x_scale)
+    wq = w_q.new_zeros((w_q.shape[0], kp))
+    wq[:, :k] = w_q
+    return xq, wq
+
+
 def _bind_int8(lib):
-    lib.int8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    lib.int8_matmul.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.int8_matmul.restype = ctypes.c_int
     lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
@@ -300,7 +334,7 @@ def _bind_int8(lib):
 
 
 def quantized_matmul(x, w_q, w_scale, x_scale, bias=None, act=None):
-    """``act(dequant(int8(x / x_scale) @ w_q.T) + bias)`` in one pass.
+    """``act(dequant(int8(x / x_scale) @ w_q.T) + bias)`` in one call.
 
     x: (M, K) fp32; w_q: (N, K) int8 (per output channel quantized);
     w_scale: (N,) fp32; x_scale: scalar (calibrated threshold / 127; a
@@ -309,9 +343,14 @@ def quantized_matmul(x, w_q, w_scale, x_scale, bias=None, act=None):
     Returns (M, N) fp32.
 
     CPU tensors go to :func:`quantized_matmul_plain`; CUDA tensors launch
-    the kernel of ``csrc/int8_matmul.cu`` (built at first use) on a card of
-    compute capability 9.0 or raise, and count one launch in
-    ``quantized_matmul.launches``."""
+    the kernels of ``csrc/int8_matmul.cu`` (built at first use) on a card
+    of compute capability 9.0 or raise, and count one launch in
+    ``quantized_matmul.launches``. The wrapper allocates the s8 scratch of
+    x (M, Kp), and of w (N, Kp) where K % 16 != 0 or w does not start on
+    16 bytes (:func:`int8_operands_plain` is what they hold). The GEMM's
+    output tile is 128 x 128 or 128 x 192, chosen by the kernel from the
+    shape; ``quantized_matmul.tile_n`` = 128 or 192 forces one (0, the
+    default, leaves the choice to the kernel), for measurement."""
     _validate_act(act)
     _check("quantized_matmul", x, w_q, w_scale, bias, (torch.int8,))
     if x.device.type == "cpu":
@@ -323,16 +362,30 @@ def quantized_matmul(x, w_q, w_scale, x_scale, bias=None, act=None):
     if m == 0 or n == 0:
         return out
     xs = _scale_tensor(x_scale, x.device)
-    vec = int(k % 16 == 0 and x.data_ptr() % 16 == 0
-              and w_q.data_ptr() % 16 == 0)
-    lib = _native.load("int8_matmul", _bind_int8)
-    _launch(lib, "int8_matmul", (
-        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        _ACT_CODES[act], vec,
-        torch.cuda.current_stream(x.device).cuda_stream), f"M={m} N={n} K={k}")
+    kp = _round_up(max(k, 1), _INT8_K_ALIGN)
+    xq = torch.empty((m, kp), dtype=torch.int8, device=x.device)
+    wq = (None if kp == k and w_q.data_ptr() % 16 == 0 else
+          torch.empty((n, kp), dtype=torch.int8, device=x.device))
+    _int8_launch(x, w_q, w_scale, xs, bias, act, out, xq, wq)
     quantized_matmul.launches += 1
     return out
 
 
+def _int8_launch(x, w_q, w_scale, xs, bias, act, out, xq, wq):
+    """Launch the int8 kernels (prepare pass, then GEMM) into ``out`` with
+    the s8 scratch ``xq`` (M, Kp) and ``wq`` (N, Kp) or None (the GEMM then
+    reads ``w_q``); ``xs``: x_scale as a one-element tensor on the card."""
+    m, k = x.shape
+    n = w_q.shape[0]
+    lib = _native.load("int8_matmul", _bind_int8)
+    _launch(lib, "int8_matmul", (
+        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), xs.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), None if wq is None else wq.data_ptr(), m, n, k,
+        xq.shape[1], _ACT_CODES[act], quantized_matmul.tile_n,
+        torch.cuda.current_stream(x.device).cuda_stream),
+        f"M={m} N={n} K={k}")
+
+
 quantized_matmul.launches = 0
+quantized_matmul.tile_n = 0

@@ -13,7 +13,10 @@ The update rules are the reference's arithmetic (not ``torch.optim``'s):
   (eps not bias-corrected);
 - ``AdamW`` decouples the decay: ``w -= lr * (mhat / (sqrt(vhat) + eps)
   + wd * w)``;
-- ``clip_gradient`` clips elementwise after rescaling;
+- ``clip_gradient`` clips elementwise after rescaling, only where it is a
+  number above 0 (None, 0, a negative value and NaN mean no clipping, as
+  the reference's ``clip == clip and clip > 0`` over ``clip_gradient or
+  -1.0``);
 - ``t`` is the parameter's own update count (the optimizer's
   ``num_update`` for a functional step that calls ``_update_impl``).
 
@@ -131,10 +134,12 @@ class Optimizer:
 
     # -- update --------------------------------------------------------------
     def _prep_grad(self, g):
-        """``g * rescale_grad``, clipped elementwise: a new tensor."""
+        """``g * rescale_grad``, clipped elementwise where ``clip_gradient``
+        is above 0: a new tensor."""
         g = g * self.rescale_grad
-        if self.clip_gradient is not None:
-            g.clamp_(-self.clip_gradient, self.clip_gradient)
+        c = self.clip_gradient
+        if c is not None and c == c and c > 0:
+            g.clamp_(-c, c)
         return g
 
     @torch.no_grad()

@@ -884,6 +884,67 @@ def test_int8_kernel_matches_plain_version(cuda_device, m, k, n, act, bias,
     int8_check(out, ref, act)
 
 
+@pytest.mark.parametrize("tile_n", [0, 128, 192])
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 768), (200, 768, 300)])
+def test_int8_kernel_repeats_bit_for_bit(cuda_device, m, k, n, tile_n):
+    """A second launch gives the same bits (no split-K, no atomics), at
+    the kernel's own tile choice and at each tile width."""
+    x, wq, ws, xs, b = _int8_inputs(m, k, n, cuda_device, seed=m + n)
+    tqm.quantized_matmul.tile_n = tile_n
+    try:
+        out = tqm.quantized_matmul(x, wq, ws, xs, bias=b)
+        again = tqm.quantized_matmul(x, wq, ws, xs, bias=b)
+    finally:
+        tqm.quantized_matmul.tile_n = 0
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    int8_check(out, tqm.quantized_matmul_plain(x, wq, ws, xs, bias=b), None)
+
+
+@pytest.mark.parametrize("tile_n", [128, 192])
+@pytest.mark.parametrize("n", [190, 192])
+def test_int8_kernel_both_epilogues_at_a_ragged_m(cuda_device, n, tile_n):
+    """N % 4 != 0 takes the epilogue that stores straight from the
+    registers, N % 4 == 0 the TMA store; M = 129 cuts a row tile."""
+    x, wq, ws, xs, b = _int8_inputs(129, 784, n, cuda_device, seed=n)
+    tqm.quantized_matmul.tile_n = tile_n
+    try:
+        out = tqm.quantized_matmul(x, wq, ws, xs, bias=b, act="relu")
+    finally:
+        tqm.quantized_matmul.tile_n = 0
+    torch.cuda.synchronize()
+    int8_check(out, tqm.quantized_matmul_plain(x, wq, ws, xs, bias=b,
+                                               act="relu"), "relu")
+
+
+@pytest.mark.parametrize("m,k,n,offset", [(64, 768, 768, False),
+                                          (37, 200, 200, True)])
+def test_int8_kernel_quantizes_x_like_int8_operands_plain(cuda_device, m, k,
+                                                          n, offset):
+    """The prepare pass's s8 scratch, probed through an identity weight
+    (acc = the quantized value, times x_scale * w_scale = 1 exactly, with
+    x_scale a power of two), equals int8_operands_plain bit for bit; and
+    the scratch itself (x's, and w's where K % 16 != 0), pad included, read
+    back from a launch with the scratch handed in."""
+    x, _, _, xs, _ = _int8_inputs(m, k, n, cuda_device, seed=k,
+                                  offset=offset)
+    eye = torch.eye(k, device=cuda_device).to(torch.int8)
+    ones = torch.full((k,), 1.0 / xs, device=cuda_device)
+    xq, wq = tqm.int8_operands_plain(x, eye, xs)
+    probe = tqm.quantized_matmul(x, eye, ones, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(probe, xq[:, :k].float())
+    got_x = torch.full_like(xq, 99)
+    got_w = None if k % 16 == 0 else torch.full_like(wq, 99)
+    out = torch.empty((m, k), device=cuda_device)
+    tqm._int8_launch(x, eye, ones, tqm._scale_tensor(xs, cuda_device), None,
+                     None, out, got_x, got_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got_x, xq)
+    assert got_w is None or torch.equal(got_w, wq)
+    assert torch.equal(out, probe)
+
+
 @pytest.mark.parametrize("bad", ["float16", "w_float32", "cpu_mix",
                                  "contiguity", "ws_shape", "act"])
 def test_int8_wrapper_raises(cuda_device, bad):

@@ -236,6 +236,15 @@ RULES = {
     "adam": {"learning_rate": 0.01, "wd": 0.01, "clip_gradient": 0.5,
              "rescale_grad": 0.25},
     "adamw": {"learning_rate": 0.01, "wd": 0.1, "rescale_grad": 2.0},
+    # a clip_gradient of 0 or below means no clipping, as in the reference
+    "sgd_momentum_clip0": {"learning_rate": 0.1, "momentum": 0.9,
+                           "clip_gradient": 0.0},
+    "sgd_momentum_clipneg": {"learning_rate": 0.1, "momentum": 0.9,
+                             "clip_gradient": -1.0},
+    "adam_clip0": {"learning_rate": 0.1, "clip_gradient": 0.0},
+    "adam_clipneg": {"learning_rate": 0.1, "clip_gradient": -1.0},
+    "adamw_clip0": {"learning_rate": 0.1, "clip_gradient": 0.0},
+    "adamw_clipneg": {"learning_rate": 0.1, "clip_gradient": -1.0},
 }
 
 
@@ -264,6 +273,49 @@ def test_update_rules_match_jax(case):
     for j, t in zip(jw, tw):
         onp.testing.assert_allclose(t.numpy(), j.asnumpy(), atol=1e-6,
                                     rtol=0)
+
+
+@pytest.mark.parametrize("clip", [None, 0.0, -1.0, float("nan"), 1.0])
+@pytest.mark.parametrize("name,kw", [("sgd", {"momentum": 0.9}),
+                                     ("adam", {}), ("adamw", {})])
+def test_clip_gradient_at_or_below_zero_does_not_clip_like_jax(name, kw,
+                                                               clip):
+    """One update of w = [0.5, -0.25, 1.0] by g = [0.3, -2.0, 0.01] at lr
+    0.1: the reference clips only where ``clip == clip and clip > 0``, so
+    0, -1 and NaN leave g as it is (clip 1.0 clips the -2.0)."""
+    w = onp.array([0.5, -0.25, 1.0], "float32")
+    g = onp.array([0.3, -2.0, 0.01], "float32")
+    jo = jopt.create(name, learning_rate=0.1, clip_gradient=clip, **kw)
+    to = topt.create(name, learning_rate=0.1, clip_gradient=clip, **kw)
+    jw, tw = mx.np.array(w), torch.from_numpy(w.copy())
+    jo.update(0, jw, mx.np.array(g), jo.create_state(0, jw))
+    to.update(0, tw, torch.from_numpy(g.copy()), to.create_state(0, tw))
+    onp.testing.assert_allclose(tw.numpy(), jw.asnumpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "float32"])
+def test_embedding_out_of_range_ids_match_jax(dtype):
+    """``npx.embedding`` on weight ``arange(12).reshape(3, 4)`` with ids
+    -4, -3, -1, 0, 2 and 3: ids in [-V, 0) wrap, the others out of range
+    give NaN rows, as the reference's ``jnp.take``; values exactly, NaN
+    positions equal, and the weight gradient (which reaches only valid
+    rows) exactly."""
+    w = onp.arange(12, dtype="float32").reshape(3, 4)
+    ids = onp.array([[-4, -3, -1], [0, 2, 3]], dtype)
+    ct = onp.random.RandomState(14).randn(2, 3, 4).astype("float32")
+    jw = mx.np.array(w)
+    jw.attach_grad()
+    with mx.autograd.record():
+        jout = mx.npx.embedding(mx.np.array(ids), jw)
+    jout.backward(mx.np.array(ct))
+    tw = torch.from_numpy(w.copy()).requires_grad_()
+    tout = tmx.npx.embedding(torch.from_numpy(ids), tw)
+    tout.backward(torch.from_numpy(ct))
+    want, got = jout.asnumpy(), tout.detach().numpy()
+    assert onp.array_equal(onp.isnan(got), onp.isnan(want))
+    assert onp.isnan(want).any() and not onp.isnan(want).all()
+    onp.testing.assert_array_equal(got, want)
+    onp.testing.assert_array_equal(tw.grad.numpy(), jw.grad.asnumpy())
 
 
 def test_create_unknown_optimizer_raises():
