@@ -190,193 +190,6 @@ cudaError_t launch_gemm(const void* xq, const void* wt, const float* ws,
                    ta, tb, tc, ws, xs, bias, out, M, N, k_tiles, act, s);
 }
 
-// -- experimental: x quantized inside the GEMM ----------------------------------
-//
-// int8_fused_gemm_kernel: the GEMM reads fp32 x tiles by TMA (128 rows x
-// 128 values, four 128-byte-swizzled boxes of 32 values) into a ring of
-// its own; warps 1-3 of the producer warpgroup quantize each into the
-// swizzled s8 A stage (the prepare pass's rule, rounding by the magic
-// constant instead of the conversion instruction: bit for bit the same on
-// values clamped to +-127), and the consumers run the s8 wgmma on it. No
-// s8 scratch, no prepare launch; each x row tile is quantized once per
-// column tile. Tile 128 x 192, direct-store epilogue (the fp32 ring leaves
-// no room for the staged tile).
-namespace fused {
-
-constexpr int kBN = 192;
-constexpr int kStages = 2;
-constexpr int kXBytes = lowbit_gemm::kBM * 128 * 4;  // fp32 x tile
-constexpr int kABytes = lowbit_gemm::kBM * 128;
-constexpr int kBBytes = kBN * 128;
-constexpr int kSBytes = 2 * 2 * kBN * 4;
-constexpr int kBytes = 1024 + kStages * (kXBytes + kABytes + kBBytes) +
-                       kSBytes + 5 * kStages * 8;
-
-__device__ __forceinline__ uint32_t q8(float v, float xs) {
-  float t = __fdiv_rn(v, xs);
-  if (t != t) return 0u;
-  t = fminf(fmaxf(t, -127.f), 127.f);
-  return __float_as_uint(__fadd_rn(t, 12582912.f)) & 0xFFu;
-}
-
-}  // namespace fused
-
-__global__ void __launch_bounds__(lowbit_gemm::kThreads, 1)
-    int8_fused_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
-                           const __grid_constant__ CUtensorMap tm_b,
-                           const float* __restrict__ ws,
-                           const float* __restrict__ xs_ptr,
-                           const float* __restrict__ bias,
-                           float* __restrict__ out, int M, int N,
-                           int k_tiles, int act) {
-  using namespace hopper;
-  using namespace fused;
-  constexpr int BN = kBN;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* const smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* const sx = smem;
-  uint8_t* const sa = sx + kStages * kXBytes;
-  uint8_t* const sb = sa + kStages * kABytes;
-  float* const scales = reinterpret_cast<float*>(sb + kStages * kBBytes);
-  uint64_t* const x_full =
-      reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(scales) +
-                                  kSBytes);
-  uint64_t* const x_empty = x_full + kStages;
-  uint64_t* const b_full = x_empty + kStages;
-  uint64_t* const a_ready = b_full + kStages;
-  uint64_t* const ab_empty = a_ready + kStages;
-
-  const int n_tiles = (N + BN - 1) / BN;
-  const int tiles = ((M + lowbit_gemm::kBM - 1) / lowbit_gemm::kBM) * n_tiles;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&x_full[s], 1);
-      mbar_init(&x_empty[s], 3);  // lane 0 of each converter warp
-      mbar_init(&b_full[s], 1);
-      mbar_init(&a_ready[s], 3);
-      mbar_init(&ab_empty[s], 8);  // lane 0 of each consumer warp
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  const float xs = *xs_ptr;
-  if (wg == 0) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    int s = 0;
-    uint32_t ph = 0;
-    if (threadIdx.x == 0) {
-      // producer: the fp32 x ring and the w ring
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * lowbit_gemm::kBM;
-        const int n0 = (t % n_tiles) * BN;
-        for (int k = 0; k < k_tiles; ++k) {
-          mbar_wait(&x_empty[s], ph ^ 1);
-          mbar_expect_tx(&x_full[s], kXBytes);
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            tma_load_2d(sx + s * kXBytes + b * (kXBytes / 4), &tm_x,
-                        &x_full[s], k * 128 + b * 32, m0);
-          mbar_wait(&ab_empty[s], ph ^ 1);
-          mbar_expect_tx(&b_full[s], kBBytes);
-          tma_load_2d(sb + s * kBBytes, &tm_b, &b_full[s], k * 128, n0);
-          if (++s == kStages) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
-      }
-    } else if (warp >= 1) {
-      // converters: 1024 chunks of 16 values a stage, consecutive threads
-      // on consecutive rows of one chunk column
-      const int ct = threadIdx.x - 32;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        for (int k = 0; k < k_tiles; ++k) {
-          mbar_wait(&x_full[s], ph);
-          mbar_wait(&ab_empty[s], ph ^ 1);
-          const uint8_t* xt = sx + s * kXBytes;
-          uint8_t* at = sa + s * kABytes;
-          for (int id = ct; id < 1024; id += 96) {
-            const int c = id >> 7, r = id & 127;
-            const uint8_t* row = xt + (c >> 1) * (kXBytes / 4) + r * 128;
-            uint32_t w[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float4 v = *reinterpret_cast<const float4*>(
-                  row + ((((c & 1) * 4 + i) ^ (r & 7)) << 4));
-              w[i] = q8(v.x, xs) | (q8(v.y, xs) << 8) | (q8(v.z, xs) << 16) |
-                     (q8(v.w, xs) << 24);
-            }
-            *reinterpret_cast<uint4*>(at + r * 128 + ((c ^ (r & 7)) << 4)) =
-                make_uint4(w[0], w[1], w[2], w[3]);
-          }
-          fence_async_shared();
-          __syncwarp();
-          if (lane == 0) {
-            mbar_arrive(&x_empty[s]);
-            mbar_arrive(&a_ready[s]);
-          }
-          if (++s == kStages) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
-      }
-    }
-  } else {
-    const int c = wg - 1;
-    const int tid = threadIdx.x - 128 * wg;
-    const int warp = tid >> 5, lane = tid & 31;
-    int s = 0;
-    uint32_t ph = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t / n_tiles) * lowbit_gemm::kBM;
-      const int n0 = (t % n_tiles) * BN;
-      lowbit_gemm::ColScales<BN> cs;
-      cs.sm = scales + c * 2 * BN;
-      cs.load(ws, bias, xs, n0, N, tid, lane);
-      int acc[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-      int prev = -1;
-      for (int k = 0; k < k_tiles; ++k) {
-        mbar_wait(&b_full[s], ph);
-        mbar_wait(&a_ready[s], ph);
-        const uint64_t da = desc_sw128(sa + s * kABytes + c * 64 * 128);
-        const uint64_t db = desc_sw128(sb + s * kBBytes);
-        wgmma_fence();
-#pragma unroll
-        for (int kb = 0; kb < 4; ++kb)
-          lowbit_gemm::mma(Op{}, acc, da + 2 * kb, db + 2 * kb);
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (prev >= 0 && lane == 0) mbar_arrive(&ab_empty[prev]);
-        prev = s;
-        if (++s == kStages) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) lowbit_gemm::acc_fence(acc[i]);
-      if (prev >= 0 && lane == 0) mbar_arrive(&ab_empty[prev]);
-      cs.publish(tid);
-      named_barrier(1 + c, 128);
-      if (bias != nullptr)
-        lowbit_gemm::epilogue<false, quant_mma::kNone, true, BN>(
-            acc, cs, nullptr, out, M, N, m0 + c * 64, n0, warp, lane);
-      else
-        lowbit_gemm::epilogue<false, quant_mma::kNone, false, BN>(
-            acc, cs, nullptr, out, M, N, m0 + c * 64, n0, warp, lane);
-      named_barrier(1 + c, 128);
-    }
-  }
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -427,36 +240,6 @@ int int8_matmul(const void* x, const void* w, const void* ws, const void* xs,
             ? launch_gemm<192>(xq, wt, wsp, xsp, bp, outp, M, N, Kp, act, s)
             : launch_gemm<128>(xq, wt, wsp, xsp, bp, outp, M, N, Kp, act, s);
   return static_cast<int>(err);
-}
-
-// Experimental: x (M, K) fp32 on 16 bytes with K % 16 == 0, w (N, K) int8
-// on 16 bytes; no activation. The GEMM quantizes x itself.
-int int8_matmul_fused(const void* x, const void* w, const void* ws,
-                      const void* xs, const void* bias, void* out, int M,
-                      int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || !aligned16(x) ||
-      !aligned16(w))
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tx, tb;
-  if (!hopper::encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, M, K,
-                         static_cast<uint64_t>(K) * 4, lowbit_gemm::kBM, 32,
-                         CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hopper::encode_2d(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, K,
-                         fused::kBN, 128, CU_TENSOR_MAP_SWIZZLE_128B))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      int8_fused_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      fused::kBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int tiles = ((M + lowbit_gemm::kBM - 1) / lowbit_gemm::kBM) *
-                    ((N + fused::kBN - 1) / fused::kBN);
-  const int sms = lowbit_gemm::sm_count();
-  int8_fused_gemm_kernel<<<tiles < sms ? tiles : sms, lowbit_gemm::kThreads,
-                           fused::kBytes, static_cast<cudaStream_t>(stream)>>>(
-      tx, tb, static_cast<const float*>(ws), static_cast<const float*>(xs),
-      static_cast<const float*>(bias), static_cast<float*>(out), M, N,
-      (K + 127) / 128, 0);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* int8_matmul_error_string(int code) {

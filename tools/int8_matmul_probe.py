@@ -105,52 +105,6 @@ def times(qm, dev, gen):
               + json.dumps(row), flush=True)
 
 
-def fused_variant(qm, dev, gen):
-    """The experimental GEMM that quantizes x itself (int8_matmul_fused):
-    against the plain version, then its device ms beside the two-kernel
-    call's at the three BERT-base shapes (bias, no activation)."""
-    import ctypes
-    from mxnet_tpu_torch import _native
-    lib = _native.load("int8_matmul", qm._bind_int8)
-    lib.int8_matmul_fused.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.int8_matmul_fused.restype = ctypes.c_int
-    for (m, k, n) in list(cs.INT8_BERT_SHAPES)[:3]:
-        sets = []
-        for _ in range(3):
-            x, wq, ws, xs, b = cs.int8_inputs(qm, dev, gen, m, k, n)
-            sets.append((x, wq, ws, qm._scale_tensor(xs, dev), b))
-        turn = itertools.cycle(sets)
-
-        def fused():
-            x, wq, ws, xs, b = next(turn)
-            out = torch.empty((m, n), device=dev)
-            rc = lib.int8_matmul_fused(
-                x.data_ptr(), wq.data_ptr(), ws.data_ptr(), xs.data_ptr(),
-                b.data_ptr(), out.data_ptr(), m, n, k,
-                torch.cuda.current_stream().cuda_stream)
-            assert rc == 0, rc
-            return out
-
-        def kernel():
-            x, wq, ws, xs, b = next(turn)
-            return qm.quantized_matmul(x, wq, ws, xs, bias=b)
-
-        x, wq, ws, xs, b = sets[0]
-        next(turn)
-        got = fused()
-        ref = qm.quantized_matmul_plain(x, wq, ws, xs, bias=b)
-        torch.cuda.synchronize()
-        same = torch.equal(got, ref)
-        row = {"bit_for_bit": same,
-               "fused_ms": cs.device_ms(fused, 30),
-               "two_kernel_ms": cs.device_ms(kernel, 30)}
-        row["fused_again_ms"] = cs.device_ms(fused, 30)
-        row["two_kernel_again_ms"] = cs.device_ms(kernel, 30)
-        print(f"fused variant (M, K, N) = ({m}, {k}, {n}): "
-              + json.dumps(row), flush=True)
-
-
 def main():
     from mxnet_tpu_torch import _native
     from mxnet_tpu_torch.ops import quant_matmul as qm
@@ -168,8 +122,6 @@ def main():
     ok = check_scratch(qm, dev, gen)
     print(json.dumps(cs.phase_int8_vs_plain(dev)))
     print(json.dumps(cs.phase_fp8_vs_plain(dev)))
-    if "--fused" in sys.argv:
-        fused_variant(qm, dev, gen)
     if "--times" in sys.argv:
         times(qm, dev, gen)
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
