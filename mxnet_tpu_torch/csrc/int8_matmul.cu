@@ -51,6 +51,21 @@
 //      are TMA's zero fill and the store's masking. No split-K, no
 //      atomics: a second launch gives the same bits.
 //
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (device ms, torch.profiler,
+// chip_smoke.py phase 12, bias): 0.0172 / 0.0397 / 0.0410 ms at (4096,
+// 768, 768) / (4096, 768, 3072) / (4096, 3072, 768), 45-49% of the bound
+// (281-487 TOP/s), of which the prepare pass 0.0076 / 0.0088 / 0.0223-
+// 0.0226 (~2.7 TB/s at the third shape); 0.0098 at the pooler's (32, 768,
+// 768) with tanh. The one-stage mma.sync kernel this replaces took 0.089 /
+// 0.32 / 0.30 / 0.029, and quantize_int8 -> torch._int_mm -> epilogue
+// takes 0.083 / 0.19 / 0.28 / 0.023. Tiles of 128 x 192 were faster than
+// 128 x 128 at the three large shapes (0.0176 / 0.0398 / 0.0421 against
+// 0.0202 / 0.0412 / 0.0478), 128 x 128 at the pooler's (0.0098 against
+// 0.0110). Quantizing x inside the GEMM instead (fp32 tiles by TMA,
+// converted by three producer warps into the s8 stage) was bit for bit
+// but 3.3-5.4x slower: each x row tile is then quantized once per column
+// tile, and the GEMM becomes conversion-bound.
+//
 // Plain C interface, bound from Python with ctypes: both launches go onto
 // the caller's stream, allocate nothing and return cudaGetLastError().
 

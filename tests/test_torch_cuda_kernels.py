@@ -37,7 +37,9 @@ difference upstream can move a value across an fp8 rounding boundary
 (see tests/test_torch_fp8.py). int8 matmul kernel vs its plain version:
 bit for bit without activation and with relu (both sum exactly and round
 the epilogue alike), atol = rtol = 1e-6 for sigmoid, tanh and gelu (the
-card's expf/tanhf against torch's). A small quantized BERT on the card:
+card's expf/tanhf against torch's), at both GEMM tile widths, with a
+second launch equal bit for bit and the prepare pass's s8 scratch equal
+to ``int8_operands_plain``. A small quantized BERT on the card:
 the kernel route's sequence output equals the plain chain's on the card
 bit for bit; against the CPU, thresholds rtol 1e-5 and the outputs within
 1% of their largest |value| (an ulp of the fp32 ops between the layers can
