@@ -18,9 +18,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (IGMMA) in the four int8 GEMM kernels (128 x 128 and 128 x 192 tiles,
    each with both epilogues) and of HMMA in kernel 8's four kernels with
    their spill bytes: the run fails if a flash, fp8 GEMM, int8 GEMM or
-   kernel-8 product kernel (dgrad, wgrad) has none, or if an fp8 matmul,
-   int8 matmul or kernel-8 kernel spills. Every phase prints its wall
-   time.
+   kernel-8 product kernel (dgrad, wgrad) has none, or if an ln_residual
+   instantiation, an fp8 matmul, int8 matmul or kernel-8 kernel spills.
+   Every phase prints its wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at
    b*h 12, d 64, seq 16 / 200 (ragged) / 512 / 1024 and seq_q != seq_k
    (200 x 712, non-causal), causal and not, and at d 16, 32 and 128 (seq
@@ -35,14 +35,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    d 64, causal), fp32 and bf16, where a second launch of each kernel
    must agree with the first bit for bit.
 2c. The ln_residual forward and backward kernels against their plain
-   versions, with a random cotangent and an explicit keep mask (in x's
-   dtype, bool or uint8): rows 7 / 600 / 4096 x D 128 / 200 / 768 / 1024,
-   plus D 199 and 1999 (no 16-byte path), 2000 and 8192 (a block per row),
-   p 0 and 0.1, fp32 and bf16, one row of zero variance, and rows offset
-   by 100. Tolerances:
+   versions, with a random cotangent and an explicit keep mask: rows 7 /
+   600 / 4096 x D 128 / 200 / 768 / 1024, plus D 199 and 1999 (no 16-byte
+   path), 2000 and 8192 (a block per row), p 0 and 0.1, rows of fp32,
+   bf16 and fp16, the mask in turn in x's dtype, bool, uint8, fp32, bf16
+   and fp16; the dtypes apart (``LN_MIXED``: bf16 rows with fp32
+   gamma/beta, fp32 x with bf16 h and the reverse, an fp32 mask with bf16
+   rows, fp16 rows with fp32 gamma, fp16 gamma with fp32 rows, fp16 x with
+   bf16 h) at 600 x 768 and 131 x 200; one row of zero variance; rows
+   offset by 100; and, run twice and equal bit for bit (out, mean, rstd,
+   dx, dh, dgamma, dbeta), ragged n of 1, 131, 133 and 4097, BERT's 4096,
+   65536 rows (many waves of the backward's blocks), D 8192 and D 1999
+   (``LN_REPEAT``, fp32, bf16 and fp16). Tolerances, by each result's
+   dtype:
    fp32 atol = rtol = 1e-5 for out, mean, rstd, dx and dh (fp32 sums in
    another order than torch's; the plain version is the same arithmetic);
-   dgamma/dbeta atol 1e-5 of their largest |value| (sums over up to 4096
+   dgamma/dbeta atol 1e-5 of their largest |value| (sums over up to 65536
    rows in another order); the zero-variance row's dx/dh likewise 1e-5 of
    the largest |value| (its rstd = 1/sqrt(eps) ~ 316 scales the
    summation-order error of mean(dxhat)); rows offset by 100 (a
@@ -50,7 +58,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    out, dx and dh (the fp32 sum of values ~100 in another order moves the
    mean by up to ~2e-5); bf16 rtol 2^-7 (one bf16 ulp of
    the output) plus atol 2^-10 of the largest |value| (a value on a
-   rounding boundary may round the other way).
+   rounding boundary may round the other way); fp16 likewise one fp16
+   ulp, rtol 2^-10, plus atol 2^-13 of the largest |value|.
 2d. The fp8 matmul kernels (prepare pass and GEMM) against their plain
    version (the JAX cast rule, an fp32 matmul of the fp8 values, the same
    epilogue): M/N/K 1/5/100, 37/130/256 and 130/5/100, e4m3 and e5m2,
@@ -156,10 +165,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    draws); each mode's first three losses are printed. Each mode's step ms (three steps, four times, in turns) and
    device ms per step (``torch.profiler``) are printed.
 8. ln_residual kernel times at the BERT shape (4096 x 768, p 0.1, fp32
-   and bf16): device and per-call ms of each kernel, of its plain version
-   and of the unfused composition the "off" route runs
+   and bf16, the mask in x's dtype as the BERT gate passes it): device
+   and per-call ms of each kernel's whole call, of the kernel alone, of
+   its plain version and of the unfused composition the "off" route runs
    (``F.layer_norm(x + h*m*scale)`` and its autograd backward: no single
-   PyTorch call computes this function), beside each kernel's bound.
+   PyTorch call computes this function), beside each kernel's bound and
+   its share of it. Each call must run exactly one device kernel
+   (``torch.profiler``): the backward sums dgamma/dbeta inside it.
 9. fp8 training of GPT-2 124M at full width (as bench.py's
    gpt2_train_bs8_seq1024_fp8 on one card: batch 8 x seq 1024, dropout 0,
    seeded Uniform(0.07) weights, ``adam`` lr 1e-3, one fixed batch from
@@ -307,6 +319,25 @@ TPU_LN = "mxnet_tpu/ops/pallas/ln_residual.py:{}"
 LN_TOL = dict(atol=1e-5, rtol=1e-5)
 LN_SHARE = 1e-5  # of max |ref|: dgamma/dbeta, the zero-variance row
 LN_OFFSET_TOL = dict(atol=1e-4, rtol=1e-5)  # rows with mean ~100
+F16_RTOL, F16_ATOL_SHARE = 2.0 ** -10, 2.0 ** -13  # fp16 ln_residual results
+LN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# (x, h, gamma/beta, mask) dtypes where they differ (the reference's rule:
+# each its own)
+LN_MIXED = [
+    (torch.bfloat16, torch.bfloat16, torch.float32, torch.bool),
+    (torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.bfloat16, torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16, torch.uint8),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16, torch.float32, torch.bool),
+    (torch.float32, torch.float32, torch.float16, torch.float16),
+    (torch.float16, torch.bfloat16, torch.float32, torch.bfloat16),
+]
+# (n, D) run twice, bit for bit: ragged n around the backward's row groups
+# and blocks, BERT's shape, many waves of blocks, a block per row, no
+# 16-byte path
+LN_REPEAT = [(1, 768), (131, 768), (133, 768), (4097, 768), (4096, 768),
+             (65536, 768), (600, 8192), (600, 1999)]
 BERT_VOCAB, BERT_BATCH, BERT_SEQ, BERT_STEPS = 30522, 32, 128, 9
 BERT_UNITS = 768
 BERT_MASK_ID = 103  # [MASK] in BERT's uncased vocabulary
@@ -444,6 +475,31 @@ def device_ms(fn, iters, warmup=3):
     return device_profile(fn, iters, warmup)[0]
 
 
+def device_kernels(fn, iters, match, warmup=3):
+    """Device kernels (and copies) of ``fn()`` from ``torch.profiler``:
+    (kernels a call, ms of one ``match`` kernel, events seen a call).
+    Kernels a call is counted against the ``match`` kernel's own events
+    (all events over its events), and its ms is the mean of its events,
+    so that neither moves where the profiler drops some events (it did
+    drop up to a quarter of them in a window of 30 calls on the H100);
+    None where it recorded no ``match`` kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e.time_range.elapsed_us() for e in events if match in e.name]
+    if not mine:
+        return None, None, len(events) / iters
+    return (len(events) / len(mine), sum(mine) / len(mine) / 1e3,
+            len(events) / iters)
+
+
 def busy_share(device, wall):
     """Profiled device ms over unprofiled wall ms, or None where either is
     missing or the device time exceeds the wall time (the profiler's own
@@ -529,7 +585,7 @@ def ptxas_summary(log):
                 name = conv_kernel_name(mangled)
                 continue
             if "ln_residual" in mangled:
-                name = "ln_fwd" if "fwd" in mangled else "ln_bwd"
+                name = ln_kernel_name(mangled)
                 continue
             name = flash_kernel_name(mangled)
         elif "spill" in line:
@@ -550,6 +606,13 @@ def ptxas_summary(log):
         out.append(f"  {name}: {n} instantiations, {lo}-{hi} registers, "
                    f"largest spill {worst} bytes")
     return out
+
+
+def ln_kernel_name(mangled):
+    """``ln_fwd`` / ``ln_bwd`` for a mangled ln_residual kernel name."""
+    if "ln_residual" not in mangled:
+        return None
+    return "ln_fwd" if "fwd" in mangled else "ln_bwd"
 
 
 def flash_kernel_name(mangled):
@@ -681,6 +744,12 @@ def phase_build():
           + ", ".join(f"{n} {c}" for n, c in sorted(hgmma.items())))
     check(set(hgmma) == {"fp8_gemm tma store", "fp8_gemm direct store"}
           and all(hgmma.values()), f"fp8 GEMM kernels without HGMMA: {hgmma}")
+    log = _native.build_logs.get("ln_residual")
+    if log is not None:
+        spills = spill_bytes(log, ln_kernel_name)
+        check(set(spills) == {"ln_fwd", "ln_bwd"}
+              and not any(spills.values()),
+              f"an ln_residual instantiation spills: {spills}")
     log = _native.build_logs.get("fp8_matmul")
     if log is not None:
         spills = spill_bytes(log, lambda m: fp8_kernel_name(m)
@@ -896,13 +965,17 @@ def phase_bwd_vs_plain(dev):
     return errs
 
 
-def ln_inputs(dev, gen, n, d, p, dtype, mask_dtype=None):
-    """Seeded (x, h, mask, gamma, beta, do) of one ln_residual case; the
-    keep mask in ``mask_dtype`` (x's by default), None at p = 0."""
-    x, h, do = (torch.randn(n, d, device=dev, generator=gen).to(dtype)
-                for _ in range(3))
-    gamma = (torch.rand(d, device=dev, generator=gen) + 0.5).to(dtype)
-    beta = torch.randn(d, device=dev, generator=gen).to(dtype)
+def ln_inputs(dev, gen, n, d, p, dtype, mask_dtype=None, h_dtype=None,
+              g_dtype=None):
+    """Seeded (x, h, mask, gamma, beta, do) of one ln_residual case: x and
+    do in ``dtype``, h in ``h_dtype``, gamma/beta in ``g_dtype`` and the
+    keep mask in ``mask_dtype`` (each x's by default); the mask None at
+    p = 0."""
+    x, h, do = (torch.randn(n, d, device=dev, generator=gen).to(t)
+                for t in (dtype, h_dtype or dtype, dtype))
+    g_dtype = g_dtype or dtype
+    gamma = (torch.rand(d, device=dev, generator=gen) + 0.5).to(g_dtype)
+    beta = torch.randn(d, device=dev, generator=gen).to(g_dtype)
     mask = None
     if p > 0:
         keep = torch.rand(n, d, device=dev, generator=gen) >= p
@@ -910,51 +983,71 @@ def ln_inputs(dev, gen, n, d, p, dtype, mask_dtype=None):
     return x, h, mask, gamma, beta, do
 
 
+def ln_tol(name, got, want, flat, offset):
+    """The tolerance of one ln_residual result, by its dtype (module
+    docstring, phase 2c)."""
+    top = want.float().abs().max().item()
+    if got.dtype == torch.bfloat16:
+        return dict(rtol=BF16_RTOL, atol=BF16_ATOL_SHARE * top)
+    if got.dtype == torch.float16:
+        return dict(rtol=F16_RTOL, atol=F16_ATOL_SHARE * top)
+    if name in ("dgamma", "dbeta") or (flat and name in ("dx", "dh")):
+        return dict(rtol=LN_TOL["rtol"], atol=LN_SHARE * top)
+    return LN_OFFSET_TOL if offset else LN_TOL
+
+
 def ln_case(lr, dev, gen, n, d, p, dtype, mask_dtype=None, flat=False,
-            offset=0.0):
+            offset=0.0, h_dtype=None, g_dtype=None, repeat=False):
     """One ln_residual comparison, kernels vs plain versions on the same
     inputs (the backward from the forward kernel's mean and rstd), with a
     random cotangent: (max |fwd err|, max |bwd err|). ``flat``: row 0 has
-    zero variance; ``offset`` is added to x (rows far from zero)."""
+    zero variance; ``offset`` is added to x (rows far from zero);
+    ``repeat``: both kernels run a second time and must give the same
+    bits."""
     x, h, mask, gamma, beta, do = ln_inputs(dev, gen, n, d, p, dtype,
-                                            mask_dtype)
+                                            mask_dtype, h_dtype, g_dtype)
     x += offset
     if flat:
         x[0], h[0] = 0.75, 0.0
     out, mean, rstd = lr.ln_residual_fwd(x, h, mask, gamma, beta, p)
     grads = lr.ln_residual_bwd(x, h, mask, gamma, mean, rstd, do, p)
+    got = (out, mean, rstd) + tuple(grads)
+    if repeat:
+        again = lr.ln_residual_fwd(x, h, mask, gamma, beta, p) + tuple(
+            lr.ln_residual_bwd(x, h, mask, gamma, mean, rstd, do, p))
     torch.cuda.synchronize()
     want_fwd = lr.ln_residual_fwd_reference(x, h, mask, gamma, beta, p)
     want_bwd = lr.ln_residual_bwd_reference(x, h, mask, gamma, mean, rstd,
                                             do, p)
     errs = []
     names = ("out", "mean", "rstd", "dx", "dh", "dgamma", "dbeta")
-    for name, got, want in zip(names, (out, mean, rstd) + tuple(grads),
-                               want_fwd + want_bwd):
-        check(got.dtype == want.dtype and got.shape == want.shape
-              and torch.isfinite(got.float()).all().item(),
-              f"ln_residual {name}: {got.dtype} {tuple(got.shape)} "
-              f"non-finite or unlike the plain version's")
-        top = want.float().abs().max().item()
-        if dtype == torch.bfloat16 and name not in ("mean", "rstd"):
-            tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL_SHARE * top)
-        elif name in ("dgamma", "dbeta") or (flat and name in ("dx", "dh")):
-            tol = dict(rtol=LN_TOL["rtol"], atol=LN_SHARE * top)
-        elif offset:
-            tol = LN_OFFSET_TOL
-        else:
-            tol = LN_TOL
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.allclose(got.float(), want.float(), **tol),
+    what = (f"n={n} D={d} p={p} x {dtype} h {h.dtype} gamma {gamma.dtype} "
+            f"mask {None if mask is None else mask.dtype}")
+    for name, g, want in zip(names, got, want_fwd + want_bwd):
+        check(g.dtype == want.dtype and g.shape == want.shape
+              and torch.isfinite(g.float()).all().item(),
+              f"ln_residual {name}: {g.dtype} {tuple(g.shape)} "
+              f"non-finite or unlike the plain version's at {what}")
+        err = (g.float() - want.float()).abs().max().item()
+        check(torch.allclose(g.float(), want.float(),
+                             **ln_tol(name, g, want, flat, offset)),
               f"ln_residual {name} kernel disagrees with plain version at "
-              f"n={n} D={d} p={p} {dtype} mask {mask_dtype}: {err:.3e}")
+              f"{what}: {err:.3e}")
         errs.append(err)
+    if repeat:
+        same = [torch.equal(a, b) for a, b in zip(got, again)]
+        check(all(same), f"ln_residual: a second launch differs at {what}: "
+                         f"{dict(zip(names, same))}")
     mname = "-" if mask is None else str(mask.dtype)[6:]
+    mixed = "" if (h.dtype, gamma.dtype) == (dtype, dtype) else (
+        f" h {str(h.dtype)[6:]} gamma {str(gamma.dtype)[6:]}")
     print(f"  n={n:5d} D={d:5d} p={p:.1f} {str(dtype)[6:]:8s} mask={mname:8s}"
-          f"{' flat row' if flat else ''}"
-          f"{f' offset {offset:g}' if offset else ''} max|err| out {errs[0]:.2e} "
-          f"mean {errs[1]:.2e} rstd {errs[2]:.2e} dx {errs[3]:.2e} "
-          f"dh {errs[4]:.2e} dgamma {errs[5]:.2e} dbeta {errs[6]:.2e} ok")
+          f"{mixed}{' flat row' if flat else ''}"
+          f"{f' offset {offset:g}' if offset else ''}"
+          f"{' repeat bit for bit' if repeat else ''} max|err| "
+          f"out {errs[0]:.2e} mean {errs[1]:.2e} rstd {errs[2]:.2e} "
+          f"dx {errs[3]:.2e} dh {errs[4]:.2e} dgamma {errs[5]:.2e} "
+          f"dbeta {errs[6]:.2e} ok")
     return max(errs[:3]), max(errs[3:])
 
 
@@ -964,29 +1057,33 @@ def phase_ln_vs_plain(dev):
     from mxnet_tpu_torch.ops import ln_residual as lr
     print("== phase 2c: ln_residual kernels vs plain versions", flush=True)
     gen = torch.Generator(device=dev).manual_seed(4)
-    errs = {k: {torch.float32: 0.0, torch.bfloat16: 0.0}
-            for k in ("fwd", "bwd")}
+    errs = {k: {t: 0.0 for t in LN_DTYPES} for k in ("fwd", "bwd")}
+
+    def run(dtype, *args, **kw):
+        e_f, e_b = ln_case(lr, dev, gen, *args[:3], dtype, *args[3:], **kw)
+        errs["fwd"][dtype] = max(errs["fwd"][dtype], e_f)
+        errs["bwd"][dtype] = max(errs["bwd"][dtype], e_b)
+
     shapes = [(n, d) for n in (7, 600, LN_ROWS) for d in (128, 200, 768,
                                                          1024)]
     shapes += [(600, 199), (600, 1999), (600, 2000), (600, 8192)]
-    masks = (None, torch.bool, torch.uint8)  # None: x's dtype
+    masks = (None, torch.bool, torch.uint8, torch.float32, torch.bfloat16,
+             torch.float16)  # None: x's dtype
     i = 0
     for n, d in shapes:
         for p in (0.0, LN_P):
-            for dtype in (torch.float32, torch.bfloat16):
-                e_f, e_b = ln_case(lr, dev, gen, n, d, p, dtype,
-                                   masks[i % 3])
+            for dtype in LN_DTYPES:
+                run(dtype, n, d, p, masks[i % len(masks)])
                 i += 1
-                errs["fwd"][dtype] = max(errs["fwd"][dtype], e_f)
-                errs["bwd"][dtype] = max(errs["bwd"][dtype], e_b)
+    for n, d in ((600, 768), (131, 200)):
+        for x_t, h_t, g_t, m_t in LN_MIXED:
+            run(x_t, n, d, LN_P, m_t, h_dtype=h_t, g_dtype=g_t)
     for dtype in (torch.float32, torch.bfloat16):
-        e_f, e_b = ln_case(lr, dev, gen, 600, 768, LN_P, dtype, flat=True)
-        errs["fwd"][dtype] = max(errs["fwd"][dtype], e_f)
-        errs["bwd"][dtype] = max(errs["bwd"][dtype], e_b)
-    e_f, e_b = ln_case(lr, dev, gen, 600, 768, LN_P, torch.float32,
-                       offset=100.0)
-    errs["fwd"][torch.float32] = max(errs["fwd"][torch.float32], e_f)
-    errs["bwd"][torch.float32] = max(errs["bwd"][torch.float32], e_b)
+        run(dtype, 600, 768, LN_P, flat=True)
+    run(torch.float32, 600, 768, LN_P, offset=100.0)
+    for n, d in LN_REPEAT:
+        for dtype in LN_DTYPES:
+            run(dtype, n, d, LN_P, repeat=True)
     return errs
 
 
@@ -1552,8 +1649,19 @@ def phase_ln_times(dev, card):
             for name, fn in calls.items():
                 row[name + "_call_ms"] = cuda_ms(fn, 30, warmup=3)
                 row[name + "_device_ms"] = device_ms(fn, 30, warmup=3)
+            # the kernel alone beside the whole call (kernel_device_ms):
+            # one device kernel a call, no sum, cast or memset around it
+            per_call, alone, seen = device_kernels(
+                calls["kernel"], 30, f"ln_residual_{kind}_kernel")
+            row["kernel_alone_device_ms"] = alone
+            row["device_kernels_per_call"] = per_call
+            row["profiled_events_per_call"] = seen
             row["bound_ms"], row["bound_by"] = ln_bound_ms(
                 LN_ROWS, LN_DIM, dtype, dtype, kind)
+            whole = row["kernel_device_ms"]
+            row["bound_share"] = row["bound_ms"] / whole if whole else None
+            check(per_call == 1, f"ln_residual_{kind} {dtype}: {per_call} "
+                                 "device kernels a call, expected 1")
             rows[(kind, dtype)] = row
             print(f"ln_residual_{kind} {str(dtype)[6:]} n={LN_ROWS} "
                   f"D={LN_DIM} p={LN_P} [{card}]: " + json.dumps(row))
@@ -2929,17 +3037,27 @@ def ln_entry(kind, launches, errs, rows):
         "max_abs_err": errs[kind][torch.float32],
         "max_err_fp32": errs[kind][torch.float32],
         "max_err_bf16": errs[kind][torch.bfloat16],
+        "max_err_fp16": errs[kind][torch.float16],
         "ms": pick(row, "kernel"),
         "plain_ms": pick(row, "plain"),
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
+        "kernel_alone_ms": row["kernel_alone_device_ms"],
+        "device_kernels_per_call": row["device_kernels_per_call"],
+        "bound_share": row["bound_share"],
         "composition_ms": pick(row, "composition"),
         "composition": "F.layer_norm(x + h*m*scale)" + (
             "" if kind == "fwd" else ", its autograd backward")
         + ": no single PyTorch call computes this function",
         "shape": f"n={LN_ROWS} D={LN_DIM} p={LN_P} fp32, float mask",
         "bf16_ms": pick(rows[(kind, torch.bfloat16)], "kernel"),
+        "bf16_kernel_alone_ms":
+            rows[(kind, torch.bfloat16)]["kernel_alone_device_ms"],
+        "bf16_bound_ms": rows[(kind, torch.bfloat16)]["bound_ms"],
+        "bf16_bound_share": rows[(kind, torch.bfloat16)]["bound_share"],
+        "bf16_composition_ms": pick(rows[(kind, torch.bfloat16)],
+                                    "composition"),
     }
 
 

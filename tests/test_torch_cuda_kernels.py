@@ -20,8 +20,10 @@ rounded to bf16 before the products, as in the plain version, and a value
 on a rounding boundary may round the other way). ln_residual: fp32 atol = rtol = 1e-5 for out, mean, rstd, dx
 and dh (fp32 sums in another order; the plain version is the same
 arithmetic), dgamma/dbeta atol 1e-5 of their largest |value| (sums over
-up to 4096 rows in another order); bf16 rtol 2^-7 plus atol 2^-10 of the
-largest |value|, as above. BERT on the card vs the CPU: losses atol =
+up to 65536 rows in another order); bf16 rtol 2^-7 plus atol 2^-10 of the
+largest |value|, as above; fp16 rtol 2^-10 (one fp16 ulp) plus atol
+2^-13 of it; a second backward launch bit for bit, and one device kernel
+a backward call. BERT on the card vs the CPU: losses atol =
 rtol = 1e-4, gradients atol 1e-4 + rtol 1e-3, weights atol 1e-4 (as the
 GPT comparison). fp8 matmul kernel vs its plain version: the same NaN and
 inf positions, and elsewhere |err| <= 2^-20 of the sum of |products| x
@@ -458,18 +460,39 @@ def test_gpt_training_on_card_matches_cpu(cuda_device, optimizer):
                                     err_msg=name)
 
 
-def _ln_inputs(n, d, p, dtype, device, mask_dtype=None, seed=0):
+def _ln_inputs(n, d, p, dtype, device, mask_dtype=None, seed=0,
+               h_dtype=None, g_dtype=None):
     rs = onp.random.RandomState(seed + n + d)
     x, h, do = (torch.from_numpy(rs.randn(n, d).astype("float32"))
-                .to(device, dtype) for _ in range(3))
+                .to(device, t) for t in (dtype, h_dtype or dtype, dtype))
     gamma = torch.from_numpy((rs.rand(d) + 0.5).astype("float32")).to(
-        device, dtype)
-    beta = torch.from_numpy(rs.randn(d).astype("float32")).to(device, dtype)
+        device, g_dtype or dtype)
+    beta = torch.from_numpy(rs.randn(d).astype("float32")).to(
+        device, g_dtype or dtype)
     mask = None
     if p > 0:
         mask = torch.from_numpy(rs.rand(n, d) >= p).to(device,
                                                        mask_dtype or dtype)
     return x, h, mask, gamma, beta, do
+
+
+def _ln_check(got, want, names=("out", "mean", "rstd", "dx", "dh", "dgamma",
+                                "dbeta")):
+    """Kernel results against the plain version's, by each result's dtype:
+    bf16 rtol 2^-7 plus atol 2^-10 of the largest |value|, fp16 rtol 2^-10
+    plus atol 2^-13 of it, fp32 1e-5 (dgamma/dbeta atol 1e-5 of it)."""
+    for name, g, ref in zip(names, got, want):
+        assert g.dtype == ref.dtype and g.shape == ref.shape, name
+        top = ref.float().abs().max().item()
+        if g.dtype == torch.bfloat16:
+            tol = dict(rtol=2.0 ** -7, atol=2.0 ** -10 * top)
+        elif g.dtype == torch.float16:
+            tol = dict(rtol=2.0 ** -10, atol=2.0 ** -13 * top)
+        elif name in ("dgamma", "dbeta"):
+            tol = dict(rtol=1e-5, atol=1e-5 * top)
+        else:
+            tol = dict(rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(g.float(), ref.float(), msg=name, **tol)
 
 
 LN_SHAPES = [(n, d) for n in (7, 600, 4096) for d in (128, 200, 768, 1024)]
@@ -492,23 +515,102 @@ def test_ln_residual_kernels_match_plain_version(cuda_device, n, d, p,
         == (f0 + 1, b0 + 1)
     want = tln.ln_residual_fwd_reference(x, h, mask, g, b, p) \
         + tln.ln_residual_bwd_reference(x, h, mask, g, mean, rstd, do, p)
-    names = ("out", "mean", "rstd", "dx", "dh", "dgamma", "dbeta")
-    for name, got, ref in zip(names, (out, mean, rstd) + grads, want):
-        assert got.dtype == ref.dtype and got.shape == ref.shape, name
-        top = ref.float().abs().max().item()
-        if dtype == torch.bfloat16 and name not in ("mean", "rstd"):
-            tol = dict(rtol=2.0 ** -7, atol=2.0 ** -10 * top)
-        elif name in ("dgamma", "dbeta"):
-            tol = dict(rtol=1e-5, atol=1e-5 * top)
-        else:
-            tol = dict(rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(got.float(), ref.float(), msg=name, **tol)
+    _ln_check((out, mean, rstd) + grads, want)
 
 
-@pytest.mark.parametrize("bad", ["float16", "mask_shape", "contiguity",
+# (x, h, gamma/beta, mask) dtypes: the reference's rule, each its own
+LN_DTYPE_CASES = {
+    "f16_rows": (torch.float16, torch.float16, torch.float16,
+                 torch.float16),
+    "bf16_rows_f32_gamma": (torch.bfloat16, torch.bfloat16, torch.float32,
+                            torch.bool),
+    "f32_x_bf16_h": (torch.float32, torch.bfloat16, torch.float32,
+                     torch.float32),
+    "bf16_x_f32_h": (torch.bfloat16, torch.float32, torch.bfloat16,
+                     torch.uint8),
+    "bf16_rows_f32_mask": (torch.bfloat16, torch.bfloat16, torch.bfloat16,
+                           torch.float32),
+    "f16_rows_f32_gamma": (torch.float16, torch.float16, torch.float32,
+                           torch.bool),
+    "f32_rows_f16_gamma": (torch.float32, torch.float32, torch.float16,
+                           torch.float16),
+}
+
+
+@pytest.mark.parametrize("n,d", [(600, 768), (131, 200), (64, 1999)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("case", sorted(LN_DTYPE_CASES))
+def test_ln_residual_dtypes_match_plain_version(cuda_device, case, p, n, d):
+    """Rows, gamma/beta and the mask each in its own dtype, fp16 rows
+    included: the kernels take them all, with the plain version's output
+    dtypes and values."""
+    x_t, h_t, g_t, m_t = LN_DTYPE_CASES[case]
+    x, h, mask, g, b, do = _ln_inputs(n, d, p, x_t, cuda_device, m_t,
+                                      h_dtype=h_t, g_dtype=g_t)
+    f0, b0 = tln.ln_residual_fwd.launches, tln.ln_residual_bwd.launches
+    out, mean, rstd = tln.ln_residual_fwd(x, h, mask, g, b, p)
+    grads = tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, p)
+    torch.cuda.synchronize()
+    assert (tln.ln_residual_fwd.launches, tln.ln_residual_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    assert (out.dtype, grads[0].dtype, grads[1].dtype, grads[2].dtype,
+            grads[3].dtype) == (x_t, x_t, h_t, g_t, g_t)
+    want = tln.ln_residual_fwd_reference(x, h, mask, g, b, p) \
+        + tln.ln_residual_bwd_reference(x, h, mask, g, mean, rstd, do, p)
+    _ln_check((out, mean, rstd) + grads, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,d", [(1, 768), (131, 768), (133, 768),
+                                 (4097, 768), (65536, 768), (600, 8192),
+                                 (600, 1999)])
+def test_ln_residual_bwd_repeats_bit_for_bit(cuda_device, n, d, dtype):
+    """Ragged n around the backward's row groups and blocks, many waves of
+    blocks (65536 rows), a block per row and no 16-byte path: against the
+    plain version, and a second launch equal bit for bit (dgamma/dbeta are
+    summed in a fixed order, without float atomics); the barrier's ticket
+    count is left zero (its generation word counts the calls)."""
+    x, h, mask, g, b, do = _ln_inputs(n, d, 0.1, dtype, cuda_device)
+    _, mean, rstd = tln.ln_residual_fwd(x, h, mask, g, b, 0.1)
+    first = tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)
+    again = tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)
+    torch.cuda.synchronize()
+    names = ("dx", "dh", "dgamma", "dbeta")
+    for name, a, b2 in zip(names, first, again):
+        assert torch.equal(a, b2), name
+    _ln_check(first, tln.ln_residual_bwd_reference(x, h, mask, g, mean,
+                                                   rstd, do, 0.1), names)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert tln._tickets_for(cuda_device, stream)[0].item() == 0
+
+
+@pytest.mark.parametrize("dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float16)])
+def test_ln_residual_bwd_is_one_device_kernel(cuda_device, dtype, g_dtype):
+    """A backward call runs exactly one device kernel (torch.profiler): no
+    sum, cast or memset around the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, h, mask, g, b, do = _ln_inputs(4096, 768, 0.1, dtype, cuda_device,
+                                      g_dtype=g_dtype)
+    _, mean, rstd = tln.ln_residual_fwd(x, h, mask, g, b, 0.1)
+    tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "ln_residual_bwd_kernel" in kernels[0], \
+        kernels
+
+
+@pytest.mark.parametrize("bad", ["float64", "mask_shape", "contiguity",
                                  "too_wide", "no_mask"])
 def test_ln_residual_wrappers_raise(cuda_device, bad):
-    dtype = torch.float16 if bad == "float16" else torch.float32
+    dtype = torch.float64 if bad == "float64" else torch.float32
     d = tln.MAX_DIM + 8 if bad == "too_wide" else 64
     x, h, mask, g, b, do = _ln_inputs(8, d, 0.1, dtype, cuda_device)
     if bad == "mask_shape":
