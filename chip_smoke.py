@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward and the two backward kernels (dK/dV, dQ), the ln_residual
    forward and backward, the fp8 matmul, the int8 matmul and kernel 8,
    the conv3x3+BN+ReLU backward (weight split, dgrad, wgrad and the
-   reduce). Print the build time, each kernel's ptxas registers and
+   reduce; and its bf16 instantiation: weight copy, dgrad, wgrad, reduce). Print the build time, each kernel's ptxas registers and
    spills, the card and CUDA, and the count of tensor-core instructions
    (HMMA / HGMMA, from ``cuobjdump -sass`` beside ``nvcc``) in each of the
    24 flash kernels (forward, dK/dV and dQ, fp32 and bf16, d 16 / 32 / 64
@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (TMA-store and direct-store epilogue), of s8 ``wgmma`` instructions
    (IGMMA) in the four int8 GEMM kernels (128 x 128 and 128 x 192 tiles,
    each with both epilogues) and of HMMA in kernel 8's four kernels with
-   their spill bytes: the run fails if a flash, fp8 GEMM, int8 GEMM or
-   kernel-8 product kernel (dgrad, wgrad) has none, or if an ln_residual
+   their spill bytes (and the bf16 instantiation's four): the run fails if
+   a flash, fp8 GEMM, int8 GEMM or kernel-8 product kernel (dgrad, wgrad,
+   fp32 and bf16) has none, or if an ln_residual
    instantiation, an fp8 matmul, int8 matmul or kernel-8 kernel spills.
    Every phase prints its wall time.
 2. Hold each kernel against its plain PyTorch version on the card, at
@@ -105,7 +106,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    and wgrad chunk the source computes equal to the wrapper's rule. Then
    an inf in x and in w and a NaN in da (none, where the ReLU passes it,
    where it blocks it): the NaN and inf positions and signs of dx, dw,
-   dgamma and dbeta equal to the plain version's.
+   dgamma and dbeta equal to the plain version's. Then kernel 8's bf16
+   instantiation on bf16 x, w, gamma, beta and da (y from the bf16
+   forward): the four stage shapes (two input sets each) and
+   ``CONV_EDGES``, dx and dw elementwise within one bf16 ulp of the plain
+   value (rtol 2^-7) plus ``CONV_BF16_SHARE`` (1e-5) of max|plain| (bf16
+   products are exact in fp32; only the order of the fp32 sums differs),
+   dgamma/dbeta and a second launch bit for bit, its shared memory equal
+   to the wrapper's rule, and the non-finite cases with the plain
+   version's NaN and inf positions.
 3. Serving at full GPT-2 124M width (vocab 50257, 768 units, 12 layers,
    12 heads, max_length 1024, fp32, seeded Uniform(0.07) weights):
    ``serve.load(net, max_slots=8)`` with the default buckets, ``warmup()``,
@@ -270,7 +279,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    -> ``F.batch_norm(training=True)`` -> relu (cuDNN, TF32 off; never
    called by the port), beside the bounds: da, y, x read, dx, dw written
    over 3.35 TB/s against 36 M C O flops at the fp32 rate, and against
-   three TF32 products each at 495 TFLOP/s (the kernels' 3xTF32).
+   three TF32 products each at 495 TFLOP/s (the kernels' 3xTF32). The
+   same in bf16 for the bf16 instantiation, beside the cuDNN bf16
+   composition (a bf16 convolution, BatchNorm with fp32 gamma and beta,
+   relu), against bytes at 2 a value over 3.35 TB/s and 36 M C O flops at
+   989 TFLOP/s.
 15. int8 ResNet-50 v1 inference: ``quantize_net(resnet50_v1(),
    calib_data=[one uniform batch 32 x 3 x 224 x 224],
    calib_mode="naive")`` as bench.py:305-308 does, which must replace 53
@@ -281,6 +294,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    int8-vs-fp32 error (max|diff| / max|fp32|, top-1 agreement), and the
    fp32 and int8 forwards in turns: ms, images/s, device ms and busy
    share, peak memory.
+16. bf16 training of GPT-2 124M, the bf16 slice's main path: phase 5's
+   model, batch and AdamW, under ``amp.init("bfloat16")`` (fp32 master
+   weights; Dense, attention and the head's product in bf16, LayerNorm and
+   the loss in fp32). The fp32 forward of the same weights gives the
+   reference loss; the bf16 step's first loss must be within
+   ``BF16_LOSS_TOL`` (2e-2) relative of it. One warm-up step (every
+   gradient fp32 and finite, nonzero but for the key projection's bias,
+   whose exact gradient is 0), then 4 timed steps with every count zeroed
+   just before and read just after: each flash kernel (its bf16
+   instantiation) 12 launches a step, no other kernel; the losses finite
+   and falling. Prints step ms, device ms and busy share, tokens/s, the
+   model-FLOP share at the bf16 rate (989 TFLOP/s) and at the fp32 rate
+   (67), peak memory, and the flash kernels' own profiler events a step.
+17. bf16 training of BERT-base: phase 7's model, batch and dropout 0.1
+   through ``net.cast("bfloat16")`` and ``Trainer(..., "adamw",
+   {"multi_precision": True})`` (bf16 weights, fp32 masters in the
+   optimizer state). The first loss against the fp32 forward of the same
+   weights and seed (2e-2); 9 timed steps: ln_residual forward and
+   backward 12 launches a step each on bf16 rows with bf16 gamma and
+   beta, no other kernel; the losses finite and falling; the same
+   numbers as phase 16, and samples/s.
+18. bf16 training of ResNet-50 v1: phase 13's model, batch and SGD under
+   ``amp.init("bfloat16")``, ``fused_conv_bn`` "on" (kernel 8's bf16
+   instantiation, 16 calls a step, 3 / 4 / 6 / 3 by stage) and "off"
+   (cuDNN bf16 convolutions, fp32 BatchNorm) in turns (on, off, off, on),
+   24 timed steps each from the same start weights; each run's first loss
+   against the fp32 forward (2e-2), the losses finite and falling, no
+   other kernel; then "auto" for 2 steps, which must launch kernel 8 as
+   its rule for bf16 says. Prints step ms, device ms of every run,
+   images/s, both model-FLOP shares and peak memory of "on" and "off".
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -388,9 +431,11 @@ RESNET50_TRAIN_FLOPS = 3 * 2 * 4.089e9  # per image (bench.py:44-46)
 CONV_STAGES = [(32, 56, 56, 64), (32, 28, 28, 128), (32, 14, 14, 256),
                (32, 7, 7, 512)]
 RESNET_STAGE_TRIPLETS = dict(zip(CONV_STAGES, (3, 4, 6, 3)))
-# kernel 8's CUDA kernels, as phase 1 names them
+# kernel 8's CUDA kernels, as phase 1 names them: fp32, then the bf16
+# instantiation
 CONV_KERNELS = ("conv_bwd wsplit", "conv_bwd dgrad", "conv_bwd wgrad",
-                "conv_bwd reduce")
+                "conv_bwd reduce", "conv_bwd wcopy bf16", "conv_bwd dgrad bf16",
+                "conv_bwd wgrad bf16", "conv_bwd reduce bf16")
 RESNET_TRIPLETS = 16
 # kernel 8 vs its plain version, max|diff| / max|plain| of dx and dw: fp32
 # sums of up to 9*512 products in another order
@@ -404,6 +449,12 @@ CONV_EDGES = [(5, 13, 11, 40, 24), (2, 9, 1, 3, 2), (3, 7, 9, 5, 11),
               (4, 7, 7, 36, 520)]
 # the non-finite case of phase 2f
 CONV_NON_FINITE = (2, 6, 5, 4, 3)
+# kernel 8 in bf16 vs its plain version, elementwise: |diff| <= one bf16
+# ulp of the plain value (rtol 2^-7) plus this share of max|plain| (the
+# bf16 products are exact in fp32, so only the order of the fp32 sums
+# differs, and a sum on a rounding boundary may round to the other bf16
+# neighbour)
+CONV_BF16_SHARE = 1e-5
 # step-1 gradients of the kernel route vs the cuDNN chain, max|diff| /
 # max|off| per parameter, or twice the conditioning probe's change where
 # that is larger (phase 13)
@@ -419,6 +470,10 @@ RESNET_WIRING_TOL = 1e-3
 RESNET_STAT_TOL = 1e-4
 INT8_RESNET_CONVS = 53  # the stem, 16 x 3 bottleneck convs, 4 downsample
 RESNET_FWD_ITERS = 20  # forwards in each timed window of phase 15
+# the bf16 step's first loss vs the fp32 forward of the same weights,
+# relative (phases 16-18)
+BF16_LOSS_TOL = 2e-2
+BF16_TRAIN_STEPS = 4  # timed steps of phase 16
 
 
 def fail(msg):
@@ -655,9 +710,16 @@ def int8_gemm_name(mangled):
 
 
 def conv_kernel_name(mangled):
-    """``conv_bwd dgrad`` for a mangled kernel name of ``conv_bwd.cu``."""
-    part = re.search(r"conv_bwd_(wsplit|dgrad|wgrad|reduce)_kernel", mangled)
-    return f"conv_bwd {part[1] if part else '?'}"
+    """``conv_bwd dgrad`` (``conv_bwd dgrad bf16`` for the bf16
+    instantiation, both of its output types; the reduce storing bf16 is
+    ``conv_bwd reduce bf16``) for a mangled kernel name of
+    ``conv_bwd.cu``."""
+    part = re.search(r"conv_bwd_(wsplit|wcopy|dgrad|wgrad|reduce)(_bf16)?"
+                     r"_kernel", mangled)
+    if not part:
+        return "conv_bwd ?"
+    bf16 = part[2] or "bfloat16" in mangled
+    return f"conv_bwd {part[1]}{' bf16' if bf16 else ''}"
 
 
 def conv_name(mangled):
@@ -781,7 +843,8 @@ def phase_build():
     check(set(hmma) == set(CONV_KERNELS), f"conv_bwd kernels in the library: "
                                           f"{sorted(hmma)}, expected "
                                           f"{sorted(CONV_KERNELS)}")
-    check(all(hmma[f"conv_bwd {k}"] for k in ("dgrad", "wgrad")),
+    check(all(hmma[f"conv_bwd {k}"] for k in ("dgrad", "wgrad", "dgrad bf16",
+                                              "wgrad bf16")),
           f"a conv_bwd product kernel has no HMMA: {hmma}")
     check(spills is None or (set(spills) == set(CONV_KERNELS)
                              and not any(spills.values())),
@@ -2299,6 +2362,7 @@ def conv_launches_per_call(cb, n, h, w, c, o):
 
 def zero_conv_counters(cb):
     cb.fused_conv3x3_bn_relu_bwd.launches = 0
+    cb.fused_conv3x3_bn_relu_bwd.bf16_launches = 0
     cb.fused_conv3x3_bn_relu_bwd.shape_launches.clear()
     for name in cb.fused_conv3x3_bn_relu_bwd.kernel_launches:
         cb.fused_conv3x3_bn_relu_bwd.kernel_launches[name] = 0
@@ -2322,24 +2386,35 @@ def zero_all_counters():
     zero_conv_counters(cb)
 
 
-def conv_inputs(cb, dev, gen, n, h, w, c, o):
+def conv_inputs(cb, dev, gen, n, h, w, c, o, dtype=torch.float32):
     """(da, x, y, w, gamma, beta, mean, var) of one fused triplet: He-scaled
-    weights, the training forward's y and batch statistics."""
+    weights, the training forward's y and batch statistics; x, w, gamma,
+    beta and da drawn in fp32 and cast to ``dtype`` (the triplet's dtype
+    under ``amp.init``), y from the forward in that dtype."""
     x = torch.randn(n, c, h, w, device=dev, generator=gen)
     wt = torch.randn(o, c, 3, 3, device=dev, generator=gen) \
         * (2.0 / (9 * c)) ** 0.5
     gamma = torch.rand(o, device=dev, generator=gen) + 0.5
     beta = torch.randn(o, device=dev, generator=gen) * 0.1
+    x, wt, gamma, beta = (t.to(dtype) for t in (x, wt, gamma, beta))
     _, y, mean, var = cb.conv3x3_bn_relu_ref(x, wt, gamma, beta)
-    da = torch.randn(n, o, h, w, device=dev, generator=gen)
+    da = torch.randn(n, o, h, w, device=dev, generator=gen).to(dtype)
     return da, x, y, wt, gamma, beta, mean, var
 
 
-def conv_non_finite_inputs(cb, dev, gen, nan_at):
+def bf16_excess(got, want, share):
+    """The largest |got - want| over its allowance, 2^-7 |want| (one bf16
+    ulp) plus ``share`` of max|want|, compared in fp32: at most 1 passes."""
+    got, want = got.float(), want.float()
+    allow = BF16_RTOL * want.abs() + share * want.abs().max()
+    return ((got - want).abs() / allow).max().item()
+
+
+def conv_non_finite_inputs(cb, dev, gen, nan_at, dtype=torch.float32):
     """Phase 2f's non-finite case: finite inputs and their forward, then an
     inf in x (a border pixel), a -inf in w and, where ``nan_at`` is "live"
     or "dead", a NaN in da where the ReLU passes or blocks it."""
-    args = list(conv_inputs(cb, dev, gen, *CONV_NON_FINITE))
+    args = list(conv_inputs(cb, dev, gen, *CONV_NON_FINITE, dtype=dtype))
     da, x, y, wt, gamma, beta, mean, var = args
     x[1, 3, 0, 2] = float("inf")
     wt[0, 3, 2, 1] = -float("inf")
@@ -2431,17 +2506,113 @@ def phase_conv_vs_plain(dev):
               f"positions; finite dx max|diff| / max|plain| {e:.3e}")
         check(e <= CONV_TOL, f"kernel 8's finite dx off by {e:.3e} beside "
                              f"non-finite inputs")
+    bf16 = conv_bf16_vs_plain(dev, cb, lib, gen)
     return {"max_rel_err": worst, "max_abs_err": max_abs,
-            "cases": len(cases) + 2 * len(CONV_STAGES) + 3}
+            "cases": len(cases) + 2 * len(CONV_STAGES) + 3, "bf16": bf16}
 
 
-def conv_bound_ms(n, h, w, c, o, tf32x3=False):
+def conv_bf16_vs_plain(dev, cb, lib, gen):
+    """Kernel 8's bf16 instantiation against its plain version on the same
+    bf16 inputs: the four stage shapes (two input sets each) and
+    ``CONV_EDGES``, dx and dw elementwise within one bf16 ulp plus
+    ``CONV_BF16_SHARE`` of max|plain|, dgamma/dbeta bit for bit, a second
+    launch bit for bit; the shared memory the source computes equal to the
+    wrapper's rule; then the non-finite inputs with the plain version's
+    NaN and inf positions."""
+    print("  bf16 instantiation:", flush=True)
+    cases = [(n, h, w, c, c) for (n, h, w, c) in CONV_STAGES] + CONV_EDGES
+    worst, max_abs, excess = {"dx": 0.0, "dw": 0.0}, 0.0, 0.0
+    before = cb.fused_conv3x3_bn_relu_bwd.bf16_launches
+    for (n, h, w, c, o) in cases:
+        dsm, wsm = ctypes.c_size_t(), ctypes.c_size_t()
+        lib.conv3x3_bn_relu_bwd_bf16_smem(h, w, dsm, wsm)
+        got = (dsm.value, wsm.value)
+        want = cb.smem_bytes(h, w, torch.bfloat16)
+        check(got == want, f"kernel 8 bf16 at H={h} W={w}: the source's "
+                           f"shared memory {got}, the wrapper's {want}")
+        for s in range(2 if n == RESNET_BATCH else 1):
+            args = conv_inputs(cb, dev, gen, n, h, w, c, o, torch.bfloat16)
+            dx, dw, dg, db = cb.fused_conv3x3_bn_relu_bwd(*args)
+            again = cb.fused_conv3x3_bn_relu_bwd(*args)
+            torch.cuda.synchronize()
+            da, x, y, wt, gamma, beta, mean, var = args
+            pg, pb, vec = cb.bwd_stats(da, y, gamma, beta, mean, var)
+            pdx, pdw = cb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec)
+            ex = max(bf16_excess(dx, pdx, CONV_BF16_SHARE),
+                     bf16_excess(dw, pdw, CONV_BF16_SHARE))
+            e = {"dx": rel_err(dx.float(), pdx.float()),
+                 "dw": rel_err(dw.float(), pdw.float())}
+            same = all(torch.equal(a, b) for a, b in zip(again, (dx, dw, dg,
+                                                                db)))
+            stats = torch.equal(dg, pg) and torch.equal(db, pb)
+            types = (dx.dtype, dw.dtype) == (torch.bfloat16, torch.bfloat16)
+            finite = all(torch.isfinite(t).all().item() for t in (dx, dw))
+            ok = ex <= 1.0 and same and stats and types and finite
+            print(f"  bf16 N={n} H={h} W={w} C={c} O={o} set {s}: max|diff|"
+                  f" / max|plain| dx {e['dx']:.3e} dw {e['dw']:.3e}, "
+                  f"largest diff over its allowance {ex:.3f}; dgamma/dbeta "
+                  f"{'bit for bit' if stats else 'DIFFER'}; repeat "
+                  f"{'bit for bit' if same else 'DIFFERS'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel 8 bf16 disagrees with its plain version at "
+                      f"N={n} H={h} W={w} C={c} O={o}: {e}, over the "
+                      f"allowance x{ex:.3f}, repeat equal {same}, stats "
+                      f"equal {stats}, dtypes {dx.dtype} {dw.dtype}, finite "
+                      f"{finite}")
+            for k in worst:
+                worst[k] = max(worst[k], e[k])
+            excess = max(excess, ex)
+            max_abs = max(max_abs, (dx.float() - pdx.float()).abs().max()
+                          .item(), (dw.float() - pdw.float()).abs().max()
+                          .item())
+            del args, dx, dw, again, pdx, pdw
+    launched = cb.fused_conv3x3_bn_relu_bwd.bf16_launches - before
+    check(launched == 2 * (2 * len(CONV_STAGES) + len(CONV_EDGES)),
+          f"the bf16 kernel launched {launched} times in its checks")
+    for nan_at in (None, "live", "dead"):
+        args = conv_non_finite_inputs(cb, dev, gen, nan_at, torch.bfloat16)
+        got = cb.fused_conv3x3_bn_relu_bwd(*args)
+        torch.cuda.synchronize()
+        da, x, y, wt, gamma, beta, mean, var = args
+        pg, pb, vec = cb.bwd_stats(da, y, gamma, beta, mean, var)
+        want = cb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec) + (pg,
+                                                                       pb)
+        counts = []
+        for name, g, r in zip(("dx", "dw", "dgamma", "dbeta"), got, want):
+            same = (torch.equal(g.isnan(), r.isnan())
+                    and torch.equal(g.isinf(), r.isinf())
+                    and torch.equal(g[g.isinf()].sign(), r[r.isinf()].sign()))
+            counts.append(f"{name} {int(g.isnan().sum())} NaN "
+                          f"{int(g.isinf().sum())} inf")
+            check(same, f"kernel 8 bf16's non-finite {name} (NaN in da: "
+                        f"{nan_at}) differs from the plain version's: "
+                        f"{int(g.isnan().sum())} / {int(r.isnan().sum())} "
+                        f"NaN, {int(g.isinf().sum())} / "
+                        f"{int(r.isinf().sum())} inf")
+        finite = torch.isfinite(got[0]) & torch.isfinite(want[0])
+        ex = (bf16_excess(got[0][finite], want[0][finite], CONV_BF16_SHARE)
+              if finite.any() else 0.0)
+        print(f"  bf16 non-finite inputs (NaN in da: {nan_at}): "
+              f"{', '.join(counts)}, the plain version's positions; finite "
+              f"dx over its allowance {ex:.3f}")
+        check(ex <= 1.0, f"kernel 8 bf16's finite dx off by x{ex:.3f} of its "
+                         f"allowance beside non-finite inputs")
+    return {"max_rel_err": worst, "max_abs_err": max_abs,
+            "max_excess_over_allowance": excess,
+            "cases": 2 * len(CONV_STAGES) + len(CONV_EDGES) + 3}
+
+
+def conv_bound_ms(n, h, w, c, o, tf32x3=False, dtype=torch.float32):
     """Least time on an H100 SXM for kernel 8's work on one triplet: da, y
-    and x read once, w read, dx and dw written (fp32), against 36 M C O
-    flops (dgrad and wgrad, 9 taps each, M = N H W) at the fp32 rate, or
-    with ``tf32x3`` at the rate the kernels use: three TF32 products per
-    product at 495 TFLOP/s."""
+    and x read once, w read, dx and dw written (in ``dtype``; the (8, O)
+    stats vector fp32), against 36 M C O flops (dgrad and wgrad, 9 taps
+    each, M = N H W) at ``dtype``'s rate (fp32 67, bf16 989 TFLOP/s), or
+    with ``tf32x3`` at the rate the fp32 kernels use: three TF32 products
+    per product at 495 TFLOP/s."""
     m = n * h * w
+    if dtype == torch.bfloat16:
+        nbytes = 2 * (2 * m * o + 2 * m * c + 2 * 9 * c * o) + 4 * 8 * o
+        return bound(nbytes, 36 * m * c * o, torch.bfloat16)
     nbytes = 4 * (2 * m * o + 2 * m * c + 2 * 9 * c * o + 8 * o)
     if tf32x3:
         return bound(nbytes, 3 * 36 * m * c * o, torch.float32,
@@ -2711,7 +2882,9 @@ def phase_resnet_train(dev, card):
 
 def phase_conv_times(dev, card):
     """Kernel 8 (its CUDA kernels and the whole wrapper), its plain version
-    and the cuDNN composition at the four ResNet-50 stage shapes."""
+    and the cuDNN composition at the four ResNet-50 stage shapes, fp32 and
+    bf16 (the bf16 composition: a bf16 convolution, BatchNorm with fp32
+    gamma and beta, relu)."""
     import itertools
     from mxnet_tpu_torch.ops import conv_bwd as cb
     print(f"== phase 14: conv3x3_bn_relu_bwd (kernel 8) times on {card}",
@@ -2719,12 +2892,14 @@ def phase_conv_times(dev, card):
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(11)
     rows = {}
-    for (n, h, w, c) in CONV_STAGES:
-        sets = [conv_inputs(cb, dev, gen, n, h, w, c, c) for _ in range(3)]
+    for (n, h, w, c), dtype in itertools.product(
+            CONV_STAGES, (torch.float32, torch.bfloat16)):
+        sets = [conv_inputs(cb, dev, gen, n, h, w, c, c, dtype)
+                for _ in range(3)]
         graphs = []
         for da, x, y, wt, gamma, beta, mean, var in sets:
-            leaves = [t.clone().requires_grad_() for t in (x, wt, gamma,
-                                                           beta)]
+            leaves = [t.clone().requires_grad_() for t in (
+                x, wt, gamma.float(), beta.float())]
             out = F.relu(F.batch_norm(
                 F.conv2d(leaves[0], leaves[1], padding=1), None, None,
                 leaves[2], leaves[3], training=True, eps=1e-5))
@@ -2754,12 +2929,16 @@ def phase_conv_times(dev, card):
             row[name + "_device_ms"] = device_ms(call(fn), iters, warmup=1)
         row["cuda_kernels_ms"] = device_profile(call(kernel), 20, warmup=2,
                                                 match="conv_bwd_")[0]
-        row["bound_ms"], row["bound_by"] = conv_bound_ms(n, h, w, c, c)
-        row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = conv_bound_ms(
-            n, h, w, c, c, tf32x3=True)
-        rows[(n, h, w, c)] = row
-        print(f"kernel 8 N={n} H={h} W={w} C=O={c} fp32 [{card}]: "
-              + json.dumps(row))
+        row["bound_ms"], row["bound_by"] = conv_bound_ms(n, h, w, c, c,
+                                                         dtype=dtype)
+        if dtype == torch.float32:
+            row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = conv_bound_ms(
+                n, h, w, c, c, tf32x3=True)
+            rows[(n, h, w, c)] = row
+        else:
+            rows[(n, h, w, c, "bf16")] = row
+        print(f"kernel 8 N={n} H={h} W={w} C=O={c} {str(dtype)[6:]} "
+              f"[{card}]: " + json.dumps(row))
         del sets, graphs, turn
     return rows
 
@@ -2866,20 +3045,396 @@ def phase_resnet_int8(dev, card):
     return e2e
 
 
-def conv_entry(errs, rows, launches, per_shape):
+# -- the bf16 training paths (phases 16-18) -------------------------------------
+
+def all_launches():
+    """Every kernel wrapper's count: flash fwd/dkv/dq, ln fwd/bwd, fp8,
+    int8, kernel 8 fp32 calls and kernel 8 bf16 calls."""
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    c = cb.fused_conv3x3_bn_relu_bwd
+    return other_counters() + [c.launches - c.bf16_launches, c.bf16_launches]
+
+
+LAUNCH_NAMES = ("flash_fwd", "flash_dkv", "flash_dq", "ln_fwd", "ln_bwd",
+                "fp8", "int8", "conv_fp32", "conv_bf16")
+
+
+def kernel_events(fn, iters, names, warmup=1):
+    """{name: device events a call of the kernels whose names contain
+    ``name``}, from ``torch.profiler``: the kernels' own events (the
+    profiler drops some now and then, so these can read low; the wrapper
+    counts are the ones held)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    return {n: sum(n in e for e in events) / iters for n in names}
+
+
+def bf16_e2e(card, label, wall, steps, n_params, tokens, samples, step_fn,
+             peak_gb, flops_per_step, extra=None):
+    """The end-to-end numbers of a bf16 training path: step ms, device ms
+    and busy share (``torch.profiler``), tokens/s (and samples/s), the
+    model-FLOP share at the bf16 dense rate (989 TFLOP/s) and, beside it,
+    at the fp32 rate (67), and peak memory."""
+    step_ms = wall / steps * 1e3
+    busy, top = device_profile(step_fn, 2, warmup=0, top=10)
+    row = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "bf16_model_flop_share": flops_per_step / (step_ms / 1e3)
+           / PEAK_FLOPS[torch.bfloat16],
+           "fp32_model_flop_share": flops_per_step / (step_ms / 1e3)
+           / PEAK_FLOPS[torch.float32],
+           "device_ms": busy, "device_busy_share": busy_share(busy, step_ms),
+           "peak_memory_gb": peak_gb, "top_kernels_ms": top,
+           "parameters": n_params}
+    if samples is not None:
+        row["samples_per_s"] = samples / (step_ms / 1e3)
+    row.update(extra or {})
+    print(f"{label} end to end [{card}]: " + json.dumps(row))
+    return row
+
+
+def check_first_loss(label, bf16_loss, fp32_loss):
+    rel = abs(bf16_loss - fp32_loss) / abs(fp32_loss)
+    print(f"{label}: first-step loss of the bf16 step {bf16_loss:.6f} vs "
+          f"the fp32 forward of the same weights {fp32_loss:.6f} "
+          f"({rel:.3e} relative, limit {BF16_LOSS_TOL})")
+    check(rel <= BF16_LOSS_TOL, f"{label}: the bf16 step's first loss "
+                                f"{bf16_loss} is {rel:.3e} relative off the "
+                                f"fp32 forward's {fp32_loss}")
+    return rel
+
+
+def phase_gpt_bf16(dev, card):
+    """GPT-2 124M trained in bf16 under amp.init (the slice's main path)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    print(f"== phase 16: bf16 training of GPT-2 124M under amp.init (full "
+          f"width, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, fp32 master "
+          f"weights, AdamW) on {card}", flush=True)
+    vocab = 50257
+    net = GPTForCausalLM(backbone=gpt2_124m(
+        vocab_size=vocab, max_length=TRAIN_SEQ, dropout=0.0,
+        embed_dropout=0.0, device=dev)).initialize(seed=0)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ids = torch.from_numpy(onp.random.RandomState(0).randint(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    with torch.no_grad():
+        ref = loss_fn(net(x), y).mean().item()
+    trainer = mx.gluon.Trainer(params, "adamw",
+                               {"learning_rate": 1e-4, "wd": 0.01})
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        mx.autograd.backward(loss)
+        trainer.step(TRAIN_BATCH)
+        return loss.detach().mean()
+
+    mx.amp.init("bfloat16")
+    try:
+        with torch.no_grad():
+            logits = net(x[:1, :16])
+        check(logits.dtype == torch.bfloat16,
+              f"the head's logits are {logits.dtype} under amp.init")
+        zero_all_counters()
+        first = step().item()
+        warm = all_launches()
+        rel = check_first_loss("GPT-2 124M", first, ref)
+        dtypes = {str(p.data().dtype) for p in params.values()}
+        check(dtypes == {"torch.float32"}, f"the master weights are "
+                                           f"{dtypes}, expected float32")
+        bad = [n for n, p in params.items()
+               if not (torch.isfinite(p.grad()).all().item() and (
+                   "key_proj.bias" in n or p.grad().abs().max().item() > 0))]
+        check(not bad, f"parameters without a finite, nonzero fp32 gradient "
+                       f"after step 1: {bad[:6]} ({len(bad)} in all)")
+        torch.cuda.reset_peak_memory_stats()
+        zero_all_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(BF16_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        events = kernel_events(step, 1, ("flash_fwd", "flash_bwd_dkv",
+                                         "flash_bwd_dq"))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        e2e = bf16_e2e(card, "GPT-2 124M bf16 training", wall,
+                       BF16_TRAIN_STEPS, n_params, tokens, None, step, peak,
+                       6 * n_params * tokens)
+    finally:
+        mx.amp._deactivate()
+    losses = [first] + [v.item() for v in losses]
+    per_step = dict(zip(LAUNCH_NAMES, [n / BF16_TRAIN_STEPS
+                                       for n in launches]))
+    print(f"losses {losses}; launches a step {per_step}; the flash kernels' "
+          f"own profiler events in one step {events}")
+    check(all(onp.isfinite(losses)) and losses[-1] < losses[0],
+          f"the bf16 GPT loss is not finite or did not fall: {losses}")
+    want = [N_LAYERS] * 3 + [0] * 6
+    check(launches == [w * BF16_TRAIN_STEPS for w in want]
+          and warm == want, f"launches {launches} in {BF16_TRAIN_STEPS} "
+                            f"steps (warm-up {warm}), expected {want} a step")
+    e2e.update(first_loss=first, fp32_forward_loss=ref,
+               first_loss_rel_diff=rel, losses=losses,
+               launches_per_step=per_step, profiler_events_per_step=events)
+    return launches, e2e
+
+
+def phase_bert_bf16(dev, card):
+    """BERT-base trained in bf16: net.cast("bfloat16") and multi_precision
+    AdamW (fp32 masters in the optimizer state)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+    print(f"== phase 17: bf16 training of BERT-base through net.cast("
+          f"'bfloat16') and multi_precision AdamW (full width, batch "
+          f"{BERT_BATCH} x seq {BERT_SEQ}, dropout 0.1) on {card}",
+          flush=True)
+    net = BERTForPretraining(
+        vocab_size=BERT_VOCAB, units=768, hidden_size=3072, num_layers=12,
+        num_heads=12, max_length=512, dropout=0.1, embed_dropout=0.1,
+        device=dev).initialize(seed=0)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    ids, types, valid, labels, weight, nsp = bert_batch(dev)
+    mlm_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nsp_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def forward_loss():
+        mlm, nsp_scores = net(ids, types, valid)
+        return mlm_loss(mlm, labels, weight) + nsp_loss(nsp_scores, nsp)
+
+    mx.random.seed(0)
+    with mx.autograd.train_mode():
+        ref = forward_loss().mean().item()
+    net.cast("bfloat16")
+    dtypes = {str(p.data().dtype) for p in params.values()}
+    check(dtypes == {"torch.bfloat16"}, f"net.cast left {dtypes}")
+    trainer = mx.gluon.Trainer(params, "adamw",
+                               {"learning_rate": 1e-4, "wd": 0.01,
+                                "multi_precision": True})
+
+    def step():
+        with mx.autograd.record():
+            loss = forward_loss()
+        mx.autograd.backward(loss)
+        trainer.step(BERT_BATCH)
+        return loss.detach().mean()
+
+    mx.random.seed(0)
+    zero_all_counters()
+    first = step().item()
+    warm = all_launches()
+    rel = check_first_loss("BERT-base", first, ref)
+    masters = {str(s[0].dtype) for s in trainer._updater.states.values()}
+    check(masters == {"torch.float32"}, f"the optimizer's masters are "
+                                        f"{masters}, expected float32")
+    bad = [n for n, p in params.items()
+           if not (torch.isfinite(p.grad()).all().item()
+                   and p.grad().abs().max().item() > 0)]
+    check(not bad, f"parameters without a finite, nonzero gradient after "
+                   f"step 1: {bad[:6]} ({len(bad)} in all)")
+    torch.cuda.reset_peak_memory_stats()
+    zero_all_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    events = kernel_events(step, 1, ("ln_residual_fwd", "ln_residual_bwd"))
+    losses = [first] + [v.item() for v in losses]
+    per_step = dict(zip(LAUNCH_NAMES, [n / BERT_STEPS for n in launches]))
+    print(f"losses {losses}; launches a step {per_step}; the ln_residual "
+          f"kernels' own profiler events in one step {events}")
+    check(all(onp.isfinite(losses)) and losses[-1] < losses[0],
+          f"the bf16 BERT loss is not finite or did not fall: {losses}")
+    want = [0, 0, 0, N_LAYERS, N_LAYERS, 0, 0, 0, 0]
+    check(launches == [w * BERT_STEPS for w in want] and warm == want,
+          f"launches {launches} in {BERT_STEPS} steps (warm-up {warm}), "
+          f"expected {want} a step")
+    tokens = BERT_BATCH * BERT_SEQ
+    e2e = bf16_e2e(card, "BERT-base bf16 training", wall, BERT_STEPS,
+                   n_params, tokens, BERT_BATCH, step, peak,
+                   6 * n_params * tokens,
+                   {"first_loss": first, "fp32_forward_loss": ref,
+                    "first_loss_rel_diff": rel, "losses": losses,
+                    "launches_per_step": per_step,
+                    "profiler_events_per_step": events})
+    del net, trainer
+    return launches, e2e
+
+
+def phase_resnet_bf16(dev, card):
+    """ResNet-50 v1 trained in bf16 under amp.init, fused_conv_bn "on"
+    (kernel 8's bf16 instantiation) and "off" (cuDNN bf16) from the same
+    weights, then "auto" by its rule."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.nn import fuse
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    print(f"== phase 18: bf16 training of ResNet-50 v1 under amp.init (full "
+          f"width, batch {RESNET_BATCH} x 3 x {RESNET_SIZE} x {RESNET_SIZE}, "
+          f"fp32 master weights, SGD lr 0.05 momentum 0.9) on {card}",
+          flush=True)
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev).initialize(seed=0)
+    x, y = resnet_batch(dev)
+    net(x)  # finishes the deferred shapes (inference: no statistics update)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values()
+                   if p.grad_req != "null")
+    start = {n: p.data().detach().clone() for n, p in params.items()}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+
+    with mx.autograd.train_mode():
+        ref = loss_fn(net(x), y).mean().item()
+    restore()
+
+    def run(mode, steps):
+        restore()
+        mx.config.set("fused_conv_bn", mode)
+        trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                                   "momentum": 0.9})
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            mx.autograd.backward(loss)
+            trainer.step(RESNET_BATCH)
+            return loss.detach().mean()
+
+        mx.amp.init("bfloat16")
+        try:
+            zero_all_counters()
+            first = step().item()
+            warm = all_launches()
+            torch.cuda.reset_peak_memory_stats()
+            zero_all_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step() for _ in range(steps)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = all_launches()
+            kernels = dict(cb.fused_conv3x3_bn_relu_bwd.kernel_launches)
+            shapes = dict(cb.fused_conv3x3_bn_relu_bwd.shape_launches)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            busy, top = device_profile(step, 2, warmup=0, top=8)
+        finally:
+            mx.amp._deactivate()
+            mx.config.reset("fused_conv_bn")
+        return dict(first=first, warm=warm, wall=wall, launches=launches,
+                    kernels=kernels, shapes=shapes, peak=peak, busy=busy,
+                    top=top, losses=[first] + [v.item() for v in losses])
+
+    want_shapes = {(n, h, w, c, c): t for (n, h, w, c), t
+                   in RESNET_STAGE_TRIPLETS.items()}
+    runs = {}
+    for mode in ("on", "off", "off", "on"):
+        r = run(mode, RESNET_STEPS)
+        fused = mode == "on"
+        want = [0] * 8 + [RESNET_TRIPLETS if fused else 0]
+        print(f"{mode}: losses {r['losses']}; launches in {RESNET_STEPS} "
+              f"steps {dict(zip(LAUNCH_NAMES, r['launches']))}; kernel 8's "
+              f"CUDA kernels {r['kernels']}; calls by (N, H, W, C, O) "
+              f"{r['shapes']}")
+        check(r["launches"] == [k * RESNET_STEPS for k in want]
+              and r["warm"] == want, f"'{mode}': launches {r['launches']} in "
+                                     f"{RESNET_STEPS} steps (warm-up "
+                                     f"{r['warm']}), expected {want} a step")
+        check(r["shapes"] == ({k: v * RESNET_STEPS for k, v
+                               in want_shapes.items()} if fused else {}),
+              f"'{mode}': kernel 8 bf16 calls by shape {r['shapes']}")
+        check(all(onp.isfinite(r["losses"])) and r["losses"][-1]
+              < r["losses"][0], f"'{mode}': the loss is not finite or did "
+                                f"not fall: {r['losses']}")
+        check_first_loss(f"ResNet-50 '{mode}'", r["first"], ref)
+        if mode in runs:
+            runs[mode]["wall_runs"].append(r["wall"])
+            runs[mode]["device_runs"].append(r["busy"])
+        else:
+            r["wall_runs"], r["device_runs"] = [r["wall"]], [r["busy"]]
+            runs[mode] = r
+    auto_fuses = torch.bfloat16 in fuse._AUTO_DTYPES
+    auto = run("auto", 2)
+    check(auto["launches"][8] == (RESNET_TRIPLETS * 2 if auto_fuses else 0),
+          f"'auto' launched kernel 8 bf16 {auto['launches'][8]} times in 2 "
+          f"steps; its rule {'fuses' if auto_fuses else 'does not fuse'} "
+          "bf16 triplets")
+    e2e = {"fp32_forward_loss": ref, "auto_fuses_bf16": auto_fuses,
+           "parameters": n_params}
+    for mode, r in runs.items():
+        step_ms = float(onp.median([w / RESNET_STEPS * 1e3
+                                    for w in r["wall_runs"]]))
+        dev_ms = [d for d in r["device_runs"] if d is not None]
+        row = {"step_ms": step_ms,
+               "step_ms_runs": [w / RESNET_STEPS * 1e3
+                                for w in r["wall_runs"]],
+               "images_per_s": RESNET_BATCH / step_ms * 1e3,
+               "bf16_model_flop_share": RESNET_BATCH * RESNET50_TRAIN_FLOPS
+               / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+               "fp32_model_flop_share": RESNET_BATCH * RESNET50_TRAIN_FLOPS
+               / (step_ms / 1e3) / PEAK_FLOPS[torch.float32],
+               "device_ms": float(onp.median(dev_ms)) if dev_ms else None,
+               "device_ms_runs": r["device_runs"],
+               "device_busy_share": busy_share(
+                   float(onp.median(dev_ms)) if dev_ms else None, step_ms),
+               "peak_memory_gb": r["peak"], "losses": r["losses"],
+               "first_loss": r["first"],
+               "first_loss_rel_diff": abs(r["first"] - ref) / abs(ref),
+               "kernel8_bf16_calls_per_step": r["launches"][8]
+               // RESNET_STEPS,
+               "kernel8_launches_per_step": {
+                   k: v // RESNET_STEPS for k, v in r["kernels"].items()
+                   if k.endswith("_bf16")},
+               "top_kernels_ms": r["top"]}
+        e2e[mode] = row
+        print(f"ResNet-50 bf16 training '{mode}' [{card}]: "
+              + json.dumps(row))
+    e2e["launches"] = runs["on"]["launches"][8]
+    per_shape = {k: v // RESNET_STEPS for k, v in runs["on"]["shapes"].items()}
+    del start, runs
+    return e2e, per_shape
+
+
+def conv_entry(errs, rows, launches, per_shape, bf16_launches,
+               bf16_per_shape):
     """Kernel 8's entry; ``per_shape`` is phase 13's read of the calls a
-    step by (N, H, W, C, O), which weights the per-step sums."""
+    step by (N, H, W, C, O), which weights the per-step sums;
+    ``bf16_per_shape`` phase 18's for the bf16 instantiation."""
     per_step = sum(per_shape.values())
     row = rows[CONV_STAGES[0]]
+    row16 = rows[CONV_STAGES[0] + ("bf16",)]
 
     def calls(n, h, w, c):
         return per_shape.get((n, h, w, c, c), 0)
 
-    def step_sum(value):
-        vals = [value(rows[s]) for s in CONV_STAGES]
+    def calls16(n, h, w, c):
+        return bf16_per_shape.get((n, h, w, c, c), 0)
+
+    def step_sum(value, tag=(), count=calls):
+        vals = [value(rows[s + tag]) for s in CONV_STAGES]
         if None in vals:
             return None
-        return sum(calls(*s) * v for s, v in zip(CONV_STAGES, vals))
+        return sum(count(*s) * v for s, v in zip(CONV_STAGES, vals))
 
     def kernel_ms(r):
         return (r["cuda_kernels_ms"] if r["cuda_kernels_ms"] is not None
@@ -2890,10 +3445,13 @@ def conv_entry(errs, rows, launches, per_shape):
         "route": "cuda",
         "source": SOURCE.format("conv_bwd"),
         "replaces": TPU_CONV.format(40),
-        "launches": launches,
+        "launches": launches + bf16_launches,
         "launches_by_path": {"resnet_train": launches,
-                             "resnet_int8_infer": 0},
-        "launches_per_step": {"resnet_train": per_step},
+                             "resnet_int8_infer": 0,
+                             "resnet_bf16_train": bf16_launches},
+        "launches_per_step": {"resnet_train": per_step,
+                              "resnet_bf16_train": sum(
+                                  bf16_per_shape.values())},
         "cuda_kernels_per_launch": ["conv_bwd_wsplit_kernel",
                                     "conv_bwd_dgrad_kernel",
                                     "conv_bwd_reduce_kernel (dx, where the "
@@ -2923,7 +3481,7 @@ def conv_entry(errs, rows, launches, per_shape):
             "bound_3xtf32_ms": r["bound_3xtf32_ms"],
             "composition_ms": pick(r, "composition"),
             "launches_per_step": calls(n, h, w, c)}
-            for (n, h, w, c), r in rows.items()},
+            for (n, h, w, c), r in ((s, rows[s]) for s in CONV_STAGES)},
         "ms_per_step": step_sum(kernel_ms),
         "composition_ms_per_step": step_sum(lambda r: pick(r,
                                                            "composition")),
@@ -2931,6 +3489,37 @@ def conv_entry(errs, rows, launches, per_shape):
         "bound_3xtf32_ms_per_step": step_sum(lambda r: r["bound_3xtf32_ms"]),
         "call_ms_with_stats_pass_per_step": step_sum(lambda r: pick(
             r, "kernel")),
+        "bf16_cuda_kernels_per_launch": [
+            "conv_bwd_wcopy_bf16_kernel", "conv_bwd_dgrad_bf16_kernel",
+            "conv_bwd_reduce_kernel<bf16> (dx, where the output channels "
+            "split)", "conv_bwd_wgrad_bf16_kernel",
+            "conv_bwd_reduce_kernel<bf16> (dw, where the pixels split)"],
+        "bf16_max_abs_err": errs["bf16"]["max_abs_err"],
+        "bf16_max_rel_err": errs["bf16"]["max_rel_err"],
+        "bf16_max_excess_over_one_ulp_allowance":
+            errs["bf16"]["max_excess_over_allowance"],
+        "bf16_ms": kernel_ms(row16),
+        "bf16_call_ms_with_stats_pass": pick(row16, "kernel"),
+        "bf16_plain_ms": pick(row16, "plain"),
+        "bf16_bound_ms": row16["bound_ms"],
+        "bf16_bound_by": row16["bound_by"],
+        "bf16_composition_ms": pick(row16, "composition"),
+        "bf16_composition": "autograd backward of F.conv2d (bf16) -> "
+                            "F.batch_norm(training=True, fp32 gamma and "
+                            "beta) -> relu (cuDNN)",
+        "bf16_by_shape": {f"N={n} H={h} W={w} C=O={c}": {
+            "ms": kernel_ms(r), "call_ms_with_stats_pass": pick(r, "kernel"),
+            "plain_ms": pick(r, "plain"), "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "composition_ms": pick(r, "composition"),
+            "launches_per_step": calls16(n, h, w, c)}
+            for (n, h, w, c), r in ((s, rows[s + ("bf16",)])
+                                    for s in CONV_STAGES)},
+        "bf16_ms_per_step": step_sum(kernel_ms, ("bf16",), calls16),
+        "bf16_composition_ms_per_step": step_sum(
+            lambda r: pick(r, "composition"), ("bf16",), calls16),
+        "bf16_bound_ms_per_step": step_sum(lambda r: r["bound_ms"],
+                                           ("bf16",), calls16),
     }
 
 
@@ -3158,6 +3747,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     resnet_int8_e2e = timed("15", phase_resnet_int8, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt16_launches, gpt16_e2e = timed("16", phase_gpt_bf16, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert16_launches, bert16_e2e = timed("17", phase_bert_bf16, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet16_e2e, resnet16_shapes = timed("18", phase_resnet_bf16, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -3188,17 +3786,31 @@ def main():
     ]
     for entry in entries:
         entry["launches_by_path"].update(resnet_paths)
+    # the bf16 paths: flash (rows 1-3) on GPT, ln_residual (rows 4-5) on
+    # BERT; all_launches() lists flash fwd/dkv/dq, ln fwd/bwd first
+    for i, entry in enumerate(entries):
+        by_path = {"gpt_bf16_train": gpt16_launches[i] if i < 5 else 0,
+                   "bert_bf16_train": bert16_launches[i] if i < 5 else 0,
+                   "resnet_bf16_train": 0}
+        entry["launches"] += sum(by_path.values())
+        entry["launches_by_path"].update(by_path)
     int8 = entries[-1]
     int8["launches"] += resnet_int8_e2e["launches"]
     int8["launches_by_path"]["resnet_int8_infer"] = \
         resnet_int8_e2e["launches"]
-    entries.append(conv_entry(conv_errs, conv_rows, resnet_e2e["launches"],
-                              resnet_shapes))
+    conv = conv_entry(conv_errs, conv_rows, resnet_e2e["launches"],
+                      resnet_shapes, resnet16_e2e["launches"],
+                      resnet16_shapes)
+    conv["launches_by_path"].update(gpt_bf16_train=0, bert_bf16_train=0)
+    entries.append(conv)
     print(json.dumps({"kernels": entries, "train": train_e2e,
                       "bert_train": bert_e2e, "fp8_train": fp8_e2e,
                       "bert_int8_infer": int8_e2e,
                       "resnet_train": resnet_e2e,
-                      "resnet_int8_infer": resnet_int8_e2e}))
+                      "resnet_int8_infer": resnet_int8_e2e,
+                      "gpt_bf16_train": gpt16_e2e,
+                      "bert_bf16_train": bert16_e2e,
+                      "resnet_bf16_train": resnet16_e2e}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -91,7 +91,9 @@ declare("fused_ln_residual", str, "auto", "MXNET_FUSED_LN_RESIDUAL",
 declare("fused_conv_bn", str, "auto", "MXNET_FUSED_CONV_BN",
         "Fused conv3x3+BatchNorm+ReLU training route of "
         "nn.FusableSequential, whose backward is kernel 8: 'auto' (an "
-        "eligible triplet on a float32 CUDA tensor; the reference's 'auto' "
+        "eligible triplet on a CUDA tensor whose triplet runs in float32 "
+        "after the AMP policy, bf16 being faster through cuDNN on the H100; "
+        "the reference's 'auto' "
         "is off, from a TPU v5e A/B, a TPU fact not carried over), 'on' "
         "(every eligible triplet, on the CPU through the kernel's plain "
         "version), 'off' (child by child).")
@@ -115,6 +117,10 @@ declare("amp.fp8_margin", float, 1.0, "MXNET_AMP_FP8_MARGIN",
 declare("amp.fp8_min_elems", int, 256, "MXNET_AMP_FP8_MIN_ELEMS",
         "Smallest 2-D '.weight' parameter (elements) the fp8 training "
         "path quantizes; smaller layers stay in fp32.")
+declare("trainer.skip_nonfinite", bool, False, "MXNET_TRAINER_SKIP_NONFINITE",
+        "Trainer.step skips (and counts) updates whose global grad norm "
+        "is non-finite instead of poisoning the weights; automatic when "
+        "an AMP loss scaler is attached.")
 declare("serve.max_slots", int, 8, "MXNET_SERVE_MAX_SLOTS",
         "Decode slots in the serve engine: the fixed batch dimension of "
         "the decode step and of every preallocated KV-cache tensor.")

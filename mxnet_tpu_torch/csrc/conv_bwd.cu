@@ -1,10 +1,13 @@
-// Fused conv3x3 + BatchNorm + ReLU backward for Hopper (sm_90a), fp32,
-// NCHW: kernel 8 of the port.
+// Fused conv3x3 + BatchNorm + ReLU backward for Hopper (sm_90a), fp32 and
+// bf16, NCHW: kernel 8 of the port.
 //
 // Replaces the TPU kernel of mxnet_tpu/ops/pallas_conv_bwd.py:
 //   conv_bwd_wsplit_kernel, conv_bwd_dgrad_kernel, conv_bwd_wgrad_kernel
 //   (+ conv_bwd_reduce_kernel) <- _bwd_kernel (launched by
-//   fused_conv3x3_bn_relu_bwd).
+//   fused_conv3x3_bn_relu_bwd), fp32; and its bf16 instantiation,
+//   conv_bwd_wcopy_bf16_kernel, conv_bwd_dgrad_bf16_kernel,
+//   conv_bwd_wgrad_bf16_kernel (+ conv_bwd_reduce_kernel storing bf16),
+//   described at "the bf16 instantiation" below.
 // Inputs: da and y (N, O, H, W), x (N, C, H, W), the weights w (O, C, 3,
 // 3), and the stats pass's (8, O) vector vec = [mu, inv, gamma, beta, c1,
 // c2, s1, 0]. The kernels recompute, each operation rounded on its own (no
@@ -94,6 +97,7 @@
 // the caller's stream, allocates nothing and is checked with
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -661,23 +665,469 @@ conv_bwd_wgrad_kernel(const float* __restrict__ vec,
   }
 }
 
-// out = sum over splits of the partials, in split order
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// out = sum over splits of the fp32 partials, in split order (stored in
+// bf16 for the bf16 instantiation)
+template <typename OutT>
 __global__ void conv_bwd_reduce_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int splits,
+                                       OutT* __restrict__ out, int splits,
                                        size_t count) {
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < count; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < splits; ++k) s += part[k * count + i];
-    out[i] = s;
+    store_out(out + i, s);
   }
 }
 
-cudaError_t launch_reduce(const float* part, float* out, int splits, size_t count,
-                   cudaStream_t stream) {
+template <typename OutT>
+cudaError_t launch_reduce(const float* part, OutT* out, int splits,
+                          size_t count, cudaStream_t stream) {
   const size_t blocks = (count + 255) / 256;
-  conv_bwd_reduce_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
-                           256, 0, stream>>>(part, out, splits, count);
+  conv_bwd_reduce_kernel<OutT>
+      <<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+          part, out, splits, count);
+  return cudaGetLastError();
+}
+
+// -- the bf16 instantiation ----------------------------------------------------
+//
+// The reference's kernel at bf16 (pallas_conv_bwd.py:61-95, 153-163): dy
+// recomputed in fp32 as above and rounded to bf16 (da's dtype), each
+// product a bf16 x bf16 product summed in fp32 (mma.sync m16n8k16: one
+// instruction where fp32 takes three TF32 products), dx stored in bf16 (x's
+// dtype), dw summed in fp32 and stored in bf16 (w's dtype). The structure
+// is the fp32 kernels': the padded grid, dgrad over 128 places x 64 input
+// channels with a two-stage cp.async ring of weight tiles, wgrad over 32 x
+// 32 channels x 9 taps with one warp a tap, the same runs (fp32 partials
+// summed in a fixed order by a reduce pass where the reduction splits), no
+// atomics. What differs:
+// - A chunk of dgrad's reduction is 16 output channels (one k16 step). A
+//   row of 16 bf16 is 8 words, the fp32 chunk's row, so the dy plane, the
+//   weight tiles, their swizzle and the ldmatrix addressing are the fp32
+//   kernel's; there is no split and no lo plane.
+// - The weights are copied once into [9][C][Opad] bf16 (Opad = O rounded
+//   up to 16), dgrad's layout (conv_bwd_wcopy_bf16_kernel).
+// - da, y and x are 2-byte values at places with no 4-byte alignment,
+//   below cp.async's smallest copy: both kernels read them with plain
+//   loads (dy recomputed on the way into shared memory) between their
+//   barriers, so only dgrad's weight tiles overlap the products. This is
+//   the simple first design; its time is in PERF.md.
+// - wgrad's x operand is gathered from the halo through the pixels' table,
+//   two 16-bit values to a register.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBChunk = 16;            // dgrad: output channels a chunk
+constexpr int kWgLdB = kWgPixels + 8;  // wgrad: dy tile row stride (bf16),
+                                       // 144 bytes: 8 ldmatrix rows hit 8
+                                       // bank groups
+
+// x halo row stride (bf16): 4 mod 8 words
+__host__ __device__ inline int wgrad_xs_bf16(int xh) {
+  return cdiv(xh, 16) * 16 + 8;
+}
+
+__host__ __device__ inline size_t dgrad_bf16_smem_bytes(int W) {
+  const int halo = dgrad_halo(W);
+  return sizeof(uint32_t) * (2 * static_cast<size_t>(kWTile) +
+                             static_cast<size_t>(halo) * kChunk +
+                             kStats * kBChunk + halo);
+}
+
+inline size_t wgrad_bf16_smem_bytes(int H, int W, int PR, int PC) {
+  const int xh = wgrad_halo(H, W, PR, PC);
+  return sizeof(bf16) * (static_cast<size_t>(kWgRows) * kWgLdB +
+                         static_cast<size_t>(kWgCols) * wgrad_xs_bf16(xh)) +
+         sizeof(uint32_t) * (2 * kWgPixels + static_cast<size_t>(xh) + 1 +
+                             kStats * kWgRows);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w (O, C, 3, 3) bf16 -> wb [9][C][Opad] bf16, zero for o >= O; a 32 x 32
+// tile of the (O, 9C) matrix a block, transposed through shared memory
+__global__ void __launch_bounds__(256)
+conv_bwd_wcopy_bf16_kernel(const unsigned short* __restrict__ w,
+                           unsigned short* __restrict__ wb, int C, int O,
+                           int Opad) {
+  __shared__ unsigned short t[32][34];
+  const int K9 = kTaps * C;
+  const int q0 = blockIdx.x * 32, o0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += 8) {
+    const int o = o0 + r, q = q0 + tx;
+    t[r][tx] = o < O && q < K9 ? w[static_cast<size_t>(o) * K9 + q]
+                               : static_cast<unsigned short>(0);
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int q = q0 + r, o = o0 + tx;
+    if (q >= K9 || o >= Opad) continue;
+    const int c = q / kTaps, tap = q - c * kTaps;
+    wb[(static_cast<size_t>(tap) * C + c) * Opad + o] = t[tx][r];
+  }
+}
+
+// dx (or an fp32 partial of it) for 128 places x 64 input channels, over
+// the 16-channel chunks [blockIdx.z * cps, min(chunks, (blockIdx.z+1) cps))
+template <typename OutT>
+__global__ void __launch_bounds__(kDgThreads, 2)
+conv_bwd_dgrad_bf16_kernel(const float* __restrict__ vec,
+                           const bf16* __restrict__ da,
+                           const bf16* __restrict__ y,
+                           const bf16* __restrict__ wb,
+                           OutT* __restrict__ out, int N, int H, int W, int C,
+                           int O, int Opad, int cps) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Wp = W + 1, HW = H * W, P = N * (H + 1) * Wp;
+  const int halo = dgrad_halo(W);
+  uint32_t* wring = sm;                 // [2 stages][9][64][8 words]
+  uint32_t* hs = sm + 2 * kWTile;       // dy plane [halo][8 words]
+  float* sstat = reinterpret_cast<float*>(hs + halo * kChunk);  // [7][16]
+  int* pix = reinterpret_cast<int*>(sstat + kStats * kBChunk);   // [halo]
+  const int p0 = blockIdx.x * kDgRows;
+  const int cb = blockIdx.y * kDgCols;
+  const int c_begin = blockIdx.z * cps;
+  const int c_end = min(cdiv(O, kBChunk), c_begin + cps);
+
+  for (int q = tid; q < halo; q += kDgThreads)
+    pix[q] = place_offset(p0 - Wp - 1 + q, H, W, P, O);
+  __syncthreads();
+
+  // chunk ci's stats and its 9 weight tiles into stage st of the ring
+  auto issue = [&](int ci, int st) {
+    const int o0 = ci * kBChunk;
+    if (tid < kStats * kBChunk) {
+      const int r = tid / kBChunk, o = o0 + tid % kBChunk;
+      cp_async4(sstat + tid,
+                vec + static_cast<size_t>(r) * O + (o < O ? o : 0), o < O);
+    }
+    uint32_t* ws = wring + st * kWTile;
+    for (int i = tid; i < kTaps * kDgCols * 2; i += kDgThreads) {
+      const int half = i & 1, row = (i >> 1) % kDgCols;
+      const int tap = (i >> 1) / kDgCols;
+      const bool ok = cb + row < C;
+      const bf16* src = wb +
+                        (static_cast<size_t>(tap) * C + (ok ? cb + row : 0)) *
+                            Opad +
+                        ci * kBChunk + half * 8;
+      cp_async16(ws + (tap * kDgCols + row) * kChunk + swz(row, half), src,
+                 ok);
+    }
+    cp_async_commit();
+  };
+
+  // dy of chunk ci, rounded to bf16, into the plane: a thread takes all 16
+  // channels of every 256th place (lanes along places: coalesced loads)
+  auto convert = [&](int ci) {
+    const int o0 = ci * kBChunk;
+    for (int q = tid; q < halo; q += kDgThreads) {
+      const int off = pix[q];
+      uint32_t wv[kChunk];
+#pragma unroll
+      for (int j = 0; j < kBChunk; j += 2) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = o0 + j + e;
+          const bool ok = off >= 0 && o < O;
+          const size_t g = ok ? off + static_cast<size_t>(o) * HW : 0;
+          const float a = __bfloat162float(da[g]);
+          const float b = __bfloat162float(y[g]);
+          float s[kStats];
+#pragma unroll
+          for (int r = 0; r < kStats; ++r) s[r] = sstat[r * kBChunk + j + e];
+          v[e] = ok ? recompute_dy(a, b, s) : 0.f;
+        }
+        wv[j / 2] = pack_bf16x2(v[0], v[1]);
+      }
+      *reinterpret_cast<uint4*>(hs + q * kChunk + swz(q, 0)) =
+          make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      *reinterpret_cast<uint4*>(hs + q * kChunk + swz(q, 1)) =
+          make_uint4(wv[4], wv[5], wv[6], wv[7]);
+    }
+  };
+
+  // warp tile: places wm*32.., channels wn*32.., addressed as the fp32
+  // kernel's (a row of 16 bf16 is a row of 8 words)
+  const int wm = warp & 3, wn = warp >> 2;
+  const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_kc = lane >> 4;
+  const uint32_t a_base = smem_addr(hs);
+  uint32_t b_base[2];
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int n = wn * 32 + jj * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
+    b_base[jj] = smem_addr(wring) + 4 * (n * kChunk + swz(n, (lane >> 3) & 1));
+  }
+  float acc[2][4][4] = {};
+
+  auto products = [&](int st) {
+    const uint32_t ws = 4 * st * kWTile;
+#pragma unroll
+    for (int tap = 0; tap < kTaps; ++tap) {
+      const int kh = tap / 3, kw = tap - 3 * kh;
+      const int q = a_row + (2 - kh) * Wp + (2 - kw);
+      const uint32_t a = a_base + 4 * (q * kChunk + swz(q, a_kc));
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ldsm_x4_at(af[i], a + 4 * 16 * kChunk * i);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t bh[4];
+        ldsm_x4_at(bh, b_base[jj] + ws + 4 * tap * kDgCols * kChunk);
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            mma_bf16(acc[i][2 * jj + jt], af[i], bh[2 * jt], bh[2 * jt + 1]);
+        }
+      }
+    }
+  };
+
+  if (c_begin < c_end) issue(c_begin, 0);
+  int st = 0;
+  for (int ci = c_begin; ci < c_end; ++ci, st ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci's tiles landed; every warp is past ci-1
+    convert(ci);
+    __syncthreads();  // chunk ci's dy plane is written, its stats read
+    if (ci + 1 < c_end) issue(ci + 1, st ^ 1);
+    products(st);
+  }
+
+  OutT* dst = out + static_cast<size_t>(blockIdx.z) * N * C * HW;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = place_offset(p0 + wm * 32 + 16 * i + g + 8 * h, H, W,
+                                   P, C);
+      if (off < 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = cb + wn * 32 + 8 * j + 2 * t + e;
+          if (c < C)
+            store_out(dst + off + static_cast<size_t>(c) * HW,
+                      acc[i][j][2 * h + e]);
+        }
+      }
+    }
+  }
+}
+
+// dw (or an fp32 partial of it) for 32 output x 32 input channels x 9
+// taps, over the chunks [blockIdx.z * cps, min(chunks, (blockIdx.z+1) cps))
+template <typename OutT>
+__global__ void __launch_bounds__(kWgThreads, 2)
+conv_bwd_wgrad_bf16_kernel(const float* __restrict__ vec,
+                           const bf16* __restrict__ da,
+                           const bf16* __restrict__ y,
+                           const unsigned short* __restrict__ x,
+                           OutT* __restrict__ out, int N, int H, int W, int C,
+                           int O, int PR, int PC, int cps) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Wp = W + 1, HW = H * W, M = N * HW, P = N * (H + 1) * Wp;
+  const int XH = wgrad_halo(H, W, PR, PC), XS = wgrad_xs_bf16(XH);
+  const int HS = PR ? PC + 2 : Wp;  // the x halo's row stride
+  const int per_image = PR ? (H / PR) * (W / PC) : 0;
+  bf16* dys = reinterpret_cast<bf16*>(sm);  // [32][kWgLdB]
+  unsigned short* xs =
+      reinterpret_cast<unsigned short*>(dys + kWgRows * kWgLdB);  // [32][XS]
+  int* kpix = reinterpret_cast<int*>(xs + kWgCols * XS);  // [64]
+  int* koff = kpix + kWgPixels;                            // [64]
+  int* xpix = koff + kWgPixels;                            // [XH]
+  int* xlen = xpix + XH;                                   // [1]
+  float* sstat = reinterpret_cast<float*>(xlen + 1);       // [7][32]
+  const int cb = blockIdx.x * kWgCols, ob = blockIdx.y * kWgRows;
+  const int total = PR ? N * per_image : cdiv(M, kWgPixels);
+  const int kb = blockIdx.z * cps;
+  const int chunks = min(total - kb, cps);
+
+  for (int i = tid; i < kStats * kWgRows; i += kWgThreads) {
+    const int r = i / kWgRows, o = ob + i % kWgRows;
+    sstat[i] = o < O ? vec[static_cast<size_t>(r) * O + o] : 0.f;
+  }
+
+  // chunk kb+ci's tables, as the fp32 kernel's (one set)
+  auto tables = [&](int ci) {
+    int len;
+    if (PR == 0) {  // 64 consecutive pixels, past M continuing in zeros
+      const int k0 = (kb + ci) * kWgPixels;
+      const int xb = place_of(k0, H, W) - Wp - 1;
+      len = place_of(k0 + kWgPixels - 1, H, W) + Wp + 2 - xb;
+      if (tid < kWgPixels) {
+        const int m = k0 + tid;
+        kpix[tid] = m < M ? (m / HW) * O * HW + (m - (m / HW) * HW) : -1;
+        koff[tid] = place_of(m, H, W) - xb;
+      }
+      for (int q = tid; q < len; q += kWgThreads)
+        xpix[q] = place_offset(xb + q, H, W, P, C);
+    } else {  // a PR x PC patch from (r0, c0) of image n
+      const int n = (kb + ci) / per_image, rem = kb + ci - n * per_image;
+      const int band = rem / (W / PC);
+      const int r0 = band * PR, c0 = (rem - band * (W / PC)) * PC;
+      len = XH;
+      if (tid < kWgPixels) {
+        const int kr = tid / PC, kc = tid - kr * PC;
+        const bool in = tid < PR * PC;
+        kpix[tid] = in ? n * O * HW + (r0 + kr) * W + c0 + kc : -1;
+        koff[tid] = in ? (kr + 1) * HS + kc + 1 : (PR + 3) * HS + 1;
+      }
+      for (int q = tid; q < len; q += kWgThreads) {
+        const int hr = q / HS, r = r0 - 1 + hr, c = c0 - 1 + q - hr * HS;
+        xpix[q] = hr < PR + 2 && r >= 0 && r < H && c >= 0 && c < W
+                      ? n * C * HW + r * W + c
+                      : -1;
+      }
+    }
+    if (tid == 0) *xlen = len;
+  };
+
+  // dy (threads 0..255: pixel tid % 64, channels tid / 64 + 4i) rounded to
+  // bf16, and the x halo, into shared memory
+  auto load = [&]() {
+    if (tid < 256) {
+      const int k = tid & (kWgPixels - 1), off = kpix[k];
+#pragma unroll 4
+      for (int o = tid >> 6; o < kWgRows; o += 4) {
+        const bool ok = off >= 0 && ob + o < O;
+        const size_t g = ok ? off + static_cast<size_t>(ob + o) * HW : 0;
+        const float a = __bfloat162float(da[g]);
+        const float b = __bfloat162float(y[g]);
+        float s[kStats];
+#pragma unroll
+        for (int r = 0; r < kStats; ++r) s[r] = sstat[r * kWgRows + o];
+        dys[o * kWgLdB + k] = __float2bfloat16_rn(ok ? recompute_dy(a, b, s)
+                                                     : 0.f);
+      }
+    }
+    const int len = *xlen;
+    for (int q = tid; q < len; q += kWgThreads) {
+      const int off = xpix[q];
+#pragma unroll 8
+      for (int c = 0; c < kWgCols; ++c) {
+        const bool ok = off >= 0 && cb + c < C;
+        const unsigned short v =
+            x[ok ? off + static_cast<size_t>(cb + c) * HW : 0];
+        xs[c * XS + q] = ok ? v : static_cast<unsigned short>(0);
+      }
+    }
+  };
+
+  // warp `tap`: dw[.., .., kh, kw], reading x at the pixel's place + shift
+  const int tap = warp, kh = tap / 3, kw = tap - 3 * kh;
+  const int shift = (kh - 1) * HS + (kw - 1);
+  const int g = lane >> 2, t = lane & 3;
+  // bytes: this lane's ldmatrix row of the dy tile
+  const uint32_t a_base =
+      smem_addr(dys) + 2 * ((lane & 15) * kWgLdB + (lane >> 4) * 8);
+  float acc[2][4][4] = {};
+  auto products = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kWgPixels / 16; ++kk) {
+      const int k0 = kk * 16 + 2 * t;
+      const int q0 = koff[k0] + shift, q1 = koff[k0 + 1] + shift;
+      const int q2 = koff[k0 + 8] + shift, q3 = koff[k0 + 9] + shift;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_at(af[i], a_base + 2 * (16 * i * kWgLdB + 16 * kk));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned short* row = xs + (8 * j + g) * XS;
+        const uint32_t b0 = row[q0] | (static_cast<uint32_t>(row[q1]) << 16);
+        const uint32_t b1 = row[q2] | (static_cast<uint32_t>(row[q3]) << 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], af[i], b0, b1);
+      }
+    }
+  };
+
+  for (int ci = 0; ci < chunks; ++ci) {
+    __syncthreads();  // every warp is past chunk ci-1 (and sstat is set)
+    tables(ci);
+    __syncthreads();
+    load();
+    __syncthreads();
+    products();
+  }
+
+  OutT* dst = out + static_cast<size_t>(blockIdx.z) * O * kTaps * C;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = ob + 16 * i + g + 8 * h;
+      if (o >= O) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = cb + 8 * j + 2 * t + e;
+          if (c < C)
+            store_out(dst + (static_cast<size_t>(o) * C + c) * kTaps + tap,
+                      acc[i][j][2 * h + e]);
+        }
+      }
+    }
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_dgrad_bf16(const float* vec, const bf16* da, const bf16* y,
+                              const bf16* wb, OutT* out, int N, int H, int W,
+                              int C, int O, int Opad, int dsplits, int cps,
+                              cudaStream_t stream) {
+  const size_t smem = dgrad_bf16_smem_bytes(W);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_bwd_dgrad_bf16_kernel<OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int P = N * (H + 1) * (W + 1);
+  conv_bwd_dgrad_bf16_kernel<OutT>
+      <<<dim3(cdiv(P, kDgRows), cdiv(C, kDgCols), dsplits), kDgThreads, smem,
+         stream>>>(vec, da, y, wb, out, N, H, W, C, O, Opad, cps);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_wgrad_bf16(const float* vec, const bf16* da, const bf16* y,
+                              const unsigned short* x, OutT* out, int N,
+                              int H, int W, int C, int O, int splits,
+                              int cps_w, cudaStream_t stream) {
+  int PR, PC;
+  wgrad_patch(H, W, PR, PC);
+  const size_t smem = wgrad_bf16_smem_bytes(H, W, PR, PC);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_bwd_wgrad_bf16_kernel<OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  conv_bwd_wgrad_bf16_kernel<OutT>
+      <<<dim3(cdiv(C, kWgCols), cdiv(O, kWgRows), splits), kWgThreads, smem,
+         stream>>>(vec, da, y, x, out, N, H, W, C, O, PR, PC, cps_w);
   return cudaGetLastError();
 }
 
@@ -745,6 +1195,63 @@ int conv3x3_bn_relu_bwd(const float* vec, const float* da, const float* y,
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(launch_reduce(wpart, dw, splits,
                                  static_cast<size_t>(O) * kTaps * C, stream));
+}
+
+// Shared memory of the bf16 dgrad and wgrad kernels at this H x W, in
+// bytes.
+void conv3x3_bn_relu_bwd_bf16_smem(int H, int W, size_t* dgrad,
+                                   size_t* wgrad) {
+  int PR, PC;
+  wgrad_patch(H, W, PR, PC);
+  *dgrad = dgrad_bf16_smem_bytes(W);
+  *wgrad = wgrad_bf16_smem_bytes(H, W, PR, PC);
+}
+
+// The bf16 instantiation: da, y, x, w, dx and dw bf16 (their bits, as
+// 16-bit words), vec (8, O) fp32; wb (9, C, Opad) bf16 scratch for the
+// copied weights (Opad = O rounded up to 16); dpart (dsplits, N, C, H, W)
+// and wpart (splits, O, 9C) fp32 when split (else unused). dgrad cuts the
+// ceil(O/16) output-channel chunks into runs of `cps`, dsplits of them;
+// wgrad cuts the pixels as the fp32 entry does. Returns the first launch
+// error, or 0.
+int conv3x3_bn_relu_bwd_bf16(const float* vec, const void* da, const void* y,
+                             const void* x, const void* w, void* wb, void* dx,
+                             void* dw, float* dpart, float* wpart, int N,
+                             int H, int W, int C, int O, int dsplits, int cps,
+                             int splits, int cps_w, cudaStream_t stream) {
+  const int Opad = cdiv(O, kBChunk) * kBChunk;
+  const auto* da_b = static_cast<const bf16*>(da);
+  const auto* y_b = static_cast<const bf16*>(y);
+  conv_bwd_wcopy_bf16_kernel<<<dim3(cdiv(kTaps * C, 32), cdiv(Opad, 32)), 256,
+                               0, stream>>>(
+      static_cast<const unsigned short*>(w), static_cast<unsigned short*>(wb),
+      C, O, Opad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* wb_b = static_cast<const bf16*>(wb);
+  if (dsplits > 1) {
+    err = launch_dgrad_bf16<float>(vec, da_b, y_b, wb_b, dpart, N, H, W, C, O,
+                                   Opad, dsplits, cps, stream);
+    if (err == cudaSuccess)
+      err = launch_reduce(dpart, static_cast<bf16*>(dx), dsplits,
+                               static_cast<size_t>(N) * C * H * W, stream);
+  } else {
+    err = launch_dgrad_bf16<bf16>(vec, da_b, y_b, wb_b, static_cast<bf16*>(dx),
+                                  N, H, W, C, O, Opad, 1, cps, stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* x_u = static_cast<const unsigned short*>(x);
+  if (splits > 1) {
+    err = launch_wgrad_bf16<float>(vec, da_b, y_b, x_u, wpart, N, H, W, C, O,
+                                   splits, cps_w, stream);
+    if (err == cudaSuccess)
+      err = launch_reduce(wpart, static_cast<bf16*>(dw), splits,
+                               static_cast<size_t>(O) * kTaps * C, stream);
+  } else {
+    err = launch_wgrad_bf16<bf16>(vec, da_b, y_b, x_u, static_cast<bf16*>(dw),
+                                  N, H, W, C, O, 1, cps_w, stream);
+  }
+  return static_cast<int>(err);
 }
 
 const char* conv3x3_bn_relu_bwd_error_string(int code) {

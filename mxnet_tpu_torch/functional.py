@@ -21,8 +21,12 @@ def param_arrays(block):
     known (a deferred one, whose first forward has not run, is left out, as
     the reference leaves out parameters without data). A copy on the CPU
     too, where ``Tensor.numpy()`` would share the parameter's memory and
-    follow its in-place updates."""
-    return {name: p.data().detach().cpu().numpy().copy()
+    follow its in-place updates. bf16, which numpy lacks, comes widened to
+    fp32 (exactly: ``load_params`` rounds it back into a bf16 parameter)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return {name: host(p.data())
             for name, p in block.collect_params().items()
             if p._shape_known()}
 

@@ -85,6 +85,15 @@ class HybridBlock(nn.Module):
         for p in self.collect_params().values():
             setattr(p, name, value)
 
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype`` (a dtype or its name;
+        reference: block.py ``cast``, the bf16 training path with
+        ``multi_precision``); returns the block."""
+        for p in self.collect_params().values():
+            p.cast(dtype)
+        self._dtype = dtype
+        return self
+
     def zero_grad(self):
         """Zero every parameter's gradient buffer in place (the reference's
         ``Block.zero_grad``)."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import amp
 from ..ops.xent import sparse_softmax_xent
 from .block import HybridBlock
 
@@ -36,7 +37,10 @@ class Loss(HybridBlock):
 
     def _mean(self, loss):
         axes = tuple(i for i in range(loss.ndim) if i != self._batch_axis)
-        return loss.mean(dim=axes) if axes else loss
+        if not axes:
+            return loss
+        loss, = amp._maybe_cast_op_inputs("mean", (loss,))
+        return loss.mean(dim=axes)
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -52,9 +56,13 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits and self._sparse_label:
+            # dispatched under its own name, in no AMP list: the logits keep
+            # their dtype (the op sums in fp32 and returns fp32)
+            pred, = amp._maybe_cast_op_inputs("sparse_softmax_xent", (pred,))
             loss = sparse_softmax_xent(pred, label, self._axis)
         else:
             if not self._from_logits:
+                pred, = amp._maybe_cast_op_inputs("log_softmax", (pred,))
                 pred = torch.log_softmax(pred, dim=self._axis)
             if self._sparse_label:
                 # npx.pick(mode='clip'): out-of-range labels clamp

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
 from ... import numpy_extension as npx
 from ...context import resolve_device
 from ..block import HybridBlock
@@ -100,8 +101,10 @@ class BERTForPretraining(HybridBlock):
         seq, pooled = self.backbone(inputs, token_types, valid_length)
         h = self.mlm_ln(npx.leaky_relu(self.mlm_dense(seq), act_type="gelu"))
         # tied decoder: logits = h @ word_embed.weight.T + bias
-        mlm_scores = torch.matmul(h, self.backbone.word_embed.weight.t()) \
-            + self.mlm_bias
+        # the reference's np.dot, dispatched (and cast by AMP) as "dot"
+        hd, w = amp._maybe_cast_op_inputs(
+            "dot", (h, self.backbone.word_embed.weight))
+        mlm_scores = torch.matmul(hd, w.t()) + self.mlm_bias
         return mlm_scores, self.nsp_classifier(pooled)
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
 from ...context import resolve_device
 from ..block import HybridBlock, recording_gate
 from ..nn import Dropout, Embedding, LayerNorm
@@ -98,7 +99,10 @@ class GPTForCausalLM(HybridBlock):
             else GPTModel(device=device, **kwargs)
 
     def _head(self, h):
-        return torch.matmul(h, self.backbone.word_embed.weight.t())
+        # the reference's np.dot, dispatched (and cast by AMP) as "dot"
+        h, w = amp._maybe_cast_op_inputs(
+            "dot", (h, self.backbone.word_embed.weight))
+        return torch.matmul(h, w.t())
 
     def forward(self, inputs):
         return self._head(self.backbone(inputs))

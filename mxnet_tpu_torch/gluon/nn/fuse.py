@@ -11,7 +11,11 @@ runs child by child.
 
 The ``fused_conv_bn`` knob (``config.py``): "off" never fuses; "on" always
 fuses an eligible triplet in training (on the CPU through the kernel's
-plain version); "auto" fuses it for a float32 CUDA tensor. The reference's
+plain version); "auto" fuses it for a CUDA tensor whose triplet runs in a
+dtype of ``_AUTO_DTYPES``. That dtype is the one after the AMP policy:
+under ``amp.init("bfloat16")`` ``npx.fused_conv_bn_relu`` casts x, w,
+gamma and beta to bf16 (a target op, as in the reference), although x
+arrives in fp32 from the previous fp32 BatchNorm. The reference's
 "auto" is off, from an A/B on a TPU v5e (``fuse.py:33-38``), a TPU fact
 that is not carried over: on the card "auto" takes the kernel, as
 ``fused_ln_residual``'s "auto" does. Eval, a CPU tensor under "auto",
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import autograd, config
+from ... import amp, autograd, config
 from ... import numpy_extension as npx
 from ...base import MXNetError
 from ...ops import conv_bwd
@@ -32,6 +36,12 @@ from .basic_layers import Activation, BatchNorm, HybridSequential, _ready
 from .conv_layers import _Conv
 
 __all__ = ["FusableSequential"]
+
+# the dtypes "auto" fuses on the card, by the ResNet-50 step on the H100
+# (PERF.md): fp32 (kernel 8 level with cuDNN's fp32 chain). Not bf16: the
+# bf16 step took 40.6 device ms with the bf16 kernel ("on") against 37.9
+# with cuDNN's bf16 chain ("off"), so "auto" leaves bf16 triplets to cuDNN
+_AUTO_DTYPES = (torch.float32,)
 
 
 def _fusion_active(x):
@@ -43,7 +53,8 @@ def _fusion_active(x):
         raise MXNetError(f"fused_conv_bn must be 'auto', 'on' or 'off', got "
                          f"{mode!r}")
     if mode == "auto":
-        return x.device.type == "cuda" and x.dtype == torch.float32
+        dtype = amp._op_cast_dtype("fused_conv_bn_relu") or x.dtype
+        return x.device.type == "cuda" and dtype in _AUTO_DTYPES
     return mode == "on"
 
 

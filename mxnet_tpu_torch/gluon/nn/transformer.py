@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import autograd, config
+from ... import amp, autograd, config
 from ... import numpy_extension as npx
 from ... import random as _random
 from ...base import MXNetError
@@ -165,7 +165,11 @@ def _fused_ln_residual(x, h, ln, p, generator=None):
         return None
     p_eff = float(p) if training else 0.0
     mask = _random.dropout_mask(h, p_eff, generator) if p_eff > 0 else None
-    return ln_residual_dropout(x, h, ln.gamma, ln.beta, p=p_eff, mask=mask,
+    # the reference's dispatch name; in no AMP list, so the residual keeps
+    # its dtypes (fp32 x and bf16 h under amp.init widen to fp32 there)
+    x, h, gamma, beta = amp._maybe_cast_op_inputs(
+        "fused_ln_residual", (x, h, ln.gamma, ln.beta))
+    return ln_residual_dropout(x, h, gamma, beta, p=p_eff, mask=mask,
                                eps=ln._epsilon)
 
 

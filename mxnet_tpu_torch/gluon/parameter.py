@@ -23,7 +23,9 @@ the block's registration holds) and draws it then.
 
 ``copy.deepcopy`` of a block copies each tensor once (tied tensors stay
 tied through the memo) and gives the copy a fresh :class:`Parameter` with
-the same ``grad_req``, ``lr_mult`` and ``wd_mult`` (:class:`_Var`).
+the same ``grad_req``, ``lr_mult`` and ``wd_mult`` (:class:`_Var`). ``cast``
+changes the tensor's dtype in place (the AMP paths: ``Block.cast``,
+``amp.convert_hybrid_block``).
 :class:`Constant` is the reference's non-trainable parameter of any dtype
 (the int8 weights of ``contrib.quantization``).
 """
@@ -34,7 +36,7 @@ import copy
 import torch
 from torch import nn
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 
 __all__ = ["Parameter", "Constant"]
 
@@ -175,6 +177,19 @@ class Parameter:
         if self._shape_known():
             self._deferred = None
             self.initialized = True
+
+    @torch.no_grad()
+    def cast(self, dtype):
+        """Cast the tensor to ``dtype`` (a dtype or its name; reference:
+        parameter.py ``cast``) in place: the block's ``nn.Parameter`` stays
+        the same object (its ``.data`` is replaced), so the block's
+        registration, ``grad_req`` and anything keyed by the tensor (an
+        ``amp.fp8.scope`` site map) still hold. The gradient buffer is
+        dropped (zeros in the new dtype on the next ``grad()``, as the
+        reference re-attaches it). A deferred parameter takes the dtype
+        when its first forward gives it its shape."""
+        self._var.data = self._var.data.to(torch_dtype(dtype))
+        self._var.grad = None
 
     def __deepcopy__(self, memo):
         return copy.deepcopy(self._var, memo)._mx_param

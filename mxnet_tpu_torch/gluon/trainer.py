@@ -3,21 +3,32 @@
 Counterpart of ``mxnet_tpu/gluon/trainer.py``: ``Trainer(params,
 optimizer, optimizer_params, kvstore=...)`` with ``step``, ``update``,
 ``allreduce_grads``, ``learning_rate``/``set_learning_rate`` and
-``save_states``/``load_states``.
+``save_states``/``load_states``, and the non-finite guard with
+``state_dict``/``load_state_dict`` (reference: trainer.py:225-245,
+311-370, 421-440).
 
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
 ``1 / batch_size`` (times the initial rescale) and updates every parameter
 whose ``grad_req`` is not "null", in place, through one ``Updater``.
 This slice runs on one card: kvstore ``None``, ``"device"`` or ``"local"``
 reduces nothing, and a distributed kvstore, ``update_on_kvstore=True`` or
-gradient compression raise. Telemetry, the non-finite guard and AMP wait
-for later slices.
+gradient compression raise.
+
+The guard runs when an AMP loss scaler is attached (``amp.scale_loss``) or
+the ``trainer.skip_nonfinite`` knob is set: a step whose gradients hold an
+inf or NaN (one reduction over every gradient, one host read) leaves the
+weights as they are, counts itself in ``nonfinite_steps``, backs the loss
+scale off and zeroes the "add" gradients; a clean step lets the scale grow
+(``LossScaler.update_scale(False)``). The reference's telemetry, fault and
+blackbox hooks are host planes that the port does not have.
 """
 from __future__ import annotations
 
 import os
 
+from .. import config
 from .. import optimizer as opt
+from ..amp.loss_scaler import LossScaler, all_finite
 from ..base import MXNetError
 from .parameter import Parameter
 
@@ -59,6 +70,7 @@ class Trainer:
         self._kvstore = kvstore
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
+        self.nonfinite_steps = 0
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -91,18 +103,76 @@ class Trainer:
         """Reduce gradients across devices: nothing to reduce on one
         card."""
 
+    # -- the non-finite guard -------------------------------------------------
+    def _guard_active(self):
+        return (getattr(self, "_amp_loss_scaler", None) is not None
+                or bool(config.get("trainer.skip_nonfinite")))
+
+    def _grads_finite(self):
+        """Whether every gradient is finite: one reduction over all of
+        them, one host read."""
+        return all_finite(p.grad() for p in self._params
+                          if p.grad_req != "null")
+
+    def _skip_step(self):
+        """Absorb a non-finite step: the weights stay, the count grows, the
+        loss scale backs off, and "add" gradients are cleared so the poison
+        does not reach the next step."""
+        self.nonfinite_steps += 1
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            scaler.update_scale(True)
+        for p in self._params:
+            if p.grad_req == "add":
+                p.zero_grad()
+
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce, then update with gradients rescaled by
-        ``1 / batch_size`` (reference: trainer.py ``step``)."""
+        ``1 / batch_size`` (reference: trainer.py ``step``); with the guard
+        active, a step with an inf or NaN gradient is skipped."""
+        self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
-        self.update(batch_size, ignore_stale_grad)
+        if self._guard_active():
+            if not self._grads_finite():
+                self._skip_step()
+                return
+            scaler = getattr(self, "_amp_loss_scaler", None)
+            if scaler is not None:
+                scaler.update_scale(False)
+        self._update()
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update without reducing (reference: trainer.py ``update``)."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        self._update()
+
+    def _update(self):
         for i, p in enumerate(self._params):
             if p.grad_req != "null":
                 self._updater(i, p.grad(), p.data())
+
+    # -- resume: what save_states misses (the loss scale and its window,
+    # the skip count) beside the optimizer and its states as bytes ---------
+    def state_dict(self):
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        return {"optimizer": self._updater.get_states(dump_optimizer=True),
+                "nonfinite_steps": self.nonfinite_steps,
+                "loss_scaler": None if scaler is None
+                else scaler.state_dict()}
+
+    def load_state_dict(self, state):
+        self.nonfinite_steps = int(state.get("nonfinite_steps", 0))
+        scaler_state = state.get("loss_scaler")
+        if scaler_state is not None:
+            if getattr(self, "_amp_loss_scaler", None) is None:
+                self._amp_loss_scaler = LossScaler()
+            self._amp_loss_scaler.load_state_dict(scaler_state)
+        blob = state.get("optimizer")
+        if blob is None:
+            return
+        self._updater.set_states(blob, self._weights())
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
 
     def load_states_by_name(self, states, counts):
         """Start from another trainer's state by parameter name, for

@@ -10,6 +10,16 @@ activation, leaky_relu, exact-erf gelu, embedding, and from
 activation table); the rest of that module waits for later slices of the
 port.
 
+Each op that the JAX package dispatches under a name passes its floating
+inputs through ``amp._maybe_cast_op_inputs`` under that name (the AMP
+policy, off unless ``amp.init()`` ran): ``fully_connected``,
+``convolution``, ``pooling:<pool_type>``, ``batch_norm``,
+``fused_conv_bn_relu``, ``layer_norm``, ``softmax``,
+``activation:<act_type>``, ``leaky_relu:<act_type>`` (``gelu`` is the
+reference's ``leaky_relu`` with act_type "gelu") and ``embedding``.
+``fully_connected`` and ``layer_norm`` then promote their inputs to their
+common floating dtype, as jnp does (bf16 with fp32 gives fp32).
+
 ``batch_norm`` and ``fused_conv_bn_relu`` update the running statistics in
 place while training, as the reference's aux arrays are: ``m * running +
 (1 - m) * batch`` under ``torch.no_grad()``, so the update is never part
@@ -17,6 +27,7 @@ of a recorded graph.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,7 +36,8 @@ import torch.nn.functional as F
 from .base import MXNetError
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "fused_conv_bn_relu", "flatten", "layer_norm", "activation",
+           "fused_conv_bn_relu", "flatten", "layer_norm", "softmax",
+           "activation",
            "leaky_relu", "gelu", "embedding", "quantize_v2", "dequantize",
            "quantized_fully_connected", "quantized_conv",
            "quantized_dense_fused", "quantized_conv_fused",
@@ -46,12 +58,30 @@ _ACTS = {
 }
 
 
+def _cast(name, *tensors):
+    return _amp._maybe_cast_op_inputs(name, tensors)
+
+
+def _promoted(*tensors):
+    """The tensors (None left out of the rule) in their common dtype, by
+    torch's promotion, which is jnp's for the floating types."""
+    dt = functools.reduce(torch.promote_types,
+                          [t.dtype for t in tensors if t is not None])
+    return [None if t is None else t.to(dt) for t in tensors]
+
+
 def fully_connected(x, weight, bias=None, flatten=True):
     """``x @ weight.T + bias`` with weight layout (units, in_units)
-    (reference: src/operator/nn/fully_connected.cc)."""
+    (reference: src/operator/nn/fully_connected.cc), in the inputs' common
+    dtype (bf16 x with fp32 weight runs in fp32, as in the reference): the
+    product in x's and weight's, then the bias added with promotion."""
+    x, weight, bias = _cast("fully_connected", x, weight, bias)
+    x, weight = _promoted(x, weight)
     if flatten:
         x = x.reshape(x.shape[0], -1)
-    return F.linear(x, weight, bias)
+    if bias is None or bias.dtype == x.dtype:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight) + bias
 
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -80,6 +110,7 @@ def convolution(data=None, weight=None, bias=None, kernel=None, stride=None,
     the reference leaves it to XLA."""
     nd = data.ndim - 2
     _channel_first(layout, nd)
+    data, weight, bias = _cast("convolution", data, weight, bias)
     b = None if no_bias else bias
     return _CONV[nd](data, weight, b, stride=tuple(stride or (1,) * nd),
                      padding=tuple(pad or (0,) * nd),
@@ -94,6 +125,7 @@ def pooling(data, kernel=1, stride=None, pad=None, pool_type="max",
     (``count_include_pad``) or by its valid elements."""
     nd = data.ndim - 2
     _channel_first(layout, nd)
+    data, = _cast(f"pooling:{pool_type}", data)
     if pool_type not in ("max", "avg"):
         raise MXNetError(f"pool_type {pool_type!r} is not part of this "
                          "slice of the port")
@@ -136,6 +168,7 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-3,
     running statistics updated in place; otherwise the running statistics.
     The normalization is the folded per-channel ``x * scale + shift``."""
     from . import autograd
+    x, gamma, beta = _cast("batch_norm", x, gamma, beta)
     training = autograd.is_training() and not use_global_stats
     red = tuple(i for i in range(x.ndim) if i != axis)
     shape = [1] * x.ndim
@@ -165,6 +198,8 @@ def fused_conv_bn_relu(x, weight, gamma, beta, running_mean, running_var,
     running statistics update as :func:`batch_norm`'s do, from the
     two-pass batch statistics of the fused forward."""
     from .ops.conv_bwd import FusedCBRFunction
+    x, weight, gamma, beta = _cast("fused_conv_bn_relu", x, weight, gamma,
+                                   beta)
     out, mean, var = FusedCBRFunction.apply(x, weight, gamma, beta,
                                             float(eps))
     _update_running(running_mean, running_var, mean, var, momentum)
@@ -177,31 +212,66 @@ def flatten(x):
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):
-    """LayerNorm over the last axis (reference: layer_norm.cc)."""
-    return F.layer_norm(x, (x.shape[-1],), gamma, beta, eps)
+    """LayerNorm over the last axis (reference: layer_norm.cc), returning
+    the common dtype of x, gamma and beta. An fp32 or fp64 x takes
+    ``F.layer_norm``; a bf16 or fp16 x is normalized in its own dtype, as
+    the reference's jnp computes it: the statistics in fp32 and rounded to
+    x's dtype, then ``(x - mean) * rsqrt(var + eps)`` in x's dtype (each
+    step rounded), then the affine in the common dtype (fp32 for fp32
+    gamma)."""
+    x, gamma, beta = _cast("layer_norm", x, gamma, beta)
+    dt = torch.promote_types(torch.promote_types(x.dtype, gamma.dtype),
+                             beta.dtype)
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return F.layer_norm(x.to(dt), (x.shape[-1],), gamma.to(dt),
+                            beta.to(dt), eps)
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True).to(x.dtype)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True).to(x.dtype)
+    # each step rounded to x's dtype once (torch's own bf16 rsqrt on the
+    # CPU is not the rounded fp32 rsqrt)
+    xhat = (x - mean) * torch.rsqrt((var + eps).float()).to(x.dtype)
+    return xhat.to(dt) * gamma.to(dt) + beta.to(dt)
+
+
+def softmax(data, axis=-1, temperature=None, dtype=None):
+    """Softmax along ``axis`` (reference: softmax.cc), in the input's dtype
+    unless ``dtype`` is given; fp32 under the AMP policy."""
+    data, = _cast("softmax", data)
+    h = data / temperature if temperature else data
+    return torch.softmax(h, dim=axis).to(dtype or data.dtype)
 
 
 def activation(data, act_type="relu"):
     """Reference: src/operator/nn/activation.cc."""
     if act_type not in _ACTS:
         raise MXNetError(f"unknown act_type {act_type!r}")
+    data, = _cast(f"activation:{act_type}", data)
     return _ACTS[act_type](data)
 
 
 def leaky_relu(data, act_type="leaky", slope=0.25):
-    """Reference: src/operator/leaky_relu.cc, the ``leaky`` and ``gelu``
-    (exact erf) act types; the others wait for a later slice."""
-    if act_type == "leaky":
-        return F.leaky_relu(data, slope)
+    """Reference: src/operator/leaky_relu.cc, the ``leaky``, ``elu``
+    (alpha ``slope``), ``selu`` and ``gelu`` (exact erf) act types; the
+    others wait for a later slice. ``elu`` and ``selu`` are fp32 under the
+    AMP policy (conditional fp32 entries)."""
     if act_type == "gelu":
         return gelu(data)
+    data, = _cast(f"leaky_relu:{act_type}", data)
+    if act_type == "leaky":
+        return F.leaky_relu(data, slope)
+    if act_type == "elu":
+        return F.elu(data, slope)
+    if act_type == "selu":
+        return F.selu(data)
     raise MXNetError(f"leaky_relu act_type {act_type!r} is not part of "
                      "this slice of the port")
 
 
 def gelu(x):
     """Exact (erf) GELU, as ``npx.leaky_relu(act_type="gelu")`` computes
-    it (``approximate=False``)."""
+    it (``approximate=False``), dispatched under its name there."""
+    x, = _cast("leaky_relu:gelu", x)
     return F.gelu(x, approximate="none")
 
 
@@ -213,6 +283,7 @@ def embedding(ids, weight):
     is decided from the ids' values before the gather (a clamped id is
     gathered and its row overwritten), so no index check fires on the
     device."""
+    weight, = _cast("embedding", weight)
     v = weight.shape[0]
     idx = ids.long()
     idx = torch.where(idx < 0, idx + v, idx)
@@ -282,3 +353,8 @@ def fp8_dense_fused(data, weight, x_scale, w_scale, bias=None, act=None,
     from .ops.quantization import fp8_dense_fused as op
     return op(data, weight, x_scale, w_scale, bias=bias, act=act,
               flatten=flatten, fmt=fmt)
+
+
+# at the end: amp imports ops.quant_matmul (through amp.fp8), which reads
+# this module's _ACTS
+from . import amp as _amp  # noqa: E402

@@ -23,12 +23,15 @@ reference's silent fallback to the composition is deliberately absent.
 The JAX package returns new cache arrays from pure functions; here the
 preallocated caches are updated in place (slice assignment /
 ``index_put_``) and returned for the same call shape.
+
+:func:`multi_head_attention` takes the AMP policy under its reference
+dispatch name, "multi_head_attention" (``amp._maybe_cast_op_inputs``).
 """
 from __future__ import annotations
 
 import torch
 
-from .. import autograd
+from .. import amp, autograd
 from ..random import dropout_mask
 from .flash_attention import _DTYPE_CODES, HEAD_DIMS, attention
 
@@ -86,6 +89,8 @@ def multi_head_attention(query, key, value, heads, mask=None, dropout_p=0.0,
     ``autograd.is_training()`` (reference: ops/attention.py:412-414)."""
     if not autograd.is_training():
         dropout_p = 0.0
+    query, key, value = amp._maybe_cast_op_inputs(
+        "multi_head_attention", (query, key, value))
     if mask is not None or dropout_p \
             or not _flash_instantiated(query, heads):
         return _reference_attention(query, key, value, heads, mask, causal,

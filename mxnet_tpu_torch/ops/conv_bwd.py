@@ -41,6 +41,18 @@ mma into one register, ~1e-5 of the largest value on the H100. Scratch
 (split weights, partials) comes from ``torch.empty`` on the caller's
 device; its element counts are within :func:`fits_card`'s 2^31.
 
+bf16 (the reference at bf16, ``pallas_conv_bwd.py:61-95, 153-163``): dy
+rounded to bf16 after its fp32 recompute, bf16 x bf16 products summed in
+fp32, dx in bf16, dw summed in fp32 and stored in bf16; on the card the
+kernels of the same file's bf16 instantiation (the weights copied once
+into ``(9, C, Opad)`` bf16, Opad = O rounded up to ``_CHUNK_BF16``; dgrad's
+chunks of ``_CHUNK_BF16`` output channels; one ``mma.sync`` m16n8k16 a
+product). The plain version is the same function for every dtype: it
+rounds dy to da's dtype and sums fp32 products of the operands' values.
+The wrapper routes by dtype before any launch: x, da, y and w of one dtype
+(float32 to the 3xTF32 kernels, bfloat16 to the bf16 ones on the card;
+any floating dtype on the CPU), anything else raises.
+
 The reference's VMEM budget (``fits_vmem``, 12 MiB, a TPU fact) is not
 carried over; the card's limits are :func:`fits_card`'s, decided from
 shape before any launch. A CPU tensor takes the plain version; a CUDA
@@ -66,6 +78,7 @@ __all__ = ["conv3x3_bn_relu_ref", "bwd_stats", "fused_conv3x3_bn_relu_bwd",
 _ROWS = 128         # dgrad: places of the padded grid a block
 _COLS = 64          # dgrad: input channels a block
 _CHUNK = 8          # dgrad: output channels a reduction chunk
+_CHUNK_BF16 = 16    # the same in the bf16 kernels (one k16 step)
 _DG_RUN = 32        # dgrad: most chunks a split sums in its registers
 _WG_TILE = 32       # wgrad: output and input channels a block (x 9 taps)
 _PIXELS = 64        # wgrad: pixels a reduction chunk
@@ -213,32 +226,33 @@ def wgrad_splits(n, h, w, c, o, sm_count):
     return _cdiv(chunks, cps), cps * step
 
 
-def dgrad_splits(n, h, w, c, o, sm_count):
+def dgrad_splits(n, h, w, c, o, sm_count, chunk=_CHUNK):
     """``(dsplits, cps)`` of the dgrad kernel: its ceil(O / ``_CHUNK``)
-    output-channel chunks are cut into ``dsplits`` runs of ``cps`` chunks
+    output-channel chunks (``_CHUNK_BF16`` in bf16) are cut into
+    ``dsplits`` runs of ``cps`` chunks
     where the (places, C) tiles give fewer than about two blocks an SM
     (ResNet-50's 7 x 7 stage), and into runs of at most ``_DG_RUN`` chunks
     (the mma summed into one register are bounded: 32 x 27); each run
     writes its own fp32 partial of dx, summed in a fixed order."""
     tiles = (_cdiv(n * (h + 1) * (w + 1), _ROWS) * _cdiv(c, _COLS))
-    chunks = _cdiv(o, _CHUNK)
+    chunks = _cdiv(o, chunk)
     want = max(1, min(chunks, 2 * sm_count // tiles),
                _cdiv(chunks, _DG_RUN))
     cps = _cdiv(chunks, want)
     return _cdiv(chunks, cps), cps
 
 
-def smem_bytes(h, w):
+def smem_bytes(h, w, dtype=torch.float32):
     """``(dgrad, wgrad)`` shared memory a block, in bytes, at this H x W:
     dgrad's two-stage ring of 9 weight tiles and of the dy halo (``_ROWS``
     places and W+2 on each side, ``_CHUNK`` channels, hi and lo), wgrad's
     two-stage ring of the dy tile and the x halo (a chunk's places and
     their neighbours, ``_WG_TILE`` channels, hi and lo) with its tables.
-    The kernel source computes the same (``conv3x3_bn_relu_bwd_smem``)."""
+    The kernel source computes the same (``conv3x3_bn_relu_bwd_smem``).
+    bf16: one stage of 9 weight tiles of 16 channels (the fp32 tiles'
+    bytes), the dy plane and no raw rows in dgrad; wgrad's bf16 dy tile
+    and x halo with its tables (``conv3x3_bn_relu_bwd_bf16_smem``)."""
     halo = _ROWS + 2 * (w + 1) + 2
-    raw_ld = _cdiv(halo, 8) * 8 + 4
-    dgrad = 4 * (4 * 9 * _COLS * _CHUNK + 2 * halo * _CHUNK
-                 + 2 * raw_ld * _CHUNK + halo + 7 * _CHUNK)
     pr, pc = wgrad_patch(h, w)
     if pr == 0:
         xh = _linear_halo(h, w)
@@ -246,6 +260,16 @@ def smem_bytes(h, w):
         xh = (pr + 4) * (pc + 2) + 3
     else:
         xh = (pr + 2) * (pc + 2)
+    if dtype == torch.bfloat16:
+        dgrad = 4 * (2 * 9 * _COLS * _CHUNK + halo * _CHUNK
+                     + 7 * _CHUNK_BF16 + halo)
+        wgrad = (2 * (_WG_TILE * (_PIXELS + 8)
+                      + _WG_TILE * (_cdiv(xh, 16) * 16 + 8))
+                 + 4 * (2 * _PIXELS + xh + 1 + 7 * _WG_TILE))
+        return dgrad, wgrad
+    raw_ld = _cdiv(halo, 8) * 8 + 4
+    dgrad = 4 * (4 * 9 * _COLS * _CHUNK + 2 * halo * _CHUNK
+                 + 2 * raw_ld * _CHUNK + halo + 7 * _CHUNK)
     xs = _cdiv(xh, 8) * 8 + 4
     wgrad = 4 * (4 * _WG_TILE * (_PIXELS + 4) + 4 * _WG_TILE * xs
                  + 3 * (2 * _PIXELS + xh + 1) + 7 * _WG_TILE)
@@ -259,8 +283,8 @@ def fits_card(x, o):
     and dw, split by the card's own SM count) below 2^31 elements, and both
     kernels' shared memory within the card's 227 KB a block (the x halo of
     wgrad's linear chunks grows with W: W up to 99 unless a patch tiles the
-    image). The fused route and the wrapper
-    both decide by this."""
+    image; the bf16 kernels need less of both). The fused route and the
+    wrapper both decide by this."""
     n, c, h, w = x.shape
     if min(n, h, w, c, o) <= 0:
         return False
@@ -289,6 +313,12 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_size_t)] * 2 + [
         ctypes.POINTER(ctypes.c_int)] * 2
     lib.conv3x3_bn_relu_bwd_smem.restype = None
+    lib.conv3x3_bn_relu_bwd_bf16.argtypes = \
+        lib.conv3x3_bn_relu_bwd.argtypes
+    lib.conv3x3_bn_relu_bwd_bf16.restype = ctypes.c_int
+    lib.conv3x3_bn_relu_bwd_bf16_smem.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_size_t)] * 2
+    lib.conv3x3_bn_relu_bwd_bf16_smem.restype = None
     lib.conv3x3_bn_relu_bwd_error_string.argtypes = [ctypes.c_int]
     lib.conv3x3_bn_relu_bwd_error_string.restype = ctypes.c_char_p
 
@@ -310,6 +340,10 @@ def _check(da, x, y, w, gamma, beta, mean, var):
     if not all(t.device == x.device for t in (da, y, w, gamma, beta, mean,
                                               var)):
         raise MXNetError("conv3x3_bn_relu_bwd: inputs on different devices")
+    if len({t.dtype for t in (x, da, y, w)}) != 1:
+        raise MXNetError(f"conv3x3_bn_relu_bwd: x, da, y and w must share "
+                         f"one dtype, got x {x.dtype}, da {da.dtype}, y "
+                         f"{y.dtype}, w {w.dtype}")
 
 
 def _card(x, da, y, w):
@@ -325,10 +359,9 @@ def _card(x, da, y, w):
                          f"{torch.cuda.get_device_name(x.device)} is not "
                          "compute capability 9.0, which the kernel is built "
                          "for")
-    if not all(t.dtype == torch.float32 for t in (x, da, y, w)):
-        raise MXNetError(f"conv3x3_bn_relu_bwd: the kernel takes float32, "
-                         f"got x {x.dtype}, da {da.dtype}, y {y.dtype}, w "
-                         f"{w.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise MXNetError(f"conv3x3_bn_relu_bwd: the kernels take float32 "
+                         f"or bfloat16, got {x.dtype}")
     if not fits_card(x, w.shape[0]):
         raise MXNetError(f"conv3x3_bn_relu_bwd: shape {tuple(x.shape)} x "
                          f"{tuple(w.shape)} is beyond the kernels' 2^31 "
@@ -345,9 +378,13 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     tensors take :func:`fused_conv3x3_bn_relu_bwd_plain`; CUDA tensors
     (fp32, on a card of compute capability 9.0) launch the kernels of
     ``csrc/conv_bwd.cu`` (built at first use) or raise, and count one call
-    in ``fused_conv3x3_bn_relu_bwd.launches``, one under its ``(N, H, W, C,
-    O)`` in ``.shape_launches`` and one launch of each CUDA kernel in
-    ``.kernel_launches``."""
+    in ``fused_conv3x3_bn_relu_bwd.launches`` (a bf16 call also in
+    ``.bf16_launches``), one under its ``(N, H, W, C, O)`` in
+    ``.shape_launches`` and one launch of each CUDA kernel in
+    ``.kernel_launches`` (the bf16 kernels under names ending in
+    ``_bf16``). x, da, y and w share one dtype: float32 launches the
+    3xTF32 kernels, bfloat16 the bf16 ones; the dtype routes before any
+    launch, and a failed launch raises."""
     _check(da, x, y, w, gamma, beta, mean, var)
     dgamma, dbeta, vec = bwd_stats(da, y, gamma, beta, mean, var, eps)
     if x.device.type == "cpu":
@@ -356,22 +393,29 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     _card(x, da, y, w)
     n, c, h, wd = x.shape
     o = w.shape[0]
+    bf16 = x.dtype == torch.bfloat16
     x, da, y, w = (t.contiguous() for t in (x, da, y, w))
     vec = vec.contiguous()
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     sm = _sm_count(x.device.index or 0)
     splits, rows = wgrad_splits(n, h, wd, c, o, sm)
-    dsplits, cps = dgrad_splits(n, h, wd, c, o, sm)
+    chunk = _CHUNK_BF16 if bf16 else _CHUNK
+    dsplits, cps = dgrad_splits(n, h, wd, c, o, sm, chunk)
     pr, pc = wgrad_patch(h, wd)
-    wsp = torch.empty(2 * 9 * c * _cdiv(o, _CHUNK) * _CHUNK,
-                      dtype=torch.int32, device=x.device)
+    # the weights in dgrad's layout: bf16 copied, or fp32 split into TF32
+    # hi and lo planes
+    wsp = (torch.empty(9 * c * _cdiv(o, chunk) * chunk, dtype=torch.bfloat16,
+                       device=x.device) if bf16 else
+           torch.empty(2 * 9 * c * _cdiv(o, chunk) * chunk,
+                       dtype=torch.int32, device=x.device))
     dpart = (torch.empty((dsplits,) + tuple(x.shape), dtype=torch.float32,
                          device=x.device) if dsplits > 1 else None)
     wpart = (torch.empty((splits, o, 9 * c), dtype=torch.float32,
                          device=x.device) if splits > 1 else None)
     lib = _native.load("conv_bwd", _bind)
-    rc = lib.conv3x3_bn_relu_bwd(
+    entry = lib.conv3x3_bn_relu_bwd_bf16 if bf16 else lib.conv3x3_bn_relu_bwd
+    rc = entry(
         vec.data_ptr(), da.data_ptr(), y.data_ptr(), x.data_ptr(),
         w.data_ptr(), wsp.data_ptr(), dx.data_ptr(), dw.data_ptr(),
         None if dpart is None else dpart.data_ptr(),
@@ -381,23 +425,28 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     if rc != 0:
         msg = lib.conv3x3_bn_relu_bwd_error_string(rc).decode()
         raise MXNetError(f"conv3x3_bn_relu_bwd launch failed: {msg} (code "
-                         f"{rc}; N={n} H={h} W={wd} C={c} O={o})")
+                         f"{rc}; N={n} H={h} W={wd} C={c} O={o} "
+                         f"{x.dtype})")
     launches = fused_conv3x3_bn_relu_bwd.kernel_launches
     fused_conv3x3_bn_relu_bwd.launches += 1
+    fused_conv3x3_bn_relu_bwd.bf16_launches += int(bf16)
     fused_conv3x3_bn_relu_bwd.shape_launches[(n, h, wd, c, o)] += 1
-    launches["wsplit"] += 1
-    launches["dgrad"] += 1
-    launches["dgrad_reduce"] += int(dsplits > 1)
-    launches["wgrad"] += 1
-    launches["wgrad_reduce"] += int(splits > 1)
+    tag = "_bf16" if bf16 else ""
+    launches["wcopy_bf16" if bf16 else "wsplit"] += 1
+    launches["dgrad" + tag] += 1
+    launches["dgrad_reduce" + tag] += int(dsplits > 1)
+    launches["wgrad" + tag] += 1
+    launches["wgrad_reduce" + tag] += int(splits > 1)
     return dx, dw, dgamma, dbeta
 
 
 fused_conv3x3_bn_relu_bwd.launches = 0
+fused_conv3x3_bn_relu_bwd.bf16_launches = 0
 fused_conv3x3_bn_relu_bwd.shape_launches = collections.Counter()
 fused_conv3x3_bn_relu_bwd.kernel_launches = {
     "wsplit": 0, "dgrad": 0, "dgrad_reduce": 0, "wgrad": 0,
-    "wgrad_reduce": 0}
+    "wgrad_reduce": 0, "wcopy_bf16": 0, "dgrad_bf16": 0,
+    "dgrad_reduce_bf16": 0, "wgrad_bf16": 0, "wgrad_reduce_bf16": 0}
 
 
 class FusedCBRFunction(torch.autograd.Function):

@@ -22,7 +22,16 @@ The update rules are the reference's arithmetic (not ``torch.optim``'s):
 
 They run as plain PyTorch in place on the weight and state tensors (the
 reference runs them as one XLA program per step; no Pallas kernel is
-involved). ``multi_precision`` waits for the bf16/AMP slice.
+involved).
+
+``multi_precision=True`` (reference: optimizer.py:136-141, 177-195) keeps
+an fp32 master copy of every fp16 or bf16 weight: the state is the tuple
+``(master, inner)``, ``inner`` the rule's own state made from the master
+(fp32), the rule runs on the master with the gradient widened to fp32, and
+the weight receives the master rounded to its dtype. ``Updater`` calls
+``create_state_multi_precision`` and ``update_multi_precision``; its state
+arrays keep the master and its state in fp32 when they are saved and
+loaded.
 """
 from __future__ import annotations
 
@@ -63,9 +72,7 @@ class Optimizer:
                  clip_gradient=None, learning_rate=None, lr_scheduler=None,
                  begin_num_update=0, multi_precision=False, param_dict=None,
                  **kwargs):
-        if multi_precision:
-            raise MXNetError("multi_precision is not part of this slice of "
-                             "the port (it comes with bf16/AMP)")
+        self.multi_precision = multi_precision
         self.rescale_grad = rescale_grad
         self.lr = learning_rate if learning_rate is not None else 0.01
         self.lr_scheduler = lr_scheduler
@@ -132,6 +139,18 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _keeps_master(self, weight):
+        return self.multi_precision and weight.dtype in _LOW_PRECISION
+
+    def create_state_multi_precision(self, index, weight):
+        """``(fp32 master, create_state(master))`` for an fp16 / bf16 weight
+        under ``multi_precision``, else ``create_state``."""
+        if self._keeps_master(weight):
+            master = weight.detach().to(torch.float32,
+                                        memory_format=torch.contiguous_format)
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
     # -- update --------------------------------------------------------------
     def _prep_grad(self, g):
         """``g * rescale_grad``, clipped elementwise where ``clip_gradient``
@@ -149,6 +168,20 @@ class Optimizer:
         self._update_impl(index, weight, grad, state, self._get_lr(index),
                           self._get_wd(index))
 
+    @torch.no_grad()
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update` on the fp32 master of an fp16 / bf16 weight under
+        ``multi_precision`` (the gradient widened to fp32), then the master
+        rounded into the weight; else :meth:`update`."""
+        if not self._keeps_master(weight):
+            self.update(index, weight, grad, state)
+            return
+        master, inner = state
+        self._update_count(index)
+        self._update_impl(index, master, grad.to(torch.float32), inner,
+                          self._get_lr(index), self._get_wd(index))
+        weight.copy_(master)
+
     def _update_impl(self, index, w, g, state, lr, wd):
         raise NotImplementedError
 
@@ -157,6 +190,9 @@ class Optimizer:
         state = dict(self.__dict__)
         state["param_dict"] = {}
         return state
+
+
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
 
 
 def _zeros_like(weight):
@@ -242,12 +278,18 @@ def _map_state(fn, state):
     return fn(state)
 
 
-def _state_tensor(a, weight):
-    """A copy of the state array ``a`` as a tensor, with ``weight``'s dtype
-    and device (a CPU tensor of ``a``'s dtype where ``weight`` is None)."""
-    like = {} if weight is None else dict(dtype=weight.dtype,
-                                          device=weight.device)
+def _state_tensor(a, dtype, device):
+    """A copy of the state array ``a`` as a tensor of ``dtype`` on
+    ``device`` (``a``'s dtype on the CPU where they are None)."""
+    like = {} if dtype is None else dict(dtype=dtype, device=device)
     return torch.tensor(onp.asarray(a), **like)
+
+
+def _to_numpy(t):
+    """A state tensor as a numpy array; bf16, which numpy lacks, widened to
+    fp32 (exactly: loading casts it back to the weight's dtype)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 class Updater:
@@ -259,13 +301,15 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
 
     def get_states(self, dump_optimizer=False):
         """The states (numpy) as pickled bytes; with ``dump_optimizer``
         the optimizer (hyperparameters, update counts) too."""
-        serial = {k: _map_state(lambda a: a.detach().cpu().numpy(), s)
+        serial = {k: _map_state(_to_numpy, s)
                   for k, s in self.states.items()}
         if dump_optimizer:
             return pickle.dumps((serial, copy.copy(self.optimizer)))
@@ -282,11 +326,20 @@ class Updater:
     def set_state_arrays(self, states, weights=None):
         """Take ``states`` {index: None, array or tuple of arrays} as
         tensors, once: each on the device and in the dtype of
-        ``weights[index]`` ({index: weight tensor}), or on the CPU where no
-        weight is given."""
+        ``weights[index]`` ({index: weight tensor}), in fp32 where the
+        optimizer keeps an fp32 master of that weight (``multi_precision``),
+        or on the CPU where no weight is given."""
         weights = weights or {}
+
+        def like(w):
+            if w is None:
+                return None, None
+            keep = self.optimizer._keeps_master(w)
+            return (torch.float32 if keep else w.dtype), w.device
+
         self.states = {
-            i: _map_state(lambda a, w=weights.get(i): _state_tensor(a, w), s)
+            i: _map_state(lambda a, dd=like(weights.get(i)):
+                          _state_tensor(a, *dd), s)
             for i, s in states.items()}
 
 

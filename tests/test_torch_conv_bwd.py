@@ -468,3 +468,184 @@ def test_wgrad_patch_and_shared_memory(monkeypatch):
     assert tcb.fits_card(torch.empty(2, 8, 128, 128, device="meta"), 8)
     assert tcb.wgrad_patch(101, 101) == (0, 0)
     assert not tcb.fits_card(torch.empty(2, 8, 101, 101, device="meta"), 8)
+
+
+# -- bf16 (the reference at bf16: pallas_conv_bwd.py:61-95, 153-163) ----------
+
+BF16_RTOL, BF16_ATOL_SHARE = 2.0 ** -7, 2.0 ** -10
+
+
+def _bf16_close(got, want, share=BF16_ATOL_SHARE, err_msg=""):
+    """bf16 results: one bf16 ulp (rtol 2^-7) plus ``share`` of max|want|
+    (a sum in another order may round to the other bf16 neighbour)."""
+    got = onp.asarray(got, "float32")
+    want = onp.asarray(want, "float32")
+    allow = BF16_RTOL * onp.abs(want) + share * onp.abs(want).max()
+    excess = (onp.abs(got - want) / allow).max()
+    assert excess <= 1.0, (err_msg, excess)
+
+
+def _bf16_inputs(shape, seed, o=None):
+    """``_inputs`` rounded to bf16 (numpy fp32 holding bf16 values), and
+    the JAX bf16 forward's y, mean and var."""
+    x, w, gamma, beta, da = (onp.asarray(jnp.asarray(a, jnp.bfloat16)
+                                         .astype(jnp.float32))
+                             for a in _inputs(shape, seed, o))
+    return x, w, gamma, beta, da
+
+
+def _t16(a):
+    return torch.from_numpy(onp.ascontiguousarray(a)).to(torch.bfloat16)
+
+
+def _j16(a):
+    return jnp.asarray(a, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("shape,o", [((4, 8, 8, 16), None),
+                                     ((2, 4, 4, 128), None),
+                                     ((3, 7, 9, 5), 11)])
+def test_plain_bwd_bf16_matches_pallas_kernel_and_jax_vjp(shape, o):
+    """bf16 x, w, gamma, beta and da: the port's plain version (dy rounded
+    to bf16, fp32 sums of bf16 products, dx and dw in bf16) against the
+    Pallas kernel in interpret mode within one bf16 ulp plus 2^-10 of the
+    largest |value| (the same roundings; only the fp32 sums' order
+    differs), dgamma and dbeta likewise; and against ``jax.vjp`` of
+    ``fused_cbr_train`` (the Pallas kernel behind a custom VJP) the same.
+    Output dtypes as the reference's."""
+    x, w, gamma, beta, da = _bf16_inputs(shape, sum(shape), o)
+    jx, jw, jg, jb, jda = map(_j16, (x, w, gamma, beta, da))
+    _, jy, jmean, jvar = jcb.conv3x3_bn_relu_ref(jx, jw, jg, jb)
+    want = jcb.fused_conv3x3_bn_relu_bwd(jda, jx, jy, jw, jg, jb, jmean, jvar,
+                                         interpret=True)
+    (_, m_, v_), vjp = jax.vjp(lambda *a: jcb.fused_cbr_train(*a, 1e-5, True),
+                               jx, jw, jg, jb)
+    want_vjp = vjp((jda, jnp.zeros_like(m_), jnp.zeros_like(v_)))
+
+    tx = _t16(x.transpose(0, 3, 1, 2))
+    tw = _t16(w.transpose(3, 2, 0, 1))
+    tg, tb = _t16(gamma), _t16(beta)
+    # y, mean and var from the JAX forward, so that both backwards start
+    # from the same values
+    ty = _t16(onp.asarray(jy.astype(jnp.float32)).transpose(0, 3, 1, 2))
+    tmean = torch.from_numpy(onp.asarray(jmean))
+    tvar = torch.from_numpy(onp.asarray(jvar))
+    before = tcb.fused_conv3x3_bn_relu_bwd.launches
+    got = tcb.fused_conv3x3_bn_relu_bwd(_t16(da.transpose(0, 3, 1, 2)), tx,
+                                        ty, tw, tg, tb, tmean, tvar)
+    assert tcb.fused_conv3x3_bn_relu_bwd.launches == before  # CPU: plain
+    got = [got[0].float().numpy().transpose(0, 2, 3, 1),
+           got[1].float().numpy().transpose(2, 3, 1, 0),
+           got[2].float().numpy(), got[3].float().numpy()]
+    for ref_set in (want, want_vjp):
+        for name, g, ref in zip(("dx", "dw", "dgamma", "dbeta"), got,
+                                ref_set):
+            assert str(ref.dtype) == "bfloat16", name
+            _bf16_close(g, onp.asarray(ref.astype(jnp.float32)),
+                        err_msg=name)
+
+
+def test_plain_bwd_bf16_rounds_dy_where_the_reference_does():
+    """The plain version's dy is rounded to bf16 before the products: its
+    dx equals the fp32 plain dx of the bf16-rounded dy, not of the fp32
+    dy."""
+    x, w, gamma, beta, da = _bf16_inputs((2, 5, 5, 8), 3)
+    tx, tw = _t16(x.transpose(0, 3, 1, 2)), _t16(w.transpose(3, 2, 0, 1))
+    tg, tb = _t16(gamma), _t16(beta)
+    tda = _t16(da.transpose(0, 3, 1, 2))
+    _, y, mean, var = tcb.conv3x3_bn_relu_ref(tx, tw, tg, tb)
+    _, _, vec = tcb.bwd_stats(tda, y, tg, tb, mean, var)
+    dx, dw = tcb.fused_conv3x3_bn_relu_bwd_plain(tda, tx, y, tw, vec)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    # the same function in fp32 on the bf16 values, dy rounded by hand
+    dy = tcb._dy(tda, y, vec)
+    assert dy.dtype == torch.bfloat16
+    dx32 = torch.nn.grad.conv2d_input(tx.shape, tw.float(), dy.float(),
+                                      padding=1)
+    dw32 = torch.nn.grad.conv2d_weight(tx.float(), tw.shape, dy.float(),
+                                       padding=1)
+    _bf16_close(dx.float().numpy(), dx32.numpy(), share=1e-5)
+    _bf16_close(dw.float().numpy(), dw32.numpy(), share=1e-5)
+
+
+def test_wrapper_routes_by_dtype_before_any_launch():
+    """x, da, y and w of one dtype: an fp32 x with a bf16 w (or da) raises
+    before any launch, on the CPU as on the card; fp64 (the CPU's
+    gradcheck) and bf16 take the plain version on the CPU."""
+    x, w, gamma, beta, da = _inputs((2, 4, 4, 3), seed=1, o=5)
+    tx, tw = _nchw(x), _oihw(w)
+    tg, tb = torch.from_numpy(gamma), torch.from_numpy(beta)
+    _, y, mean, var = tcb.conv3x3_bn_relu_ref(tx, tw, tg, tb)
+    tda = _nchw(da)
+    before = tcb.fused_conv3x3_bn_relu_bwd.launches
+    for args in ((tda, tx, y, tw.bfloat16()), (tda.bfloat16(), tx, y, tw),
+                 (tda.bfloat16(), tx.bfloat16(), y, tw.bfloat16())):
+        with pytest.raises(MXNetError, match="one dtype"):
+            tcb.fused_conv3x3_bn_relu_bwd(*args, tg, tb, mean, var)
+    meta = [t.to("meta") for t in (tda, tx, y, tw, tg, tb, mean, var)]
+    meta[3] = meta[3].bfloat16()
+    with pytest.raises(MXNetError, match="one dtype"):
+        tcb.fused_conv3x3_bn_relu_bwd(*meta)
+    assert tcb.fused_conv3x3_bn_relu_bwd.launches == before
+    out = tcb.fused_conv3x3_bn_relu_bwd(tda.bfloat16(), tx.bfloat16(),
+                                        y.bfloat16(), tw.bfloat16(), tg, tb,
+                                        mean, var)
+    assert out[0].dtype == out[1].dtype == torch.bfloat16
+    assert tcb.fused_conv3x3_bn_relu_bwd.launches == before
+
+
+def test_bf16_shared_memory_and_splits():
+    """The bf16 kernels' shared memory (smaller than fp32's at every
+    shape, so fits_card's rule covers them) and dgrad's runs of 16-channel
+    chunks."""
+    for h, w in ((56, 56), (28, 28), (14, 14), (7, 7), (1, 1), (99, 99),
+                 (128, 128)):
+        d16, w16 = tcb.smem_bytes(h, w, torch.bfloat16)
+        d32, w32 = tcb.smem_bytes(h, w)
+        assert d16 < d32 and w16 < w32, (h, w)
+    assert tcb.smem_bytes(56, 56, torch.bfloat16) == (46096, 14100)
+    for shape in ((32, 7, 7, 512, 512), (4, 7, 7, 36, 520),
+                  (32, 56, 56, 64, 64)):
+        dsplits, cps = tcb.dgrad_splits(*shape, 132, tcb._CHUNK_BF16)
+        chunks = -(-shape[4] // tcb._CHUNK_BF16)
+        assert (dsplits - 1) * cps < chunks <= dsplits * cps
+        assert cps <= tcb._DG_RUN
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_fused_route_under_amp_runs_the_triplet_in_bf16(fused_mode, mode):
+    """Under amp.init the reference's fused_conv_bn_relu casts x, w, gamma
+    and beta to bf16 (a target op) although x arrives in fp32, and the
+    child-by-child route runs conv in bf16, BatchNorm in fp32: the output
+    dtype, the value and the fp32 master gradients as the JAX package's;
+    "auto" decides on the dtype after the policy."""
+    from mxnet_tpu import amp as jamp
+    jblk, tblk, xv = _triplet_pair(seed=2)
+    fused_mode(mode)
+    jamp.init("bfloat16")
+    tmx.amp.init("bfloat16")
+    try:
+        assert tmx.amp._op_cast_dtype("fused_conv_bn_relu") == torch.bfloat16
+        with mx.autograd.record():
+            jout = jblk(mx.np.array(xv))
+            jloss = (jout.astype("float32") ** 2).sum()
+        jloss.backward()
+        with tmx.autograd.record():
+            tout = tblk(torch.from_numpy(xv))
+            tloss = (tout.float() ** 2).sum()
+        tmx.autograd.backward(tloss)
+    finally:
+        jamp._deactivate()
+        tmx.amp._deactivate()
+    want = "bfloat16" if mode == "on" else "float32"
+    assert str(jout.dtype) == want
+    assert tout.dtype == getattr(torch, want)
+    _bf16_close(tout.detach().float().numpy(),
+                onp.asarray(jout.astype("float32").asnumpy()), share=2e-2)
+    for name, p in tblk.collect_params().items():
+        if p.grad_req == "null":
+            continue
+        assert p.grad().dtype == torch.float32, name
+        ref = jblk.collect_params()[name].grad().asnumpy()
+        assert onp.abs(p.grad().numpy() - ref).max() \
+            <= 3e-2 * onp.abs(ref).max(), name

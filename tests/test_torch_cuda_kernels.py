@@ -51,7 +51,9 @@ plain version: dx and dw within max|diff| / max|plain| <= 2e-4 (3xTF32
 tensor-core sums of up to 9*512 products in another order), dgamma and
 dbeta bit for bit (one stats-pass function computes them for both), two
 launches bit for bit (no atomics), and with an inf in x and w and a NaN
-in da the plain version's NaN and inf positions. A BasicBlockV1 on the card (kernel 8 under "auto")
+in da the plain version's NaN and inf positions; its bf16 instantiation
+likewise, dx and dw elementwise within one bf16 ulp plus 1e-5 of
+max|plain|. A BasicBlockV1 on the card (kernel 8 under "auto")
 vs the CPU (the plain version under "on"): the reference's block-level
 tolerances, output 1e-4, input gradient 1e-3, parameter gradients 2e-3.
 Attention at a head_dim or dtype the flash kernels lack: the plain
@@ -1222,11 +1224,16 @@ def test_conv_bwd_kernel_keeps_non_finite_positions(cuda_device, nan_at):
         assert _rel(got[0][finite], want[0][finite]) <= 2e-4
 
 
-@pytest.mark.parametrize("bad", ["cpu_mix", "float64", "bfloat16"])
+@pytest.mark.parametrize("bad", ["cpu_mix", "float64", "float16",
+                                 "bf16_w_fp32_x"])
 def test_conv_bwd_wrapper_raises(cuda_device, bad):
+    """A CPU tensor among CUDA ones, a dtype without a kernel, and mixed
+    dtypes (bf16 has its own kernels now) raise before any launch."""
     args = list(_cbr_inputs(2, 5, 5, 4, 4, cuda_device, seed=1))
     if bad == "cpu_mix":
         args[2] = args[2].cpu()
+    elif bad == "bf16_w_fp32_x":
+        args[3] = args[3].to(torch.bfloat16)
     else:
         dtype = getattr(torch, bad)
         args[:4] = [t.to(dtype) for t in args[:4]]
@@ -1234,6 +1241,76 @@ def test_conv_bwd_wrapper_raises(cuda_device, bad):
     with pytest.raises(MXNetError):
         tcb.fused_conv3x3_bn_relu_bwd(*args)
     assert tcb.fused_conv3x3_bn_relu_bwd.launches == before
+
+
+def _cbr_inputs_bf16(n, h, w, c, o, device, seed):
+    """``_cbr_inputs`` with x, w, gamma, beta and da in bf16 (the triplet
+    under amp.init), y from the bf16 forward."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, c, h, w, device=device, generator=gen)
+    wt = torch.randn(o, c, 3, 3, device=device, generator=gen) \
+        * (2.0 / (9 * c)) ** 0.5
+    gamma = torch.rand(o, device=device, generator=gen) + 0.5
+    beta = torch.randn(o, device=device, generator=gen) * 0.1
+    x, wt, gamma, beta = (t.bfloat16() for t in (x, wt, gamma, beta))
+    a, y, mean, var = tcb.conv3x3_bn_relu_ref(x, wt, gamma, beta)
+    da = torch.randn(n, o, h, w, device=device, generator=gen).bfloat16()
+    return da, x, y, wt, gamma, beta, mean, var
+
+
+def _bf16_within(got, want):
+    """Elementwise: one bf16 ulp of the plain value (rtol 2^-7) plus 1e-5
+    of max|plain| (exact bf16 products, fp32 sums in another order)."""
+    got, want = got.float(), want.float()
+    allow = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+    return bool(((got - want).abs() <= allow).all())
+
+
+@pytest.mark.parametrize("n,h,w,c,o", [(32, 28, 28, 128, 128),
+                                       (32, 7, 7, 512, 512)]
+                         + CONV_SHAPES[4:])
+def test_conv_bwd_bf16_kernel_matches_plain_version(cuda_device, n, h, w, c,
+                                                    o):
+    """The bf16 instantiation against the plain version on the same bf16
+    inputs: dx and dw in bf16 within one ulp plus 1e-5 of max|plain|,
+    dgamma/dbeta bit for bit, two launches bit for bit."""
+    args = _cbr_inputs_bf16(n, h, w, c, o, cuda_device, seed=h * w + c)
+    before = tcb.fused_conv3x3_bn_relu_bwd.bf16_launches
+    dx, dw, dg, db = tcb.fused_conv3x3_bn_relu_bwd(*args)
+    torch.cuda.synchronize()
+    assert tcb.fused_conv3x3_bn_relu_bwd.bf16_launches == before + 1
+    da, x, y, wt, gamma, beta, mean, var = args
+    pg, pb, vec = tcb.bwd_stats(da, y, gamma, beta, mean, var)
+    pdx, pdw = tcb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert _bf16_within(dx, pdx) and _bf16_within(dw, pdw)
+    assert torch.equal(dg, pg) and torch.equal(db, pb)
+    again = tcb.fused_conv3x3_bn_relu_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("nan_at", [None, "live", "dead"])
+def test_conv_bwd_bf16_kernel_keeps_non_finite_positions(cuda_device,
+                                                         nan_at):
+    args = list(_cbr_inputs_bf16(2, 6, 5, 4, 3, cuda_device, seed=7))
+    da, x, y, wt, gamma, beta, mean, var = args
+    x[1, 3, 0, 2] = float("inf")
+    wt[0, 3, 2, 1] = -float("inf")
+    if nan_at is not None:
+        z = ((y - mean[:, None, None]) * torch.rsqrt(var + 1e-5)[:, None, None]
+             * gamma[:, None, None] + beta[:, None, None])
+        at = torch.nonzero((z > 0) == (nan_at == "live"))[0]
+        da[tuple(at.tolist())] = float("nan")
+    got = tcb.fused_conv3x3_bn_relu_bwd(*args)
+    torch.cuda.synchronize()
+    pg, pb, vec = tcb.bwd_stats(da, y, gamma, beta, mean, var)
+    want = tcb.fused_conv3x3_bn_relu_bwd_plain(da, x, y, wt, vec) + (pg, pb)
+    for g, r in zip(got, want):
+        assert torch.equal(g.isnan(), r.isnan())
+        assert torch.equal(g.isinf(), r.isinf())
+        assert torch.equal(g[g.isinf()].sign(), r[r.isinf()].sign())
+    assert got[1].isinf().any() and got[0].isnan().any()
 
 
 def test_basic_block_on_card_matches_cpu(cuda_device):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
-Every module of ``mxnet_tpu_torch/``, ``chip_smoke.py`` and the port's
+Every module of ``mxnet_tpu_torch/`` (the ``amp`` package's too),
+``chip_smoke.py`` and the port's
 tools (``tools/fp8_loss_curves.py``, ``flash_digest.py``) is scanned for
 imports of ``jax``, ``jaxlib`` or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself
 is allowed), and a fresh interpreter that imports the port must end up
@@ -61,7 +62,8 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.contrib.quantization, "
             "mxnet_tpu_torch.ops.conv_bwd, mxnet_tpu_torch.gluon.nn.fuse, "
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
-            "mxnet_tpu_torch.gluon.model_zoo.vision; "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.amp, "
+            "mxnet_tpu_torch.amp.lists, mxnet_tpu_torch.amp.loss_scaler; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -141,7 +141,7 @@ def _port_step(tnet, x, y):
         logits = tnet(torch.from_numpy(x))
         loss = loss_fn(logits, torch.from_numpy(y))
     tmx.autograd.backward(loss)
-    return logits.detach().numpy(), loss.detach().numpy()
+    return logits.detach().float().numpy(), loss.detach().numpy()
 
 
 def _stats(params, port):
@@ -431,3 +431,75 @@ def test_deferred_parameters_and_load_params():
                                     for n in arrays})
     with pytest.raises(MXNetError, match="not initialized"):
         blank(torch.ones(2, 3, 2, 2))
+
+
+@pytest.mark.parametrize("name", ["v1_basic", "v1_bottleneck"])
+def test_training_step_under_amp_matches_jax(name, mode):
+    """A small ResNetV1 under ``amp.init("bfloat16")``, fp32 parameters
+    (the master weights), ``fused_conv_bn`` "on" (bf16 triplets through the
+    JAX Pallas kernel in interpret mode and the port's kernel-8 plain
+    version) and "off" (bf16 convolutions, fp32 BatchNorm): every block's
+    output dtype in call order as the JAX package's, exactly; the logits
+    and the loss within 2e-2 of their largest |value|; the running
+    statistics within 1e-2 relative; every gradient fp32, the head's
+    (no ReLU or BatchNorm between it and the loss) within 3e-2 of its
+    largest |value|. The other gradients are held to the conditioning
+    probe: this untrained net at batch 4 turns bf16 roundings into large
+    gradient changes (ReLU inputs near 0 take the other branch, BatchNorm
+    over 16 values at the last stage amplifies), so that the JAX package's
+    own bf16 gradients differ from its fp32 ones from the same weights by
+    20-65% of their largest |value| (measured). Each port gradient must be
+    within 3e-2 of max|JAX| plus twice that change."""
+    from mxnet_tpu import amp as jamp
+    jnet, tnet = _pair(name)
+    x, y = _train_batch(tnet)
+    # the conditioning probe: the JAX package's fp32 gradients from the
+    # same weights (a second net from the same seed) and batch
+    jprobe = _pair(name)[0]
+    _jax_step(jprobe, x, y)
+    probe = {n: p.grad().asnumpy().copy()
+             for n, p in jprobe.collect_params().items()
+             if p.grad_req != "null"}
+    seen = {"jax": [], "port": []}
+
+    def jax_blocks(block, prefix=""):
+        yield prefix, block
+        for n, child in block._children.items():
+            yield from jax_blocks(child, f"{prefix}.{n}" if prefix else n)
+
+    def names(out):
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        return tuple(str(o.dtype).replace("torch.", "") for o in outs)
+
+    for n, blk in jax_blocks(jnet):
+        blk.register_forward_hook(
+            lambda b, a, o, n=n: seen["jax"].append((n, names(o))))
+    for n, blk in tnet.named_modules():
+        blk.register_forward_hook(
+            lambda b, a, o, n=n: seen["port"].append((n, names(o))))
+    jamp.init("bfloat16")
+    tmx.amp.init("bfloat16")
+    try:
+        jlogits, jloss = _jax_step(jnet, x, y)
+        tlogits, tloss = _port_step(tnet, x, y)
+    finally:
+        jamp._deactivate()
+        tmx.amp._deactivate()
+    assert seen["port"] == seen["jax"]
+    assert dict(seen["port"])[""] == ("bfloat16",)  # the Dense head
+    for got, want in ((tlogits, jlogits), (tloss, jloss)):
+        got, want = onp.asarray(got, "float32"), onp.asarray(want, "float32")
+        assert onp.abs(got - want).max() <= 2e-2 * onp.abs(want).max()
+    jp, tp = jnet.collect_params(), tnet.collect_params()
+    for n, p in jp.items():
+        if p.grad_req == "null":
+            continue
+        g, ref = tp[n].grad(), p.grad().asnumpy()
+        assert g.dtype == torch.float32 and tp[n].dtype == torch.float32, n
+        allow = 3e-2 * onp.abs(ref).max()
+        if not n.startswith("output."):
+            allow += 2 * onp.abs(ref - probe[n]).max()
+        assert onp.abs(g.numpy() - ref).max() <= allow, n
+    for n, v in _stats(jp, False).items():
+        got = _stats(tp, True)[n]
+        assert onp.abs(got - v).max() <= 1e-2 * onp.abs(v).max(), n
