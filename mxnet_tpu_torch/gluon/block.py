@@ -91,7 +91,6 @@ class HybridBlock(nn.Module):
         ``multi_precision``); returns the block."""
         for p in self.collect_params().values():
             p.cast(dtype)
-        self._dtype = dtype
         return self
 
     def zero_grad(self):

@@ -71,6 +71,8 @@ class Trainer:
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
         self.nonfinite_steps = 0
+        #: the AMP loss scaler, attached by ``amp.scale_loss``
+        self._amp_loss_scaler = None
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -105,7 +107,7 @@ class Trainer:
 
     # -- the non-finite guard -------------------------------------------------
     def _guard_active(self):
-        return (getattr(self, "_amp_loss_scaler", None) is not None
+        return (self._amp_loss_scaler is not None
                 or bool(config.get("trainer.skip_nonfinite")))
 
     def _grads_finite(self):
@@ -119,9 +121,8 @@ class Trainer:
         loss scale backs off, and "add" gradients are cleared so the poison
         does not reach the next step."""
         self.nonfinite_steps += 1
-        scaler = getattr(self, "_amp_loss_scaler", None)
-        if scaler is not None:
-            scaler.update_scale(True)
+        if self._amp_loss_scaler is not None:
+            self._amp_loss_scaler.update_scale(True)
         for p in self._params:
             if p.grad_req == "add":
                 p.zero_grad()
@@ -136,9 +137,8 @@ class Trainer:
             if not self._grads_finite():
                 self._skip_step()
                 return
-            scaler = getattr(self, "_amp_loss_scaler", None)
-            if scaler is not None:
-                scaler.update_scale(False)
+            if self._amp_loss_scaler is not None:
+                self._amp_loss_scaler.update_scale(False)
         self._update()
 
     def update(self, batch_size, ignore_stale_grad=False):
@@ -154,7 +154,7 @@ class Trainer:
     # -- resume: what save_states misses (the loss scale and its window,
     # the skip count) beside the optimizer and its states as bytes ---------
     def state_dict(self):
-        scaler = getattr(self, "_amp_loss_scaler", None)
+        scaler = self._amp_loss_scaler
         return {"optimizer": self._updater.get_states(dump_optimizer=True),
                 "nonfinite_steps": self.nonfinite_steps,
                 "loss_scaler": None if scaler is None
@@ -164,12 +164,15 @@ class Trainer:
         self.nonfinite_steps = int(state.get("nonfinite_steps", 0))
         scaler_state = state.get("loss_scaler")
         if scaler_state is not None:
-            if getattr(self, "_amp_loss_scaler", None) is None:
+            if self._amp_loss_scaler is None:
                 self._amp_loss_scaler = LossScaler()
             self._amp_loss_scaler.load_state_dict(scaler_state)
-        blob = state.get("optimizer")
-        if blob is None:
-            return
+        if state.get("optimizer") is not None:
+            self._restore_states(state["optimizer"])
+
+    def _restore_states(self, blob):
+        """The optimizer and its states from ``Updater.get_states`` bytes,
+        each state on its weight's device."""
         self._updater.set_states(blob, self._weights())
         self._optimizer = self._updater.optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
@@ -203,6 +206,4 @@ class Trainer:
     def load_states(self, fname):
         """Restore what ``save_states`` wrote."""
         with open(fname, "rb") as f:
-            self._updater.set_states(f.read(), self._weights())
-        self._optimizer = self._updater.optimizer
-        self._optimizer.param_dict = dict(enumerate(self._params))
+            self._restore_states(f.read())

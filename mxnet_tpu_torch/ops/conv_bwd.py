@@ -376,8 +376,9 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     da, y: (N, O, H, W); x: (N, C, H, W); w: (O, C, 3, 3); gamma, beta,
     mean, var: (O,). dgamma and dbeta come from :func:`bwd_stats`. CPU
     tensors take :func:`fused_conv3x3_bn_relu_bwd_plain`; CUDA tensors
-    (fp32, on a card of compute capability 9.0) launch the kernels of
-    ``csrc/conv_bwd.cu`` (built at first use) or raise, and count one call
+    (fp32 or bf16, on a card of compute capability 9.0) launch the
+    kernels of ``csrc/conv_bwd.cu`` (built at first use) or raise, and
+    count one call
     in ``fused_conv3x3_bn_relu_bwd.launches`` (a bf16 call also in
     ``.bf16_launches``), one under its ``(N, H, W, C, O)`` in
     ``.shape_launches`` and one launch of each CUDA kernel in
