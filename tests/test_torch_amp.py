@@ -8,7 +8,8 @@ and ``unscale``, the promotion rules of ``npx.fully_connected`` and
 ``npx.layer_norm`` with mixed dtypes (faults 17 and 18 of the port's
 record: bf16 x with an fp32 weight raised in ``fully_connected``, and
 ``layer_norm`` returned bf16 where the reference returns fp32), a tiny GPT
-trained under ``amp.init("bfloat16")``, ``multi_precision`` for SGD, Adam
+trained under ``amp.init("bfloat16")``, a small BERT's dtypes under it
+(the fused ln_residual route "on" and "off"), ``multi_precision`` for SGD, Adam
 and AdamW, and the Trainer's non-finite guard. Output dtypes are compared
 exactly.
 
@@ -34,8 +35,6 @@ import numpy as onp
 import pytest
 import torch
 
-import jax.numpy as jnp
-
 import mxnet_tpu as mx
 from mxnet_tpu import amp as jamp
 from mxnet_tpu import autograd as jautograd
@@ -43,6 +42,7 @@ from mxnet_tpu import functional as jfunctional
 from mxnet_tpu import npx as jnpx
 from mxnet_tpu import optimizer as jopt
 from mxnet_tpu.gluon import nn as jnn
+from mxnet_tpu.gluon.model_zoo.bert import BERTForPretraining as JBERT
 from mxnet_tpu.gluon.model_zoo.gpt import GPTForCausalLM as JGPT
 
 import mxnet_tpu_torch as tmx
@@ -51,6 +51,7 @@ from mxnet_tpu_torch import functional as tfunctional
 from mxnet_tpu_torch import npx as tnpx
 from mxnet_tpu_torch import optimizer as topt
 from mxnet_tpu_torch.gluon import nn as tnn
+from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 
 torch.set_num_threads(2)
@@ -567,6 +568,58 @@ def test_gpt_under_amp_matches_jax_dtypes_values_and_gradients():
     for name, w in tfunctional.param_arrays(tnet).items():
         allow = 0.1 / GPT_BATCH * 3e-2 * grads.get(name, 0.0) + 1e-6
         assert onp.abs(w - onp.asarray(ref[name])).max() <= allow, name
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_bert_under_amp_matches_jax_dtypes(fused):
+    """A small BERT (128 units: the reference fuses only D % 128 == 0)
+    under ``amp.init``: every block's output dtype in call order as the JAX
+    package's, with the fused ln_residual route "on" (fp32 x after an fp32
+    LayerNorm, bf16 h from the bf16 attention: both packages widen the
+    pair and return fp32) and "off"; the MLM and NSP scores within 2e-2 of
+    their largest |value|."""
+    cfg = dict(vocab_size=1000, units=128, hidden_size=256, num_layers=2,
+               num_heads=4, max_length=64, dropout=0.0, embed_dropout=0.0)
+    rs = onp.random.RandomState(16)
+    ids = rs.randint(0, 1000, (2, 32)).astype("int32")
+    types = (onp.arange(32)[None, :] >= 12).astype("int32").repeat(2, 0)
+    valid = onp.array([32, 21], dtype="int32")
+    old = mx.config.get("fused_ln_residual")
+    mx.config.set("fused_ln_residual", fused)
+    tmx.config.set("fused_ln_residual", fused)
+    try:
+        mx.random.seed(16)
+        jnet = JBERT(**cfg)
+        jnet.initialize()
+        jnet(mx.np.array(ids), mx.np.array(types), mx.np.array(valid))
+        tnet = tbert.BERTForPretraining(device="cpu", **cfg)
+        tfunctional.load_params(tnet, {
+            k: onp.asarray(v)
+            for k, v in jfunctional.param_arrays(jnet).items()})
+        seen = {"jax": [], "port": []}
+        for name, blk in _jax_blocks(jnet):
+            blk.register_forward_hook(
+                lambda b, a, o, n=name: seen["jax"].append((n, _dtypes(o))))
+        for name, blk in tnet.named_modules():
+            blk.register_forward_hook(
+                lambda b, a, o, n=name: seen["port"].append((n, _dtypes(o))))
+        jamp.init("bfloat16")
+        tamp.init("bfloat16")
+        with jautograd.record():
+            jout = jnet(mx.np.array(ids), mx.np.array(types),
+                        mx.np.array(valid))
+        with tmx.autograd.record():
+            tout = tnet(*(torch.from_numpy(a) for a in (ids, types, valid)))
+    finally:
+        mx.config.set("fused_ln_residual", old)
+        tmx.config.reset("fused_ln_residual")
+    assert seen["port"] == seen["jax"]
+    cells = [d for n, d in seen["port"] if n.endswith("layer0")]
+    assert cells == [("float32",)]
+    for got, want in zip(tout, jout):
+        assert _name(got.dtype) == _name(want.dtype)
+        want = _np(want)
+        assert onp.abs(_np(got) - want).max() <= 2e-2 * onp.abs(want).max()
 
 
 # -- multi_precision -------------------------------------------------------------
