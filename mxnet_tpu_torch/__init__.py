@@ -16,8 +16,10 @@ fp8 matmul kernel on every eligible Dense), int8 inference
 (``contrib.quantization.quantize_net``, the int8 matmul kernel on every
 quantized Dense, exact int8 convolutions) and ResNet training through
 Gluon (``gluon.model_zoo.vision``, the conv3x3+BN+ReLU backward kernel in
-every eligible triplet of an ``nn.FusableSequential``). Entry points run
-on ``cuda:0`` unless given ``device="cpu"``.
+every eligible triplet of an ``nn.FusableSequential``), and bf16 mixed
+precision on those training paths (``amp.init("bfloat16")``, or
+``Block.cast`` with ``multi_precision``). Entry points run on ``cuda:0``
+unless given ``device="cpu"``.
 """
 from . import amp, autograd, config, context, contrib, functional, gluon
 from . import initializer, lr_scheduler
