@@ -592,19 +592,24 @@ def test_ln_residual_bwd_repeats_bit_for_bit(cuda_device, n, d, dtype):
     (torch.bfloat16, torch.float32), (torch.float16, torch.float16)])
 def test_ln_residual_bwd_is_one_device_kernel(cuda_device, dtype, g_dtype):
     """A backward call runs exactly one device kernel (torch.profiler): no
-    sum, cast or memset around the kernel."""
+    sum, cast or memset around the kernel. A window in which the profiler
+    recorded no device event at all (it did once on the H100, for a call
+    that ran) is profiled again, up to three windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     x, h, mask, g, b, do = _ln_inputs(4096, 768, 0.1, dtype, cuda_device,
                                       g_dtype=g_dtype)
     _, mean, rstd = tln.ln_residual_fwd(x, h, mask, g, b, 0.1)
     tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)
+    for _ in range(3):
         torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tln.ln_residual_bwd(x, h, mask, g, mean, rstd, do, 0.1)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
     assert len(kernels) == 1 and "ln_residual_bwd_kernel" in kernels[0], \
         kernels
 
