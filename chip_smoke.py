@@ -537,9 +537,9 @@ def device_kernels(fn, iters, match, warmup=3):
     (all events over its events), and its ms is the mean of its events,
     so that neither moves where the profiler drops some events (it did
     drop up to a quarter of them in a window of 30 calls on the H100). A
-    window in which it recorded no ``match`` event at all (once, for a
-    kernel whose launches the wrapper counted, PR 13) is measured again,
-    up to three windows; None where none recorded one."""
+    window in which it recorded no ``match`` event at all (it happened
+    once on the H100, for a kernel whose launches the wrapper counted) is
+    measured again, up to three windows; None where none recorded one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
