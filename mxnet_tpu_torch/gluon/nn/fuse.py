@@ -37,10 +37,11 @@ from .conv_layers import _Conv
 
 __all__ = ["FusableSequential"]
 
-# the dtypes "auto" fuses on the card, by the ResNet-50 step on the H100
-# (PERF.md): fp32 (kernel 8 level with cuDNN's fp32 chain). Not bf16: the
-# bf16 step took 40.6 device ms with the bf16 kernel ("on") against 37.9
-# with cuDNN's bf16 chain ("off"), so "auto" leaves bf16 triplets to cuDNN
+# the dtypes "auto" fuses on the card, by the ResNet-50 step on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md): fp32 (kernel 8 level with cuDNN's
+# fp32 chain). Not bf16: the bf16 step took 40.5 device ms with the bf16
+# kernel ("on") against 37.9 with cuDNN's bf16 chain ("off"), so "auto"
+# leaves bf16 triplets to cuDNN
 _AUTO_DTYPES = (torch.float32,)
 
 
