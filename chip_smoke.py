@@ -324,6 +324,41 @@ Phases, in order; any failure exits non-zero and prints no result:
    other kernel; then "auto" for 2 steps, which must launch kernel 8 as
    its rule for bf16 says. Prints step ms, device ms of every run,
    images/s, both model-FLOP shares and peak memory of "on" and "off".
+19. GPT-2 124M bf16 hybridized: phase 16's model, batch and weights under
+   ``amp.init``, ``net.hybridize()`` and ``loss.hybridize()`` (CUDA graphs
+   of each forward and backward), AdamW through the Trainer's fused
+   multi-tensor update. From the same start weights 2 eager and 2
+   hybridized steps and 2 eager steps again: the losses within 1e-3
+   relative, and every parameter tensor within 10 times what the two eager
+   runs differ by, plus 1e-3 of its largest value, plus 1e-6 (printed: bit
+   for bit, or the largest difference and its tensor, beside eager's own).
+   Then timed runs in turns (eager, hybrid, hybrid, eager) of 4 steps:
+   step ms, device ms, busy share, tokens/s,
+   host launch calls a step (the profiler's ``cudaLaunchKernel`` /
+   ``cudaGraphLaunch`` / ... runtime events), capture seconds and peak
+   memory (allocated and reserved). Each flash kernel 12 launches a
+   hybridized step, counted by profiler events (a replay leaves the
+   wrappers' counts alone). Then ``save_parameters`` ->
+   ``load_parameters`` of the model cast to bf16 into a fresh one: logits
+   equal bit for bit.
+20. BERT-base bf16 hybridized: phase 17's model, batch and dropout 0.1
+   (``net.cast``, ``multi_precision`` AdamW, whose update stays per
+   parameter), the same comparison from the same weights and generator
+   state (losses within 1e-3, parameters 1e-2 of their largest value
+   beyond eager's own spread, as above, the dropout generator's
+   state after the steps equal to eager's), the same timed runs, and both
+   ln_residual kernels 12 launches a hybridized step (the backward's
+   cooperative launch inside the graph).
+21. ResNet-50 v1 fp32 hybridized: phase 13's model, batch and SGD momentum
+   (fused), ``fused_conv_bn`` "auto": the same comparison (losses 1e-4,
+   parameters and running statistics 1e-3 as above: cuDNN's eager steps
+   differ from each other), the same timed runs, and
+   kernel 8 (weight split, dgrad, wgrad) 16 launches a hybridized step.
+22. The fused update against the per-parameter rule at GPT-2 124M's
+   parameter shapes: 10 steps of the same gradients each for SGD
+   (momentum 0 and 0.9), Adam and AdamW (wd 0.01, clip 1.0): bit for bit
+   or the largest difference in ulp and absolute (held to 1e-6), and the
+   host launch calls and device kernels of one update either way.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -2342,7 +2377,7 @@ def phase_int8_times(dev, card):
     return rows
 
 
-# -- kernel 8 and the ResNet-50 phases ------------------------------------------
+# -- kernel 8 and the ResNet-50 phases ----------------------------------------
 
 CONV_COUNTS = ("calls", "wsplit", "dgrad", "dgrad_reduce", "wgrad",
                "wgrad_reduce")
@@ -3051,7 +3086,7 @@ def phase_resnet_int8(dev, card):
     return e2e
 
 
-# -- the bf16 training paths (phases 16-18) -------------------------------------
+# -- the bf16 training paths (phases 16-18) -----------------------------------
 
 def all_launches():
     """Every kernel wrapper's count: flash fwd/dkv/dq, ln fwd/bwd, fp8,
@@ -3421,6 +3456,458 @@ def phase_resnet_bf16(dev, card):
     return e2e, per_shape
 
 
+# -- hybridize() and the fused update (phases 19-22) --------------------------
+
+HYBRID_STEPS = 4  # timed steps of each run in phases 19-21
+#: the host's launch calls, as the profiler names the runtime and driver
+#: API events
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
+
+
+def host_launch_calls(fn):
+    """{API name: calls} of one call of ``fn()``: the host's kernel and
+    graph launches, from ``torch.profiler``'s runtime API events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.name in HOST_LAUNCH_CALLS:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def kernel_events_max(fn, names, windows=3):
+    """{name: kernels a call of ``fn()`` whose names contain ``name``},
+    the largest count over up to ``windows`` profiled calls (the profiler
+    drops events now and then; a kernel inside a replayed CUDA graph is an
+    event of its own); stops once every count repeats."""
+    best = {}
+    for _ in range(windows):
+        got = kernel_events(fn, 1, names, warmup=0)
+        if got == best:
+            break
+        best = {n: max(got[n], best.get(n, 0)) for n in names}
+    return best
+
+
+def params_snapshot(params):
+    return {n: p.data().detach().clone() for n, p in params.items()}
+
+
+def tensor_diffs(a, b):
+    """{name: max|a - b|} of the dicts' tensors that differ."""
+    return {n: (a[n].float() - b[n].float()).abs().max().item()
+            for n in a if not torch.equal(a[n], b[n])}
+
+
+def worst(diffs, ref):
+    """(the largest max|a - b| / max|a| of ``diffs``, the tensor, its
+    max|a - b|)."""
+    rows = [(d / max(ref[n].float().abs().max().item(), 1e-30), n, d)
+            for n, d in diffs.items()]
+    return max(rows) if rows else (0.0, None, 0.0)
+
+
+def graph_stats(blocks):
+    """Signatures, captures and capture seconds of hybridized blocks."""
+    entries = [e for b in blocks for g in b._cached_graphs.values()
+               for e in g._signatures.values()]
+    return {"signatures": len(entries),
+            "captures": sum(g.captures for b in blocks
+                            for g in b._cached_graphs.values()),
+            "capture_s": sum(e.capture_s for e in entries)}
+
+
+def set_hybrid(blocks, on):
+    for b in blocks:
+        b.hybridize(on, clear=False)
+
+
+def hybrid_ab(label, card, blocks, make_step, restore, params, seed,
+              loss_tol, weight_tol, names, want, tokens, samples, flops,
+              extra_state=None):
+    """The hybridized path against the eager one on one model: from the
+    same start weights (and generator state), 2 eager and 2 hybridized
+    steps compared (losses, every parameter; ``extra_state()`` too); then
+    timed runs in turns (eager, hybrid, hybrid, eager) of ``HYBRID_STEPS``
+    steps each: wall ms, profiled device ms, busy share, host launch calls
+    a step, peak memory; and each of ``names`` ``want`` kernels a
+    hybridized step by profiler events."""
+    runs, peaks = {}, {}
+    for on in (False, True, "again"):
+        restore()
+        seed()
+        set_hybrid(blocks, on is True)
+        step = make_step()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step() for _ in range(2)]
+        torch.cuda.synchronize()
+        peaks[on] = (torch.cuda.max_memory_allocated() / 1e9,
+                     torch.cuda.max_memory_reserved() / 1e9)
+        runs[on] = ([v.item() for v in losses], params_snapshot(params),
+                    extra_state() if extra_state else None)
+    (le, pe, se), (lh, ph, sh) = runs[False], runs[True]
+    loss_diff = max(abs(a - b) / max(abs(a), 1e-30) for a, b in zip(le, lh))
+    hybrid_d = tensor_diffs(pe, ph)
+    eager_d = tensor_diffs(pe, runs["again"][1])
+    diff, where, diff_abs = worst(hybrid_d, pe)
+    spread = worst(eager_d, pe)
+    # beyond what eager differs from itself (cuDNN's algorithms need not
+    # be deterministic), by ``weight_tol`` of the tensor's largest value
+    # plus 1e-6 (a bias before a BatchNorm stays ~1e-10 of noise)
+    beyond = [n for n, d in hybrid_d.items()
+              if d > 10 * eager_d.get(n, 0.0) + 1e-6
+              + weight_tol * pe[n].float().abs().max().item()]
+    stats = graph_stats(blocks)
+    print(f"{label}: eager losses {le}, hybridized {lh} (largest relative "
+          f"difference {loss_diff:.3e}); parameters after 2 steps "
+          + ("equal bit for bit" if not hybrid_d else
+             f"differ in {len(hybrid_d)} tensors, by up to {diff:.3e} of "
+             f"a tensor's largest value ({diff_abs:.3e} in {where})")
+          + "; eager against eager: " + (
+              "equal bit for bit" if not eager_d else
+              f"{len(eager_d)} tensors differ, by up to {spread[0]:.3e} "
+              f"({spread[2]:.3e} in {spread[1]})")
+          + f"; graphs {stats}")
+    check(all(onp.isfinite(lh)) and loss_diff <= loss_tol,
+          f"{label}: the hybridized losses {lh} are not the eager {le} "
+          f"within {loss_tol}")
+    check(not beyond, f"{label}: {beyond[:4]} differ from the eager step's "
+                      f"by more than 10x eager's own spread + {weight_tol} "
+                      "of their largest value + 1e-6")
+    if extra_state:
+        check(se == sh, f"{label}: {se} eager, {sh} hybridized")
+    del runs, pe, ph
+    step = make_step()
+    rows = {False: [], True: []}
+    for on in (False, True, True, False):
+        set_hybrid(blocks, on)
+        step()  # the first of a mode may capture or warm up: not timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(HYBRID_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / HYBRID_STEPS * 1e3
+        peak = (torch.cuda.max_memory_allocated() / 1e9,
+                torch.cuda.max_memory_reserved() / 1e9)
+        busy, top = device_profile(step, 2, warmup=0, top=6)
+        rows[on].append(dict(wall=wall, busy=busy, peak=peak, top=top,
+                             host=host_launch_calls(step)))
+    events = kernel_events_max(step, names)
+    set_hybrid(blocks, False)
+    out = {"eager_losses": le, "hybrid_losses": lh,
+           "loss_rel_diff": loss_diff, "param_max_rel_diff": diff,
+           "param_max_abs_diff": diff_abs, "param_max_diff_in": where,
+           "params_bit_identical": not hybrid_d,
+           "tensors_differing": len(hybrid_d),
+           "eager_rerun_param_max_rel_diff": spread[0],
+           "eager_rerun_tensors_differing": len(eager_d),
+           "kernel_events_per_hybrid_step": events, **graph_stats(blocks)}
+    for on, name in ((False, "eager"), (True, "hybrid")):
+        r = rows[on]
+        wall = float(onp.median([x["wall"] for x in r]))
+        dev = [x["busy"] for x in r if x["busy"] is not None]
+        dev_ms = float(onp.median(dev)) if dev else None
+        out[name] = {
+            "step_ms": wall, "step_ms_runs": [x["wall"] for x in r],
+            "device_ms": dev_ms, "device_ms_runs": [x["busy"] for x in r],
+            "device_busy_share": busy_share(dev_ms, wall),
+            "tokens_per_s": tokens / (wall / 1e3),
+            "samples_per_s": None if samples is None
+            else samples / (wall / 1e3),
+            "model_flop_share_bf16": flops / (wall / 1e3)
+            / PEAK_FLOPS[torch.bfloat16],
+            "host_launch_calls_per_step": r[-1]["host"],
+            # the first two steps (a hybridized one captures), then the
+            # timed runs (graphs kept in both modes once captured)
+            "first_steps_peak_allocated_gb": peaks[on][0],
+            "first_steps_peak_reserved_gb": peaks[on][1],
+            "timed_peak_allocated_gb": max(x["peak"][0] for x in r),
+            "timed_peak_reserved_gb": max(x["peak"][1] for x in r),
+            "top_kernels_ms": r[-1]["top"]}
+    print(f"{label} [{card}]: " + json.dumps(out))
+    check(events == want, f"{label}: kernels a hybridized step by profiler "
+                          f"events {events}, expected {want}")
+    return out
+
+
+def phase_gpt_hybrid(dev, card):
+    """GPT-2 124M bf16 (phase 16's model, batch and weights) hybridized:
+    net.hybridize() and loss.hybridize(), AdamW through _FusedUpdate; then
+    save_parameters -> load_parameters of the bf16 model."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    print(f"== phase 19: GPT-2 124M bf16 training hybridized (CUDA graphs "
+          f"of the forward and backward, fused AdamW; batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}) on {card}", flush=True)
+    vocab = 50257
+
+    def gpt(seed):
+        return GPTForCausalLM(backbone=gpt2_124m(
+            vocab_size=vocab, max_length=TRAIN_SEQ, dropout=0.0,
+            embed_dropout=0.0, device=dev)).initialize(seed=seed)
+
+    net = gpt(0)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    start = params_snapshot(params)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ids = torch.from_numpy(onp.random.RandomState(0).randint(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+
+    def make_step():
+        trainer = mx.gluon.Trainer(params, "adamw",
+                                   {"learning_rate": 1e-4, "wd": 0.01})
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            mx.autograd.backward(loss)
+            trainer.step(TRAIN_BATCH)
+            check(trainer._fused_update, "AdamW under amp.init did not take "
+                                         "the fused update")
+            return loss.detach().mean()
+        return step
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mx.amp.init("bfloat16")
+    try:
+        e2e = hybrid_ab("GPT-2 124M bf16", card, [net, loss_fn], make_step,
+                        restore, params, lambda: None, 1e-3, 1e-3,
+                        ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+                        {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
+                         "flash_bwd_dq": N_LAYERS}, tokens, None,
+                        6 * n_params * tokens)
+    finally:
+        mx.amp._deactivate()
+    del start
+    net.hybridize(False)  # frees the graphs
+    loss_fn.hybridize(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    net.cast("bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/gpt2.params"
+        t0 = time.perf_counter()
+        net.save_parameters(path)
+        saved = time.perf_counter() - t0
+        fresh = gpt(1).cast("bfloat16")
+        t0 = time.perf_counter()
+        fresh.load_parameters(path)
+        loaded = time.perf_counter() - t0
+    with torch.no_grad():
+        a, b = net(x[:2]), fresh(x[:2])
+    same = torch.equal(a, b)
+    print(f"save_parameters -> load_parameters of the bf16 GPT-2 124M: "
+          f"logits {a.dtype} {tuple(a.shape)} "
+          f"{'equal bit for bit' if same else 'DIFFER'} "
+          f"(save {saved:.2f} s, load {loaded:.2f} s)")
+    check(same, "the reloaded bf16 GPT-2 gives other logits")
+    e2e["round_trip"] = {"logits_bit_identical": same, "save_s": saved,
+                         "load_s": loaded}
+    del net, fresh, a, b
+    return e2e
+
+
+def phase_bert_hybrid(dev, card):
+    """BERT-base bf16 (phase 17's model, batch and dropout 0.1: net.cast and
+    multi_precision AdamW, whose update stays per parameter) hybridized."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+    print(f"== phase 20: BERT-base bf16 training hybridized (net.cast, "
+          f"multi_precision AdamW, dropout 0.1; batch {BERT_BATCH} x seq "
+          f"{BERT_SEQ}) on {card}", flush=True)
+    net = BERTForPretraining(
+        vocab_size=BERT_VOCAB, units=768, hidden_size=3072, num_layers=12,
+        num_heads=12, max_length=512, dropout=0.1, embed_dropout=0.1,
+        device=dev).initialize(seed=0)
+    net.cast("bfloat16")
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    start = params_snapshot(params)
+    ids, types, valid, labels, weight, nsp = bert_batch(dev)
+    mlm_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nsp_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    gen = mx.random.default_generator(dev)
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+
+    def make_step():
+        trainer = mx.gluon.Trainer(params, "adamw",
+                                   {"learning_rate": 1e-4, "wd": 0.01,
+                                    "multi_precision": True})
+
+        def step():
+            with mx.autograd.record():
+                mlm, nsp_scores = net(ids, types, valid)
+                loss = mlm_loss(mlm, labels, weight) \
+                    + nsp_loss(nsp_scores, nsp)
+            mx.autograd.backward(loss)
+            trainer.step(BERT_BATCH)
+            check(trainer._fused_update is False, "multi_precision took the "
+                                                  "fused update")
+            return loss.detach().mean()
+        return step
+
+    tokens = BERT_BATCH * BERT_SEQ
+    e2e = hybrid_ab("BERT-base bf16", card, [net, mlm_loss, nsp_loss],
+                    make_step, restore, params, lambda: mx.random.seed(0),
+                    1e-3, 1e-2, ("ln_residual_fwd", "ln_residual_bwd"),
+                    {"ln_residual_fwd": N_LAYERS,
+                     "ln_residual_bwd": N_LAYERS}, tokens, BERT_BATCH,
+                    6 * n_params * tokens,
+                    extra_state=lambda: gen.get_state().tolist())
+    print("the dropout generator's state after 2 hybridized steps equals "
+          "the eager steps' (fresh masks each replay, as eager draws them)")
+    del net, start
+    return e2e
+
+
+def phase_resnet_hybrid(dev, card):
+    """ResNet-50 v1 fp32 (phase 13's model, batch and SGD momentum) with
+    fused_conv_bn "auto" (kernel 8) hybridized: BatchNorm's running
+    statistics updated inside the graph."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    print(f"== phase 21: ResNet-50 v1 fp32 training hybridized "
+          f"(fused_conv_bn 'auto', SGD momentum; batch {RESNET_BATCH} x 3 x "
+          f"{RESNET_SIZE} x {RESNET_SIZE}) on {card}", flush=True)
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev).initialize(seed=0)
+    x, y = resnet_batch(dev)
+    net(x)  # finishes the deferred shapes
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values()
+                   if p.grad_req != "null")
+    start = params_snapshot(params)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+
+    def make_step():
+        trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                                   "momentum": 0.9})
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            mx.autograd.backward(loss)
+            trainer.step(RESNET_BATCH)
+            check(trainer._fused_update, "SGD momentum did not take the "
+                                         "fused update")
+            return loss.detach().mean()
+        return step
+
+    e2e = hybrid_ab("ResNet-50 fp32 'auto'", card, [net, loss_fn],
+                    make_step, restore, params, lambda: None, 1e-4, 1e-3,
+                    ("conv_bwd_wsplit_kernel", "conv_bwd_dgrad_kernel",
+                     "conv_bwd_wgrad_kernel"),
+                    {"conv_bwd_wsplit_kernel": RESNET_TRIPLETS,
+                     "conv_bwd_dgrad_kernel": RESNET_TRIPLETS,
+                     "conv_bwd_wgrad_kernel": RESNET_TRIPLETS},
+                    RESNET_BATCH, RESNET_BATCH,
+                    RESNET_BATCH * RESNET50_TRAIN_FLOPS)
+    running = [n for n in params if "running" in n]
+    print(f"{len(running)} running statistics among the parameters held "
+          f"equal above")
+    del net, start
+    return e2e
+
+
+FUSED_CASES = (("sgd", {"momentum": 0.0}), ("sgd", {"momentum": 0.9}),
+               ("adam", {}), ("adamw", {}))
+
+
+def phase_fused_update(dev, card):
+    """The Trainer's fused multi-tensor update against the per-parameter
+    rule at GPT-2 124M's parameter shapes: 10 steps of the same gradients
+    each, wd 0.01, clip 1.0."""
+    import copy
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    print(f"== phase 22: _FusedUpdate vs the per-parameter rule (GPT-2 124M's "
+          f"parameters, 10 steps) on {card}", flush=True)
+    base = GPTForCausalLM(backbone=gpt2_124m(
+        vocab_size=50257, max_length=TRAIN_SEQ, dropout=0.0,
+        embed_dropout=0.0, device=dev)).initialize(seed=0)
+    gen = torch.Generator(device=dev)
+    out = {}
+    for name, kw in FUSED_CASES:
+        label = name + ("_momentum" if kw.get("momentum") else "")
+        nets = [copy.deepcopy(base), copy.deepcopy(base)]
+        trainers = [mx.gluon.Trainer(n.collect_params(), name,
+                                     dict(kw, learning_rate=1e-3, wd=0.01,
+                                          clip_gradient=1.0))
+                    for n in nets]
+        trainers[1]._fused_update = False  # the per-parameter rule
+        plist = [list(n.collect_params().values()) for n in nets]
+
+        def grads(step):
+            gen.manual_seed(step)
+            for a, b in zip(*plist):
+                g = torch.randn(a.shape, device=dev, generator=gen)
+                a.data().grad = g
+                b.data().grad = g.clone()
+
+        for step in range(10):
+            grads(step)
+            for tr in trainers:
+                tr.step(TRAIN_BATCH)
+        torch.cuda.synchronize()
+        worst_ulp, worst_abs, equal = 0, 0.0, True
+        for a, b in zip(*plist):
+            wa, wb = a.data().detach(), b.data().detach()
+            if not torch.equal(wa, wb):
+                equal = False
+                worst_abs = max(worst_abs, (wa - wb).abs().max().item())
+                worst_ulp = max(worst_ulp, (wa.view(torch.int32).long()
+                                            - wb.view(torch.int32).long())
+                                .abs().max().item())
+        calls = []
+        for tr in trainers:
+            grads(10)
+            calls.append(host_launch_calls(lambda t=tr: t.step(TRAIN_BATCH)))
+            grads(11)
+            calls.append(device_kernels(lambda t=tr: t.step(TRAIN_BATCH), 1,
+                                        "", warmup=0)[2])
+        row = {"bit_identical": equal, "max_abs_diff": worst_abs,
+               "max_ulp_diff": worst_ulp,
+               "fused_host_launch_calls": calls[0],
+               "fused_device_kernels": calls[1],
+               "per_param_host_launch_calls": calls[2],
+               "per_param_device_kernels": calls[3]}
+        out[label] = row
+        print(f"{label} [{card}]: " + json.dumps(row))
+        check(trainers[0]._fused_update, f"{label}: not fused")
+        check(worst_abs <= 1e-6, f"{label}: the fused update is "
+                                 f"{worst_abs} off the per-parameter rule")
+        del nets, trainers, plist
+    del base
+    return out
+
+
 def conv_entry(errs, rows, launches, per_shape, bf16_launches,
                bf16_per_shape):
     """Kernel 8's entry; ``per_shape`` is phase 13's read of the calls a
@@ -3762,6 +4249,18 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     resnet16_e2e, resnet16_shapes = timed("18", phase_resnet_bf16, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_hybrid = timed("19", phase_gpt_hybrid, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_hybrid = timed("20", phase_bert_hybrid, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_hybrid = timed("21", phase_resnet_hybrid, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_update = timed("22", phase_fused_update, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -3809,6 +4308,24 @@ def main():
                       resnet16_shapes)
     conv["launches_by_path"].update(gpt_bf16_train=0, bert_bf16_train=0)
     entries.append(conv)
+    # the hybridized paths (phases 19-21): replays leave the wrappers'
+    # counts alone, so a kernel's launches there are its profiler events a
+    # hybridized step times the timed hybridized steps
+    timed_steps = 2 * HYBRID_STEPS
+    hybrid = {"gpt_bf16_hybrid_train": (gpt_hybrid, ["flash_fwd",
+                                                     "flash_bwd_dkv",
+                                                     "flash_bwd_dq"]),
+              "bert_bf16_hybrid_train": (bert_hybrid, [None] * 3 + [
+                  "ln_residual_fwd", "ln_residual_bwd"]),
+              "resnet_hybrid_train": (resnet_hybrid, [None] * 7 + [
+                  "conv_bwd_dgrad_kernel"])}
+    for path, (e2e, names) in hybrid.items():
+        events = e2e["kernel_events_per_hybrid_step"]
+        for i, entry in enumerate(entries):
+            name = names[i] if i < len(names) else None
+            n = int(round(events[name] * timed_steps)) if name else 0
+            entry["launches_by_path"][path] = n
+            entry["launches"] += n
     print(json.dumps({"kernels": entries, "train": train_e2e,
                       "bert_train": bert_e2e, "fp8_train": fp8_e2e,
                       "bert_int8_infer": int8_e2e,
@@ -3816,7 +4333,11 @@ def main():
                       "resnet_int8_infer": resnet_int8_e2e,
                       "gpt_bf16_train": gpt16_e2e,
                       "bert_bf16_train": bert16_e2e,
-                      "resnet_bf16_train": resnet16_e2e}))
+                      "resnet_bf16_train": resnet16_e2e,
+                      "gpt_bf16_hybrid_train": gpt_hybrid,
+                      "bert_bf16_hybrid_train": bert_hybrid,
+                      "resnet_hybrid_train": resnet_hybrid,
+                      "fused_update": fused_update}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -135,3 +135,9 @@ declare("serve.drain_window", int, 4, "MXNET_SERVE_DRAIN_WINDOW",
 declare("serve.max_queue", int, 0, "MXNET_SERVE_MAX_QUEUE",
         "Bound on requests waiting for a decode slot; submit() past it "
         "raises EngineBusy. 0 = unbounded.")
+declare("cached_graph.max_signatures", int, 512,
+        "MXNET_CACHED_GRAPH_MAX_SIGNATURES",
+        "Most signatures one hybridized block (per train mode) keeps; the "
+        "least recently used is dropped, with its CUDA graphs and memory "
+        "pool, when a new one would pass it (reference analog: "
+        "CachedOpConfig limits, src/imperative/cached_op.h:412-459).")

@@ -25,7 +25,12 @@ the block's registration holds) and draws it then.
 tied through the memo) and gives the copy a fresh :class:`Parameter` with
 the same ``grad_req``, ``lr_mult`` and ``wd_mult`` (:class:`_Var`). ``cast``
 changes the tensor's dtype in place (the AMP paths: ``Block.cast``,
-``amp.convert_hybrid_block``).
+``amp.convert_hybrid_block``) and ``reset_ctx`` its device, each keeping the
+``nn.Parameter`` object. Every replacement of the tensor's storage (those
+two, and a deferred shape made known) bumps ``_storage_version``, which a
+hybridized block's captured graphs read (``gluon/cached_graph.py``): an
+in-place write (the Trainer, ``set_data`` on a known shape) keeps storage
+and version.
 :class:`Constant` is the reference's non-trainable parameter of any dtype
 (the int8 weights of ``contrib.quantization``).
 """
@@ -37,6 +42,7 @@ import torch
 from torch import nn
 
 from ..base import MXNetError, torch_dtype
+from ..context import resolve_device
 
 __all__ = ["Parameter", "Constant"]
 
@@ -76,6 +82,8 @@ class Parameter:
         self.initialized = False
         #: (initializer, generator, name) of a deferred initialization
         self._deferred = None
+        #: bumped whenever the tensor gets new storage (``_replace``)
+        self._storage_version = 0
 
     # -- shape and placement ---------------------------------------------
     @property
@@ -89,6 +97,12 @@ class Parameter:
     @property
     def device(self):
         return self._var.device
+
+    def _replace(self, data):
+        """Give the ``nn.Parameter`` new storage ``data`` (same object, so
+        the block's registration holds)."""
+        self._var.data = data
+        self._storage_version += 1
 
     def _shape_known(self):
         return all(s > 0 for s in self.shape)
@@ -111,8 +125,8 @@ class Parameter:
         the parameter was never initialized."""
         if shape is not None and tuple(shape) != self.shape:
             shape = self._check_shape(shape)
-            self._var.data = torch.empty(shape, dtype=self.dtype,
-                                         device=self.device)
+            self._replace(torch.empty(shape, dtype=self.dtype,
+                                      device=self.device))
             self.initialized = False  # the new storage holds nothing yet
         if not self._shape_known():
             raise MXNetError(f"parameter {self.name} has unknown shape "
@@ -171,8 +185,8 @@ class Parameter:
             if self._shape_known():
                 raise MXNetError(f"set_data: shape {tuple(src.shape)} does "
                                  f"not match {self.shape} of {self.name}")
-            self._var.data = torch.empty(self._check_shape(src.shape),
-                                         dtype=self.dtype, device=self.device)
+            self._replace(torch.empty(self._check_shape(src.shape),
+                                      dtype=self.dtype, device=self.device))
         self._var.copy_(src)
         if self._shape_known():
             self._deferred = None
@@ -188,8 +202,20 @@ class Parameter:
         dropped (zeros in the new dtype on the next ``grad()``, as the
         reference re-attaches it). A deferred parameter takes the dtype
         when its first forward gives it its shape."""
-        self._var.data = self._var.data.to(torch_dtype(dtype))
+        self._replace(self._var.data.to(torch_dtype(dtype)))
         self._var.grad = None
+
+    @torch.no_grad()
+    def reset_ctx(self, ctx):
+        """Move the tensor to device ``ctx`` (a ``torch.device`` or its
+        name; reference: parameter.py ``reset_ctx``), keeping the
+        ``nn.Parameter`` object as :meth:`cast` does. The gradient buffer is
+        dropped (zeros on the new device on the next ``grad()``, as the
+        reference re-attaches it)."""
+        self._replace(self._var.data.to(resolve_device(ctx)))
+        self._var.grad = None
+
+    reset_device = reset_ctx
 
     def __deepcopy__(self, memo):
         return copy.deepcopy(self._var, memo)._mx_param

@@ -9,7 +9,11 @@ optimizer, optimizer_params, kvstore=...)`` with ``step``, ``update``,
 
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
 ``1 / batch_size`` (times the initial rescale) and updates every parameter
-whose ``grad_req`` is not "null", in place, through one ``Updater``.
+whose ``grad_req`` is not "null", in place. Where the reference's
+``_FusedUpdate.applicable()`` holds (the "sgd" and "adam" families: SGD,
+Adam, AdamW; ``multi_precision`` off) they are updated together
+(:class:`_FusedUpdate`, ``torch._foreach_*`` ops over every parameter of
+one device and dtype); otherwise one ``Updater`` call each.
 This slice runs on one card: kvstore ``None``, ``"device"`` or ``"local"``
 reduces nothing, and a distributed kvstore, ``update_on_kvstore=True`` or
 gradient compression raise.
@@ -26,6 +30,8 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 from .. import config
 from .. import optimizer as opt
 from ..amp.loss_scaler import LossScaler, all_finite
@@ -35,6 +41,49 @@ from .parameter import Parameter
 __all__ = ["Trainer"]
 
 _LOCAL_KVSTORES = (None, "", "device", "local")
+
+
+class _FusedUpdate:
+    """Every parameter's update as a few multi-tensor ops (reference:
+    trainer.py ``_FusedUpdate``, one jitted XLA program; the reference's
+    own analog is ``multi_sgd_update`` / ``multi_lamb``).
+
+    The optimizer's bookkeeping runs per parameter in the per-parameter
+    order (``_update_count``, then ``_get_lr`` / ``_get_wd`` and Adam's
+    ``t``), so an lr schedule, ``lr_mult`` and ``wd_mult`` act as they do
+    one parameter at a time. The parameters are then grouped by (device,
+    dtype, lr, wd, t), and each group goes through the optimizer's
+    ``_update_multi``: the per-parameter rule's ops in its order as
+    ``torch._foreach_*`` calls, one call per op and group. Most steps have
+    one group a device and dtype. Not a CUDA graph: ``autograd.backward``
+    gives every "write" leaf a fresh ``.grad`` each step, so the gradients'
+    addresses move."""
+
+    def __init__(self, optimizer):
+        self.opt = optimizer
+
+    def applicable(self):
+        o = self.opt
+        return (getattr(o, "_FUSED_FAMILY", None) in ("sgd", "adam")
+                and not o.multi_precision)
+
+    @torch.no_grad()
+    def __call__(self, work, states):
+        """work: list of (index, Parameter); states: ``Updater.states``."""
+        o = self.opt
+        adam = o._FUSED_FAMILY == "adam"
+        groups = {}
+        for i, p in work:
+            o._update_count(i)
+            w = p.data()
+            key = (w.device, w.dtype, o._get_lr(i), o._get_wd(i),
+                   o._t(i) if adam else None)
+            ws, gs, ss = groups.setdefault(key, ([], [], []))
+            ws.append(w)
+            gs.append(p.grad())
+            ss.append(states[i])
+        for (_, _, lr, wd, t), (ws, gs, ss) in groups.items():
+            o._update_multi(ws, gs, ss, lr, wd, t)
 
 
 class Trainer:
@@ -86,6 +135,9 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
+        #: the reference's cached ``_FusedUpdate``: None until the first
+        #: update decides, False where it does not apply
+        self._fused_update = None
 
     @property
     def learning_rate(self):
@@ -147,9 +199,23 @@ class Trainer:
         self._update()
 
     def _update(self):
-        for i, p in enumerate(self._params):
-            if p.grad_req != "null":
+        work = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        if not work:
+            return
+        if self._fused_update is None:
+            fu = _FusedUpdate(self._optimizer)
+            self._fused_update = fu if fu.applicable() else False
+        if not self._fused_update:
+            for i, p in work:
                 self._updater(i, p.grad(), p.data())
+            return
+        states = self._updater.states
+        for i, p in work:
+            if i not in states:
+                states[i] = self._optimizer.create_state_multi_precision(
+                    i, p.data())
+        self._fused_update(work, states)
 
     # -- resume: what save_states misses (the loss scale and its window,
     # the skip count) beside the optimizer and its states as bytes ---------
@@ -176,6 +242,7 @@ class Trainer:
         self._updater.set_states(blob, self._weights())
         self._optimizer = self._updater.optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
+        self._fused_update = None  # rebuilt against the restored optimizer
 
     def load_states_by_name(self, states, counts):
         """Start from another trainer's state by parameter name, for

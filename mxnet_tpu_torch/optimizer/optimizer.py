@@ -22,7 +22,11 @@ The update rules are the reference's arithmetic (not ``torch.optim``'s):
 
 They run as plain PyTorch in place on the weight and state tensors (the
 reference runs them as one XLA program per step; no Pallas kernel is
-involved).
+involved). ``SGD``, ``Adam`` and ``AdamW`` (``_FUSED_FAMILY`` "sgd" /
+"adam", as in the reference) also carry each rule over lists of tensors
+(``_update_multi``): the same ops in the same order as ``torch._foreach_*``
+calls, which ``gluon.Trainer``'s ``_FusedUpdate`` runs for many
+parameters at once.
 
 ``multi_precision=True`` (reference: optimizer.py:136-141, 177-195) keeps
 an fp32 master copy of every fp16 or bf16 weight: the state is the tuple
@@ -67,6 +71,10 @@ def create(name, **kwargs):
 
 class Optimizer:
     """Base optimizer (reference: optimizer.py ``Optimizer``)."""
+
+    #: the multi-tensor family ("sgd", "adam") whose lists
+    #: ``gluon.Trainer`` may update at once through ``_update_multi``
+    _FUSED_FAMILY = None
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=None, lr_scheduler=None,
@@ -185,6 +193,21 @@ class Optimizer:
     def _update_impl(self, index, w, g, state, lr, wd):
         raise NotImplementedError
 
+    def _prep_grads(self, gs):
+        """:meth:`_prep_grad` over a list: new tensors."""
+        gs = torch._foreach_mul(gs, self.rescale_grad)
+        c = self.clip_gradient
+        if c is not None and c == c and c > 0:
+            torch._foreach_clamp_min_(gs, -c)
+            torch._foreach_clamp_max_(gs, c)
+        return gs
+
+    def _update_multi(self, ws, gs, states, lr, wd, t):
+        """The rule over lists (one device and dtype, the same ``lr``,
+        ``wd`` and update count ``t``), in place on ``ws`` and
+        ``states``."""
+        raise NotImplementedError
+
     def __getstate__(self):
         # live Parameters are not serialized (reference: get_states)
         state = dict(self.__dict__)
@@ -215,6 +238,8 @@ class SGD(Optimizer):
             return None
         return _zeros_like(weight)
 
+    _FUSED_FAMILY = "sgd"
+
     def _update_impl(self, index, w, g, mom, lr, wd):
         g = self._prep_grad(g).add_(w, alpha=wd)
         if mom is None:
@@ -222,6 +247,16 @@ class SGD(Optimizer):
             return
         mom.mul_(self.momentum).add_(g, alpha=-lr)
         w.add_(mom)
+
+    def _update_multi(self, ws, gs, moms, lr, wd, t):
+        gs = self._prep_grads(gs)
+        torch._foreach_add_(gs, ws, alpha=wd)
+        if moms[0] is None:
+            torch._foreach_add_(ws, gs, alpha=-lr)
+            return
+        torch._foreach_mul_(moms, self.momentum)
+        torch._foreach_add_(moms, gs, alpha=-lr)
+        torch._foreach_add_(ws, moms)
 
 
 @register
@@ -236,11 +271,22 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (_zeros_like(weight), _zeros_like(weight))
 
+    _FUSED_FAMILY = "adam"
+
     def _moments(self, g, state):
         m, v = state
         m.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
         v.mul_(self.beta2).addcmul_(g, g, value=1 - self.beta2)
         return m, v
+
+    def _moments_multi(self, gs, states):
+        ms = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        torch._foreach_mul_(ms, self.beta1)
+        torch._foreach_add_(ms, gs, alpha=1 - self.beta1)
+        torch._foreach_mul_(vs, self.beta2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - self.beta2)
+        return ms, vs
 
     def _t(self, index):
         # the parameter's own count after update(); the step's num_update
@@ -256,6 +302,15 @@ class Adam(Optimizer):
         lr_t = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
         w.addcdiv_(m, v.sqrt().add_(self.epsilon), value=-lr_t)
 
+    def _update_multi(self, ws, gs, states, lr, wd, t):
+        gs = self._prep_grads(gs)
+        torch._foreach_add_(gs, ws, alpha=wd)
+        ms, vs = self._moments_multi(gs, states)
+        lr_t = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
+        denom = torch._foreach_sqrt(vs)
+        torch._foreach_add_(denom, self.epsilon)
+        torch._foreach_addcdiv_(ws, ms, denom, value=-lr_t)
+
 
 @register
 class AdamW(Adam):
@@ -268,6 +323,16 @@ class AdamW(Adam):
         denom = (v / (1 - self.beta2 ** t)).sqrt_().add_(self.epsilon)
         upd = (m / (1 - self.beta1 ** t)).div_(denom).add_(w, alpha=wd)
         w.add_(upd, alpha=-lr)
+
+    def _update_multi(self, ws, gs, states, lr, wd, t):
+        ms, vs = self._moments_multi(self._prep_grads(gs), states)
+        denom = torch._foreach_div(vs, 1 - self.beta2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.epsilon)
+        upd = torch._foreach_div(ms, 1 - self.beta1 ** t)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(upd, ws, alpha=wd)
+        torch._foreach_add_(ws, upd, alpha=-lr)
 
 
 def _map_state(fn, state):

@@ -9,9 +9,16 @@ and from :func:`default_generator` of its tensor's device otherwise, so
 ``seed(s)`` makes the same calls give the same draws. The streams are
 torch's (Philox on the card, Mersenne Twister on the CPU): they cannot
 give the JAX package's bits.
+
+Two thread-local hooks serve ``functional.functional_call`` and the
+hybridized blocks of ``gluon/cached_graph.py``: :func:`generator_scope`
+makes one generator the default of its device for a call (the reference's
+``rng_key`` argument), and :func:`track_generators` records every
+generator a call draws from, with its state before the first draw.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -23,6 +30,7 @@ __all__ = ["generator", "seed", "default_generator", "dropout_mask"]
 _lock = threading.Lock()
 _defaults: dict[torch.device, torch.Generator] = {}
 _seed = None  # None: the ``seed`` knob
+_local = threading.local()  # .scoped: {device: generator}; .track: dict
 
 
 def generator(seed=0, device="cpu"):
@@ -55,8 +63,12 @@ def seed(seed_state, ctx="all"):
 
 
 def default_generator(device):
-    """The default generator of ``device``, made at first use."""
+    """The default generator of ``device``, made at first use (the one
+    :func:`generator_scope` gives, inside it)."""
     dev = _key(device)
+    scoped = getattr(_local, "scoped", None)
+    if scoped and dev in scoped:
+        return scoped[dev]
     with _lock:
         gen = _defaults.get(dev)
         if gen is None:
@@ -72,4 +84,35 @@ def dropout_mask(like, rate, generator=None):
     through here, so a fused and an unfused route make the same draws."""
     gen = generator if generator is not None \
         else default_generator(like.device)
+    track = getattr(_local, "track", None)
+    if track is not None and gen not in track:
+        track[gen] = gen.get_state()
     return torch.empty_like(like).bernoulli_(1.0 - rate, generator=gen)
+
+
+@contextlib.contextmanager
+def generator_scope(gen):
+    """Within the scope (this thread), ``gen`` is the default generator of
+    its device; ``None`` changes nothing."""
+    if gen is None:
+        yield
+        return
+    prev = getattr(_local, "scoped", None)
+    _local.scoped = {**(prev or {}), _key(gen.device): gen}
+    try:
+        yield
+    finally:
+        _local.scoped = prev
+
+
+@contextlib.contextmanager
+def track_generators():
+    """Yield a dict that collects, within the scope (this thread), every
+    generator :func:`dropout_mask` draws from, mapped to its state before
+    the scope's first draw from it."""
+    prev = getattr(_local, "track", None)
+    _local.track = track = {}
+    try:
+        yield track
+    finally:
+        _local.track = prev

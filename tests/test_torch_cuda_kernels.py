@@ -58,6 +58,11 @@ vs the CPU (the plain version under "on"): the reference's block-level
 tolerances, output 1e-4, input gradient 1e-3, parameter gradients 2e-3.
 Attention at a head_dim or dtype the flash kernels lack: the plain
 composition, equal to the CPU's within 1e-5 (fp32) / 2e-2 (fp16 and bf16).
+``hybridize()`` (CUDA graphs) against the same model's eager twin: losses,
+gradients and weights within 1e-5 (fp32; cuBLAS may choose another
+algorithm under capture), dropout outputs and generator states equal at
+the same generator state, BatchNorm's running statistics within 1e-6; the
+fused update against the per-parameter rule within 2 ulp (rtol 2.4e-7).
 """
 import numpy as onp
 import pytest
@@ -1389,3 +1394,240 @@ def test_attention_without_an_instantiation_takes_the_composition(
     torch.testing.assert_close(card[0], ref[0], **tol)
     for g_card, g_cpu in zip(card[1], ref[1]):
         torch.testing.assert_close(g_card, g_cpu, **tol)
+
+
+# -- hybridize(): CUDA graphs of the forward and backward -----------------------
+# A hybridized block on the card against its eager twin from the same
+# weights: the forward and backward graphs replay the same kernels, so
+# losses, gradients and weights agree within 1e-5 (fp32; cuBLAS may choose
+# another algorithm under capture, and the readings state how far they
+# differ); dropout masks equal at the same generator state; BatchNorm's
+# running statistics equal.
+
+def _gpt_twins(device, seed=0):
+    import copy
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM
+    net = GPTForCausalLM(vocab_size=101, units=64, hidden_size=128,
+                         num_layers=2, num_heads=4, max_length=32,
+                         dropout=0.0, embed_dropout=0.0,
+                         device=device).initialize(seed=seed)
+    return net, copy.deepcopy(net)
+
+
+def _train_steps(net, x, y, steps, hybrid):
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    if hybrid:
+        net.hybridize()
+        loss_fn.hybridize()
+    tr = tmx.gluon.Trainer(net.collect_params(), "adamw",
+                           {"learning_rate": 1e-3, "wd": 0.01})
+    losses = []
+    for _ in range(steps):
+        with tmx.autograd.record():
+            loss = loss_fn(net(x), y)
+        tmx.autograd.backward(loss)
+        tr.step(x.shape[0])
+        losses.append(loss.detach())
+    assert tr._fused_update
+    return torch.stack(losses), loss_fn
+
+
+def test_hybridized_gpt_matches_eager_on_card(cuda_device):
+    """Three AdamW steps of a small GPT, eager and hybridized: losses and
+    weights within 1e-5; one capture each for the net and the loss; the
+    flash kernels' Python counters move at the capture only, while the
+    profiler sees their kernels inside every replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eager, hybrid = _gpt_twins(cuda_device)
+    ids = torch.from_numpy(onp.random.RandomState(0).randint(
+        0, 101, (2, 33))).to(cuda_device)
+    x, y = ids[:, :-1], ids[:, 1:]
+    want, _ = _train_steps(eager, x, y, 3, False)
+    got, loss_fn = _train_steps(hybrid, x, y, 3, True)
+    torch.cuda.synchronize()
+    before = tflash.flash_attention_fwd.launches
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    for (n, p), q in zip(hybrid.collect_params().items(),
+                         eager.collect_params().values()):
+        torch.testing.assert_close(p.data(), q.data(), atol=1e-5, rtol=0,
+                                   msg=n)
+    assert hybrid._cached_graphs[True].captures == 1
+    assert loss_fn._cached_graphs[True].captures == 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tmx.autograd.record():
+            loss = loss_fn(hybrid(x), y)
+        tmx.autograd.backward(loss)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("flash_fwd" in n for n in names) == 2
+    assert sum("flash_bwd_dq" in n for n in names) == 2
+    assert tflash.flash_attention_fwd.launches == before  # replays only
+
+
+def test_hybridized_recapture_after_cast_on_card(cuda_device):
+    net = tmx.gluon.nn.Dense(8, in_units=4, device=cuda_device)
+    net.initialize(seed=0)
+    net.hybridize()
+    x = torch.rand(3, 4, device=cuda_device)
+    torch.testing.assert_close(net(x), net.forward(x), atol=1e-6, rtol=0)
+    g = net._cached_graphs[False]
+    with torch.no_grad():
+        net.weight.mul_(2.0)  # in place: the graph sees it
+    torch.testing.assert_close(net(x), net.forward(x), atol=1e-6, rtol=0)
+    assert g.captures == 1
+    net.cast("bfloat16")
+    xb = x.to(torch.bfloat16)
+    torch.testing.assert_close(net(xb), net.forward(xb), atol=0, rtol=0)
+    net.cast("float32")
+    torch.testing.assert_close(net(x), net.forward(x), atol=1e-6, rtol=0)
+    assert g.captures == 3
+
+
+def test_hybridized_dropout_masks_match_eager_on_card(cuda_device):
+    """Every replay draws fresh masks from the registered generators (the
+    device default and a block's own), equal to the eager calls' at the
+    same generator state, and leaves each generator where the eager calls
+    do."""
+    net = tmx.gluon.nn.HybridSequential()
+    net.add(tmx.gluon.nn.Dense(256, in_units=16, device=cuda_device),
+            tmx.gluon.nn.Dropout(0.5), tmx.gluon.nn.Dropout(0.3))
+    net.initialize(seed=0)
+    own = tmx.random.generator(7, cuda_device)
+    net[2].generator = own
+    x = torch.rand(8, 16, device=cuda_device)
+    default = tmx.random.default_generator(cuda_device)
+
+    def run():
+        tmx.random.seed(3)
+        own.manual_seed(7)
+        with tmx.autograd.train_mode():
+            outs = [net(x) for _ in range(3)]
+        return outs, default.get_state(), own.get_state()
+
+    want, wd, wo = run()
+    net.hybridize()
+    run()  # the capture
+    got, gd, go = run()
+    assert not torch.equal(got[0], got[1])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(gd, wd) and torch.equal(go, wo)
+    assert net._cached_graphs[True].captures == 1
+
+
+def test_hybridized_batchnorm_aux_state_on_card(cuda_device):
+    from mxnet_tpu_torch import functional
+    x = torch.rand(4, 3, 6, 6, device=cuda_device) + 1.0
+    nets = []
+    for hybrid in (False, True):
+        net = tmx.gluon.nn.HybridSequential()
+        net.add(tmx.gluon.nn.Conv2D(8, 3, padding=1, in_channels=3,
+                                    device=cuda_device),
+                tmx.gluon.nn.BatchNorm(in_channels=8, device=cuda_device))
+        net.initialize(seed=0)
+        if hybrid:
+            net.hybridize()
+        for _ in range(3):
+            with tmx.autograd.record():
+                out = net(x)
+            tmx.autograd.backward(out.sum())
+        nets.append(functional.param_arrays(net))
+    for n, v in nets[0].items():
+        onp.testing.assert_allclose(nets[1][n], v, atol=1e-6, rtol=0,
+                                    err_msg=n)
+
+
+def test_hybridized_bert_runs_ln_residual_under_capture(cuda_device):
+    """A small BERT at dropout 0.1 on the card: the ln_residual kernels
+    (the backward a cooperative launch) inside the graphs; the hybridized
+    losses equal the eager ones at the same generator state within 1e-5."""
+    import copy
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+    net = BERTForPretraining(vocab_size=1000, units=128, hidden_size=512,
+                             num_layers=2, num_heads=4, max_length=64,
+                             dropout=0.1, embed_dropout=0.1,
+                             device=cuda_device).initialize(seed=0)
+    twin = copy.deepcopy(net)
+    rs = onp.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 1000, (2, 32))).to(cuda_device)
+    labels = torch.from_numpy(rs.randint(0, 1000, (2, 32))).to(cuda_device)
+    valid = torch.tensor([32, 21], device=cuda_device)
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def steps(model):
+        tmx.random.seed(11)
+        out = []
+        for _ in range(3):
+            with tmx.autograd.record():
+                mlm, _ = model(ids, None, valid)
+                loss = loss_fn(mlm, labels)
+            tmx.autograd.backward(loss)
+            out.append(loss.detach())
+        return torch.stack(out)
+
+    before = tln.ln_residual_bwd.launches
+    want = steps(twin)
+    net.hybridize()
+    got = steps(net)
+    torch.cuda.synchronize()
+    assert tln.ln_residual_bwd.launches > before
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    for (n, p), q in zip(net.collect_params().items(),
+                         twin.collect_params().values()):
+        if p.grad_req != "null":
+            torch.testing.assert_close(p.grad(), q.grad(), atol=1e-5,
+                                       rtol=1e-4, msg=n)
+
+
+def test_hybridized_record_twice_before_backward_raises(cuda_device):
+    net = tmx.gluon.nn.Dense(4, in_units=4, device=cuda_device)
+    net.initialize()
+    net.hybridize()
+    x = torch.rand(2, 4, device=cuda_device)
+    with tmx.autograd.record():
+        y = net(x)
+        with pytest.raises(MXNetError, match="backward"):
+            net(x)
+    tmx.autograd.backward(y.sum())
+    with tmx.autograd.record():
+        net(x)  # the backward ran: free again
+        del y
+    with tmx.autograd.record():
+        net(x)  # the last outputs are gone: free again
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {"momentum": 0.0, "wd": 0.01}),
+    ("sgd", {"momentum": 0.9, "wd": 0.01, "clip_gradient": 1.0}),
+    ("adam", {"wd": 0.01, "clip_gradient": 1.0}),
+    ("adamw", {"wd": 0.01, "clip_gradient": 1.0})])
+def test_fused_update_matches_per_parameter_rule_on_card(cuda_device, name,
+                                                         kw):
+    """Ten steps of the same gradients, fused against per parameter, on
+    the card: within 2 ulp (rtol 2.4e-7 of the weight); the readings state
+    whether they are equal bit for bit."""
+    nets = []
+    for fused in (True, False):
+        net = tmx.gluon.nn.HybridSequential()
+        net.add(tmx.gluon.nn.Dense(64, in_units=32, device=cuda_device),
+                tmx.gluon.nn.Dense(8, in_units=64, device=cuda_device))
+        net.initialize(seed=0)
+        tr = tmx.gluon.Trainer(net.collect_params(), name,
+                               dict(kw, learning_rate=0.01))
+        if not fused:
+            tr._fused_update = False
+        nets.append((net, tr))
+    for step in range(10):
+        rs = onp.random.RandomState(step)
+        for net, tr in nets:
+            for p in net.collect_params().values():
+                p.data().grad = torch.from_numpy(
+                    rs.randn(*p.shape).astype("float32")).to(cuda_device)
+            rs = onp.random.RandomState(step)
+            tr.step(2)
+    for (n, p), q in zip(nets[0][0].collect_params().items(),
+                         nets[1][0].collect_params().values()):
+        torch.testing.assert_close(p.data(), q.data(), atol=0,
+                                   rtol=2.4e-7, msg=n)

@@ -63,7 +63,9 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.ops.conv_bwd, mxnet_tpu_torch.gluon.nn.fuse, "
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.amp, "
-            "mxnet_tpu_torch.amp.lists, mxnet_tpu_torch.amp.loss_scaler; "
+            "mxnet_tpu_torch.amp.lists, mxnet_tpu_torch.amp.loss_scaler, "
+            "mxnet_tpu_torch.serialization, "
+            "mxnet_tpu_torch.gluon.cached_graph, mxnet_tpu_torch.gluon.block; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
