@@ -3459,8 +3459,8 @@ def phase_resnet_bf16(dev, card):
 # -- hybridize() and the fused update (phases 19-22) --------------------------
 
 HYBRID_STEPS = 4  # timed steps of each run in phases 19-21
-#: the host's launch calls, as the profiler names the runtime and driver
-#: API events
+#: the host's kernel and graph launch calls, as the profiler names the
+#: CUDA API events
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernel", "cuLaunchKernelEx",
                      "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
