@@ -39,7 +39,9 @@ keeps one entry per signature:
 - Inside an outermost hybridized call (or ``functional.functional_call``)
   every block runs its plain forward: one graph per outermost call.
 - A lock per :class:`_CachedGraph` serializes the calls and backward
-  replays that share its static buffers. A recorded call whose backward
+  replays that share its static buffers, and an event recorded after each
+  replay makes the next one wait on the device too (callers on other
+  streams). A recorded call whose backward
   has not run yet holds its entry: calling the same entry again under
   ``record()`` before that raises, as its saved activations would be
   overwritten.
@@ -360,6 +362,9 @@ class _CachedGraph:
             entry.diff_out = [i for i, o in enumerate(entry.static_out)
                               if recording and o.requires_grad]
             entry.fwd = fwd
+            # recorded after every replay: the next one, on whatever
+            # stream, waits for it before it writes the static buffers
+            entry.done = torch.cuda.Event()
             if entry.diff_out and wrt:
                 entry.static_cot = [torch.empty_like(entry.static_out[i])
                                     for i in entry.diff_out]
@@ -387,15 +392,21 @@ class _CachedGraph:
 
     # -- replay ---------------------------------------------------------------
     def _replay_forward(self, entry, tensors):
+        stream = torch.cuda.current_stream()
+        stream.wait_event(entry.done)
         with torch.no_grad():
             for buf, t in zip(entry.static_in, tensors):
                 if buf.data_ptr() != t.data_ptr():
                     buf.copy_(t)
             entry.fwd.replay()
-            return tuple(o.clone() for o in entry.static_out)
+            outs = tuple(o.clone() for o in entry.static_out)
+        entry.done.record(stream)
+        return outs
 
     def _replay_backward(self, entry, gouts):
         with self._lock, torch.no_grad():
+            stream = torch.cuda.current_stream()
+            stream.wait_event(entry.done)
             for buf, i in zip(entry.static_cot, entry.diff_out):
                 g = gouts[i]
                 if g is None:
@@ -403,5 +414,6 @@ class _CachedGraph:
                 else:
                     buf.copy_(g)
             entry.bwd.replay()
+            entry.done.record(stream)
             entry.pending = None
             return entry.static_grads

@@ -1598,6 +1598,43 @@ def test_hybridized_record_twice_before_backward_raises(cuda_device):
         net(x)  # the last outputs are gone: free again
 
 
+def test_hybridized_calls_from_threads_on_their_own_streams(cuda_device):
+    """Four threads, each on its own stream, replay one hybridized block's
+    graph with their own inputs: every result equals the eager forward
+    (the replays share static buffers; the lock and the replay event
+    order them)."""
+    import threading
+    net = tmx.gluon.nn.Dense(512, in_units=512, device=cuda_device)
+    net.initialize(seed=0)
+    xs = [torch.rand(256, 512, device=cuda_device) for _ in range(4)]
+    want = [net.forward(x) for x in xs]
+    net.hybridize()
+    net(xs[0])  # the capture
+    torch.cuda.synchronize()
+    errors = []
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.default_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(20):
+                    out = net(xs[i])
+            stream.synchronize()
+            torch.testing.assert_close(out, want[i], atol=1e-5, rtol=0)
+        except Exception as e:  # noqa: BLE001
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert net._cached_graphs[False].captures == 1
+
+
 @pytest.mark.parametrize("name,kw", [
     ("sgd", {"momentum": 0.0, "wd": 0.01}),
     ("sgd", {"momentum": 0.9, "wd": 0.01, "clip_gradient": 1.0}),
