@@ -77,8 +77,8 @@ class HybridBlock(nn.Module):
         super().__init__()
         self.training = False
         self._active = False
-        #: autograd.is_training() -> _CachedGraph, while hybridized
-        self._cached_graphs = {}
+        #: the _CachedGraph of this block's calls, once hybridized
+        self._cached_graph = None
         #: every parameter of this block itself was seen initialized
         self._init_checked = False
 
@@ -110,11 +110,9 @@ class HybridBlock(nn.Module):
     def _call(self, args, kwargs):
         if not self._active or in_plain_scope():
             return super().__call__(*args, **kwargs)
-        key = _autograd.is_training()
-        graph = self._cached_graphs.get(key)
-        if graph is None:
-            graph = self._cached_graphs[key] = _CachedGraph(self, key)
-        return graph(args, kwargs)
+        if self._cached_graph is None:
+            self._cached_graph = _CachedGraph(self)
+        return self._cached_graph(args, kwargs)
 
     def __deepcopy__(self, memo):
         """A copy without the cached graphs: they hold this block's
@@ -122,7 +120,7 @@ class HybridBlock(nn.Module):
         new = type(self).__new__(type(self))
         memo[id(self)] = new
         for k, v in self.__dict__.items():
-            new.__dict__[k] = {} if k == "_cached_graphs" \
+            new.__dict__[k] = None if k == "_cached_graph" \
                 else copy.deepcopy(v, memo)
         return new
 
@@ -148,7 +146,7 @@ class HybridBlock(nn.Module):
                 "optimize_for partitioning)")
         self._active = bool(active)
         if clear:
-            self._cached_graphs = {}
+            self._cached_graph = None
         for child in _hybrid_children(self):
             child.hybridize(active, backend=backend,
                             backend_opts=backend_opts, clear=clear,
@@ -165,7 +163,7 @@ class HybridBlock(nn.Module):
     def _clear_cached_graphs(self):
         for block in self.modules():
             if isinstance(block, HybridBlock):
-                block._cached_graphs = {}
+                block._cached_graph = None
 
     def collect_params(self, select=None):
         """dict structural-name -> :class:`Parameter` (tied parameters

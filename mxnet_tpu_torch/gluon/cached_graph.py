@@ -2,8 +2,8 @@
 
 Counterpart of ``_CachedGraph`` in ``mxnet_tpu/gluon/block.py``, where a
 hybridized forward is one ``jax.jit`` per (block, train mode) keyed by its
-input signature. Here one :class:`_CachedGraph` per (block, train mode)
-keeps one entry per signature:
+input signature. Here one :class:`_CachedGraph` per block keeps one
+entry per signature:
 
 - the key: whether the call records (``autograd`` recording, grad mode
   on, and an input or a trainable parameter that requires grad) and
@@ -163,17 +163,14 @@ class _GraphFunction(torch.autograd.Function):
 
 
 class _CachedGraph:
-    """The hybridized calls of one (block, train mode)."""
+    """The hybridized calls of one block."""
 
-    def __init__(self, block, train_mode):
+    def __init__(self, block):
         self.block = block
-        self.train_mode = train_mode
         self.params = list(block.collect_params().values())
         self._ready = False
         #: key -> _Entry, least recently used first
         self._signatures = collections.OrderedDict()
-        #: key -> the output tree of that signature (after its first call)
-        self._out_trees = {}
         #: entries made (a capture each on a CUDA block)
         self.captures = 0
         self._lock = threading.RLock()
@@ -194,14 +191,15 @@ class _CachedGraph:
         recording = (_autograd.is_recording() and torch.is_grad_enabled()
                      and (any(t.requires_grad for t in tensors)
                           or any(p.grad_req != "null" for p in self.params)))
+        training = _autograd.is_training()
         key = (str(spec), tuple(_static_repr(s) if s is not _ARR else "A"
                                 for s in statics),
                tuple((tuple(t.shape), t.dtype, t.device, t.requires_grad)
                      for t in tensors),
-               recording, _autograd.is_training(),
+               recording, training,
                (_amp.is_active(), str(_amp.target_dtype())),
                tuple(_config.get(k) for k in _ROUTE_KNOBS))
-        return key, spec, statics, tensors, recording
+        return key, spec, statics, tensors, recording, training
 
     def _is_ready(self):
         """Whether every parameter has its shape and values (else the call
@@ -222,28 +220,27 @@ class _CachedGraph:
     def __call__(self, args, kwargs):
         if not self._is_ready():
             return self._eager(args, kwargs)
-        key, spec, statics, tensors, recording = self._signature(args,
-                                                                 kwargs)
+        key, spec, statics, tensors, recording, training = \
+            self._signature(args, kwargs)
         with self._lock:
             entry = self._signatures.get(key)
             if entry is not None and entry.stale():
-                self._drop(key)
+                del self._signatures[key]
                 entry = None
             if entry is None:
                 while len(self._signatures) >= max(
                         1, _config.get("cached_graph.max_signatures")):
-                    self._drop(next(iter(self._signatures)))
+                    self._signatures.popitem(last=False)
                 entry = _Entry(self.params)
                 self.captures += 1
                 if not self._on_cuda(tensors):
                     out = self._eager(args, kwargs)
                     entry.out_spec = pytree.tree_structure(out)
                     self._signatures[key] = entry
-                    self._out_trees[key] = entry.out_spec
                     return out
-                self._capture(entry, spec, statics, tensors, recording)
+                self._capture(entry, spec, statics, tensors, recording,
+                              training)
                 self._signatures[key] = entry
-                self._out_trees[key] = entry.out_spec
             self._signatures.move_to_end(key)
             if entry.fwd is None:
                 return self._eager(args, kwargs)
@@ -270,10 +267,6 @@ class _CachedGraph:
         with plain_scope():
             return torch.nn.Module.__call__(self.block, *args, **kwargs)
 
-    def _drop(self, key):
-        del self._signatures[key]
-        self._out_trees.pop(key, None)
-
     def _unflatten(self, entry, outs):
         leaves = list(entry.out_leaves)
         it = iter(outs)
@@ -283,7 +276,7 @@ class _CachedGraph:
         return pytree.tree_unflatten(leaves, entry.out_spec)
 
     # -- capture --------------------------------------------------------------
-    def _run(self, spec, statics, tensors, recording):
+    def _run(self, spec, statics, tensors, recording, training):
         leaves = list(statics)
         it = iter(tensors)
         for i, leaf in enumerate(leaves):
@@ -291,10 +284,10 @@ class _CachedGraph:
                 leaves[i] = next(it)
         args, kwargs = pytree.tree_unflatten(leaves, spec)
         with plain_scope(), \
-                _autograd._RecordingStateScope(recording, self.train_mode):
+                _autograd._RecordingStateScope(recording, training):
             return torch.nn.Module.__call__(self.block, *args, **kwargs)
 
-    def _capture(self, entry, spec, statics, tensors, recording):
+    def _capture(self, entry, spec, statics, tensors, recording, training):
         """Warm up and capture ``entry``'s graphs (module docstring)."""
         t0 = time.perf_counter()
         device = (self.params[0]._var if self.params else tensors[0]).device
@@ -312,7 +305,7 @@ class _CachedGraph:
                                              for i in entry.diff_in]
 
         def forward_outputs():
-            out = self._run(spec, statics, static_in, recording)
+            out = self._run(spec, statics, static_in, recording, training)
             leaves, out_spec = pytree.tree_flatten(out)
             return leaves, out_spec
 
@@ -416,4 +409,7 @@ class _CachedGraph:
             entry.bwd.replay()
             entry.done.record(stream)
             entry.pending = None
-            return entry.static_grads
+            # fresh tensors: the next replay overwrites the static ones, and
+            # a caller of autograd.grad keeps what it was given
+            return [None if g is None else g.clone()
+                    for g in entry.static_grads]

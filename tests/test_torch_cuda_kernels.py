@@ -1452,8 +1452,8 @@ def test_hybridized_gpt_matches_eager_on_card(cuda_device):
                          eager.collect_params().values()):
         torch.testing.assert_close(p.data(), q.data(), atol=1e-5, rtol=0,
                                    msg=n)
-    assert hybrid._cached_graphs[True].captures == 1
-    assert loss_fn._cached_graphs[True].captures == 1
+    assert hybrid._cached_graph.captures == 1
+    assert loss_fn._cached_graph.captures == 1
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         with tmx.autograd.record():
             loss = loss_fn(hybrid(x), y)
@@ -1472,7 +1472,7 @@ def test_hybridized_recapture_after_cast_on_card(cuda_device):
     net.hybridize()
     x = torch.rand(3, 4, device=cuda_device)
     torch.testing.assert_close(net(x), net.forward(x), atol=1e-6, rtol=0)
-    g = net._cached_graphs[False]
+    g = net._cached_graph
     with torch.no_grad():
         net.weight.mul_(2.0)  # in place: the graph sees it
     torch.testing.assert_close(net(x), net.forward(x), atol=1e-6, rtol=0)
@@ -1483,6 +1483,34 @@ def test_hybridized_recapture_after_cast_on_card(cuda_device):
     net.cast("float32")
     torch.testing.assert_close(net(x), net.forward(x), atol=1e-6, rtol=0)
     assert g.captures == 3
+
+
+def test_hybridized_grads_are_not_overwritten_on_card(cuda_device):
+    """Gradients from ``autograd.grad`` of a hybridized block are the
+    caller's: a later backward replay of the same signature leaves them
+    as they were, and each equals the eager block's."""
+    net = tmx.gluon.nn.Dense(8, in_units=4, device=cuda_device)
+    net.initialize(seed=0)
+    net.hybridize()
+    xs = [torch.rand(3, 4, device=cuda_device) for _ in range(3)]
+
+    def grads(x):
+        with tmx.autograd.record():
+            loss = (net(x) ** 2).sum()
+        return tmx.autograd.grad(loss, [net.weight, net.bias])
+
+    grads(xs[0])  # the capture
+    first = grads(xs[1])
+    kept = [g.clone() for g in first]
+    second = grads(xs[2])
+    assert net._cached_graph.captures == 1
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(first, second))
+    net.hybridize(False)
+    for x, got in ((xs[1], first), (xs[2], second)):
+        for a, b in zip(got, grads(x)):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 def test_hybridized_dropout_masks_match_eager_on_card(cuda_device):
@@ -1514,7 +1542,7 @@ def test_hybridized_dropout_masks_match_eager_on_card(cuda_device):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert torch.equal(gd, wd) and torch.equal(go, wo)
-    assert net._cached_graphs[True].captures == 1
+    assert net._cached_graph.captures == 1
 
 
 def test_hybridized_batchnorm_aux_state_on_card(cuda_device):
@@ -1632,7 +1660,7 @@ def test_hybridized_calls_from_threads_on_their_own_streams(cuda_device):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
-    assert net._cached_graphs[False].captures == 1
+    assert net._cached_graph.captures == 1
 
 
 @pytest.mark.parametrize("name,kw", [

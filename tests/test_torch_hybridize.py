@@ -57,8 +57,8 @@ def _dense_net(seed=7):
     return net
 
 
-def _graph(block, train=False):
-    return block._cached_graphs[train]
+def _graph(block):
+    return block._cached_graph
 
 
 # -- the reference's tests as oracles -----------------------------------------
@@ -92,7 +92,7 @@ def test_hybridize_grad():
     tmx.autograd.backward(y)
     torch.testing.assert_close(net.weight.grad, g_eager, atol=0, rtol=1e-5)
     torch.testing.assert_close(net.weight.grad, x, atol=0, rtol=1e-5)
-    assert list(_graph(net, True)._signatures)[0][3] is True  # recording
+    assert list(_graph(net)._signatures)[0][3] is True  # recording
 
 
 def test_batchnorm_hybrid_aux_update():
@@ -130,7 +130,7 @@ def test_hybridize_kwargs_compile():
     eager = net(x, scale=s, flag=True)
     net.hybridize()
     out = net(x, scale=s, flag=True)
-    assert net._cached_graphs, "kwargs call did not reach the cache"
+    assert net._cached_graph, "kwargs call did not reach the cache"
     torch.testing.assert_close(out, eager, atol=0, rtol=1e-6)
     out2 = net(x, scale=s, flag=False)
     torch.testing.assert_close(out2, -eager, atol=0, rtol=1e-6)
@@ -166,9 +166,9 @@ def test_signature_cache_bounded(max_signatures):
         y = net(x, scale=float(i))
         torch.testing.assert_close(y, net.fc(x) * float(i), atol=0,
                                    rtol=1e-5)
-    cg = list(net._cached_graphs.values())[0]
+    cg = _graph(net)
     assert len(cg._signatures) <= 4
-    assert len(cg._out_trees) <= 4
+    assert all(e.out_spec is not None for e in cg._signatures.values())
     # the least recently used went first: the last four scalars remain
     assert [k[1][-1] for k in cg._signatures] == \
         [repr(float(i)) for i in range(16, 20)]
@@ -194,7 +194,7 @@ def test_long_static_repr_hashed():
     net(x, tag=long_static)
     y = net(x, tag=long_static)
     assert torch.isfinite(y).all()
-    cg = list(net._cached_graphs.values())[0]
+    cg = _graph(net)
     hashed = [tok for key in cg._signatures for tok in key[1]
               if tok.startswith("H")]
     assert hashed, "digest path never exercised"
@@ -305,8 +305,8 @@ def test_hybridized_gpt_matches_jax_hybridized():
         torch.testing.assert_close(tloss.detach().numpy(), jloss.asnumpy(),
                                    **OUT)
         _assert_grads(tnet.collect_params(), jnet.collect_params())
-    assert _graph(tnet, True).captures == 1
-    assert _graph(tloss_fn, True).captures == 1
+    assert _graph(tnet).captures == 2  # the predict call, the recorded one
+    assert _graph(tloss_fn).captures == 1
     with tmx.autograd.record():
         eloss = tloss_fn(eager(tx), ty)
     tmx.autograd.backward(eloss)
@@ -361,15 +361,14 @@ def test_hybridized_bert_matches_jax_hybridized():
         torch.testing.assert_close(tloss.detach().numpy(), jloss.asnumpy(),
                                    **OUT)
         _assert_grads(tnet.collect_params(), jnet.collect_params())
-    assert _graph(tnet, True).captures == 1
+    assert _graph(tnet).captures == 1
 
 
 # -- the key ------------------------------------------------------------------
 
 def test_rekeying():
-    """A new signature for a new shape, dtype, keyword call, train mode
-    (its own ``_CachedGraph``), recording and AMP policy; a repeat of each
-    reuses its entry."""
+    """A new signature for a new shape, dtype, keyword call, train mode,
+    recording and AMP policy; a repeat of each reuses its entry."""
     net = _dense_net()
     net.hybridize()
     x = torch.rand(3, 8)
@@ -383,10 +382,11 @@ def test_rekeying():
     with tmx.autograd.train_mode():
         net(x)
         net(x)
-    assert _graph(net, True).captures == 1
+    assert g.captures == 4
+    assert [k[4] for k in g._signatures] == [False] * 3 + [True]
     with tmx.autograd.record():
         net(x)
-    assert _graph(net, True).captures == 2
+    assert g.captures == 5 and list(g._signatures)[-1][3:5] == (True, True)
     tmx.amp.init("bfloat16")
     try:
         out = net(x)
@@ -394,10 +394,10 @@ def test_rekeying():
     finally:
         tmx.amp._deactivate()
     assert out.dtype == torch.bfloat16
-    assert g.captures == 4
+    assert g.captures == 6
     keys = list(g._signatures)
     assert keys[-1][5] == (True, "torch.bfloat16")
-    assert net(x).dtype == torch.float32 and g.captures == 4
+    assert net(x).dtype == torch.float32 and g.captures == 6
     kw = _KwNet()
     kw.initialize()
     kw.hybridize()
@@ -426,7 +426,7 @@ def test_deferred_first_call_runs_eagerly():
     net.hybridize()
     x = torch.rand(2, 5)
     first = net(x)
-    assert not net._cached_graphs[False]._signatures
+    assert not _graph(net)._signatures
     assert net[0].weight.shape == (8, 5)
     torch.testing.assert_close(net(x), first, atol=0, rtol=0)
     assert _graph(net).captures == 1
@@ -480,16 +480,16 @@ def test_hybridize_false_and_recursion():
     net(x)
     assert _graph(net).captures == 1
     net.hybridize()  # clear=True drops the cache
-    assert not net._cached_graphs
+    assert net._cached_graph is None
 
 
 def test_one_graph_per_outermost_call():
     net = _dense_net()
     net.hybridize()
     net(torch.rand(3, 8))
-    assert net._cached_graphs and not net[0]._cached_graphs
+    assert net._cached_graph and net[0]._cached_graph is None
     net[0](torch.rand(3, 8))  # called alone, the child caches its own
-    assert net[0]._cached_graphs
+    assert net[0]._cached_graph
 
 
 def test_cast_and_reset_ctx_after_capture():
@@ -524,7 +524,7 @@ def test_share_parameters_clears_the_cache():
     x = torch.rand(3, 8)
     b(x)
     b.share_parameters(a.collect_params())
-    assert not b._cached_graphs
+    assert b._cached_graph is None
     torch.testing.assert_close(b(x), a(x), atol=0, rtol=0)
 
 
@@ -550,7 +550,7 @@ def test_deepcopy_drops_the_cache():
     x = torch.rand(3, 8)
     net(x)
     other = copy.deepcopy(net)
-    assert other._active and not other._cached_graphs
+    assert other._active and other._cached_graph is None
     torch.testing.assert_close(other(x), net(x), atol=0, rtol=0)
     assert other[0].weight is not net[0].weight
 
@@ -659,4 +659,4 @@ def test_functional_call_generator_and_hybridized_blocks():
     assert torch.equal(outs[0], outs[1])
     assert (outs[0] == 0).any()
     assert torch.equal(default.get_state(), state)
-    assert not net._cached_graphs
+    assert net._cached_graph is None
