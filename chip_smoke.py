@@ -117,18 +117,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    version's NaN and inf positions.
 3. Serving at full GPT-2 124M width (vocab 50257, 768 units, 12 layers,
    12 heads, max_length 1024, fp32, seeded Uniform(0.07) weights):
-   ``serve.load(net, max_slots=8)`` with the default buckets, ``warmup()``,
-   then 16 greedy requests of 32 new tokens whose prompts land in every
-   bucket up to 512. Launch counters are zeroed just before the run and
-   read just after. Every request must finish with 32 tokens, and a
-   tie-aware greedy check feeds two requests' prompt + output once through
-   the full forward: at each generated position the chosen token's logit
-   must be within 1e-3 of the row maximum.
-4. Serving times beside the card's name and power limit: tokens/s and TTFT
-   (synchronized host clock), decode ms/step and prefill ms per bucket
-   (CUDA events), and the forward kernel at the serving shape against its
-   plain version and one PyTorch call computing the same function (timed
-   here only, never used by the port).
+   ``serve.load(net, max_slots=8)`` with the default buckets and
+   ``warmup()``, which captures every step as a CUDA graph (the decode
+   step and one prefill per bucket: 7 graphs; its seconds, the reserved
+   memory), then 16 greedy requests of 32 new tokens whose prompts land in
+   every bucket up to 512. The kernel wrappers' counters are zeroed just
+   before the run and must read 0 just after (a replay runs no wrapper);
+   the same mix once more under ``torch.profiler`` must show 12 flash
+   forward kernel events a prefill (192; a window short of it is measured
+   again, up to three), and its device time over the timed run's wall is
+   the busy share. No graph may be captured after ``warmup()``. Every
+   request must finish with 32 tokens, and a tie-aware greedy check feeds
+   two requests' prompt + output once through the full forward: at each
+   generated position the chosen token's logit must be within 1e-3 of the
+   row maximum. Then the host's runtime calls a decode step with all 8
+   slots live (``torch.profiler``'s CPU events over 4 steps:
+   ``cudaGraphLaunch``, ``cudaLaunchKernel``, copies, synchronizations).
+4. Serving times beside the card's name and power limit: tokens/s, TTFT
+   p50/p99 and TPOT p50 (synchronized host clock), decode ms/step and
+   prefill ms per bucket as graph replays and as the same model's eager
+   calls (CUDA events), and the forward kernel at the serving shape
+   against its plain version and one PyTorch call computing the same
+   function (timed here only, never used by the port).
 5. Training at full GPT-2 124M width (as bench.py's
    gpt2_124m_pretrain_bs8_seq1024: batch 8 x seq 1024, fp32, dropout 0,
    tied head, seeded Uniform(0.07) weights) through the user's entry
@@ -360,6 +370,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    (momentum 0 and 0.9), Adam and AdamW (wd 0.01, clip 1.0): bit for bit
    or the largest difference in ulp and absolute (held to 1e-6), and the
    host launch calls and device kernels of one update either way.
+23. Quantized serving: phase 3's model (the same seed), requests and
+   tokens under ``quantize=`` "int8_weights", "int4_weights", "int8_kv"
+   and "int4_weights,int8_kv", each engine's 7 graphs captured at
+   ``warmup()`` and none after. ``weight_bytes / weight_bytes_fp`` within
+   0.25-0.27 (int8) and 0.13-0.14 (int4), the reference's accounting; the
+   int8 cache int8 with fp32 (slot, row, head) scales; two requests'
+   tokens (the first and the longest prompt) through the tie-aware check
+   against an eager decode on the card of the same model through the
+   engine's own dequantized weights and cache layout (8 slots, the prompt
+   padded to its bucket, one step at a time, no graph); 12 flash forward
+   kernel events a prefill in a profiled prefill-only run. Prints
+   tokens/s, TTFT p50/p99, TPOT p50 and decode ms/step of each mode beside
+   fp32's.
+24. The radix prefix cache: 16 prompts sharing a 256-token prefix, each
+   followed by a 16-200-token suffix, ``serve.prefix_block`` 16, through
+   the cache-off engine and the prefix-cache engine (13 graphs: the
+   decode step, 6 prefills, 6 fused block-gather + suffix prefills): 15
+   hits and 15 x 256 tokens reused, tokens tie-aware against the cache-off
+   engine's (equal, or a first difference where both tokens are within
+   1e-3 of the full forward's row maximum). Prints TTFT p50/p99 with the
+   cache and without.
+25. Speculative decoding with ``serve.spec_tokens`` 4: a self-draft (the
+   model itself) and a foreign draft (a 2-layer GPT of the same widths,
+   seeded weights) on phase 3's requests, tokens tie-aware against phase
+   3's; the self-draft needs fewer rounds than tokens. Prints acceptance,
+   rounds, tokens/s. Then the prefix cache and the self-draft together on
+   phase 24's prompts (15 hits, tokens tie-aware against phase 24's
+   cache-off engine), and a weight swap: an engine's ``stop`` ->
+   ``update_weights`` (a second seeded GPT-2's weights) -> ``resume`` ->
+   run -> ``restore_weights`` -> run gives, bit for bit, the tokens of
+   fresh engines over each weight set, with no new capture.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -458,6 +499,16 @@ INT8_GEMM_KERNELS = tuple(f"int8_gemm n{bn} {store} store" for bn in (128, 192)
 # 700 W)
 INT8_VS_FP32_TOL = {"sequence": 0.12, "pooled": 0.35}
 TPU_CONV = "mxnet_tpu/ops/pallas_conv_bwd.py:{}"
+# the serving mix of phases 3-4 and 23-25: 16 greedy requests of 32 tokens
+SERVE_VOCAB, SERVE_REQUESTS, SERVE_NEW_TOKENS = 50257, 16, 32
+SERVE_QUANT_MODES = ("int8_weights", "int4_weights", "int8_kv",
+                     "int4_weights,int8_kv")
+# weight_bytes / weight_bytes_fp by weight mode (the reference's own
+# accounting: int8 values + fp32 row scales; int4 nibbles + fp32 scales a
+# group of 128; the biases and LayerNorm vectors stay fp32)
+WEIGHT_RATIOS = {"int8_weights": (0.25, 0.27), "int4_weights": (0.13, 0.14)}
+# phase 24: prompts share a 256-token prefix, indexed in 16-token blocks
+PREFIX_SHARED, PREFIX_BLOCK = 256, 16
 # ResNet-50 v1 training as bench.py's resnet50_train (bench.py:258-266)
 RESNET_BATCH, RESNET_CLASSES, RESNET_STEPS = 32, 1000, 24
 RESNET_SIZE = 224
@@ -1211,102 +1262,234 @@ def prompt_lengths(rs, buckets, n):
                            buckets[i % len(buckets)] + 1)) for i in range(n)]
 
 
+def serve_run(eng, prompts, n_new=SERVE_NEW_TOKENS):
+    """Submit every prompt (greedy, ``n_new`` tokens), run the engine to
+    the end: (requests, synchronized wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def serve_profiled(label, eng, prompts, want_per_prefill,
+                   n_new=SERVE_NEW_TOKENS):
+    """The same prompts once more under ``torch.profiler`` (``n_new``
+    tokens each; 1: the prefills alone, a shorter trace): (flash forward
+    kernel events, device ms of every kernel and copy, full prefills run).
+    A replayed graph runs no wrapper, so its kernels are counted as
+    profiler events; a window short of ``want_per_prefill`` a full prefill
+    (the profiler drops events now and then) is measured again, up to three
+    windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for window in range(3):
+        misses0 = eng.stats().get("prefix", {}).get("misses")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve_run(eng, prompts, n_new)
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        flash = sum("flash_fwd" in e.name for e in events)
+        device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        prefills = (len(prompts) if misses0 is None
+                    else eng.stats()["prefix"]["misses"] - misses0)
+        print(f"  {label}: profiled run {window + 1}: {flash} flash forward "
+              f"kernel events, {prefills} full prefills, device "
+              f"{device_ms:.2f} ms")
+        if flash == want_per_prefill * prefills:
+            break
+    return flash, device_ms, prefills
+
+
+def serve_e2e(st, wall, device_ms=None):
+    """End-to-end serving numbers of one run from the engine's stats."""
+    row = {"tokens_per_s": st["tokens_out"] / wall,
+           "ttft_p50_ms": st["ttft"]["p50"] * 1e3,
+           "ttft_p99_ms": st["ttft"]["p99"] * 1e3,
+           "tpot_p50_ms": st["tpot"]["p50"] * 1e3,
+           "wall_s": wall, "decode_steps": st["steps"]}
+    if device_ms is not None:
+        row["device_ms"] = device_ms
+        row["device_busy_share"] = busy_share(device_ms, wall * 1e3)
+    return row
+
+
+def greedy_gap(net, dev, prompt, generated, vocab):
+    """Tie-aware greedy check through the full forward: the largest gap
+    between a generated token's logit and its row's maximum."""
+    seq = list(prompt) + generated[:-1]
+    with torch.no_grad():
+        logits = net(torch.tensor([seq], device=dev))[0]
+    check(logits.shape == (len(seq), vocab)
+          and torch.isfinite(logits).all().item(),
+          "full forward logits not finite / wrong shape")
+    rows = logits[len(prompt) - 1:]
+    chosen = rows.gather(1, torch.tensor(generated, device=dev)[:, None])
+    return (rows.max(dim=1).values - chosen[:, 0]).max().item()
+
+
+def same_or_tie(net, dev, prompt, a, b, vocab, label):
+    """Two engines' greedy tokens for one prompt: equal, or equal up to a
+    first difference where both tokens' logits in the full forward are
+    within ``GREEDY_TOL`` of the row maximum (a tie that fp32 summation
+    order may break either way). Returns the tie's gap (0 when equal)."""
+    if a == b:
+        return 0.0
+    i = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+    with torch.no_grad():
+        row = net(torch.tensor([list(prompt) + a[:i]], device=dev))[0, -1]
+    top = row.max()
+    gap = max((top - row[a[i]]).item(), (top - row[b[i]]).item())
+    print(f"  {label}: tokens differ first at {i} ({a[i]} vs {b[i]}), gap "
+          f"to the row max {gap:.3e}")
+    check(gap <= GREEDY_TOL, f"{label}: tokens differ at {i} where the "
+                             f"logits are {gap:.3e} apart (no tie)")
+    return gap
+
+
+def serve_net(dev, num_layers=N_LAYERS, seed=0):
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, GPTModel
+    return GPTForCausalLM(backbone=GPTModel(
+        vocab_size=SERVE_VOCAB, units=768, hidden_size=3072,
+        num_layers=num_layers, num_heads=12, max_length=1024, dropout=0.0,
+        embed_dropout=0.0, device=dev)).initialize(seed=seed)
+
+
+def serve_warmup(label, eng):
+    """``warmup()`` (every graph captured), timed: (seconds, reserved GB)."""
+    t0 = time.perf_counter()
+    eng.warmup()
+    sec = time.perf_counter() - t0
+    st = eng.stats()
+    reserved = torch.cuda.memory_reserved() / 1e9
+    print(f"  {label}: warmup {sec:.2f} s, {st['compiles']} graphs "
+          f"captured ({st['capture_seconds']:.2f} s with their warm-up "
+          f"runs), reserved {reserved:.2f} GB")
+    return sec, reserved
+
+
 def phase_main_path(dev):
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
     from mxnet_tpu_torch.ops import flash_attention as fa
-    print("== phase 3: ServeEngine over GPT-2 124M (full width)", flush=True)
-    vocab, n_layers = 50257, 12
-    net = GPTForCausalLM(backbone=gpt2_124m(
-        vocab_size=vocab, max_length=1024, dropout=0.0, embed_dropout=0.0,
-        device=dev)).initialize(seed=0)
+    print("== phase 3: ServeEngine over GPT-2 124M (full width), every "
+          "step a CUDA graph", flush=True)
+    net = serve_net(dev)
     n_params = sum(p.numel() for p in net.parameters())
     print(f"parameters: {n_params} on {net.device}")
     eng = mx.serve.load(net, max_slots=8)
-    t0 = time.perf_counter()
-    eng.warmup()
-    print(f"warmup seconds: {time.perf_counter() - t0:.2f} "
-          f"(buckets {eng.buckets})")
+    warm_s, reserved = serve_warmup("fp32", eng)
+    check(eng.compiles == 1 + len(eng.buckets),
+          f"warmup built {eng.compiles} graphs, expected the decode step "
+          f"and {len(eng.buckets)} prefill buckets")
     rs = onp.random.RandomState(0)
-    lengths = prompt_lengths(rs, [b for b in eng.buckets if b <= 512], 16)
+    lengths = prompt_lengths(rs, [b for b in eng.buckets if b <= 512],
+                             SERVE_REQUESTS)
     check(max(lengths) > 256, "no prompt above 256 tokens")
-    prompts = [rs.randint(0, vocab, n) for n in lengths]
+    prompts = [rs.randint(0, SERVE_VOCAB, n) for n in lengths]
     print(f"prompt lengths: {lengths}")
 
     zero_counters(fa)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fa.flash_attention_fwd.launches
-    check(counters(fa)[1:] == [0, 0],
-          "serving launched a backward kernel")
+    reqs, wall = serve_run(eng, prompts)
+    check(counters(fa) == [0, 0, 0],
+          f"the graphed engine ran a kernel wrapper: {counters(fa)} (a "
+          "replay runs none)")
     check(all(p.data().grad is None for p in net.collect_params().values()),
           "serving left a gradient behind")
-
     for r in reqs:
-        check(r.finished and len(r.generated) == 32,
+        check(r.finished and len(r.generated) == SERVE_NEW_TOKENS,
               f"request {r.id} finished={r.finished} with "
               f"{len(r.generated)} tokens")
-        check(all(0 <= t < vocab for t in r.generated),
+        check(all(0 <= t < SERVE_VOCAB for t in r.generated),
               f"request {r.id} produced an out-of-vocabulary token")
-    n_prefill = len(reqs)
-    check(launches == n_layers * n_prefill and launches > 0,
-          f"flash kernel launched {launches} times in the main path, "
-          f"expected {n_layers} x {n_prefill} prefills")
+    st = eng.stats()
+    launches, device_ms, _ = serve_profiled("fp32", eng, prompts, N_LAYERS)
+    check(launches == N_LAYERS * len(prompts),
+          f"flash kernel events {launches} in the serving run, expected "
+          f"{N_LAYERS} x {len(prompts)} prefills")
+    check(eng.post_warmup_compiles == 0,
+          f"{eng.post_warmup_compiles} graphs captured after warmup")
 
     # tie-aware greedy check through the full forward
     for r in (reqs[0], max(reqs, key=lambda x: len(x.prompt))):
-        seq = list(r.prompt) + r.generated[:-1]
-        with torch.no_grad():
-            logits = net(torch.tensor([seq], device=dev))[0]
-        check(logits.shape == (len(seq), vocab)
-              and torch.isfinite(logits).all().item(),
-              "full forward logits not finite / wrong shape")
-        rows = logits[len(r.prompt) - 1:]
-        chosen = rows.gather(1, torch.tensor(r.generated, device=dev)[:, None])
-        gap = (rows.max(dim=1).values - chosen[:, 0]).max().item()
+        gap = greedy_gap(net, dev, r.prompt, r.generated, SERVE_VOCAB)
         print(f"  greedy check request {r.id} (prompt {len(r.prompt)}): max "
               f"gap to row max {gap:.3e}")
         check(gap <= GREEDY_TOL, f"request {r.id}: a generated token is "
                                  f"{gap:.3e} below its row max")
-    check(fa.flash_attention_fwd.launches == n_layers * (n_prefill + 2),
+    check(fa.flash_attention_fwd.launches == N_LAYERS * 2,
           "full forwards did not go through the flash kernel")
 
-    st = eng.stats()
-    tokens = st["tokens_out"]
-    print(f"served {st['completed']} requests, {tokens} tokens, "
+    calls = decode_launch_calls(eng, prompts)
+    e2e = serve_e2e(st, wall, device_ms)
+    e2e.update(warmup_s=warm_s, capture_s=st["capture_seconds"],
+               graphs=st["compiles"],
+               post_warmup_compiles=eng.post_warmup_compiles,
+               reserved_gb_after_warmup=reserved,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+               host_calls_per_decode_step=calls,
+               flash_fwd_events=launches)
+    print(f"served {st['completed']} requests, {st['tokens_out']} tokens, "
           f"{st['steps']} decode steps in {wall:.3f} s")
-    return net, eng, st, wall, launches
+    return net, eng, e2e, reqs, prompts, launches
 
 
-def phase_times(dev, net, eng, st, wall, card):
+def decode_launch_calls(eng, prompts, steps=4):
+    """Host runtime calls a decode step (``torch.profiler``'s CPU events:
+    kernel and graph launches, copies, synchronizations) with every slot
+    live and nothing queued, over ``steps`` steps."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = [eng.submit(p, max_new_tokens=steps + 8)
+            for p in prompts[:eng.max_slots]]
+    eng.step()  # admits every request and runs one decode step
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.name.startswith(("cuda", "cu")) and e.name != "cudaDeviceSynchronize":
+            counts[e.name] = counts.get(e.name, 0) + 1
+    eng.run()
+    check(all(r.finished for r in reqs), "launch-count requests unfinished")
+    return {k: v / steps for k, v in sorted(counts.items())}
+
+
+def phase_times(dev, net, eng, e2e, card):
     from mxnet_tpu_torch.ops import flash_attention as fa
     print(f"== phase 4: times on {card}", flush=True)
-    e2e = {
-        "tokens_per_s": st["tokens_out"] / wall,
-        "ttft_p50_ms": st["ttft"]["p50"] * 1e3,
-        "ttft_p99_ms": st["ttft"]["p99"] * 1e3,
-        "tpot_p50_ms": st["tpot"]["p50"] * 1e3,
-    }
     caches = net.init_cache(eng.max_slots, eng.max_seq)
-    tokens = torch.randint(0, 50257, (eng.max_slots, 1), device=dev)
+    tokens = torch.randint(0, SERVE_VOCAB, (eng.max_slots, 1), device=dev)
     positions = torch.arange(eng.max_slots, device=dev) * 100 + 50
-    ids512 = torch.randint(0, 50257, (1, eng.buckets[-1]), device=dev)
+    ids512 = torch.randint(0, SERVE_VOCAB, (1, eng.buckets[-1]), device=dev)
     programs = {
-        "decode_step": lambda: net.decode_step(tokens, caches, positions),
-        f"prefill_{eng.buckets[-1]}": lambda: net.prefill(ids512, caches, 0),
+        "decode_step graph": lambda: eng._run("decode"),
+        "decode_step eager": lambda: net.decode_step(tokens, caches,
+                                                     positions),
+        f"prefill_{eng.buckets[-1]} eager": lambda: net.prefill(
+            ids512, caches, 0),
     }
     with torch.no_grad():
-        e2e["decode_ms_per_step"] = cuda_ms(programs["decode_step"], 20)
-        prefill = {}
+        # every slot is done: a replay advances nothing and rewrites rows
+        # at or past each slot's position counter
+        e2e["decode_ms_per_step"] = cuda_ms(programs["decode_step graph"],
+                                            20)
+        e2e["decode_ms_per_step_eager"] = cuda_ms(
+            programs["decode_step eager"], 20)
+        prefill, prefill_eager = {}, {}
         for b in eng.buckets:
-            ids = torch.randint(0, 50257, (1, b), device=dev)
-            prefill[b] = cuda_ms(lambda: net.prefill(ids, caches, 0), 5)
+            ids = torch.randint(0, SERVE_VOCAB, (1, b), device=dev)
+            host = eng._pack_prefill(onp.zeros(b, dtype=onp.int64), b, 0, b,
+                                     b)
+            prefill[b] = cuda_ms(lambda: eng._run(("prefill", b), host), 5)
+            prefill_eager[b] = cuda_ms(lambda: net.prefill(ids, caches, 0),
+                                       5)
         e2e["prefill_ms"] = prefill
-        print("end to end: " + json.dumps(e2e))
+        e2e["prefill_ms_eager"] = prefill_eager
+        print(f"end to end [{card}]: " + json.dumps(e2e))
         for name, fn in programs.items():
             call = cuda_ms(fn, 10)
             busy, top = device_profile(fn, 10)
@@ -1345,6 +1528,265 @@ def phase_times(dev, net, eng, st, wall, card):
     return dict(shape="bh=12 s=512 d=64 causal fp32", ms=pick(row, "kernel"),
                 plain_ms=pick(row, "plain"), library_ms=pick(row, "sdpa"),
                 bound_ms=row["bound_ms"])
+
+
+def eager_decode_gap(net, eng, req):
+    """The engine's tokens for ``req`` against an eager decode of the same
+    model through the engine's own (dequantized) weights and cache layout
+    (a fresh cache of the engine's slots and dtype, the prompt padded to
+    its bucket in slot 0, then one decode step at a time, no graph): the
+    largest gap between a generated token's logit and its row maximum."""
+    from mxnet_tpu_torch import functional
+
+    def call(method, *args):
+        (out, _), _ = functional.functional_call(net, full, *args,
+                                                 method=method)
+        return out
+    dev, n = eng.device, eng.max_slots
+    with torch.no_grad():
+        full = eng._full_params()
+        cache = net.init_cache(n, eng.max_seq, dtype=eng.cache_dtype)
+        length, bucket = len(req.prompt), eng.bucket_for(len(req.prompt))
+        ids = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+        ids[0, :length] = torch.tensor(req.prompt, device=dev)
+        row = call("prefill", ids, cache, 0)[0, length - 1]
+        tokens = torch.zeros((n, 1), dtype=torch.long, device=dev)
+        positions = torch.zeros((n,), dtype=torch.long, device=dev)
+        gap = 0.0
+        for i, tok in enumerate(req.generated):
+            gap = max(gap, (row.max() - row[tok]).item())
+            tokens[0, 0], positions[0] = tok, length + i
+            row = call("decode_step", tokens, cache, positions)[0]
+    return gap
+
+
+def phase_serve_quantized(dev, card, net, prompts, fp32):
+    """Phase 3's mix under each quantize mode (phase 23)."""
+    import mxnet_tpu_torch as mx
+    print(f"== phase 23: quantized serving of GPT-2 124M on {card}",
+          flush=True)
+    out = {"fp32": {k: fp32[k] for k in (
+        "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+        "decode_ms_per_step")}}
+    for mode in SERVE_QUANT_MODES:
+        eng = mx.serve.load(net, max_slots=8, quantize=mode)
+        warm_s, reserved = serve_warmup(mode, eng)
+        reqs, wall = serve_run(eng, prompts)
+        st = eng.stats()
+        for r in reqs:
+            check(r.finished and len(r.generated) == SERVE_NEW_TOKENS,
+                  f"{mode}: request {r.id} finished={r.finished} with "
+                  f"{len(r.generated)} tokens")
+        ratio = st["weight_bytes"] / st["weight_bytes_fp"]
+        weight = mode.split(",")[0]
+        lo, hi = WEIGHT_RATIOS.get(weight, (1.0, 1.0))
+        check(lo <= ratio <= hi, f"{mode}: weight_bytes / weight_bytes_fp "
+                                 f"{ratio:.4f} outside [{lo}, {hi}]")
+        if "int8_kv" in mode:
+            (kq, ks), (vq, vs) = eng._cache[0]
+            check(kq.dtype == vq.dtype == torch.int8
+                  and ks.dtype == vs.dtype == torch.float32
+                  and tuple(ks.shape) == tuple(kq.shape[:3]) + (1,),
+                  f"{mode}: the cache is not int8 with fp32 (slot, row, "
+                  f"head) scales")
+        gaps = [eager_decode_gap(net, eng, r)
+                for r in (reqs[0], max(reqs, key=lambda x: len(x.prompt)))]
+        print(f"  {mode}: eager one-request decode through the same "
+              f"weights and cache layout: max gaps {gaps}")
+        check(max(gaps) <= GREEDY_TOL, f"{mode}: a generated token is "
+                                       f"{max(gaps):.3e} below its row max")
+        launches, _, _ = serve_profiled(mode, eng, prompts, N_LAYERS, 1)
+        check(launches == N_LAYERS * len(prompts),
+              f"{mode}: flash kernel events {launches}, expected "
+              f"{N_LAYERS * len(prompts)}")
+        check(eng.post_warmup_compiles == 0,
+              f"{mode}: {eng.post_warmup_compiles} graphs captured after "
+              "warmup")
+        with torch.no_grad():
+            decode_ms = cuda_ms(lambda: eng._run("decode"), 20)
+        row = serve_e2e(st, wall)
+        row.update(decode_ms_per_step=decode_ms, weight_bytes=st[
+            "weight_bytes"], weight_bytes_fp=st["weight_bytes_fp"],
+            weight_ratio=ratio, quantized_params=st["quantized_params"],
+            cache_dtype=st["cache_dtype"], warmup_s=warm_s,
+            reserved_gb_after_warmup=reserved, max_eager_gap=max(gaps),
+            flash_fwd_events=launches)
+        out[mode] = row
+        print(f"serve {mode} [{card}]: " + json.dumps(row))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefix_prompts(rs, n=SERVE_REQUESTS):
+    """``n`` prompts sharing one PREFIX_SHARED-token prefix, each followed
+    by a 16-200-token suffix."""
+    shared = rs.randint(0, SERVE_VOCAB, PREFIX_SHARED).tolist()
+    return [shared + rs.randint(0, SERVE_VOCAB, rs.randint(16, 201)).tolist()
+            for _ in range(n)]
+
+
+def phase_serve_prefix(dev, card, net):
+    """The radix prefix cache (phase 24)."""
+    import mxnet_tpu_torch as mx
+    print(f"== phase 24: the radix prefix cache on GPT-2 124M on {card}",
+          flush=True)
+    prompts = prefix_prompts(onp.random.RandomState(3))
+    prev = mx.config.set("serve.prefix_block", PREFIX_BLOCK)
+    try:
+        runs = {}
+        for on in (False, True):
+            label = "prefix cache" if on else "cache off"
+            eng = mx.serve.load(net, max_slots=8, prefix_cache=on)
+            warm_s, _ = serve_warmup(label, eng)
+            check(eng.compiles == (2 if on else 1) * len(eng.buckets) + 1,
+                  f"{label}: {eng.compiles} graphs after warmup")
+            reqs, wall = serve_run(eng, prompts)
+            st = eng.stats()
+            row = serve_e2e(st, wall)
+            if on:
+                pf = st["prefix"]
+                check(pf["hits"] == len(prompts) - 1
+                      and pf["tokens_reused"] == (len(prompts) - 1)
+                      * PREFIX_SHARED,
+                      f"prefix cache: {pf['hits']} hits, "
+                      f"{pf['tokens_reused']} tokens reused, expected "
+                      f"{len(prompts) - 1} and "
+                      f"{(len(prompts) - 1) * PREFIX_SHARED}")
+                row["prefix"] = pf
+                for r, base in zip(reqs, runs["cache off"]["tokens"]):
+                    same_or_tie(net, dev, r.prompt, r.generated, base,
+                                SERVE_VOCAB, f"prefix cache request {r.id}")
+                row["tokens_equal_cache_off"] = sum(
+                    r.generated == b for r, b in
+                    zip(reqs, runs["cache off"]["tokens"]))
+            launches, _, prefills = serve_profiled(
+                label, eng, prompts, N_LAYERS, 1)
+            check(launches == N_LAYERS * prefills,
+                  f"{label}: flash kernel events {launches}, expected "
+                  f"{N_LAYERS} x {prefills} full prefills")
+            check(eng.post_warmup_compiles == 0,
+                  f"{label}: graphs captured after warmup")
+            row.update(warmup_s=warm_s, graphs=eng.compiles,
+                       profiled_run_full_prefills=prefills,
+                       flash_fwd_events=launches)
+            row["tokens"] = [r.generated for r in reqs]
+            runs[label] = row
+            print(f"serve {label} [{card}]: " + json.dumps(
+                {k: v for k, v in row.items() if k != "tokens"}))
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        mx.config.set("serve.prefix_block", prev)
+    return prompts, runs
+
+
+def phase_serve_spec(dev, card, net, prompts, base_reqs, pprompts, pruns):
+    """Speculative decoding and weight swaps (phase 25)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import functional
+    print(f"== phase 25: speculative decoding and weight swaps on GPT-2 124M "
+          f"on {card}", flush=True)
+    out = {}
+    foreign = serve_net(dev, num_layers=2, seed=1)
+    base = [r.generated for r in base_reqs]
+    for label, draft, per_prefill in (("self draft", net, 2 * N_LAYERS),
+                                      ("foreign draft", foreign,
+                                       N_LAYERS + 2)):
+        eng = mx.serve.load(net, max_slots=8, draft=draft)
+        warm_s, _ = serve_warmup(label, eng)
+        reqs, wall = serve_run(eng, prompts)
+        st = eng.stats()
+        for r, b in zip(reqs, base):
+            check(len(r.generated) == SERVE_NEW_TOKENS,
+                  f"{label}: request {r.id} has {len(r.generated)} tokens")
+            same_or_tie(net, dev, r.prompt, r.generated, b, SERVE_VOCAB,
+                        f"{label} request {r.id}")
+        sp = st["spec"]
+        if draft is net:
+            check(sp["rounds"] < st["tokens_out"],
+                  f"self draft: {sp['rounds']} rounds for "
+                  f"{st['tokens_out']} tokens")
+        launches, _, _ = serve_profiled(label, eng, prompts, per_prefill, 1)
+        check(launches == per_prefill * len(prompts),
+              f"{label}: flash kernel events {launches}, expected "
+              f"{per_prefill * len(prompts)}")
+        check(eng.post_warmup_compiles == 0,
+              f"{label}: graphs captured after warmup")
+        row = serve_e2e(st, wall)
+        row.update(spec=sp, acceptance=eng.spec_acceptance, warmup_s=warm_s,
+                   tokens_equal_plain=sum(r.generated == b
+                                          for r, b in zip(reqs, base)),
+                   flash_fwd_events=launches)
+        out[label] = row
+        print(f"serve {label} [{card}]: " + json.dumps(row))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del foreign
+
+    prev = mx.config.set("serve.prefix_block", PREFIX_BLOCK)
+    try:
+        eng = mx.serve.load(net, max_slots=8, draft=net, prefix_cache=True)
+        serve_warmup("prefix_and_spec_compose", eng)
+        reqs, wall = serve_run(eng, pprompts)
+        st = eng.stats()
+        check(st["prefix"]["hits"] == len(pprompts) - 1,
+              f"prefix_and_spec_compose: {st['prefix']['hits']} hits")
+        for r, b in zip(reqs, pruns["cache off"]["tokens"]):
+            same_or_tie(net, dev, r.prompt, r.generated, b, SERVE_VOCAB,
+                        f"prefix_and_spec_compose request {r.id}")
+        check(eng.post_warmup_compiles == 0,
+              "prefix_and_spec_compose: graphs captured after warmup")
+        row = serve_e2e(st, wall)
+        row.update(prefix=st["prefix"], spec=st["spec"])
+        out["prefix_and_spec_compose"] = row
+        print(f"serve prefix_and_spec_compose [{card}]: " + json.dumps(row))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        mx.config.set("serve.prefix_block", prev)
+
+    # weight swap: update -> run -> restore -> run, no new capture; each
+    # run's tokens equal a fresh engine's over the same weights, bit for bit
+    other = serve_net(dev, seed=2)
+    fresh = mx.serve.load(other, max_slots=8).warmup()
+    want_b, _ = serve_run(fresh, prompts)
+    del fresh
+    eng = mx.serve.load(net, max_slots=8).warmup()
+    want_a, _ = serve_run(eng, prompts)
+    graphs = eng.compiles
+    eng.stop(drain=True)
+    t0 = time.perf_counter()
+    old = eng.update_weights({n: p.data() for n, p in
+                              other.collect_params().items()})
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    eng.resume()
+    got_b, _ = serve_run(eng, prompts)
+    eng.restore_weights(old)
+    got_a, _ = serve_run(eng, prompts)
+    check([r.generated for r in got_b] == [r.generated for r in want_b],
+          "weight swap: tokens under the new weights differ from a fresh "
+          "engine's")
+    check([r.generated for r in got_a] == [r.generated for r in want_a],
+          "weight swap: tokens after restore_weights differ from the "
+          "original weights' engine")
+    check(eng.compiles == graphs and eng.post_warmup_compiles == 0,
+          f"weight swap captured again: {eng.compiles - graphs} graphs")
+    check([r.generated for r in want_a] != [r.generated for r in want_b],
+          "weight swap: the two weight sets gave the same tokens")
+    out["weight_swap"] = {"swap_s": swap_s, "graphs": graphs,
+                          "new_captures": eng.compiles - graphs,
+                          "tokens_equal_fresh_engines": True}
+    print(f"weight swap [{card}]: " + json.dumps(out["weight_swap"]))
+    del eng, other, old
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def pick(row, name):
@@ -4223,8 +4665,9 @@ def main():
     fp8_errs = timed("2d", phase_fp8_vs_plain, dev)
     int8_errs = timed("2e", phase_int8_vs_plain, dev)
     conv_errs = timed("2f", phase_conv_vs_plain, dev)
-    net, eng, st, wall, serve_launches = timed("3", phase_main_path, dev)
-    serve_shape = timed("4", phase_times, dev, net, eng, st, wall, card)
+    net, eng, serve_e2e_row, base_reqs, prompts, serve_launches = timed(
+        "3", phase_main_path, dev)
+    serve_shape = timed("4", phase_times, dev, net, eng, serve_e2e_row, card)
     del net, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -4280,6 +4723,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     fused_update = timed("22", phase_fused_update, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 23-25 serve phase 3's model again (the same seed, so the same
+    # weights) and compare with phase 3's tokens
+    net = serve_net(dev)
+    serve_quant = timed("23", phase_serve_quantized, dev, card, net, prompts,
+                        serve_e2e_row)
+    pprompts, serve_prefix = timed("24", phase_serve_prefix, dev, card, net)
+    serve_spec = timed("25", phase_serve_spec, dev, card, net, prompts,
+                       base_reqs, pprompts, serve_prefix)
+    del net, base_reqs
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -4344,6 +4798,24 @@ def main():
             n = window[name] if name else 0
             entry["launches_by_path"][path] = n
             entry["launches"] += n
+    # the serving phases 23-25: flash forward kernel events of each
+    # engine's profiled run (graph replays; no other kernel of the table)
+    serving = {f"serve_{mode}": row["flash_fwd_events"]
+               for mode, row in serve_quant.items() if mode != "fp32"}
+    serving.update({"serve_prefix_cache_off":
+                    serve_prefix["cache off"]["flash_fwd_events"],
+                    "serve_prefix_cache":
+                    serve_prefix["prefix cache"]["flash_fwd_events"],
+                    "serve_self_draft":
+                    serve_spec["self draft"]["flash_fwd_events"],
+                    "serve_foreign_draft":
+                    serve_spec["foreign draft"]["flash_fwd_events"]})
+    for i, entry in enumerate(entries):
+        for path, n in serving.items():
+            entry["launches_by_path"][path] = n if i == 0 else 0
+            entry["launches"] += n if i == 0 else 0
+    for row in serve_prefix.values():
+        row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
                       "bert_train": bert_e2e, "fp8_train": fp8_e2e,
                       "bert_int8_infer": int8_e2e,
@@ -4355,7 +4827,11 @@ def main():
                       "gpt_bf16_hybrid_train": gpt_hybrid,
                       "bert_bf16_hybrid_train": bert_hybrid,
                       "resnet_hybrid_train": resnet_hybrid,
-                      "fused_update": fused_update}))
+                      "fused_update": fused_update,
+                      "serve": serve_e2e_row,
+                      "serve_quantized": serve_quant,
+                      "serve_prefix": serve_prefix,
+                      "serve_spec": serve_spec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -135,6 +135,58 @@ declare("serve.drain_window", int, 4, "MXNET_SERVE_DRAIN_WINDOW",
 declare("serve.max_queue", int, 0, "MXNET_SERVE_MAX_QUEUE",
         "Bound on requests waiting for a decode slot; submit() past it "
         "raises EngineBusy. 0 = unbounded.")
+declare("serve.allow_fp8_requant", bool, False, "MXNET_SERVE_ALLOW_FP8_REQUANT",
+        "Let int4_weights serve engines requantize fp8-trained "
+        "checkpoints anyway (default off: double quantization below the "
+        "fp8 grid's resolution degrades accuracy silently).")
+declare("serve.quantize_min_elems", int, 4096, "MXNET_SERVE_QUANTIZE_MIN_ELEMS",
+        "Smallest parameter (elements) serve weight quantization touches; "
+        "below it the bytes saved don't cover the dequant epilogue.")
+declare("serve.quantize_ndim", int, 2, "MXNET_SERVE_QUANTIZE_NDIM",
+        "Parameter rank serve weight quantization targets (2 = matmul "
+        "weights; biases/norms always pass through in fp).")
+declare("serve.quantize_group_size", int, 128,
+        "MXNET_SERVE_QUANTIZE_GROUP_SIZE",
+        "Input-axis group size for int4 group-wise weight scales; rows "
+        "whose width is not divisible fall back to one scale per row.")
+declare("serve.prefix_cache", int, 0, "MXNET_SERVE_PREFIX_CACHE",
+        "Enable the engine's radix prefix cache (1 = on): requests "
+        "sharing a cached token-block prefix copy the matching KV rows "
+        "inside the fixed donated cache allocation and prefill only "
+        "the suffix. Off by default — enabling adds a block-copy and a "
+        "per-bucket suffix-prefill executable to the warmup grid.")
+declare("serve.prefix_block", int, 16, "MXNET_SERVE_PREFIX_BLOCK",
+        "Tokens per KV block in the prefix cache's radix index (and in "
+        "mx.servefleet's prefix-fingerprint router): reuse happens at "
+        "whole-block granularity, so smaller blocks match more but "
+        "index more.")
+declare("serve.prefix_capacity", int, 0, "MXNET_SERVE_PREFIX_CAPACITY",
+        "Max blocks the prefix cache's radix index may hold before "
+        "LRU-evicting refcount-0 leaves; 0 = unbounded (the natural "
+        "bound is max_slots * max_seq / prefix_block — the index only "
+        "ever points at rows of the fixed cache allocation).")
+declare("serve.spec_tokens", int, 4, "MXNET_SERVE_SPEC_TOKENS",
+        "Speculative-decoding proposal length k: the draft model "
+        "proposes k tokens greedily per round and the big model "
+        "verifies all k in one batched call. Used only when the "
+        "engine was built with a draft model.")
+declare("serve.slo_classes", str, "", "MXNET_SERVE_SLO_CLASSES",
+        "Multi-tenant SLO classes, comma-separated, highest priority "
+        "first (e.g. 'gold,bronze'). Admission dequeues strict-"
+        "priority with starvation aging (serve.class_aging_ms); '' = "
+        "one implicit 'default' class (plain FIFO, the single-tenant "
+        "behaviour).")
+declare("serve.class_aging_ms", float, 0.0, "MXNET_SERVE_CLASS_AGING_MS",
+        "Starvation-aging knob for SLO-class admission: a queued "
+        "request waiting longer than this is promoted ahead of "
+        "strict priority (oldest aged request first). 0 = pure "
+        "strict priority (low classes can starve under overload).")
+declare("serve.class_max_queue", str, "", "MXNET_SERVE_CLASS_MAX_QUEUE",
+        "Per-class queue budgets as 'class=N,class=N' (e.g. "
+        "'gold=8,bronze=64'): submit() rejects a class past its own "
+        "budget with EngineBusy(queue_full) even when the global "
+        "serve.max_queue still has room. Classes absent from the spec "
+        "fall back to the global bound.")
 declare("cached_graph.max_signatures", int, 512,
         "MXNET_CACHED_GRAPH_MAX_SIGNATURES",
         "Most signatures one hybridized block (per train mode) keeps; the "

@@ -61,7 +61,8 @@ class GPTModel(HybridBlock):
 
     def init_cache(self, max_slots, max_seq=None, dtype=torch.float32):
         """Fixed-footprint decode cache: per layer one
-        (max_slots, max_seq, heads, head_dim) K and V pair."""
+        (max_slots, max_seq, heads, head_dim) K and V pair (``"int8"``:
+        each a (values, scales) pair)."""
         max_seq = self._max_length if max_seq is None else max_seq
         if max_seq > self._max_length:
             raise ValueError(
@@ -85,6 +86,38 @@ class GPTModel(HybridBlock):
         x = self._embed(tokens, positions.reshape(-1, 1))
         x, caches = self.decoder.decode_step(x, caches, positions)
         return self.final_ln(x), caches
+
+    def prefill_suffix(self, inputs, caches, slot, start):
+        """Prefix-cache suffix prefill: ``inputs`` (1, Ls) is the prompt
+        suffix; rows [0, start) of cache slot ``slot`` already hold a
+        copied prefix, so positions offset by ``start`` (clamped at
+        max_length - 1) and the suffix attends the cached rows. Returns
+        (hidden (1, Ls, units), caches)."""
+        _, s = inputs.shape
+        start = torch.as_tensor(start, device=inputs.device)
+        pos = (torch.arange(s, device=inputs.device).reshape(1, s) + start
+               ).clamp(max=self._max_length - 1)
+        x, caches = self.decoder.prefill_suffix(self._embed(inputs, pos),
+                                                caches, slot, start)
+        return self.final_ln(x), caches
+
+    def decode_multi(self, tokens, caches, positions):
+        """Advance every slot t tokens at once (the speculative-decoding
+        verify): tokens (slots, t) int, slot i's token j landing at cache
+        row positions[i] + j. Returns (hidden (slots, t, units), caches)."""
+        _, t = tokens.shape
+        pos = (torch.arange(t, device=tokens.device).reshape(1, t)
+               + positions.reshape(-1, 1)).clamp(max=self._max_length - 1)
+        x, caches = self.decoder.decode_multi(self._embed(tokens, pos),
+                                              caches, positions)
+        return self.final_ln(x), caches
+
+    def copy_cache_rows(self, caches, src_slot, src_row, dst_slot,
+                        dst_row, rows):
+        """Copy ``rows`` KV rows between slots in every layer's cache, in
+        place: the prefix-cache block copy."""
+        return self.decoder.copy_cache_rows(
+            caches, src_slot, src_row, dst_slot, dst_row, rows)
 
 
 class GPTForCausalLM(HybridBlock):
@@ -127,6 +160,21 @@ class GPTForCausalLM(HybridBlock):
     def decode_step(self, tokens, caches, positions):
         h, caches = self.backbone.decode_step(tokens, caches, positions)
         return self._head(h[:, 0]), caches
+
+    @recording_gate
+    def prefill_suffix(self, inputs, caches, slot, start):
+        h, caches = self.backbone.prefill_suffix(inputs, caches, slot, start)
+        return self._head(h), caches
+
+    @recording_gate
+    def decode_multi(self, tokens, caches, positions):
+        h, caches = self.backbone.decode_multi(tokens, caches, positions)
+        return self._head(h), caches
+
+    def copy_cache_rows(self, caches, src_slot, src_row, dst_slot,
+                        dst_row, rows):
+        return self.backbone.copy_cache_rows(
+            caches, src_slot, src_row, dst_slot, dst_row, rows)
 
 
 def gpt2_124m(vocab_size=50257, **kwargs):

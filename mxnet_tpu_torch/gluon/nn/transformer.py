@@ -3,7 +3,9 @@
 Counterpart of ``mxnet_tpu/gluon/nn/transformer.py``: ``MultiHeadAttention``,
 ``PositionwiseFFN``, ``TransformerEncoderCell`` and ``TransformerEncoder``,
 each with ``forward`` and the KV-cache surface (``init_cache`` for
-floating-point dtypes, ``prefill``, ``decode_step``) in both norm layouts,
+floating-point dtypes and "int8", ``prefill``, ``decode_step``,
+``prefill_suffix``, ``decode_multi``, ``copy_cache_rows``) in both norm
+layouts,
 and ``valid_length_mask``. Attention without a mask or live dropout routes
 to the flash-attention kernels (``ops/attention.py``). The post-norm
 cell's ``forward`` routes ``LN(x + dropout(h))`` through the fused
@@ -71,46 +73,99 @@ class MultiHeadAttention(HybridBlock):
 
     def init_cache(self, max_slots, max_seq, dtype=torch.float32):
         """Preallocate one (k, v) cache pair:
-        (max_slots, max_seq, heads, head_dim) each, on the block's device."""
-        dtype = _cache_dtype(dtype)
+        (max_slots, max_seq, heads, head_dim) each, on the block's device.
+
+        ``dtype="int8"`` selects quantized storage: each of k/v becomes a
+        (values int8, scales float32) pair with one symmetric scale per
+        (slot, row, head), shaped (max_slots, max_seq, heads, 1)."""
         d = self._units // self._heads
         shape = (max_slots, max_seq, self._heads, d)
         dev = self.device
+        if str(dtype) == "int8":
+            sshape = (max_slots, max_seq, self._heads, 1)
+            return tuple((torch.zeros(shape, dtype=torch.int8, device=dev),
+                          torch.ones(sshape, dtype=torch.float32,
+                                     device=dev)) for _ in range(2))
+        dtype = _cache_dtype(dtype)
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
+
+    @staticmethod
+    def _cache_is_q8(kv):
+        return isinstance(kv[0], (tuple, list))
+
+    def _qkv(self, x):
+        return self.query_proj(x), self.key_proj(x), self.value_proj(x)
 
     def prefill(self, x, kv, slot):
         """Full causal self-attention over one prompt (1, L, units),
         recording projected K/V into cache slot ``slot``."""
-        from ...ops.attention import multi_head_attention, write_prefill_kv
-        q = self.query_proj(x)
-        k = self.key_proj(x)
-        v = self.value_proj(x)
-        new_kv = write_prefill_kv(kv[0], kv[1], k, v, slot, self._heads)
+        from ...ops.attention import (multi_head_attention,
+                                      write_prefill_kv, write_prefill_kv_q8)
+        q, k, v = self._qkv(x)
+        if self._cache_is_q8(kv):
+            (kc, ks), (vc, vs) = kv
+            kc, ks, vc, vs = write_prefill_kv_q8(kc, ks, vc, vs, k, v,
+                                                 slot, self._heads)
+            new_kv = ((kc, ks), (vc, vs))
+        else:
+            new_kv = write_prefill_kv(kv[0], kv[1], k, v, slot, self._heads)
         out = multi_head_attention(q, k, v, self._heads, causal=True)
         return self.out_proj(out), new_kv
+
+    def _cached(self, plain, q8, x, kv, *args):
+        """Run a cached-attention op (``plain`` on the fp cache, ``q8`` on
+        the int8 layout) on x's projections; (out_proj(out), new kv)."""
+        q, k, v = self._qkv(x)
+        if self._cache_is_q8(kv):
+            (kc, ks), (vc, vs) = kv
+            out, kc, ks, vc, vs = q8(q, k, v, kc, ks, vc, vs, *args,
+                                     self._heads)
+            return self.out_proj(out), ((kc, ks), (vc, vs))
+        out, k_cache, v_cache = plain(q, k, v, kv[0], kv[1], *args,
+                                      self._heads)
+        return self.out_proj(out), (k_cache, v_cache)
 
     def decode_step(self, x, kv, positions):
         """One cached decode step: x is (slots, 1, units), ``positions``
         (slots,) the cache row each slot's token occupies."""
-        from ...ops.attention import decode_attention
-        q = self.query_proj(x)
-        k = self.key_proj(x)
-        v = self.value_proj(x)
-        out, k_cache, v_cache = decode_attention(
-            q, k, v, kv[0], kv[1], positions, self._heads)
-        return self.out_proj(out), (k_cache, v_cache)
+        from ...ops.attention import decode_attention, decode_attention_q8
+        return self._cached(decode_attention, decode_attention_q8, x, kv,
+                            positions)
+
+    def prefill_suffix(self, x, kv, slot, start):
+        """Prefix-cache suffix prefill: x (1, Ls, units) is the prompt
+        suffix; rows [0, start) of ``slot`` already hold a copied prefix
+        the suffix attends to."""
+        from ...ops.attention import (suffix_prefill_attention,
+                                      suffix_prefill_attention_q8)
+        return self._cached(suffix_prefill_attention,
+                            suffix_prefill_attention_q8, x, kv, slot, start)
+
+    def decode_multi(self, x, kv, positions):
+        """t-token cached decode (the speculative-decoding verify): x is
+        (slots, t, units), slot i's token j landing at cache row
+        positions[i] + j with causal visibility."""
+        from ...ops.attention import (decode_multi_attention,
+                                      decode_multi_attention_q8)
+        return self._cached(decode_multi_attention,
+                            decode_multi_attention_q8, x, kv, positions)
+
+    def copy_cache_rows(self, kv, src_slot, src_row, dst_slot, dst_row,
+                        rows):
+        """Copy ``rows`` KV rows between slots (the prefix-cache block
+        copy), in place, on the fp and the int8 layouts alike."""
+        from ...ops.attention import copy_cache_rows
+        return copy_cache_rows(kv, src_slot, src_row, dst_slot, dst_row,
+                               rows)
 
 
 def _cache_dtype(dtype):
     if isinstance(dtype, str):
-        if dtype == "int8":
-            raise MXNetError("int8 KV cache is not part of this slice of "
-                             "the port")
         dtype = getattr(torch, dtype, None)
     if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-        raise MXNetError(f"KV cache dtype must be floating point, got "
-                         f"{dtype!r}")
+        raise MXNetError(f"KV cache dtype must be floating point or "
+                         f"'int8', got {dtype!r}")
     return dtype
 
 
@@ -215,24 +270,34 @@ class TransformerEncoderCell(HybridBlock):
     def init_cache(self, max_slots, max_seq, dtype=torch.float32):
         return self.attention.init_cache(max_slots, max_seq, dtype)
 
-    def prefill(self, x, kv, slot):
+    def _cached(self, method, x, kv, *args):
+        """The cell around one cached-attention method of its attention
+        block, in its norm layout."""
+        attend = getattr(self.attention, method)
         if self._pre_norm:
-            h, kv = self.attention.prefill(self.attn_ln(x), kv, slot)
+            h, kv = attend(self.attn_ln(x), kv, *args)
             x = x + h
             return x + self.ffn(self.ffn_ln(x)), kv
-        h, kv = self.attention.prefill(x, kv, slot)
+        h, kv = attend(x, kv, *args)
         x = self.attn_ln(x + h)
         return self.ffn_ln(x + self.ffn(x)), kv
 
+    def prefill(self, x, kv, slot):
+        return self._cached("prefill", x, kv, slot)
+
     def decode_step(self, x, kv, positions):
-        if self._pre_norm:
-            h, kv = self.attention.decode_step(self.attn_ln(x), kv,
-                                               positions)
-            x = x + h
-            return x + self.ffn(self.ffn_ln(x)), kv
-        h, kv = self.attention.decode_step(x, kv, positions)
-        x = self.attn_ln(x + h)
-        return self.ffn_ln(x + self.ffn(x)), kv
+        return self._cached("decode_step", x, kv, positions)
+
+    def prefill_suffix(self, x, kv, slot, start):
+        return self._cached("prefill_suffix", x, kv, slot, start)
+
+    def decode_multi(self, x, kv, positions):
+        return self._cached("decode_multi", x, kv, positions)
+
+    def copy_cache_rows(self, kv, src_slot, src_row, dst_slot, dst_row,
+                        rows):
+        return self.attention.copy_cache_rows(
+            kv, src_slot, src_row, dst_slot, dst_row, rows)
 
 
 class TransformerEncoder(HybridBlock):
@@ -266,19 +331,30 @@ class TransformerEncoder(HybridBlock):
         return [cell.init_cache(max_slots, max_seq, dtype)
                 for cell in self._layers]
 
-    def prefill(self, x, caches, slot):
+    def _cached(self, method, x, caches, *args):
         out = []
         for cell, kv in zip(self._layers, caches):
-            x, kv = cell.prefill(x, kv, slot)
+            x, kv = getattr(cell, method)(x, kv, *args)
             out.append(kv)
         return x, out
 
+    def prefill(self, x, caches, slot):
+        return self._cached("prefill", x, caches, slot)
+
     def decode_step(self, x, caches, positions):
-        out = []
-        for cell, kv in zip(self._layers, caches):
-            x, kv = cell.decode_step(x, kv, positions)
-            out.append(kv)
-        return x, out
+        return self._cached("decode_step", x, caches, positions)
+
+    def prefill_suffix(self, x, caches, slot, start):
+        return self._cached("prefill_suffix", x, caches, slot, start)
+
+    def decode_multi(self, x, caches, positions):
+        return self._cached("decode_multi", x, caches, positions)
+
+    def copy_cache_rows(self, caches, src_slot, src_row, dst_slot,
+                        dst_row, rows):
+        return [cell.copy_cache_rows(kv, src_slot, src_row, dst_slot,
+                                     dst_row, rows)
+                for cell, kv in zip(self._layers, caches)]
 
 
 def valid_length_mask(valid_length, seq_len):

@@ -1696,3 +1696,159 @@ def test_fused_update_matches_per_parameter_rule_on_card(cuda_device, name,
                          nets[1][0].collect_params().values()):
         torch.testing.assert_close(p.data(), q.data(), atol=0,
                                    rtol=2.4e-7, msg=n)
+
+
+# -- the serve engine's CUDA graphs ------------------------------------------------
+
+SERVE_CFG = dict(vocab_size=97, units=64, hidden_size=128, num_layers=2,
+                 num_heads=2, max_length=64, dropout=0.0, embed_dropout=0.0)
+
+
+def _serve_twins(device, seed=0):
+    """(the same small GPT on the CPU, on the card)."""
+    from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
+    cpu = tgpt.GPTForCausalLM(device="cpu", **SERVE_CFG).initialize(
+        seed=seed)
+    card = tgpt.GPTForCausalLM(device=device, **SERVE_CFG)
+    tmx.functional.load_params(card, tmx.functional.param_arrays(cpu))
+    return cpu, card
+
+
+def _serve_work(n=10, seed=0, shared=0):
+    rs = onp.random.RandomState(seed)
+    head = rs.randint(1, 97, shared).tolist()
+    return [head + rs.randint(1, 97, rs.randint(2, 14)).tolist()
+            for _ in range(n)]
+
+
+def _serve(eng, prompts, n_new=9):
+    reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    eng.run()
+    return [r.generated for r in reqs]
+
+
+def _same_or_tie(net, prompts, got, want, params=None):
+    """Token lists equal, or equal up to a first difference that is a tie:
+    both tokens within 1e-4 of the row maximum in the CPU net's full
+    forward (through ``params``, an engine's dequantized weights, where
+    given). The card's fp32 flash products (3xTF32) and cuBLAS sum in
+    another order than the CPU."""
+    for p, a, b in zip(prompts, got, want):
+        if a == b:
+            continue
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        ids = torch.tensor([p + b[:i]])
+        if params is None:
+            row = net(ids)[0, -1]
+        else:
+            (row, _) = tmx.functional.functional_call(net, params, ids)
+            row = row[0, -1]
+        assert max(row.max() - row[a[i]], row.max() - row[b[i]]) <= 1e-4, \
+            (p, a, b)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8_weights", "int4_weights"])
+def test_graphed_engine_matches_cpu_engine_on_card(cuda_device, quantize):
+    """Every step a CUDA graph on the card, eager on the CPU: the same
+    tokens (the weights quantize to the same values on both); the builds
+    are the warmup's, none after it; a replay runs no kernel wrapper (the
+    flash counter moves at the build only)."""
+    cpu, card = _serve_twins(cuda_device)
+    prompts = _serve_work()
+    kw = dict(max_slots=4, buckets="8,16", quantize=quantize)
+    ref = tmx.serve.load(cpu, device="cpu", **kw)
+    want = _serve(ref, prompts)
+    eng = tmx.serve.load(card, **kw).warmup()
+    before = tflash.flash_attention_fwd.launches
+    got = _serve(eng, prompts)
+    assert tflash.flash_attention_fwd.launches == before
+    with torch.no_grad():
+        _same_or_tie(cpu, prompts, got, want,
+                     ref._full_params() if quantize else None)
+    assert eng.compiles == 3 and eng.post_warmup_compiles == 0
+    assert _serve(eng, prompts) == got  # replays are deterministic
+
+
+def test_graphed_int8_kv_engine_on_card(cuda_device):
+    """int4 weights and the int8 cache on the card: int8 values with fp32
+    (slot, row, head) scales, deterministic replays, and the CPU engine's
+    tokens for most requests (a value within an ulp of an int8 rounding
+    boundary may round the other way on the card and move the logits by
+    ~1e-3, as in tests/test_serve.py's int8 KV parity)."""
+    cpu, card = _serve_twins(cuda_device)
+    prompts = _serve_work(seed=6)
+    kw = dict(max_slots=4, buckets="8,16", quantize="int4_weights,int8_kv")
+    want = _serve(tmx.serve.load(cpu, device="cpu", **kw), prompts)
+    eng = tmx.serve.load(card, **kw).warmup()
+    got = _serve(eng, prompts)
+    (kq, ks), (vq, vs) = eng._cache[0]
+    assert kq.dtype == vq.dtype == torch.int8
+    assert ks.dtype == vs.dtype == torch.float32 and ks.shape[-1] == 1
+    assert sum(a == b for a, b in zip(got, want)) >= len(prompts) - 2
+    assert _serve(eng, prompts) == got
+    assert eng.post_warmup_compiles == 0
+
+
+def test_graphed_prefix_cache_and_spec_on_card(cuda_device):
+    """The fused block-gather + suffix graphs and the speculative round:
+    the tokens of the cache-off, non-speculative engine; the CPU engine's
+    hit and acceptance counts."""
+    cpu, card = _serve_twins(cuda_device, seed=1)
+    prompts = _serve_work(shared=16, seed=2)
+    prev = tmx.config.set("serve.prefix_block", 8)
+    try:
+        kw = dict(max_slots=4, buckets="8,32", prefix_cache=True)
+        plain = _serve(tmx.serve.load(card, max_slots=4,
+                                      buckets="8,32").warmup(), prompts)
+        eng = tmx.serve.load(card, draft=card, **kw).warmup()
+        assert eng.compiles == 5
+        got = _serve(eng, prompts)
+        ref = tmx.serve.load(cpu, device="cpu", draft=cpu, **kw)
+        want = _serve(ref, prompts)
+    finally:
+        tmx.config.set("serve.prefix_block", prev)
+    _same_or_tie(cpu, prompts, got, plain)
+    _same_or_tie(cpu, prompts, got, want)
+    st, rst = eng.stats(), ref.stats()
+    assert st["prefix"]["hits"] == rst["prefix"]["hits"] == len(prompts) - 1
+    assert st["prefix"]["tokens_reused"] == 16 * (len(prompts) - 1)
+    assert st["spec"]["rounds"] * 2 <= st["tokens_out"]
+    assert eng.post_warmup_compiles == 0
+
+
+def test_graphed_weight_swap_on_card(cuda_device):
+    """update_weights copies into the tensors the graphs read: no capture,
+    and each run's tokens equal a fresh engine's over the same weights,
+    bit for bit; the model keeps its own weights."""
+    _, card = _serve_twins(cuda_device, seed=2)
+    _, other = _serve_twins(cuda_device, seed=3)
+    prompts = _serve_work(seed=4)
+    want_b = _serve(tmx.serve.load(other, max_slots=4,
+                                   buckets="8,16").warmup(), prompts)
+    eng = tmx.serve.load(card, max_slots=4, buckets="8,16").warmup()
+    want_a = _serve(eng, prompts)
+    held = {n: p.data().clone() for n, p in card.collect_params().items()}
+    old = eng.update_weights(tmx.functional.param_arrays(other))
+    assert _serve(eng, prompts) == want_b
+    eng.restore_weights(old)
+    assert _serve(eng, prompts) == want_a != want_b
+    assert eng.compiles == 3 and eng.post_warmup_compiles == 0
+    for n, p in card.collect_params().items():
+        assert torch.equal(p.data(), held[n]), n
+
+
+def test_graphed_sampling_draws_fresh_on_card(cuda_device):
+    """temperature > 0 inside the graphs: the engine's generator is
+    registered with each capture, so replays draw new samples and advance
+    it; the same seed gives the same tokens."""
+    _, card = _serve_twins(cuda_device, seed=4)
+    prompts = _serve_work(n=4, seed=5)
+
+    def engine(seed):
+        return tmx.serve.load(card, max_slots=4, buckets="8,16",
+                              temperature=1.5, seed=seed).warmup()
+    a, b = engine(7), engine(7)
+    first, again = _serve(a, prompts, 16), _serve(a, prompts, 16)
+    assert _serve(b, prompts, 16) == first
+    assert first != again
+    assert len({t for toks in first for t in toks}) > 8

@@ -277,22 +277,34 @@ def test_initialize_default_uniform_and_seeded():
     assert torch.all(pa["backbone.decoder.layer0.ffn.ffn_1.bias"] == 0)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"quantize": "int8_weights"}, {"quantize": "int8_kv"},
-    {"prefix_cache": True}, {"draft": "small"}, {"cache_dtype": "int8"}])
-def test_features_outside_slice_raise(kwargs):
-    _, tnet = _pair(0)
+@pytest.mark.parametrize("case", ["draft_without_surface", "unknown_class",
+                                  "update_weights_mismatch"])
+def test_cases_that_still_raise_like_jax(case):
+    """The cases of the former slice checks that the reference raises on
+    too (the features themselves: tests/test_torch_serve_*.py)."""
+    jnet, tnet = _pair(0)
+    calls = {
+        "draft_without_surface": (
+            lambda: mx.serve.ServeEngine(jnet, draft="small"),
+            lambda: tmx.serve.ServeEngine(tnet, device="cpu",
+                                          draft="small")),
+        "unknown_class": (
+            lambda: mx.serve.load(jnet, max_slots=2, buckets="4,8").submit(
+                [1, 2], slo_class="interactive"),
+            lambda: tmx.serve.load(tnet, max_slots=2, buckets="4,8",
+                                   device="cpu").submit(
+                [1, 2], slo_class="interactive")),
+        "update_weights_mismatch": (
+            lambda: mx.serve.load(jnet, max_slots=2,
+                                  buckets="4,8").update_weights({}),
+            lambda: tmx.serve.load(tnet, max_slots=2, buckets="4,8",
+                                   device="cpu").update_weights({})),
+    }
+    jcall, tcall = calls[case]
+    with pytest.raises(mx.MXNetError):
+        jcall()
     with pytest.raises(MXNetError):
-        tmx.serve.ServeEngine(tnet, device="cpu", **kwargs)
-
-
-def test_engine_surface_outside_slice_raises():
-    _, tnet = _pair(0)
-    eng = tmx.serve.load(tnet, max_slots=2, buckets="4,8", device="cpu")
-    with pytest.raises(MXNetError):
-        eng.submit([1, 2], slo_class="interactive")
-    with pytest.raises(MXNetError):
-        eng.update_weights({})
+        tcall()
 
 
 def test_engine_queue_bound_and_stop():

@@ -2,7 +2,8 @@
 
 Every module of ``mxnet_tpu_torch/`` (the ``amp`` package's too),
 ``chip_smoke.py`` and the port's
-tools (``tools/fp8_loss_curves.py``, ``flash_digest.py``) is scanned for
+tools (``tools/fp8_loss_curves.py``, ``flash_digest.py``, ``serve_ab.py``)
+is scanned for
 imports of ``jax``, ``jaxlib`` or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself
 is allowed), and a fresh interpreter that imports the port must end up
 with neither ``jax`` nor ``mxnet_tpu`` loaded.
@@ -17,7 +18,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "fp8_loss_curves.py",
-    ROOT / "tools" / "flash_digest.py"]
+    ROOT / "tools" / "flash_digest.py", ROOT / "tools" / "serve_ab.py"]
 BANNED = ("jax", "jaxlib", "mxnet_tpu")
 
 
@@ -65,7 +66,9 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.amp, "
             "mxnet_tpu_torch.amp.lists, mxnet_tpu_torch.amp.loss_scaler, "
             "mxnet_tpu_torch.serialization, "
-            "mxnet_tpu_torch.gluon.cached_graph, mxnet_tpu_torch.gluon.block; "
+            "mxnet_tpu_torch.gluon.cached_graph, mxnet_tpu_torch.gluon.block, "
+            "mxnet_tpu_torch.serve.engine, mxnet_tpu_torch.serve.quantize, "
+            "mxnet_tpu_torch.serve.prefix; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
