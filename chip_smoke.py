@@ -401,6 +401,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``update_weights`` (a second seeded GPT-2's weights) -> ``resume`` ->
    run -> ``restore_weights`` -> run gives, bit for bit, the tokens of
    fresh engines over each weight set, with no new capture.
+26. The ``mx.np`` surface on the card: every function of the reference's
+   frontend (``NP_REF``: the 187 of ``tests/test_op_coverage.py``
+   ``REF_NP``, ``LINALG_REF``'s 19, ``RANDOM_REF``'s 20, copied here) runs
+   on ``mx.gpu(0)`` on a case table this script carries (``np_cases``,
+   the sweep's cases, ``linalg_cases``) and is held against the port's
+   own CPU results: structure, shapes and dtypes exactly, integers and
+   bools exactly, float values at the sweep's tolerance (rtol = atol =
+   2e-5), linalg at rtol 1e-4 + atol 1e-5, factorizations by their
+   sign-free invariants; every sampler reproducible under its seed on the
+   card, its dtype as on the CPU, and its mean within 5 standard errors
+   and its variance within 5% at 1000000 draws. Prints the counts of each
+   namespace.
+27. GPT-2 124M bf16 trained from ``mx.np`` arrays, the reference's way:
+   phase 16's model, batch, seed-0 weights, ``amp.init`` and fused AdamW,
+   the tokens made by ``mx.np.array(..., ctx=mx.gpu(0))``, ``out =
+   net(x)``, ``loss.backward()``, ``trainer.step()``, ``loss.asnumpy()``.
+   Two steps eager and two hybridized, each from the same weights as two
+   tensor-driven steps (phases 16 / 19's path), losses and every
+   parameter equal bit for bit; kernels 1-3 12 launches each a step
+   (the wrappers' counts eager, profiler events in a window of 4
+   hybridized steps). Timed in turns (tensors, mx.np, mx.np, tensors) of
+   4 steps, eager and hybridized: wall, device ms, busy share, host
+   launch calls a step. Last, a block whose forward is written in
+   ``mx.np`` (``@``, ``np.tanh``, ``np.sum``) hybridized: captured once
+   into a CUDA graph, its replays equal, and within 1e-5 of max|eager|
+   of the eager forward.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -412,6 +438,7 @@ import ctypes
 import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -4369,6 +4396,612 @@ def phase_fused_update(dev, card):
     return out
 
 
+# -- the array core and mx.np (phases 26-27) ----------------------------------
+
+#: the reference frontend's functions (the JAX package's
+#: tests/test_op_coverage.py REF_NP / REF_LINALG / REF_RANDOM, copied: this
+#: script imports nothing of the JAX package)
+NP_REF = """
+abs absolute add all amax amin any append arange arccos arccosh arcsin
+arcsinh arctan arctan2 arctanh argmax argmin argsort around array
+array_split atleast_1d atleast_2d atleast_3d average bincount bitwise_and
+bitwise_invert bitwise_not bitwise_or bitwise_xor blackman broadcast_to
+cbrt ceil clip column_stack concatenate copysign cos cosh cross cumsum
+deg2rad degrees delete diag diagflat diagonal diff divide dot dsplit dstack
+ediff1d einsum empty empty_like equal exp expand_dims expm1 eye fabs
+fill_diagonal fix flatnonzero flip fliplr flipud floor fmax fmin fmod full
+full_like gcd greater greater_equal hamming hanning histogram hsplit hstack
+hypot identity indices inner insert interp invert isfinite isinf isnan
+isneginf isposinf kron lcm ldexp less less_equal linspace log log10 log1p
+log2 logical_and logical_not logical_or logical_xor logspace matmul max
+maximum mean median min minimum mod moveaxis multiply nan_to_num nanprod
+nansum negative nonzero not_equal ones ones_like outer pad percentile
+polyval power prod quantile rad2deg radians ravel reciprocal remainder
+repeat reshape resize rint roll rollaxis rot90 round row_stack sign sin
+sinh sort split sqrt square squeeze stack std subtract sum swapaxes take
+tan tanh tensordot tile trace transpose tri tril tril_indices triu
+triu_indices true_divide trunc unique unravel_index var vdot vsplit vstack
+where zeros zeros_like
+""".split()
+LINALG_REF = """cholesky det eig eigh eigvals eigvalsh inv lstsq matrix_power
+matrix_rank multi_dot norm pinv qr slogdet solve svd tensorinv
+tensorsolve""".split()
+RANDOM_REF = """beta chisquare choice exponential f gamma gumbel logistic
+lognormal multinomial multivariate_normal normal pareto power randint
+rayleigh shuffle uniform weibull rand""".split()
+#: phase 26's tolerance: the sweep's (tests/test_numpy_op_sweep.py), for
+#: float32 values on the card against the port's own CPU results; linalg
+#: factorizations rtol 1e-4 + atol 1e-5 (cuSOLVER against LAPACK)
+NP_TOL = dict(rtol=2e-5, atol=2e-5)
+LINALG_TOL = dict(rtol=1e-4, atol=1e-5)
+NP_SAMPLES = 1000000  # draws of each sampler's moment check on the card
+
+
+def np_cases():
+    """(name, args, kwargs) of every ``mx.np`` function of ``NP_REF`` on
+    seeded host inputs (the sweep's cases, carried here)."""
+    rs = onp.random.RandomState(42)
+
+    def f(shape, lo=-2.0, hi=2.0):
+        return rs.uniform(lo, hi, size=shape).astype(onp.float32)
+
+    def i(shape, lo=-4, hi=5):
+        return rs.randint(lo, hi, size=shape).astype(onp.int32)
+
+    a23, a34, b34, v4, p23 = f((2, 3)), f((3, 4)), f((3, 4)), f((4,)), \
+        f((2, 3), 0.5, 3.0)
+    w4, i23, j23 = f((4,), 0.5, 3.0), i((2, 3)), i((2, 3))
+    bl, bm = rs.rand(2, 3) > 0.5, rs.rand(2, 3) > 0.5
+    nan = onp.array([1.0, onp.nan, onp.inf, -onp.inf], onp.float32)
+    cases = []
+    smooth = {"sin": a23, "cos": a23, "tan": f((2, 3), -1, 1), "sinh": a23,
+              "cosh": a23, "tanh": a23, "exp": a23, "expm1": a23,
+              "log": p23, "log10": p23, "log1p": p23, "log2": p23,
+              "sqrt": p23, "cbrt": p23, "square": a23, "negative": a23,
+              "reciprocal": p23, "arcsin": f((2, 3), -0.9, 0.9),
+              "arccos": f((2, 3), -0.9, 0.9), "arctan": a23,
+              "arcsinh": a23, "arccosh": f((2, 3), 1.5, 3.0),
+              "arctanh": f((2, 3), -0.9, 0.9), "deg2rad": a23,
+              "rad2deg": a23, "degrees": a23, "radians": a23, "abs": a23,
+              "absolute": a23, "fabs": a23, "ceil": a23, "floor": a23,
+              "rint": a23, "fix": a23, "trunc": a23, "sign": a23,
+              "nan_to_num": nan, "isfinite": nan, "isinf": nan,
+              "isnan": nan, "isneginf": nan, "isposinf": nan,
+              "logical_not": bl, "invert": i23, "bitwise_not": i23,
+              "bitwise_invert": bl}
+    cases += [(n, (x,), {}) for n, x in smooth.items()]
+    binary = {"add": (a23, b34[:2, :3]), "subtract": (a23, b34[:2, :3]),
+              "multiply": (a23, b34[:2, :3]), "divide": (a23, p23),
+              "true_divide": (a23, p23), "power": (p23, f((2, 3), -1.5, 1.5)),
+              "maximum": (a23, b34[:2, :3]), "minimum": (a23, b34[:2, :3]),
+              "fmax": (a23, b34[:2, :3]), "fmin": (a23, b34[:2, :3]),
+              "copysign": (a23, b34[:2, :3]), "hypot": (p23, p23),
+              "arctan2": (a23, p23), "mod": (a23, p23),
+              "remainder": (a23, p23), "fmod": (a23, p23),
+              "ldexp": (a23, i((2, 3), -2, 3)),
+              "gcd": (i((2, 3), 1, 20), i((2, 3), 1, 20)),
+              "lcm": (i((2, 3), 1, 10), i((2, 3), 1, 10)),
+              "bitwise_and": (i23, j23), "bitwise_or": (i23, j23),
+              "bitwise_xor": (i23, j23), "logical_and": (bl, bm),
+              "logical_or": (bl, bm), "logical_xor": (bl, bm)}
+    for n in ("equal", "not_equal", "less", "less_equal", "greater",
+              "greater_equal"):
+        binary[n] = (a23, b34[:2, :3])
+    cases += [(n, xy, {}) for n, xy in binary.items()]
+    cases += [(n, (a23, b34[:1, :3]), {}) for n in ("add", "maximum")]
+    cases += [(n, (a34,), kw) for n, kw in (
+        ("sum", {}), ("sum", {"axis": 1, "keepdims": True}), ("mean", {}),
+        ("mean", {"axis": -1}), ("max", {"axis": 0}), ("min", {}),
+        ("amax", {"axis": 0}), ("amin", {"axis": 0}), ("std", {}),
+        ("std", {"axis": 0, "ddof": 1}), ("var", {"axis": 0, "ddof": 1}),
+        ("median", {"axis": 0}), ("average", {}), ("cumsum", {"axis": 1}),
+        ("argmax", {"axis": 1}), ("argmin", {}), ("argsort", {"axis": 1}),
+        ("sort", {"axis": 0}), ("diff", {"axis": 0}), ("ravel", {}),
+        ("transpose", {}), ("fliplr", {}), ("flipud", {}), ("rot90", {}),
+        ("diagonal", {}), ("tril", {}), ("triu", {}), ("trace", {}),
+        ("around", {}), ("percentile", {"q": 50.0}),
+        ("quantile", {"q": 0.25, "axis": 0}), ("round", {"decimals": 1}))]
+    cases += [("prod", (p23,), {"axis": 0}), ("all", (bl,), {"axis": 0}),
+              ("any", (bl,), {}), ("nansum", (nan[:2],), {}),
+              ("nanprod", (nan[:2],), {}), ("median", (v4,), {}),
+              ("average", (v4,), {"weights": w4}),
+              ("reshape", (a34, (4, 3)), {}), ("swapaxes", (a34, 0, 1), {}),
+              ("moveaxis", (f((2, 3, 4)), 0, -1), {}),
+              ("rollaxis", (f((2, 3, 4)), 2), {}),
+              ("squeeze", (f((1, 3, 1)),), {}),
+              ("expand_dims", (a34, 1), {}), ("broadcast_to", (v4, (3, 4)),
+                                              {}),
+              ("repeat", (a34, 2), {"axis": 0}), ("tile", (a34, (2, 1)), {}),
+              ("flip", (a34,), {"axis": 0}), ("roll", (a34, 2), {"axis": 1}),
+              ("concatenate", ([a34, b34],), {"axis": 1}),
+              ("stack", ([a34, b34],), {"axis": -1}),
+              ("vstack", ([a34, b34],), {}), ("hstack", ([a34, b34],), {}),
+              ("dstack", ([a34, b34],), {}), ("row_stack", ([a34, b34],), {}),
+              ("column_stack", ([v4, w4],), {}),
+              ("split", (a34, 2), {"axis": 1}),
+              ("array_split", (f((5, 2)), 2), {}), ("hsplit", (a34, 2), {}),
+              ("vsplit", (f((4, 3)), 2), {}), ("dsplit", (f((2, 3, 4)), 2),
+                                               {}),
+              ("atleast_1d", (onp.float32(1.5),), {}),
+              ("atleast_2d", (v4,), {}), ("atleast_3d", (a34,), {}),
+              ("append", (a34, b34), {"axis": 0}), ("delete", (v4, 1), {}),
+              ("insert", (v4, 1, 9.0), {}), ("resize", (a34, (2, 5)), {}),
+              ("pad", (a34, ((1, 1), (0, 2))), {}),
+              ("take", (a34, onp.array([0, 2], onp.int32)), {"axis": 1}),
+              ("where", (bl, a23, p23), {}),
+              ("nonzero", (onp.array([[1, 0], [0, 2]], onp.int32),), {}),
+              ("flatnonzero", (onp.array([1, 0, 2, 0], onp.int32),), {}),
+              ("unique", (onp.array([3, 1, 3, 2], onp.int32),),
+               {"return_index": True, "return_inverse": True,
+                "return_counts": True}),
+              ("unravel_index", (onp.array([5, 7], onp.int32), (3, 4)), {}),
+              ("diag", (v4,), {}), ("diagflat", (v4,), {}),
+              ("tri", (3, 4), {}), ("tril_indices", (3,), {}),
+              ("triu_indices", (3,), {}), ("indices", ((2, 3),), {}),
+              ("clip", (a34, -0.5, 0.5), {}), ("ediff1d", (v4,), {}),
+              ("bincount", (onp.array([0, 1, 1, 3], onp.int32),), {}),
+              ("histogram", (v4, 3), {}),
+              ("interp", (onp.array([0.5, 1.5], onp.float32),
+                          onp.array([0.0, 1.0, 2.0], onp.float32),
+                          onp.array([0.0, 10.0, 20.0], onp.float32)), {}),
+              ("polyval", (v4, w4), {}),
+              ("dot", (a23, a34[:3, :2]), {}), ("matmul", (a23, a34), {}),
+              ("inner", (v4, w4), {}), ("outer", (v4, w4), {}),
+              ("vdot", (v4, w4), {}), ("kron", (a23, f((2, 2))), {}),
+              ("cross", (f((3,)), f((3,))), {}),
+              ("tensordot", (f((2, 3, 4)), f((4, 3, 2))),
+               {"axes": ((2,), (0,))}),
+              ("einsum", ("ij,jk->ik", a23, a34), {}),
+              ("blackman", (5,), {}), ("hamming", (5,), {}),
+              ("hanning", (5,), {}), ("zeros", ((2, 3),), {}),
+              ("ones", ((2, 3),), {}), ("full", ((2, 3), 7.0), {}),
+              ("empty", ((2, 3),), {}), ("eye", (3, 4, 1), {}),
+              ("identity", (3,), {}), ("arange", (1, 7, 2), {}),
+              ("linspace", (0.0, 1.0, 5), {}), ("logspace", (0.0, 2.0, 4), {}),
+              ("array", ([[1, 2], [3, 4]],), {}),
+              ("zeros_like", (a34,), {}), ("ones_like", (a34,), {}),
+              ("full_like", (a34, 3.0), {}), ("empty_like", (i23,), {}),
+              ("fill_diagonal", (f((3, 3)), 5.0), {})]
+    return cases
+
+
+def _np_on(np_mod, ctx, value):
+    if isinstance(value, onp.ndarray):
+        return np_mod.array(value, ctx=ctx)
+    if isinstance(value, list) and value and isinstance(value[0],
+                                                        onp.ndarray):
+        return [np_mod.array(v, ctx=ctx) for v in value]
+    return value
+
+
+def _np_run(np_mod, ctx, name, args, kwargs, fn=None):
+    with ctx:
+        fn = fn or getattr(np_mod, name)
+        return fn(*[_np_on(np_mod, ctx, a) for a in args], **kwargs)
+
+
+def _np_leaves(out):
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _np_leaves(o)]
+    return [out]
+
+
+def _np_compare(name, got, want, tol, card_ctx):
+    """A card result against the CPU result: structure, shape, dtype,
+    values (integers and bools exactly); returns the largest float
+    difference."""
+    g, w = _np_leaves(got), _np_leaves(want)
+    check(len(g) == len(w), f"mx.np.{name}: {len(g)} outputs on the card, "
+                            f"{len(w)} on the CPU")
+    worst = 0.0
+    for a, b in zip(g, w):
+        check(a.ctx == card_ctx, f"mx.np.{name}: a result on {a.ctx}")
+        check(a.shape == b.shape and str(a.dtype) == str(b.dtype),
+              f"mx.np.{name}: {a.shape} {a.dtype} on the card, {b.shape} "
+              f"{b.dtype} on the CPU")
+        x, y = a.asnumpy(), b.asnumpy()
+        if y.dtype.kind in "fc":
+            bad = ~onp.isclose(x, y, equal_nan=True, **tol)
+            check(not bad.any(), f"mx.np.{name}: the card's values differ "
+                                 f"from the CPU's beyond {tol}: {x} vs {y}")
+            fin = onp.isfinite(y) & onp.isfinite(x)
+            if fin.any():
+                worst = max(worst, float(onp.abs(x[fin] - y[fin]).max()))
+        else:
+            check(onp.array_equal(x, y), f"mx.np.{name}: {x} on the card, "
+                                         f"{y} on the CPU")
+    return worst
+
+
+def linalg_cases():
+    rs = onp.random.RandomState(7)
+    a = (rs.randn(4, 4) + 2 * onp.eye(4)).astype(onp.float32)
+    b = rs.randn(4, 4).astype(onp.float32)
+    spd = (b @ b.T + 4 * onp.eye(4)).astype(onp.float32)
+    rect = rs.randn(5, 3).astype(onp.float32)
+    t3 = (rs.randn(2, 3, 6) + 1.0).astype(onp.float32)
+    ts = (rs.randn(6, 2, 3) + onp.eye(6).reshape(6, 2, 3)).astype(
+        onp.float32)
+    return [("cholesky", (spd,), {}), ("det", (a,), {}),
+            ("eig", (a,), {}), ("eigh", (spd,), {}), ("eigvals", (a,), {}),
+            ("eigvalsh", (spd,), {}), ("inv", (a,), {}),
+            ("lstsq", (rect, rect[:, 0] + 1), {"rcond": None}),
+            ("matrix_power", (a, 3), {}), ("matrix_rank", (a,), {}),
+            ("multi_dot", ([rect, rect.T, rect],), {}),
+            ("norm", (a,), {}), ("norm", (a,), {"ord": "nuc"}),
+            ("pinv", (rect,), {}), ("qr", (rect,), {}),
+            ("slogdet", (a,), {}), ("solve", (a, rect[:4]), {}),
+            ("svd", (rect,), {"full_matrices": False}),
+            ("tensorinv", (t3,), {"ind": 2}),
+            ("tensorsolve", (ts, onp.arange(6, dtype=onp.float32)), {})]
+
+
+def _linalg_invariant(name, out, args):
+    """The sign- and phase-free form of a factorization's result."""
+    a = args[0]
+    if name == "eigh":
+        w, v = out.eigenvalues.asnumpy(), out.eigenvectors.asnumpy()
+        return [w, onp.abs(a @ v - v * w).max()]
+    if name == "eig":
+        w, v = out.eigenvalues.asnumpy(), out.eigenvectors.asnumpy()
+        return [onp.sort_complex(w), onp.abs(a @ v - v * w).max()]
+    if name == "eigvals":
+        return [onp.sort_complex(out.asnumpy()), 0.0]
+    if name == "qr":
+        q, r = out.Q.asnumpy(), out.R.asnumpy()
+        return [onp.abs(r), onp.abs(q @ r - a).max()]
+    if name == "svd":
+        u, s, vh = (x.asnumpy() for x in out)
+        return [s, onp.abs((u * s) @ vh - a).max()]
+    return None
+
+
+SAMPLER_CALLS = {
+    "uniform": lambda r, n: r.uniform(-1.0, 3.0, size=n),
+    "rand": lambda r, n: r.rand(n),
+    "normal": lambda r, n: r.normal(1.0, 2.0, size=n),
+    "randint": lambda r, n: r.randint(0, 10, size=n),
+    "choice": lambda r, n: r.choice(4, size=n, p=onp.array(
+        [0.1, 0.2, 0.3, 0.4])),
+    "exponential": lambda r, n: r.exponential(2.0, size=n),
+    "gamma": lambda r, n: r.gamma(2.0, 1.5, size=n),
+    "beta": lambda r, n: r.beta(2.0, 3.0, size=n),
+    "chisquare": lambda r, n: r.chisquare(3.0, size=n),
+    "f": lambda r, n: r.f(5.0, 10.0, size=n),
+    "gumbel": lambda r, n: r.gumbel(0.0, 1.0, size=n),
+    "logistic": lambda r, n: r.logistic(1.0, 2.0, size=n),
+    "lognormal": lambda r, n: r.lognormal(0.0, 0.5, size=n),
+    "pareto": lambda r, n: r.pareto(5.0, size=n),
+    "power": lambda r, n: r.power(2.0, size=n),
+    "rayleigh": lambda r, n: r.rayleigh(2.0, size=n),
+    "weibull": lambda r, n: r.weibull(2.0, size=n),
+    "multinomial": lambda r, n: r.multinomial(20, [0.1, 0.3, 0.6],
+                                              size=(n,))[:, 2],
+    "multivariate_normal": lambda r, n: r.multivariate_normal(
+        onp.array([1.0, -1.0]), onp.array([[2.0, 0.6], [0.6, 1.0]]),
+        size=(n,))[:, 0],
+}
+_G15 = math.gamma(1.5)
+#: (mean, variance) of each draw of ``SAMPLER_CALLS``
+SAMPLER_MOMENTS = {
+    "uniform": (1.0, 16 / 12), "rand": (0.5, 1 / 12), "normal": (1.0, 4.0),
+    "randint": (4.5, 99 / 12), "choice": (2.0, 1.0),
+    "exponential": (2.0, 4.0), "gamma": (3.0, 4.5), "beta": (0.4, 0.04),
+    "chisquare": (3.0, 6.0), "f": (1.25, 2 * 100 * 13 / (5 * 64 * 6)),
+    "gumbel": (0.5772156649, math.pi ** 2 / 6),
+    "logistic": (1.0, 4 * math.pi ** 2 / 3),
+    "lognormal": (math.exp(0.125), (math.exp(0.25) - 1) * math.exp(0.25)),
+    "pareto": (0.25, 5 / 48), "power": (2 / 3, 0.5 - 4 / 9),
+    "rayleigh": (2.0 * math.sqrt(math.pi / 2), (4 - math.pi) / 2 * 4.0),
+    "weibull": (_G15, 1.0 - _G15 ** 2), "multinomial": (12.0, 4.8),
+    "multivariate_normal": (1.0, 2.0),
+}
+
+
+def phase_np_surface(dev, card):
+    """Every ``mx.np``, ``mx.np.linalg`` and ``mx.np.random`` function of
+    the reference's frontend on ``mx.gpu(0)``, against the port's CPU
+    results (phase 26)."""
+    import mxnet_tpu_torch as mx
+    np = mx.np
+    print(f"== phase 26: the mx.np surface on {card} against the CPU",
+          flush=True)
+    gpu, cpu = mx.gpu(dev.index or 0), mx.cpu()
+    missing = ([n for n in NP_REF if not callable(getattr(np, n, None))]
+               + [f"linalg.{n}" for n in LINALG_REF
+                  if not callable(getattr(np.linalg, n, None))]
+               + [f"random.{n}" for n in RANDOM_REF
+                  if not callable(getattr(np.random, n, None))])
+    check(not missing, f"mx.np lacks {missing}")
+    cases = np_cases()
+    covered = {c[0] for c in cases}
+    check(covered >= set(NP_REF), f"phase 26's table misses "
+                                  f"{sorted(set(NP_REF) - covered)}")
+    worst = {}
+    for name, args, kwargs in cases:
+        if name in ("empty", "empty_like"):  # values are unspecified
+            g = _np_run(np, gpu, name, args, kwargs)
+            w = _np_run(np, cpu, name, args, kwargs)
+            check(g.shape == w.shape and g.dtype == w.dtype
+                  and g.ctx == gpu, f"mx.np.{name}: {g.shape} {g.dtype}")
+            continue
+        got = _np_run(np, gpu, name, args, kwargs)
+        want = _np_run(np, cpu, name, args, kwargs)
+        worst[name] = max(worst.get(name, 0.0),
+                          _np_compare(name, got, want, NP_TOL, gpu))
+    np_row = {"functions": len(covered), "cases": len(cases),
+              "max_abs_diff": max(worst.values()),
+              "max_abs_diff_op": max(worst, key=worst.get)}
+    print(f"mx.np on {card}: {np_row['functions']} functions, "
+          f"{np_row['cases']} cases, every value, dtype and shape as on the "
+          f"CPU (largest float difference {np_row['max_abs_diff']:.3e}, in "
+          f"{np_row['max_abs_diff_op']})")
+    lworst = 0.0
+    lcases = linalg_cases()
+    for name, args, kwargs in lcases:
+        fn = getattr(np.linalg, name)
+        got = _np_run(np, gpu, name, args, kwargs, fn)
+        want = _np_run(np, cpu, name, args, kwargs, fn)
+        gi = _linalg_invariant(name, got, args)
+        if gi is None:
+            lworst = max(lworst, _np_compare(f"linalg.{name}", got, want,
+                                             LINALG_TOL, gpu))
+            continue
+        for a, b in zip(_np_leaves(got), _np_leaves(want)):
+            check(a.shape == b.shape and str(a.dtype) == str(b.dtype),
+                  f"linalg.{name}: {a.shape} {a.dtype} vs {b.shape} "
+                  f"{b.dtype}")
+        wi = _linalg_invariant(name, want, args)
+        check(onp.allclose(gi[0], wi[0], **LINALG_TOL) and gi[1] < 1e-3,
+              f"linalg.{name}: {gi} on the card, {wi} on the CPU")
+        lworst = max(lworst, float(onp.abs(gi[0] - wi[0]).max()))
+    check({c[0] for c in lcases} == set(LINALG_REF), "linalg cases")
+    linalg_row = {"functions": len(LINALG_REF), "cases": len(lcases),
+                  "max_abs_diff": lworst}
+    print(f"mx.np.linalg on {card}: {len(LINALG_REF)} functions, "
+          f"{len(lcases)} cases as on the CPU (largest difference "
+          f"{lworst:.3e}; eig / eigvals on the host, as the reference)")
+    moments = {}
+    with gpu:
+        for name, call in SAMPLER_CALLS.items():
+            mx.random.seed(5)
+            a = call(np.random, NP_SAMPLES)
+            np.random.seed(5)
+            b = call(np.random, NP_SAMPLES)
+            check(a.ctx == gpu and torch.equal(a._data, b._data),
+                  f"np.random.{name}: the same seed gave other draws on "
+                  f"{a.ctx}")
+            with cpu:
+                c = call(np.random, 8)
+            check(str(a.dtype) == str(c.dtype), f"np.random.{name}: "
+                                                f"{a.dtype} vs {c.dtype}")
+            x = a.asnumpy().astype(onp.float64)
+            mean, var = SAMPLER_MOMENTS[name]
+            z = (x.mean() - mean) / math.sqrt(var / x.size)
+            rel_var = x.var() / var - 1
+            moments[name] = {"mean_z": float(z), "var_rel": float(rel_var)}
+            check(abs(z) < 5 and abs(rel_var) < 0.05,
+                  f"np.random.{name} on {card}: mean {x.mean()} (want "
+                  f"{mean}, z {z:.2f}), var {x.var()} (want {var})")
+        x = np.arange(12, dtype="float32").reshape(6, 2)
+        np.random.shuffle(x)
+        check(x.ctx == gpu and x.version == 1 and sorted(
+            x.asnumpy()[:, 0].tolist()) == list(range(0, 12, 2)),
+              "np.random.shuffle on the card")
+    covered = set(SAMPLER_CALLS) | {"shuffle"}
+    check(covered >= set(RANDOM_REF), f"phase 26 misses samplers "
+                                      f"{sorted(set(RANDOM_REF) - covered)}")
+    random_row = {"samplers": len(covered), "draws": NP_SAMPLES,
+                  "worst_mean_z": max(abs(m["mean_z"])
+                                      for m in moments.values()),
+                  "worst_var_rel": max(abs(m["var_rel"])
+                                       for m in moments.values())}
+    print(f"mx.np.random on {card}: {len(covered)} samplers, each "
+          f"reproducible under its seed on the card, dtypes as on the CPU, "
+          f"moments of {NP_SAMPLES} draws: worst |z| of the mean "
+          f"{random_row['worst_mean_z']:.2f}, worst variance "
+          f"{random_row['worst_var_rel']:+.4f} relative")
+    return {"np": np_row, "linalg": linalg_row, "random": random_row,
+            "moments": moments}
+
+
+def np_forward_block(mx, dev):
+    """A small block whose forward is written in ``mx.np`` (phase 27)."""
+    from mxnet_tpu_torch.gluon.parameter import Parameter
+
+    class NpMLP(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.w = Parameter((256, 512), device=dev).data()
+
+        def forward(self, x):
+            h = mx.np.tanh(x @ self.w)
+            return mx.np.sum(h * h + 0.5 * h, axis=1)
+    return NpMLP().initialize(seed=3)
+
+
+def _gpt_step_fn(mx, net, loss_fn, x, y, as_np):
+    """One AdamW step of phase 16's path: from tensors, or the reference's
+    way from mx.np arrays (``loss.backward()``, ``loss.asnumpy()``)."""
+    trainer = mx.gluon.Trainer(net.collect_params(), "adamw",
+                               {"learning_rate": 1e-4, "wd": 0.01})
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        if as_np:
+            loss.backward()
+        else:
+            mx.autograd.backward(loss)
+        trainer.step(TRAIN_BATCH)
+        return loss
+    return step
+
+
+def phase_gpt_np(dev, card):
+    """GPT-2 124M bf16 trained from mx.np arrays (phase 27)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    print(f"== phase 27: GPT-2 124M bf16 trained from mx.np arrays (batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, amp.init, fused AdamW) on "
+          f"{card}", flush=True)
+    vocab = 50257
+    gpu = mx.gpu(dev.index or 0)
+    net = GPTForCausalLM(backbone=gpt2_124m(
+        vocab_size=vocab, max_length=TRAIN_SEQ, dropout=0.0,
+        embed_dropout=0.0, device=dev)).initialize(seed=0)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    start = params_snapshot(params)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ids = onp.random.RandomState(0).randint(0, vocab,
+                                            (TRAIN_BATCH, TRAIN_SEQ + 1))
+    tids = torch.from_numpy(ids).to(dev)
+    nids = mx.np.array(ids, ctx=gpu)
+    check(nids.dtype == onp.int64 and nids.ctx == gpu,
+          f"the tokens are {nids.dtype} on {nids.ctx}")
+    inputs = {False: (tids[:, :-1], tids[:, 1:]),
+              True: (nids[:, :-1], nids[:, 1:])}
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+
+    def make(as_np):
+        return _gpt_step_fn(mx, net, loss_fn, *inputs[as_np], as_np)
+
+    compared, launches = {}, {}
+    mx.amp.init("bfloat16")
+    try:
+        for hybrid in (False, True):
+            net.hybridize(hybrid, clear=False)
+            loss_fn.hybridize(hybrid, clear=False)
+            runs = {}
+            for as_np in (False, True):
+                restore()
+                step = make(as_np)
+                zero_all_counters()
+                losses = [step() for _ in range(2)]
+                torch.cuda.synchronize()
+                counts = all_launches()
+                if as_np:
+                    check(all(type(v) is mx.np.ndarray for v in losses),
+                          "the mx.np-driven step gave no ndarray loss")
+                    losses = [v.asnumpy() for v in losses]
+                else:
+                    losses = [v.detach().float().cpu().numpy()
+                              for v in losses]
+                runs[as_np] = (losses, params_snapshot(params), counts)
+            (lt, pt, ct), (ln, pn, cn) = runs[False], runs[True]
+            same_loss = all(onp.array_equal(a, b) for a, b in zip(lt, ln))
+            diffs = tensor_diffs(pt, pn)
+            mode = "hybridized" if hybrid else "eager"
+            print(f"{mode}: mx.np-driven losses "
+                  f"{[float(v.mean()) for v in ln]}, tensor-driven "
+                  f"{[float(v.mean()) for v in lt]}: "
+                  + ("equal bit for bit" if same_loss else "DIFFER")
+                  + "; parameters after 2 steps "
+                  + ("equal bit for bit" if not diffs else
+                     f"differ in {len(diffs)} tensors"))
+            check(same_loss and not diffs, f"{mode}: the mx.np-driven "
+                                           "steps differ from the "
+                                           "tensor-driven steps")
+            compared[mode] = {"losses_bit_identical": same_loss,
+                              "params_bit_identical": not diffs,
+                              "losses": [float(v.mean()) for v in ln]}
+            if not hybrid:
+                want = [N_LAYERS * 2] * 3 + [0] * 6
+                check(cn == want and ct == want,
+                      f"eager: wrapper launches {cn} (mx.np) and {ct} "
+                      f"(tensors) in 2 steps, expected {want}")
+                launches["eager"] = cn
+            del runs, pt, pn
+        timed = {}
+        for hybrid in (False, True):
+            net.hybridize(hybrid, clear=False)
+            loss_fn.hybridize(hybrid, clear=False)
+            rows = {False: [], True: []}
+            for as_np in (False, True, True, False):
+                step = make(as_np)
+                step()  # the first of a run may capture or warm up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HYBRID_STEPS):
+                    step()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / HYBRID_STEPS * 1e3
+                busy, _ = device_profile(step, 2, warmup=0, top=1)
+                rows[as_np].append({"wall": wall, "device": busy,
+                                    "host": host_launch_calls(step)})
+            mode = "hybridized" if hybrid else "eager"
+            timed[mode] = {}
+            for as_np, label in ((False, "tensors"), (True, "mx_np")):
+                r = rows[as_np]
+                wall = float(onp.median([x["wall"] for x in r]))
+                devs = [x["device"] for x in r if x["device"] is not None]
+                dev_ms = float(onp.median(devs)) if devs else None
+                timed[mode][label] = {
+                    "step_ms": wall, "step_ms_runs": [x["wall"] for x in r],
+                    "device_ms": dev_ms,
+                    "device_ms_runs": [x["device"] for x in r],
+                    "device_busy_share": busy_share(dev_ms, wall),
+                    "host_launch_calls_per_step": r[-1]["host"],
+                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall / 1e3)}
+            t, n = timed[mode]["tensors"], timed[mode]["mx_np"]
+            print(f"{mode} step [{card}]: mx.np {n['step_ms']:.2f} ms "
+                  f"(device {n['device_ms']}, busy "
+                  f"{n['device_busy_share']}), tensors {t['step_ms']:.2f} "
+                  f"ms (device {t['device_ms']}, busy "
+                  f"{t['device_busy_share']}); host launch calls a step "
+                  f"{n['host_launch_calls_per_step']} vs "
+                  f"{t['host_launch_calls_per_step']}", flush=True)
+        # the main path's hybridized run: kernels 1-3 by profiler events
+        net.hybridize(True, clear=False)
+        loss_fn.hybridize(True, clear=False)
+        step = make(True)
+        step()
+        names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+        window = launch_window("GPT-2 124M bf16 from mx.np", step, names,
+                               {n: N_LAYERS for n in names}, HYBRID_STEPS)
+        events = {n: window[n] / HYBRID_STEPS for n in names}
+        check(events == {n: N_LAYERS for n in names},
+              f"hybridized mx.np steps: kernels a step by profiler events "
+              f"{events}, expected {N_LAYERS} each")
+        launches["hybridized_window"] = window
+    finally:
+        mx.amp._deactivate()
+        net.hybridize(False)
+        loss_fn.hybridize(False)
+    # a user block whose forward is written in mx.np, captured
+    block = np_forward_block(mx, dev)
+    x = mx.np.array(onp.random.RandomState(4).randn(64, 256)
+                    .astype("float32"), ctx=gpu)
+    eager = block(x)
+    block.hybridize()
+    captured = block(x)
+    again = block(x)
+    graph = block._cached_graph
+    check(graph is not None and graph.captures == 1
+          and all(e.fwd is not None for e in graph._signatures.values()),
+          "the mx.np-forward block was not captured into a CUDA graph")
+    check(isinstance(captured, mx.np.ndarray) and captured.ctx == gpu,
+          f"the captured forward gave {type(captured)}")
+    diff = float(onp.abs(captured.asnumpy() - eager.asnumpy()).max())
+    same = torch.equal(captured._data, eager._data)
+    check(torch.equal(again._data, captured._data) and diff <= 1e-5 * float(
+        onp.abs(eager.asnumpy()).max()), f"the captured mx.np forward is "
+                                         f"{diff} off the eager one")
+    print(f"a block with an mx.np forward (@, np.tanh, np.sum), captured: "
+          f"{'equal bit for bit' if same else f'max |diff| {diff:.3e}'} to "
+          f"eager; {graph.captures} capture")
+    del net, start
+    return {"compared": compared, "timed": timed, "launches": launches,
+            "events_per_hybrid_step": events, "parameters": n_params,
+            "np_forward_block": {"captures": graph.captures,
+                                 "bit_identical": same, "max_abs_diff": diff}}
+
+
 def conv_entry(errs, rows, launches, per_shape, bf16_launches,
                bf16_per_shape):
     """Kernel 8's entry; ``per_shape`` is phase 13's read of the calls a
@@ -4734,6 +5367,12 @@ def main():
     serve_spec = timed("25", phase_serve_spec, dev, card, net, prompts,
                        base_reqs, pprompts, serve_prefix)
     del net, base_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    np_surface = timed("26", phase_np_surface, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_np = timed("27", phase_gpt_np, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -4814,6 +5453,16 @@ def main():
         for path, n in serving.items():
             entry["launches_by_path"][path] = n if i == 0 else 0
             entry["launches"] += n if i == 0 else 0
+    # phase 27, GPT-2 bf16 from mx.np arrays: the eager steps by the
+    # wrappers' counts, the hybridized run by profiler events
+    np_window = gpt_np["launches"]["hybridized_window"]
+    for i, entry in enumerate(entries):
+        eager = gpt_np["launches"]["eager"][i] if i < 3 else 0
+        hybrid = np_window[("flash_fwd", "flash_bwd_dkv",
+                            "flash_bwd_dq")[i]] if i < 3 else 0
+        entry["launches_by_path"].update(gpt_bf16_np_train=eager,
+                                         gpt_bf16_np_hybrid_train=hybrid)
+        entry["launches"] += eager + hybrid
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -4831,7 +5480,9 @@ def main():
                       "serve": serve_e2e_row,
                       "serve_quantized": serve_quant,
                       "serve_prefix": serve_prefix,
-                      "serve_spec": serve_spec}))
+                      "serve_spec": serve_spec,
+                      "np_surface": np_surface,
+                      "gpt_bf16_np_train": gpt_np}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

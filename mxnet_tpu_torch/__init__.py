@@ -6,6 +6,13 @@ idiom inside, and replaces each Pallas TPU kernel with a CUDA kernel
 written by hand for ``sm_90a`` (``csrc/``, built at first use). It imports
 nothing of JAX and nothing of ``mxnet_tpu``.
 
+The array core is ``mx.np``: ``mx.np.ndarray`` wraps one ``torch.Tensor``
+and every op goes through one ``_invoke`` (``numpy/multiarray.py``), with
+the reference's 187-function surface, ``np.random`` and ``np.linalg``;
+``mx.npx`` and every Gluon block take ``mx.np`` arrays and give them back.
+Devices are ``Context``s (``mx.cpu()``, ``mx.gpu(i)`` is ``cuda:i``), and
+``with ctx:`` sets the default.
+
 The ported slices are serving (``serve.load(GPTForCausalLM(...))``, prefill
 attention through the flash-attention forward kernel) and training
 (``autograd.record()`` -> ``autograd.backward(loss)`` ->
@@ -19,17 +26,25 @@ Gluon (``gluon.model_zoo.vision``, the conv3x3+BN+ReLU backward kernel in
 every eligible triplet of an ``nn.FusableSequential``), and bf16 mixed
 precision on those training paths (``amp.init("bfloat16")``, or
 ``Block.cast`` with ``multi_precision``). Entry points run on ``cuda:0``
-unless given ``device="cpu"``.
+unless given ``device="cpu"`` or called inside ``with mx.cpu():``.
 """
-from . import amp, autograd, config, context, contrib, functional, gluon
+from . import base, context
+from . import numpy as np
+from . import amp, autograd, config, contrib, dlpack, functional, gluon
 from . import initializer, lr_scheduler
+from . import initializer as init
 from . import numpy_extension as npx
-from . import optimizer, parallel, random, serve
+from . import optimizer, parallel, random, serve, test_utils, util
 from .base import MXNetError
-from .context import resolve_device
+from .context import (Context, cpu, cpu_pinned, current_context, device, gpu,
+                      num_gpus, resolve_device, tpu)
+from .numpy_extension import waitall
 
 __version__ = "2.0.0a1"
 
-__all__ = ["MXNetError", "amp", "autograd", "config", "context", "contrib",
-           "functional", "gluon", "initializer", "lr_scheduler", "npx",
-           "optimizer", "parallel", "random", "resolve_device", "serve"]
+__all__ = ["Context", "MXNetError", "amp", "autograd", "config", "context",
+           "contrib", "cpu", "cpu_pinned", "current_context", "device",
+           "dlpack", "functional", "gluon", "gpu", "init", "initializer",
+           "lr_scheduler", "np", "npx", "num_gpus", "optimizer", "parallel",
+           "random", "resolve_device", "serve", "test_utils", "tpu", "util",
+           "waitall"]

@@ -18,6 +18,11 @@ Counterpart of ``mxnet_tpu/autograd.py`` (``record``/``pause``/
   non-scalar head is seeded with ones, as the reference's is
   (``autograd.py:238``), so a per-sample loss of shape ``(batch,)`` goes
   through :func:`backward` (a torch ``loss.backward()`` on it raises).
+- Heads, head gradients and variables may be ``mx.np`` ``ndarray``s;
+  :func:`grad` then returns ``ndarray``s. :func:`mark_variables` (what
+  ``ndarray.attach_grad`` is built on) makes an array a leaf with a
+  gradient buffer and its own ``grad_req``; its "add" accumulates out of
+  place, so a gradient read earlier never sees a later backward.
 - ``grad(create_graph=True)`` (higher-order gradients) is not part of
   this slice of the port and raises.
 """
@@ -30,7 +35,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward", "grad"]
+           "is_training", "backward", "grad", "mark_variables"]
 
 _state = threading.local()
 
@@ -99,10 +104,28 @@ def predict_mode():
     return _RecordingStateScope(None, False)
 
 
+def _raw(x):
+    """The tensor of an ``mx.np`` array (anything else as it is)."""
+    return getattr(x, "_data", x) if not isinstance(x, torch.Tensor) else x
+
+
 def _as_list(x):
     if x is None:
         return None
-    return [x] if isinstance(x, torch.Tensor) else list(x)
+    if isinstance(x, torch.Tensor) or hasattr(x, "_data"):
+        return [_raw(x)]
+    return [None if v is None else _raw(v) for v in x]
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each array of ``variables`` a recording leaf whose gradient
+    goes to the matching array of ``gradients`` by its ``grad_req``
+    ("write", "add" or "null") (reference: autograd.py
+    ``mark_variables``)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, g, req in zip(variables, gradients, grad_reqs):
+        var._mark_variable(g, req)
 
 
 def _seeds(heads, head_grads):
@@ -144,7 +167,9 @@ def _leaves(heads):
 
 def _grad_req(leaf):
     param = getattr(leaf, "_mx_param", None)
-    return "write" if param is None else param.grad_req
+    if param is not None:
+        return param.grad_req
+    return getattr(leaf, "_mx_grad_req", "write")
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
@@ -155,10 +180,19 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     recorded."""
     heads = _as_list(heads)
     seeds = _seeds(heads, _as_list(head_grads))
+    added = []
     for leaf in _leaves(heads):
-        if _grad_req(leaf) == "write":
+        req = _grad_req(leaf)
+        if req == "add" and hasattr(leaf, "_mx_grad_req"):
+            # an attached array's "add": out of place, after the backward
+            added.append((leaf, leaf.grad))
+            leaf.grad = None
+        elif req == "write":
             leaf.grad = None  # torch then assigns instead of accumulating
     torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+    for leaf, old in added:
+        if old is not None:
+            leaf.grad = old if leaf.grad is None else old + leaf.grad
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -169,7 +203,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if create_graph:
         raise MXNetError("grad(create_graph=True) (higher-order gradients) "
                          "is not part of this slice of the port")
-    single = isinstance(variables, torch.Tensor)
+    single = isinstance(variables, torch.Tensor) or hasattr(variables,
+                                                             "_data")
+    arrays = hasattr(variables if single else next(iter(variables), None),
+                     "_data")
     variables = _as_list(variables)
     heads = _as_list(heads)
     seeds = _seeds(heads, _as_list(head_grads))
@@ -178,4 +215,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                 allow_unused=True)
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(variables, grads)]
+    if arrays:
+        from .numpy.multiarray import _wrap
+        grads = [_wrap(g) for g in grads]
     return grads[0] if single else grads

@@ -31,7 +31,7 @@ import logging
 import numpy as onp
 import torch
 
-from .. import numpy_extension as npx
+from ..numpy_extension import tensor_ops as npx
 from ..base import MXNetError
 from ..gluon import nn
 from ..gluon.block import HybridBlock

@@ -12,6 +12,12 @@ JAX package's names (attribute paths, e.g.
 across by name. ``copy.deepcopy(block)`` gives a block with the same
 names and values on new storage (``parameter._Var``).
 
+A block takes ``mx.np`` arrays as well as tensors: ``__call__`` unwraps
+``ndarray`` arguments to their tensors, and returns ``ndarray``s when any
+argument was one, else the forward's outputs as tensors (a forward written
+in ``mx.np`` returns ``ndarray``s; they are unwrapped). The forward,
+``_CachedGraph`` and the kernels below see tensors only.
+
 A block called while ``autograd`` is not recording runs under
 ``torch.no_grad()`` (``__call__``): as in the reference, only computation
 under ``autograd.record()`` can be differentiated. A method that is not
@@ -44,10 +50,11 @@ import torch
 from torch import nn
 
 from .. import autograd as _autograd
-from .. import initializer as _init
 from .. import random as _random
 from .. import serialization
 from ..base import MXNetError
+from ..context import resolve_device
+from ..numpy.multiarray import _unwrap_out, _wrap_out, ndarray
 from .cached_graph import _CachedGraph, in_plain_scope
 from .parameter import Constant
 
@@ -101,18 +108,36 @@ class HybridBlock(nn.Module):
     def __call__(self, *args, **kwargs):
         if not self._init_checked:
             self._check_initialized()
+        arrays = False
+        for a in args:
+            if type(a) is ndarray:
+                arrays = True
+                break
+        if arrays or (kwargs and any(type(v) is ndarray
+                                     for v in kwargs.values())):
+            args = tuple(a._data if type(a) is ndarray else a for a in args)
+            kwargs = {k: v._data if type(v) is ndarray else v
+                      for k, v in kwargs.items()}
+            arrays = True
         # recording_gate, written out: this runs for every nested block
         if torch.is_grad_enabled() and not _autograd.is_recording():
             with torch.no_grad():
-                return self._call(args, kwargs)
-        return self._call(args, kwargs)
+                out = self._call(args, kwargs)
+        else:
+            out = self._call(args, kwargs)
+        return _wrap_out(out) if arrays else out
 
     def _call(self, args, kwargs):
         if not self._active or in_plain_scope():
-            return super().__call__(*args, **kwargs)
+            return self._forward_tensors(args, kwargs)
         if self._cached_graph is None:
             self._cached_graph = _CachedGraph(self)
         return self._cached_graph(args, kwargs)
+
+    def _forward_tensors(self, args, kwargs):
+        """The plain forward, its ``ndarray`` outputs as tensors."""
+        out = super().__call__(*args, **kwargs)
+        return out if type(out) is torch.Tensor else _unwrap_out(out)
 
     def __deepcopy__(self, memo):
         """A copy without the cached graphs: they hold this block's
@@ -303,34 +328,38 @@ class HybridBlock(nn.Module):
         return all(p.initialized for p in self.collect_params().values())
 
     @torch.no_grad()
-    def initialize(self, init=None, seed=None, force_reinit=False):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, device=None, seed=None):
         """Fill every parameter on its own device, in ``collect_params``
         order, from the default generator of that device
         (``random.default_generator``, which ``random.seed`` reseeds), as
         the reference draws from its global key stream; ``seed`` draws
         instead from one fresh ``torch.Generator`` per device seeded with
-        it. ``init`` defaults to ``Uniform(0.07)``; the names get the
-        JAX package's rule (``initializer.Initializer``). A parameter of
-        unknown shape records the initializer and the generator and draws
-        at the first forward. A :class:`~.parameter.Constant` keeps its
-        value (the reference's re-initialization copies it back)."""
-        init = _init.Uniform() if init is None else init
+        it. ``ctx`` / ``device`` (a ``Context``, ``torch.device`` or name)
+        first moves every parameter there (reference: block.py
+        ``initialize(init, ctx)``). A parameter's own initializer (a
+        layer's ``weight_initializer=`` / ``bias_initializer=``) comes
+        before ``init``, which defaults to ``Uniform(0.07)``; either may be
+        a name (``initializer.create``). The names get the JAX package's
+        rule (``initializer.Initializer``). A parameter of unknown shape
+        records the initializer and the generator and draws at the first
+        forward. A :class:`~.parameter.Constant` keeps its value (the
+        reference's re-initialization copies it back)."""
+        dev = None if ctx is None and device is None else \
+            resolve_device(device if device is not None else ctx)
         gens = {}
-        for name, p in self.collect_params().items():
-            if isinstance(p, Constant) or (p.initialized
-                                           and not force_reinit):
+        for p in self.collect_params().values():
+            if dev is not None and p.device != dev:
+                p.reset_ctx(dev)
+            if isinstance(p, Constant):
                 continue
             gen = gens.get(p.device)
             if gen is None:
                 gen = gens[p.device] = (
                     _random.default_generator(p.device) if seed is None
                     else _random.generator(seed, p.device))
-            if not p._shape_known():
-                p._deferred = (init, gen, name)
-                continue
-            init(name, p.data(), gen)
-            p._deferred = None
-            p.initialized = True
+            p.initialize(default_init=init, force_reinit=force_reinit,
+                         generator=gen)
         return self
 
 

@@ -265,7 +265,7 @@ class _CachedGraph:
 
     def _eager(self, args, kwargs):
         with plain_scope():
-            return torch.nn.Module.__call__(self.block, *args, **kwargs)
+            return self.block._forward_tensors(args, kwargs)
 
     def _unflatten(self, entry, outs):
         leaves = list(entry.out_leaves)
@@ -285,7 +285,7 @@ class _CachedGraph:
         args, kwargs = pytree.tree_unflatten(leaves, spec)
         with plain_scope(), \
                 _autograd._RecordingStateScope(recording, training):
-            return torch.nn.Module.__call__(self.block, *args, **kwargs)
+            return self.block._forward_tensors(args, kwargs)
 
     def _capture(self, entry, spec, statics, tensors, recording, training):
         """Warm up and capture ``entry``'s graphs (module docstring)."""

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ... import amp
-from ... import numpy_extension as npx
+from ...numpy_extension import tensor_ops as npx
 from ...context import resolve_device
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm

@@ -15,7 +15,7 @@ weight files.
 """
 from __future__ import annotations
 
-from .... import numpy_extension as npx
+from ....numpy_extension import tensor_ops as npx
 from ....base import MXNetError
 from ....context import resolve_device
 from ...block import HybridBlock

@@ -26,7 +26,7 @@ import torch
 
 from ... import autograd
 from ...amp import fp8 as _fp8
-from ... import numpy_extension as npx
+from ...numpy_extension import tensor_ops as npx
 from ... import random as _random
 from ...base import MXNetError
 from ...context import resolve_device
@@ -37,11 +37,13 @@ __all__ = ["HybridSequential", "Dense", "Activation", "Embedding",
            "LayerNorm", "Dropout", "BatchNorm", "Flatten"]
 
 
-def _param(shape, dtype, device, grad_req="write"):
+def _param(shape, dtype, device, grad_req="write", init=None):
     """The tensor of a new :class:`Parameter` (trainable unless
-    ``grad_req="null"``; deferred where ``shape`` holds a 0), to be
-    assigned to a block attribute (which registers it)."""
-    return Parameter(shape, dtype, device, grad_req=grad_req).data()
+    ``grad_req="null"``; deferred where ``shape`` holds a 0; ``init`` its
+    own initializer), to be assigned to a block attribute (which registers
+    it)."""
+    return Parameter(shape, dtype, device, grad_req=grad_req,
+                     init=init).data()
 
 
 def _ready(var, shape):
@@ -91,16 +93,21 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(HybridBlock):
-    """Fully connected layer (reference: basic_layers.py Dense)."""
+    """Fully connected layer (reference: basic_layers.py Dense);
+    ``weight_initializer`` / ``bias_initializer`` are the parameters' own
+    initializers, which ``initialize()`` takes before its ``init``."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 dtype=torch.float32, in_units=0, device=None):
+                 dtype=torch.float32, weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, device=None):
         super().__init__()
         device = resolve_device(device)
         self._units = units
         self._flatten = flatten
-        self.weight = _param((units, int(in_units)), dtype, device)
-        self.bias = _param((units,), dtype, device) if use_bias else None
+        self.weight = _param((units, int(in_units)), dtype, device,
+                             init=weight_initializer)
+        self.bias = _param((units,), dtype, device, init=bias_initializer) \
+            if use_bias else None
         self.act = Activation(activation) if activation else None
 
     def forward(self, x):

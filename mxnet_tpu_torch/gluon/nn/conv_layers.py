@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import numpy_extension as npx
+from ...numpy_extension import tensor_ops as npx
 from ...base import MXNetError
 from ...context import resolve_device
 from ..block import HybridBlock
@@ -36,7 +36,8 @@ class _Conv(HybridBlock):
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
-                 use_bias=True, dtype=torch.float32, device=None):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         ndim = len(kernel_size)
@@ -50,8 +51,10 @@ class _Conv(HybridBlock):
         self._layout = layout
         self._op_name = "convolution"  # the transposed ones are not ported
         self.weight = _param((channels, in_channels // groups)
-                             + self._kernel, dtype, device)
-        self.bias = _param((channels,), dtype, device) if use_bias else None
+                             + self._kernel, dtype, device,
+                             init=weight_initializer)
+        self.bias = _param((channels,), dtype, device,
+                           init=bias_initializer) if use_bias else None
         self.act = Activation(activation) if activation else None
 
     def forward(self, x):
@@ -78,12 +81,10 @@ class Conv2D(_Conv):
                  use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", in_channels=0,
                  dtype=torch.float32, device=None, **kwargs):
-        if weight_initializer is not None or bias_initializer != "zeros":
-            raise MXNetError("per-layer initializers are not part of this "
-                             "slice of the port (initialize(init=...))")
         super().__init__(channels, _pair(kernel_size, 2), strides, padding,
                          dilation, groups, layout, in_channels, activation,
-                         use_bias, dtype=dtype, device=device)
+                         use_bias, weight_initializer, bias_initializer,
+                         dtype=dtype, device=device)
 
 
 class _Pooling(HybridBlock):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ... import amp, autograd, config
-from ... import numpy_extension as npx
+from ...numpy_extension import tensor_ops as npx
 from ... import random as _random
 from ...base import MXNetError
 from ...context import resolve_device

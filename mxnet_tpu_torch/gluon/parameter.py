@@ -70,13 +70,17 @@ class Parameter:
     ``Parameter``)."""
 
     def __init__(self, shape, dtype=torch.float32, device="cpu",
-                 grad_req="write", lr_mult=1.0, wd_mult=1.0):
-        self._var = _Var(torch.empty(shape, dtype=dtype, device=device),
+                 grad_req="write", lr_mult=1.0, wd_mult=1.0, init=None):
+        self._var = _Var(torch.empty(shape, dtype=torch_dtype(dtype),
+                                     device=resolve_device(device)),
                          requires_grad=False)
         self._var._mx_param = self
         self.grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
+        #: this parameter's own initializer (an ``Initializer`` or its
+        #: name), which ``Block.initialize`` takes before its ``init``
+        self.init = init
         #: structural name, set by ``Block.collect_params()``
         self.name = None
         self.initialized = False
@@ -156,9 +160,42 @@ class Parameter:
         if req == "null":
             self._var.grad = None
 
+    @torch.no_grad()
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, device=None, generator=None):
+        """Fill the parameter (reference: parameter.py ``initialize``):
+        ``init``, else its own ``init``, else ``default_init``, else
+        ``Uniform(0.07)`` (an initializer or its name), under its
+        structural name's rule, drawn from ``generator`` or the default
+        generator of its device, after moving it to ``ctx`` / ``device``
+        where given. A parameter of unknown shape records the initializer
+        and the generator and draws at its first forward."""
+        from .. import initializer as _init
+        from .. import random as _random
+        if self.initialized and not force_reinit:
+            return
+        if ctx is not None or device is not None:
+            dev = resolve_device(device if device is not None else ctx)
+            if dev != self.device:
+                self.reset_ctx(dev)
+        chosen = init or self.init or default_init
+        chosen = _init.create(chosen) if chosen is not None \
+            else _init.Uniform()
+        gen = generator if generator is not None \
+            else _random.default_generator(self.device)
+        name = self.name or "weight"
+        if not self._shape_known():
+            self._deferred = (chosen, gen, name)
+            return
+        chosen(name, self._var, gen)
+        self._deferred = None
+        self.initialized = True
+
     # -- access --------------------------------------------------------------
     def data(self, ctx=None):
-        """The parameter's tensor (the ``nn.Parameter`` the block uses)."""
+        """The parameter's tensor (the ``nn.Parameter`` the block uses; a
+        tensor, not an ``mx.np`` array: the kernels, the captured graphs
+        and the fused update read it as one)."""
         return self._var
 
     def grad(self, ctx=None):
@@ -179,8 +216,9 @@ class Parameter:
 
     @torch.no_grad()
     def set_data(self, data):
-        """Copy ``data`` (tensor or array) into the parameter in place."""
-        src = torch.as_tensor(data)
+        """Copy ``data`` (an ``mx.np`` array, tensor or host array) into
+        the parameter in place."""
+        src = torch.as_tensor(getattr(data, "_data", data))
         if tuple(src.shape) != self.shape:
             if self._shape_known():
                 raise MXNetError(f"set_data: shape {tuple(src.shape)} does "
@@ -207,11 +245,11 @@ class Parameter:
 
     @torch.no_grad()
     def reset_ctx(self, ctx):
-        """Move the tensor to device ``ctx`` (a ``torch.device`` or its
-        name; reference: parameter.py ``reset_ctx``), keeping the
-        ``nn.Parameter`` object as :meth:`cast` does. The gradient buffer is
-        dropped (zeros on the new device on the next ``grad()``, as the
-        reference re-attaches it)."""
+        """Move the tensor to device ``ctx`` (a ``Context``, a
+        ``torch.device`` or its name; reference: parameter.py
+        ``reset_ctx``), keeping the ``nn.Parameter`` object as :meth:`cast`
+        does. The gradient buffer is dropped (zeros on the new device on
+        the next ``grad()``, as the reference re-attaches it)."""
         self._replace(self._var.data.to(resolve_device(ctx)))
         self._var.grad = None
 

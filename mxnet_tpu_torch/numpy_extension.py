@@ -20,6 +20,21 @@ reference's ``leaky_relu`` with act_type "gelu") and ``embedding``.
 ``fully_connected`` and ``layer_norm`` then promote their inputs to their
 common floating dtype, as jnp does (bf16 with fp32 gives fp32).
 
+Every public op takes ``mx.np`` arrays as well as tensors: given an
+``ndarray`` it goes through ``numpy.multiarray._invoke`` and returns
+``ndarray``s (``_arrays``); given tensors it runs directly. The layers and
+the model zoo call the undecorated ops of :data:`tensor_ops`, so their
+tensor calls pay no check for arrays.
+``fully_connected``, ``layer_norm``, ``softmax`` / ``log_softmax``,
+``embedding`` and ``pooling`` take the reference's arguments
+(``num_hidden`` / ``no_bias``; ``axis``; ``length`` / ``use_length``, the
+masked positions written 0; ``input_dim`` / ``output_dim`` / ``dtype`` /
+``sparse_grad``, which raises until sparse storage is ported; the "sum"
+and "lp" pool types). ``pooling_convention`` "full" and "same" compute as
+"valid" does, as in the reference, whose ``pooling`` reads the argument
+nowhere. ``waitall``, ``save`` and ``load`` (``.npz``) are the
+reference's; a file either package writes, the other loads.
+
 ``batch_norm`` and ``fused_conv_bn_relu`` update the running statistics in
 place while training, as the reference's aux arrays are: ``m * running +
 (1 - m) * batch`` under ``torch.no_grad()``, so the update is never part
@@ -29,19 +44,39 @@ from __future__ import annotations
 
 import functools
 import math
+import types
 
+import numpy as onp
 import torch
 import torch.nn.functional as F
 
 from .base import MXNetError
+from .numpy.multiarray import _invoke, array, ndarray
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "fused_conv_bn_relu", "flatten", "layer_norm", "softmax",
-           "activation",
+           "log_softmax", "activation",
            "leaky_relu", "gelu", "embedding", "quantize_v2", "dequantize",
            "quantized_fully_connected", "quantized_conv",
            "quantized_dense_fused", "quantized_conv_fused",
-           "fp8_dense_fused"]
+           "fp8_dense_fused", "pick", "slice_axis", "waitall", "save",
+           "load"]
+
+
+def _arrays(fn):
+    """``fn`` over tensors, taking ``mx.np`` arrays too: an ``ndarray``
+    argument sends the call through ``_invoke`` (``ndarray``s out);
+    tensors call ``fn`` directly."""
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        for a in args:
+            if type(a) is ndarray:
+                return _invoke(fn, args, kwargs, name="npx." + fn.__name__)
+        for a in kwargs.values():
+            if type(a) is ndarray:
+                return _invoke(fn, args, kwargs, name="npx." + fn.__name__)
+        return fn(*args, **kwargs)
+    return op
 
 # the JAX package's ``_ACTS`` table; its "gelu" is jax.nn.gelu's default,
 # the tanh approximation
@@ -70,11 +105,17 @@ def _promoted(*tensors):
     return [None if t is None else t.to(dt) for t in tensors]
 
 
-def fully_connected(x, weight, bias=None, flatten=True):
+@_arrays
+def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
+                    flatten=True):
     """``x @ weight.T + bias`` with weight layout (units, in_units)
     (reference: src/operator/nn/fully_connected.cc), in the inputs' common
     dtype (bf16 x with fp32 weight runs in fp32, as in the reference): the
-    product in x's and weight's, then the bias added with promotion."""
+    product in x's and weight's, then the bias added with promotion.
+    ``no_bias`` drops the bias; ``num_hidden`` is the reference's
+    (units, read from the weight)."""
+    if no_bias:
+        bias = None
     x, weight, bias = _cast("fully_connected", x, weight, bias)
     x, weight = _promoted(x, weight)
     if flatten:
@@ -101,6 +142,7 @@ def _spatial_pad(pad):
     return [p for p in reversed(pad) for _ in range(2)]
 
 
+@_arrays
 def convolution(data=None, weight=None, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=1, num_group=1,
                 workspace=1024, no_bias=False, cudnn_tune=None,
@@ -117,32 +159,53 @@ def convolution(data=None, weight=None, bias=None, kernel=None, stride=None,
                      dilation=tuple(dilate or (1,) * nd), groups=num_group)
 
 
+def _window_sum(x, kernel, stride, pads, nd):
+    """Sums over pooling windows of zero-padded ``x``."""
+    x = F.pad(x, pads)
+    if nd == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(-2)
+    return _AVG_POOL[nd](x, kernel, stride, divisor_override=1)
+
+
+@_arrays
 def pooling(data, kernel=1, stride=None, pad=None, pool_type="max",
             pooling_convention="valid", global_pool=False, p_value=2,
             count_include_pad=True, layout="NCHW", cudnn_off=False):
-    """Max and avg pooling, windowed or global (reference: pooling.cc): max
-    pads with -inf, avg with zeros and divides by the window
-    (``count_include_pad``) or by its valid elements."""
+    """Max, avg, sum and lp pooling, windowed or global (reference:
+    pooling.cc): max pads with -inf, the others with zeros; avg divides by
+    the window (``count_include_pad``) or by its valid elements; lp is
+    ``(sum |x|^p)^(1/p)``. ``pooling_convention`` is accepted and, as in
+    the reference, the windows are the "valid" ones whatever its value."""
     nd = data.ndim - 2
     _channel_first(layout, nd)
     data, = _cast(f"pooling:{pool_type}", data)
-    if pool_type not in ("max", "avg"):
-        raise MXNetError(f"pool_type {pool_type!r} is not part of this "
-                         "slice of the port")
-    if pooling_convention != "valid":
-        raise MXNetError("only pooling_convention='valid' is part of this "
-                         "slice of the port")
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"unknown pool_type {pool_type!r}")
+    if pooling_convention not in ("valid", "full", "same"):
+        raise MXNetError(f"unknown pooling_convention "
+                         f"{pooling_convention!r}")
     spatial = tuple(range(2, data.ndim))
     if global_pool:
         if pool_type == "max":
             return data.amax(dim=spatial, keepdim=True)
-        return data.mean(dim=spatial, keepdim=True)
+        if pool_type == "avg":
+            return data.mean(dim=spatial, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=spatial, keepdim=True)
+        return data.abs().pow(p_value).sum(dim=spatial, keepdim=True) \
+            .pow(1.0 / p_value)
     kernel = (kernel,) * nd if isinstance(kernel, int) else tuple(kernel)
     stride = tuple(stride) if stride else kernel
     pads = _spatial_pad(tuple(pad) if pad else (0,) * nd)
     if pool_type == "max":
         return _MAX_POOL[nd](F.pad(data, pads, value=-math.inf), kernel,
                              stride)
+    if pool_type == "sum":
+        return _window_sum(data, kernel, stride, pads, nd)
+    if pool_type == "lp":
+        return _window_sum(data.abs().pow(p_value), kernel, stride, pads,
+                           nd).pow(1.0 / p_value)
     avg = _AVG_POOL[nd](F.pad(data, pads), kernel, stride)
     if count_include_pad:
         return avg
@@ -158,6 +221,7 @@ def _update_running(running_mean, running_var, mean, var, momentum):
             run.copy_((m * run + (1 - m) * batch.detach()).to(run.dtype))
 
 
+@_arrays
 def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False):
@@ -190,6 +254,7 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-3,
     return (out, mean, var) if output_mean_var else out
 
 
+@_arrays
 def fused_conv_bn_relu(x, weight, gamma, beta, running_mean, running_var,
                        momentum=0.9, eps=1e-5):
     """Training-mode ``relu(bn(conv3x3_s1(x, w)))`` whose backward is
@@ -206,20 +271,25 @@ def fused_conv_bn_relu(x, weight, gamma, beta, running_mean, running_var,
     return out
 
 
+@_arrays
 def flatten(x):
     """(N, ...) -> (N, prod(...)) (reference: npx.flatten)."""
     return x.reshape(x.shape[0], -1)
 
 
-def layer_norm(x, gamma, beta, eps=1e-5):
-    """LayerNorm over the last axis (reference: layer_norm.cc), returning
-    the common dtype of x, gamma and beta. An fp32 or fp64 x takes
+@_arrays
+def layer_norm(data, gamma=None, beta=None, axis=-1, eps=1e-5):
+    """LayerNorm over ``axis`` (reference: layer_norm.cc), returning the
+    common dtype of x, gamma and beta. An fp32 or fp64 x takes
     ``F.layer_norm``; a bf16 or fp16 x is normalized in its own dtype, as
     the reference's jnp computes it: the statistics in fp32 and rounded to
     x's dtype, then ``(x - mean) * rsqrt(var + eps)`` in x's dtype (each
     step rounded), then the affine in the common dtype (fp32 for fp32
     gamma)."""
-    x, gamma, beta = _cast("layer_norm", x, gamma, beta)
+    if axis not in (-1, data.ndim - 1):
+        out = layer_norm(data.movedim(axis, -1), gamma, beta, -1, eps)
+        return out.movedim(-1, axis)
+    x, gamma, beta = _cast("layer_norm", data, gamma, beta)
     dt = torch.promote_types(torch.promote_types(x.dtype, gamma.dtype),
                              beta.dtype)
     if x.dtype not in (torch.bfloat16, torch.float16):
@@ -234,14 +304,56 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return xhat.to(dt) * gamma.to(dt) + beta.to(dt)
 
 
-def softmax(data, axis=-1, temperature=None, dtype=None):
-    """Softmax along ``axis`` (reference: softmax.cc), in the input's dtype
-    unless ``dtype`` is given; fp32 under the AMP policy."""
-    data, = _cast("softmax", data)
+def _length_mask(h, length, axis):
+    """Positions below ``length`` along ``axis`` (reference:
+    ``_length_mask``: ``length`` has the data's shape without the axis, or
+    is 1-d over the first axis)."""
+    ax = axis % h.ndim
+    shape = [1] * h.ndim
+    shape[ax] = h.shape[ax]
+    pos = torch.arange(h.shape[ax], device=h.device).reshape(shape)
+    ln = length.unsqueeze(ax) if length.ndim == h.ndim - 1 else \
+        length.reshape((length.shape[0],) + (1,) * (h.ndim - 1))
+    return pos < ln
+
+
+def _softmax(fn, name, data, length, axis, temperature, use_length, dtype):
+    data, = _cast(name, data)
     h = data / temperature if temperature else data
-    return torch.softmax(h, dim=axis).to(dtype or data.dtype)
+    out_dt = _dtype(dtype) or data.dtype
+    if length is None and not use_length:
+        return fn(h, dim=axis).to(out_dt)
+    mask = _length_mask(h, length, axis)
+    out = fn(h.masked_fill(~mask, -math.inf), dim=axis)
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device)).to(out_dt)
 
 
+def _dtype(dtype):
+    from .base import torch_dtype
+    return torch_dtype(dtype)
+
+
+@_arrays
+def softmax(data, length=None, axis=-1, temperature=None, use_length=False,
+            dtype=None):
+    """Softmax along ``axis`` (reference: softmax.cc), in the input's dtype
+    unless ``dtype`` is given; fp32 under the AMP policy. With ``length``
+    the positions at or past it are left out and written 0."""
+    return _softmax(torch.softmax, "softmax", data, length, axis,
+                    temperature, use_length, dtype)
+
+
+@_arrays
+def log_softmax(data, axis=-1, temperature=None, dtype=None,
+                use_length=False, length=None):
+    """Log-softmax along ``axis`` (reference: softmax.cc log variant); the
+    masked positions write 0, as the softmax kernel's store does."""
+    return _softmax(torch.log_softmax, "log_softmax", data, length, axis,
+                    temperature, use_length, dtype)
+
+
+@_arrays
 def activation(data, act_type="relu"):
     """Reference: src/operator/nn/activation.cc."""
     if act_type not in _ACTS:
@@ -250,6 +362,7 @@ def activation(data, act_type="relu"):
     return _ACTS[act_type](data)
 
 
+@_arrays
 def leaky_relu(data, act_type="leaky", slope=0.25):
     """Reference: src/operator/leaky_relu.cc, the ``leaky``, ``elu``
     (alpha ``slope``), ``selu`` and ``gelu`` (exact erf) act types; the
@@ -268,6 +381,7 @@ def leaky_relu(data, act_type="leaky", slope=0.25):
                      "this slice of the port")
 
 
+@_arrays
 def gelu(x):
     """Exact (erf) GELU, as ``npx.leaky_relu(act_type="gelu")`` computes
     it (``approximate=False``), dispatched under its name there."""
@@ -275,14 +389,22 @@ def gelu(x):
     return F.gelu(x, approximate="none")
 
 
-def embedding(ids, weight):
-    """Row gather ``weight[ids]`` (reference: indexing_op.cc Embedding), with
+@_arrays
+def embedding(ids, weight, input_dim=None, output_dim=None, dtype="float32",
+              sparse_grad=False):
+    """Row gather ``weight[ids]`` (reference: indexing_op.cc Embedding;
+    ``input_dim`` / ``output_dim`` / ``dtype`` as the reference takes them,
+    the rows in the weight's dtype), with
     the reference's ``jnp.take`` rule for ids out of range: an id in
     [-V, 0) wraps from the end, any other out-of-range id gives a row of
     NaN whose gradient reaches no weight row. Float ids truncate. The rule
     is decided from the ids' values before the gather (a clamped id is
     gathered and its row overwritten), so no index check fires on the
-    device."""
+    device. ``sparse_grad=True`` (a row-sparse gradient) raises until
+    sparse storage is ported (ROADMAP.md Queue 1, item 9)."""
+    if sparse_grad:
+        raise MXNetError("embedding(sparse_grad=True): row-sparse gradients "
+                         "are not ported yet (ROADMAP.md Queue 1, item 9)")
     weight, = _cast("embedding", weight)
     v = weight.shape[0]
     idx = ids.long()
@@ -292,6 +414,7 @@ def embedding(ids, weight):
     return out.masked_fill(bad.unsqueeze(-1), float("nan"))
 
 
+@_arrays
 def quantize_v2(data, min_calib_range=None, max_calib_range=None,
                 out_type="int8"):
     """float32 -> (int8, min_range, max_range): see
@@ -300,6 +423,7 @@ def quantize_v2(data, min_calib_range=None, max_calib_range=None,
     return op(data, min_calib_range, max_calib_range, out_type)
 
 
+@_arrays
 def dequantize(data, min_range, max_range, out_type="float32"):
     """int8 -> float32: see :func:`mxnet_tpu_torch.ops.quantization.
     dequantize`."""
@@ -307,6 +431,7 @@ def dequantize(data, min_range, max_range, out_type="float32"):
     return op(data, min_range, max_range, out_type)
 
 
+@_arrays
 def quantized_fully_connected(data, weight, x_scale, w_scale, bias=None,
                               flatten=True):
     """int8 x int8 -> fp32 dense layer: see :func:`mxnet_tpu_torch.ops.
@@ -315,6 +440,7 @@ def quantized_fully_connected(data, weight, x_scale, w_scale, bias=None,
     return op(data, weight, x_scale, w_scale, bias=bias, flatten=flatten)
 
 
+@_arrays
 def quantized_conv(data, weight, x_scale, w_scale, bias=None, kernel=None,
                    stride=None, dilate=None, pad=None, num_filter=1,
                    num_group=1, layout="NCHW"):
@@ -326,6 +452,7 @@ def quantized_conv(data, weight, x_scale, w_scale, bias=None, kernel=None,
               num_group=num_group, layout=layout)
 
 
+@_arrays
 def quantized_conv_fused(data, weight, x_scale, w_scale, bias=None, act=None,
                          kernel=None, stride=None, dilate=None, pad=None,
                          num_filter=1, num_group=1, layout="NCHW"):
@@ -337,6 +464,7 @@ def quantized_conv_fused(data, weight, x_scale, w_scale, bias=None, act=None,
               num_filter=num_filter, num_group=num_group, layout=layout)
 
 
+@_arrays
 def quantized_dense_fused(data, weight, x_scale, w_scale, bias=None,
                           act=None, flatten=True):
     """int8 dense layer with a fused epilogue (kernel 6 on the card): see
@@ -346,6 +474,7 @@ def quantized_dense_fused(data, weight, x_scale, w_scale, bias=None,
               flatten=flatten)
 
 
+@_arrays
 def fp8_dense_fused(data, weight, x_scale, w_scale, bias=None, act=None,
                     flatten=True, fmt=None):
     """fp8-activation dense layer with a fused epilogue: see
@@ -354,6 +483,65 @@ def fp8_dense_fused(data, weight, x_scale, w_scale, bias=None, act=None,
     return op(data, weight, x_scale, w_scale, bias=bias, act=act,
               flatten=flatten, fmt=fmt)
 
+
+@_arrays
+def pick(data, index, axis=-1, mode="clip", keepdims=False):
+    """``data``'s element at ``index`` along ``axis`` (reference:
+    broadcast_reduce_op_index.cc ``pick``): "clip" clamps the index,
+    "wrap" wraps it."""
+    n = data.shape[axis]
+    idx = index.to(torch.int64)
+    idx = idx.clamp(0, n - 1) if mode == "clip" else idx.remainder(n)
+    out = torch.take_along_dim(data, idx.unsqueeze(axis), dim=axis)
+    return out if keepdims else out.squeeze(axis)
+
+
+@_arrays
+def slice_axis(data, axis, begin, end):
+    """``data[begin:end]`` along ``axis`` (reference: ``slice_axis``)."""
+    key = [slice(None)] * data.ndim
+    key[axis] = slice(begin, end)
+    return data[tuple(key)]
+
+
+def waitall():
+    """Wait for all the card's work (reference: ``npx.waitall``)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def save(file, arr_dict):
+    """Save a dict (or list, or one array) of arrays as ``.npz``
+    (reference: ``npx.save``); bf16 is written widened to fp32."""
+    if isinstance(arr_dict, (ndarray, torch.Tensor)):
+        arr_dict = {"arr_0": arr_dict}
+    if isinstance(arr_dict, (list, tuple)):
+        arr_dict = {f"arr_{i}": a for i, a in enumerate(arr_dict)}
+
+    def host(v):
+        if isinstance(v, ndarray):
+            return v.asnumpy()
+        if isinstance(v, torch.Tensor):
+            v = v.detach()
+            return (v.float() if v.dtype is torch.bfloat16 else v).cpu() \
+                .numpy()
+        return onp.asarray(v)
+    onp.savez(file, **{k: host(v) for k, v in arr_dict.items()})
+
+
+def load(file, ctx=None, device=None):
+    """The dict of arrays of an ``.npz`` file (reference: ``npx.load``),
+    on ``ctx`` / ``device`` or the current context, by the 32-bit rule
+    (float64 arrays load as float32, as the reference's ``array``)."""
+    with onp.load(file, allow_pickle=False) as data:
+        return {k: array(data[k], ctx=ctx, device=device)
+                for k in data.files}
+
+
+#: the ops over tensors, undecorated: the layers' and the model zoo's calls
+tensor_ops = types.SimpleNamespace(**{
+    name: globals()[name].__wrapped__ for name in __all__
+    if hasattr(globals()[name], "__wrapped__")})
 
 # at the end: amp imports ops.quant_matmul (through amp.fp8), which reads
 # this module's _ACTS

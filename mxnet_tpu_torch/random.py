@@ -14,7 +14,9 @@ Two thread-local hooks serve ``functional.functional_call`` and the
 hybridized blocks of ``gluon/cached_graph.py``: :func:`generator_scope`
 makes one generator the default of its device for a call (the reference's
 ``rng_key`` argument), and :func:`track_generators` records every
-generator a call draws from, with its state before the first draw.
+generator a call draws from, with its state before the first draw (the
+samplers of ``dropout_mask`` and ``mx.np.random`` report theirs through
+:func:`note_draw`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import torch
 
 from . import config
 
-__all__ = ["generator", "seed", "default_generator", "dropout_mask"]
+__all__ = ["generator", "seed", "default_generator", "dropout_mask",
+           "note_draw"]
 
 _lock = threading.Lock()
 _defaults: dict[torch.device, torch.Generator] = {}
@@ -41,7 +44,7 @@ def generator(seed=0, device="cpu"):
 
 
 def _key(device):
-    dev = torch.device(device)
+    dev = getattr(device, "torch_device", None) or torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -84,10 +87,17 @@ def dropout_mask(like, rate, generator=None):
     through here, so a fused and an unfused route make the same draws."""
     gen = generator if generator is not None \
         else default_generator(like.device)
+    note_draw(gen)
+    return torch.empty_like(like).bernoulli_(1.0 - rate, generator=gen)
+
+
+def note_draw(gen):
+    """Record ``gen`` in the :func:`track_generators` scope of this thread
+    (with its state before its first draw there): every sampler of the
+    port calls this before it draws."""
     track = getattr(_local, "track", None)
     if track is not None and gen not in track:
         track[gen] = gen.get_state()
-    return torch.empty_like(like).bernoulli_(1.0 - rate, generator=gen)
 
 
 @contextlib.contextmanager
@@ -108,8 +118,8 @@ def generator_scope(gen):
 @contextlib.contextmanager
 def track_generators():
     """Yield a dict that collects, within the scope (this thread), every
-    generator :func:`dropout_mask` draws from, mapped to its state before
-    the scope's first draw from it."""
+    generator a sampler draws from (:func:`note_draw`), mapped to its state
+    before the scope's first draw from it."""
     prev = getattr(_local, "track", None)
     _local.track = track = {}
     try:

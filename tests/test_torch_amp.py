@@ -53,6 +53,7 @@ from mxnet_tpu_torch import optimizer as topt
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
+from mxnet_tpu_torch.test_utils import assert_almost_equal
 
 torch.set_num_threads(2)
 
@@ -83,17 +84,12 @@ def _np(a):
     return onp.asarray(a.astype("float32").asnumpy())
 
 
-def _close(got, want, dtype):
-    """Values by the result's dtype: fp32 within 1e-5 of max|want|; bf16
-    one ulp plus 2^-10 of max|want|."""
-    got, want = _np(got), _np(want)
-    scale = onp.abs(want).max()
+def _tol(dtype):
+    """Tolerance by the result's dtype: fp32 within 1e-5 of max|want|;
+    bf16 one ulp plus 2^-10 of max|want|."""
     if dtype == "bfloat16":
-        allow = BF16_RTOL * onp.abs(want) + BF16_ATOL_SHARE * scale
-    else:
-        allow = FP32_SHARE * scale
-    assert (onp.abs(got - want) <= allow).all(), \
-        onp.abs(got - want).max() / scale
+        return dict(rtol=BF16_RTOL, atol=BF16_ATOL_SHARE, scale_atol=True)
+    return dict(rtol=0, atol=FP32_SHARE, scale_atol=True)
 
 
 def _jarr(a, dtype="float32"):
@@ -130,7 +126,7 @@ def test_fully_connected_promotes_mixed_dtypes_like_jax(xd, wd, bias):
     got = tnpx.fully_connected(_tarr(x, xd), _tarr(w, wd),
                                _tarr(b, wd) if bias else None)
     assert _name(got.dtype) == _name(want.dtype)
-    _close(got, want, _name(want.dtype))
+    assert_almost_equal(_np(got), _np(want), **_tol(_name(want.dtype)))
 
 
 @pytest.mark.parametrize("xd,wd", MIXED)
@@ -141,7 +137,7 @@ def test_layer_norm_returns_the_promoted_dtype_like_jax(xd, wd):
     want = jnpx.layer_norm(_jarr(x, xd), _jarr(g, wd), _jarr(b, wd))
     got = tnpx.layer_norm(_tarr(x, xd), _tarr(g, wd), _tarr(b, wd))
     assert _name(got.dtype) == _name(want.dtype)
-    _close(got, want, _name(want.dtype))
+    assert_almost_equal(_np(got), _np(want), **_tol(_name(want.dtype)))
 
 
 def test_layer_norm_block_inherits_the_promoted_dtype():
@@ -156,7 +152,7 @@ def test_layer_norm_block_inherits_the_promoted_dtype():
     want = jln(_jarr(x, "bfloat16"))
     got = tln(_tarr(x, "bfloat16"))
     assert _name(got.dtype) == _name(want.dtype) == "float32"
-    _close(got, want, "float32")
+    assert_almost_equal(_np(got), _np(want), **_tol("float32"))
 
 
 # -- the policy (tests/test_amp.py's cases in both packages) ------------------
@@ -178,12 +174,12 @@ def test_amp_init_casts_matmul_and_dense():
     ta, tb = tamp._maybe_cast_op_inputs("matmul", (_tarr(a), _tarr(a)))
     got = torch.matmul(ta, tb)
     assert _name(got.dtype) == _name(want.dtype) == "bfloat16"
-    _close(got, want, "bfloat16")
+    assert_almost_equal(_np(got), _np(want), **_tol("bfloat16"))
     want = jnpx.fully_connected(_jarr(a), _jarr(a), num_hidden=4,
                                 no_bias=True)
     got = tnpx.fully_connected(_tarr(a), _tarr(a))
     assert _name(got.dtype) == _name(want.dtype) == "bfloat16"
-    _close(got, want, "bfloat16")
+    assert_almost_equal(_np(got), _np(want), **_tol("bfloat16"))
 
 
 def test_amp_fp32_ops_stay_fp32():
@@ -193,7 +189,7 @@ def test_amp_fp32_ops_stay_fp32():
     want = jnpx.softmax(_jarr(a, "bfloat16"))
     got = tnpx.softmax(_tarr(a, "bfloat16"))
     assert _name(got.dtype) == _name(want.dtype) == "float32"
-    _close(got, want, "float32")
+    assert_almost_equal(_np(got), _np(want), **_tol("float32"))
 
 
 def test_amp_elementwise_unaffected():
@@ -226,7 +222,7 @@ def test_amp_dense_eager():
     tamp.init()
     want, got = jnet(_jarr(x)), tnet(_tarr(x))
     assert _name(got.dtype) == _name(want.dtype) == "bfloat16"
-    _close(got, want, "bfloat16")
+    assert_almost_equal(_np(got), _np(want), **_tol("bfloat16"))
     onp.testing.assert_allclose(_np(got), _np(ref), rtol=5e-2, atol=5e-2)
 
 
@@ -269,7 +265,7 @@ def test_amp_conv_cast():
     x = onp.ones((1, 3, 8, 8), "float32")
     want, got = jconv(_jarr(x)), tconv(_tarr(x))
     assert _name(got.dtype) == _name(want.dtype) == "bfloat16"
-    _close(got, want, "bfloat16")
+    assert_almost_equal(_np(got), _np(want), **_tol("bfloat16"))
 
 
 def test_convert_hybrid_block_casts_params():
@@ -371,7 +367,7 @@ def test_amp_conditional_fp32_ops():
         want = getattr(jnpx, op)(_jarr(x, "bfloat16"), act_type=act)
         got = getattr(tnpx, op)(_tarr(x, "bfloat16"), act_type=act)
         assert _name(got.dtype) == _name(want.dtype) == dtype, (op, act)
-        _close(got, want, dtype)
+        assert_almost_equal(_np(got), _np(want), **_tol(dtype))
     # a user-supplied conditional triple
     jamp.init("bfloat16",
               conditional_fp32_ops=[("activation", "act_type", ["tanh"])])
@@ -380,7 +376,7 @@ def test_amp_conditional_fp32_ops():
     want = jnpx.activation(_jarr(x, "bfloat16"), "tanh")
     got = tnpx.activation(_tarr(x, "bfloat16"), "tanh")
     assert _name(got.dtype) == _name(want.dtype) == "float32"
-    _close(got, want, "float32")
+    assert_almost_equal(_np(got), _np(want), **_tol("float32"))
 
 
 def test_amp_dtype_drift_oracle():
@@ -421,7 +417,8 @@ def test_amp_dtype_drift_oracle():
     jout, tout = chains
     for k, dtype in want.items():
         assert _name(tout[k].dtype) == _name(jout[k].dtype) == dtype, k
-    _close(tout["softmax"], jout["softmax"], "bfloat16")
+    assert_almost_equal(_np(tout["softmax"]), _np(jout["softmax"]),
+                        **_tol("bfloat16"))
 
 
 def test_amp_policy_is_thread_local():

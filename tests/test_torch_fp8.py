@@ -70,6 +70,7 @@ from mxnet_tpu_torch.ops import quant_matmul as tqm
 from mxnet_tpu_torch.ops.xent import sparse_softmax_xent as txent
 from mxnet_tpu_torch.parallel import MeshConfig, P, ShardedTrainStep
 from mxnet_tpu_torch.parallel import make_mesh
+from mxnet_tpu_torch.test_utils import assert_almost_equal
 
 torch.set_num_threads(2)
 
@@ -106,13 +107,6 @@ def _matmul_inputs(m, n, k, fmt, seed, overflow=False):
     return x, w_j, w_t, ws, xs, b
 
 
-def _close(got, want, rtol=1e-5, share=1e-5):
-    fin = onp.isfinite(want)
-    top = onp.abs(want[fin]).max() if fin.any() else 0.0
-    onp.testing.assert_allclose(got, want, rtol=rtol, atol=share * top,
-                                equal_nan=True)
-
-
 # -- 1. plain fp8_matmul vs the JAX kernel (interpret mode) ------------------
 
 @pytest.mark.parametrize("bias", [False, True])
@@ -129,7 +123,8 @@ def test_plain_matmul_matches_jax_kernel(m, n, k, fmt, act, bias):
                          float(xs), bias=torch.from_numpy(b) if bias else None,
                          act=act, fmt=fmt)
     assert got.dtype == torch.float32 and got.shape == (m, n)
-    _close(got.numpy(), want)
+    assert_almost_equal(got.numpy(), want, rtol=1e-5, atol=1e-5,
+                        scale_atol=True, equal_nan=True)
 
 
 @pytest.mark.parametrize("act", [None, "relu"])
@@ -148,7 +143,8 @@ def test_plain_matmul_overflow_matches_jax_kernel(fmt, act):
                          fmt=fmt).numpy()
     onp.testing.assert_array_equal(onp.isnan(got), onp.isnan(want))
     onp.testing.assert_array_equal(onp.isinf(got), onp.isinf(want))
-    _close(got, want)
+    assert_almost_equal(got, want, rtol=1e-5, atol=1e-5, scale_atol=True,
+                        equal_nan=True)
 
 
 def test_matmul_validates_like_the_reference():
@@ -222,7 +218,8 @@ def test_fp8_dense_fused_matches_jax(route, flatten, fmt, act):
         torch.from_numpy(data), w_t, float(xs), torch.from_numpy(ws),
         bias=torch.from_numpy(b), act=act, flatten=flatten, fmt=fmt)
     assert tuple(got.shape) == want.shape
-    _close(got.numpy(), want)
+    assert_almost_equal(got.numpy(), want, rtol=1e-5, atol=1e-5,
+                        scale_atol=True, equal_nan=True)
 
 
 def test_fp8_dense_fused_errors():
@@ -328,11 +325,16 @@ def test_fp8_linear_matches_jax_vjp(bias):
                               "e4m3")),
             onp.asarray(jfp8._qcast(jnp.asarray(src), jnp.float32(scale),
                                     "e4m3")).view(onp.uint8))
-    _close(out.detach().numpy(), onp.asarray(y), share=1e-6)
-    _close(leaves[0].grad.numpy(), onp.asarray(jgrads[0]), share=1e-6)
-    _close(leaves[1].grad.numpy(), onp.asarray(jgrads[1]), share=1e-6)
+    assert_almost_equal(out.detach().numpy(), onp.asarray(y), rtol=1e-5,
+                        atol=1e-06, scale_atol=True, equal_nan=True)
+    assert_almost_equal(leaves[0].grad.numpy(), onp.asarray(jgrads[0]),
+                        rtol=1e-5, atol=1e-06, scale_atol=True, equal_nan=True)
+    assert_almost_equal(leaves[1].grad.numpy(), onp.asarray(jgrads[1]),
+                        rtol=1e-5, atol=1e-06, scale_atol=True, equal_nan=True)
     if bias:
-        _close(leaves[2].grad.numpy(), onp.asarray(jgrads[2]))
+        assert_almost_equal(leaves[2].grad.numpy(), onp.asarray(jgrads[2]),
+                            rtol=1e-5, atol=1e-5, scale_atol=True,
+                            equal_nan=True)
     assert float(scales[0].grad) == float(jgrads[3]) == 0.0
     assert float(scales[1].grad) == float(jgrads[4]) == 0.0
     assert float(scales[2].grad) == float(jgrads[5]) == float(

@@ -46,6 +46,7 @@ from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.nn import transformer as ttr
 from mxnet_tpu_torch.ops import attention as tattn
 from mxnet_tpu_torch.ops import ln_residual as tln
+from mxnet_tpu_torch.test_utils import assert_almost_equal
 
 torch.set_num_threads(2)
 
@@ -74,15 +75,6 @@ def _torch(a):
     return torch.from_numpy(a)
 
 
-def _close(got, want, tol, name, sums=False):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
-    want = onp.asarray(want, dtype="float32")
-    top = float(onp.abs(want).max())
-    atol = tol["share"] * top if (sums or tol is BF16) else tol["share"]
-    onp.testing.assert_allclose(onp.asarray(got, "float32"), want,
-                                rtol=tol["rtol"], atol=atol, err_msg=name)
-
-
 CASES = [(p, rows, dim) for p in (0.0, 0.3) for rows in (7, 600)
          for dim in (128, 768)]
 
@@ -103,10 +95,20 @@ def test_plain_fwd_matches_pallas_kernel(p, rows, dim, dtype):
     tol = BF16 if dtype == "bfloat16" else F32
     assert out.dtype == _torch(x).dtype and mean.dtype == torch.float32
     assert mean.shape == rstd.shape == (rows, 1)
-    _close(out, j_out, tol, "out")
-    _close(out, j_pub, tol, "out (ln_residual_dropout)")
-    _close(mean, onp.asarray(j_mean)[:rows], F32, "mean")
-    _close(rstd, onp.asarray(j_rstd)[:rows], F32, "rstd")
+    assert_almost_equal(out, onp.asarray(j_out, "float32"), rtol=tol["rtol"],
+                        atol=tol["share"], scale_atol=tol is BF16,
+                        names=("out", "jax"))
+    assert_almost_equal(out, onp.asarray(j_pub, "float32"), rtol=tol["rtol"],
+                        atol=tol["share"], scale_atol=tol is BF16,
+                        names=("out (ln_residual_dropout)", "jax"))
+    assert_almost_equal(mean,
+                        onp.asarray(onp.asarray(j_mean)[:rows], "float32"),
+                        rtol=F32["rtol"], atol=F32["share"], scale_atol=False,
+                        names=("mean", "jax"))
+    assert_almost_equal(rstd,
+                        onp.asarray(onp.asarray(j_rstd)[:rows], "float32"),
+                        rtol=F32["rtol"], atol=F32["share"], scale_atol=False,
+                        names=("rstd", "jax"))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -125,10 +127,16 @@ def test_backward_matches_jax_vjp(p, rows, dim, dtype):
                                   mask=_torch(mask) if p > 0 else None)
     got.backward(_torch(do))
     tol = BF16 if dtype == "bfloat16" else F32
-    _close(got.detach(), out, tol, "out")
+    assert_almost_equal(got.detach(), onp.asarray(out, "float32"),
+                        rtol=tol["rtol"], atol=tol["share"],
+                        scale_atol=tol is BF16, names=("out", "jax"))
     for name, leaf, w in zip(("dx", "dh", "dgamma", "dbeta"), leaves, want):
         assert leaf.grad.dtype == leaf.dtype, name
-        _close(leaf.grad, w, tol, name, sums=name in ("dgamma", "dbeta"))
+        assert_almost_equal(leaf.grad, onp.asarray(w, "float32"),
+                            rtol=tol["rtol"], atol=tol["share"],
+                            scale_atol=(name in ("dgamma", "dbeta")
+                                        or tol is BF16),
+                            names=(name, "jax"))
 
 
 def test_zero_variance_row_matches_pallas_kernel():
@@ -147,9 +155,13 @@ def test_zero_variance_row_matches_pallas_kernel():
     leaves = [_torch(a).requires_grad_() for a in (x, h, g, b)]
     tln.ln_residual_dropout(*leaves, p=0.3, mask=_torch(mask)).backward(
         _torch(do))
-    _close(t_out, out, F32, "out")
+    assert_almost_equal(t_out, onp.asarray(out, "float32"), rtol=F32["rtol"],
+                        atol=F32["share"], scale_atol=False,
+                        names=("out", "jax"))
     for name, leaf, w in zip(("dx", "dh", "dgamma", "dbeta"), leaves, want):
-        _close(leaf.grad, w, F32, name, sums=True)
+        assert_almost_equal(leaf.grad, onp.asarray(w, "float32"),
+                            rtol=F32["rtol"], atol=F32["share"],
+                            scale_atol=True, names=(name, "jax"))
 
 
 @pytest.mark.parametrize("dim", [128, 768])
@@ -164,7 +176,9 @@ def test_rows_far_from_zero_match_pallas_kernel(dim):
         jnp.asarray(g), jnp.asarray(b), 0.0, 1e-5, 16, True)
     out, _, rstd = tln.ln_residual_fwd(_torch(x), _torch(h), None,
                                        _torch(g), _torch(b))
-    _close(out, j_out, F32, "out")
+    assert_almost_equal(out, onp.asarray(j_out, "float32"), rtol=F32["rtol"],
+                        atol=F32["share"], scale_atol=False,
+                        names=("out", "jax"))
     onp.testing.assert_allclose(rstd.numpy(), onp.asarray(j_rstd),
                                 rtol=1e-6, atol=0)
 

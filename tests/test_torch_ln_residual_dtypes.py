@@ -34,6 +34,7 @@ from mxnet_tpu.ops.pallas.ln_residual import _run_fwd
 from mxnet_tpu.ops.pallas.ln_residual import ln_residual_dropout as jln
 
 from mxnet_tpu_torch.ops import ln_residual as tln
+from mxnet_tpu_torch.test_utils import assert_almost_equal
 
 torch.set_num_threads(2)
 
@@ -84,19 +85,14 @@ def _inputs(rows, dim, p, dtypes, seed=0):
             _np(do, xd))
 
 
-def _close(got, want, name, sums=False):
-    """``got`` (torch) against ``want`` (jax): the same dtype exactly, and
-    the values at the tolerance of that dtype."""
-    want = onp.asarray(want)
+def _tol(got, sums=False):
+    """The tolerance of ``got``'s dtype (``got`` is compared against the
+    JAX result of the same dtype): atol a share of max|want| for the sums
+    and the 2-byte dtypes."""
     kind = str(got.dtype)[6:]
-    assert kind == str(want.dtype), f"{name}: {got.dtype} vs {want.dtype}"
     tol = TOL[kind]
-    want = want.astype("float32")
-    top = float(onp.abs(want).max())
-    atol = tol["share"] * top if (sums or kind != "float32") \
-        else tol["share"]
-    onp.testing.assert_allclose(got.float().numpy(), want, rtol=tol["rtol"],
-                                atol=atol, err_msg=name)
+    return dict(rtol=tol["rtol"], atol=tol["share"],
+                scale_atol=sums or kind != "float32")
 
 
 @pytest.mark.parametrize("rows,dim", SHAPES)
@@ -113,13 +109,21 @@ def test_forward_dtypes_match_pallas_kernel(case, p, rows, dim):
     tm = _torch(mask) if p > 0 else None
     out, mean, rstd = tln.ln_residual_fwd(_torch(x), _torch(h), tm,
                                           _torch(g), _torch(b), p)
-    _close(out, onp.asarray(j_out)[:rows], "out")
-    _close(out, j_pub, "out (ln_residual_dropout)")
-    _close(mean, onp.asarray(j_mean)[:rows], "mean")
-    _close(rstd, onp.asarray(j_rstd)[:rows], "rstd")
+    assert_almost_equal(out, onp.asarray(j_out)[:rows], names=("out", "jax"),
+                        check_dtype=True, **_tol(out, False))
+    assert_almost_equal(out, j_pub, names=("out (ln_residual_dropout)", "jax"),
+                        check_dtype=True, **_tol(out, False))
+    assert_almost_equal(mean, onp.asarray(j_mean)[:rows],
+                        names=("mean", "jax"), check_dtype=True,
+                        **_tol(mean, False))
+    assert_almost_equal(rstd, onp.asarray(j_rstd)[:rows],
+                        names=("rstd", "jax"), check_dtype=True,
+                        **_tol(rstd, False))
     got = tln.ln_residual_dropout(_torch(x), _torch(h), _torch(g),
                                   _torch(b), p=p, mask=tm)
-    _close(got, j_pub, "out (port's ln_residual_dropout)")
+    assert_almost_equal(got, j_pub,
+                        names=("out (port's ln_residual_dropout)", "jax"),
+                        check_dtype=True, **_tol(got, False))
 
 
 @pytest.mark.parametrize("rows,dim", SHAPES)
@@ -138,9 +142,12 @@ def test_backward_dtypes_match_jax_vjp(case, p, rows, dim):
     got = tln.ln_residual_dropout(*leaves, p=p,
                                   mask=_torch(mask) if p > 0 else None)
     got.backward(_torch(do))
-    _close(got.detach(), out, "out")
+    assert_almost_equal(got.detach(), out, names=("out", "jax"),
+                        check_dtype=True, **_tol(got.detach(), False))
     for name, leaf, w in zip(("dx", "dh", "dgamma", "dbeta"), leaves, want):
-        _close(leaf.grad, w, name, sums=name in ("dgamma", "dbeta"))
+        assert_almost_equal(leaf.grad, w, names=(name, "jax"),
+                            check_dtype=True,
+                            **_tol(leaf.grad, name in ("dgamma", "dbeta")))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

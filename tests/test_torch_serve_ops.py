@@ -26,6 +26,7 @@ from mxnet_tpu.ops import attention as jatt
 from mxnet_tpu_torch import functional as tfunctional
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.ops import attention as tatt
+from mxnet_tpu_torch.test_utils import assert_almost_equal
 
 torch.set_num_threads(2)
 
@@ -47,12 +48,11 @@ def _j(a):
     return mx.np.array(onp.array(a))
 
 
-def _close(got, want, what):
-    got, want = _np(got), _np(want)
-    if want.dtype == onp.int8 or want.dtype == onp.uint8:
-        onp.testing.assert_array_equal(got, want, err_msg=what)
-    else:
-        onp.testing.assert_allclose(got, want, err_msg=what, **TOL)
+def _tol(want):
+    """int8 / uint8 results exactly, the others at ``TOL``."""
+    if _np(want).dtype in (onp.int8, onp.uint8):
+        return dict(rtol=0, atol=0)
+    return TOL
 
 
 def _exact(got, want, what):
@@ -124,7 +124,7 @@ def test_write_prefill_kv_takes_a_tensor_slot(slot):
     want = jatt.write_prefill_kv(_j(kc), _j(vc), _j(k), _j(v), 1, HEADS)
     got = tatt.write_prefill_kv(_t(kc), _t(vc), _t(k), _t(v), slot, HEADS)
     for g, w in zip(got, want):
-        _close(g.numpy(), w, "cache")
+        assert_almost_equal(g.numpy(), w, names=("cache", "jax"), **_tol(w))
 
 
 # -- block copies ----------------------------------------------------------------
@@ -215,10 +215,11 @@ def test_suffix_prefill_attention_matches_jax(layout, slot, start, ls):
         got = tatt.suffix_prefill_attention_q8(
             _t(q), _t(k), _t(v), *tc, torch.tensor(slot),
             torch.tensor(start), HEADS)
-    _close(got[0].numpy(), want[0], "out")
+    assert_almost_equal(got[0].numpy(), want[0], names=("out", "jax"),
+                        **_tol(want[0]))
     for g, w, c in zip(got[1:], want[1:], tc):
         assert g is c
-        _close(g.numpy(), w, "cache")
+        assert_almost_equal(g.numpy(), w, names=("cache", "jax"), **_tol(w))
 
 
 @pytest.mark.parametrize("layout", ["fp", "q8"])
@@ -255,9 +256,11 @@ def test_decode_multi_attention_matches_jax(layout, t):
                                                   + onp.arange(t)[:, None])
     clean = ~(seen & ~once[:, None, :]).any(axis=2)          # (slots, t)
     assert clean.any() and (t == 1 or not clean.all())
-    _close(got[0].numpy()[clean], _np(want[0])[clean], "out")
+    assert_almost_equal(got[0].numpy()[clean], _np(want[0])[clean],
+                        names=("out", "jax"), **_tol(_np(want[0])[clean]))
     for g, w in zip(got[1:], want[1:]):
-        _close(g.numpy()[once], _np(w)[once], "cache rows")
+        assert_almost_equal(g.numpy()[once], _np(w)[once],
+                            names=("cache rows", "jax"), **_tol(_np(w)[once]))
 
 
 @pytest.mark.parametrize("positions", [[0, 5, 15], [3, 3, 9], [15, 0, 1]])
@@ -270,10 +273,11 @@ def test_decode_attention_q8_matches_jax(positions):
                                     _j(vc), _j(vs), _j(pos), HEADS)
     tc = [_t(a) for a in (kc, ks, vc, vs)]
     got = tatt.decode_attention_q8(_t(q), _t(k), _t(v), *tc, _t(pos), HEADS)
-    _close(got[0].numpy(), want[0], "out")
+    assert_almost_equal(got[0].numpy(), want[0], names=("out", "jax"),
+                        **_tol(want[0]))
     for g, w, c in zip(got[1:], want[1:], tc):
         assert g is c
-        _close(g.numpy(), w, "cache")
+        assert_almost_equal(g.numpy(), w, names=("cache", "jax"), **_tol(w))
 
 
 # -- the GPT cache surface -------------------------------------------------------
@@ -292,7 +296,8 @@ def pair():
 
 def _cache_close(tc, jc):
     for g, w in zip(tatt._leaves(tc), _jleaves(jax_leaves(jc))):
-        _close(g.detach().numpy(), w, "cache")
+        assert_almost_equal(g.detach().numpy(), w, names=("cache", "jax"),
+                            **_tol(w))
 
 
 def jax_leaves(jc):
@@ -327,13 +332,15 @@ def test_gpt_prefill_decode_suffix_multi_match_jax(pair, dtype):
     prompt = rs.randint(1, 97, (1, 8)).astype("int32")
     jl, jc = jnet.prefill(_j(prompt), jc, 1)
     tl, tc = tnet.prefill(_t(prompt), tc, torch.tensor(1))
-    _close(tl.numpy(), jl, "prefill logits")
+    assert_almost_equal(tl.numpy(), jl, names=("prefill logits", "jax"),
+                        **_tol(jl))
     _cache_close(tc, jc)
     tokens = rs.randint(1, 97, (SLOTS, 1)).astype("int32")
     pos = onp.array([0, 8, 3], dtype="int32")
     jl, jc = jnet.decode_step(_j(tokens), jc, _j(pos))
     tl, tc = tnet.decode_step(_t(tokens), tc, _t(pos))
-    _close(tl.numpy(), jl, "decode logits")
+    assert_almost_equal(tl.numpy(), jl, names=("decode logits", "jax"),
+                        **_tol(jl))
     _cache_close(tc, jc)
     # the first block of slot 1 into slot 0, then a suffix on top of it
     # the reference's copy maps raw arrays (the engine passes them so)
@@ -345,13 +352,15 @@ def test_gpt_prefill_decode_suffix_multi_match_jax(pair, dtype):
     jl, jc = jnet.prefill_suffix(_j(suffix), jc, 0, 4)
     tl, tc = tnet.prefill_suffix(_t(suffix), tc, torch.tensor(0),
                                  torch.tensor(4))
-    _close(tl.numpy(), jl, "suffix logits")
+    assert_almost_equal(tl.numpy(), jl, names=("suffix logits", "jax"),
+                        **_tol(jl))
     _cache_close(tc, jc)
     seq = rs.randint(1, 97, (SLOTS, 3)).astype("int32")
     pos = onp.array([9, 9, 4], dtype="int32")
     jl, jc = jnet.decode_multi(_j(seq), jc, _j(pos))
     tl, tc = tnet.decode_multi(_t(seq), tc, _t(pos))
-    _close(tl.numpy(), jl, "decode_multi logits")
+    assert_almost_equal(tl.numpy(), jl, names=("decode_multi logits", "jax"),
+                        **_tol(jl))
     _cache_close(tc, jc)
 
 
@@ -367,10 +376,12 @@ def test_gpt_positions_clamp_at_max_length(pair):
     pos = onp.array([ms - 2, 3], dtype="int32")
     jl, _ = jnet.decode_multi(_j(seq), jc, _j(pos))
     tl, _ = tnet.decode_multi(_t(seq), tc, _t(pos))
-    _close(tl.numpy(), jl, "decode_multi logits")
+    assert_almost_equal(tl.numpy(), jl, names=("decode_multi logits", "jax"),
+                        **_tol(jl))
     suffix = rs.randint(1, 97, (1, 4)).astype("int32")
     jl, _ = jnet.prefill_suffix(_j(suffix), jnet.init_cache(2, ms), 1,
                                 ms - 4)
     tl, _ = tnet.prefill_suffix(_t(suffix), tnet.init_cache(2, ms), 1,
                                 ms - 4)
-    _close(tl.numpy(), jl, "suffix logits")
+    assert_almost_equal(tl.numpy(), jl, names=("suffix logits", "jax"),
+                        **_tol(jl))
