@@ -427,6 +427,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``mx.np`` (``@``, ``np.tanh``, ``np.sum``) hybridized: captured once
    into a CUDA graph, its replays equal, and within 1e-5 of max|eager|
    of the eager forward.
+28. Serving under every host plane: phase 3's model (the same seed) and
+   16 requests, a new engine built with telemetry, trace, goodput,
+   insight and blackbox on, ``serve.slo_ttft_ms`` / ``slo_tpot_ms``
+   armed and the ops endpoint on an ephemeral loopback port. insight
+   registers every bucket's graph; the counters equal ``stats()``
+   (requests, completions, tokens, the TTFT histogram's count); each
+   request's span tree has its ``serve.request`` root with
+   ``serve.enqueue``, ``serve.prefill`` and ``serve.drain`` children;
+   ``/metrics``, ``/healthz`` and ``/trace`` answer; ``slo_burn()`` is
+   finite; nothing is built after ``warmup()``; the greedy tokens are
+   phase 3's. One profiled run with the planes off and one with them on
+   give the same synchronizing runtime calls and device-to-host copies,
+   and 192 flash forward events. Then tokens/s and TPOT p50 in turns
+   (off, on, on, off), printed without a bound.
+29. Phase 27's GPT-2 124M bf16 step from ``mx.np`` arrays under the
+   planes: two eager steps under ``profiler.set_state("run")`` with a
+   ``tensorboard_dir``: the dumped Chrome file has ``"operator"`` spans of
+   the layers' ops, and the device trace kernels 1-3 by their kernel
+   names, 12 each a step (the wrappers' counts too). Hybridized: the
+   ``CachedOp:`` spans; ``record_memory()`` equal to
+   ``torch.cuda.memory_stats`` read beside it; the FLOPs mx.insight
+   counted on the captures' warm-up (aten ops and the flash kernels' own)
+   within 5% of 6 x N_mm x tokens plus attention's (N_mm: the weights
+   that enter a matrix product, the tied LM head in, the position
+   embedding out), printed beside bench.py's 6 x N x tokens and
+   ``insight.mfu``. Then ``trainer.skip_nonfinite`` with
+   ``invoke.nan_output:at=1,times=1``: that step skipped with every
+   parameter unchanged bit for bit, ``fault.stats()`` one injection and
+   one skip, a blackbox ``nonfinite`` bundle that reads back with its
+   checksum, and the next step moves the weights.
+30. The planes' host cost: a tight eager loop of 10000 ``mx.np``
+   elementwise ops on the card and phase 27's eager step (2 steps a run),
+   every plane off against telemetry and trace on, in turns (off, on, on,
+   off, twice; medians of 8 loop and 4 step runs each), with the cost
+   added per op. The off state against the parent commit is
+   ``tools/train_ab.py``'s (``--loop``, ``--np``).
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -439,6 +475,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -5002,6 +5039,429 @@ def phase_gpt_np(dev, card):
                                  "bit_identical": same, "max_abs_diff": diff}}
 
 
+# -- phases 28-30: the host planes ---------------------------------------------
+
+#: the serving SLO objectives phase 28 arms (milliseconds)
+PLANE_SLO = {"serve.slo_ttft_ms": 2000.0, "serve.slo_tpot_ms": 200.0}
+#: the host's synchronizing runtime calls, as the profiler names them
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+NP_LOOP_OPS = 10000  # elementwise mx.np ops of phase 30's tight loop
+FLOP_TOL = 0.05  # counted FLOPs a step against the analytic count
+
+
+def set_planes(mx, on):
+    """Switch the planes phases 28-30 drive on or off together."""
+    for plane in (mx.telemetry, mx.trace, mx.goodput, mx.insight):
+        plane.enable(on)
+    mx.blackbox.enable(on)
+
+
+def sync_events(fn):
+    """One call of ``fn()`` under ``torch.profiler``: ({runtime call:
+    count} of the synchronizing calls, device-to-host copies, flash
+    forward kernel events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    calls, dtoh, flash = {}, 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dtoh += "DtoH" in e.name
+            flash += "flash_fwd" in e.name
+        elif e.name in SYNC_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls, dtoh, flash
+
+
+def run_stats(reqs, wall):
+    """tokens/s and TPOT p50 of one serving run's own requests."""
+    tpots = [r.tpot for r in reqs if r.tpot is not None]
+    return {"tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+            "tpot_p50_ms": float(onp.median(tpots)) * 1e3, "wall_s": wall}
+
+
+def http_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def phase_serve_planes(dev, card, net, prompts, base_reqs):
+    """Phase 3's model and requests served with every host plane on."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    print(f"== phase 28: GPT-2 124M serving under every host plane "
+          f"(telemetry, trace, goodput, insight, blackbox, SLOs, the ops "
+          f"endpoint) on {card}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="planes-")
+    mx.config.set("blackbox.dir", tmp)
+    mx.config.set("trace.buffer", 16384)
+    for knob, value in PLANE_SLO.items():
+        mx.config.set(knob, value)
+    mx.trace.configure()
+    set_planes(mx, True)
+    port = mx.telemetry.serve_http(0).server_address[1]
+    try:
+        eng = mx.serve.load(net, max_slots=8)
+        warm_s, _ = serve_warmup("planes on", eng)
+        exes = sorted(mx.insight.attribution()["executables"])
+        want = sorted(["serve.decode"] + [f"serve.prefill_{b}"
+                                          for b in eng.buckets])
+        check(exes == want, f"insight registered {exes}, expected {want}")
+        mx.telemetry.reset()
+        mx.trace.clear()
+        reqs, wall = serve_run(eng, prompts)
+        st = eng.stats()
+        agg = mx.telemetry.counters(aggregate=True)
+        ttft = mx.telemetry.snapshot()["histograms"]["serve.ttft_seconds"]
+        got = (agg["serve.requests_total"], agg["serve.completed_total"],
+               agg["serve.tokens_total"], ttft["count"])
+        want = (len(prompts), st["completed"], st["tokens_out"],
+                len(prompts))
+        check(got == want, f"serve counters {got} vs stats() {want}")
+        check([r.generated for r in reqs] ==
+              [r.generated for r in base_reqs],
+              "the planes changed phase 3's greedy tokens")
+        spans = mx.trace.spans()
+        check(mx.trace.stats()["dropped"] == 0, "the span ring dropped")
+        by_id = {s["args"]["span_id"]: s for s in spans}
+        trees = {}
+        for s in spans:
+            parent = by_id.get(s["args"].get("parent_id"))
+            if parent is not None and parent["name"] == "serve.request":
+                trees.setdefault(parent["args"]["request"], set()).add(
+                    s["name"])
+        roots = [s for s in spans if s["name"] == "serve.request"]
+        check(len(roots) == len(prompts) and all(
+            {"serve.enqueue", "serve.prefill", "serve.drain"} <=
+            trees.get(s["args"]["request"], set()) for s in roots),
+            f"request span trees incomplete: {len(roots)} roots")
+        code_m, body = http_get(port, "/metrics")
+        code_h, health = http_get(port, "/healthz")
+        code_t, tr = http_get(port, "/trace?last=5&category=serve")
+        health = json.loads(health)
+        check(code_m == code_h == code_t == 200
+              and "mxnet_serve_requests_total" in body
+              and health["checks"]["serve"]["ok"]
+              and len(json.loads(tr)["spans"]) == 5,
+              f"the ops endpoint: {code_m} {code_h} {code_t} {health}")
+        burn = eng.slo_burn()
+        check(all(math.isfinite(v) for v in burn.values()),
+              f"slo_burn() {burn}")
+        check(eng.post_warmup_compiles == 0,
+              f"{eng.post_warmup_compiles} graphs built after warmup")
+        # the same run profiled with the planes off and on: the same syncs
+        for window in range(3):
+            set_planes(mx, False)
+            off = sync_events(lambda: serve_run(eng, prompts))
+            set_planes(mx, True)
+            on = sync_events(lambda: serve_run(eng, prompts))
+            print(f"  profiled runs {window + 1}: planes off {off}, on {on} "
+                  "(sync calls, DtoH copies, flash forward events)")
+            if on[2] == N_LAYERS * len(prompts):
+                break
+        check(on[:2] == off[:2], f"the planes changed the host syncs: off "
+                                 f"{off[:2]}, on {on[:2]}")
+        check(on[2] == N_LAYERS * len(prompts),
+              f"flash forward events {on[2]} with the planes on, expected "
+              f"{N_LAYERS * len(prompts)}")
+        turns = {False: [], True: []}
+        for state in (False, True, True, False):
+            set_planes(mx, state)
+            r, w = serve_run(eng, prompts)
+            turns[state].append(run_stats(r, w))
+        eng.stop()
+    finally:
+        set_planes(mx, False)
+        mx.telemetry.stop_http()
+        mx.config.reset()
+        mx.trace.configure()
+    row = {"card": card, "warmup_s": warm_s, "executables": exes,
+           "counters": dict(zip(("requests", "completed", "tokens",
+                                 "ttft_count"), got)),
+           "request_span_trees": len(roots), "slo_burn": burn,
+           "sync_calls_off": off[0], "sync_calls_on": on[0],
+           "dtoh_off": off[1], "dtoh_on": on[1],
+           "flash_fwd_events": on[2],
+           "post_warmup_compiles": eng.post_warmup_compiles}
+    for state, label in ((False, "off"), (True, "on")):
+        for key in ("tokens_per_s", "tpot_p50_ms"):
+            vals = [t[key] for t in turns[state]]
+            row[f"planes_{label}_{key}"] = vals
+            row[f"planes_{label}_{key}_median"] = float(onp.median(vals))
+    print(f"serving under the planes [{card}]: " + json.dumps(row))
+    return row
+
+
+def mm_weights(params):
+    """Elements of the weights that enter a matrix product: every 2-D
+    ``*.weight`` but the position embedding (a lookup only); the word
+    embedding is the tied LM head."""
+    return sum(p.data().numel() for n, p in params.items()
+               if n.endswith(".weight") and p.data().dim() == 2
+               and "position_embed" not in n)
+
+
+def trace_kernels(path, names):
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {n: sum(n in k for k in kernels) for n in names}
+
+
+def phase_train_planes(dev, card):
+    """Phase 27's GPT-2 124M bf16 step under the profiler and faults."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    print(f"== phase 29: GPT-2 124M bf16 training from mx.np arrays under "
+          f"the profiler (device trace), insight and the fault plane on "
+          f"{card}", flush=True)
+    vocab = 50257
+    gpu = mx.gpu(dev.index or 0)
+    net = GPTForCausalLM(backbone=gpt2_124m(
+        vocab_size=vocab, max_length=TRAIN_SEQ, dropout=0.0,
+        embed_dropout=0.0, device=dev)).initialize(seed=0)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    n_mm = mm_weights(params)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ids = onp.random.RandomState(0).randint(0, vocab,
+                                            (TRAIN_BATCH, TRAIN_SEQ + 1))
+    x, y = mx.np.array(ids[:, :-1], ctx=gpu), mx.np.array(ids[:, 1:],
+                                                          ctx=gpu)
+    trainer = mx.gluon.Trainer(params, "adamw",
+                               {"learning_rate": 1e-4, "wd": 0.01})
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+        return loss
+
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    tmp = tempfile.mkdtemp(prefix="planes-")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mx.amp.init("bfloat16")
+    try:
+        step()
+        # eager, two steps under the profiler with a device trace
+        mx.profiler.set_config(tensorboard_dir=os.path.join(tmp, "tb"),
+                               filename=os.path.join(tmp, "profile.json"))
+        for window in range(3):
+            mx.profiler._events.clear()
+            zero_all_counters()
+            mx.profiler.set_state("run")
+            step()
+            step()
+            torch.cuda.synchronize()
+            mx.profiler.set_state("stop")
+            wrapper = all_launches()[:3]
+            trace_file = mx.profiler.device_trace_file()
+            in_trace = trace_kernels(trace_file, names)
+            print(f"  eager window {window + 1}: wrapper launches "
+                  f"{wrapper}, device-trace kernel events {in_trace}")
+            if list(in_trace.values()) == [2 * N_LAYERS] * 3:
+                break
+        check(wrapper == [2 * N_LAYERS] * 3,
+              f"wrapper launches {wrapper} in 2 steps")
+        check(list(in_trace.values()) == [2 * N_LAYERS] * 3,
+              f"device trace kernels {in_trace} in 2 steps, expected "
+              f"{N_LAYERS} each a step")
+        with open(mx.profiler.dump()) as f:
+            ops = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e["cat"] == "operator"}
+        want_ops = {"fully_connected", "layer_norm", "sparse_softmax_xent"}
+        check(want_ops <= ops, f"operator spans {sorted(ops)} lack "
+                               f"{sorted(want_ops - ops)}")
+        mx.profiler.set_config(tensorboard_dir=None)
+        # record_memory against the allocator read beside it
+        mx.telemetry.enable()
+        mem = mx.telemetry.record_memory()[str(dev.index or 0)]
+        stats = torch.cuda.memory_stats(dev)
+        check((mem["live"], mem["peak"]) ==
+              (stats["allocated_bytes.all.current"],
+               stats["allocated_bytes.all.peak"]),
+              f"record_memory {mem} vs memory_stats")
+        # hybridized: CachedOp spans, and the counted cost of the graphs
+        mx.insight.enable()
+        net.hybridize()
+        loss_fn.hybridize()
+        step()
+        mx.profiler._events.clear()
+        mx.profiler.set_state("run")
+        step()
+        torch.cuda.synchronize()
+        mx.profiler.set_state("stop")
+        cached = sorted({e["name"] for e in mx.profiler._events
+                         if e["name"].startswith("CachedOp:")})
+        check(cached == ["CachedOp:GPTForCausalLM",
+                         "CachedOp:SoftmaxCrossEntropyLoss"],
+              f"hybridized spans {cached}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HYBRID_STEPS):
+            step()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / HYBRID_STEPS
+        mx.insight.note_step("cached_graph.GPTForCausalLM", seconds=step_s)
+        exes = mx.insight.attribution()["executables"]
+        graph = exes["cached_graph.GPTForCausalLM"]
+        # the loss graph holds no matrix product (its FLOPs read None)
+        counted = graph["flops"] + (exes[
+            "cached_graph.SoftmaxCrossEntropyLoss"]["flops"] or 0)
+        bh = TRAIN_BATCH * 12
+        attention = 18 * 64 * pairs(TRAIN_SEQ, TRAIN_SEQ, True) * bh \
+            * N_LAYERS
+        analytic = 6 * n_mm * tokens + attention
+        rel = abs(counted - analytic) / analytic
+        print(f"counted FLOPs a step {counted:.6e} vs analytic "
+              f"6*N_mm*tokens + attention {analytic:.6e} ({rel:.3e} "
+              f"relative; N_mm {n_mm}, attention {attention:.6e}); "
+              f"6*N*tokens over every parameter {6 * n_params * tokens:.6e} "
+              f"(N {n_params}); insight.mfu {graph['mfu']} at "
+              f"{step_s * 1e3:.2f} ms a step [{card}]")
+        check(rel <= FLOP_TOL, f"counted FLOPs {counted} are {rel:.3e} off "
+                               f"the analytic {analytic}")
+        mx.insight.disable()
+        mx.telemetry.disable()
+        # a NaN injected into the first op of an eager forward
+        net.hybridize(False, clear=False)
+        loss_fn.hybridize(False, clear=False)
+        mx.config.set("trainer.skip_nonfinite", True)
+        mx.config.set("blackbox.dir", tmp)
+        mx.blackbox.enable()
+        mx.fault.reset_stats()
+        before = params_snapshot(params)
+        mx.fault.configure("invoke.nan_output:at=1,times=1")
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        mx.fault.clear()
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+        fstats = mx.fault.stats()
+        diffs = tensor_diffs(before, params_snapshot(params))
+        check(trainer.nonfinite_steps == 1 and not diffs,
+              f"the injected step: skipped {trainer.nonfinite_steps}, "
+              f"{len(diffs)} tensors moved")
+        check(fstats == {"injected.invoke.nan_output": 1,
+                         "trainer.nonfinite_skip": 1},
+              f"fault.stats() {fstats}")
+        bundles = mx.blackbox.list_bundles()
+        check(len(bundles) == 1, f"blackbox bundles {bundles}")
+        doc = mx.blackbox.read_bundle(bundles[0])
+        check(doc["meta"]["trigger"] == "nonfinite"
+              and doc["device"]["name"] == torch.cuda.get_device_name(0),
+              f"bundle meta {doc['meta']}")
+        step()
+        moved = tensor_diffs(before, params_snapshot(params))
+        check(len(moved) > 0, "the step after the skipped one moved nothing")
+        mx.blackbox.disable()
+    finally:
+        mx.amp._deactivate()
+        mx.profiler.set_state("stop")
+        mx.profiler.set_config(tensorboard_dir=None,
+                               filename="profile.json")
+        for plane in (mx.telemetry, mx.insight, mx.blackbox):
+            plane.disable()
+        mx.fault.clear()
+        mx.config.reset()
+        net.hybridize(False)
+        loss_fn.hybridize(False)
+    row = {"card": card, "wrapper_launches_2_steps": wrapper,
+           "device_trace_kernels_2_steps": in_trace,
+           "operator_spans": sorted(ops), "cached_op_spans": cached,
+           "record_memory": mem, "counted_flops_per_step": counted,
+           "analytic_flops_per_step": analytic, "flops_rel_diff": rel,
+           "six_n_tokens_all_params": 6 * n_params * tokens,
+           "n_mm": n_mm, "n_params": n_params, "hybrid_step_ms":
+           step_s * 1e3, "insight_mfu": graph["mfu"],
+           "nonfinite_skip": fstats, "blackbox_bundle":
+           os.path.basename(bundles[0]), "params_moved_after": len(moved)}
+    print(f"training under the planes [{card}]: " + json.dumps(row))
+    del net
+    return row
+
+
+def np_loop(mx, a, n):
+    """``n`` elementwise mx.np ops on ``a``, each one ``_invoke``."""
+    for _ in range(n // 2):
+        a = a * 1.0001
+        a = a + 0.5
+    return a
+
+
+def timed_runs(fn, repeats):
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def phase_disabled_cost(dev, card):
+    """The host cost of the planes: off, then telemetry and trace on."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    print(f"== phase 30: the planes' host cost: a tight eager mx.np loop "
+          f"({NP_LOOP_OPS} ops) and phase 27's eager step, every plane off "
+          f"and then telemetry and trace on, on {card}", flush=True)
+    gpu = mx.gpu(dev.index or 0)
+    a = mx.np.ones((64,), ctx=gpu)
+    np_loop(mx, a, 200)
+    vocab = 50257
+    net = GPTForCausalLM(backbone=gpt2_124m(
+        vocab_size=vocab, max_length=TRAIN_SEQ, dropout=0.0,
+        embed_dropout=0.0, device=dev)).initialize(seed=0)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ids = onp.random.RandomState(0).randint(0, vocab,
+                                            (TRAIN_BATCH, TRAIN_SEQ + 1))
+    x, y = mx.np.array(ids[:, :-1], ctx=gpu), mx.np.array(ids[:, 1:],
+                                                          ctx=gpu)
+    step = _gpt_step_fn(mx, net, loss_fn, x, y, True)
+    labels = {False: "off", True: "telemetry_trace_on"}
+    runs = {label: {"loop_s": [], "step_ms": []} for label in
+            labels.values()}
+    mx.amp.init("bfloat16")
+    try:
+        for _ in range(3):
+            step()
+            np_loop(mx, a, NP_LOOP_OPS)
+        # in turns (off, on, on, off), twice: the host's clock drifts
+        for on in (False, True, True, False) * 2:
+            mx.telemetry.enable(on)
+            mx.trace.enable(on)
+            runs[labels[on]]["loop_s"] += timed_runs(
+                lambda: np_loop(mx, a, NP_LOOP_OPS), 2)
+            runs[labels[on]]["step_ms"] += [w / 2 * 1e3 for w in timed_runs(
+                lambda: [step() for _ in range(2)], 1)]
+            mx.trace.clear()
+    finally:
+        mx.amp._deactivate()
+        mx.telemetry.disable()
+        mx.telemetry.reset()
+        mx.trace.disable()
+    out = {"card": card}
+    for label, r in runs.items():
+        out[label] = dict(r, loop_s_median=float(onp.median(r["loop_s"])),
+                          step_ms_median=float(onp.median(r["step_ms"])))
+    out["added_us_per_op"] = (out["telemetry_trace_on"]["loop_s_median"]
+                              - out["off"]["loop_s_median"]) \
+        / NP_LOOP_OPS * 1e6
+    out["off_us_per_op"] = out["off"]["loop_s_median"] / NP_LOOP_OPS * 1e6
+    print(f"the planes' host cost [{card}]: " + json.dumps(out))
+    del net
+    return out
+
+
 def conv_entry(errs, rows, launches, per_shape, bf16_launches,
                bf16_per_shape):
     """Kernel 8's entry; ``per_shape`` is phase 13's read of the calls a
@@ -5366,13 +5826,25 @@ def main():
     pprompts, serve_prefix = timed("24", phase_serve_prefix, dev, card, net)
     serve_spec = timed("25", phase_serve_spec, dev, card, net, prompts,
                        base_reqs, pprompts, serve_prefix)
-    del net, base_reqs
+    del net
     gc.collect()
     torch.cuda.empty_cache()
     np_surface = timed("26", phase_np_surface, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     gpt_np = timed("27", phase_gpt_np, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = serve_net(dev)
+    serve_planes = timed("28", phase_serve_planes, dev, card, net, prompts,
+                         base_reqs)
+    del net, base_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_planes = timed("29", phase_train_planes, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes_cost = timed("30", phase_disabled_cost, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -5463,6 +5935,14 @@ def main():
         entry["launches_by_path"].update(gpt_bf16_np_train=eager,
                                          gpt_bf16_np_hybrid_train=hybrid)
         entry["launches"] += eager + hybrid
+    # phases 28-29, the host planes: the serving run's flash forward
+    # events, and the eager profiled steps' wrapper counts
+    for i, entry in enumerate(entries):
+        serve = serve_planes["flash_fwd_events"] if i == 0 else 0
+        train = train_planes["wrapper_launches_2_steps"][i] if i < 3 else 0
+        entry["launches_by_path"].update(serve_planes=serve,
+                                         gpt_bf16_planes_train=train)
+        entry["launches"] += serve + train
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -5482,7 +5962,10 @@ def main():
                       "serve_prefix": serve_prefix,
                       "serve_spec": serve_spec,
                       "np_surface": np_surface,
-                      "gpt_bf16_np_train": gpt_np}))
+                      "gpt_bf16_np_train": gpt_np,
+                      "serve_planes": serve_planes,
+                      "train_planes": train_planes,
+                      "planes_cost": planes_cost}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,10 +27,22 @@ every eligible triplet of an ``nn.FusableSequential``), and bf16 mixed
 precision on those training paths (``amp.init("bfloat16")``, or
 ``Block.cast`` with ``multi_precision``). Entry points run on ``cuda:0``
 unless given ``device="cpu"`` or called inside ``with mx.cpu():``.
+
+The host planes are the reference's: ``telemetry`` (metrics, the ops
+endpoint), ``fault`` (injection points), ``profiler`` (host spans and a
+``torch.profiler`` device trace), ``trace`` (causal spans), ``goodput``
+(the wall-clock ledger and burn rates), ``insight`` (cost, MFU, drift),
+``blackbox`` (postmortem bundles), ``log`` and the sync guard of
+``pipeline``; ``_invoke``, the layers' ops, ``hybridize()``, the Trainer
+and the serve engine are hooked into them, each hook one attribute read
+while its plane is off. ``profiler.autostart`` (``MXNET_PROFILER_
+AUTOSTART``) starts the profiler at import.
 """
-from . import base, context
+from . import base, config, context
+from . import log, telemetry, fault, profiler, trace, pipeline
+from . import goodput, insight, blackbox
 from . import numpy as np
-from . import amp, autograd, config, contrib, dlpack, functional, gluon
+from . import amp, autograd, contrib, dlpack, functional, gluon
 from . import initializer, lr_scheduler
 from . import initializer as init
 from . import numpy_extension as npx
@@ -42,9 +54,13 @@ from .numpy_extension import waitall
 
 __version__ = "2.0.0a1"
 
-__all__ = ["Context", "MXNetError", "amp", "autograd", "config", "context",
-           "contrib", "cpu", "cpu_pinned", "current_context", "device",
-           "dlpack", "functional", "gluon", "gpu", "init", "initializer",
-           "lr_scheduler", "np", "npx", "num_gpus", "optimizer", "parallel",
-           "random", "resolve_device", "serve", "test_utils", "tpu", "util",
-           "waitall"]
+__all__ = ["Context", "MXNetError", "amp", "autograd", "blackbox", "config",
+           "context", "contrib", "cpu", "cpu_pinned", "current_context",
+           "device", "dlpack", "fault", "functional", "gluon", "goodput",
+           "gpu", "init", "initializer", "insight", "log", "lr_scheduler",
+           "np", "npx", "num_gpus", "optimizer", "parallel", "pipeline",
+           "profiler", "random", "resolve_device", "serve", "telemetry",
+           "test_utils", "tpu", "trace", "util", "waitall"]
+
+if config.get("profiler.autostart"):
+    profiler.set_state("run")

@@ -1,8 +1,11 @@
 """mx.config — typed configuration knobs with env-var overrides.
 
 Own, trimmed copy of ``mxnet_tpu/config.py``: the same registry mechanics
-(declare / get / set / reset, env aliases) carrying only the knobs the
-ported slices read, with the JAX package's defaults and env names.
+(declare / get / set / reset / knobs / describe, env aliases) carrying
+only the knobs the ported slices read, with the JAX package's defaults
+and env names. The host planes' knobs (profiler, fault, telemetry, trace,
+insight, blackbox, goodput and the serve engine's SLO and health knobs)
+are the reference's declarations as they stand there.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["declare", "get", "set", "reset"]
+__all__ = ["declare", "get", "set", "reset", "knobs", "describe"]
 
 _lock = threading.Lock()
 _registry: dict[str, "_Knob"] = {}
@@ -80,6 +83,21 @@ def reset(name=None):
         for knob in ([_registry[name]] if name else _registry.values()):
             knob._set = False
             knob._value = None
+
+
+def knobs():
+    return dict(_registry)
+
+
+def describe():
+    """Human-readable table of every knob (env_var.md analog)."""
+    lines = []
+    for name in sorted(_registry):
+        k = _registry[name]
+        env = f" [env {k.env}]" if k.env else ""
+        lines.append(f"{name} ({k.typ.__name__}, default={k.default!r})"
+                     f"{env}: {k.doc}")
+    return "\n".join(lines)
 
 
 declare("seed", int, 0, "MXNET_SEED",
@@ -193,3 +211,160 @@ declare("cached_graph.max_signatures", int, 512,
         "least recently used is dropped, with its CUDA graphs and memory "
         "pool, when a new one would pass it (reference analog: "
         "CachedOpConfig limits, src/imperative/cached_op.h:412-459).")
+
+# -- the host planes (mx.profiler, fault, telemetry, trace, pipeline, insight,
+# blackbox, goodput) and the serve engine's SLO and health knobs: the
+# reference's declarations
+declare("profiler.autostart", bool, False, "MXNET_PROFILER_AUTOSTART",
+        "Start the profiler at import (reference: profiler env knob).")
+declare("fault.spec", str, "", "MXNET_FAULT_SPEC",
+        "Fault-injection spec, 'point:at=N[,prob=P,times=K,seed=S];...' "
+        "('' = all injection points disabled; see mx.fault.POINTS).")
+declare("telemetry.enable", bool, False, "MXNET_TELEMETRY",
+        "Enable the mx.telemetry metrics registry (counters/gauges/"
+        "histograms wired through cached-graph compile, dataloader, "
+        "trainer, kvstore and fault paths); disabled, every hook costs "
+        "one module-attribute read.")
+declare("telemetry.recompile_limit", int, 8, "MXNET_TELEMETRY_RECOMPILE_LIMIT",
+        "Per-block XLA trace+compile count above which the recompilation "
+        "detector emits a structured RecompileWarning (the TPU shape-"
+        "polymorphism pitfall); fires once per block.")
+declare("telemetry.jsonl", str, "", "MXNET_TELEMETRY_JSONL",
+        "Default JSONL path for TrainingTelemetry step records and the "
+        "final run report ('' = keep records in memory only).")
+declare("telemetry.step_interval", int, 1, "MXNET_TELEMETRY_STEP_INTERVAL",
+        "TrainingTelemetry emits a JSONL step record every N step() calls.")
+declare("pipeline.deferred_window", int, 32, "MXNET_PIPELINE_DEFERRED_WINDOW",
+        "Default mx.pipeline.DeferredWindow capacity: device scalars "
+        "(grad norms, metric accumulators) pending host fetch; overflow "
+        "drains oldest-first and counts as a host sync.")
+declare("trace.enable", bool, False, "MXNET_TRACE",
+        "Enable the mx.trace span recorder (causal tracing through the "
+        "train step, pipeline prefetch, serve request and autotune trial "
+        "lifecycles); disabled, every hook costs one module-attribute "
+        "read, like telemetry.enable.")
+declare("trace.buffer", int, 4096, "MXNET_TRACE_BUFFER",
+        "Capacity of the per-process mx.trace span ring buffer; overflow "
+        "drops oldest-first and counts trace.dropped_total.")
+declare("telemetry.http_port", int, 0, "MXNET_TELEMETRY_PORT",
+        "Arm the stdlib ops endpoint at import on this port (0 = off): "
+        "GET /metrics (Prometheus exposition), /healthz, /trace?last=N. "
+        "mx.telemetry.serve_http(port) starts it at runtime; port 0 "
+        "there binds an ephemeral port.")
+declare("fleet.lease_dir", str, "", "MXNET_FLEET_LEASE_DIR",
+        "Shared directory for the file-backed heartbeat-lease fallback "
+        "of the mx.fleet health plane ('' = coordination-service only). "
+        "Every host renews host-<rank>.lease there; peers whose lease "
+        "age exceeds fleet.lease_timeout are treated as lost.")
+declare("insight.enable", bool, False, "MXNET_INSIGHT",
+        "Master switch for the mx.insight attribution plane (XLA cost "
+        "capture, live MFU/roofline gauges, step-time drift detection, "
+        "fleet snapshots). Disabled, every insight hook costs one "
+        "attribute read.")
+declare("insight.drift_window", int, 32, "MXNET_INSIGHT_DRIFT_WINDOW",
+        "Samples anchoring the drift detector's robust baseline "
+        "(median + MAD) and setting the EWMA half-life over step-time "
+        "sources; an injected slowdown must alarm within this many "
+        "samples.")
+declare("insight.drift_sigma", float, 3.0, "MXNET_INSIGHT_DRIFT_SIGMA",
+        "Robust z-score (MAD-scaled) the step-time EWMA must exceed "
+        "above baseline, two samples running, before insight.drift "
+        "fires — the false-positive vs time-to-detect dial.")
+declare("insight.snapshot_interval", float, 5.0,
+        "MXNET_INSIGHT_SNAPSHOT_INTERVAL",
+        "Seconds between atomic insight-<rank>.json fleet snapshots "
+        "published next to the heartbeat leases (riding the "
+        "HealthPlane.beat cadence, so no extra thread).")
+declare("insight.input_bound_ratio", float, 0.5,
+        "MXNET_INSIGHT_INPUT_BOUND_RATIO",
+        "Fraction of the measured step time the pipeline.input_stall_"
+        "seconds p50 must exceed before the roofline verdict flips to "
+        "'input' — the data plane, not the math, is the bottleneck "
+        "(surfaced on /insight and in bench rows).")
+declare("insight.straggler_ratio", float, 1.5,
+        "MXNET_INSIGHT_STRAGGLER_RATIO",
+        "A host whose step-time EWMA (from its fleet snapshot) exceeds "
+        "this multiple of the fleet median is marked a straggler by "
+        "check_peers, independent of the fixed fleet.slow_fraction "
+        "deadline cutoff.")
+declare("telemetry.report_max_bytes", int, 0,
+        "MXNET_TELEMETRY_REPORT_MAX_BYTES",
+        "Size cap (bytes) for a TrainingTelemetry JSONL report file; when "
+        "the next record would cross it the file rotates to the next free "
+        "<path>.gNNNN generation (whole records only, never truncated "
+        "mid-line) so ROADMAP item 5 keeps every generation discoverable "
+        "via TrainingTelemetry.generations(). 0 = unbounded.")
+declare("telemetry.event_ring", int, 256, "MXNET_TELEMETRY_EVENT_RING",
+        "Capacity of the bounded telemetry event ring that captures "
+        "python warnings (RecompileWarning et al.) and framework log "
+        "records >= WARNING once mx.blackbox arms its capture hooks; "
+        "postmortem bundles embed this ring so crashes carry the "
+        "warnings that preceded them.")
+declare("blackbox.enable", bool, False, "MXNET_BLACKBOX",
+        "Arm the mx.blackbox flight recorder: sys/threading excepthooks, "
+        "warning/log capture into the telemetry event ring, and shadow "
+        "snapshots riding HealthPlane.beat; terminal triggers (uncaught "
+        "exception, preemption, WorkerLost, non-finite escalation, "
+        "insight drift) then write one crash-atomic checksummed "
+        "postmortem bundle. Disabled, every hook costs one module-"
+        "attribute read.")
+declare("blackbox.dir", str, "", "MXNET_BLACKBOX_DIR",
+        "Directory for blackbox-<rank>-<step>.json postmortem bundles "
+        "('' = fall back to fleet.lease_dir at dump time so surviving "
+        "hosts can read a dead peer's bundle; if that is also unset, "
+        "dumps are skipped).")
+declare("blackbox.window", int, 256, "MXNET_BLACKBOX_WINDOW",
+        "Last-N evidence window a postmortem bundle embeds: newest N "
+        "trace spans and newest N telemetry events (the metric snapshot "
+        "and knob dump are always whole).")
+declare("blackbox.checkpoint_interval", float, 10.0,
+        "MXNET_BLACKBOX_CHECKPOINT_INTERVAL",
+        "Seconds between shadow bundle snapshots riding HealthPlane.beat "
+        "(no extra thread) so SIGKILL/OOM — where no excepthook runs — "
+        "still leaves a <=interval-stale bundle per host; 0 disables "
+        "shadow snapshots.")
+declare("blackbox.keep", int, 3, "MXNET_BLACKBOX_KEEP",
+        "Newest postmortem bundles retained per rank by dump()'s "
+        "retention sweep (older bundle + .sha256 sidecar pairs are "
+        "deleted); 0 keeps every bundle.")
+declare("serve.health_window", float, 30.0, "MXNET_SERVE_HEALTH_WINDOW",
+        "Seconds without a decode step while work is pending before the "
+        "serve engine reports itself unhealthy on the ops /healthz "
+        "endpoint (step-loop liveness, not static OK).")
+declare("goodput.enable", bool, False, "MXNET_GOODPUT",
+        "Master switch for the mx.goodput wall-clock ledger (badput "
+        "attribution, fleet device-second merge, SLO burn rates). "
+        "Disabled, every goodput hook costs one attribute read.")
+declare("goodput.target", float, 0.0, "MXNET_GOODPUT_TARGET",
+        "Training goodput SLO: the target fraction of wall clock spent "
+        "in compute (e.g. 0.95). Setting it arms the 5m/1h error-"
+        "budget burn-rate gauges and the goodput /healthz provider; "
+        "0 disables the SLO layer.")
+declare("goodput.burn_threshold", float, 2.0,
+        "MXNET_GOODPUT_BURN_THRESHOLD",
+        "Error-budget burn rate past which the goodput /healthz "
+        "provider reports unhealthy (503) — only when every burn "
+        "window agrees, so a 5-minute blip alone never pages.")
+declare("goodput.snapshot_interval", float, 5.0,
+        "MXNET_GOODPUT_SNAPSHOT_INTERVAL",
+        "Seconds between atomic goodput-<rank>.json ledger snapshots "
+        "published next to the heartbeat leases (riding the "
+        "HealthPlane.beat cadence, so no extra thread).")
+declare("serve.slo_ttft_ms", float, 0.0, "MXNET_SERVE_SLO_TTFT_MS",
+        "Serving SLO: time-to-first-token objective in milliseconds. "
+        "A finished prefill slower than this counts into "
+        "serve.slo_violations_total{kind=ttft} and the per-engine "
+        "burn gauge; 0 disarms the ttft objective.")
+declare("serve.slo_tpot_ms", float, 0.0, "MXNET_SERVE_SLO_TPOT_MS",
+        "Serving SLO: per-output-token decode latency objective in "
+        "milliseconds, checked at request finish; violations count "
+        "into serve.slo_violations_total{kind=tpot}. 0 disarms.")
+declare("serve.slo_target", float, 0.99, "MXNET_SERVE_SLO_TARGET",
+        "Fraction of requests that must meet the serve SLO "
+        "objectives; 1 - target is the error budget the "
+        "serve.slo_burn_rate gauges burn against.")
+declare("serve.phase_sampling", int, 64, "MXNET_SERVE_PHASE_SAMPLING",
+        "Per-request cap on always-on phase timing samples "
+        "(queue_wait/prefill/decode_step) kept for stats()['phases'] "
+        "without the tracer armed; 0 restores the trace-only "
+        "behaviour (one attribute read on the disabled path).")

@@ -48,6 +48,18 @@ entry per signature:
 - On the CPU the same cache, key and invalidation logic run the forward
   eagerly. On a CUDA block a capture or replay that fails raises with its
   reason; nothing runs the eager forward in its place.
+- The host planes, as the reference's ``_CachedGraph`` feeds them
+  (``mxnet_tpu/gluon/block.py:420-552``): a ``CachedOp:<block>`` profiler
+  span on every call (``profile_symbolic``); ``cached_graph.
+  cache_hit_total`` / ``cache_miss_total``; for each new entry
+  ``telemetry.note_compile`` with the capture's seconds (the recompile
+  detector) and ``insight.capture_jit`` of its cost, counted on the
+  warm-up run (``insight.count``). The reference counts a block's ops
+  once per traced signature, so the ops of the run that makes an entry
+  count (``_hooks.tracing``: the warm-up on the card, the first call on
+  the CPU, where an injected ``invoke.nan_output`` is probed and applies
+  nothing) and no other run's do (``_hooks.silent``: the capture, and on
+  the CPU every later call of the signature).
 """
 from __future__ import annotations
 
@@ -62,10 +74,14 @@ import numpy as onp
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import _hooks
 from .. import amp as _amp
 from .. import autograd as _autograd
 from .. import config as _config
+from .. import insight as _insight
+from .. import profiler as _profiler
 from .. import random as _random
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 
 __all__ = ["plain_scope", "in_plain_scope"]
@@ -93,6 +109,12 @@ def plain_scope():
 
 def in_plain_scope():
     return getattr(_tls, "depth", 0) > 0
+
+
+def _without_outputs(cost):
+    """A cost dict without the outputs a count read (mx.insight off: the
+    bare dict the run filled), so an entry keeps no warm-up tensor."""
+    return {k: v for k, v in cost.items() if k != "outputs"}
 
 
 class _Arr:
@@ -134,6 +156,15 @@ class _Entry:
         #: seconds of the warm-up and capture, on a CUDA block
         self.capture_s = 0.0
         self.pending = None  # weakref to the node of an unfinished record
+        #: the cost counted on the run that made the entry, while
+        #: mx.insight is on ({} otherwise)
+        self.cost = {}
+
+    def cost_analysis(self):
+        """The counted cost under XLA's keys (``insight.capture_cost``)."""
+        return {"flops": self.cost.get("flops"),
+                "bytes accessed": self.cost.get("bytes_accessed"),
+                "bytes accessedout{}": self.cost.get("output_bytes")}
 
     def stale(self):
         return any(p._storage_version != v or p._var.data_ptr() != ptr
@@ -218,32 +249,57 @@ class _CachedGraph:
 
     # -- a call ---------------------------------------------------------------
     def __call__(self, args, kwargs):
+        if _profiler._state["running"] and \
+                _profiler._config["profile_symbolic"]:
+            # one span per hybridized call (the reference profiles
+            # CachedOp as a single engine op)
+            with _profiler.span(f"CachedOp:{type(self.block).__name__}",
+                                "symbolic"):
+                return self._call(args, kwargs)
+        return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
         if not self._is_ready():
             return self._eager(args, kwargs)
         key, spec, statics, tensors, recording, training = \
             self._signature(args, kwargs)
+        name = type(self.block).__name__
         with self._lock:
             entry = self._signatures.get(key)
             if entry is not None and entry.stale():
                 del self._signatures[key]
                 entry = None
+            if _telemetry._active:
+                _telemetry.inc("cached_graph.cache_miss_total" if entry is None
+                               else "cached_graph.cache_hit_total",
+                               block=name)
             if entry is None:
                 while len(self._signatures) >= max(
                         1, _config.get("cached_graph.max_signatures")):
                     self._signatures.popitem(last=False)
                 entry = _Entry(self.params)
                 self.captures += 1
+                t0 = time.perf_counter()
                 if not self._on_cuda(tensors):
-                    out = self._eager(args, kwargs)
+                    with _hooks.tracing(), self._counted(entry, tensors) \
+                            as cost:
+                        out = self._eager(args, kwargs)
+                        cost["outputs"] = out
+                    entry.cost = _without_outputs(cost)
                     entry.out_spec = pytree.tree_structure(out)
                     self._signatures[key] = entry
+                    self._note_entry(entry, name, tensors,
+                                     time.perf_counter() - t0)
                     return out
                 self._capture(entry, spec, statics, tensors, recording,
                               training)
                 self._signatures[key] = entry
+                self._note_entry(entry, name, tensors,
+                                 time.perf_counter() - t0)
             self._signatures.move_to_end(key)
             if entry.fwd is None:
-                return self._eager(args, kwargs)
+                with _hooks.silent():
+                    return self._eager(args, kwargs)
             if not entry.diff_out:
                 outs = self._replay_forward(entry, tensors)
                 return self._unflatten(entry, outs)
@@ -266,6 +322,24 @@ class _CachedGraph:
     def _eager(self, args, kwargs):
         with plain_scope():
             return self.block._forward_tensors(args, kwargs)
+
+    def _counted(self, entry, tensors):
+        """The cost count of the run that makes ``entry`` (while
+        mx.insight is on): its inputs are the call's tensors and the
+        block's parameters."""
+        if not _insight._active:
+            return contextlib.nullcontext({})
+        return _insight.count([*tensors, *(p._var for p in self.params)])
+
+    def _note_entry(self, entry, name, tensors, seconds):
+        """Account a new entry: ``note_compile`` (the recompile detector)
+        and the entry's cost in mx.insight's registry."""
+        if _telemetry._active:
+            _telemetry.note_compile(self.block, name, seconds,
+                                    signatures=len(self._signatures))
+        if _insight._active:
+            _insight.capture_jit(f"cached_graph.{name}", entry, tensors,
+                                 kind="cached_graph")
 
     def _unflatten(self, entry, outs):
         leaves = list(entry.out_leaves)
@@ -320,13 +394,17 @@ class _CachedGraph:
             stream.wait_stream(torch.cuda.current_stream(device))
             try:
                 with torch.cuda.stream(stream), \
-                        _random.track_generators() as gens:
+                        _random.track_generators() as gens, \
+                        _hooks.tracing(), \
+                        self._counted(entry, tensors) as cost:
                     leaves, _ = forward_outputs()
+                    cost["outputs"] = leaves
                     outs = [o for o in leaves if isinstance(o, torch.Tensor)
                             and o.requires_grad]
                     if recording and outs and wrt:
                         grads_of(outs, [torch.ones_like(o) for o in outs])
                     del leaves, outs
+                entry.cost = _without_outputs(cost)
                 torch.cuda.current_stream(device).wait_stream(stream)
             finally:
                 with torch.no_grad():
@@ -345,7 +423,8 @@ class _CachedGraph:
                         "dropout masks cannot be captured")
                 fwd.register_generator_state(gen)
             with torch.cuda.graph(fwd, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), \
+                    _hooks.silent():
                 leaves, out_spec = forward_outputs()
             entry.out_spec = out_spec
             entry.out_leaves = [_ARR if isinstance(o, torch.Tensor) else o
@@ -363,7 +442,8 @@ class _CachedGraph:
                                     for i in entry.diff_out]
                 bwd = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(bwd, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
+                                      capture_error_mode="thread_local"), \
+                        _hooks.silent():
                     grads = grads_of([entry.static_out[i]
                                       for i in entry.diff_out],
                                      entry.static_cot)

@@ -3,7 +3,9 @@
 Counterpart of ``mxnet_tpu/gluon/loss.py``: the ``Loss`` base (mean over
 every axis but the batch axis, ``_apply_weighting``) and
 ``SoftmaxCrossEntropyLoss``, whose sparse-label path on logits goes
-through the fused ``ops.xent.sparse_softmax_xent``. A loss is per sample,
+through the fused ``ops.xent.sparse_softmax_xent`` (one op under the host
+planes' hooks, named ``sparse_softmax_xent`` as the reference's
+``_invoke`` names it). A loss is per sample,
 of shape ``(batch,)``: ``autograd.backward`` seeds it with ones and
 ``Trainer.step(batch)`` divides by the batch, as in the reference. The
 other losses wait for later slices.
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import amp
+from .. import _hooks, amp
 from ..ops.xent import sparse_softmax_xent
 from .block import HybridBlock
 
@@ -59,7 +61,11 @@ class SoftmaxCrossEntropyLoss(Loss):
             # dispatched under its own name, in no AMP list: the logits keep
             # their dtype (the op sums in fp32 and returns fp32)
             pred, = amp._maybe_cast_op_inputs("sparse_softmax_xent", (pred,))
-            loss = sparse_softmax_xent(pred, label, self._axis)
+            if _hooks.on:
+                loss = _hooks.call(sparse_softmax_xent, "sparse_softmax_xent",
+                                   (pred, label, self._axis), {})
+            else:
+                loss = sparse_softmax_xent(pred, label, self._axis)
         else:
             if not self._from_logits:
                 pred, = amp._maybe_cast_op_inputs("log_softmax", (pred,))

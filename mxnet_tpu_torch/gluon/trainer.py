@@ -23,17 +23,34 @@ the ``trainer.skip_nonfinite`` knob is set: a step whose gradients hold an
 inf or NaN (one reduction over every gradient, one host read) leaves the
 weights as they are, counts itself in ``nonfinite_steps``, backs the loss
 scale off and zeroes the "add" gradients; a clean step lets the scale grow
-(``LossScaler.update_scale(False)``). The reference's telemetry, fault and
-blackbox hooks are host planes that the port does not have.
+(``LossScaler.update_scale(False)``). A skipped step is also recorded as
+the reference records it: ``fault.record("trainer.nonfinite_skip")``,
+``trainer.nonfinite_total`` and, with the flight recorder armed, a
+blackbox ``nonfinite`` bundle.
+
+With telemetry on, ``step`` is wrapped as in the reference
+(trainer.py:255-360): ``trainer.steps_total``, ``trainer.step_seconds``
+and the global gradient norm, one fp32 device scalar a step pushed into a
+``pipeline.DeferredWindow`` (no host read on the step; fetched when the
+window overflows or at ``drain_telemetry()``, which also refreshes the
+``memory.*`` gauges, inside a ``train.drain`` span while tracing). The
+finite check is a host sync and reports to ``pipeline.sync_guard``.
 """
 from __future__ import annotations
 
+import math
 import os
+import time
 
 import torch
 
+from .. import blackbox as _blackbox
 from .. import config
+from .. import fault as _fault
 from .. import optimizer as opt
+from .. import pipeline as _pipeline
+from .. import telemetry as _telemetry
+from .. import trace as _trace
 from ..amp.loss_scaler import LossScaler, all_finite
 from ..base import MXNetError
 from .parameter import Parameter
@@ -122,6 +139,8 @@ class Trainer:
         self.nonfinite_steps = 0
         #: the AMP loss scaler, attached by ``amp.scale_loss``
         self._amp_loss_scaler = None
+        #: deferred grad norms (telemetry on), created at the first step
+        self._norm_window = None
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -165,14 +184,66 @@ class Trainer:
     def _grads_finite(self):
         """Whether every gradient is finite: one reduction over all of
         them, one host read."""
+        if _pipeline._guard_depth:
+            _pipeline.note_host_sync("trainer.finite_check")
         return all_finite(p.grad() for p in self._params
                           if p.grad_req != "null")
+
+    # -- telemetry: the deferred grad norm --------------------------------------
+    def _grad_norm_device(self):
+        """Global gradient L2 norm as one fp32 device scalar, not read
+        here (``_note_grad_norm`` defers the read)."""
+        grads = [p.grad() for p in self._params
+                 if p.grad_req != "null" and p.grad() is not None]
+        if not grads:
+            return None
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    @staticmethod
+    def _observe_grad_norm(norm):
+        if math.isfinite(norm):
+            _telemetry.observe("trainer.grad_norm", norm)
+
+    def _note_grad_norm(self):
+        """Record the step's grad norm without a sync: the device scalar
+        goes into a bounded DeferredWindow, read when it overflows or at
+        ``drain_telemetry()``."""
+        dev = self._grad_norm_device()
+        if dev is None:
+            return
+        if self._norm_window is None:
+            self._norm_window = _pipeline.DeferredWindow()
+        self._norm_window.push(dev, self._observe_grad_norm)
+
+    def drain_telemetry(self):
+        """Read every deferred grad norm into the ``trainer.grad_norm``
+        histogram and refresh the ``memory.*`` gauges (reference:
+        trainer.py ``drain_telemetry``): call at epoch boundaries or
+        before ``telemetry.snapshot()``."""
+        pending = len(self._norm_window) if self._norm_window is not None \
+            else 0
+        with _trace.span("train.drain", category="train", pending=pending):
+            if self._norm_window is not None:
+                self._norm_window.drain()
+            if _telemetry._active:
+                _telemetry.record_memory()
 
     def _skip_step(self):
         """Absorb a non-finite step: the weights stay, the count grows, the
         loss scale backs off, and "add" gradients are cleared so the poison
-        does not reach the next step."""
+        does not reach the next step; the skip is recorded in the fault
+        plane, telemetry and (armed) a blackbox bundle."""
         self.nonfinite_steps += 1
+        _fault.record("trainer.nonfinite_skip")
+        if _telemetry._active:
+            _telemetry.inc("trainer.nonfinite_total")
+        if _blackbox._active:
+            # non-finite escalation is a terminal-class anomaly: freeze
+            # the evidence window while the poisoned state is still live
+            _blackbox.dump(trigger="nonfinite",
+                           reason=f"non-finite gradients skipped "
+                                  f"(count={self.nonfinite_steps})")
         if self._amp_loss_scaler is not None:
             self._amp_loss_scaler.update_scale(True)
         for p in self._params:
@@ -182,7 +253,22 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce, then update with gradients rescaled by
         ``1 / batch_size`` (reference: trainer.py ``step``); with the guard
-        active, a step with an inf or NaN gradient is skipped."""
+        active, a step with an inf or NaN gradient is skipped. With
+        telemetry on: wall time, step count and the deferred grad norm
+        (observed before the update, so a skipped step still reports what
+        blew up)."""
+        if not _telemetry._active:
+            return self._step_impl(batch_size)
+        t0 = time.perf_counter()
+        self._note_grad_norm()
+        try:
+            return self._step_impl(batch_size)
+        finally:
+            _telemetry.inc("trainer.steps_total")
+            _telemetry.observe("trainer.step_seconds",
+                               time.perf_counter() - t0)
+
+    def _step_impl(self, batch_size):
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         if self._guard_active():

@@ -14,8 +14,10 @@ function and wraps the result. Outside ``autograd.record()`` it runs under
 differentiated. It copies nothing from the host and never synchronizes for
 tensor and Python-scalar arguments, so a hybridized forward written in
 ``mx.np`` captures into a CUDA graph. ``_invoke`` is the one place every op
-passes: the host planes' hooks (profiler spans, fault injection, telemetry
-counters) go there.
+passes: the host planes' hooks run there, in the reference's order (a
+profiler ``"operator"`` span named by the op, the ``invoke.nan_output``
+fault probe, the ``invoke.ops_total`` counter: ``_hooks.call``), behind one
+module-attribute read (``_hooks.on``) while every plane is off.
 
 Mutation rebinds, as in the reference: ``a[:] = v``, ``a += 1``,
 ``copyto`` and ``out=`` give the wrapper new storage and bump its
@@ -32,7 +34,7 @@ from __future__ import annotations
 import numpy as onp
 import torch
 
-from .. import autograd
+from .. import _hooks, autograd
 from ..base import (MXNetError, host_dtype, np_dtype, scalar_dtype,
                     torch_dtype)
 from ..context import Context, resolve_device
@@ -159,7 +161,16 @@ def _cast(a, dt):
 def _invoke(prim, args, kwargs=None, name=None):
     """Dispatch one op: unwrap, the AMP policy by ``name``, the torch call
     (under ``torch.no_grad()`` unless ``autograd.record()`` records), wrap
-    (reference: ``multiarray.py:151`` ``_invoke``)."""
+    (reference: ``multiarray.py:151`` ``_invoke``), under the host planes'
+    hooks while one is on."""
+    if _hooks.on:
+        return _hooks.call(_invoke_impl, name or getattr(
+            prim, "__name__", "op"), (prim, args, kwargs, name), {},
+            wrapped=True)
+    return _invoke_impl(prim, args, kwargs, name)
+
+
+def _invoke_impl(prim, args, kwargs, name):
     global _amp
     state = [None, args]
     args = [_unwrap(a, state) for a in args]

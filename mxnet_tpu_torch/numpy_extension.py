@@ -24,7 +24,15 @@ Every public op takes ``mx.np`` arrays as well as tensors: given an
 ``ndarray`` it goes through ``numpy.multiarray._invoke`` and returns
 ``ndarray``s (``_arrays``); given tensors it runs directly. The layers and
 the model zoo call the undecorated ops of :data:`tensor_ops`, so their
-tensor calls pay no check for arrays.
+tensor calls pay no check for arrays. The host planes' hooks (``_hooks``:
+profiler span, ``invoke.nan_output``, ``invoke.ops_total``) run on both
+paths under the reference's ``_invoke`` names (:data:`_REF_NAMES`:
+``fully_connected``, ``activation:<act_type>``, ``pooling:<pool_type>``,
+``leaky_relu:gelu`` for ``gelu``, ``reshape`` for ``flatten``, ``getitem``
+for ``slice_axis``, ...), so a Gluon forward counts and names its ops as
+the reference's does. While every plane is off, ``tensor_ops`` holds the
+undecorated functions themselves; ``_hooks.refresh`` swaps in their
+hooked versions while one is on.
 ``fully_connected``, ``layer_norm``, ``softmax`` / ``log_softmax``,
 ``embedding`` and ``pooling`` take the reference's arguments
 (``num_hidden`` / ``no_bias``; ``axis``; ``length`` / ``use_length``, the
@@ -43,6 +51,7 @@ of a recorded graph.
 from __future__ import annotations
 
 import functools
+import inspect
 import math
 import types
 
@@ -50,8 +59,9 @@ import numpy as onp
 import torch
 import torch.nn.functional as F
 
+from . import _hooks
 from .base import MXNetError
-from .numpy.multiarray import _invoke, array, ndarray
+from .numpy.multiarray import _invoke_impl, array, ndarray
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "fused_conv_bn_relu", "flatten", "layer_norm", "softmax",
@@ -63,6 +73,44 @@ __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "load"]
 
 
+#: the reference's ``_invoke`` name of each op (a str, or the argument
+#: whose value follows a prefix), for the host planes' hooks; the AMP
+#: policy is the op's own (each op casts its inputs by that name)
+_REF_NAMES = {
+    "pooling": ("pooling:", "pool_type"),
+    "activation": ("activation:", "act_type"),
+    "leaky_relu": ("leaky_relu:", "act_type"),
+    "gelu": "leaky_relu:gelu",
+    "flatten": "reshape",
+    "slice_axis": "getitem",
+}
+
+
+def _ref_name(fn, args, kwargs):
+    name = _REF_NAMES.get(fn.__name__, fn.__name__)
+    if isinstance(name, str):
+        return name
+    prefix, arg = name
+    bound = _signature(fn).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return prefix + str(bound.arguments[arg])
+
+
+@functools.lru_cache(maxsize=None)
+def _signature(fn):
+    return inspect.signature(fn)
+
+
+def _array_call(fn, args, kwargs):
+    # the AMP lookup name stays "npx.<op>", which no list holds: the op
+    # casts its own inputs
+    if _hooks.on:
+        return _hooks.call(_invoke_impl, _ref_name(fn, args, kwargs),
+                           (fn, args, kwargs, "npx." + fn.__name__), {},
+                           wrapped=True)
+    return _invoke_impl(fn, args, kwargs, "npx." + fn.__name__)
+
+
 def _arrays(fn):
     """``fn`` over tensors, taking ``mx.np`` arrays too: an ``ndarray``
     argument sends the call through ``_invoke`` (``ndarray``s out);
@@ -71,10 +119,10 @@ def _arrays(fn):
     def op(*args, **kwargs):
         for a in args:
             if type(a) is ndarray:
-                return _invoke(fn, args, kwargs, name="npx." + fn.__name__)
+                return _array_call(fn, args, kwargs)
         for a in kwargs.values():
             if type(a) is ndarray:
-                return _invoke(fn, args, kwargs, name="npx." + fn.__name__)
+                return _array_call(fn, args, kwargs)
         return fn(*args, **kwargs)
     return op
 
@@ -538,10 +586,32 @@ def load(file, ctx=None, device=None):
                 for k in data.files}
 
 
-#: the ops over tensors, undecorated: the layers' and the model zoo's calls
-tensor_ops = types.SimpleNamespace(**{
-    name: globals()[name].__wrapped__ for name in __all__
-    if hasattr(globals()[name], "__wrapped__")})
+_PLAIN = {name: globals()[name].__wrapped__ for name in __all__
+          if hasattr(globals()[name], "__wrapped__")}
+
+
+def _hooked(fn):
+    def op(*args, **kwargs):
+        return _hooks.call(fn, _ref_name(fn, args, kwargs), args, kwargs)
+    op.__name__ = op.__qualname__ = fn.__name__
+    op.__wrapped__ = fn
+    return op
+
+
+_HOOKED = {name: _hooked(fn) for name, fn in _PLAIN.items()}
+
+#: the ops over tensors, as the layers and the model zoo call them: the
+#: undecorated functions while every host plane is off, their hooked
+#: versions while one is on (:func:`_set_hooked`)
+tensor_ops = types.SimpleNamespace(**_PLAIN)
+
+
+def _set_hooked(on):
+    for name, fn in (_HOOKED if on else _PLAIN).items():
+        setattr(tensor_ops, name, fn)
+
+
+_hooks.register(_set_hooked)
 
 # at the end: amp imports ops.quant_matmul (through amp.fp8), which reads
 # this module's _ACTS

@@ -68,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
+from .. import insight as _insight
 from ..base import MXNetError
 
 __all__ = ["conv3x3_bn_relu_ref", "bwd_stats", "fused_conv3x3_bn_relu_bwd",
@@ -432,6 +433,9 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     fused_conv3x3_bn_relu_bwd.launches += 1
     fused_conv3x3_bn_relu_bwd.bf16_launches += int(bf16)
     fused_conv3x3_bn_relu_bwd.shape_launches[(n, h, wd, c, o)] += 1
+    if _insight._counting:
+        # dgrad and wgrad: 9 taps of an (N*H*W, C) x (C, O) product each
+        _insight.add_flops(2 * 2 * 9 * n * h * wd * c * o)
     tag = "_bf16" if bf16 else ""
     launches["wcopy_bf16" if bf16 else "wsplit"] += 1
     launches["dgrad" + tag] += 1

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from .. import _native
+from .. import insight as _insight
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "attention", "FlashAttentionFunction",
@@ -231,6 +232,24 @@ def _launch(lib, name, err_fn, rc, q, k):
                          f"d={q.shape[2]} {q.dtype})")
 
 
+def _pairs(sq, sk, causal):
+    """Visible (q, k) pairs of one head (top-left causal)."""
+    if not causal:
+        return sq * sk
+    if sq <= sk:
+        return sq * (sq + 1) // 2
+    return sk * (sk + 1) // 2 + (sq - sk) * sk
+
+
+def _add_flops(per_pair, q, k, causal):
+    """The kernel's FLOPs for a running ``insight.count`` (the aten ops'
+    counter does not see a kernel launched through its C interface):
+    ``per_pair`` x head_dim per visible pair and head, as PERF.md's bounds
+    reckon them (forward 4, dK/dV 8, dQ 6)."""
+    bh, sq, d = q.shape
+    _insight.add_flops(per_pair * d * bh * _pairs(sq, k.shape[1], causal))
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Attention forward on contiguous ``(b*h, s, d)``: ``(out, lse)``.
 
@@ -255,6 +274,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     _launch(lib, "flash_attention_fwd", "flash_attention_error_string", rc,
             q, k)
     flash_attention_fwd.launches += 1
+    if _insight._counting:
+        _add_flops(4, q, k, causal)
     return out, lse
 
 
@@ -287,6 +308,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     _launch(lib, "flash_attention_bwd_dkv",
             "flash_attention_bwd_error_string", rc, q, k)
     flash_attention_bwd_dkv.launches += 1
+    if _insight._counting:
+        _add_flops(8, q, k, causal)
     return dk, dv
 
 
@@ -317,6 +340,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
     _launch(lib, "flash_attention_bwd_dq",
             "flash_attention_bwd_error_string", rc, q, k)
     flash_attention_bwd_dq.launches += 1
+    if _insight._counting:
+        _add_flops(6, q, k, causal)
     return dq
 
 

@@ -46,6 +46,7 @@ import functools
 import torch
 
 from .. import _native
+from .. import insight as _insight
 from ..base import MXNetError
 from ..numpy_extension import _ACTS
 
@@ -263,6 +264,8 @@ def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
         torch.cuda.current_stream(x.device).cuda_stream),
         f"M={m} N={n} K={k} fmt={fmt}")
     fp8_matmul.launches += 1
+    if _insight._counting:
+        _insight.add_flops(2 * m * n * k)
     return out
 
 
@@ -368,6 +371,8 @@ def quantized_matmul(x, w_q, w_scale, x_scale, bias=None, act=None):
           torch.empty((n, kp), dtype=torch.int8, device=x.device))
     _int8_launch(x, w_q, w_scale, xs, bias, act, out, xq, wq)
     quantized_matmul.launches += 1
+    if _insight._counting:
+        _insight.add_flops(2 * m * n * k)
     return out
 
 

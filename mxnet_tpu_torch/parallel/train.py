@@ -27,14 +27,24 @@ Weights are updated in place in the block's own parameters, so
 stale until it is called). What raises, naming the missing piece: a mesh
 axis above 1, ``zero``, ``grad_accum``, ``steps_per_call``, ``remat`` and
 ``param_specs``. Not ported: ``prefetch``, ``autotune``, ``rebuild``,
-``state_dict``/``save_states``, telemetry.
+``state_dict``/``save_states``, and the mesh and ZeRO byte counters.
+
+The host planes, as the reference's step feeds them: with the flight
+recorder armed, each call sets the bundle context's ``step``; with
+mx.insight on, the first call's cost is counted (``insight.count``) and
+registered as ``parallel.train_step``, and every call feeds
+``insight.note_step`` (the interval between calls: no device sync).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from .. import autograd as _autograd
+from .. import blackbox as _blackbox
 from .. import config as _config
+from .. import insight as _insight
 from ..amp import fp8 as _fp8
 from ..base import MXNetError
 from .mesh import Mesh, MeshConfig
@@ -202,14 +212,28 @@ class ShardedTrainStep:
         opt = self.fopt.opt
         base = opt.num_update
         opt.num_update = base + 1
+        if _blackbox._active:
+            # keep the flight recorder's step current so a crash bundle
+            # is named for (and attributes evidence to) the right step
+            _blackbox.set_context(step=int(base) + 1)
         lr = opt.lr_scheduler(base + 1) if opt.lr_scheduler else opt.lr
         for w in self.params.values():
             w.grad = None
-        loss, fwd_amax, gsc = self._forward(inputs, labels)
-        if loss.numel() != 1:
-            raise MXNetError(f"loss_fn must return a scalar, got shape "
-                             f"{tuple(loss.shape)}")
-        torch.autograd.backward(loss.reshape(()))
+        label = getattr(self, "_insight_label", "parallel.train_step")
+        counting = _insight._active and not getattr(self, "_insight_done",
+                                                    False)
+        with _insight.count([*batch, *self.params.values()]) if counting \
+                else contextlib.nullcontext({}) as cost:
+            loss, fwd_amax, gsc = self._forward(inputs, labels)
+            if loss.numel() != 1:
+                raise MXNetError(f"loss_fn must return a scalar, got shape "
+                                 f"{tuple(loss.shape)}")
+            torch.autograd.backward(loss.reshape(()))
+            cost["outputs"] = loss
+        if counting:
+            self._insight_done = True
+            _insight.register_executable(label, args=batch, cost=cost,
+                                         kind="train")
         grads = {n: w.grad if w.grad is not None else torch.zeros_like(w)
                  for n, w in self.params.items()}
         self.fopt.update(self.params, grads, self.states, lr=lr, t=base + 1)
@@ -222,6 +246,10 @@ class ShardedTrainStep:
                       for s, g in gsc.items()}
             self.extra["fp8"] = _fp8.roll_state(self.extra["fp8"], fwd_amax,
                                                 g_amax)
+        if _insight._active:
+            # steady-state loop time from call inter-arrival: measured on
+            # wall clocks the caller already pays, no device sync
+            _insight.note_step(label)
         return loss.detach().reshape(())
 
     def sync_to_block(self):

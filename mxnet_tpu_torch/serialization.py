@@ -16,8 +16,9 @@ hand bf16 parameters over widened to float32 (``functional.
 param_arrays``, exact), and a BF16 record of a file (safetensors ``BF16``,
 legacy type flag 12) loads widened to float32, exactly;
 ``Block.load_parameters`` rounds it back into a bf16 parameter. The
-reference's fault-injection hook (``serialization.torn_write``) belongs to
-a host plane the port does not have.
+reference's fault-injection site is here too: ``serialization.torn_write``
+truncates what ``atomic_write_bytes`` persists, and checksum validation is
+the recovery that catches it.
 """
 from __future__ import annotations
 
@@ -64,9 +65,17 @@ def atomic_write_bytes(path, data):
 
     Checksum validation (``write_checksum`` / ``verify_checksum``) catches
     what atomic replace cannot prevent: disk-level corruption.
+
+    Injection: ``serialization.torn_write`` silently truncates the
+    persisted bytes — emulating disk/filesystem-level corruption that
+    atomic replace cannot prevent.
     """
-    persisted = data if isinstance(data, (bytes, bytearray, memoryview)) \
+    from . import fault as _fault
+    data = data if isinstance(data, (bytes, bytearray, memoryview)) \
         else bytes(data)
+    persisted = data
+    if _fault._active and _fault.fire("serialization.torn_write"):
+        persisted = data[:max(1, len(data) // 2)]
     _clean_stale_tmp(path)
     tmp = f"{path}.tmp-{os.getpid()}"
     try:

@@ -49,21 +49,49 @@ the counterpart of an ahead-of-time executable is a CUDA graph:
 The engine holds its own copy of the model's weights (the reference's
 engine holds the arrays it read at construction): a weight swap never
 changes the model, and changes to the model after construction do not
-reach the engine. The reference's telemetry, trace spans, ``/healthz``
-provider, SLO objectives and burn rate, phase reservoir and
-``serve.prefix_evict`` fault injection are not ported yet.
+reach the engine.
+
+The host planes, as the reference's engine feeds them: the ``serve.*``
+metrics (requests, admissions, completions, tokens, TTFT and TPOT observed
+at drain, rejections, queue depth, slot occupancy, prefix and speculation
+counters); ``mx.trace`` spans (a ``serve.request`` root per request with
+``serve.enqueue``, ``serve.prefill``, one ``serve.decode_step`` per step
+and ``serve.drain`` children); a ``/healthz`` provider (red while
+stopping, when the step loop stalls past ``serve.health_window`` with work
+pending, or when a declared SLO's error budget burns past
+``goodput.burn_threshold``), ``slo_burn`` over the ``serve.slo_ttft_ms`` /
+``serve.slo_tpot_ms`` objectives; the phase reservoir of
+``stats()["phases"]`` (``serve.phase_sampling``); the
+``serve.prefix_evict`` fault point; ``telemetry.note_compile`` and
+``insight.register_executable`` for each built graph, its cost counted on
+the warm-up run; a goodput ``drain`` bracket around ``stop()``; and a
+blackbox bundle when ``run()`` dies. A graph's ops count once, on its
+warm-up run (``_hooks.tracing``); its capture and every later call (an
+eager call on the CPU too) run them without hooks. Every hook is host
+work outside the graphs, and none synchronizes: TTFT and TPOT are taken
+when the deferred window drains.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
+import weakref
 
 import numpy as onp
 import torch
 
+from .. import _hooks
 from .. import config as _config
+from .. import fault as _fault
 from .. import functional as _functional
+from .. import goodput as _goodput
+from .. import insight as _insight
+from .. import pipeline as _pipeline
+from .. import profiler as _profiler
 from .. import random as _random
+from .. import telemetry as _telemetry
+from .. import trace as _trace
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ops.attention import _leaves, gather_cache_rows
@@ -71,6 +99,124 @@ from . import quantize as _quantize
 from .prefix import RadixIndex
 
 __all__ = ["Request", "ServeEngine", "EngineBusy", "load", "QUANTIZE_MODES"]
+
+_telemetry.declare_metric(
+    "serve.requests_total", "counter",
+    "requests submitted to serve engines")
+_telemetry.declare_metric(
+    "serve.admitted_total", "counter",
+    "requests admitted into a decode slot (prefill dispatched)")
+_telemetry.declare_metric(
+    "serve.completed_total", "counter",
+    "requests finished (EOS or token budget)")
+_telemetry.declare_metric(
+    "serve.tokens_total", "counter",
+    "generated tokens delivered to requests")
+_telemetry.declare_metric(
+    "serve.prefill_tokens_total", "counter",
+    "prompt tokens processed by prefill (bucket-padded length)")
+_telemetry.declare_metric(
+    "serve.steps_total", "counter",
+    "continuous-batching decode steps dispatched")
+_telemetry.declare_metric(
+    "serve.step_seconds", "histogram",
+    "host wall time to dispatch one decode step (sync-free: excludes "
+    "device completion)", buckets=_telemetry.TIME_BUCKETS)
+_telemetry.declare_metric(
+    "serve.ttft_seconds", "histogram",
+    "time to first token: submit -> first token drained to the host",
+    buckets=_telemetry.TIME_BUCKETS)
+_telemetry.declare_metric(
+    "serve.tpot_seconds", "histogram",
+    "time per output token after the first (decode cadence per request)",
+    buckets=_telemetry.TIME_BUCKETS)
+_telemetry.declare_metric(
+    "serve.queue_depth", "gauge",
+    "requests waiting for a free slot")
+_telemetry.declare_metric(
+    "serve.rejected_total", "counter",
+    "requests rejected by submit() (engine stopping, or the bounded "
+    "serve.max_queue backpressure) or discarded queued by "
+    "stop(drain=False)")
+_telemetry.declare_metric(
+    "serve.slot_occupancy", "gauge",
+    "slots holding a live request")
+_telemetry.declare_metric(
+    "serve.post_warmup_compiles_total", "counter",
+    "XLA compiles after warmup() — should stay 0; any hit means a "
+    "request shape escaped the bucket grid")
+_telemetry.declare_metric(
+    "serve.quantized_params", "gauge",
+    "parameters stored low-bit by the engine's weight quantization "
+    "(serve.quantize_min_elems / serve.quantize_ndim govern eligibility)")
+_telemetry.declare_metric(
+    "serve.passthrough_params", "gauge",
+    "parameters kept in float by the engine's weight quantization "
+    "(ineligible rank/size, or quantization off)")
+_telemetry.declare_metric(
+    "serve.slo_violations_total", "counter",
+    "requests finishing past a declared serving SLO objective, by kind "
+    "(ttft: serve.slo_ttft_ms at first token; tpot: serve.slo_tpot_ms "
+    "per output token at finish)")
+_telemetry.declare_metric(
+    "serve.slo_burn_rate", "gauge",
+    "per-engine error-budget burn rate against serve.slo_target over "
+    "the trailing window, by kind — 1.0 spends the budget exactly; "
+    "past goodput.burn_threshold the engine's /healthz goes red (the "
+    "autoscaler admission signal)")
+
+_telemetry.declare_metric(
+    "serve.prefix_hits_total", "counter",
+    "admissions that reused a cached KV prefix (radix prefix cache): "
+    "matched blocks were row-copied and only the suffix prefilled")
+_telemetry.declare_metric(
+    "serve.prefix_misses_total", "counter",
+    "admissions that prefilled the whole prompt (no cached prefix, a "
+    "suffix that would overrun max_seq, or a serve.prefix_evict "
+    "injection between match and copy)")
+_telemetry.declare_metric(
+    "serve.prefix_tokens_reused_total", "counter",
+    "prompt tokens whose KV was row-copied from the prefix cache "
+    "instead of recomputed by prefill")
+_telemetry.declare_metric(
+    "serve.prefix_evictions_total", "counter",
+    "KV blocks dropped from the radix index (slot reuse, LRU capacity "
+    "pressure, or the serve.prefix_evict chaos injection)")
+_telemetry.declare_metric(
+    "serve.prefix_blocks", "gauge",
+    "KV blocks currently indexed by the engine's radix prefix cache")
+_telemetry.declare_metric(
+    "serve.spec_rounds_total", "counter",
+    "speculative-decoding rounds dispatched (one draft propose + one "
+    "batched big-model verify per round)")
+_telemetry.declare_metric(
+    "serve.spec_proposed_total", "counter",
+    "draft tokens proposed by speculative decoding (k per live slot "
+    "per round)")
+_telemetry.declare_metric(
+    "serve.spec_accepted_total", "counter",
+    "draft proposals the big-model verify accepted (the emitted "
+    "correction token is not counted)")
+_telemetry.declare_metric(
+    "serve.spec_acceptance_rate", "gauge",
+    "trailing draft-acceptance ratio (accepted / proposed) — the "
+    "knob that decides whether speculation pays for its draft")
+_telemetry.declare_metric(
+    "serve.class_ttft_seconds", "histogram",
+    "per-SLO-class time to first token (labelled slo_class; the "
+    "unlabelled serve.ttft_seconds carries the aggregate)",
+    buckets=_telemetry.TIME_BUCKETS)
+_telemetry.declare_metric(
+    "serve.class_tpot_seconds", "histogram",
+    "per-SLO-class time per output token (labelled slo_class)",
+    buckets=_telemetry.TIME_BUCKETS)
+_telemetry.declare_metric(
+    "serve.class_queue_depth", "gauge",
+    "queued requests per SLO class (labelled slo_class)")
+_telemetry.declare_metric(
+    "serve.aged_admissions_total", "counter",
+    "admissions where starvation aging (serve.class_aging_ms) "
+    "promoted a request ahead of strict class priority")
 
 #: weight-storage modes ServeEngine(quantize=...) understands; combine with
 #: "," (e.g. "int4_weights,int8_kv")
@@ -124,8 +270,8 @@ class Request:
 
     __slots__ = ("id", "prompt", "max_new_tokens", "eos_id", "generated",
                  "slot", "finished", "rejected", "reject_reason",
-                 "t_submit", "t_admitted", "t_first", "t_done",
-                 "slo_class", "prefix_tokens", "_nodes")
+                 "t_submit", "t_admitted", "t_first", "t_done", "phases",
+                 "_span", "_enq", "slo_class", "prefix_tokens", "_nodes")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_id=None,
                  slo_class="default"):
@@ -149,6 +295,12 @@ class Request:
         self.t_admitted = None
         self.t_first = None
         self.t_done = None
+        #: per-phase wall-time samples (seconds), the source of
+        #: stats()["phases"]: unbounded while mx.trace records this
+        #: request, else capped by serve.phase_sampling
+        self.phases = {}
+        self._span = None   # serve.request root (trace.SpanHandle)
+        self._enq = None    # serve.enqueue child, open until admission
 
     @property
     def output_ids(self):
@@ -176,24 +328,13 @@ class Request:
                 f"out={len(self.generated)} tok, {state})")
 
 
-class _EmitWindow:
-    """Bounded FIFO of ``(device tensor, sink)`` pairs whose host fetch is
-    deferred off the step loop: the engine's own copy of the JAX package's
-    ``pipeline.DeferredWindow``. ``push`` never touches the host until the
-    window overflows, when the oldest entry (``window`` steps old, almost
-    always computed by then) is fetched in place."""
-
-    def __init__(self, window):
-        self._window = max(0, int(window))
-        self._pending = []
-
-    def __len__(self):
-        return len(self._pending)
-
-    def push(self, value, sink):
-        self._pending.append((value, sink))
-        while len(self._pending) > self._window:
-            self._drain_one()
+class _EmitWindow(_pipeline.DeferredWindow):
+    """DeferredWindow whose entries are device *tensors* (per-slot token
+    ids and done flags), not scalars: the drain copies one to the host and
+    hands the sink a NumPy array. Overflow keeps the base class's
+    behaviour: the oldest entry (``window`` steps old, almost always
+    computed by then) is fetched in place, counted as a host sync and a
+    ``pipeline.deferred_evictions_total`` tick."""
 
     def _drain_one(self):
         value, sink = self._pending.pop(0)
@@ -201,11 +342,8 @@ class _EmitWindow:
 
     def drain_oldest(self, n=1):
         for _ in range(min(n, len(self._pending))):
-            self._drain_one()
-
-    def drain(self):
-        """Fetch and deliver every pending entry, oldest first."""
-        while self._pending:
+            if _pipeline._guard_depth:
+                _pipeline.note_host_sync("serve.drain")
             self._drain_one()
 
 
@@ -237,6 +375,14 @@ class _Step:
         self.static_out = None
         #: seconds of the warm-up run and the capture
         self.build_s = 0.0
+        #: the cost counted on the warm-up run, while mx.insight is on
+        self.cost = {}
+
+    def cost_analysis(self):
+        """The counted cost under XLA's keys (``insight.capture_cost``)."""
+        return {"flops": self.cost.get("flops"),
+                "bytes accessed": self.cost.get("bytes_accessed"),
+                "bytes accessedout{}": self.cost.get("output_bytes")}
 
     def _inputs(self, host):
         if not self.n_in:
@@ -356,6 +502,9 @@ class ServeEngine:
         del params
         self._params = (pt, qt)
         self._qdtypes = qdt
+        if _telemetry._active and weight_mode:
+            _telemetry.set_gauge("serve.quantized_params", len(qt))
+            _telemetry.set_gauge("serve.passthrough_params", len(pt))
         buckets = _parse_buckets(buckets if buckets is not None
                                  else _config.get("serve.buckets"))
         self.buckets = [b for b in buckets if b <= self.max_seq] \
@@ -388,6 +537,17 @@ class ServeEngine:
         self._completed = []
         self._stopping = False
         self._max_queue = int(_config.get("serve.max_queue"))
+        self._last_step_time = None
+        self._created = time.monotonic()
+        # serving SLO objectives (0 = disarmed) + the always-on bounded
+        # phase reservoir (stats()["phases"] without the tracer)
+        self._slo_ttft = float(_config.get("serve.slo_ttft_ms")) / 1e3
+        self._slo_tpot = float(_config.get("serve.slo_tpot_ms")) / 1e3
+        self._slo_events = collections.deque(maxlen=2048)
+        self._phase_cap = int(_config.get("serve.phase_sampling"))
+        # the prefix/spec graphs are a second planned grid: they count
+        # against their own owner in the recompile detector
+        self._aux_exe_owner = type("ServeAuxGrid", (), {})()
         # -- SLO classes: strict-priority admission over one queue ------
         spec = str(_config.get("serve.slo_classes") or "")
         self._classes = [c.strip() for c in spec.split(",") if c.strip()] \
@@ -468,6 +628,24 @@ class ServeEngine:
             self._draft_cache = draft.init_cache(self.max_slots,
                                                  self.max_seq,
                                                  dtype=cache_dtype)
+        self._register_health()
+
+    def _register_health(self):
+        """Register this engine's /healthz provider: the ops endpoint's
+        /healthz reflects THIS engine's step-loop liveness (a process hosts
+        one serving engine; the newest wins). Bound weakly: a collected
+        engine must not pin a stale check. Re-registered by :meth:`resume`
+        after :meth:`stop` unregistered it."""
+        ref = weakref.ref(self)
+
+        def _check():
+            eng = ref()
+            if eng is None:
+                _telemetry.unregister_health("serve")
+                return True
+            return eng._health()
+
+        self._health_name = _telemetry.register_health("serve", _check)
 
     def _check_model(self, model, what):
         if model.device != self.device:
@@ -650,6 +828,12 @@ class ServeEngine:
         cuda = self.device.type == "cuda"
         rows = [leaf[0] for leaf in _leaves(self._cache_tree())] \
             if n_in else []
+        # the warm-up run's ops count once (the reference traces once);
+        # with mx.insight on, its cost is counted over the weights, cache,
+        # state and inputs it reads and the emit it writes
+        counted = (_insight.count([self._params, self._cache_tree(),
+                                   self._state, warm_inputs])
+                   if _insight._active else contextlib.nullcontext({}))
         with torch.no_grad():
             saved = [t.clone() for t in _leaves(self._state) + rows]
             gen_state = self._gen.get_state()
@@ -658,19 +842,25 @@ class ServeEngine:
                     self._pool = torch.cuda.graph_pool_handle()
                     self._stream = torch.cuda.Stream(self.device)
                 self._stream.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(self._stream):
-                    exe(warm_inputs)
+                with torch.cuda.stream(self._stream), _hooks.tracing(), \
+                        counted as cost:
+                    cost["outputs"] = exe(warm_inputs)
                 torch.cuda.current_stream().wait_stream(self._stream)
             else:
-                exe(warm_inputs)
+                with _hooks.tracing(), counted as cost:
+                    cost["outputs"] = exe(warm_inputs)
+            cost.pop("outputs", None)
+            exe.cost = cost
             for t, s in zip(_leaves(self._state) + rows, saved):
                 t.copy_(s)
             self._gen.set_state(gen_state)
             del saved
             if cuda:
                 try:
-                    exe.capture(self._stream, self._pool,
-                                self._gen if self.temperature > 0 else None)
+                    with _hooks.silent():
+                        exe.capture(self._stream, self._pool,
+                                    self._gen if self.temperature > 0
+                                    else None)
                 except Exception as e:
                     raise MXNetError(f"serve engine: capturing the {key} "
                                      f"graph failed: {e}") from e
@@ -680,6 +870,16 @@ class ServeEngine:
         self.compiles += 1
         if self._warmed:
             self.post_warmup_compiles += 1
+            if _telemetry._active:
+                _telemetry.inc("serve.post_warmup_compiles_total")
+        kind = key if isinstance(key, str) else f"{key[0]}_{key[1]}"
+        owner = self if kind == "decode" or kind.startswith("prefill") \
+            else self._aux_exe_owner
+        _telemetry.note_compile(owner, f"serve.{kind}", exe.build_s,
+                                signatures=len(self._exe))
+        if _insight._active:
+            _insight.register_executable(f"serve.{kind}", compiled=exe,
+                                         args=warm_inputs, kind="serve")
         return exe
 
     def _run(self, key, host=None):
@@ -689,7 +889,10 @@ class ServeEngine:
         if exe is None:
             exe = self._build(key, *self._recipe(key))
         try:
-            with torch.no_grad():
+            # the step's ops counted at its build: no hooks here (on the
+            # CPU the step runs eagerly)
+            with torch.no_grad(), (_hooks.silent() if _hooks.on
+                                   else contextlib.nullcontext()):
                 return exe(host)
         except RuntimeError as e:
             if exe.graph is None:
@@ -774,14 +977,21 @@ class ServeEngine:
                 f"unknown slo_class {cls!r} (serve.slo_classes: "
                 f"{', '.join(self._classes)})")
         if self._stopping:
+            if _telemetry._active:
+                _telemetry.inc("serve.rejected_total", reason="stopping")
             raise EngineBusy("stopping", len(self._queue), self._max_queue,
                              retry_after_hint=self._retry_after_hint())
         if self._max_queue and len(self._queue) >= self._max_queue:
+            if _telemetry._active:
+                _telemetry.inc("serve.rejected_total", reason="queue_full")
             raise EngineBusy("queue_full", len(self._queue), self._max_queue,
                              retry_after_hint=self._retry_after_hint())
         bound = self._class_bounds.get(cls, 0)
         if bound and sum(1 for r in self._queue
                          if r.slo_class == cls) >= bound:
+            if _telemetry._active:
+                _telemetry.inc("serve.rejected_total",
+                               reason="class_queue_full")
             raise EngineBusy("class_queue_full", len(self._queue), bound,
                              retry_after_hint=self._retry_after_hint())
         req = Request(self._next_id, prompt, max_new_tokens,
@@ -789,6 +999,16 @@ class ServeEngine:
                       slo_class=cls)
         self._next_id += 1
         self._queue.append(req)
+        if _trace._active:
+            req._span = _trace.begin("serve.request", category="serve",
+                                     request=req.id,
+                                     prompt_tokens=len(prompt))
+            req._enq = _trace.begin("serve.enqueue", category="serve",
+                                    parent=req._span.context,
+                                    request=req.id)
+        if _telemetry._active:
+            _telemetry.inc("serve.requests_total")
+            _telemetry.set_gauge("serve.queue_depth", len(self._queue))
         return req
 
     def _finish(self, req):
@@ -805,27 +1025,64 @@ class ServeEngine:
             self._prefix.release(list(req._nodes))
             req._nodes = ()
         self._completed.append(req)
+        if req._enq is not None:  # finished without ever being admitted
+            req._enq.end()
+            req._enq = None
+        if req._span is not None:
+            req._span.end(tokens=len(req.generated))
+            req._span = None
+        if _telemetry._active:
+            _telemetry.inc("serve.completed_total")
+            _telemetry.inc("serve.tokens_total", len(req.generated))
+            if req.tpot is not None:
+                _telemetry.observe("serve.tpot_seconds", req.tpot)
+                _telemetry.observe("serve.class_tpot_seconds", req.tpot,
+                                   slo_class=req.slo_class)
+        if self._slo_tpot and req.tpot is not None:
+            self._slo_observe("tpot", req.tpot > self._slo_tpot,
+                              req.slo_class)
 
     def _prefill_sink(self, req):
         def sink(fetched):
+            t0u = _profiler.now_us() if _trace._active else 0
+            span_ctx = req._span.context if req._span is not None else None
             tok, done = int(fetched[0]), bool(fetched[1])
             req.t_first = time.perf_counter()
             req.generated.append(tok)
+            if _telemetry._active and req.ttft is not None:
+                _telemetry.observe("serve.ttft_seconds", req.ttft)
+                _telemetry.observe("serve.class_ttft_seconds", req.ttft,
+                                   slo_class=req.slo_class)
+            if self._slo_ttft and req.ttft is not None:
+                self._slo_observe("ttft", req.ttft > self._slo_ttft,
+                                  req.slo_class)
             if done:
                 self._finish(req)
+            if _trace._active and span_ctx is not None:
+                _trace.emit("serve.drain", t0u, _profiler.now_us() - t0u,
+                            parent=span_ctx, category="serve",
+                            request=req.id, first_token=True)
         return sink
 
     def _decode_sink(self, slot_map):
         def sink(fetched):
+            t0u = _profiler.now_us() if _trace._active else 0
             toks, done = fetched
             for slot, req in slot_map.items():
                 if req.finished:
                     continue  # finished in an older entry of this window
+                span_ctx = (req._span.context
+                            if req._span is not None else None)
                 tok = int(toks[slot])
                 if tok >= 0:
                     req.generated.append(tok)
                 if bool(done[slot]):
                     self._finish(req)
+                if _trace._active and span_ctx is not None and tok >= 0:
+                    _trace.emit("serve.drain", t0u,
+                                _profiler.now_us() - t0u,
+                                parent=span_ctx, category="serve",
+                                request=req.id)
         return sink
 
     def _spec_sink(self, slot_map):
@@ -834,11 +1091,14 @@ class ServeEngine:
         slot always emits at least one token (the model's own), so
         ``emitted - 1`` proposals survived the verify."""
         def sink(fetched):
+            t0u = _profiler.now_us() if _trace._active else 0
             toks, done = fetched[:, :-1], fetched[:, -1]
             k, proposed, accepted = self._spec_k, 0, 0
             for slot, req in slot_map.items():
                 if req.finished:
                     continue  # finished in an older entry of this window
+                span_ctx = (req._span.context
+                            if req._span is not None else None)
                 emitted = [int(t) for t in toks[slot] if int(t) >= 0]
                 req.generated.extend(emitted)
                 if emitted:
@@ -848,8 +1108,20 @@ class ServeEngine:
                     accepted += len(emitted) - 1
                 if bool(done[slot]):
                     self._finish(req)
+                if _trace._active and span_ctx is not None and emitted:
+                    _trace.emit("serve.drain", t0u,
+                                _profiler.now_us() - t0u,
+                                parent=span_ctx, category="serve",
+                                request=req.id, tokens=len(emitted))
             self._spec_proposed += proposed
             self._spec_accepted += accepted
+            if _telemetry._active and proposed:
+                _telemetry.inc("serve.spec_proposed_total", proposed)
+                _telemetry.inc("serve.spec_accepted_total", accepted)
+                _telemetry.set_gauge(
+                    "serve.spec_acceptance_rate",
+                    round(self._spec_accepted
+                          / max(1, self._spec_proposed), 4))
         return sink
 
     def _next_request(self):
@@ -876,6 +1148,8 @@ class ServeEngine:
                 if oldest is not best:
                     req = oldest
                     self._aged_admissions += 1
+                    if _telemetry._active:
+                        _telemetry.inc("serve.aged_admissions_total")
         q.remove(req)
         return req
 
@@ -906,9 +1180,19 @@ class ServeEngine:
         finishes."""
         length = len(req.prompt)
         limit = min(length + req.max_new_tokens - 1, self.max_seq - 1)
+        t0u = _profiler.now_us() if _trace._active else 0
+        t0p = time.perf_counter()
         nodes, start, sbucket = (), 0, None
         if self._prefix is not None:
             nodes = tuple(self._prefix.match(req.prompt))
+            if nodes and _fault._active \
+                    and _fault.fire("serve.prefix_evict"):
+                # chaos: the matched prefix vanishes between match and
+                # copy; the engine falls back to a full prefill
+                dropped = self._prefix.evict_path(list(nodes))
+                if dropped and _telemetry._active:
+                    _telemetry.inc("serve.prefix_evictions_total", dropped)
+                nodes = ()
             if nodes:
                 start = len(nodes) * self._prefix_block
                 sbucket = self.bucket_for(length - start)
@@ -916,7 +1200,9 @@ class ServeEngine:
                     # the padded suffix would overrun the cache rows
                     nodes, start, sbucket = (), 0, None
             # the destination slot's stale rows leave the index first
-            self._prefix.evict_slot(slot)
+            evicted = self._prefix.evict_slot(slot)
+            if evicted and _telemetry._active:
+                _telemetry.inc("serve.prefix_evictions_total", evicted)
         if nodes:
             # per-row source coordinates for the matched prefix; rows past
             # it are identity (dest slot, own row): untouched
@@ -934,9 +1220,15 @@ class ServeEngine:
             req.prefix_tokens = start
             self._prefix.hits += 1
             self._prefix.tokens_reused += start
+            bucket = sbucket
+            if _telemetry._active:
+                _telemetry.inc("serve.prefix_hits_total")
+                _telemetry.inc("serve.prefix_tokens_reused_total", start)
         else:
             if self._prefix is not None:
                 self._prefix.misses += 1
+                if _telemetry._active:
+                    _telemetry.inc("serve.prefix_misses_total")
             bucket = self.bucket_for(length)
             emit = self._run(("prefill", bucket), self._pack_prefill(
                 req.prompt, bucket, slot, length, limit))
@@ -944,10 +1236,28 @@ class ServeEngine:
             path = self._prefix.insert(req.prompt, slot)
             self._prefix.acquire(path)
             req._nodes = tuple(path)
+            if _telemetry._active:
+                _telemetry.set_gauge("serve.prefix_blocks",
+                                     len(self._prefix))
         req.slot = slot
         req.t_admitted = time.perf_counter()
+        if req._enq is not None:
+            req._enq.end()
+            req._enq = None
+        if _trace._active and req._span is not None:
+            _trace.emit("serve.prefill", t0u, _profiler.now_us() - t0u,
+                        parent=req._span.context, category="serve",
+                        request=req.id, slot=slot, bucket=bucket,
+                        prefix_tokens=req.prefix_tokens)
+        if _trace._active or self._phase_cap:
+            self._phase_note(req, "queue_wait",
+                             req.t_admitted - req.t_submit)
+            self._phase_note(req, "prefill", req.t_admitted - t0p)
         self._slots[slot] = req
         self._window.push(emit, self._prefill_sink(req))
+        if _telemetry._active:
+            _telemetry.inc("serve.admitted_total")
+            _telemetry.inc("serve.prefill_tokens_total", bucket)
 
     # -- the serve loop --------------------------------------------------
 
@@ -957,27 +1267,70 @@ class ServeEngine:
         speculative round) for every live slot, defer the result. Returns
         False when fully idle (nothing queued, running, or pending
         drain)."""
+        self._last_step_time = time.monotonic()
         if self._queue and not self._free and len(self._window):
             # starved for slots: reclaim just enough, oldest first
             self._window.drain_oldest(min(len(self._queue),
                                           len(self._window)))
         admitted = self._admit()
         live = {i: r for i, r in enumerate(self._slots) if r is not None}
+        if _telemetry._active:
+            _telemetry.set_gauge("serve.queue_depth", len(self._queue))
+            _telemetry.set_gauge("serve.slot_occupancy", len(live))
+            if len(self._classes) > 1:
+                depth = {c: 0 for c in self._classes}
+                for r in self._queue:
+                    depth[r.slo_class] += 1
+                for c, v in depth.items():
+                    _telemetry.set_gauge("serve.class_queue_depth", v,
+                                         slo_class=c)
         if not live:
             if len(self._window):
                 self._window.drain()
                 return True
             return admitted > 0
+        key = "spec" if self.draft is not None else "decode"
+        if key not in self._exe:
+            self._build(key, *self._recipe(key))
+        t0 = time.perf_counter()
+        emit = self._run(key)
+        dt = time.perf_counter() - t0
         if self.draft is not None:
-            emit = self._run("spec")
             self._spec_rounds += 1
             sink = self._spec_sink(live)
         else:
-            emit = self._run("decode")
             sink = self._decode_sink(live)
         self._steps += 1
+        if _telemetry._active:
+            _telemetry.inc("serve.steps_total")
+            _telemetry.observe("serve.step_seconds", dt)
+            if self.draft is not None:
+                _telemetry.inc("serve.spec_rounds_total")
+        if _trace._active:
+            # one span per live request per step: the dispatch wall time
+            # was measured anyway, so re-stamp it on the shared clock
+            duru = int(dt * 1e6)
+            t0u = _profiler.now_us() - duru
+            for slot, req in live.items():
+                if req._span is not None:
+                    _trace.emit("serve.decode_step", t0u, duru,
+                                parent=req._span.context,
+                                category="serve", request=req.id,
+                                slot=slot, step=self._steps)
+                self._phase_note(req, "decode_step", dt)
+        elif self._phase_cap:
+            for req in live.values():
+                self._phase_note(req, "decode_step", dt)
         self._window.push(emit, sink)
         return True
+
+    def _phase_note(self, req, key, val):
+        """Per-request phase sample: unbounded while the tracer runs, else
+        capped at ``serve.phase_sampling`` samples per phase so
+        stats()["phases"] stays populated at a bounded cost."""
+        lst = req.phases.setdefault(key, [])
+        if _trace._active or len(lst) < self._phase_cap:
+            lst.append(val)
 
     def drain(self):
         """Fetch every deferred emit (host sync); completions land."""
@@ -992,30 +1345,53 @@ class ServeEngine:
         """Drive :meth:`step` until every submitted request finished (or
         ``max_steps`` decode steps elapsed), then drain."""
         steps = 0
-        while self.pending:
-            self.step()
-            steps += 1
-            if max_steps is not None and steps >= max_steps:
-                break
-        self.drain()
+        try:
+            while self.pending:
+                self.step()
+                steps += 1
+                if max_steps is not None and steps >= max_steps:
+                    break
+            self.drain()
+        except Exception as e:
+            # the serving loop is the long-running production surface:
+            # freeze the evidence window with engine state attached before
+            # the exception unwinds (the excepthook dedupes on the same
+            # exception object, so this is the one bundle)
+            from .. import blackbox as _blackbox
+            if _blackbox._active:
+                _blackbox.set_context(serve={
+                    "decode_steps": steps,
+                    "queued": len(self._queue),
+                    "live_slots": sum(1 for s in self._slots
+                                      if s is not None),
+                    "completed": len(self._completed)})
+                _blackbox.dump(trigger="manual",
+                               reason=f"serve.run fatal: "
+                                      f"{type(e).__name__}: {e}", exc=e)
+            raise
         return self
 
     def stop(self, drain=True):
         """Graceful shutdown: from now on :meth:`submit` raises
         :class:`EngineBusy` ("stopping"). ``drain=True`` finishes every
         in-flight and queued request first; ``drain=False`` rejects the
-        queued ones and only fetches already-dispatched emits."""
+        queued ones (each counted in ``serve.rejected_total``) and only
+        fetches already-dispatched emits. Either way the engine's /healthz
+        provider is unregistered; the stop is a goodput ``drain``."""
         if self._stopping:
             return self
         self._stopping = True
-        if drain:
-            self.run()
-        else:
-            while self._queue:
-                req = self._queue.popleft()
-                req.rejected = True
-                req.reject_reason = "stopping"
-            self.drain()
+        tok = _goodput.begin("drain") if _goodput._active else None
+        try:
+            if drain:
+                self.run()
+            else:
+                while self._queue:
+                    self._reject(self._queue.popleft(), "stopping")
+                self.drain()
+        finally:
+            _goodput.end(tok)
+            _telemetry.unregister_health(self._health_name)
         return self
 
     # -- weight swaps ----------------------------------------------------
@@ -1078,16 +1454,97 @@ class ServeEngine:
 
     def resume(self):
         """Re-open a stopped engine after a weight swap: :meth:`submit`
-        admits again. The graphs, KV cache and slot machinery are
+        admits again, and the /healthz provider :meth:`stop` unregistered
+        is registered again. The graphs, KV cache and slot machinery are
         untouched."""
         self._stopping = False
+        self._register_health()
         return self
 
-    def _retry_after_hint(self):
+    def _slo_observe(self, kind, violated, slo_class="default"):
+        """Account one request against the declared SLO objective of
+        ``kind``: the drain-time observation point the burn rate rides."""
+        self._slo_events.append(
+            (time.monotonic(), kind, bool(violated), slo_class))
+        if violated and _telemetry._active:
+            _telemetry.inc("serve.slo_violations_total", kind=kind,
+                           slo_class=slo_class)
+
+    def slo_burn(self, window=300.0):
+        """Per-kind error-budget burn rate over the trailing ``window``
+        seconds: violation rate over the budget ``1 - serve.slo_target``
+        (1.0 spends the budget exactly). {} until an objective is armed
+        and a request has been observed."""
+        budget = 1.0 - float(_config.get("serve.slo_target"))
+        if budget <= 0:
+            return {}
+        cut = time.monotonic() - window
+        out = {}
+        for kind, armed in (("ttft", self._slo_ttft),
+                            ("tpot", self._slo_tpot)):
+            if not armed:
+                continue
+            hits = [v for (t, k, v, _c) in self._slo_events
+                    if k == kind and t >= cut]
+            if not hits:
+                continue
+            burn = (sum(hits) / len(hits)) / budget
+            out[kind] = round(burn, 4)
+            if _telemetry._active:
+                _telemetry.set_gauge("serve.slo_burn_rate",
+                                     round(burn, 4), kind=kind)
+        return out
+
+    def _tpot_p50(self):
+        """Observed TPOT p50 over the most recent completions (the unit of
+        the EngineBusy ``retry_after_hint``); before any request finished,
+        the armed TPOT objective, then 20 ms."""
         tpots = sorted(r.tpot for r in self._completed[-256:]
                        if r.tpot is not None)
-        tpot = tpots[len(tpots) // 2] if tpots else 0.02
-        return tpot * max(1, len(self._queue))
+        if tpots:
+            return tpots[len(tpots) // 2]
+        return self._slo_tpot if self._slo_tpot else 0.02
+
+    def _retry_after_hint(self):
+        return self._tpot_p50() * max(1, len(self._queue))
+
+    def _reject(self, req, reason):
+        """Account a queued request discarded by stop(drain=False): its
+        spans close (rejected=True), ``rejected``/``reject_reason`` flip,
+        and it never reaches a slot."""
+        req.rejected = True
+        req.reject_reason = reason
+        if req._enq is not None:
+            req._enq.end()
+            req._enq = None
+        if req._span is not None:
+            req._span.end(rejected=True)
+            req._span = None
+        if _telemetry._active:
+            _telemetry.inc("serve.rejected_total", reason=reason)
+
+    def _health(self):
+        """/healthz provider: red while stopping; red when the engine has
+        pending work but the step loop has not dispatched within
+        ``serve.health_window`` seconds (a wedged or abandoned loop); red
+        as well when a declared serving SLO's error budget burns past
+        ``goodput.burn_threshold``."""
+        if self._stopping:
+            return {"ok": False, "state": "stopping"}
+        if self._slo_ttft or self._slo_tpot:
+            burn = self.slo_burn()
+            thresh = float(_config.get("goodput.burn_threshold"))
+            if burn and max(burn.values()) > thresh:
+                return {"ok": False, "state": "slo_burn", "burn": burn,
+                        "threshold": thresh}
+        if not self.pending:
+            return {"ok": True, "state": "idle", "steps": self._steps}
+        last = (self._last_step_time if self._last_step_time is not None
+                else self._created)
+        age = time.monotonic() - last
+        window = _config.get("serve.health_window")
+        return {"ok": age < window, "state": "serving",
+                "steps": self._steps, "last_step_age_s": round(age, 3)}
 
     # -- reporting -------------------------------------------------------
 
@@ -1120,6 +1577,30 @@ class ServeEngine:
         for name, vals in (("ttft", ttfts), ("tpot", tpots)):
             out[name] = {"p50": pct(vals, 50), "p95": pct(vals, 95),
                          "p99": pct(vals, 99)}
+        # per-request phase breakdown: unbounded while mx.trace records,
+        # else the bounded always-on reservoir (serve.phase_sampling; None
+        # per phase only when both are off)
+        phases = {}
+        for key, label in (("queue_wait", "queue_wait"),
+                           ("prefill", "prefill"),
+                           ("decode_step", "decode_per_token")):
+            vals = sorted(v for r in done for v in r.phases.get(key, ()))
+            phases[label] = None if not vals else {
+                "p50": pct(vals, 50), "p95": pct(vals, 95),
+                "p99": pct(vals, 99)}
+        out["phases"] = phases
+        if self._slo_ttft or self._slo_tpot:
+            viol = {}
+            for (_t, kind, v, _c) in self._slo_events:
+                if v:
+                    viol[kind] = viol.get(kind, 0) + 1
+            out["slo"] = {
+                "ttft_ms": self._slo_ttft * 1e3 if self._slo_ttft else None,
+                "tpot_ms": self._slo_tpot * 1e3 if self._slo_tpot else None,
+                "target": float(_config.get("serve.slo_target")),
+                "burn": self.slo_burn(),
+                "violations": viol,
+            }
         if self.quantize:
             pt, qt = self._params
             now, was = _quantize.quantized_bytes(pt, qt, self._qdtypes)

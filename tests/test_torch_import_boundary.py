@@ -73,7 +73,12 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.serve.prefix, mxnet_tpu_torch.numpy, "
             "mxnet_tpu_torch.numpy.random, mxnet_tpu_torch.numpy.linalg, "
             "mxnet_tpu_torch.util, mxnet_tpu_torch.dlpack, "
-            "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.initializer; "
+            "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.initializer, "
+            "mxnet_tpu_torch.log, mxnet_tpu_torch.telemetry, "
+            "mxnet_tpu_torch.fault, mxnet_tpu_torch.profiler, "
+            "mxnet_tpu_torch.trace, mxnet_tpu_torch.pipeline, "
+            "mxnet_tpu_torch.goodput, mxnet_tpu_torch.insight, "
+            "mxnet_tpu_torch.blackbox, mxnet_tpu_torch._hooks; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
