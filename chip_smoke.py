@@ -438,8 +438,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``/metrics``, ``/healthz`` and ``/trace`` answer; ``slo_burn()`` is
    finite; nothing is built after ``warmup()``; the greedy tokens are
    phase 3's. One profiled run with the planes off and one with them on
-   give the same synchronizing runtime calls and device-to-host copies,
-   and 192 flash forward events. Then tokens/s and TPOT p50 in turns
+   give the same synchronizing runtime calls and ``cudaMemcpy*`` runtime
+   calls (host events, which the profiler does not drop; the device's
+   copy events it does), and 192 flash forward events. Then tokens/s and TPOT p50 in turns
    (off, on, on, off), printed without a bound.
 29. Phase 27's GPT-2 124M bf16 step from ``mx.np`` arrays under the
    planes: two eager steps under ``profiler.set_state("run")`` with a
@@ -463,6 +464,40 @@ Phases, in order; any failure exits non-zero and prints no result:
    off, twice; medians of 8 loop and 4 step runs each), with the cost
    added per op. The off state against the parent commit is
    ``tools/train_ab.py``'s (``--loop``, ``--np``).
+31. BERT-base bf16 pretraining as GluonNLP's script drives it: phase 20's
+   model, batch and dropout, ``wd_mult`` 0 on every beta, gamma and bias,
+   multi_precision LAMB (lr 1e-4, wd 0.01) on the "local" kvstore,
+   ``gluon.utils.clip_global_norm`` at 1.0 before each step, deferred
+   ``metric.Accuracy`` (NSP) and ``metric.Perplexity`` (masked MLM
+   positions). ``hybrid_ab``: 2 eager and 2 hybridized steps bit for bit,
+   then wall / device ms, busy share and host launch calls a step,
+   printed beside phase 20's AdamW numbers of the same run; kernels 4-5
+   12 each a step (one eager step by the wrappers, a window of 4
+   hybridized steps by profiler events). One step's fp32 masters against
+   the reference's LAMB rule recomputed in float64 on the card from the
+   step's snapshot (masters, clipped gradients, m and v): within 1e-5 of
+   each tensor's largest value and 1e-2 of its step; the bf16 weights are
+   their masters rounded. ``update_on_kvstore=True`` gives the local
+   update's weights bit for bit over 2 steps.
+32. ResNet-50 v1 fp32 as GluonCV's ImageNet script drives it: phase 21's
+   model and batch with ``fused_conv_bn`` "auto", NAG (lr 0.1, momentum
+   0.9, wd 1e-4), ``SoftmaxCrossEntropyLoss(sparse_label=False)`` on
+   labels smoothed by 0.1, deferred ``Accuracy`` and ``TopKAccuracy(5)``.
+   ``hybrid_ab`` as in 31 (cuDNN's deterministic algorithms for the
+   compared steps); kernel 8 16 times a step; the fused NAG bit for bit
+   with the per-parameter Updater over 3 steps of the same gradients.
+33. This slice's surface at small shapes, each on the card against the
+   port's own CPU result from the same inputs (rtol 1e-4, atol 1e-5):
+   every registered optimizer for 3 steps (fp32, and bf16 with
+   ``multi_precision``: masters at the tolerance, weights their masters
+   rounded), the fused families fused against per-parameter on the card
+   bit for bit; every new loss (value, gradient); every new layer
+   (forward, input and parameter gradients); every metric, eager and
+   deferred (top-k also on scores tied on the k-th value);
+   ``clip_global_norm``; the KVStore with 2-bit compression and
+   an optimizer inside; ``grad(create_graph=True)`` to third order, and
+   through a hybridized block the documented ``MXNetError`` (a replayed
+   CUDA graph is first-order only).
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -5059,21 +5094,24 @@ def set_planes(mx, on):
 
 def sync_events(fn):
     """One call of ``fn()`` under ``torch.profiler``: ({runtime call:
-    count} of the synchronizing calls, device-to-host copies, flash
-    forward kernel events)."""
+    count} of the synchronizing calls, the host's ``cudaMemcpy*`` runtime
+    calls (copies of every direction), flash forward kernel events). The
+    first two are host runtime events; only the third is a device event,
+    which the profiler drops now and then."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
-    calls, dtoh, flash = {}, 0, 0
+    calls, copies, flash = {}, 0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            dtoh += "DtoH" in e.name
             flash += "flash_fwd" in e.name
         elif e.name in SYNC_CALLS:
             calls[e.name] = calls.get(e.name, 0) + 1
-    return calls, dtoh, flash
+        elif e.name.startswith("cudaMemcpy"):
+            copies += 1
+    return calls, copies, flash
 
 
 def run_stats(reqs, wall):
@@ -5161,7 +5199,7 @@ def phase_serve_planes(dev, card, net, prompts, base_reqs):
             set_planes(mx, True)
             on = sync_events(lambda: serve_run(eng, prompts))
             print(f"  profiled runs {window + 1}: planes off {off}, on {on} "
-                  "(sync calls, DtoH copies, flash forward events)")
+                  "(sync calls, memcpy calls, flash forward events)")
             if on[2] == N_LAYERS * len(prompts):
                 break
         check(on[:2] == off[:2], f"the planes changed the host syncs: off "
@@ -5185,7 +5223,7 @@ def phase_serve_planes(dev, card, net, prompts, base_reqs):
                                  "ttft_count"), got)),
            "request_span_trees": len(roots), "slo_burn": burn,
            "sync_calls_off": off[0], "sync_calls_on": on[0],
-           "dtoh_off": off[1], "dtoh_on": on[1],
+           "memcpy_calls_off": off[1], "memcpy_calls_on": on[1],
            "flash_fwd_events": on[2],
            "post_warmup_compiles": eng.post_warmup_compiles}
     for state, label in ((False, "off"), (True, "on")):
@@ -5461,6 +5499,673 @@ def phase_disabled_cost(dev, card):
     del net
     return out
 
+
+# -- the rest of training (phases 31-33) ----------------------------------------
+
+#: GluonNLP's BERT pretraining optimizer (phase 31)
+LAMB_OPT = {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True}
+#: a master against the float64 LAMB rule: of the tensor's largest value,
+#: and of the step's largest magnitude
+LAMB_MASTER_TOL, LAMB_STEP_TOL = 1e-5, 1e-2
+#: GluonCV's ImageNet ResNet optimizer and label smoothing (phase 32)
+NAG_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+LABEL_SMOOTHING = 0.1
+
+
+def trainable_grads(params):
+    return [p.grad() for p in params.values() if p.grad_req != "null"]
+
+
+def lamb_float64_check(params, trainer, forward_backward):
+    """One LAMB step against the reference's rule recomputed in float64
+    on the card from the step's snapshot (each fp32 master, its clipped
+    gradient and its (m, v)): (worst master error of the tensor's largest
+    value, worst error of the step's largest magnitude, tensors, whether
+    every bf16 weight is its master rounded)."""
+    forward_backward()
+    opt = trainer.optimizer
+    snap = {}
+    plist = list(params.values())
+    for i, p in enumerate(plist):
+        if p.grad_req == "null":
+            continue
+        master, (m, v) = trainer._updater.states[i]
+        snap[i] = [t.detach().double().clone()
+                   for t in (master, m, v, p.grad())]
+    t = opt.num_update + 1
+    rescale = trainer._scale / BERT_BATCH
+    trainer.step(BERT_BATCH)
+    b1, b2, eps, lr = opt.beta1, opt.beta2, opt.epsilon, opt.learning_rate
+    worst_w, worst_step, rounded = 0.0, 0.0, True
+    for i, (w, m, v, g) in snap.items():
+        g = g * rescale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        r = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + eps) \
+            + opt._get_wd(i) * w
+        wn, rn = w.norm(), r.norm()
+        ratio = torch.where((wn > 0) & (rn > 0), wn / rn,
+                            torch.ones_like(wn))
+        ref = w - lr * ratio * r
+        master = trainer._updater.states[i][0]
+        err = (master.double() - ref).abs().max()
+        worst_w = max(worst_w, (err / ref.abs().max().clamp_min(1e-30))
+                      .item())
+        worst_step = max(worst_step, (err / (ref - w).abs().max()
+                                      .clamp_min(1e-30)).item())
+        rounded &= torch.equal(plist[i].data(),
+                               master.to(plist[i].dtype))
+    return worst_w, worst_step, len(snap), rounded
+
+
+def phase_bert_lamb(dev, card, adamw):
+    """BERT-base bf16 pretraining as GluonNLP's script drives it (phase
+    31): phase 20's model, batch and dropout; ``wd_mult`` 0 on every beta,
+    gamma and bias; LAMB with ``multi_precision`` on the local kvstore;
+    ``clip_global_norm`` at 1.0; deferred Accuracy (NSP) and Perplexity
+    (MLM) metrics. Eager against hybridized (``hybrid_ab``), the LAMB
+    masters against the float64 rule, ``update_on_kvstore=True`` against
+    the local update."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    print(f"== phase 31: BERT-base bf16 pretraining under LAMB (net.cast, "
+          f"wd_mult 0 on beta/gamma/bias, multi_precision LAMB on the "
+          f"local kvstore, clip_global_norm 1.0, deferred metrics; batch "
+          f"{BERT_BATCH} x seq {BERT_SEQ}) on {card}", flush=True)
+    net = BERTForPretraining(
+        vocab_size=BERT_VOCAB, units=768, hidden_size=3072, num_layers=12,
+        num_heads=12, max_length=512, dropout=0.1, embed_dropout=0.1,
+        device=dev).initialize(seed=0)
+    net.cast("bfloat16")
+    no_decay = net.collect_params(".*beta|.*gamma|.*bias")
+    for p in no_decay.values():
+        p.wd_mult = 0.0
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    start = params_snapshot(params)
+    ids, types, valid, labels, weight, nsp = bert_batch(dev)
+    # the masked positions, read once here (no host read in a step)
+    sel = weight.reshape(-1).nonzero().squeeze(1)
+    mlm_labels = labels.reshape(-1).index_select(0, sel)
+    mlm_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nsp_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    gen = mx.random.default_generator(dev)
+    made = {}
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+
+    def forward_backward():
+        with mx.autograd.record():
+            mlm, nsp_scores = net(ids, types, valid)
+            loss = mlm_loss(mlm, labels, weight) + nsp_loss(nsp_scores, nsp)
+        mx.autograd.backward(loss)
+        mx.gluon.utils.clip_global_norm(trainable_grads(params), 1.0)
+        return loss, mlm, nsp_scores
+
+    def make_step(update_on_kvstore=False):
+        trainer = mx.gluon.Trainer(params, "lamb", dict(LAMB_OPT),
+                                   kvstore="local",
+                                   update_on_kvstore=update_on_kvstore)
+        acc = mx.gluon.metric.Accuracy().defer()
+        ppl = mx.gluon.metric.Perplexity().defer()
+        made.update(trainer=trainer, acc=acc, ppl=ppl)
+
+        def step():
+            loss, mlm, nsp_scores = forward_backward()
+            trainer.step(BERT_BATCH)
+            acc.update([nsp], [nsp_scores])
+            probs = torch.softmax(mlm.reshape(-1, BERT_VOCAB)
+                                  .index_select(0, sel).float(), -1)
+            ppl.update([mlm_labels], [probs])
+            check(trainer._fused_update is False,
+                  "LAMB took a fused update")
+            return loss.detach().mean()
+        return step
+
+    tokens = BERT_BATCH * BERT_SEQ
+    e2e = hybrid_ab("BERT-base bf16 LAMB", card, [net, mlm_loss, nsp_loss],
+                    make_step, restore, params, lambda: mx.random.seed(0),
+                    ("ln_residual_fwd", "ln_residual_bwd"),
+                    {"ln_residual_fwd": N_LAYERS,
+                     "ln_residual_bwd": N_LAYERS}, tokens, BERT_BATCH,
+                    6 * n_params * tokens,
+                    extra_state=lambda: gen.get_state().tolist())
+    metrics = dict([made["acc"].get(), made["ppl"].get()])
+    # the main path's eager step by the wrappers' counts
+    step = make_step()
+    zero_all_counters()
+    step()
+    torch.cuda.synchronize()
+    eager = ln_counters(lr)
+    print(f"one eager LAMB step: ln_residual fwd / bwd launches {eager}; "
+          f"metrics over the hybrid_ab steps {metrics}")
+    check(eager == [N_LAYERS, N_LAYERS], f"phase 31: ln_residual launches "
+                                         f"{eager} a step, expected "
+                                         f"{N_LAYERS} each")
+    check(all(math.isfinite(v) for v in metrics.values())
+          and metrics["perplexity"] > 1, f"phase 31 metrics {metrics}")
+    # the masters against the float64 rule, on the second step
+    restore()
+    mx.random.seed(0)
+    make_step()()
+    worst_w, worst_step, n_checked, rounded = lamb_float64_check(
+        params, made["trainer"], forward_backward)
+    print(f"LAMB step 2 against the float64 rule: {n_checked} masters, "
+          f"worst {worst_w:.3e} of a tensor's largest value, "
+          f"{worst_step:.3e} of the step's largest magnitude; bf16 weights "
+          f"{'equal' if rounded else 'DIFFER from'} their masters rounded")
+    check(worst_w <= LAMB_MASTER_TOL and worst_step <= LAMB_STEP_TOL
+          and rounded, f"phase 31: LAMB masters {worst_w:.3e} / "
+                       f"{worst_step:.3e} off the float64 rule")
+    # update_on_kvstore=True: the same weights as the local update
+    after = []
+    for on_kv in (False, True):
+        restore()
+        mx.random.seed(0)
+        step = make_step(on_kv)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        check((made["trainer"]._kvstore is not None)
+              and made["trainer"]._update_on_kvstore == on_kv,
+              "phase 31: the kvstore was not used as asked")
+        after.append(params_snapshot(params))
+    kv_diffs = tensor_diffs(*after)
+    print("update_on_kvstore=True after 2 steps: "
+          + ("every weight equal bit for bit to the local update"
+             if not kv_diffs else f"{len(kv_diffs)} tensors DIFFER"))
+    check(not kv_diffs, f"phase 31: update_on_kvstore differs in "
+                        f"{len(kv_diffs)} tensors")
+    side = {k: {m: adamw[m][k] for m in ("eager", "hybrid")}
+            for k in ("step_ms", "device_ms", "device_busy_share",
+                      "host_launch_calls_per_step")}
+    print(f"phase 20 (AdamW) beside phase 31 (LAMB), same run [{card}]: "
+          + json.dumps({"adamw": side, "lamb": {
+              k: {m: e2e[m][k] for m in ("eager", "hybrid")} for k in side}}))
+    e2e.update(eager_step_ln_launches=eager, metrics=metrics,
+               lamb_master_max_rel_err=worst_w,
+               lamb_step_max_rel_err=worst_step,
+               lamb_masters_checked=n_checked,
+               update_on_kvstore_bit_identical=not kv_diffs,
+               adamw_phase_20=side)
+    del net, start, after
+    return e2e
+
+
+def phase_resnet_nag(dev, card):
+    """ResNet-50 v1 fp32 as GluonCV's ImageNet script drives it (phase
+    32): phase 21's model and batch with ``fused_conv_bn`` "auto", NAG
+    (momentum 0.9, wd 1e-4), ``SoftmaxCrossEntropyLoss(sparse_label=
+    False)`` on labels smoothed by 0.1, deferred Accuracy and
+    TopKAccuracy(5); eager against hybridized; the fused NAG against the
+    per-parameter Updater on the same gradients."""
+    import copy
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    print(f"== phase 32: ResNet-50 v1 fp32 under NAG with label smoothing "
+          f"{LABEL_SMOOTHING} (fused_conv_bn 'auto', top-1/top-5 metrics; "
+          f"batch {RESNET_BATCH} x 3 x {RESNET_SIZE} x {RESNET_SIZE}) on "
+          f"{card}", flush=True)
+    net = resnet50_v1(classes=RESNET_CLASSES, device=dev).initialize(seed=0)
+    x, y = resnet_batch(dev)
+    net(x)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values()
+                   if p.grad_req != "null")
+    start = params_snapshot(params)
+    smooth = torch.nn.functional.one_hot(y, RESNET_CLASSES).float() \
+        * (1 - LABEL_SMOOTHING) + LABEL_SMOOTHING / RESNET_CLASSES
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss(sparse_label=False)
+    made = {}
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(start[n])
+
+    def make_step():
+        trainer = mx.gluon.Trainer(params, "nag", dict(NAG_OPT))
+        acc = mx.gluon.metric.Accuracy().defer()
+        top5 = mx.gluon.metric.TopKAccuracy(5).defer()
+        made.update(trainer=trainer, acc=acc, top5=top5)
+
+        def step():
+            with mx.autograd.record():
+                out = net(x)
+                loss = loss_fn(out, smooth)
+            mx.autograd.backward(loss)
+            trainer.step(RESNET_BATCH)
+            check(trainer._fused_update, "NAG did not take the fused "
+                                         "update")
+            acc.update([y], [out])
+            top5.update([y], [out])
+            return loss.detach().mean()
+        return step
+
+    e2e = hybrid_ab("ResNet-50 fp32 NAG", card, [net, loss_fn], make_step,
+                    restore, params, lambda: None,
+                    ("conv_bwd_wsplit_kernel", "conv_bwd_dgrad_kernel",
+                     "conv_bwd_wgrad_kernel"),
+                    {"conv_bwd_wsplit_kernel": RESNET_TRIPLETS,
+                     "conv_bwd_dgrad_kernel": RESNET_TRIPLETS,
+                     "conv_bwd_wgrad_kernel": RESNET_TRIPLETS},
+                    RESNET_BATCH, RESNET_BATCH,
+                    RESNET_BATCH * RESNET50_TRAIN_FLOPS, deterministic=True)
+    metrics = dict([made["acc"].get(), made["top5"].get()])
+    step = make_step()
+    zero_all_counters()
+    step()
+    torch.cuda.synchronize()
+    eager = cb.fused_conv3x3_bn_relu_bwd.launches
+    print(f"one eager NAG step: kernel 8 launches {eager}; metrics over "
+          f"the hybrid_ab steps {metrics}")
+    check(eager == RESNET_TRIPLETS, f"phase 32: kernel 8 launched {eager} "
+                                    f"times a step, expected "
+                                    f"{RESNET_TRIPLETS}")
+    check(all(0 <= v <= 1 for v in metrics.values()), f"phase 32 metrics "
+                                                      f"{metrics}")
+    # the fused NAG against the per-parameter Updater, the same gradients
+    grads = {n: p.grad().detach().clone() for n, p in params.items()
+             if p.grad_req != "null"}
+    nets = [copy.deepcopy(net), copy.deepcopy(net)]
+    trainers = [mx.gluon.Trainer(n.collect_params(), "nag", dict(NAG_OPT))
+                for n in nets]
+    trainers[1]._fused_update = False
+    plist = [n.collect_params() for n in nets]
+    for s in range(3):
+        for ps in plist:
+            for n, g in grads.items():
+                ps[n].data().grad = g * (1 + s)
+        for tr in trainers:
+            tr.step(RESNET_BATCH)
+    torch.cuda.synchronize()
+    same = tensor_diffs(params_snapshot(plist[0]), params_snapshot(plist[1]))
+    states = sum(not torch.equal(a, b) for i, a in
+                 trainers[0]._updater.states.items()
+                 for b in [trainers[1]._updater.states[i]] if a is not None)
+    print(f"fused NAG against the per-parameter Updater, 3 steps of the "
+          f"same gradients: weights "
+          + ("equal bit for bit" if not same else f"{len(same)} DIFFER")
+          + f", momentum buffers differing: {states}")
+    check(trainers[0]._fused_update and not same and not states,
+          f"phase 32: the fused NAG differs from the per-parameter rule "
+          f"({len(same)} weights, {states} states)")
+    e2e.update(eager_step_kernel8_launches=eager, metrics=metrics,
+               fused_nag_bit_identical=not same and not states)
+    del net, nets, trainers, plist, start, grads
+    return e2e
+
+
+#: phase 33's tolerance, card against the port's CPU result (fp32 through
+#: other kernels and summation orders)
+SURFACE_TOL = dict(rtol=1e-4, atol=1e-5)
+#: a small setting of each optimizer (3 steps, wd on all but GroupAdaGrad)
+SURFACE_OPT = {"nag": {"momentum": 0.9}, "signum": {"momentum": 0.5},
+               "rmsprop": {"centered": True}, "lars": {"momentum": 0.9},
+               "dcasgd": {"momentum": 0.9}, "sgd": {"momentum": 0.9},
+               "lamb": {"lower_bound": 0.1, "upper_bound": 10.0}}
+FUSED_FAMILY = ("sgd", "nag", "adam", "adamw", "adamax", "adabelief",
+                "nadam")
+
+
+def surface_optimizers(mx, dev):
+    """Every registered optimizer, 3 steps on the card and on the CPU
+    (fp32, and bf16 weights with ``multi_precision``); the fused
+    families also through the Trainer, fused against per-parameter on the
+    card, bit for bit. Returns {case: worst relative difference}."""
+    from mxnet_tpu_torch.optimizer.optimizer import _registry
+    out = {}
+    rs = onp.random.RandomState(0)
+    ws = [rs.randn(64, 33).astype("float32"), rs.randn(17, 3)
+          .astype("float32")]
+    gs = [[rs.randn(*w.shape).astype("float32") for w in ws]
+          for _ in range(3)]
+    noise = [[rs.randn(*w.shape).astype("float32") for w in ws]
+             for _ in range(3)]
+    for name in sorted(_registry):
+        kw = dict(SURFACE_OPT.get(name, {}), learning_rate=0.01,
+                  clip_gradient=2.0, rescale_grad=0.5,
+                  wd=0.0 if name == "groupadagrad" else 0.01)
+        for dtype in (torch.float32, torch.bfloat16):
+            res = []
+            for d in (dev, torch.device("cpu")):
+                opt = mx.optimizer.create(
+                    name, multi_precision=dtype != torch.float32, **kw)
+                opt.set_lr_mult({1: 0.5})
+                if name == "sgld":
+                    flat = iter([n for step in noise for n in step])
+                    opt._noise = lambda w, f=flat: torch.from_numpy(
+                        next(f)).to(w.device, w.dtype)
+                up = mx.optimizer.get_updater(opt)
+                tw = [torch.from_numpy(w.copy()).to(d, dtype) for w in ws]
+                for step in gs:
+                    for i, g in enumerate(step):
+                        up(i, torch.from_numpy(g).to(d, dtype), tw[i])
+                masters = [s[0] if dtype != torch.float32 else w
+                           for s, w in zip(
+                               [up.states.get(i) for i in range(2)], tw)]
+                res.append((tw, masters))
+            label = f"{name}_{'fp32' if dtype == torch.float32 else 'bf16'}"
+            worst = 0.0
+            for a, b in zip(res[0][1], res[1][1]):
+                a = a.float().cpu()
+                b = b.float()
+                check(torch.allclose(a, b, **SURFACE_TOL),
+                      f"phase 33: {label} card and CPU differ by "
+                      f"{(a - b).abs().max().item():.3e}")
+                worst = max(worst, ((a - b).abs().max()
+                                    / b.abs().max()).item())
+            if dtype != torch.float32:
+                for a, b in zip(*res[0]):
+                    check(torch.equal(a, b.to(a.dtype)), f"phase 33: "
+                          f"{label}: a bf16 weight is not its master")
+            out[label] = worst
+    # the fused families: fused against per-parameter, on the card
+    for name in FUSED_FAMILY:
+        kw = dict(SURFACE_OPT.get(name, {}), learning_rate=0.01, wd=0.01,
+                  clip_gradient=2.0)
+        nets, trainers = [], []
+        for fused in (True, False):
+            net = mx.gluon.nn.HybridSequential()
+            net.add(mx.gluon.nn.Dense(33, in_units=64, device=dev),
+                    mx.gluon.nn.Dense(3, in_units=33, device=dev))
+            net.initialize(seed=1)
+            tr = mx.gluon.Trainer(net.collect_params(), name, dict(kw))
+            if not fused:
+                tr._fused_update = False
+            nets.append(net)
+            trainers.append(tr)
+        for s in range(3):
+            for net in nets:
+                for j, p in enumerate(net.collect_params().values()):
+                    gen = torch.Generator(device=dev).manual_seed(10 * s + j)
+                    p.data().grad = torch.randn(p.shape, device=dev,
+                                                generator=gen)
+            for tr in trainers:
+                tr.step(2)
+        diffs = tensor_diffs(params_snapshot(nets[0].collect_params()),
+                             params_snapshot(nets[1].collect_params()))
+        check(trainers[0]._fused_update and not diffs,
+              f"phase 33: fused {name} differs from its per-parameter rule "
+              f"in {len(diffs)} tensors")
+        out[f"{name}_fused_bit_identical"] = not diffs
+    return out
+
+
+def surface_losses(mx):
+    """{loss: (forward factory, inputs)}: every new loss of this slice and
+    the dense-label softmax loss."""
+    L = mx.gluon.loss
+    rs = onp.random.RandomState(1)
+    p = rs.randn(6, 7).astype("float32")
+    lab = rs.randn(6, 7).astype("float32")
+    sign = onp.sign(rs.randn(6, 7)).astype("float32")
+    binary = (rs.rand(6, 7) > 0.5).astype("float32")
+    prob = rs.uniform(0.05, 0.95, (6, 7)).astype("float32")
+    smooth = onp.full((6, 7), 0.1 / 6, "float32")
+    smooth[onp.arange(6), rs.randint(0, 7, 6)] += 0.9
+    ctc_p = rs.randn(3, 10, 5).astype("float32")
+    ctc_l = onp.array([[1, 2, 2], [3, 0, 0], [4, 1, 3]], "int32")
+    return {
+        "L2Loss": (L.L2Loss(), [p], [lab]),
+        "L1Loss": (L.L1Loss(), [p], [lab]),
+        "HuberLoss": (L.HuberLoss(rho=0.5), [p], [lab]),
+        "SigmoidBCELoss": (L.SigmoidBCELoss(), [p], [binary]),
+        "SigmoidBCELoss_from_sigmoid": (L.SigmoidBCELoss(from_sigmoid=True),
+                                        [prob], [binary]),
+        "SoftmaxCELoss_dense": (L.SoftmaxCELoss(sparse_label=False), [p],
+                                [smooth]),
+        "KLDivLoss": (L.KLDivLoss(from_logits=False), [p], [prob]),
+        "CTCLoss": (L.CTCLoss(), [ctc_p], [ctc_l]),
+        "HingeLoss": (L.HingeLoss(), [p], [sign]),
+        "SquaredHingeLoss": (L.SquaredHingeLoss(), [p], [sign]),
+        "LogisticLoss": (L.LogisticLoss(), [p], [sign]),
+        "TripletLoss": (L.TripletLoss(), [p], [lab, prob]),
+        "CosineEmbeddingLoss": (L.CosineEmbeddingLoss(), [p, lab],
+                                [sign[:, 0]]),
+        "PoissonNLLLoss": (L.PoissonNLLLoss(compute_full=True), [p * 0.3],
+                           [onp.round(prob * 3)]),
+        "SDMLLoss": (L.SDMLLoss(), [p, lab], []),
+    }
+
+
+def surface_layers(mx):
+    """{layer: (block factory, input shapes)}: the layers of this slice."""
+    nn = mx.gluon.nn
+    return {
+        "LeakyReLU": (lambda: nn.LeakyReLU(0.2), [(4, 6)]),
+        "PReLU": (lambda: nn.PReLU(in_channels=6), [(4, 6)]),
+        "ELU": (lambda: nn.ELU(), [(4, 6)]),
+        "SELU": (lambda: nn.SELU(), [(4, 6)]),
+        "GELU": (lambda: nn.GELU(), [(4, 6)]),
+        "GELU_tanh": (lambda: nn.GELU("tanh"), [(4, 6)]),
+        "SiLU": (lambda: nn.SiLU(), [(4, 6)]),
+        "Swish": (lambda: nn.Swish(1.5), [(4, 6)]),
+        "LayerNorm_axis1": (lambda: nn.LayerNorm(axis=1), [(3, 5, 4)]),
+        "GroupNorm": (lambda: nn.GroupNorm(2), [(2, 4, 3, 3)]),
+        "InstanceNorm": (lambda: nn.InstanceNorm(scale=True), [(2, 3, 5)]),
+        "BatchNormReLU": (lambda: nn.BatchNormReLU(), [(4, 3, 5, 5)]),
+        "SyncBatchNorm": (lambda: nn.SyncBatchNorm(), [(4, 3, 5, 5)]),
+        "HybridConcatenate": (lambda: _concat(nn), [(4, 6)]),
+        "Conv1D": (lambda: nn.Conv1D(4, 3, padding=1), [(2, 3, 9)]),
+        "Conv3D": (lambda: nn.Conv3D(2, 2), [(1, 2, 4, 4, 4)]),
+        "Conv1DTranspose": (lambda: nn.Conv1DTranspose(3, 3, strides=2),
+                            [(2, 4, 5)]),
+        "Conv2DTranspose": (lambda: nn.Conv2DTranspose(
+            4, 3, strides=2, padding=1, groups=2), [(2, 4, 5, 5)]),
+        "Conv3DTranspose": (lambda: nn.Conv3DTranspose(2, 2, strides=2),
+                            [(1, 3, 3, 3, 3)]),
+        "DeformableConvolution": (lambda: nn.DeformableConvolution(
+            4, 3, padding=1), [(2, 3, 6, 6)]),
+        "ModulatedDeformableConvolution": (
+            lambda: nn.ModulatedDeformableConvolution(4, 3, padding=1),
+            [(2, 3, 6, 6)]),
+        "MaxPool1D": (lambda: nn.MaxPool1D(3, 2, 1), [(2, 3, 10)]),
+        "AvgPool2D_ceil": (lambda: nn.AvgPool2D(3, 2, 1, ceil_mode=True,
+                                                count_include_pad=False),
+                           [(2, 3, 7, 7)]),
+        "AvgPool3D": (lambda: nn.AvgPool3D(2), [(1, 2, 4, 4, 4)]),
+        "GlobalMaxPool2D": (lambda: nn.GlobalMaxPool2D(), [(2, 3, 4, 5)]),
+        "GlobalAvgPool1D": (lambda: nn.GlobalAvgPool1D(), [(2, 3, 6)]),
+        "ReflectionPad2D": (lambda: nn.ReflectionPad2D(2), [(1, 2, 5, 6)]),
+        "PixelShuffle2D": (lambda: nn.PixelShuffle2D((2, 3)),
+                           [(2, 12, 3, 4)]),
+        "PixelShuffle3D": (lambda: nn.PixelShuffle3D(2),
+                           [(1, 16, 2, 3, 2)]),
+        "PositionwiseFFN_relu": (lambda: nn.PositionwiseFFN(
+            8, 16, activation="relu"), [(2, 3, 8)]),
+        "TransformerDecoderCell": (lambda: nn.TransformerDecoderCell(
+            8, 16, 2), [(2, 3, 8), (2, 4, 8)]),
+    }
+
+
+def _concat(nn):
+    block = nn.HybridConcatenate(axis=1)
+    block.add(nn.Dense(5, activation="tanh"), nn.Dense(3))
+    return block
+
+
+def _run_block(mx, block, args, cts):
+    """Recorded forward and the gradients of sum(out * ct) for the inputs
+    and every trainable parameter."""
+    xs = [a.clone().requires_grad_() for a in args]
+    with mx.autograd.record():
+        out = block(*xs)
+    mx.autograd.backward(out, cts)
+    grads = [x.grad for x in xs] + [
+        p.grad() for p in block.collect_params().values()
+        if p.grad_req != "null"]
+    return [out.detach()] + grads
+
+
+def surface_compare(label, got, want, tol=SURFACE_TOL):
+    """Hold each card tensor against its CPU counterpart at ``tol``;
+    return the largest max|a - b| over max|b| (max|b| at least atol)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a = a.detach().float().cpu()
+        b = b.detach().float().cpu()
+        check(a.shape == b.shape, f"phase 33: {label}: shapes {a.shape} "
+                                  f"on the card, {b.shape} on the CPU")
+        diff = (a - b).abs().max().item() if a.numel() else 0.0
+        check(torch.allclose(a, b, **tol), f"phase 33: {label}: card and "
+                                           f"CPU differ by {diff:.3e}")
+        scale = max(b.abs().max().item() if b.numel() else 0.0,
+                    tol["atol"])
+        worst = max(worst, diff / scale)
+    return worst
+
+
+def phase_surface(dev, card):
+    """The new surface on the card at small shapes, each against the
+    port's own CPU result from the same inputs (phase 33)."""
+    import copy
+    import mxnet_tpu_torch as mx
+    print(f"== phase 33: this slice's optimizers, losses, layers, metrics, "
+          f"clip_global_norm, KVStore with compression and higher-order "
+          f"autograd on {card} against the CPU", flush=True)
+    cpu = torch.device("cpu")
+    out = {"optimizers": surface_optimizers(mx, dev)}
+    # losses: value and the gradient of their sum
+    losses = {}
+    with mx.cpu():
+        table = surface_losses(mx)
+    for name, (loss, preds, others) in table.items():
+        res = []
+        for d in (dev, cpu):
+            ps = [torch.from_numpy(p).to(d).requires_grad_() for p in preds]
+            with mx.autograd.record():
+                val = loss(*ps, *[torch.from_numpy(o).to(d) for o in others])
+            mx.autograd.backward(val)
+            res.append([val.detach()] + [p.grad for p in ps])
+        losses[name] = surface_compare(f"loss {name}", *res)
+    out["losses"] = losses
+    # layers: built on the CPU, a copy moved to the card
+    layers = {}
+    rs = onp.random.RandomState(2)
+    with mx.cpu():
+        table = surface_layers(mx)
+    for name, (factory, shapes) in table.items():
+        args = [torch.from_numpy(rs.randn(*s).astype("float32"))
+                for s in shapes]
+        with mx.cpu():
+            block = factory()
+            block.initialize(seed=3)
+            block(*args)
+            for p in block.collect_params().values():
+                if "running" not in p.name:
+                    p.set_data(torch.from_numpy(
+                        (rs.randn(*p.shape) * 0.3).astype("float32")))
+        card_block = copy.deepcopy(block)
+        card_block.reset_ctx(dev)
+        with mx.cpu():
+            ct = torch.from_numpy(rs.randn(*block(*args).shape)
+                                  .astype("float32"))
+            want = _run_block(mx, block, args, ct)
+        got = _run_block(mx, card_block, [a.to(dev) for a in args],
+                         ct.to(dev))
+        layers[name] = surface_compare(f"layer {name}", got, want)
+    out["layers"] = layers
+    # metrics: eager and deferred on card tensors against the CPU's eager
+    metrics = {}
+    rs = onp.random.RandomState(3)
+    scores = rs.rand(64, 10).astype("float32")
+    probs = scores / scores.sum(-1, keepdims=True)
+    cls = rs.randint(0, 10, 64).astype("float32")
+    reg = rs.randn(64, 4).astype("float32")
+    reg_l = rs.randn(64, 4).astype("float32")
+    tied = rs.randint(0, 4, (64, 10)).astype("float32") / 4
+    inputs = {"acc": (cls, scores), "top_k_accuracy": (cls, scores),
+              "top_k_accuracy_ties": (cls, tied),  # ties on the k-th score
+              "mae": (reg_l, reg), "mse": (reg_l, reg), "rmse": (reg_l, reg),
+              "ce": (cls, probs), "perplexity": (cls, probs),
+              "f1": ((cls > 4).astype("float32"), scores[:, :2]),
+              "mcc": ((cls > 4).astype("float32"), scores[:, :2]),
+              "pcc": (cls, scores), "loss": (reg_l, reg),
+              "binaryaccuracy": ((cls > 4).astype("float32"), scores[:, 0]),
+              "pearsoncorrelation": (reg_l, reg),
+              "meanpairwisedistance": (reg_l, reg),
+              "meancosinesimilarity": (reg_l, reg)}
+    for key, (label, pred) in inputs.items():
+        name = "top_k_accuracy" if key.startswith("top_k") else key
+        kw = {"top_k": 3} if name == "top_k_accuracy" else {}
+        want = mx.gluon.metric.create(name, **kw)
+        want.update([torch.from_numpy(label)], [torch.from_numpy(pred)])
+        for view in ("eager", "deferred"):
+            m = mx.gluon.metric.create(name, **kw)
+            m = m.defer() if view == "deferred" else m
+            m.update([torch.from_numpy(label).to(dev)],
+                     [torch.from_numpy(pred).to(dev)])
+            a, b = m.get()[1], want.get()[1]
+            check(abs(a - b) <= 1e-5 * max(abs(b), 1.0),
+                  f"phase 33: metric {key} {view}: {a} on the card, {b} "
+                  f"on the CPU")
+            metrics[f"{key}_{view}"] = a
+    out["metrics"] = metrics
+    # clip_global_norm
+    arrays = [rs.randn(300, 7).astype("float32"), rs.randn(11)
+              .astype("float32")]
+    res = []
+    for d in (dev, cpu):
+        ts = [torch.from_numpy(a.copy()).to(d) for a in arrays]
+        norm = mx.gluon.utils.clip_global_norm(ts, 1.0)
+        res.append(([torch.tensor(norm)] + ts))
+    out["clip_global_norm"] = surface_compare("clip_global_norm", *res)
+    # the KVStore: ops, the optimizer inside, 2-bit compression
+    pushes = [[rs.randn(5, 6).astype("float32") * 0.2 for _ in range(2)]
+              for _ in range(3)]
+    res = []
+    for d in (dev, cpu):
+        kv = mx.kv.create("local")
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.3})
+        kv.init(0, torch.zeros(5, 6, device=d))
+        kv.init(1, torch.from_numpy(arrays[0][:5, :6].copy()).to(d))
+        outs = []
+        for g in pushes:
+            kv.push(0, [torch.from_numpy(a).to(d) for a in g])
+            o = torch.empty(5, 6, device=d)
+            kv.pull(0, out=o)
+            outs.append(o)
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1))
+        o = torch.empty(5, 6, device=d)
+        kv.pushpull(1, [outs[0], outs[1]], out=o)
+        res.append(outs + [o])
+    out["kvstore_2bit"] = surface_compare("kvstore", *res, tol=dict(
+        rtol=1e-6, atol=1e-7))
+    # grad(create_graph=True) to third order, and through a hybridized
+    # block (a replayed CUDA graph is first-order only: MXNetError)
+    xs = torch.tensor([0.3, 1.1, -0.7], device=dev, requires_grad=True)
+    with mx.autograd.record():
+        y = torch.sin(xs)
+        g1 = mx.autograd.grad(y, xs, create_graph=True)
+        g2 = mx.autograd.grad(g1, xs, create_graph=True)
+        g3 = mx.autograd.grad(g2, xs)
+    x0 = xs.detach()
+    third = surface_compare("create_graph", [g1, g2, g3],
+                            [x0.cos(), -x0.sin(), -x0.cos()])
+    net = mx.gluon.nn.Dense(3, activation="tanh", in_units=2, device=dev)
+    net.initialize(seed=4)
+    net.hybridize()
+    x = torch.tensor([[0.1, 0.2], [0.3, -0.4]], device=dev,
+                     requires_grad=True)
+    raised = None
+    try:
+        with mx.autograd.record():
+            yh = net(x).sum()
+            mx.autograd.grad(yh, x, create_graph=True)
+    except mx.MXNetError as e:
+        raised = str(e)
+    check(raised is not None and "hybridized" in raised,
+          "phase 33: create_graph through a replayed graph did not raise")
+    out["create_graph_third_order"] = third
+    out["create_graph_hybridized"] = "MXNetError: " + raised[:80]
+    print(f"phase 33 [{card}]: " + json.dumps(out))
+    return out
 
 def conv_entry(errs, rows, launches, per_shape, bf16_launches,
                bf16_per_shape):
@@ -5845,6 +6550,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     planes_cost = timed("30", phase_disabled_cost, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_lamb = timed("31", phase_bert_lamb, dev, card, bert_hybrid)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_nag = timed("32", phase_resnet_nag, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    surface = timed("33", phase_surface, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -5901,6 +6615,10 @@ def main():
               "bert_bf16_hybrid_train": (bert_hybrid, [None] * 3 + [
                   "ln_residual_fwd", "ln_residual_bwd"]),
               "resnet_hybrid_train": (resnet_hybrid, [None] * 7 + [
+                  "conv_bwd_dgrad_kernel"]),
+              "bert_bf16_lamb_hybrid_train": (bert_lamb, [None] * 3 + [
+                  "ln_residual_fwd", "ln_residual_bwd"]),
+              "resnet_nag_hybrid_train": (resnet_nag, [None] * 7 + [
                   "conv_bwd_dgrad_kernel"])}
     for path, (e2e, names) in hybrid.items():
         window = e2e["launch_window_kernel_events"]
@@ -5943,6 +6661,15 @@ def main():
         entry["launches_by_path"].update(serve_planes=serve,
                                          gpt_bf16_planes_train=train)
         entry["launches"] += serve + train
+    # phases 31-32, the LAMB and NAG training paths: one eager step by the
+    # wrappers' counts (their hybridized windows are above)
+    for i, entry in enumerate(entries):
+        lamb = bert_lamb["eager_step_ln_launches"][i - 3] if i in (3, 4) \
+            else 0
+        nag = resnet_nag["eager_step_kernel8_launches"] if i == 7 else 0
+        entry["launches_by_path"].update(bert_bf16_lamb_train=lamb,
+                                         resnet_nag_train=nag)
+        entry["launches"] += lamb + nag
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -5965,7 +6692,10 @@ def main():
                       "gpt_bf16_np_train": gpt_np,
                       "serve_planes": serve_planes,
                       "train_planes": train_planes,
-                      "planes_cost": planes_cost}))
+                      "planes_cost": planes_cost,
+                      "bert_bf16_lamb_train": bert_lamb,
+                      "resnet_nag_train": resnet_nag,
+                      "surface": surface}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,8 +43,9 @@ from . import log, telemetry, fault, profiler, trace, pipeline
 from . import goodput, insight, blackbox
 from . import numpy as np
 from . import amp, autograd, contrib, dlpack, functional, gluon
-from . import initializer, lr_scheduler
+from . import initializer, kvstore, lr_scheduler
 from . import initializer as init
+from . import kvstore as kv
 from . import numpy_extension as npx
 from . import optimizer, parallel, random, serve, test_utils, util
 from .base import MXNetError
@@ -57,7 +58,8 @@ __version__ = "2.0.0a1"
 __all__ = ["Context", "MXNetError", "amp", "autograd", "blackbox", "config",
            "context", "contrib", "cpu", "cpu_pinned", "current_context",
            "device", "dlpack", "fault", "functional", "gluon", "goodput",
-           "gpu", "init", "initializer", "insight", "log", "lr_scheduler",
+           "gpu", "init", "initializer", "insight", "kv", "kvstore", "log",
+           "lr_scheduler",
            "np", "npx", "num_gpus", "optimizer", "parallel", "pipeline",
            "profiler", "random", "resolve_device", "serve", "telemetry",
            "test_utils", "tpu", "trace", "util", "waitall"]

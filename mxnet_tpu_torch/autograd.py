@@ -23,8 +23,19 @@ Counterpart of ``mxnet_tpu/autograd.py`` (``record``/``pause``/
   ``ndarray.attach_grad`` is built on) makes an array a leaf with a
   gradient buffer and its own ``grad_req``; its "add" accumulates out of
   place, so a gradient read earlier never sees a later backward.
-- ``grad(create_graph=True)`` (higher-order gradients) is not part of
-  this slice of the port and raises.
+- ``grad(create_graph=True)`` records the gradient computation itself
+  (torch's own graph), so it can be differentiated again, to any order
+  (reference: ``autograd.py`` ``_apply_vjp_create_graph``). A function
+  with only a first-order backward cannot: a custom :class:`Function`,
+  a kernel's ``torch.autograd.Function`` (flash attention, ln_residual,
+  the conv3x3+BN+ReLU backward) and a hybridized block's replayed CUDA
+  graph. ``grad(create_graph=True)`` over a graph holding one raises
+  ``MXNetError`` naming it, as the reference's raises for a node without
+  a re-differentiable function; it never returns a second derivative
+  that is silently zero.
+- :class:`Function` is the reference's custom function (``forward`` and
+  ``backward`` written by the user on arrays); ``get_symbol`` raises as
+  the reference's does.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward", "grad", "mark_variables"]
+           "is_training", "backward", "grad", "mark_variables", "Function",
+           "get_symbol"]
 
 _state = threading.local()
 
@@ -195,14 +207,31 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
             leaf.grad = old if leaf.grad is None else old + leaf.grad
 
 
+def _first_order_nodes(heads):
+    """Names of the nodes of the heads' graph whose backward cannot be
+    differentiated again (a ``torch.autograd.Function`` marked
+    ``_first_order_only``)."""
+    names, seen = [], set()
+    stack = [h.grad_fn for h in heads if h.grad_fn is not None]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        cls = getattr(fn, "_forward_cls", None)
+        if getattr(cls, "_first_order_only", False):
+            names.append(getattr(cls, "_mx_name", cls.__name__))
+        stack.extend(nxt for nxt, _ in fn.next_functions)
+    return sorted(set(names))
+
+
 def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables``, without
     touching any ``.grad`` (reference: autograd.py ``grad``). A variable
-    the heads do not reach gets zeros."""
-    if create_graph:
-        raise MXNetError("grad(create_graph=True) (higher-order gradients) "
-                         "is not part of this slice of the port")
+    the heads do not reach gets zeros. ``create_graph=True`` records the
+    gradients' own computation (differentiable again; the graph is then
+    retained unless ``retain_graph=False``)."""
     single = isinstance(variables, torch.Tensor) or hasattr(variables,
                                                              "_data")
     arrays = hasattr(variables if single else next(iter(variables), None),
@@ -210,8 +239,20 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     variables = _as_list(variables)
     heads = _as_list(heads)
     seeds = _seeds(heads, _as_list(head_grads))
+    if create_graph:
+        blocked = _first_order_nodes(heads)
+        if blocked:
+            raise MXNetError(
+                f"create_graph=True is not supported through {blocked}: "
+                "their backward is first-order only (a custom "
+                "autograd.Function, a CUDA kernel's backward or a "
+                "hybridized block's replayed graph). Use first-order "
+                "grad(), or the block unhybridized with plain ops.")
+    if retain_graph is None:
+        retain_graph = create_graph
     grads = torch.autograd.grad(heads, variables, seeds,
                                 retain_graph=bool(retain_graph),
+                                create_graph=bool(create_graph),
                                 allow_unused=True)
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(variables, grads)]
@@ -219,3 +260,79 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         from .numpy.multiarray import _wrap
         grads = [_wrap(g) for g in grads]
     return grads[0] if single else grads
+
+
+def get_symbol(x):
+    """The reference returns the recorded graph as a Symbol; neither
+    package has one for a recorded computation (reference: autograd.py
+    ``get_symbol`` raises too)."""
+    raise MXNetError("get_symbol: use hybridize() for graphs")
+
+
+class _UserFunction(torch.autograd.Function):
+    """The torch node of a :class:`Function` call: the user's forward,
+    and the user's backward as its backward (first-order only)."""
+
+    _first_order_only = True
+
+    @staticmethod
+    def forward(ctx, fn, arrays, *inputs):
+        from .numpy.multiarray import _wrap
+        ctx.fn, ctx.arrays = fn, arrays
+        args = [_wrap(t) if arrays and isinstance(t, torch.Tensor) else t
+                for t in inputs]
+        with pause():
+            out = fn.forward(*args)
+        ctx.single = fn._single_out = not isinstance(out, (tuple, list))
+        outs = [out] if ctx.single else list(out)
+        return tuple(_raw(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        from .numpy.multiarray import _wrap
+        args = [_wrap(g) if ctx.arrays else g for g in gouts]
+        with pause():
+            grads = ctx.fn.backward(*args)
+        if not isinstance(grads, (tuple, list)):
+            grads = (grads,)
+        return (None, None, *[None if g is None else _raw(g)
+                              for g in grads])
+
+
+class Function:
+    """A differentiable function with a hand-written backward (reference:
+    autograd.py ``Function``): subclass, write ``forward(self, *inputs)``
+    and ``backward(self, *output_grads)`` on arrays (``mx.np`` arrays or
+    tensors, as the call is given), and call an instance. Inside
+    ``record()`` the call is one node whose gradient is ``backward``'s;
+    ``save_for_backward`` / ``saved_tensors`` keep what ``backward``
+    reads. The backward is first-order only: ``grad(create_graph=True)``
+    through it raises, as the reference's does."""
+
+    def __init__(self):
+        self._saved = None
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def __call__(self, *inputs):
+        from .numpy.multiarray import _wrap, ndarray
+        arrays = any(type(a) is ndarray for a in inputs)
+        raw = [_raw(a) if type(a) is ndarray else a for a in inputs]
+        outs = _UserFunction.apply(self, arrays, *raw)
+        if not isinstance(outs, tuple):
+            outs = (outs,)
+        if arrays:
+            outs = tuple(_wrap(o) for o in outs)
+        single = len(outs) == 1 and getattr(self, "_single_out", True)
+        return outs[0] if single else outs
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError

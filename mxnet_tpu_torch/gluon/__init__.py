@@ -1,8 +1,9 @@
-"""Gluon: blocks, parameters, layers, losses, the trainer and the model
-zoo (serving and training slices)."""
-from . import loss, model_zoo, nn
+"""Gluon: blocks, parameters, layers, losses, metrics, utils, the trainer
+and the model zoo."""
+from . import loss, metric, model_zoo, nn, utils
 from .block import HybridBlock
-from .parameter import Parameter
+from .parameter import Constant, Parameter
 from .trainer import Trainer
 
-__all__ = ["HybridBlock", "Parameter", "Trainer", "loss", "nn", "model_zoo"]
+__all__ = ["Constant", "HybridBlock", "Parameter", "Trainer", "loss",
+           "metric", "nn", "model_zoo", "utils"]

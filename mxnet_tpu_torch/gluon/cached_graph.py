@@ -176,7 +176,11 @@ class _Entry:
 
 class _GraphFunction(torch.autograd.Function):
     """A recorded call of a captured entry: the forward graph's replay,
-    with the backward graph's replay as its backward."""
+    with the backward graph's replay as its backward (first-order only:
+    ``autograd.grad(..., create_graph=True)`` refuses it)."""
+
+    _first_order_only = True
+    _mx_name = "hybridized block (replayed CUDA graph)"
 
     @staticmethod
     def forward(ctx, graph, entry, tensors, *diff):

@@ -1,19 +1,26 @@
 """Basic Gluon layers.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``HybridSequential``
-(children registered as "0", "1", ...), ``Dense`` (weight
-layout (units, in_units), an optional ``Activation`` child), ``Activation``,
-``Embedding``, ``LayerNorm`` (parameters ``gamma``/``beta``),
-``Dropout``, ``BatchNorm`` and ``Flatten``, with the reference's argument
-names. Under an fp8 training scope (``amp.fp8.scope``) a ``Dense`` whose
-weight is a site runs through ``amp.fp8.dense_fp8``; its activation still
-applies afterwards.
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential`` and
+``HybridSequential`` (children registered as "0", "1", ...), ``Dense``
+(weight layout (units, in_units), an optional ``Activation`` child),
+``Activation``, ``Embedding``, ``LayerNorm`` (over ``axis``, parameters
+``gamma``/``beta``, frozen where ``scale`` / ``center`` is off),
+``GroupNorm``, ``InstanceNorm``, ``Dropout`` (``axes`` share a draw),
+``BatchNorm``, ``SyncBatchNorm`` (one card: BatchNorm's statistics, as
+the reference's single-device path), ``BatchNormReLU``, ``Flatten``,
+``Identity``, ``Lambda`` / ``HybridLambda``, ``Concatenate`` /
+``HybridConcatenate``, with the reference's argument names. Under an fp8
+training scope (``amp.fp8.scope``) a ``Dense`` whose weight is a site
+runs through ``amp.fp8.dense_fp8``; its activation still applies
+afterwards.
 Each creates its parameters on its device at construction. ``Dense`` and
 ``BatchNorm`` told no input width (``in_units`` / ``in_channels`` 0) get
 deferred parameters, whose shape their first forward infers from the input
-(:func:`_ready`), as the reference's do; ``Embedding`` and ``LayerNorm``
-still need their widths. ``Dropout`` is live only while
-``autograd.is_training()``, as in the reference, and draws its mask from
+(:func:`_ready`), as the reference's do, and so do the norms told no
+``in_channels``; ``Embedding`` still needs its widths
+(``sparse_grad=True`` raises until sparse storage is ported).
+``Dropout`` is live only while ``autograd.is_training()``, as in the
+reference, and draws its mask from
 its own ``generator`` where one is set, else from the default generator of
 the tensor's device (``random.seed`` reseeds those); a dropped element is
 0 whatever its value (``where(keep, x / (1 - rate), 0)``).
@@ -33,8 +40,11 @@ from ...context import resolve_device
 from ..block import HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["HybridSequential", "Dense", "Activation", "Embedding",
-           "LayerNorm", "Dropout", "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
+           "Embedding", "LayerNorm", "GroupNorm", "InstanceNorm", "Dropout",
+           "BatchNorm", "SyncBatchNorm", "BatchNormReLU", "Flatten",
+           "Identity", "Lambda", "HybridLambda", "Concatenate",
+           "HybridConcatenate"]
 
 
 def _param(shape, dtype, device, grad_req="write", init=None):
@@ -52,13 +62,6 @@ def _ready(var, shape):
     p = var._mx_param
     if p._deferred is not None or not p._shape_known():
         p._finish_deferred_init(shape)
-
-
-def _width(name, value):
-    if int(value) <= 0:
-        raise MXNetError(f"{name} must be given (this layer infers no "
-                         "input width)")
-    return int(value)
 
 
 class HybridSequential(HybridBlock):
@@ -148,47 +151,124 @@ class Embedding(HybridBlock):
     """Reference: basic_layers.py Embedding over indexing_op.cc."""
 
     def __init__(self, input_dim, output_dim, dtype=torch.float32,
-                 device=None):
+                 weight_initializer=None, sparse_grad=False, device=None):
         super().__init__()
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True): row-sparse "
+                             "gradients are not ported yet (ROADMAP.md "
+                             "Queue 1, item 9)")
         self.weight = _param((input_dim, output_dim), dtype,
-                             resolve_device(device))
+                             resolve_device(device), init=weight_initializer)
 
     def forward(self, x):
         return npx.embedding(x, self.weight)
 
 
 class LayerNorm(HybridBlock):
-    """LayerNorm over the last axis (reference: basic_layers.py LayerNorm)."""
+    """LayerNorm over ``axis`` (reference: basic_layers.py LayerNorm);
+    ``in_channels=0`` defers the parameters' shape to the first
+    forward."""
 
-    def __init__(self, epsilon=1e-5, in_channels=0, dtype=torch.float32,
-                 device=None):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self._axis = axis
+        self._epsilon = epsilon
+        shape = (int(in_channels),)
+        self.gamma = _param(shape, dtype, device,
+                            "write" if scale else "null",
+                            init=gamma_initializer)
+        self.beta = _param(shape, dtype, device,
+                           "write" if center else "null",
+                           init=beta_initializer)
+
+    def forward(self, x):
+        ch = (x.shape[self._axis],)
+        _ready(self.gamma, ch)
+        _ready(self.beta, ch)
+        return npx.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                              eps=self._epsilon)
+
+
+class _ChannelNorm(HybridBlock):
+    """GroupNorm / InstanceNorm: per-channel ``gamma`` / ``beta`` on axis
+    1, deferred where ``in_channels`` is 0."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, dtype, device):
         super().__init__()
         device = resolve_device(device)
         self._epsilon = epsilon
-        width = _width("in_channels", in_channels)
-        self.gamma = _param((width,), dtype, device)
-        self.beta = _param((width,), dtype, device)
+        shape = (int(in_channels),)
+        self.gamma = _param(shape, dtype, device,
+                            "write" if scale else "null",
+                            init=gamma_initializer)
+        self.beta = _param(shape, dtype, device,
+                           "write" if center else "null",
+                           init=beta_initializer)
+
+    def _params_for(self, x):
+        _ready(self.gamma, (x.shape[1],))
+        _ready(self.beta, (x.shape[1],))
+        return self.gamma, self.beta
+
+
+class GroupNorm(_ChannelNorm):
+    """Reference: basic_layers.py GroupNorm over group_norm.cc."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype=torch.float32, device=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, dtype, device)
+        self._num_groups = num_groups
 
     def forward(self, x):
-        return npx.layer_norm(x, self.gamma, self.beta, eps=self._epsilon)
+        g, b = self._params_for(x)
+        return npx.group_norm(x, g, b, num_groups=self._num_groups,
+                              eps=self._epsilon)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Reference: basic_layers.py InstanceNorm over instance_norm.cc."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype=torch.float32, device=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, dtype, device)
+
+    def forward(self, x):
+        g, b = self._params_for(x)
+        return npx.instance_norm(x, g, b, eps=self._epsilon)
 
 
 class Dropout(HybridBlock):
     """Inverted dropout while ``autograd.is_training()`` (inside
     ``autograd.record()`` or ``train_mode()``), identity otherwise
-    (reference: basic_layers.py Dropout). The mask comes from
-    ``self.generator`` where a caller sets one, else from the default
-    generator of the tensor's device (``random.dropout_mask``)."""
+    (reference: basic_layers.py Dropout); along each axis of ``axes`` one
+    draw is shared. The mask comes from ``self.generator`` where a caller
+    sets one, else from the default generator of the tensor's device
+    (``random.dropout_mask``)."""
 
-    def __init__(self, rate):
+    def __init__(self, rate, axes=()):
         super().__init__()
         self._rate = rate
+        self._axes = tuple(axes)
         self.generator = None
 
     def forward(self, x):
         if not autograd.is_training() or not self._rate:
             return x
-        mask = _random.dropout_mask(x, self._rate, self.generator)
+        like = x
+        if self._axes:
+            shape = list(x.shape)
+            for ax in self._axes:
+                shape[ax] = 1
+            like = x.new_empty(shape)
+        mask = _random.dropout_mask(like, self._rate, self.generator)
         return torch.where(mask.bool(), x / (1.0 - self._rate),
                            x.new_zeros(()))
 
@@ -237,8 +317,90 @@ class BatchNorm(HybridBlock):
         return f"axis={self._axis}, in_channels={self.gamma.shape[0]}"
 
 
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm (reference: basic_layers.py SyncBatchNorm):
+    on one card the statistics are the card's batch, BatchNorm's (the
+    reference's single-device path); ``num_devices`` is accepted."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", dtype=torch.float32,
+                 device=None, **kwargs):
+        super().__init__(1, momentum, epsilon, center, scale,
+                         use_global_stats, in_channels=in_channels,
+                         dtype=dtype, device=device)
+
+
+class BatchNormReLU(BatchNorm):
+    """BatchNorm then ReLU (reference: basic_layers.py BatchNormReLU)."""
+
+    def forward(self, x):
+        return torch.relu(super().forward(x))
+
+
 class Flatten(HybridBlock):
     """(N, ...) -> (N, prod(...)) (reference: basic_layers.py Flatten)."""
 
     def forward(self, x):
         return npx.flatten(x)
+
+
+class Sequential(HybridSequential):
+    """Blocks run in order (reference: basic_layers.py Sequential, a
+    ``Block``): ``hybridize()`` reaches its children, not itself."""
+
+    def hybridize(self, active=True, **kwargs):
+        for block in self._modules.values():
+            block.hybridize(active, **kwargs)
+
+
+class HybridConcatenate(HybridSequential):
+    """Every child on the same input, outputs concatenated along ``axis``
+    (reference: basic_layers.py HybridConcatenate)."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return torch.cat([block(x) for block in self._modules.values()],
+                         dim=self._axis)
+
+
+class Concatenate(HybridConcatenate):
+    """``HybridConcatenate`` as a ``Block`` (reference: basic_layers.py
+    Concatenate): ``hybridize()`` reaches its children, not itself."""
+
+    hybridize = Sequential.hybridize
+
+
+class Identity(HybridBlock):
+    """Its input (reference: basic_layers.py Identity)."""
+
+    def forward(self, x):
+        return x
+
+
+class HybridLambda(HybridBlock):
+    """A function as a block: a callable, or the name of an ``mx.np``
+    function (reference: basic_layers.py HybridLambda)."""
+
+    def __init__(self, function):
+        super().__init__()
+        if isinstance(function, str):
+            from ... import numpy as _np
+            function = getattr(_np, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class Lambda(HybridLambda):
+    """``HybridLambda`` as a ``Block`` (reference: basic_layers.py
+    Lambda): ``hybridize()`` leaves it eager."""
+
+    def hybridize(self, active=True, **kwargs):
+        pass

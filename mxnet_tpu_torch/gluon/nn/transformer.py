@@ -1,12 +1,14 @@
 """Transformer layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/transformer.py``: ``MultiHeadAttention``,
-``PositionwiseFFN``, ``TransformerEncoderCell`` and ``TransformerEncoder``,
-each with ``forward`` and the KV-cache surface (``init_cache`` for
+``PositionwiseFFN`` (any ``npx.activation`` type, and gelu),
+``TransformerEncoderCell``, ``TransformerEncoder`` and
+``TransformerDecoderCell`` (causal self-attention, cross-attention, FFN,
+post-norm), the first three with ``forward`` and the KV-cache surface (``init_cache`` for
 floating-point dtypes and "int8", ``prefill``, ``decode_step``,
 ``prefill_suffix``, ``decode_multi``, ``copy_cache_rows``) in both norm
 layouts,
-and ``valid_length_mask``. Attention without a mask or live dropout routes
+``valid_length_mask`` and ``positional_encoding``. Attention without a mask or live dropout routes
 to the flash-attention kernels (``ops/attention.py``). The post-norm
 cell's ``forward`` routes ``LN(x + dropout(h))`` through the fused
 ln_residual kernels where the ``fused_ln_residual`` knob says so
@@ -26,7 +28,8 @@ from ..block import HybridBlock
 from .basic_layers import Dense, Dropout, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
-           "TransformerEncoder", "valid_length_mask"]
+           "TransformerEncoder", "TransformerDecoderCell", "valid_length_mask",
+           "positional_encoding"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -175,10 +178,8 @@ class PositionwiseFFN(HybridBlock):
     def __init__(self, units, hidden_size, activation="gelu", dropout=0.0,
                  use_bias=True, device=None):
         super().__init__()
-        if activation != "gelu":
-            raise MXNetError(f"activation {activation!r} is not part of "
-                             "this slice of the port (gelu only)")
         device = resolve_device(device)
+        self._activation = activation
         self.ffn_1 = Dense(hidden_size, use_bias=use_bias, flatten=False,
                            in_units=units, device=device)
         self.ffn_2 = Dense(units, use_bias=use_bias, flatten=False,
@@ -186,7 +187,10 @@ class PositionwiseFFN(HybridBlock):
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):
-        h = self.ffn_2(npx.gelu(self.ffn_1(x)))
+        h = self.ffn_1(x)
+        h = npx.gelu(h) if self._activation == "gelu" \
+            else npx.activation(h, act_type=self._activation)
+        h = self.ffn_2(h)
         if self.dropout is not None:
             h = self.dropout(h)
         return h
@@ -355,6 +359,52 @@ class TransformerEncoder(HybridBlock):
         return [cell.copy_cache_rows(kv, src_slot, src_row, dst_slot,
                                      dst_row, rows)
                 for cell, kv in zip(self._layers, caches)]
+
+
+class TransformerDecoderCell(HybridBlock):
+    """One decoder layer, post-norm (reference: transformer.py
+    ``TransformerDecoderCell``): causal self-attention, cross-attention on
+    ``mem`` (``mem_mask``), FFN, each with its residual and LayerNorm."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 attention_dropout=0.0, activation="relu", device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.self_attention = MultiHeadAttention(
+            units, num_heads, dropout=attention_dropout, causal=True,
+            device=device)
+        self.self_ln = LayerNorm(in_channels=units, device=device)
+        self.cross_attention = MultiHeadAttention(
+            units, num_heads, dropout=attention_dropout, device=device)
+        self.cross_ln = LayerNorm(in_channels=units, device=device)
+        self.ffn = PositionwiseFFN(units, hidden_size, activation, dropout,
+                                   device=device)
+        self.ffn_ln = LayerNorm(in_channels=units, device=device)
+        self.dropout = Dropout(dropout) if dropout else None
+
+    def _drop(self, h):
+        return self.dropout(h) if self.dropout is not None else h
+
+    def forward(self, x, mem, mem_mask=None):
+        x = self.self_ln(x + self._drop(self.self_attention(x)))
+        h = self.cross_attention(x, mem, mem, mask=mem_mask)
+        x = self.cross_ln(x + self._drop(h))
+        return self.ffn_ln(x + self.ffn(x))
+
+
+def positional_encoding(seq_len, units, dtype="float32", device=None):
+    """The sinusoidal position table (seq_len, units) as an ``mx.np``
+    array on ``device`` (the current context by default) (reference:
+    transformer.py ``positional_encoding``)."""
+    import numpy as onp
+    from ... import numpy as mxnp
+    pos = onp.arange(seq_len)[:, None]
+    dim = onp.arange((units + 1) // 2)[None]
+    angle = pos / onp.power(10000.0, 2 * dim / units)
+    table = onp.zeros((seq_len, units), dtype=dtype)
+    table[:, 0::2] = onp.sin(angle)
+    table[:, 1::2] = onp.cos(angle[:, : units // 2])
+    return mxnp.array(table, device=device)
 
 
 def valid_length_mask(valid_length, seq_len):

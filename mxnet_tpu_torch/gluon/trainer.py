@@ -11,12 +11,22 @@ optimizer, optimizer_params, kvstore=...)`` with ``step``, ``update``,
 ``1 / batch_size`` (times the initial rescale) and updates every parameter
 whose ``grad_req`` is not "null", in place. Where the reference's
 ``_FusedUpdate.applicable()`` holds (the "sgd" and "adam" families: SGD,
-Adam, AdamW; ``multi_precision`` off) they are updated together
+NAG, Adam, AdamW, Adamax, AdaBelief, Nadam; ``multi_precision`` off) they
+are updated together
 (:class:`_FusedUpdate`, ``torch._foreach_*`` ops over every parameter of
 one device and dtype); otherwise one ``Updater`` call each.
-This slice runs on one card: kvstore ``None``, ``"device"`` or ``"local"``
-reduces nothing, and a distributed kvstore, ``update_on_kvstore=True`` or
-gradient compression raise.
+
+The kvstore (reference: trainer.py ``_init_kvstore``, made at the first
+step): ``None`` / ``""`` is none; "device", "local" or "nccl" (or a
+``kvstore.KVStore`` object) is the one-card store, through which
+gradients pass only where they change: with ``compression_params``
+(``{"type": "2bit", "threshold": t}``) each gradient is pushed and pulled
+back quantized with its residual, as the reference's store does on one
+worker; with ``update_on_kvstore=True`` the optimizer runs inside the
+store (each gradient pushed, each weight pulled back), which gives the
+weights of the local update. Otherwise one card has nothing to reduce and
+the gradients stay as they are. A distributed kvstore raises
+(ROADMAP.md Queue 1, item 8).
 
 The guard runs when an AMP loss scaler is attached (``amp.scale_loss``) or
 the ``trainer.skip_nonfinite`` knob is set: a step whose gradients hold an
@@ -53,11 +63,12 @@ from .. import telemetry as _telemetry
 from .. import trace as _trace
 from ..amp.loss_scaler import LossScaler, all_finite
 from ..base import MXNetError
+from ..kvstore import KVStoreBase
+from ..kvstore import create as _create_kvstore
+from ..kvstore.base import is_distributed
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
-
-_LOCAL_KVSTORES = (None, "", "device", "local")
 
 
 class _FusedUpdate:
@@ -121,19 +132,21 @@ class Trainer:
         for p in params:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"expected Parameter, got {type(p)}")
-        if not (kvstore is None or isinstance(kvstore, str)) \
-                or kvstore not in _LOCAL_KVSTORES:
-            raise MXNetError(f"kvstore {kvstore!r}: distributed kvstores are "
-                             "not part of this slice of the port (one card: "
-                             "None, 'device' or 'local')")
-        if update_on_kvstore:
-            raise MXNetError("update_on_kvstore=True is not part of this "
-                             "slice of the port")
-        if compression_params:
-            raise MXNetError("gradient compression is not part of this "
-                             "slice of the port")
+        if not (kvstore is None or isinstance(kvstore, (str, KVStoreBase))):
+            raise MXNetError(f"kvstore must be a name or a KVStore, got "
+                             f"{type(kvstore).__name__}")
+        if is_distributed(kvstore):
+            raise MXNetError(f"kvstore {kvstore!r}: the distributed stores "
+                             "are not ported yet (ROADMAP.md Queue 1, item "
+                             "8); one card takes 'local', 'device' or "
+                             "'nccl'")
         self._params = params
-        self._kvstore = kvstore
+        self._kvstore_type = kvstore
+        self._compression_params = compression_params
+        self._update_on_kvstore = bool(update_on_kvstore)
+        #: the store, made at the first step (None: no kvstore)
+        self._kvstore = None
+        self._kv_initialized = False
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
         self.nonfinite_steps = 0
@@ -172,9 +185,46 @@ class Trainer:
     def _weights(self):
         return {i: p.data() for i, p in enumerate(self._params)}
 
+    def _init_kvstore(self):
+        """Make the store (reference: trainer.py ``_init_kvstore``): with
+        ``update_on_kvstore`` the optimizer moves into it, and so does the
+        updater whose states ``save_states`` and ``state_dict`` keep."""
+        if self._kv_initialized:
+            return
+        kind = self._kvstore_type
+        if kind is None or kind == "":
+            self._update_on_kvstore = False
+        else:
+            kv = kind if isinstance(kind, KVStoreBase) \
+                else _create_kvstore(kind)
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+                self._updater = kv._updater
+                self._fused_update = False
+            self._kvstore = kv
+        self._kv_initialized = True
+
     def allreduce_grads(self):
-        """Reduce gradients across devices: nothing to reduce on one
-        card."""
+        """Reduce gradients across devices (reference: trainer.py
+        ``allreduce_grads``). One card has nothing to sum: the gradients
+        pass through the store only where it changes them (compression)
+        or keeps them (``update_on_kvstore``: pushed, the optimizer runs
+        in the store)."""
+        self._init_kvstore()
+        kv = self._kvstore
+        if kv is None or not (self._update_on_kvstore
+                              or self._compression_params):
+            return
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null":
+                continue
+            if self._update_on_kvstore:
+                kv.init(i, p.data())
+                kv.push(i, p.grad(), priority=-i)
+            else:
+                kv.pushpull(i, p.grad(), out=p.grad(), priority=-i)
 
     # -- the non-finite guard -------------------------------------------------
     def _guard_active(self):
@@ -269,10 +319,16 @@ class Trainer:
                                time.perf_counter() - t0)
 
     def _step_impl(self, batch_size):
+        self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        guard = self._guard_active()
+        # with the optimizer in the store the push updates: check first
+        if guard and self._update_on_kvstore and not self._grads_finite():
+            self._skip_step()
+            return
         self.allreduce_grads()
-        if self._guard_active():
-            if not self._grads_finite():
+        if guard:
+            if not self._update_on_kvstore and not self._grads_finite():
                 self._skip_step()
                 return
             if self._amp_loss_scaler is not None:
@@ -280,13 +336,23 @@ class Trainer:
         self._update()
 
     def update(self, batch_size, ignore_stale_grad=False):
-        """Update without reducing (reference: trainer.py ``update``)."""
+        """Update without reducing (reference: trainer.py ``update``); not
+        with ``update_on_kvstore``, where the push is the update."""
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError("update() is not supported when parameters "
+                             "are updated on the kvstore; call step()")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()
 
     def _update(self):
         work = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
+        if self._update_on_kvstore:
+            # the store updated its copies at the push: pull them back
+            for i, p in work:
+                self._kvstore.pull(i, out=p.data(), priority=-i)
+            return
         if not work:
             return
         if self._fused_update is None:
@@ -306,6 +372,7 @@ class Trainer:
     # -- resume: what save_states misses (the loss scale and its window,
     # the skip count) beside the optimizer and its states as bytes ---------
     def state_dict(self):
+        self._init_kvstore()
         scaler = self._amp_loss_scaler
         return {"optimizer": self._updater.get_states(dump_optimizer=True),
                 "nonfinite_steps": self.nonfinite_steps,
@@ -325,6 +392,7 @@ class Trainer:
     def _restore_states(self, blob):
         """The optimizer and its states from ``Updater.get_states`` bytes,
         each state on its weight's device."""
+        self._init_kvstore()
         self._updater.set_states(blob, self._weights())
         self._optimizer = self._updater.optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
@@ -335,6 +403,7 @@ class Trainer:
         example the JAX package's converted to numpy: ``states`` {name:
         None, array or tuple of arrays}, ``counts`` {name: update count}.
         Names this trainer does not hold raise."""
+        self._init_kvstore()
         index = {n: i for i, n in enumerate(self._param_names)}
         unknown = sorted((set(states) | set(counts)) - set(index))
         if unknown:
@@ -349,6 +418,7 @@ class Trainer:
     def save_states(self, fname):
         """Write the optimizer and its states to ``fname`` (temporary file
         and rename, so a crash leaves the old file)."""
+        self._init_kvstore()
         tmp = f"{fname}.{os.getpid()}.tmp"
         with open(tmp, "wb") as f:
             f.write(self._updater.get_states(dump_optimizer=True))

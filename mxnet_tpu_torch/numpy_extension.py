@@ -1,8 +1,10 @@
 """The ``npx`` operators on the ported paths, as plain PyTorch.
 
 Counterpart of ``mxnet_tpu/numpy_extension/__init__.py`` (fully_connected,
-convolution, pooling, batch_norm, fused_conv_bn_relu, flatten, layer_norm,
-activation, leaky_relu, exact-erf gelu, embedding, and from
+convolution, deconvolution, (modulated_)deformable_convolution, pooling,
+batch_norm, fused_conv_bn_relu, flatten, layer_norm, group_norm,
+instance_norm, dropout, activation, leaky_relu (leaky, prelu, elu, selu,
+gelu, rrelu), gelu, embedding, and from
 ``ops/quantization.py`` ``quantize_v2``, ``dequantize``,
 ``quantized_fully_connected``, ``quantized_conv``,
 ``quantized_dense_fused``, ``quantized_conv_fused`` and
@@ -63,8 +65,11 @@ from . import _hooks
 from .base import MXNetError
 from .numpy.multiarray import _invoke_impl, array, ndarray
 
-__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "fused_conv_bn_relu", "flatten", "layer_norm", "softmax",
+__all__ = ["fully_connected", "convolution", "deconvolution",
+           "deformable_convolution", "modulated_deformable_convolution",
+           "pooling", "batch_norm", "fused_conv_bn_relu", "flatten",
+           "layer_norm", "group_norm", "instance_norm", "dropout",
+           "softmax",
            "log_softmax", "activation",
            "leaky_relu", "gelu", "embedding", "quantize_v2", "dequantize",
            "quantized_fully_connected", "quantized_conv",
@@ -205,6 +210,75 @@ def convolution(data=None, weight=None, bias=None, kernel=None, stride=None,
     return _CONV[nd](data, weight, b, stride=tuple(stride or (1,) * nd),
                      padding=tuple(pad or (0,) * nd),
                      dilation=tuple(dilate or (1,) * nd), groups=num_group)
+
+
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@_arrays
+def deconvolution(data=None, weight=None, bias=None, kernel=None,
+                  stride=None, dilate=None, pad=None, adj=None,
+                  target_shape=None, num_filter=1, num_group=1,
+                  workspace=512, no_bias=True, cudnn_tune=None,
+                  cudnn_off=False, layout=None):
+    """N-d transposed convolution, weight (C_in, C_out/groups, *kernel)
+    (reference: deconvolution.cc), as the library's ``conv_transpose``.
+    ``adj`` is the extra size on one side of each output axis (torch's
+    ``output_padding``; the JAX package reads it nowhere, so there a
+    nonzero ``adj`` gives the smaller output)."""
+    nd = data.ndim - 2
+    _channel_first(layout, nd)
+    data, weight, bias = _cast("deconvolution", data, weight, bias)
+    b = None if no_bias else bias
+    return _DECONV[nd](data, weight, b, stride=tuple(stride or (1,) * nd),
+                       padding=tuple(pad or (0,) * nd),
+                       output_padding=tuple(adj or (0,) * nd),
+                       groups=num_group,
+                       dilation=tuple(dilate or (1,) * nd))
+
+
+def _deformable(x, offset, weight, bias, kernel, stride, pad, dilate,
+                num_group, num_deformable_group, mask):
+    from .ops.deformable import deformable_conv2d
+    return deformable_conv2d(
+        x, offset, weight, bias, kernel=tuple(kernel),
+        stride=tuple(stride or (1, 1)), pad=tuple(pad or (0, 0)),
+        dilate=tuple(dilate or (1, 1)), num_group=num_group,
+        num_deformable_group=num_deformable_group, mask=mask)
+
+
+@_arrays
+def deformable_convolution(data=None, offset=None, weight=None, bias=None,
+                           kernel=None, stride=None, dilate=None, pad=None,
+                           num_filter=1, num_group=1,
+                           num_deformable_group=1, workspace=1024,
+                           no_bias=False, layout=None, **kwargs):
+    """DCN v1 (reference: contrib/deformable_convolution.cc): bilinear
+    sampling at the offset positions, then one product over the channels
+    and taps (``ops/deformable.py``). NCHW only."""
+    if layout not in (None, "NCHW"):
+        raise MXNetError("deformable_convolution supports NCHW only")
+    return _deformable(data, offset, weight, None if no_bias else bias,
+                       kernel, stride, pad, dilate, num_group,
+                       num_deformable_group, None)
+
+
+@_arrays
+def modulated_deformable_convolution(data=None, offset=None, mask=None,
+                                     weight=None, bias=None, kernel=None,
+                                     stride=None, dilate=None, pad=None,
+                                     num_filter=1, num_group=1,
+                                     num_deformable_group=1, workspace=1024,
+                                     no_bias=False, layout=None, **kwargs):
+    """DCN v2 (reference: contrib/modulated_deformable_convolution.cc):
+    DCN v1 with each sampled value times ``mask``. NCHW only."""
+    if layout not in (None, "NCHW"):
+        raise MXNetError("modulated_deformable_convolution supports NCHW "
+                         "only")
+    return _deformable(data, offset, weight, None if no_bias else bias,
+                       kernel, stride, pad, dilate, num_group,
+                       num_deformable_group, mask)
 
 
 def _window_sum(x, kernel, stride, pads, nd):
@@ -352,6 +426,60 @@ def layer_norm(data, gamma=None, beta=None, axis=-1, eps=1e-5):
     return xhat.to(dt) * gamma.to(dt) + beta.to(dt)
 
 
+def _affine_channels(out, g, b):
+    shape = [1, out.shape[1]] + [1] * (out.ndim - 2)
+    return out * g.reshape(shape) + b.reshape(shape)
+
+
+@_arrays
+def group_norm(data, gamma=None, beta=None, num_groups=1, eps=1e-5):
+    """GroupNorm on (N, C, ...) (reference: group_norm.cc): statistics
+    over each group of ``C / num_groups`` channels and every spatial
+    position, then the per-channel affine."""
+    x, gamma, beta = _cast("group_norm", data, gamma, beta)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    red = tuple(range(2, xg.ndim))
+    mean = xg.mean(dim=red, keepdim=True)
+    var = xg.var(dim=red, unbiased=False, keepdim=True)
+    out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return _affine_channels(out, gamma, beta)
+
+
+@_arrays
+def instance_norm(data, gamma=None, beta=None, eps=1e-3):
+    """InstanceNorm on (N, C, ...) (reference: instance_norm.cc):
+    statistics over each sample's channel, then the per-channel affine."""
+    x, gamma, beta = _cast("instance_norm", data, gamma, beta)
+    red = tuple(range(2, x.ndim))
+    mean = x.mean(dim=red, keepdim=True)
+    var = x.var(dim=red, unbiased=False, keepdim=True)
+    return _affine_channels((x - mean) * torch.rsqrt(var + eps), gamma, beta)
+
+
+@_arrays
+def dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+            generator=None):
+    """Inverted dropout (reference: dropout.cc) while
+    ``autograd.is_training()`` (always with ``mode="always"``); one keep
+    draw shared along each axis of ``axes``. The mask comes from
+    ``generator``, else from the default generator of the tensor's
+    device (``random.dropout_mask``); a dropped element is 0 whatever its
+    value."""
+    from . import autograd
+    from . import random as _random
+    if not p or (mode != "always" and not autograd.is_training()):
+        return data
+    like = data
+    if axes:
+        shape = list(data.shape)
+        for ax in axes:
+            shape[ax] = 1
+        like = data.new_empty(shape)
+    mask = _random.dropout_mask(like, p, generator)
+    return torch.where(mask.bool(), data / (1.0 - p), data.new_zeros(()))
+
+
 def _length_mask(h, length, axis):
     """Positions below ``length`` along ``axis`` (reference:
     ``_length_mask``: ``length`` has the data's shape without the axis, or
@@ -411,30 +539,58 @@ def activation(data, act_type="relu"):
 
 
 @_arrays
-def leaky_relu(data, act_type="leaky", slope=0.25):
-    """Reference: src/operator/leaky_relu.cc, the ``leaky``, ``elu``
-    (alpha ``slope``), ``selu`` and ``gelu`` (exact erf) act types; the
-    others wait for a later slice. ``elu`` and ``selu`` are fp32 under the
-    AMP policy (conditional fp32 entries)."""
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, generator=None,
+               **kwargs):
+    """Reference: src/operator/leaky_relu.cc: ``leaky`` (``slope``),
+    ``prelu`` (the learned ``gamma``, broadcast over axis 1 when it has
+    one element per channel), ``elu`` (alpha ``slope``), ``selu``,
+    ``gelu`` (exact erf) and ``rrelu``. ``rrelu`` takes the midpoint of
+    ``[lower_bound, upper_bound]`` as its slope, as the reference does,
+    outside training; while ``autograd.is_training()`` each element's
+    slope is drawn uniformly from the bounds (upstream MXNet's training
+    rule) from ``generator``, else from the default generator of the
+    tensor's device. ``elu`` and ``selu`` are fp32 under the AMP policy
+    (conditional fp32 entries)."""
     if act_type == "gelu":
         return gelu(data)
     data, = _cast(f"leaky_relu:{act_type}", data)
     if act_type == "leaky":
         return F.leaky_relu(data, slope)
+    if act_type == "prelu":
+        g = gamma
+        if g.numel() > 1 and data.ndim > 1 and g.shape[0] == data.shape[1]:
+            g = g.reshape((1, -1) + (1,) * (data.ndim - 2))
+        return torch.where(data >= 0, data, g * data)
     if act_type == "elu":
         return F.elu(data, slope)
     if act_type == "selu":
         return F.selu(data)
-    raise MXNetError(f"leaky_relu act_type {act_type!r} is not part of "
-                     "this slice of the port")
+    if act_type == "rrelu":
+        from . import autograd
+        from . import random as _random
+        if not autograd.is_training():
+            return F.leaky_relu(data, (lower_bound + upper_bound) / 2.0)
+        gen = generator if generator is not None \
+            else _random.default_generator(data.device)
+        _random.note_draw(gen)
+        a = torch.empty_like(data).uniform_(lower_bound, upper_bound,
+                                            generator=gen)
+        return torch.where(data >= 0, data, a * data)
+    raise MXNetError(f"unknown leaky_relu act_type {act_type!r}")
 
 
 @_arrays
-def gelu(x):
-    """Exact (erf) GELU, as ``npx.leaky_relu(act_type="gelu")`` computes
-    it (``approximate=False``), dispatched under its name there."""
+def gelu(x, approximation="erf"):
+    """GELU, as ``npx.leaky_relu(act_type="gelu")`` computes it: exact
+    (erf) by default, dispatched under its name there; ``approximation=
+    "tanh"`` takes the tanh form (``nn.GELU(approximation="tanh")``)."""
+    if approximation not in ("erf", "tanh"):
+        raise MXNetError(f"GELU approximation must be 'erf' or 'tanh', got "
+                         f"{approximation!r}")
     x, = _cast("leaky_relu:gelu", x)
-    return F.gelu(x, approximate="none")
+    return F.gelu(x, approximate="none" if approximation == "erf"
+                  else "tanh")
 
 
 @_arrays

@@ -459,7 +459,11 @@ class FusedCBRFunction(torch.autograd.Function):
     var)`` (reference: ``fused_cbr_train``): the forward is
     :func:`conv3x3_bn_relu_ref`, the backward
     :func:`fused_conv3x3_bn_relu_bwd`. mean and var feed only the
-    running-statistics update: their cotangents are dropped (:203)."""
+    running-statistics update: their cotangents are dropped (:203). The
+    backward is first-order only (``autograd.grad(..., create_graph=True)``
+    refuses it)."""
+
+    _first_order_only = True
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, eps):

@@ -368,7 +368,11 @@ class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention on contiguous ``(b*h, s, d)``: the
     forward kernel, and the two backward kernels as its backward (the
     reference's ``jax.custom_vjp`` ``_flash``). Saves ``(q, k, v, out,
-    lse)``; the scores are rebuilt in the backward."""
+    lse)``; the scores are rebuilt in the backward. The backward is
+    first-order only (``autograd.grad(..., create_graph=True)`` refuses
+    it)."""
+
+    _first_order_only = True
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

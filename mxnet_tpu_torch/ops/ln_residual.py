@@ -342,7 +342,10 @@ class LnResidualFunction(torch.autograd.Function):
     rows: the forward kernel, and the backward kernel as its backward (the
     reference's ``jax.custom_vjp`` ``_ln_residual``). Saves ``(x, h, mask,
     gamma, mean, rstd)``; s is rebuilt in the backward. The mask gets no
-    gradient."""
+    gradient. The backward is first-order only (``autograd.grad(...,
+    create_graph=True)`` refuses it)."""
+
+    _first_order_only = True
 
     @staticmethod
     def forward(ctx, x, h, mask, gamma, beta, p, eps):

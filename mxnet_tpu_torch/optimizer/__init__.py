@@ -1,7 +1,14 @@
-"""mx.optimizer (training slice): the registry, SGD, Adam, AdamW and the
+"""mx.optimizer: the registry, the reference's twenty optimizers and the
 Updater, with the reference's update arithmetic in plain PyTorch."""
-from .optimizer import (Adam, AdamW, Optimizer, SGD, Updater, create,
-                        get_updater, register)
+from . import contrib
+from .contrib import GroupAdaGrad
+from .optimizer import (DCASGD, FTML, LAMB, LANS, LARS, NAG, SGD, SGLD,
+                        AdaBelief, AdaDelta, AdaGrad, Adam, Adamax, AdamW,
+                        Ftrl, Nadam, Optimizer, RMSProp, Signum, Test,
+                        Updater, create, get_updater, register)
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Updater", "register",
-           "create", "get_updater"]
+__all__ = ["Optimizer", "Test", "SGD", "NAG", "Signum", "SGLD", "Adam",
+           "AdamW", "Adamax", "FTML", "AdaBelief", "Nadam", "AdaGrad",
+           "AdaDelta", "RMSProp", "Ftrl", "LAMB", "LANS", "LARS", "DCASGD",
+           "GroupAdaGrad", "Updater", "register", "create", "get_updater",
+           "contrib"]

@@ -246,14 +246,19 @@ def test_uninitialized_model_is_refused():
 
 
 def test_layers_need_their_input_width():
-    """LayerNorm needs its width; Dense told none defers its weight's
-    shape to the first forward, which needs initialize() first (as the
-    JAX package's deferred initialization does)."""
+    """Dense and LayerNorm told no width defer their parameters' shape to
+    the first forward, which needs initialize() first (as the JAX
+    package's deferred initialization does)."""
     from mxnet_tpu_torch.gluon import nn as tnn
     with pytest.raises(MXNetError):
         tnn.Dense(4, device="cpu")(torch.ones(2, 3))
     with pytest.raises(MXNetError):
-        tnn.LayerNorm(device="cpu")
+        tnn.LayerNorm(device="cpu")(torch.ones(2, 3))
+    ln = tnn.LayerNorm(device="cpu")
+    assert tuple(ln.gamma.shape) == (0,)
+    ln.initialize()
+    assert ln(torch.ones(2, 3)).shape == (2, 3)
+    assert tuple(ln.gamma.shape) == tuple(ln.beta.shape) == (3,)
     dense = tnn.Dense(4, in_units=3, device="cpu")
     assert tuple(dense.weight.shape) == (4, 3)
     deferred = tnn.Dense(4, device="cpu")

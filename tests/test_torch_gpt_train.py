@@ -208,9 +208,9 @@ def test_trainer_save_load_states_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [{"kvstore": "dist_sync"},
-                                    {"kvstore": "nccl"},
-                                    {"update_on_kvstore": True},
-                                    {"compression_params": {"type": "2bit"}}])
+                                    {"kvstore": "dist_async"},
+                                    {"kvstore": "horovod"},
+                                    {"kvstore": 3}])
 def test_trainer_outside_slice_raises(kwargs):
     _, tnet = _pair(0)
     with pytest.raises(MXNetError):
@@ -219,7 +219,7 @@ def test_trainer_outside_slice_raises(kwargs):
 
 def test_trainer_accepts_single_card_kvstores():
     _, tnet = _pair(0)
-    for kv in (None, "device", "local"):
+    for kv in (None, "device", "local", "nccl"):
         tr = tmx.gluon.Trainer(tnet.collect_params(), "sgd",
                                {"learning_rate": 0.5}, kvstore=kv)
         assert tr.learning_rate == 0.5

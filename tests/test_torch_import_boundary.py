@@ -78,7 +78,13 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.fault, mxnet_tpu_torch.profiler, "
             "mxnet_tpu_torch.trace, mxnet_tpu_torch.pipeline, "
             "mxnet_tpu_torch.goodput, mxnet_tpu_torch.insight, "
-            "mxnet_tpu_torch.blackbox, mxnet_tpu_torch._hooks; "
+            "mxnet_tpu_torch.blackbox, mxnet_tpu_torch._hooks, "
+            "mxnet_tpu_torch.kvstore, mxnet_tpu_torch.kvstore.kvstore, "
+            "mxnet_tpu_torch.kvstore.gradient_compression, "
+            "mxnet_tpu_torch.optimizer.contrib, "
+            "mxnet_tpu_torch.gluon.metric, mxnet_tpu_torch.gluon.utils, "
+            "mxnet_tpu_torch.gluon.nn.activations, "
+            "mxnet_tpu_torch.ops.deformable; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -425,7 +425,7 @@ def test_leaky_relu_matches_jax(act):
     got = tnpx.leaky_relu(torch.from_numpy(x), act_type=act)
     onp.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-5)
     with pytest.raises(MXNetError):
-        tnpx.leaky_relu(torch.from_numpy(x), act_type="rrelu")
+        tnpx.leaky_relu(torch.from_numpy(x), act_type="no_such_act")
 
 
 def test_dense_activation_child_has_no_parameters():
