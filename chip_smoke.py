@@ -498,6 +498,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    an optimizer inside; ``grad(create_graph=True)`` to third order, and
    through a hybridized block the documented ``MXNetError`` (a replayed
    CUDA graph is first-order only).
+34. ResNet-50 v1 fp32 fed from disk: 512 seeded 224 x 224 x 3 uint8
+   images with labels of 1000 classes in one ``.rec`` / ``.idx`` pair
+   (``recordio.pack_img``, the ``.npy`` codec), read by
+   ``ImageRecordDataset(...).transform_first(Compose([RandomFlipLeftRight(),
+   ToTensor(), Normalize(mean, std)]))`` through ``DataLoader(batch_size=32,
+   shuffle=True, num_workers=4, pin_memory=True, prefetch_to_device=True,
+   last_batch="discard")`` with spawned process workers and the
+   shared-memory ring; the loader alone first, threads against processes
+   (images/s of a second epoch). Phase 32's model and recipe hybridized,
+   driven by ``Estimator.fit`` with a ``ResilienceHandler``, cuDNN's
+   deterministic algorithms: one uninterrupted epoch (16 steps); then
+   ``resilience.preempt:at=5``, and a fresh net, trainer and loader from
+   the same seed restore the bundle and finish the epoch: every loss after
+   step 5 and every weight at the end equal bit for bit. Then, with the
+   default algorithms: wall ms a step of the loader-fed fit and of a
+   device-resident batch in turns, device ms and busy share of both,
+   ``pipeline.input_stall_seconds``, the side stream's host-to-device
+   copies overlapping compute kernels (profiler events), 0 host syncs in
+   the fit loop (the sync guard, and the synchronizing runtime calls of
+   the loop's thread), the bundle's bytes and save / load seconds, kernel
+   8 16 times a hybridized step (profiler events).
+35. GPT-2 124M bf16 fed from stream shards: 96 seeded sequences of 1025
+   int32 tokens in 4 checksummed shards (``ShardWriter``, a manifest),
+   ``StreamDataset`` + ``StreamSampler`` through ``DataLoader(num_workers=2,
+   prefetch_to_device=True)``, phase 27's hybridized bf16 AdamW step
+   driven by ``resilience.run``: one uninterrupted epoch (12 steps); then a
+   run that saves its bundle at step 4 and meets ``stream.shard_unreadable``
+   past ``stream.open_retries`` on its next shard open: ``run`` restores
+   the bundle and re-enters, and the losses of steps 5-12 equal the
+   uninterrupted run's bit for bit. Kernels 1-3 12 times each a hybridized
+   step (profiler events); wall ms a step fed from the shards against a
+   device-resident batch.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -5801,6 +5833,587 @@ def phase_resnet_nag(dev, card):
     return e2e
 
 
+#: phase 34: images in the .rec, loader workers, the preempted step, the
+#: loader's normalization (ImageNet's), the timed loader-fed steps
+PIPE_IMAGES, PIPE_WORKERS, PIPE_PREEMPT, PIPE_SEED = 512, 4, 5, 34
+PIPE_MEAN, PIPE_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+PIPE_TIMED = 12
+#: phase 35: sequences in the shards, the shards, the step whose bundle
+#: the restart restores
+STREAM_RECORDS, STREAM_SHARDS, STREAM_SAVE_AT, STREAM_SEED = 96, 4, 4, 35
+
+
+def pipe_rec(root):
+    """PIPE_IMAGES seeded 224 x 224 x 3 uint8 images and labels of
+    RESNET_CLASSES classes in one .rec / .idx pair (the .npy codec)."""
+    from mxnet_tpu_torch import recordio
+    rec = os.path.join(root, "train.rec")
+    rs = onp.random.RandomState(PIPE_SEED)
+    w = recordio.MXIndexedRecordIO(os.path.join(root, "train.idx"), rec, "w")
+    for i in range(PIPE_IMAGES):
+        img = rs.randint(0, 256, (RESNET_SIZE, RESNET_SIZE, 3),
+                         dtype=onp.uint8)
+        label = float(rs.randint(RESNET_CLASSES))
+        w.write_idx(i, recordio.pack_img((0, label, i, 0), img,
+                                         img_fmt=".npy"))
+    w.close()
+    return rec
+
+
+def pipe_loader(mx, rec, threads=False):
+    """Phase 34's loader; numpy's global state and mx.random are seeded
+    first, since ``shuffle=True`` draws each epoch's order from the one
+    and the loader each epoch's augmentation seed from the other."""
+    T = mx.gluon.data.vision.transforms
+    onp.random.seed(PIPE_SEED)
+    mx.random.seed(PIPE_SEED)
+    ds = mx.gluon.data.vision.ImageRecordDataset(rec).transform_first(
+        T.Compose([T.RandomFlipLeftRight(), T.ToTensor(),
+                   T.Normalize(PIPE_MEAN, PIPE_STD)]))
+    return mx.gluon.data.DataLoader(
+        ds, batch_size=RESNET_BATCH, shuffle=True, num_workers=PIPE_WORKERS,
+        thread_pool=threads, pin_memory=True, prefetch_to_device=True,
+        last_batch="discard")
+
+
+def loss_recorder(est, sync_at=()):
+    """A batch-end handler keeping each step's mean loss on the card (read
+    after the fit: no host sync in the loop) and the host time of each
+    batch end; at the batch ends numbered in ``sync_at`` (from 1) it
+    waits for the card first, so that a time taken there closes a step
+    (a timed window)."""
+    class Recorder(est.BatchEnd):
+        # after the optimizer step (-2000), before the ResilienceHandler
+        # (-1500), which raises Preempted at its batch end
+        priority = -1600
+
+        def __init__(self):
+            self.losses, self.times = [], []
+
+        def batch_end(self, estimator, *args, **kwargs):
+            self.losses.append(kwargs["loss"][0]._data.detach().mean())
+            if len(self.losses) in sync_at:
+                torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+
+        def step_ms(self):
+            """ms a step from the first synced batch end to the last."""
+            a, b = (self.times[i - 1] for i in sync_at)
+            return (b - a) / (sync_at[1] - sync_at[0]) * 1e3
+    return Recorder()
+
+
+def smoothed_processor(mx, est):
+    """Phase 32's step as an Estimator batch processor: int labels smoothed
+    by LABEL_SMOOTHING on the card, SoftmaxCrossEntropyLoss(sparse_label=
+    False)."""
+    class Smoothed(est.BatchProcessor):
+        def fit_batch(self, estimator, batch, batch_axis=0):
+            x, y = batch
+            label = y._data.long()
+            smooth = torch.nn.functional.one_hot(
+                label, RESNET_CLASSES).float() * (1 - LABEL_SMOOTHING) \
+                + LABEL_SMOOTHING / RESNET_CLASSES
+            with mx.autograd.record():
+                pred = estimator.net(x)
+                loss = estimator.loss(pred, smooth)
+            mx.autograd.backward(loss)
+            return [x], [label], [pred], [loss]
+    return Smoothed()
+
+
+def copy_overlap(events):
+    """(host-to-device copy ms, of it the ms overlapping a compute kernel)
+    of profiler device events: a copy on the prefetcher's side stream runs
+    while the step's kernels run on the consumer's."""
+    copies, kernels = [], []
+    for e in events:
+        r = (e.time_range.start, e.time_range.end)
+        if "Memcpy HtoD" in e.name:
+            copies.append(r)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(r)
+    kernels.sort()
+    total = over = 0.0
+    for a, b in copies:
+        total += b - a
+        cover = []
+        for ka, kb in kernels:
+            if kb <= a:
+                continue
+            if ka >= b:
+                break
+            cover.append((max(a, ka), min(b, kb)))
+        end = a
+        for ca, cb in sorted(cover):
+            if cb > end:
+                over += cb - max(ca, end)
+                end = cb
+    return total / 1e3, over / 1e3
+
+
+def profiled_fit(fn, names=()):
+    """One call of ``fn()`` under ``torch.profiler``, the card synchronized
+    after it: {"compute_ms": device ms of the compute kernels, "copy_ms":
+    host-to-device copy ms, "overlap_ms": the part of it overlapping
+    compute, "syncs": cudaStreamSynchronize and cudaDeviceSynchronize
+    calls made while ``fn()`` ran (a host read in the loop makes one),
+    "staging_waits": cudaEventSynchronize calls then (the prefetch
+    thread's waits on a staging buffer), "syncs_after": the synchronizing
+    calls after it (the window's own closing synchronize: proof that the
+    profiler records such calls), "kernels": {name: device kernels whose
+    names contain it} for ``names``, "value": what ``fn()`` returned}.
+    The window's span is a ``record_function``, whose annotation on each
+    stream the card ran is left out of the device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    mark = "chip_smoke.fed_window"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(mark):
+            value = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e.time_range for e in events
+                if e.name == mark and e.device_type != DeviceType.CUDA)
+    dev = [e for e in events
+           if e.device_type == DeviceType.CUDA and e.name != mark]
+    syncs = [(e.name, e.time_range.start) for e in events
+             if e.device_type != DeviceType.CUDA and e.name in SYNC_CALLS]
+    inside = [n for n, t in syncs if span.start <= t <= span.end]
+    copy_ms, overlap_ms = copy_overlap(dev)
+    return {"compute_ms": sum(
+                e.time_range.elapsed_us() for e in dev
+                if "Memcpy" not in e.name and "Memset" not in e.name) / 1e3,
+            "copy_ms": copy_ms, "overlap_ms": overlap_ms,
+            "syncs": sum(n != "cudaEventSynchronize" for n in inside),
+            "staging_waits": inside.count("cudaEventSynchronize"),
+            "syncs_after": sum(t > span.end for _, t in syncs),
+            "kernels": {n: sum(n in e.name for e in dev) for n in names},
+            "value": value}
+
+
+def fed_window(label, fn, steps, want, blocks):
+    """:func:`profiled_fit` of ``fn()``, which runs ``steps`` steps of a
+    path fed from disk: the launches of the kernels of ``want`` ({name: a
+    step}) by their device events (a replay runs no wrapper, so no
+    counter moves). The profiler drops events now and then: a window
+    short of ``want`` is measured again, up to three windows, each
+    printed; the last is returned. The hybridized ``blocks`` must not
+    capture in it (the window replays their graphs)."""
+    captures = graph_stats(blocks)["captures"]
+    for window in range(3):
+        r = profiled_fit(fn, tuple(want))
+        print(f"  {label}: profiled window {window + 1} of {steps} fed "
+              f"steps: kernel events {r['kernels']}")
+        if all(r["kernels"][n] == want[n] * steps for n in want):
+            break
+    check(graph_stats(blocks)["captures"] == captures,
+          f"{label}: the fed window captured again instead of replaying")
+    return r
+
+
+def phase_resnet_pipeline(dev, card):
+    """ResNet-50 v1 fp32 fed from a RecordIO file through the loader's
+    spawned workers, the shared-memory ring and the pinned side-stream
+    prefetcher, driven by Estimator.fit with a ResilienceHandler (phase
+    34)."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.contrib import estimator as est
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.numpy.multiarray import _wrap
+    print(f"== phase 34: ResNet-50 v1 fp32 fed from a .rec of {PIPE_IMAGES} "
+          f"images (batch {RESNET_BATCH} x 3 x {RESNET_SIZE} x "
+          f"{RESNET_SIZE}, {PIPE_WORKERS} spawned workers, pinned "
+          f"side-stream prefetch, Estimator + ResilienceHandler) on {card}",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase34_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        rec = pipe_rec(root)
+        out["rec_bytes"] = os.path.getsize(rec)
+        out["rec_write_s"] = time.perf_counter() - t0
+        # the loader alone: a second epoch (pools warm) of each mode
+        rates = {}
+        for mode in ("threads", "processes"):
+            loader = pipe_loader(mx, rec, threads=mode == "threads")
+            check(loader._resolve_worker_mode() == mode,
+                  f"phase 34: the loader took {loader._resolve_worker_mode()}")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                n = 0
+                for x, y in loader:
+                    n += x.shape[0]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            check(x._data.device == dev and x.shape == (
+                RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE)
+                and x.dtype == onp.float32,
+                f"phase 34: a batch is {x.shape} {x.dtype} on {x._data.device}")
+            rates[mode] = n / secs
+            loader.close()
+        out["loader_images_per_s"] = rates
+        print(f"the loader alone, {PIPE_WORKERS} workers, a second epoch of "
+              f"{n} images to the card: " + ", ".join(
+                  f"{m} {r:.1f} images/s" for m, r in rates.items()))
+
+        warm = torch.zeros(1, 3, RESNET_SIZE, RESNET_SIZE, device=dev)
+
+        def make(bundle):
+            net = resnet50_v1(classes=RESNET_CLASSES,
+                              device=dev).initialize(seed=0)
+            net(warm)  # the deferred shapes, before any capture
+            loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss(
+                sparse_label=False)
+            net.hybridize()
+            loss_fn.hybridize()
+            trainer = mx.gluon.Trainer(net.collect_params(), "nag",
+                                       dict(NAG_OPT))
+            loader = pipe_loader(mx, rec)
+            e = est.Estimator(
+                net, loss_fn,
+                train_metrics=[mx.gluon.metric.Accuracy().defer()],
+                trainer=trainer,
+                batch_processor=smoothed_processor(mx, est))
+            e.train_metrics[-1] = e.train_metrics[-1].defer()
+            return e, loader, est.ResilienceHandler(bundle, loader=loader)
+
+        steps = PIPE_IMAGES // RESNET_BATCH
+        cudnn_default = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            e, loader, rh = make(os.path.join(root, "whole.bundle"))
+            rec_truth = loss_recorder(est)
+            zero_all_counters()
+            e.fit(loader, epochs=1, event_handlers=[rh, rec_truth])
+            torch.cuda.synchronize()
+            main_launches = all_launches()
+            truth = [v.item() for v in rec_truth.losses]
+            final = params_snapshot(e.net.collect_params())
+            loader.close()
+            check(len(truth) == steps and rh.state.step == steps,
+                  f"phase 34: {len(truth)} steps in the epoch, expected "
+                  f"{steps}")
+            check(main_launches[7] > 0, "phase 34: kernel 8 never launched "
+                                        "on the loader-fed path")
+            bundle = os.path.join(root, "run.bundle")
+            e, loader, rh = make(bundle)
+            first = loss_recorder(est)
+            mx.fault.configure(f"resilience.preempt:at={PIPE_PREEMPT}")
+            try:
+                e.fit(loader, epochs=1, event_handlers=[rh, first])
+                fail("phase 34: the preemption did not stop the fit")
+            except mx.resilience.Preempted as p:
+                check(p.step == PIPE_PREEMPT and p.path == bundle,
+                      f"phase 34: preempted at {p.step} into {p.path}")
+            finally:
+                mx.fault.clear()
+                mx.resilience.clear_preempt()
+            loader.close()
+            head = [v.item() for v in first.losses]
+            del e, loader, rh, first
+            gc.collect()
+            torch.cuda.empty_cache()
+            e, loader, rh = make(bundle)
+            after = loss_recorder(est)
+            e.fit(loader, epochs=1, event_handlers=[rh, after])
+            torch.cuda.synchronize()
+            rest = [v.item() for v in after.losses]
+            diffs = tensor_diffs(final, params_snapshot(
+                e.net.collect_params()))
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_default
+        same = head == truth[:PIPE_PREEMPT] and rest == truth[PIPE_PREEMPT:]
+        print(f"uninterrupted losses {truth}; preempted at step "
+              f"{PIPE_PREEMPT} and resumed: " + (
+                  "every loss equal bit for bit" if same else
+                  f"DIFFER: {head} + {rest}") + "; weights at the end "
+              + ("equal bit for bit" if not diffs else
+                 f"differ in {len(diffs)} tensors"))
+        check(rh.resumed and same and not diffs,
+              f"phase 34: the resumed run differs from the uninterrupted "
+              f"one ({len(diffs)} tensors)")
+        check(all(math.isfinite(v) for v in truth), "phase 34: a loss is "
+                                                    "not finite")
+        out.update(losses=truth, resume_bit_identical=True,
+                   wrapper_launches_uninterrupted_epoch=main_launches[7])
+        # the bundle: bytes, save and load seconds
+        path = os.path.join(root, "timed.bundle")
+        t0 = time.perf_counter()
+        rh.state.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rh.state.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        out.update(bundle_bytes=os.path.getsize(path), bundle_save_s=save_s,
+                   bundle_load_s=load_s)
+        # the timed steps, with the default algorithms: Estimator.fit fed by
+        # the loader and fed by a list repeating one batch already on the
+        # card, in turns; the same handlers, so the difference is the
+        # loader's
+        net, loss_fn, trainer = e.net, e.loss, e.trainer
+        for blk in (net, loss_fn):
+            blk._clear_cached_graphs()
+        xd, yd = resnet_batch(dev)
+        dev_batch = (_wrap(xd), _wrap(yd.float()))
+
+        def fit_on(source, n, sync_at=()):
+            """Estimator.fit over ``n`` batches of ``source``."""
+            rec_n = loss_recorder(est, sync_at)
+            e.fit(source, batches=n, event_handlers=[rec_n])
+            return rec_n
+
+        def source(kind, n):
+            return loader if kind == "loader" else [dev_batch] * n
+
+        for kind in ("loader", "device_batch"):
+            fit_on(source(kind, 2), 2)  # captures with the default algorithms
+        torch.cuda.synchronize()
+        rows = {"loader": [], "device_batch": []}
+        n = PIPE_TIMED + 1
+        mx.telemetry.enable()
+        mx.telemetry.reset()
+        try:
+            for kind in ("loader", "device_batch", "device_batch",
+                         "loader") * 3:
+                # from the end of a finished first step to the end of a
+                # finished last one: the start-up of the epoch and the
+                # loader's teardown after the fit stay out
+                rows[kind].append(
+                    fit_on(source(kind, n), n, (1, n)).step_ms())
+            torch.cuda.synchronize()
+            hist = mx.telemetry.snapshot()["histograms"].get(
+                "pipeline.input_stall_seconds", {})
+        finally:
+            mx.telemetry.disable()
+            mx.telemetry.reset()
+        with mx.pipeline.sync_guard() as guard:
+            fit_on(loader, PIPE_TIMED)
+        torch.cuda.synchronize()
+        fed = fed_window("phase 34", lambda: fit_on(loader, PIPE_TIMED),
+                         PIPE_TIMED,
+                         {"conv_bwd_dgrad_kernel": RESNET_TRIPLETS},
+                         (net, loss_fn))
+        ctl = profiled_fit(
+            lambda: fit_on(source("device_batch", PIPE_TIMED), PIPE_TIMED))
+        loader.close()
+        fed_ms = float(onp.median(rows["loader"]))
+        dev_wall = float(onp.median(rows["device_batch"]))
+        fed_dev = fed["compute_ms"] / PIPE_TIMED
+        dev_ms = ctl["compute_ms"] / PIPE_TIMED
+        window = fed["kernels"]
+        out.update(
+            step_ms_loader=fed_ms, step_ms_loader_runs=rows["loader"],
+            step_ms_device_batch=dev_wall,
+            step_ms_device_batch_runs=rows["device_batch"],
+            input_pipeline_cost_ms=fed_ms - dev_wall,
+            device_ms_loader=fed_dev, device_ms_device_batch=dev_ms,
+            busy_share_loader=busy_share(fed_dev, fed_ms),
+            busy_share_device_batch=busy_share(dev_ms, dev_wall),
+            input_stall_seconds={"count": hist.get("count"),
+                                 "sum": hist.get("sum"),
+                                 "quantiles": hist.get("quantiles")},
+            h2d_copy_ms=fed["copy_ms"],
+            h2d_copy_overlapping_compute_ms=fed["overlap_ms"],
+            staging_waits=fed["staging_waits"],
+            host_syncs_sync_guard=guard.count,
+            host_sync_calls_loop=fed["syncs"],
+            host_sync_calls_device_batch=ctl["syncs"],
+            host_sync_calls_after_loop=fed["syncs_after"],
+            launch_window_steps=PIPE_TIMED,
+            launch_window_kernel_events=window)
+        print(f"phase 34 [{card}]: " + json.dumps(out))
+        check(window["conv_bwd_dgrad_kernel"] == RESNET_TRIPLETS
+              * PIPE_TIMED, f"phase 34: kernel 8 events {window} in "
+                            f"{PIPE_TIMED} loader-fed steps, expected "
+                            f"{RESNET_TRIPLETS} a step")
+        check(guard.count == 0 and fed["syncs"] == 0
+              and fed["syncs_after"] >= 1,
+              f"phase 34: host syncs in the fit loop: guard {guard.sites}, "
+              f"{fed['syncs']} synchronizing runtime calls (and "
+              f"{fed['syncs_after']} after it, where the window's closing "
+              f"synchronize is one)")
+        check(fed["copy_ms"] > 0 and fed["overlap_ms"] > 0,
+              f"phase 34: host-to-device copies {fed['copy_ms']:.3f} ms, "
+              f"{fed['overlap_ms']:.3f} ms of it beside compute")
+        check(hist.get("count"), "phase 34: no input stall was recorded")
+        del e, net, loss_fn, trainer
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _split_tokens(payload):
+    """A stream record -> (inputs, next-token labels), int32."""
+    from mxnet_tpu_torch import stream
+    seq = stream.unpack_sample(payload)
+    return seq[:-1], seq[1:]
+
+
+def phase_gpt_stream(dev, card):
+    """GPT-2 124M bf16 fed from checksummed stream shards, driven by
+    resilience.run through an injected shard loss (phase 35)."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import stream
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, gpt2_124m
+    print(f"== phase 35: GPT-2 124M bf16 fed from {STREAM_SHARDS} stream "
+          f"shards of {STREAM_RECORDS} sequences (batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, hybridized, resilience.run) on {card}", flush=True)
+    vocab = 50257
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase35_")
+    out = {}
+    try:
+        rs = onp.random.RandomState(STREAM_SEED)
+        with stream.ShardWriter(root, STREAM_SHARDS) as w:
+            for _ in range(STREAM_RECORDS):
+                w.append(stream.pack_sample(
+                    rs.randint(0, vocab, TRAIN_SEQ + 1).astype(onp.int32)))
+        manifest = stream.ShardManifest.load(root)
+        check(stream.validate_manifest(manifest)["ok"],
+              "phase 35: the shards do not validate")
+        steps = STREAM_RECORDS // TRAIN_BATCH
+        mx.config.set("stream.open_backoff", 0.001)
+        net = GPTForCausalLM(backbone=gpt2_124m(
+            vocab_size=vocab, max_length=TRAIN_SEQ, dropout=0.0,
+            embed_dropout=0.0, device=dev)).initialize(seed=0)
+        params = net.collect_params()
+        start = params_snapshot(params)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        mx.amp.init("bfloat16")
+        net.hybridize()
+        loss_fn.hybridize()
+
+        def step_on(trainer, x, y):
+            with mx.autograd.record():
+                loss = loss_fn(net(x._data.long()), y._data.long())
+            mx.autograd.backward(loss)
+            trainer.step(TRAIN_BATCH)
+            return loss.detach().mean()
+
+        def run(inject, batches=None):
+            """One resilience.run of the stream-fed loop (or of the same
+            loop over ``batches``): (losses by step, the steps done at
+            each entry, ms a step from a finished first step to a
+            finished last one, the loader, the trainer)."""
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.data().copy_(start[n])
+            trainer = mx.gluon.Trainer(params, "adamw",
+                                       {"learning_rate": 1e-4, "wd": 0.01})
+            ds = stream.StreamDataset(manifest, transform=_split_tokens)
+            # thread workers share the dataset's shard readers, so the
+            # injection below reaches them; 2 batches in the pump and 1 in
+            # the device queue keep the fetches after step STREAM_SAVE_AT
+            # behind the injection
+            loader = mx.gluon.data.DataLoader(
+                ds, batch_sampler=stream.StreamSampler(
+                    manifest, batch_size=TRAIN_BATCH, seed=STREAM_SEED),
+                num_workers=2, thread_pool=True, prefetch=2,
+                prefetch_to_device=True, device_prefetch_depth=1)
+            state = mx.resilience.TrainState(
+                net=net, trainer=trainer, loader=loader,
+                path=os.path.join(root, f"run{int(inject)}.bundle"))
+            losses, entries, ends = {}, [], []
+
+            def train():
+                entries.append(state.step)
+                for x, y in (loader if batches is None else batches):
+                    loss = step_on(trainer, x, y)
+                    state.step += 1
+                    losses[state.step] = loss
+                    if len(ends) in (0, steps - 1):
+                        torch.cuda.synchronize()  # the timed span's ends
+                    ends.append(time.perf_counter())
+                    if inject and state.step == STREAM_SAVE_AT \
+                            and len(entries) == 1:
+                        state.save()
+                        # the next shard open fails past the retry budget
+                        ds._readers.clear()
+                        mx.fault.configure(
+                            "stream.shard_unreadable:prob=1,times="
+                            f"{mx.config.get('stream.open_retries') + 1}")
+                return state.step
+
+            try:
+                mx.resilience.run(train, state=state, max_restarts=1)
+            finally:
+                mx.fault.clear()
+            wall = (ends[steps - 1] - ends[0]) / (steps - 1)
+            loader.close()
+            return ({k: v.item() for k, v in losses.items()}, entries,
+                    wall * 1e3, loader, trainer)
+
+        try:
+            zero_all_counters()
+            truth, _, _, loader, _ = run(False)
+            main_launches = all_launches()
+            mx.fault.reset_stats()
+            got, entries1, _, _, _ = run(True)
+            stats = mx.fault.stats()
+            # the stream-fed loop and the same loop over a list repeating
+            # one batch already on the card, in turns
+            x, y = next(iter(loader))
+            loader.close()
+            rows = {"stream": [], "device_batch": []}
+            for kind in ("stream", "device_batch", "device_batch", "stream"):
+                rows[kind].append(run(False, None if kind == "stream"
+                                      else [(x, y)] * steps)[2])
+            fed = fed_window(
+                "phase 35", lambda: run(False)[0], steps,
+                {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
+                 "flash_bwd_dq": N_LAYERS}, (net, loss_fn))
+        finally:
+            mx.amp._deactivate()
+            mx.config.reset("stream.open_backoff")
+            net.hybridize(False)
+            loss_fn.hybridize(False)
+        same = [got[k] for k in range(1, steps + 1)] == \
+            [truth[k] for k in range(1, steps + 1)]
+        print(f"uninterrupted losses {[truth[k] for k in sorted(truth)]}; "
+              f"entries of the restarted run {entries1} (steps done at "
+              f"each), events {stats}; losses "
+              + ("equal bit for bit" if same else "DIFFER"))
+        check(len(truth) == steps, f"phase 35: {len(truth)} steps")
+        check(entries1 == [0, STREAM_SAVE_AT] and same,
+              f"phase 35: the restarted run entered at {entries1} or its "
+              f"losses differ")
+        check(stats.get("resilience.restart") == 1
+              and stats.get("stream.shard_lost") == 1,
+              f"phase 35: recovery events {stats}")
+        window = fed["kernels"]
+        check(all(n > 0 for n in main_launches[:3]),
+              f"phase 35: flash wrapper launches {main_launches[:3]}")
+        check(all(window[n] == N_LAYERS * steps for n in window),
+              f"phase 35: flash events {window} in {steps} stream-fed "
+              f"steps, expected {N_LAYERS} each a step")
+        check(fed["value"] == truth, "phase 35: the profiled stream-fed "
+                                     "run's losses differ from the first")
+        stream_ms = float(onp.median(rows["stream"]))
+        dev_wall = float(onp.median(rows["device_batch"]))
+        fed_dev = fed["compute_ms"] / steps
+        out.update(losses=[truth[k] for k in sorted(truth)],
+                   resume_bit_identical=True, recovery_events=stats,
+                   wrapper_launches_uninterrupted_epoch=main_launches[:3],
+                   step_ms_stream=stream_ms,
+                   step_ms_stream_runs=rows["stream"],
+                   step_ms_device_batch=dev_wall,
+                   step_ms_device_batch_runs=rows["device_batch"],
+                   device_ms_stream=fed_dev,
+                   busy_share_stream=busy_share(fed_dev, stream_ms),
+                   launch_window_steps=steps,
+                   launch_window_kernel_events=window)
+        print(f"phase 35 [{card}]: " + json.dumps(out))
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 #: phase 33's tolerance, card against the port's CPU result (fp32 through
 #: other kernels and summation orders)
 SURFACE_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -6559,6 +7172,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     surface = timed("33", phase_surface, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_pipe = timed("34", phase_resnet_pipeline, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_stream = timed("35", phase_gpt_stream, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -6670,6 +7289,17 @@ def main():
         entry["launches_by_path"].update(bert_bf16_lamb_train=lamb,
                                          resnet_nag_train=nag)
         entry["launches"] += lamb + nag
+    # phases 34-35, fed from disk: the profiler events of a window of
+    # loader-fed (stream-fed) steps
+    for i, entry in enumerate(entries):
+        pipe = resnet_pipe["launch_window_kernel_events"][
+            "conv_bwd_dgrad_kernel"] if i == 7 else 0
+        strm = gpt_stream["launch_window_kernel_events"][
+            ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")[i]] if i < 3 \
+            else 0
+        entry["launches_by_path"].update(resnet_pipeline_train=pipe,
+                                         gpt_bf16_stream_train=strm)
+        entry["launches"] += pipe + strm
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -6695,7 +7325,9 @@ def main():
                       "planes_cost": planes_cost,
                       "bert_bf16_lamb_train": bert_lamb,
                       "resnet_nag_train": resnet_nag,
-                      "surface": surface}))
+                      "surface": surface,
+                      "resnet_pipeline_train": resnet_pipe,
+                      "gpt_bf16_stream_train": gpt_stream}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,6 +37,15 @@ endpoint), ``fault`` (injection points), ``profiler`` (host spans and a
 and the serve engine are hooked into them, each hook one attribute read
 while its plane is off. ``profiler.autostart`` (``MXNET_PROFILER_
 AUTOSTART``) starts the profiler at import.
+
+The data and checkpoint path is the reference's: ``gluon.data``
+(datasets, samplers with resumable cursors, the ``DataLoader`` with
+thread or spawned process workers over a shared-memory ring), the vision
+datasets and transforms over ``npx.image``, ``recordio`` (the same
+``.rec`` bytes), the ``image`` codecs, ``stream`` (checksummed shards),
+``pipeline.DevicePrefetcher`` (pinned memory, a side CUDA stream),
+``resilience`` (``TrainState`` bundles with bit-for-bit resume, ``run``),
+``io``'s iterators and ``gluon.contrib.estimator``.
 """
 from . import base, config, context
 from . import log, telemetry, fault, profiler, trace, pipeline
@@ -48,6 +57,7 @@ from . import initializer as init
 from . import kvstore as kv
 from . import numpy_extension as npx
 from . import optimizer, parallel, random, serve, test_utils, util
+from . import image, io, recordio, resilience, stream
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, device, gpu,
                       num_gpus, resolve_device, tpu)
@@ -58,10 +68,11 @@ __version__ = "2.0.0a1"
 __all__ = ["Context", "MXNetError", "amp", "autograd", "blackbox", "config",
            "context", "contrib", "cpu", "cpu_pinned", "current_context",
            "device", "dlpack", "fault", "functional", "gluon", "goodput",
-           "gpu", "init", "initializer", "insight", "kv", "kvstore", "log",
-           "lr_scheduler",
+           "gpu", "image", "init", "initializer", "insight", "io", "kv",
+           "kvstore", "log", "lr_scheduler",
            "np", "npx", "num_gpus", "optimizer", "parallel", "pipeline",
-           "profiler", "random", "resolve_device", "serve", "telemetry",
+           "profiler", "random", "recordio", "resilience",
+           "resolve_device", "serve", "stream", "telemetry",
            "test_utils", "tpu", "trace", "util", "waitall"]
 
 if config.get("profiler.autostart"):

@@ -234,6 +234,37 @@ declare("telemetry.jsonl", str, "", "MXNET_TELEMETRY_JSONL",
         "final run report ('' = keep records in memory only).")
 declare("telemetry.step_interval", int, 1, "MXNET_TELEMETRY_STEP_INTERVAL",
         "TrainingTelemetry emits a JSONL step record every N step() calls.")
+declare("dataloader.worker_mode", str, "auto", "MXNET_DATALOADER_WORKER_MODE",
+        "num_workers>0 execution mode: 'threads', 'processes', or 'auto' "
+        "(a first-batch cost probe picks processes only for GIL-bound "
+        "python transforms).")
+declare("dataloader.mp_threshold_ms", float, 2.0,
+        "MXNET_DATALOADER_MP_THRESHOLD_MS",
+        "auto worker mode: per-sample python cost (ms) above which the "
+        "GIL dominates and process workers beat threads.")
+declare("dataloader.max_respawns", int, 2, "MXNET_DATALOADER_MAX_RESPAWNS",
+        "Crashed/hung worker-pool respawns tolerated per epoch before the "
+        "loader degrades to threaded workers.")
+declare("dataloader.respawn_backoff", float, 0.1,
+        "MXNET_DATALOADER_RESPAWN_BACKOFF",
+        "Base seconds slept before respawning a crashed worker pool "
+        "(doubles per retry).")
+declare("dataloader.shm_ring", bool, True, "MXNET_DATALOADER_SHM_RING",
+        "Process-worker loaders reuse a pool of SharedMemory segments "
+        "across batches instead of create/unlink per batch; off restores "
+        "one-shot segments.")
+declare("dataloader.shm_ring_max", int, 32, "MXNET_DATALOADER_SHM_RING_MAX",
+        "Max idle SharedMemory segments the reuse pool keeps per loader; "
+        "overflow segments are unlinked oldest-first.")
+declare("pipeline.prefetch_depth", int, 2, "MXNET_PIPELINE_PREFETCH_DEPTH",
+        "In-flight batch window of a mx.pipeline.DevicePrefetcher (2 = "
+        "double buffering, 3 = triple); bounds host+device memory pinned "
+        "by prefetched batches.")
+declare("pipeline.stall_timeout", float, 30.0, "MXNET_PIPELINE_STALL_TIMEOUT",
+        "Seconds a DevicePrefetcher consumer waits on an empty queue "
+        "before declaring the background thread stalled and handing its "
+        "source iterator to a replacement thread (counted in "
+        "mx.fault.stats()).")
 declare("pipeline.deferred_window", int, 32, "MXNET_PIPELINE_DEFERRED_WINDOW",
         "Default mx.pipeline.DeferredWindow capacity: device scalars "
         "(grad norms, metric accumulators) pending host fetch; overflow "
@@ -287,6 +318,32 @@ declare("insight.straggler_ratio", float, 1.5,
         "this multiple of the fleet median is marked a straggler by "
         "check_peers, independent of the fixed fleet.slow_fraction "
         "deadline cutoff.")
+declare("stream.on_corrupt", str, "raise", "MXNET_STREAM_ON_CORRUPT",
+        "Checksum-failure policy for mx.stream record reads: 'raise' "
+        "escalates a structured CorruptRecord, 'skip' drops the record "
+        "and counts it in stream.records_skipped_total.")
+declare("stream.open_retries", int, 2, "MXNET_STREAM_OPEN_RETRIES",
+        "Shard-open attempts retried (with stream.open_backoff * attempt "
+        "sleeps) before mx.stream escalates a WorkerLost-style "
+        "ShardUnreadable; the bounded budget guarantees escalation "
+        "instead of a hang.")
+declare("stream.open_backoff", float, 0.05, "MXNET_STREAM_OPEN_BACKOFF",
+        "Base backoff (seconds) between shard-open retries; attempt k "
+        "sleeps k * backoff.")
+declare("resilience.max_restarts", int, 3, "MXNET_RESILIENCE_MAX_RESTARTS",
+        "In-process training restarts mx.resilience.run() performs after "
+        "a WorkerLost escalation (each restart restores the last "
+        "TrainState bundle) before re-raising to the caller.")
+declare("resilience.keep_bundles", int, 3, "MXNET_RESILIENCE_KEEP_BUNDLES",
+        "Valid TrainState bundle generations retained by save() as the "
+        "fallback chain (<path>.gN history hard-links); torn and older "
+        "generations are deleted at save time. 0 keeps only the primary "
+        "bundle file.")
+declare("resilience.restart_window_steps", int, 1000,
+        "MXNET_RESILIENCE_RESTART_WINDOW",
+        "Healthy-progress window (optimizer steps between WorkerLost "
+        "events) after which mx.resilience.run's restart budget resets; "
+        "0 keeps the budget monotonic.")
 declare("telemetry.report_max_bytes", int, 0,
         "MXNET_TELEMETRY_REPORT_MAX_BYTES",
         "Size cap (bytes) for a TrainingTelemetry JSONL report file; when "

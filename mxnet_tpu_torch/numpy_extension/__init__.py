@@ -61,9 +61,9 @@ import numpy as onp
 import torch
 import torch.nn.functional as F
 
-from . import _hooks
-from .base import MXNetError
-from .numpy.multiarray import _invoke_impl, array, ndarray
+from .. import _hooks
+from ..base import MXNetError
+from ..numpy.multiarray import _invoke_impl, array, ndarray
 
 __all__ = ["fully_connected", "convolution", "deconvolution",
            "deformable_convolution", "modulated_deformable_convolution",
@@ -240,7 +240,7 @@ def deconvolution(data=None, weight=None, bias=None, kernel=None,
 
 def _deformable(x, offset, weight, bias, kernel, stride, pad, dilate,
                 num_group, num_deformable_group, mask):
-    from .ops.deformable import deformable_conv2d
+    from ..ops.deformable import deformable_conv2d
     return deformable_conv2d(
         x, offset, weight, bias, kernel=tuple(kernel),
         stride=tuple(stride or (1, 1)), pad=tuple(pad or (0, 0)),
@@ -353,7 +353,7 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-3,
     (fp64 for fp64 inputs, as the fused route's) clamped at 0, and the
     running statistics updated in place; otherwise the running statistics.
     The normalization is the folded per-channel ``x * scale + shift``."""
-    from . import autograd
+    from .. import autograd
     x, gamma, beta = _cast("batch_norm", x, gamma, beta)
     training = autograd.is_training() and not use_global_stats
     red = tuple(i for i in range(x.ndim) if i != axis)
@@ -384,7 +384,7 @@ def fused_conv_bn_relu(x, weight, gamma, beta, running_mean, running_var,
     plain version for a CPU tensor). NCHW in and out, weight OIHW; the
     running statistics update as :func:`batch_norm`'s do, from the
     two-pass batch statistics of the fused forward."""
-    from .ops.conv_bwd import FusedCBRFunction
+    from ..ops.conv_bwd import FusedCBRFunction
     x, weight, gamma, beta = _cast("fused_conv_bn_relu", x, weight, gamma,
                                    beta)
     out, mean, var = FusedCBRFunction.apply(x, weight, gamma, beta,
@@ -466,8 +466,8 @@ def dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     ``generator``, else from the default generator of the tensor's
     device (``random.dropout_mask``); a dropped element is 0 whatever its
     value."""
-    from . import autograd
-    from . import random as _random
+    from .. import autograd
+    from .. import random as _random
     if not p or (mode != "always" and not autograd.is_training()):
         return data
     like = data
@@ -506,7 +506,7 @@ def _softmax(fn, name, data, length, axis, temperature, use_length, dtype):
 
 
 def _dtype(dtype):
-    from .base import torch_dtype
+    from ..base import torch_dtype
     return torch_dtype(dtype)
 
 
@@ -567,8 +567,8 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
     if act_type == "selu":
         return F.selu(data)
     if act_type == "rrelu":
-        from . import autograd
-        from . import random as _random
+        from .. import autograd
+        from .. import random as _random
         if not autograd.is_training():
             return F.leaky_relu(data, (lower_bound + upper_bound) / 2.0)
         gen = generator if generator is not None \
@@ -623,7 +623,7 @@ def quantize_v2(data, min_calib_range=None, max_calib_range=None,
                 out_type="int8"):
     """float32 -> (int8, min_range, max_range): see
     :func:`mxnet_tpu_torch.ops.quantization.quantize_v2`."""
-    from .ops.quantization import quantize_v2 as op
+    from ..ops.quantization import quantize_v2 as op
     return op(data, min_calib_range, max_calib_range, out_type)
 
 
@@ -631,7 +631,7 @@ def quantize_v2(data, min_calib_range=None, max_calib_range=None,
 def dequantize(data, min_range, max_range, out_type="float32"):
     """int8 -> float32: see :func:`mxnet_tpu_torch.ops.quantization.
     dequantize`."""
-    from .ops.quantization import dequantize as op
+    from ..ops.quantization import dequantize as op
     return op(data, min_range, max_range, out_type)
 
 
@@ -640,7 +640,7 @@ def quantized_fully_connected(data, weight, x_scale, w_scale, bias=None,
                               flatten=True):
     """int8 x int8 -> fp32 dense layer: see :func:`mxnet_tpu_torch.ops.
     quantization.quantized_fully_connected`."""
-    from .ops.quantization import quantized_fully_connected as op
+    from ..ops.quantization import quantized_fully_connected as op
     return op(data, weight, x_scale, w_scale, bias=bias, flatten=flatten)
 
 
@@ -650,7 +650,7 @@ def quantized_conv(data, weight, x_scale, w_scale, bias=None, kernel=None,
                    num_group=1, layout="NCHW"):
     """int8 x int8 -> fp32 convolution: see :func:`mxnet_tpu_torch.ops.
     quantization.quantized_conv`."""
-    from .ops.quantization import quantized_conv as op
+    from ..ops.quantization import quantized_conv as op
     return op(data, weight, x_scale, w_scale, bias=bias, kernel=kernel,
               stride=stride, dilate=dilate, pad=pad, num_filter=num_filter,
               num_group=num_group, layout=layout)
@@ -662,7 +662,7 @@ def quantized_conv_fused(data, weight, x_scale, w_scale, bias=None, act=None,
                          num_filter=1, num_group=1, layout="NCHW"):
     """Fused quantize -> int8 conv -> dequant + bias + act: see
     :func:`mxnet_tpu_torch.ops.quantization.quantized_conv_fused`."""
-    from .ops.quantization import quantized_conv_fused as op
+    from ..ops.quantization import quantized_conv_fused as op
     return op(data, weight, x_scale, w_scale, bias=bias, act=act,
               kernel=kernel, stride=stride, dilate=dilate, pad=pad,
               num_filter=num_filter, num_group=num_group, layout=layout)
@@ -673,7 +673,7 @@ def quantized_dense_fused(data, weight, x_scale, w_scale, bias=None,
                           act=None, flatten=True):
     """int8 dense layer with a fused epilogue (kernel 6 on the card): see
     :func:`mxnet_tpu_torch.ops.quantization.quantized_dense_fused`."""
-    from .ops.quantization import quantized_dense_fused as op
+    from ..ops.quantization import quantized_dense_fused as op
     return op(data, weight, x_scale, w_scale, bias=bias, act=act,
               flatten=flatten)
 
@@ -683,7 +683,7 @@ def fp8_dense_fused(data, weight, x_scale, w_scale, bias=None, act=None,
                     flatten=True, fmt=None):
     """fp8-activation dense layer with a fused epilogue: see
     :func:`mxnet_tpu_torch.ops.quantization.fp8_dense_fused`."""
-    from .ops.quantization import fp8_dense_fused as op
+    from ..ops.quantization import fp8_dense_fused as op
     return op(data, weight, x_scale, w_scale, bias=bias, act=act,
               flatten=flatten, fmt=fmt)
 
@@ -771,4 +771,5 @@ _hooks.register(_set_hooked)
 
 # at the end: amp imports ops.quant_matmul (through amp.fp8), which reads
 # this module's _ACTS
-from . import amp as _amp  # noqa: E402
+from .. import amp as _amp  # noqa: E402
+from . import image  # noqa: E402,F401

@@ -28,7 +28,7 @@ import torch
 from . import config
 
 __all__ = ["generator", "seed", "default_generator", "dropout_mask",
-           "note_draw"]
+           "note_draw", "get_state", "set_state"]
 
 _lock = threading.Lock()
 _defaults: dict[torch.device, torch.Generator] = {}
@@ -63,6 +63,49 @@ def seed(seed_state, ctx="all"):
         else:
             dev = _key(ctx)
             _defaults[dev] = generator(seed_state, dev)
+
+
+def get_state():
+    """Snapshot of every random stream a resume must replay (reference:
+    random.py ``get_state``): the seed, the state of each default
+    generator made so far (the CPU's and each card's), this thread's
+    scoped generators (:func:`generator_scope`), and numpy's global state,
+    which seeds samplers and shuffles. Plain numpy and Python data, so it
+    pickles into a ``TrainState`` bundle; :func:`set_state` restores it
+    bit for bit."""
+    import numpy as onp
+    with _lock:
+        defaults = {str(d): g.get_state().numpy().copy()
+                    for d, g in _defaults.items()}
+        start = _seed
+    scoped = getattr(_local, "scoped", None) or {}
+    return {"seed": start, "defaults": defaults,
+            "scoped": {str(d): g.get_state().numpy().copy()
+                       for d, g in scoped.items()},
+            "numpy": onp.random.get_state()}
+
+
+def set_state(state):
+    """Restore a snapshot from :func:`get_state`: the seed, each default
+    generator (made where it is missing), this thread's scoped generators
+    where a scope is active for their device, and numpy's global state."""
+    import numpy as onp
+    global _seed
+    with _lock:
+        _seed = state.get("seed")
+    for name, st in (state.get("defaults") or {}).items():
+        default_generator(torch.device(name))  # made at first use
+        with _lock:
+            _defaults[_key(torch.device(name))].set_state(
+                torch.from_numpy(onp.asarray(st, onp.uint8).copy()))
+    scoped = getattr(_local, "scoped", None) or {}
+    for name, st in (state.get("scoped") or {}).items():
+        gen = scoped.get(_key(torch.device(name)))
+        if gen is not None:
+            gen.set_state(torch.from_numpy(onp.asarray(st, onp.uint8).copy()))
+    np_state = state.get("numpy")
+    if np_state is not None:
+        onp.random.set_state(np_state)
 
 
 def default_generator(device):

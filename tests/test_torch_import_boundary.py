@@ -7,7 +7,10 @@ tools (``tools/fp8_loss_curves.py``, ``flash_digest.py``, ``serve_ab.py``,
 is scanned for
 imports of ``jax``, ``jaxlib`` or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself
 is allowed), and a fresh interpreter that imports the port must end up
-with neither ``jax`` nor ``mxnet_tpu`` loaded.
+with neither ``jax`` nor ``mxnet_tpu`` loaded. A DataLoader's spawned
+worker, which unpickles the dataset and imports the port, ends up with
+neither too (run from a fresh interpreter, so this process's JAX is not
+what is checked).
 """
 import ast
 import pathlib
@@ -84,10 +87,44 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.optimizer.contrib, "
             "mxnet_tpu_torch.gluon.metric, mxnet_tpu_torch.gluon.utils, "
             "mxnet_tpu_torch.gluon.nn.activations, "
-            "mxnet_tpu_torch.ops.deformable; "
+            "mxnet_tpu_torch.ops.deformable, mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch.gluon.data.dataloader, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.gluon.data.vision.datasets, "
+            "mxnet_tpu_torch.gluon.contrib.estimator, "
+            "mxnet_tpu_torch.numpy_extension.image, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.recordio, mxnet_tpu_torch.stream, "
+            "mxnet_tpu_torch.resilience, mxnet_tpu_torch.io; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_spawned_dataloader_worker_loads_neither_jax_nor_reference():
+    code = (
+        "import os, sys\n"
+        "import numpy as onp\n"
+        "import mxnet_tpu_torch as mx\n"
+        "from mxnet_tpu_torch.gluon import data\n"
+        "from mxnet_tpu_torch.gluon.data.vision import transforms as T\n"
+        "ds = data.ArrayDataset(onp.zeros((4, 4, 4, 3), 'uint8'))"
+        ".transform(T.ToTensor())\n"
+        "with mx.cpu():\n"
+        "    dl = data.DataLoader(ds, batch_size=2, num_workers=1,"
+        " thread_pool=False)\n"
+        "    assert len(list(dl)) == 2\n"
+        "pool = dl._get_proc_pool()\n"
+        "pids = {pool.submit(os.getpid).result()}\n"
+        "bad = pool.submit(eval, \"sorted(m for m in __import__('sys')"
+        ".modules if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu'))\")"
+        ".result()\n"
+        "dl.close()\n"
+        "assert os.getpid() not in pids\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -15,6 +15,8 @@ stalls, red after ``stop()``, the provider gone), the sync count with the
 planes on against off, and ``insight.register_executable`` for every
 built graph with ``post_warmup_compiles`` 0.
 """
+import contextlib
+
 import numpy as onp
 import pytest
 import torch
@@ -56,10 +58,42 @@ def planes_off(pkg):
 def _isolated():
     for pkg in PKGS.values():
         planes_off(pkg)
-    with tmx.cpu():
+    with tmx.cpu(), _xla_cache_listeners_detached():
         yield
     for pkg in PKGS.values():
         planes_off(pkg)
+
+
+@contextlib.contextmanager
+def _xla_cache_listeners_detached():
+    """Detach the JAX package's persistent-compilation-cache listeners
+    for the test. Once any test of the process installs them
+    (``tests/test_pipeline.py`` does, through
+    ``mxnet_tpu._compile_cache._install_listeners``), they stay registered
+    with ``jax.monitoring`` for the life of the process and add
+    ``compile.persistent_cache_*`` counters to the JAX package's
+    telemetry at every later XLA compile, the serve engine's included;
+    the port compiles nothing with XLA. Under xdist's ``--dist loadfile``
+    they leaked into this file whenever that file ran first on the same
+    worker. They are registered again after the test."""
+    from jax._src import monitoring
+    pairs = ((monitoring.get_event_listeners,
+              monitoring.unregister_event_listener,
+              monitoring.register_event_listener),
+             (monitoring.get_event_duration_listeners,
+              monitoring.unregister_event_duration_listener,
+              monitoring.register_event_duration_secs_listener))
+    detached = []
+    for get, unregister, register in pairs:
+        for fn in list(get()):
+            if getattr(fn, "__module__", "") == "mxnet_tpu._compile_cache":
+                unregister(fn)
+                detached.append((register, fn))
+    try:
+        yield
+    finally:
+        for register, fn in detached:
+            register(fn)
 
 
 @pytest.fixture(scope="module")
