@@ -530,6 +530,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    uninterrupted run's bit for bit. Kernels 1-3 12 times each a hybridized
    step (profiler events); wall ms a step fed from the shards against a
    device-resident batch.
+36. GPT-2 124M fp32 through ``parallel.ShardedTrainStep(MeshConfig())``
+   on one card (phase 5's batch 8 x 1024 from RandomState(0) at every
+   step, SGD lr 0.01 momentum 0.9): the plain step for 4 updates (the
+   reference of phase 37), then ``zero=2, grad_accum=4,
+   steps_per_call=2`` (2 calls of 2 updates of 4 microbatches of 2) with
+   remat off, ``True`` and ``'dots'`` (each layer of the decoder
+   checkpointed on its own), each after a warm-up call: the accumulated
+   losses within 1e-5 of the plain step's mean and its updates within
+   1e-3 (relative L2) of the plain step's after 2 and 4 updates; remat
+   bit for bit with off (losses and weights); flash launches 12 a
+   microbatch (the forward 24 under remat); ms an update and peak
+   allocated memory a setting.
+37. GPT-2 124M fp32 on two ranks sharing the card
+   (``tools/launch.py -n 2 --env MXTPU_DIST_DEVICE=cuda``, each rank this
+   script with ``--dp-rank gpt``; gloo, after a probe of whether NCCL
+   takes two ranks on one device): ``ShardedTrainStep(MeshConfig(dp=2))``
+   at zero 0, 1 and 2 and ``grad_compress="int8"``, 4 updates of the
+   global batch each from the same start: losses within 1e-5 (int8 1e-3)
+   of phase 36's plain step, the update within 1e-3 (int8 0.5) relative
+   L2 of it, weights equal bit for bit across ranks (rank 0 broadcasts),
+   the ``zero.*`` / ``mesh.*`` / ``comm.*`` counters equal to the
+   analytic count, flash launches 12 a step a rank; per rank ms a step,
+   collective seconds a step (``collectives.timing``), peak memory; the
+   zero=2 bundle saved at world 2 loads bit for bit into a one-card
+   step, which continues; a ``dist_sync`` store on the card's tensors
+   sums exactly, also through one injected ``kvstore.collective_timeout``
+   retried on rank 0.
+38. ResNet-50 v1 fp32 on two ranks sharing the card through
+   ``Trainer(kvstore="dist_device_sync")``, phase 13's batch of 32 (16 a
+   rank), kernel 8 with the global batch's statistics: one compared step
+   (cuDNN deterministic) against the one-card step on the 32: the loss
+   within 1e-5, the update within the larger of 1e-3 and twice the
+   conditioning probe (the one-card update with the batch moved by one
+   fp32 rounding) relative L2, the running statistics likewise within
+   1e-4 of their max; weights and statistics equal bit for bit across
+   ranks; kernel 8 16 calls a rank-step; ms a step of 3 timed steps.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -537,6 +573,7 @@ cuDNN so that fp32 means fp32 throughout.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
@@ -6780,6 +6817,830 @@ def phase_surface(dev, card):
     print(f"phase 33 [{card}]: " + json.dumps(out))
     return out
 
+# -- phases 36-38: data parallel ------------------------------------------------
+#
+# Phase 36 runs in this process; phases 37-38 start two ranks on the card
+# through tools/launch.py -n 2 --env MXTPU_DIST_DEVICE=cuda, each rank this
+# script with ``--dp-rank <gpt|resnet> <dir>``: the ranks share cuda:0, so
+# the process group is gloo (NCCL refuses two ranks on one device), and
+# nothing measured here is scaling. The ranks read what they need from
+# ``<dir>/dp_config.json`` and the one-card references this process wrote
+# there, and write their results back. They build nothing: the kernels of
+# phase 1 are in the build directory.
+
+# GPT-2 124M fp32 at phase 5's global batch: the updates compared between
+# the one-card step (phase 36) and two ranks (phase 37), plain SGD so that
+# the comparisons see the reduce and not Adam's amplified float noise
+DP_STEPS = 4
+DP_SGD = {"learning_rate": 0.01, "momentum": 0.9}
+DP_ACCUM, DP_SPC = 4, 2
+DP_REMATS = (None, True, "dots")
+# the one-card step against the accumulated one (4 microbatches of 2, 2
+# updates a call) and the two ranks against the one card, zero 0/1/2:
+# losses rtol; the update (weights after - before) as one vector, the L2
+# norm of its difference over the one card's: fp32 sums of the gradient
+# in another order and other GEMM shapes. Per tensor the difference is
+# larger where the gradient is small at initialization (a query
+# projection's max moved 6.3e-3 of its update on the H100), so per-tensor
+# maxima are printed, not held
+DP_LOSS_RTOL = 1e-5
+DP_UPDATE_TOL = 1e-3
+# int8 gradients with error feedback: the update's L2 distance from the
+# one card's over its L2 norm, and the losses, rtol. The limits sit
+# between int8 with its residual and a control run that drops the
+# residual after every update, measured on the H100: the update 9.76e-3
+# against the control's 4.16e-2 (limit about twice the sound reading);
+# the losses differ from the one card's by 1.7e-7 and 3.4e-7 (2 and 4
+# fp32 roundings of a loss of 11.4: four SGD steps barely move it), so
+# the loss is held to rounding noise and the update tells the two apart.
+# The control must fail, or the limits would not discriminate
+DP_INT8_UPDATE_TOL = 2e-2
+DP_INT8_LOSS_RTOL = 1e-6
+# ResNet-50 v1 at phase 13's batch (16 a rank) through the dist store:
+# two compared steps, then timed ones
+# one compared step (from the same weights), then timed ones. ResNet-50's
+# fp32 update at initialization is ill-conditioned: moving the batch by
+# one fp32 rounding (x * (1 +- 2^-24), phase 13's probe) moves it by
+# ~1.8e-2 (relative L2, 64 x 64 images on the CPU), so the update and the
+# running statistics are held within the larger of a fixed bound and
+# twice that probe's change, measured in the same run
+DP_RESNET_STEPS, DP_RESNET_TIMED = 1, 3
+DP_RESNET_LOSS_RTOL = 1e-5    # step 1: the same weights, global statistics
+DP_RESNET_UPDATE_TOL = 1e-3   # relative L2 of the whole update
+DP_RESNET_STAT_TOL = 1e-4     # running statistics, max|diff| / max|ref|
+DP_LAUNCH_TIMEOUT = 420
+
+
+def dp_config():
+    """What the ranks of phases 37-38 read: the model sizes, the batches
+    and the device (GPT-2 124M and ResNet-50 at phases 5 and 13's
+    batches on the card)."""
+    return {"device": "cuda", "vocab": 50257, "units": 768, "hidden": 3072,
+            "layers": N_LAYERS, "heads": 12, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": DP_STEPS,
+            "resnet_batch": RESNET_BATCH, "resnet_size": RESNET_SIZE,
+            "resnet_classes": RESNET_CLASSES, "resnet_layers": 50}
+
+
+def dp_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_peak_reset(dev):
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def dp_peak_gb(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+
+
+def _frame(f):
+    path = f["filename"]
+    cut = path.rfind("mxnet_tpu_torch/")
+    path = path[cut:] if cut >= 0 else os.path.basename(path)
+    return f"{path}:{f['line']} {f['name']}"
+
+
+@contextlib.contextmanager
+def dp_memory_trace(dev, top=8):
+    """Within: the CUDA caching allocator records its history. The yielded
+    dict is filled at the exit with what set the peak: ``resident_gb``
+    (allocated at the entry: weights and what the step was built with),
+    ``peak_gb``, the Python frames of the allocation that reached the
+    peak, and the allocations live at that moment grouped by their
+    innermost frame of the port, largest first. Empty on the CPU."""
+    out = {}
+    if dev.type != "cuda":
+        yield out
+        return
+    dp_sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.memory._record_memory_history(
+        "all", context="alloc", stacks="python", max_entries=2_000_000)
+    try:
+        yield out
+        dp_sync(dev)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = [e for e in snap["device_traces"][dev.index]
+              if e["action"] in ("alloc", "free_completed")]
+
+    def replay(stop):
+        live, cur, best, at = {}, 0, 0, -1
+        for i, e in enumerate(events[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                cur += e["size"]
+            else:
+                live.pop(e["addr"], None)
+                cur -= e["size"]
+            if cur > best:
+                best, at = cur, i
+        return live, best, at
+
+    _, best, at = replay(len(events))
+    live, _, _ = replay(at + 1)
+    groups = {}
+    for e in live.values():
+        port = [f for f in e["frames"] if "mxnet_tpu_torch/" in f["filename"]]
+        # no Python frame: made on autograd's thread (the gradients)
+        key = _frame(port[0]) if port else (
+            _frame(e["frames"][0]) if e["frames"] else "autograd thread")
+        g = groups.setdefault(key, [0, 0])
+        g[0] += e["size"]
+        g[1] += 1
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1][0])[:top]
+    out.update({
+        "resident_gb": base / 1e9,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "above_resident_at_peak_gb": best / 1e9,
+        "peak_reached_in": [
+            _frame(f) for f in events[at]["frames"]
+            if "mxnet_tpu_torch/" in f["filename"]][:4] if at >= 0 else [],
+        "live_at_peak": [[k, v[0] / 1e9, v[1]] for k, v in ranked]})
+
+
+def dp_gpt_net(dev, cfg):
+    """GPT-2 124M (phase 5's model) from seed 0 at ``cfg``'s sizes."""
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTForCausalLM, GPTModel
+    return GPTForCausalLM(backbone=GPTModel(
+        vocab_size=cfg["vocab"], units=cfg["units"],
+        hidden_size=cfg["hidden"], num_layers=cfg["layers"],
+        num_heads=cfg["heads"], max_length=cfg["seq"], dropout=0.0,
+        embed_dropout=0.0, device=dev)).initialize(seed=0)
+
+
+def dp_resnet(dev, cfg):
+    """ResNet-50 v1 (phase 13's model) from seed 0 and its global batch."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    net = get_resnet(1, cfg["resnet_layers"], classes=cfg["resnet_classes"],
+                     device=dev).initialize(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    size = cfg["resnet_size"]
+    x = torch.randn(cfg["resnet_batch"], 3, size, size, device=dev,
+                    generator=gen)
+    y = torch.randint(0, cfg["resnet_classes"], (cfg["resnet_batch"],),
+                      device=dev, generator=gen)
+    net(x[:2])  # finishes the deferred shapes (no statistics update)
+    return net, x, y
+
+
+def dp_gpt_batches(cfg):
+    """The steps' global batches: phase 5's fixed batch (batch x seq + 1
+    tokens from RandomState(0)) at every step."""
+    ids = onp.random.RandomState(0).randint(
+        0, cfg["vocab"], (cfg["batch"], cfg["seq"] + 1))
+    x, y = ids[:, :-1].astype(onp.int64), ids[:, 1:].astype(onp.int64)
+    return [(x, y)] * cfg["steps"]
+
+
+def dp_loss(out, y):
+    from mxnet_tpu_torch.ops.xent import sparse_softmax_xent
+    return sparse_softmax_xent(out, y).mean()
+
+
+def dp_snapshot(params):
+    """The parameters' values, copied to the host (so the device's peak
+    memory is the step's own)."""
+    return {n: p.data().detach().to("cpu", copy=True)
+            for n, p in params.items()}
+
+
+def dp_restore(params, snap):
+    with torch.no_grad():
+        for n, p in params.items():
+            p.data().copy_(snap[n])
+
+
+def _on_card(t):
+    """``t`` (a host snapshot) on the card for the comparisons, one tensor
+    at a time."""
+    return t.to("cuda") if torch.cuda.is_available() else t
+
+
+def dp_update_diff(after, before, ref_after, names=None):
+    """(max over tensors of max|d - d_ref| / max|d_ref|, the tensor), d the
+    update after - before; d_ref the reference's. The attention key
+    projection's bias is left out: its gradient is zero in exact
+    arithmetic (softmax is shift invariant), so its update is fp32 noise
+    on either side."""
+    worst, at = 0.0, None
+    for n in names or ref_after:
+        if n.endswith("key_proj.bias"):
+            continue
+        a, b, ra = (_on_card(t[n]) for t in (after, before, ref_after))
+        d = a.float() - b.float()
+        dr = ra.float() - b.float()
+        scale = dr.abs().max().item()
+        r = (d - dr).abs().max().item() / scale if scale else 0.0
+        if r > worst:
+            worst, at = r, n
+    return worst, at
+
+
+def dp_update_l2(after, before, ref_after):
+    """||d - d_ref||_2 / ||d_ref||_2 over every tensor together."""
+    num = den = 0.0
+    for n in ref_after:
+        a, b, ra = (_on_card(t[n]) for t in (after, before, ref_after))
+        d = a.double() - b.double()
+        dr = ra.double() - b.double()
+        num += float(((d - dr) ** 2).sum())
+        den += float((dr ** 2).sum())
+    return (num / den) ** 0.5 if den else 0.0
+
+
+def phase_gpt_sharded(dev, card, root, cfg):
+    """Phase 36: GPT-2 124M through ShardedTrainStep on one card: the plain
+    step (DP_STEPS updates, the reference of phase 37), then zero=2,
+    grad_accum=4, steps_per_call=2 under each remat setting."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    print(f"== phase 36: GPT-2 124M fp32 through ShardedTrainStep on one "
+          f"card (batch {cfg['batch']} x seq {cfg['seq']}, SGD "
+          f"{DP_SGD}): the plain step, then zero=2, grad_accum={DP_ACCUM}, "
+          f"steps_per_call={DP_SPC} with remat off / True / 'dots' on "
+          f"{card}", flush=True)
+    net = dp_gpt_net(dev, cfg)
+    params = net.collect_params()
+    start = dp_snapshot(params)
+    batches = dp_gpt_batches(cfg)
+    mesh = MeshConfig()
+    specs = mesh.batch_specs(2, 2)
+    step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
+        "sgd", **DP_SGD), mesh, specs)
+    plain, after2, times = [], None, []
+    for i, (x, y) in enumerate(batches):
+        dp_sync(dev)
+        t0 = time.perf_counter()
+        plain.append(float(step(x, y)))
+        times.append(time.perf_counter() - t0)
+        if i == DP_SPC - 1:
+            after2 = dp_snapshot(params)
+    # the first update pays the warm-up (cuBLAS handles, kernel loads)
+    plain_ms = float(onp.median(times[1:])) * 1e3
+    final = dp_snapshot(params)
+    check(all(onp.isfinite(plain)) and plain[-1] < plain[0],
+          f"phase 36: the plain step's loss is not finite or did not fall: "
+          f"{plain}")
+    torch.save({"losses": plain, "start": {n: t.cpu() for n, t in
+                                           start.items()},
+                "final": {n: t.cpu() for n, t in final.items()}},
+               os.path.join(root, "gpt_one_card.pt"))
+    print(f"plain step: losses {plain}, {plain_ms:.1f} ms an update")
+
+    def stacked(part):
+        xs = onp.stack([b[0] for b in part]).reshape(
+            DP_SPC, DP_ACCUM, -1, cfg["seq"])
+        ys = onp.stack([b[1] for b in part]).reshape(
+            DP_SPC, DP_ACCUM, -1, cfg["seq"])
+        return xs, ys
+
+    calls = [stacked(batches[i:i + DP_SPC])
+             for i in range(0, len(batches), DP_SPC)]
+    rows, ref = {}, None
+    def accumulated(remat):
+        dp_restore(params, start)
+        return ShardedTrainStep(
+            net, dp_loss, mx.optimizer.create("sgd", **DP_SGD), mesh,
+            specs, zero=2, grad_accum=DP_ACCUM, steps_per_call=DP_SPC,
+            remat=remat)
+
+    for remat in DP_REMATS:
+        # a warm-up call first: a setting's first call pays one-time
+        # costs (checkpointing's first use imports torch's compiler
+        # front end, ~3 s on the H100 host). It runs under the
+        # allocator's history (what sets the peak), which the timed calls
+        # do not pay
+        dp_peak_reset(dev)
+        with dp_memory_trace(dev) as trace:
+            accumulated(remat)(*calls[0])
+        step = accumulated(remat)
+        dp_peak_reset(dev)
+        zero_counters(fa)
+        wall, losses, snaps = 0.0, [], []
+        for x, y in calls:
+            dp_sync(dev)
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            dp_sync(dev)
+            wall += time.perf_counter() - t0
+            snaps.append(dp_snapshot(params))
+        row = {"losses": losses,
+               "ms_per_update": wall / (len(calls) * DP_SPC) * 1e3,
+               "peak_allocated_gb": dp_peak_gb(dev),
+               "flash_launches": counters(fa), "memory_trace": trace}
+        label = "off" if remat is None else str(remat)
+        if ref is None:
+            ref = (losses, snaps)
+            # the accumulated updates against the plain step's
+            check(math.isclose(losses[0], sum(plain[:DP_SPC]) / DP_SPC,
+                               rel_tol=DP_LOSS_RTOL),
+                  f"phase 36: accumulated loss {losses[0]} vs the plain "
+                  f"step's {plain[:DP_SPC]}")
+            for k, (snap, want) in enumerate(((snaps[0], after2),
+                                              (snaps[1], final))):
+                l2 = dp_update_l2(snap, start, want)
+                worst, at = dp_update_diff(snap, start, want)
+                row[f"accum_vs_plain_update_{(k + 1) * DP_SPC}"] = {
+                    "l2": l2, "max_tensor": [worst, at]}
+                check(l2 <= DP_UPDATE_TOL,
+                      f"phase 36: after {(k + 1) * DP_SPC} updates the "
+                      f"accumulated update is {l2:.3e} (relative L2) from "
+                      f"the plain step's")
+        else:
+            check(losses == ref[0], f"phase 36: remat={remat!r} losses "
+                                    f"{losses} vs off {ref[0]}")
+            for a, b in zip(snaps, ref[1]):
+                bad = [n for n in a if not torch.equal(a[n], b[n])]
+                check(not bad, f"phase 36: remat={remat!r} weights differ "
+                               f"from off: {bad[:4]}")
+            row["bit_for_bit_with_off"] = True
+        n_micro = len(calls) * DP_SPC * DP_ACCUM
+        want = [cfg["layers"] * n_micro * (1 if remat is None else 2),
+                cfg["layers"] * n_micro, cfg["layers"] * n_micro]
+        check(dev.type != "cuda" or row["flash_launches"] == want,
+              f"phase 36: remat={remat!r} flash launches "
+              f"{row['flash_launches']}, expected {want}")
+        rows[label] = row
+        print(f"remat {label}: " + json.dumps(row))
+    del step, net, params
+    dp_peak_reset(dev)
+    return {"plain_losses": plain, "plain_ms_per_update": plain_ms,
+            "remat": rows,
+            "launches": [sum(r["flash_launches"][i] for r in rows.values())
+                         for i in range(3)]}
+
+
+def dp_launch(root, kind, timeout=DP_LAUNCH_TIMEOUT):
+    """Two ranks of this script through tools/launch.py -n 2 (on the card:
+    --env MXTPU_DIST_DEVICE=cuda): (launcher rc, output). Every process
+    of the world ends on a timeout, which fails the run."""
+    import signal
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "dp_config.json")) as f:
+        where = json.load(f)["device"]
+    cmd = [sys.executable, os.path.join(repo, "tools", "launch.py"), "-n",
+           "2", "--env", f"MXTPU_DIST_DEVICE={where}", sys.executable,
+           os.path.abspath(__file__), "--dp-rank", kind, root]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=env,
+                         cwd=repo, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        print(out[-8000:])
+        fail(f"the two {kind} ranks did not finish in {timeout} s")
+    return p.returncode, out
+
+
+def dp_world(root, kind):
+    """The ranks' results of a phase: their output printed, a rank's
+    failure the phase's (the launcher's rc is checked)."""
+    t0 = time.perf_counter()
+    rc, out = dp_launch(root, kind)
+    for line in out.splitlines():
+        if "socket.cpp" not in line and "FutureWarning" not in line \
+                and "return func(" not in line:
+            print(f"  {line}")
+    check(rc == 0, f"the two {kind} ranks failed (launcher rc {rc})")
+    res = []
+    for r in range(2):
+        with open(os.path.join(root, f"{kind}_rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res, time.perf_counter() - t0
+
+
+def phase_gpt_dp(dev, card, root, cfg):
+    """Phase 37: GPT-2 124M fp32 dp=2 on two ranks sharing the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serialization
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    print(f"== phase 37: GPT-2 124M fp32, dp=2 on two ranks sharing {card} "
+          f"(tools/launch.py -n 2 --env MXTPU_DIST_DEVICE=cuda): zero "
+          f"0/1/2 and grad_compress='int8', global batch {cfg['batch']} "
+          f"({cfg['batch'] // 2} a rank) x seq {cfg['seq']}, against "
+          f"phase 36's one-card step", flush=True)
+    probe = None
+    if cfg["device"] == "cuda":
+        # does NCCL take two ranks on one card? (the backend rule gives
+        # such ranks gloo either way)
+        rc, out = dp_launch(root, "nccl_probe", timeout=120)
+        probe = [ln.split(" ", 1)[1] for ln in out.splitlines()
+                 if ln.startswith("NCCL_PROBE ")]
+        print(f"NCCL with two ranks on one card (launcher rc {rc}): {probe}")
+    res, wall = dp_world(root, "gpt")
+    # the world-2 bundle loads bit for bit into a one-card step, which
+    # continues
+    net = dp_gpt_net(dev, cfg)
+    one = MeshConfig()
+    step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
+        "sgd", **DP_SGD), one, one.batch_specs(2, 2))
+    path = os.path.join(root, "gpt_w2.safetensors")
+    step.load_states(path)
+    saved = serialization.load_safetensors(path)
+    got = step.state_dict()["arrays"]
+    bad = [k for k in saved if not onp.array_equal(saved[k], got[k])]
+    check(set(saved) == set(got) and not bad,
+          f"phase 37: the world-2 bundle did not load bit for bit: "
+          f"{bad[:4]}")
+    x, y = dp_gpt_batches(cfg)[0]
+    cont = float(step(x, y))
+    check(math.isfinite(cont), "phase 37: the one-card step continuing the "
+                               "world-2 bundle gave a non-finite loss")
+    print(f"world-2 zero=2 bundle: {len(saved)} arrays loaded bit for bit "
+          f"into a one-card zero=0 step at update {step._n_step - 1}; it "
+          f"continued with loss {cont:.6f}")
+    del step, net
+    dp_peak_reset(dev)
+    return {"ranks": res, "launch_seconds": wall,
+            "bundle_arrays_bit_for_bit": len(saved),
+            "one_card_continued_loss": cont,
+            "backend": res[0]["backend"], "nccl_two_ranks_one_card": probe,
+            "launches": [sum(r["launches"][i] for r in res)
+                         for i in range(3)]}
+
+
+def phase_resnet_dp(dev, card, root, cfg):
+    """Phase 38: ResNet-50 v1 through Trainer(kvstore='dist_device_sync')
+    on two ranks sharing the card, against the one-card step."""
+    import mxnet_tpu_torch as mx
+    print(f"== phase 38: ResNet-50 v1 fp32 through Trainer(kvstore="
+          f"'dist_device_sync') over FusableSequential on two ranks sharing "
+          f"{card}, global batch {cfg['resnet_batch']} "
+          f"({cfg['resnet_batch'] // 2} a rank), kernel 8 with the global "
+          f"batch's statistics, against the one-card step (cuDNN "
+          f"deterministic)", flush=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        net, x, y = dp_resnet(dev, cfg)
+        params = net.collect_params()
+        start = dp_snapshot(params)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def run(inp):
+            dp_restore(params, start)
+            trainer = mx.gluon.Trainer(params, "sgd", {
+                "learning_rate": 0.05, "momentum": 0.9})
+            losses = []
+            for _ in range(DP_RESNET_STEPS):
+                with mx.autograd.record():
+                    loss = loss_fn(net(inp), y)
+                mx.autograd.backward(loss)
+                trainer.step(len(inp))
+                losses.append(loss.detach().mean().item())
+            return losses, dp_snapshot(params)
+
+        losses, final = run(x)
+        sign = torch.randint(0, 2, x.shape, device=dev, generator=torch.
+                             Generator(device=dev).manual_seed(100))
+        _, moved = run(x * (1 + (2 * sign - 1) * 2.0 ** -24))
+        trained = [n for n, p in params.items() if p.grad_req != "null"]
+        probe = dp_update_l2({n: moved[n] for n in trained},
+                             {n: start[n] for n in trained},
+                             {n: final[n] for n in trained})
+        probe_stat = max(((moved[n] - final[n]).abs().max()
+                          / final[n].abs().max()).item()
+                         for n in final if "running" in n)
+        torch.save({"losses": losses, "probe_update": probe,
+                    "probe_stat": probe_stat,
+                    "start": {n: t.cpu() for n, t in start.items()},
+                    "final": {n: t.cpu() for n, t in final.items()}},
+                   os.path.join(root, "resnet_one_card.pt"))
+        print(f"one card: losses {losses}; the batch moved by one fp32 "
+              f"rounding moves the update by {probe:.3e} (relative L2) and "
+              f"the running statistics by {probe_stat:.3e} of their max")
+        del net, params, start, final, moved
+        dp_peak_reset(dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    res, wall = dp_world(root, "resnet")
+    return {"one_card_losses": losses, "probe_update_l2": probe,
+            "probe_running_stats": probe_stat, "ranks": res,
+            "launch_seconds": wall, "backend": res[0]["backend"],
+            "launches": sum(r["launches"] for r in res)}
+
+
+# -- the rank side --------------------------------------------------------------
+
+def dp_equal_across_ranks(tensors):
+    """Names of tensors that differ from rank 0's (rank 0 broadcasts)."""
+    import torch.distributed as dist
+    bad = []
+    for n, t in tensors.items():
+        mine = t.detach().contiguous()
+        theirs = mine.clone()
+        dist.broadcast(theirs, 0)
+        if not torch.equal(mine, theirs):
+            bad.append(n)
+    return bad
+
+
+def dp_rank_gpt(root, cfg):
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    from mxnet_tpu_torch.parallel import collectives as coll
+    dev = mx.parallel.rank_device()
+    rank, world = mx.parallel.rank(), mx.parallel.world_size()
+    check(world == 2 and dev.type == cfg["device"],
+          f"rank {rank}: world {world} on {dev}")
+    out = {"rank": rank, "backend": mx.parallel.backend(),
+           "device": str(dev)}
+    net = dp_gpt_net(dev, cfg)
+    params = net.collect_params()
+    start = dp_snapshot(params)
+    check(not dp_equal_across_ranks(start), "the ranks' initial weights "
+                                            "differ")
+    batches = dp_gpt_batches(cfg)
+    one = torch.load(os.path.join(root, "gpt_one_card.pt"))
+    mesh = MeshConfig(dp=world)
+    specs = mesh.batch_specs(2, 2)
+    trained = [p.data() for p in params.values() if p.grad_req != "null"]
+    nbytes = sum(w.numel() * w.element_size() for w in trained)
+    padded = sum(-(-w.numel() // world) * world * w.element_size()
+                 for w in trained)
+    steps = len(batches)
+    runs = {}
+    for label, kw in (("zero0", {}), ("zero1", {"zero": 1}),
+                      ("zero2", {"zero": 2}),
+                      ("int8", {"grad_compress": "int8"}),
+                      ("int8_no_feedback", {"grad_compress": "int8"})):
+        dp_restore(params, start)
+        step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
+            "sgd", **DP_SGD), mesh, specs, **kw)
+        mx.telemetry.enable()
+        mx.telemetry.reset()
+        dp_peak_reset(dev)
+        zero_counters(fa)
+
+        def update(x, y):
+            losses.append(float(step(x, y)))
+            if label == "int8_no_feedback":
+                # the control: the error-feedback residual dropped after
+                # every update
+                for r in step.extra["resid"].values():
+                    r.zero_()
+
+        losses = []
+        # the first update under the allocator's history (what sets the
+        # peak), the others timed without it; both ranks start the clock
+        # together (rank 0 alone writes the zero=2 bundle)
+        with dp_memory_trace(dev) as trace:
+            update(*batches[0])
+        dp_sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with coll.timing() as tm:
+            for x, y in batches[1:]:
+                update(x, y)
+            dp_sync(dev)
+        wall = time.perf_counter() - t0
+        launches = counters(fa)
+        counts = {k: v for k, v in mx.telemetry.counters().items()
+                  if k.startswith(("zero.", "mesh.", "comm."))}
+        mx.telemetry.disable()
+        final = dp_snapshot(params)
+        bad = dp_equal_across_ranks(final)
+        check(not bad, f"{label}: weights differ across ranks: {bad[:4]}")
+        # the analytic count (the reference's arithmetic, train.py:1016-
+        # 1050): every gradient's bytes a step; at zero > 0 each tensor
+        # padded to a multiple of dp; int8 one byte a value and a 4-byte
+        # scale a bucket
+        want = {"mesh.dp_gradient_bytes_total": nbytes * steps}
+        wire = nbytes * steps
+        if label.startswith("int8"):
+            wire = (nbytes // 4 + 4 * len(step._buckets)) * steps
+            want.update({"comm.compressed_bytes_total": wire,
+                         "comm.uncompressed_bytes_total": nbytes * steps})
+        want['mesh.collective_bytes_total{axis="dp"}'] = wire
+        if kw.get("zero"):
+            z = padded * steps
+            want.update({"zero.reduce_scatter_bytes_total": z,
+                         "zero.all_gather_bytes_total": z,
+                         'zero.collective_bytes_total{op="all_gather"}': z,
+                         'zero.collective_bytes_total{op="reduce_scatter"}':
+                             z})
+        check(counts == want, f"{label}: byte counters {counts} vs the "
+                              f"analytic {want}")
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, one["losses"]))
+        ref = one["final"]
+        at = None
+        if label.startswith("int8"):
+            diff = dp_update_l2(final, start, ref)
+            # the control must fall outside the limits that int8 with
+            # its residual is held to, or they would not tell them apart
+            within = (diff <= DP_INT8_UPDATE_TOL
+                      and loss_rel <= DP_INT8_LOSS_RTOL)
+            check(within == (label == "int8"),
+                  f"{label}: the update is {diff:.3e} (relative L2, limit "
+                  f"{DP_INT8_UPDATE_TOL}) and the losses {loss_rel:.3e} "
+                  f"(relative, limit {DP_INT8_LOSS_RTOL}) from the one "
+                  "card's")
+        else:
+            check(loss_rel <= DP_LOSS_RTOL,
+                  f"{label}: losses {losses} vs one card {one['losses']} "
+                  f"(rtol {DP_LOSS_RTOL})")
+            diff = dp_update_l2(final, start, ref)
+            at = dp_update_diff(final, start, ref)
+            check(diff <= DP_UPDATE_TOL,
+                  f"{label}: the update is {diff:.3e} (relative L2) from "
+                  "the one card's")
+        del ref
+        want_l = [cfg["layers"] * steps] * 3
+        check(dev.type != "cuda" or launches == want_l,
+              f"{label}: flash launches {launches}, expected {want_l}")
+        runs[label] = {
+            "losses": losses, "ms_per_step": wall / (steps - 1) * 1e3,
+            "collective_seconds_per_step":
+                sum(v[0] for v in tm.values()) / (steps - 1),
+            "collective_calls_bytes": {k: v[1:] for k, v in tm.items()},
+            "peak_allocated_gb": dp_peak_gb(dev),
+            "counters": counts, "flash_launches": launches,
+            "update_vs_one_card": diff, "losses_vs_one_card": loss_rel,
+            "worst_tensor": at, "weights_equal_across_ranks": True,
+            "memory_trace": trace}
+        if label == "zero2":
+            step.save_states(os.path.join(root, "gpt_w2.safetensors"))
+        del step
+    out["runs"] = runs
+    out["launches"] = [sum(r["flash_launches"][i] for r in runs.values())
+                       for i in range(3)]
+    # the dist_sync store on the card's tensors: exact sums, and one
+    # injected collective timeout on rank 0 retried to the exact sum
+    kv = mx.kv.create("dist_sync")
+    kv.init("w", torch.zeros(4, 3, device=dev))
+    kv.push("w", torch.full((4, 3), float(rank + 1), device=dev))
+    o = torch.empty(4, 3, device=dev)
+    kv.pull("w", out=o)
+    check(bool((o == 3.0).all()), f"dist_sync sum on {dev}: {o}")
+    if rank == 0:
+        mx.config.set("kvstore.async_timeout", 4.0)
+        mx.config.set("kvstore.retry_backoff", 0.2)
+        mx.config.set("kvstore.rejoin_timeout", 2.0)
+        mx.fault.configure("kvstore.collective_timeout:at=1")
+    else:
+        mx.config.set("kvstore.async_timeout", 120.0)
+    kv.pushpull("w", torch.full((4, 3), float(rank + 1), device=dev), out=o)
+    check(bool((o == 3.0).all()), f"retried dist_sync sum on {dev}: {o}")
+    if rank == 0:
+        st = mx.fault.stats()
+        check(st.get("resilience.collective_retry", 0) == 1
+              and st.get("kvstore.collective_timeout_raised", 0) == 1,
+              f"the injected timeout was not retried once: {st}")
+        mx.fault.clear()
+    out["kvstore_exact_sums"] = out["kvstore_retried_timeout"] = True
+    return out
+
+
+def dp_rank_resnet(root, cfg):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import conv_bwd as cb
+    dev = mx.parallel.rank_device()
+    rank, world = mx.parallel.rank(), mx.parallel.world_size()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    net, x, y = dp_resnet(dev, cfg)
+    k = len(x) // world
+    xl, yl = x[rank * k:(rank + 1) * k], y[rank * k:(rank + 1) * k]
+    params = net.collect_params()
+    start = dp_snapshot(params)
+    check(not dp_equal_across_ranks(start), "the ranks' initial weights "
+                                            "differ")
+    trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                               "momentum": 0.9},
+                               kvstore="dist_device_sync")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(xl), yl)
+        mx.autograd.backward(loss)
+        trainer.step(len(x))
+        return mx.parallel.allreduce(loss.detach().mean().reshape(1),
+                                     op="mean")
+
+    zero_conv_counters(cb)
+    losses = [step().item() for _ in range(DP_RESNET_STEPS)]
+    calls = cb.fused_conv3x3_bn_relu_bwd.launches
+    check(dev.type != "cuda" or calls == RESNET_TRIPLETS * DP_RESNET_STEPS,
+          f"kernel 8 calls {calls} in {DP_RESNET_STEPS} rank-steps, "
+          f"expected {RESNET_TRIPLETS} each")
+    shapes = dict(cb.fused_conv3x3_bn_relu_bwd.shape_launches)
+    final = dp_snapshot(params)
+    bad = dp_equal_across_ranks(final)
+    check(not bad, f"ResNet weights or statistics differ across ranks: "
+                   f"{bad[:4]}")
+    one = torch.load(os.path.join(root, "resnet_one_card.pt"))
+    lbad = [(a, b) for a, b in zip(losses, one["losses"])
+            if not math.isclose(a, b, rel_tol=DP_RESNET_LOSS_RTOL)]
+    check(not lbad, f"losses {losses} vs one card {one['losses']}")
+    ref = one["final"]
+    stats = [n for n in ref if "running" in n]
+    trained = [n for n, p in params.items() if p.grad_req != "null"]
+    upd = dp_update_l2({n: final[n] for n in trained},
+                       {n: start[n] for n in trained},
+                       {n: ref[n] for n in trained})
+    limit = max(DP_RESNET_UPDATE_TOL, 2 * one["probe_update"])
+    check(upd <= limit, f"the update is {upd:.3e} (relative L2) from the "
+                        f"one card's, above {limit:.3e}")
+    worst_upd, at_upd = dp_update_diff(final, start, ref, trained)
+    worst_stat, at_stat = 0.0, None
+    for n in stats:
+        scale = ref[n].abs().max().item()
+        r = (final[n] - ref[n]).abs().max().item() / scale if scale else 0.0
+        if r > worst_stat:
+            worst_stat, at_stat = r, n
+    limit_stat = max(DP_RESNET_STAT_TOL, 2 * one["probe_stat"])
+    check(worst_stat <= limit_stat,
+          f"running statistics {at_stat} off by {worst_stat:.3e} of max, "
+          f"above {limit_stat:.3e}")
+    # timed steps (cuDNN's own choice again), kernel 8 still 16 a step
+    torch.backends.cudnn.deterministic = False
+    zero_conv_counters(cb)
+    dp_peak_reset(dev)
+    dp_sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(DP_RESNET_TIMED):
+        step()
+    dp_sync(dev)
+    wall = time.perf_counter() - t0
+    timed_calls = cb.fused_conv3x3_bn_relu_bwd.launches
+    check(dev.type != "cuda"
+          or timed_calls == RESNET_TRIPLETS * DP_RESNET_TIMED,
+          f"timed steps: kernel 8 calls {timed_calls}")
+    return {"rank": rank, "backend": mx.parallel.backend(),
+            "losses": losses,
+            "kernel8_calls_per_rank_step": calls // DP_RESNET_STEPS,
+            "kernel8_calls_by_shape": {str(k): v for k, v in shapes.items()},
+            "launches": calls + timed_calls,
+            "update_vs_one_card_l2": upd,
+            "update_vs_one_card_max": [worst_upd, at_upd],
+            "running_stats_vs_one_card": [worst_stat, at_stat],
+            "weights_equal_across_ranks": True,
+            "ms_per_step": wall / DP_RESNET_TIMED * 1e3,
+            "peak_allocated_gb": dp_peak_gb(dev)}
+
+
+def dp_nccl_probe():
+    """Whether NCCL takes two ranks on one card: an all-reduce over a
+    group of this process and the launcher's other one, both on cuda:0.
+    Returns the outcome's text (the finding either way)."""
+    import datetime
+    import torch.distributed as dist
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    store = dist.TCPStore("127.0.0.1", int(os.environ["DMLC_PS_ROOT_PORT"]),
+                          2, rank == 0,
+                          timeout=datetime.timedelta(seconds=60))
+    try:
+        pg = dist.ProcessGroupNCCL(store, rank, 2)
+        t = torch.ones(4, device="cuda:0")
+        pg.allreduce([t]).wait(timeout=datetime.timedelta(seconds=60))
+        torch.cuda.synchronize()
+        return f"accepted: all_reduce gave {t.tolist()}"
+    except Exception as e:  # noqa: BLE001 - the outcome is the finding
+        return (f"refused: {type(e).__name__}: "
+                f"{str(e).strip().splitlines()[0][:300]}")
+
+
+def dp_rank_main(kind, root):
+    """A rank of phase 37 (``gpt``), 38 (``resnet``) or the NCCL probe;
+    writes ``<root>/<kind>_rank<r>.json``."""
+    if kind == "nccl_probe":
+        # the port is not imported: its import would join the gloo group
+        print(f"NCCL_PROBE {dp_nccl_probe()}", flush=True)
+        return
+    with open(os.path.join(root, "dp_config.json")) as f:
+        cfg = json.load(f)
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = (dp_rank_gpt if kind == "gpt" else dp_rank_resnet)(root, cfg)
+    with open(os.path.join(root, f"{kind}_rank{mx.parallel.rank()}.json"),
+              "w") as f:
+        json.dump(out, f)
+    head = {k: v for k, v in out.items() if k != "runs"}
+    print(f"rank {mx.parallel.rank()} {kind}: {json.dumps(head)}",
+          flush=True)
+    for label, row in out.get("runs", {}).items():
+        print(f"rank {mx.parallel.rank()} {label}: {json.dumps(row)}",
+              flush=True)
+
+
 def conv_entry(errs, rows, launches, per_shape, bf16_launches,
                bf16_per_shape):
     """Kernel 8's entry; ``per_shape`` is phase 13's read of the calls a
@@ -7178,6 +8039,16 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     gpt_stream = timed("35", phase_gpt_stream, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        cfg = dp_config()
+        with open(os.path.join(root, "dp_config.json"), "w") as f:
+            json.dump(cfg, f)
+        gpt_sharded = timed("36", phase_gpt_sharded, dev, card, root, cfg)
+        gpt_dp = timed("37", phase_gpt_dp, dev, card, root, cfg)
+        resnet_dp = timed("38", phase_resnet_dp, dev, card, root, cfg)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -7300,6 +8171,21 @@ def main():
         entry["launches_by_path"].update(resnet_pipeline_train=pipe,
                                          gpt_bf16_stream_train=strm)
         entry["launches"] += pipe + strm
+    # phases 36-38, data parallel: phase 36's one-card ShardedTrainStep
+    # (every remat setting), and both ranks of phases 37-38 by their
+    # wrappers' counts (the two ranks share the card)
+    for i, entry in enumerate(entries):
+        sharded = gpt_sharded["launches"][i] if i < 3 else 0
+        gdp = gpt_dp["launches"][i] if i < 3 else 0
+        rdp = resnet_dp["launches"] if i == 7 else 0
+        entry["launches_by_path"].update(
+            gpt_sharded_train=sharded, gpt_dp2_train=gdp,
+            gpt_dp2_train_by_rank=[r["launches"][i] if i < 3 else 0
+                                   for r in gpt_dp["ranks"]],
+            resnet_dp2_train=rdp,
+            resnet_dp2_train_by_rank=[r["launches"] if i == 7 else 0
+                                      for r in resnet_dp["ranks"]])
+        entry["launches"] += sharded + gdp + rdp
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -7327,11 +8213,17 @@ def main():
                       "resnet_nag_train": resnet_nag,
                       "surface": surface,
                       "resnet_pipeline_train": resnet_pipe,
-                      "gpt_bf16_stream_train": gpt_stream}))
+                      "gpt_bf16_stream_train": gpt_stream,
+                      "gpt_sharded_train": gpt_sharded,
+                      "gpt_dp2_train": gpt_dp,
+                      "resnet_dp2_train": resnet_dp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[2], sys.argv[3])
+    else:
+        main()

@@ -46,8 +46,21 @@ datasets and transforms over ``npx.image``, ``recordio`` (the same
 ``pipeline.DevicePrefetcher`` (pinned memory, a side CUDA stream),
 ``resilience`` (``TrainState`` bundles with bit-for-bit resume, ``run``),
 ``io``'s iterators and ``gluon.contrib.estimator``.
+
+Many processes train data parallel: ``tools/launch.py -n N`` starts the
+ranks, and import joins them into a ``torch.distributed`` group
+(``_dist_init``); ``parallel.collectives``, the ``dist_*`` and Horovod
+stores under ``gluon.Trainer``, and ``parallel.ShardedTrainStep`` over
+``dp`` with ZeRO-1/2, accumulation, remat and compressed gradients run
+over it, and BatchNorm takes the global batch's statistics there.
 """
-from . import base, config, context
+from ._dist_init import ensure_distributed as _ensure_distributed
+
+# join the process group before anything touches a device (reference:
+# mxnet_tpu/__init__.py); a no-op without the launcher's environment
+_ensure_distributed()
+
+from . import base, config, context  # noqa: E402
 from . import log, telemetry, fault, profiler, trace, pipeline
 from . import goodput, insight, blackbox
 from . import numpy as np

@@ -139,6 +139,36 @@ declare("trainer.skip_nonfinite", bool, False, "MXNET_TRAINER_SKIP_NONFINITE",
         "Trainer.step skips (and counts) updates whose global grad norm "
         "is non-finite instead of poisoning the weights; automatic when "
         "an AMP loss scaler is attached.")
+declare("kvstore.async_timeout", float, 120.0,
+        "MXNET_KVSTORE_ASYNC_TIMEOUT",
+        "Seconds a blocking dist kvstore collective (a push's reduce, a "
+        "dist_async reconciling pull) may wait before its watchdog raises "
+        "CollectiveTimeout (mismatched pull schedules deadlock the "
+        "collective; the reference's ZMQ server has no such constraint)")
+declare("kvstore.retry_max", int, 2, "MXNET_KVSTORE_RETRY_MAX",
+        "Transient-failure retries per blocking dist collective "
+        "(CollectiveTimeout / transport hiccups): each retry re-barriers "
+        "through the process group's store, then waits again for an "
+        "attempt already in the group (or issues one that never reached "
+        "it); 0 disables retry (a timeout raises immediately); exhausting "
+        "the budget escalates a structured resilience.WorkerLost.")
+declare("kvstore.retry_backoff", float, 0.5, "MXNET_KVSTORE_RETRY_BACKOFF",
+        "Base seconds slept before a collective retry (doubles per "
+        "attempt, +25% jitter so rejoining workers don't stampede the "
+        "rendezvous store).")
+declare("kvstore.rejoin_timeout", float, 10.0, "MXNET_KVSTORE_REJOIN_TIMEOUT",
+        "Seconds a retrying worker waits at the rejoin barrier (the "
+        "process group's store) for its peers, or for its own attempt to "
+        "complete, before retrying anyway (alignment only: no rank issues "
+        "a collective twice, so a missed barrier is counted, not fatal).")
+declare("comm.compress", str, "none", "MXNET_COMM_COMPRESS",
+        "Gradient compression for the dp-axis reduction inside "
+        "ShardedTrainStep: 'none', 'int8' (symmetric int8 with error "
+        "feedback, ~4x fewer wire bytes) or 'bf16' (~2x). Requires a "
+        "pure-dp mesh.")
+declare("comm.bucket_mb", float, 4.0, "MXNET_COMM_BUCKET_MB",
+        "Flat gradient bucket size (MiB, fp32 element count) for the "
+        "compressed dp reduction; each bucket reduces as one collective.")
 declare("serve.max_slots", int, 8, "MXNET_SERVE_MAX_SLOTS",
         "Decode slots in the serve engine: the fixed batch dimension of "
         "the decode step and of every preallocated KV-cache tensor.")

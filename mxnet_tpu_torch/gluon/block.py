@@ -28,8 +28,17 @@ call (the tied LM head's KV-cache entry points), takes the same gate through
 ``hybridize()`` makes a block's calls go through a ``_CachedGraph``
 (``gluon/cached_graph.py``): on the card, CUDA graphs of the forward and,
 under ``record()``, of its backward, captured per input signature; on the
-CPU the same cache and key with the forward run eagerly. ``remat=`` and
-``backend=`` (subgraph partitioning) are not ported and raise.
+CPU the same cache and key with the forward run eagerly. ``backend=``
+(subgraph partitioning) is not ported and raises. ``remat=`` (reference:
+``resolve_remat_policy``) recomputes the block's activations in the
+backward, layer by layer (``remat_targets``: each ``layer<N>`` of the
+block's layer family, else the whole block): ``True`` is
+``torch.utils.checkpoint`` (non-reentrant), ``'dots'`` /
+``'dots_with_no_batch_dims'`` selective checkpointing that keeps the
+matmul outputs (with / without batched matmuls), a callable the policy
+itself; the port's dropout generators are put back for the recompute,
+so the recomputed masks are the forward's. ``ShardedTrainStep``
+inherits the flag.
 
 ``save_parameters`` / ``load_parameters`` read and write the reference's
 files (npz, ``.safetensors``, a legacy Apache MXNet ``.params``) through
@@ -39,6 +48,7 @@ back exactly. ``share_parameters`` and ``reset_ctx`` are the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import io
@@ -58,7 +68,177 @@ from ..numpy.multiarray import _unwrap_out, _wrap_out, ndarray
 from .cached_graph import _CachedGraph, in_plain_scope
 from .parameter import Constant
 
-__all__ = ["HybridBlock", "recording_gate"]
+__all__ = ["HybridBlock", "recording_gate", "resolve_remat_policy",
+           "remat_call", "remat_scope"]
+
+class _RematOff:
+    """The "rematerialization off" sentinel's type: one instance, kept
+    through copies and pickles (a block's deep copy keeps it)."""
+
+    __slots__ = ()
+
+    def __copy__(self):
+        return self
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def __reduce__(self):
+        return "_REMAT_OFF"
+
+    def __repr__(self):
+        return "_REMAT_OFF"
+
+
+#: sentinel for "rematerialization off" (a policy of None means full
+#: rematerialization, as a jax.checkpoint policy of None does)
+_REMAT_OFF = _RematOff()
+
+_MM = ("mm", "addmm", "_scaled_mm", "_int_mm")
+_BMM = ("bmm", "baddbmm")
+
+
+def _saves(names):
+    """A selective-checkpoint policy saving the outputs of aten ``names``
+    and recomputing everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    ops = {getattr(torch.ops.aten, n).default for n in names
+           if hasattr(torch.ops.aten, n)}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+_REMAT_POLICIES = {
+    "dots": _MM + _BMM,
+    "dots_saveable": _MM + _BMM,
+    "dots_with_no_batch_dims": _MM,
+    "dots_with_no_batch_dims_saveable": _MM,
+    "nothing": None,
+    "everything": "everything",
+}
+
+
+def resolve_remat_policy(remat):
+    """Map a ``hybridize(remat=...)`` value onto a checkpoint policy
+    (reference: block.py ``resolve_remat_policy``). ``False`` / ``None``:
+    off (:data:`_REMAT_OFF`); ``True`` / ``'nothing'``: None, full
+    rematerialization (only the inputs are kept); ``'dots'``: keep the
+    outputs of the matmuls (mm, addmm, bmm, baddbmm), recompute the rest;
+    ``'dots_with_no_batch_dims'``: keep only the unbatched ones;
+    ``'everything'``: keep every output; a callable ``(ctx, op, *args,
+    **kwargs) -> CheckpointPolicy or bool`` (True: save) is the policy."""
+    if remat is None or remat is False:
+        return _REMAT_OFF
+    if remat is True:
+        return None
+    if callable(remat):
+        def policy(ctx, op, *args, **kwargs):
+            from torch.utils.checkpoint import CheckpointPolicy
+            out = remat(ctx, op, *args, **kwargs)
+            if isinstance(out, bool):
+                return (CheckpointPolicy.MUST_SAVE if out
+                        else CheckpointPolicy.PREFER_RECOMPUTE)
+            return out
+        return policy
+    if not isinstance(remat, str) or remat not in _REMAT_POLICIES:
+        raise MXNetError(
+            f"unknown remat policy {remat!r}: expected True/False, one of "
+            f"{sorted(_REMAT_POLICIES)}, or a policy callable")
+    names = _REMAT_POLICIES[remat]
+    if names is None:
+        return None
+    if names == "everything":
+        from torch.utils.checkpoint import CheckpointPolicy
+        return lambda ctx, op, *a, **k: CheckpointPolicy.MUST_SAVE
+    return _saves(names)
+
+
+def remat_call(policy, fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward under
+    ``policy`` (from :func:`resolve_remat_policy`; not :data:`_REMAT_OFF`).
+    The generators the forward's samplers drew from (dropout) are set back
+    to their states before the forward for the recompute and restored
+    after it, so the recompute draws the same masks."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    drawn = {}
+    first = [True]
+    # the recompute runs in the backward, outside record(): it re-enters
+    # the forward's recording and training state
+    mode = (_autograd.is_recording(), _autograd.is_training())
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            outer = getattr(_random._local, "track", None)
+            with _random.track_generators() as track:
+                out = fn(*a)
+            drawn.update(track)
+            if outer is not None:
+                for g, st in track.items():
+                    outer.setdefault(g, st)
+            return out
+        now = {g: g.get_state() for g in drawn}
+        for g, st in drawn.items():
+            g.set_state(st)
+        try:
+            with _autograd._RecordingStateScope(*mode):
+                return fn(*a)
+        finally:
+            for g, st in now.items():
+                g.set_state(st)
+
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    # torch's own RNG state cannot be read while a CUDA graph captures;
+    # the port's samplers draw from the generators put back above
+    capturing = torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=not capturing, **kw)
+
+
+_LAYER = re.compile(r"(^|\.)layer\d+$")
+
+
+def remat_targets(block):
+    """The blocks whose forwards remat checkpoints one at a time: the
+    outermost submodules named ``layer<N>`` (the repeated layer family the
+    reference stacks for pipelining), else ``block`` itself. Per layer, a
+    layer's activations are recomputed just before its own backward, so
+    only one layer's live at a time."""
+    out = []
+    for name, m in block.named_modules():
+        if not (_LAYER.search(name) and isinstance(m, HybridBlock)):
+            continue
+        if any(name.startswith(o + ".") for o, _ in out):
+            continue
+        out.append((name, m))
+    return [m for _, m in out] or [block]
+
+
+@contextlib.contextmanager
+def remat_scope(block, policy):
+    """Within: every :func:`remat_targets` block of ``block`` runs its
+    forward through :func:`remat_call` under ``policy`` while recording
+    (what ``hybridize(remat=)`` and ``ShardedTrainStep(remat=)`` do)."""
+    targets = remat_targets(block)
+    prev = [(t, t._remat_policy) for t in targets]
+    scoped = block._remat_scoped
+    for t in targets:
+        t._remat_policy = policy
+    block._remat_scoped = True
+    try:
+        yield
+    finally:
+        for t, p in prev:
+            t._remat_policy = p
+        block._remat_scoped = scoped
 
 
 def recording_gate(fn):
@@ -88,6 +268,12 @@ class HybridBlock(nn.Module):
         self._cached_graph = None
         #: every parameter of this block itself was seen initialized
         self._init_checked = False
+        #: hybridize()'s flags (the reference's ``_flags``): remat
+        self._flags = {}
+        #: the checkpoint policy of this block's forward inside a
+        #: remat_scope (_REMAT_OFF: a plain forward; None is full remat)
+        self._remat_policy = _REMAT_OFF
+        self._remat_scoped = False
 
     def _check_initialized(self):
         """Raise where a parameter of this block was never initialized
@@ -135,7 +321,22 @@ class HybridBlock(nn.Module):
         return self._cached_graph(args, kwargs)
 
     def _forward_tensors(self, args, kwargs):
-        """The plain forward, its ``ndarray`` outputs as tensors."""
+        """The plain forward, its ``ndarray`` outputs as tensors; while
+        recording under ``hybridize(remat=...)``, inside a
+        :func:`remat_scope` (each layer of the family, or the block,
+        through :func:`remat_call`)."""
+        if torch.is_grad_enabled() and _autograd.is_recording():
+            if self._remat_policy is not _REMAT_OFF:
+                out = remat_call(self._remat_policy,
+                                 lambda *a: nn.Module.__call__(self, *a,
+                                                               **kwargs),
+                                 *args)
+                return out if type(out) is torch.Tensor \
+                    else _unwrap_out(out)
+            remat = self._flags.get("remat") if self._active else None
+            if remat and not self._remat_scoped:
+                with remat_scope(self, resolve_remat_policy(remat)):
+                    return self._forward_tensors(args, kwargs)
         out = super().__call__(*args, **kwargs)
         return out if type(out) is torch.Tensor else _unwrap_out(out)
 
@@ -159,19 +360,24 @@ class HybridBlock(nn.Module):
         are what a captured graph does anyway (static buffers, one graph a
         shape) and are accepted as in the reference. ``clear`` drops the
         graphs captured so far. Children called inside a hybridized call
-        run their plain forward (one graph per outermost call)."""
-        if kwargs.get("remat"):
-            raise MXNetError(
-                "hybridize(remat=...) is not ported yet (ROADMAP.md Queue "
-                "1, item 2: remat through torch.utils.checkpoint)")
+        run their plain forward (one graph per outermost call).
+        ``remat=`` (True, 'dots', 'dots_with_no_batch_dims', a policy
+        callable) recomputes the activations in the backward
+        (:func:`remat_call`); bad values raise here."""
+        resolve_remat_policy(kwargs.get("remat"))  # fail fast
         if backend is not None:
             raise MXNetError(
                 f"hybridize(backend={backend!r}): subgraph backends are not "
                 "ported yet (ROADMAP.md Queue 1, item 2: backend= / "
                 "optimize_for partitioning)")
         self._active = bool(active)
+        self._flags = {"remat": kwargs.get("remat")} \
+            if kwargs.get("remat") else {}
         if clear:
             self._cached_graph = None
+        # remat wraps this block's forward once; children inside it run
+        # their plain forwards
+        kwargs.pop("remat", None)
         for child in _hybrid_children(self):
             child.hybridize(active, backend=backend,
                             backend_opts=backend_opts, clear=clear,

@@ -295,6 +295,7 @@ class _CachedGraph:
                     self._note_entry(entry, name, tensors,
                                      time.perf_counter() - t0)
                     return out
+                self._refuse_collectives(training)
                 self._capture(entry, spec, statics, tensors, recording,
                               training)
                 self._signatures[key] = entry
@@ -322,6 +323,27 @@ class _CachedGraph:
             entry.pending = weakref.ref(outs[entry.diff_out[0]].grad_fn) \
                 if entry.diff_out else None
             return self._unflatten(entry, outs)
+
+    def _refuse_collectives(self, training):
+        """Raise before a capture whose forward would run a collective:
+        BatchNorm's global-batch statistics sum over the ranks (a layer
+        whose parameters a Trainer over a dist store updates, a
+        SyncBatchNorm, a dp step), and a gloo collective cannot be
+        captured in a CUDA graph. Decided from the configuration, before
+        anything is captured."""
+        if not training:
+            return
+        from ..parallel.collectives import batch_stats_group
+        from .nn.basic_layers import BatchNorm
+        scoped = batch_stats_group().size > 1
+        if any(isinstance(m, BatchNorm) and (scoped or m.syncs_batch_stats())
+               for m in self.block.modules()):
+            raise MXNetError(
+                f"hybridized {type(self.block).__name__} trains BatchNorm "
+                "on the global batch's statistics (summed over the ranks "
+                "in the forward), and a collective cannot be captured in "
+                "a CUDA graph; train it with hybridize(False) under data "
+                "parallelism")
 
     def _eager(self, args, kwargs):
         with plain_scope():

@@ -6,8 +6,10 @@ Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential`` and
 ``Activation``, ``Embedding``, ``LayerNorm`` (over ``axis``, parameters
 ``gamma``/``beta``, frozen where ``scale`` / ``center`` is off),
 ``GroupNorm``, ``InstanceNorm``, ``Dropout`` (``axes`` share a draw),
-``BatchNorm``, ``SyncBatchNorm`` (one card: BatchNorm's statistics, as
-the reference's single-device path), ``BatchNormReLU``, ``Flatten``,
+``BatchNorm`` (the global batch's statistics where a Trainer over a
+dist store updates its parameters), ``SyncBatchNorm`` (the global batch's
+statistics on more than one process; one card: BatchNorm's, as the
+reference's single-device path), ``BatchNormReLU``, ``Flatten``,
 ``Identity``, ``Lambda`` / ``HybridLambda``, ``Concatenate`` /
 ``HybridConcatenate``, with the reference's argument names. Under an fp8
 training scope (``amp.fp8.scope``) a ``Dense`` whose weight is a site
@@ -26,6 +28,8 @@ the tensor's device (``random.seed`` reseeds those); a dropped element is
 0 whatever its value (``where(keep, x / (1 - rate), 0)``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import math
 
@@ -302,25 +306,45 @@ class BatchNorm(HybridBlock):
         self.running_mean = _param(shape, dtype, device, "null")
         self.running_var = _param(shape, dtype, device, "null")
 
+    def syncs_batch_stats(self):
+        """Whether this layer trains on the global batch's statistics: its
+        parameters are updated by a Trainer over a dist store on more than
+        one process (which marks them)."""
+        return any(getattr(v._mx_param, "_sync_batch_stats", False)
+                   for v in (self.gamma, self.beta, self.running_mean,
+                             self.running_var))
+
+    def stats_scope(self):
+        """The scope this layer's training forward runs in:
+        ``parallel.collectives.sync_batch_stats`` where
+        :meth:`syncs_batch_stats`, else nothing."""
+        if not self.syncs_batch_stats():
+            return contextlib.nullcontext()
+        from ...parallel.collectives import sync_batch_stats
+        return sync_batch_stats()
+
     def forward(self, x):
         ch = (x.shape[self._axis],)
         for p in (self.gamma, self.beta, self.running_mean,
                   self.running_var):
             _ready(p, ch)
-        return npx.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
-            eps=self._epsilon, momentum=self._momentum,
-            fix_gamma=not self._scale,
-            use_global_stats=self._use_global_stats, axis=self._axis)
+        with self.stats_scope():
+            return npx.batch_norm(
+                x, self.gamma, self.beta, self.running_mean,
+                self.running_var, eps=self._epsilon,
+                momentum=self._momentum, fix_gamma=not self._scale,
+                use_global_stats=self._use_global_stats, axis=self._axis)
 
     def extra_repr(self):
         return f"axis={self._axis}, in_channels={self.gamma.shape[0]}"
 
 
 class SyncBatchNorm(BatchNorm):
-    """Cross-device BatchNorm (reference: basic_layers.py SyncBatchNorm):
-    on one card the statistics are the card's batch, BatchNorm's (the
-    reference's single-device path); ``num_devices`` is accepted."""
+    """Cross-device BatchNorm (reference: basic_layers.py SyncBatchNorm,
+    which is BatchNorm over the global batch of a dp mesh): its training
+    statistics are those of every process's batch (the per-channel sums
+    summed over the process group, ``parallel.collectives``); on one
+    process, the card's batch. ``num_devices`` is accepted."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,
@@ -331,6 +355,10 @@ class SyncBatchNorm(BatchNorm):
         super().__init__(1, momentum, epsilon, center, scale,
                          use_global_stats, in_channels=in_channels,
                          dtype=dtype, device=device)
+
+    def syncs_batch_stats(self):
+        from ..._dist_init import world_size
+        return world_size() > 1
 
 
 class BatchNormReLU(BatchNorm):

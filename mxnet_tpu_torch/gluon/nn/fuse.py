@@ -106,9 +106,11 @@ class FusableSequential(HybridSequential):
                 for p in (bn.gamma, bn.beta, bn.running_mean,
                           bn.running_var):
                     _ready(p, (conv._channels,))
-                x = npx.fused_conv_bn_relu(
-                    x, conv.weight, bn.gamma, bn.beta, bn.running_mean,
-                    bn.running_var, momentum=bn._momentum, eps=bn._epsilon)
+                with bn.stats_scope():
+                    x = npx.fused_conv_bn_relu(
+                        x, conv.weight, bn.gamma, bn.beta, bn.running_mean,
+                        bn.running_var, momentum=bn._momentum,
+                        eps=bn._epsilon)
                 i += 3
                 continue
             x = blk(x, *args)

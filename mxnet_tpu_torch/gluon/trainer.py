@@ -25,8 +25,20 @@ back quantized with its residual, as the reference's store does on one
 worker; with ``update_on_kvstore=True`` the optimizer runs inside the
 store (each gradient pushed, each weight pulled back), which gives the
 weights of the local update. Otherwise one card has nothing to reduce and
-the gradients stay as they are. A distributed kvstore raises
-(ROADMAP.md Queue 1, item 8).
+the gradients stay as they are.
+
+A distributed store ("dist_sync", "dist_device_sync", "dist_async",
+"horovod", "byteps", or a ``DistKVStore`` object) reduces every gradient
+across the processes before the update (a pushpull each, summed, then
+rescaled by ``1 / batch_size``: pass the global batch); with
+``update_on_kvstore`` the push reduces and the store's updater runs on
+every rank, so the weights stay equal bit for bit across ranks. The
+collectives run in ``step``, outside any captured graph. On more than
+one process such a Trainer also marks its parameters, so the BatchNorm
+layers they belong to train on the global batch's statistics (summed
+over the processes in their forward, ``parallel.collectives.
+sync_batch_stats``), as the reference's one program over a dp mesh
+computes them.
 
 The guard runs when an AMP loss scaler is attached (``amp.scale_loss``) or
 the ``trainer.skip_nonfinite`` knob is set: a step whose gradients hold an
@@ -135,11 +147,15 @@ class Trainer:
         if not (kvstore is None or isinstance(kvstore, (str, KVStoreBase))):
             raise MXNetError(f"kvstore must be a name or a KVStore, got "
                              f"{type(kvstore).__name__}")
-        if is_distributed(kvstore):
-            raise MXNetError(f"kvstore {kvstore!r}: the distributed stores "
-                             "are not ported yet (ROADMAP.md Queue 1, item "
-                             "8); one card takes 'local', 'device' or "
-                             "'nccl'")
+        from ..kvstore.dist import DistKVStore
+        self._distributed = (is_distributed(kvstore)
+                             or isinstance(kvstore, DistKVStore))
+        if self._distributed:
+            from .._dist_init import ensure_distributed, world_size
+            ensure_distributed()
+            if world_size() > 1:
+                for p in params:
+                    p._sync_batch_stats = True
         self._params = params
         self._kvstore_type = kvstore
         self._compression_params = compression_params
@@ -203,18 +219,24 @@ class Trainer:
                 kv.set_optimizer(self._optimizer)
                 self._updater = kv._updater
                 self._fused_update = False
+            if self._distributed:
+                # every key starts from the weights, as the reference's
+                # _init_kvstore does (a dist_async pull reconciles them)
+                for i, p in enumerate(self._params):
+                    kv.init(i, p.data())
             self._kvstore = kv
         self._kv_initialized = True
 
     def allreduce_grads(self):
         """Reduce gradients across devices (reference: trainer.py
-        ``allreduce_grads``). One card has nothing to sum: the gradients
-        pass through the store only where it changes them (compression)
-        or keeps them (``update_on_kvstore``: pushed, the optimizer runs
-        in the store)."""
+        ``allreduce_grads``). A distributed store sums every gradient
+        over the processes; on one card the gradients pass through the
+        store only where it changes them (compression) or keeps them
+        (``update_on_kvstore``: pushed, the optimizer runs in the
+        store)."""
         self._init_kvstore()
         kv = self._kvstore
-        if kv is None or not (self._update_on_kvstore
+        if kv is None or not (self._update_on_kvstore or self._distributed
                               or self._compression_params):
             return
         for i, p in enumerate(self._params):

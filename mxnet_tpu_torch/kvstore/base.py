@@ -4,10 +4,10 @@ Counterpart of ``mxnet_tpu/kvstore/base.py``: ``KVStoreBase`` (the plugin
 interface and ``register``), ``TestStore`` (the trivial in-memory
 backend, registered as "teststore") and ``create``. "local", "device",
 "nccl", "local_allreduce_device" and "local_allreduce_cpu" are the
-single-process :class:`~.kvstore.KVStore`. The distributed stores
-("dist_sync", "dist_device_sync", "dist_async") and "horovod" / "byteps"
-raise ``MXNetError`` until the multi-card slice of the port (ROADMAP.md
-Queue 1, item 8).
+single-process :class:`~.kvstore.KVStore`; "dist_sync" and
+"dist_device_sync" the :class:`~.dist.DistKVStore`, "dist_async" the
+:class:`~.dist.DistAsyncKVStore` (``kvstore/dist.py``), and "horovod" /
+"byteps" the registered plugins of ``kvstore/horovod.py``.
 """
 from __future__ import annotations
 
@@ -77,13 +77,14 @@ def create(name="local"):
         raise MXNetError("name must be a string")
     name = name.lower()
     from .kvstore import KVStore
+    from . import horovod  # noqa: F401 (registers the plugins)
     if name in _LOCAL:
         return KVStore(name)
-    if is_distributed(name):
-        raise MXNetError(
-            f"kvstore {name!r}: the distributed stores are not ported yet "
-            "(ROADMAP.md Queue 1, item 8); one card takes 'local', "
-            "'device' or 'nccl'")
+    if name.startswith("dist"):
+        from .dist import DistAsyncKVStore, DistKVStore
+        if "async" in name:
+            return DistAsyncKVStore(name)
+        return DistKVStore(name)
     if name in KVStoreBase.kv_registry:
         return KVStoreBase.kv_registry[name]()
     raise MXNetError(f"unknown KVStore type {name!r}")

@@ -335,6 +335,11 @@ def pooling(data, kernel=1, stride=None, pad=None, pool_type="max",
     return avg / _AVG_POOL[nd](F.pad(ones, pads), kernel, stride)
 
 
+def _batch_stats_group():
+    from ..parallel.collectives import batch_stats_group
+    return batch_stats_group()
+
+
 def _update_running(running_mean, running_var, mean, var, momentum):
     """``m * running + (1 - m) * batch``, in place, outside any graph."""
     m = momentum
@@ -352,7 +357,13 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-3,
     ``use_global_stats``): single-pass fp32 statistics ``E[x^2] - E[x]^2``
     (fp64 for fp64 inputs, as the fused route's) clamped at 0, and the
     running statistics updated in place; otherwise the running statistics.
-    The normalization is the folded per-channel ``x * scale + shift``."""
+    The normalization is the folded per-channel ``x * scale + shift``.
+    The statistics are the per-channel sums of x and x^2 summed over
+    ``parallel.collectives.batch_stats_group()`` (inside its
+    ``sync_batch_stats`` scope: a dp step, a SyncBatchNorm, a BatchNorm
+    under a Trainer over a dist store, the global batch's; else this
+    rank's own, where the sum is the identity), over this rank's count
+    times the group's ranks."""
     from .. import autograd
     x, gamma, beta = _cast("batch_norm", x, gamma, beta)
     training = autograd.is_training() and not use_global_stats
@@ -361,9 +372,15 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-3,
     shape[axis] = x.shape[axis]
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     if training:
+        # differentiably: the backward sums the cotangents of the shared
+        # statistics over the group the same way
+        stats = _batch_stats_group()
         xf = x.to(acc)
-        mean = xf.mean(dim=red)
-        var = torch.clamp((xf * xf).mean(dim=red) - mean * mean, min=0.0)
+        c = x.shape[axis]
+        m = xf.numel() // c * stats.size
+        tot = stats.gsum(torch.cat([xf.sum(dim=red), (xf * xf).sum(dim=red)]))
+        mean = tot[:c] / m
+        var = torch.clamp(tot[c:] / m - mean * mean, min=0.0)
     else:
         mean, var = running_mean, running_var
     g = torch.ones_like(gamma) if fix_gamma else gamma

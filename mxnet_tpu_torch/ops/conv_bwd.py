@@ -102,25 +102,44 @@ def _c(v):
     return v.reshape(1, -1, 1, 1)
 
 
-def conv3x3_bn_relu_ref(x, w, gamma, beta, eps=1e-5):
+def _group(stats):
+    """``stats``, or the identity group of each rank's own batch."""
+    if stats is None:
+        from ..parallel.collectives import StatsGroup
+        return StatsGroup()
+    return stats
+
+
+def conv3x3_bn_relu_ref(x, w, gamma, beta, eps=1e-5, stats=None):
     """The training forward ``relu(bn(conv3x3_s1_same(x, w)))`` over batch
     statistics, two-pass (reference :167-178): ``(a, y, mean, var)``, y the
-    conv output and mean/var fp32 (O,) (fp64 for fp64 inputs)."""
+    conv output and mean/var fp32 (O,) (fp64 for fp64 inputs). Each pass's
+    per-channel sums are summed over ``stats`` (a ``parallel.collectives.
+    StatsGroup``; None: this rank's own batch) and divided by N*H*W times
+    its ranks: with a group of several ranks, the global batch's
+    statistics."""
+    stats = _group(stats)
     acc = _acc(x)
     y = F.conv2d(x, w, padding=1)
     yf = y.to(acc)
-    mean = yf.mean(dim=(0, 2, 3))
-    var = torch.square(yf - _c(mean)).mean(dim=(0, 2, 3))
+    m = y.shape[0] * y.shape[2] * y.shape[3] * stats.size
+    mean = stats.sum(yf.sum(dim=(0, 2, 3))) / m
+    var = stats.sum(torch.square(yf - _c(mean)).sum(dim=(0, 2, 3))) / m
     inv = torch.rsqrt(var + eps)
     z = (yf - _c(mean)) * _c(inv) * _c(gamma.to(acc)) + _c(beta.to(acc))
     return F.relu(z).to(x.dtype), y, mean, var
 
 
-def bwd_stats(da, y, gamma, beta, mean, var, eps=1e-5):
+def bwd_stats(da, y, gamma, beta, mean, var, eps=1e-5, stats=None):
     """The stats pass (reference :110-124): ``(dgamma, dbeta, vec)``, vec
     the (8, O) fp32 ``[mean, inv, gamma, beta, dbeta/M, dgamma/M,
     gamma*inv, 0]`` (fp64 for fp64 inputs). The kernel route and the plain
-    version both take dgamma and dbeta from here."""
+    version both take dgamma and dbeta from here. vec's dbeta/M and
+    dgamma/M are the sums over ``stats`` (None: this rank's own batch)
+    over its M, N*H*W times its ranks, which dgrad and wgrad then read;
+    the returned dgamma and dbeta stay this rank's own (the dp reduce sums
+    them)."""
+    stats = _group(stats)
     acc = _acc(da)
     inv = torch.rsqrt(var.to(acc) + eps)
     mf, gf, bf = mean.to(acc), gamma.to(acc), beta.to(acc)
@@ -128,8 +147,9 @@ def bwd_stats(da, y, gamma, beta, mean, var, eps=1e-5):
     dz = torch.where(_c(gf) * xhat + _c(bf) > 0, da.to(acc), 0.0)
     dbeta = dz.sum(dim=(0, 2, 3))
     dgamma = (dz * xhat).sum(dim=(0, 2, 3))
-    m = da.shape[0] * da.shape[2] * da.shape[3]
-    vec = torch.stack([mf, inv, gf, bf, dbeta / m, dgamma / m, gf * inv,
+    m = da.shape[0] * da.shape[2] * da.shape[3] * stats.size
+    gb, gg = stats.sum(torch.stack([dbeta, dgamma]))
+    vec = torch.stack([mf, inv, gf, bf, gb / m, gg / m, gf * inv,
                        torch.zeros_like(inv)])
     return dgamma.to(gamma.dtype), dbeta.to(beta.dtype), vec
 
@@ -370,7 +390,7 @@ def _card(x, da, y, w):
 
 
 def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
-                              eps=1e-5):
+                              eps=1e-5, stats=None):
     """Backward of ``relu(bn_train(conv3x3_s1_same(x, w)))`` through batch
     statistics: ``(dx, dw, dgamma, dbeta)``.
 
@@ -386,9 +406,11 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     ``.kernel_launches`` (the bf16 kernels under names ending in
     ``_bf16``). x, da, y and w share one dtype: float32 launches the
     3xTF32 kernels, bfloat16 the bf16 ones; the dtype routes before any
-    launch, and a failed launch raises."""
+    launch, and a failed launch raises. ``stats``: global batch
+    statistics (:func:`bwd_stats`)."""
     _check(da, x, y, w, gamma, beta, mean, var)
-    dgamma, dbeta, vec = bwd_stats(da, y, gamma, beta, mean, var, eps)
+    dgamma, dbeta, vec = bwd_stats(da, y, gamma, beta, mean, var, eps,
+                                   stats)
     if x.device.type == "cpu":
         dx, dw = fused_conv3x3_bn_relu_bwd_plain(da, x, y, w, vec)
         return dx, dw, dgamma, dbeta
@@ -467,7 +489,12 @@ class FusedCBRFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, eps):
-        a, y, mean, var = conv3x3_bn_relu_ref(x, w, gamma, beta, eps)
+        from ..parallel.collectives import batch_stats_group
+        # the group is read once here and kept for the backward, which
+        # autograd runs on its own thread
+        ctx.stats = batch_stats_group()
+        a, y, mean, var = conv3x3_bn_relu_ref(x, w, gamma, beta, eps,
+                                              ctx.stats)
         ctx.save_for_backward(x, w, gamma, beta, y, mean, var)
         ctx.eps = eps
         ctx.mark_non_differentiable(mean, var)
@@ -477,5 +504,6 @@ class FusedCBRFunction(torch.autograd.Function):
     def backward(ctx, da, _dmean, _dvar):
         x, w, gamma, beta, y, mean, var = ctx.saved_tensors
         dx, dw, dgamma, dbeta = fused_conv3x3_bn_relu_bwd(
-            da.contiguous(), x, y, w, gamma, beta, mean, var, ctx.eps)
+            da.contiguous(), x, y, w, gamma, beta, mean, var, ctx.eps,
+            ctx.stats)
         return dx, dw, dgamma, dbeta, None

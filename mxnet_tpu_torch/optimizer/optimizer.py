@@ -430,6 +430,8 @@ class SGLD(Optimizer):
     weight's device; the JAX package's threefry stream cannot be matched,
     so tests give both the same noise."""
 
+    _zero_partitionable = False  # fresh noise per full tensor
+
     def __init__(self, learning_rate=0.01, generator=None, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.generator = generator
@@ -659,6 +661,8 @@ class LAMB(Optimizer):
     clamped to ``[lower_bound, upper_bound]``, ``w -= lr * ratio * r``.
     The norms stay on the device: no host read."""
 
+    _zero_partitionable = False  # layer-wise norms need the whole tensor
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-6, lower_bound=None, upper_bound=None,
                  bias_correction=True, **kwargs):
@@ -708,6 +712,8 @@ class LARS(Optimizer):
     ``trust = eta * ||w|| / (||g|| + wd * ||w|| + eps)`` (1 where either
     norm is 0), ``mom = momentum * mom + lr * trust * (g + wd * w)``,
     ``w -= mom``."""
+
+    _zero_partitionable = False  # trust ratio needs whole-tensor norms
 
     def __init__(self, learning_rate=0.1, momentum=0.0, eta=0.001,
                  epsilon=1e-8, **kwargs):

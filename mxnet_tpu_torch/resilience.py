@@ -22,9 +22,9 @@ Counterpart of ``mxnet_tpu/resilience.py``:
 
 Every recovery event lands in ``mx.fault.stats()`` and, while telemetry
 is on, as ``resilience.*`` counters. The dist kvstore's bounded
-collective retries that escalate a ``WorkerLost`` in the reference, and a
-multi-card ``TrainState(sharded_step=...)``, wait for the multi-card
-slice of the port.
+collective retries escalate a ``WorkerLost`` (``kvstore/dist.py``), and
+``TrainState(sharded_step=...)`` bundles a ``parallel.ShardedTrainStep``'s
+canonical state (every rank calls ``save``; the gather is collective).
 """
 from __future__ import annotations
 
@@ -202,12 +202,13 @@ class TrainState:
 
     def __init__(self, net=None, trainer=None, loader=None, path=None,
                  sharded_step=None):
-        if sharded_step is not None and not hasattr(sharded_step,
-                                                    "state_dict"):
+        if sharded_step is not None and not (
+                hasattr(sharded_step, "state_dict")
+                and hasattr(sharded_step, "load_state_dict")):
             raise MXNetError(
-                "TrainState(sharded_step=...): the state of a multi-card "
-                "ShardedTrainStep is not part of this slice of the port; "
-                "bundle its net and trainer instead")
+                "TrainState(sharded_step=...) takes a step with "
+                "state_dict() / load_state_dict() (parallel."
+                f"ShardedTrainStep), got {type(sharded_step).__name__}")
         self.net = net
         self.trainer = trainer
         self.loader = loader
@@ -246,8 +247,12 @@ class TrainState:
         return path
 
     def _save_bundle(self, path):
-        blob = pickle.dumps(self.state_dict(),
-                            protocol=pickle.HIGHEST_PROTOCOL)
+        state = self.state_dict()
+        if getattr(self.sharded_step, "rank", 0) != 0:
+            # a data-parallel step's state is gathered by every rank (a
+            # collective); rank 0 alone writes the bundle
+            return
+        blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
         _serialization.atomic_write_bytes(path, blob)
         _serialization.write_checksum(path)
         _event("bundle_save")

@@ -548,24 +548,39 @@ def _tiny_step(**kw):
 
 
 def test_step_rejections():
-    with pytest.raises(MXNetError, match="multi-card"):
+    # a world of one process: dp = 2 needs two ranks; tp / pp / sp and
+    # tensor-sharded parameters name the slice that brings them
+    with pytest.raises(MXNetError, match="needs 2 ranks"):
         MeshConfig(dp=2).build(["cpu"])
-    with pytest.raises(MXNetError, match="multi-card"):
-        make_mesh({"dp": 2, "tp": 1}, devices=["cpu"])
-    with pytest.raises(MXNetError, match="multi-card"):
+    with pytest.raises(MXNetError, match="slice 22"):
+        make_mesh({"dp": 1, "tp": 2}, devices=["cpu"])
+    with pytest.raises(MXNetError, match="needs 2 ranks"):
         _tiny_step(mesh=MeshConfig(dp=2))
-    with pytest.raises(MXNetError, match="zero=1"):
-        _tiny_step(zero=1)
     with pytest.raises(MXNetError, match="zero must be"):
         _tiny_step(zero=3)
-    with pytest.raises(MXNetError, match="grad_accum=2"):
-        _tiny_step(grad_accum=2)
-    with pytest.raises(MXNetError, match="steps_per_call=2"):
-        _tiny_step(steps_per_call=2)
-    with pytest.raises(MXNetError, match="remat"):
-        _tiny_step(remat=True)
-    with pytest.raises(MXNetError, match="param_specs"):
+    with pytest.raises(MXNetError, match="slice 22"):
         _tiny_step(param_specs={})
+    with pytest.raises(MXNetError, match="slice 22"):
+        _tiny_step().rebuild()
+    with pytest.raises(MXNetError, match="slice 22"):
+        _tiny_step().autotune()
+    with pytest.raises(MXNetError, match="slice 22"):
+        _tiny_step(mesh=make_mesh({"dp": 1, "pp": 2}, devices=["cpu"]))
+    # ZeRO, accumulation, several updates a call and remat are this
+    # slice's: each builds and takes its batch (the dp tests hold their
+    # values against the JAX package)
+    rs = onp.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, 4, 16).astype("float32"))
+    y = torch.from_numpy(rs.randn(4, 4).astype("float32"))
+    for kw, args in (({"zero": 1}, (x[0], y[0])),
+                     ({"grad_accum": 2}, (x[:2], y[:2])),
+                     ({"steps_per_call": 2}, (x[:2], y[:2])),
+                     ({"remat": True}, (x[0], y[0]))):
+        step = _tiny_step(**kw)
+        assert torch.isfinite(step(*args)), kw
+        # the step's gradients stay on the parameters, as on one card
+        assert all(w.grad is not None for w in step.params.values()), kw
+    assert _tiny_step(steps_per_call=2, zero=2).fopt.opt.num_update == 0
     with pytest.raises(MXNetError, match="precision"):
         _tiny_step(precision="bf16")
     with pytest.raises(MXNetError, match="grad_compress"):

@@ -212,9 +212,38 @@ def test_trainer_save_load_states_round_trip(tmp_path):
                                     {"kvstore": "horovod"},
                                     {"kvstore": 3}])
 def test_trainer_outside_slice_raises(kwargs):
-    _, tnet = _pair(0)
-    with pytest.raises(MXNetError):
-        tmx.gluon.Trainer(tnet.collect_params(), "sgd", **kwargs)
+    """A kvstore that is neither a name nor a store raises; the dist
+    stores and Horovod, on a world of one process, train as the JAX
+    package's one-process stores do: the local update, bit for bit with
+    the port's "device" store."""
+    jnet, tnet = _pair(0)
+    if not isinstance(kwargs["kvstore"], str):
+        with pytest.raises(MXNetError):
+            tmx.gluon.Trainer(tnet.collect_params(), "sgd", **kwargs)
+        return
+    _, ref = _pair(0)
+    x, y = _batch(1)
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainers = [tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.1}, kvstore=kv)
+                for net, kv in ((tnet, kwargs["kvstore"]), (ref, "device"))]
+    for net, tr in zip((tnet, ref), trainers):
+        _port_step(net, loss_fn, x, y)
+        tr.step(BATCH)
+    assert trainers[0]._kvstore.num_workers == 1
+    for (n, p), q in zip(tnet.collect_params().items(),
+                         ref.collect_params().values()):
+        torch.testing.assert_close(p.data(), q.data(), atol=0, rtol=0,
+                                   msg=n)
+    jtr = mx.gluon.Trainer(jnet.collect_params(), "sgd",
+                           {"learning_rate": 0.1}, kvstore=kwargs["kvstore"])
+    _jax_step(jnet, mx.gluon.loss.SoftmaxCrossEntropyLoss(), x, y)
+    jtr.step(BATCH)
+    got = {n: p.data().detach().numpy()
+           for n, p in tnet.collect_params().items()}
+    for n, v in jfunctional.param_arrays(jnet).items():
+        onp.testing.assert_allclose(got[n], onp.asarray(v), rtol=1e-5,
+                                    atol=1e-6, err_msg=n)
 
 
 def test_trainer_accepts_single_card_kvstores():

@@ -528,10 +528,44 @@ def test_share_parameters_clears_the_cache():
     torch.testing.assert_close(b(x), a(x), atol=0, rtol=0)
 
 
-def test_remat_and_backend_raise():
+def test_remat_and_backend_raise(monkeypatch):
+    # remat is ported: every policy checkpoints the forward once and gives
+    # the un-remat outputs and gradients bit for bit (the recompute is the
+    # same arithmetic); a bad policy raises at hybridize time, as in the
+    # reference
+    import torch.utils.checkpoint as ckpt
+    calls = []
+    real = ckpt.checkpoint
+
+    def counted(*a, **k):
+        calls.append(k.get("context_fn") is not None)
+        return real(*a, **k)
+
+    monkeypatch.setattr(ckpt, "checkpoint", counted)
+    x = torch.rand(3, 8)
+    ref = _dense_net()
+    with tmx.autograd.record():
+        want = ref(x)
+    want.sum().backward()
+    for remat in (True, "dots", "dots_with_no_batch_dims",
+                  lambda ctx, op, *a, **k: False):
+        net = _dense_net()
+        net.hybridize(remat=remat)
+        assert net._flags["remat"] is remat and not net[0]._flags
+        with tmx.autograd.record():
+            got = net(x)
+        got.sum().backward()
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        for p, q in zip(net.collect_params().values(),
+                        ref.collect_params().values()):
+            torch.testing.assert_close(p.grad(), q.grad(), atol=0, rtol=0)
+        # one checkpoint of the whole block (it has no layer<N> family);
+        # True recomputes everything, the others select what to keep
+        assert calls == [remat is not True], (remat, calls)
+        calls.clear()
+    with pytest.raises(MXNetError, match="unknown remat policy"):
+        _dense_net().hybridize(remat="not_a_policy")
     net = _dense_net()
-    with pytest.raises(MXNetError, match="remat.*ROADMAP"):
-        net.hybridize(remat=True)
     with pytest.raises(MXNetError, match="backend.*ROADMAP"):
         net.hybridize(backend="MKLDNN")
     with pytest.raises(MXNetError, match="backend"):

@@ -44,9 +44,17 @@ def test_create_and_types():
         kv = tmx.kv.create(name)
         assert kv.type == name and kv.rank == 0 and kv.num_workers == 1
         assert kv.is_capable("optimizer")
-    for name in ("dist_sync", "dist_device_sync", "dist_async", "horovod"):
-        with pytest.raises(MXNetError, match="item 8"):
-            tmx.kv.create(name)
+    # the distributed stores and the plugins, on a world of one process
+    # (no launcher): rank 0 of 1, as the reference's degenerate store
+    kinds = {"dist_sync": tmx.kv.DistKVStore,
+             "dist_device_sync": tmx.kv.DistKVStore,
+             "dist_async": tmx.kv.DistAsyncKVStore,
+             "horovod": tmx.kv.Horovod, "byteps": tmx.kv.BytePS}
+    for name, cls in kinds.items():
+        kv = tmx.kv.create(name)
+        assert type(kv) is cls and kv.type == name, name
+        assert kv.rank == 0 and kv.num_workers == 1
+        assert kv.type == mx.kv.create(name).type
     with pytest.raises(MXNetError):
         tmx.kv.create("no_such_store")
     assert tmx.kv.create("teststore").type == "teststore"

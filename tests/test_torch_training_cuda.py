@@ -170,3 +170,32 @@ def test_compressed_pushes_bit_for_bit_with_the_cpu(cuda_device):
         res.append(outs)
     for a, b in zip(*res):
         assert torch.equal(a, b)
+
+
+def test_hybridized_batchnorm_with_global_statistics_refuses_capture(
+        cuda_device):
+    """A hybridized net whose BatchNorm takes the global batch's
+    statistics (summed over the ranks in the forward) raises before
+    anything is captured: a gloo collective cannot be captured in a CUDA
+    graph. Eagerly the same net trains."""
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(4, in_units=6, device=cuda_device),
+            nn.BatchNorm(in_channels=4, device=cuda_device))
+    net.initialize(seed=0)
+    net.hybridize()
+    x = torch.rand(8, 6, device=cuda_device)
+    # what a Trainer over a dist store does on more than one process
+    params = list(net.collect_params().values())
+    for p in params:
+        p._sync_batch_stats = True
+    try:
+        with pytest.raises(MXNetError, match="cannot be captured"):
+            with tmx.autograd.record():
+                net(x)
+    finally:
+        for p in params:
+            del p._sync_batch_stats
+    with tmx.autograd.record():
+        out = net(x)
+    assert out.shape == (8, 4)
