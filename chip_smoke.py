@@ -533,7 +533,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 36. GPT-2 124M fp32 through ``parallel.ShardedTrainStep(MeshConfig())``
    on one card (phase 5's batch 8 x 1024 from RandomState(0) at every
    step, SGD lr 0.01 momentum 0.9): the plain step for 4 updates (the
-   reference of phase 37), then ``zero=2, grad_accum=4,
+   reference of phases 40-42; again at 6 layers, phase 37's), then
+   ``zero=2, grad_accum=4,
    steps_per_call=2`` (2 calls of 2 updates of 4 microbatches of 2) with
    remat off, ``True`` and ``'dots'`` (each layer of the decoder
    checkpointed on its own), each after a warm-up call: the accumulated
@@ -542,7 +543,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    bit for bit with off (losses and weights); flash launches 12 a
    microbatch (the forward 24 under remat); ms an update and peak
    allocated memory a setting.
-37. GPT-2 124M fp32 on two ranks sharing the card
+37. GPT-2 124M's width at 6 of its 12 layers (``DP_LAYERS``: the
+   script's time; phases 40-42 run all 12), fp32, on two ranks sharing
+   the card
    (``tools/launch.py -n 2 --env MXTPU_DIST_DEVICE=cuda``, each rank this
    script with ``--dp-rank gpt``; gloo, after a probe of whether NCCL
    takes two ranks on one device): ``ShardedTrainStep(MeshConfig(dp=2))``
@@ -551,7 +554,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    of phase 36's plain step, the update within 1e-3 (int8 0.5) relative
    L2 of it, weights equal bit for bit across ranks (rank 0 broadcasts),
    the ``zero.*`` / ``mesh.*`` / ``comm.*`` counters equal to the
-   analytic count, flash launches 12 a step a rank; per rank ms a step,
+   analytic count, flash launches 6 a step a rank; per rank ms a step,
    collective seconds a step (``collectives.timing``), peak memory; the
    zero=2 bundle saved at world 2 loads bit for bit into a one-card
    step, which continues; a ``dist_sync`` store on the card's tensors
@@ -566,6 +569,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    fp32 rounding) relative L2, the running statistics likewise within
    1e-4 of their max; weights and statistics equal bit for bit across
    ranks; kernel 8 16 calls a rank-step; ms a step of 3 timed steps.
+39. Ring attention over sp=2 on two ranks sharing the card (each rank
+   this script with ``--dp-rank ring``): b 8, h 12, s 1024 (512 a rank),
+   d 64, fp32 and bf16, causal and not: the card route (kernel 1 on each
+   ring pair merged by lse, kernels 2-3 with the global lse) against the
+   plain route on the same tensors, output and dq / dk / dv within 1e-4
+   (fp32) / 2^-5 (bf16) of max|plain|; kernel launches a call 2 of each,
+   causal 1 / 2 on ranks 0 / 1.
+40-42. Phases 36-37's GPT-2 (and phase 42's BERT-base) on ranks sharing
+   the card, each against a one-card ``ShardedTrainStep`` of the same
+   weights and batches (phase 36's for GPT): losses within 1e-5, the
+   update within 1e-3 relative L2 (the block made whole by
+   ``sync_to_block``), whole weights equal across ranks, the kernels'
+   launches a rank-step, per rank ms a step, collective seconds, peak
+   memory and the tp / pp byte counters. 40: ``MeshConfig(tp=2)``
+   (heads / 2 local heads), then ``MeshConfig(sp=2)`` (ring attention,
+   causal: kernel 1 one / two pairs a layer on ranks 0 / 1); 41:
+   ``MeshConfig(pp=2)`` with ``grad_accum=2`` (the GPipe schedule; its
+   bundle loads bit for bit into a one-card step, which continues); 42,
+   four ranks: ``MeshConfig(dp=2, tp=2)`` zero=1, then BERT-base (phase
+   7's batch, dropout 0, ``fused_ln_residual`` "on", MLM + NSP loss) at
+   ``MeshConfig(tp=2, sp=2)`` without a mask (ring) and with
+   ``valid_length`` (keys gathered), kernels 4-5 two a layer a
+   rank-step. Phases 40-42 run all 12 layers.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -6832,6 +6858,11 @@ def phase_surface(dev, card):
 # the one-card step (phase 36) and two ranks (phase 37), plain SGD so that
 # the comparisons see the reduce and not Adam's amplified float noise
 DP_STEPS = 4
+# phase 37 runs GPT-2 124M at full width and 6 of its 12 layers: the
+# script's time limit (its ranks share one card over gloo, five runs);
+# phase 36 runs its one-card reference at that depth too. Phases 40-42
+# run all 12
+DP_LAYERS = 6
 DP_SGD = {"learning_rate": 0.01, "momentum": 0.9}
 DP_ACCUM, DP_SPC = 4, 2
 DP_REMATS = (None, True, "dots")
@@ -6869,6 +6900,9 @@ DP_RESNET_LOSS_RTOL = 1e-5    # step 1: the same weights, global statistics
 DP_RESNET_UPDATE_TOL = 1e-3   # relative L2 of the whole update
 DP_RESNET_STAT_TOL = 1e-4     # running statistics, max|diff| / max|ref|
 DP_LAUNCH_TIMEOUT = 420
+# the column biases of megatron_specs (parallel/train.py)
+COLUMN_BIASES = ("query_proj.bias", "key_proj.bias", "value_proj.bias",
+                 "ffn_1.bias")
 
 
 def dp_config():
@@ -6877,7 +6911,7 @@ def dp_config():
     batches on the card)."""
     return {"device": "cuda", "vocab": 50257, "units": 768, "hidden": 3072,
             "layers": N_LAYERS, "heads": 12, "batch": TRAIN_BATCH,
-            "seq": TRAIN_SEQ, "steps": DP_STEPS,
+            "seq": TRAIN_SEQ, "steps": DP_STEPS, "dp_layers": DP_LAYERS,
             "resnet_batch": RESNET_BATCH, "resnet_size": RESNET_SIZE,
             "resnet_classes": RESNET_CLASSES, "resnet_layers": 50}
 
@@ -6964,6 +6998,11 @@ def dp_memory_trace(dev, top=8):
             _frame(f) for f in events[at]["frames"]
             if "mxnet_tpu_torch/" in f["filename"]][:4] if at >= 0 else [],
         "live_at_peak": [[k, v[0] / 1e9, v[1]] for k, v in ranked]})
+
+
+def dp_gpt_cfg(cfg):
+    """``cfg`` at phase 37's GPT depth."""
+    return {**cfg, "layers": cfg["dp_layers"]}
 
 
 def dp_gpt_net(dev, cfg):
@@ -7058,8 +7097,9 @@ def dp_update_l2(after, before, ref_after):
 
 def phase_gpt_sharded(dev, card, root, cfg):
     """Phase 36: GPT-2 124M through ShardedTrainStep on one card: the plain
-    step (DP_STEPS updates, the reference of phase 37), then zero=2,
-    grad_accum=4, steps_per_call=2 under each remat setting."""
+    step (DP_STEPS updates, the reference of phases 40-42, and at
+    DP_LAYERS phase 37's), then zero=2, grad_accum=4, steps_per_call=2
+    under each remat setting."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
@@ -7095,6 +7135,20 @@ def phase_gpt_sharded(dev, card, root, cfg):
                 "final": {n: t.cpu() for n, t in final.items()}},
                os.path.join(root, "gpt_one_card.pt"))
     print(f"plain step: losses {plain}, {plain_ms:.1f} ms an update")
+    # the reference of phase 37: the same plain step at its depth
+    mcfg = dp_gpt_cfg(cfg)
+    mnet = dp_gpt_net(dev, mcfg)
+    mparams = mnet.collect_params()
+    mstart = dp_snapshot(mparams)
+    mstep = ShardedTrainStep(mnet, dp_loss, mx.optimizer.create(
+        "sgd", **DP_SGD), mesh, specs)
+    mlosses = [float(mstep(x, y)) for x, y in batches]
+    torch.save({"losses": mlosses, "start": mstart,
+                "final": dp_snapshot(mparams)},
+               os.path.join(root, "gpt_one_card_dp.pt"))
+    print(f"plain step at {mcfg['layers']} layers (phase 37's "
+          f"reference): losses {mlosses}")
+    del mstep, mnet, mparams, mstart
 
     def stacked(part):
         xs = onp.stack([b[0] for b in part]).reshape(
@@ -7179,16 +7233,16 @@ def phase_gpt_sharded(dev, card, root, cfg):
                          for i in range(3)]}
 
 
-def dp_launch(root, kind, timeout=DP_LAUNCH_TIMEOUT):
-    """Two ranks of this script through tools/launch.py -n 2 (on the card:
-    --env MXTPU_DIST_DEVICE=cuda): (launcher rc, output). Every process
-    of the world ends on a timeout, which fails the run."""
+def dp_launch(root, kind, timeout=DP_LAUNCH_TIMEOUT, n=2):
+    """``n`` ranks of this script through tools/launch.py -n n (on the
+    card: --env MXTPU_DIST_DEVICE=cuda): (launcher rc, output). Every
+    process of the world ends on a timeout, which fails the run."""
     import signal
     repo = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, "dp_config.json")) as f:
         where = json.load(f)["device"]
     cmd = [sys.executable, os.path.join(repo, "tools", "launch.py"), "-n",
-           "2", "--env", f"MXTPU_DIST_DEVICE={where}", sys.executable,
+           str(n), "--env", f"MXTPU_DIST_DEVICE={where}", sys.executable,
            os.path.abspath(__file__), "--dp-rank", kind, root]
     env = dict(os.environ)
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
@@ -7201,22 +7255,22 @@ def dp_launch(root, kind, timeout=DP_LAUNCH_TIMEOUT):
         os.killpg(p.pid, signal.SIGKILL)
         out, _ = p.communicate()
         print(out[-8000:])
-        fail(f"the two {kind} ranks did not finish in {timeout} s")
+        fail(f"the {n} {kind} ranks did not finish in {timeout} s")
     return p.returncode, out
 
 
-def dp_world(root, kind):
+def dp_world(root, kind, n=2):
     """The ranks' results of a phase: their output printed, a rank's
     failure the phase's (the launcher's rc is checked)."""
     t0 = time.perf_counter()
-    rc, out = dp_launch(root, kind)
+    rc, out = dp_launch(root, kind, n=n)
     for line in out.splitlines():
         if "socket.cpp" not in line and "FutureWarning" not in line \
                 and "return func(" not in line:
             print(f"  {line}")
-    check(rc == 0, f"the two {kind} ranks failed (launcher rc {rc})")
+    check(rc == 0, f"the {n} {kind} ranks failed (launcher rc {rc})")
     res = []
-    for r in range(2):
+    for r in range(n):
         with open(os.path.join(root, f"{kind}_rank{r}.json")) as f:
             res.append(json.load(f))
     return res, time.perf_counter() - t0
@@ -7227,7 +7281,8 @@ def phase_gpt_dp(dev, card, root, cfg):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import serialization
     from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
-    print(f"== phase 37: GPT-2 124M fp32, dp=2 on two ranks sharing {card} "
+    print(f"== phase 37: GPT-2 124M's width at {cfg['dp_layers']} of its "
+          f"{cfg['layers']} layers, fp32, dp=2 on two ranks sharing {card} "
           f"(tools/launch.py -n 2 --env MXTPU_DIST_DEVICE=cuda): zero "
           f"0/1/2 and grad_compress='int8', global batch {cfg['batch']} "
           f"({cfg['batch'] // 2} a rank) x seq {cfg['seq']}, against "
@@ -7243,7 +7298,7 @@ def phase_gpt_dp(dev, card, root, cfg):
     res, wall = dp_world(root, "gpt")
     # the world-2 bundle loads bit for bit into a one-card step, which
     # continues
-    net = dp_gpt_net(dev, cfg)
+    net = dp_gpt_net(dev, dp_gpt_cfg(cfg))
     one = MeshConfig()
     step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
         "sgd", **DP_SGD), one, one.batch_specs(2, 2))
@@ -7354,6 +7409,7 @@ def dp_rank_gpt(root, cfg):
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
     from mxnet_tpu_torch.parallel import collectives as coll
+    cfg = dp_gpt_cfg(cfg)
     dev = mx.parallel.rank_device()
     rank, world = mx.parallel.rank(), mx.parallel.world_size()
     check(world == 2 and dev.type == cfg["device"],
@@ -7366,13 +7422,18 @@ def dp_rank_gpt(root, cfg):
     check(not dp_equal_across_ranks(start), "the ranks' initial weights "
                                             "differ")
     batches = dp_gpt_batches(cfg)
-    one = torch.load(os.path.join(root, "gpt_one_card.pt"))
+    one = torch.load(os.path.join(root, "gpt_one_card_dp.pt"))
     mesh = MeshConfig(dp=world)
     specs = mesh.batch_specs(2, 2)
     trained = [p.data() for p in params.values() if p.grad_req != "null"]
     nbytes = sum(w.numel() * w.element_size() for w in trained)
-    padded = sum(-(-w.numel() // world) * world * w.element_size()
-                 for w in trained)
+    # the reference's ZeRO arithmetic (train.py:346-460): a MeshConfig
+    # step takes megatron_specs, whose column biases (P('tp'): no
+    # dimension is free for dp) keep replicated state and count in no
+    # zero.* bytes; every other tensor padded to a multiple of dp
+    padded = sum(-(-p.data().numel() // world) * world
+                 * p.data().element_size() for n, p in params.items()
+                 if p.grad_req != "null" and not n.endswith(COLUMN_BIASES))
     steps = len(batches)
     runs = {}
     for label, kw in (("zero0", {}), ("zero1", {"zero": 1}),
@@ -7417,9 +7478,9 @@ def dp_rank_gpt(root, cfg):
         bad = dp_equal_across_ranks(final)
         check(not bad, f"{label}: weights differ across ranks: {bad[:4]}")
         # the analytic count (the reference's arithmetic, train.py:1016-
-        # 1050): every gradient's bytes a step; at zero > 0 each tensor
-        # padded to a multiple of dp; int8 one byte a value and a 4-byte
-        # scale a bucket
+        # 1050): every gradient's bytes a step; at zero > 0 the ZeRO
+        # tensors above; int8 one byte a value and a 4-byte scale a
+        # bucket
         want = {"mesh.dp_gradient_bytes_total": nbytes * steps}
         wire = nbytes * steps
         if label.startswith("int8"):
@@ -7596,6 +7657,424 @@ def dp_rank_resnet(root, cfg):
             "peak_allocated_gb": dp_peak_gb(dev)}
 
 
+# -- phases 39-42: tensor, pipeline and sequence parallelism -------------------
+
+# ring attention on the card: b 8, h 12, s 1024 over sp 2 (512 a rank), d 64
+RING_B, RING_H, RING_S, RING_D = 8, 12, 1024, 64
+# the card route (kernel 1 on each pair, merged by lse in fp32; kernels 2-3
+# with the global lse) against the plain route (online softmax in torch,
+# fp32 scores): max |card - plain| over max |plain|, per output and
+# gradient. fp32: the kernels' 3xTF32 products against fp32 FMA; bf16: both
+# round p to bf16 for the product with v, the plain route rounds each
+# block's p.v to bf16 before the fp32 sum, the kernels once at the end
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+# launches a rank a ring call under causal masking (the diagonal pair, the
+# earlier ranks' pairs; a later rank's skipped): rank 0 one, rank 1 two
+RING_CAUSAL_PAIRS = (1, 2)
+MESH_TIMEOUT = 420
+
+
+def mesh_config(cfg):
+    """What the ranks of phases 39-42 read, beside dp_config: BERT-base at
+    phase 7's batch and sequence (dropout 0 for the comparisons)."""
+    return {**cfg, "bert_vocab": BERT_VOCAB, "bert_batch": BERT_BATCH,
+            "bert_seq": BERT_SEQ, "bert_layers": N_LAYERS,
+            "ring": [RING_B, RING_H, RING_S, RING_D]}
+
+
+def mesh_batches_bert(cfg, dev=None):
+    """Phase 7's pretraining batch at ``cfg``'s sizes, host numpy (ids,
+    token types, valid lengths, MLM labels, NSP labels)."""
+    rs = onp.random.RandomState(0)
+    b, s, v = cfg["bert_batch"], cfg["bert_seq"], cfg["bert_vocab"]
+    ids = rs.randint(min(1000, v // 2), v, (b, s))
+    valid = rs.randint(s // 2, s + 1, b)
+    pos = onp.arange(s)[None, :]
+    split = rs.randint(s // 16, valid - s // 16)[:, None]
+    types = ((pos >= split) & (pos < valid[:, None])).astype("int64")
+    return (ids.astype("int64"), types, valid.astype("int64"),
+            ids.astype("int64"), rs.randint(0, 2, b).astype("int64"))
+
+
+def mesh_bert_net(dev, cfg):
+    """BERT-base (phase 7's model) from seed 0, dropout 0."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+    return BERTForPretraining(
+        vocab_size=cfg["bert_vocab"], units=cfg["units"],
+        hidden_size=cfg["hidden"], num_layers=cfg["bert_layers"],
+        num_heads=cfg["heads"], max_length=512, dropout=0.0,
+        embed_dropout=0.0, device=dev).initialize(seed=0)
+
+
+def mesh_bert_loss(outputs, labels, nsp):
+    """MLM over every position plus NSP: the pooler's broadcast under sp
+    is on the path."""
+    from mxnet_tpu_torch.ops.xent import sparse_softmax_xent
+    mlm, nsp_scores = outputs
+    return (sparse_softmax_xent(mlm, labels).mean()
+            + sparse_softmax_xent(nsp_scores, nsp).mean())
+
+
+def mesh_bert_args(arrays, masked):
+    """The step's batch: (ids, types[, valid length], labels, nsp) and its
+    specs' names."""
+    ids, types, valid, labels, nsp = arrays
+    if masked:
+        return ((ids, types, valid, labels, nsp),
+                [("dp", "sp"), ("dp", "sp"), ("dp",), ("dp", "sp"),
+                 ("dp",)])
+    return ((ids, types, labels, nsp),
+            [("dp", "sp"), ("dp", "sp"), ("dp", "sp"), ("dp",)])
+
+
+def phase_ring(dev, card, root, cfg):
+    """Phase 39: ring attention on the card, two ranks sharing it."""
+    print(f"== phase 39: ring attention over sp=2 on two ranks sharing "
+          f"{card}: b {RING_B}, h {RING_H}, s {RING_S} ({RING_S // 2} a "
+          f"rank), d {RING_D}, causal and not, fp32 and bf16: the card "
+          f"route (kernel 1 on each pair, kernels 2-3 with the global lse) "
+          f"against its plain version, values and gradients", flush=True)
+    res, wall = dp_world(root, "ring")
+    return {"ranks": res, "launch_seconds": wall,
+            "launches": [sum(r["launches"][i] for r in res)
+                         for i in range(3)]}
+
+
+def phase_gpt_mesh(dev, card, root, cfg):
+    """Phase 40: GPT-2 124M fp32 at tp=2, then sp=2, two ranks."""
+    print(f"== phase 40: GPT-2 124M fp32 through ShardedTrainStep on two "
+          f"ranks sharing {card}: MeshConfig(tp=2) "
+          f"({cfg['heads'] // 2} local heads a rank), "
+          f"then MeshConfig(sp=2) (ring attention, {cfg['seq'] // 2} "
+          f"positions a rank), batch {cfg['batch']} x seq {cfg['seq']}, "
+          f"SGD {DP_SGD}, against phase 36's one-card step", flush=True)
+    res, wall = dp_world(root, "gpt_mesh")
+    return {"ranks": res, "launch_seconds": wall,
+            "launches": [sum(r["launches"][i] for r in res)
+                         for i in range(3)]}
+
+
+def phase_gpt_pp(dev, card, root, cfg):
+    """Phase 41: GPT-2 124M fp32 at pp=2 with grad_accum=2; its bundle
+    loads into a one-card step, which continues."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serialization
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    print(f"== phase 41: GPT-2 124M fp32, MeshConfig(pp=2) with "
+          f"grad_accum=2 (the GPipe schedule: 2 microbatches of "
+          f"{cfg['batch'] // 2}, {cfg['layers'] // 2} layers a stage) on two "
+          f"ranks sharing {card}, against phase 36's one-card step; its bundle into a "
+          f"one-card step", flush=True)
+    res, wall = dp_world(root, "gpt_pp")
+    net = dp_gpt_net(dev, cfg)
+    one = MeshConfig()
+    step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
+        "sgd", **DP_SGD), one, one.batch_specs(2, 2))
+    path = os.path.join(root, "gpt_pp2.safetensors")
+    step.load_states(path)
+    saved = serialization.load_safetensors(path)
+    got = step.state_dict()["arrays"]
+    bad = [k for k in saved if not onp.array_equal(saved[k], got[k])]
+    check(set(saved) == set(got) and not bad,
+          f"phase 41: the pp=2 bundle did not load bit for bit: {bad[:4]}")
+    x, y = dp_gpt_batches(cfg)[0]
+    cont = float(step(x, y))
+    check(math.isfinite(cont), "phase 41: the one-card step continuing the "
+                               "pp=2 bundle gave a non-finite loss")
+    print(f"pp=2 bundle: {len(saved)} arrays loaded bit for bit into a "
+          f"one-card step at update {step._n_step - 1}; it continued with "
+          f"loss {cont:.6f}")
+    del step, net
+    dp_peak_reset(dev)
+    return {"ranks": res, "launch_seconds": wall,
+            "bundle_arrays_bit_for_bit": len(saved),
+            "one_card_continued_loss": cont,
+            "launches": [sum(r["launches"][i] for r in res)
+                         for i in range(3)]}
+
+
+def phase_mesh4(dev, card, root, cfg):
+    """Phase 42: four ranks: GPT-2 124M dp2 x tp2 zero=1, then BERT-base
+    tp2 x sp2 without a mask (ring) and with valid_length, against a
+    one-card BERT-base step run here first."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    print(f"== phase 42: four ranks sharing {card}: GPT-2 124M fp32 "
+          f"MeshConfig(dp=2, tp=2) zero=1; BERT-base fp32 (dropout 0, "
+          f"fused_ln_residual 'on') MeshConfig(tp=2, sp=2), batch "
+          f"{cfg['bert_batch']} x seq {cfg['bert_seq']} ({cfg['bert_seq'] // 2}"
+          f" a rank), no mask (ring) then valid_length (keys gathered), "
+          f"against the one-card BERT-base step", flush=True)
+    from mxnet_tpu_torch.ops import ln_residual as lr
+    ones = {}
+    mx.config.set("fused_ln_residual", "on")
+    try:
+        for masked in (False, True):
+            net = mesh_bert_net(dev, cfg)
+            params = net.collect_params()
+            start = dp_snapshot(params)
+            args, names = mesh_bert_args(mesh_batches_bert(cfg), masked)
+            cfg1 = MeshConfig()
+            step = ShardedTrainStep(
+                net, mesh_bert_loss, mx.optimizer.create("sgd", **DP_SGD),
+                cfg1, [tuple(n if n != "sp" else None for n in s)
+                       for s in names], n_labels=2)
+            zero_ln_counters(lr)
+            losses = [float(step(*args)) for _ in range(DP_STEPS)]
+            ln = ln_counters(lr)
+            check(dev.type != "cuda" or ln == [cfg["bert_layers"] * 2
+                                               * DP_STEPS] * 2,
+                  f"phase 42: one-card BERT ln_residual launches {ln}")
+            tag = "valid_length" if masked else "plain"
+            torch.save({"losses": losses, "start": start,
+                        "final": dp_snapshot(params)},
+                       os.path.join(root, f"bert_one_card_{tag}.pt"))
+            ones[tag] = losses
+            print(f"one-card BERT-base ({tag}): losses {losses}")
+            del step, net, params
+            dp_peak_reset(dev)
+    finally:
+        mx.config.reset("fused_ln_residual")
+    res, wall = dp_world(root, "mesh4", 4)
+    return {"one_card_bert_losses": ones, "ranks": res,
+            "launch_seconds": wall,
+            "launches": [sum(r["launches"][i] for r in res)
+                         for i in range(5)]}
+
+
+# -- the rank side of phases 39-42 ---------------------------------------------
+
+def mesh_rank_run(label, step, batches, one, params, start, dev,
+                  update_names=None, want_launches=None):
+    """DP_STEPS updates of ``step`` on ``batches``: the first untimed,
+    the rest timed (steps 2..DP_STEPS after a barrier), with the
+    collectives' seconds and bytes, the byte counters, the peak memory and
+    the kernels' launches in all of them (``want_launches`` a step); then
+    the block made whole and held
+    against the one-card run ``one`` (losses rtol DP_LOSS_RTOL, the update
+    relative L2 DP_UPDATE_TOL). Returns the row."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import collectives as coll
+    mx.telemetry.enable()
+    mx.telemetry.reset()
+    dp_peak_reset(dev)
+    zero_all_counters()
+    losses = [float(step(*batches[0]))]
+    dp_sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    with coll.timing() as tm:
+        for b in batches[1:]:
+            losses.append(float(step(*b)))
+        dp_sync(dev)
+    wall = time.perf_counter() - t0
+    launches = other_counters()[:5]
+    counts = {k: v for k, v in mx.telemetry.counters().items()
+              if k.startswith(("zero.", "mesh.", "comm."))}
+    mx.telemetry.disable()
+    peak = dp_peak_gb(dev)
+    step.sync_to_block()
+    final = dp_snapshot(params)
+    bad = dp_equal_across_ranks(final)
+    check(not bad, f"{label}: whole weights differ across ranks: {bad[:4]}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+    check(loss_rel <= DP_LOSS_RTOL,
+          f"{label}: losses {losses} vs one card {one['losses']} (rtol "
+          f"{DP_LOSS_RTOL})")
+    names = update_names or list(one["final"])
+    diff = dp_update_l2({n: final[n] for n in names},
+                        {n: start[n] for n in names},
+                        {n: one["final"][n] for n in names})
+    at = dp_update_diff(final, start, one["final"], names)
+    check(diff <= DP_UPDATE_TOL, f"{label}: the update is {diff:.3e} "
+                                 "(relative L2) from the one card's")
+    if want_launches is not None:
+        want = [w * len(batches) for w in want_launches]
+        check(dev.type != "cuda" or launches == want,
+              f"{label}: launches in {len(batches)} steps {launches}, "
+              f"expected {want}")
+    row = {"losses": losses, "losses_vs_one_card": loss_rel,
+           "update_vs_one_card": diff, "worst_tensor": at,
+           "ms_per_step": wall / (len(batches) - 1) * 1e3,
+           "collective_seconds_per_step":
+               sum(v[0] for v in tm.values()) / (len(batches) - 1),
+           "collective_calls_bytes": {k: v[1:] for k, v in tm.items()},
+           "peak_allocated_gb": peak, "counters": counts,
+           "launches": launches,
+           "weights_whole_equal_across_ranks": True}
+    return row
+
+
+def dp_rank_ring(root, cfg):
+    """Phase 39's rank: the card route against the plain route."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel.ring_attention import _kernels, _plain
+    routes = {"plain": _plain, "kernels": _kernels}
+    dev = mx.parallel.rank_device()
+    rank = mx.parallel.rank()
+    mesh = make_mesh({"sp": 2}, devices=[dev])
+    b, h, s, d = cfg["ring"]
+    sl = s // 2
+    out = {"rank": rank, "backend": mx.parallel.backend(), "cases": {},
+           "launches": [0, 0, 0]}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        full = [torch.randn(b, h, s, d, device=dev, generator=gen)
+                .to(dtype) for _ in range(4)]
+        mine = [t[:, :, rank * sl:(rank + 1) * sl].contiguous()
+                for t in full]
+        for causal in (False, True):
+            res = {}
+            for route in ("plain", "kernels"):
+                ts = [t.clone().requires_grad_() for t in mine[:3]]
+                if route == "kernels":
+                    zero_counters(fa)
+                    dp_sync(dev)
+                    t0 = time.perf_counter()
+                o = routes[route](*ts, mesh, "sp", causal, d ** -0.5)
+                (o.float() * mine[3].float()).sum().backward()
+                if route == "kernels":
+                    dp_sync(dev)
+                    res["card_ms"] = (time.perf_counter() - t0) * 1e3
+                    res["launches"] = counters(fa)
+                res[route] = [o.detach()] + [t.grad for t in ts]
+            errs = []
+            for a, p in zip(res["kernels"], res["plain"]):
+                scale = p.float().abs().max().item()
+                errs.append((a.float() - p.float()).abs().max().item()
+                            / scale)
+            tag = f"{str(dtype)[6:]} causal={causal}"
+            want = ([RING_CAUSAL_PAIRS[rank]] * 3 if causal else [2] * 3)
+            check(dev.type != "cuda" or res["launches"] == want,
+                  f"ring {tag}: launches {res['launches']}, expected {want}")
+            check(max(errs) <= RING_TOL[dtype],
+                  f"ring {tag}: card route off its plain version by "
+                  f"{errs} of max (out, dq, dk, dv), limit {RING_TOL[dtype]}")
+            out["cases"][tag] = {"max_err_over_max": errs,
+                                 "launches": res["launches"],
+                                 "card_fwd_bwd_ms": res["card_ms"]}
+            out["launches"] = [a + c for a, c in zip(out["launches"],
+                                                     res["launches"])]
+            print(f"rank {rank} ring {tag}: {json.dumps(out['cases'][tag])}",
+                  flush=True)
+    return out
+
+
+def _gpt_one(root):
+    """Phase 36's one-card plain step: losses and weights."""
+    return torch.load(os.path.join(root, "gpt_one_card.pt"))
+
+
+def dp_rank_gpt_mesh(root, cfg):
+    """Phase 40's rank: GPT-2 124M at tp=2, then sp=2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    dev = mx.parallel.rank_device()
+    rank, world = mx.parallel.rank(), mx.parallel.world_size()
+    one = _gpt_one(root)
+    batches = dp_gpt_batches(cfg)
+    out = {"rank": rank, "backend": mx.parallel.backend(), "runs": {}}
+    L = cfg["layers"]
+    for label, mcfg, want in (
+            ("tp2", MeshConfig(tp=2), [L] * 3),
+            ("sp2", MeshConfig(sp=2), [L * RING_CAUSAL_PAIRS[rank]] * 3)):
+        net = dp_gpt_net(dev, cfg)
+        params = net.collect_params()
+        start = dp_snapshot(params)
+        step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
+            "sgd", **DP_SGD), mcfg, mcfg.batch_specs(2, 2))
+        out["runs"][label] = mesh_rank_run(
+            f"GPT-2 {label}", step, batches, one, params, start, dev,
+            want_launches=want + [0, 0])
+        del step, net, params
+        dp_peak_reset(dev)
+    out["launches"] = [sum(r["launches"][i]
+                           for r in out["runs"].values()) for i in range(3)]
+    return out
+
+
+def dp_rank_gpt_pp(root, cfg):
+    """Phase 41's rank: GPT-2 124M at pp=2 with grad_accum=2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    dev = mx.parallel.rank_device()
+    rank, world = mx.parallel.rank(), mx.parallel.world_size()
+    one = _gpt_one(root)
+    batches = [tuple(a.reshape(2, -1, cfg["seq"]) for a in b)
+               for b in dp_gpt_batches(cfg)]
+    net = dp_gpt_net(dev, cfg)
+    params = net.collect_params()
+    start = dp_snapshot(params)
+    mcfg = MeshConfig(pp=2)
+    step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
+        "sgd", **DP_SGD), mcfg, mcfg.batch_specs(2, 2), grad_accum=2)
+    per = cfg["layers"] // 2 * 2
+    row = mesh_rank_run("GPT-2 pp2 grad_accum=2", step, batches, one,
+                        params, start, dev,
+                        want_launches=[per] * 3 + [0, 0])
+    # the stage shapes the schedule handed on, and the bundle
+    step.save_states(os.path.join(root, "gpt_pp2.safetensors"))
+    out = {"rank": rank, "backend": mx.parallel.backend(),
+           "stage_layers": [step._plan.lo, step._plan.hi],
+           "runs": {"pp2_accum2": row},
+           "launches": row["launches"][:3]}
+    return out
+
+
+def dp_rank_mesh4(root, cfg):
+    """Phase 42's rank: GPT-2 124M dp2 x tp2 zero=1, then BERT-base
+    tp2 x sp2 without a mask and with valid_length."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    dev = mx.parallel.rank_device()
+    rank, world = mx.parallel.rank(), mx.parallel.world_size()
+    check(world == 4, f"rank {rank}: world {world}, expected 4")
+    out = {"rank": rank, "backend": mx.parallel.backend(), "runs": {}}
+    L = cfg["layers"]
+    net = dp_gpt_net(dev, cfg)
+    params = net.collect_params()
+    start = dp_snapshot(params)
+    mcfg = MeshConfig(dp=2, tp=2)
+    step = ShardedTrainStep(net, dp_loss, mx.optimizer.create(
+        "sgd", **DP_SGD), mcfg, mcfg.batch_specs(2, 2), zero=1)
+    out["runs"]["gpt_dp2_tp2_zero1"] = mesh_rank_run(
+        "GPT-2 dp2 x tp2 zero=1", step, dp_gpt_batches(cfg), _gpt_one(root),
+        params, start, dev, want_launches=[L] * 3 + [0, 0])
+    del step, net, params
+    dp_peak_reset(dev)
+    mx.config.set("fused_ln_residual", "on")
+    BL = cfg["bert_layers"]
+    for masked in (False, True):
+        tag = "valid_length" if masked else "plain"
+        one = torch.load(os.path.join(root, f"bert_one_card_{tag}.pt"))
+        net = mesh_bert_net(dev, cfg)
+        params = net.collect_params()
+        start = dp_snapshot(params)
+        mcfg = MeshConfig(tp=2, sp=2)
+        args, names = mesh_bert_args(mesh_batches_bert(cfg), masked)
+        step = ShardedTrainStep(
+            net, mesh_bert_loss, mx.optimizer.create("sgd", **DP_SGD), mcfg,
+            names, n_labels=2)
+        # no mask: every pair of the ring a layer (2), the flash backward
+        # alike; valid_length: keys gathered, the plain attention; the
+        # fused ln_residual twice a layer either way
+        flash = 0 if masked else 2 * BL
+        trained = [n for n, p in params.items() if p.grad_req != "null"]
+        out["runs"][f"bert_tp2_sp2_{tag}"] = mesh_rank_run(
+            f"BERT-base tp2 x sp2 {tag}", step, [args] * DP_STEPS, one,
+            params, start, dev, update_names=trained,
+            want_launches=[flash] * 3 + [2 * BL] * 2)
+        del step, net, params
+        dp_peak_reset(dev)
+    mx.config.reset("fused_ln_residual")
+    out["launches"] = [sum(r["launches"][i]
+                           for r in out["runs"].values()) for i in range(5)]
+    return out
+
+
 def dp_nccl_probe():
     """Whether NCCL takes two ranks on one card: an all-reduce over a
     group of this process and the launcher's other one, both on cuda:0.
@@ -7618,7 +8097,8 @@ def dp_nccl_probe():
 
 
 def dp_rank_main(kind, root):
-    """A rank of phase 37 (``gpt``), 38 (``resnet``) or the NCCL probe;
+    """A rank of phase 37 (``gpt``), 38 (``resnet``), 39 (``ring``), 40
+    (``gpt_mesh``), 41 (``gpt_pp``), 42 (``mesh4``) or the NCCL probe;
     writes ``<root>/<kind>_rank<r>.json``."""
     if kind == "nccl_probe":
         # the port is not imported: its import would join the gloo group
@@ -7629,7 +8109,10 @@ def dp_rank_main(kind, root):
     import mxnet_tpu_torch as mx
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = (dp_rank_gpt if kind == "gpt" else dp_rank_resnet)(root, cfg)
+    out = {"gpt": dp_rank_gpt, "resnet": dp_rank_resnet,
+           "ring": dp_rank_ring, "gpt_mesh": dp_rank_gpt_mesh,
+           "gpt_pp": dp_rank_gpt_pp, "mesh4": dp_rank_mesh4}[kind](root,
+                                                                  cfg)
     with open(os.path.join(root, f"{kind}_rank{mx.parallel.rank()}.json"),
               "w") as f:
         json.dump(out, f)
@@ -8043,12 +8526,16 @@ def main():
     torch.cuda.empty_cache()
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
-        cfg = dp_config()
+        cfg = mesh_config(dp_config())
         with open(os.path.join(root, "dp_config.json"), "w") as f:
             json.dump(cfg, f)
         gpt_sharded = timed("36", phase_gpt_sharded, dev, card, root, cfg)
         gpt_dp = timed("37", phase_gpt_dp, dev, card, root, cfg)
         resnet_dp = timed("38", phase_resnet_dp, dev, card, root, cfg)
+        ring = timed("39", phase_ring, dev, card, root, cfg)
+        gpt_mesh = timed("40", phase_gpt_mesh, dev, card, root, cfg)
+        gpt_pp = timed("41", phase_gpt_pp, dev, card, root, cfg)
+        mesh4 = timed("42", phase_mesh4, dev, card, root, cfg)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -8186,6 +8673,20 @@ def main():
             resnet_dp2_train_by_rank=[r["launches"] if i == 7 else 0
                                       for r in resnet_dp["ranks"]])
         entry["launches"] += sharded + gdp + rdp
+    # phases 39-42, tensor, pipeline and sequence parallelism: every
+    # rank's wrapper counts (the ranks share the card)
+    mesh_paths = {"ring_sp2_card": ring, "gpt_tp2_sp2_train": gpt_mesh,
+                  "gpt_pp2_accum2_train": gpt_pp,
+                  "gpt_dp2_tp2_bert_tp2_sp2_train": mesh4}
+    for i, entry in enumerate(entries):
+        for path, e2e in mesh_paths.items():
+            per = e2e["launches"]
+            n = per[i] if i < len(per) else 0
+            entry["launches_by_path"][path] = n
+            entry["launches_by_path"][f"{path}_by_rank"] = [
+                r["launches"][i] if i < len(r["launches"]) else 0
+                for r in e2e["ranks"]]
+            entry["launches"] += n
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -8216,7 +8717,11 @@ def main():
                       "gpt_bf16_stream_train": gpt_stream,
                       "gpt_sharded_train": gpt_sharded,
                       "gpt_dp2_train": gpt_dp,
-                      "resnet_dp2_train": resnet_dp}))
+                      "resnet_dp2_train": resnet_dp,
+                      "ring_sp2_card": ring,
+                      "gpt_tp2_sp2_train": gpt_mesh,
+                      "gpt_pp2_accum2_train": gpt_pp,
+                      "gpt_dp2_tp2_bert_tp2_sp2_train": mesh4}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -90,6 +90,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "device_once.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -420,19 +421,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-// above 48 KB a block's dynamic shared memory has to be opted into; once
-// per instantiation (a function-local static initialises once)
-template <typename K>
-cudaError_t opt_in(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = smem_bytes<T, D, true>();
-  static const cudaError_t attr = opt_in(flash_bwd_dkv_kernel<T, D>, smem);
+  const cudaError_t attr =
+      device_once::opt_in_smem<flash_bwd_dkv_kernel<T, D>>(
+          static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.seq_k + kRows - 1) / kRows, a.bh);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
@@ -446,7 +440,9 @@ cudaError_t launch_dkv(const Args& a) {
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = smem_bytes<T, D, false>();
-  static const cudaError_t attr = opt_in(flash_bwd_dq_kernel<T, D>, smem);
+  const cudaError_t attr =
+      device_once::opt_in_smem<flash_bwd_dq_kernel<T, D>>(
+          static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.seq_q + kRows - 1) / kRows, a.bh);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(

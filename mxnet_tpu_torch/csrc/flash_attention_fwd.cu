@@ -79,6 +79,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "device_once.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -331,10 +332,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int bh, int seq_q, int seq_k, int causal,
                    float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
-  // above 48 KB a block's dynamic shared memory has to be opted into;
-  // once per instantiation (a function-local static initialises once)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t attr = device_once::opt_in_smem<flash_fwd_kernel<T, D>>(
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((seq_q + kRows - 1) / kRows, bh);

@@ -86,7 +86,10 @@
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
+
+#include "device_once.cuh"
 
 namespace {
 
@@ -738,22 +741,30 @@ struct DeviceInfo {
   cudaError_t err = cudaSuccess;
 };
 
-// The card's SM count and opt-in shared memory a block (the port runs on
-// one card), queried once.
+using device_once::current_device;
+using device_once::kMaxDevices;
+
+// The current device's SM count and opt-in shared memory a block, queried
+// once a device.
 const DeviceInfo& device_info() {
-  static const DeviceInfo info = [] {
+  static DeviceInfo info[kMaxDevices];
+  static std::once_flag once[kMaxDevices];
+  static const DeviceInfo bad = [] {
     DeviceInfo i;
-    int dev = 0;
-    i.err = cudaGetDevice(&dev);
-    if (i.err == cudaSuccess)
-      i.err = cudaDeviceGetAttribute(&i.sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
+    i.err = cudaErrorInvalidDevice;
+    return i;
+  }();
+  const int dev = current_device();
+  if (dev < 0) return bad;
+  std::call_once(once[dev], [dev] {
+    DeviceInfo& i = info[dev];
+    i.err = cudaDeviceGetAttribute(&i.sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
     if (i.err == cudaSuccess)
       i.err = cudaDeviceGetAttribute(
           &i.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return i;
-  }();
-  return info;
+  });
+  return info[dev];
 }
 
 // How one backward call is cut: the grid, each row group's ring, the
@@ -789,12 +800,16 @@ cudaError_t plan_bwd(int n, int dim, BwdPlan* p) {
   p->smem = smem_of(p->stages) + 128;  // + the base's alignment slack
   if (p->smem > limit) return cudaErrorInvalidValue;
 
-  // blocks of this instantiation an SM holds at this shared memory, cached
-  // as (smem << 32 | blocks)
-  static std::atomic<long long> cached{-1};
+  // blocks of this instantiation an SM of the current device holds at
+  // this shared memory, cached a device as (smem << 32 | blocks); the
+  // attribute set below is the current device's too
+  static std::atomic<long long> cache[kMaxDevices];
+  const int cur = current_device();
+  if (cur < 0) return cudaErrorInvalidDevice;
+  std::atomic<long long>& cached = cache[cur];
   long long c = cached.load();
   int occ;
-  if (c >= 0 && static_cast<int>(c >> 32) == p->smem) {
+  if (c > 0 && static_cast<int>(c >> 32) == p->smem) {
     occ = static_cast<int>(c & 0xffffffffLL);
   } else {
     auto kern = ln_residual_bwd_kernel<T, M, MASK, VEC, W, PER>;

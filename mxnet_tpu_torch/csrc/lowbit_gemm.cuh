@@ -34,7 +34,9 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 
+#include "device_once.cuh"
 #include "hopper_gemm.cuh"
 #include "quant_mma.cuh"
 
@@ -412,14 +414,21 @@ __device__ __forceinline__ void gemm(
 
 // -- host ------------------------------------------------------------------------
 
+using device_once::current_device;
+using device_once::kMaxDevices;
+
+// The current device's SM count, queried once a device.
 inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
+  static int n[kMaxDevices];
+  static std::once_flag once[kMaxDevices];
+  const int dev = current_device();
+  if (dev < 0) return 1;
+  std::call_once(once[dev], [dev] {
+    int v = 0;
     cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 1;
-  }();
-  return n;
+    n[dev] = v > 0 ? v : 1;
+  });
+  return n[dev];
 }
 
 // The maps of the two K-major operands (rows of Kp elements of elem_bytes,
@@ -452,8 +461,7 @@ cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb,
                    const float* bias, float* out, int M, int N, int k_tiles,
                    int act, cudaStream_t s) {
   constexpr int smem = Smem<BN, TMA_STORE>::kBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      KERN, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t attr = device_once::opt_in_smem<KERN>(smem);
   if (attr != cudaSuccess) return attr;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();

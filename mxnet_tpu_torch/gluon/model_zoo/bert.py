@@ -57,11 +57,20 @@ class BERTModel(HybridBlock):
                             in_units=units, device=device)
 
     def forward(self, inputs, token_types=None, valid_length=None):
+        from ...parallel import _diff
+        from ...parallel.mesh import sp_axis
         b, s = inputs.shape
         if token_types is None:
             token_types = torch.zeros((b, s), dtype=torch.long,
                                       device=inputs.device)
-        pos = torch.arange(s, device=inputs.device).reshape(1, s)
+        # under sequence parallelism the inputs (and token types) are this
+        # rank's block of the sequence: positions start at its offset, the
+        # mask covers the whole sequence's keys, and the pooler's first
+        # token lives on sp rank 0 (broadcast; its cotangents summed back)
+        sp = sp_axis()
+        n, r = (sp[1], sp[2]) if sp is not None else (1, 0)
+        pos = torch.arange(r * s, (r + 1) * s,
+                           device=inputs.device).reshape(1, s)
         x = (self.word_embed(inputs) + self.token_type_embed(token_types)
              + self.position_embed(pos))
         x = self.embed_ln(x)
@@ -69,9 +78,12 @@ class BERTModel(HybridBlock):
             x = self.embed_dropout(x)
         mask = None
         if valid_length is not None:
-            mask = valid_length_mask(valid_length, s)
+            mask = valid_length_mask(valid_length, s * n)
         seq = self.encoder(x, mask=mask)
-        return seq, self.pooler(seq[:, 0, :])
+        first = seq[:, 0, :]
+        if sp is not None:
+            first = _diff.broadcast(first.contiguous(), sp[0], "sp", 0)
+        return seq, self.pooler(first)
 
 
 class BERTForPretraining(HybridBlock):

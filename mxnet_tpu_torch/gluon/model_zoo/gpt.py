@@ -46,8 +46,14 @@ class GPTModel(HybridBlock):
         return self.word_embed(inputs) + self.position_embed(pos)
 
     def forward(self, inputs):
+        from ...parallel.mesh import sp_axis
         _, s = inputs.shape
-        pos = torch.arange(s, device=inputs.device).reshape(1, s)
+        # under sequence parallelism ``inputs`` is this rank's block of
+        # the sequence: its positions start at the block's offset
+        sp = sp_axis()
+        start = sp[2] * s if sp is not None else 0
+        pos = torch.arange(start, start + s,
+                           device=inputs.device).reshape(1, s)
         x = self._embed(inputs, pos)
         if self.embed_dropout is not None:
             x = self.embed_dropout(x)

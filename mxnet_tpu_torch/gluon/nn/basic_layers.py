@@ -102,7 +102,10 @@ class HybridSequential(HybridBlock):
 class Dense(HybridBlock):
     """Fully connected layer (reference: basic_layers.py Dense);
     ``weight_initializer`` / ``bias_initializer`` are the parameters' own
-    initializers, which ``initialize()`` takes before its ``init``."""
+    initializers, which ``initialize()`` takes before its ``init``. Under
+    tensor parallelism its weight holds this rank's block and ``_tp`` its
+    role (``parallel.tp.TpRole``), which runs the product with the
+    collectives the role needs."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype=torch.float32, weight_initializer=None,
@@ -116,20 +119,26 @@ class Dense(HybridBlock):
         self.bias = _param((units,), dtype, device, init=bias_initializer) \
             if use_bias else None
         self.act = Activation(activation) if activation else None
+        #: the tensor-parallel role (``parallel.tp``), None when whole
+        self._tp = None
+
+    def _product(self, x, w, b):
+        """``x @ w.T + b``: through the fp8 product where ``self.weight``
+        is a site of an active fp8 scope (amp/fp8.py), else the fp32
+        dense path."""
+        fp8 = _fp8.current()
+        site = fp8.sites.get(self.weight) if fp8 is not None else None
+        if site is not None and site in fp8.scales:
+            return _fp8.dense_fp8(x, w, b, site, flatten=self._flatten)
+        return npx.fully_connected(x, w, b, flatten=self._flatten)
 
     def forward(self, x):
         _ready(self.weight, (self._units, math.prod(x.shape[1:])
                              if self._flatten else x.shape[-1]))
-        fp8 = _fp8.current()
-        site = fp8.sites.get(self.weight) if fp8 is not None else None
-        if site is not None and site in fp8.scales:
-            # fp8 training scope (amp/fp8.py): a weight that is a site runs
-            # the fp8 product; the others take the fp32 dense path
-            out = _fp8.dense_fp8(x, self.weight, self.bias, site,
-                                 flatten=self._flatten)
+        if self._tp is not None:
+            out = self._tp.run(self, x)
         else:
-            out = npx.fully_connected(x, self.weight, self.bias,
-                                      flatten=self._flatten)
+            out = self._product(x, self.weight, self.bias)
         return self.act(out) if self.act is not None else out
 
     def extra_repr(self):

@@ -49,6 +49,9 @@ class MultiHeadAttention(HybridBlock):
         #: explicit generator for attention dropout, live while
         #: ``autograd.is_training()``
         self.generator = None
+        #: local heads under tensor parallelism (``parallel.tp``: the
+        #: projections hold this rank's heads), None when whole
+        self._tp_heads = None
         proj = dict(use_bias=use_bias, flatten=False, in_units=units,
                     device=device)
         self.query_proj = Dense(units, **proj)
@@ -63,8 +66,9 @@ class MultiHeadAttention(HybridBlock):
         q = self.query_proj(query)
         k = self.key_proj(key)
         v = self.value_proj(value)
+        heads = self._tp_heads or self._heads
         out = multi_head_attention(
-            q, k, v, self._heads, mask=mask,
+            q, k, v, heads, mask=mask,
             dropout_p=self._dropout,
             causal=self._causal, generator=self.generator)
         return self.out_proj(out)
@@ -256,18 +260,23 @@ class TransformerEncoderCell(HybridBlock):
         return self.dropout(h) if self.dropout is not None else h
 
     def forward(self, x, mask=None):
+        # the reference's activation-sharding hooks: each residual is this
+        # rank's block already, constrain checks its length
+        from ...parallel.mesh import constrain
         if self._pre_norm:
             h = self.attention(self.attn_ln(x), mask=mask)
-            x = x + self._drop(h)
-            return x + self.ffn(self.ffn_ln(x))
+            x = constrain(x + self._drop(h), "residual")
+            return constrain(x + self.ffn(self.ffn_ln(x)), "residual")
         h = self.attention(x, mask=mask)
         gen = self.dropout.generator if self.dropout is not None else None
         fused = _fused_ln_residual(x, h, self.attn_ln, self._rate, gen)
-        x = fused if fused is not None else self.attn_ln(x + self._drop(h))
+        x = constrain(fused if fused is not None
+                      else self.attn_ln(x + self._drop(h)), "residual")
         # the FFN applies its own dropout: the residual adds it as it is
         h = self.ffn(x)
         fused = _fused_ln_residual(x, h, self.ffn_ln, 0.0)
-        return fused if fused is not None else self.ffn_ln(x + h)
+        return constrain(fused if fused is not None
+                         else self.ffn_ln(x + h), "residual")
 
     # -- KV-cache serving surface (inference only: dropout skipped) -----
 

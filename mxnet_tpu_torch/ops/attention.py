@@ -25,6 +25,17 @@ caller's generator, else from the default generator of the tensor's
 device (``random.dropout_mask``). A kernel failure raises: the
 reference's silent fallback to the composition is deliberately absent.
 
+Sequence parallelism (an ``activation_sharding`` scope whose residual
+rule names 'sp', ``parallel.mesh.sp_axis``): each rank holds its block of
+the sequence. Pure self-attention (no mask, no live dropout) runs as
+``parallel.ring_attention`` (kernel 1 on each pair on the card); any
+other self-attention all-gathers the keys and values over sp
+(reduce-scattered in the backward) and attends this rank's query rows,
+with the causal mask offset to their global positions and those rows of
+the mask. The reference swallows a failed ring call and falls back; here
+nothing falls back: a sequence that sp does not divide raises where the
+step cuts the batch.
+
 The JAX package returns new cache arrays from pure functions; here the
 preallocated caches are updated in place (``index_put_`` /
 ``index_copy_``) and returned for the same call shape. Slot, start and row
@@ -93,15 +104,50 @@ def _flash_instantiated(query, heads):
         or query.shape[-1] // heads in HEAD_DIMS
 
 
+def _sp_attention(sp, query, key, value, heads, mask, dropout_p, causal,
+                  generator):
+    """Self-attention of this rank's sequence block under sp (see the
+    module docstring)."""
+    from ..parallel import _diff
+    from ..parallel.ring_attention import ring_attention
+    mesh, n, r = sp
+    b, sq, hd = query.shape
+    d = hd // heads
+    if mask is None and not dropout_p:
+        def hf(x):
+            return x.reshape(b, x.shape[1], heads, d).transpose(1, 2)
+        out = ring_attention(hf(query), hf(key), hf(value), mesh, "sp",
+                             causal=causal)
+        return out.transpose(1, 2).reshape(b, sq, hd)
+    k = _diff.gather_partial(key, mesh, "sp", 1)
+    v = _diff.gather_partial(value, mesh, "sp", 1)
+    sk = k.shape[1]
+    if mask is not None:
+        mask = mask.to(torch.bool)
+        if mask.shape[-2] == sq * n:  # per-query rows: this rank's
+            mask = mask.narrow(-2, r * sq, sq)
+    if causal:
+        q_pos = r * sq + torch.arange(sq, device=query.device)[:, None]
+        vis = torch.arange(sk, device=query.device)[None, :] <= q_pos
+        mask = vis if mask is None else (mask & vis)
+    return _reference_attention(query, k, v, heads, mask, False, None,
+                                dropout_p, generator)
+
+
 def multi_head_attention(query, key, value, heads, mask=None, dropout_p=0.0,
                          causal=False, generator=None):
     """Fused MHA on (batch, seq, heads*dim) tensors, differentiable in
     query, key and value. ``dropout_p`` applies only while
     ``autograd.is_training()`` (reference: ops/attention.py:412-414)."""
+    from ..parallel.mesh import sp_axis
     if not autograd.is_training():
         dropout_p = 0.0
     query, key, value = amp._maybe_cast_op_inputs(
         "multi_head_attention", (query, key, value))
+    sp = sp_axis()
+    if sp is not None and query.shape[1] == key.shape[1]:
+        return _sp_attention(sp, query, key, value, heads, mask, dropout_p,
+                             causal, generator)
     if mask is not None or dropout_p \
             or not _flash_instantiated(query, heads):
         return _reference_attention(query, key, value, heads, mask, causal,

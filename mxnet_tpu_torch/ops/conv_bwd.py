@@ -189,6 +189,13 @@ def fused_conv3x3_bn_relu_bwd_plain(da, x, y, w, vec):
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
+def _index(device):
+    """The CUDA device index of ``device`` ('cuda' alone: the current)."""
+    if device.index is not None or device.type != "cuda":
+        return device.index or 0
+    return torch.cuda.current_device()
+
+
 @functools.cache
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -309,7 +316,7 @@ def fits_card(x, o):
     n, c, h, w = x.shape
     if min(n, h, w, c, o) <= 0:
         return False
-    sm = _sm_count(x.device.index or 0)
+    sm = _sm_count(_index(x.device))
     splits, _ = wgrad_splits(n, h, w, c, o, sm)
     dsplits, _ = dgrad_splits(n, h, w, c, o, sm)
     elements = max(n * h * w * max(c, o), splits * o * 9 * c,
@@ -372,9 +379,6 @@ def _card(x, da, y, w):
     if x.device.type != "cuda":
         raise MXNetError(f"conv3x3_bn_relu_bwd: unsupported device "
                          f"{x.device}")
-    if x.device.index not in (None, 0):
-        raise MXNetError("the CUDA kernels run on cuda:0 only in this slice "
-                         f"of the port, got {x.device}")
     if torch.cuda.get_device_capability(x.device) != (9, 0):
         raise MXNetError(f"conv3x3_bn_relu_bwd: "
                          f"{torch.cuda.get_device_name(x.device)} is not "
@@ -422,7 +426,7 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
     vec = vec.contiguous()
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
-    sm = _sm_count(x.device.index or 0)
+    sm = _sm_count(_index(x.device))
     splits, rows = wgrad_splits(n, h, wd, c, o, sm)
     chunk = _CHUNK_BF16 if bf16 else _CHUNK
     dsplits, cps = dgrad_splits(n, h, wd, c, o, sm, chunk)
@@ -439,13 +443,14 @@ def fused_conv3x3_bn_relu_bwd(da, x, y, w, gamma, beta, mean, var,
                          device=x.device) if splits > 1 else None)
     lib = _native.load("conv_bwd", _bind)
     entry = lib.conv3x3_bn_relu_bwd_bf16 if bf16 else lib.conv3x3_bn_relu_bwd
-    rc = entry(
-        vec.data_ptr(), da.data_ptr(), y.data_ptr(), x.data_ptr(),
-        w.data_ptr(), wsp.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        None if dpart is None else dpart.data_ptr(),
-        None if wpart is None else wpart.data_ptr(), n, h, wd, c, o,
-        dsplits, cps, splits, rows // (pr * pc or _PIXELS),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = entry(
+            vec.data_ptr(), da.data_ptr(), y.data_ptr(), x.data_ptr(),
+            w.data_ptr(), wsp.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            None if dpart is None else dpart.data_ptr(),
+            None if wpart is None else wpart.data_ptr(), n, h, wd, c, o,
+            dsplits, cps, splits, rows // (pr * pc or _PIXELS),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         msg = lib.conv3x3_bn_relu_bwd_error_string(rc).decode()
         raise MXNetError(f"conv3x3_bn_relu_bwd launch failed: {msg} (code "

@@ -205,14 +205,10 @@ def _check_bwd(q, k, v, do, **rows):
 
 
 def _card(q, name):
-    """Raise unless ``q`` lies where the CUDA kernels run (cuda:0) and its
-    head_dim has an instantiation."""
+    """Raise unless ``q`` lies on a card and its head_dim has an
+    instantiation."""
     if q.device.type != "cuda":
         raise MXNetError(f"{name}: unsupported device {q.device}")
-    if q.device.index not in (None, 0):
-        # the kernel library launches on the thread's current device, 0
-        raise MXNetError("the CUDA kernels run on cuda:0 only in this "
-                         f"slice of the port, got {q.device}")
     if q.shape[2] not in HEAD_DIMS:
         raise MXNetError(f"head_dim {q.shape[2]} not supported by the CUDA "
                          f"kernel (supported: {HEAD_DIMS})")
@@ -267,10 +263,11 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, sq, k.shape[1], d, int(bool(causal)), scale,
-        _DTYPE_CODES[q.dtype], stream)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), bh, sq, k.shape[1], d, int(bool(causal)), scale,
+            _DTYPE_CODES[q.dtype], stream)
     _launch(lib, "flash_attention_fwd", "flash_attention_error_string", rc,
             q, k)
     flash_attention_fwd.launches += 1
@@ -300,11 +297,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     q, k, v, do = _aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-        sq, k.shape[1], d, int(bool(causal)), scale, _DTYPE_CODES[q.dtype],
-        stream)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, sq, k.shape[1], d, int(bool(causal)), scale,
+            _DTYPE_CODES[q.dtype], stream)
     _launch(lib, "flash_attention_bwd_dkv",
             "flash_attention_bwd_error_string", rc, q, k)
     flash_attention_bwd_dkv.launches += 1
@@ -333,10 +331,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
     q, k, v, do = _aligned(q, k, v, do)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq, k.shape[1],
-        d, int(bool(causal)), scale, _DTYPE_CODES[q.dtype], stream)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq,
+            k.shape[1], d, int(bool(causal)), scale, _DTYPE_CODES[q.dtype],
+            stream)
     _launch(lib, "flash_attention_bwd_dq",
             "flash_attention_bwd_error_string", rc, q, k)
     flash_attention_bwd_dq.launches += 1

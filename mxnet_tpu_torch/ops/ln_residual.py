@@ -173,9 +173,6 @@ def _card(x, h, mask, gamma, name):
     """Raise unless the CUDA kernels take these inputs."""
     if x.device.type != "cuda":
         raise MXNetError(f"{name}: unsupported device {x.device}")
-    if x.device.index not in (None, 0):
-        raise MXNetError("the CUDA kernels run on cuda:0 only in this "
-                         f"slice of the port, got {x.device}")
     for what, t in (("x", x), ("h", h), ("gamma", gamma)):
         if t.dtype not in _DTYPE_CODES:
             raise MXNetError(f"{name}: {what} dtype {t.dtype} is not "
@@ -245,12 +242,14 @@ def ln_residual_fwd(x, h, mask, gamma, beta, p=0.0, eps=1e-5):
     mean = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     kind, vec = _route(xr, mask, [xr, hr, gamma, beta, out])
-    rc = lib.ln_residual_fwd(
-        xr.data_ptr(), hr.data_ptr(), 0 if mask is None else mask.data_ptr(),
-        gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), n, dim, _scale(p), float(eps),
-        _DTYPE_CODES[xr.dtype], _DTYPE_CODES[gamma.dtype], kind, vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = lib.ln_residual_fwd(
+            xr.data_ptr(), hr.data_ptr(),
+            0 if mask is None else mask.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), out.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), n, dim, _scale(p), float(eps),
+            _DTYPE_CODES[xr.dtype], _DTYPE_CODES[gamma.dtype], kind, vec,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(lib, "ln_residual_fwd", rc, x)
     ln_residual_fwd.launches += 1
     return out.to(x.dtype), mean, rstd
@@ -266,7 +265,7 @@ def _tickets_for(device, stream):
     barrier before it sums dgamma/dbeta: a ticket count, which every
     launch leaves zero, and a generation word. Zeroed once, when first
     asked for, never per call."""
-    key = (device.index or 0, stream)
+    key = (_index(device), stream)
     t = _tickets.get(key)
     if t is None:
         t = _tickets[key] = torch.zeros(_TICKETS, dtype=torch.int32,
@@ -274,14 +273,22 @@ def _tickets_for(device, stream):
     return t
 
 
+def _index(device):
+    """The CUDA device index of ``device`` ('cuda' alone: the current)."""
+    if device.index is not None or device.type != "cuda":
+        return device.index or 0
+    return torch.cuda.current_device()
+
+
 @functools.lru_cache(maxsize=256)
-def _workspace_floats(n, dim, dtype, kind, vec):
+def _workspace_floats(index, n, dim, dtype, kind, vec):
     """fp32 scratch floats (each block's row of dgamma/dbeta partials, 2 D
     a block) of one backward launch."""
     lib = _native.load("ln_residual", _bind)
     floats = ctypes.c_longlong()
-    rc = lib.ln_residual_bwd_workspace(n, dim, dtype, kind, vec,
-                                       ctypes.byref(floats))
+    with torch.cuda.device(index):
+        rc = lib.ln_residual_bwd_workspace(n, dim, dtype, kind, vec,
+                                           ctypes.byref(floats))
     if rc != 0:
         raise MXNetError("ln_residual_bwd: no launch plan: "
                          f"{lib.ln_residual_error_string(rc).decode()} "
@@ -319,16 +326,18 @@ def ln_residual_bwd(x, h, mask, gamma, mean, rstd, do, p=0.0):
     dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(gamma)
     kind, vec = _route(xr, mask, [xr, hr, dor, dx, dh])
     code = _DTYPE_CODES[xr.dtype]
-    floats = _workspace_floats(n, dim, code, kind, vec)
+    floats = _workspace_floats(_index(x.device), n, dim, code, kind, vec)
     work = torch.empty(floats, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     tickets = _tickets_for(x.device, stream)
-    rc = lib.ln_residual_bwd(
-        xr.data_ptr(), hr.data_ptr(), 0 if mask is None else mask.data_ptr(),
-        gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dor.data_ptr(),
-        dx.data_ptr(), dh.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        work.data_ptr(), floats, tickets.data_ptr(), _TICKETS, n, dim,
-        _scale(p), code, _DTYPE_CODES[gamma.dtype], kind, vec, stream)
+    with torch.cuda.device(x.device):
+        rc = lib.ln_residual_bwd(
+            xr.data_ptr(), hr.data_ptr(),
+            0 if mask is None else mask.data_ptr(), gamma.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dor.data_ptr(), dx.data_ptr(),
+            dh.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            work.data_ptr(), floats, tickets.data_ptr(), _TICKETS, n, dim,
+            _scale(p), code, _DTYPE_CODES[gamma.dtype], kind, vec, stream)
     _launch_check(lib, "ln_residual_bwd", rc, x)
     ln_residual_bwd.launches += 1
     return dx.to(x.dtype), dh.to(h.dtype), dgamma, dbeta

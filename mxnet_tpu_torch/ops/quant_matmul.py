@@ -172,21 +172,19 @@ def _check(name, x, w_q, w_scale, bias, w_dtypes):
 
 
 def _check_card(name, x, capable):
-    """Raise unless x lies on ``cuda:0`` of a card the kernels are built
-    for (``capable``)."""
+    """Raise unless x lies on a card the kernels are built for
+    (``capable``)."""
     if x.device.type != "cuda":
         raise MXNetError(f"{name}: unsupported device {x.device}")
-    if x.device.index not in (None, 0):
-        raise MXNetError("the CUDA kernels run on cuda:0 only in this slice "
-                         f"of the port, got {x.device}")
     if not capable:
         raise MXNetError(f"{name}: {torch.cuda.get_device_name(x.device)}"
                          " is not compute capability 9.0, which the kernel "
                          "is built for")
 
 
-def _launch(lib, name, args, shape):
-    rc = getattr(lib, name)(*args)
+def _launch(lib, name, args, shape, device):
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = getattr(lib, name + "_error_string")(rc).decode()
         raise MXNetError(f"{name} launch failed: {msg} (code {rc}; {shape})")
@@ -262,7 +260,7 @@ def fp8_matmul(x, w_q, w_scale, x_scale, bias=None, act=None, fmt="e4m3"):
         xq.data_ptr(), wq.data_ptr(), m, n, k, kp, _FMT_CODES[fmt],
         _FMT_CODES[_DTYPE_FMT[w_q.dtype]], _ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream),
-        f"M={m} N={n} K={k} fmt={fmt}")
+        f"M={m} N={n} K={k} fmt={fmt}", x.device)
     fp8_matmul.launches += 1
     if _insight._counting:
         _insight.add_flops(2 * m * n * k)
@@ -389,7 +387,7 @@ def _int8_launch(x, w_q, w_scale, xs, bias, act, out, xq, wq):
         xq.data_ptr(), None if wq is None else wq.data_ptr(), m, n, k,
         xq.shape[1], _ACT_CODES[act], quantized_matmul.tile_n,
         torch.cuda.current_stream(x.device).cuda_stream),
-        f"M={m} N={n} K={k}")
+        f"M={m} N={n} K={k}", x.device)
 
 
 quantized_matmul.launches = 0

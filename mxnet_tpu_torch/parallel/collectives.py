@@ -54,6 +54,7 @@ from .. import _dist_init
 from ..base import MXNetError
 
 __all__ = ["allreduce", "allgather", "reduce_scatter", "ppermute",
+           "broadcast",
            "compressed_allreduce", "allreduce_across_processes",
            "start_allreduce", "wait_work",
            "sync_batch_stats", "batch_stats_group", "StatsGroup", "timing"]
@@ -73,17 +74,17 @@ def _dist():
 
 
 def _group_of(mesh, axis):
-    """(group, size, rank in group) of ``axis`` on ``mesh`` (None: the
-    world)."""
+    """(group, size, this rank's coordinate) of ``axis`` on ``mesh`` (None:
+    the world): the process group of this rank's line of ranks along the
+    axis (None for the whole world)."""
     dist = _dist()
     if mesh is not None:
         if axis not in mesh.shape:
             raise MXNetError(f"mesh has no axis {axis!r}: {mesh.shape}")
-        group = mesh.group
         n = int(mesh.shape[axis])
         if dist is None or n == 1:
             return None, 1, 0
-        return group, n, mesh.rank
+        return mesh.axis_group(axis), n, mesh.axis_index(axis)
     if dist is None:
         return None, 1, 0
     return None, dist.get_world_size(), dist.get_rank()
@@ -221,8 +222,11 @@ def ppermute(x, mesh, axis, perm):
             else torch.zeros_like(x)
     dist = _dist()
     staged = _staged("send", x, group)
-    send = _host(x) if staged else x
-    recv = torch.zeros(x.shape, dtype=x.dtype, device=send.device,
+    # a rank that only receives reads nothing of x but its shape
+    sends = any(src == r for src, _ in perm)
+    send = _host(x) if staged and sends else x
+    recv = torch.zeros(x.shape, dtype=x.dtype,
+                       device="cpu" if staged else x.device,
                        pin_memory=staged)
     ops = []
     for src, dst in perm:
@@ -244,6 +248,19 @@ def _peer(group, r):
     """The global rank of rank ``r`` of ``group``."""
     dist = _dist()
     return r if group is None else dist.get_global_rank(group, r)
+
+
+def broadcast(x, mesh, axis, src):
+    """The ``x`` of the rank at coordinate ``src`` on ``axis``, on every
+    rank of the line (a copy; ``x`` gives the shape and dtype elsewhere)."""
+    group, n, _ = _group_of(mesh, axis)
+    out = x.detach().contiguous().clone()
+    if n == 1:
+        return out
+    dist = _dist()
+    with _timed("broadcast", out):
+        dist.broadcast(out, _peer(group, src), group=group)
+    return out
 
 
 def compressed_allreduce(x, mesh=None, axis="dp", mode="int8",

@@ -2,26 +2,44 @@
 
 Counterpart of ``mxnet_tpu/parallel/mesh.py``: ``make_mesh``,
 ``MeshConfig``, ``mesh_factorizations``, ``data_parallel_mesh``,
-``set_mesh`` / ``current_mesh``, ``shard`` / ``replicate``. The reference
-lays a mesh over devices of one program; here a mesh is the world's ranks
-(one process each, ``torch.distributed``) under named axes, with the
-device this process runs on. Its ``group`` is the process group of the
-mesh's ranks (None: the whole world) and ``rank`` this process's place
-in it.
+``set_mesh`` / ``current_mesh``, ``shard`` / ``replicate`` and the
+activation-sharding scope (``activation_sharding``, ``constrain``). The
+reference lays a mesh over devices of one program; here a mesh is the
+world's ranks (one process each, ``torch.distributed``) under named axes,
+with the device this process runs on.
 
-This slice runs data parallelism: ``dp`` may span every rank; a ``tp``,
-``pp`` or ``sp`` axis above 1 raises (tensor, pipeline and sequence
-parallelism are slice 22 of the port). A mesh whose axis product
-undershoots the world strands the rest of the ranks: it warns and sets
-the ``mesh.unused_devices`` gauge, as the reference does. ``P`` is the
-port's stand-in for JAX's ``PartitionSpec``: a tuple of axis names (or
-None) per array dimension.
+Rank r sits where the reference's device r sits: the ranks fill the axes
+row-major in the order they are given (``MeshConfig`` gives
+``('dp', 'pp', 'sp', 'tp')``, tp innermost), so a rank's coordinate on
+each axis is its index unravelled over the axis sizes. Every axis above 1
+has a process group per line of ranks along it (the ranks that share
+every other coordinate); ``Mesh.axis_group(axis)`` is this rank's and
+``Mesh.axis_index(axis)`` its place in it. ``dist.new_group`` is a
+collective call over the whole world, so every rank creates every
+subgroup, in the same order, those it is no member of included (a rank
+that skipped one would hang the others); groups are kept by their ranks
+and made once a process.
+
+A mesh whose axis product undershoots the world strands the rest of the
+ranks: it warns and sets the ``mesh.unused_devices`` gauge, as the
+reference does. ``P`` is the port's stand-in for JAX's
+``PartitionSpec``: a tuple of axis names (or None, or a tuple of names)
+per array dimension.
+
+Activation sharding: the reference's layers call ``constrain(x, kind)``
+and XLA moves data to the rule's layout. Here every rank already holds
+its own shard of an activation (a residual's sequence rows under sp), so
+``constrain`` changes no value: it checks the local length of the
+dimension the rule shards over 'sp' against the one the training step
+expects (``activation_sharding(..., local={'sp': s})``) and raises on a
+mismatch.
 """
 from __future__ import annotations
 
 import math
 import warnings
 
+import numpy as onp
 import torch
 
 from .. import telemetry as _telemetry
@@ -30,7 +48,7 @@ from ..context import resolve_device
 
 __all__ = ["P", "Mesh", "make_mesh", "MeshConfig", "mesh_factorizations",
            "data_parallel_mesh", "set_mesh", "current_mesh", "shard",
-           "replicate"]
+           "replicate", "activation_sharding", "constrain", "sp_axis"]
 
 _telemetry.declare_metric(
     "mesh.unused_devices", "gauge",
@@ -58,39 +76,72 @@ def _world():
     return 1, 0
 
 
-def _later(what):
-    raise MXNetError(f"{what}: tensor, pipeline and sequence parallelism "
-                     "(tp, pp, sp above 1) are slice 22 of the port; this "
-                     "slice runs data parallelism (dp)")
+#: process groups by their tuple of global ranks, made once a process
+_GROUPS = {}
+
+
+def _group(ranks):
+    """The process group of ``ranks`` (a tuple of global ranks); None for
+    the whole world. Every rank must ask for the same groups in the same
+    order: ``new_group`` is collective over the world."""
+    world, _ = _world()
+    if len(ranks) == world and tuple(ranks) == tuple(range(world)):
+        return None
+    g = _GROUPS.get(ranks)
+    if g is None:
+        import torch.distributed as dist
+        g = _GROUPS[ranks] = dist.new_group(list(ranks))
+    return g
 
 
 class Mesh:
     """Named axes over the world's ranks: ``shape`` {axis: size},
     ``devices`` [this process's device], ``group`` the process group of
     the mesh's ranks (None: the whole world, or no group at all), ``rank``
-    this process's place in it (None for a stranded rank)."""
+    this process's place in it (None for a stranded rank), ``coords`` its
+    coordinate on each axis."""
 
-    def __init__(self, shape, devices, group=None, rank=0):
+    def __init__(self, shape, devices, group=None, rank=0, coords=None,
+                 groups=None):
         self.shape = dict(shape)
         self.devices = list(devices)
         self.axis_names = tuple(self.shape)
         self.group = group
         self.rank = rank
+        self.coords = dict(coords) if coords is not None else {
+            a: 0 for a in self.shape}
+        self._groups = dict(groups or {})
+
+    def axis_index(self, axis):
+        """This rank's coordinate on ``axis`` (a name, or a tuple of names
+        taken row-major)."""
+        if isinstance(axis, tuple):
+            idx = 0
+            for a in axis:
+                idx = idx * int(self.shape[a]) + self.coords[a]
+            return idx
+        if axis not in self.shape:
+            raise MXNetError(f"mesh has no axis {axis!r}: {self.shape}")
+        return self.coords[axis]
+
+    def axis_group(self, axis):
+        """The process group of this rank's line along ``axis`` (None: the
+        whole world, or an axis of size 1)."""
+        return self._groups.get(axis)
 
     def __repr__(self):
-        return f"Mesh({self.shape}, rank={self.rank})"
+        return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"
 
 
 def make_mesh(axes, devices=None):
-    """A :class:`Mesh` from {'dp': 2, ...} over the world's ranks; this
-    process runs on ``devices[0]`` (default: its current device). Every
-    rank calls it (a mesh smaller than the world makes a subgroup, a
-    collective call). Raises when the product exceeds the world; warns
-    and counts ``mesh.unused_devices`` when it undershoots."""
+    """A :class:`Mesh` from {'dp': 2, 'tp': 2, ...} over the world's
+    ranks, row-major in the axes' order; this process runs on
+    ``devices[0]`` (default: its current device). Every rank calls it:
+    it makes a process group for each line of ranks along each axis above
+    1 (collective calls, in one order on every rank). Raises when the
+    product exceeds the world; warns and counts ``mesh.unused_devices``
+    when it undershoots."""
     sizes = {name: int(v) for name, v in axes.items()}
-    big = {a: s for a, s in sizes.items() if a != "dp" and s > 1}
-    if big:
-        _later(f"mesh {sizes}")
     total = math.prod(sizes.values())
     world, rank = _world()
     if total > world:
@@ -104,21 +155,43 @@ def make_mesh(axes, devices=None):
             "enumerates factorizations)", stacklevel=2)
     if _telemetry.active():
         _telemetry.set_gauge("mesh.unused_devices", unused)
-    group = None
-    if unused:
-        import torch.distributed as dist
-        group = dist.new_group(list(range(total)))
+    names = list(sizes)
+    grid = onp.arange(total).reshape([sizes[a] for a in names]) \
+        if names else onp.arange(total)
+    mine = rank if rank < total else None
+    coords = ({a: int(c) for a, c in zip(
+        names, onp.unravel_index(mine, grid.shape))} if mine is not None
+        and names else {a: 0 for a in names})
+    groups = {}
+    if world > 1:
+        for i, axis in enumerate(names):
+            if sizes[axis] == 1:
+                continue
+            # every line along this axis, in one order on every rank
+            moved = onp.moveaxis(grid, i, -1).reshape(-1, sizes[axis])
+            for line in moved:
+                ranks = tuple(int(r) for r in line)
+                g = _group(ranks)
+                if mine in ranks:
+                    groups[axis] = g
+    group = _group(tuple(range(total))) if unused else None
     devices = [resolve_device(None)] if devices is None else [
         resolve_device(d) for d in devices]
-    return Mesh(sizes, devices[:1], group, rank if rank < total else None)
+    return Mesh(sizes, devices[:1], group, mine, coords, groups)
 
 
 class MeshConfig:
     """The composed-parallelism entry point: ``dp`` (data), ``tp``
-    (tensor), ``pp`` (pipeline), ``sp`` (sequence). All four axes always
-    exist in the built mesh (size-1 axes are free), so specs naming any of
-    them stay valid on every layout. This slice builds ``dp`` over the
-    world's ranks; tp, pp or sp above 1 raise at ``build``."""
+    (tensor, Megatron), ``pp`` (pipeline stages), ``sp`` (sequence, ring
+    attention). All four axes always exist in the built mesh (size-1 axes
+    are free), so specs naming any of them stay valid on every layout. The
+    ranks lie on the axes in the order ('dp', 'pp', 'sp', 'tp'), tp
+    innermost, as the reference's devices do.
+
+        cfg = MeshConfig(dp=2, tp=2, pp=2)      # 8 ranks
+        step = ShardedTrainStep(net, loss_fn, opt, cfg,
+                                batch_specs=cfg.batch_specs(2, 2))
+    """
 
     AXES = ("dp", "pp", "sp", "tp")
 
@@ -157,6 +230,14 @@ class MeshConfig:
         """Specs for an (inputs..., labels...) batch given each array's
         rank, e.g. ``cfg.batch_specs(2, 2)`` for GPT (tokens, labels)."""
         return tuple(self.batch_spec(n) for n in ndims)
+
+    def activation_rules(self):
+        """The activation-sharding rules the step installs around its
+        call: the residual stream's batch over dp and sequence over sp
+        (sp > 1), which routes attention to ring attention."""
+        if self.sp > 1:
+            return {"residual": P("dp", "sp", None)}
+        return {}
 
     def replace(self, **axes):
         """A copy with the named axis sizes substituted, e.g.
@@ -221,34 +302,59 @@ def current_mesh():
     return _current
 
 
-def _dp_dim(spec):
-    """The dimension of ``spec`` that names 'dp' (None: replicated)."""
-    for i, e in enumerate(tuple(spec)):
-        if e == "dp" or (isinstance(e, tuple) and "dp" in e):
-            return i
-    return None
+def _names(entry):
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_cuts(spec, mesh):
+    """[(dim, parts, index)] of ``spec`` on ``mesh``: each dimension named
+    by axes above 1, cut into the product of their sizes, and this rank's
+    block (the axes row-major)."""
+    out = []
+    for dim, e in enumerate(tuple(spec)):
+        axes = tuple(a for a in _names(e)
+                     if a is not None and int(mesh.shape.get(a, 1)) > 1)
+        if not axes:
+            continue
+        for a in axes:
+            if a not in mesh.shape:
+                raise MXNetError(f"spec {spec} names {a!r}, not an axis of "
+                                 f"{mesh.shape}")
+        parts = math.prod(int(mesh.shape[a]) for a in axes)
+        out.append((dim, parts, mesh.axis_index(axes)))
+    return out
+
+
+def local_part(raw, cuts, lead=0):
+    """``raw`` (a tensor or numpy array) cut by ``spec_cuts``, each cut
+    dimension offset by ``lead`` leading axes."""
+    for dim, parts, idx in cuts:
+        dim += lead
+        n = raw.shape[dim]
+        if n % parts:
+            raise MXNetError(f"dim {dim} ({n}) does not divide into {parts} "
+                             "parts")
+        k = n // parts
+        if isinstance(raw, torch.Tensor):
+            raw = raw.narrow(dim, idx * k, k)
+        else:
+            sl = [slice(None)] * raw.ndim
+            sl[dim] = slice(idx * k, (idx + 1) * k)
+            raw = raw[tuple(sl)]
+    return raw
 
 
 def shard(array, mesh, spec):
-    """This rank's part of ``array`` under ``spec`` on ``mesh``: the
-    dimension named 'dp' cut into the axis size's equal blocks (the whole
-    array where no dimension is). Any other axis above 1 raises."""
+    """This rank's part of ``array`` under ``spec`` on ``mesh``: every
+    dimension named by axes above 1 cut into their product's equal blocks,
+    this rank's by its coordinates (the whole array where no dimension
+    is)."""
     spec = spec if isinstance(spec, P) else P(*spec)
-    for e in spec:
-        for name in (e if isinstance(e, tuple) else (e,)):
-            if name not in (None, "dp") and int(mesh.shape.get(name, 1)) > 1:
-                _later(f"shard over {name!r}")
     raw = getattr(array, "_data", array)
-    dim = _dp_dim(spec)
-    n = int(mesh.shape.get("dp", 1))
-    if dim is not None and n > 1:
-        if raw.shape[dim] % n:
-            raise MXNetError(f"shard: dim {dim} ({raw.shape[dim]}) does not "
-                             f"divide by dp={n}")
-        k = raw.shape[dim] // n
-        raw = raw.narrow(dim, mesh.rank * k, k) if isinstance(
-            raw, torch.Tensor) else raw.take(
-                range(mesh.rank * k, (mesh.rank + 1) * k), axis=dim)
+    cuts = spec_cuts(spec, mesh)
+    if not cuts:
+        return array
+    raw = local_part(raw, cuts)
     if hasattr(array, "_data"):
         from ..numpy.multiarray import _wrap
         return _wrap(raw)
@@ -258,3 +364,73 @@ def shard(array, mesh, spec):
 def replicate(array, mesh):
     """Every rank holds the whole array: ``array`` itself."""
     return shard(array, mesh, P())
+
+
+# -- activation sharding (sequence parallelism) -------------------------------
+#: (mesh, rules, local lengths) of the innermost activation_sharding scope
+_act_rules = None
+
+
+class activation_sharding:
+    """Scope of activation rules the layers consult (reference:
+    ``mesh.py`` ``activation_sharding``):
+
+        with parallel.activation_sharding(mesh, residual=P('dp', 'sp', None)):
+            out = net(x_local)
+
+    Under a rule whose residual names 'sp' (on a mesh with sp > 1), pure
+    self-attention runs as ring attention over the sp ranks, masked
+    attention gathers keys and values over them, and GPT / BERT offset
+    their positions by this rank's sequence block. ``local``: the local
+    lengths the step expects, e.g. ``{'sp': 512}``, which ``constrain``
+    checks."""
+
+    def __init__(self, mesh, local=None, **rules):
+        self.mesh = mesh
+        self.rules = rules
+        self.local = dict(local or {})
+        self._prev = None
+
+    def __enter__(self):
+        global _act_rules
+        self._prev = _act_rules
+        _act_rules = (self.mesh, self.rules, self.local)
+        return self
+
+    def __exit__(self, *exc):
+        global _act_rules
+        _act_rules = self._prev
+
+
+def constrain(x, kind):
+    """``x`` unchanged (each rank holds its shard already); under a rule
+    ``kind`` whose dimension names 'sp', with a local length given to the
+    scope, raises when x's length there differs from it."""
+    if _act_rules is None:
+        return x
+    _, rules, local = _act_rules
+    spec = rules.get(kind)
+    want = local.get("sp")
+    if spec is None or want is None:
+        return x
+    for dim, e in enumerate(tuple(spec)):
+        if "sp" in _names(e) and dim < x.ndim and x.shape[dim] != want:
+            raise MXNetError(
+                f"constrain({kind!r}): dim {dim} of shape {tuple(x.shape)} "
+                f"is not this rank's sequence block of {want}")
+    return x
+
+
+def sp_axis():
+    """(mesh, size, index) of the sequence axis of the active
+    activation_sharding scope when its residual rule names 'sp' and the
+    mesh's sp is above 1, else None."""
+    if _act_rules is None:
+        return None
+    mesh, rules, _ = _act_rules
+    spec = rules.get("residual")
+    n = int(mesh.shape.get("sp", 1))
+    if spec is None or n <= 1 or not any(
+            "sp" in _names(e) for e in tuple(spec)):
+        return None
+    return mesh, n, mesh.axis_index("sp")

@@ -253,5 +253,13 @@ def test_mesh_config_matches_jax():
     x = onp.arange(12.0).reshape(4, 3)
     assert tmx.parallel.shard(x, mesh, P("dp", None)) is x
     assert tmx.parallel.replicate(x, mesh) is x
-    with pytest.raises(tmx.MXNetError, match="slice 22"):
+    # a sequence axis builds like any other (the worlds of
+    # test_torch_parallel_sp.py run it); in a world of one it needs ranks
+    with pytest.raises(tmx.MXNetError, match="needs 2 ranks"):
         tmx.parallel.make_mesh({"dp": 1, "sp": 2}, devices=["cpu"])
+    for c in ({"dp": 2, "sp": 2}, {"dp": 4}, {"tp": 2, "pp": 2}):
+        assert MeshConfig(**c).activation_rules() == {
+            k: P(*v) for k, v in
+            jpar.MeshConfig(**c).activation_rules().items()}
+    one = tmx.parallel.make_mesh({"dp": 1, "sp": 1}, devices=["cpu"])
+    assert one.axis_index("sp") == 0 and one.axis_group("sp") is None

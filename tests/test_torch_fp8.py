@@ -548,23 +548,28 @@ def _tiny_step(**kw):
 
 
 def test_step_rejections():
-    # a world of one process: dp = 2 needs two ranks; tp / pp / sp and
-    # tensor-sharded parameters name the slice that brings them
+    # a world of one process: dp, tp and pp of 2 need two ranks (the
+    # worlds of test_torch_parallel_mesh.py run them); param_specs and
+    # rebuild work on one rank; autotune names the item that brings it
     with pytest.raises(MXNetError, match="needs 2 ranks"):
         MeshConfig(dp=2).build(["cpu"])
-    with pytest.raises(MXNetError, match="slice 22"):
+    with pytest.raises(MXNetError, match="needs 2 ranks"):
         make_mesh({"dp": 1, "tp": 2}, devices=["cpu"])
     with pytest.raises(MXNetError, match="needs 2 ranks"):
         _tiny_step(mesh=MeshConfig(dp=2))
     with pytest.raises(MXNetError, match="zero must be"):
         _tiny_step(zero=3)
-    with pytest.raises(MXNetError, match="slice 22"):
-        _tiny_step(param_specs={})
-    with pytest.raises(MXNetError, match="slice 22"):
-        _tiny_step().rebuild()
-    with pytest.raises(MXNetError, match="slice 22"):
+    specced = _tiny_step(param_specs={"weight": P("tp", None)})
+    assert specced.param_specs["weight"] == P("tp", None)
+    assert specced.param_specs["bias"] == P()
+    rs = onp.random.RandomState(1)
+    assert torch.isfinite(specced(rs.randn(4, 16).astype("float32"),
+                                  rs.randn(4).astype("float32")))
+    rebuilt = _tiny_step().rebuild()
+    assert rebuilt.mesh_config == MeshConfig() and rebuilt._n_step == 0
+    with pytest.raises(MXNetError, match="item 5"):
         _tiny_step().autotune()
-    with pytest.raises(MXNetError, match="slice 22"):
+    with pytest.raises(MXNetError, match="needs 2 ranks"):
         _tiny_step(mesh=make_mesh({"dp": 1, "pp": 2}, devices=["cpu"]))
     # ZeRO, accumulation, several updates a call and remat are this
     # slice's: each builds and takes its batch (the dp tests hold their

@@ -16,8 +16,10 @@ Cases: ``collectives`` (each collective on the inputs of
 :func:`coll_inputs`), ``kvstore`` (the dist stores, compression, the
 optimizer on the store, dist_async, Horovod, the Trainer over dist_sync),
 ``retry`` (an injected collective timeout on rank 0, retried to the exact
-sum) and ``dp`` (``ShardedTrainStep`` over dp for every spec in
-``<out>/dp_cases.json``, from the weights and data the test wrote).
+sum), ``dp`` (``ShardedTrainStep`` over dp for every spec in
+``<out>/dp_cases.json``, from the weights and data the test wrote) and
+``mesh`` (the composed layouts of ``<out>/mesh_cases.json``: tp, pp, sp
+steps, bundles across layouts, rebuild, ring attention, gpipe).
 """
 import json
 import os
@@ -632,12 +634,318 @@ def dp_bundles(out, world):
     ok("reference_bundle")
 
 
+
+# -- composed layouts: tp, pp, sp ---------------------------------------------
+
+def mesh_model(spec, out):
+    """The port's model of a composed-layout case from the test's initial
+    weights (the attention key projection's bias frozen, as the dp cases
+    freeze it: its gradient is zero in exact arithmetic)."""
+    from mxnet_tpu_torch.gluon import nn
+    model = spec["model"]
+    if model == "dense256":
+        net = nn.Dense(256, in_units=128, device="cpu")
+        net.initialize(seed=0)
+    elif model == "bert":
+        from mxnet_tpu_torch.gluon.model_zoo.bert import BERTForPretraining
+        net = BERTForPretraining(device="cpu", dropout=0.0,
+                                 embed_dropout=0.0, **BERT_CFG)
+        net.initialize(seed=0)
+    else:
+        net = dp_model(model)
+    tmx.functional.load_params(
+        net, dict(onp.load(os.path.join(out, f"init_{model}.npz"))))
+    return net
+
+
+BERT_CFG = dict(vocab_size=96, units=64, hidden_size=128, num_layers=2,
+                num_heads=4, max_length=32)
+
+
+def mesh_loss(model):
+    if model == "dense256":
+        return lambda o, t: ((o - t) ** 2).mean()
+    if model == "bert":
+        from mxnet_tpu_torch.ops.xent import sparse_softmax_xent
+
+        def loss(outputs, labels):
+            return sparse_softmax_xent(outputs[0], labels.long()).mean()
+        return loss
+    return dp_loss(model)
+
+
+def mesh_step(spec, out, cfg=None, **over):
+    """The port's ShardedTrainStep of a composed-layout case."""
+    from mxnet_tpu_torch.parallel import MeshConfig, P, ShardedTrainStep
+    net = mesh_model(spec, out)
+    if spec["model"] != "dense256":
+        for name, p in net.collect_params().items():
+            if "key_proj.bias" in name:
+                p.grad_req = "null"
+    cfg = cfg or MeshConfig(**spec["cfg"])
+    kw = {**spec.get("kw", {}), **over}
+    if "param_specs" in spec:
+        kw["param_specs"] = {k: P(*v) for k, v in
+                             spec["param_specs"].items()}
+    specs = [P(*s) for s in spec["batch_specs"]] if "batch_specs" in spec \
+        else cfg.batch_specs(2, 2)
+    return ShardedTrainStep(
+        net, mesh_loss(spec["model"]),
+        tmx.optimizer.create(spec["opt"], **spec.get("opt_kw", {})), cfg,
+        specs, **kw)
+
+
+def mesh_batches(spec, out):
+    data = onp.load(os.path.join(out, f"data_{spec['data']}.npz"))
+    n = len([k for k in data.files if k.startswith("b0_")])
+    return [tuple(data[f"b{i}_{j}"] for j in range(n))
+            for i in range(spec["steps"])]
+
+
+def state_bytes_rank(step):
+    """Bytes of optimizer state this rank holds."""
+    from mxnet_tpu_torch.parallel.train import _leaves
+    return sum(x.numel() * x.element_size()
+               for s in step.states.values() for x in _leaves(s))
+
+
+def canon(step):
+    return {f"canon/{k}": v for k, v in step.state_dict()["arrays"].items()}
+
+
+def run_mesh_case(spec, out):
+    counters = spec.get("counters")
+    if counters:
+        tmx.telemetry.enable()
+        tmx.telemetry.reset()
+    step = mesh_step(spec, out)
+    losses = [float(step(*b)) for b in mesh_batches(spec, out)]
+    params = step.block.collect_params()
+    others = [params[n].data() for n in params if not step._owned(n)]
+    res = {"losses": onp.asarray(losses, "float64"), **canon(step),
+           "state_bytes": onp.asarray(state_bytes_rank(step)),
+           # the other pp stages' layers: how many, and the storage they
+           # keep while the block is sharded
+           "other_stage": onp.asarray(
+               [len(others), sum(v.untyped_storage().nbytes()
+                                 for v in others),
+                sum(v.element_size() for v in others)])}
+    if counters:
+        for k, v in tmx.telemetry.counters().items():
+            if k.startswith(("zero.", "mesh.", "comm.")):
+                res[f"counter/{k}"] = onp.asarray(v)
+        tmx.telemetry.disable()
+    return step, res
+
+
+def case_mesh(out):
+    """Every case of ``<out>/mesh_cases.json`` whose world is this one."""
+    torch.set_num_threads(1)
+    world, rank = tmx.parallel.world_size(), tmx.parallel.rank()
+    with open(os.path.join(out, "mesh_cases.json")) as f:
+        cases = json.load(f)
+    for spec in cases:
+        if spec["world"] != world:
+            continue
+        kind = spec.get("kind", "step")
+        res = {"bundles": mesh_bundles, "rebuild": mesh_rebuild,
+               "ring": mesh_ring, "gpipe": mesh_gpipe,
+               "tp_fns": mesh_tp_fns,
+               "step": lambda s, o: run_mesh_case(s, o)[1]}[kind](spec, out)
+        save(out, spec["name"], res)
+        ok(spec["name"])
+    print(f"TORCH_DIST_OK mesh {rank}", flush=True)
+
+
+def _assert_same(a, b, what):
+    assert set(a) == set(b), (what, sorted(set(a) ^ set(b))[:4])
+    for k in a:
+        assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, \
+            (what, k)
+        assert onp.array_equal(a[k], b[k]), (what, k)
+
+
+def mesh_bundles(spec, out):
+    """Bundles across layouts (dp4 x tp2 zero 1 <-> dp2 x tp2 x pp2), the
+    JAX package's bundle, and TrainState over a composed step."""
+    from mxnet_tpu_torch.parallel import MeshConfig
+    bt = mesh_batches(spec, out)
+    a_cfg, b_cfg = MeshConfig(dp=4, tp=2), MeshConfig(dp=2, tp=2, pp=2)
+    a = mesh_step(spec, out, a_cfg, zero=1)
+    for b in bt[:2]:
+        a(*b)
+    f1 = os.path.join(out, "mesh_a.safetensors")
+    a.save_states(f1)
+    torch.distributed.barrier()
+    b = mesh_step(spec, out, b_cfg)
+    b.load_states(f1)
+    sa, sb = a.state_dict()["arrays"], b.state_dict()["arrays"]
+    _assert_same(sa, sb, "dp4tp2 -> dp2tp2pp2")
+    la = [float(a(*x)) for x in bt[2:4]]
+    lb = [float(b(*x)) for x in bt[2:4]]
+    f2 = os.path.join(out, "mesh_b.safetensors")
+    b.save_states(f2)
+    torch.distributed.barrier()
+    c = mesh_step(spec, out, a_cfg, zero=1)
+    c.load_states(f2)
+    _assert_same(b.state_dict()["arrays"], c.state_dict()["arrays"],
+                 "dp2tp2pp2 -> dp4tp2")
+    # TrainState carries a composed step
+    d = mesh_step(spec, out, b_cfg)
+    d(*bt[0])
+    path = os.path.join(out, "mesh_run.bundle")
+    st = tmx.resilience.TrainState(sharded_step=d, path=path)
+    st.step = 1
+    st.save()
+    torch.distributed.barrier()
+    e = mesh_step(spec, out, a_cfg, zero=1)
+    st2 = tmx.resilience.TrainState(sharded_step=e, path=path)
+    st2.load()
+    assert st2.step == 1 and e._n_step == 1
+    _assert_same(d.state_dict()["arrays"], e.state_dict()["arrays"],
+                 "TrainState")
+    # the JAX package's bundle (dp4 x tp2 zero 1 after 2 steps) into
+    # dp2 x tp2 x pp2, its canonical arrays bit for bit
+    ref = dict(onp.load(os.path.join(out, "ref_mesh_bundle.npz")))
+    n_step = int(ref.pop("__n_step__"))
+    f = mesh_step(spec, out, b_cfg)
+    f.load_reference_state_dict({"arrays": ref, "n_step": n_step})
+    got = f.state_dict()["arrays"]
+    for k, v in ref.items():
+        assert onp.array_equal(got[k], v), ("reference bundle", k)
+    lf = [float(f(*x)) for x in bt[2:4]]
+    return {"la": onp.asarray(la), "lb": onp.asarray(lb),
+            "lf": onp.asarray(lf), **{f"a/{k}": v for k, v in sa.items()}}
+
+
+def mesh_rebuild(spec, out):
+    """dp2 x tp2 x pp2 for two steps, rebuilt to dp4 x tp2, one more."""
+    from mxnet_tpu_torch.parallel import MeshConfig
+    bt = mesh_batches(spec, out)
+    a = mesh_step(spec, out, MeshConfig(dp=2, tp=2, pp=2))
+    losses = [float(a(*b)) for b in bt[:2]]
+    a.sync_to_block()
+    whole = dict(tmx.functional.param_arrays(a.block))
+    r = a.rebuild(MeshConfig(dp=4, tp=2))
+    assert r._n_step == 2 and r.mesh.shape["dp"] == 4
+    losses += [float(r(*b)) for b in bt[2:3]]
+    return {"losses": onp.asarray(losses), **canon(r),
+            **{f"whole/{k}": v for k, v in whole.items()}}
+
+
+def mesh_ring(spec, out):
+    """ring_attention's plain and kernel routes on this rank's block."""
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel.ring_attention import _kernels, _plain
+    routes = {"plain": _plain, "kernels": _kernels}
+    n = spec["sp"]
+    mesh = make_mesh({"sp": n}, devices=["cpu"])
+    data = dict(onp.load(os.path.join(out, "ring_inputs.npz")))
+    res = {}
+    if mesh.rank is None:
+        return res
+    r = mesh.rank
+    for causal in (False, True):
+        for route in ("plain", "kernels"):
+            ts = []
+            for key in ("q", "k", "v"):
+                full = torch.from_numpy(data[key])
+                s = full.shape[2] // n
+                ts.append(full[:, :, r * s:(r + 1) * s].clone()
+                          .requires_grad_())
+            o = routes[route](*ts, mesh, "sp", causal,
+                              1.0 / ts[0].shape[-1] ** 0.5)
+            cot = torch.from_numpy(data["cot"])
+            s = cot.shape[2] // n
+            (o * cot[:, :, r * s:(r + 1) * s]).sum().backward()
+            tag = f"{int(causal)}_{route}"
+            res[f"out_{tag}"] = o.detach().numpy()
+            for key, t in zip("qkv", ts):
+                res[f"d{key}_{tag}"] = t.grad.numpy()
+    return res
+
+
+def mesh_tp_fns(spec, out):
+    """parallel.tp's functions on a 2-layer MLP over tp = the world: the
+    output and the input's gradient as the whole MLP's, and unshard gives
+    back its weights bit for bit."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import make_mesh, tp
+    mesh = make_mesh({"tp": tmx.parallel.world_size()}, devices=["cpu"])
+
+    def mlp():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(256, in_units=128, activation="relu",
+                         device="cpu"),
+                nn.Dense(128, in_units=256, device="cpu"))
+        net.initialize(seed=3)
+        return net
+
+    x = torch.from_numpy(onp.random.RandomState(0).randn(4, 128)
+                         .astype("float32"))
+    res = {}
+    for how in ("column_row", "mlp", "auto"):
+        ref, net = mlp(), mlp()
+        if how == "column_row":
+            tp.shard_dense_column(net[0], mesh)
+            tp.shard_dense_row(net[1], mesh)
+        elif how == "mlp":
+            tp.shard_mlp(net[0], net[1], mesh)
+        else:
+            tp.auto_shard_block(net, mesh, tp_axis="tp")
+        assert all(m._tp is not None for m in (net[0], net[1])), how
+        outs = []
+        for m in (ref, net):
+            xi = x.clone().requires_grad_()
+            with tmx.autograd.record():
+                y = m(xi)
+            (y * torch.arange(128.0)).sum().backward()
+            outs.append((y.detach().numpy(), xi.grad.numpy()))
+        res[f"{how}/y"], res[f"{how}/dx"] = outs[1]
+        res[f"{how}/y_ref"], res[f"{how}/dx_ref"] = outs[0]
+        tp.unshard(net)
+        for a, b in zip(net.collect_params().values(),
+                        ref.collect_params().values()):
+            assert torch.equal(a.data(), b.data()), how
+    return res
+
+
+def mesh_gpipe(spec, out):
+    """gpipe over pp = the world: values and the stacked weights'
+    gradient (rank rows summed over pp), and the stage-count rejection."""
+    from mxnet_tpu_torch.parallel import (gpipe, make_mesh, shard_stages,
+                                          stack_stage_params)
+    from mxnet_tpu_torch.parallel import collectives as c
+    data = dict(onp.load(os.path.join(out, "gpipe_inputs.npz")))
+    S = tmx.parallel.world_size()
+    mesh = make_mesh({"pp": S}, devices=["cpu"])
+    ws = [{"w": torch.from_numpy(data[f"w{i}"])} for i in range(S)]
+    params = shard_stages(stack_stage_params(ws), mesh)
+    params["w"].requires_grad_()
+    xs = torch.from_numpy(data["xs"])
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"])
+
+    ys = gpipe(stage, params, xs, mesh)
+    ys.sum().backward()
+    grad = c.allreduce(params["w"].grad, mesh, "pp")
+    rejected = 0
+    try:
+        gpipe(lambda p, x: x @ p["w"], stack_stage_params(
+            [{"w": torch.ones(4, 4)} for _ in range(8)]),
+            torch.ones(2, 2, 4), mesh)
+    except ValueError as e:
+        rejected = int("pp axis size" in str(e))
+    return {"ys": ys.detach().numpy(), "grad": grad.numpy(),
+            "rejected": onp.asarray(rejected)}
+
 def main():
     case, out = sys.argv[1], sys.argv[2]
     with tmx.cpu():
         {"collectives": case_collectives, "kvstore": case_kvstore,
-         "retry": case_retry, "dp": case_dp}[case](out)
-    if case != "dp":
+         "retry": case_retry, "dp": case_dp, "mesh": case_mesh}[case](out)
+    if case not in ("dp", "mesh"):
         print(f"TORCH_DIST_OK {case} {tmx.parallel.rank()}", flush=True)
 
 
