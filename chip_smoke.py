@@ -592,6 +592,44 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``MeshConfig(tp=2, sp=2)`` without a mask (ring) and with
    ``valid_length`` (keys gathered), kernels 4-5 two a layer a
    rank-step. Phases 40-42 run all 12 layers.
+43. The elastic training fleet (``mx.fleet``) on four ranks sharing the
+   card (``--dp-rank fleet``): GPT-2 124M fp32 at all 12 layers, phase
+   42's batch (a different RandomState batch each step), SGD lr 0.01,
+   target ``MeshConfig(dp=2, tp=2)`` over 2 hosts of 2 ranks, a bundle
+   every step; ``fleet.host_loss`` at step 4 degrades to
+   ``MeshConfig(dp=1, tp=2)`` on ranks 0-1 (ranks 2-3 stranded: they make
+   the groups and step no more), ``restore_hosts()`` after step 6
+   re-expands, 8 steps. Each step's loss within 1e-5 of the uninterrupted
+   run at the target layout on the same ranks; every restore bit for bit
+   the bundle it read (``state_dict`` against the file); 1 degrade and 1
+   re-expand; kernels 1-3 12 launches a rank-step, 0 on the stranded
+   ranks while degraded. Per rank: the degrade and re-expand downtime
+   (rebuild + restore, s), goodput's ``restart`` badput, step ms at each
+   layout, bundle save s, peak GB.
+44. The serving fleet (``mx.servefleet``) in this process: 3 replicas of
+   phase 3's engine (GPT-2 124M fp32, max_slots 8, buckets 16-512) from
+   phase 3's seed, phase 3's 16 greedy requests each in its own session:
+   tokens equal phase 3's (or a tie the full forward shows), tokens/s,
+   TTFT and TPOT beside phase 3's single engine; kernel 1 12 launches a
+   full prefill inside the replicas' prefill graphs (each graph's
+   captured launches over its replays in a run of 16 prefills, the
+   profiler's device events of that run beside them); host calls and
+   host us a decode step with the fleet's gate on and off.
+   ``serve.replica_crash``: every request completes once with phase 3's
+   tokens, the dead replica's graphs and cache released. A rolling update
+   to phase 25's swap weights, published with ``publish_checkpoint`` and
+   their canary card: generation 1, 0 captures after warmup on every
+   replica, the fleet's tokens equal the card. A checkpoint whose canary
+   disagrees rolls back at the first replica and aborts. The crash frees
+   the dead replica's tensors (allocated memory falls by nine tenths of
+   an engine's or more); the sole replica crashes and is rebuilt: the
+   allocated memory comes back within a tenth of an engine's of the
+   one-replica reading, the reservation within one engine's reservation
+   (late in the script the caching allocator cannot return every freed
+   segment). ``serve.replica_stall``
+   (drain window 64, 3 tokens a request): one failover, every request
+   once with phase 3's first tokens, the late duplicates suppressed.
+   Reserved GB after each drill.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -5169,7 +5207,7 @@ def phase_gpt_np(dev, card):
                                  "bit_identical": same, "max_abs_diff": diff}}
 
 
-# -- phases 28-30: the host planes ---------------------------------------------
+# -- phases 28-30: the host planes --------------------------------------------
 
 #: the serving SLO objectives phase 28 arms (milliseconds)
 PLANE_SLO = {"serve.slo_ttft_ms": 2000.0, "serve.slo_tpot_ms": 200.0}
@@ -5595,7 +5633,7 @@ def phase_disabled_cost(dev, card):
     return out
 
 
-# -- the rest of training (phases 31-33) ----------------------------------------
+# -- the rest of training (phases 31-33) --------------------------------------
 
 #: GluonNLP's BERT pretraining optimizer (phase 31)
 LAMB_OPT = {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True}
@@ -6843,7 +6881,7 @@ def phase_surface(dev, card):
     print(f"phase 33 [{card}]: " + json.dumps(out))
     return out
 
-# -- phases 36-38: data parallel ------------------------------------------------
+# -- phases 36-38: data parallel ----------------------------------------------
 #
 # Phase 36 runs in this process; phases 37-38 start two ranks on the card
 # through tools/launch.py -n 2 --env MXTPU_DIST_DEVICE=cuda, each rank this
@@ -7388,7 +7426,7 @@ def phase_resnet_dp(dev, card, root, cfg):
             "launches": sum(r["launches"] for r in res)}
 
 
-# -- the rank side --------------------------------------------------------------
+# -- the rank side ------------------------------------------------------------
 
 def dp_equal_across_ranks(tensors):
     """Names of tensors that differ from rank 0's (rank 0 broadcasts)."""
@@ -7657,7 +7695,7 @@ def dp_rank_resnet(root, cfg):
             "peak_allocated_gb": dp_peak_gb(dev)}
 
 
-# -- phases 39-42: tensor, pipeline and sequence parallelism -------------------
+# -- phases 39-42: tensor, pipeline and sequence parallelism ------------------
 
 # ring attention on the card: b 8, h 12, s 1024 over sp 2 (512 a rank), d 64
 RING_B, RING_H, RING_S, RING_D = 8, 12, 1024, 64
@@ -7842,7 +7880,7 @@ def phase_mesh4(dev, card, root, cfg):
                          for i in range(5)]}
 
 
-# -- the rank side of phases 39-42 ---------------------------------------------
+# -- the rank side of phases 39-42 --------------------------------------------
 
 def mesh_rank_run(label, step, batches, one, params, start, dev,
                   update_names=None, want_launches=None):
@@ -8098,7 +8136,8 @@ def dp_nccl_probe():
 
 def dp_rank_main(kind, root):
     """A rank of phase 37 (``gpt``), 38 (``resnet``), 39 (``ring``), 40
-    (``gpt_mesh``), 41 (``gpt_pp``), 42 (``mesh4``) or the NCCL probe;
+    (``gpt_mesh``), 41 (``gpt_pp``), 42 (``mesh4``), 43 (``fleet``) or the
+    NCCL probe;
     writes ``<root>/<kind>_rank<r>.json``."""
     if kind == "nccl_probe":
         # the port is not imported: its import would join the gloo group
@@ -8111,8 +8150,8 @@ def dp_rank_main(kind, root):
     torch.backends.cudnn.allow_tf32 = False
     out = {"gpt": dp_rank_gpt, "resnet": dp_rank_resnet,
            "ring": dp_rank_ring, "gpt_mesh": dp_rank_gpt_mesh,
-           "gpt_pp": dp_rank_gpt_pp, "mesh4": dp_rank_mesh4}[kind](root,
-                                                                  cfg)
+           "gpt_pp": dp_rank_gpt_pp, "mesh4": dp_rank_mesh4,
+           "fleet": dp_rank_fleet}[kind](root, cfg)
     with open(os.path.join(root, f"{kind}_rank{mx.parallel.rank()}.json"),
               "w") as f:
         json.dump(out, f)
@@ -8122,6 +8161,583 @@ def dp_rank_main(kind, root):
     for label, row in out.get("runs", {}).items():
         print(f"rank {mx.parallel.rank()} {label}: {json.dumps(row)}",
               flush=True)
+
+
+# -- phases 43-44: the elastic fleets -----------------------------------------
+#
+# Phase 43 starts four ranks on the card (``--dp-rank fleet``): GPT-2 124M
+# fp32 at all 12 layers under ``FleetSupervisor`` (``mx.fleet``), the
+# reference drill's schedule at full width. Phase 44 runs in this process:
+# ``ServeFleet`` (``mx.servefleet``) over replicas of phase 3's engine.
+
+#: the drill's schedule (tests/test_fleet.py:292-335): 8 steps, host 1
+#: lost at step 4, the hosts back after step 6; plain SGD 0.01
+FLEET_STEPS, FLEET_LOSS_AT, FLEET_RESTORE_AFTER = 8, 4, 6
+FLEET_SGD = {"learning_rate": 0.01}
+#: each step's loss against the uninterrupted run at the target layout,
+#: absolute: the reference drill's bound (tests/test_fleet.py:331)
+FLEET_LOSS_TOL = 1e-5
+#: phase 44: replicas of phase 3's engine, the stall deadline of its stall
+#: drill and the tokens a stalled request asks for (small, so the wedged
+#: replica's dispatched work holds finished requests when it is drained)
+SERVE_FLEET_REPLICAS, SERVE_STALL_DEADLINE, SERVE_STALL_NEW = 3, 0.5, 3
+#: the live tensors after a sole replica's crash-and-rebuild cycle, over
+#: those with that one replica before it: the rebuilt replica's own plus
+#: at most a tenth of one engine's (the dead one's are all freed). The
+#: reservation is held to less than one engine's more: late in the
+#: script the caching allocator cannot return every freed segment (on one
+#: H100: 0.8 GB reserved with 0.2 GB allocated before the phase)
+SERVE_FLEET_MEM_SLACK = 0.1
+
+
+def fleet_batch(cfg, s):
+    """The global batch of drill step ``s``: batch x seq + 1 tokens from
+    RandomState(1000 + s), a different batch each step (a replay after a
+    rollback must feed the same one)."""
+    ids = onp.random.RandomState(1000 + s).randint(
+        0, cfg["vocab"], (cfg["batch"], cfg["seq"] + 1))
+    return ids[:, :-1].astype(onp.int64), ids[:, 1:].astype(onp.int64)
+
+
+def _bundle_equal(step, path):
+    """Whether ``step``'s canonical state equals the TrainState bundle at
+    ``path`` bit for bit (collective over the step's ranks)."""
+    import pickle
+    with open(path, "rb") as f:
+        want = pickle.loads(f.read())["sharded_step"]
+    got = step.state_dict()
+    return got["n_step"] == want["n_step"] and set(got["arrays"]) == set(
+        want["arrays"]) and all(
+        onp.array_equal(got["arrays"][k], want["arrays"][k])
+        for k in want["arrays"])
+
+
+def phase_gpt_fleet(dev, card, root, cfg):
+    """Phase 43: the training fleet drill on four ranks sharing the card."""
+    print(f"== phase 43: GPT-2 124M fp32 ({cfg['layers']} layers) under "
+          f"mx.fleet.FleetSupervisor on four ranks sharing {card}: target "
+          f"MeshConfig(dp=2, tp=2), 2 hosts of 2 ranks, checkpoint every "
+          f"step, fleet.host_loss at step {FLEET_LOSS_AT} -> "
+          f"MeshConfig(dp=1, tp=2) on ranks 0-1 (ranks 2-3 stranded), "
+          f"restore_hosts() after step {FLEET_RESTORE_AFTER} -> re-expand, "
+          f"{FLEET_STEPS} steps of batch {cfg['batch']} x seq {cfg['seq']}, "
+          f"SGD {FLEET_SGD}, against the uninterrupted run at the target "
+          "layout", flush=True)
+    res, wall = dp_world(root, "fleet", 4)
+    return {"ranks": res, "launch_seconds": wall,
+            "launches": [sum(r["launches"][i] for r in res)
+                         for i in range(3)]}
+
+
+def dp_rank_fleet(root, cfg):
+    """Phase 43's rank: the oracle at the target layout, then the drill."""
+    import warnings
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.fleet import FleetSupervisor
+    from mxnet_tpu_torch.parallel import MeshConfig, ShardedTrainStep
+    dev = mx.parallel.rank_device()
+    rank, world = mx.parallel.rank(), mx.parallel.world_size()
+    check(world == 4, f"rank {rank}: world {world}, expected 4")
+    target, L = MeshConfig(dp=2, tp=2), cfg["layers"]
+
+    def make_step():
+        return ShardedTrainStep(
+            dp_gpt_net(dev, cfg), dp_loss,
+            mx.optimizer.create("sgd", **FLEET_SGD), target,
+            target.batch_specs(2, 2))
+
+    # the uninterrupted run at the target layout
+    step = make_step()
+    oracle = {s: float(step(*fleet_batch(cfg, s)))
+              for s in range(1, FLEET_STEPS + 1)}
+    del step
+    dp_peak_reset(dev)
+
+    # instruments: each step's ms by layout, each bundle save's seconds
+    times, saves, marks, transitions = {}, [], [], []
+    call, save = ShardedTrainStep.__call__, mx.resilience.TrainState.save
+
+    def timed_call(self, *batch):
+        dp_sync(dev)
+        t0 = time.perf_counter()
+        out = call(self, *batch)
+        dp_sync(dev)
+        times.setdefault(f"dp{self.dp} x tp{self.tp}", []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_save(self, *a, **k):
+        t0 = time.perf_counter()
+        out = save(self, *a, **k)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    class Drill(FleetSupervisor):
+        def _restore(self):
+            t0 = time.perf_counter()
+            super()._restore()
+            dp_sync(dev)
+            self._restore_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self._bitwise = (None if self.stranded else
+                             _bundle_equal(self.step, self.state.path))
+            self._check_s = time.perf_counter() - t1
+
+        def _apply(self, cfg_, kind):
+            dp_sync(dev)
+            t0 = time.perf_counter()
+            super()._apply(cfg_, kind)
+            dp_sync(dev)
+            total = time.perf_counter() - t0
+            transitions.append({
+                "kind": kind, "layout": [cfg_.dp, cfg_.tp, cfg_.pp, cfg_.sp],
+                "stranded": self.stranded, "step": self.state.step,
+                "downtime_s": total - self._check_s,
+                "restore_s": self._restore_s,
+                "restored_bit_for_bit": self._bitwise,
+                "launches_at": other_counters()[:3]})
+
+    def batch_fn(s):
+        marks.append((s, other_counters()[:3]))
+        return fleet_batch(cfg, s)
+
+    ShardedTrainStep.__call__ = timed_call
+    mx.resilience.TrainState.save = timed_save
+    try:
+        zero_all_counters()
+        dp_peak_reset(dev)
+        mx.goodput.enable()
+        step = make_step()
+        state = mx.resilience.TrainState(
+            path=os.path.join(root, "fleet.bundle"), sharded_step=step)
+        sup = Drill(step, state, n_hosts=2, checkpoint_every=1)
+        del step
+        mx.fault.configure(f"fleet.host_loss:at={FLEET_LOSS_AT},times=1")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the degraded mesh strands 2
+            losses = sup.run(batch_fn, FLEET_RESTORE_AFTER)
+            degraded = [sup.current.dp, sup.current.tp, sup.current.pp,
+                        sup.current.sp]
+            stranded = sup.stranded
+            sup.restore_hosts()
+            losses.update(sup.run(batch_fn, FLEET_STEPS))
+        dp_sync(dev)
+        end = other_counters()[:3]
+        mx.fault.clear()
+        restart_s = mx.goodput.summary()["buckets"].get("restart", 0.0)
+        mx.goodput.disable()
+        peak = dp_peak_gb(dev)
+        losses = {s: float(v) for s, v in losses.items()}
+    finally:
+        ShardedTrainStep.__call__ = call
+        mx.resilience.TrainState.save = save
+    check(sup.degrades == 1 and sup.reexpands == 1,
+          f"rank {rank}: {sup.degrades} degrades, {sup.reexpands} "
+          "re-expands, expected 1 and 1")
+    # each computed step's launches (a batch_fn call to the next, or to
+    # the end), and those while the layout strands ranks 2-3
+    nexts = [c for _, c in marks[1:]] + [end]
+    per_step = {s: [b - a for a, b in zip(c, n)]
+                for (s, c), n in zip(marks, nexts)}
+    deg, rex = transitions
+    window = [b - a for a, b in zip(deg["launches_at"], rex["launches_at"])]
+    want_steps = ([1, 2, 3, 7, 8] if rank >= 2
+                  else list(range(1, FLEET_STEPS + 1)))
+    check(degraded == [1, 2, 1, 1] and stranded == (rank >= 2),
+          f"rank {rank}: degraded to {degraded}, stranded {stranded}")
+    check(sorted(losses) == want_steps,
+          f"rank {rank}: computed steps {sorted(losses)}, expected "
+          f"{want_steps}")
+    gaps = {s: abs(losses[s] - oracle[s]) for s in losses}
+    check(max(gaps.values()) < FLEET_LOSS_TOL,
+          f"rank {rank}: losses {losses} vs the uninterrupted run {oracle} "
+          f"(bound {FLEET_LOSS_TOL})")
+    for t in transitions:
+        check(t["stranded"] or t["restored_bit_for_bit"],
+              f"rank {rank}: the {t['kind']} restore is not bit for bit "
+              "the bundle")
+    check(dev.type != "cuda" or all(v == [L] * 3 for v in per_step.values()),
+          f"rank {rank}: launches a step {per_step}, expected {L} each")
+    check(dev.type != "cuda" or window == ([0] * 3 if rank >= 2 else
+                                           [3 * L] * 3),
+          f"rank {rank}: launches while ranks 2-3 are stranded {window}")
+    return {"rank": rank, "backend": mx.parallel.backend(),
+            "oracle_losses": oracle, "losses": losses,
+            "max_loss_gap": max(gaps.values()), "degraded_layout": degraded,
+            "stranded_while_degraded": stranded,
+            "transitions": transitions,
+            "step_ms_median": {k: float(onp.median(v))
+                               for k, v in times.items()},
+            "step_ms": times, "bundle_save_s": saves,
+            "goodput_restart_s": restart_s, "peak_allocated_gb": peak,
+            "launches_per_step": per_step,
+            "launches_while_degraded": window,
+            "launches": end}
+
+
+def fleet_ttft_tpot(fleet, since):
+    """TTFT and TPOT p50 (ms) over the replicas' requests completed past
+    ``since`` ({rid: completed count})."""
+    reqs = [r for rep in fleet._replicas.values()
+            for r in rep.engine._completed[since.get(rep.rid, 0):]]
+    ttft = [r.ttft for r in reqs if r.ttft is not None]
+    tpot = [r.tpot for r in reqs if r.tpot is not None]
+    return (float(onp.percentile(ttft, 50)) * 1e3,
+            float(onp.percentile(tpot, 50)) * 1e3)
+
+
+def fleet_run(fleet, prompts, n_new, prefix, **submit):
+    """Submit every prompt in its own session, run the fleet to the end:
+    (fleet requests, synchronized wall seconds, completions before)."""
+    since = {rep.rid: len(rep.engine._completed)
+             for rep in fleet._replicas.values()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frs = [fleet.submit(p, max_new_tokens=n_new, session=f"{prefix}{i}",
+                        key=f"{prefix}{i}", **submit)
+           for i, p in enumerate(prompts)]
+    fleet.run()
+    torch.cuda.synchronize()
+    return frs, time.perf_counter() - t0, since
+
+
+def fleet_tokens_check(label, net, dev, prompts, frs, base, n_new):
+    """Every request completed once, with phase 3's greedy tokens (or a
+    tie the full forward shows): the count equal."""
+    equal = 0
+    for fr, p, b in zip(frs, prompts, base):
+        check(fr.done and len(fr.tokens) == n_new,
+              f"{label}: {fr.key} done={fr.done} with "
+              f"{len(fr.tokens or [])} tokens")
+        equal += fr.tokens == b[:n_new]
+        same_or_tie(net, dev, p, fr.tokens, b[:n_new], SERVE_VOCAB,
+                    f"{label} {fr.key}")
+    return equal
+
+
+def decode_host_us(eng, prompts, steps=24):
+    """Host microseconds a decode step with every slot live (the calls
+    dispatch graph replays; no sync inside the timed loop)."""
+    reqs = [eng.submit(p, max_new_tokens=steps + 8)
+            for p in prompts[:eng.max_slots]]
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    host = (time.perf_counter() - t0) / steps * 1e6
+    eng.run()
+    check(all(r.finished for r in reqs), "host-cost requests unfinished")
+    return host
+
+
+@contextlib.contextmanager
+def graph_launch_ledger():
+    """Within: each serve-engine graph records the kernel-1 launches its
+    capture recorded (the wrapper counts a launch under capture, a replay
+    runs no wrapper), and every replay of a prefill graph adds them to the
+    yielded ``{"replays": n, "flash": n}``: kernel 1's launches inside the
+    replayed graphs, counted without the profiler's device events."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.serve import engine as _engine
+    capture, call = _engine._Step.capture, _engine._Step.__call__
+    ledger = {"replays": 0, "flash": 0, "per_graph": set()}
+
+    def counted_capture(self, *args, **kwargs):
+        before = fa.flash_attention_fwd.launches
+        capture(self, *args, **kwargs)
+        self._flash_nodes = fa.flash_attention_fwd.launches - before
+        if self.n_in:
+            ledger["per_graph"].add(self._flash_nodes)
+
+    def counted_call(self, host=None):
+        if self.graph is not None and self.n_in:
+            ledger["replays"] += 1
+            ledger["flash"] += self._flash_nodes
+        return call(self, host)
+
+    _engine._Step.capture = counted_capture
+    _engine._Step.__call__ = counted_call
+    try:
+        yield ledger
+    finally:
+        _engine._Step.capture = capture
+        _engine._Step.__call__ = call
+
+
+def card_gb():
+    """(allocated, reserved) GB once the caching allocator has returned
+    its free segments."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_allocated() / 1e9,
+            torch.cuda.memory_reserved() / 1e9)
+
+
+def reserved_gb():
+    """The caching allocator's reservation (GB), its free segments
+    returned."""
+    return card_gb()[1]
+
+
+def phase_serve_fleet(dev, card, root, prompts, base, serve_row):
+    """Phase 44: ``ServeFleet`` over replicas of phase 3's engine."""
+    from mxnet_tpu_torch import servefleet
+    print(f"== phase 44: mx.servefleet.ServeFleet of "
+          f"{SERVE_FLEET_REPLICAS} replicas of phase 3's engine (GPT-2 "
+          f"124M fp32, max_slots 8, every step a CUDA graph) on {card}: "
+          "phase 3's 16 greedy requests, one session each; crash and stall "
+          "failover, a rolling update with a canary, a bad canary, a sole "
+          "replica's crash-and-rebuild", flush=True)
+    base_gb = card_gb()
+    with graph_launch_ledger() as ledger:
+        fleet = servefleet.ServeFleet(lambda: serve_net(dev),
+                                      replicas=SERVE_FLEET_REPLICAS,
+                                      min_replicas=1, max_slots=8)
+        return phase_serve_fleet_drills(dev, card, root, prompts, base,
+                                        serve_row, fleet, base_gb, ledger)
+
+
+def phase_serve_fleet_drills(dev, card, root, prompts, base, serve_row,
+                             fleet, base_gb, ledger):
+    """Phase 44's drills on ``fleet`` (its graphs in ``ledger``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import servefleet
+    out = {}
+    n_new = SERVE_NEW_TOKENS
+    built = card_gb()
+    out["reserved_gb"] = {"before": base_gb[1], "built": built[1]}
+    #: one replica's live tensors and reservation, from the fleet's build
+    n = len(fleet._replicas)
+    engine_alloc = (built[0] - base_gb[0]) / n
+    engine_res = (built[1] - base_gb[1]) / n
+    # the full forward of the tie checks: phase 3's weights, a model of its
+    # own (a replica's would outlive its release)
+    ref_net = serve_net(dev)
+    frs, wall, since = fleet_run(fleet, prompts, n_new, "t")
+    ttft, tpot = fleet_ttft_tpot(fleet, since)
+    equal = fleet_tokens_check("fleet", ref_net, dev, prompts, frs, base,
+                               n_new)
+    tokens = sum(len(fr.tokens) for fr in frs)
+    out["e2e"] = {"tokens_per_s": tokens / wall, "ttft_p50_ms": ttft,
+                  "tpot_p50_ms": tpot, "wall_s": wall,
+                  "tokens_equal_phase3": equal,
+                  "replicas_used": len({fr.replica_id for fr in frs}),
+                  "phase3_single_engine": {
+                      k: serve_row[k] for k in ("tokens_per_s",
+                                                "ttft_p50_ms",
+                                                "tpot_p50_ms", "wall_s")}}
+    print(f"fleet e2e [{card}]: " + json.dumps(out["e2e"]))
+    # kernel 1 inside the replicas' prefill graphs: each prefill graph's
+    # captured launches over its replays in a run of 16 full prefills,
+    # and the profiler's device events of the same run (which the
+    # profiler can drop now and then: printed, held only above 0)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    check(ledger["per_graph"] == {N_LAYERS},
+          f"fleet: prefill graphs hold {ledger['per_graph']} kernel-1 "
+          f"launches, expected {N_LAYERS} each")
+    r0, f0 = ledger["replays"], ledger["flash"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fleet_run(fleet, prompts, 1, "p")
+    events = sum("flash_fwd" in e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    replays, flash = ledger["replays"] - r0, ledger["flash"] - f0
+    print(f"  profiled fleet run: {replays} prefill graph replays holding "
+          f"{flash} kernel-1 launches, {events} flash forward kernel "
+          "events from the profiler")
+    check(replays == len(prompts) and flash == N_LAYERS * len(prompts)
+          and events > 0,
+          f"fleet: {replays} prefills, {flash} kernel-1 launches in them, "
+          f"{events} device events; expected {len(prompts)} and "
+          f"{N_LAYERS} x {len(prompts)}")
+    out["flash_fwd_launches"] = flash
+    out["flash_fwd_events"] = events
+    # the hook's cost: host calls and host us a decode step, the module
+    # gate on (a fleet runs) and off, in turns
+    eng = fleet._live()[0].engine
+    calls_on = decode_launch_calls(eng, prompts)
+    servefleet._active = False
+    calls_off = decode_launch_calls(eng, prompts)
+    host = {"on": [], "off": []}
+    for on in (True, False, False, True):
+        servefleet._active = on
+        host["on" if on else "off"].append(decode_host_us(eng, prompts))
+    servefleet._active = True
+    out["decode_step"] = {"host_calls_gate_on": calls_on,
+                          "host_calls_gate_off": calls_off,
+                          "host_us_gate_on": host["on"],
+                          "host_us_gate_off": host["off"]}
+    print(f"decode step [{card}]: " + json.dumps(out["decode_step"]))
+
+    # crash failover: serve.replica_crash two ticks on
+    pre = card_gb()
+    mx.telemetry.enable()
+    mx.telemetry.reset()
+    mx.fault.configure(f"serve.replica_crash:at={fleet._tick + 2}")
+    frs, _, _ = fleet_run(fleet, prompts, n_new, "c")
+    mx.fault.clear()
+    cnt = mx.telemetry.counters(aggregate=True)
+    equal = fleet_tokens_check("crash", ref_net, dev, prompts, frs, base,
+                               n_new)
+    dead = [r for r in fleet._replicas.values() if r.state == "dead"]
+    check(len(dead) == 1 and cnt.get("servefleet.failovers_total") == 1,
+          f"crash: {len(dead)} dead replicas, counters {cnt}")
+    check(cnt.get("servefleet.completed_total") == len(prompts)
+          and cnt.get("servefleet.duplicates_suppressed_total", 0) == 0,
+          f"crash: not exactly once: {cnt}")
+    post = card_gb()
+    check(dead[0].engine._exe == {} and dead[0].engine._cache is None
+          and post[0] <= pre[0] - (1 - SERVE_FLEET_MEM_SLACK) * engine_alloc,
+          f"crash: the dead replica was not released: {pre[0]:.3f} -> "
+          f"{post[0]:.3f} GB allocated ({engine_alloc:.3f} GB an engine)")
+    out["crash"] = {"redispatched": cnt.get("servefleet.redispatched_total"),
+                    "tokens_equal_phase3": equal,
+                    "allocated_gb": [pre[0], post[0]],
+                    "reserved_gb": [pre[1], post[1]]}
+    print(f"crash drill [{card}]: " + json.dumps(out["crash"]))
+
+    # rolling update to phase 25's swap weights, published with their card
+    other = serve_net(dev, seed=2)
+    scratch = mx.serve.load(other, max_slots=8).warmup()
+    canary_prompts = [list(map(int, p)) for p in prompts[:2]]
+    card_new = servefleet.canary_card(scratch, canary_prompts, tokens=8)
+    t0 = time.perf_counter()
+    ckpt = servefleet.publish_checkpoint(
+        os.path.join(root, "ckpt"),
+        {n: p.data() for n, p in other.collect_params().items()},
+        canary=card_new, step=1)
+    publish_s = time.perf_counter() - t0
+    del scratch, other
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, canary = servefleet.load_checkpoint(ckpt)
+    load_s = time.perf_counter() - t0
+    graphs = {r.rid: r.engine.compiles for r in fleet._live()}
+    t0 = time.perf_counter()
+    report = fleet.rolling_update(params, canary=canary)
+    roll_s = time.perf_counter() - t0
+    live = fleet._live()
+    check(not report["rolled_back"] and report["generation"] == 1
+          and sorted(report["updated"]) == sorted(r.rid for r in live),
+          f"rolling update: {report}")
+    check(all(r.generation == 1 and r.engine.post_warmup_compiles == 0
+              and r.engine.compiles == graphs[r.rid] for r in live),
+          "rolling update: a replica captured a graph or missed the "
+          "generation")
+    frs, _, _ = fleet_run(fleet, canary_prompts, 8, "g")
+    check([fr.tokens for fr in frs] == card_new["expected"],
+          "rolling update: the fleet's tokens differ from the canary card")
+    out["rolling_update"] = {
+        "report": report, "publish_s": publish_s, "load_s": load_s,
+        "rollout_s": roll_s, "post_warmup_captures": [
+            r.engine.post_warmup_compiles for r in live],
+        "canaries_equal": True, "reserved_gb": reserved_gb()}
+    del live
+    print(f"rolling update [{card}]: " + json.dumps(out["rolling_update"]))
+    # a checkpoint whose canary disagrees (the original weights, the new
+    # weights' card): rolled back at the first replica, the rollout aborted
+    orig = serve_net(dev)
+    bad = servefleet.publish_checkpoint(
+        os.path.join(root, "ckpt_bad"),
+        {n: p.data() for n, p in orig.collect_params().items()},
+        canary=card_new, step=2)
+    del orig
+    params, canary = servefleet.load_checkpoint(bad)
+    report = fleet.rolling_update(params, canary=canary)
+    check(report["rolled_back"] and "canary diverged" in report["reason"]
+          and report["updated"] == [] and fleet._generation == 1,
+          f"bad canary: {report}")
+    check(all(r.generation == 1 and r.engine.post_warmup_compiles == 0
+              for r in fleet._live()), "bad canary: a replica left gen 1")
+    frs, _, _ = fleet_run(fleet, canary_prompts, 8, "b")
+    check([fr.tokens for fr in frs] == card_new["expected"],
+          "bad canary: the fleet does not serve the kept generation")
+    out["bad_canary"] = {"rolled_back": True, "replica": report["replica"],
+                         "reserved_gb": reserved_gb()}
+    print(f"bad canary [{card}]: " + json.dumps(out["bad_canary"]))
+    del params, canary, ref_net, eng
+    fleet.close()
+    del fleet
+    torch.cuda.empty_cache()
+    out["reserved_gb"]["closed"] = reserved_gb()
+
+    # the sole replica crashes and is rebuilt: its memory comes back
+    bare = card_gb()
+    fleet = servefleet.ServeFleet(lambda: serve_net(dev), replicas=1,
+                                  min_replicas=1, max_slots=8)
+    one = card_gb()
+    mx.telemetry.reset()
+    mx.fault.configure("serve.replica_crash:at=2")
+    frs, _, _ = fleet_run(fleet, prompts[:8], n_new, "s")
+    mx.fault.clear()
+    cnt = mx.telemetry.counters(aggregate=True)
+    after = card_gb()
+    rebuilt = fleet._live()[0]
+    equal = fleet_tokens_check("sole", rebuilt.engine.model, dev,
+                               prompts[:8], frs, base, n_new)
+    check(sorted(r.state for r in fleet._replicas.values())
+          == ["dead", "live"] and cnt.get("servefleet.completed_total") == 8,
+          f"sole replica: {cnt}")
+    engine_alloc = one[0] - bare[0]
+    check(after[0] <= one[0] + SERVE_FLEET_MEM_SLACK * engine_alloc,
+          f"sole replica: {after[0]:.3f} GB allocated after the crash-and-"
+          f"rebuild, {one[0]:.3f} GB with the one replica "
+          f"({engine_alloc:.3f} GB an engine)")
+    check(after[1] < one[1] + engine_res,
+          f"sole replica: {after[1]:.3f} GB reserved after the crash-and-"
+          f"rebuild, {one[1]:.3f} GB with the one replica "
+          f"({engine_res:.3f} GB an engine's reservation)")
+    out["sole_crash"] = {"allocated_gb": {"before": bare[0], "one": one[0],
+                                          "after_rebuild": after[0]},
+                         "reserved_gb": {"before": bare[1], "one": one[1],
+                                         "after_rebuild": after[1]},
+                         "engine_allocated_gb": engine_alloc,
+                         "engine_reserved_gb": engine_res,
+                         "tokens_equal_phase3": equal}
+    print(f"sole replica crash [{card}]: " + json.dumps(out["sole_crash"]))
+    fleet.close()
+    del fleet, rebuilt
+    torch.cuda.empty_cache()
+
+    # stall failover: the wedged replica's dispatched work drains after its
+    # requests re-dispatched; the late duplicates are suppressed
+    mx.config.set("servefleet.stall_deadline", SERVE_STALL_DEADLINE)
+    fleet = servefleet.ServeFleet(lambda: serve_net(dev), replicas=2,
+                                  min_replicas=1, max_slots=8,
+                                  drain_window=64)
+    mx.telemetry.reset()
+    mx.fault.configure("serve.replica_stall:at=4")
+    frs = [fleet.submit(p, max_new_tokens=SERVE_STALL_NEW, session=f"w{i}")
+           for i, p in enumerate(prompts)]
+    fleet.run(tick_interval=0.01)
+    for _ in range(400):
+        if not any(r.engine.pending for r in fleet._live()):
+            break
+        fleet.step()
+    mx.fault.clear()
+    cnt = mx.telemetry.counters(aggregate=True)
+    equal = sum(fr.tokens == b[:SERVE_STALL_NEW]
+                for fr, b in zip(frs, base))
+    check(all(fr.done for fr in frs) and equal == len(prompts),
+          f"stall: {equal} of {len(prompts)} requests with phase 3's tokens")
+    check(cnt.get("servefleet.completed_total") == len(prompts)
+          and cnt.get("servefleet.failovers_total") == 1
+          and cnt.get("servefleet.duplicates_suppressed_total", 0) >= 1,
+          f"stall: {cnt}")
+    out["stall"] = {k.split(".")[1]: v for k, v in cnt.items()
+                    if k.startswith("servefleet.")}
+    out["stall"]["reserved_gb"] = reserved_gb()
+    print(f"stall drill [{card}]: " + json.dumps(out["stall"]))
+    fleet.close()
+    mx.config.reset("servefleet.stall_deadline")
+    mx.telemetry.disable()
+    del fleet
+    torch.cuda.empty_cache()
+    return out
 
 
 def conv_entry(errs, rows, launches, per_shape, bf16_launches,
@@ -8481,7 +9097,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     # phases 23-25 serve phase 3's model again (the same seed, so the same
-    # weights) and compare with phase 3's tokens
+    # weights) and compare with phase 3's tokens; phase 44 too
+    base_tokens = [r.generated for r in base_reqs]
     net = serve_net(dev)
     serve_quant = timed("23", phase_serve_quantized, dev, card, net, prompts,
                         serve_e2e_row)
@@ -8536,6 +9153,9 @@ def main():
         gpt_mesh = timed("40", phase_gpt_mesh, dev, card, root, cfg)
         gpt_pp = timed("41", phase_gpt_pp, dev, card, root, cfg)
         mesh4 = timed("42", phase_mesh4, dev, card, root, cfg)
+        gpt_fleet = timed("43", phase_gpt_fleet, dev, card, root, cfg)
+        serve_fleet = timed("44", phase_serve_fleet, dev, card, root,
+                            prompts, base_tokens, serve_e2e_row)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -8687,6 +9307,20 @@ def main():
                 r["launches"][i] if i < len(r["launches"]) else 0
                 for r in e2e["ranks"]]
             entry["launches"] += n
+    # phases 43-44, the elastic fleets: every rank's wrapper counts in the
+    # training drill (the uninterrupted run at the target layout apart),
+    # and the kernel-1 launches inside the serving fleet's prefill graphs
+    # replayed in its profiled run
+    for i, entry in enumerate(entries):
+        drill = gpt_fleet["launches"][i] if i < 3 else 0
+        served = serve_fleet["flash_fwd_launches"] if i == 0 else 0
+        entry["launches_by_path"].update(
+            gpt_fleet_drill_train=drill,
+            gpt_fleet_drill_train_by_rank=[
+                r["launches"][i] if i < 3 else 0
+                for r in gpt_fleet["ranks"]],
+            serve_fleet=served)
+        entry["launches"] += drill + served
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -8721,7 +9355,9 @@ def main():
                       "ring_sp2_card": ring,
                       "gpt_tp2_sp2_train": gpt_mesh,
                       "gpt_pp2_accum2_train": gpt_pp,
-                      "gpt_dp2_tp2_bert_tp2_sp2_train": mesh4}))
+                      "gpt_dp2_tp2_bert_tp2_sp2_train": mesh4,
+                      "gpt_fleet_drill_train": gpt_fleet,
+                      "serve_fleet": serve_fleet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -53,6 +53,12 @@ ranks, and import joins them into a ``torch.distributed`` group
 stores under ``gluon.Trainer``, and ``parallel.ShardedTrainStep`` over
 ``dp`` with ZeRO-1/2, accumulation, remat and compressed gradients run
 over it, and BatchNorm takes the global batch's statistics there.
+
+Elastic fleets: ``fleet`` (heartbeat leases, ``plan_layout``, the
+``FleetSupervisor`` that degrades a ``ShardedTrainStep`` to a smaller
+layout on a host loss and re-expands when it returns) and ``servefleet``
+(replicas of one ``ServeEngine`` behind a rendezvous router: exactly-once
+failover, rolling weight updates with canaries, SLO scaling).
 """
 from ._dist_init import ensure_distributed as _ensure_distributed
 
@@ -71,6 +77,7 @@ from . import kvstore as kv
 from . import numpy_extension as npx
 from . import optimizer, parallel, random, serve, test_utils, util
 from . import image, io, recordio, resilience, stream
+from . import fleet, servefleet
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, device, gpu,
                       num_gpus, resolve_device, tpu)
@@ -80,12 +87,12 @@ __version__ = "2.0.0a1"
 
 __all__ = ["Context", "MXNetError", "amp", "autograd", "blackbox", "config",
            "context", "contrib", "cpu", "cpu_pinned", "current_context",
-           "device", "dlpack", "fault", "functional", "gluon", "goodput",
-           "gpu", "image", "init", "initializer", "insight", "io", "kv",
-           "kvstore", "log", "lr_scheduler",
+           "device", "dlpack", "fault", "fleet", "functional", "gluon",
+           "goodput", "gpu", "image", "init", "initializer", "insight", "io",
+           "kv", "kvstore", "log", "lr_scheduler",
            "np", "npx", "num_gpus", "optimizer", "parallel", "pipeline",
            "profiler", "random", "recordio", "resilience",
-           "resolve_device", "serve", "stream", "telemetry",
+           "resolve_device", "serve", "servefleet", "stream", "telemetry",
            "test_utils", "tpu", "trace", "util", "waitall"]
 
 if config.get("profiler.autostart"):

@@ -4,8 +4,9 @@ Own, trimmed copy of ``mxnet_tpu/config.py``: the same registry mechanics
 (declare / get / set / reset / knobs / describe, env aliases) carrying
 only the knobs the ported slices read, with the JAX package's defaults
 and env names. The host planes' knobs (profiler, fault, telemetry, trace,
-insight, blackbox, goodput and the serve engine's SLO and health knobs)
-are the reference's declarations as they stand there.
+insight, blackbox, goodput, the serve engine's SLO and health knobs,
+``fleet.*`` and ``servefleet.*``) are the reference's declarations as they
+stand there.
 """
 from __future__ import annotations
 
@@ -317,6 +318,27 @@ declare("fleet.lease_dir", str, "", "MXNET_FLEET_LEASE_DIR",
         "of the mx.fleet health plane ('' = coordination-service only). "
         "Every host renews host-<rank>.lease there; peers whose lease "
         "age exceeds fleet.lease_timeout are treated as lost.")
+declare("fleet.lease_interval", float, 1.0, "MXNET_FLEET_LEASE_INTERVAL",
+        "Seconds between heartbeat-lease renewals published by the "
+        "mx.fleet health plane's background thread.")
+declare("fleet.lease_timeout", float, 5.0, "MXNET_FLEET_LEASE_TIMEOUT",
+        "Lease age (seconds) past which a peer host counts as lost: the "
+        "fleet supervisor re-plans the mesh over the survivors. Keep "
+        "comfortably above fleet.lease_interval.")
+declare("fleet.step_deadline", float, 0.0, "MXNET_FLEET_STEP_DEADLINE",
+        "Wall-clock budget (seconds) for one training step before the "
+        "fleet watchdog treats the host as wedged and escalates a "
+        "structured WorkerLost (0 = watchdog off; stragglers are gauged "
+        "at fleet.slow_fraction of the deadline either way).")
+declare("fleet.slow_fraction", float, 0.5, "MXNET_FLEET_SLOW_FRACTION",
+        "Fraction of fleet.step_deadline past which a host counts as a "
+        "straggler (fleet.stragglers gauge) while still making progress "
+        "— slow, not wedged.")
+declare("fleet.min_dp", int, 1, "MXNET_FLEET_MIN_DP",
+        "Floor on the data-parallel axis the degrade planner may shrink "
+        "to after host loss; when no surviving layout reaches it the "
+        "supervisor parks (fleet.parked gauge) and waits for capacity "
+        "instead of training on a uselessly small mesh.")
 declare("insight.enable", bool, False, "MXNET_INSIGHT",
         "Master switch for the mx.insight attribution plane (XLA cost "
         "capture, live MFU/roofline gauges, step-time drift detection, "
@@ -455,3 +477,43 @@ declare("serve.phase_sampling", int, 64, "MXNET_SERVE_PHASE_SAMPLING",
         "(queue_wait/prefill/decode_step) kept for stats()['phases'] "
         "without the tracer armed; 0 restores the trace-only "
         "behaviour (one attribute read on the disabled path).")
+declare("servefleet.min_replicas", int, 1, "MXNET_SERVEFLEET_MIN_REPLICAS",
+        "Floor on live serving replicas a mx.servefleet group may drop "
+        "to: rolling weight updates take replicas out one at a time "
+        "only while the rest stay at or above this floor, and the "
+        "scale-in path refuses to drain below it.")
+declare("servefleet.max_replicas", int, 0, "MXNET_SERVEFLEET_MAX_REPLICAS",
+        "Ceiling the SLO-driven scale-out path may grow a mx.servefleet "
+        "group to (unparking parked replicas first, then building new "
+        "engines); 0 caps at the replica count the fleet was "
+        "constructed with.")
+declare("servefleet.stall_deadline", float, 2.0,
+        "MXNET_SERVEFLEET_STALL_DEADLINE",
+        "Seconds a replica's engine may sit with pending work and no "
+        "decode-step progress before the fleet supervisor declares it "
+        "stalled and fails its requests over to the survivors (the "
+        "serve.replica_stall drill drives this path).")
+declare("servefleet.scale_patience", int, 3,
+        "MXNET_SERVEFLEET_SCALE_PATIENCE",
+        "Consecutive supervisor ticks an SLO burn-rate breach (scale "
+        "out) or an occupancy-floor underrun (scale in) must persist "
+        "before mx.servefleet acts — and the cooldown ticks after an "
+        "action before it will act again.")
+declare("servefleet.occupancy_floor", float, 0.25,
+        "MXNET_SERVEFLEET_OCCUPANCY_FLOOR",
+        "Mean slot occupancy across live replicas below which the "
+        "mx.servefleet autoscaler drains and parks one replica "
+        "(never below servefleet.min_replicas).")
+declare("servefleet.canary_tokens", int, 8,
+        "MXNET_SERVEFLEET_CANARY_TOKENS",
+        "Greedy tokens generated per pinned canary prompt when a "
+        "rolling weight update validates a replica's freshly loaded "
+        "checkpoint before returning it to the router; divergence "
+        "from the checkpoint's canary card triggers auto-rollback.")
+declare("servefleet.ledger_retain", int, 1024,
+        "MXNET_SERVEFLEET_LEDGER_RETAIN",
+        "Completed requests the mx.servefleet exactly-once ledger keeps "
+        "(most recent first) to absorb duplicate client submits of an "
+        "already-finished idempotency key; older completions are "
+        "evicted so a long-running fleet's memory and per-tick sweep "
+        "stay bounded.  In-flight requests are never evicted.")

@@ -44,8 +44,10 @@ package): the ledger, claims, burn rates, ``healthz`` and the snapshot
 files are the reference's. The port feeds it from the Trainer's
 ``trainer.step_seconds``, the serve engine's ``serve.step_seconds`` and
 drain bracket, and capture times (``cached_graph.compile_seconds``);
-``mx.fleet``, which publishes the snapshots on its heartbeat, is not
-ported yet.
+``mx.fleet`` publishes the snapshots on its heartbeat, brackets a
+degrade or re-expand as ``restart`` and a park as ``parked``, and sets the
+capacity ratio; ``mx.servefleet`` brackets each replica's rolling update
+as ``rollover``.
 """
 from __future__ import annotations
 

@@ -68,10 +68,14 @@ unpadded, so a bundle moves bit for bit between layouts, world sizes,
 ZeRO levels and the two packages (:meth:`load_reference_state_dict`).
 :meth:`sync_to_block` makes the block whole again (every layer current on
 every rank); the next call shards it again. :meth:`rebuild` constructs the
-step around another ``MeshConfig``. With telemetry on, each call feeds the
-reference's ``zero.*``, ``mesh.*`` and ``comm.*`` counters with its
-logical arithmetic. ``autotune`` needs ``mx.autotune`` (ROADMAP Queue 1,
-item 5) and raises.
+step around another ``MeshConfig``. On a layout smaller than the world the
+ranks past it are ``stranded``: their step makes the layout's groups (a
+collective over the world) and holds nothing else, and a call, a
+``state_dict`` or a bundle on it raises; :meth:`rebuild` onto a layout
+that holds the rank makes a step that trains. With telemetry on, each
+call feeds the reference's ``zero.*``, ``mesh.*`` and ``comm.*`` counters
+with its logical arithmetic. ``autotune`` needs ``mx.autotune`` (ROADMAP
+Queue 1, item 5) and raises.
 
 Dropout: each rank draws from its own device's default generator, which
 ``mx.random.seed(s)`` seeds alike on every rank; tensor-parallel ranks
@@ -345,7 +349,11 @@ class ShardedTrainStep:
         self.tp = int(mesh.shape.get("tp", 1))
         self.pp = int(mesh.shape.get("pp", 1))
         self.sp = int(mesh.shape.get("sp", 1))
-        self.rank = int(mesh.rank or 0)
+        #: this process outside a layout smaller than the world: it made
+        #: the layout's groups (collective over the world) and takes part
+        #: in nothing else of it
+        self.stranded = mesh.rank is None
+        self.rank = None if self.stranded else int(mesh.rank)
         self._act_rules = (self.mesh_config.activation_rules()
                            if self.mesh_config is not None else {})
         if _blackbox._active and self.mesh_config is not None:
@@ -401,6 +409,13 @@ class ShardedTrainStep:
         self._remat_arg = remat
         self._remat_policy = resolve_remat_policy(remat)
         self._remat_on = self._remat_policy is not _REMAT_OFF
+        self.fopt = FunctionalOptimizer(optimizer)
+        self._sharded = False
+        self._n_step = 0
+        if self.stranded:
+            # the block stays whole and unsharded; rebuild() onto a layout
+            # that holds this rank makes a step that trains
+            return
 
         all_params = block.collect_params()
         held = [n for n, m in block.named_modules()
@@ -440,7 +455,6 @@ class ShardedTrainStep:
         # -- tensor parallelism: blocks and roles ---------------------------
         #: {name: (dim, role kind)} of the parameters held as tp blocks
         self._tp_layout = {}
-        self._sharded = False
         self._shard_block()
 
         #: trainable parameters this rank holds and updates (its stage's
@@ -455,7 +469,6 @@ class ShardedTrainStep:
         self._pp_rep = [n for n in self.params
                         if self._plan is not None
                         and self._plan.owner(n) is None]
-        self.fopt = FunctionalOptimizer(optimizer)
 
         # -- ZeRO: flat padded shards, and ZeRO×TP for tp blocks ------------
         if self.zero and dp_axis not in mesh.shape:
@@ -559,9 +572,23 @@ class ShardedTrainStep:
         # reference's shard_map does
         self._grad_scale = 1.0 / (self.dp * self.sp) \
             if self._compress == "none" else 1.0
-        self._n_step = 0
 
     # -- layout ----------------------------------------------------------------
+    def _member(self, what):
+        """Raise where this rank is stranded (outside the layout): it takes
+        part in no step, state or bundle collective of it."""
+        if not self.stranded:
+            return
+        from .mesh import _world
+        world, rank = _world()
+        layout = self.mesh_config if self.mesh_config is not None else \
+            self.mesh.shape
+        used = math.prod(int(v) for v in self.mesh.shape.values())
+        raise MXNetError(
+            f"rank {rank} is stranded: {layout} uses ranks 0-{used - 1} of "
+            f"a world of {world}, so this rank takes part in no {what} of "
+            "it; rebuild() the step onto a layout that holds it")
+
     def _owned(self, name):
         return self._plan is None or self._plan.owner(name) in (
             None, self._stage)
@@ -1028,6 +1055,7 @@ class ShardedTrainStep:
     def __call__(self, *batch):
         """Run ``steps_per_call`` updates; returns the loss (the mean over
         the ranks and the call's updates) as a 0-d tensor on the device."""
+        self._member("training step")
         lead = int(self.steps_per_call > 1) + int(self.grad_accum > 1)
         specs = list(self.batch_specs) + [None] * (len(batch)
                                                    - len(self.batch_specs))
@@ -1155,6 +1183,7 @@ class ShardedTrainStep:
             for batch in step.prefetch(loader):
                 loss = step(*batch)
         """
+        self._member("prefetch")
         from .. import pipeline as _pipeline
         lead = int(self.steps_per_call > 1) + int(self.grad_accum > 1)
         specs = self.batch_specs
@@ -1287,6 +1316,7 @@ class ShardedTrainStep:
         pp stage's layers brought from their owner, ZeRO shards gathered,
         un-padded and reshaped, the residuals summed over the ranks), so a
         bundle saved at one layout restores bit for bit at another."""
+        self._member("state_dict")
         arrays = {}
         for n in self._train_names:
             w = self.params.get(n)
@@ -1335,6 +1365,7 @@ class ShardedTrainStep:
         """Restore from a canonical bundle (this package's ``state_dict``
         or the reference's): values re-cut per THIS step's tp blocks, pp
         stage, dp size and ZeRO level."""
+        self._member("load_state_dict")
         arrays = bundle["arrays"]
         self._shard_block()
 
@@ -1381,6 +1412,7 @@ class ShardedTrainStep:
         states, fp8 histories, residuals, the update count) at any
         layout: checks that every array this step holds is in it with its
         shape, then loads it."""
+        self._member("load_reference_state_dict")
         arrays = bundle["arrays"]
         want = self.state_dict_keys()
         missing = sorted(k for k in want if k not in arrays)
@@ -1396,6 +1428,7 @@ class ShardedTrainStep:
 
     def state_dict_keys(self):
         """{canonical key: shape} of what :meth:`state_dict` writes."""
+        self._member("state_dict_keys")
         out = {f"trainable/{n}": self._shapes[n] for n in self._train_names}
         out.update({f"aux/{n}": self._shapes[n] for n in self._aux_names})
         for n in self._train_names:
@@ -1413,6 +1446,7 @@ class ShardedTrainStep:
         safetensors file in the canonical layout (reference:
         ``save_states``): every rank calls it (the gathers are
         collective); rank 0 writes."""
+        self._member("save_states")
         from .. import serialization
         bundle = self.state_dict()
         if self.rank != 0:
@@ -1425,6 +1459,7 @@ class ShardedTrainStep:
 
     def load_states(self, fname):
         """Resume from ``save_states`` (at any layout or ZeRO level)."""
+        self._member("load_states")
         from .. import serialization
         loaded, meta = serialization.load_safetensors(
             fname, return_metadata=True)

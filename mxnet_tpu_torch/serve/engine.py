@@ -90,6 +90,7 @@ from .. import insight as _insight
 from .. import pipeline as _pipeline
 from .. import profiler as _profiler
 from .. import random as _random
+from .. import servefleet as _servefleet
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from ..base import MXNetError
@@ -1301,6 +1302,8 @@ class ServeEngine:
         else:
             sink = self._decode_sink(live)
         self._steps += 1
+        if _servefleet._active:
+            _servefleet.note_step(self)
         if _telemetry._active:
             _telemetry.inc("serve.steps_total")
             _telemetry.observe("serve.step_seconds", dt)
@@ -1450,6 +1453,28 @@ class ServeEngine:
         """Roll back to weights returned by :meth:`update_weights` (copied
         into the live tensors, as a swap is)."""
         self._write_weights(old)
+        return self
+
+    def _release(self):
+        """Give back the card memory of an engine that serves no more (a
+        fleet replica declared dead, its failover done): the graphs and
+        their memory pool, the KV caches, the state and the weights go,
+        what was dispatched and not fetched is dropped, and the caching
+        allocator returns its free blocks. The request records (the queue
+        and the slots' requests) stay."""
+        self._stopping = True
+        self._exe.clear()
+        self._window = _EmitWindow(1)
+        self._pool = self._stream = None
+        self._cache = self._draft_cache = None
+        self._state = {}
+        self._params = ({}, {})
+        self.model = self.draft = None
+        self._draft_params = None
+        _telemetry.unregister_health(self._health_name)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
         return self
 
     def resume(self):

@@ -7,8 +7,8 @@ recompilation detector, event ring, readers, ops endpoint and
 ``allocated_bytes.all.peak``) and the card's size
 (``torch.cuda.mem_get_info``), host-side, with no synchronization; with no
 card it returns ``{}``, as the reference does on the CPU. ``/servefleet``
-answers as the reference does while no servefleet runs (``servefleet`` is
-not ported yet). Run reports carry no autotune or static-analysis plane:
+serves ``servefleet.endpoint_report()``. Run reports carry no autotune or
+static-analysis plane:
 those modules are not ported yet, and the reference leaves both out while
 they hold nothing. A "compile" of a hybridized block or a serve bucket is
 a CUDA-graph capture here (on the CPU: the first call of a signature).
@@ -818,9 +818,8 @@ def serve_http(port=None):
                 self._send(200, json.dumps(_goodput.endpoint_report()),
                            "application/json")
             elif url.path == "/servefleet":
-                # what the reference's servefleet answers while no fleet
-                # group runs (servefleet is not ported yet)
-                self._send(200, json.dumps({"active": False, "fleets": []}),
+                from . import servefleet as _servefleet
+                self._send(200, json.dumps(_servefleet.endpoint_report()),
                            "application/json")
             elif url.path == "/postmortem":
                 from . import blackbox as _blackbox

@@ -19,7 +19,11 @@ optimizer on the store, dist_async, Horovod, the Trainer over dist_sync),
 sum), ``dp`` (``ShardedTrainStep`` over dp for every spec in
 ``<out>/dp_cases.json``, from the weights and data the test wrote) and
 ``mesh`` (the composed layouts of ``<out>/mesh_cases.json``: tp, pp, sp
-steps, bundles across layouts, rebuild, ring attention, gpipe).
+steps, bundles across layouts, rebuild, ring attention, gpipe),
+``stranded`` (a step on a layout smaller than the world: the ranks past
+it raise, then rebuild and restore), ``fleet`` (the elastic degrade drill
+under ``FleetSupervisor``) and ``fleet_lease`` (a host lost by its lease,
+agreed across the ranks), all from ``<out>/fleet_init.npz``.
 """
 import json
 import os
@@ -42,7 +46,7 @@ def save(out, case, arrays):
     onp.savez(os.path.join(out, f"{case}_w{world}_r{rank}.npz"), **arrays)
 
 
-# -- the test side: start a world, collect it ----------------------------------
+# -- the test side: start a world, collect it ---------------------------------
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -158,7 +162,7 @@ def fused_train(net, kvstore, x, y, batch):
             for n, p in net.collect_params().items()}
 
 
-# -- collectives ----------------------------------------------------------------
+# -- collectives --------------------------------------------------------------
 
 def case_collectives(out):
     n, r = tmx.parallel.world_size(), tmx.parallel.rank()
@@ -205,7 +209,7 @@ def case_collectives(out):
     ok("collectives")
 
 
-# -- the dist stores ------------------------------------------------------------
+# -- the dist stores ----------------------------------------------------------
 
 def check_eq(arr, expect, what):
     got = arr.numpy() if isinstance(arr, torch.Tensor) else arr.asnumpy()
@@ -461,7 +465,7 @@ def case_retry(out):
     ok("retry_given_up")
 
 
-# -- ShardedTrainStep over dp ----------------------------------------------------
+# -- ShardedTrainStep over dp -------------------------------------------------
 
 def dp_loss(model):
     if model in ("gpt", "gpt_fp8"):
@@ -940,11 +944,242 @@ def mesh_gpipe(spec, out):
     return {"ys": ys.detach().numpy(), "grad": grad.numpy(),
             "rejected": onp.asarray(rejected)}
 
+# -- elastic fleets: stranded ranks and the degrade drill ---------------------
+
+def fleet_batch(seed):
+    """The reference drill's batch of step ``seed``
+    (tests/test_fleet.py:259-263)."""
+    rs = onp.random.RandomState(seed)
+    x = rs.randint(0, 64, size=(8, 8)).astype(onp.int32)
+    y = rs.randint(0, 64, size=(8, 8)).astype(onp.int32)
+    return x, y
+
+
+def fleet_step(out, cfg):
+    """The drill's GPT (vocab 64, 16 units, 2 layers, 2 heads, seq 8) under
+    SGD 0.01 at ``cfg``, started from the JAX package's step-0 bundle."""
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+    step = ShardedTrainStep(
+        dp_model("gpt"), dp_loss("gpt"),
+        tmx.optimizer.create("sgd", learning_rate=0.01), cfg,
+        cfg.batch_specs(2, 2))
+    if step.mesh.rank is not None:   # a rank the layout holds
+        ref = dict(onp.load(os.path.join(out, "fleet_init.npz")))
+        n_step = int(ref.pop("__n_step__"))
+        step.load_reference_state_dict({"arrays": ref, "n_step": n_step})
+    return step
+
+
+def _bundle_equal(step, path):
+    """Whether ``step``'s canonical state equals the TrainState bundle at
+    ``path`` bit for bit (collective over the step's ranks)."""
+    import pickle
+    with open(path, "rb") as f:
+        want = pickle.loads(f.read())["sharded_step"]
+    got = step.state_dict()
+    return got["n_step"] == want["n_step"] and set(got["arrays"]) == set(
+        want["arrays"]) and all(
+        onp.array_equal(got["arrays"][k], want["arrays"][k])
+        and got["arrays"][k].dtype == want["arrays"][k].dtype
+        for k in want["arrays"])
+
+
+def case_stranded(out):
+    """``ShardedTrainStep`` on ``MeshConfig(dp=1, tp=2)`` in a world of 4:
+    ranks 0-1 train two steps and save a bundle; ranks 2-3 are stranded,
+    and each call into their step (a step, ``state_dict``,
+    ``load_state_dict``, ``TrainState.save``) raises naming the rank. Then
+    all four rebuild onto dp2 x tp2, restore the bundle bit for bit and
+    take step 3."""
+    import warnings
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel import MeshConfig
+    torch.set_num_threads(1)
+    rank = tmx.parallel.rank()
+    path = os.path.join(out, "stranded.bundle")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # 2 of 4 ranks stranded
+        step = fleet_step(out, MeshConfig(dp=1, tp=2))
+    state = tmx.resilience.TrainState(path=path, sharded_step=step)
+    # outside the layout by the mesh alone (what the step makes of it is
+    # what this case checks)
+    stranded = step.mesh.rank is None
+    res = {"stranded": onp.asarray(int(stranded)),
+           "flag": onp.asarray(int(getattr(step, "stranded", False)))}
+    if stranded:
+        errors = []
+        for fn in (lambda: step(*fleet_batch(1)), step.state_dict,
+                   lambda: step.load_state_dict({"arrays": {}}),
+                   state.save):
+            try:
+                fn()
+                errors.append("")
+            except MXNetError as e:
+                errors.append(str(e))
+        res["errors"] = onp.asarray(errors)
+        losses = []
+    else:
+        losses = [float(step(*fleet_batch(s))) for s in (1, 2)]
+        state.step = 2
+        state.save()
+    big = step.rebuild(MeshConfig(dp=2, tp=2), sync=False)
+    torch.distributed.barrier()
+    state = tmx.resilience.TrainState(path=path, sharded_step=big)
+    state.load()
+    res["restored_bitwise"] = onp.asarray(int(_bundle_equal(big, path)))
+    res["restored_step"] = onp.asarray(state.step)
+    losses.append(float(big(*fleet_batch(3))))
+    res["losses"] = onp.asarray(losses, "float64")
+    save(out, "stranded", res)
+    ok(f"stranded_{int(stranded)}_{rank}")
+
+
+def case_fleet(out):
+    """The reference's degrade drill (tests/test_fleet.py:292-335) on 8
+    ranks: dp2 x tp2 x pp2 over 2 hosts of 4 ranks, ``fleet.host_loss`` at
+    step 4 (host 1, ranks 4-7, stranded by dp1 x tp2 x pp2 on ranks 0-3),
+    the hosts restored after step 6, the re-expand, 8 steps. Each restore
+    is checked against the bundle it read, bit for bit."""
+    import warnings
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.fleet import FleetSupervisor
+    from mxnet_tpu_torch.parallel import MeshConfig
+    torch.set_num_threads(1)
+    rank = tmx.parallel.rank()
+    restores = []
+
+    class Checked(FleetSupervisor):
+        def _restore(self):
+            super()._restore()
+            if not self.stranded:
+                restores.append(int(_bundle_equal(self.step,
+                                                  self.state.path)))
+            else:
+                restores.append(-1)
+
+    cfg = MeshConfig(dp=2, tp=2, pp=2)
+    step = fleet_step(out, cfg)
+    state = tmx.resilience.TrainState(
+        path=os.path.join(out, "fleet_run.bundle"), sharded_step=step)
+    tmx.telemetry.enable()
+    tmx.telemetry.reset()
+    tmx.fault.configure("fleet.host_loss:at=4,times=1")
+    res = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the degraded mesh strands 4 of 8
+        sup = Checked(step, state, n_hosts=2, checkpoint_every=1)
+        losses = sup.run(fleet_batch, 6)
+        res["degraded_layout"] = onp.asarray(
+            [sup.current.dp, sup.current.tp, sup.current.pp, sup.current.sp])
+        res["stranded_mid"] = onp.asarray(int(sup.stranded))
+        res["step_mid"] = onp.asarray(state.step)
+        if sup.stranded:
+            try:
+                sup.step(*fleet_batch(7))
+                res["stranded_call"] = onp.asarray("")
+            except MXNetError as e:
+                res["stranded_call"] = onp.asarray(str(e))
+        sup.restore_hosts()
+        losses.update(sup.run(fleet_batch, 8))
+    tmx.fault.clear()
+    counts = tmx.telemetry.counters(aggregate=True)
+    res.update({
+        "steps": onp.asarray(sorted(losses)),
+        "losses": onp.asarray([float(losses[s]) for s in sorted(losses)],
+                              "float64"),
+        "degrades": onp.asarray(sup.degrades),
+        "reexpands": onp.asarray(sup.reexpands),
+        "final_layout": onp.asarray([sup.current.dp, sup.current.tp,
+                                     sup.current.pp, sup.current.sp]),
+        "restores": onp.asarray(restores),
+        "counter_degrades": onp.asarray(counts.get("fleet.degrades_total",
+                                                   0)),
+        "counter_reexpands": onp.asarray(
+            counts.get("fleet.reexpands_total", 0))})
+    save(out, "fleet", res)
+    ok(f"fleet_{rank}")
+
+
+def case_fleet_lease(out):
+    """A host lost by its lease on 4 ranks: dp2 x tp2 over 2 hosts, every
+    rank a health plane (rank = its host); from step 3 host 1's planes
+    publish a lease already past ``fleet.lease_timeout``. Whichever rank
+    sees it first, the max all-reduce of each probe makes every rank lose
+    host 1 in the same probe: one degrade to dp1 x tp2 on ranks 0-1, the
+    bundle restored bit for bit; host 1 renews again, the hosts return,
+    the mesh re-expands."""
+    import json
+    import time
+    import warnings
+    from mxnet_tpu_torch.fleet import FleetSupervisor, HealthPlane
+    from mxnet_tpu_torch.parallel import MeshConfig
+    torch.set_num_threads(1)
+    rank = tmx.parallel.rank()
+    host = rank // 2
+    stale = {"on": False}
+
+    class Plane(HealthPlane):
+        def beat(self, step=None):
+            if not stale["on"]:
+                return super().beat(step)
+            self.note_step(step or 0)
+            path = self._lease_path(self.rank)
+            with open(f"{path}.tmp.{os.getpid()}", "w") as f:
+                f.write(json.dumps({"rank": self.rank, "step": self._step,
+                                    "time": time.time() - 60.0}))
+            os.replace(f"{path}.tmp.{os.getpid()}", path)
+            return True
+
+    lost_at = []
+
+    class Sup(FleetSupervisor):
+        def lose_host(self, h):
+            if h not in self._lost:
+                lost_at.append(self.state.step + 1)
+            super().lose_host(h)
+
+    def batch_fn(s):
+        stale["on"] = host == 1 and 3 <= s < 6
+        return fleet_batch(s)
+
+    cfg = MeshConfig(dp=2, tp=2)
+    step = fleet_step(out, cfg)
+    state = tmx.resilience.TrainState(
+        path=os.path.join(out, "fleet_lease.bundle"), sharded_step=step)
+    plane = Plane(rank=host, nprocs=2, lease_dir=os.path.join(out, "leases"),
+                  timeout=5.0)
+    plane.beat(step=0)
+    torch.distributed.barrier()   # every host's first lease is on disk
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sup = Sup(step, state, n_hosts=2, checkpoint_every=1, health=plane)
+        losses = sup.run(batch_fn, 6)
+        degraded = [sup.current.dp, sup.current.tp, sup.current.pp,
+                    sup.current.sp]
+        stale["on"] = False
+        plane.beat(step=6)
+        torch.distributed.barrier()   # host 1's lease is fresh again
+        sup.restore_hosts()
+        losses.update(sup.run(batch_fn, 8))
+    plane.stop()
+    save(out, "fleet_lease", {
+        "lost_at": onp.asarray(lost_at), "degraded_layout": onp.asarray(
+            degraded),
+        "degrades": onp.asarray(sup.degrades),
+        "reexpands": onp.asarray(sup.reexpands),
+        "steps": onp.asarray(sorted(losses)),
+        "losses": onp.asarray([float(losses[s]) for s in sorted(losses)],
+                              "float64")})
+    ok(f"fleet_lease_{rank}")
+
+
 def main():
     case, out = sys.argv[1], sys.argv[2]
     with tmx.cpu():
         {"collectives": case_collectives, "kvstore": case_kvstore,
-         "retry": case_retry, "dp": case_dp, "mesh": case_mesh}[case](out)
+         "retry": case_retry, "dp": case_dp, "mesh": case_mesh,
+         "stranded": case_stranded, "fleet": case_fleet,
+         "fleet_lease": case_fleet_lease}[case](out)
     if case not in ("dp", "mesh"):
         print(f"TORCH_DIST_OK {case} {tmx.parallel.rank()}", flush=True)
 
