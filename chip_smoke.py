@@ -630,6 +630,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    (drain window 64, 3 tokens a request): one failover, every request
    once with phase 3's first tokens, the late duplicates suppressed.
    Reserved GB after each drill.
+45. The ``npx`` operator tail: each new op (56: the elementwise, mask,
+   indexing, sequence, shape, loss, cast, interleaved-attention and
+   detection ops and the control flow) on ``cuda:0`` against its CPU
+   result (values within rtol 1e-5 + atol 1e-5 of max |cpu|, index
+   outputs equal); the samplers on the card (2^20 draws: shape, dtype,
+   device, mean and std within 0.01 of the distribution's);
+   ``npx.rnn``'s cuDNN route against its plain loop in every mode, 1-2
+   layers, both directions, at the LM's shapes (35 x 20 x 650), forward
+   and backward (max |diff| within 1e-4 of max |plain|, gradients 5e-4;
+   fp32, TF32 off), and the routes of bf16 (plain), fp16, the state clip
+   (plain) and a capturing stream (cuDNN, as eager);
+   ``npx.multi_head_attention`` at BERT-base width (8 x 512, 12 heads x
+   64), causal and not, fp32 and bf16, forward and backward against the
+   plain composition (2e-4 / 2e-2 of max |plain|), one kernel 1, 2 and 3
+   launch a call (the kernels line's ``npx_multi_head_attention``), and
+   the call's ms beside the composition's.
+46. The "medium" LSTM language model of Zaremba et al. 2014 as a
+   ``gluon.Block`` (Embedding 10000 x 650 -> Dropout -> ``rnn.LSTM(650,
+   2)`` -> Dropout -> Dense 10000, untied, dropout 0, Uniform(0.05) from a
+   seed, 19.78M parameters), batch 20 x bptt 35 of seeded token ids, SGD
+   1.0, ``clip_global_norm`` 5 (on the summed gradients: 5 x 700), the
+   hidden state carried and detached: eager on the cuDNN route, eager on
+   the plain loop (cuDNN off) and hybridized (cuDNN inside the CUDA
+   graphs), each from the same weights. First loss about ln 10000; the
+   routes' first losses within 1e-5 relative (the first three within
+   1e-4); hybridized bit for bit with eager. Per run: step ms (median of
+   6), device ms and busy share (2 profiled steps), host launch calls a
+   step, peak GB, tokens/s, routes taken.
 
 The line before the last is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -9008,6 +9036,505 @@ def kernel_entry(kind, launches, errs, rows, extra=None):
     return entry
 
 
+# -- phases 45-46: the operator tail and recurrent networks ------------------
+
+#: the npx.rnn comparisons: cuDNN against the plain loop, max |diff| as a
+#: share of max |plain| (outputs and states; gradients), fp32, TF32 off
+RNN_TOL, RNN_GRAD_TOL = 1e-4, 5e-4
+#: the attention entry against the plain composition at BERT-base width,
+#: max |diff| as a share of max |plain| (fp32 3xTF32 kernels; bf16)
+MHA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+MHA_SHAPE = (8, 512, 12, 64)   # batch, seq, heads, head dim
+#: the LSTM language model: Zaremba, Sutskever & Vinyals 2014, "medium"
+LM_VOCAB, LM_UNITS, LM_LAYERS = 10000, 650, 2
+LM_BATCH, LM_BPTT, LM_LR, LM_CLIP = 20, 35, 1.0, 5.0
+LM_STEPS = 6        # timed steps of each run
+LM_LOSS_TOL = 1e-5  # first loss, cuDNN route against the plain loop
+LM_ROUTE_TOL = 1e-4  # the first 3 losses, cuDNN against the plain loop
+
+
+def share_err(got, want):
+    """max |got - want| over max |want| (float64), 0 for an all-zero
+    want."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale else err
+
+
+def tail_cases(mx, rs):
+    """(name, function of the npx module, host inputs) of the new ops at
+    small shapes (the CPU parity tests' shapes); a case runs inside the
+    context whose arrays it makes."""
+    x = rs.randn(3, 4, 5).astype("float32")
+    pos = (rs.rand(3, 4, 5) + 0.2).astype("float32")
+    unit = (rs.rand(3, 4, 5) * 1.8 - 0.9).astype("float32")
+    mask = rs.rand(3, 4, 5) > 0.3
+    ties = onp.array([[1., 3., 3., 2., 3.], [0., 0., -1., 0., 2.]],
+                     "float32")
+    idx = onp.array([[0, 2, -1, 5], [1, 0, 3, -4]], "int32")
+    img = rs.randn(2, 8, 4, 6).astype("float32")
+    seq = rs.randn(5, 3, 2).astype("float32")
+    ln = onp.array([5, 2, 3], "int32")
+    qkv = rs.randn(6, 2, 24).astype("float32")
+    boxes = rs.rand(2, 6, 4).astype("float32")
+    boxes[..., 2:] += boxes[..., :2]
+    nms = onp.concatenate([rs.randint(0, 2, (2, 6, 1)),
+                           rs.rand(2, 6, 1).round(1), boxes], -1) \
+        .astype("float32")
+    label = onp.array([[[1, 0.1, 0.1, 0.4, 0.4], [0, 0.5, 0.5, 0.9, 0.8],
+                        [-1, -1, -1, -1, -1]]] * 2, "float32")
+    feat = onp.zeros((2, 3, 4, 4), "float32")
+    cls = rs.randn(2, 3, 64).astype("float32")
+    prob = rs.dirichlet(onp.ones(3), (2, 64)).transpose(0, 2, 1) \
+        .astype("float32")
+    loc = (rs.randn(2, 256) * 0.1).astype("float32")
+
+    def anchors(n):
+        return n.multibox_prior(mx.np.array(feat), sizes=(0.3, 0.5),
+                                ratios=(1, 2, .5))
+    return [
+        ("relu", lambda n, a: n.relu(*a), [x]),
+        ("sigmoid", lambda n, a: n.sigmoid(*a), [x]),
+        ("rsqrt", lambda n, a: n.rsqrt(*a), [pos]),
+        ("rcbrt", lambda n, a: n.rcbrt(*a), [x]),
+        ("erf", lambda n, a: n.erf(*a), [x]),
+        ("erfinv", lambda n, a: n.erfinv(*a), [unit]),
+        ("gamma", lambda n, a: n.gamma(*a), [pos * 3]),
+        ("gammaln", lambda n, a: n.gammaln(*a), [pos * 3]),
+        ("digamma", lambda n, a: n.digamma(*a), [pos * 3]),
+        ("softmin", lambda n, a: n.softmin(*a, axis=1), [x]),
+        ("masked_softmax", lambda n, a: n.masked_softmax(*a), [x, mask]),
+        ("masked_log_softmax", lambda n, a: n.masked_log_softmax(*a),
+         [x, mask]),
+        ("l2_normalization", lambda n, a: n.l2_normalization(
+            *a, mode="channel"), [img]),
+        ("one_hot", lambda n, a: n.one_hot(*a, 4), [idx]),
+        ("topk", lambda n, a: n.topk(*a, k=3, ret_typ="both"), [ties]),
+        ("gather_nd", lambda n, a: n.gather_nd(*a), [x, idx]),
+        ("scatter_nd", lambda n, a: n.scatter_nd(*a, (3, 4, 5)),
+         [x[0], idx]),
+        ("index_update", lambda n, a: n.index_update(*a),
+         [x, idx[:, :3], onp.ones(5, "float32")]),
+        ("index_add", lambda n, a: n.index_add(*a),
+         [x, idx, onp.full((4, 5), 2.0, "float32")]),
+        ("sequence_mask", lambda n, a: n.sequence_mask(
+            *a, use_sequence_length=True), [seq, ln]),
+        ("sequence_last", lambda n, a: n.sequence_last(
+            *a, use_sequence_length=True), [seq, ln]),
+        ("sequence_reverse", lambda n, a: n.sequence_reverse(
+            *a, use_sequence_length=True), [seq, ln]),
+        ("reshape_like", lambda n, a: n.reshape_like(*a),
+         [x, x.reshape(12, 5)]),
+        ("arange_like", lambda n, a: n.arange_like(*a, step=0.1), [x]),
+        ("broadcast_like", lambda n, a: n.broadcast_like(*a),
+         [x[:, :1], x]),
+        ("slice", lambda n, a: n.slice(*a, (0, 1), (2, None)), [x]),
+        ("slice_like", lambda n, a: n.slice_like(*a), [x, x[:2, :3]]),
+        ("where", lambda n, a: n.where(*a), [mask, x, pos]),
+        ("batch_dot", lambda n, a: n.batch_dot(*a, transpose_b=True),
+         [x, pos]),
+        ("smooth_l1", lambda n, a: n.smooth_l1(*a), [x]),
+        ("softmax_cross_entropy", lambda n, a: n.softmax_cross_entropy(*a),
+         [x[0], onp.array([0, 4, 2, 1], "int32")]),
+        ("reshape", lambda n, a: n.reshape(*a, (-4, 1, 3, -2)), [x]),
+        ("split_v2", lambda n, a: n.split_v2(*a, 2, axis=1), [x]),
+        ("space_to_depth", lambda n, a: n.space_to_depth(*a, 2), [img]),
+        ("depth_to_space", lambda n, a: n.depth_to_space(*a, 2), [img]),
+        ("shape_array", lambda n, a: n.shape_array(*a), [x]),
+        ("size_array", lambda n, a: n.size_array(*a), [x]),
+        ("nonzero", lambda n, a: n.nonzero(*a), [mask]),
+        ("constraint_check", lambda n, a: n.constraint_check(*a), [pos > 0]),
+        ("amp_cast", lambda n, a: n.amp_cast(*a, dtype="float16"), [x]),
+        ("amp_multicast", lambda n, a: n.amp_multicast(*a),
+         [x.astype("float16"), pos]),
+        ("interleaved_matmul_selfatt_qk",
+         lambda n, a: n.interleaved_matmul_selfatt_qk(*a, heads=2), [qkv]),
+        ("interleaved_matmul_selfatt_valatt",
+         lambda n, a: n.interleaved_matmul_selfatt_valatt(*a, heads=2),
+         [qkv, rs.rand(4, 6, 6).astype("float32")]),
+        ("interleaved_matmul_encdec_qk",
+         lambda n, a: n.interleaved_matmul_encdec_qk(*a, heads=2),
+         [qkv[:5, :, :8], qkv[:, :, :16]]),
+        ("interleaved_matmul_encdec_valatt",
+         lambda n, a: n.interleaved_matmul_encdec_valatt(*a, heads=2),
+         [qkv[:, :, :16], rs.rand(4, 5, 6).astype("float32")]),
+        ("box_iou", lambda n, a: n.box_iou(*a), [boxes, boxes]),
+        ("box_nms", lambda n, a: n.box_nms(*a, overlap_thresh=0.3,
+                                           id_index=0), [nms]),
+        ("box_encode", lambda n, a: n.box_encode(*a),
+         [onp.array([[1., -1., 0., 1., 1., 0.]] * 2, "float32"),
+          onp.array([[0, 1, 0, 1, 2, 3]] * 2, "float32"), boxes, boxes[:, :4]]),
+        ("box_decode", lambda n, a: n.box_decode(*a, clip=0.2),
+         [x[:2, :, :4] * 0.3, boxes[:, :4]]),
+        ("bipartite_matching", lambda n, a: n.bipartite_matching(
+            *a, threshold=0.1), [pos[0]]),
+        ("multibox_prior", lambda n, a: anchors(n), []),
+        ("multibox_target", lambda n, a: n.multibox_target(
+            anchors(n), *a, negative_mining_ratio=3.0), [label, cls]),
+        ("multibox_detection", lambda n, a: n.multibox_detection(
+            *a, anchors(n), threshold=0.2), [prob, loc]),
+        ("foreach", lambda n, a: n.foreach(
+            lambda xt, st: (xt * st[0] + st[1], [st[0] + xt, st[1] * 0.5]),
+            a[0], [a[1], a[1] * 2]), [seq[:, 0], onp.ones(2, "float32")]),
+        ("while_loop", lambda n, a: n.while_loop(
+            lambda i, v: i < 4, lambda i, v: (v * i, (i + 1, v + 1)),
+            (mx.np.array(0), a[0])), [x[0]]),
+        ("cond", lambda n, a: n.cond(lambda v: v.sum() < 0,
+                                     lambda v: v * 10, lambda v: v + 1, a),
+         [x[0]]),
+    ]
+
+
+def tail_leaves(out):
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in tail_leaves(o)]
+    return [out._data if hasattr(out, "_data") else out]
+
+
+def tail_ops_vs_cpu(mx, dev):
+    """Every new op on the card against its CPU result (values within
+    rtol 1e-5 + atol 1e-5 of max|cpu|, index outputs equal)."""
+    rs = onp.random.RandomState(45)
+    worst = {}
+    for name, fn, host in tail_cases(mx, rs):
+        outs = []
+        for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
+            with ctx:
+                res = fn(mx.npx, [mx.np.array(h) for h in host])
+            outs.append([t.detach().cpu() for t in tail_leaves(res)])
+        got, want = outs
+        check(len(got) == len(want), f"npx.{name}: {len(got)} outputs on "
+                                     f"the card, {len(want)} on the CPU")
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"npx.{name}: card {g.shape} {g.dtype}, CPU {w.shape} "
+                  f"{w.dtype}")
+            if w.is_floating_point():
+                e = share_err(g, w)
+                check(torch.allclose(g.double(), w.double(), rtol=1e-5,
+                                     atol=1e-5 * max(1.0, float(
+                                         w.abs().max())), equal_nan=True),
+                      f"npx.{name} on the card against the CPU: {e:.3g}")
+                err = max(err, e if e == e else 0.0)
+            else:
+                check(torch.equal(g, w), f"npx.{name}: index outputs differ "
+                                         "on the card")
+        worst[name] = err
+    return worst
+
+
+def tail_samplers(mx, dev):
+    """The extension samplers on the card: shape, dtype, device and the
+    mean (and the normal's std) of 2^20 draws within 0.01 of the
+    distribution's (4.8 standard errors at the widest)."""
+    g = torch.Generator(device=dev).manual_seed(45)
+    n = 1 << 20
+    with mx.gpu(dev.index or 0):
+        draws = {"bernoulli": (mx.npx.bernoulli(prob=0.3, size=(n,),
+                                                generator=g), 0.3, None),
+                 "uniform_n": (mx.npx.uniform_n(-1.0, 3.0, batch_shape=n,
+                                                generator=g), 1.0, None),
+                 "normal_n": (mx.npx.normal_n(0.5, 2.0, batch_shape=n,
+                                              generator=g), 0.5, 2.0)}
+    out = {}
+    for name, (arr, mean, std) in draws.items():
+        t = arr._data
+        check(t.shape == (n,) and t.dtype == torch.float32
+              and t.device == dev, f"npx.{name}: {t.shape} {t.dtype} "
+                                   f"{t.device}")
+        m = float(t.double().mean())
+        sd = float(t.double().std()) if std else None
+        check(abs(m - mean) < 0.01 * max(1.0, std or 1.0)
+              and (std is None or abs(sd - std) < 0.01 * std),
+              f"npx.{name}: mean {m}, std {sd}")
+        out[name] = {"mean": m, "std": sd}
+    return out
+
+
+def rnn_routes_vs_plain(mx, dev):
+    """npx.rnn's cuDNN route against its plain loop, every mode, 1-2
+    layers, both directions, at the LM's shapes (35 x 20 x 650), forward
+    and backward; the routes of bf16, fp16, the clip and a capture (the
+    eager route)."""
+    from mxnet_tpu_torch.ops import rnn as R
+    g = torch.Generator(device="cpu").manual_seed(45)
+    t, b, h = LM_BPTT, LM_BATCH, LM_UNITS
+    rows = {}
+    for mode in R.GATES:
+        for layers in (1, 2):
+            for bidir in (False, True):
+                ndir = 2 if bidir else 1
+                ng = R.GATES[mode]
+                n = sum(ndir * ng * h * ((h if lyr == 0 else h * ndir) + h
+                                         + 2) for lyr in range(layers))
+                p = (torch.rand(n, generator=g) * 0.1 - 0.05).to(dev)
+                x = torch.randn(t, b, h, generator=g).to(dev)
+                h0 = torch.randn(layers * ndir, b, h, generator=g).to(dev)
+                c0 = torch.randn_like(h0) if mode == "lstm" else None
+                res = {}
+                for route in ("cudnn", "plain"):
+                    ps, xs = p.clone().requires_grad_(), \
+                        x.clone().requires_grad_()
+                    w = R.unpack(ps, mode, h, layers, bidir, h)
+                    before = dict(R.route_calls)
+                    with torch.backends.cudnn.flags(
+                            enabled=route == "cudnn", allow_tf32=False):
+                        out, hn, cn = R.rnn(xs, w, h0, c0, mode, layers,
+                                            bidir)
+                    check(R.route_calls[route] == before[route] + 1,
+                          f"npx.rnn {mode}: the {route} route was not taken")
+                    loss = out.square().sum() + hn.sum() \
+                        + (cn.sum() if cn is not None else 0)
+                    gp, gx = torch.autograd.grad(loss, [ps, xs])
+                    res[route] = ([out, hn] + ([cn] if cn is not None
+                                               else []), [gp, gx])
+                vals = max(share_err(a, b) for a, b in
+                           zip(res["cudnn"][0], res["plain"][0]))
+                grads = max(share_err(a, b) for a, b in
+                            zip(res["cudnn"][1], res["plain"][1]))
+                key = f"{mode} L{layers}{' bi' if bidir else ''}"
+                rows[key] = {"values": vals, "grads": grads}
+                check(vals <= RNN_TOL and grads <= RNN_GRAD_TOL,
+                      f"npx.rnn {key}: cuDNN against the plain loop "
+                      f"{vals:.3g} / {grads:.3g} (limits {RNN_TOL} / "
+                      f"{RNN_GRAD_TOL})")
+    x = torch.zeros(2, 1, 4, device=dev)
+    w = [tuple(torch.zeros(s, device=dev) for s in
+               ((16, 4), (16, 4), (16,), (16,)))]
+    routes = {"bf16": R.route(x.bfloat16(), [tuple(v.bfloat16() for v in
+                                                    w[0])], "lstm", False),
+              "fp16": R.route(x.half(), [tuple(v.half() for v in w[0])],
+                              "lstm", False),
+              "fp32": R.route(x, w, "lstm", False),
+              "fp32 state clip": R.route(x, w, "lstm", True)}
+    gph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(gph):
+        routes["fp32 capturing"] = R.route(x, w, "lstm", False)
+    print(f"  npx.rnn routes: {routes}")
+    check(routes == {"bf16": "plain", "fp16": "cudnn", "fp32": "cudnn",
+                     "fp32 state clip": "plain", "fp32 capturing": "cudnn"},
+          f"npx.rnn routes: {routes}")
+    return rows, routes
+
+
+def mha_vs_plain(mx, dev, fa):
+    """npx.multi_head_attention at BERT-base width, causal and not, fp32
+    and bf16, forward and backward, against the plain composition; the
+    kernel 1-3 launches of those calls; ms of the call and of the plain
+    composition's."""
+    from mxnet_tpu_torch.ops.attention import _reference_attention
+    b, s, heads, d = MHA_SHAPE
+    g = torch.Generator(device="cpu").manual_seed(46)
+    rows, launches = {}, [0, 0, 0]
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            q, k, v = (torch.randn(b, s, heads * d, generator=g)
+                       .to(dev, dtype) for _ in range(3))
+            do = torch.randn(b, s, heads * d, generator=g).to(dev, dtype)
+
+            def run(fn, q=q, k=k, v=v, do=do, causal=causal):
+                qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+                with mx.autograd.record():
+                    out = fn(qs, ks, vs, heads, causal=causal)
+                return [out] + list(torch.autograd.grad(out, [qs, ks, vs],
+                                                        do))
+            zero_counters(fa)
+            got = run(mx.npx.multi_head_attention)
+            n = counters(fa)
+            launches = [a + c for a, c in zip(launches, n)]
+            check(n == [1, 1, 1], f"npx.multi_head_attention {dtype} causal="
+                                  f"{causal}: kernel 1-3 launches {n}")
+            want = run(lambda *a, causal: _reference_attention(
+                *a, causal=causal))
+            errs = [share_err(a, w) for a, w in zip(got, want)]
+            key = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+            check(max(errs) <= MHA_TOL[dtype],
+                  f"npx.multi_head_attention {key}: {errs} against the "
+                  f"plain composition (limit {MHA_TOL[dtype]})")
+            rows[key] = {
+                "max_share_err_out_dq_dk_dv": errs,
+                "fwd_bwd_ms": cuda_ms(lambda: run(
+                    mx.npx.multi_head_attention), 5, 1),
+                "plain_fwd_bwd_ms": cuda_ms(lambda: run(
+                    lambda *a, causal: _reference_attention(
+                        *a, causal=causal)), 5, 1)}
+    zero_counters(fa)
+    return rows, launches
+
+
+def phase_npx_tail(dev, card):
+    """Phase 45: this slice's npx ops on the card against the CPU, npx.rnn's
+    cuDNN route against its plain loop, and npx.multi_head_attention on
+    kernels 1-3 at BERT-base width."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    print(f"== phase 45: the npx operator tail on {card} (against the CPU, "
+          "npx.rnn cuDNN against the plain loop, the attention entry on "
+          "kernels 1-3)", flush=True)
+    ops = tail_ops_vs_cpu(mx, dev)
+    print(f"  {len(ops)} ops on the card against the CPU, worst share "
+          f"{max(ops.values()):.3g} ({max(ops, key=ops.get)})")
+    samplers = tail_samplers(mx, dev)
+    print(f"  samplers on the card: {json.dumps(samplers)}")
+    rnn_rows, routes = rnn_routes_vs_plain(mx, dev)
+    for key, row in rnn_rows.items():
+        print(f"  npx.rnn {key}: cuDNN vs plain values {row['values']:.3g}, "
+              f"grads {row['grads']:.3g}")
+    mha, launches = mha_vs_plain(mx, dev, fa)
+    for key, row in mha.items():
+        print(f"  npx.multi_head_attention {key} (8 x 512, 12 x 64): "
+              f"{json.dumps(row)}")
+    print(f"  kernel 1-3 launches under npx.multi_head_attention: "
+          f"{launches}")
+    return {"card": card, "ops_worst_share_err": ops, "samplers": samplers,
+            "rnn": rnn_rows,
+            "rnn_routes": routes, "multi_head_attention": mha,
+            "launches": launches}
+
+
+def lstm_lm(mx, dev):
+    """The "medium" LSTM LM of Zaremba et al. 2014 as a ``gluon.Block``:
+    Embedding -> Dropout -> LSTM(650, 2) -> Dropout -> Dense(10000),
+    untied, dropout 0 (the comparisons need the same draws)."""
+    class LSTMLM(mx.gluon.Block):
+        def __init__(self):
+            super().__init__()
+            self.embedding = mx.gluon.nn.Embedding(LM_VOCAB, LM_UNITS,
+                                                   device=dev)
+            self.drop_in = mx.gluon.nn.Dropout(0.0)
+            self.drop_out = mx.gluon.nn.Dropout(0.0)
+            self.rnn = mx.gluon.rnn.LSTM(LM_UNITS, LM_LAYERS,
+                                         input_size=LM_UNITS, dropout=0.0,
+                                         device=dev)
+            self.decoder = mx.gluon.nn.Dense(LM_VOCAB, flatten=False,
+                                             in_units=LM_UNITS, device=dev)
+
+        def forward(self, x, state):
+            out, state = self.rnn(self.drop_in(self.embedding(x)), state)
+            return self.decoder(self.drop_out(out)), state
+    return LSTMLM()
+
+
+def lm_run(mx, net, snap, data, hybrid, cudnn, steps):
+    """Train ``steps`` windows from the weights ``snap``: the losses, the
+    step function (for the timed and profiled windows) and the routes
+    taken."""
+    from mxnet_tpu_torch.ops import rnn as R
+    params = net.collect_params()
+    with torch.no_grad():
+        for name, p in params.items():
+            p.data().copy_(snap[name])
+    net.hybridize(hybrid)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": LM_LR})
+    state = [torch.zeros(LM_LAYERS, LM_BATCH, LM_UNITS, device=data.device)
+             for _ in range(2)]
+    pos = [0]
+
+    def step():
+        nonlocal state
+        i = pos[0] % (data.shape[0] // LM_BPTT - 1)
+        pos[0] += 1
+        x = data[i * LM_BPTT:(i + 1) * LM_BPTT]
+        y = data[i * LM_BPTT + 1:(i + 1) * LM_BPTT + 1]
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            with mx.autograd.record():
+                out, state = net(x, state)
+                loss = loss_fn(out.reshape(-1, LM_VOCAB), y.reshape(-1))
+            mx.autograd.backward(loss)
+        # carried detached, and no graph outlives the step (a later
+        # capture's backward must not meet this one's nodes)
+        state = [s.detach() for s in state]
+        mx.gluon.utils.clip_global_norm(
+            [p.grad() for p in params.values()],
+            LM_CLIP * LM_BPTT * LM_BATCH)
+        trainer.step(LM_BPTT * LM_BATCH)
+        return loss.detach()
+    before = dict(R.route_calls)
+    losses = [float(step().detach().mean()) for _ in range(steps)]
+    routes = {k: R.route_calls[k] - before[k] for k in before}
+    return losses, step, routes
+
+
+def phase_lstm_lm(dev, card):
+    """Phase 46: the 2 x 650 LSTM LM trained eager (the cuDNN route, then
+    the plain loop with cuDNN off) and hybridized (cuDNN inside the CUDA
+    graphs) from the same weights."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as R
+    print(f"== phase 46: LSTM LM 2 x {LM_UNITS}, vocab {LM_VOCAB}, batch "
+          f"{LM_BATCH} x bptt {LM_BPTT}, SGD {LM_LR}, clip_global_norm "
+          f"{LM_CLIP}, on {card}", flush=True)
+    net = lstm_lm(mx, dev)
+    net.initialize(mx.init.Uniform(0.05), seed=46)
+    snap = {n: p.data().detach().clone()
+            for n, p in net.collect_params().items()}
+    n_params = sum(p.numel() for p in snap.values())
+    gen = torch.Generator(device="cpu").manual_seed(46)
+    data = torch.randint(0, LM_VOCAB, (8 * LM_BPTT + 1, LM_BATCH),
+                         generator=gen).to(dev)
+    flops = 6 * LM_BPTT * LM_BATCH * (
+        LM_LAYERS * 4 * LM_UNITS * 2 * LM_UNITS + LM_UNITS * LM_VOCAB)
+    out = {"card": card, "n_params": n_params,
+           "model_flops_per_step": flops}
+    runs = {"eager cudnn": (False, True), "eager plain": (False, False),
+            "hybridized": (True, True)}
+    first = {}
+    for label, (hybrid, cudnn) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step, routes = lm_run(mx, net, snap, data, hybrid, cudnn, 3)
+        first[label] = losses
+        check(all(math.isfinite(v) for v in losses),
+              f"LSTM LM {label}: losses {losses}")
+        walls = timed_runs(step, LM_STEPS)
+        dev_ms = device_ms(step, 2, warmup=0)
+        launches = host_launch_calls(step)
+        wall = sorted(walls)[len(walls) // 2] * 1e3
+        row = {"losses_first_3": losses, "routes_first_3_steps": routes,
+               "step_ms_median": wall, "step_ms_all": [w * 1e3
+                                                       for w in walls],
+               "device_ms": dev_ms, "busy_share": busy_share(dev_ms, wall),
+               "host_launch_calls_a_step": sum(launches.values()),
+               "host_launch_calls": launches,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "tokens_per_s": LM_BPTT * LM_BATCH / wall * 1e3,
+               "fp32_model_flop_share": flops / (wall * 1e-3)
+               / PEAK_FLOPS[torch.float32]}
+        out[label] = row
+        print(f"  {label}: {json.dumps(row)}", flush=True)
+        net.hybridize(False)
+    check(abs(first["eager cudnn"][0] - math.log(LM_VOCAB)) < 0.05,
+          f"LSTM LM first loss {first['eager cudnn'][0]}, expected about "
+          f"ln {LM_VOCAB}")
+    rel = abs(first["eager cudnn"][0] - first["eager plain"][0]) \
+        / abs(first["eager plain"][0])
+    check(rel <= LM_LOSS_TOL, f"LSTM LM first loss, cuDNN against the plain "
+                              f"loop: {rel:.3g} relative")
+    cudnn_vs_plain = max(abs(a - b) / abs(b) for a, b in
+                         zip(first["eager cudnn"], first["eager plain"]))
+    check(cudnn_vs_plain <= LM_ROUTE_TOL, f"LSTM LM cuDNN against the plain "
+                                          f"loop: {cudnn_vs_plain:.3g}")
+    # the same route eager and hybridized: bit for bit
+    check(first["hybridized"] == first["eager cudnn"],
+          f"LSTM LM hybridized {first['hybridized']} against eager "
+          f"{first['eager cudnn']}")
+    check(out["eager cudnn"]["routes_first_3_steps"]["plain"] == 0
+          and out["hybridized"]["routes_first_3_steps"]["plain"] == 0
+          and out["eager plain"]["routes_first_3_steps"]["cudnn"] == 0,
+          f"LSTM LM routes: {[out[k]['routes_first_3_steps'] for k in runs]}")
+    out.update(first_loss_cudnn_vs_plain_rel=rel,
+               cudnn_vs_plain_max_rel=cudnn_vs_plain,
+               hybridized_equals_eager_bit_for_bit=True,
+               route_eager="cudnn", route_hybridized="cudnn")
+    print(f"  first loss cuDNN vs plain {rel:.3g} relative; hybridized bit "
+          f"for bit with eager (cuDNN both); cuDNN vs plain over 3 steps "
+          f"{cudnn_vs_plain:.3g}; parameters {n_params}")
+    return out
+
+
 def timed(name, phase, *args):
     """Run a phase and print its wall time."""
     t0 = time.perf_counter()
@@ -9156,6 +9683,12 @@ def main():
         gpt_fleet = timed("43", phase_gpt_fleet, dev, card, root, cfg)
         serve_fleet = timed("44", phase_serve_fleet, dev, card, root,
                             prompts, base_tokens, serve_e2e_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    npx_tail = timed("45", phase_npx_tail, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lstm_lm_train = timed("46", phase_lstm_lm, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -9321,6 +9854,13 @@ def main():
                 for r in gpt_fleet["ranks"]],
             serve_fleet=served)
         entry["launches"] += drill + served
+    # phases 45-46: kernels 1-3 under npx.multi_head_attention (the
+    # wrappers' counts); the LSTM LM runs none of the table's kernels
+    for i, entry in enumerate(entries):
+        mha = npx_tail["launches"][i] if i < 3 else 0
+        entry["launches_by_path"].update(npx_multi_head_attention=mha,
+                                         lstm_lm_train=0)
+        entry["launches"] += mha
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -9357,7 +9897,9 @@ def main():
                       "gpt_pp2_accum2_train": gpt_pp,
                       "gpt_dp2_tp2_bert_tp2_sp2_train": mesh4,
                       "gpt_fleet_drill_train": gpt_fleet,
-                      "serve_fleet": serve_fleet}))
+                      "serve_fleet": serve_fleet,
+                      "npx_tail": npx_tail,
+                      "lstm_lm_train": lstm_lm_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -101,6 +101,9 @@ def describe():
     return "\n".join(lines)
 
 
+declare("home", str, os.path.join("~", ".mxnet"), "MXNET_HOME",
+        "Cache root for datasets and pretrained files (reference: base.py "
+        "data_dir); contrib.text reads embeddings under <home>/embeddings.")
 declare("seed", int, 0, "MXNET_SEED",
         "Global RNG seed (reference: mx.random.seed / MXNET_SEED).")
 declare("fused_ln_residual", str, "auto", "MXNET_FUSED_LN_RESIDUAL",

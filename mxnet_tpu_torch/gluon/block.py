@@ -1,6 +1,10 @@
-"""``HybridBlock`` as an ``nn.Module``.
+"""``Block`` and ``HybridBlock`` as ``nn.Module``s.
 
-Counterpart of ``mxnet_tpu/gluon/block.py``. Each parameter is a
+Counterpart of ``mxnet_tpu/gluon/block.py``. ``Block`` is the base a
+user's model subclasses (reference: block.py ``Block``): the whole
+parameter surface below, its calls eager, and ``hybridize()`` passed to
+its children. ``HybridBlock`` is a ``Block`` whose calls ``hybridize()``
+caches. Each parameter is a
 :class:`~.parameter.Parameter` whose tensor (an ``nn.Parameter``) is
 registered on its block on the block's device at construction; a layer
 told no input width gets a deferred parameter (a 0 in its shape) whose
@@ -66,9 +70,9 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..numpy.multiarray import _unwrap_out, _wrap_out, ndarray
 from .cached_graph import _CachedGraph, in_plain_scope
-from .parameter import Constant
+from .parameter import Constant, DeferredInitializationError
 
-__all__ = ["HybridBlock", "recording_gate", "resolve_remat_policy",
+__all__ = ["Block", "HybridBlock", "recording_gate", "resolve_remat_policy",
            "remat_call", "remat_scope"]
 
 class _RematOff:
@@ -254,8 +258,11 @@ def recording_gate(fn):
     return gated
 
 
-class HybridBlock(nn.Module):
-    """Base block: a ``torch.nn.Module`` with the Gluon parameter surface.
+class Block(nn.Module):
+    """Base block: a ``torch.nn.Module`` with the Gluon parameter surface
+    (reference: block.py ``Block``, the base a user's model subclasses).
+    Its calls run the plain forward: ``hybridize()`` reaches its children
+    and caches none of its own calls (:class:`HybridBlock` does).
 
     Dropout follows ``autograd.is_training()`` (set by ``record()`` and
     ``train_mode()``), not ``nn.Module.training``."""
@@ -286,8 +293,9 @@ class HybridBlock(nn.Module):
             if var is None or p is None or p.initialized:
                 continue
             if p._deferred is None:
-                raise MXNetError(f"parameter {name} not initialized; call "
-                                 ".initialize() before forward")
+                raise DeferredInitializationError(
+                    f"parameter {name} not initialized; call .initialize() "
+                    "before forward")
             done = False
         self._init_checked = done
 
@@ -314,11 +322,7 @@ class HybridBlock(nn.Module):
         return _wrap_out(out) if arrays else out
 
     def _call(self, args, kwargs):
-        if not self._active or in_plain_scope():
-            return self._forward_tensors(args, kwargs)
-        if self._cached_graph is None:
-            self._cached_graph = _CachedGraph(self)
-        return self._cached_graph(args, kwargs)
+        return self._forward_tensors(args, kwargs)
 
     def _forward_tensors(self, args, kwargs):
         """The plain forward, its ``ndarray`` outputs as tensors; while
@@ -350,46 +354,17 @@ class HybridBlock(nn.Module):
                 else copy.deepcopy(v, memo)
         return new
 
-    # -- hybridize ------------------------------------------------------------
-    def hybridize(self, active=True, backend=None, backend_opts=None,
-                  clear=True, static_alloc=False, static_shape=False,
-                  **kwargs):
-        """Cache this block's calls, and its children's (reference:
-        block.py ``hybridize``): CUDA graphs on the card
-        (``gluon/cached_graph.py``). ``static_alloc`` / ``static_shape``
-        are what a captured graph does anyway (static buffers, one graph a
-        shape) and are accepted as in the reference. ``clear`` drops the
-        graphs captured so far. Children called inside a hybridized call
-        run their plain forward (one graph per outermost call).
-        ``remat=`` (True, 'dots', 'dots_with_no_batch_dims', a policy
-        callable) recomputes the activations in the backward
-        (:func:`remat_call`); bad values raise here."""
-        resolve_remat_policy(kwargs.get("remat"))  # fail fast
-        if backend is not None:
-            raise MXNetError(
-                f"hybridize(backend={backend!r}): subgraph backends are not "
-                "ported yet (ROADMAP.md Queue 1, item 2: backend= / "
-                "optimize_for partitioning)")
-        self._active = bool(active)
-        self._flags = {"remat": kwargs.get("remat")} \
-            if kwargs.get("remat") else {}
-        if clear:
-            self._cached_graph = None
-        # remat wraps this block's forward once; children inside it run
-        # their plain forwards
-        kwargs.pop("remat", None)
+    def hybridize(self, active=True, **kwargs):
+        """Hybridize the children (reference: block.py ``Block.hybridize``):
+        the nearest :class:`HybridBlock` descendants cache their calls; this
+        block's own calls stay eager."""
         for child in _hybrid_children(self):
-            child.hybridize(active, backend=backend,
-                            backend_opts=backend_opts, clear=clear,
-                            static_alloc=static_alloc,
-                            static_shape=static_shape, **kwargs)
+            child.hybridize(active, **kwargs)
 
-    def optimize_for(self, x, *args, backend=None, clear=True, **kwargs):
-        """Hybridize for ``backend`` and run once (reference: block.py
-        ``optimize_for``); no subgraph backend is ported, so ``backend``
-        must be None."""
-        self.hybridize(True, backend=backend, clear=clear, **kwargs)
-        return self(x, *args)
+    def register_child(self, block, name=None):
+        """Register ``block`` as a child named ``name`` (its position by
+        default; reference: block.py ``register_child``)."""
+        self.add_module(name or str(len(self._modules)), block)
 
     def _clear_cached_graphs(self):
         for block in self.modules():
@@ -567,6 +542,58 @@ class HybridBlock(nn.Module):
             p.initialize(default_init=init, force_reinit=force_reinit,
                          generator=gen)
         return self
+
+
+class HybridBlock(Block):
+    """A :class:`Block` whose calls ``hybridize()`` caches
+    (``gluon/cached_graph.py``)."""
+
+    def _call(self, args, kwargs):
+        if not self._active or in_plain_scope():
+            return self._forward_tensors(args, kwargs)
+        if self._cached_graph is None:
+            self._cached_graph = _CachedGraph(self)
+        return self._cached_graph(args, kwargs)
+
+    def hybridize(self, active=True, backend=None, backend_opts=None,
+                  clear=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Cache this block's calls, and its children's (reference:
+        block.py ``hybridize``): CUDA graphs on the card
+        (``gluon/cached_graph.py``). ``static_alloc`` / ``static_shape``
+        are what a captured graph does anyway (static buffers, one graph a
+        shape) and are accepted as in the reference. ``clear`` drops the
+        graphs captured so far. Children called inside a hybridized call
+        run their plain forward (one graph per outermost call).
+        ``remat=`` (True, 'dots', 'dots_with_no_batch_dims', a policy
+        callable) recomputes the activations in the backward
+        (:func:`remat_call`); bad values raise here."""
+        resolve_remat_policy(kwargs.get("remat"))  # fail fast
+        if backend is not None:
+            raise MXNetError(
+                f"hybridize(backend={backend!r}): subgraph backends are not "
+                "ported yet (ROADMAP.md Queue 1, item 2: backend= / "
+                "optimize_for partitioning)")
+        self._active = bool(active)
+        self._flags = {"remat": kwargs.get("remat")} \
+            if kwargs.get("remat") else {}
+        if clear:
+            self._cached_graph = None
+        # remat wraps this block's forward once; children inside it run
+        # their plain forwards
+        kwargs.pop("remat", None)
+        for child in _hybrid_children(self):
+            child.hybridize(active, backend=backend,
+                            backend_opts=backend_opts, clear=clear,
+                            static_alloc=static_alloc,
+                            static_shape=static_shape, **kwargs)
+
+    def optimize_for(self, x, *args, backend=None, clear=True, **kwargs):
+        """Hybridize for ``backend`` and run once (reference: block.py
+        ``optimize_for``); no subgraph backend is ported, so ``backend``
+        must be None."""
+        self.hybridize(True, backend=backend, clear=clear, **kwargs)
+        return self(x, *args)
 
 
 def _hybrid_children(module):

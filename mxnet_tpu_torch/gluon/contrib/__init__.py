@@ -1,2 +1,3 @@
-"""gluon.contrib (reference: python/mxnet/gluon/contrib/): the estimator."""
-from . import estimator  # noqa: F401
+"""gluon.contrib (reference: python/mxnet/gluon/contrib/): the estimator
+and ``contrib.nn``."""
+from . import estimator, nn  # noqa: F401

@@ -44,9 +44,14 @@ from torch import nn
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 
-__all__ = ["Parameter", "Constant"]
+__all__ = ["Parameter", "Constant", "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter was read before its shape or its initialization was
+    known (reference: parameter.py ``DeferredInitializationError``)."""
 
 
 class _Var(nn.Parameter):
@@ -133,12 +138,14 @@ class Parameter:
                                       device=self.device))
             self.initialized = False  # the new storage holds nothing yet
         if not self._shape_known():
-            raise MXNetError(f"parameter {self.name} has unknown shape "
-                             f"{self.shape}; run a forward pass to infer it")
+            raise DeferredInitializationError(
+                f"parameter {self.name} has unknown shape {self.shape}; "
+                "run a forward pass to infer it")
         if self._deferred is None:
             if not self.initialized:
-                raise MXNetError(f"parameter {self.name} not initialized; "
-                                 "call .initialize() before forward")
+                raise DeferredInitializationError(
+                    f"parameter {self.name} not initialized; call "
+                    ".initialize() before forward")
             return
         init, generator, name = self._deferred
         init(name, self._var, generator)

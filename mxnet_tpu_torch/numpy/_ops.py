@@ -962,6 +962,20 @@ def _fill_value(dt):
     return info.min if info.min < 0 else info.max
 
 
+def take_along_fill(a, idx, dim):
+    """``jnp.take_along_axis(a, idx, dim)`` in its default mode: a
+    negative index counts from the end, one still out of range gives
+    :func:`_fill_value` (NaN for floats) and passes no gradient."""
+    n = a.shape[dim]
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    bad = (idx < 0) | (idx >= n)
+    out = torch.take_along_dim(a, idx.clamp(0, builtins.max(n - 1, 0)),
+                               dim=dim)
+    return out.masked_fill(torch.broadcast_to(bad, out.shape),
+                           _fill_value(a.dtype))
+
+
 def take(a, indices, axis=None, mode=None, fill_value=None):
     a = _t(a)
     if axis is None:

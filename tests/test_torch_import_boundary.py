@@ -3,7 +3,7 @@
 Every module of ``mxnet_tpu_torch/`` (the ``amp`` package's too),
 ``chip_smoke.py`` and the port's
 tools (``tools/fp8_loss_curves.py``, ``flash_digest.py``, ``serve_ab.py``,
-``train_ab.py``, ``fleet_phases.py``)
+``train_ab.py``, ``fleet_phases.py``, ``tail_phases.py``)
 is scanned for
 imports of ``jax``, ``jaxlib`` or ``mxnet_tpu`` (``mxnet_tpu_torch`` itself
 is allowed), and a fresh interpreter that imports the port must end up
@@ -23,7 +23,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "fp8_loss_curves.py",
     ROOT / "tools" / "flash_digest.py", ROOT / "tools" / "serve_ab.py",
-    ROOT / "tools" / "train_ab.py", ROOT / "tools" / "fleet_phases.py"]
+    ROOT / "tools" / "train_ab.py", ROOT / "tools" / "fleet_phases.py",
+    ROOT / "tools" / "tail_phases.py"]
 BANNED = ("jax", "jaxlib", "mxnet_tpu")
 
 
