@@ -9394,15 +9394,17 @@ def phase_npx_tail(dev, card):
             "launches": launches}
 
 
-def lstm_lm(mx, dev):
+def lstm_lm(mx, dev, sparse_grad=False):
     """The "medium" LSTM LM of Zaremba et al. 2014 as a ``gluon.Block``:
     Embedding -> Dropout -> LSTM(650, 2) -> Dropout -> Dense(10000),
-    untied, dropout 0 (the comparisons need the same draws)."""
+    untied, dropout 0 (the comparisons need the same draws);
+    ``sparse_grad`` gives the embedding a row-sparse gradient."""
     class LSTMLM(mx.gluon.Block):
         def __init__(self):
             super().__init__()
             self.embedding = mx.gluon.nn.Embedding(LM_VOCAB, LM_UNITS,
-                                                   device=dev)
+                                                   device=dev,
+                                                   sparse_grad=sparse_grad)
             self.drop_in = mx.gluon.nn.Dropout(0.0)
             self.drop_out = mx.gluon.nn.Dropout(0.0)
             self.rnn = mx.gluon.rnn.LSTM(LM_UNITS, LM_LAYERS,
@@ -9417,10 +9419,11 @@ def lstm_lm(mx, dev):
     return LSTMLM()
 
 
-def lm_run(mx, net, snap, data, hybrid, cudnn, steps):
+def lm_run(mx, net, snap, data, hybrid, cudnn, steps, held=None):
     """Train ``steps`` windows from the weights ``snap``: the losses, the
     step function (for the timed and profiled windows) and the routes
-    taken."""
+    taken. ``held`` (a list) keeps the last step's output and loss with
+    their graphs."""
     from mxnet_tpu_torch.ops import rnn as R
     params = net.collect_params()
     with torch.no_grad():
@@ -9444,8 +9447,9 @@ def lm_run(mx, net, snap, data, hybrid, cudnn, steps):
                 out, state = net(x, state)
                 loss = loss_fn(out.reshape(-1, LM_VOCAB), y.reshape(-1))
             mx.autograd.backward(loss)
-        # carried detached, and no graph outlives the step (a later
-        # capture's backward must not meet this one's nodes)
+        if held is not None:
+            held[:] = [out, loss]    # this step's graph stays alive
+        # truncated backpropagation: the state is carried detached
         state = [s.detach() for s in state]
         mx.gluon.utils.clip_global_norm(
             [p.grad() for p in params.values()],
@@ -9482,10 +9486,14 @@ def phase_lstm_lm(dev, card):
     runs = {"eager cudnn": (False, True), "eager plain": (False, False),
             "hybridized": (True, True)}
     first = {}
+    # the eager runs' last outputs and losses, graphs and all, stay alive
+    # while the block is hybridized and captures beside them
+    held = {label: [] for label in runs}
     for label, (hybrid, cudnn) in runs.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        losses, step, routes = lm_run(mx, net, snap, data, hybrid, cudnn, 3)
+        losses, step, routes = lm_run(mx, net, snap, data, hybrid, cudnn, 3,
+                                      held[label])
         first[label] = losses
         check(all(math.isfinite(v) for v in losses),
               f"LSTM LM {label}: losses {losses}")
@@ -9521,6 +9529,9 @@ def phase_lstm_lm(dev, card):
     check(first["hybridized"] == first["eager cudnn"],
           f"LSTM LM hybridized {first['hybridized']} against eager "
           f"{first['eager cudnn']}")
+    check(all(held[k] and held[k][1].grad_fn is not None
+              for k in ("eager cudnn", "eager plain")),
+          "LSTM LM: the eager runs' graphs were not kept alive")
     check(out["eager cudnn"]["routes_first_3_steps"]["plain"] == 0
           and out["hybridized"]["routes_first_3_steps"]["plain"] == 0
           and out["eager plain"]["routes_first_3_steps"]["cudnn"] == 0,
@@ -9528,11 +9539,442 @@ def phase_lstm_lm(dev, card):
     out.update(first_loss_cudnn_vs_plain_rel=rel,
                cudnn_vs_plain_max_rel=cudnn_vs_plain,
                hybridized_equals_eager_bit_for_bit=True,
+               eager_graphs_alive_during_capture=True,
                route_eager="cudnn", route_hybridized="cudnn")
     print(f"  first loss cuDNN vs plain {rel:.3g} relative; hybridized bit "
           f"for bit with eager (cuDNN both); cuDNN vs plain over 3 steps "
           f"{cudnn_vs_plain:.3g}; parameters {n_params}")
     return out
+
+# phase 47: sparse storage. The 1B-word vocabulary (Jozefowicz et al.
+# 2016; MXNet's large_word_lm example trains it with a row-sparse
+# embedding) at 512 units; Criteo's LibSVM width and field count.
+SP_VOCAB, SP_DIM, SP_STEPS = 793471, 512, 10
+SP_LR = 1e-3
+CRITEO_ROWS, CRITEO_COLS, CRITEO_NNZ = 8192, 1_000_000, 39
+SP_LOSS_TOL = 1e-6   # the sparse LM's losses against the dense control
+SP_ROW_TOL = 1e-6    # touched rows: relative to the rows' largest value
+SP_ADAM_TOL = 1e-6   # the lazy Adam rows against float64 (absolute)
+SP_DOT_TOL = 1e-5    # CSR dot against the dense product, relative
+
+
+def sync_debug_error(fn):
+    """``fn()`` with any host synchronization raising
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def event_ms(fn, iters):
+    """Medians of ``iters`` calls of ``fn(mark)`` by CUDA events (host
+    included): the whole call's ms and the ms after ``fn`` calls
+    ``mark()``, and every call's readings of both."""
+    walls, tails = [], []
+    for _ in range(iters):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        marked = []
+        e0.record()
+        fn(lambda: marked.append(e1.record()))
+        e2.record()
+        e2.synchronize()
+        walls.append(e0.elapsed_time(e2))
+        tails.append(e1.elapsed_time(e2) if marked else walls[-1])
+    med = sorted(walls)[len(walls) // 2]
+    return med, sorted(tails)[len(tails) // 2], walls, tails
+
+
+def sparse_lm(mx, dev):
+    """(a) The 2 x 650 LSTM LM with Embedding(sparse_grad=True) under lazy
+    SGD through the default store, against the same run with a dense
+    embedding gradient (the control); clip_global_norm on the dense
+    parameters only in both."""
+    nets, snap = {}, None
+    for label in ("dense", "sparse"):
+        net = lstm_lm(mx, dev, sparse_grad=label == "sparse")
+        net.initialize(mx.init.Uniform(0.05), seed=46)
+        nets[label] = net
+        if snap is None:
+            snap = {n: p.data().detach().clone()
+                    for n, p in net.collect_params().items()}
+    gen = torch.Generator(device="cpu").manual_seed(47)
+    data = torch.randint(0, LM_VOCAB, (8 * LM_BPTT + 1, LM_BATCH),
+                         generator=gen).to(dev)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    out, losses, emb = {}, {}, {}
+    for label, net in nets.items():
+        params = net.collect_params()
+        with torch.no_grad():
+            for name, p in params.items():
+                p.data().copy_(snap[name])
+        opt = {"learning_rate": LM_LR, "momentum": 0.0, "wd": 0.0}
+        if label == "sparse":
+            opt["lazy_update"] = True
+        trainer = mx.gluon.Trainer(params, "sgd", opt)
+        dense = [p for n, p in params.items() if n != "embedding.weight"]
+        state = [torch.zeros(LM_LAYERS, LM_BATCH, LM_UNITS, device=dev)
+                 for _ in range(2)]
+        pos, seen = [0], {}
+
+        def step(mark=None, guard=False, net=net, trainer=trainer,
+                 dense=dense, pos=pos, seen=seen, params=params):
+            nonlocal state
+            i = pos[0] % (data.shape[0] // LM_BPTT - 1)
+            pos[0] += 1
+            x = data[i * LM_BPTT:(i + 1) * LM_BPTT]
+            y = data[i * LM_BPTT + 1:(i + 1) * LM_BPTT + 1]
+            with mx.autograd.record():
+                o, state = net(x, state)
+                loss = loss_fn(o.reshape(-1, LM_VOCAB), y.reshape(-1))
+            # no host sync from the backward to the store's update
+            run = sync_debug_error if guard else (lambda f: f())
+            run(lambda: mx.autograd.backward(loss))
+            state = [s.detach() for s in state]
+            seen["grad"] = params["embedding.weight"].grad()
+            mx.gluon.utils.clip_global_norm([p.grad() for p in dense],
+                                            LM_CLIP * LM_BPTT * LM_BATCH)
+            if mark is not None:
+                mark()
+            run(lambda: trainer.step(LM_BPTT * LM_BATCH))
+            return loss.detach()
+        ls = [float(step(guard=True).mean()) for _ in range(3)]
+        losses[label] = ls
+        emb[label] = params["embedding.weight"].data().detach().clone()
+        grad = seen["grad"]
+        if label == "sparse":
+            check(type(grad).__name__ == "RowSparseNDArray"
+                  and grad.data.shape[0] == LM_BPTT * LM_BATCH,
+                  f"sparse LM: the embedding's gradient is "
+                  f"{type(grad).__name__} of "
+                  f"{getattr(grad, 'data', grad).shape} slots, expected a "
+                  f"RowSparseNDArray of {LM_BPTT * LM_BATCH}")
+            check(trainer._update_on_kvstore is True,
+                  "sparse LM: the Trainer did not update on the store")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gcs = [g["collections"] for g in gc.get_stats()]
+        wall, update, walls, _ = event_ms(step, LM_STEPS)
+        gcs = [g["collections"] - n for g, n in zip(gc.get_stats(), gcs)]
+        dev_ms = device_ms(step, 2, warmup=0)
+        launches = host_launch_calls(step)
+        out[label] = {
+            "losses_first_3": ls, "step_ms_median": wall, "step_ms_all":
+            walls, "update_ms_median": update,
+            "gc_collections_in_timed_steps": gcs,
+            "device_ms": dev_ms, "busy_share": busy_share(dev_ms, wall),
+            "host_launch_calls_a_step": sum(launches.values()),
+            "host_launch_calls": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tokens_per_s": LM_BPTT * LM_BATCH / wall * 1e3}
+        print(f"  (a) LSTM LM, {label} embedding gradient: "
+              f"{json.dumps(out[label])}", flush=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sparse"],
+                                                  losses["dense"]))
+    check(rel <= SP_LOSS_TOL, f"sparse LM losses {losses['sparse']} against "
+                              f"the dense control {losses['dense']}: "
+                              f"{rel:.3g} relative")
+    # every row the three windows touched, and the rest
+    touched = torch.zeros(LM_VOCAB, dtype=torch.bool, device=dev)
+    touched[data[:3 * LM_BPTT].reshape(-1)] = True
+    w0 = snap["embedding.weight"]
+    untouched_equal = torch.equal(emb["sparse"][~touched], w0[~touched])
+    check(untouched_equal, "sparse LM: an untouched embedding row moved")
+    diff = float((emb["sparse"][touched] - emb["dense"][touched]).abs().max())
+    scale = float(emb["dense"][touched].abs().max())
+    check(diff <= SP_ROW_TOL * scale,
+          f"sparse LM: touched rows {diff:.3g} from the control (scale "
+          f"{scale:.3g})")
+    out.update(losses_max_rel=rel, touched_rows=int(touched.sum()),
+               touched_rows_max_abs_diff=diff, touched_rows_scale=scale,
+               untouched_rows_bit_for_bit=untouched_equal,
+               grad_slots=LM_BPTT * LM_BATCH, host_syncs_backward_to_update=0)
+    print(f"  (a) losses within {rel:.3g} relative of the control; "
+          f"{int(touched.sum())} touched rows within {diff:.3g} (scale "
+          f"{scale:.3g}); untouched rows bit for bit; no host sync from the "
+          f"backward to the store's update", flush=True)
+    del nets
+    return out
+
+
+def zipf_ids(rng, n, size, a=1.0):
+    """``size`` ids in [0, n) drawn from a Zipf law of exponent ``a`` over
+    the ranks (id = rank - 1)."""
+    p = 1.0 / onp.arange(1, n + 1) ** a
+    return rng.choice(n, size=size, p=p / p.sum())
+
+
+def sparse_table(mx, dev):
+    """(b) Lazy Adam through the store on a 793,471 x 512 row-sparse
+    embedding against dense Adam on a dense gradient: the rows against a
+    float64 Adam rule, the untouched rows and their state bit for bit,
+    row_sparse_pull, and the step and update times beside their
+    bounds."""
+    rng = onp.random.RandomState(47)
+    batches = [torch.from_numpy(zipf_ids(rng, SP_VOCAB, LM_BATCH * LM_BPTT)
+                                .reshape(LM_BPTT, LM_BATCH)).to(dev)
+               for _ in range(SP_STEPS + 2)]
+    c = torch.randn(LM_BPTT, LM_BATCH, SP_DIM,
+                    generator=torch.Generator(device="cpu").manual_seed(47)
+                    ).to(dev)
+    out = {}
+    w0 = None
+    for label in ("lazy", "dense"):
+        net = mx.gluon.nn.Embedding(SP_VOCAB, SP_DIM, device=dev,
+                                    sparse_grad=label == "lazy")
+        net.initialize(mx.init.Uniform(0.07), seed=47)
+        param = net.collect_params()["weight"]
+        if w0 is None:
+            w0 = param.data().detach().clone()
+        opt = {"learning_rate": SP_LR}
+        if label == "lazy":
+            opt["lazy_update"] = True
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam", opt)
+        pos = [0]
+
+        def step(mark=None, net=net, trainer=trainer, pos=pos):
+            ids = batches[pos[0] % len(batches)]
+            pos[0] += 1
+            with mx.autograd.record():
+                loss = (net(ids) * c).sum()
+            mx.autograd.backward(loss)
+            if mark is not None:
+                mark()
+            trainer.step(1)
+        step()
+        torch.cuda.synchronize()
+        w = param.data().detach()
+        if label == "lazy":
+            m, v = trainer._updater.states[0]
+            ids = batches[0].reshape(-1)
+            uniq = torch.unique(ids)
+            g = torch.zeros(len(uniq), SP_DIM, dtype=torch.float64,
+                            device=dev)
+            g.index_add_(0, torch.searchsorted(uniq, ids),
+                         c.reshape(-1, SP_DIM).double())
+            b1, b2, eps = 0.9, 0.999, 1e-8
+            m64, v64 = (1 - b1) * g, (1 - b2) * g * g
+            lr_t = SP_LR * math.sqrt(1 - b2) / (1 - b1)
+            want = w0[uniq].double() - lr_t * m64 / (v64.sqrt() + eps)
+            adam_err = float((w[uniq].double() - want).abs().max())
+            check(adam_err <= SP_ADAM_TOL, f"lazy Adam rows {adam_err:.3g} "
+                                           "from the float64 rule")
+            mask = torch.ones(SP_VOCAB, dtype=torch.bool, device=dev)
+            mask[uniq] = False
+            same = (torch.equal(w[mask], w0[mask])
+                    and not bool(m[mask].any()) and not bool(v[mask].any()))
+            check(same, "lazy Adam: an untouched row, or its m / v, moved")
+            pull_ids = uniq[torch.randperm(len(uniq), generator=torch.
+                                           Generator().manual_seed(47)
+                                           )[:64].to(dev)]
+            pulled = trainer._kvstore.row_sparse_pull(0, row_ids=pull_ids)
+            pull_equal = torch.equal(pulled.data._data,
+                                     w[torch.sort(pull_ids).values])
+            check(pull_equal, "row_sparse_pull of 64 touched ids differs "
+                              "from those rows of the weight")
+            out.update(unique_rows_step1=len(uniq), adam_f64_max_abs=adam_err,
+                       untouched_rows_and_state_bit_for_bit=same,
+                       row_sparse_pull_64_bit_for_bit=pull_equal)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, update_ms, walls, tails = event_ms(step, SP_STEPS)
+        upd_dev = device_ms(lambda: trainer.step(1), 3, warmup=0)
+        upd_launches = host_launch_calls(lambda: trainer.step(1))
+        uniq_n = [len(torch.unique(b)) for b in batches]
+        table_bytes = SP_VOCAB * SP_DIM * 4
+        if label == "lazy":
+            # read w, m, v and the gradient's rows, write w, m, v: the
+            # unique rows of a step's ids (read on the host, outside)
+            rows = sorted(uniq_n)[len(uniq_n) // 2]
+            nbytes = 7 * rows * SP_DIM * 4
+        else:
+            nbytes = 7 * table_bytes
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[label] = {"step_ms_median": step_ms, "update_ms_median":
+                      update_ms, "step_ms_all": walls,
+                      "update_ms_all": tails, "update_device_ms": upd_dev,
+                      "update_host_launch_calls": sum(upd_launches.values()),
+                      "update_bytes_bound_ms": bound_ms,
+                      "update_bytes": nbytes,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"  (b) {SP_VOCAB} x {SP_DIM} table, {label} Adam: "
+              f"{json.dumps(out[label])}", flush=True)
+        del net, trainer, param, w, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  (b) lazy rows within {out['adam_f64_max_abs']:.3g} of float64 "
+          f"Adam over {out['unique_rows_step1']} unique rows; untouched rows "
+          f"and m / v bit for bit; row_sparse_pull bit for bit", flush=True)
+    return out
+
+
+def nd_cases(mx, rs):
+    """(name, function of the nd module) of the legacy names that
+    tests/test_legacy_ops.py exercises, at its shapes."""
+    def a(*shape):
+        return rs.randn(*shape).astype("float32")
+    x4, w3, b3 = a(4, 10), a(3, 10), a(3)
+    img, cw = a(2, 3, 8, 8), a(4, 3, 3, 3) * 0.1
+    bn = a(2, 4, 8, 8)
+    seq = a(2, 6, 4)
+    up = a(1, 2, 3, 3)
+    lrn = a(2, 8, 4, 4)
+    bb, cc = a(2, 1, 4), a(1, 3, 4)
+    sm, lab = a(4, 3), onp.array([0, 1, 2, 1], "float32")
+    A = a(3, 3)
+    spd = (A @ A.T + 3 * onp.eye(3)).astype("float32")
+    B, Br = a(3, 2), a(2, 3)
+    grid_x = a(1, 2, 5, 5)
+    theta = onp.array([[0.9, 0.1, 0.2, -0.1, 1.1, 0.3]], "float32")
+    rois = onp.array([[0, 0, 0, 5, 5], [1, 2, 1, 7, 6]], "float32")
+    return [
+        ("FullyConnected", lambda nd: nd.FullyConnected(
+            nd.array(x4), nd.array(w3), nd.array(b3), num_hidden=3)),
+        ("Convolution", lambda nd: nd.Convolution(
+            nd.array(img), nd.array(cw), nd.zeros(4), kernel="(3, 3)",
+            num_filter="4", stride="(1, 1)", pad="(1, 1)")),
+        ("BatchNorm_Activation_Pooling", lambda nd: nd.Pooling(
+            nd.Activation(nd.BatchNorm(nd.array(bn), nd.ones(4), nd.zeros(4),
+                                       nd.zeros(4), nd.ones(4)),
+                          act_type="relu"), kernel=(2, 2), stride=(2, 2),
+            pool_type="max")),
+        ("SliceChannel_Concat", lambda nd: nd.Concat(
+            *nd.SliceChannel(nd.array(seq), num_outputs=3, axis=1), dim=1)),
+        ("Reshape", lambda nd: [nd.Reshape(nd.array(seq), shape=s)
+                                for s in ((-1,), (0, -1), (-3, 0))]),
+        ("SoftmaxOutput", lambda nd: nd.SoftmaxOutput(nd.array(sm),
+                                                      nd.array(lab))),
+        ("UpSampling_Pad", lambda nd: [
+            nd.UpSampling(nd.array(up), scale=2, sample_type="nearest"),
+            nd.Pad(nd.array(up), mode="constant",
+                   pad_width=(0, 0, 0, 0, 1, 1, 2, 2), constant_value=5)]),
+        ("LRN", lambda nd: nd.LRN(nd.array(lrn), alpha=1e-3, beta=0.75,
+                                  knorm=2, nsize=3)),
+        ("broadcast", lambda nd: [
+            nd.broadcast_add(nd.array(bb), nd.array(cc)),
+            nd.broadcast_to(nd.array(bb), shape=(2, 3, 0)),
+            nd.broadcast_axis(nd.array(bb), axis=1, size=3)]),
+        ("npx_fallback", lambda nd: [
+            nd.slice_axis(nd.array(x4), axis=1, begin=1, end=3),
+            nd.topk(nd.array(x4), k=2)]),
+        ("linalg", lambda nd: [
+            nd.linalg_potrf(nd.array(spd)),
+            nd.linalg_gemm2(nd.array(A), nd.array(B), alpha=2.0),
+            nd.linalg_trsm(nd.linalg_potrf(nd.array(spd)), nd.array(B)),
+            nd.linalg_trsm(nd.linalg_potrf(nd.array(spd)), nd.array(Br),
+                           rightside=True, transpose=True),
+            nd.linalg_trmm(nd.array(A), nd.array(B), lower=False),
+            nd.linalg_sumlogdiag(nd.array(spd)),
+            nd.linalg_maketrian(nd.linalg_extracttrian(
+                nd.array(A), offset=1), offset=1),
+            nd.linalg_syrk(nd.array(B)), nd.linalg_inverse(nd.array(spd))]),
+        ("spatial", lambda nd: [
+            nd.GridGenerator(nd.array(theta), transform_type="affine",
+                             target_shape=(4, 6)),
+            nd.SpatialTransformer(nd.array(grid_x), nd.array(theta),
+                                  target_shape=(5, 5))]),
+        ("ROIPooling", lambda nd: nd.ROIPooling(
+            nd.array(img), nd.array(rois), pooled_size=(2, 3))),
+    ]
+
+
+def nd_legacy_vs_cpu(mx, dev):
+    """(c) The legacy names on the card against the port's CPU (phase
+    45's tolerance: rtol 1e-5 + atol 1e-5 of max|cpu|)."""
+    worst = {}
+    for name, fn in nd_cases(mx, onp.random.RandomState(47)):
+        outs = []
+        for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
+            with ctx:
+                outs.append([t.detach().cpu() for t in tail_leaves(
+                    fn(mx.nd))])
+        got, want = outs
+        check(len(got) == len(want), f"nd.{name}: output counts differ")
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"nd.{name}: card {g.shape} {g.dtype}, CPU {w.shape} "
+                  f"{w.dtype}")
+            if w.is_floating_point():
+                check(torch.allclose(g.double(), w.double(), rtol=1e-5,
+                                     atol=1e-5 * max(1.0, float(
+                                         w.abs().max()))),
+                      f"nd.{name} on the card against the CPU: "
+                      f"{share_err(g, w):.3g}")
+                err = max(err, share_err(g, w))
+            else:
+                check(torch.equal(g, w), f"nd.{name}: index outputs differ")
+        worst[name] = err
+    return worst
+
+
+def criteo_dot(mx, dev):
+    """(c) sparse.dot of a CSR batch at Criteo's LibSVM width (8192 rows x
+    1,000,000 columns, 39 values a row) by a (1,000,000, 1) weight on the
+    card, against the dense product of the same rows (built 512 rows at a
+    time)."""
+    from mxnet_tpu_torch.ndarray import sparse
+    g = torch.Generator(device="cpu").manual_seed(47)
+    cols = torch.stack([torch.randperm(CRITEO_COLS, generator=g)[
+        :CRITEO_NNZ].sort().values for _ in range(64)])
+    cols = cols.repeat(CRITEO_ROWS // 64, 1)
+    cols = (cols + torch.randint(0, CRITEO_COLS, (CRITEO_ROWS, 1),
+                                 generator=g)) % CRITEO_COLS
+    cols = cols.sort(dim=1).values.to(dev)
+    vals = torch.rand(CRITEO_ROWS, CRITEO_NNZ, generator=g).to(dev)
+    indptr = torch.arange(0, CRITEO_ROWS + 1, device=dev) * CRITEO_NNZ
+    csr = sparse.CSRNDArray(vals.reshape(-1), cols.reshape(-1), indptr,
+                            (CRITEO_ROWS, CRITEO_COLS))
+    w = torch.randn(CRITEO_COLS, 1, generator=g).to(dev)
+    got = sparse.dot(csr, w)._data
+    want = torch.empty_like(got)
+    chunk = 512
+    for r in range(0, CRITEO_ROWS, chunk):
+        dense = torch.zeros(chunk, CRITEO_COLS, device=dev)
+        dense.scatter_(1, cols[r:r + chunk], vals[r:r + chunk])
+        want[r:r + chunk] = dense @ w
+        del dense
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(rel <= SP_DOT_TOL, f"CSR dot against the dense product: {rel:.3g}")
+    ms, _, walls, _ = event_ms(lambda mark: sparse.dot(csr, w), 10)
+    nnz = CRITEO_ROWS * CRITEO_NNZ
+    nbytes = nnz * (4 + 4 + 4) + (CRITEO_ROWS + 1) * 4 + CRITEO_ROWS * 4
+    return {"rows": CRITEO_ROWS, "cols": CRITEO_COLS, "nnz": nnz,
+            "max_rel_err": rel, "dot_ms_median": ms, "dot_ms_all": walls,
+            "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+
+
+def phase_sparse(dev, card):
+    """Phase 47: sparse storage on the card: (a) the LSTM LM with a
+    row-sparse embedding against its dense control, (b) lazy against
+    dense Adam on a 793,471 x 512 table, (c) mx.nd's legacy names against
+    the CPU and a CSR dot at Criteo's width."""
+    import mxnet_tpu_torch as mx
+    print(f"== phase 47: sparse storage and mx.nd on {card} (torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
+    before = all_launches()
+    lm = sparse_lm(mx, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    table = sparse_table(mx, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nd = nd_legacy_vs_cpu(mx, dev)
+    print(f"  (c) {len(nd)} legacy cases on the card against the CPU, worst "
+          f"share {max(nd.values()):.3g} ({max(nd, key=nd.get)})")
+    dot = criteo_dot(mx, dev)
+    print(f"  (c) CSR dot {CRITEO_ROWS} x {CRITEO_COLS}, {CRITEO_NNZ} a row: "
+          f"{json.dumps(dot)}", flush=True)
+    launches = [a - b for a, b in zip(all_launches(), before)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": card, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "lstm_lm": lm, "table": table,
+            "nd_worst_share_err": nd, "criteo_dot": dot,
+            "launches": launches}
 
 
 def timed(name, phase, *args):
@@ -9689,6 +10131,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lstm_lm_train = timed("46", phase_lstm_lm, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse_train = timed("47", phase_sparse, dev, card)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(card)
     fa8 = fp8_launches[1:]
@@ -9861,6 +10306,13 @@ def main():
         entry["launches_by_path"].update(npx_multi_head_attention=mha,
                                          lstm_lm_train=0)
         entry["launches"] += mha
+    # phase 47, sparse storage: the wrappers' counts over the phase (the
+    # sparse LM, the table and mx.nd run none of the table's kernels)
+    for i, entry in enumerate(entries):
+        entry["launches_by_path"]["sparse_phase"] = \
+            sparse_train["launches"][i] if i < 7 else sum(
+                sparse_train["launches"][7:])
+        entry["launches"] += entry["launches_by_path"]["sparse_phase"]
     for row in serve_prefix.values():
         row.pop("tokens")
     print(json.dumps({"kernels": entries, "train": train_e2e,
@@ -9899,7 +10351,8 @@ def main():
                       "gpt_fleet_drill_train": gpt_fleet,
                       "serve_fleet": serve_fleet,
                       "npx_tail": npx_tail,
-                      "lstm_lm_train": lstm_lm_train}))
+                      "lstm_lm_train": lstm_lm_train,
+                      "sparse_train": sparse_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,11 @@ and every op goes through one ``_invoke`` (``numpy/multiarray.py``), with
 the reference's 187-function surface, ``np.random`` and ``np.linalg``;
 ``mx.npx`` and every Gluon block take ``mx.np`` arrays and give them back.
 Devices are ``Context``s (``mx.cpu()``, ``mx.gpu(i)`` is ``cuda:i``), and
-``with ctx:`` sets the default.
+``with ctx:`` sets the default. ``mx.nd`` is the legacy namespace over
+``mx.np`` (the 1.x CamelCase operator table, the legacy binary files) with
+sparse storage (``nd.sparse``: ``RowSparseNDArray`` gradients of
+``Embedding(sparse_grad=True)``, lazy optimizer updates through the
+store, ``CSRNDArray``).
 
 The ported slices are serving (``serve.load(GPTForCausalLM(...))``, prefill
 attention through the flash-attention forward kernel) and training
@@ -77,6 +81,8 @@ from . import kvstore as kv
 from . import numpy_extension as npx
 from . import optimizer, parallel, random, serve, test_utils, util
 from . import image, io, recordio, resilience, stream
+from . import ndarray
+from . import ndarray as nd
 from . import fleet, servefleet
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, device, gpu,
@@ -89,7 +95,7 @@ __all__ = ["Context", "MXNetError", "amp", "autograd", "blackbox", "config",
            "context", "contrib", "cpu", "cpu_pinned", "current_context",
            "device", "dlpack", "fault", "fleet", "functional", "gluon",
            "goodput", "gpu", "image", "init", "initializer", "insight", "io",
-           "kv", "kvstore", "log", "lr_scheduler",
+           "kv", "kvstore", "log", "lr_scheduler", "nd", "ndarray",
            "np", "npx", "num_gpus", "optimizer", "parallel", "pipeline",
            "profiler", "random", "recordio", "resilience",
            "resolve_device", "serve", "servefleet", "stream", "telemetry",

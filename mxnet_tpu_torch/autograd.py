@@ -33,6 +33,16 @@ Counterpart of ``mxnet_tpu/autograd.py`` (``record``/``pause``/
   ``MXNetError`` naming it, as the reference's raises for a node without
   a re-differentiable function; it never returns a second derivative
   that is silently zero.
+- A row-sparse gradient (``npx.embedding(sparse_grad=True)``): each
+  call's backward puts its ids and cotangent rows in the weight's sink,
+  and :func:`backward` writes the concatenation of one backward's rows as
+  a torch COO gradient, which a parameter's ``grad()`` (and an attached
+  array's ``grad``) reads as a ``RowSparseNDArray`` of as many slots as
+  rows (reference: ``autograd.py:445-460``: its sparse cotangents merge
+  through ``sparse.add``, concatenating); :func:`grad` returns one too.
+  Under "add" two sparse gradients stay sparse, their entries
+  concatenated, and a dense one beside a sparse one densifies (reference:
+  multiarray.py ``_write_grad``).
 - :class:`Function` is the reference's custom function (``forward`` and
   ``backward`` written by the user on arrays); ``get_symbol`` raises as
   the reference's does.
@@ -184,6 +194,11 @@ def _grad_req(leaf):
     return getattr(leaf, "_mx_grad_req", "write")
 
 
+def _row_sparse(leaf):
+    param = getattr(leaf, "_mx_param", None)
+    return param is not None and param.grad_stype == "row_sparse"
+
+
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Gradients of ``heads`` into every leaf they reach, by ``grad_req``
     (reference: autograd.py ``backward``): "write" leaves get the fresh
@@ -193,18 +208,59 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     heads = _as_list(heads)
     seeds = _seeds(heads, _as_list(head_grads))
     added = []
-    for leaf in _leaves(heads):
+    leaves = _leaves(heads)
+    for leaf in leaves:
+        leaf._mx_sink = []   # row-sparse gradient rows (npx.embedding)
+    for leaf in leaves:
         req = _grad_req(leaf)
-        if req == "add" and hasattr(leaf, "_mx_grad_req"):
-            # an attached array's "add": out of place, after the backward
-            added.append((leaf, leaf.grad))
+        if req == "add" and (hasattr(leaf, "_mx_grad_req")
+                             or _row_sparse(leaf)):
+            # an attached array's "add", or a row-sparse parameter's: out
+            # of place, after the backward (an attached array's untouched
+            # zero buffer gives way, as the reference's all-zero one does)
+            old = leaf.grad
+            added.append((leaf, None if getattr(old, "_mx_zeros", False)
+                          else old))
             leaf.grad = None
         elif req == "write":
             leaf.grad = None  # torch then assigns instead of accumulating
-    torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+    try:
+        torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+    finally:
+        for leaf in leaves:
+            parts, leaf._mx_sink = leaf._mx_sink, None
+            if parts:
+                _add_rows(leaf, parts)
     for leaf, old in added:
         if old is not None:
-            leaf.grad = old if leaf.grad is None else old + leaf.grad
+            leaf.grad = old if leaf.grad is None else _accum(old, leaf.grad)
+
+
+def _add_rows(leaf, parts):
+    """One backward's row-sparse gradient rows of ``leaf`` as one torch
+    COO gradient, every call's rows concatenated in the order the
+    backward reached them, added to what autograd wrote (a dense part
+    densifies)."""
+    coo = torch.sparse_coo_tensor(
+        torch.cat([ids for ids, _ in parts]).unsqueeze(0),
+        torch.cat([rows for _, rows in parts]), leaf.shape,
+        check_invariants=False)
+    leaf.grad = coo if leaf.grad is None else _accum(leaf.grad, coo)
+
+
+def _accum(old, new):
+    """An attached array's "add" (reference: autograd.py ``_accum`` and
+    multiarray.py ``_write_grad``): two row-sparse (torch COO) gradients
+    stay sparse, their entries concatenated; a dense one with a sparse one
+    densifies."""
+    if old.is_sparse and new.is_sparse:
+        return torch.sparse_coo_tensor(
+            torch.cat([old._indices(), new._indices()], 1),
+            torch.cat([old._values(), new._values()]), old.shape,
+            check_invariants=False)
+    if old.is_sparse:
+        return new + old
+    return old + new
 
 
 def _first_order_nodes(heads):
@@ -257,8 +313,9 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(variables, grads)]
     if arrays:
+        from .ndarray.sparse import _from_coo
         from .numpy.multiarray import _wrap
-        grads = [_wrap(g) for g in grads]
+        grads = [_from_coo(g) if g.is_sparse else _wrap(g) for g in grads]
     return grads[0] if single else grads
 
 

@@ -22,7 +22,14 @@ entry per signature:
   the forward is captured from static input buffers, and, when the call
   records, a second graph of ``torch.autograd.grad`` of the outputs with
   respect to the trainable parameters and the inputs that require grad,
-  from static cotangent buffers. A call copies its inputs in, replays,
+  from static cotangent buffers. The capture differentiates with respect
+  to aliases of the trainable parameters (fresh leaves over their
+  storage, which the forward reads in their place), so an eager graph
+  still alive over the parameters, whose gradient accumulators belong to
+  the default stream, cannot draw the capture onto that stream. The
+  cyclic garbage collector is paused while an entry captures: a dead
+  block's graphs collected mid-capture would invalidate it. A call
+  copies its inputs in, replays,
   and returns copies of the outputs, so a later call never overwrites an
   earlier result. A recording call is one ``torch.autograd.Function``
   whose backward replays the second graph and returns the gradients, so
@@ -65,6 +72,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import hashlib
 import threading
 import time
@@ -133,6 +141,50 @@ def _static_repr(leaf):
     if len(r) > 128:
         return "H" + hashlib.sha256(r.encode()).hexdigest()
     return r
+
+
+def _alias(param):
+    """A leaf over ``param``'s storage that requires grad (a new tensor
+    object: no autograd history, no gradient accumulator), carrying the
+    back-reference layers read."""
+    alias = param._var.detach().requires_grad_(True)
+    alias._mx_param = param
+    return alias
+
+
+@contextlib.contextmanager
+def _substituted(block, aliases):
+    """Within the scope every module of ``block`` that holds a tensor of
+    ``aliases`` ({parameter tensor: alias}) holds its alias instead (tied
+    parameters included); put back on exit."""
+    swapped = []
+    if aliases:
+        for module in block.modules():
+            for name, t in module._parameters.items():
+                alias = aliases.get(t) if t is not None else None
+                if alias is not None:
+                    swapped.append((module, name, t))
+                    module._parameters[name] = alias
+    try:
+        yield
+    finally:
+        for module, name, t in swapped:
+            module._parameters[name] = t
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No cyclic garbage collection within the scope: a collection during
+    a capture can free another block's captured graphs (a block and its
+    ``_CachedGraph`` form a cycle), and destroying a graph executable
+    while a stream captures invalidates that capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _capture_stream(device):
@@ -376,14 +428,14 @@ class _CachedGraph:
         return pytree.tree_unflatten(leaves, entry.out_spec)
 
     # -- capture --------------------------------------------------------------
-    def _run(self, spec, statics, tensors, recording, training):
+    def _run(self, spec, statics, tensors, recording, training, aliases):
         leaves = list(statics)
         it = iter(tensors)
         for i, leaf in enumerate(leaves):
             if leaf is _ARR:
                 leaves[i] = next(it)
         args, kwargs = pytree.tree_unflatten(leaves, spec)
-        with plain_scope(), \
+        with plain_scope(), _substituted(self.block, aliases), \
                 _autograd._RecordingStateScope(recording, training):
             return self.block._forward_tensors(args, kwargs)
 
@@ -401,11 +453,19 @@ class _CachedGraph:
             static_in[i].requires_grad_(True)
         entry.static_in = static_in
         aux = [p._var for p in self.params if p.grad_req == "null"]
-        wrt = [p._var for p in trainable] + [static_in[i]
-                                             for i in entry.diff_in]
+        # the capture differentiates with respect to aliases of the
+        # trainable parameters (their storage, fresh leaves), which the
+        # forward reads in their place: their gradient accumulators are
+        # made on the capture stream, whatever an eager graph still alive
+        # over the parameters holds (a leaf's own accumulator, made on the
+        # default stream, made the backward's capture join that stream)
+        aliases = {p._var: _alias(p) for p in trainable}
+        wrt = [aliases[p._var] for p in trainable] + [static_in[i]
+                                                     for i in entry.diff_in]
 
         def forward_outputs():
-            out = self._run(spec, statics, static_in, recording, training)
+            out = self._run(spec, statics, static_in, recording, training,
+                            aliases)
             leaves, out_spec = pytree.tree_flatten(out)
             return leaves, out_spec
 
@@ -414,7 +474,7 @@ class _CachedGraph:
                                        allow_unused=True)
 
         gens = {}
-        with _capture_lock:
+        with _capture_lock, _gc_paused():
             stream = _capture_stream(device)
             saved_aux = [v.detach().clone() for v in aux]
             stream.wait_stream(torch.cuda.current_stream(device))

@@ -20,7 +20,7 @@ Each creates its parameters on its device at construction. ``Dense`` and
 deferred parameters, whose shape their first forward infers from the input
 (:func:`_ready`), as the reference's do, and so do the norms told no
 ``in_channels``; ``Embedding`` still needs its widths
-(``sparse_grad=True`` raises until sparse storage is ported).
+(``sparse_grad=True``: a row-sparse weight gradient).
 ``Dropout`` is live only while ``autograd.is_training()``, as in the
 reference, and draws its mask from
 its own ``generator`` where one is set, else from the default generator of
@@ -39,7 +39,6 @@ from ... import autograd
 from ...amp import fp8 as _fp8
 from ...numpy_extension import tensor_ops as npx
 from ... import random as _random
-from ...base import MXNetError
 from ...context import resolve_device
 from ..block import HybridBlock
 from ..parameter import Parameter
@@ -161,20 +160,23 @@ class Activation(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Reference: basic_layers.py Embedding over indexing_op.cc."""
+    """Reference: basic_layers.py Embedding over indexing_op.cc.
+    ``sparse_grad=True`` gives the weight ``grad_stype="row_sparse"``: an
+    eager recorded call writes a ``RowSparseNDArray`` gradient (its rows
+    only), which lazy-update optimizers and the store's row-sparse push
+    take; hybridized, the gradient is dense, as in the reference."""
 
     def __init__(self, input_dim, output_dim, dtype=torch.float32,
                  weight_initializer=None, sparse_grad=False, device=None):
         super().__init__()
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True): row-sparse "
-                             "gradients are not ported yet (ROADMAP.md "
-                             "Queue 1, item 9)")
-        self.weight = _param((input_dim, output_dim), dtype,
-                             resolve_device(device), init=weight_initializer)
+        self._sparse_grad = sparse_grad
+        self.weight = Parameter(
+            (input_dim, output_dim), dtype, resolve_device(device),
+            init=weight_initializer,
+            grad_stype="row_sparse" if sparse_grad else "default").data()
 
     def forward(self, x):
-        return npx.embedding(x, self.weight)
+        return npx.embedding(x, self.weight, sparse_grad=self._sparse_grad)
 
 
 class LayerNorm(HybridBlock):

@@ -11,7 +11,10 @@ carries a back-reference to its :class:`Parameter` (``_mx_param``), which
 is how ``Block.collect_params()`` and ``autograd.backward`` find the
 ``grad_req`` of a tensor. ``grad_req`` maps onto ``requires_grad``
 (``"null"`` -> False); the write-or-add rule on ``.grad`` is applied by
-``autograd.backward``.
+``autograd.backward``. A ``grad_stype="row_sparse"`` parameter's
+``grad()`` is a ``RowSparseNDArray`` once a recorded
+``npx.embedding(sparse_grad=True)`` wrote it (the tensor is a torch COO
+gradient then), as the reference's ``.grad`` is.
 
 A shape with a 0 in it is deferred, as in the reference
 (``_shape_known``): the tensor is an empty placeholder of that shape,
@@ -75,7 +78,17 @@ class Parameter:
     ``Parameter``)."""
 
     def __init__(self, shape, dtype=torch.float32, device="cpu",
-                 grad_req="write", lr_mult=1.0, wd_mult=1.0, init=None):
+                 grad_req="write", lr_mult=1.0, wd_mult=1.0, init=None,
+                 stype="default", grad_stype="default"):
+        if stype != "default" or grad_stype not in ("default",
+                                                    "row_sparse"):
+            raise MXNetError(f"stype {stype!r} / grad_stype "
+                             f"{grad_stype!r}: a parameter is dense, its "
+                             "gradient dense or row_sparse")
+        #: the storage types (reference: parameter.py ``stype`` /
+        #: ``grad_stype``); "row_sparse" gradients come from
+        #: ``Embedding(sparse_grad=True)``
+        self._stype, self._grad_stype = stype, grad_stype
         self._var = _Var(torch.empty(shape, dtype=torch_dtype(dtype),
                                      device=resolve_device(device)),
                          requires_grad=False)
@@ -205,21 +218,56 @@ class Parameter:
         and the fused update read it as one)."""
         return self._var
 
+    @property
+    def stype(self):
+        return self._stype
+
+    @property
+    def grad_stype(self):
+        return self._grad_stype
+
     def grad(self, ctx=None):
         """The gradient buffer: zeros until a backward writes it, as the
-        reference's attached buffer is. Raises when ``grad_req`` is
-        "null"."""
+        reference's attached buffer is. A row-sparse gradient (a
+        ``grad_stype="row_sparse"`` parameter's recorded embedding) is a
+        ``RowSparseNDArray``, the reference's ``.grad`` (a tensor
+        otherwise); until one is written such a parameter reads dense
+        zeros that are not kept, so its first backward stores the sparse
+        gradient (the reference's all-zero buffer gives way to it).
+        Raises when ``grad_req`` is "null"."""
         if self._grad_req == "null":
             raise MXNetError(f"parameter {self.name} has no gradient buffer "
                              "(grad_req='null')")
-        if self._var.grad is None:
-            self._var.grad = torch.zeros_like(self._var)
-        return self._var.grad
+        g = self._var.grad
+        if g is not None and g.is_sparse:
+            from ..ndarray import sparse
+            return sparse._cached_rsp(self._var)
+        if g is None:
+            if self._grad_stype == "row_sparse":
+                return torch.zeros_like(self._var)
+            g = self._var.grad = torch.zeros_like(self._var)
+        return g
+
+    def row_sparse_data(self, row_id):
+        """This parameter's rows at ``row_id`` (duplicates dropped, sorted)
+        as a ``RowSparseNDArray`` (reference: parameter.py
+        ``row_sparse_data``, the sparse-embedding pull; the ids' count is
+        read on the host)."""
+        from ..ndarray import sparse
+        ids = torch.unique(torch.as_tensor(
+            getattr(row_id, "_data", row_id), device=self.device).long())
+        return sparse.RowSparseNDArray(self._var.detach().index_select(0, ids),
+                                       ids, self.shape)
 
     def zero_grad(self):
-        """Zero the gradient buffer in place (the "add" accumulator)."""
+        """Zero the gradient buffer in place (the "add" accumulator); a
+        row-sparse gradient is dropped (its next backward starts it
+        again)."""
         if self._var.grad is not None:
-            self._var.grad.zero_()
+            if self._var.grad.is_sparse:
+                self._var.grad = None
+            else:
+                self._var.grad.zero_()
 
     @torch.no_grad()
     def set_data(self, data):

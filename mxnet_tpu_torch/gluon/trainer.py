@@ -27,6 +27,18 @@ store (each gradient pushed, each weight pulled back), which gives the
 weights of the local update. Otherwise one card has nothing to reduce and
 the gradients stay as they are.
 
+Row-sparse gradients (a ``grad_stype="row_sparse"`` parameter:
+``Embedding(sparse_grad=True)``) force ``update_on_kvstore`` when it is
+left None, and ``update_on_kvstore=False`` with a store raises
+(reference: trainer.py:171-186). On the one-card store without
+compression the forced mode binds each row-sparse weight as its key's
+value (``KVStore._bind``): the push runs the optimizer's lazy rule on the
+weight's touched rows in place and nothing is pulled, while the dense
+parameters stay in the fused update (the same ``Updater`` states, so the
+same values as the reference's per-key store updates). Without a store a
+row-sparse gradient takes one rule call (lazy or densified), as the
+reference's ``_update`` does.
+
 A distributed store ("dist_sync", "dist_device_sync", "dist_async",
 "horovod", "byteps", or a ``DistKVStore`` object) reduces every gradient
 across the processes before the update (a pushpull each, summed, then
@@ -78,9 +90,15 @@ from ..base import MXNetError
 from ..kvstore import KVStoreBase
 from ..kvstore import create as _create_kvstore
 from ..kvstore.base import is_distributed
+from ..kvstore.kvstore import KVStore as _LocalKVStore
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
+
+
+def _dense_values(grad):
+    """A gradient's tensor of values (a row-sparse gradient's rows)."""
+    return grad if isinstance(grad, torch.Tensor) else grad.data._data
 
 
 class _FusedUpdate:
@@ -159,7 +177,13 @@ class Trainer:
         self._params = params
         self._kvstore_type = kvstore
         self._compression_params = compression_params
-        self._update_on_kvstore = bool(update_on_kvstore)
+        #: None until the store decides (reference: trainer.py
+        #: ``_init_kvstore``): row-sparse gradients force it on
+        self._update_on_kvstore = update_on_kvstore
+        #: the indices the store updates (every parameter's, with
+        #: ``update_on_kvstore``; only the row-sparse ones' where they
+        #: forced it on a one-card store)
+        self._store_keys = ()
         #: the store, made at the first step (None: no kvstore)
         self._kvstore = None
         self._kv_initialized = False
@@ -208,6 +232,8 @@ class Trainer:
         if self._kv_initialized:
             return
         kind = self._kvstore_type
+        sparse = [i for i, p in enumerate(self._params)
+                  if p.grad_stype == "row_sparse"]
         if kind is None or kind == "":
             self._update_on_kvstore = False
         else:
@@ -215,10 +241,30 @@ class Trainer:
                 else _create_kvstore(kind)
             if self._compression_params:
                 kv.set_gradient_compression(self._compression_params)
+            forced = self._update_on_kvstore is None and bool(sparse)
+            if self._update_on_kvstore is None:
+                self._update_on_kvstore = forced
+            elif sparse and not self._update_on_kvstore:
+                raise MXNetError(
+                    "update_on_kvstore=False is not supported with "
+                    "row_sparse gradients (reference trainer.py raises too)")
+            if sparse and self._distributed:
+                raise MXNetError(
+                    "row_sparse gradients over a distributed store are not "
+                    "ported; use Embedding(sparse_grad=False)")
             if self._update_on_kvstore:
                 kv.set_optimizer(self._optimizer)
                 self._updater = kv._updater
-                self._fused_update = False
+                self._store_keys = range(len(self._params))
+                if forced and isinstance(kv, _LocalKVStore) \
+                        and not self._compression_params:
+                    # one card: the store updates the row-sparse weights
+                    # in place (lazily), the dense ones stay fused here
+                    self._store_keys = sparse
+                    for i in sparse:
+                        kv._bind(i, self._params[i].data())
+                else:
+                    self._fused_update = False
             if self._distributed:
                 # every key starts from the weights, as the reference's
                 # _init_kvstore does (a dist_async pull reconciles them)
@@ -243,8 +289,9 @@ class Trainer:
             if p.grad_req == "null":
                 continue
             if self._update_on_kvstore:
-                kv.init(i, p.data())
-                kv.push(i, p.grad(), priority=-i)
+                if i in self._store_keys:
+                    kv.init(i, p.data())
+                    kv.push(i, p.grad(), priority=-i)
             else:
                 kv.pushpull(i, p.grad(), out=p.grad(), priority=-i)
 
@@ -258,14 +305,14 @@ class Trainer:
         them, one host read."""
         if _pipeline._guard_depth:
             _pipeline.note_host_sync("trainer.finite_check")
-        return all_finite(p.grad() for p in self._params
+        return all_finite(_dense_values(p.grad()) for p in self._params
                           if p.grad_req != "null")
 
     # -- telemetry: the deferred grad norm --------------------------------------
     def _grad_norm_device(self):
         """Global gradient L2 norm as one fp32 device scalar, not read
         here (``_note_grad_norm`` defers the read)."""
-        grads = [p.grad() for p in self._params
+        grads = [_dense_values(p.grad()) for p in self._params
                  if p.grad_req != "null" and p.grad() is not None]
         if not grads:
             return None
@@ -371,10 +418,17 @@ class Trainer:
         work = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
         if self._update_on_kvstore:
-            # the store updated its copies at the push: pull them back
+            # the store updated its copies at the push: pull them back (a
+            # bound weight is the store's value: nothing to pull)
             for i, p in work:
-                self._kvstore.pull(i, out=p.data(), priority=-i)
-            return
+                if i in self._store_keys:
+                    self._kvstore.pull(i, out=p.data(), priority=-i)
+            work = [(i, p) for i, p in work if i not in self._store_keys]
+        # row-sparse gradients: one rule call each (lazy or densified)
+        for i, p in work:
+            if not isinstance(p.grad(), torch.Tensor):
+                self._updater(i, p.grad(), p.data())
+        work = [(i, p) for i, p in work if isinstance(p.grad(), torch.Tensor)]
         if not work:
             return
         if self._fused_update is None:

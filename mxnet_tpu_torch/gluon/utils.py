@@ -77,6 +77,12 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
     scaling (reference: utils.py ``clip_global_norm``)."""
     if not arrays:
         raise MXNetError("clip_global_norm needs at least one array")
+    for a in arrays:
+        if hasattr(a, "stype") and a.stype != "default":
+            # the reference raises AttributeError here too (it reads ._data)
+            raise AttributeError(
+                f"clip_global_norm takes dense arrays, not a {a.stype} "
+                "one: clip the dense gradients only")
     raws = [getattr(a, "_data", a) for a in arrays]
     norms = torch._foreach_norm(raws, 2, dtype=torch.float32)
     total = torch.linalg.vector_norm(torch.stack(norms))

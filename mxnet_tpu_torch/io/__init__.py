@@ -5,7 +5,7 @@ python/mxnet/io/io.py, DataIter/DataBatch/NDArrayIter, and the C++
 iterators of src/io/: CSVIter, LibSVMIter, MNISTIter). The Gluon
 DataLoader is the modern path; these iterators serve MXNet-1.x-style
 loops. Batches are ``mx.np`` arrays on the current context; LibSVMIter's
-data is a torch sparse CSR tensor (the port has no sparse ``ndarray``).
+data is a ``CSRNDArray`` (``ndarray.sparse``), as the reference's.
 ``ImageRecordIter`` and its variants wait for the ``mx.image`` augmenters
 and ``ImageIter`` and raise.
 """
@@ -290,8 +290,8 @@ class CSVIter(DataIter):
 
 class LibSVMIter(DataIter):
     """LibSVM sparse-format iterator (reference: src/io/iter_libsvm.cc).
-    The data of a batch is a torch sparse CSR tensor on the current
-    context (the reference's CSR storage for the data field)."""
+    The data of a batch is a ``CSRNDArray`` on the current context (the
+    reference's CSR storage for the data field)."""
 
     def __init__(self, data_libsvm, data_shape, batch_size=1,
                  round_batch=True, **kwargs):
@@ -328,8 +328,7 @@ class LibSVMIter(DataIter):
         self._cursor = 0
 
     def next(self):
-        import torch
-        from ..context import resolve_device
+        from ..ndarray import sparse as _sp
         n = len(self._labels)
         if self._cursor >= n:
             raise StopIteration
@@ -347,14 +346,11 @@ class LibSVMIter(DataIter):
             idxs.append(self._indices[lo:hi])
             vals.append(self._values[lo:hi])
             ptr.append(ptr[-1] + (hi - lo))
-        data = torch.sparse_csr_tensor(
-            torch.as_tensor(onp.asarray(ptr, "int64")),
-            torch.as_tensor(onp.concatenate(idxs) if idxs
-                            else onp.zeros(0, "int64")),
-            torch.as_tensor(onp.concatenate(vals) if vals
-                            else onp.zeros(0, "float32")),
-            size=(len(rows),) + self.data_shape,
-            device=resolve_device())
+        data = _sp.csr_matrix(
+            (onp.concatenate(vals) if vals else onp.zeros(0, "float32"),
+             onp.concatenate(idxs) if idxs else onp.zeros(0, "int64"),
+             onp.asarray(ptr, "int64")),
+            shape=(len(rows),) + self.data_shape)
         return DataBatch([data], [_array(self._labels[rows])], pad=pad)
 
     __next__ = next

@@ -6,7 +6,10 @@ written back too); ``push`` sums a list of values, then runs the updater
 on the stored value (``set_optimizer``: the optimizer runs inside the
 store, as ``Trainer(update_on_kvstore=True)`` uses it) or stores the sum;
 ``pull`` copies the stored value out; ``pushpull`` pushes and writes the
-result out; ``broadcast`` is ``init`` then ``pull``.
+result out; ``broadcast`` is ``init`` then ``pull``. Row-sparse values
+(``RowSparseNDArray``) reduce sparsely and reach the optimizer as they
+are, so a ``lazy_update`` rule touches their rows only;
+``row_sparse_pull`` pulls the rows of given ids.
 
 Gradient compression (``set_gradient_compression``) quantizes each
 pushed sum with its key's residual before the updater or the store sees
@@ -71,19 +74,32 @@ class KVStore(KVStoreBase):
 
     def _merged(self, k, vs):
         """The sum of one key's pushed values, quantized with the key's
-        residual when compression is set."""
-        if isinstance(vs, (list, tuple)):
-            merged = _raw(vs[0])
-            for v in vs[1:]:
-                merged = merged + _raw(v)
-        else:
-            merged = _raw(vs)
+        residual when compression is set. Row-sparse values reduce
+        sparsely (reference: comm.h ``ReduceRowSparse``)."""
+        from ..ndarray.sparse import BaseSparseNDArray, add
+        parts = list(vs) if isinstance(vs, (list, tuple)) else [vs]
+        if any(isinstance(v, BaseSparseNDArray) for v in parts):
+            merged = parts[0]
+            for v in parts[1:]:
+                merged = add(merged, v)
+            if self._gc is not None:
+                raise MXNetError("gradient compression takes dense values, "
+                                 "not row_sparse ones")
+            return merged if isinstance(merged, BaseSparseNDArray) \
+                else _raw(merged)
+        merged = _raw(parts[0])
+        for v in parts[1:]:
+            merged = merged + _raw(v)
         if self._gc is not None:
             merged = self._gc.quantize(k, merged)
         return merged
 
     @torch.no_grad()
     def push(self, key, value, priority=0):
+        """Reduce each key's values and update the stored value with them
+        (the optimizer's rule where one is set, else the sum is stored).
+        A row-sparse sum goes to the optimizer as it is (its lazy rule
+        touches its rows only), or is stored densified."""
         keys, values = self._normalize(key, value)
         for k, vs in zip(keys, values):
             self._check(k)
@@ -91,14 +107,59 @@ class KVStore(KVStoreBase):
             if self._updater is not None:
                 self._updater(self._key_int(k), merged, self._store[k])
             else:
+                if not isinstance(merged, torch.Tensor):
+                    merged = merged.tostype("default")._data
                 self._store[k].copy_(merged)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        """Copy each key's value into ``out`` (reference: kvstore.py
+        ``pull``; ``ignore_sparse`` as the reference takes it: row-sparse
+        values are pulled with :meth:`row_sparse_pull`)."""
         keys, outs = self._normalize(key, out)
         for k, o in zip(keys, outs):
             self._check(k)
             for t in (o if isinstance(o, (list, tuple)) else [o]):
-                _assign(t, self._store[k])
+                if t is not self._store[k]:
+                    _assign(t, self._store[k])
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows ``row_ids`` of each key (duplicates dropped,
+        sorted; the count is read on the host) as a ``RowSparseNDArray``
+        (reference: kvstore.py ``row_sparse_pull`` over kvstore.h
+        ``PullRowSparse``), written into the ``out`` targets too: a
+        row-sparse target takes the rows, a dense one those rows and zeros
+        elsewhere. Without ``row_ids`` it is :meth:`pull`."""
+        if row_ids is None:
+            return self.pull(key, out=out, priority=priority)
+        from ..ndarray.sparse import RowSparseNDArray
+        keys, _ = self._normalize(key, None)
+        rids = (row_ids if isinstance(row_ids, (list, tuple))
+                else [row_ids] * len(keys))
+        results = []
+        for k, rid in zip(keys, rids):
+            self._check(k)
+            src = self._store[k]
+            ids = torch.unique(torch.as_tensor(_raw(rid),
+                                               device=src.device).long())
+            results.append(RowSparseNDArray(src.index_select(0, ids), ids,
+                                            tuple(src.shape)))
+        if out is not None:
+            _, outs = self._normalize(key, out)
+            for rsp, o in zip(results, outs):
+                for t in (o if isinstance(o, (list, tuple)) else [o]):
+                    if isinstance(t, RowSparseNDArray):
+                        t.data, t.indices, t.shape = (rsp.data, rsp.indices,
+                                                      rsp.shape)
+                    else:
+                        _assign(t, rsp.tostype("default"))
+        return results[0] if not isinstance(key, (list, tuple)) else results
+
+    def _bind(self, key, tensor):
+        """Make ``tensor`` itself (no copy) the value of ``key``: the
+        Trainer binds a row-sparse parameter's weight, so the store's lazy
+        update writes the weight's touched rows in place and nothing is
+        pulled back."""
+        self._store[key] = tensor
 
     @torch.no_grad()
     def pushpull(self, key, value, out=None, priority=0):

@@ -26,8 +26,8 @@ ever sees a later write. An attached array (``attach_grad``) stays
 attached across a rebind: its new storage becomes the leaf whose gradient
 it reports. bf16 ``asnumpy()`` widens to float32 exactly (NumPy has no
 bfloat16 without ``ml_dtypes``, which the port does not need);
-``dtype`` is the port's ``bfloat16`` object. Sparse storage types are not
-ported: ``tostype`` takes "default" only.
+``dtype`` is the port's ``bfloat16`` object. ``tostype`` converts to the
+sparse storage types of ``ndarray.sparse``.
 """
 from __future__ import annotations
 
@@ -113,8 +113,10 @@ def _host_tensor(obj, dtype=None, device=None, python=False):
     if dtype is torch.bfloat16:
         t = torch.tensor(host.astype(onp.float32), device=device)
         return t.to(torch.bfloat16)
-    return torch.tensor(host.astype(np_dtype(dtype), copy=False),
-                        device=device)
+    host = host.astype(np_dtype(dtype), copy=False)
+    if any(st < 0 for st in host.strides):
+        host = host.copy()   # torch takes no negative strides (a[:, ::-1])
+    return torch.tensor(host, device=device)
 
 
 def _tensor_device(args):
@@ -483,10 +485,17 @@ class ndarray:
         return self
 
     def tostype(self, stype):
+        """This array in storage type ``stype``: "default" (itself),
+        "row_sparse" or "csr" (``ndarray.sparse``; found on the host, as
+        the reference's conversions are)."""
         if stype == "default":
             return self
-        raise MXNetError(f"storage type {stype!r}: sparse storage is not "
-                         "ported yet (ROADMAP.md Queue 1, item 9)")
+        from ..ndarray import sparse
+        if stype == "row_sparse":
+            return sparse.row_sparse_array(self)
+        if stype == "csr":
+            return sparse.csr_matrix(self)
+        raise MXNetError(f"unknown storage type {stype!r}")
 
     # -- NumPy interoperability protocols ----------------------------------------
     def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
@@ -548,6 +557,9 @@ class ndarray:
         """A zero gradient buffer, and this array a recording leaf
         (reference: ``NDArray.attach_grad`` over ``mark_variables``)."""
         autograd.mark_variables([self], [zeros_like(self)], grad_req)
+        if self._var is not None:
+            # known zeros: a row-sparse "add" replaces them (no host read)
+            self._var.grad._mx_zeros = True
 
     def _mark_variable(self, grad, grad_req):
         if grad_req not in ("write", "add", "null"):
@@ -574,10 +586,14 @@ class ndarray:
     @property
     def grad(self):
         """The gradient buffer (its wrapper rebound to the last written
-        gradient)."""
+        gradient); a row-sparse gradient (``npx.embedding(...,
+        sparse_grad=True)``) as a ``RowSparseNDArray``."""
         if self._grad is None:
             return None
         g = self._var.grad
+        if g is not None and g.is_sparse:
+            from ..ndarray import sparse
+            return sparse._cached_rsp(self._var)
         if g is not None and g is not self._grad._data:
             self._grad._data = g
             self._grad._version += 1
@@ -587,6 +603,7 @@ class ndarray:
         if self._grad is None:
             return
         self._var.grad = torch.zeros_like(self._var)
+        self._var.grad._mx_zeros = True
         self._grad._data = self._var.grad
         self._grad._version += 1
 

@@ -59,7 +59,7 @@ hooked versions while one is on.
 ``embedding`` and ``pooling`` take the reference's arguments
 (``num_hidden`` / ``no_bias``; ``axis``; ``length`` / ``use_length``, the
 masked positions written 0; ``input_dim`` / ``output_dim`` / ``dtype`` /
-``sparse_grad``, which raises until sparse storage is ported; the "sum"
+``sparse_grad``: a row-sparse weight gradient; the "sum"
 and "lp" pool types). ``pooling_convention`` "full" and "same" compute as
 "valid" does, as in the reference, whose ``pooling`` reads the argument
 nowhere. ``waitall``, ``save`` and ``load`` (``.npz``) are the
@@ -681,18 +681,65 @@ def embedding(ids, weight, input_dim=None, output_dim=None, dtype="float32",
     NaN whose gradient reaches no weight row. Float ids truncate. The rule
     is decided from the ids' values before the gather (a clamped id is
     gathered and its row overwritten), so no index check fires on the
-    device. ``sparse_grad=True`` (a row-sparse gradient) raises until
-    sparse storage is ported (ROADMAP.md Queue 1, item 9)."""
-    if sparse_grad:
-        raise MXNetError("embedding(sparse_grad=True): row-sparse gradients "
-                         "are not ported yet (ROADMAP.md Queue 1, item 9)")
+    device. ``sparse_grad=True`` (reference: numpy_extension
+    ``embedding``, :581-613) gives a recorded call's weight a row-sparse
+    gradient: :class:`_SparseEmbedding`'s backward hands autograd a torch
+    COO tensor of the call's rows, which the weight's ``grad`` reads as a
+    ``RowSparseNDArray`` in the reference's encoding. Inside a hybridized
+    call (or ``functional_call``) the gradient is dense, as the
+    reference's traced embedding is."""
     weight, = _cast("embedding", weight)
     v = weight.shape[0]
     idx = ids.long()
     idx = torch.where(idx < 0, idx + v, idx)
     bad = (idx < 0) | (idx >= v)
-    out = F.embedding(idx.clamp(0, max(v - 1, 0)), weight)
+    safe = idx.clamp(0, max(v - 1, 0))
+    if sparse_grad and _records_sparse(weight):
+        out = _SparseEmbedding.apply(safe, weight)
+    else:
+        out = F.embedding(safe, weight)
     return out.masked_fill(bad.unsqueeze(-1), float("nan"))
+
+
+def _records_sparse(weight):
+    """Whether an embedding of ``weight`` records a row-sparse gradient:
+    the weight is differentiated, grad mode is on and no hybridized call
+    (plain scope) runs the forward."""
+    if not (weight.requires_grad and torch.is_grad_enabled()):
+        return False
+    from ..gluon.cached_graph import in_plain_scope
+    return not in_plain_scope()
+
+
+class _SparseEmbedding(torch.autograd.Function):
+    """``weight[idx]`` whose weight gradient is row-sparse: the call's ids
+    and the output's cotangent rows, nothing summed here (no host read).
+    Inside ``autograd.backward`` they go to the weight's sink, and the
+    backward concatenates every call's rows into one torch COO gradient
+    (the reference's ``sparse.add`` of its cotangents: k slots for k
+    rows); elsewhere (``autograd.grad``, a torch backward) they are a COO
+    gradient autograd sums itself."""
+
+    _first_order_only = True
+    _mx_name = "embedding(sparse_grad=True)"
+
+    @staticmethod
+    def forward(ctx, idx, weight):
+        ctx.save_for_backward(idx)
+        ctx.weight = weight
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        idx, = ctx.saved_tensors
+        ids, rows = idx.reshape(-1), dy.reshape(-1, dy.shape[-1])
+        sink = getattr(ctx.weight, "_mx_sink", None)
+        if sink is not None:
+            sink.append((ids, rows))
+            return None, None
+        return None, torch.sparse_coo_tensor(
+            ids.unsqueeze(0), rows, ctx.weight.shape, check_invariants=False)
 
 
 @_arrays

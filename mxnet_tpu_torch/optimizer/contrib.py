@@ -2,15 +2,16 @@
 
 Counterpart of ``mxnet_tpu/optimizer/contrib.py``: ``GroupAdaGrad``,
 AdaGrad with one history cell per row (the embedding-training optimizer:
-O(rows) state instead of O(elements)). Row-sparse gradients wait for
-sparse storage (ROADMAP.md Queue 1, item 9); a dense gradient updates
-every row.
+O(rows) state instead of O(elements)). A row-sparse gradient updates
+its rows only (it is lazy by construction, as in the reference); a dense
+gradient updates every row.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import MXNetError
+from ..ndarray.sparse import _rows_of, _set_rows
 from .optimizer import Optimizer, register
 
 __all__ = ["GroupAdaGrad"]
@@ -43,3 +44,18 @@ class GroupAdaGrad(Optimizer):
         g = self._prep_grad(g)
         hist.add_((g * g).mean(dim=1, keepdim=True))
         w.addcdiv_(g, hist.sqrt().add_(self.epsilon), value=-lr)
+
+    def _lazy_update_impl(self, index, w, rsp, hist, lr, wd):
+        """The rule on ``rsp``'s rows of the weight and the history
+        (reference: contrib.py ``_lazy_update_impl``, group_adagrad_update's
+        sparse path)."""
+        if wd != 0:
+            raise MXNetError("Weight decay is not supported for "
+                             "GroupAdaGrad")
+        idx = rsp.indices._data
+        g = self._prep_grad(rsp.data._data.to(w.dtype))
+        h_rows = _rows_of(hist, idx).add_((g * g).mean(dim=1, keepdim=True))
+        _set_rows(hist, idx, h_rows)
+        w_rows = _rows_of(w, idx).addcdiv_(g, h_rows.sqrt().add_(
+            self.epsilon), value=-lr)
+        _set_rows(w, idx, w_rows)

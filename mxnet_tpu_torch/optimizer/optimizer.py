@@ -35,8 +35,13 @@ calls that ``gluon.Trainer``'s ``_FusedUpdate`` runs for many parameters at
 once; each has its own, so a subclass never runs its parent's rule (the
 reference's ``_FusedUpdate`` takes ``type(opt)._rule``). NAG, Adamax,
 AdaBelief and Nadam write the rule once, over lists, and run one
-parameter as a list of one (``_update_one``). ``lazy_update=`` is
-accepted and does nothing on dense gradients, as in the reference;
+parameter as a list of one (``_update_one``). A ``RowSparseNDArray``
+gradient (``Embedding(sparse_grad=True)``) is densified, or, where
+``lazy_update`` is on, updates only its rows of the weight and the state
+(``_lazy_update_impl``: SGD with and without momentum, Adam, and
+``GroupAdaGrad``; the subclasses inherit their parent's, as in the
+reference, Adamax refusing; every other optimizer raises);
+``lazy_update=`` does nothing on dense gradients, as in the reference;
 ``SGLD`` draws its noise from its ``generator`` (a ``torch.Generator``)
 or the default generator of the weight's device.
 
@@ -61,6 +66,7 @@ import numpy as onp
 import torch
 
 from ..base import MXNetError
+from ..ndarray.sparse import RowSparseNDArray, _rows_of, _set_rows
 
 __all__ = ["Optimizer", "Test", "SGD", "NAG", "Signum", "SGLD", "Adam",
            "AdamW", "Adamax", "FTML", "AdaBelief", "Nadam", "AdaGrad",
@@ -187,10 +193,21 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):
-        """Update ``weight`` (and ``state``) in place from ``grad``."""
+        """Update ``weight`` (and ``state``) in place from ``grad``. A
+        ``RowSparseNDArray`` gradient updates only its rows where
+        ``lazy_update`` is on (:meth:`_lazy_update_impl`), and is
+        densified otherwise (reference: optimizer.py:157-170)."""
         self._update_count(index)
-        self._update_impl(index, weight, grad, state, self._get_lr(index),
-                          self._get_wd(index))
+        self._apply(index, weight, grad, state, self._get_lr(index),
+                    self._get_wd(index))
+
+    def _apply(self, index, w, grad, state, lr, wd):
+        if isinstance(grad, RowSparseNDArray):
+            if self.lazy_update:
+                self._lazy_update_impl(index, w, grad, state, lr, wd)
+                return
+            grad = grad.tostype("default")._data
+        self._update_impl(index, w, grad, state, lr, wd)
 
     @torch.no_grad()
     def update_multi_precision(self, index, weight, grad, state):
@@ -202,12 +219,25 @@ class Optimizer:
             return
         master, inner = state
         self._update_count(index)
-        self._update_impl(index, master, grad.to(torch.float32), inner,
-                          self._get_lr(index), self._get_wd(index))
+        grad = grad.astype(torch.float32) \
+            if isinstance(grad, RowSparseNDArray) else grad.to(torch.float32)
+        self._apply(index, master, grad, inner, self._get_lr(index),
+                    self._get_wd(index))
         weight.copy_(master)
 
     def _update_impl(self, index, w, g, state, lr, wd):
         raise NotImplementedError
+
+    #: whether a row-sparse gradient updates only its rows (the
+    #: optimizers that have a lazy rule take ``lazy_update=``)
+    lazy_update = False
+
+    def _lazy_update_impl(self, index, w, rsp, state, lr, wd):
+        """The rule on ``rsp``'s rows of ``w`` and the state only (reading
+        and writing those rows; sentinel slots write nothing)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no lazy sparse update; use "
+            "lazy_update=False to densify row_sparse gradients")
 
     def _prep_grads(self, gs):
         """:meth:`_prep_grad` over a list: new tensors."""
@@ -265,9 +295,11 @@ class SGD(Optimizer):
     ``w += mom`` (``w -= lr * g`` without momentum). State: the momentum
     buffer."""
 
-    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+    def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=False,
+                 **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -284,6 +316,20 @@ class SGD(Optimizer):
         mom.mul_(self.momentum).add_(g, alpha=-lr)
         w.add_(mom)
 
+    def _lazy_update_impl(self, index, w, rsp, mom, lr, wd):
+        """The rule on ``rsp``'s rows (reference: sgd.py lazy_update over
+        optimizer_op.cc SGDUpdateRspImpl), in the dense rule's ops."""
+        idx = rsp.indices._data
+        w_rows = _rows_of(w, idx)
+        g = self._prep_grad(rsp.data._data.to(w.dtype)).add_(w_rows,
+                                                             alpha=wd)
+        if mom is None:
+            _set_rows(w, idx, w_rows.add_(g, alpha=-lr))
+            return
+        m_rows = _rows_of(mom, idx).mul_(self.momentum).add_(g, alpha=-lr)
+        _set_rows(mom, idx, m_rows)
+        _set_rows(w, idx, w_rows.add_(m_rows))
+
     def _update_multi(self, ws, gs, moms, lr, wd, t):
         gs = _prep_multi(self, gs, ws, wd)
         if moms[0] is None:
@@ -299,12 +345,31 @@ class Adam(Optimizer):
     """Reference: optimizer/adam.py (adam_update). State: (mean, var)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update=False, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return (_zeros_like(weight), _zeros_like(weight))
+
+    def _lazy_update_impl(self, index, w, rsp, state, lr, wd):
+        """The rule on ``rsp``'s rows (reference: adam.py lazy_update over
+        AdamUpdateRspImpl): the m / v of the other rows stay."""
+        m, v = state
+        idx = rsp.indices._data
+        w_rows = _rows_of(w, idx)
+        g = self._prep_grad(rsp.data._data.to(w.dtype)).add_(w_rows,
+                                                             alpha=wd)
+        m_rows, v_rows = self._moments(g, (_rows_of(m, idx),
+                                           _rows_of(v, idx)))
+        t = self._t(index)
+        lr_t = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
+        w_rows.addcdiv_(m_rows, v_rows.sqrt().add_(self.epsilon),
+                        value=-lr_t)
+        _set_rows(m, idx, m_rows)
+        _set_rows(v, idx, v_rows)
+        _set_rows(w, idx, w_rows)
 
     _FUSED_FAMILY = "adam"
 
@@ -382,6 +447,20 @@ class NAG(SGD):
     momentum). Written over lists once; one parameter is a list of one."""
 
     _update_impl = Optimizer._update_one
+
+    def _lazy_update_impl(self, index, w, rsp, mom, lr, wd):
+        """The rule on ``rsp``'s rows (reference: sgd.py lazy_update over
+        optimizer_op.cc SGDUpdateRspImpl), in the dense rule's ops."""
+        idx = rsp.indices._data
+        w_rows = _rows_of(w, idx)
+        g = self._prep_grad(rsp.data._data.to(w.dtype)).add_(w_rows,
+                                                             alpha=wd)
+        if mom is None:
+            _set_rows(w, idx, w_rows.add_(g, alpha=-lr))
+            return
+        m_rows = _rows_of(mom, idx).mul_(self.momentum).add_(g, alpha=-lr)
+        _set_rows(mom, idx, m_rows)
+        _set_rows(w, idx, w_rows.add_(m_rows))
 
     def _update_multi(self, ws, gs, moms, lr, wd, t):
         gs = _prep_multi(self, gs, ws, wd)
@@ -468,6 +547,11 @@ class Adamax(Adam):
                          beta2=beta2, epsilon=epsilon, **kwargs)
 
     _update_impl = Optimizer._update_one
+
+    def _lazy_update_impl(self, index, w, rsp, state, lr, wd):
+        # Adam's row rule would misuse the infinity-norm state
+        raise NotImplementedError(
+            "Adamax has no lazy sparse update; use lazy_update=False")
 
     def _update_multi(self, ws, gs, states, lr, wd, t):
         gs = _prep_multi(self, gs, ws, wd)

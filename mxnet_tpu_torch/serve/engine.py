@@ -396,13 +396,16 @@ class _Step:
 
     def capture(self, stream, pool, generator):
         """Capture ``fn`` into ``pool`` on ``stream``: the steps of
-        ``torch.cuda.graph`` without its garbage collection and cache
-        emptying, which would cost every one of an engine's captures."""
+        ``torch.cuda.graph`` without its cache emptying, which would cost
+        every one of an engine's captures, and with the cyclic collector
+        paused (a dropped engine's graphs freed mid-capture would
+        invalidate it: ``cached_graph._gc_paused``)."""
+        from ..gluon.cached_graph import _gc_paused
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
         torch.cuda.synchronize(self.device)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), _gc_paused():
             graph.capture_begin(pool, capture_error_mode="thread_local")
             try:
                 out = self.fn(self.static_in)

@@ -3,7 +3,9 @@
 What only a card can show: a dead replica's graphs, their memory pool,
 its KV cache and its weights give their card memory back once its
 failover is done, so a crash-and-rebuild cycle ends holding one engine's
-reservation, not two; and a 2-replica fleet of CUDA-graph engines gives
+allocated bytes, not two (read as allocated bytes: the caching
+allocator keeps reserved segments that earlier tests left partly used,
+so the reservation need not fall back); and a 2-replica fleet of CUDA-graph engines gives
 one engine's greedy tokens request for request, with nothing captured
 after ``warmup()``. They skip without a card (decided in the
 ``cuda_device`` fixture). This file imports neither JAX nor the JAX
@@ -22,17 +24,17 @@ pytestmark = pytest.mark.cuda
 CFG = dict(vocab_size=16384, units=768, hidden_size=3072, num_layers=4,
            num_heads=12, max_length=256, dropout=0.0, embed_dropout=0.0)
 ENGINE_KW = dict(max_slots=4, buckets="8,16", temperature=0.0)
-#: the reservation after a sole replica's crash-and-rebuild over the one
-#: with that replica: the rebuilt replica's own plus at most this share of
-#: one engine's (the caching allocator's segment rounding), not two engines
+#: the allocated bytes after a sole replica's crash-and-rebuild over
+#: those with that replica: the rebuilt replica's own plus at most this
+#: share of one engine's, not two engines
 MEM_SLACK = 0.1
 
 
-def _reserved():
+def _allocated():
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return torch.cuda.memory_reserved()
+    return torch.cuda.memory_allocated()
 
 
 @pytest.fixture
@@ -63,11 +65,11 @@ def _prompts():
 
 
 def test_dead_replica_returns_its_card_memory(cuda_device):
-    bare = _reserved()
+    bare = _allocated()
     fleet = servefleet.ServeFleet(_factory, replicas=1, min_replicas=1,
                                   **ENGINE_KW)
     try:
-        one = _reserved()
+        one = _allocated()
         tmx.fault.configure("serve.replica_crash:at=2")
         frs = [fleet.submit(p, max_new_tokens=8, session=f"s{i}")
                for i, p in enumerate(_prompts())]
@@ -77,7 +79,7 @@ def test_dead_replica_returns_its_card_memory(cuda_device):
         assert states == ["dead", "live"]
         dead = [r for r in fleet._replicas.values() if r.state == "dead"][0]
         assert dead.engine._exe == {} and dead.engine._cache is None
-        after = _reserved()
+        after = _allocated()
         assert after <= one + MEM_SLACK * (one - bare), (bare, one, after)
     finally:
         fleet.close()

@@ -9,8 +9,9 @@ of ``sum(out * ct)`` with respect to the input and every parameter,
 at rtol 1e-5, atol 1e-5 (norms and deformable sampling through two
 op orders). ``ceil_mode=True`` pools as the reference does (the "valid"
 windows), ``Dropout(axes=)`` shares its draw along the axes,
-``Embedding(sparse_grad=True)`` still raises, and the GELU tanh form is
-held against its formula.
+``Embedding(sparse_grad=True)`` gives its weight the reference's
+row-sparse gradient type (since sparse storage is ported), and the GELU
+tanh form is held against its formula.
 """
 import numpy as onp
 import pytest
@@ -20,7 +21,6 @@ import mxnet_tpu as mx
 from mxnet_tpu.gluon import nn as jnn
 
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import nn as tnn
 
 torch.set_num_threads(2)
@@ -235,8 +235,12 @@ def test_dropout_axes_share_the_draw():
 
 
 def test_embedding_sparse_grad_still_raises():
-    with pytest.raises(MXNetError, match="item 9"):
-        tnn.Embedding(10, 4, sparse_grad=True, device="cpu")
+    """No longer raises (sparse storage is ported): the weight's gradient
+    storage type is the reference's "row_sparse"."""
+    got = tnn.Embedding(10, 4, sparse_grad=True, device="cpu")
+    want = jnn.Embedding(10, 4, sparse_grad=True)
+    assert got.weight._mx_param.grad_stype == "row_sparse" \
+        == want.weight._grad_stype
 
 
 def test_every_reference_layer_exists():

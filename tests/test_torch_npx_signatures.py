@@ -8,8 +8,8 @@ output_dim=, dtype=, sparse_grad=)`` and ``pooling``'s "sum" / "lp" pool
 types and ``pooling_convention`` values, each called with ``mx.np``
 arrays in both packages (on the CPU): the port returns ``ndarray``s of the
 reference's shape and dtype, with values within rtol 1e-5 + atol 1e-6
-(float32) and gradients likewise. ``sparse_grad=True`` raises on the port
-(sparse storage is not ported). ``npx.save`` in either package is read
+(float32) and gradients likewise. ``sparse_grad=True`` gives the same
+rows, and a recorded call the reference's row-sparse weight gradient. ``npx.save`` in either package is read
 by ``npx.load`` in the other, values and dtypes exactly.
 """
 import numpy as onp
@@ -140,9 +140,26 @@ def test_tensor_calls_return_tensors():
 
 
 def test_embedding_sparse_grad_raises():
-    with pytest.raises(tmx.MXNetError, match="sparse"):
-        tmx.npx.embedding(tmx.np.array([0, 1]), tmx.np.array(W),
-                          input_dim=4, output_dim=6, sparse_grad=True)
+    """No longer raises (sparse storage is ported): the rows are the
+    reference's, and a recorded call's weight gradient is row-sparse in
+    both packages, equal densified."""
+    got = {}
+    for pkg in (mx, tmx):
+        w = pkg.np.array(W)
+        w.attach_grad()
+        with pkg.autograd.record():
+            out = pkg.npx.embedding(pkg.np.array(onp.array([0, 3, 0],
+                                                           "int32")), w,
+                                    input_dim=4, output_dim=6,
+                                    sparse_grad=True)
+            loss = (out * out).sum()
+        loss.backward()
+        got[pkg.__name__] = (out.asnumpy(), w.grad)
+    onp.testing.assert_allclose(got["mxnet_tpu_torch"][0],
+                                got["mxnet_tpu"][0], rtol=1e-6)
+    tg, jg = got["mxnet_tpu_torch"][1], got["mxnet_tpu"][1]
+    assert tg.stype == jg.stype == "row_sparse"
+    onp.testing.assert_allclose(tg.asnumpy(), jg.asnumpy(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -8,7 +8,10 @@ loop (fp32, TF32 off: max |diff| within 1e-4 of max |plain| for values,
 not take it), fp16, the state clip and a capturing stream (the eager
 route); a hybridized LSTM layer (cuDNN inside the graphs) bit for bit
 against the eager cuDNN call, and a bf16 one (the plain loop inside the
-graphs) against its eager calls; ``topk`` and ``box_nms`` keeping tied scores in index order on the
+graphs) against its eager calls, each capturing beside the eager calls'
+live graphs; a 2 x 650 LSTM hybridized after a recorded eager call
+whose output is kept, its replayed gradients bit for bit the eager ones
+(on cuDNN and on the plain loop); ``topk`` and ``box_nms`` keeping tied scores in index order on the
 card; ``npx.multi_head_attention`` launching kernels 1-3 (one forward,
 one dK/dV and one dQ launch a call) and agreeing with the plain
 composition. They skip without a card (the ``cuda_device`` fixture).
@@ -98,7 +101,7 @@ def test_hybridized_lstm_matches_eager(cuda_device, dtype):
     net.cast(dtype)
     x = torch.randn(7, 5, 16, device=cuda_device, dtype=dtype)
     st = [torch.zeros(2, 5, 32, device=cuda_device, dtype=dtype)] * 2
-    outs = []
+    outs, held = [], []
     for hybrid in (False, True):
         net.hybridize(hybrid)
         for _ in range(2):
@@ -107,14 +110,39 @@ def test_hybridized_lstm_matches_eager(cuda_device, dtype):
                 out, (hn, cn) = net(xs, st)
                 loss = out.float().square().sum() + hn.float().sum()
             tmx.autograd.backward(loss)
-        # no graph of these calls outlives them: a capture's backward must
-        # not meet an eager graph's nodes over the same parameters
         outs.append([t.detach() for t in (out, hn, cn, xs.grad)]
                     + [net.l1_h2h_weight.grad.clone()])
-        del out, hn, cn, loss, xs
+        # the eager calls' graphs stay alive while the block captures
+        held.append((out, hn, cn, loss))
         net.zero_grad()
     for a, w in zip(outs[1], outs[0]):
         assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("cudnn", [True, False])
+def test_capture_beside_a_live_eager_graph(cuda_device, cudnn):
+    """The smallest input of the capture fault: one recorded eager call
+    of a 2 x 650 LSTM whose output (and so its graph) is kept, then
+    hybridize() and a recorded call; the replayed gradients equal the
+    eager ones bit for bit."""
+    with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+        net = tmx.gluon.rnn.LSTM(650, 2, input_size=650, device=cuda_device)
+        net.initialize(seed=21)
+        x = torch.randn(35, 20, 650, device=cuda_device)
+        grads = []
+        for hybrid in (False, True):
+            net.hybridize(hybrid)
+            with tmx.autograd.record():
+                out = net(x)
+                loss = out.square().sum()
+            tmx.autograd.backward(loss)
+            grads.append([p.grad().clone()
+                          for p in net.collect_params().values()])
+            if not hybrid:
+                kept = out     # the eager graph stays alive
+        assert kept.grad_fn is not None
+        for a, w in zip(grads[1], grads[0]):
+            assert torch.equal(a, w)
 
 
 def test_tied_scores_keep_index_order_on_the_card(cuda_device):

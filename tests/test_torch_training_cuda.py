@@ -7,7 +7,11 @@ same block unhybridized gives the CPU's; the fused families' fused
 update bit for bit with their per-parameter rule on the card; a small
 BERT's bf16 LAMB step (``multi_precision``, ``clip_global_norm``, the
 local kvstore) against the reference's rule in float64; the KVStore's
-2-bit compression bit for bit with the CPU's. They skip without a card
+2-bit compression bit for bit with the CPU's; a Dense stack hybridized
+after a recorded eager call whose output is kept (a capture beside a
+live eager graph over the same parameters), its replayed gradients bit
+for bit the eager ones; the cyclic collector paused through the
+captures. They skip without a card
 (decided in the ``cuda_device`` fixture). This file imports neither JAX
 nor the JAX package, so it runs on the card's machine with
 ``--noconftest``.
@@ -199,3 +203,67 @@ def test_hybridized_batchnorm_with_global_statistics_refuses_capture(
     with tmx.autograd.record():
         out = net(x)
     assert out.shape == (8, 4)
+
+
+def test_capture_beside_a_live_eager_graph(cuda_device):
+    """A hybridized Dense stack's first recorded call captures while an
+    eager graph over its parameters is alive; the replayed gradients (two
+    replays) equal the eager ones bit for bit."""
+    net = tmx.gluon.nn.HybridSequential()
+    net.add(tmx.gluon.nn.Dense(256, activation="relu", in_units=128,
+                               device=cuda_device),
+            tmx.gluon.nn.Dense(64, in_units=256, device=cuda_device))
+    net.initialize(seed=21)
+    x = torch.randn(32, 128, device=cuda_device)
+    grads, kept = [], []
+    for hybrid in (False, True, True):
+        net.hybridize(hybrid)
+        with tmx.autograd.record():
+            out = net(x)
+            loss = out.square().sum()
+        tmx.autograd.backward(loss)
+        grads.append([p.grad().clone()
+                      for p in net.collect_params().values()])
+        kept.append(out)       # every call's graph stays alive
+    assert kept[0].grad_fn is not None
+    for run in grads[1:]:
+        for a, w in zip(run, grads[0]):
+            assert torch.equal(a, w)
+
+
+
+def test_captures_run_with_the_cyclic_collector_paused(cuda_device):
+    """A hybridized block and its cached graphs form a reference cycle, so
+    a dropped block's CUDA graphs are freed by the cyclic collector; one
+    that ran during another block's capture would destroy a graph
+    executable mid-capture and invalidate that capture (a capture failed
+    so, now and then, in a process that had dropped hybridized blocks).
+    The warm-up and the captures run with the collector paused, and it
+    runs again after."""
+    import gc
+
+    class Probe(tmx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.dense = tmx.gluon.nn.Dense(8, in_units=16,
+                                            device=cuda_device)
+            self.seen = []
+
+        def forward(self, x):
+            self.seen.append(gc.isenabled())
+            return self.dense(x)
+
+    net = Probe()
+    net.initialize(seed=0)
+    x = torch.randn(4, 16, device=cuda_device)
+    want = net(x).clone()
+    net.hybridize()
+    with tmx.autograd.record():
+        loss = net(x).sum()
+    tmx.autograd.backward(loss)
+    assert torch.equal(net(x), want)
+    # eager, then the recorded and the plain signatures' warm-ups and
+    # captures: the collector paused in each
+    assert net.seen[0] is True and len(net.seen) == 5
+    assert not any(net.seen[1:])
+    assert gc.isenabled()
